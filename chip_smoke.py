@@ -1,0 +1,411 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from `tdc_tpu_torch/csrc/` and drives its
+main path, in-memory single-GPU f32 Lloyd K-Means through the CLI. Phases,
+each of which raises on failure (nothing is caught):
+
+1. Device: a CUDA card is required; prints its name and power limit.
+2. Build: nvcc builds the kernels; prints the build seconds.
+3. Kernel against plain: B1 at N=2^22, K=1024, d=128; B2 and B3 at the
+   large-K shape of phase 5. Each kernel is held to its plain PyTorch
+   version on the same inputs (tolerances below), run twice to check it
+   is bitwise repeatable, and timed with CUDA events. B3 runs on the
+   labels of the sorted route's first iteration (its timed case), on
+   balanced labels and on one heavy label, and is also held to
+   torch.segment_reduce, the library call that computes the same sums.
+   Duplicated centroids check the tie rule of B1, B2 and B3 on the card.
+4. Main path, fused route: the CLI at N=2^22, d=128, K=1024,
+   --kernel=pallas, 10 iterations; B1 must launch n_iter + 1 times per fit.
+5. Main path, sorted route: the CLI at K=16,384, d=768, --init=random,
+   past B1's limit, so B2 and B3 carry it (cuts listed at SORTED_ARGS).
+6. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
+   the plain labels.
+7. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
+   kernel="xla" fit from the same init give the same n_iter and
+   centroids within tolerance.
+
+Then it prints one JSON line with every kernel's numbers, the card's name
+and power limit, and as its last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Without a card it exits 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+from tdc_tpu_torch.cli import main as cli
+from tdc_tpu_torch.data import make_blobs
+from tdc_tpu_torch.models import kmeans_fit, kmeans_predict
+from tdc_tpu_torch.ops import _build
+from tdc_tpu_torch.ops import lloyd_kernels as lk
+from tdc_tpu_torch.ops import sorted_stats as ss
+from tdc_tpu_torch.ops.init import init_random
+
+# Published H100 SXM peaks (NVIDIA data sheet, 700 W): f32 on the CUDA
+# cores and HBM3 bandwidth. bound_ms is the larger of ops/peak and
+# bytes/bandwidth for the work one call needs.
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+# Tolerances (float32, different summation order than the plain version):
+# a sum of m terms carries error ≲ m·2^-24·Σ|terms|; over the cluster sizes
+# here 1e-5 of the absolute sum bounds it with room to spare.
+REL_TOL = 1e-5
+# A label may differ from the plain version's only at a near-tie: where
+# the two candidates' exact distances differ by less than this fraction
+# of the point's squared norm plus the centroid's (f32 matmul-form error).
+TIE_TOL = 1e-5
+
+B1_SHAPE = (1 << 22, 1024, 128)
+SORTED_N, SORTED_K, SORTED_D = 1 << 19, 16384, 768
+TIE_N = 1 << 16  # rows of the tie check, at both routes' K and d
+# The large-K regime of the JAX package (K=16,384, d=768) cut to one
+# card's time budget: N from 1e9 to 2^19 rows and 4 iterations (5 stats
+# calls per fit). --init=random because k-means++ would take 16,384
+# sequential rounds.
+SORTED_ARGS = [
+    "--method_name=distributedKMeans", f"--n_obs={SORTED_N}",
+    f"--n_dim={SORTED_D}", f"--K={SORTED_K}", "--kernel=pallas",
+    "--n_max_iters=4", "--tol=-1", "--seed=0", "--init=random",
+]
+MAIN_ARGS = [
+    "--method_name=distributedKMeans", f"--n_obs={B1_SHAPE[0]}",
+    f"--n_dim={B1_SHAPE[2]}", f"--K={B1_SHAPE[1]}", "--kernel=pallas",
+    "--n_max_iters=10", "--tol=-1", "--seed=0",
+]
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def median_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def blob_data(gen, n, k, d):
+    """Points around k well-separated centers, every center used: the
+    centers are the centroids, so no near-ties are expected."""
+    centers = (torch.rand((k, d), generator=gen, device="cuda") * 2 - 1) * 3
+    labels = torch.arange(n, device="cuda") % k
+    x = torch.randn((n, d), generator=gen, device="cuda") + centers[labels]
+    return x.contiguous(), centers.contiguous()
+
+
+def check_close(name, got, want, scale):
+    err = (got - want).abs()
+    bad = err > REL_TOL * scale + 1e-6
+    require(not bool(bad.any()),
+            f"{name}: {int(bad.sum())} entries beyond {REL_TOL}·scale "
+            f"(max err {float(err.max())})")
+    return float(err.max())
+
+
+def check_labels(name, x, c, got, want) -> int:
+    """Labels equal except at near-ties (TIE_TOL); returns the count of
+    near-tie differences."""
+    diff = (got != want).nonzero().flatten()
+    if diff.numel():
+        xd = x[diff].double()
+        dg = ((xd - c[got[diff].long()].double()) ** 2).sum(1)
+        dw = ((xd - c[want[diff].long()].double()) ** 2).sum(1)
+        scale = (xd * xd).sum(1) + (c.double() ** 2).sum(1).max()
+        far = ((dg - dw).abs() > TIE_TOL * scale).sum()
+        require(int(far) == 0, f"{name}: {int(far)} labels differ from the "
+                               "plain version beyond a near-tie")
+    return int(diff.numel())
+
+
+def repeatable(name, a, b) -> None:
+    for u, v in zip(a, b):
+        require(torch.equal(u, v), f"{name}: two runs differ bitwise")
+
+
+def phase_kernels(gen) -> dict:
+    """Phase 3: every kernel against its plain version at the main path's
+    shapes; returns the per-kernel numbers (without launches)."""
+    out = {}
+    n, k, d = B1_SHAPE
+    x, c = blob_data(gen, n, k, d)
+    got = lk.lloyd_stats_fused(x, c)
+    repeatable("B1", got, lk.lloyd_stats_fused(x, c))
+    want = lk.lloyd_stats_fused_plain(x, c)
+    require(torch.equal(got.counts, want.counts), "B1: counts differ")
+    abs_sums = torch.zeros_like(want.sums).index_add_(
+        0, lk.distance_argmin_plain(x, c)[0].long(), x.abs())
+    err = check_close("B1 sums", got.sums, want.sums, abs_sums)
+    check_close("B1 sse", got.sse, want.sse, want.sse.abs())
+    b_ms, b_by = bound_ms(2.0 * n * k * d + n * d,
+                          4.0 * (n * d + 2 * k * d + 2 * k + 1))
+    out["B1"] = dict(
+        max_abs_err=err,
+        ms=median_ms(lambda: lk.lloyd_stats_fused(x, c), 5),
+        plain_ms=median_ms(lambda: lk.lloyd_stats_fused_plain(x, c), 3),
+        bound_ms=b_ms, bound_by=b_by)
+    del x, c, got, want, abs_sums
+
+    n, k, d = SORTED_N, SORTED_K, SORTED_D
+    x, c = blob_data(gen, n, k, d)
+    lab, mind = lk.distance_argmin(x, c, return_dist=True)
+    repeatable("B2", (lab, mind), lk.distance_argmin(x, c, return_dist=True))
+    plab, pmind = lk.distance_argmin_plain(x, c, return_dist=True)
+    ties = check_labels("B2", x, c, lab, plab)
+    scale = (x * x).sum(1) + (c * c).sum(1).max()
+    err = check_close("B2 min", mind, pmind, scale)
+    slab, smind = lk.distance_argmin(x, c)
+    err = max(err, check_close("B2 shifted min", smind,
+                               lk.distance_argmin_plain(x, c)[1], scale))
+    require(torch.equal(slab, lab), "B2: shifted and true forms disagree")
+    b_ms, b_by = bound_ms(2.0 * n * k * d, 4.0 * (n * d + k * d + k) + 8.0 * n)
+    out["B2"] = dict(
+        max_abs_err=err, near_ties=ties,
+        ms=median_ms(lambda: lk.distance_argmin(x, c, return_dist=True), 5),
+        plain_ms=median_ms(
+            lambda: lk.distance_argmin_plain(x, c, return_dist=True), 3),
+        bound_ms=b_ms, bound_by=b_by)
+
+    balanced = lab  # every center owns n/k = 32 points
+    del x, c, lab, mind, plab, pmind, slab, smind, scale
+
+    # B3 on the labels of the sorted route's first iteration: the CLI's
+    # data (make_blobs(seed + 1)) and its --init=random centroids (seed),
+    # assigned by B2 — a skewed run-length distribution. Also timed on
+    # the balanced labels above and on a stated adversarial one: half the
+    # rows in label 0, the rest spread evenly.
+    x, _ = make_blobs(1, n, d, k, device="cuda")
+    c0 = init_random(torch.Generator(device="cuda").manual_seed(0), x, k)
+    cli_labels = lk.distance_argmin(x, c0)[0]
+    del c0
+    rows = torch.arange(n, device="cuda")
+    heavy = torch.where(rows < n // 2, 0, rows % k).to(torch.int32)
+    runs = {}
+    for name, labels in (("cli", cli_labels), ("balanced", balanced),
+                         ("one_heavy", heavy)):
+        keys, order = torch.sort(labels, stable=True)
+        starts = torch.searchsorted(
+            keys, torch.arange(k + 1, dtype=torch.int32, device="cuda")
+        ).to(torch.int32)
+        xs = x.index_select(0, order).contiguous()
+        got = ss.segment_sums(xs, starts)
+        repeatable("B3", (got,), (ss.segment_sums(xs, starts),))
+        want = ss.segment_sums_plain(xs, starts)
+        abs_sums = ss.segment_sums_plain(xs.abs(), starts)
+        err = check_close(f"B3 sums ({name})", got, want, abs_sums)
+        runs[name] = dict(
+            max_abs_err=err, xs=xs, starts=starts,
+            longest_run=int((starts[1:] - starts[:-1]).max()),
+            ms=median_ms(lambda: ss.segment_sums(xs, starts), 20))
+        del keys, order, got, want, abs_sums
+    main = runs["cli"]
+    xs, starts = main.pop("xs"), main.pop("starts")
+    # The library call for the same function (timed here only; the port
+    # never calls it), held to the kernel like the plain version.
+    offsets = starts.long()
+    lib = torch.segment_reduce(xs, "sum", offsets=offsets, axis=0)
+    check_close("B3 library", ss.segment_sums(xs, starts), lib,
+                ss.segment_sums_plain(xs.abs(), starts))
+    b_ms, b_by = bound_ms(float(n * d), 4.0 * (n * d + k + 1 + k * d))
+    out["B3"] = dict(
+        **main,
+        plain_ms=median_ms(lambda: ss.segment_sums_plain(xs, starts), 5),
+        library_ms=median_ms(
+            lambda: torch.segment_reduce(xs, "sum", offsets=offsets, axis=0),
+            5),
+        bound_ms=b_ms, bound_by=b_by,
+        other_labels={name: {key: runs[name][key] for key in
+                             ("ms", "longest_run", "max_abs_err")}
+                      for name in ("balanced", "one_heavy")})
+    return out
+
+
+def phase_ties(gen) -> None:
+    """Phase 3, ties: copies of centroid 3 at indices 5 (same K tile,
+    another lane), 67 (the same thread's tile for B2, the next tile for
+    B1), 200 (a later tile) and K-1 (the last, partial tile). Every tie
+    goes to the smallest index: labels equal the plain version's exactly,
+    no label lands on a copy, and the copies count 0 rows."""
+    for n, k, d in ((TIE_N, B1_SHAPE[1], B1_SHAPE[2]),
+                    (TIE_N, SORTED_K, SORTED_D)):
+        x, c = blob_data(gen, n, k, d)
+        copies = [5, 67, 200, k - 1]
+        c[copies] = c[3].clone()
+        lab = lk.distance_argmin(x, c)[0]
+        require(torch.equal(lab, lk.distance_argmin_plain(x, c)[0]),
+                f"ties (K={k}): B2 labels differ from the plain version's")
+        require(not bool(torch.isin(lab, torch.tensor(copies,
+                                                      device="cuda")).any()),
+                f"ties (K={k}): a label landed on a copy")
+        want = torch.bincount(lab.long(), minlength=k).to(torch.float32)
+        sums, counts = ss.sorted_cluster_stats(x, lab, k, pallas=True)
+        require(torch.equal(counts, want) and not bool(sums[copies].any()),
+                f"ties (K={k}): sorted stats (B3) count a copy")
+        if lk.fused_fits(k, d):
+            got = lk.lloyd_stats_fused(x, c)
+            require(torch.equal(got.counts, want),
+                    f"ties (K={k}): B1 counts differ from the tie rule's")
+        print(f"[ties] N={n} K={k} d={d}: copies {copies} of centroid 3 "
+              f"took 0 rows; labels equal the plain version's", flush=True)
+
+
+def reset_counts() -> None:
+    lk.lloyd_stats_fused.launches = 0
+    lk.distance_argmin.launches = 0
+    ss.segment_sums.launches = 0
+
+
+def counts() -> dict:
+    return {"B1": lk.lloyd_stats_fused.launches,
+            "B2": lk.distance_argmin.launches,
+            "B3": ss.segment_sums.launches}
+
+
+def run_cli(args, tmp, name) -> tuple[dict, dict]:
+    """Run the port's CLI with counts reset just before; returns (CSV row,
+    launch counts read just after)."""
+    log = os.path.join(tmp, f"{name}.csv")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main([*args, f"--log_file={log}"])
+    seen = counts()
+    require(rc == 0, f"{name}: CLI exited {rc}")
+    with open(log, newline="") as f:
+        row = list(csv.DictReader(f))[-1]
+    print(f"[{name}] {time.perf_counter() - t0:.1f} s, launches {seen}, "
+          f"row {json.dumps(row)}", flush=True)
+    require(row["status"] == "ok" and row["backend"] == "cuda",
+            f"{name}: row {row}")
+    sse = float(row["sse"])
+    require(sse == sse and sse >= 0.0, f"{name}: SSE {sse} not finite")
+    return row, seen
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    card = smi()
+    print(f"[device] {card}", flush=True)
+
+    kl = _build.load()
+    print(f"[build] {kl.build_seconds:.1f} s -> {kl.path.name}", flush=True)
+    for line in kl.log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print(f"[build] {line.strip()}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    numbers = phase_kernels(gen)
+    print(f"[kernels] {json.dumps(numbers)}", flush=True)
+    phase_ties(gen)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        row, seen = run_cli(MAIN_ARGS, tmp, "fused_route")
+        n_iter = int(row["n_iter"])
+        require(n_iter == 10, f"fused route ran {n_iter} iterations")
+        # Two fits (initialization and computation), n_iter + 1 stats each.
+        require(seen["B1"] == 2 * (n_iter + 1) and seen["B2"] == 0
+                and seen["B3"] == 0, f"fused route launches {seen}")
+        numbers["B1"]["launches"] = seen["B1"]
+
+        row, seen = run_cli(SORTED_ARGS, tmp, "sorted_route")
+        n_iter = int(row["n_iter"])
+        require(seen["B1"] == 0 and seen["B2"] == 2 * (n_iter + 1)
+                and seen["B3"] == 2 * (n_iter + 1),
+                f"sorted route launches {seen}")
+        numbers["B2"]["launches"] = seen["B2"]
+        numbers["B3"]["launches"] = seen["B3"]
+
+    # Phase 6: predict with B2 on 2^20 points.
+    x, c = blob_data(gen, 1 << 20, SORTED_K, SORTED_D)
+    before = lk.distance_argmin.launches
+    lab = kmeans_predict(x, c, kernel="pallas")
+    require(lk.distance_argmin.launches == before + 1, "predict: no B2 launch")
+    ties = check_labels("predict", x, c, lab,
+                        lk.distance_argmin_plain(x, c)[0])
+    print(f"[predict] N={x.shape[0]} labels equal the plain version's "
+          f"except {ties} near-ties", flush=True)
+    del x, c, lab
+
+    # Phase 7: whole fit, kernel against plain, same init.
+    x, c = blob_data(gen, 1 << 16, B1_SHAPE[1], B1_SHAPE[2])
+    init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
+    fits = {kern: kmeans_fit(x, c.shape[0], init=init, max_iters=50,
+                             tol=1e-4, kernel=kern)
+            for kern in ("pallas", "xla")}
+    a, b = fits["pallas"], fits["xla"]
+    require(a.n_iter == b.n_iter and a.converged == b.converged,
+            f"fit parity: n_iter {a.n_iter} vs {b.n_iter}")
+    cerr = (a.centroids - b.centroids).abs().max().item()
+    require(cerr <= 1e-4, f"fit parity: centroids differ by {cerr}")
+    print(f"[fit] N=65536 K=1024 d=128: n_iter {a.n_iter} == {b.n_iter}, "
+          f"converged {a.converged}, max centroid diff {cerr:.3g}, sse "
+          f"{float(a.sse):.8g} vs {float(b.sse):.8g}", flush=True)
+
+    src = "tdc_tpu_torch/csrc/"
+    meta = {
+        "B1": ("lloyd_stats_fused", src + "lloyd_kernels.cu",
+               "tdc_tpu/ops/pallas_kernels.py:484"),
+        "B2": ("distance_argmin", src + "lloyd_kernels.cu",
+               "tdc_tpu/ops/pallas_kernels.py:226"),
+        "B3": ("segment_sums", src + "segment_sums.cu",
+               "tdc_tpu/ops/sorted_stats.py:134"),
+    }
+    kernels = []
+    for key, (name, source, replaces) in meta.items():
+        m = numbers[key]
+        require(m["launches"] > 0, f"{key} never launched on the main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": m["launches"],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

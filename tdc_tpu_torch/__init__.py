@@ -1,0 +1,50 @@
+"""tdc_tpu_torch — the PyTorch/CUDA port of `tdc_tpu` for NVIDIA Hopper.
+
+Module paths mirror `tdc_tpu/`, so each file names its JAX counterpart.
+The port imports `torch` and `numpy` only: nothing of JAX and nothing of
+`tdc_tpu`. Every TPU kernel on the ported path is a hand-written CUDA
+kernel under `csrc/`, built with `nvcc` at first use (ops/_build.py).
+
+Numerics are float32 throughout. The package turns TF32 off for matrix
+products and convolutions when `tdc_tpu_torch.utils.device` is imported
+(every entry point does), so a plain f32 matmul on the card keeps full
+f32 precision like the JAX package's HIGHEST-precision dots.
+
+Entry points take `device=None`, which means "cuda"; with no card they
+raise instead of falling back to the CPU. Pass `device="cpu"` to run the
+plain PyTorch versions of the kernels on the CPU (the tests do).
+
+The public names resolve lazily (PEP 562): `import tdc_tpu_torch` does
+not import torch.
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "KMeansResult": ("tdc_tpu_torch.models.kmeans", "KMeansResult"),
+    "kmeans_fit": ("tdc_tpu_torch.models.kmeans", "kmeans_fit"),
+    "kmeans_predict": ("tdc_tpu_torch.models.kmeans", "kmeans_predict"),
+    "kmeans_state_from_numpy": ("tdc_tpu_torch.convert",
+                                "kmeans_state_from_numpy"),
+    "to_numpy": ("tdc_tpu_torch.convert", "to_numpy"),
+}
+
+__all__ = [*_LAZY, "__version__"]
+
+
+def __getattr__(name: str):
+    try:
+        module, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}"
+        ) from None
+    import importlib
+
+    value = getattr(importlib.import_module(module), attr)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(__all__)

@@ -1,0 +1,219 @@
+"""Experiment CLI — the reference-parity subset of tdc_tpu/cli/main.py
+for in-memory, single-GPU Lloyd K-Means.
+
+Same flags (where ported), the same three timed phases (setup; a first fit
+counted as initialization; a warm re-fit counted as computation), the
+same CSV row and the same summary line, with `backend` = 'cuda' or 'cpu'.
+Errors land in the CSV as an error row and exit 1. Unlike the JAX CLI
+there is no OOM-adaptive retry: an out-of-memory error is reported, not
+retried (the streamed driver it would fall back to is not ported yet).
+
+Run: python -m tdc_tpu_torch.cli.main --method_name=distributedKMeans \
+     --n_obs=4194304 --n_dim=128 --K=1024 --kernel=pallas --log_file=log.csv
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+METHOD_NAMES = ("distributedKMeans",)
+# Methods of the JAX CLI that the port has not reached yet.
+_LATER_METHODS = {
+    "distributedFuzzyCMeans": "Queue A, A6",
+    "gaussianMixture": "Queue A, A8",
+    "bisectingKMeans": "Queue A, A8",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="tdc_tpu_torch",
+        description="K-Means on one NVIDIA GPU (PyTorch + CUDA kernels)",
+    )
+    p.add_argument("--n_obs", type=int, default=None,
+                   help="number of observations (generates synthetic data "
+                        "unless --data_file is given)")
+    p.add_argument("--n_dim", type=int, default=None, help="dimensionality")
+    p.add_argument("--K", type=int, required=True, help="number of clusters")
+    p.add_argument("--n_GPUs", "--n_devices", dest="n_devices", type=int,
+                   default=None, help="devices to use (must be 1)")
+    p.add_argument("--n_max_iters", type=int, default=20,
+                   help="iteration cap (reference default 20)")
+    p.add_argument("--seed", type=int, default=123128,
+                   help="seed of the data and init generators")
+    p.add_argument("--log_file", type=str, default=None,
+                   help="append-only results CSV (header auto-created)")
+    p.add_argument("--method_name", type=str, default="distributedKMeans")
+    p.add_argument("--data_file", type=str, default=None,
+                   help=".npz (keys X,Y) or .npy points file")
+    p.add_argument("--tol", type=float, default=1e-4,
+                   help="centroid-shift tolerance; negative = exactly "
+                        "n_max_iters iterations (reference parity)")
+    p.add_argument("--init", type=str, default="kmeans++",
+                   choices=("kmeans++", "random", "first_k"))
+    p.add_argument("--kernel", type=str, default=None,
+                   choices=("xla", "pallas", "refined", "auto"),
+                   help="sufficient-stats path: 'xla' = plain PyTorch ops "
+                        "(default); 'pallas' = the hand-written CUDA "
+                        "kernels (B1 fused, or B2 + B3 sorted past the "
+                        "fused limit); 'refined' = exact-distance champion "
+                        "refinement; 'auto' = pallas on CUDA, xla on CPU")
+    p.add_argument("--spherical", action="store_true",
+                   help="cosine K-Means (normalize points and centroids)")
+    p.add_argument("--empty_policy", type=str, default="keep",
+                   choices=("keep", "relocate"))
+    p.add_argument("--dtype", type=str, default="float32",
+                   help="point dtype (float32 only in this slice)")
+    p.add_argument("--class_sep", type=float, default=1.5)
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=("cuda", "cpu"),
+                   help="'cuda' (default; fails without a card) or 'cpu' "
+                        "(plain PyTorch versions of the kernels)")
+    p.add_argument("--run_log", type=str, default=None,
+                   help="append structured JSONL run events here")
+    return p
+
+
+def validate_args(parser, args) -> None:
+    if args.method_name in _LATER_METHODS:
+        parser.error(f"--method_name={args.method_name} is not ported yet "
+                     f"(ROADMAP.md {_LATER_METHODS[args.method_name]})")
+    if args.method_name not in METHOD_NAMES:
+        parser.error(f"unknown --method_name {args.method_name!r}")
+    if args.data_file is None and (args.n_obs is None or args.n_dim is None):
+        parser.error("either --data_file or both --n_obs and --n_dim "
+                     "required")
+    if args.data_file is not None and not os.path.exists(args.data_file):
+        parser.error(f"data file does not exist: {args.data_file}")
+    for name in ("K", "n_max_iters"):
+        if getattr(args, name) < 1:
+            parser.error(f"--{name} must be >= 1")
+    if args.n_obs is not None and args.n_obs < args.K:
+        parser.error("--n_obs must be >= --K")
+    if args.n_devices is not None and args.n_devices != 1:
+        parser.error("--n_GPUs must be 1: multi-GPU data parallel is not "
+                     "ported yet (ROADMAP.md Queue A, A4)")
+    if args.dtype != "float32":
+        parser.error(f"--dtype {args.dtype} is not ported yet (float32 "
+                     "only; ROADMAP.md Queue B, B5)")
+
+
+def run_experiment(args) -> dict:
+    """Load/generate data, fit twice (initialization, computation), and
+    return the result row dict."""
+    import numpy as np
+    import torch
+
+    from tdc_tpu_torch.data import load_points, make_blobs
+    from tdc_tpu_torch.models import kmeans_fit
+    from tdc_tpu_torch.utils.device import resolve_device
+    from tdc_tpu_torch.utils.timing import PhaseTimers
+
+    timers = PhaseTimers()
+    with timers.phase("setup") as out:
+        dev = resolve_device(args.device)
+        if args.data_file:
+            x, _ = load_points(args.data_file)
+            x = torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+        else:
+            x, _ = make_blobs(args.seed + 1, args.n_obs, args.n_dim,
+                              max(args.K, 2), class_sep=args.class_sep,
+                              device=dev)
+        n_obs, n_dim = x.shape
+        out["block_on"] = x
+
+    def fit():
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        return kmeans_fit(
+            x, args.K, init=args.init, generator=gen,
+            max_iters=args.n_max_iters, tol=args.tol,
+            spherical=args.spherical, kernel=args.kernel or "xla",
+            empty_policy=args.empty_policy, device=dev,
+        )
+
+    # Initialization = the first fit, including the kernels' first-use
+    # build; computation = a warm re-fit, what steady-state clustering
+    # costs.
+    with timers.phase("initialization") as out:
+        result = fit()
+        out["block_on"] = result.centroids
+    with timers.phase("computation") as out:
+        result = fit()
+        out["block_on"] = result.centroids
+
+    n_devices = 1
+    n_iter = int(result.n_iter)
+    comp = timers.get("computation")
+    pps = (n_obs * n_iter / comp / n_devices) if comp > 0 else float("inf")
+    return {
+        "method_name": args.method_name,
+        "seed": args.seed,
+        "num_GPUs": n_devices,
+        "K": args.K,
+        "n_obs": n_obs,
+        "n_dim": n_dim,
+        "setup_time": round(timers.get("setup"), 6),
+        "initialization_time": round(timers.get("initialization"), 6),
+        "computation_time": round(comp, 6),
+        "n_iter": n_iter,
+        "n_iter_run": n_iter,
+        "backend": dev.type,
+        "n_chips": n_devices,
+        "points_per_sec_per_chip": round(pps, 1),
+        "sse": float(result.sse),
+        "converged": bool(result.converged),
+        "num_batches": 1,
+        "tol": args.tol,
+        "kernel": args.kernel or "",
+        "status": "ok",
+    }
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    validate_args(parser, args)
+
+    from tdc_tpu_torch.utils.logging import append_result_row, error_row
+    from tdc_tpu_torch.utils.structlog import RunLog
+
+    runlog = RunLog(args.run_log)
+    runlog.event("run_start", method=args.method_name, K=args.K,
+                 n_obs=args.n_obs, n_dim=args.n_dim, seed=args.seed,
+                 n_devices=args.n_devices)
+    base = {
+        "method_name": args.method_name,
+        "seed": args.seed,
+        "num_GPUs": args.n_devices or "",
+        "n_chips": args.n_devices or "",
+        "K": args.K,
+        "n_obs": args.n_obs or "",
+        "n_dim": args.n_dim or "",
+        "num_batches": 1,
+    }
+    try:
+        row = run_experiment(args)
+    except Exception as e:  # reference :362-377: capture into the CSV, exit 1
+        if args.log_file:
+            append_result_row(args.log_file, error_row(base, e))
+        runlog.event("run_error", error=type(e).__name__, message=str(e)[:500])
+        print(f"FAILED: {type(e).__name__}: {e}", file=sys.stderr)
+        return 1
+    if args.log_file:
+        append_result_row(args.log_file, row)
+    runlog.event("run_ok", **{k: row[k] for k in
+                              ("n_iter", "sse", "converged", "computation_time",
+                               "points_per_sec_per_chip", "num_batches")})
+    print(
+        f"{row['method_name']}: n_iter={row['n_iter']} "
+        f"sse={row['sse']:.6g} converged={row['converged']} "
+        f"computation_time={row['computation_time']}s "
+        f"({row['points_per_sec_per_chip']:.3g} pt·iter/s/chip)"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,324 @@
+"""Lloyd K-Means (counterpart: tdc_tpu/models/kmeans.py).
+
+The JAX package traces the whole loop into one `lax.while_loop`. Here the
+loop runs on the host and every iteration's work stays on the device; the
+host reads the scalar centroid shift once per iteration, and only when a
+tolerance is set. The semantics are the JAX package's:
+
+- tol < 0 runs exactly max_iters iterations;
+- the final SSE is recomputed at the returned centroids, so a fit makes
+  n_iter + 1 stats calls;
+- converged = shift <= max(tol, 0) and n_iter > 0.
+
+Supported in this slice: layout='samples', no mesh, no sample weights,
+float32 inputs, kernel in {'xla', 'refined', 'pallas', 'auto'}. The rest
+raises NotImplementedError naming the ROADMAP.md item that ports it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tdc_tpu_torch.ops.assign import (
+    apply_centroid_update,
+    assign_clusters,
+    lloyd_stats,
+    lloyd_stats_padded_blocked,
+    lloyd_stats_refined,
+)
+from tdc_tpu_torch.ops.distance import pairwise_sq_dist
+from tdc_tpu_torch.ops.init import init_first_k, init_kmeans_pp, init_random
+from tdc_tpu_torch.utils.device import resolve_device
+
+
+class KMeansResult(NamedTuple):
+    centroids: torch.Tensor  # (K, d) float32
+    n_iter: int  # iterations run
+    sse: torch.Tensor  # () float32 — SSE at the returned centroids
+    shift: torch.Tensor  # () float32 — last max centroid movement (L2)
+    converged: bool
+    # (n_iter, 2) numpy [sse, shift] per iteration when history=True: row i
+    # is the cost at the iteration's input centroids and its shift.
+    history: object = None
+    # Iterations executed by THIS fit call (None = same as n_iter).
+    n_iter_run: object = None
+
+
+def _normalize(c: torch.Tensor) -> torch.Tensor:
+    return c / torch.clamp_min(torch.linalg.norm(c, dim=-1, keepdim=True),
+                               1e-12)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to tdc_tpu_torch yet (ROADMAP.md {item})")
+
+
+def _stats_fn(kernel: str, block_rows: int, k: int, d: int):
+    if kernel == "xla":
+        if block_rows:
+            return lambda x, c: lloyd_stats_padded_blocked(x, c, block_rows)
+        return lloyd_stats
+    if kernel == "refined":
+        if block_rows:
+            return lambda x, c: lloyd_stats_padded_blocked(
+                x, c, block_rows, lloyd_stats_refined)
+        return lloyd_stats_refined
+    if kernel == "pallas":
+        # The CUDA kernel route, decided once per fit (one event).
+        from tdc_tpu_torch.ops.lloyd_kernels import lloyd_stats_for
+
+        return lloyd_stats_for(k, d, label="kmeans_fit")
+    if kernel in ("pallas_bf16", "auto:quantized"):
+        raise _not_ported(f"kernel={kernel!r}", "Queue B, B5")
+    if kernel == "tall":
+        raise _not_ported("kernel='tall'", "Queue B, B10")
+    raise ValueError(
+        f"unknown kernel {kernel!r} (use 'xla', 'refined', 'pallas' or "
+        "'auto')")
+
+
+def _device_memory_bytes(device: torch.device) -> int:
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return 16 << 30
+
+
+def auto_block_rows(n: int, k: int, *, budget_bytes: int | None = None,
+                    device=None) -> int:
+    """N-block size so the (block, K) f32 intermediates of the plain stats
+    stay within a memory budget; 0 = no blocking needed."""
+    if budget_bytes is None:
+        budget_bytes = _device_memory_bytes(torch.device(device or "cpu"))
+    # Working set ≈ 2 (N, K) f32 buffers (distances + one-hot).
+    if 8 * n * k <= 0.3 * budget_bytes:
+        return 0
+    block = int(0.15 * budget_bytes / (8 * k))
+    return max(1 << max(block.bit_length() - 1, 10), 1024)  # pow2, ≥1024
+
+
+def _blocked_min_dist(x, c, block_rows: int) -> torch.Tensor:
+    """(N,) squared distance of every point to its nearest centroid,
+    N-blocked so the (block, K) distance tile stays bounded."""
+    if not block_rows or x.shape[0] <= block_rows:
+        return pairwise_sq_dist(x, c).min(dim=1).values
+    return torch.cat([
+        pairwise_sq_dist(x[s:s + block_rows], c).min(dim=1).values
+        for s in range(0, x.shape[0], block_rows)
+    ])
+
+
+def _relocate_empty(x, new_c, counts, block_rows: int) -> torch.Tensor:
+    """sklearn-style empty-cluster relocation: every zero-count centroid is
+    replaced by a distinct highest-cost point (largest squared distance to
+    its nearest UPDATED centroid); the i-th empty slot takes the i-th
+    costliest point. The cost pass runs only when a cluster is empty."""
+    k = new_c.shape[0]
+    empty = counts <= 0.0
+    if not bool(empty.any()):
+        return new_c
+    if not block_rows:
+        block_rows = auto_block_rows(int(x.shape[0]), k, device=x.device)
+    mind = _blocked_min_dist(x, new_c, block_rows)
+    top = torch.topk(mind, min(k, x.shape[0]), sorted=True).indices
+    rank = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0,
+                       top.shape[0] - 1)
+    cand = x[top].to(torch.float32)
+    return torch.where(empty[:, None], cand[rank], new_c)
+
+
+def _lloyd_loop(
+    x: torch.Tensor,
+    init_centroids: torch.Tensor,
+    max_iters: int,
+    tol: float,
+    spherical: bool,
+    kernel: str = "xla",
+    block_rows: int = 0,
+    history: bool = False,
+    empty_policy: str = "keep",
+) -> KMeansResult:
+    """The Lloyd iteration. tol < 0 disables the convergence test;
+    history=True records (sse, shift) per iteration on the device."""
+    stats_fn = _stats_fn(kernel, block_rows, *init_centroids.shape)
+    c = init_centroids.to(torch.float32)
+    if spherical:
+        c = _normalize(c)
+    hist = (torch.full((max_iters, 2), float("nan"), device=x.device)
+            if history else None)
+    shift = torch.tensor(float("inf"), device=x.device)
+    n_iter = 0
+    while n_iter < max_iters:
+        stats = stats_fn(x, c)
+        new_c = apply_centroid_update(stats, c)
+        if spherical:
+            new_c = _normalize(new_c)
+        if empty_policy == "relocate":
+            new_c = _relocate_empty(x, new_c, stats.counts, block_rows)
+            if spherical:
+                new_c = _normalize(new_c)
+        shift = torch.linalg.norm(new_c - c, dim=-1).max()
+        if history:
+            hist[n_iter, 0] = stats.sse
+            hist[n_iter, 1] = shift
+        c = new_c
+        n_iter += 1
+        if tol >= 0 and not float(shift) > tol:
+            break
+    # The loop's SSE is measured before the last update: recompute it once
+    # so the reported SSE matches the returned centroids.
+    final_sse = stats_fn(x, c).sse
+    return KMeansResult(
+        centroids=c,
+        n_iter=n_iter,
+        sse=final_sse,
+        shift=shift,
+        converged=bool(float(shift) <= max(tol, 0.0) and n_iter > 0),
+        history=hist[:n_iter].cpu().numpy() if history else None,
+    )
+
+
+def resolve_init(x: torch.Tensor, k: int, init, generator) -> torch.Tensor:
+    """Turn an init spec ('first_k' | 'random' | 'kmeans++' | array) into
+    (K, d) float32 centroids on x's device."""
+    if not isinstance(init, str):
+        c = torch.as_tensor(np.asarray(init) if not isinstance(
+            init, torch.Tensor) else init).to(x.device, torch.float32)
+        if c.shape[0] != k:
+            raise ValueError(
+                f"init centroids have {c.shape[0]} rows, expected K={k}")
+        return c
+    if init == "first_k":
+        return init_first_k(x, k)
+    if init in ("kmeans||", "k-means||", "kmeans_parallel"):
+        raise _not_ported(f"init={init!r}", "Queue A, A8")
+    if generator.device.type != x.device.type:
+        raise ValueError(
+            f"the generator lives on {generator.device}, the points on "
+            f"{x.device}; seed a generator on the points' device")
+    if init == "random":
+        return init_random(generator, x, k)
+    if init in ("kmeans++", "k-means++"):
+        return init_kmeans_pp(generator, x, k)
+    raise ValueError(f"unknown init: {init!r}")
+
+
+def _as_points(x, device: torch.device) -> torch.Tensor:
+    x = torch.as_tensor(x)
+    if x.dtype == torch.bfloat16:
+        raise _not_ported("bfloat16 inputs", "Queue B, B5")
+    if not x.is_floating_point():
+        raise TypeError(f"points must be floating point, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"points must be (N, d), got {tuple(x.shape)}")
+    return x.to(device=device, dtype=torch.float32).contiguous()
+
+
+def kmeans_fit(
+    x,
+    k: int,
+    *,
+    init="kmeans++",
+    generator: torch.Generator | None = None,
+    max_iters: int = 20,
+    tol: float = 1e-4,
+    spherical: bool = False,
+    mesh=None,
+    kernel: str = "xla",
+    sample_weight=None,
+    n_init: int = 1,
+    layout: str = "samples",
+    history: bool = False,
+    empty_policy: str = "keep",
+    device=None,
+) -> KMeansResult:
+    """Fit K-Means.
+
+    Args:
+      x: (N, d) points (numpy or torch), converted to float32 on `device`.
+      k: number of clusters.
+      init: 'kmeans++', 'random', 'first_k', or an explicit (K, d) array.
+      generator: torch.Generator on `device` for the stochastic inits
+        (default: one seeded with 0).
+      max_iters: iteration cap; tol: center-shift tolerance (negative =
+        exactly max_iters iterations).
+      spherical: cosine K-Means (points and centroids L2-normalized).
+      kernel: 'xla' (plain PyTorch ops), 'refined' (exact-distance champion
+        refinement), 'pallas' (the CUDA kernels: B1 fused, or B2 + B3
+        sorted past the fused limit) or 'auto' (pallas on CUDA, xla on
+        the CPU).
+      n_init: restarts for stochastic inits; the lowest final SSE wins.
+      history: also return (sse, shift) per iteration.
+      empty_policy: 'keep' (an empty cluster keeps its centroid) or
+        'relocate' (sklearn parity: reseed from the costliest points).
+      device: None means 'cuda'; 'cpu' runs the plain versions.
+    """
+    if mesh is not None:
+        raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
+    if sample_weight is not None:
+        raise _not_ported("sample_weight (weighted fits)", "Queue B, B4")
+    if layout != "samples":
+        if layout == "features":
+            raise _not_ported("layout='features'", "Queue B, B10")
+        raise ValueError(f"unknown layout {layout!r}")
+    if empty_policy not in ("keep", "relocate"):
+        raise ValueError(f"unknown empty_policy {empty_policy!r}")
+    dev = resolve_device(device)
+    x = _as_points(x, dev)
+    n, d = x.shape
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    stochastic = isinstance(init, str) and init != "first_k"
+    if n_init > 1 and stochastic:
+        best = None
+        for _ in range(n_init):
+            res = kmeans_fit(
+                x, k, init=init, generator=generator, max_iters=max_iters,
+                tol=tol, spherical=spherical, kernel=kernel, n_init=1,
+                history=history, empty_policy=empty_policy, device=dev,
+            )
+            if best is None or float(res.sse) < float(best.sse):
+                best = res
+        return best
+    if kernel.startswith("auto"):
+        from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
+
+        kernel = resolve_kernel(kernel, k=k, d=d, device=dev,
+                                label="kmeans_fit")
+    block_rows = (auto_block_rows(n, k, device=dev)
+                  if kernel in ("xla", "refined") else 0)
+    if spherical:
+        x = _normalize(x)
+    c_init = resolve_init(x, k, init, generator)
+    return _lloyd_loop(x, c_init, int(max_iters), float(tol),
+                       bool(spherical), kernel, block_rows, bool(history),
+                       empty_policy)
+
+
+def kmeans_predict(x, centroids, *, spherical: bool = False,
+                   kernel: str = "auto", device=None) -> torch.Tensor:
+    """Per-point cluster labels (N,) int32.
+
+    kernel: 'xla', 'pallas' (B2, the blockwise distance-argmin kernel: no
+    (N, K) buffer), or 'auto' — pallas on CUDA once the (N, K) matrix
+    would pass 1 GiB, as the JAX version does on a TPU.
+    """
+    dev = resolve_device(device)
+    x = _as_points(x, dev)
+    if spherical:
+        x = _normalize(x)
+    c = torch.as_tensor(centroids).to(dev, torch.float32).contiguous()
+    if kernel.startswith("auto"):
+        big = 4 * x.shape[0] * c.shape[0] > (1 << 30)
+        kernel = "pallas" if (dev.type == "cuda" and big) else "xla"
+    if kernel == "pallas":
+        from tdc_tpu_torch.ops.lloyd_kernels import distance_argmin
+
+        return distance_argmin(x, c)[0]
+    if kernel != "xla":
+        raise ValueError(f"unknown kernel {kernel!r} (use 'xla', 'pallas' "
+                         "or 'auto')")
+    return assign_clusters(x, c)

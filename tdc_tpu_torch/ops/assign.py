@@ -1,0 +1,141 @@
+"""Assignment + Lloyd sufficient statistics (counterpart:
+tdc_tpu/ops/assign.py:26-333).
+
+The stats contraction is the JAX package's one-hot matmul:
+one_hot(assign, K)ᵀ @ x gives the (K, d) per-cluster sums and the one-hot
+column sums give the counts. A matmul sums in a fixed order, so the XLA
+twin stays bitwise repeatable on the card (an `index_add_` would use
+float atomics there). Empty clusters keep their previous centroid
+(`apply_centroid_update`).
+
+The fuzzy and weighted parts of the JAX module are not ported yet
+(ROADMAP.md, Queue A).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from tdc_tpu_torch.ops.distance import pairwise_sq_dist
+
+
+class SufficientStats(NamedTuple):
+    """Lloyd sufficient statistics."""
+
+    sums: torch.Tensor  # (K, d) Σx per cluster, f32
+    counts: torch.Tensor  # (K,) points per cluster, f32
+    sse: torch.Tensor  # () sum of min squared distances, f32
+
+
+def assign_clusters(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Hard assignment: argmin over squared distances, smallest index on
+    ties (int32)."""
+    return torch.argmin(pairwise_sq_dist(x, centroids), dim=-1).to(torch.int32)
+
+
+def cluster_stats(
+    x: torch.Tensor, assign: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Σx per cluster (K, d), counts (K,)) from a precomputed assignment,
+    via the one-hot matmul (exact one-hot, f32 accumulation)."""
+    one_hot = F.one_hot(assign.long(), k).to(torch.float32)  # (N, K)
+    sums = one_hot.T @ x.float()
+    counts = one_hot.sum(dim=0)
+    return sums, counts
+
+
+def lloyd_stats(x: torch.Tensor, centroids: torch.Tensor) -> SufficientStats:
+    """Distance → argmin → one-hot-matmul sufficient stats."""
+    d2 = pairwise_sq_dist(x, centroids)
+    mind, assign = torch.min(d2, dim=-1)
+    sums, counts = cluster_stats(x, assign, centroids.shape[0])
+    return SufficientStats(sums=sums, counts=counts, sse=mind.sum())
+
+
+def assign_refined(
+    x: torch.Tensor, centroids: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(labels, exact min d²) with exact-distance champion refinement: the
+    matmul form nominates the top-2 centroids per point and the exact
+    subtract-square form picks the winner among them."""
+    xf = x.float()
+    cf = centroids.float()
+    if cf.shape[0] == 1:
+        diff = xf - cf[0]
+        return (
+            torch.zeros(x.shape[0], dtype=torch.int32, device=x.device),
+            (diff * diff).sum(dim=-1),
+        )
+    d2 = pairwise_sq_dist(xf, cf)
+    _, idx2 = torch.topk(d2, 2, dim=-1, largest=False, sorted=True)  # (N, 2)
+    diff = xf[:, None, :] - cf[idx2]  # (N, 2, d)
+    e = (diff * diff).sum(dim=-1)  # (N, 2) exact distances
+    mind, pick = torch.min(e, dim=-1)
+    labels = torch.gather(idx2, 1, pick[:, None])[:, 0]
+    return labels.to(torch.int32), mind
+
+
+def lloyd_stats_refined(
+    x: torch.Tensor, centroids: torch.Tensor
+) -> SufficientStats:
+    """lloyd_stats with exact-distance champion refinement."""
+    labels, mind = assign_refined(x, centroids)
+    sums, counts = cluster_stats(x, labels, centroids.shape[0])
+    return SufficientStats(sums=sums, counts=counts, sse=mind.sum())
+
+
+def lloyd_stats_blocked(
+    x: torch.Tensor, centroids: torch.Tensor, block_rows: int, stats_fn=None
+) -> SufficientStats:
+    """lloyd_stats over N-blocks, summed in block order, so the (block, K)
+    intermediates stay bounded. Requires N % block_rows == 0."""
+    if stats_fn is None:
+        stats_fn = lloyd_stats
+    n, d = x.shape
+    k = centroids.shape[0]
+    if n % block_rows != 0:
+        raise ValueError(f"N={n} not divisible by block_rows={block_rows}")
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
+    sse = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(0, n, block_rows):
+        st = stats_fn(x[s:s + block_rows], centroids)
+        sums = sums + st.sums
+        counts = counts + st.counts
+        sse = sse + st.sse
+    return SufficientStats(sums=sums, counts=counts, sse=sse)
+
+
+def lloyd_stats_padded_blocked(
+    x: torch.Tensor, centroids: torch.Tensor, block_rows: int, stats_fn=None
+) -> SufficientStats:
+    """lloyd_stats_blocked for any N: zero-pads to a block multiple and
+    subtracts the padding's exact contribution (a zero row lands on the
+    argmin-‖c‖² cluster with zero Σx and sse ‖c‖²; that holds for the
+    refined stats too)."""
+    n_fake = (-x.shape[0]) % block_rows
+    xp = F.pad(x, (0, 0, 0, n_fake)) if n_fake else x
+    stats = lloyd_stats_blocked(xp, centroids, block_rows, stats_fn)
+    if n_fake == 0:
+        return stats
+    cf = centroids.float()
+    c2 = (cf * cf).sum(dim=-1)
+    j = torch.argmin(c2)
+    counts = stats.counts.clone()
+    counts[j] -= float(n_fake)
+    return SufficientStats(
+        sums=stats.sums, counts=counts, sse=stats.sse - n_fake * c2[j]
+    )
+
+
+def apply_centroid_update(
+    stats: SufficientStats, prev_centroids: torch.Tensor
+) -> torch.Tensor:
+    """New centroids = Σx / count; an empty cluster keeps its previous
+    centroid."""
+    counts = stats.counts[:, None]
+    new = stats.sums / torch.where(counts > 0, counts, torch.ones_like(counts))
+    return torch.where(counts > 0, new, prev_centroids.to(new.dtype))

@@ -1,0 +1,249 @@
+"""The Lloyd kernels B1 and B2 (counterpart: tdc_tpu/ops/pallas_kernels.py,
+the `lloyd_stats_fused`, `distance_argmin`, `lloyd_stats_auto` and
+`resolve_kernel` parts).
+
+Each kernel has three parts here:
+
+- the wrapper (`distance_argmin`, `lloyd_stats_fused`), which checks its
+  inputs, allocates every output and workspace with `torch.empty`, and on
+  a CUDA tensor launches the hand-written kernel from
+  `csrc/lloyd_kernels.cu` on the current stream or raises;
+- the plain PyTorch version (`*_plain`), the same function with the same
+  shifted-distance form ‖c‖² − 2x·c, tie-break (smallest index among equal
+  minima) and SSE formula. The wrapper uses it only for a CPU tensor; the
+  tests hold it to the JAX package and `chip_smoke.py` holds the kernel to
+  it on the card;
+- a launch counter, `<wrapper>.launches`, which only the kernel launch
+  increments.
+
+Both kernels are compute-bound on the H100 at the main path's shapes (the
+2·N·K·d distance product on the f32 CUDA cores); see the notes in
+`csrc/lloyd_kernels.cu` and PERF.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tdc_tpu_torch.ops import _build
+from tdc_tpu_torch.ops.assign import SufficientStats
+from tdc_tpu_torch.utils import device as _device  # noqa: F401  (f32 policy)
+from tdc_tpu_torch.utils.structlog import emit
+
+# B1's route limit. The fused kernel keeps one (K, d) f32 partial per CTA
+# in device memory (grid = 2 x SM count = 264 CTAs on an H100 SXM). K·d up
+# to 2^19 keeps that workspace ≤ 264 · 2^19 · 4 B = 528 MiB, and its
+# zeroing and fixed-order reduction under ~1% of the distance work at the
+# same K·d. Beyond it lloyd_stats_auto takes the sorted route (B2 + B3),
+# whose memory does not grow with K·d.
+FUSED_MAX_KD = 1 << 19
+
+# Rows per block of the plain versions: keeps their (rows, K) distance
+# tile at 256 MiB, so they run at the main path's shapes on the card.
+_PLAIN_TILE_ELEMS = 1 << 26
+
+
+def _check(name: str, x: torch.Tensor, c: torch.Tensor) -> None:
+    if x.dim() != 2 or c.dim() != 2:
+        raise ValueError(f"{name}: x and centroids must be 2-D, got "
+                         f"{tuple(x.shape)} and {tuple(c.shape)}")
+    if x.shape[1] != c.shape[1]:
+        raise ValueError(f"{name}: x has d={x.shape[1]}, centroids "
+                         f"d={c.shape[1]}")
+    if c.shape[0] < 1:
+        raise ValueError(f"{name}: need at least one centroid")
+    if x.dtype != torch.float32 or c.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 only in this slice, got "
+                        f"{x.dtype} and {c.dtype}")
+    if x.device != c.device:
+        raise ValueError(f"{name}: x on {x.device}, centroids on {c.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.device.type == "cuda" and not (x.is_contiguous()
+                                        and c.is_contiguous()):
+        raise ValueError(f"{name}: the CUDA kernel needs contiguous inputs")
+
+
+def _sq_norms(c: torch.Tensor) -> torch.Tensor:
+    """‖c‖² per centroid, f32 — computed outside the kernel as the JAX
+    wrappers compute it in XLA."""
+    return (c * c).sum(dim=1)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _champions_plain(x, c, c2):
+    """(labels int32, shifted min f32) over row blocks: argmin of
+    ‖c‖² − 2x·c, first (smallest) index among equal minima."""
+    n, k = x.shape[0], c.shape[0]
+    rows = max(1, _PLAIN_TILE_ELEMS // k)
+    labels = torch.empty(n, dtype=torch.int32, device=x.device)
+    mind = torch.empty(n, dtype=torch.float32, device=x.device)
+    for s in range(0, n, rows):
+        d2 = c2 - 2.0 * (x[s:s + rows] @ c.T)
+        m, a = torch.min(d2, dim=1)
+        labels[s:s + rows] = a.to(torch.int32)
+        mind[s:s + rows] = m
+    return labels, mind
+
+
+def distance_argmin_plain(x, centroids, *, return_dist: bool = False):
+    """Plain version of B2: (labels (N,) int32, min (N,) f32)."""
+    labels, mind = _champions_plain(x, centroids, _sq_norms(centroids))
+    if return_dist:
+        mind = torch.clamp_min(mind + (x * x).sum(dim=1), 0.0)
+    return labels, mind
+
+
+def distance_argmin(x: torch.Tensor, centroids: torch.Tensor, *,
+                    return_dist: bool = False):
+    """B2: (argmin (N,) int32, min squared distance (N,) f32) with no
+    (N, K) buffer. Without `return_dist` the distance is the shifted
+    ‖c‖² − 2x·c (argmin-valid); with it ‖x‖² is added back and clamped
+    at 0."""
+    _check("distance_argmin", x, centroids)
+    if x.device.type == "cpu":
+        return distance_argmin_plain(x, centroids, return_dist=return_dist)
+    n, d = x.shape
+    k = centroids.shape[0]
+    labels = torch.empty(n, dtype=torch.int32, device=x.device)
+    mind = torch.empty(n, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return labels, mind
+    lib = _build.load().lib
+    c2 = _sq_norms(centroids)
+    _build.check(lib.tdc_distance_argmin(
+        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), n, k, d,
+        int(return_dist), labels.data_ptr(), mind.data_ptr(), _stream(x),
+    ), "distance_argmin")
+    distance_argmin.launches += 1
+    return labels, mind
+
+
+distance_argmin.launches = 0
+
+
+def lloyd_stats_fused_plain(x: torch.Tensor,
+                            centroids: torch.Tensor) -> SufficientStats:
+    """Plain version of B1: champions by the shifted distance, then Σx per
+    cluster, counts, and SSE = max(Σ min + Σ‖x‖², 0)."""
+    k, d = centroids.shape
+    c2 = _sq_norms(centroids)
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    counts = torch.zeros(k, dtype=torch.float32, device=x.device)
+    sse = torch.zeros((), dtype=torch.float32, device=x.device)
+    rows = max(1, _PLAIN_TILE_ELEMS // k)
+    for s in range(0, x.shape[0], rows):
+        xb = x[s:s + rows]
+        labels, mind = _champions_plain(xb, centroids, c2)
+        lab = labels.long()
+        sums.index_add_(0, lab, xb)
+        counts += torch.bincount(lab, minlength=k).to(torch.float32)
+        sse = sse + mind.sum() + (xb * xb).sum()
+    return SufficientStats(sums=sums, counts=counts,
+                           sse=torch.clamp_min(sse, 0.0))
+
+
+def fused_grid(device: torch.device) -> int:
+    """B1's CTA count: two per SM (two 256-thread CTAs fit one SM)."""
+    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fused_fits(k: int, d: int) -> bool:
+    """Whether B1's (grid, K, d) workspace stays within FUSED_MAX_KD."""
+    return k * d <= FUSED_MAX_KD
+
+
+def lloyd_stats_fused(x: torch.Tensor,
+                      centroids: torch.Tensor) -> SufficientStats:
+    """B1: Lloyd sufficient stats in one pass over x, no (N, K) buffer.
+    Returns SufficientStats(sums (K, d), counts (K,), sse ()) in f32, SSE
+    clamped at 0. Raises past the fused limit (use lloyd_stats_auto)."""
+    _check("lloyd_stats_fused", x, centroids)
+    k, d = centroids.shape
+    if not fused_fits(k, d):
+        raise ValueError(
+            f"lloyd_stats_fused: K·d = {k * d} exceeds FUSED_MAX_KD = "
+            f"{FUSED_MAX_KD}; use lloyd_stats_auto (sorted route)"
+        )
+    if x.device.type == "cpu":
+        return lloyd_stats_fused_plain(x, centroids)
+    dev = x.device
+    grid = fused_grid(dev)
+    ws = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
+    cnt = torch.empty((grid, k), dtype=torch.int32, device=dev)
+    sse_part = torch.empty(grid, dtype=torch.float64, device=dev)
+    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty(k, dtype=torch.float32, device=dev)
+    sse = torch.empty((), dtype=torch.float32, device=dev)
+    lib = _build.load().lib
+    c2 = _sq_norms(centroids)
+    _build.check(lib.tdc_lloyd_stats_fused(
+        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), x.shape[0], k, d,
+        grid, ws.data_ptr(), cnt.data_ptr(), sse_part.data_ptr(),
+        sums.data_ptr(), counts.data_ptr(), sse.data_ptr(), _stream(x),
+    ), "lloyd_stats_fused")
+    lloyd_stats_fused.launches += 1
+    return SufficientStats(sums=sums, counts=counts, sse=sse)
+
+
+lloyd_stats_fused.launches = 0
+
+
+def lloyd_stats_for(k: int, d: int, *, label: str = ""):
+    """The kernel route's stats function for (K, d): `lloyd_stats_fused`
+    (B1) within FUSED_MAX_KD, else `lloyd_stats_sorted` (B2 + B3). One
+    `kernel_selected` event names the choice and the reason; a fit asks
+    once and reuses the function for every iteration."""
+    from tdc_tpu_torch.ops.sorted_stats import lloyd_stats_sorted
+
+    if fused_fits(k, d):
+        fn, route, reason = lloyd_stats_fused, "fused", (
+            f"K·d = {k * d} <= {FUSED_MAX_KD}: the per-CTA (K, d) "
+            "workspace of the fused kernel stays bounded")
+    else:
+        fn, route, reason = lloyd_stats_sorted, "sorted", (
+            f"K·d = {k * d} > {FUSED_MAX_KD}: the fused kernel's "
+            "workspace would grow past its limit")
+    emit("kernel_selected", kernel=route, model="kmeans", k=int(k), d=int(d),
+         reason=reason, label=label or "lloyd_stats_auto")
+    return fn
+
+
+def lloyd_stats_auto(x: torch.Tensor,
+                     centroids: torch.Tensor) -> SufficientStats:
+    """Lloyd stats on the kernel route: B1 where its workspace fits, else
+    the sorted path (ops/sorted_stats.lloyd_stats_sorted)."""
+    return lloyd_stats_for(*centroids.shape)(x, centroids)
+
+
+def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
+                   model: str = "kmeans", label: str = "") -> str:
+    """The default-kernel policy: 'auto' resolves to 'pallas' (the CUDA
+    kernels) on a CUDA device and to 'xla' (plain PyTorch) on the CPU, with
+    one `kernel_selected` event; an explicit name passes through. CUDA
+    plays the part that platform == 'tpu' plays in the JAX version."""
+    if kernel != "auto":
+        if kernel == "auto:quantized":
+            raise NotImplementedError(
+                "kernel='auto:quantized' needs the bf16 B1 variant "
+                "(ROADMAP.md Queue B, B5)")
+        return kernel
+    if model != "kmeans":
+        raise NotImplementedError(
+            f"resolve_kernel: model={model!r} is not ported yet "
+            "(ROADMAP.md Queue A)")
+    device = torch.device(device)
+    if device.type == "cuda":
+        choice, reason = "pallas", (
+            "CUDA device: the hand-written Lloyd kernels apply at any "
+            f"(K={k}, d={d}) (fused or sorted route)")
+    else:
+        choice, reason = "xla", (
+            f"device={device.type}: the kernels are CUDA-only; plain "
+            "PyTorch ops run instead")
+    emit("kernel_selected", kernel=choice, model=model, k=int(k), d=int(d),
+         reason=reason, label=label)
+    return choice

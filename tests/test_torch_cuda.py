@@ -1,0 +1,79 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+small shapes (the full-size check is chip_smoke.py). Marked `cuda`: they
+skip without a card. Run them on one with
+`python -m pytest tests/test_torch_cuda.py -q`.
+
+Tolerances: labels and counts equal; sums and distances within rtol 1e-5
+and atol 1e-4 (float32, different summation order); two runs bitwise
+equal. With duplicated centroids every tie goes to the smallest index."""
+
+import pytest
+import torch
+
+from tdc_tpu_torch.ops import lloyd_kernels as lk
+from tdc_tpu_torch.ops import sorted_stats as ss
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _data(gen, n, k, d):
+    centers = torch.rand((k, d), generator=gen, device="cuda") * 6 - 3
+    labels = torch.arange(n, device="cuda") % k
+    x = torch.randn((n, d), generator=gen, device="cuda") + centers[labels]
+    return x, centers
+
+
+@pytest.mark.parametrize("n,k,d", [(1000, 37, 19), (5000, 130, 128)])
+def test_b1_b2_b3_match_plain(gen, n, k, d):
+    x, c = _data(gen, n, k, d)
+    lab, mind = lk.distance_argmin(x, c, return_dist=True)
+    plab, pmind = lk.distance_argmin_plain(x, c, return_dist=True)
+    assert torch.equal(lab, plab)
+    torch.testing.assert_close(mind, pmind, rtol=1e-5, atol=1e-4)
+    st = lk.lloyd_stats_fused(x, c)
+    again = lk.lloyd_stats_fused(x, c)
+    want = lk.lloyd_stats_fused_plain(x, c)
+    assert all(torch.equal(a, b) for a, b in zip(st, again))
+    assert torch.equal(st.counts, want.counts)
+    torch.testing.assert_close(st.sums, want.sums, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(st.sse, want.sse, rtol=1e-5, atol=1e-4)
+    sums, counts = ss.sorted_cluster_stats(x, lab, k, pallas=True)
+    assert torch.equal(counts, want.counts)
+    torch.testing.assert_close(sums, want.sums, rtol=1e-5, atol=1e-4)
+
+
+def test_b3_long_runs_and_empty_segments(gen):
+    # Rows before the first segment and after the last, empty segments, a
+    # run across ~125 chunks of rows and runs at chunk edges.
+    xs = torch.randn((5000, 40), generator=gen, device="cuda")
+    starts = torch.tensor([3, 3, 4000, 4000, 4031, 4032, 4064, 4900],
+                          dtype=torch.int32, device="cuda")
+    got = ss.segment_sums(xs, starts)
+    assert torch.equal(got, ss.segment_sums(xs, starts))
+    torch.testing.assert_close(got, ss.segment_sums_plain(xs, starts),
+                               rtol=1e-5, atol=1e-4)
+    assert not got[0].any() and not got[2].any()
+
+
+@pytest.mark.parametrize("d", [19, 128])
+def test_ties_go_to_the_smallest_index(gen, d):
+    # Copies of centroid 3: in the same K tile on another lane (5), in
+    # B2's 128-wide tile on the same thread and B1's next 64-wide tile
+    # (67), in a later tile (200) and in the last, partial tile (299).
+    k, copies = 300, [5, 67, 200, 299]
+    x, c = _data(gen, 4000, k, d)
+    c[copies] = c[3].clone()
+    lab = lk.distance_argmin(x, c)[0]
+    assert torch.equal(lab, lk.distance_argmin_plain(x, c)[0])
+    assert not torch.isin(lab, torch.tensor(copies, device="cuda")).any()
+    want = torch.bincount(lab.long(), minlength=k).to(torch.float32)
+    assert torch.equal(lk.lloyd_stats_fused(x, c).counts, want)
+    sums, counts = ss.sorted_cluster_stats(x, lab, k, pallas=True)
+    assert torch.equal(counts, want) and not sums[copies].any()

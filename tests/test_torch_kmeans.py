@@ -1,0 +1,154 @@
+"""kmeans_fit / kmeans_predict of the port against the JAX package's, on
+the CPU, from the same explicit init array.
+
+Tolerances: n_iter and converged equal; labels equal; centroids within
+rtol 1e-5 and atol 1e-5 and SSE within rtol 1e-5 (float32 summation order
+differs between the frameworks; the blobs keep every point far from a
+tie, so the trajectories do not fork).
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tdc_tpu.models import kmeans as jkm
+from tdc_tpu_torch import convert
+from tdc_tpu_torch.models import kmeans as tkm
+
+RTOL = 1e-5
+
+
+def _blobs(seed=0, n=2000, k=12, d=8):
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-4, 4, size=(k, d))
+    y = rng.integers(0, k, size=n)
+    x = (centers[y] + rng.normal(size=(n, d))).astype(np.float32)
+    init = x[rng.choice(n, k, replace=False)].copy()
+    return x, init
+
+
+def _fit_both(x, init, **kw):
+    j = jkm.kmeans_fit(x, init.shape[0], init=init, **kw)
+    t = tkm.kmeans_fit(x, init.shape[0], init=init, device="cpu", **kw)
+    return j, t
+
+
+def _assert_fit(j, t):
+    assert t.n_iter == int(j.n_iter)
+    assert t.converged == bool(j.converged)
+    np.testing.assert_allclose(t.centroids.numpy(), np.asarray(j.centroids),
+                               rtol=RTOL, atol=1e-5)
+    np.testing.assert_allclose(float(t.sse), float(j.sse), rtol=RTOL)
+
+
+@pytest.mark.parametrize("tol", [-1.0, 1e-4])
+@pytest.mark.parametrize("kernel", ["xla", "pallas", "refined"])
+def test_kmeans_fit(kernel, tol):
+    x, init = _blobs()
+    j, t = _fit_both(x, init, max_iters=15, tol=tol, kernel=kernel)
+    _assert_fit(j, t)
+    if tol < 0:
+        assert t.n_iter == 15
+    else:
+        assert t.converged and t.n_iter < 15
+
+
+def test_kmeans_fit_auto_resolves_like_jax_on_cpu():
+    x, init = _blobs(1)
+    _assert_fit(*_fit_both(x, init, max_iters=8, tol=1e-4, kernel="auto"))
+
+
+def test_kmeans_fit_spherical():
+    x, init = _blobs(2)
+    _assert_fit(*_fit_both(x, init, max_iters=10, tol=1e-4, spherical=True))
+
+
+def test_kmeans_fit_relocate_empty_cluster():
+    x, init = _blobs(3)
+    init[4] = 500.0  # empty from the first iteration on
+    j, t = _fit_both(x, init, max_iters=10, tol=-1.0,
+                     empty_policy="relocate")
+    _assert_fit(j, t)
+    assert np.abs(t.centroids.numpy()).max() < 100.0  # it was relocated
+
+
+def test_kmeans_fit_history():
+    x, init = _blobs(4)
+    j, t = _fit_both(x, init, max_iters=12, tol=1e-4, history=True)
+    _assert_fit(j, t)
+    assert t.history.shape == (t.n_iter, 2)
+    np.testing.assert_allclose(t.history, np.asarray(j.history), rtol=RTOL,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+def test_kmeans_predict_from_converted_state(kernel):
+    x, init = _blobs(5)
+    j = jkm.kmeans_fit(x, init.shape[0], init=init, max_iters=5)
+    state = convert.kmeans_state_from_numpy(
+        np.asarray(j.centroids), n_iter=int(j.n_iter), sse=float(j.sse),
+        shift=float(j.shift), converged=bool(j.converged), device="cpu")
+    got = tkm.kmeans_predict(x, state.centroids, kernel=kernel, device="cpu")
+    want = jkm.kmeans_predict(x, j.centroids, kernel=kernel)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    back = convert.to_numpy(state)
+    np.testing.assert_array_equal(back["centroids"], np.asarray(j.centroids))
+    assert back["n_iter"] == int(j.n_iter)
+    assert back["converged"] == bool(j.converged)
+
+
+def test_whole_slice_fit_in_jax_predict_in_port():
+    # The JAX package fits with its own k-means++ seeding; the port takes
+    # the state over and labels the points exactly as the JAX package does.
+    x, _ = _blobs(6, n=3000, k=20, d=10)
+    j = jkm.kmeans_fit(x, 20, key=jax.random.PRNGKey(3), max_iters=30,
+                       kernel="pallas")
+    state = convert.kmeans_state_from_numpy(np.asarray(j.centroids),
+                                            device="cpu")
+    got = tkm.kmeans_predict(x, state.centroids, kernel="pallas",
+                             device="cpu")
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jkm.kmeans_predict(
+                                      x, j.centroids, kernel="xla")))
+    # And the port's own fit from the JAX init reaches the same model.
+    t = tkm.kmeans_fit(x, 20, init=np.asarray(
+        jkm.resolve_init(jax.numpy.asarray(x), 20, "kmeans++",
+                         jax.random.PRNGKey(3))),
+        max_iters=30, kernel="pallas", device="cpu")
+    np.testing.assert_allclose(t.centroids.numpy(), np.asarray(j.centroids),
+                               rtol=RTOL, atol=1e-5)
+
+
+def test_kmeans_fit_stochastic_init_is_seeded():
+    x, _ = _blobs(7)
+    fits = [tkm.kmeans_fit(x, 12, init=init, max_iters=5, device="cpu",
+                           generator=torch.Generator().manual_seed(11))
+            for init in ("kmeans++", "kmeans++", "random")]
+    assert torch.equal(fits[0].centroids, fits[1].centroids)
+    best = tkm.kmeans_fit(x, 12, init="random", n_init=3, max_iters=5,
+                          device="cpu",
+                          generator=torch.Generator().manual_seed(11))
+    assert float(best.sse) <= float(fits[2].sse) + 1e-3
+
+
+@pytest.mark.parametrize("kw", [
+    {"mesh": object()},
+    {"sample_weight": np.ones(100, np.float32)},
+    {"layout": "features"},
+    {"kernel": "pallas_bf16"},
+    {"init": "kmeans||"},
+    {"x": torch.zeros((100, 4), dtype=torch.bfloat16)},
+])
+def test_unported_options_raise_naming_the_roadmap(kw):
+    kw = dict(kw)
+    x = kw.pop("x", np.zeros((100, 4), np.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tkm.kmeans_fit(x, 3, device="cpu", max_iters=2, **kw)
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tkm.kmeans_fit(np.zeros((10, 2), np.float32), 2)
