@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `tdc_tpu_torch/csrc/` and drives its
-main path, in-memory single-GPU f32 Lloyd K-Means through the CLI. Phases,
-each of which raises on failure (nothing is caught):
+main paths through the CLI: in-memory single-GPU f32 Lloyd K-Means and
+Fuzzy C-Means. Phases, each of which raises on failure (nothing is
+caught):
 
 1. Device: a CUDA card is required; prints its name and power limit.
 2. Build: nvcc builds the kernels; prints the build seconds.
@@ -16,15 +17,21 @@ each of which raises on failure (nothing is caught):
    balanced labels and on one heavy label, and is also held to
    torch.segment_reduce, the library call that computes the same sums.
    Duplicated centroids check the tie rule of B1, B2 and B3 on the card.
+   B6 (fuzzy stats) at N=2^22, K=1024, d=128 for m=2.0 and m=1.7, and at
+   a ragged N=2^16+37, K=300, d=19 with one point exactly on a centroid,
+   which must take full membership there.
 4. Main path, fused route: the CLI at N=2^22, d=128, K=1024,
    --kernel=pallas, 10 iterations; B1 must launch n_iter + 1 times per fit.
 5. Main path, sorted route: the CLI at K=16,384, d=768, --init=random,
    past B1's limit, so B2 and B3 carry it (cuts listed at SORTED_ARGS).
-6. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
+6. Main path, fuzzy route: the CLI with --method_name=distributedFuzzyCMeans
+   at N=2^22, d=128, K=1024, --kernel=pallas, 10 iterations; B6 must
+   launch n_iter + 1 times per fit and B1, B2, B3 never.
+7. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
    the plain labels.
-7. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
+8. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
    kernel="xla" fit from the same init give the same n_iter and
-   centroids within tolerance.
+   centroids within tolerance, for K-Means and for Fuzzy C-Means.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -47,10 +54,12 @@ import torch
 
 from tdc_tpu_torch.cli import main as cli
 from tdc_tpu_torch.data import make_blobs
-from tdc_tpu_torch.models import kmeans_fit, kmeans_predict
+from tdc_tpu_torch.models import fuzzy_cmeans_fit, kmeans_fit, kmeans_predict
 from tdc_tpu_torch.ops import _build
+from tdc_tpu_torch.ops import fuzzy_kernels as fk
 from tdc_tpu_torch.ops import lloyd_kernels as lk
 from tdc_tpu_torch.ops import sorted_stats as ss
+from tdc_tpu_torch.ops.assign import fuzzy_memberships
 from tdc_tpu_torch.ops.init import init_random
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): f32 on the CUDA
@@ -85,6 +94,11 @@ MAIN_ARGS = [
     f"--n_dim={B1_SHAPE[2]}", f"--K={B1_SHAPE[1]}", "--kernel=pallas",
     "--n_max_iters=10", "--tol=-1", "--seed=0",
 ]
+FUZZY_ARGS = [
+    "--method_name=distributedFuzzyCMeans", *MAIN_ARGS[1:], "--fuzzifier=2.0",
+]
+FUZZY_MS = (2.0, 1.7)  # B6 is checked at both fuzzifiers
+FUZZY_RAGGED = ((1 << 16) + 37, 300, 19)  # N, K, d: no multiple of a tile
 
 
 def smi() -> str:
@@ -285,16 +299,92 @@ def phase_ties(gen) -> None:
               f"took 0 rows; labels equal the plain version's", flush=True)
 
 
+def fuzzy_abs_sums(x, c, m):
+    """Σμ|x| per cluster, the scale of the Σμx check (row blocks)."""
+    rows = max(1, (1 << 26) // c.shape[0])
+    out = torch.zeros(c.shape, dtype=torch.float64, device=x.device)
+    for s in range(0, x.shape[0], rows):
+        mu = fuzzy_memberships(x[s:s + rows], c, m) ** m
+        out += (mu.T.double() @ x[s:s + rows].abs().double())
+    return out.float()
+
+
+def check_fuzzy(name, x, c, m) -> float:
+    """B6 against its plain version: two runs bitwise equal, Σμx within
+    REL_TOL of Σμ|x|, Σμ and the objective within REL_TOL relative."""
+    got = fk.fuzzy_stats_fused(x, c, m)
+    repeatable(name, got, fk.fuzzy_stats_fused(x, c, m))
+    want = fk.fuzzy_stats_fused_plain(x, c, m)
+    err = check_close(f"{name} sums", got.weighted_sums, want.weighted_sums,
+                      fuzzy_abs_sums(x, c, m))
+    check_close(f"{name} weights", got.weights, want.weights,
+                want.weights.abs())
+    check_close(f"{name} objective", got.objective, want.objective,
+                want.objective.abs())
+    return err
+
+
+def phase_fuzzy_kernel(gen) -> dict:
+    """Phase 3, B6: at the fuzzy route's shape for each fuzzifier (the
+    m=2.0 numbers are the route's), then the ragged case."""
+    n, k, d = B1_SHAPE
+    x, c = blob_data(gen, n, k, d)
+    c2 = (c * c).sum(dim=1)
+    per_m = {}
+    for m in FUZZY_MS:
+        # The kernel's two phases timed apart (the row normaliser, then
+        # the K-tiled accumulate): where B6's time goes.
+        s, x2 = fk._normalize_phase(x, c, c2, m, 1e-9)
+        per_m[m] = dict(
+            max_abs_err=check_fuzzy(f"B6 m={m}", x, c, m),
+            ms=median_ms(lambda: fk.fuzzy_stats_fused(x, c, m), 5),
+            normalizer_ms=median_ms(
+                lambda: fk._normalize_phase(x, c, c2, m, 1e-9), 5),
+            accumulate_ms=median_ms(
+                lambda: fk._accumulate_phase(x, c, c2, s, x2, m, 1e-9), 5),
+            plain_ms=median_ms(lambda: fk.fuzzy_stats_fused_plain(x, c, m),
+                               3))
+        del s, x2
+        print(f"[B6] N={n} K={k} d={d} m={m}: {json.dumps(per_m[m])}",
+              flush=True)
+    # Distance product and μᵀx accumulate on the FMA pipe; the N·K powers
+    # run on the SFU beside them and do not set the bound.
+    b_ms, b_by = bound_ms(4.0 * n * k * d,
+                          4.0 * (n * d + 2 * k * d + 2 * k + 1))
+    out = dict(**per_m[2.0], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               m_1_7=per_m[1.7])
+    del x, c, c2
+
+    n, k, d = FUZZY_RAGGED
+    x, c = blob_data(gen, n, k, d)
+    i, j = 12345, 77  # row i sits exactly on the integer-valued centroid j
+    c[j] = torch.round(c[j])
+    x[i] = c[j]
+    for m in FUZZY_MS:
+        check_fuzzy(f"B6 ragged m={m}", x, c, m)
+        w = fk.fuzzy_stats_fused(x[i:i + 1].contiguous(), c, m).weights
+        require(float(w[j]) >= 1.0 - 1e-6
+                and float(w.sum() - w[j]) <= 1e-6,
+                f"B6 ragged m={m}: the point on centroid {j} has "
+                f"membership {float(w[j])} there")
+        print(f"[B6] ragged N={n} K={k} d={d} m={m}: equal to the plain "
+              f"version; the point on centroid {j} has membership "
+              f"{float(w[j]):.9g} there", flush=True)
+    return out
+
+
 def reset_counts() -> None:
     lk.lloyd_stats_fused.launches = 0
     lk.distance_argmin.launches = 0
     ss.segment_sums.launches = 0
+    fk.fuzzy_stats_fused.launches = 0
 
 
 def counts() -> dict:
     return {"B1": lk.lloyd_stats_fused.launches,
             "B2": lk.distance_argmin.launches,
-            "B3": ss.segment_sums.launches}
+            "B3": ss.segment_sums.launches,
+            "B6": fk.fuzzy_stats_fused.launches}
 
 
 def run_cli(args, tmp, name) -> tuple[dict, dict]:
@@ -333,6 +423,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     numbers = phase_kernels(gen)
+    numbers["B6"] = phase_fuzzy_kernel(gen)
     print(f"[kernels] {json.dumps(numbers)}", flush=True)
     phase_ties(gen)
 
@@ -342,18 +433,29 @@ def main() -> int:
         require(n_iter == 10, f"fused route ran {n_iter} iterations")
         # Two fits (initialization and computation), n_iter + 1 stats each.
         require(seen["B1"] == 2 * (n_iter + 1) and seen["B2"] == 0
-                and seen["B3"] == 0, f"fused route launches {seen}")
+                and seen["B3"] == 0 and seen["B6"] == 0,
+                f"fused route launches {seen}")
         numbers["B1"]["launches"] = seen["B1"]
 
         row, seen = run_cli(SORTED_ARGS, tmp, "sorted_route")
         n_iter = int(row["n_iter"])
         require(seen["B1"] == 0 and seen["B2"] == 2 * (n_iter + 1)
-                and seen["B3"] == 2 * (n_iter + 1),
+                and seen["B3"] == 2 * (n_iter + 1) and seen["B6"] == 0,
                 f"sorted route launches {seen}")
         numbers["B2"]["launches"] = seen["B2"]
         numbers["B3"]["launches"] = seen["B3"]
 
-    # Phase 6: predict with B2 on 2^20 points.
+        # The fuzzy route: its row's sse column holds the objective J_m.
+        # Seeding (k-means++) runs no kernel.
+        row, seen = run_cli(FUZZY_ARGS, tmp, "fuzzy_route")
+        n_iter = int(row["n_iter"])
+        require(n_iter == 10, f"fuzzy route ran {n_iter} iterations")
+        require(seen["B6"] == 2 * (n_iter + 1) and seen["B1"] == 0
+                and seen["B2"] == 0 and seen["B3"] == 0,
+                f"fuzzy route launches {seen}")
+        numbers["B6"]["launches"] = seen["B6"]
+
+    # Phase 7: predict with B2 on 2^20 points.
     x, c = blob_data(gen, 1 << 20, SORTED_K, SORTED_D)
     before = lk.distance_argmin.launches
     lab = kmeans_predict(x, c, kernel="pallas")
@@ -364,7 +466,7 @@ def main() -> int:
           f"except {ties} near-ties", flush=True)
     del x, c, lab
 
-    # Phase 7: whole fit, kernel against plain, same init.
+    # Phase 8: whole fit, kernel against plain, same init.
     x, c = blob_data(gen, 1 << 16, B1_SHAPE[1], B1_SHAPE[2])
     init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
     fits = {kern: kmeans_fit(x, c.shape[0], init=init, max_iters=50,
@@ -378,6 +480,18 @@ def main() -> int:
     print(f"[fit] N=65536 K=1024 d=128: n_iter {a.n_iter} == {b.n_iter}, "
           f"converged {a.converged}, max centroid diff {cerr:.3g}, sse "
           f"{float(a.sse):.8g} vs {float(b.sse):.8g}", flush=True)
+    fits = {kern: fuzzy_cmeans_fit(x, c.shape[0], init=init, max_iters=30,
+                                   tol=1e-3, kernel=kern)
+            for kern in ("pallas", "xla")}
+    a, b = fits["pallas"], fits["xla"]
+    require(a.n_iter == b.n_iter and a.converged == b.converged,
+            f"fuzzy fit parity: n_iter {a.n_iter} vs {b.n_iter}")
+    cerr = (a.centroids - b.centroids).abs().max().item()
+    require(cerr <= 1e-4, f"fuzzy fit parity: centroids differ by {cerr}")
+    print(f"[fuzzy_fit] N=65536 K=1024 d=128 m=2: n_iter {a.n_iter} == "
+          f"{b.n_iter}, converged {a.converged}, max centroid diff "
+          f"{cerr:.3g}, objective {float(a.objective):.8g} vs "
+          f"{float(b.objective):.8g}", flush=True)
 
     src = "tdc_tpu_torch/csrc/"
     meta = {
@@ -387,6 +501,8 @@ def main() -> int:
                "tdc_tpu/ops/pallas_kernels.py:226"),
         "B3": ("segment_sums", src + "segment_sums.cu",
                "tdc_tpu/ops/sorted_stats.py:134"),
+        "B6": ("fuzzy_stats_fused", src + "fuzzy_kernels.cu",
+               "tdc_tpu/ops/pallas_kernels.py:764"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():

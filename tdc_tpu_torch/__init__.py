@@ -21,6 +21,12 @@ not import torch.
 __version__ = "0.1.0"
 
 _LAZY = {
+    "FuzzyCMeansResult": ("tdc_tpu_torch.models.fuzzy", "FuzzyCMeansResult"),
+    "fuzzy_cmeans_fit": ("tdc_tpu_torch.models.fuzzy", "fuzzy_cmeans_fit"),
+    "fuzzy_predict": ("tdc_tpu_torch.models.fuzzy", "fuzzy_predict"),
+    "predict_proba": ("tdc_tpu_torch.models.fuzzy", "predict_proba"),
+    "fuzzy_state_from_numpy": ("tdc_tpu_torch.convert",
+                               "fuzzy_state_from_numpy"),
     "KMeansResult": ("tdc_tpu_torch.models.kmeans", "KMeansResult"),
     "kmeans_fit": ("tdc_tpu_torch.models.kmeans", "kmeans_fit"),
     "kmeans_predict": ("tdc_tpu_torch.models.kmeans", "kmeans_predict"),

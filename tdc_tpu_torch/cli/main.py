@@ -1,15 +1,17 @@
 """Experiment CLI — the reference-parity subset of tdc_tpu/cli/main.py
-for in-memory, single-GPU Lloyd K-Means.
+for in-memory, single-GPU Lloyd K-Means and Fuzzy C-Means.
 
 Same flags (where ported), the same three timed phases (setup; a first fit
 counted as initialization; a warm re-fit counted as computation), the
-same CSV row and the same summary line, with `backend` = 'cuda' or 'cpu'.
+same CSV row and the same summary line, with `backend` = 'cuda' or 'cpu'
+(a fuzzy row's `sse` column holds the objective J_m, as in the JAX CLI).
 Errors land in the CSV as an error row and exit 1. Unlike the JAX CLI
 there is no OOM-adaptive retry: an out-of-memory error is reported, not
 retried (the streamed driver it would fall back to is not ported yet).
 
 Run: python -m tdc_tpu_torch.cli.main --method_name=distributedKMeans \
      --n_obs=4194304 --n_dim=128 --K=1024 --kernel=pallas --log_file=log.csv
+Fuzzy: --method_name=distributedFuzzyCMeans --fuzzifier=2.0
 """
 
 from __future__ import annotations
@@ -18,10 +20,9 @@ import argparse
 import os
 import sys
 
-METHOD_NAMES = ("distributedKMeans",)
+METHOD_NAMES = ("distributedKMeans", "distributedFuzzyCMeans")
 # Methods of the JAX CLI that the port has not reached yet.
 _LATER_METHODS = {
-    "distributedFuzzyCMeans": "Queue A, A6",
     "gaussianMixture": "Queue A, A8",
     "bisectingKMeans": "Queue A, A8",
 }
@@ -30,7 +31,8 @@ _LATER_METHODS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tdc_tpu_torch",
-        description="K-Means on one NVIDIA GPU (PyTorch + CUDA kernels)",
+        description="K-Means and Fuzzy C-Means on one NVIDIA GPU "
+                    "(PyTorch + CUDA kernels)",
     )
     p.add_argument("--n_obs", type=int, default=None,
                    help="number of observations (generates synthetic data "
@@ -57,9 +59,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("xla", "pallas", "refined", "auto"),
                    help="sufficient-stats path: 'xla' = plain PyTorch ops "
                         "(default); 'pallas' = the hand-written CUDA "
-                        "kernels (B1 fused, or B2 + B3 sorted past the "
-                        "fused limit); 'refined' = exact-distance champion "
-                        "refinement; 'auto' = pallas on CUDA, xla on CPU")
+                        "kernels (K-Means: B1 fused, or B2 + B3 sorted past "
+                        "the fused limit; fuzzy: B6); 'refined' = "
+                        "exact-distance champion refinement (K-Means only); "
+                        "'auto' = pallas on CUDA, xla on CPU")
+    p.add_argument("--fuzzifier", type=float, default=2.0,
+                   help="fuzzy c-means m (explicit, > 1; "
+                        "distributedFuzzyCMeans only)")
     p.add_argument("--spherical", action="store_true",
                    help="cosine K-Means (normalize points and centroids)")
     p.add_argument("--empty_policy", type=str, default="keep",
@@ -95,6 +101,10 @@ def validate_args(parser, args) -> None:
     if args.n_devices is not None and args.n_devices != 1:
         parser.error("--n_GPUs must be 1: multi-GPU data parallel is not "
                      "ported yet (ROADMAP.md Queue A, A4)")
+    if args.method_name == "distributedFuzzyCMeans" and (
+            args.spherical or args.empty_policy != "keep"):
+        parser.error("--spherical and --empty_policy=relocate are "
+                     "distributedKMeans only")
     if args.dtype != "float32":
         parser.error(f"--dtype {args.dtype} is not ported yet (float32 "
                      "only; ROADMAP.md Queue B, B5)")
@@ -107,7 +117,7 @@ def run_experiment(args) -> dict:
     import torch
 
     from tdc_tpu_torch.data import load_points, make_blobs
-    from tdc_tpu_torch.models import kmeans_fit
+    from tdc_tpu_torch.models import fuzzy_cmeans_fit, kmeans_fit
     from tdc_tpu_torch.utils.device import resolve_device
     from tdc_tpu_torch.utils.timing import PhaseTimers
 
@@ -124,8 +134,16 @@ def run_experiment(args) -> dict:
         n_obs, n_dim = x.shape
         out["block_on"] = x
 
+    fuzzy = args.method_name == "distributedFuzzyCMeans"
+
     def fit():
         gen = torch.Generator(device=dev).manual_seed(args.seed)
+        if fuzzy:
+            return fuzzy_cmeans_fit(
+                x, args.K, m=args.fuzzifier, init=args.init, generator=gen,
+                max_iters=args.n_max_iters, tol=args.tol,
+                kernel=args.kernel or "xla", device=dev,
+            )
         return kmeans_fit(
             x, args.K, init=args.init, generator=gen,
             max_iters=args.n_max_iters, tol=args.tol,
@@ -162,7 +180,7 @@ def run_experiment(args) -> dict:
         "backend": dev.type,
         "n_chips": n_devices,
         "points_per_sec_per_chip": round(pps, 1),
-        "sse": float(result.sse),
+        "sse": float(result.objective if fuzzy else result.sse),
         "converged": bool(result.converged),
         "num_batches": 1,
         "tol": args.tol,

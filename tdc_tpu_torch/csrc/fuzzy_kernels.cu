@@ -1,0 +1,449 @@
+// B6 `fuzzy_stats_fused` for Hopper (sm_90a).
+//
+// Replaces `fuzzy_stats_fused` (tdc_tpu/ops/pallas_kernels.py:708,
+// `pallas_call` at :764; body `_fused_epilogue_kernel` with
+// `_fuzzy_fold_for` :668). Per row i and centroid k:
+//   d²  = max(‖x‖² + ‖c‖² − 2x·c, 0)        (‖x‖² computed here, ‖c‖² given)
+//   inv = (d² + eps)^(−1/(m−1)),  u = inv / Σ_k inv,  μ = u^m
+// and the outputs are Σ_i μ x_i (K, d), Σ_i μ (K,) and Σ μ d² (), all f32.
+// No (N, K) buffer exists.
+//
+// Bound on this card: operations. The distance product and the μᵀ·x
+// accumulate are 2·N·K·d FMA-pipe flops each (4·N·K·d), and every one of
+// the N·K elements takes powers on the SFU; x is read in N·d·4 bytes, three
+// orders of magnitude below the flops at K = 1024, d = 128.
+//
+// Two troubles of the TPU design, and what this design does about them:
+// - The row normaliser Σ_k inv needs the whole K row before any μ. The TPU
+//   kernel holds a (block_n, K) tile in VMEM. Here two phases (design (b)
+//   of PERF.md §6): `fuzzy_norm_kernel` walks every K tile for a block of
+//   128 rows and writes s_i = Σ_k inv_ik (and ‖x_i‖²) to (N,) f32 buffers;
+//   then `fuzzy_accum_kernel` recomputes the distance tile per (K tile,
+//   row block), forms μ = (inv / s)^m and accumulates. The recompute costs one
+//   more 2·N·K·d product (6·N·K·d flops in all) and buys a kernel with no
+//   K·d limit and no (N, K) buffer.
+// - Every row adds into every cluster, so the (K, d) accumulator cannot be
+//   read-modify-written per row as B1 does. It is tiled: a CTA owns one
+//   K tile of 64 centroids, one 128-column slice of d and a contiguous
+//   range of row blocks, keeps its (64, 128) block of Σμx across all its
+//   rows and writes it once. Within a 128-row block the sums are f32
+//   registers in row order; across row blocks they are carried in f64 in
+//   shared memory (two CTAs per SM). The G partials over row ranges are
+//   summed in a fixed order by `fuzzy_reduce_kernel`: no float atomics, so
+//   two runs are bitwise equal.
+//
+// Ragged N, K and d are masked: rows past N get μ = 0, centroids past K are
+// never candidates (the job of `_PAD_CENTROID` and the `n_fake` correction
+// in the JAX wrapper). The powers keep the JAX formula: powf, or at m = 2
+// the exact 1/v and u·u that XLA compiles those powers to; the build uses
+// no fast-math. The two phases are separate C entry points.
+
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "champion.cuh"
+
+namespace {
+
+using namespace tdc;
+
+constexpr int kFuzzyBN = 64;  // centroids per K tile (TN = 4 per thread)
+constexpr int kTN = kFuzzyBN / 16;
+constexpr int kDC = 128;  // columns of Σμx per CTA
+constexpr int kRC = 16;   // rows of x staged per accumulate step
+
+// The dot products of rows row0 + ty*TM + m with centroids of the K tile
+// starting at kt, over all of d, into acc[m][q] (centroid kt + tx*4 + q).
+// The next BK-column step is loaded while the current one computes. Ends
+// with a __syncthreads(), so `sm` may be reused right after.
+template <bool kVec>
+__device__ __forceinline__ void tile_dots(const float* __restrict__ x,
+                                          const float* __restrict__ c,
+                                          long long n, int k, int d,
+                                          long long row0, int kt,
+                                          AssignSmem<kFuzzyBN>& sm,
+                                          float (&acc)[TM][kTN]) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int q = 0; q < kTN; ++q) acc[m][q] = 0.f;
+  const int ndk = (d + BK - 1) / BK;
+  StepRegs<kVec, kFuzzyBN> regs;
+  regs.load(x, c, n, k, d, row0, kt, 0);
+  for (int s = 0; s < ndk; ++s) {
+    regs.store(sm);
+    __syncthreads();
+    if (s + 1 < ndk) regs.load(x, c, n, k, d, row0, kt, (s + 1) * BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&sm.xs[kk][ty * TM]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&sm.xs[kk][ty * TM + 4]);
+      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float4 b = *reinterpret_cast<const float4*>(&sm.cs[kk][tx * 4]);
+      const float bb[kTN] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int q = 0; q < kTN; ++q) acc[m][q] = fmaf(a[m], bb[q], acc[m][q]);
+    }
+    __syncthreads();
+  }
+}
+
+// d² of one (row, centroid) pair from its dot product, as the JAX fold
+// computes it: max(x2 + c2 − 2·cross, 0).
+__device__ __forceinline__ float true_d2(float x2, float c2, float cross) {
+  return fmaxf(x2 + c2 - 2.f * cross, 0.f);
+}
+
+// The formula's two powers. At m = 2 they are v^−1 and u², which XLA's
+// simplifier (and PyTorch's CUDA pow) compute as the correctly rounded
+// 1/v and u·u, so kM2 takes exactly those; every other m takes powf.
+template <bool kM2>
+__device__ __forceinline__ float inv_power(float v, float p) {
+  return kM2 ? 1.f / v : powf(v, p);
+}
+template <bool kM2>
+__device__ __forceinline__ float mu_power(float u, float m) {
+  return kM2 ? u * u : powf(u, m);
+}
+
+// Phase 1: s_i = Σ_k (d²_ik + eps)^p, p = −1/(m−1), and ‖x_i‖² for phase
+// 2. One CTA per 128 rows.
+template <bool kVec, bool kM2>
+__global__ void __launch_bounds__(kThreads)
+    fuzzy_norm_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                      const float* __restrict__ c2, long long n, int k, int d,
+                      float p, float eps, float* __restrict__ s_out,
+                      float* __restrict__ x2_out) {
+  __shared__ AssignSmem<kFuzzyBN> sm;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long row0 = (long long)blockIdx.x * BM;
+  float x2[TM], s[TM];
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+    x2[m] = row_sq_norm(x, n, d, row0 + ty * TM + m);
+    s[m] = 0.f;
+  }
+  for (int kt = 0; kt < k; kt += kFuzzyBN) {
+    float acc[TM][kTN];
+    tile_dots<kVec>(x, c, n, k, d, row0, kt, sm, acc);
+#pragma unroll
+    for (int q = 0; q < kTN; ++q) {
+      const int j = kt + tx * 4 + q;
+      if (j < k) {
+        const float cj = c2[j];
+#pragma unroll
+        for (int m = 0; m < TM; ++m)
+          s[m] += inv_power<kM2>(true_d2(x2[m], cj, acc[m][q]) + eps, p);
+      }
+    }
+  }
+  // Sum the 16 column owners of each row in a fixed butterfly order
+  // (a + b == b + a, so every lane ends with the same bits).
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+#pragma unroll
+    for (int off = 8; off >= 1; off >>= 1)
+      s[m] += __shfl_xor_sync(0xffffffffu, s[m], off);
+    const long long row = row0 + ty * TM + m;
+    if (tx == 0 && row < n) {
+      s_out[row] = s[m];
+      x2_out[row] = x2[m];
+    }
+  }
+}
+
+// Phase 2's shared memory, 110.5 KB: two CTAs fit one SM. The f64 running
+// sums of Σμx live here, not in registers, which keeps a thread within
+// the 128 registers that two 256-thread CTAs per SM allow.
+struct __align__(16) AccumSmem {
+  double tot[32][kThreads];  // thread t's 4 x 8 running Σμx at [i][t]
+  double red[kThreads];      // the CTA's final fixed-order reductions
+  float mu[BM][kFuzzyBN];    // μ of the row block's K tile
+  union __align__(16) {
+    AssignSmem<kFuzzyBN> dots;
+    float xc[kRC][kDC];  // x rows of one accumulate step, columns of the slice
+  } u;
+};
+
+// One kRC x kDC chunk of x (rows row0 + r0.., columns dc..), held in
+// registers between its global load and its store to shared memory, so the
+// next chunk's loads are in flight while the current one computes. Rows
+// past n and columns past d load as 0.
+template <bool kVec>
+struct ChunkRegs {
+  static constexpr int kW = kVec ? 4 : 1;
+  static constexpr int kPer = kDC / kW;  // loads per chunk row
+  static constexpr int kN = kRC * kPer / kThreads;
+  using T = typename std::conditional<kVec, float4, float>::type;
+  T v[kN];
+
+  __device__ __forceinline__ void load(const float* __restrict__ x,
+                                       long long n, int d, long long row0,
+                                       int dc) {
+#pragma unroll
+    for (int t = 0; t < kN; ++t) {
+      const int i = threadIdx.x + t * kThreads;
+      const long long row = row0 + i / kPer;
+      const int col = dc + (i % kPer) * kW;
+      v[t] = (row < n && col < d)
+                 ? *reinterpret_cast<const T*>(x + row * d + col)
+                 : T{};
+    }
+  }
+
+  __device__ __forceinline__ void store(float (&xc)[kRC][kDC]) const {
+#pragma unroll
+    for (int t = 0; t < kN; ++t) {
+      const int i = threadIdx.x + t * kThreads;
+      *reinterpret_cast<T*>(&xc[i / kPer][(i % kPer) * kW]) = v[t];
+    }
+  }
+};
+
+// Phase 2. CTA (blockIdx.x, blockIdx.y, blockIdx.z) = (K tile, d slice,
+// row range g of G). Writes its Σμx partial to ws[g] and, in the d slice 0
+// CTAs, its Σμ partial to wpart[g] and its Σμd² partial to
+// opart[g * gridDim.x + blockIdx.x]. Dynamic shared memory: AccumSmem.
+template <bool kVec, bool kM2>
+__global__ void __launch_bounds__(kThreads, 2)
+    fuzzy_accum_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                       const float* __restrict__ c2,
+                       const float* __restrict__ s_row,
+                       const float* __restrict__ x2_row, long long n, int k,
+                       int d, float p, float mexp, float eps,
+                       float* __restrict__ ws, double* __restrict__ wpart,
+                       double* __restrict__ opart) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  AccumSmem& sm = *reinterpret_cast<AccumSmem*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int kt = blockIdx.x * kFuzzyBN;
+  const int dc = blockIdx.y * kDC;
+  const int g = blockIdx.z, grid = gridDim.z;
+  const long long nb = (n + BM - 1) / BM;
+  const long long b0 = nb * g / grid, b1 = nb * (g + 1) / grid;
+  // Accumulate mapping: centroids kt + cg*4 + i (i < 4), columns
+  // dc + colg*4 + jj and dc + 64 + colg*4 + jj (jj < 4).
+  const int cg = tid / 16, colg = tid % 16;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sm.tot[e][tid] = 0.0;
+  double wtot[kTN];
+#pragma unroll
+  for (int q = 0; q < kTN; ++q) wtot[q] = 0.0;
+  double otot = 0.0;
+
+  for (long long b = b0; b < b1; ++b) {
+    const long long row0 = b * BM;
+    // This thread's rows' ‖x‖² and s, loaded before the distance tile.
+    float x2r[TM], sr[TM];
+#pragma unroll
+    for (int m = 0; m < TM; ++m) {
+      const long long row = row0 + ty * TM + m;
+      x2r[m] = row < n ? x2_row[row] : 0.f;
+      sr[m] = row < n ? s_row[row] : 1.f;
+    }
+    ChunkRegs<kVec> chunk;
+    {
+      float acc[TM][kTN];
+      tile_dots<kVec>(x, c, n, k, d, row0, kt, sm.u.dots, acc);
+      chunk.load(x, n, d, row0, dc);  // in flight while μ is computed
+      float wb[kTN] = {0.f, 0.f, 0.f, 0.f};
+      float ob = 0.f;
+#pragma unroll
+      for (int m = 0; m < TM; ++m) {
+        const bool live = row0 + ty * TM + m < n;
+        float out[kTN];
+#pragma unroll
+        for (int q = 0; q < kTN; ++q) {
+          const int j = kt + tx * 4 + q;
+          float mu = 0.f;
+          if (live && j < k) {
+            const float d2 = true_d2(x2r[m], c2[j], acc[m][q]);
+            const float u = inv_power<kM2>(d2 + eps, p) / sr[m];
+            mu = mu_power<kM2>(u, mexp);
+            wb[q] += mu;
+            ob = fmaf(mu, d2, ob);
+          }
+          out[q] = mu;
+        }
+        *reinterpret_cast<float4*>(&sm.mu[ty * TM + m][tx * 4]) =
+            make_float4(out[0], out[1], out[2], out[3]);
+      }
+#pragma unroll
+      for (int q = 0; q < kTN; ++q) wtot[q] += (double)wb[q];
+      otot += (double)ob;
+    }
+    float blk[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) blk[i][jj] = 0.f;
+    for (int r0 = 0; r0 < BM; r0 += kRC) {
+      // tile_dots ended with a barrier, and each step below ends with
+      // one, so the chunk may overwrite the staging tiles; this barrier
+      // also publishes μ.
+      chunk.store(sm.u.xc);
+      __syncthreads();
+      if (r0 + kRC < BM) chunk.load(x, n, d, row0 + r0 + kRC, dc);
+#pragma unroll 4
+      for (int rr = 0; rr < kRC; ++rr) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(&sm.mu[r0 + rr][cg * 4]);
+        const float4 v0 =
+            *reinterpret_cast<const float4*>(&sm.u.xc[rr][colg * 4]);
+        const float4 v1 =
+            *reinterpret_cast<const float4*>(&sm.u.xc[rr][64 + colg * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            blk[i][jj] = fmaf(av[i], bv[jj], blk[i][jj]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) sm.tot[i * 8 + jj][tid] += (double)blk[i][jj];
+  }
+
+  const long long kd = (long long)k * d;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = kt + cg * 4 + i;
+    if (j >= k) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = dc + (jj < 4 ? colg * 4 + jj : 64 + colg * 4 + jj - 4);
+      if (col < d) {
+        ws[g * kd + (long long)j * d + col] = (float)sm.tot[i * 8 + jj][tid];
+      }
+    }
+  }
+  if (blockIdx.y != 0) return;  // every d slice computes the same μ
+  // Σμ per centroid kt + tx*4 + q: the 16 row owners (ty) in order.
+#pragma unroll
+  for (int q = 0; q < kTN; ++q) {
+    sm.red[tid] = wtot[q];
+    __syncthreads();
+    if (ty == 0) {
+      double w = 0.0;
+      for (int t = 0; t < 16; ++t) w += sm.red[t * 16 + tx];
+      const int j = kt + tx * 4 + q;
+      if (j < k) wpart[(long long)g * k + j] = w;
+    }
+    __syncthreads();
+  }
+  sm.red[tid] = otot;
+  __syncthreads();
+  if (tid == 0) {
+    double o = 0.0;
+    for (int t = 0; t < kThreads; ++t) o += sm.red[t];
+    opart[(long long)g * gridDim.x + blockIdx.x] = o;
+  }
+}
+
+// Sums the G partials in g order: Σμx (K, d), Σμ (K,) and the objective,
+// clamped at 0 as the JAX wrapper clamps it.
+__global__ void fuzzy_reduce_kernel(const float* __restrict__ ws,
+                                    const double* __restrict__ wpart,
+                                    const double* __restrict__ opart,
+                                    int grid, int ntk, int k, int d,
+                                    float* __restrict__ wsums,
+                                    float* __restrict__ weights,
+                                    float* __restrict__ objective) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long kd = (long long)k * d;
+  if (e < kd) {
+    double s = 0.0;
+    for (int g = 0; g < grid; ++g) s += (double)ws[g * kd + e];
+    wsums[e] = (float)s;
+  }
+  if (e < k) {
+    double s = 0.0;
+    for (int g = 0; g < grid; ++g) s += wpart[(long long)g * k + e];
+    weights[e] = (float)s;
+  }
+  if (e == 0) {
+    double s = 0.0;
+    for (long long t = 0; t < (long long)grid * ntk; ++t) s += opart[t];
+    objective[0] = fmaxf((float)s, 0.f);
+  }
+}
+
+int k_tiles(int k) { return (k + kFuzzyBN - 1) / kFuzzyBN; }
+int d_slices(int d) { return (d + kDC - 1) / kDC; }
+
+}  // namespace
+
+// Centroids per K tile: the objective partials are (grid, ceil(K / tile)).
+extern "C" int tdc_fuzzy_k_tile() { return kFuzzyBN; }
+
+// Row ranges G of phase 2: about `target_ctas` CTAs in all, each range at
+// least one 128-row block, at least 1.
+extern "C" int tdc_fuzzy_grid(long long n, int k, int d, int target_ctas) {
+  const long long tiles = (long long)k_tiles(k) * d_slices(d);
+  long long g = target_ctas / tiles;
+  const long long nb = (n + BM - 1) / BM;
+  if (g > nb) g = nb;
+  if (g > 65535) g = 65535;
+  return g < 1 ? 1 : (int)g;
+}
+
+// Phase 1 alone: s (N,) f32, the row normaliser, and ‖x‖² (N,) f32.
+extern "C" int tdc_fuzzy_normalizer(const float* x, const float* c,
+                                    const float* c2, long long n, int k,
+                                    int d, float p, float eps, float* s,
+                                    float* x2, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const bool vec = vector_loads_ok(x, c, d), m2 = p == -1.f;
+  auto* kern = vec ? (m2 ? fuzzy_norm_kernel<true, true>
+                         : fuzzy_norm_kernel<true, false>)
+                   : (m2 ? fuzzy_norm_kernel<false, true>
+                         : fuzzy_norm_kernel<false, false>);
+  const unsigned blocks = (unsigned)((n + BM - 1) / BM);
+  kern<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, c, c2, n, k, d, p,
+                                                      eps, s, x2);
+  return (int)cudaGetLastError();
+}
+
+// Phase 2 alone, given s and ‖x‖²: the accumulate and the fixed-order
+// reduction.
+extern "C" int tdc_fuzzy_accumulate(const float* x, const float* c,
+                                    const float* c2, const float* s,
+                                    const float* x2, long long n, int k,
+                                    int d, float p, float mexp, float eps,
+                                    int grid, float* ws, double* wpart,
+                                    double* opart, float* wsums,
+                                    float* weights, float* objective,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool vec = vector_loads_ok(x, c, d), m2 = p == -1.f && mexp == 2.f;
+  auto* kern = vec ? (m2 ? fuzzy_accum_kernel<true, true>
+                         : fuzzy_accum_kernel<true, false>)
+                   : (m2 ? fuzzy_accum_kernel<false, true>
+                         : fuzzy_accum_kernel<false, false>);
+  const int smem = (int)sizeof(AccumSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int ntk = k_tiles(k);
+  const dim3 agrid((unsigned)ntk, (unsigned)d_slices(d), (unsigned)grid);
+  kern<<<agrid, kThreads, smem, st>>>(x, c, c2, s, x2, n, k, d, p, mexp, eps,
+                                      ws, wpart, opart);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long kd = (long long)k * d;
+  const long long total = kd > k ? kd : (long long)k;
+  fuzzy_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      ws, wpart, opart, grid, ntk, k, d, wsums, weights, objective);
+  return (int)cudaGetLastError();
+}

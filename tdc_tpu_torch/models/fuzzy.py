@@ -1,0 +1,208 @@
+"""Fuzzy C-Means with an explicit fuzzifier (counterpart:
+tdc_tpu/models/fuzzy.py).
+
+The JAX package traces the loop into one `lax.while_loop`. Here, as in
+`models/kmeans.py`, the loop runs on the host and every iteration's work
+stays on the device; the host reads the scalar centroid shift once per
+iteration, and only when a tolerance is set. The semantics are the JAX
+package's:
+
+- new centroids = Σμx / max(Σμ, 1e-12); shift = the largest row L2 norm
+  of the move;
+- tol < 0 runs exactly max_iters iterations;
+- the final objective is recomputed at the returned centroids, so a fit
+  makes n_iter + 1 stats calls;
+- converged = shift <= max(tol, 0) and n_iter > 0.
+
+Supported in this slice: layout='samples', no mesh, no sample weights,
+float32 inputs, kernel in {'xla', 'pallas', 'auto'}. The rest raises
+NotImplementedError naming the ROADMAP.md item that ports it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from tdc_tpu_torch.models.kmeans import (
+    _as_points,
+    _not_ported,
+    auto_block_rows,
+    kmeans_predict,
+    resolve_init,
+)
+from tdc_tpu_torch.ops.assign import (
+    fuzzy_memberships,
+    fuzzy_stats,
+    fuzzy_stats_padded_blocked,
+)
+from tdc_tpu_torch.utils.device import resolve_device
+
+
+class FuzzyCMeansResult(NamedTuple):
+    centroids: torch.Tensor  # (K, d) float32
+    n_iter: int  # iterations run
+    objective: torch.Tensor  # () float32 — J_m = Σ u^m d² at the centroids
+    shift: torch.Tensor  # () float32 — last max centroid movement (L2)
+    converged: bool
+    # (n_iter, 2) numpy [objective, shift] per iteration when history=True:
+    # row i is the objective at the iteration's input centroids and its
+    # shift.
+    history: object = None
+    # Iterations executed by THIS fit call (None = same as n_iter).
+    n_iter_run: object = None
+
+
+def _fuzzy_stats_fn(kernel: str, m: float, block_rows: int, k: int, d: int):
+    if kernel == "pallas":
+        # The CUDA kernel route, decided once per fit (one event).
+        from tdc_tpu_torch.ops.fuzzy_kernels import fuzzy_stats_for
+
+        fn = fuzzy_stats_for(k, d, label="fuzzy_fit")
+        return lambda x, c: fn(x, c, m)
+    if kernel == "pallas_bf16":
+        raise _not_ported("kernel='pallas_bf16'", "Queue B, B5")
+    if kernel == "tall":
+        raise _not_ported("kernel='tall'", "Queue B, B11")
+    if kernel != "xla":
+        raise ValueError(
+            f"unknown kernel {kernel!r} (use 'xla', 'pallas' or 'auto')")
+    if block_rows:
+        return lambda x, c: fuzzy_stats_padded_blocked(x, c, m, block_rows)
+    return lambda x, c: fuzzy_stats(x, c, m=m)
+
+
+def _fcm_loop(
+    x: torch.Tensor,
+    init_centroids: torch.Tensor,
+    max_iters: int,
+    tol: float,
+    m: float,
+    kernel: str = "xla",
+    block_rows: int = 0,
+    history: bool = False,
+) -> FuzzyCMeansResult:
+    """The fuzzy C-means iteration. tol < 0 disables the convergence test;
+    history=True records (objective, shift) per iteration on the device."""
+    stats_fn = _fuzzy_stats_fn(kernel, m, block_rows, *init_centroids.shape)
+    c = init_centroids.to(torch.float32)
+    hist = (torch.full((max_iters, 2), float("nan"), device=x.device)
+            if history else None)
+    shift = torch.tensor(float("inf"), device=x.device)
+    n_iter = 0
+    while n_iter < max_iters:
+        stats = stats_fn(x, c)
+        new_c = stats.weighted_sums / torch.clamp_min(
+            stats.weights[:, None], 1e-12)
+        shift = torch.linalg.norm(new_c - c, dim=-1).max()
+        if history:
+            hist[n_iter, 0] = stats.objective
+            hist[n_iter, 1] = shift
+        c = new_c
+        n_iter += 1
+        if tol >= 0 and not float(shift) > tol:
+            break
+    final_obj = stats_fn(x, c).objective
+    return FuzzyCMeansResult(
+        centroids=c,
+        n_iter=n_iter,
+        objective=final_obj,
+        shift=shift,
+        converged=bool(float(shift) <= max(tol, 0.0) and n_iter > 0),
+        history=hist[:n_iter].cpu().numpy() if history else None,
+    )
+
+
+def fuzzy_cmeans_fit(
+    x,
+    k: int,
+    *,
+    m: float = 2.0,
+    init="kmeans++",
+    generator: torch.Generator | None = None,
+    max_iters: int = 20,
+    tol: float = 1e-4,
+    mesh=None,
+    kernel: str = "xla",
+    sample_weight=None,
+    layout: str = "samples",
+    history: bool = False,
+    device=None,
+) -> FuzzyCMeansResult:
+    """Fit Fuzzy C-Means.
+
+    Args:
+      x: (N, d) points (numpy or torch), converted to float32 on `device`.
+      k: number of clusters; m: the fuzzifier, > 1.
+      init: 'kmeans++', 'random', 'first_k', or an explicit (K, d) array.
+      generator: torch.Generator on `device` for the stochastic inits
+        (default: one seeded with 0).
+      max_iters: iteration cap; tol: center-shift tolerance (negative =
+        exactly max_iters iterations).
+      kernel: 'xla' (plain PyTorch ops, N-blocked past the memory budget),
+        'pallas' (the CUDA kernel B6) or 'auto' (pallas on CUDA, xla on the
+        CPU).
+      history: also return (objective, shift) per iteration.
+      device: None means 'cuda'; 'cpu' runs the plain versions.
+    """
+    if m <= 1.0:
+        raise ValueError(f"fuzzifier m must be > 1, got {m}")
+    if mesh is not None:
+        raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
+    if sample_weight is not None:
+        raise _not_ported("sample_weight (weighted fuzzy fits)",
+                          "Queue A, A6 remainder")
+    if layout != "samples":
+        if layout == "features":
+            raise _not_ported("layout='features'", "Queue B, B11")
+        raise ValueError(f"unknown layout {layout!r}")
+    dev = resolve_device(device)
+    x = _as_points(x, dev)
+    n, d = x.shape
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if kernel.startswith("auto"):
+        from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
+
+        kernel = resolve_kernel(kernel, k=k, d=d, device=dev, model="fuzzy",
+                                label="fuzzy_fit")
+    block_rows = auto_block_rows(n, k, device=dev) if kernel == "xla" else 0
+    c_init = resolve_init(x, k, init, generator)
+    return _fcm_loop(x, c_init, int(max_iters), float(tol), float(m), kernel,
+                     block_rows, bool(history))
+
+
+def fuzzy_predict(x, centroids, *, m: float = 2.0, soft: bool = False,
+                  block_rows: int = 0, kernel: str = "auto", device=None):
+    """Memberships (soft=True, (N, K) f32) or hard labels ((N,) int32).
+
+    Hard labels: membership falls as the squared distance grows, so
+    argmax(u) == argmin(d²) — routed through kmeans_predict (B2, the
+    distance-argmin kernel, under kernel='pallas'). No (N, K) matrix.
+
+    Soft: the (N, K) output is the result asked for; with block_rows > 0
+    (or automatically past 1 GB) it is computed in N-blocks, so no
+    intermediate beyond the output itself exists.
+    """
+    if not soft:
+        return kmeans_predict(x, centroids, kernel=kernel, device=device)
+    dev = resolve_device(device)
+    x = _as_points(x, dev)
+    c = torch.as_tensor(centroids).to(dev, torch.float32).contiguous()
+    n, k = x.shape[0], c.shape[0]
+    if block_rows == 0 and 4 * n * k > (1 << 30):
+        block_rows = 1 << 16
+    if not block_rows or n <= block_rows:
+        return fuzzy_memberships(x, c, m=m)
+    out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    for s in range(0, n, block_rows):
+        out[s:s + block_rows] = fuzzy_memberships(x[s:s + block_rows], c, m=m)
+    return out
+
+
+def predict_proba(x, centroids, *, m: float = 2.0, block_rows: int = 0,
+                  device=None):
+    """Soft membership matrix (N, K) — sklearn-style alias."""
+    return fuzzy_predict(x, centroids, m=m, soft=True, block_rows=block_rows,
+                         device=device)

@@ -32,16 +32,22 @@ COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # name -> argtypes; every pointer and the stream are void*, every entry
 # point that launches returns an int CUDA error code
-# (tdc_segment_chunk_rows returns B3's rows per chunk, which sizes its
-# workspace).
+# (tdc_segment_chunk_rows, tdc_fuzzy_k_tile and tdc_fuzzy_grid return the
+# geometry that sizes B3's and B6's workspaces).
 SIGNATURES = {
     "tdc_distance_argmin": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "tdc_lloyd_stats_fused": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P,
                               _P, _P, _P],
     "tdc_segment_sums": [_P, _P, _LL, _I, _I, _P, _P, _P, _P],
     "tdc_segment_chunk_rows": [],
+    "tdc_fuzzy_normalizer": [_P, _P, _P, _LL, _I, _I, _F, _F, _P, _P, _P],
+    "tdc_fuzzy_accumulate": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _F, _F,
+                             _I, _P, _P, _P, _P, _P, _P, _P],
+    "tdc_fuzzy_k_tile": [],
+    "tdc_fuzzy_grid": [_LL, _I, _I, _I],
 }
 
 

@@ -1,5 +1,5 @@
-"""Assignment + Lloyd sufficient statistics (counterpart:
-tdc_tpu/ops/assign.py:26-333).
+"""Assignment, Lloyd and fuzzy sufficient statistics (counterpart:
+tdc_tpu/ops/assign.py:26-384).
 
 The stats contraction is the JAX package's one-hot matmul:
 one_hot(assign, K)ᵀ @ x gives the (K, d) per-cluster sums and the one-hot
@@ -8,8 +8,11 @@ twin stays bitwise repeatable on the card (an `index_add_` would use
 float atomics there). Empty clusters keep their previous centroid
 (`apply_centroid_update`).
 
-The fuzzy and weighted parts of the JAX module are not ported yet
-(ROADMAP.md, Queue A).
+Fuzzy C-Means statistics (`FuzzyStats`, `fuzzy_memberships`,
+`fuzzy_stats` and its N-blocked forms) follow the JAX formula exactly:
+u = (d² + eps)^(−1/(m−1)) normalised over K, μ = u^m, then Σμx, Σμ and
+Σμd². The weighted parts of the JAX module are not ported yet (ROADMAP.md,
+Queue A, A6 and B4).
 """
 
 from __future__ import annotations
@@ -139,3 +142,75 @@ def apply_centroid_update(
     counts = stats.counts[:, None]
     new = stats.sums / torch.where(counts > 0, counts, torch.ones_like(counts))
     return torch.where(counts > 0, new, prev_centroids.to(new.dtype))
+
+
+class FuzzyStats(NamedTuple):
+    """Fuzzy C-Means sufficient statistics."""
+
+    weighted_sums: torch.Tensor  # (K, d) Σ u^m x, f32
+    weights: torch.Tensor  # (K,) Σ u^m, f32
+    objective: torch.Tensor  # () Σ u^m d², the objective J_m, f32
+
+
+def _memberships_from_d2(d2: torch.Tensor, m: float,
+                         eps: float) -> torch.Tensor:
+    """u = (d² + eps)^(−1/(m−1)) normalised over K; eps keeps a point that
+    sits exactly on a centroid at full membership there instead of NaN."""
+    inv = (d2 + eps) ** (-1.0 / (m - 1.0))
+    return inv / inv.sum(dim=-1, keepdim=True)
+
+
+def fuzzy_memberships(x: torch.Tensor, centroids: torch.Tensor,
+                      m: float = 2.0, eps: float = 1e-9) -> torch.Tensor:
+    """Fuzzy membership matrix U (N, K), from matmul-form squared
+    distances."""
+    return _memberships_from_d2(pairwise_sq_dist(x, centroids), m, eps)
+
+
+def fuzzy_stats(x: torch.Tensor, centroids: torch.Tensor, m: float = 2.0,
+                eps: float = 1e-9) -> FuzzyStats:
+    """Memberships → μ = u^m → (μᵀx, Σμ, Σμd²), with an (N, K) matrix."""
+    d2 = pairwise_sq_dist(x, centroids)
+    mu = _memberships_from_d2(d2, m, eps) ** m
+    return FuzzyStats(weighted_sums=mu.T @ x.float(), weights=mu.sum(dim=0),
+                      objective=(mu * d2).sum())
+
+
+def fuzzy_stats_blocked(x: torch.Tensor, centroids: torch.Tensor, m: float,
+                        block_rows: int) -> FuzzyStats:
+    """fuzzy_stats over N-blocks, summed in block order (memberships are
+    row-local, so fuzzy stats block exactly like Lloyd stats). Requires
+    N % block_rows == 0."""
+    n, d = x.shape
+    k = centroids.shape[0]
+    if n % block_rows != 0:
+        raise ValueError(f"N={n} not divisible by block_rows={block_rows}")
+    wsums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    weights = torch.zeros((k,), dtype=torch.float32, device=x.device)
+    objective = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(0, n, block_rows):
+        st = fuzzy_stats(x[s:s + block_rows], centroids, m=m)
+        wsums = wsums + st.weighted_sums
+        weights = weights + st.weights
+        objective = objective + st.objective
+    return FuzzyStats(weighted_sums=wsums, weights=weights,
+                      objective=objective)
+
+
+def fuzzy_stats_padded_blocked(x: torch.Tensor, centroids: torch.Tensor,
+                               m: float, block_rows: int) -> FuzzyStats:
+    """fuzzy_stats_blocked for any N: zero-pads to a block multiple and
+    subtracts the padding's exact contribution (a zero row's memberships
+    depend only on ‖c‖²: they add to the weights and the objective, not to
+    Σμx)."""
+    n_fake = (-x.shape[0]) % block_rows
+    xp = F.pad(x, (0, 0, 0, n_fake)) if n_fake else x
+    stats = fuzzy_stats_blocked(xp, centroids, m, block_rows)
+    if n_fake == 0:
+        return stats
+    zs = fuzzy_stats(x.new_zeros((1, x.shape[1])), centroids, m=m)
+    return FuzzyStats(
+        weighted_sums=stats.weighted_sums,
+        weights=stats.weights - n_fake * zs.weights,
+        objective=stats.objective - n_fake * zs.objective,
+    )

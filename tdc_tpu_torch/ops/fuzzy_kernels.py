@@ -1,0 +1,147 @@
+"""The fuzzy kernel B6 (counterpart: tdc_tpu/ops/pallas_kernels.py, the
+`_fuzzy_fold_for`, `fuzzy_stats_fused` and `fuzzy_stats_auto` parts).
+
+As in `ops/lloyd_kernels.py`, the kernel has three parts here:
+
+- the wrapper `fuzzy_stats_fused`, which checks its inputs, allocates every
+  output and workspace with `torch.empty`, and on a CUDA tensor launches
+  the hand-written kernel from `csrc/fuzzy_kernels.cu` on the current
+  stream or raises;
+- the plain PyTorch version `fuzzy_stats_fused_plain`, the same function
+  with the same formula (d² from ‖x‖² + ‖c‖² − 2x·c clamped at 0,
+  u = (d² + eps)^(−1/(m−1)) normalised over K, μ = u^m). The wrapper uses
+  it only for a CPU tensor; the tests hold it to the JAX package and
+  `chip_smoke.py` holds the kernel to it on the card;
+- a launch counter, `fuzzy_stats_fused.launches`, which only the kernel
+  launch increments.
+
+The kernel is two phases (the row normaliser, then a K-tiled accumulate
+that recomputes the distance tile), so it takes every (K, d): there is no
+route limit and no fallback. See the note in `csrc/fuzzy_kernels.cu` and
+PERF.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tdc_tpu_torch.ops import _build
+from tdc_tpu_torch.ops.assign import FuzzyStats
+from tdc_tpu_torch.ops.lloyd_kernels import (
+    _PLAIN_TILE_ELEMS,
+    _check,
+    _sq_norms,
+    _stream,
+)
+from tdc_tpu_torch.utils.structlog import emit
+
+
+def _check_m(name: str, m: float) -> None:
+    if not m > 1.0:
+        raise ValueError(f"{name}: fuzzifier m must be > 1, got {m}")
+
+
+def fuzzy_stats_fused_plain(x: torch.Tensor, centroids: torch.Tensor,
+                            m: float = 2.0, eps: float = 1e-9) -> FuzzyStats:
+    """Plain version of B6, over row blocks of at most _PLAIN_TILE_ELEMS
+    (rows, K) elements. Memberships are f32 as in the kernel; the three
+    sums are taken in f64 and rounded once, so the plain version is the
+    accurate side of the kernel check. Objective clamped at 0."""
+    _check_m("fuzzy_stats_fused_plain", m)
+    k, d = centroids.shape
+    c2 = _sq_norms(centroids)
+    p = -1.0 / (m - 1.0)
+    wsums = torch.zeros((k, d), dtype=torch.float64, device=x.device)
+    weights = torch.zeros(k, dtype=torch.float64, device=x.device)
+    objective = torch.zeros((), dtype=torch.float64, device=x.device)
+    rows = max(1, _PLAIN_TILE_ELEMS // k)
+    for s in range(0, x.shape[0], rows):
+        xb = x[s:s + rows]
+        x2 = (xb * xb).sum(dim=1, keepdim=True)
+        d2 = torch.clamp_min(x2 + c2 - 2.0 * (xb @ centroids.T), 0.0)
+        inv = (d2 + eps) ** p
+        mu = (inv / inv.sum(dim=1, keepdim=True)) ** m
+        wsums += mu.T.double() @ xb.double()
+        weights += mu.sum(dim=0, dtype=torch.float64)
+        objective += (mu * d2).sum(dtype=torch.float64)
+    return FuzzyStats(weighted_sums=wsums.float(), weights=weights.float(),
+                      objective=torch.clamp_min(objective, 0.0).float())
+
+
+def _normalize_phase(x, centroids, c2, m, eps):
+    """Phase 1 of B6 on CUDA tensors: (s, ‖x‖²), each (N,) f32. Counts no
+    launch: `fuzzy_stats_fused` is the kernel's entry point."""
+    n, d = x.shape
+    s = torch.empty(max(n, 1), dtype=torch.float32, device=x.device)
+    x2 = torch.empty(max(n, 1), dtype=torch.float32, device=x.device)
+    _build.check(_build.load().lib.tdc_fuzzy_normalizer(
+        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), n,
+        centroids.shape[0], d, -1.0 / (m - 1.0), eps, s.data_ptr(),
+        x2.data_ptr(), _stream(x),
+    ), "fuzzy_stats_fused (normaliser)")
+    return s, x2
+
+
+def _accumulate_phase(x, centroids, c2, s, x2, m, eps) -> FuzzyStats:
+    """Phase 2 of B6 on CUDA tensors, given phase 1's (s, ‖x‖²): the
+    K-tiled accumulate and the fixed-order sum of its partials."""
+    n, d = x.shape
+    k = centroids.shape[0]
+    dev = x.device
+    lib = _build.load().lib
+    # Row ranges G: about two CTAs per SM over all (K tile, d slice, row
+    # range) triples.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = lib.tdc_fuzzy_grid(n, k, d, 2 * sms)
+    ntk = -(-k // lib.tdc_fuzzy_k_tile())
+    ws = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
+    wpart = torch.empty((grid, k), dtype=torch.float64, device=dev)
+    opart = torch.empty((grid, ntk), dtype=torch.float64, device=dev)
+    wsums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    weights = torch.empty(k, dtype=torch.float32, device=dev)
+    objective = torch.empty((), dtype=torch.float32, device=dev)
+    _build.check(lib.tdc_fuzzy_accumulate(
+        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), s.data_ptr(),
+        x2.data_ptr(), n, k, d, -1.0 / (m - 1.0), m, eps, grid,
+        ws.data_ptr(), wpart.data_ptr(), opart.data_ptr(), wsums.data_ptr(),
+        weights.data_ptr(), objective.data_ptr(), _stream(x),
+    ), "fuzzy_stats_fused (accumulate)")
+    return FuzzyStats(weighted_sums=wsums, weights=weights,
+                      objective=objective)
+
+
+def fuzzy_stats_fused(x: torch.Tensor, centroids: torch.Tensor,
+                      m: float = 2.0, eps: float = 1e-9) -> FuzzyStats:
+    """B6: fuzzy C-means sufficient stats, no (N, K) buffer. Returns
+    FuzzyStats(weighted_sums (K, d), weights (K,), objective ()) in f32,
+    the objective clamped at 0. Takes every (K, d)."""
+    _check("fuzzy_stats_fused", x, centroids)
+    _check_m("fuzzy_stats_fused", m)
+    if x.device.type == "cpu":
+        return fuzzy_stats_fused_plain(x, centroids, m=m, eps=eps)
+    c2 = _sq_norms(centroids)
+    s, x2 = _normalize_phase(x, centroids, c2, m, eps)
+    out = _accumulate_phase(x, centroids, c2, s, x2, m, eps)
+    fuzzy_stats_fused.launches += 1
+    return out
+
+
+fuzzy_stats_fused.launches = 0
+
+
+def fuzzy_stats_for(k: int, d: int, *, label: str = ""):
+    """The kernel route's fuzzy stats function for (K, d): B6 at every
+    (K, d), since its two phases have no K·d limit. One `kernel_selected`
+    event names the choice; a fit asks once and reuses the function."""
+    emit("kernel_selected", kernel="fused", model="fuzzy", k=int(k),
+         d=int(d), reason=(
+             "two-phase fused kernel (row normaliser, then K-tiled "
+             "accumulate): no (N, K) buffer and no K·d limit"),
+         label=label or "fuzzy_stats_auto")
+    return fuzzy_stats_fused
+
+
+def fuzzy_stats_auto(x: torch.Tensor, centroids: torch.Tensor,
+                     m: float = 2.0) -> FuzzyStats:
+    """Fuzzy stats on the kernel route (tests and the fit loop share it)."""
+    return fuzzy_stats_for(*centroids.shape)(x, centroids, m)

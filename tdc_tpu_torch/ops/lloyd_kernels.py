@@ -224,22 +224,23 @@ def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
     """The default-kernel policy: 'auto' resolves to 'pallas' (the CUDA
     kernels) on a CUDA device and to 'xla' (plain PyTorch) on the CPU, with
     one `kernel_selected` event; an explicit name passes through. CUDA
-    plays the part that platform == 'tpu' plays in the JAX version."""
+    plays the part that platform == 'tpu' plays in the JAX version.
+    `model` is 'kmeans' or 'fuzzy'; both kernel routes take every (K, d)."""
     if kernel != "auto":
         if kernel == "auto:quantized":
             raise NotImplementedError(
                 "kernel='auto:quantized' needs the bf16 B1 variant "
                 "(ROADMAP.md Queue B, B5)")
         return kernel
-    if model != "kmeans":
+    if model not in ("kmeans", "fuzzy"):
         raise NotImplementedError(
             f"resolve_kernel: model={model!r} is not ported yet "
             "(ROADMAP.md Queue A)")
     device = torch.device(device)
     if device.type == "cuda":
         choice, reason = "pallas", (
-            "CUDA device: the hand-written Lloyd kernels apply at any "
-            f"(K={k}, d={d}) (fused or sorted route)")
+            f"CUDA device: the hand-written {model} kernels apply at any "
+            f"(K={k}, d={d})")
     else:
         choice, reason = "xla", (
             f"device={device.type}: the kernels are CUDA-only; plain "

@@ -1,4 +1,5 @@
-"""The port's CLI against the JAX package's on the same .npz, on the CPU.
+"""The port's CLI against the JAX package's on the same .npz, on the CPU,
+for distributedKMeans and distributedFuzzyCMeans.
 
 Both write one CSV row; they must agree on every column except the
 timings, `backend` and `points_per_sec_per_chip`, with `sse` within rtol
@@ -15,6 +16,8 @@ from tdc_tpu_torch.cli import main as tcli
 
 FLAGS = ["--method_name=distributedKMeans", "--K=40", "--init=first_k",
          "--tol=-1", "--kernel=pallas", "--n_max_iters=5", "--seed=7"]
+FUZZY_FLAGS = ["--method_name=distributedFuzzyCMeans", "--fuzzifier=2.0",
+               *FLAGS[1:]]
 TIMING = {"setup_time", "initialization_time", "computation_time",
           "backend", "points_per_sec_per_chip"}
 
@@ -37,11 +40,11 @@ def _row(path):
     return rows[0]
 
 
-def test_cli_rows_agree(npz, tmp_path):
+def _rows_agree(npz, tmp_path, flags):
     jlog, tlog = tmp_path / "jax.csv", tmp_path / "port.csv"
-    assert jcli.main([*FLAGS, f"--data_file={npz}", f"--log_file={jlog}",
+    assert jcli.main([*flags, f"--data_file={npz}", f"--log_file={jlog}",
                       "--n_GPUs=1", "--cache_dir="]) == 0
-    assert tcli.main([*FLAGS, f"--data_file={npz}", f"--log_file={tlog}",
+    assert tcli.main([*flags, f"--data_file={npz}", f"--log_file={tlog}",
                       "--device", "cpu"]) == 0
     j, t = _row(jlog), _row(tlog)
     assert list(j) == list(t)  # same schema, same column order
@@ -50,6 +53,15 @@ def test_cli_rows_agree(npz, tmp_path):
     np.testing.assert_allclose(float(t["sse"]), float(j["sse"]), rtol=1e-5)
     for col in set(j) - TIMING - {"sse"}:
         assert t[col] == j[col], col
+
+
+def test_cli_rows_agree(npz, tmp_path):
+    _rows_agree(npz, tmp_path, FLAGS)
+
+
+def test_cli_rows_agree_fuzzy(npz, tmp_path):
+    # `sse` holds the objective J_m in both CLIs' fuzzy rows.
+    _rows_agree(npz, tmp_path, FUZZY_FLAGS)
 
 
 def test_cli_default_device_fails_without_a_card(npz, tmp_path, capsys):
@@ -66,7 +78,7 @@ def test_cli_default_device_fails_without_a_card(npz, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--method_name=distributedFuzzyCMeans"],
+    ["--method_name=gaussianMixture"],
     ["--n_GPUs=2"],
     ["--dtype=bfloat16"],
 ])

@@ -5,13 +5,17 @@ skip without a card. Run them on one with
 
 Tolerances: labels and counts equal; sums and distances within rtol 1e-5
 and atol 1e-4 (float32, different summation order); two runs bitwise
-equal. With duplicated centroids every tie goes to the smallest index."""
+equal. With duplicated centroids every tie goes to the smallest index.
+B6 (fuzzy stats): weighted sums within 1e-5 of Σμ|x| per cluster, weights
+and objective within rtol 1e-5, two runs bitwise equal."""
 
 import pytest
 import torch
 
+from tdc_tpu_torch.ops import fuzzy_kernels as fk
 from tdc_tpu_torch.ops import lloyd_kernels as lk
 from tdc_tpu_torch.ops import sorted_stats as ss
+from tdc_tpu_torch.ops.assign import fuzzy_memberships
 
 pytestmark = pytest.mark.cuda
 
@@ -77,3 +81,20 @@ def test_ties_go_to_the_smallest_index(gen, d):
     assert torch.equal(lk.lloyd_stats_fused(x, c).counts, want)
     sums, counts = ss.sorted_cluster_stats(x, lab, k, pallas=True)
     assert torch.equal(counts, want) and not sums[copies].any()
+
+
+@pytest.mark.parametrize("m", [2.0, 1.7])
+@pytest.mark.parametrize("n,k,d", [(1000, 37, 19), (5000, 130, 128)])
+def test_b6_matches_plain(gen, n, k, d, m):
+    x, c = _data(gen, n, k, d)
+    st = fk.fuzzy_stats_fused(x, c, m)
+    again = fk.fuzzy_stats_fused(x, c, m)
+    assert all(torch.equal(a, b) for a, b in zip(st, again))
+    want = fk.fuzzy_stats_fused_plain(x, c, m)
+    scale = (fuzzy_memberships(x, c, m) ** m).T @ x.abs()  # Σμ|x|
+    assert ((st.weighted_sums - want.weighted_sums).abs()
+            <= 1e-5 * scale + 1e-6).all()
+    torch.testing.assert_close(st.weights, want.weights, rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(st.objective, want.objective, rtol=1e-5,
+                               atol=0.0)
