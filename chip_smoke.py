@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `tdc_tpu_torch/csrc/` and drives its
-main paths through the CLI: in-memory single-GPU f32 Lloyd K-Means and
-Fuzzy C-Means. Phases, each of which raises on failure (nothing is
-caught):
+main paths through the CLI: in-memory single-GPU f32 Lloyd K-Means, with
+and without sample weights, and Fuzzy C-Means. Phases, each of which
+raises on failure (nothing is caught):
 
 1. Device: a CUDA card is required; prints its name and power limit.
 2. Build: nvcc builds the kernels; prints the build seconds.
@@ -19,7 +19,11 @@ caught):
    Duplicated centroids check the tie rule of B1, B2 and B3 on the card.
    B6 (fuzzy stats) at N=2^22, K=1024, d=128 for m=2.0 and m=1.7, and at
    a ragged N=2^16+37, K=300, d=19 with one point exactly on a centroid,
-   which must take full membership there.
+   which must take full membership there. B4 (weighted Lloyd stats) at
+   N=2^22, K=1024, d=128 and at the ragged shape, with weights uniform in
+   [0, 3) and about 5% exactly 0; B3 is also timed on the weighted sorted
+   route's [w·x | w] rows (d+1 = 769 columns). The tie check runs with
+   weights too: copies take no mass in B4 or the weighted sorted stats.
 4. Main path, fused route: the CLI at N=2^22, d=128, K=1024,
    --kernel=pallas, 10 iterations; B1 must launch n_iter + 1 times per fit.
 5. Main path, sorted route: the CLI at K=16,384, d=768, --init=random,
@@ -27,11 +31,17 @@ caught):
 6. Main path, fuzzy route: the CLI with --method_name=distributedFuzzyCMeans
    at N=2^22, d=128, K=1024, --kernel=pallas, 10 iterations; B6 must
    launch n_iter + 1 times per fit and B1, B2, B3 never.
-7. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
+7. Main path, weighted fused route: phase 4's CLI with --weight_file (an
+   (N,) .npy made from a seeded generator); B4 must launch n_iter + 1
+   times per fit and B1, B2, B3, B6 never.
+8. Main path, weighted sorted route: phase 5's CLI with --weight_file;
+   B2 and B3 must launch n_iter + 1 times per fit and B1, B4 never.
+9. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
    the plain labels.
-8. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
+10. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
    kernel="xla" fit from the same init give the same n_iter and
-   centroids within tolerance, for K-Means and for Fuzzy C-Means.
+   centroids within tolerance, for K-Means, weighted K-Means and Fuzzy
+   C-Means.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -50,6 +60,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from tdc_tpu_torch.cli import main as cli
@@ -99,6 +110,7 @@ FUZZY_ARGS = [
 ]
 FUZZY_MS = (2.0, 1.7)  # B6 is checked at both fuzzifiers
 FUZZY_RAGGED = ((1 << 16) + 37, 300, 19)  # N, K, d: no multiple of a tile
+ZERO_SHARE = 0.05  # share of the weights set exactly to 0
 
 
 def smi() -> str:
@@ -142,6 +154,15 @@ def blob_data(gen, n, k, d):
     labels = torch.arange(n, device="cuda") % k
     x = torch.randn((n, d), generator=gen, device="cuda") + centers[labels]
     return x.contiguous(), centers.contiguous()
+
+
+def make_weights(n: int, seed: int) -> torch.Tensor:
+    """(n,) f32 weights on the card: uniform in [0, 3), about ZERO_SHARE
+    of them exactly 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.rand(n, generator=g, device="cuda") * 3.0
+    return torch.where(torch.rand(n, generator=g, device="cuda") < ZERO_SHARE,
+                       0.0, w).contiguous()
 
 
 def check_close(name, got, want, scale):
@@ -248,6 +269,28 @@ def phase_kernels(gen) -> dict:
             longest_run=int((starts[1:] - starts[:-1]).max()),
             ms=median_ms(lambda: ss.segment_sums(xs, starts), 20))
         del keys, order, got, want, abs_sums
+    # B3 on the weighted sorted route's first-iteration rows: [w·x | w]
+    # sorted by the labels of its weighted --init=random centroids (the
+    # CLI's weight file is make_weights(n, seed=n)).
+    w = make_weights(n, n)
+    c0 = init_random(torch.Generator(device="cuda").manual_seed(0), x, k, w)
+    keys, order = torch.sort(lk.distance_argmin(x, c0)[0], stable=True)
+    del c0
+    wstarts = torch.searchsorted(
+        keys, torch.arange(k + 1, dtype=torch.int32, device="cuda")
+    ).to(torch.int32)
+    xw = torch.cat([x * w[:, None], w[:, None]], dim=1).index_select(
+        0, order).contiguous()
+    got = ss.segment_sums(xw, wstarts)
+    repeatable("B3 weighted", (got,), (ss.segment_sums(xw, wstarts),))
+    err = check_close("B3 sums (weighted rows)", got,
+                      ss.segment_sums_plain(xw, wstarts),
+                      ss.segment_sums_plain(xw.abs(), wstarts))
+    weighted_b3 = dict(
+        d=d + 1, max_abs_err=err,
+        longest_run=int((wstarts[1:] - wstarts[:-1]).max()),
+        ms=median_ms(lambda: ss.segment_sums(xw, wstarts), 20))
+    del w, keys, order, wstarts, xw, got
     main = runs["cli"]
     xs, starts = main.pop("xs"), main.pop("starts")
     # The library call for the same function (timed here only; the port
@@ -266,7 +309,50 @@ def phase_kernels(gen) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         other_labels={name: {key: runs[name][key] for key in
                              ("ms", "longest_run", "max_abs_err")}
-                      for name in ("balanced", "one_heavy")})
+                      for name in ("balanced", "one_heavy")},
+        weighted_rows=weighted_b3)
+    return out
+
+
+def check_weighted(name, x, c, w) -> float:
+    """B4 against its plain version: two runs bitwise equal, Σw·x within
+    REL_TOL of Σw|x| per cluster, the mass and the SSE within REL_TOL
+    relative."""
+    got = lk.lloyd_stats_fused_weighted(x, c, w)
+    repeatable(name, got, lk.lloyd_stats_fused_weighted(x, c, w))
+    want = lk.lloyd_stats_fused_weighted_plain(x, c, w)
+    abs_sums = torch.zeros_like(want.sums).index_add_(
+        0, lk.distance_argmin_plain(x, c)[0].long(), w[:, None] * x.abs())
+    err = check_close(f"{name} sums", got.sums, want.sums, abs_sums)
+    check_close(f"{name} mass", got.counts, want.counts, want.counts.abs())
+    check_close(f"{name} sse", got.sse, want.sse, want.sse.abs())
+    return err
+
+
+def phase_weighted_kernel(gen) -> dict:
+    """Phase 3, B4: at the weighted fused route's shape, then the ragged
+    case."""
+    n, k, d = B1_SHAPE
+    x, c = blob_data(gen, n, k, d)
+    w = make_weights(n, 1)
+    # B1's bound with the weight operand: one more read per row and the
+    # w·x product (N·d) beside the accumulate's N·d adds.
+    b_ms, b_by = bound_ms(2.0 * n * k * d + 2.0 * n * d,
+                          4.0 * (n * d + n + 2 * k * d + 2 * k + 1))
+    out = dict(
+        max_abs_err=check_weighted("B4", x, c, w),
+        ms=median_ms(lambda: lk.lloyd_stats_fused_weighted(x, c, w), 5),
+        plain_ms=median_ms(
+            lambda: lk.lloyd_stats_fused_weighted_plain(x, c, w), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        zero_weights=int((w == 0).sum()))
+    print(f"[B4] N={n} K={k} d={d}: {json.dumps(out)}", flush=True)
+    del x, c, w
+    n, k, d = FUZZY_RAGGED
+    x, c = blob_data(gen, n, k, d)
+    err = check_weighted("B4 ragged", x, c, make_weights(n, 2))
+    print(f"[B4] ragged N={n} K={k} d={d}: equal to the plain version "
+          f"(max abs err {err:.3g}), bitwise repeatable", flush=True)
     return out
 
 
@@ -295,8 +381,21 @@ def phase_ties(gen) -> None:
             got = lk.lloyd_stats_fused(x, c)
             require(torch.equal(got.counts, want),
                     f"ties (K={k}): B1 counts differ from the tie rule's")
+        # With weights: the copies take no mass, and the mass follows the
+        # tie rule's labels (B4 where it fits, the weighted sorted stats).
+        w = make_weights(n, k)
+        mass = torch.zeros(k, device="cuda").index_add_(0, lab.long(), w)
+        routes = [ss.lloyd_stats_sorted_weighted(x, c, w)]
+        if lk.fused_weighted_fits(k, d):
+            routes.append(lk.lloyd_stats_fused_weighted(x, c, w))
+        for got in routes:
+            require(not bool(got.counts[copies].any())
+                    and not bool(got.sums[copies].any()),
+                    f"ties (K={k}): a copy took weight mass")
+            check_close(f"ties (K={k}) mass", got.counts, mass, mass)
         print(f"[ties] N={n} K={k} d={d}: copies {copies} of centroid 3 "
-              f"took 0 rows; labels equal the plain version's", flush=True)
+              f"took 0 rows and 0 mass ({len(routes)} weighted routes); "
+              f"labels equal the plain version's", flush=True)
 
 
 def fuzzy_abs_sums(x, c, m):
@@ -375,6 +474,7 @@ def phase_fuzzy_kernel(gen) -> dict:
 
 def reset_counts() -> None:
     lk.lloyd_stats_fused.launches = 0
+    lk.lloyd_stats_fused_weighted.launches = 0
     lk.distance_argmin.launches = 0
     ss.segment_sums.launches = 0
     fk.fuzzy_stats_fused.launches = 0
@@ -384,6 +484,7 @@ def counts() -> dict:
     return {"B1": lk.lloyd_stats_fused.launches,
             "B2": lk.distance_argmin.launches,
             "B3": ss.segment_sums.launches,
+            "B4": lk.lloyd_stats_fused_weighted.launches,
             "B6": fk.fuzzy_stats_fused.launches}
 
 
@@ -418,12 +519,14 @@ def main() -> int:
     kl = _build.load()
     print(f"[build] {kl.build_seconds:.1f} s -> {kl.path.name}", flush=True)
     for line in kl.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or line.startswith("==")
+                or "Function properties" in line):
             print(f"[build] {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     numbers = phase_kernels(gen)
     numbers["B6"] = phase_fuzzy_kernel(gen)
+    numbers["B4"] = phase_weighted_kernel(gen)
     print(f"[kernels] {json.dumps(numbers)}", flush=True)
     phase_ties(gen)
 
@@ -433,15 +536,15 @@ def main() -> int:
         require(n_iter == 10, f"fused route ran {n_iter} iterations")
         # Two fits (initialization and computation), n_iter + 1 stats each.
         require(seen["B1"] == 2 * (n_iter + 1) and seen["B2"] == 0
-                and seen["B3"] == 0 and seen["B6"] == 0,
+                and seen["B3"] == 0 and seen["B4"] == 0 and seen["B6"] == 0,
                 f"fused route launches {seen}")
         numbers["B1"]["launches"] = seen["B1"]
 
         row, seen = run_cli(SORTED_ARGS, tmp, "sorted_route")
         n_iter = int(row["n_iter"])
         require(seen["B1"] == 0 and seen["B2"] == 2 * (n_iter + 1)
-                and seen["B3"] == 2 * (n_iter + 1) and seen["B6"] == 0,
-                f"sorted route launches {seen}")
+                and seen["B3"] == 2 * (n_iter + 1) and seen["B4"] == 0
+                and seen["B6"] == 0, f"sorted route launches {seen}")
         numbers["B2"]["launches"] = seen["B2"]
         numbers["B3"]["launches"] = seen["B3"]
 
@@ -451,11 +554,32 @@ def main() -> int:
         n_iter = int(row["n_iter"])
         require(n_iter == 10, f"fuzzy route ran {n_iter} iterations")
         require(seen["B6"] == 2 * (n_iter + 1) and seen["B1"] == 0
-                and seen["B2"] == 0 and seen["B3"] == 0,
+                and seen["B2"] == 0 and seen["B3"] == 0 and seen["B4"] == 0,
                 f"fuzzy route launches {seen}")
         numbers["B6"]["launches"] = seen["B6"]
 
-    # Phase 7: predict with B2 on 2^20 points.
+        # The weighted routes: the same CLI runs with a weight file.
+        for route_args, name in ((MAIN_ARGS, "weighted_fused_route"),
+                                 (SORTED_ARGS, "weighted_sorted_route")):
+            n_obs = int(route_args[1].split("=")[1])
+            wfile = os.path.join(tmp, f"{name}_w.npy")
+            np.save(wfile, make_weights(n_obs, n_obs).cpu().numpy())
+            row, seen = run_cli([*route_args, f"--weight_file={wfile}"],
+                                tmp, name)
+            n_iter = int(row["n_iter"])
+            if name == "weighted_fused_route":
+                require(n_iter == 10, f"{name} ran {n_iter} iterations")
+                require(seen["B4"] == 2 * (n_iter + 1) and seen["B1"] == 0
+                        and seen["B2"] == 0 and seen["B3"] == 0
+                        and seen["B6"] == 0, f"{name} launches {seen}")
+                numbers["B4"]["launches"] = seen["B4"]
+            else:
+                require(seen["B2"] == 2 * (n_iter + 1)
+                        and seen["B3"] == 2 * (n_iter + 1)
+                        and seen["B1"] == 0 and seen["B4"] == 0
+                        and seen["B6"] == 0, f"{name} launches {seen}")
+
+    # Phase 9: predict with B2 on 2^20 points.
     x, c = blob_data(gen, 1 << 20, SORTED_K, SORTED_D)
     before = lk.distance_argmin.launches
     lab = kmeans_predict(x, c, kernel="pallas")
@@ -466,7 +590,7 @@ def main() -> int:
           f"except {ties} near-ties", flush=True)
     del x, c, lab
 
-    # Phase 8: whole fit, kernel against plain, same init.
+    # Phase 10: whole fit, kernel against plain, same init.
     x, c = blob_data(gen, 1 << 16, B1_SHAPE[1], B1_SHAPE[2])
     init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
     fits = {kern: kmeans_fit(x, c.shape[0], init=init, max_iters=50,
@@ -480,6 +604,22 @@ def main() -> int:
     print(f"[fit] N=65536 K=1024 d=128: n_iter {a.n_iter} == {b.n_iter}, "
           f"converged {a.converged}, max centroid diff {cerr:.3g}, sse "
           f"{float(a.sse):.8g} vs {float(b.sse):.8g}", flush=True)
+    w = make_weights(x.shape[0], 3)
+    reset_counts()
+    fits = {kern: kmeans_fit(x, c.shape[0], init=init, max_iters=50,
+                             tol=1e-4, kernel=kern, sample_weight=w)
+            for kern in ("pallas", "xla")}
+    require(lk.lloyd_stats_fused_weighted.launches
+            == fits["pallas"].n_iter + 1, "weighted fit: B4 did not carry it")
+    a, b = fits["pallas"], fits["xla"]
+    require(a.n_iter == b.n_iter and a.converged == b.converged,
+            f"weighted fit parity: n_iter {a.n_iter} vs {b.n_iter}")
+    cerr = (a.centroids - b.centroids).abs().max().item()
+    require(cerr <= 1e-4, f"weighted fit parity: centroids differ by {cerr}")
+    print(f"[weighted_fit] N=65536 K=1024 d=128: n_iter {a.n_iter} == "
+          f"{b.n_iter}, converged {a.converged}, max centroid diff "
+          f"{cerr:.3g}, sse {float(a.sse):.8g} vs {float(b.sse):.8g}",
+          flush=True)
     fits = {kern: fuzzy_cmeans_fit(x, c.shape[0], init=init, max_iters=30,
                                    tol=1e-3, kernel=kern)
             for kern in ("pallas", "xla")}
@@ -501,6 +641,8 @@ def main() -> int:
                "tdc_tpu/ops/pallas_kernels.py:226"),
         "B3": ("segment_sums", src + "segment_sums.cu",
                "tdc_tpu/ops/sorted_stats.py:134"),
+        "B4": ("lloyd_stats_fused_weighted", src + "lloyd_kernels.cu",
+               "tdc_tpu/ops/pallas_kernels.py:613"),
         "B6": ("fuzzy_stats_fused", src + "fuzzy_kernels.cu",
                "tdc_tpu/ops/pallas_kernels.py:764"),
     }

@@ -12,6 +12,9 @@ retried (the streamed driver it would fall back to is not ported yet).
 Run: python -m tdc_tpu_torch.cli.main --method_name=distributedKMeans \
      --n_obs=4194304 --n_dim=128 --K=1024 --kernel=pallas --log_file=log.csv
 Fuzzy: --method_name=distributedFuzzyCMeans --fuzzifier=2.0
+Sample weights: --weight_file=w.npy, an (N,) .npy of nonnegative weights
+(K-Means on --kernel=pallas or xla; Fuzzy C-Means on xla). The CSV row has
+no weight column, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -79,7 +82,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "(plain PyTorch versions of the kernels)")
     p.add_argument("--run_log", type=str, default=None,
                    help="append structured JSONL run events here")
+    p.add_argument("--weight_file", type=str, default=None,
+                   help=".npy of (N,) nonnegative per-point sample weights "
+                        "(sklearn sample_weight parity; in-memory, "
+                        "single-device)")
     return p
+
+
+def _validate_weight_file(parser, args) -> None:
+    """The JAX CLI's --weight_file checks, as parser errors."""
+    import numpy as np
+
+    if not os.path.exists(args.weight_file):
+        parser.error(f"weight file does not exist: {args.weight_file}")
+    if args.kernel == "refined":
+        parser.error("--kernel=refined does not support --weight_file")
+    if args.kernel == "pallas" and args.method_name != "distributedKMeans":
+        parser.error("--kernel=pallas --weight_file is distributedKMeans "
+                     "only (fuzzy weighted stats are the f32 plain path)")
+    try:
+        shape = np.load(args.weight_file, mmap_mode="r").shape
+    except (ValueError, OSError, AttributeError) as e:
+        parser.error(f"--weight_file must be an (N,) .npy: {e}")
+    if len(shape) != 1 or (args.data_file is None
+                           and shape[0] != args.n_obs):
+        want = "N" if args.data_file else args.n_obs
+        parser.error(f"weight file has shape {shape}; expected ({want},)")
 
 
 def validate_args(parser, args) -> None:
@@ -108,6 +136,8 @@ def validate_args(parser, args) -> None:
     if args.dtype != "float32":
         parser.error(f"--dtype {args.dtype} is not ported yet (float32 "
                      "only; ROADMAP.md Queue B, B5)")
+    if args.weight_file:
+        _validate_weight_file(parser, args)
 
 
 def run_experiment(args) -> dict:
@@ -133,6 +163,12 @@ def run_experiment(args) -> dict:
                               device=dev)
         n_obs, n_dim = x.shape
         out["block_on"] = x
+        weights = None
+        if args.weight_file:
+            weights = np.load(args.weight_file)
+            if weights.shape != (n_obs,):
+                raise ValueError(f"weight file has shape {weights.shape}; "
+                                 f"expected ({n_obs},)")
 
     fuzzy = args.method_name == "distributedFuzzyCMeans"
 
@@ -142,13 +178,15 @@ def run_experiment(args) -> dict:
             return fuzzy_cmeans_fit(
                 x, args.K, m=args.fuzzifier, init=args.init, generator=gen,
                 max_iters=args.n_max_iters, tol=args.tol,
-                kernel=args.kernel or "xla", device=dev,
+                kernel=args.kernel or "xla", sample_weight=weights,
+                device=dev,
             )
         return kmeans_fit(
             x, args.K, init=args.init, generator=gen,
             max_iters=args.n_max_iters, tol=args.tol,
             spherical=args.spherical, kernel=args.kernel or "xla",
-            empty_policy=args.empty_policy, device=dev,
+            sample_weight=weights, empty_policy=args.empty_policy,
+            device=dev,
         )
 
     # Initialization = the first fit, including the kernels' first-use

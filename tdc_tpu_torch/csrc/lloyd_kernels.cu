@@ -1,4 +1,5 @@
-// B1 `lloyd_stats_fused` and B2 `distance_argmin` for Hopper (sm_90a).
+// B1 `lloyd_stats_fused`, B2 `distance_argmin` and B4
+// `lloyd_stats_fused_weighted` for Hopper (sm_90a).
 //
 // B2 replaces `distance_argmin` / `_distance_argmin_kernel`
 // (tdc_tpu/ops/pallas_kernels.py:175, body :119). One CTA per 128-row
@@ -23,6 +24,18 @@
 // second kernel sums the G slices in slice order. Every sum has a fixed
 // order: no float atomics, bitwise repeatable. Bound: compute, as B2 (the
 // distance product is 2·N·K·d; the accumulate adds N·d).
+//
+// B4 replaces `lloyd_stats_fused_weighted` (pallas_kernels.py:562; body
+// `_fused_epilogue_kernel` :301 with `_lloyd_weighted_fold` :525): B1 with
+// an f32 weight per row. Each row adds w·x to its champion's sums, w to its
+// mass and w·(min + ‖x‖²) to the SSE. The mass is a float sum, so B1's
+// integer atomics for counts do not carry over: each CTA's workspace slice
+// is (K, d+1) and column d carries w, the trick the sorted route plays with
+// [w·x | w]. The slices are summed in slice order as B1's are, so the mass
+// has a fixed order too. A zero-weight row adds exactly nothing. w is read
+// one float per row, so it needs no alignment beyond a float's: the 16-byte
+// load path depends on x and the centroids alone (vector_loads_ok). Bound:
+// compute, as B1.
 
 #include <cuda_runtime.h>
 
@@ -64,22 +77,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <bool kVec>
+// kWeighted = false is B1: cols = d, integer counts in `cnt`, w unused.
+// kWeighted = true is B4: cols = d + 1 (column d is the mass), cnt unused.
+template <bool kVec, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
     lloyd_fused_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                       const float* __restrict__ c2, long long n, int k, int d,
+                       const float* __restrict__ c2,
+                       const float* __restrict__ w, long long n, int k, int d,
                        float* __restrict__ ws, int* __restrict__ cnt,
                        double* __restrict__ sse_part) {
   __shared__ AssignSmem<kFusedBN> sm;
   __shared__ int s_lab[BM];
   __shared__ float s_val[BM];
+  __shared__ float s_w[BM];
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const long long kd = (long long)k * d;
-  float* my_ws = ws + blockIdx.x * kd;
-  int* my_cnt = cnt + (long long)blockIdx.x * k;
-  for (long long i = tid; i < kd; i += kThreads) my_ws[i] = 0.f;
-  for (int i = tid; i < k; i += kThreads) my_cnt[i] = 0;
+  const int cols = kWeighted ? d + 1 : d;
+  const long long kc = (long long)k * cols;
+  float* my_ws = ws + blockIdx.x * kc;
+  int* my_cnt = kWeighted ? nullptr : cnt + (long long)blockIdx.x * k;
+  for (long long i = tid; i < kc; i += kThreads) my_ws[i] = 0.f;
+  if (!kWeighted) {
+    for (int i = tid; i < k; i += kThreads) my_cnt[i] = 0;
+  }
   double sse = 0.0;  // thread 0's copy is the CTA's partial
   __syncthreads();
   const long long nblocks = (n + BM - 1) / BM;
@@ -94,17 +114,31 @@ __global__ void __launch_bounds__(kThreads)
       const float x2 = row_sq_norm(x, n, d, row);
       if (tx == 0) {
         s_lab[ty * TM + m] = barg[m];
-        s_val[ty * TM + m] = best[m] + x2;
-        // Integer atomics commute exactly: counts stay deterministic.
-        if (row < n && barg[m] < k) atomicAdd(&my_cnt[barg[m]], 1);
+        if (kWeighted) {
+          const float wr = row < n ? w[row] : 0.f;
+          s_w[ty * TM + m] = wr;
+          s_val[ty * TM + m] = wr * (best[m] + x2);
+        } else {
+          s_val[ty * TM + m] = best[m] + x2;
+          // Integer atomics commute exactly: counts stay deterministic.
+          if (row < n && barg[m] < k) atomicAdd(&my_cnt[barg[m]], 1);
+        }
       }
     }
     __syncthreads();
     const int rows = (int)min((long long)BM, n - row0);
-    for (int j = tid; j < d; j += kThreads) {
+    for (int j = tid; j < cols; j += kThreads) {
       for (int r = 0; r < rows; ++r) {
         const int lab = s_lab[r];
-        if (lab < k) my_ws[(long long)lab * d + j] += x[(row0 + r) * d + j];
+        if (lab < k) {
+          float v;
+          if (kWeighted) {
+            v = j < d ? s_w[r] * x[(row0 + r) * d + j] : s_w[r];
+          } else {
+            v = x[(row0 + r) * d + j];
+          }
+          my_ws[(long long)lab * cols + j] += v;
+        }
       }
     }
     if (tid == 0) {
@@ -115,6 +149,9 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) sse_part[blockIdx.x] = sse;
 }
 
+// Sums the G slices in slice order. B1 (cnt != nullptr): sums from the
+// (K, d) slices, counts from the integer counts. B4 (cnt == nullptr): the
+// slices are (K, d+1); column d is the mass.
 __global__ void lloyd_reduce_kernel(const float* __restrict__ ws,
                                     const int* __restrict__ cnt,
                                     const double* __restrict__ sse_part,
@@ -123,13 +160,20 @@ __global__ void lloyd_reduce_kernel(const float* __restrict__ ws,
                                     float* __restrict__ counts,
                                     float* __restrict__ sse) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long kd = (long long)k * d;
-  if (e < kd) {
+  const int cols = cnt ? d : d + 1;
+  const long long kc = (long long)k * cols;
+  if (e < kc) {
     float s = 0.f;
-    for (int g = 0; g < grid; ++g) s += ws[g * kd + e];
-    sums[e] = s;
+    for (int g = 0; g < grid; ++g) s += ws[g * kc + e];
+    const long long row = e / cols;
+    const int j = (int)(e % cols);
+    if (j < d) {
+      sums[row * d + j] = s;
+    } else {
+      counts[row] = s;
+    }
   }
-  if (e < k) {
+  if (cnt && e < k) {
     long long s = 0;
     for (int g = 0; g < grid; ++g) s += cnt[(long long)g * k + e];
     counts[e] = (float)s;
@@ -139,6 +183,28 @@ __global__ void lloyd_reduce_kernel(const float* __restrict__ ws,
     for (int g = 0; g < grid; ++g) s += sse_part[g];
     sse[0] = fmaxf((float)s, 0.f);
   }
+}
+
+template <bool kWeighted>
+int launch_fused(const float* x, const float* c, const float* c2,
+                 const float* w, long long n, int k, int d, int grid,
+                 float* ws, int* cnt, double* sse_part, float* sums,
+                 float* counts, float* sse, cudaStream_t s) {
+  if (vector_loads_ok(x, c, d)) {
+    lloyd_fused_kernel<true, kWeighted><<<grid, kThreads, 0, s>>>(
+        x, c, c2, w, n, k, d, ws, cnt, sse_part);
+  } else {
+    lloyd_fused_kernel<false, kWeighted><<<grid, kThreads, 0, s>>>(
+        x, c, c2, w, n, k, d, ws, cnt, sse_part);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long kc = (long long)k * (kWeighted ? d + 1 : d);
+  const long long total = kc > k ? kc : (long long)k;
+  const long long blocks = (total + 255) / 256;
+  lloyd_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>(
+      ws, kWeighted ? nullptr : cnt, sse_part, grid, k, d, sums, counts, sse);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -165,22 +231,19 @@ extern "C" int tdc_lloyd_stats_fused(const float* x, const float* c,
                                      double* sse_part, float* sums,
                                      float* counts, float* sse,
                                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (vector_loads_ok(x, c, d)) {
-    lloyd_fused_kernel<true><<<grid, kThreads, 0, s>>>(x, c, c2, n, k, d, ws,
-                                                        cnt, sse_part);
-  } else {
-    lloyd_fused_kernel<false><<<grid, kThreads, 0, s>>>(x, c, c2, n, k, d, ws,
-                                                         cnt, sse_part);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long kd = (long long)k * d;
-  const long long total = kd > k ? kd : (long long)k;
-  const long long blocks = (total + 255) / 256;
-  lloyd_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>(
-      ws, cnt, sse_part, grid, k, d, sums, counts, sse);
-  return (int)cudaGetLastError();
+  return launch_fused<false>(x, c, c2, nullptr, n, k, d, grid, ws, cnt,
+                             sse_part, sums, counts, sse,
+                             (cudaStream_t)stream);
+}
+
+// B4: ws is (grid, K, d+1) f32; counts receives the mass.
+extern "C" int tdc_lloyd_stats_fused_weighted(
+    const float* x, const float* c, const float* c2, const float* w,
+    long long n, int k, int d, int grid, float* ws, double* sse_part,
+    float* sums, float* counts, float* sse, void* stream) {
+  return launch_fused<true>(x, c, c2, w, n, k, d, grid, ws, nullptr,
+                            sse_part, sums, counts, sse,
+                            (cudaStream_t)stream);
 }
 
 extern "C" const char* tdc_error_string(int err) {

@@ -14,9 +14,12 @@ package's:
   makes n_iter + 1 stats calls;
 - converged = shift <= max(tol, 0) and n_iter > 0.
 
-Supported in this slice: layout='samples', no mesh, no sample weights,
-float32 inputs, kernel in {'xla', 'pallas', 'auto'}. The rest raises
-NotImplementedError naming the ROADMAP.md item that ports it.
+Supported: layout='samples', no mesh, float32 inputs, kernel in {'xla',
+'pallas', 'auto'}. Sample weights run the f32 plain stats ('xla'), as in
+the JAX package: an explicit kernel='pallas' with weights raises, and
+'auto' resolves to 'xla' with the reason in its `kernel_selected` event.
+The rest raises NotImplementedError naming the ROADMAP.md item that ports
+it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from tdc_tpu_torch.models._common import validate_sample_weight
 from tdc_tpu_torch.models.kmeans import (
     _as_points,
     _not_ported,
@@ -36,6 +40,8 @@ from tdc_tpu_torch.ops.assign import (
     fuzzy_memberships,
     fuzzy_stats,
     fuzzy_stats_padded_blocked,
+    fuzzy_stats_weighted,
+    fuzzy_stats_weighted_blocked,
 )
 from tdc_tpu_torch.utils.device import resolve_device
 
@@ -54,7 +60,14 @@ class FuzzyCMeansResult(NamedTuple):
     n_iter_run: object = None
 
 
-def _fuzzy_stats_fn(kernel: str, m: float, block_rows: int, k: int, d: int):
+def _fuzzy_stats_fn(kernel: str, m: float, block_rows: int, k: int, d: int,
+                    w=None):
+    if w is not None and kernel == "xla":
+        # fuzzy_cmeans_fit rejects kernel='pallas' with weights.
+        if block_rows:
+            return lambda x, c: fuzzy_stats_weighted_blocked(x, c, w, m,
+                                                             block_rows)
+        return lambda x, c: fuzzy_stats_weighted(x, c, w, m=m)
     if kernel == "pallas":
         # The CUDA kernel route, decided once per fit (one event).
         from tdc_tpu_torch.ops.fuzzy_kernels import fuzzy_stats_for
@@ -82,10 +95,13 @@ def _fcm_loop(
     kernel: str = "xla",
     block_rows: int = 0,
     history: bool = False,
+    w: torch.Tensor | None = None,
 ) -> FuzzyCMeansResult:
     """The fuzzy C-means iteration. tol < 0 disables the convergence test;
-    history=True records (objective, shift) per iteration on the device."""
-    stats_fn = _fuzzy_stats_fn(kernel, m, block_rows, *init_centroids.shape)
+    history=True records (objective, shift) per iteration on the device.
+    `w` (sample weights) routes to the weighted plain stats."""
+    stats_fn = _fuzzy_stats_fn(kernel, m, block_rows, *init_centroids.shape,
+                               w=w)
     c = init_centroids.to(torch.float32)
     hist = (torch.full((max_iters, 2), float("nan"), device=x.device)
             if history else None)
@@ -142,7 +158,10 @@ def fuzzy_cmeans_fit(
         exactly max_iters iterations).
       kernel: 'xla' (plain PyTorch ops, N-blocked past the memory budget),
         'pallas' (the CUDA kernel B6) or 'auto' (pallas on CUDA, xla on the
-        CPU).
+        CPU; xla whenever sample_weight is given).
+      sample_weight: optional (N,) nonnegative per-point weights: each
+        row's u^m is scaled by its weight (memberships do not depend on
+        it); f32 plain stats only.
       history: also return (objective, shift) per iteration.
       device: None means 'cuda'; 'cpu' runs the plain versions.
     """
@@ -150,9 +169,6 @@ def fuzzy_cmeans_fit(
         raise ValueError(f"fuzzifier m must be > 1, got {m}")
     if mesh is not None:
         raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
-    if sample_weight is not None:
-        raise _not_ported("sample_weight (weighted fuzzy fits)",
-                          "Queue A, A6 remainder")
     if layout != "samples":
         if layout == "features":
             raise _not_ported("layout='features'", "Queue B, B11")
@@ -165,12 +181,24 @@ def fuzzy_cmeans_fit(
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
 
-        kernel = resolve_kernel(kernel, k=k, d=d, device=dev, model="fuzzy",
-                                label="fuzzy_fit")
+        kernel = resolve_kernel(
+            kernel, k=k, d=d, device=dev, model="fuzzy", label="fuzzy_fit",
+            ineligible=("the weighted fuzzy stats run in f32 plain ops for "
+                        "mass exactness, as in the JAX package"
+                        if sample_weight is not None else None))
+    w = None
+    if sample_weight is not None:
+        if kernel == "pallas":
+            # An explicit kernel request must not run the plain weighted
+            # stats under the kernel's name.
+            raise ValueError(
+                "kernel='pallas' does not support sample_weight; drop the "
+                "explicit kernel")
+        w = validate_sample_weight(sample_weight, n, k, dev)
     block_rows = auto_block_rows(n, k, device=dev) if kernel == "xla" else 0
-    c_init = resolve_init(x, k, init, generator)
+    c_init = resolve_init(x, k, init, generator, w)
     return _fcm_loop(x, c_init, int(max_iters), float(tol), float(m), kernel,
-                     block_rows, bool(history))
+                     block_rows, bool(history), w)
 
 
 def fuzzy_predict(x, centroids, *, m: float = 2.0, soft: bool = False,

@@ -10,8 +10,9 @@ tolerance is set. The semantics are the JAX package's:
   n_iter + 1 stats calls;
 - converged = shift <= max(tol, 0) and n_iter > 0.
 
-Supported in this slice: layout='samples', no mesh, no sample weights,
-float32 inputs, kernel in {'xla', 'refined', 'pallas', 'auto'}. The rest
+Supported: layout='samples', no mesh, float32 inputs, kernel in {'xla',
+'refined', 'pallas', 'auto'}, and sample weights on 'xla' and 'pallas'
+(the weighted kernel route: B4, or B2 + B3 past its limit). The rest
 raises NotImplementedError naming the ROADMAP.md item that ports it.
 """
 
@@ -22,12 +23,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tdc_tpu_torch.models._common import validate_sample_weight
 from tdc_tpu_torch.ops.assign import (
     apply_centroid_update,
     assign_clusters,
     lloyd_stats,
     lloyd_stats_padded_blocked,
     lloyd_stats_refined,
+    lloyd_stats_weighted,
+    lloyd_stats_weighted_blocked,
 )
 from tdc_tpu_torch.ops.distance import pairwise_sq_dist
 from tdc_tpu_torch.ops.init import init_first_k, init_kmeans_pp, init_random
@@ -57,7 +61,23 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to tdc_tpu_torch yet (ROADMAP.md {item})")
 
 
-def _stats_fn(kernel: str, block_rows: int, k: int, d: int):
+def _weighted_stats_fn(kernel: str, block_rows: int, k: int, d: int, w):
+    """The weighted stats for kernel 'xla' or 'pallas' (kmeans_fit rejects
+    'refined' with weights); 'counts' is the weight mass."""
+    if kernel == "pallas":
+        # The weighted CUDA kernel route, decided once per fit (one event).
+        from tdc_tpu_torch.ops.lloyd_kernels import lloyd_stats_weighted_for
+
+        fn = lloyd_stats_weighted_for(k, d, label="kmeans_fit")
+        return lambda x, c: fn(x, c, w)
+    if block_rows:
+        return lambda x, c: lloyd_stats_weighted_blocked(x, c, w, block_rows)
+    return lambda x, c: lloyd_stats_weighted(x, c, w)
+
+
+def _stats_fn(kernel: str, block_rows: int, k: int, d: int, w=None):
+    if w is not None and kernel in ("xla", "pallas"):
+        return _weighted_stats_fn(kernel, block_rows, k, d, w)
     if kernel == "xla":
         if block_rows:
             return lambda x, c: lloyd_stats_padded_blocked(x, c, block_rows)
@@ -140,10 +160,13 @@ def _lloyd_loop(
     block_rows: int = 0,
     history: bool = False,
     empty_policy: str = "keep",
+    w: torch.Tensor | None = None,
 ) -> KMeansResult:
     """The Lloyd iteration. tol < 0 disables the convergence test;
-    history=True records (sse, shift) per iteration on the device."""
-    stats_fn = _stats_fn(kernel, block_rows, *init_centroids.shape)
+    history=True records (sse, shift) per iteration on the device. `w`
+    (sample weights) routes to the weighted stats; 'relocate' then reads
+    the weight mass."""
+    stats_fn = _stats_fn(kernel, block_rows, *init_centroids.shape, w=w)
     c = init_centroids.to(torch.float32)
     if spherical:
         c = _normalize(c)
@@ -181,9 +204,12 @@ def _lloyd_loop(
     )
 
 
-def resolve_init(x: torch.Tensor, k: int, init, generator) -> torch.Tensor:
+def resolve_init(x: torch.Tensor, k: int, init, generator,
+                 sample_weight=None) -> torch.Tensor:
     """Turn an init spec ('first_k' | 'random' | 'kmeans++' | array) into
-    (K, d) float32 centroids on x's device."""
+    (K, d) float32 centroids on x's device. With sample_weight the
+    stochastic inits draw ∝ w ('random', the first k-means++ center) or
+    ∝ w·D² (later k-means++ rounds), so zero-weight points never seed."""
     if not isinstance(init, str):
         c = torch.as_tensor(np.asarray(init) if not isinstance(
             init, torch.Tensor) else init).to(x.device, torch.float32)
@@ -200,9 +226,9 @@ def resolve_init(x: torch.Tensor, k: int, init, generator) -> torch.Tensor:
             f"the generator lives on {generator.device}, the points on "
             f"{x.device}; seed a generator on the points' device")
     if init == "random":
-        return init_random(generator, x, k)
+        return init_random(generator, x, k, sample_weight)
     if init in ("kmeans++", "k-means++"):
-        return init_kmeans_pp(generator, x, k)
+        return init_kmeans_pp(generator, x, k, sample_weight)
     raise ValueError(f"unknown init: {init!r}")
 
 
@@ -248,8 +274,12 @@ def kmeans_fit(
       spherical: cosine K-Means (points and centroids L2-normalized).
       kernel: 'xla' (plain PyTorch ops), 'refined' (exact-distance champion
         refinement), 'pallas' (the CUDA kernels: B1 fused, or B2 + B3
-        sorted past the fused limit) or 'auto' (pallas on CUDA, xla on
-        the CPU).
+        sorted past the fused limit; with weights B4, or B2 + B3 over
+        [w·x | w]) or 'auto' (pallas on CUDA, xla on the CPU).
+      sample_weight: optional (N,) nonnegative per-point weights (sklearn
+        `sample_weight` parity): the stats become Σw·x, the weight mass and
+        Σw·min d², and the stochastic inits draw by weight. 'refined'
+        rejects them.
       n_init: restarts for stochastic inits; the lowest final SSE wins.
       history: also return (sse, shift) per iteration.
       empty_policy: 'keep' (an empty cluster keeps its centroid) or
@@ -258,8 +288,6 @@ def kmeans_fit(
     """
     if mesh is not None:
         raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
-    if sample_weight is not None:
-        raise _not_ported("sample_weight (weighted fits)", "Queue B, B4")
     if layout != "samples":
         if layout == "features":
             raise _not_ported("layout='features'", "Queue B, B10")
@@ -277,8 +305,9 @@ def kmeans_fit(
         for _ in range(n_init):
             res = kmeans_fit(
                 x, k, init=init, generator=generator, max_iters=max_iters,
-                tol=tol, spherical=spherical, kernel=kernel, n_init=1,
-                history=history, empty_policy=empty_policy, device=dev,
+                tol=tol, spherical=spherical, kernel=kernel,
+                sample_weight=sample_weight, n_init=1, history=history,
+                empty_policy=empty_policy, device=dev,
             )
             if best is None or float(res.sse) < float(best.sse):
                 best = res
@@ -286,16 +315,26 @@ def kmeans_fit(
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
 
-        kernel = resolve_kernel(kernel, k=k, d=d, device=dev,
-                                label="kmeans_fit")
+        kernel = resolve_kernel(
+            kernel, k=k, d=d, device=dev, label="kmeans_fit",
+            model="kmeans" if sample_weight is None else "kmeans_weighted")
+    w = None
+    if sample_weight is not None:
+        if kernel == "refined":
+            # The exact-champion path has no weighted variant; an explicit
+            # request must not record plain numbers as refined ones.
+            raise ValueError(
+                "kernel='refined' does not support sample_weight; drop the "
+                "explicit kernel")
+        w = validate_sample_weight(sample_weight, n, k, dev)
     block_rows = (auto_block_rows(n, k, device=dev)
                   if kernel in ("xla", "refined") else 0)
     if spherical:
         x = _normalize(x)
-    c_init = resolve_init(x, k, init, generator)
+    c_init = resolve_init(x, k, init, generator, w)
     return _lloyd_loop(x, c_init, int(max_iters), float(tol),
                        bool(spherical), kernel, block_rows, bool(history),
-                       empty_policy)
+                       empty_policy, w)
 
 
 def kmeans_predict(x, centroids, *, spherical: bool = False,

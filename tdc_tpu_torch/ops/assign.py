@@ -1,5 +1,5 @@
 """Assignment, Lloyd and fuzzy sufficient statistics (counterpart:
-tdc_tpu/ops/assign.py:26-384).
+tdc_tpu/ops/assign.py).
 
 The stats contraction is the JAX package's one-hot matmul:
 one_hot(assign, K)ᵀ @ x gives the (K, d) per-cluster sums and the one-hot
@@ -11,8 +11,14 @@ float atomics there). Empty clusters keep their previous centroid
 Fuzzy C-Means statistics (`FuzzyStats`, `fuzzy_memberships`,
 `fuzzy_stats` and its N-blocked forms) follow the JAX formula exactly:
 u = (d² + eps)^(−1/(m−1)) normalised over K, μ = u^m, then Σμx, Σμ and
-Σμd². The weighted parts of the JAX module are not ported yet (ROADMAP.md,
-Queue A, A6 and B4).
+Σμd².
+
+The sample-weighted twins (`lloyd_stats_weighted`, `fuzzy_stats_weighted`
+and their N-blocked forms) scale each row's one-hot or μ row by its weight
+w ≥ 0, so the same contraction gives Σw·x (Σw·μx) and the column sums give
+the weight mass. They run in f32. A blocked form pads its ragged tail
+with zero-weight rows, which add exactly nothing, so it needs no
+correction term.
 """
 
 from __future__ import annotations
@@ -90,6 +96,49 @@ def lloyd_stats_refined(
     return SufficientStats(sums=sums, counts=counts, sse=mind.sum())
 
 
+def _sum_blocks(block_stats, n: int, block_rows: int):
+    """block_stats(start, end) summed field by field over the N-blocks, in
+    block order."""
+    total = None
+    for s in range(0, n, block_rows):
+        st = block_stats(s, s + block_rows)
+        total = st if total is None else type(st)(
+            *(a + b for a, b in zip(total, st)))
+    return total
+
+
+def lloyd_stats_weighted(x: torch.Tensor, centroids: torch.Tensor,
+                         sample_weight: torch.Tensor) -> SufficientStats:
+    """Weighted Lloyd stats: Σ w·x per cluster, the weight mass per cluster
+    as `counts`, and SSE = Σ w·min d²."""
+    d2 = pairwise_sq_dist(x, centroids)
+    mind, assign = torch.min(d2, dim=-1)
+    w = sample_weight.float()
+    one_hot_w = (F.one_hot(assign, centroids.shape[0]).to(torch.float32)
+                 * w[:, None])
+    return SufficientStats(sums=one_hot_w.T @ x.float(),
+                           counts=one_hot_w.sum(dim=0), sse=(w * mind).sum())
+
+
+def _pad_weighted(x: torch.Tensor, w: torch.Tensor, block_rows: int):
+    """x and w zero-padded to a multiple of block_rows rows."""
+    pad = (-x.shape[0]) % block_rows
+    if not pad:
+        return x, w
+    return F.pad(x, (0, 0, 0, pad)), F.pad(w, (0, pad))
+
+
+def lloyd_stats_weighted_blocked(x: torch.Tensor, centroids: torch.Tensor,
+                                 sample_weight: torch.Tensor,
+                                 block_rows: int) -> SufficientStats:
+    """lloyd_stats_weighted over N-blocks, summed in block order, for any N:
+    the ragged tail is padded with zero-weight rows."""
+    x, w = _pad_weighted(x, sample_weight, block_rows)
+    return _sum_blocks(lambda s, e: lloyd_stats_weighted(x[s:e], centroids,
+                                                         w[s:e]),
+                       x.shape[0], block_rows)
+
+
 def lloyd_stats_blocked(
     x: torch.Tensor, centroids: torch.Tensor, block_rows: int, stats_fn=None
 ) -> SufficientStats:
@@ -97,19 +146,11 @@ def lloyd_stats_blocked(
     intermediates stay bounded. Requires N % block_rows == 0."""
     if stats_fn is None:
         stats_fn = lloyd_stats
-    n, d = x.shape
-    k = centroids.shape[0]
+    n = x.shape[0]
     if n % block_rows != 0:
         raise ValueError(f"N={n} not divisible by block_rows={block_rows}")
-    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-    counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
-    sse = torch.zeros((), dtype=torch.float32, device=x.device)
-    for s in range(0, n, block_rows):
-        st = stats_fn(x[s:s + block_rows], centroids)
-        sums = sums + st.sums
-        counts = counts + st.counts
-        sse = sse + st.sse
-    return SufficientStats(sums=sums, counts=counts, sse=sse)
+    return _sum_blocks(lambda s, e: stats_fn(x[s:e], centroids), n,
+                       block_rows)
 
 
 def lloyd_stats_padded_blocked(
@@ -181,20 +222,11 @@ def fuzzy_stats_blocked(x: torch.Tensor, centroids: torch.Tensor, m: float,
     """fuzzy_stats over N-blocks, summed in block order (memberships are
     row-local, so fuzzy stats block exactly like Lloyd stats). Requires
     N % block_rows == 0."""
-    n, d = x.shape
-    k = centroids.shape[0]
+    n = x.shape[0]
     if n % block_rows != 0:
         raise ValueError(f"N={n} not divisible by block_rows={block_rows}")
-    wsums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-    weights = torch.zeros((k,), dtype=torch.float32, device=x.device)
-    objective = torch.zeros((), dtype=torch.float32, device=x.device)
-    for s in range(0, n, block_rows):
-        st = fuzzy_stats(x[s:s + block_rows], centroids, m=m)
-        wsums = wsums + st.weighted_sums
-        weights = weights + st.weights
-        objective = objective + st.objective
-    return FuzzyStats(weighted_sums=wsums, weights=weights,
-                      objective=objective)
+    return _sum_blocks(lambda s, e: fuzzy_stats(x[s:e], centroids, m=m), n,
+                       block_rows)
 
 
 def fuzzy_stats_padded_blocked(x: torch.Tensor, centroids: torch.Tensor,
@@ -214,3 +246,26 @@ def fuzzy_stats_padded_blocked(x: torch.Tensor, centroids: torch.Tensor,
         weights=stats.weights - n_fake * zs.weights,
         objective=stats.objective - n_fake * zs.objective,
     )
+
+
+def fuzzy_stats_weighted(x: torch.Tensor, centroids: torch.Tensor,
+                         sample_weight: torch.Tensor, m: float = 2.0,
+                         eps: float = 1e-9) -> FuzzyStats:
+    """Sample-weighted fuzzy stats, J = Σᵢ wᵢ Σⱼ uᵢⱼ^m d²ᵢⱼ. Memberships do
+    not depend on w; each row's μ = u^m is scaled by its weight."""
+    d2 = pairwise_sq_dist(x, centroids)
+    mu = (_memberships_from_d2(d2, m, eps) ** m
+          * sample_weight.float()[:, None])
+    return FuzzyStats(weighted_sums=mu.T @ x.float(), weights=mu.sum(dim=0),
+                      objective=(mu * d2).sum())
+
+
+def fuzzy_stats_weighted_blocked(x: torch.Tensor, centroids: torch.Tensor,
+                                 sample_weight: torch.Tensor, m: float,
+                                 block_rows: int) -> FuzzyStats:
+    """fuzzy_stats_weighted over N-blocks, summed in block order, for any N:
+    the ragged tail is padded with zero-weight rows."""
+    x, w = _pad_weighted(x, sample_weight, block_rows)
+    return _sum_blocks(lambda s, e: fuzzy_stats_weighted(x[s:e], centroids,
+                                                         w[s:e], m=m),
+                       x.shape[0], block_rows)

@@ -1,10 +1,12 @@
-"""The Lloyd kernels B1 and B2 (counterpart: tdc_tpu/ops/pallas_kernels.py,
-the `lloyd_stats_fused`, `distance_argmin`, `lloyd_stats_auto` and
+"""The Lloyd kernels B1, B2 and B4 (counterpart:
+tdc_tpu/ops/pallas_kernels.py, the `lloyd_stats_fused`, `distance_argmin`,
+`lloyd_stats_fused_weighted`, `lloyd_stats_auto[_weighted]` and
 `resolve_kernel` parts).
 
 Each kernel has three parts here:
 
-- the wrapper (`distance_argmin`, `lloyd_stats_fused`), which checks its
+- the wrapper (`distance_argmin`, `lloyd_stats_fused`,
+  `lloyd_stats_fused_weighted`), which checks its
   inputs, allocates every output and workspace with `torch.empty`, and on
   a CUDA tensor launches the hand-written kernel from
   `csrc/lloyd_kernels.cu` on the current stream or raises;
@@ -16,7 +18,7 @@ Each kernel has three parts here:
 - a launch counter, `<wrapper>.launches`, which only the kernel launch
   increments.
 
-Both kernels are compute-bound on the H100 at the main path's shapes (the
+The kernels are compute-bound on the H100 at the main path's shapes (the
 2·N·K·d distance product on the f32 CUDA cores); see the notes in
 `csrc/lloyd_kernels.cu` and PERF.md.
 """
@@ -37,6 +39,8 @@ from tdc_tpu_torch.utils.structlog import emit
 # same K·d. Beyond it lloyd_stats_auto takes the sorted route (B2 + B3),
 # whose memory does not grow with K·d.
 FUSED_MAX_KD = 1 << 19
+# B4 (weighted) keeps (K, d+1) per CTA, the mass in column d, and is held
+# to the same workspace limit: K·(d+1) ≤ FUSED_MAX_KD.
 
 # Rows per block of the plain versions: keeps their (rows, K) distance
 # tile at 256 MiB, so they run at the main path's shapes on the card.
@@ -192,6 +196,86 @@ def lloyd_stats_fused(x: torch.Tensor,
 lloyd_stats_fused.launches = 0
 
 
+def _check_weights(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    if w.dim() != 1 or w.shape[0] != x.shape[0]:
+        raise ValueError(f"{name}: weights must be ({x.shape[0]},), got "
+                         f"{tuple(w.shape)}")
+    if w.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 weights only, got {w.dtype}")
+    if w.device != x.device:
+        raise ValueError(f"{name}: x on {x.device}, weights on {w.device}")
+    if x.device.type == "cuda" and not w.is_contiguous():
+        raise ValueError(f"{name}: the CUDA kernel needs contiguous weights")
+
+
+def lloyd_stats_fused_weighted_plain(
+        x: torch.Tensor, centroids: torch.Tensor,
+        sample_weight: torch.Tensor) -> SufficientStats:
+    """Plain version of B4: champions by the shifted distance, then Σw·x
+    per cluster, the mass Σw as counts, and SSE = max(Σ w·(min + ‖x‖²),
+    0)."""
+    k, d = centroids.shape
+    c2 = _sq_norms(centroids)
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    mass = torch.zeros(k, dtype=torch.float32, device=x.device)
+    sse = torch.zeros((), dtype=torch.float32, device=x.device)
+    rows = max(1, _PLAIN_TILE_ELEMS // k)
+    for s in range(0, x.shape[0], rows):
+        xb, wb = x[s:s + rows], sample_weight[s:s + rows]
+        labels, mind = _champions_plain(xb, centroids, c2)
+        lab = labels.long()
+        sums.index_add_(0, lab, xb * wb[:, None])
+        mass.index_add_(0, lab, wb)
+        sse = sse + (wb * (mind + (xb * xb).sum(dim=1))).sum()
+    return SufficientStats(sums=sums, counts=mass,
+                           sse=torch.clamp_min(sse, 0.0))
+
+
+def fused_weighted_fits(k: int, d: int) -> bool:
+    """Whether B4's (grid, K, d+1) workspace stays within FUSED_MAX_KD."""
+    return k * (d + 1) <= FUSED_MAX_KD
+
+
+def lloyd_stats_fused_weighted(x: torch.Tensor, centroids: torch.Tensor,
+                               sample_weight: torch.Tensor) -> SufficientStats:
+    """B4: weighted Lloyd stats in one pass over x, no (N, K) buffer.
+    Returns SufficientStats(sums = Σw·x (K, d), counts = the weight mass
+    (K,), sse = Σ w·min d² ()) in f32, SSE clamped at 0. A zero-weight row
+    adds nothing. Raises past the fused limit (use
+    lloyd_stats_auto_weighted)."""
+    _check("lloyd_stats_fused_weighted", x, centroids)
+    _check_weights("lloyd_stats_fused_weighted", x, sample_weight)
+    k, d = centroids.shape
+    if not fused_weighted_fits(k, d):
+        raise ValueError(
+            f"lloyd_stats_fused_weighted: K·(d+1) = {k * (d + 1)} exceeds "
+            f"FUSED_MAX_KD = {FUSED_MAX_KD}; use lloyd_stats_auto_weighted "
+            "(sorted route)"
+        )
+    if x.device.type == "cpu":
+        return lloyd_stats_fused_weighted_plain(x, centroids, sample_weight)
+    dev = x.device
+    grid = fused_grid(dev)
+    ws = torch.empty((grid, k, d + 1), dtype=torch.float32, device=dev)
+    sse_part = torch.empty(grid, dtype=torch.float64, device=dev)
+    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    mass = torch.empty(k, dtype=torch.float32, device=dev)
+    sse = torch.empty((), dtype=torch.float32, device=dev)
+    lib = _build.load().lib
+    c2 = _sq_norms(centroids)
+    _build.check(lib.tdc_lloyd_stats_fused_weighted(
+        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(),
+        sample_weight.data_ptr(), x.shape[0], k, d, grid, ws.data_ptr(),
+        sse_part.data_ptr(), sums.data_ptr(), mass.data_ptr(),
+        sse.data_ptr(), _stream(x),
+    ), "lloyd_stats_fused_weighted")
+    lloyd_stats_fused_weighted.launches += 1
+    return SufficientStats(sums=sums, counts=mass, sse=sse)
+
+
+lloyd_stats_fused_weighted.launches = 0
+
+
 def lloyd_stats_for(k: int, d: int, *, label: str = ""):
     """The kernel route's stats function for (K, d): `lloyd_stats_fused`
     (B1) within FUSED_MAX_KD, else `lloyd_stats_sorted` (B2 + B3). One
@@ -219,25 +303,61 @@ def lloyd_stats_auto(x: torch.Tensor,
     return lloyd_stats_for(*centroids.shape)(x, centroids)
 
 
+def lloyd_stats_weighted_for(k: int, d: int, *, label: str = ""):
+    """The weighted kernel route's stats function for (K, d), called as
+    fn(x, centroids, sample_weight): `lloyd_stats_fused_weighted` (B4)
+    while K·(d+1) ≤ FUSED_MAX_KD, else `lloyd_stats_sorted_weighted` (B2,
+    then B3 over [w·x | w]). One `kernel_selected` event names the choice
+    and the reason."""
+    from tdc_tpu_torch.ops.sorted_stats import lloyd_stats_sorted_weighted
+
+    if fused_weighted_fits(k, d):
+        fn, route, reason = lloyd_stats_fused_weighted, "fused_weighted", (
+            f"K·(d+1) = {k * (d + 1)} <= {FUSED_MAX_KD}: the per-CTA "
+            "(K, d+1) workspace of the weighted fused kernel stays bounded")
+    else:
+        fn, route, reason = lloyd_stats_sorted_weighted, "sorted_weighted", (
+            f"K·(d+1) = {k * (d + 1)} > {FUSED_MAX_KD}: the weighted fused "
+            "kernel's workspace would grow past its limit")
+    emit("kernel_selected", kernel=route, model="kmeans_weighted", k=int(k),
+         d=int(d), reason=reason, label=label or "lloyd_stats_auto_weighted")
+    return fn
+
+
+def lloyd_stats_auto_weighted(x: torch.Tensor, centroids: torch.Tensor,
+                              sample_weight: torch.Tensor) -> SufficientStats:
+    """Weighted Lloyd stats on the kernel route: B4 where its workspace
+    fits, else the weighted sorted path
+    (ops/sorted_stats.lloyd_stats_sorted_weighted)."""
+    return lloyd_stats_weighted_for(*centroids.shape)(x, centroids,
+                                                      sample_weight)
+
+
 def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
-                   model: str = "kmeans", label: str = "") -> str:
+                   model: str = "kmeans", label: str = "",
+                   ineligible: str | None = None) -> str:
     """The default-kernel policy: 'auto' resolves to 'pallas' (the CUDA
     kernels) on a CUDA device and to 'xla' (plain PyTorch) on the CPU, with
     one `kernel_selected` event; an explicit name passes through. CUDA
     plays the part that platform == 'tpu' plays in the JAX version.
-    `model` is 'kmeans' or 'fuzzy'; both kernel routes take every (K, d)."""
+    `model` is 'kmeans', 'kmeans_weighted' or 'fuzzy'; every kernel route
+    takes every (K, d). `ineligible` names a caller-side reason the kernels
+    cannot apply at all (weighted fuzzy stats run in f32 plain ops): auto
+    then resolves to 'xla' with that reason in the event."""
     if kernel != "auto":
         if kernel == "auto:quantized":
             raise NotImplementedError(
                 "kernel='auto:quantized' needs the bf16 B1 variant "
                 "(ROADMAP.md Queue B, B5)")
         return kernel
-    if model not in ("kmeans", "fuzzy"):
+    if model not in ("kmeans", "kmeans_weighted", "fuzzy"):
         raise NotImplementedError(
             f"resolve_kernel: model={model!r} is not ported yet "
             "(ROADMAP.md Queue A)")
     device = torch.device(device)
-    if device.type == "cuda":
+    if ineligible is not None:
+        choice, reason = "xla", ineligible
+    elif device.type == "cuda":
         choice, reason = "pallas", (
             f"CUDA device: the hand-written {model} kernels apply at any "
             f"(K={k}, d={d})")

@@ -20,6 +20,10 @@ comes from the same searchsorted that gives the counts): an absent label
 is an empty run, whose sum the kernel writes as zeros, and the rank
 gather and mask have nothing left to do. The result equals the JAX
 package's (K, d) sums.
+
+The weighted route (`lloyd_stats_sorted_weighted`) sorts [w·x | w]
+(N, d+1) instead of x: B3 then gives Σw·x in the first d columns and the
+weight mass in the last, with no kernel of its own.
 """
 
 from __future__ import annotations
@@ -122,3 +126,19 @@ def lloyd_stats_sorted(x: torch.Tensor,
     sums, counts = sorted_cluster_stats(x, arg, centroids.shape[0],
                                         pallas=True)
     return SufficientStats(sums=sums, counts=counts, sse=mind.sum())
+
+
+def lloyd_stats_sorted_weighted(x: torch.Tensor, centroids: torch.Tensor,
+                                sample_weight: torch.Tensor) -> SufficientStats:
+    """Weighted Lloyd stats for large K·d: B2 (true min distances; the
+    argmin does not depend on w), then the sort-based stats with B3 over
+    [w·x | w]. Returns SufficientStats(sums = Σw·x, counts = the weight
+    mass, sse = Σ w·min d²). Zero-weight rows add nothing."""
+    k, d = centroids.shape
+    arg, mind = distance_argmin(x, centroids, return_dist=True)
+    w = sample_weight.float()
+    xw = torch.cat([x.float() * w[:, None], w[:, None]], dim=1)
+    ext, _ = sorted_cluster_stats(xw, arg, k, pallas=True)
+    return SufficientStats(sums=ext[:, :d].contiguous(),
+                           counts=ext[:, d].contiguous(),
+                           sse=(w * mind).sum())

@@ -1,5 +1,6 @@
 """The port's CLI against the JAX package's on the same .npz, on the CPU,
-for distributedKMeans and distributedFuzzyCMeans.
+for distributedKMeans and distributedFuzzyCMeans, with and without a
+shared --weight_file.
 
 Both write one CSV row; they must agree on every column except the
 timings, `backend` and `points_per_sec_per_chip`, with `sse` within rtol
@@ -40,7 +41,17 @@ def _row(path):
     return rows[0]
 
 
-def _rows_agree(npz, tmp_path, flags):
+@pytest.fixture(scope="module")
+def weights(tmp_path_factory):
+    rng = np.random.default_rng(1)
+    w = rng.uniform(0, 3, size=3000).astype(np.float32)
+    w[rng.choice(3000, 100, replace=False)] = 0.0
+    path = tmp_path_factory.mktemp("cli") / "w.npy"
+    np.save(path, w)
+    return str(path)
+
+
+def _rows_agree(npz, tmp_path, flags, kernel="pallas"):
     jlog, tlog = tmp_path / "jax.csv", tmp_path / "port.csv"
     assert jcli.main([*flags, f"--data_file={npz}", f"--log_file={jlog}",
                       "--n_GPUs=1", "--cache_dir="]) == 0
@@ -48,7 +59,7 @@ def _rows_agree(npz, tmp_path, flags):
                       "--device", "cpu"]) == 0
     j, t = _row(jlog), _row(tlog)
     assert list(j) == list(t)  # same schema, same column order
-    assert (t["kernel"], t["n_iter"], t["status"]) == ("pallas", "5", "ok")
+    assert (t["kernel"], t["n_iter"], t["status"]) == (kernel, "5", "ok")
     assert t["backend"] == "cpu"
     np.testing.assert_allclose(float(t["sse"]), float(j["sse"]), rtol=1e-5)
     for col in set(j) - TIMING - {"sse"}:
@@ -62,6 +73,45 @@ def test_cli_rows_agree(npz, tmp_path):
 def test_cli_rows_agree_fuzzy(npz, tmp_path):
     # `sse` holds the objective J_m in both CLIs' fuzzy rows.
     _rows_agree(npz, tmp_path, FUZZY_FLAGS)
+
+
+def test_cli_rows_agree_weighted(npz, weights, tmp_path):
+    # The weighted kernel route (B4's plain version on the CPU) against
+    # the JAX CLI's interpret-mode weighted fused kernel.
+    _rows_agree(npz, tmp_path, [*FLAGS, f"--weight_file={weights}"])
+
+
+def test_cli_rows_agree_fuzzy_weighted(npz, weights, tmp_path):
+    flags = [f for f in FUZZY_FLAGS if f != "--kernel=pallas"]
+    _rows_agree(npz, tmp_path, [*flags, "--kernel=xla",
+                                f"--weight_file={weights}"], kernel="xla")
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--method_name=distributedFuzzyCMeans", "--kernel=pallas"],
+     "distributedKMeans only"),
+    (["--kernel=refined"], "refined"),
+])
+def test_cli_weight_file_rejections(npz, weights, flags, message, capsys):
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(["--K=4", f"--data_file={npz}",
+                   f"--weight_file={weights}", *flags])
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
+
+
+def test_cli_missing_or_misshapen_weight_file(npz, tmp_path, capsys):
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(["--K=4", f"--data_file={npz}",
+                   f"--weight_file={tmp_path / 'none.npy'}"])
+    assert exc.value.code == 2
+    assert "does not exist" in capsys.readouterr().err
+    bad = tmp_path / "w2.npy"
+    np.save(bad, np.ones((10, 2), np.float32))
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(["--K=4", "--n_obs=10", "--n_dim=3", f"--weight_file={bad}"])
+    assert exc.value.code == 2
+    assert "expected (10,)" in capsys.readouterr().err
 
 
 def test_cli_default_device_fails_without_a_card(npz, tmp_path, capsys):

@@ -7,7 +7,10 @@ Tolerances: labels and counts equal; sums and distances within rtol 1e-5
 and atol 1e-4 (float32, different summation order); two runs bitwise
 equal. With duplicated centroids every tie goes to the smallest index.
 B6 (fuzzy stats): weighted sums within 1e-5 of Σμ|x| per cluster, weights
-and objective within rtol 1e-5, two runs bitwise equal."""
+and objective within rtol 1e-5, two runs bitwise equal. B4 (weighted
+Lloyd stats): sums within rtol 1e-5 and atol 1e-4, the mass and the SSE
+within rtol 1e-5, two runs bitwise equal; copies of a centroid take no
+mass."""
 
 import pytest
 import torch
@@ -98,3 +101,38 @@ def test_b6_matches_plain(gen, n, k, d, m):
                                atol=1e-6)
     torch.testing.assert_close(st.objective, want.objective, rtol=1e-5,
                                atol=0.0)
+
+
+def _weights(gen, n):
+    w = torch.rand(n, generator=gen, device="cuda") * 3
+    w[::17] = 0.0  # zero-weight rows add nothing
+    return w
+
+
+@pytest.mark.parametrize("n,k,d", [(1000, 37, 19), (5000, 130, 128)])
+def test_b4_matches_plain(gen, n, k, d):
+    x, c = _data(gen, n, k, d)
+    w = _weights(gen, n)
+    st = lk.lloyd_stats_fused_weighted(x, c, w)
+    again = lk.lloyd_stats_fused_weighted(x, c, w)
+    assert all(torch.equal(a, b) for a, b in zip(st, again))
+    want = lk.lloyd_stats_fused_weighted_plain(x, c, w)
+    for got in (st, ss.lloyd_stats_sorted_weighted(x, c, w)):
+        torch.testing.assert_close(got.sums, want.sums, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(got.counts, want.counts, rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(got.sse, want.sse, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("d", [19, 128])
+def test_b4_ties_take_no_mass(gen, d):
+    k, copies = 300, [5, 67, 200, 299]
+    x, c = _data(gen, 4000, k, d)
+    c[copies] = c[3].clone()
+    w = _weights(gen, 4000)
+    lab = lk.distance_argmin_plain(x, c)[0].long()
+    mass = torch.zeros(k, device="cuda").index_add_(0, lab, w)
+    for got in (lk.lloyd_stats_fused_weighted(x, c, w),
+                ss.lloyd_stats_sorted_weighted(x, c, w)):
+        assert not got.counts[copies].any() and not got.sums[copies].any()
+        torch.testing.assert_close(got.counts, mass, rtol=1e-5, atol=1e-5)

@@ -246,7 +246,7 @@ def test_fit_in_jax_predict_in_port():
 
 @pytest.mark.parametrize("kw", [
     {"mesh": object()},
-    {"sample_weight": np.ones(100, np.float32)},
+    {"sample_weight": np.ones(100, np.float32), "mesh": object()},
     {"layout": "features"},
     {"kernel": "pallas_bf16"},
     {"kernel": "auto:quantized"},

@@ -134,7 +134,7 @@ def test_kmeans_fit_stochastic_init_is_seeded():
 
 @pytest.mark.parametrize("kw", [
     {"mesh": object()},
-    {"sample_weight": np.ones(100, np.float32)},
+    {"sample_weight": np.ones(100, np.float32), "mesh": object()},
     {"layout": "features"},
     {"kernel": "pallas_bf16"},
     {"init": "kmeans||"},
