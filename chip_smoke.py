@@ -4,8 +4,8 @@
 
 Builds the port's CUDA kernels from `tdc_tpu_torch/csrc/` and drives its
 main paths through the CLI: in-memory single-GPU f32 Lloyd K-Means, with
-and without sample weights, and Fuzzy C-Means. Phases, each of which
-raises on failure (nothing is caught):
+and without sample weights, Fuzzy C-Means and diagonal Gaussian Mixture
+EM. Phases, each of which raises on failure (nothing is caught):
 
 1. Device: a CUDA card is required; prints its name and power limit.
 2. Build: nvcc builds the kernels; prints the build seconds.
@@ -24,6 +24,10 @@ raises on failure (nothing is caught):
    [0, 3) and about 5% exactly 0; B3 is also timed on the weighted sorted
    route's [w·x | w] rows (d+1 = 769 columns). The tie check runs with
    weights too: copies take no mass in B4 or the weighted sorted stats.
+   B9 (the diag-GMM E-step) at N=2^22, K=1024, d=128 and at the ragged
+   shape, with variances and weights from the blobs' hard-assignment
+   moments, its two phases timed apart; at the ragged shape also with
+   the variances 30× wider, so each row's responsibilities spread.
 4. Main path, fused route: the CLI at N=2^22, d=128, K=1024,
    --kernel=pallas, 10 iterations; B1 must launch n_iter + 1 times per fit.
 5. Main path, sorted route: the CLI at K=16,384, d=768, --init=random,
@@ -36,12 +40,16 @@ raises on failure (nothing is caught):
    times per fit and B1, B2, B3, B6 never.
 8. Main path, weighted sorted route: phase 5's CLI with --weight_file;
    B2 and B3 must launch n_iter + 1 times per fit and B1, B4 never.
-9. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
+9. Main path, GMM route: the CLI with --method_name=gaussianMixture
+   --covariance_type=diag at N=2^22, d=128, K=1024, --kernel=pallas, 10
+   iterations; B9 must launch n_iter + 1 times per fit and no other
+   kernel ever.
+10. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
    the plain labels.
-10. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
+11. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
    kernel="xla" fit from the same init give the same n_iter and
-   centroids within tolerance, for K-Means, weighted K-Means and Fuzzy
-   C-Means.
+   centroids (means) within tolerance, for K-Means, weighted K-Means,
+   Fuzzy C-Means and diag and spherical GMM.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -53,6 +61,7 @@ from __future__ import annotations
 
 import csv
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -65,9 +74,16 @@ import torch
 
 from tdc_tpu_torch.cli import main as cli
 from tdc_tpu_torch.data import make_blobs
-from tdc_tpu_torch.models import fuzzy_cmeans_fit, kmeans_fit, kmeans_predict
+from tdc_tpu_torch.models import (
+    fuzzy_cmeans_fit,
+    gmm_fit,
+    kmeans_fit,
+    kmeans_predict,
+)
+from tdc_tpu_torch.models import gmm as gm
 from tdc_tpu_torch.ops import _build
 from tdc_tpu_torch.ops import fuzzy_kernels as fk
+from tdc_tpu_torch.ops import gmm_kernels as gk
 from tdc_tpu_torch.ops import lloyd_kernels as lk
 from tdc_tpu_torch.ops import sorted_stats as ss
 from tdc_tpu_torch.ops.assign import fuzzy_memberships
@@ -107,6 +123,12 @@ MAIN_ARGS = [
 ]
 FUZZY_ARGS = [
     "--method_name=distributedFuzzyCMeans", *MAIN_ARGS[1:], "--fuzzifier=2.0",
+]
+# The diag-GMM vocabulary regime of Fisher-vector image encoding (K in the
+# hundreds to thousands, d = 64-128), on the fused routes' data.
+GMM_ARGS = [
+    "--method_name=gaussianMixture", *MAIN_ARGS[1:],
+    "--covariance_type=diag", "--init=kmeans++",
 ]
 FUZZY_MS = (2.0, 1.7)  # B6 is checked at both fuzzifiers
 FUZZY_RAGGED = ((1 << 16) + 37, 300, 19)  # N, K, d: no multiple of a tile
@@ -356,6 +378,73 @@ def phase_weighted_kernel(gen) -> dict:
     return out
 
 
+def gmm_abs_sums(x, means, var, w):
+    """Σr|x| per component, the scale of the Σr·x check (row blocks)."""
+    nv, muinv, bias = gk._operands(means, var, w)
+    rows = max(1, (1 << 26) // means.shape[0])
+    out = torch.zeros(means.shape, dtype=torch.float64, device=x.device)
+    for s in range(0, x.shape[0], rows):
+        xb = x[s:s + rows]
+        r = torch.softmax((xb * xb) @ nv.T + xb @ muinv.T + bias, dim=1)
+        out += r.T.double() @ xb.abs().double()
+    return out.float()
+
+
+def check_gmm(name, x, means, var, w) -> float:
+    """B9 against its plain version: two runs bitwise equal, Σr·x within
+    REL_TOL of Σr|x| and Σr·x² of itself per component, nk and ll_sum
+    within REL_TOL relative. Returns the larger max abs error of the two
+    moment sums."""
+    got = gk.gmm_stats_fused(x, means, var, w)
+    repeatable(name, got, gk.gmm_stats_fused(x, means, var, w))
+    want = gk.gmm_stats_fused_plain(x, means, var, w)
+    err = max(check_close(f"{name} sx", got.sx, want.sx,
+                          gmm_abs_sums(x, means, var, w)),
+              check_close(f"{name} sxx", got.sxx, want.sxx, want.sxx))
+    check_close(f"{name} nk", got.nk, want.nk, want.nk)
+    check_close(f"{name} ll", got.ll_sum, want.ll_sum, want.ll_sum.abs())
+    return err
+
+
+def phase_gmm_kernel(gen) -> dict:
+    """Phase 3, B9: at the GMM route's shape, then the ragged case. The
+    variances and weights are the hard-assignment moments of the blobs
+    around their centers (what gmm_fit starts from), so the log-probs have
+    the magnitudes a fit sees."""
+    n, k, d = B1_SHAPE
+    x, c = blob_data(gen, n, k, d)
+    var, w = gm._moments_from_hard_assign(x, c, 1e-6)
+    nv, muinv, bias = gk._operands(c, var, w)
+    norm, ll_part = gk._normalize_phase(x, nv, muinv, bias)
+    # The two E-step products and the two moment products on the FMA
+    # pipe; the 2·N·K exps run on the SFU beside them.
+    b_ms, b_by = bound_ms(8.0 * n * k * d + 3.0 * n * d,
+                          4.0 * (n * d + 4 * k * d + 2 * k + 2))
+    out = dict(
+        max_abs_err=check_gmm("B9", x, c, var, w),
+        ms=median_ms(lambda: gk.gmm_stats_fused(x, c, var, w), 5),
+        normalizer_ms=median_ms(
+            lambda: gk._normalize_phase(x, nv, muinv, bias), 5),
+        accumulate_ms=median_ms(
+            lambda: gk._accumulate_phase(x, nv, muinv, bias, norm,
+                                         ll_part), 5),
+        plain_ms=median_ms(lambda: gk.gmm_stats_fused_plain(x, c, var, w),
+                           3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"[B9] N={n} K={k} d={d}: {json.dumps(out)}", flush=True)
+    del x, c, var, w, nv, muinv, bias, norm, ll_part
+    n, k, d = FUZZY_RAGGED
+    x, c = blob_data(gen, n, k, d)
+    var, w = gm._moments_from_hard_assign(x, c, 1e-6)
+    # "soft": the variances 30× wider, so each row's responsibilities
+    # spread over several components instead of one.
+    for name, scale in (("ragged", 1.0), ("ragged soft", 30.0)):
+        err = check_gmm(f"B9 {name}", x, c, var * scale, w)
+        print(f"[B9] {name} N={n} K={k} d={d}: equal to the plain version "
+              f"(max abs err {err:.3g}), bitwise repeatable", flush=True)
+    return out
+
+
 def phase_ties(gen) -> None:
     """Phase 3, ties: copies of centroid 3 at indices 5 (same K tile,
     another lane), 67 (the same thread's tile for B2, the next tile for
@@ -472,25 +561,32 @@ def phase_fuzzy_kernel(gen) -> dict:
     return out
 
 
+WRAPPERS = {"B1": lk.lloyd_stats_fused, "B2": lk.distance_argmin,
+            "B3": ss.segment_sums, "B4": lk.lloyd_stats_fused_weighted,
+            "B6": fk.fuzzy_stats_fused, "B9": gk.gmm_stats_fused}
+
+
 def reset_counts() -> None:
-    lk.lloyd_stats_fused.launches = 0
-    lk.lloyd_stats_fused_weighted.launches = 0
-    lk.distance_argmin.launches = 0
-    ss.segment_sums.launches = 0
-    fk.fuzzy_stats_fused.launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
 
 def counts() -> dict:
-    return {"B1": lk.lloyd_stats_fused.launches,
-            "B2": lk.distance_argmin.launches,
-            "B3": ss.segment_sums.launches,
-            "B4": lk.lloyd_stats_fused_weighted.launches,
-            "B6": fk.fuzzy_stats_fused.launches}
+    return {key: fn.launches for key, fn in WRAPPERS.items()}
+
+
+def require_launches(name, seen, **want) -> None:
+    """Each kernel in `want` launched exactly that often, every other
+    kernel never."""
+    expect = {key: want.get(key, 0) for key in WRAPPERS}
+    require(seen == expect, f"{name} launches {seen}, expected {expect}")
 
 
 def run_cli(args, tmp, name) -> tuple[dict, dict]:
     """Run the port's CLI with counts reset just before; returns (CSV row,
-    launch counts read just after)."""
+    launch counts read just after). The row's cost column must be finite,
+    and nonnegative where it is an SSE or objective (a gaussianMixture
+    row's is the mean log-likelihood)."""
     log = os.path.join(tmp, f"{name}.csv")
     reset_counts()
     t0 = time.perf_counter()
@@ -503,8 +599,10 @@ def run_cli(args, tmp, name) -> tuple[dict, dict]:
           f"row {json.dumps(row)}", flush=True)
     require(row["status"] == "ok" and row["backend"] == "cuda",
             f"{name}: row {row}")
-    sse = float(row["sse"])
-    require(sse == sse and sse >= 0.0, f"{name}: SSE {sse} not finite")
+    cost = float(row["sse"])
+    require(math.isfinite(cost) and (
+        cost >= 0.0 or row["method_name"] == "gaussianMixture"),
+        f"{name}: cost column {cost}")
     return row, seen
 
 
@@ -527,6 +625,7 @@ def main() -> int:
     numbers = phase_kernels(gen)
     numbers["B6"] = phase_fuzzy_kernel(gen)
     numbers["B4"] = phase_weighted_kernel(gen)
+    numbers["B9"] = phase_gmm_kernel(gen)
     print(f"[kernels] {json.dumps(numbers)}", flush=True)
     phase_ties(gen)
 
@@ -535,16 +634,13 @@ def main() -> int:
         n_iter = int(row["n_iter"])
         require(n_iter == 10, f"fused route ran {n_iter} iterations")
         # Two fits (initialization and computation), n_iter + 1 stats each.
-        require(seen["B1"] == 2 * (n_iter + 1) and seen["B2"] == 0
-                and seen["B3"] == 0 and seen["B4"] == 0 and seen["B6"] == 0,
-                f"fused route launches {seen}")
+        require_launches("fused route", seen, B1=2 * (n_iter + 1))
         numbers["B1"]["launches"] = seen["B1"]
 
         row, seen = run_cli(SORTED_ARGS, tmp, "sorted_route")
         n_iter = int(row["n_iter"])
-        require(seen["B1"] == 0 and seen["B2"] == 2 * (n_iter + 1)
-                and seen["B3"] == 2 * (n_iter + 1) and seen["B4"] == 0
-                and seen["B6"] == 0, f"sorted route launches {seen}")
+        require_launches("sorted route", seen, B2=2 * (n_iter + 1),
+                         B3=2 * (n_iter + 1))
         numbers["B2"]["launches"] = seen["B2"]
         numbers["B3"]["launches"] = seen["B3"]
 
@@ -553,9 +649,7 @@ def main() -> int:
         row, seen = run_cli(FUZZY_ARGS, tmp, "fuzzy_route")
         n_iter = int(row["n_iter"])
         require(n_iter == 10, f"fuzzy route ran {n_iter} iterations")
-        require(seen["B6"] == 2 * (n_iter + 1) and seen["B1"] == 0
-                and seen["B2"] == 0 and seen["B3"] == 0 and seen["B4"] == 0,
-                f"fuzzy route launches {seen}")
+        require_launches("fuzzy route", seen, B6=2 * (n_iter + 1))
         numbers["B6"]["launches"] = seen["B6"]
 
         # The weighted routes: the same CLI runs with a weight file.
@@ -569,17 +663,22 @@ def main() -> int:
             n_iter = int(row["n_iter"])
             if name == "weighted_fused_route":
                 require(n_iter == 10, f"{name} ran {n_iter} iterations")
-                require(seen["B4"] == 2 * (n_iter + 1) and seen["B1"] == 0
-                        and seen["B2"] == 0 and seen["B3"] == 0
-                        and seen["B6"] == 0, f"{name} launches {seen}")
+                require_launches(name, seen, B4=2 * (n_iter + 1))
                 numbers["B4"]["launches"] = seen["B4"]
             else:
-                require(seen["B2"] == 2 * (n_iter + 1)
-                        and seen["B3"] == 2 * (n_iter + 1)
-                        and seen["B1"] == 0 and seen["B4"] == 0
-                        and seen["B6"] == 0, f"{name} launches {seen}")
+                require_launches(name, seen, B2=2 * (n_iter + 1),
+                                 B3=2 * (n_iter + 1))
 
-    # Phase 9: predict with B2 on 2^20 points.
+        # The GMM route: its row's sse column holds the mean
+        # log-likelihood; seeding (k-means++) and the hard-assignment
+        # moments run no kernel.
+        row, seen = run_cli(GMM_ARGS, tmp, "gmm_route")
+        n_iter = int(row["n_iter"])
+        require(n_iter == 10, f"gmm route ran {n_iter} iterations")
+        require_launches("gmm route", seen, B9=2 * (n_iter + 1))
+        numbers["B9"]["launches"] = seen["B9"]
+
+    # Phase 10: predict with B2 on 2^20 points.
     x, c = blob_data(gen, 1 << 20, SORTED_K, SORTED_D)
     before = lk.distance_argmin.launches
     lab = kmeans_predict(x, c, kernel="pallas")
@@ -590,7 +689,7 @@ def main() -> int:
           f"except {ties} near-ties", flush=True)
     del x, c, lab
 
-    # Phase 10: whole fit, kernel against plain, same init.
+    # Phase 11: whole fit, kernel against plain, same init.
     x, c = blob_data(gen, 1 << 16, B1_SHAPE[1], B1_SHAPE[2])
     init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
     fits = {kern: kmeans_fit(x, c.shape[0], init=init, max_iters=50,
@@ -633,6 +732,29 @@ def main() -> int:
           f"{cerr:.3g}, objective {float(a.objective):.8g} vs "
           f"{float(b.objective):.8g}", flush=True)
 
+    # GMM: n_iter and converged equal, means within 1e-4, the mean
+    # log-likelihood within 1e-5 relative (f32 sums in another order).
+    for cov in ("diag", "spherical"):
+        reset_counts()
+        fits = {kern: gmm_fit(x, c.shape[0], init=init, max_iters=30,
+                              tol=1e-4, covariance_type=cov, kernel=kern)
+                for kern in ("pallas", "xla")}
+        a, b = fits["pallas"], fits["xla"]
+        require(gk.gmm_stats_fused.launches == a.n_iter + 1,
+                f"gmm fit ({cov}): B9 did not carry it")
+        require(a.n_iter == b.n_iter and a.converged == b.converged,
+                f"gmm fit parity ({cov}): n_iter {a.n_iter} vs {b.n_iter}")
+        merr = (a.means - b.means).abs().max().item()
+        require(merr <= 1e-4, f"gmm fit parity ({cov}): means differ by "
+                              f"{merr}")
+        lla, llb = float(a.log_likelihood), float(b.log_likelihood)
+        require(abs(lla - llb) <= 1e-5 * abs(llb),
+                f"gmm fit parity ({cov}): log-likelihood {lla} vs {llb}")
+        print(f"[gmm_fit] N=65536 K=1024 d=128 {cov}: n_iter {a.n_iter} == "
+              f"{b.n_iter}, converged {a.converged}, max mean diff "
+              f"{merr:.3g}, log-likelihood {lla:.8g} vs {llb:.8g}",
+              flush=True)
+
     src = "tdc_tpu_torch/csrc/"
     meta = {
         "B1": ("lloyd_stats_fused", src + "lloyd_kernels.cu",
@@ -645,6 +767,8 @@ def main() -> int:
                "tdc_tpu/ops/pallas_kernels.py:613"),
         "B6": ("fuzzy_stats_fused", src + "fuzzy_kernels.cu",
                "tdc_tpu/ops/pallas_kernels.py:764"),
+        "B9": ("gmm_stats_fused", src + "gmm_kernels.cu",
+               "tdc_tpu/ops/pallas_kernels.py:1408"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():

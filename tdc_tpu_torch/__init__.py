@@ -27,6 +27,11 @@ _LAZY = {
     "predict_proba": ("tdc_tpu_torch.models.fuzzy", "predict_proba"),
     "fuzzy_state_from_numpy": ("tdc_tpu_torch.convert",
                                "fuzzy_state_from_numpy"),
+    "GMMResult": ("tdc_tpu_torch.models.gmm", "GMMResult"),
+    "gmm_fit": ("tdc_tpu_torch.models.gmm", "gmm_fit"),
+    "gmm_predict": ("tdc_tpu_torch.models.gmm", "gmm_predict"),
+    "gmm_predict_proba": ("tdc_tpu_torch.models.gmm", "gmm_predict_proba"),
+    "gmm_state_from_numpy": ("tdc_tpu_torch.convert", "gmm_state_from_numpy"),
     "KMeansResult": ("tdc_tpu_torch.models.kmeans", "KMeansResult"),
     "kmeans_fit": ("tdc_tpu_torch.models.kmeans", "kmeans_fit"),
     "kmeans_predict": ("tdc_tpu_torch.models.kmeans", "kmeans_predict"),

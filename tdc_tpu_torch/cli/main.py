@@ -1,10 +1,12 @@
 """Experiment CLI — the reference-parity subset of tdc_tpu/cli/main.py
-for in-memory, single-GPU Lloyd K-Means and Fuzzy C-Means.
+for in-memory, single-GPU Lloyd K-Means, Fuzzy C-Means and Gaussian
+Mixture EM.
 
 Same flags (where ported), the same three timed phases (setup; a first fit
 counted as initialization; a warm re-fit counted as computation), the
 same CSV row and the same summary line, with `backend` = 'cuda' or 'cpu'
-(a fuzzy row's `sse` column holds the objective J_m, as in the JAX CLI).
+(a fuzzy row's `sse` column holds the objective J_m and a
+gaussianMixture row's the mean log-likelihood, as in the JAX CLI).
 Errors land in the CSV as an error row and exit 1. Unlike the JAX CLI
 there is no OOM-adaptive retry: an out-of-memory error is reported, not
 retried (the streamed driver it would fall back to is not ported yet).
@@ -12,9 +14,12 @@ retried (the streamed driver it would fall back to is not ported yet).
 Run: python -m tdc_tpu_torch.cli.main --method_name=distributedKMeans \
      --n_obs=4194304 --n_dim=128 --K=1024 --kernel=pallas --log_file=log.csv
 Fuzzy: --method_name=distributedFuzzyCMeans --fuzzifier=2.0
+GMM: --method_name=gaussianMixture --covariance_type=diag (diag,
+spherical, tied or full; --kernel=pallas runs the E-step kernel B9, diag
+or spherical and unweighted; --init=kmeans seeds with a short K-Means)
 Sample weights: --weight_file=w.npy, an (N,) .npy of nonnegative weights
-(K-Means on --kernel=pallas or xla; Fuzzy C-Means on xla). The CSV row has
-no weight column, as in the JAX CLI.
+(K-Means on --kernel=pallas or xla; Fuzzy C-Means and gaussianMixture on
+xla). The CSV row has no weight column, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -23,10 +28,10 @@ import argparse
 import os
 import sys
 
-METHOD_NAMES = ("distributedKMeans", "distributedFuzzyCMeans")
+METHOD_NAMES = ("distributedKMeans", "distributedFuzzyCMeans",
+                "gaussianMixture")
 # Methods of the JAX CLI that the port has not reached yet.
 _LATER_METHODS = {
-    "gaussianMixture": "Queue A, A8",
     "bisectingKMeans": "Queue A, A8",
 }
 
@@ -34,7 +39,8 @@ _LATER_METHODS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tdc_tpu_torch",
-        description="K-Means and Fuzzy C-Means on one NVIDIA GPU "
+        description="K-Means, Fuzzy C-Means and Gaussian Mixture EM on "
+                    "one NVIDIA GPU "
                     "(PyTorch + CUDA kernels)",
     )
     p.add_argument("--n_obs", type=int, default=None,
@@ -54,21 +60,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_file", type=str, default=None,
                    help=".npz (keys X,Y) or .npy points file")
     p.add_argument("--tol", type=float, default=1e-4,
-                   help="centroid-shift tolerance; negative = exactly "
-                        "n_max_iters iterations (reference parity)")
+                   help="convergence tolerance: centroid shift (kmeans/"
+                        "fuzzy) or mean log-likelihood gain "
+                        "(gaussianMixture); negative = fixed n_max_iters "
+                        "(reference parity)")
     p.add_argument("--init", type=str, default="kmeans++",
-                   choices=("kmeans++", "random", "first_k"))
+                   choices=("kmeans++", "random", "first_k", "kmeans"),
+                   help="'kmeans' (gaussianMixture only): seed means with a "
+                        "short multi-restart K-Means fit")
     p.add_argument("--kernel", type=str, default=None,
                    choices=("xla", "pallas", "refined", "auto"),
                    help="sufficient-stats path: 'xla' = plain PyTorch ops "
                         "(default); 'pallas' = the hand-written CUDA "
                         "kernels (K-Means: B1 fused, or B2 + B3 sorted past "
-                        "the fused limit; fuzzy: B6); 'refined' = "
+                        "the fused limit; fuzzy: B6; gaussianMixture: "
+                        "B9, diag/spherical); 'refined' = "
                         "exact-distance champion refinement (K-Means only); "
                         "'auto' = pallas on CUDA, xla on CPU")
     p.add_argument("--fuzzifier", type=float, default=2.0,
                    help="fuzzy c-means m (explicit, > 1; "
                         "distributedFuzzyCMeans only)")
+    p.add_argument("--covariance_type", type=str, default="diag",
+                   choices=("diag", "spherical", "tied", "full"),
+                   help="gaussianMixture covariance parameterization "
+                        "(sklearn parity)")
     p.add_argument("--spherical", action="store_true",
                    help="cosine K-Means (normalize points and centroids)")
     p.add_argument("--empty_policy", type=str, default="keep",
@@ -129,10 +144,25 @@ def validate_args(parser, args) -> None:
     if args.n_devices is not None and args.n_devices != 1:
         parser.error("--n_GPUs must be 1: multi-GPU data parallel is not "
                      "ported yet (ROADMAP.md Queue A, A4)")
-    if args.method_name == "distributedFuzzyCMeans" and (
+    if args.method_name != "distributedKMeans" and (
             args.spherical or args.empty_policy != "keep"):
         parser.error("--spherical and --empty_policy=relocate are "
                      "distributedKMeans only")
+    if args.kernel == "refined" and args.method_name != "distributedKMeans":
+        parser.error("--kernel=refined is distributedKMeans only")
+    if args.method_name == "gaussianMixture":
+        # Reject rather than run the plain E-step under the kernel's name.
+        if args.kernel == "pallas" and (
+                args.covariance_type not in ("diag", "spherical")
+                or args.weight_file):
+            parser.error("--kernel=pallas gaussianMixture supports the "
+                         "diag/spherical, unweighted E-step only "
+                         "(spherical runs the diag kernel with the "
+                         "scalar variance broadcast)")
+    elif args.init == "kmeans":
+        parser.error("--init=kmeans is a gaussianMixture seeding mode")
+    elif args.covariance_type != "diag":
+        parser.error("--covariance_type applies to gaussianMixture only")
     if args.dtype != "float32":
         parser.error(f"--dtype {args.dtype} is not ported yet (float32 "
                      "only; ROADMAP.md Queue B, B5)")
@@ -147,7 +177,7 @@ def run_experiment(args) -> dict:
     import torch
 
     from tdc_tpu_torch.data import load_points, make_blobs
-    from tdc_tpu_torch.models import fuzzy_cmeans_fit, kmeans_fit
+    from tdc_tpu_torch.models import fuzzy_cmeans_fit, gmm_fit, kmeans_fit
     from tdc_tpu_torch.utils.device import resolve_device
     from tdc_tpu_torch.utils.timing import PhaseTimers
 
@@ -171,9 +201,17 @@ def run_experiment(args) -> dict:
                                  f"expected ({n_obs},)")
 
     fuzzy = args.method_name == "distributedFuzzyCMeans"
+    gmm = args.method_name == "gaussianMixture"
 
     def fit():
         gen = torch.Generator(device=dev).manual_seed(args.seed)
+        if gmm:
+            return gmm_fit(
+                x, args.K, init=args.init, generator=gen,
+                max_iters=args.n_max_iters, tol=args.tol,
+                covariance_type=args.covariance_type, sample_weight=weights,
+                kernel=args.kernel or "xla", device=dev,
+            )
         if fuzzy:
             return fuzzy_cmeans_fit(
                 x, args.K, m=args.fuzzifier, init=args.init, generator=gen,
@@ -194,10 +232,10 @@ def run_experiment(args) -> dict:
     # costs.
     with timers.phase("initialization") as out:
         result = fit()
-        out["block_on"] = result.centroids
+        out["block_on"] = result.means if gmm else result.centroids
     with timers.phase("computation") as out:
         result = fit()
-        out["block_on"] = result.centroids
+        out["block_on"] = result.means if gmm else result.centroids
 
     n_devices = 1
     n_iter = int(result.n_iter)
@@ -218,7 +256,8 @@ def run_experiment(args) -> dict:
         "backend": dev.type,
         "n_chips": n_devices,
         "points_per_sec_per_chip": round(pps, 1),
-        "sse": float(result.objective if fuzzy else result.sse),
+        "sse": float(result.log_likelihood if gmm
+                     else result.objective if fuzzy else result.sse),
         "converged": bool(result.converged),
         "num_batches": 1,
         "tol": args.tol,

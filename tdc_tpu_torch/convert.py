@@ -1,11 +1,13 @@
-"""Carry fitted K-Means and Fuzzy C-Means state between the JAX package and
-the port.
+"""Carry fitted K-Means, Fuzzy C-Means and Gaussian Mixture state between
+the JAX package and the port.
 
-Both packages' results reduce to plain arrays: pass
+The packages' results reduce to plain arrays: pass
 `np.asarray(jax_result.centroids)` (and optionally n_iter, sse or
 objective, shift, converged) to `kmeans_state_from_numpy` or
-`fuzzy_state_from_numpy` to predict with the port from centroids the JAX
-package fitted; `to_numpy` goes the other way for either result.
+`fuzzy_state_from_numpy`, or a GMMResult's means, variances, weights and
+covariance_type to `gmm_state_from_numpy`, to predict and score with the
+port from a model the JAX package fitted; `to_numpy` goes the other way
+for any of the three results.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from tdc_tpu_torch.models.fuzzy import FuzzyCMeansResult
+from tdc_tpu_torch.models.gmm import COVARIANCE_TYPES, GMMResult
 from tdc_tpu_torch.models.kmeans import KMeansResult
 from tdc_tpu_torch.utils.device import resolve_device
 
@@ -59,9 +62,58 @@ def fuzzy_state_from_numpy(
         **_state(centroids, device, objective=objective, shift=shift))
 
 
-def to_numpy(result: KMeansResult | FuzzyCMeansResult) -> dict:
-    """{'centroids', 'n_iter', 'sse' or 'objective', 'shift', 'converged'}
-    as numpy values."""
+def gmm_state_from_numpy(
+    means,
+    variances,
+    weights,
+    covariance_type: str = "diag",
+    *,
+    n_iter: int = 0,
+    log_likelihood: float = float("nan"),
+    converged: bool = False,
+    device=None,
+) -> GMMResult:
+    """A GMMResult on `device` (None = 'cuda') from numpy state; the
+    variances take the covariance type's shape (diag (K, d), spherical
+    (K,), tied (d, d), full (K, d, d))."""
+    if covariance_type not in COVARIANCE_TYPES:
+        raise ValueError(
+            f"covariance_type must be one of {COVARIANCE_TYPES}, "
+            f"got {covariance_type!r}")
+    state = _state(means, device, log_likelihood=log_likelihood)
+    m = state.pop("centroids")
+    k, d = m.shape
+    var = np.asarray(variances, dtype=np.float32)
+    want = {"diag": (k, d), "spherical": (k,), "tied": (d, d),
+            "full": (k, d, d)}[covariance_type]
+    if var.shape != want:
+        raise ValueError(f"{covariance_type} variances must be {want}, got "
+                         f"{var.shape}")
+    w = np.asarray(weights, dtype=np.float32)
+    if w.shape != (k,):
+        raise ValueError(f"weights must be ({k},), got {w.shape}")
+    return GMMResult(
+        means=m, variances=torch.tensor(var, device=m.device),
+        weights=torch.tensor(w, device=m.device), n_iter=int(n_iter),
+        converged=bool(converged), covariance_type=covariance_type,
+        **state)
+
+
+def to_numpy(result: KMeansResult | FuzzyCMeansResult | GMMResult) -> dict:
+    """As numpy values: {'centroids', 'n_iter', 'sse' or 'objective',
+    'shift', 'converged'} for K-Means and Fuzzy C-Means; {'means',
+    'variances', 'weights', 'n_iter', 'log_likelihood', 'converged',
+    'covariance_type'} for a GMM."""
+    if isinstance(result, GMMResult):
+        return {
+            "means": result.means.detach().cpu().numpy(),
+            "variances": result.variances.detach().cpu().numpy(),
+            "weights": result.weights.detach().cpu().numpy(),
+            "n_iter": np.int32(result.n_iter),
+            "log_likelihood": np.float32(float(result.log_likelihood)),
+            "converged": np.bool_(result.converged),
+            "covariance_type": result.covariance_type,
+        }
     cost = "sse" if isinstance(result, KMeansResult) else "objective"
     return {
         "centroids": result.centroids.detach().cpu().numpy(),

@@ -1,4 +1,6 @@
 // The distance → champion fold shared by the Lloyd kernels (B1, B2).
+// Its tile geometry and staging also serve the two-phase kernels B6 and
+// B9, and so does the accumulate-step chunk `ChunkRegs` at its end.
 //
 // Counterpart of the JAX package's `champion_tile`
 // (tdc_tpu/ops/pallas_kernels.py:99) and the running (min, argmin) of
@@ -235,5 +237,57 @@ __device__ __forceinline__ float row_sq_norm(const float* __restrict__ x,
     s += __shfl_xor_sync(0xffffffffu, s, off);
   return s;
 }
+
+// The accumulate steps of the two-phase kernels (B6, B9): a CTA owns a
+// kDC-column slice of the (K, d) sums and stages kRC rows of x at a time.
+constexpr int kDC = 128;
+constexpr int kRC = 16;
+
+// Row ranges G of a two-phase kernel's accumulate: about `target_ctas`
+// CTAs over `tiles` (K tile, d slice) pairs, each range at least one
+// BM-row block, at least 1.
+inline int accumulate_row_ranges(long long n, long long tiles,
+                                 int target_ctas) {
+  long long g = target_ctas / tiles;
+  const long long nb = (n + BM - 1) / BM;
+  if (g > nb) g = nb;
+  if (g > 65535) g = 65535;
+  return g < 1 ? 1 : (int)g;
+}
+
+// One kRC x kDC chunk of x (rows row0 + r0.., columns dc..), held in
+// registers between its global load and its store to shared memory, so the
+// next chunk's loads are in flight while the current one computes. Rows
+// past n and columns past d load as 0.
+template <bool kVec>
+struct ChunkRegs {
+  static constexpr int kW = kVec ? 4 : 1;
+  static constexpr int kPer = kDC / kW;  // loads per chunk row
+  static constexpr int kN = kRC * kPer / kThreads;
+  using T = typename std::conditional<kVec, float4, float>::type;
+  T v[kN];
+
+  __device__ __forceinline__ void load(const float* __restrict__ x,
+                                       long long n, int d, long long row0,
+                                       int dc) {
+#pragma unroll
+    for (int t = 0; t < kN; ++t) {
+      const int i = threadIdx.x + t * kThreads;
+      const long long row = row0 + i / kPer;
+      const int col = dc + (i % kPer) * kW;
+      v[t] = (row < n && col < d)
+                 ? *reinterpret_cast<const T*>(x + row * d + col)
+                 : T{};
+    }
+  }
+
+  __device__ __forceinline__ void store(float (&xc)[kRC][kDC]) const {
+#pragma unroll
+    for (int t = 0; t < kN; ++t) {
+      const int i = threadIdx.x + t * kThreads;
+      *reinterpret_cast<T*>(&xc[i / kPer][(i % kPer) * kW]) = v[t];
+    }
+  }
+};
 
 }  // namespace tdc

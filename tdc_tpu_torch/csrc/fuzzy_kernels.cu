@@ -50,8 +50,6 @@ using namespace tdc;
 
 constexpr int kFuzzyBN = 64;  // centroids per K tile (TN = 4 per thread)
 constexpr int kTN = kFuzzyBN / 16;
-constexpr int kDC = 128;  // columns of Σμx per CTA
-constexpr int kRC = 16;   // rows of x staged per accumulate step
 
 // The dot products of rows row0 + ty*TM + m with centroids of the K tile
 // starting at kt, over all of d, into acc[m][q] (centroid kt + tx*4 + q).
@@ -169,41 +167,6 @@ struct __align__(16) AccumSmem {
     AssignSmem<kFuzzyBN> dots;
     float xc[kRC][kDC];  // x rows of one accumulate step, columns of the slice
   } u;
-};
-
-// One kRC x kDC chunk of x (rows row0 + r0.., columns dc..), held in
-// registers between its global load and its store to shared memory, so the
-// next chunk's loads are in flight while the current one computes. Rows
-// past n and columns past d load as 0.
-template <bool kVec>
-struct ChunkRegs {
-  static constexpr int kW = kVec ? 4 : 1;
-  static constexpr int kPer = kDC / kW;  // loads per chunk row
-  static constexpr int kN = kRC * kPer / kThreads;
-  using T = typename std::conditional<kVec, float4, float>::type;
-  T v[kN];
-
-  __device__ __forceinline__ void load(const float* __restrict__ x,
-                                       long long n, int d, long long row0,
-                                       int dc) {
-#pragma unroll
-    for (int t = 0; t < kN; ++t) {
-      const int i = threadIdx.x + t * kThreads;
-      const long long row = row0 + i / kPer;
-      const int col = dc + (i % kPer) * kW;
-      v[t] = (row < n && col < d)
-                 ? *reinterpret_cast<const T*>(x + row * d + col)
-                 : T{};
-    }
-  }
-
-  __device__ __forceinline__ void store(float (&xc)[kRC][kDC]) const {
-#pragma unroll
-    for (int t = 0; t < kN; ++t) {
-      const int i = threadIdx.x + t * kThreads;
-      *reinterpret_cast<T*>(&xc[i / kPer][(i % kPer) * kW]) = v[t];
-    }
-  }
 };
 
 // Phase 2. CTA (blockIdx.x, blockIdx.y, blockIdx.z) = (K tile, d slice,
@@ -390,12 +353,8 @@ extern "C" int tdc_fuzzy_k_tile() { return kFuzzyBN; }
 // Row ranges G of phase 2: about `target_ctas` CTAs in all, each range at
 // least one 128-row block, at least 1.
 extern "C" int tdc_fuzzy_grid(long long n, int k, int d, int target_ctas) {
-  const long long tiles = (long long)k_tiles(k) * d_slices(d);
-  long long g = target_ctas / tiles;
-  const long long nb = (n + BM - 1) / BM;
-  if (g > nb) g = nb;
-  if (g > 65535) g = 65535;
-  return g < 1 ? 1 : (int)g;
+  return accumulate_row_ranges(n, (long long)k_tiles(k) * d_slices(d),
+                               target_ctas);
 }
 
 // Phase 1 alone: s (N,) f32, the row normaliser, and ‖x‖² (N,) f32.

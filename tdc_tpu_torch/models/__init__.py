@@ -1,5 +1,6 @@
-"""Clustering algorithms (counterpart: tdc_tpu/models). Lloyd K-Means and
-Fuzzy C-Means are ported; ROADMAP.md Queue A lists the rest."""
+"""Clustering algorithms (counterpart: tdc_tpu/models). Lloyd K-Means,
+Fuzzy C-Means and the in-memory Gaussian Mixture fit are ported;
+ROADMAP.md Queue A lists the rest."""
 
 from tdc_tpu_torch.models.fuzzy import (
     FuzzyCMeansResult,
@@ -7,7 +8,24 @@ from tdc_tpu_torch.models.fuzzy import (
     fuzzy_predict,
     predict_proba,
 )
+from tdc_tpu_torch.models.gmm import (
+    COVARIANCE_TYPES,
+    GMMResult,
+    gmm_aic,
+    gmm_bic,
+    gmm_fit,
+    gmm_n_parameters,
+    gmm_predict,
+    gmm_predict_proba,
+    gmm_sample,
+    gmm_score,
+    gmm_score_samples,
+)
 from tdc_tpu_torch.models.kmeans import KMeansResult, kmeans_fit, kmeans_predict
 
-__all__ = ["FuzzyCMeansResult", "KMeansResult", "fuzzy_cmeans_fit",
-           "fuzzy_predict", "kmeans_fit", "kmeans_predict", "predict_proba"]
+__all__ = ["COVARIANCE_TYPES", "FuzzyCMeansResult", "GMMResult",
+           "KMeansResult", "fuzzy_cmeans_fit", "fuzzy_predict", "gmm_aic",
+           "gmm_bic", "gmm_fit", "gmm_n_parameters", "gmm_predict",
+           "gmm_predict_proba", "gmm_sample", "gmm_score",
+           "gmm_score_samples", "kmeans_fit", "kmeans_predict",
+           "predict_proba"]

@@ -1,0 +1,458 @@
+"""Gaussian Mixture Models via EM, all four sklearn covariance types
+(counterpart: tdc_tpu/models/gmm.py, the in-memory part, :52-577).
+
+The E-step is the JAX package's matmul form, never an (N, K, d) tensor:
+diag and spherical expand Σ_d (x − μ)²/σ² into two (N, d) × (d, K)
+products; tied whitens x and the means once through the shared Cholesky
+factor; full solves per component in a loop over K. The M-step reads the
+responsibilities' moments Σr, Σr·x and the covariance type's second
+moment (Σr·x², Σr·xxᵀ, or the iteration-constant Σxxᵀ for tied).
+
+The JAX package traces the EM loop into one `lax.while_loop`. Here, as in
+`models/kmeans.py`, the loop runs on the host and every iteration's work
+stays on the device; the host reads the mean log-likelihood once per
+iteration, which the `i < 1 or ll − prev_ll > tol` test needs. The
+semantics are the JAX package's:
+
+- at least one EM step; stop when the mean log-likelihood gain of the
+  latest step is not above tol (compared in f32), or at max_iters;
+- the final log-likelihood is recomputed at the returned parameters, so a
+  fit makes n_iter + 1 E-steps;
+- converged = n_iter > 1 and the last gain <= tol.
+
+kernel='pallas' runs the E-step on B9 (`ops/gmm_kernels.gmm_stats_fused`):
+diag, and spherical with the scalar variance broadcast across d (the same
+log-density, and the (K, d) second moment the spherical M-step averages),
+unweighted only; anything else raises, so no plain numbers are recorded
+under the kernel's name. 'auto' resolves to pallas on CUDA where eligible,
+else xla, with one `kernel_selected` event. Sample weights run on xla.
+
+Supported: float32 inputs, no mesh. Mesh (data parallel), the streamed
+out-of-core fit and the K-sharded fit are not ported: mesh raises
+NotImplementedError naming ROADMAP.md A4; the streamed and K-sharded
+fits (A7, A9) have no entry point in the port yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tdc_tpu_torch.models._common import validate_sample_weight
+from tdc_tpu_torch.models.kmeans import (
+    _as_points,
+    _not_ported,
+    auto_block_rows,
+    kmeans_fit,
+    resolve_init,
+)
+from tdc_tpu_torch.ops.assign import assign_clusters, cluster_stats
+from tdc_tpu_torch.ops.gmm_kernels import gmm_stats_for
+from tdc_tpu_torch.utils.device import resolve_device
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+COVARIANCE_TYPES = ("diag", "spherical", "tied", "full")
+
+
+class GMMResult(NamedTuple):
+    means: torch.Tensor  # (K, d) f32
+    # Covariance parameters, shaped by covariance_type (sklearn convention):
+    # diag (K, d), spherical (K,), tied (d, d), full (K, d, d).
+    variances: torch.Tensor
+    weights: torch.Tensor  # (K,) mixing proportions, sum to 1
+    n_iter: int  # EM iterations run
+    log_likelihood: torch.Tensor  # () f32 — mean per-point log-likelihood
+    converged: bool
+    # Iterations executed by THIS fit call (None = same as n_iter).
+    n_iter_run: object = None
+    covariance_type: str = "diag"
+
+
+def _log_prob(x, means, variances, log_weights):
+    """(N, K) log [π_k N(x | μ_k, diag σ²_k)] in matmul form, f32."""
+    inv = 1.0 / variances  # (K, d)
+    maha = ((x * x) @ inv.T - 2.0 * (x @ (means * inv).T)
+            + (means * means * inv).sum(dim=1)[None, :])
+    log_det = torch.log(variances).sum(dim=1)
+    d = x.shape[1]
+    return (-0.5 * (maha + log_det[None, :] + d * _LOG_2PI)
+            + log_weights[None, :])
+
+
+def _log_prob_spherical(x, means, variances, log_weights):
+    """(N, K) log-prob with one σ²_k per component: the plain squared
+    distance matmul scaled per component."""
+    d2 = ((x * x).sum(dim=1, keepdim=True) - 2.0 * (x @ means.T)
+          + (means * means).sum(dim=1)[None, :])
+    d = x.shape[1]
+    maha = d2 / variances[None, :]
+    log_det = d * torch.log(variances)
+    return (-0.5 * (maha + log_det[None, :] + d * _LOG_2PI)
+            + log_weights[None, :])
+
+
+def _log_prob_tied(x, means, cov, log_weights):
+    """(N, K) log-prob with one shared (d, d) covariance: whiten x and the
+    means once through the Cholesky factor, then the diag expansion in
+    whitened space."""
+    chol = torch.linalg.cholesky(cov)
+    z = torch.linalg.solve_triangular(chol, x.T, upper=False).T  # (N, d)
+    zm = torch.linalg.solve_triangular(chol, means.T, upper=False).T
+    maha = ((z * z).sum(dim=1, keepdim=True) - 2.0 * (z @ zm.T)
+            + (zm * zm).sum(dim=1)[None, :])
+    log_det = 2.0 * torch.log(torch.diagonal(chol)).sum()
+    d = x.shape[1]
+    return -0.5 * (maha + log_det + d * _LOG_2PI) + log_weights[None, :]
+
+
+def _log_prob_full(x, means, covs, log_weights):
+    """(N, K) log-prob with per-component (d, d) covariances: a loop over K
+    of triangular solves, never an (N, K, d) tensor."""
+    chol = torch.linalg.cholesky(covs)  # (K, d, d)
+    maha = torch.stack([
+        (torch.linalg.solve_triangular(chol[j], (x - means[j]).T,
+                                       upper=False) ** 2).sum(dim=0)
+        for j in range(means.shape[0])
+    ], dim=1)  # (N, K)
+    log_det = 2.0 * torch.log(
+        torch.diagonal(chol, dim1=1, dim2=2)).sum(dim=1)
+    d = x.shape[1]
+    return (-0.5 * (maha + log_det[None, :] + d * _LOG_2PI)
+            + log_weights[None, :])
+
+
+def _log_prob_t(x, means, cov, log_weights, cov_type: str):
+    if cov_type == "diag":
+        return _log_prob(x, means, cov, log_weights)
+    if cov_type == "spherical":
+        return _log_prob_spherical(x, means, cov, log_weights)
+    if cov_type == "tied":
+        return _log_prob_tied(x, means, cov, log_weights)
+    if cov_type == "full":
+        return _log_prob_full(x, means, cov, log_weights)
+    raise ValueError(f"unknown covariance_type {cov_type!r}")
+
+
+def gmm_stats_auto(x, means, variances, weights):
+    """Diag-GMM E-step sufficient stats (ll_sum, nk (K,), sx (K, d),
+    sxx (K, d)) on the kernel route: B9 at every (K, d), since its two
+    phases have no K·d limit (the JAX version falls back to XLA past its
+    VMEM model; nothing here needs to)."""
+    return gmm_stats_for(*means.shape)(x, means, variances, weights)
+
+
+def _m_step(nk, sx, sxx, n_rows, reg):
+    """Diag M-step: means, variances clamped at 0 plus reg_covar, and the
+    renormalised weights."""
+    safe = torch.clamp_min(nk, 1e-12)[:, None]
+    means = sx / safe
+    variances = torch.clamp_min(sxx / safe - means * means, 0.0) + reg
+    weights = torch.clamp_min(nk / n_rows, 1e-12)
+    return means, variances, weights / weights.sum()
+
+
+def _m_step_t(nk, sx, second, wsum, reg, cov_type: str):
+    """Covariance-type-aware M-step. `second` is the type's second moment:
+    Σr·x² (K, d) for diag/spherical, Σr·xxᵀ (K, d, d) for full, the
+    iteration-constant Σxxᵀ (d, d) for tied."""
+    if cov_type == "diag":
+        return _m_step(nk, sx, second, wsum, reg)
+    safe = torch.clamp_min(nk, 1e-12)[:, None]
+    means = sx / safe
+    d = means.shape[1]
+    eye = torch.eye(d, dtype=torch.float32, device=means.device)
+    if cov_type == "spherical":
+        # sklearn: the mean of the (reg-floored) diag variances.
+        cov = (torch.clamp_min(second / safe - means * means, 0.0)
+               + reg).mean(dim=1)
+    elif cov_type == "full":
+        outer = means[:, :, None] * means[:, None, :]
+        cov = second / torch.clamp_min(nk, 1e-12)[:, None, None] - outer
+        cov = cov + reg * eye[None]
+    else:  # tied: Σ_k nk μμᵀ == sxᵀ @ means since nk·μ = sx
+        cov = (second - sx.T @ means) / wsum + reg * eye
+    weights = torch.clamp_min(nk / wsum, 1e-12)
+    return means, cov, weights / weights.sum()
+
+
+def _em_loop(x, means0, cov0, weights0, max_iters: int, tol: float,
+             reg: float, cov_type: str = "diag", w=None,
+             kernel: str = "xla"):
+    """The EM iteration; returns (means, cov, weights, n_iter, final_ll,
+    converged). `w` (sample weights) scales each row's responsibilities
+    (xla only)."""
+    n, d = x.shape
+    wsum = (w.sum() if w is not None
+            else torch.tensor(float(n), dtype=torch.float32, device=x.device))
+    if cov_type == "tied":
+        # Σ wᵢ xxᵀ is iteration-constant (responsibilities sum to 1 per
+        # point), so the tied M-step needs only nk and sx per iteration.
+        xw = x if w is None else x * w[:, None]
+        s_total = xw.T @ x
+    if kernel == "pallas":
+        stats_fn = gmm_stats_for(means0.shape[0], d, label="gmm_fit")
+
+    def e_and_stats(means, cov, log_weights):
+        if kernel == "pallas":
+            # Spherical is the diag kernel with the scalar variance
+            # broadcast across d: the same log-density, and the (K, d)
+            # second moment the spherical M-step averages.
+            var_d = (cov if cov_type == "diag"
+                     else cov[:, None].expand(-1, d).contiguous())
+            st = stats_fn(x, means.contiguous(), var_d,
+                          torch.exp(log_weights))
+            return st.ll_sum / n, st.nk, st.sx, st.sxx
+        logp = _log_prob_t(x, means, cov, log_weights, cov_type)  # (N, K)
+        norm = torch.logsumexp(logp, dim=1, keepdim=True)
+        r = torch.exp(logp - norm)
+        if w is not None:
+            r = r * w[:, None]
+            ll = (w * norm[:, 0]).sum() / wsum
+        else:
+            ll = norm.mean()
+        nk = r.sum(dim=0)
+        sx = r.T @ x
+        if cov_type in ("diag", "spherical"):
+            s2 = r.T @ (x * x)
+        elif cov_type == "full":
+            # K sequential (d, N) × (N, d) products, no (N, K, d) tensor.
+            s2 = torch.stack([(x * r[:, j:j + 1]).T @ x
+                              for j in range(r.shape[1])])
+        else:  # tied: the second moment is the precomputed constant
+            s2 = None
+        return ll, nk, sx, s2
+
+    means, cov, weights = means0, cov0, weights0
+    # The mean log-likelihood before and after the latest step, as f32 on
+    # the host, so the gain is compared with tol in f32 as the JAX loop
+    # compares them on the device.
+    tol32 = np.float32(tol)
+    prev_ll = ll = np.float32(-np.inf)
+    n_iter = 0
+    while n_iter < max_iters and (n_iter < 1 or ll - prev_ll > tol32):
+        step_ll, nk, sx, s2 = e_and_stats(means, cov, torch.log(weights))
+        second = s_total if cov_type == "tied" else s2
+        means, cov, weights = _m_step_t(nk, sx, second, wsum, reg, cov_type)
+        prev_ll, ll = ll, np.float32(step_ll.item())
+        n_iter += 1
+    # Final log-likelihood of the RETURNED parameters (the loop's is one
+    # step stale).
+    final_ll = e_and_stats(means, cov, torch.log(weights))[0]
+    converged = bool(n_iter > 1 and ll - prev_ll <= tol32)
+    return means, cov, weights, n_iter, final_ll, converged
+
+
+def gmm_fit(
+    x,
+    k: int,
+    *,
+    init="kmeans",
+    generator: torch.Generator | None = None,
+    max_iters: int = 100,
+    tol: float = 1e-4,
+    reg_covar: float = 1e-6,
+    mesh=None,
+    covariance_type: str = "diag",
+    sample_weight=None,
+    kernel: str = "xla",
+    device=None,
+) -> GMMResult:
+    """Fit a GMM with EM.
+
+    Args:
+      x: (N, d) points (numpy or torch), converted to float32 on `device`.
+      init: 'kmeans' (a short K-Means fit seeds the means: k-means++, 10
+        iterations, tol 1e-3, best of 3 — sklearn's default), any
+        resolve_init spec ('kmeans++', 'random', 'first_k'), or an explicit
+        (K, d) means array. Initial variances and weights come from the
+        hard assignment to the initial means.
+      generator: torch.Generator on `device` for the stochastic inits
+        (default: one seeded with 0).
+      tol: threshold on the mean per-point log-likelihood gain (sklearn
+        semantics).
+      reg_covar: variance floor added every M-step.
+      covariance_type: 'diag' | 'spherical' | 'tied' | 'full'
+        (result.variances takes the matching shape).
+      sample_weight: optional (N,) nonnegative per-point weights, scaling
+        each point's responsibilities (equivalent to repeating rows); xla
+        only.
+      kernel: 'xla' (plain PyTorch ops), 'pallas' (the E-step kernel B9:
+        diag or spherical, unweighted) or 'auto' (pallas on CUDA where
+        eligible, xla otherwise).
+      device: None means 'cuda'; 'cpu' runs the plain versions.
+    """
+    if mesh is not None:
+        raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
+    if covariance_type not in COVARIANCE_TYPES:
+        raise ValueError(
+            f"covariance_type must be one of {COVARIANCE_TYPES}, "
+            f"got {covariance_type!r}")
+    dev = resolve_device(device)
+    x = _as_points(x, dev)
+    n, d = x.shape
+    eligible = (covariance_type in ("diag", "spherical")
+                and sample_weight is None)
+    if kernel.startswith("auto"):
+        from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
+
+        kernel = resolve_kernel(
+            kernel, k=k, d=d, device=dev, model="gmm", label="gmm_fit",
+            ineligible=(None if eligible else
+                        "the fused E-step is diag/spherical, unweighted"))
+    if kernel not in ("xla", "pallas"):
+        raise ValueError(f"unknown kernel {kernel!r} (use 'xla' or 'pallas')")
+    if kernel == "pallas" and not eligible:
+        raise ValueError(
+            "kernel='pallas' supports the diag/spherical, unweighted, "
+            "single-device E-step only")
+    w = None
+    if sample_weight is not None:
+        w = validate_sample_weight(sample_weight, n, k, dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if isinstance(init, str) and init == "kmeans":
+        # Best of 3 k-means++ restarts by SSE: one draw can split or merge
+        # blobs, and EM inherits that basin.
+        means0 = kmeans_fit(
+            x, k, init="kmeans++", generator=generator, max_iters=10,
+            tol=1e-3, n_init=3, sample_weight=sample_weight, device=dev,
+        ).centroids
+    else:
+        means0 = resolve_init(x, k, init, generator, w)
+    means0 = means0.to(torch.float32).contiguous()
+    # Initial variances and weights from the hard assignment to the
+    # initial means (sklearn's one-hot responsibilities): a loose global
+    # variance lets early E-steps merge separated components.
+    variances0, weights0 = _moments_from_hard_assign(x, means0, reg_covar)
+    cov0 = _diag_to_cov(variances0, weights0, covariance_type)
+    means, cov, weights, n_iter, ll, converged = _em_loop(
+        x, means0, cov0, weights0, int(max_iters), float(tol),
+        float(reg_covar), covariance_type, w, kernel)
+    return GMMResult(means=means, variances=cov, weights=weights,
+                     n_iter=n_iter, log_likelihood=ll, converged=converged,
+                     covariance_type=covariance_type)
+
+
+def _diag_to_cov(var, weights, cov_type: str):
+    """Project the hard-assignment diag variance estimate (K, d) into the
+    requested covariance parameterization for the EM start."""
+    if cov_type == "diag":
+        return var
+    if cov_type == "spherical":
+        return var.mean(dim=1)
+    if cov_type == "tied":
+        return torch.diag((weights[:, None] * var).sum(dim=0))
+    d = var.shape[1]  # full: embed the diagonals
+    return var[:, :, None] * torch.eye(d, dtype=var.dtype,
+                                       device=var.device)[None]
+
+
+def _moments_from_hard_assign(x, means, reg):
+    """(variances (K, d), weights (K,)) from one-hot nearest-mean
+    responsibilities: per-component variance around the component's own
+    empirical mean, the global variance for empty components. Labels
+    (smallest index on ties) and moments are taken in row blocks of
+    `auto_block_rows`, so no (N, K) buffer outgrows the memory budget."""
+    n = x.shape[0]
+    k = means.shape[0]
+    rows = auto_block_rows(n, k, device=x.device) or max(n, 1)
+    nk = torch.zeros(k, dtype=torch.float32, device=x.device)
+    moments = torch.zeros((k, 2 * x.shape[1]), dtype=torch.float32,
+                          device=x.device)
+    for s in range(0, n, rows):
+        xb = x[s:s + rows]
+        sums, counts = cluster_stats(torch.cat([xb, xb * xb], dim=1),
+                                     assign_clusters(xb, means), k)
+        moments += sums
+        nk += counts
+    safe = torch.clamp_min(nk, 1.0)[:, None]
+    mu, ex2 = (moments / safe).chunk(2, dim=1)
+    var = torch.clamp_min(ex2 - mu * mu, 0.0) + reg
+    gvar = torch.clamp_min(torch.var(x, dim=0, unbiased=False), 1e-6) + reg
+    var = torch.where(nk[:, None] > 0, var, gvar[None, :])
+    w = torch.clamp_min(nk / n, 1e-12)
+    return var, w / w.sum()
+
+
+def _logp_of(x, result: GMMResult):
+    """(x on the result's device, (N, K) log-probs under the mixture)."""
+    x = _as_points(x, result.means.device)
+    return x, _log_prob_t(x, result.means, result.variances,
+                          torch.log(result.weights), result.covariance_type)
+
+
+def gmm_predict(x, result: GMMResult) -> torch.Tensor:
+    """Hard component labels (N,) int32: argmax posterior, smallest index
+    on ties. Runs on the result's device."""
+    return torch.argmax(_logp_of(x, result)[1], dim=1).to(torch.int32)
+
+
+def gmm_predict_proba(x, result: GMMResult) -> torch.Tensor:
+    """(N, K) posterior responsibilities."""
+    logp = _logp_of(x, result)[1]
+    return torch.exp(logp - torch.logsumexp(logp, dim=1, keepdim=True))
+
+
+def gmm_score_samples(x, result: GMMResult) -> torch.Tensor:
+    """(N,) per-point log p(x) under the mixture (sklearn .score_samples)."""
+    return torch.logsumexp(_logp_of(x, result)[1], dim=1)
+
+
+def gmm_score(x, result: GMMResult) -> float:
+    """Mean per-point log-likelihood (sklearn .score)."""
+    return float(gmm_score_samples(x, result).mean())
+
+
+def gmm_n_parameters(result: GMMResult) -> int:
+    """Free-parameter count for BIC/AIC (sklearn's _n_parameters)."""
+    k, d = result.means.shape
+    cov_params = {
+        "diag": k * d,
+        "spherical": k,
+        "tied": d * (d + 1) // 2,
+        "full": k * d * (d + 1) // 2,
+    }[result.covariance_type]
+    return int(cov_params + k * d + k - 1)
+
+
+def gmm_bic(x, result: GMMResult) -> float:
+    """Bayesian information criterion on x (lower is better)."""
+    n = np.shape(x)[0]
+    return float(-2.0 * gmm_score(x, result) * n
+                 + gmm_n_parameters(result) * float(np.log(n)))
+
+
+def gmm_aic(x, result: GMMResult) -> float:
+    """Akaike information criterion on x (lower is better)."""
+    n = np.shape(x)[0]
+    return float(-2.0 * gmm_score(x, result) * n
+                 + 2 * gmm_n_parameters(result))
+
+
+def gmm_sample(result: GMMResult, n_samples: int,
+               generator: torch.Generator):
+    """Draw (X (n, d) f32, labels (n,) int32) from the fitted mixture
+    (sklearn .sample): components by weight, then the matching Gaussian.
+    `generator` lives on the result's device; torch's draws are not the
+    JAX package's, so samples agree in distribution only."""
+    dev = result.means.device
+    d = result.means.shape[1]
+    comp = torch.multinomial(result.weights, n_samples, replacement=True,
+                             generator=generator)
+    z = torch.randn((n_samples, d), generator=generator, device=dev)
+    means = result.means[comp]
+    cov_type = result.covariance_type
+    if cov_type == "diag":
+        x = means + z * torch.sqrt(result.variances)[comp]
+    elif cov_type == "spherical":
+        x = means + z * torch.sqrt(result.variances)[comp][:, None]
+    elif cov_type == "tied":
+        x = means + z @ torch.linalg.cholesky(result.variances).T
+    else:  # full: per-component Cholesky, gathered per sample
+        chols = torch.linalg.cholesky(result.variances)  # (K, d, d)
+        x = means + torch.einsum("nd,ned->ne", z, chols[comp])
+    return x, comp.to(torch.int32)

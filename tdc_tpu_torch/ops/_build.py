@@ -35,8 +35,9 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # name -> argtypes; every pointer and the stream are void*, every entry
 # point that launches returns an int CUDA error code
-# (tdc_segment_chunk_rows, tdc_fuzzy_k_tile and tdc_fuzzy_grid return the
-# geometry that sizes B3's and B6's workspaces).
+# (tdc_segment_chunk_rows, tdc_fuzzy_k_tile, tdc_fuzzy_grid,
+# tdc_gmm_row_block and tdc_gmm_grid return the geometry that sizes B3's,
+# B6's and B9's workspaces).
 SIGNATURES = {
     "tdc_distance_argmin": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "tdc_lloyd_stats_fused": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P,
@@ -50,6 +51,11 @@ SIGNATURES = {
                              _I, _P, _P, _P, _P, _P, _P, _P],
     "tdc_fuzzy_k_tile": [],
     "tdc_fuzzy_grid": [_LL, _I, _I, _I],
+    "tdc_gmm_normalizer": [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P],
+    "tdc_gmm_accumulate": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P,
+                           _P, _P, _P, _P, _P, _P],
+    "tdc_gmm_row_block": [],
+    "tdc_gmm_grid": [_LL, _I, _I, _I],
 }
 
 

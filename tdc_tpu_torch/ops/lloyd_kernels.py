@@ -340,17 +340,18 @@ def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
     kernels) on a CUDA device and to 'xla' (plain PyTorch) on the CPU, with
     one `kernel_selected` event; an explicit name passes through. CUDA
     plays the part that platform == 'tpu' plays in the JAX version.
-    `model` is 'kmeans', 'kmeans_weighted' or 'fuzzy'; every kernel route
-    takes every (K, d). `ineligible` names a caller-side reason the kernels
-    cannot apply at all (weighted fuzzy stats run in f32 plain ops): auto
-    then resolves to 'xla' with that reason in the event."""
+    `model` is 'kmeans', 'kmeans_weighted', 'fuzzy' or 'gmm'; every kernel
+    route takes every (K, d). `ineligible` names a caller-side reason the
+    kernels cannot apply at all (weighted fuzzy stats run in f32 plain ops;
+    the GMM kernel is diag/spherical and unweighted): auto then resolves to
+    'xla' with that reason in the event."""
     if kernel != "auto":
         if kernel == "auto:quantized":
             raise NotImplementedError(
                 "kernel='auto:quantized' needs the bf16 B1 variant "
                 "(ROADMAP.md Queue B, B5)")
         return kernel
-    if model not in ("kmeans", "kmeans_weighted", "fuzzy"):
+    if model not in ("kmeans", "kmeans_weighted", "fuzzy", "gmm"):
         raise NotImplementedError(
             f"resolve_kernel: model={model!r} is not ported yet "
             "(ROADMAP.md Queue A)")

@@ -1,10 +1,11 @@
 """The port's CLI against the JAX package's on the same .npz, on the CPU,
-for distributedKMeans and distributedFuzzyCMeans, with and without a
-shared --weight_file.
+for distributedKMeans, distributedFuzzyCMeans and gaussianMixture, with
+and without a shared --weight_file.
 
 Both write one CSV row; they must agree on every column except the
 timings, `backend` and `points_per_sec_per_chip`, with `sse` within rtol
-1e-5 (float32 summation order).
+1e-5 (float32 summation order; a gaussianMixture row's `sse` is the mean
+log-likelihood).
 """
 
 import csv
@@ -19,6 +20,8 @@ FLAGS = ["--method_name=distributedKMeans", "--K=40", "--init=first_k",
          "--tol=-1", "--kernel=pallas", "--n_max_iters=5", "--seed=7"]
 FUZZY_FLAGS = ["--method_name=distributedFuzzyCMeans", "--fuzzifier=2.0",
                *FLAGS[1:]]
+GMM_FLAGS = ["--method_name=gaussianMixture", "--covariance_type=diag",
+             *FLAGS[1:]]
 TIMING = {"setup_time", "initialization_time", "computation_time",
           "backend", "points_per_sec_per_chip"}
 
@@ -87,7 +90,43 @@ def test_cli_rows_agree_fuzzy_weighted(npz, weights, tmp_path):
                                 f"--weight_file={weights}"], kernel="xla")
 
 
+def test_cli_rows_agree_gmm(npz, tmp_path):
+    # The E-step kernel route (B9's plain version on the CPU) against the
+    # JAX CLI's interpret-mode fused E-step.
+    _rows_agree(npz, tmp_path, GMM_FLAGS)
+
+
+def test_cli_rows_agree_gmm_weighted(npz, weights, tmp_path):
+    flags = [f for f in GMM_FLAGS if f not in ("--kernel=pallas",
+                                               "--covariance_type=diag")]
+    _rows_agree(npz, tmp_path, [*flags, "--kernel=xla",
+                                "--covariance_type=spherical",
+                                f"--weight_file={weights}"], kernel="xla")
+
+
 @pytest.mark.parametrize("flags,message", [
+    (["--method_name=gaussianMixture", "--kernel=pallas",
+      "--covariance_type=tied"], "diag/spherical, unweighted"),
+    (["--method_name=gaussianMixture", "--kernel=pallas",
+      "--covariance_type=full"], "diag/spherical, unweighted"),
+    (["--method_name=gaussianMixture", "--spherical"],
+     "distributedKMeans only"),
+    (["--method_name=gaussianMixture", "--kernel=refined"],
+     "distributedKMeans only"),
+    (["--init=kmeans"], "gaussianMixture seeding mode"),
+    (["--method_name=distributedFuzzyCMeans", "--covariance_type=full"],
+     "gaussianMixture only"),
+])
+def test_cli_gmm_rejections(npz, flags, message, capsys):
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(["--K=4", f"--data_file={npz}", *flags])
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--method_name=gaussianMixture", "--kernel=pallas"],
+     "diag/spherical, unweighted"),
     (["--method_name=distributedFuzzyCMeans", "--kernel=pallas"],
      "distributedKMeans only"),
     (["--kernel=refined"], "refined"),
@@ -128,7 +167,7 @@ def test_cli_default_device_fails_without_a_card(npz, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--method_name=gaussianMixture"],
+    ["--method_name=bisectingKMeans"],
     ["--n_GPUs=2"],
     ["--dtype=bfloat16"],
 ])

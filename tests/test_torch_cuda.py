@@ -10,12 +10,17 @@ B6 (fuzzy stats): weighted sums within 1e-5 of Σμ|x| per cluster, weights
 and objective within rtol 1e-5, two runs bitwise equal. B4 (weighted
 Lloyd stats): sums within rtol 1e-5 and atol 1e-4, the mass and the SSE
 within rtol 1e-5, two runs bitwise equal; copies of a centroid take no
-mass."""
+mass. B9 (the diag-GMM E-step): Σr·x within 1e-5 of Σr|x| per component,
+Σr·x², nk and ll_sum within rtol 1e-5, two runs bitwise equal; a diag
+kernel fit against the plain fit: equal n_iter and converged, means
+within 1e-4, the mean log-likelihood within rtol 1e-5."""
 
 import pytest
 import torch
 
+from tdc_tpu_torch.models import gmm as tgmm
 from tdc_tpu_torch.ops import fuzzy_kernels as fk
+from tdc_tpu_torch.ops import gmm_kernels as gk
 from tdc_tpu_torch.ops import lloyd_kernels as lk
 from tdc_tpu_torch.ops import sorted_stats as ss
 from tdc_tpu_torch.ops.assign import fuzzy_memberships
@@ -136,3 +141,41 @@ def test_b4_ties_take_no_mass(gen, d):
                 ss.lloyd_stats_sorted_weighted(x, c, w)):
         assert not got.counts[copies].any() and not got.sums[copies].any()
         torch.testing.assert_close(got.counts, mass, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("spread", [1.0, 30.0])
+@pytest.mark.parametrize("n,k,d", [(1000, 37, 19), (5000, 130, 128),
+                                   ((1 << 16) + 37, 300, 19)])
+def test_b9_matches_plain(gen, n, k, d, spread):
+    # The ragged shapes mask rows, components and columns; d = 19 takes
+    # the scalar loads. Variances and weights are the hard-assignment
+    # moments, as a fit starts from; spread 30 widens the variances so the
+    # responsibilities of a row spread over several components.
+    x, c = _data(gen, n, k, d)
+    var, w = tgmm._moments_from_hard_assign(x, c, 1e-6)
+    var = var * spread
+    st = gk.gmm_stats_fused(x, c, var, w)
+    again = gk.gmm_stats_fused(x, c, var, w)
+    assert all(torch.equal(a, b) for a, b in zip(st, again))
+    want = gk.gmm_stats_fused_plain(x, c, var, w)
+    r = tgmm.gmm_predict_proba(x, tgmm.GMMResult(
+        c, var, w, 0, torch.zeros(()), False))
+    scale = r.T @ x.abs()  # Σr|x|
+    assert ((st.sx - want.sx).abs() <= 1e-5 * scale + 1e-6).all()
+    torch.testing.assert_close(st.sxx, want.sxx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(st.nk, want.nk, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(st.ll_sum, want.ll_sum, rtol=1e-5, atol=0.0)
+
+
+def test_b9_fit_matches_plain_fit(gen):
+    x, c = _data(gen, 20000, 64, 32)
+    init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
+    before = gk.gmm_stats_fused.launches
+    a = tgmm.gmm_fit(x, 64, init=init, max_iters=30, tol=1e-4,
+                     kernel="pallas")
+    assert gk.gmm_stats_fused.launches == before + a.n_iter + 1
+    b = tgmm.gmm_fit(x, 64, init=init, max_iters=30, tol=1e-4, kernel="xla")
+    assert (a.n_iter, a.converged) == (b.n_iter, b.converged)
+    torch.testing.assert_close(a.means, b.means, rtol=0.0, atol=1e-4)
+    torch.testing.assert_close(a.log_likelihood, b.log_likelihood,
+                               rtol=1e-5, atol=0.0)

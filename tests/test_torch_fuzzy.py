@@ -149,7 +149,8 @@ def test_resolve_kernel_fuzzy_auto_by_device():
     assert tlk.resolve_kernel("auto", k=8, d=4, device="cuda",
                               model="fuzzy") == "pallas"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlk.resolve_kernel("auto", k=8, d=4, device="cpu", model="gmm")
+        tlk.resolve_kernel("auto", k=8, d=4, device="cpu",
+                           model="bisecting")
 
 
 def _blobs(seed=0, n=1000, k=6, d=5):

@@ -33,7 +33,8 @@ def test_no_jax_imports_in_port_or_chip_smoke():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     names = {f.name for f in files}
-    assert {"fuzzy.py", "fuzzy_kernels.py", "_common.py"} <= names
+    assert {"fuzzy.py", "fuzzy_kernels.py", "_common.py", "gmm.py",
+            "gmm_kernels.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
@@ -47,6 +48,7 @@ def test_importing_the_port_loads_no_jax():
         "import tdc_tpu_torch.cli.main, tdc_tpu_torch.models.kmeans, "
         "tdc_tpu_torch.models.fuzzy, tdc_tpu_torch.ops.fuzzy_kernels, "
         "tdc_tpu_torch.models._common, tdc_tpu_torch.ops.sorted_stats, "
+        "tdc_tpu_torch.models.gmm, tdc_tpu_torch.ops.gmm_kernels, "
         "tdc_tpu_torch.convert; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tdc_tpu')]; "
