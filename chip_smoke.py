@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels from `tdc_tpu_torch/csrc/` and drives its
 main paths through the CLI: in-memory single-GPU f32 Lloyd K-Means, with
-and without sample weights, Fuzzy C-Means and diagonal Gaussian Mixture
-EM. Phases, each of which raises on failure (nothing is caught):
+and without sample weights, bf16 Lloyd K-Means, Fuzzy C-Means and
+diagonal Gaussian Mixture EM. Phases, each of which raises on failure
+(nothing is caught):
 
 1. Device: a CUDA card is required; prints its name and power limit.
 2. Build: nvcc builds the kernels; prints the build seconds.
@@ -28,6 +29,14 @@ EM. Phases, each of which raises on failure (nothing is caught):
    shape, with variances and weights from the blobs' hard-assignment
    moments, its two phases timed apart; at the ragged shape also with
    the variances 30× wider, so each row's responsibilities spread.
+   B5 (the bf16 tensor-core Lloyd stats) at N=2^22, K=1024, d=128 and at
+   the ragged shape, on f32 rows (kernel="pallas_bf16") and on bf16 rows,
+   with its labels: labels equal to the plain version's except at
+   near-ties in B5's own metric (c2 − 2·x̃·c̃ on the bf16-rounded
+   operands), counts equal where the labels agree, sums within REL_TOL of
+   Σ|x| against Σx by the kernel's own labels, SSE within REL_TOL
+   relative, bitwise repeatable. Centroids that differ in f32 but round to
+   the same bf16 values tie on bf16 rows: the smallest index wins.
 4. Main path, fused route: the CLI at N=2^22, d=128, K=1024,
    --kernel=pallas, 10 iterations; B1 must launch n_iter + 1 times per fit.
 5. Main path, sorted route: the CLI at K=16,384, d=768, --init=random,
@@ -44,12 +53,21 @@ EM. Phases, each of which raises on failure (nothing is caught):
    --covariance_type=diag at N=2^22, d=128, K=1024, --kernel=pallas, 10
    iterations; B9 must launch n_iter + 1 times per fit and no other
    kernel ever.
-10. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
+10. Main path, bf16 routes: the CLI with --dtype bfloat16 --kernel=pallas
+   on a bf16 .npy data file (written as a uint16 view saved as '|V2', as
+   ml_dtypes arrays are stored) and with --kernel=pallas_bf16 on f32
+   points, both at N=2^22, d=128, K=1024, 10 iterations; B5 must launch
+   n_iter + 1 times per fit and no other kernel ever. Then
+   lloyd_stats_auto on bf16 rows at K=16,384, d=768: B2 and B3 launch,
+   B5 does not, and the stats equal those of the same route on the
+   widened rows and rounded centroids bitwise.
+11. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
    the plain labels.
-11. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
+12. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
    kernel="xla" fit from the same init give the same n_iter and
    centroids (means) within tolerance, for K-Means, weighted K-Means,
-   Fuzzy C-Means and diag and spherical GMM.
+   Fuzzy C-Means and diag and spherical GMM; and a bf16 K-Means fit on
+   B5 against the same fit on the CPU (B5's plain version).
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -90,9 +108,10 @@ from tdc_tpu_torch.ops.assign import fuzzy_memberships
 from tdc_tpu_torch.ops.init import init_random
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): f32 on the CUDA
-# cores and HBM3 bandwidth. bound_ms is the larger of ops/peak and
-# bytes/bandwidth for the work one call needs.
+# cores, dense bf16 on the tensor cores and HBM3 bandwidth. bound_ms is
+# the larger of ops/peak and bytes/bandwidth for the work one call needs.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Tolerances (float32, different summation order than the plain version):
@@ -130,6 +149,11 @@ GMM_ARGS = [
     "--method_name=gaussianMixture", *MAIN_ARGS[1:],
     "--covariance_type=diag", "--init=kmeans++",
 ]
+# The bf16 routes: --dtype bfloat16 (a bf16 data file) and pallas_bf16.
+BF16_ARGS = [*MAIN_ARGS, "--dtype=bfloat16"]
+MXU_ARGS = [a.replace("--kernel=pallas", "--kernel=pallas_bf16")
+            for a in MAIN_ARGS]
+BF16_SORTED_N = 1 << 17  # rows of the bf16 sorted-route check
 FUZZY_MS = (2.0, 1.7)  # B6 is checked at both fuzzifiers
 FUZZY_RAGGED = ((1 << 16) + 37, 300, 19)  # N, K, d: no multiple of a tile
 ZERO_SHARE = 0.05  # share of the weights set exactly to 0
@@ -445,6 +469,129 @@ def phase_gmm_kernel(gen) -> dict:
     return out
 
 
+def b5_near_ties(name, x, c, got, want) -> int:
+    """B5's labels equal the plain version's except at near-ties in B5's
+    own metric: c2 − 2·x̃·c̃ on the bf16-rounded operands, which both
+    compute (in f64 here) and which differ only in the order of the f32
+    accumulation. Near: within TIE_TOL of ‖x̃‖² + max ‖c̃‖². Returns the
+    count of near-tie differences."""
+    diff = (got != want).nonzero().flatten()
+    if diff.numel():
+        cb, c2 = lk._bf16_operands(x, c)
+        xr = x[diff].to(torch.bfloat16).double()
+        cr = cb.double()
+
+        def value(lab):
+            j = lab[diff].long()
+            return c2[j].double() - 2.0 * (xr * cr[j]).sum(1)
+
+        scale = (xr * xr).sum(1) + (cr * cr).sum(1).max()
+        far = ((value(got) - value(want)).abs() > TIE_TOL * scale).sum()
+        require(int(far) == 0, f"{name}: {int(far)} labels differ from the "
+                               "plain version beyond a near-tie")
+    return int(diff.numel())
+
+
+def check_b5(name, x, c) -> tuple[float, int]:
+    """B5 against its plain version; returns (max abs error of the sums,
+    near-tie count)."""
+    k = c.shape[0]
+    got, lab = lk.lloyd_stats_fused_bf16(x, c, return_labels=True)
+    again, lab2 = lk.lloyd_stats_fused_bf16(x, c, return_labels=True)
+    repeatable(name, (*got, lab), (*again, lab2))
+    want, plab = lk.lloyd_stats_fused_bf16_plain(x, c, return_labels=True)
+    ties = b5_near_ties(name, x, c, lab, plab)
+
+    def bincount(lab):
+        return torch.bincount(lab.long(), minlength=k).to(torch.float32)
+
+    other = lab != plab
+    require(torch.equal(got.counts - want.counts,
+                        bincount(lab[other]) - bincount(plab[other])),
+            f"{name}: counts differ where the labels agree")
+    xf = x.float()
+    mine = torch.zeros_like(want.sums).index_add_(0, lab.long(), xf)
+    abs_sums = torch.zeros_like(want.sums).index_add_(0, lab.long(),
+                                                      xf.abs())
+    err = check_close(f"{name} sums", got.sums, mine, abs_sums)
+    if not ties:
+        check_close(f"{name} sums (plain)", got.sums, want.sums, abs_sums)
+    check_close(f"{name} sse", got.sse, want.sse, want.sse.abs())
+    return err, ties
+
+
+def b5_bound(n, k, d, itemsize) -> tuple[float, str]:
+    """B5's least time: the 2·N·K·d product on the bf16 tensor cores, the
+    N·d accumulate on the f32 pipe, or the bytes (x once at its own
+    width, the bf16 centroids, the f32 c2, sums, counts and SSE)."""
+    t_tc = 2.0 * n * k * d / PEAK_BF16_TC_FLOPS
+    t_f32 = 1.0 * n * d / PEAK_F32_FLOPS
+    t_bytes = (itemsize * n * d + 2 * k * d
+               + 4 * (k * d + 2 * k + 1)) / PEAK_HBM_BYTES
+    return 1e3 * max(t_tc, t_f32, t_bytes), (
+        "bytes" if t_bytes >= max(t_tc, t_f32) else "operations")
+
+
+def phase_bf16_kernel(gen) -> dict:
+    """Phase 3, B5: on f32 rows (pallas_bf16) and bf16 rows at the bf16
+    routes' shape, then the ragged case; the bf16 rows' numbers are the
+    kernel's line in the JSON (the --dtype bfloat16 route's)."""
+    n, k, d = B1_SHAPE
+    x, c = blob_data(gen, n, k, d)
+    per = {}
+    for rows in (x, x.to(torch.bfloat16)):
+        key = "bf16_rows" if rows.dtype == torch.bfloat16 else "f32_rows"
+        err, ties = check_b5(f"B5 {key}", rows, c)
+        b_ms, b_by = b5_bound(n, k, d, rows.element_size())
+        per[key] = dict(
+            max_abs_err=err, near_ties=ties,
+            ms=median_ms(lambda: lk.lloyd_stats_fused_bf16(rows, c), 5),
+            plain_ms=median_ms(
+                lambda: lk.lloyd_stats_fused_bf16_plain(rows, c), 3),
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"[B5] N={n} K={k} d={d} {key}: {json.dumps(per[key])}",
+              flush=True)
+    out = dict(**per["bf16_rows"], library_ms=None, f32_rows=per["f32_rows"])
+    del x, c, rows
+    n, k, d = FUZZY_RAGGED
+    x, c = blob_data(gen, n, k, d)
+    for rows in (x, x.to(torch.bfloat16)):
+        err, ties = check_b5(f"B5 ragged {rows.dtype}", rows, c)
+        print(f"[B5] ragged N={n} K={k} d={d} {rows.dtype}: equal to the "
+              f"plain version (max abs err {err:.3g}, {ties} near-ties), "
+              "bitwise repeatable", flush=True)
+    return out
+
+
+def phase_bf16_ties(gen) -> None:
+    """Phase 3, bf16 ties: copies of centroid 3 at 5, 67, 200 and K-1 that
+    differ from it in f32 but round to the same bf16 values. On bf16 rows
+    B5 rounds the centroids first, so the copies tie exactly: the smallest
+    index wins, the copies take 0 rows, and the labels equal the plain
+    version's."""
+    for n, k, d in ((TIE_N, B1_SHAPE[1], B1_SHAPE[2]), FUZZY_RAGGED):
+        x, c = blob_data(gen, n, k, d)
+        copies = [5, 67, 200, k - 1]
+        c = c.to(torch.bfloat16).float()
+        c[copies] = c[3] * (1.0 + 2.0 ** -10)
+        require(not torch.equal(c[copies[0]], c[3])
+                and torch.equal(c[copies].to(torch.bfloat16),
+                                c[3].expand(4, d).to(torch.bfloat16)),
+                "bf16 ties: the copies must differ in f32 only")
+        xb = x.to(torch.bfloat16)
+        got, lab = lk.lloyd_stats_fused_bf16(xb, c, return_labels=True)
+        _, plab = lk.lloyd_stats_fused_bf16_plain(xb, c, return_labels=True)
+        require(torch.equal(lab, plab),
+                f"bf16 ties (K={k}): labels differ from the plain version's")
+        require(not bool(torch.isin(lab, torch.tensor(copies,
+                                                      device="cuda")).any())
+                and not bool(got.counts[copies].any()),
+                f"bf16 ties (K={k}): a copy took rows")
+        print(f"[ties] bf16 N={n} K={k} d={d}: copies {copies} of centroid 3 "
+              "(other f32 values, the same bf16 ones) took 0 rows in B5; "
+              "labels equal the plain version's", flush=True)
+
+
 def phase_ties(gen) -> None:
     """Phase 3, ties: copies of centroid 3 at indices 5 (same K tile,
     another lane), 67 (the same thread's tile for B2, the next tile for
@@ -563,7 +710,8 @@ def phase_fuzzy_kernel(gen) -> dict:
 
 WRAPPERS = {"B1": lk.lloyd_stats_fused, "B2": lk.distance_argmin,
             "B3": ss.segment_sums, "B4": lk.lloyd_stats_fused_weighted,
-            "B6": fk.fuzzy_stats_fused, "B9": gk.gmm_stats_fused}
+            "B5": lk.lloyd_stats_fused_bf16, "B6": fk.fuzzy_stats_fused,
+            "B9": gk.gmm_stats_fused}
 
 
 def reset_counts() -> None:
@@ -626,8 +774,10 @@ def main() -> int:
     numbers["B6"] = phase_fuzzy_kernel(gen)
     numbers["B4"] = phase_weighted_kernel(gen)
     numbers["B9"] = phase_gmm_kernel(gen)
+    numbers["B5"] = phase_bf16_kernel(gen)
     print(f"[kernels] {json.dumps(numbers)}", flush=True)
     phase_ties(gen)
+    phase_bf16_ties(gen)
 
     with tempfile.TemporaryDirectory() as tmp:
         row, seen = run_cli(MAIN_ARGS, tmp, "fused_route")
@@ -677,6 +827,48 @@ def main() -> int:
         require(n_iter == 10, f"gmm route ran {n_iter} iterations")
         require_launches("gmm route", seen, B9=2 * (n_iter + 1))
         numbers["B9"]["launches"] = seen["B9"]
+
+        # The bf16 routes: --dtype bfloat16 on a bf16 data file, written
+        # without ml_dtypes as a uint16 view saved as '|V2' (how numpy
+        # stores an ml_dtypes bfloat16 array), and pallas_bf16 on f32
+        # points. Seeding (k-means++) runs no kernel.
+        xfile = os.path.join(tmp, "bf16.npy")
+        xb, _ = make_blobs(1, B1_SHAPE[0], B1_SHAPE[2], B1_SHAPE[1],
+                           device="cuda", dtype=torch.bfloat16)
+        np.save(xfile, xb.view(torch.int16).cpu().numpy().view(np.dtype("V2")))
+        del xb
+        for route_args, name in (
+                ([a for a in BF16_ARGS if not a.startswith(("--n_obs",
+                                                            "--n_dim"))]
+                 + [f"--data_file={xfile}"], "bf16_route"),
+                (MXU_ARGS, "bf16_mxu_route")):
+            row, seen = run_cli(route_args, tmp, name)
+            n_iter = int(row["n_iter"])
+            require(n_iter == 10, f"{name} ran {n_iter} iterations")
+            require_launches(name, seen, B5=2 * (n_iter + 1))
+            if name == "bf16_route":
+                numbers["B5"]["launches"] = seen["B5"]
+        os.remove(xfile)
+
+    # The sorted route on bf16 rows: B2 on the widened rows with the
+    # centroids rounded to bf16, B3 on the gathered f32 rows; the same
+    # stats, bitwise, as the f32 route on those operands.
+    x, c = blob_data(gen, BF16_SORTED_N, SORTED_K, SORTED_D)
+    xb = x.to(torch.bfloat16)
+    del x
+    reset_counts()
+    got = lk.lloyd_stats_auto(xb, c)
+    seen = counts()
+    require_launches("bf16 sorted", seen, B2=1, B3=1)
+    repeatable("bf16 sorted against the widened operands", got,
+               lk.lloyd_stats_auto(*lk.widened(xb, c)))
+    require(math.isfinite(float(got.sse))
+            and float(got.counts.sum()) == BF16_SORTED_N,
+            f"bf16 sorted: sse {float(got.sse)}, counts {got.counts.sum()}")
+    print(f"[bf16_sorted] N={BF16_SORTED_N} K={SORTED_K} d={SORTED_D}: "
+          f"launches {seen}, stats equal to the widened f32 route's, sse "
+          f"{float(got.sse):.8g}", flush=True)
+    del xb, c, got
 
     # Phase 10: predict with B2 on 2^20 points.
     x, c = blob_data(gen, 1 << 20, SORTED_K, SORTED_D)
@@ -755,6 +947,26 @@ def main() -> int:
               f"{merr:.3g}, log-likelihood {lla:.8g} vs {llb:.8g}",
               flush=True)
 
+    # bf16 K-Means: B5 on the card against the same fit on the CPU, where
+    # the kernel route runs B5's plain version ('xla' is another function
+    # on bf16 points: it promotes them against f32 centroids).
+    xb = x.to(torch.bfloat16)
+    reset_counts()
+    a = kmeans_fit(xb, c.shape[0], init=init, max_iters=50, tol=1e-4,
+                   kernel="pallas")
+    require(lk.lloyd_stats_fused_bf16.launches == a.n_iter + 1,
+            "bf16 fit: B5 did not carry it")
+    b = kmeans_fit(xb.cpu(), c.shape[0], init=init.cpu(), max_iters=50,
+                   tol=1e-4, kernel="pallas", device="cpu")
+    require(a.n_iter == b.n_iter and a.converged == b.converged,
+            f"bf16 fit parity: n_iter {a.n_iter} vs {b.n_iter}")
+    cerr = (a.centroids.cpu() - b.centroids).abs().max().item()
+    require(cerr <= 1e-4, f"bf16 fit parity: centroids differ by {cerr}")
+    print(f"[bf16_fit] N=65536 K=1024 d=128 bf16 rows: n_iter {a.n_iter} == "
+          f"{b.n_iter} (CPU plain), converged {a.converged}, max centroid "
+          f"diff {cerr:.3g}, sse {float(a.sse):.8g} vs {float(b.sse):.8g}",
+          flush=True)
+
     src = "tdc_tpu_torch/csrc/"
     meta = {
         "B1": ("lloyd_stats_fused", src + "lloyd_kernels.cu",
@@ -765,6 +977,8 @@ def main() -> int:
                "tdc_tpu/ops/sorted_stats.py:134"),
         "B4": ("lloyd_stats_fused_weighted", src + "lloyd_kernels.cu",
                "tdc_tpu/ops/pallas_kernels.py:613"),
+        "B5": ("lloyd_stats_fused_bf16", src + "lloyd_bf16_kernels.cu",
+               "tdc_tpu/ops/pallas_kernels.py:405"),
         "B6": ("fuzzy_stats_fused", src + "fuzzy_kernels.cu",
                "tdc_tpu/ops/pallas_kernels.py:764"),
         "B9": ("gmm_stats_fused", src + "gmm_kernels.cu",

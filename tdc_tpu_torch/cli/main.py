@@ -20,6 +20,11 @@ or spherical and unweighted; --init=kmeans seeds with a short K-Means)
 Sample weights: --weight_file=w.npy, an (N,) .npy of nonnegative weights
 (K-Means on --kernel=pallas or xla; Fuzzy C-Means and gaussianMixture on
 xla). The CSV row has no weight column, as in the JAX CLI.
+bf16: --dtype bfloat16 holds one 2-byte copy of the points on the device
+(K-Means --kernel=pallas then runs B5, the bf16 tensor-core kernel);
+--kernel=pallas_bf16 runs B5 on f32 points (K-Means only, unweighted). A
+bfloat16 --data_file (ml_dtypes arrays saved with np.save/np.savez) stays
+bfloat16 under either --dtype, as the JAX CLI passes it through uncast.
 """
 
 from __future__ import annotations
@@ -65,18 +70,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "(gaussianMixture); negative = fixed n_max_iters "
                         "(reference parity)")
     p.add_argument("--init", type=str, default="kmeans++",
-                   choices=("kmeans++", "random", "first_k", "kmeans"),
+                   choices=("kmeans++", "kmeans_parallel", "random",
+                            "first_k", "kmeans"),
                    help="'kmeans' (gaussianMixture only): seed means with a "
                         "short multi-restart K-Means fit")
     p.add_argument("--kernel", type=str, default=None,
-                   choices=("xla", "pallas", "refined", "auto"),
+                   choices=("xla", "pallas", "pallas_bf16", "refined",
+                            "auto", "auto:quantized"),
                    help="sufficient-stats path: 'xla' = plain PyTorch ops "
                         "(default); 'pallas' = the hand-written CUDA "
-                        "kernels (K-Means: B1 fused, or B2 + B3 sorted past "
-                        "the fused limit; fuzzy: B6; gaussianMixture: "
-                        "B9, diag/spherical); 'refined' = "
-                        "exact-distance champion refinement (K-Means only); "
-                        "'auto' = pallas on CUDA, xla on CPU")
+                        "kernels (K-Means: B1 fused, B5 on bf16 points, or "
+                        "B2 + B3 sorted past the fused limit; fuzzy: B6; "
+                        "gaussianMixture: B9, diag/spherical); "
+                        "'pallas_bf16' = B5 on f32 points too: bf16 cross "
+                        "operands on the tensor cores, f32 stats (K-Means "
+                        "only, unweighted); 'refined' = exact-distance "
+                        "champion refinement (K-Means only); 'auto' = "
+                        "pallas on CUDA, xla on CPU; 'auto:quantized' = "
+                        "auto, plus permission to pick pallas_bf16")
     p.add_argument("--fuzzifier", type=float, default=2.0,
                    help="fuzzy c-means m (explicit, > 1; "
                         "distributedFuzzyCMeans only)")
@@ -89,7 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--empty_policy", type=str, default="keep",
                    choices=("keep", "relocate"))
     p.add_argument("--dtype", type=str, default="float32",
-                   help="point dtype (float32 only in this slice)")
+                   choices=("float32", "bfloat16"),
+                   help="device dtype of the points (bfloat16: one 2-byte "
+                        "copy; the K-Means kernel route runs B5)")
     p.add_argument("--class_sep", type=float, default=1.5)
     p.add_argument("--device", type=str, default="cuda",
                    choices=("cuda", "cpu"),
@@ -148,8 +161,22 @@ def validate_args(parser, args) -> None:
             args.spherical or args.empty_policy != "keep"):
         parser.error("--spherical and --empty_policy=relocate are "
                      "distributedKMeans only")
+    if args.init == "kmeans_parallel":
+        parser.error("--init=kmeans_parallel is not ported yet (ROADMAP.md "
+                     "Queue A, A8a)")
     if args.kernel == "refined" and args.method_name != "distributedKMeans":
         parser.error("--kernel=refined is distributedKMeans only")
+    if args.kernel == "pallas_bf16":
+        # The JAX CLI's parse-time rejections (the in-memory, single-device
+        # ones: the port has no streamed or multi-device fit yet).
+        if args.method_name != "distributedKMeans":
+            parser.error("--kernel=pallas_bf16 is distributedKMeans only "
+                         "(the bf16 epilogue exists for the Lloyd stats "
+                         "kernel)")
+        if args.weight_file:
+            parser.error("--kernel=pallas_bf16 does not support "
+                         "--weight_file (the weighted epilogue keeps full "
+                         "precision)")
     if args.method_name == "gaussianMixture":
         # Reject rather than run the plain E-step under the kernel's name.
         if args.kernel == "pallas" and (
@@ -163,9 +190,6 @@ def validate_args(parser, args) -> None:
         parser.error("--init=kmeans is a gaussianMixture seeding mode")
     elif args.covariance_type != "diag":
         parser.error("--covariance_type applies to gaussianMixture only")
-    if args.dtype != "float32":
-        parser.error(f"--dtype {args.dtype} is not ported yet (float32 "
-                     "only; ROADMAP.md Queue B, B5)")
     if args.weight_file:
         _validate_weight_file(parser, args)
 
@@ -182,15 +206,23 @@ def run_experiment(args) -> dict:
     from tdc_tpu_torch.utils.timing import PhaseTimers
 
     timers = PhaseTimers()
+    bf16 = args.dtype == "bfloat16"
     with timers.phase("setup") as out:
         dev = resolve_device(args.device)
         if args.data_file:
             x, _ = load_points(args.data_file)
-            x = torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.array(x))
+            # A bf16 file stays bf16 under --dtype float32 too: the JAX CLI
+            # hands it to the fit uncast.
+            bf16 = bf16 or x.dtype == torch.bfloat16
+            x = x.to(device=dev,
+                     dtype=torch.bfloat16 if bf16 else torch.float32)
         else:
             x, _ = make_blobs(args.seed + 1, args.n_obs, args.n_dim,
                               max(args.K, 2), class_sep=args.class_sep,
-                              device=dev)
+                              device=dev,
+                              dtype=torch.bfloat16 if bf16 else torch.float32)
         n_obs, n_dim = x.shape
         out["block_on"] = x
         weights = None

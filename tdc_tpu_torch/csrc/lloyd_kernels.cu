@@ -40,6 +40,7 @@
 #include <cuda_runtime.h>
 
 #include "champion.cuh"
+#include "lloyd_reduce.cuh"
 
 namespace {
 
@@ -151,7 +152,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // Sums the G slices in slice order. B1 (cnt != nullptr): sums from the
 // (K, d) slices, counts from the integer counts. B4 (cnt == nullptr): the
-// slices are (K, d+1); column d is the mass.
+// slices are (K, d+1); column d is the mass. B5 launches it too
+// (lloyd_reduce.cuh).
 __global__ void lloyd_reduce_kernel(const float* __restrict__ ws,
                                     const int* __restrict__ cnt,
                                     const double* __restrict__ sse_part,
@@ -199,15 +201,23 @@ int launch_fused(const float* x, const float* c, const float* c2,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long kc = (long long)k * (kWeighted ? d + 1 : d);
-  const long long total = kc > k ? kc : (long long)k;
-  const long long blocks = (total + 255) / 256;
-  lloyd_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>(
-      ws, kWeighted ? nullptr : cnt, sse_part, grid, k, d, sums, counts, sse);
-  return (int)cudaGetLastError();
+  return launch_lloyd_reduce(ws, kWeighted ? nullptr : cnt, sse_part, grid,
+                             k, d, sums, counts, sse, s);
 }
 
 }  // namespace
+
+int tdc::launch_lloyd_reduce(const float* ws, const int* cnt,
+                             const double* sse_part, int grid, int k, int d,
+                             float* sums, float* counts, float* sse,
+                             cudaStream_t s) {
+  const long long kc = (long long)k * (cnt ? d : d + 1);
+  const long long total = kc > k ? kc : (long long)k;
+  const long long blocks = (total + 255) / 256;
+  lloyd_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>(
+      ws, cnt, sse_part, grid, k, d, sums, counts, sse);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int tdc_distance_argmin(const float* x, const float* c,
                                    const float* c2, long long n, int k, int d,

@@ -15,9 +15,11 @@ from tdc_tpu_torch.utils.device import resolve_device
 
 
 def make_blobs(seed: int, n_obs: int, n_dim: int, k: int, *,
-               class_sep: float = 1.5, device=None):
-    """(X (n_obs, n_dim) float32, y (n_obs,) int32) on `device`
-    (None = 'cuda'), sample-major."""
+               class_sep: float = 1.5, device=None,
+               dtype: torch.dtype = torch.float32):
+    """(X (n_obs, n_dim) of `dtype`, y (n_obs,) int32) on `device`
+    (None = 'cuda'), sample-major. The points are drawn in float32 and
+    rounded to `dtype` (bfloat16 for the CLI's --dtype bfloat16)."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(int(seed))
     centers = (torch.rand((k, n_dim), generator=g, device=dev) * 2.0 - 1.0
@@ -25,4 +27,4 @@ def make_blobs(seed: int, n_obs: int, n_dim: int, k: int, *,
     labels = torch.randint(0, k, (n_obs,), generator=g, device=dev)
     x = torch.randn((n_obs, n_dim), generator=g, device=dev)
     x += centers[labels]
-    return x, labels.to(torch.int32)
+    return x.to(dtype), labels.to(torch.int32)

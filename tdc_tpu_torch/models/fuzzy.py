@@ -14,12 +14,16 @@ package's:
   makes n_iter + 1 stats calls;
 - converged = shift <= max(tol, 0) and n_iter > 0.
 
-Supported: layout='samples', no mesh, float32 inputs, kernel in {'xla',
-'pallas', 'auto'}. Sample weights run the f32 plain stats ('xla'), as in
-the JAX package: an explicit kernel='pallas' with weights raises, and
-'auto' resolves to 'xla' with the reason in its `kernel_selected` event.
-The rest raises NotImplementedError naming the ROADMAP.md item that ports
-it.
+Supported: layout='samples', no mesh, float32 or bfloat16 inputs, kernel
+in {'xla', 'pallas', 'auto', 'auto:quantized'} ('auto:quantized' takes
+the plain auto choice: the bf16 epilogue is K-Means only; 'pallas_bf16'
+is an unknown kernel here, as in the JAX package). bf16 points run
+promoted on 'xla' and widened, with the centroids rounded to bf16, on
+B6, as the JAX package's two paths do. Sample weights run the f32 plain
+stats ('xla'), as in the JAX package: an explicit kernel='pallas' with
+weights raises, and 'auto' resolves to 'xla' with the reason in its
+`kernel_selected` event. The rest raises NotImplementedError naming the
+ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -74,13 +78,10 @@ def _fuzzy_stats_fn(kernel: str, m: float, block_rows: int, k: int, d: int,
 
         fn = fuzzy_stats_for(k, d, label="fuzzy_fit")
         return lambda x, c: fn(x, c, m)
-    if kernel == "pallas_bf16":
-        raise _not_ported("kernel='pallas_bf16'", "Queue B, B5")
     if kernel == "tall":
         raise _not_ported("kernel='tall'", "Queue B, B11")
     if kernel != "xla":
-        raise ValueError(
-            f"unknown kernel {kernel!r} (use 'xla', 'pallas' or 'auto')")
+        raise ValueError(f"unknown kernel {kernel!r} (use 'xla' or 'pallas')")
     if block_rows:
         return lambda x, c: fuzzy_stats_padded_blocked(x, c, m, block_rows)
     return lambda x, c: fuzzy_stats(x, c, m=m)
@@ -149,7 +150,8 @@ def fuzzy_cmeans_fit(
     """Fit Fuzzy C-Means.
 
     Args:
-      x: (N, d) points (numpy or torch), converted to float32 on `device`.
+      x: (N, d) points (numpy or torch) on `device`: bfloat16 stays
+        bfloat16, any other float type becomes float32.
       k: number of clusters; m: the fuzzifier, > 1.
       init: 'kmeans++', 'random', 'first_k', or an explicit (K, d) array.
       generator: torch.Generator on `device` for the stochastic inits
@@ -157,8 +159,8 @@ def fuzzy_cmeans_fit(
       max_iters: iteration cap; tol: center-shift tolerance (negative =
         exactly max_iters iterations).
       kernel: 'xla' (plain PyTorch ops, N-blocked past the memory budget),
-        'pallas' (the CUDA kernel B6) or 'auto' (pallas on CUDA, xla on the
-        CPU; xla whenever sample_weight is given).
+        'pallas' (the CUDA kernel B6) or 'auto' / 'auto:quantized' (pallas
+        on CUDA, xla on the CPU; xla whenever sample_weight is given).
       sample_weight: optional (N,) nonnegative per-point weights: each
         row's u^m is scaled by its weight (memberships do not depend on
         it); f32 plain stats only.

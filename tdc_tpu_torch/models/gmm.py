@@ -27,10 +27,18 @@ unweighted only; anything else raises, so no plain numbers are recorded
 under the kernel's name. 'auto' resolves to pallas on CUDA where eligible,
 else xla, with one `kernel_selected` event. Sample weights run on xla.
 
-Supported: float32 inputs, no mesh. Mesh (data parallel), the streamed
-out-of-core fit and the K-sharded fit are not ported: mesh raises
-NotImplementedError naming ROADMAP.md A4; the streamed and K-sharded
-fits (A7, A9) have no entry point in the port yet.
+Supported: float32 or bfloat16 inputs (bf16 points are widened to f32 at
+entry, as the JAX version takes `xf = x.astype(f32)` throughout), no
+mesh. Mesh (data parallel), the streamed out-of-core fit and the
+K-sharded fit are not ported: mesh raises NotImplementedError naming
+ROADMAP.md A4; the streamed and K-sharded fits (A7, A9) have no entry
+point in the port yet.
+
+A covariance that is not positive definite (a component collapsed onto
+repeated rows) gives a NaN Cholesky factor for that component, as
+`jnp.linalg.cholesky` does, and the NaN flows into the log-likelihood,
+the parameters, n_iter and converged as in the JAX version; it does not
+raise.
 """
 
 from __future__ import annotations
@@ -95,11 +103,21 @@ def _log_prob_spherical(x, means, variances, log_weights):
             + log_weights[None, :])
 
 
+def _cholesky(cov):
+    """Lower Cholesky factors of (..., d, d) covariances; a factor whose
+    matrix is not positive definite is all NaN, as jnp.linalg.cholesky
+    gives it (torch.linalg.cholesky would raise, and cholesky_ex leaves a
+    partial factor)."""
+    chol, info = torch.linalg.cholesky_ex(cov)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(chol, float("nan")), chol)
+
+
 def _log_prob_tied(x, means, cov, log_weights):
     """(N, K) log-prob with one shared (d, d) covariance: whiten x and the
     means once through the Cholesky factor, then the diag expansion in
     whitened space."""
-    chol = torch.linalg.cholesky(cov)
+    chol = _cholesky(cov)
     z = torch.linalg.solve_triangular(chol, x.T, upper=False).T  # (N, d)
     zm = torch.linalg.solve_triangular(chol, means.T, upper=False).T
     maha = ((z * z).sum(dim=1, keepdim=True) - 2.0 * (z @ zm.T)
@@ -112,7 +130,7 @@ def _log_prob_tied(x, means, cov, log_weights):
 def _log_prob_full(x, means, covs, log_weights):
     """(N, K) log-prob with per-component (d, d) covariances: a loop over K
     of triangular solves, never an (N, K, d) tensor."""
-    chol = torch.linalg.cholesky(covs)  # (K, d, d)
+    chol = _cholesky(covs)  # (K, d, d)
     maha = torch.stack([
         (torch.linalg.solve_triangular(chol[j], (x - means[j]).T,
                                        upper=False) ** 2).sum(dim=0)
@@ -264,7 +282,8 @@ def gmm_fit(
     """Fit a GMM with EM.
 
     Args:
-      x: (N, d) points (numpy or torch), converted to float32 on `device`.
+      x: (N, d) points (numpy or torch), float32 on `device` (bfloat16
+        widened, which is exact).
       init: 'kmeans' (a short K-Means fit seeds the means: k-means++, 10
         iterations, tol 1e-3, best of 3 — sklearn's default), any
         resolve_init spec ('kmeans++', 'random', 'first_k'), or an explicit
@@ -281,8 +300,8 @@ def gmm_fit(
         each point's responsibilities (equivalent to repeating rows); xla
         only.
       kernel: 'xla' (plain PyTorch ops), 'pallas' (the E-step kernel B9:
-        diag or spherical, unweighted) or 'auto' (pallas on CUDA where
-        eligible, xla otherwise).
+        diag or spherical, unweighted) or 'auto' / 'auto:quantized'
+        (pallas on CUDA where eligible, xla otherwise).
       device: None means 'cuda'; 'cpu' runs the plain versions.
     """
     if mesh is not None:
@@ -292,7 +311,7 @@ def gmm_fit(
             f"covariance_type must be one of {COVARIANCE_TYPES}, "
             f"got {covariance_type!r}")
     dev = resolve_device(device)
-    x = _as_points(x, dev)
+    x = _as_points(x, dev).float()
     n, d = x.shape
     eligible = (covariance_type in ("diag", "spherical")
                 and sample_weight is None)
@@ -380,7 +399,7 @@ def _moments_from_hard_assign(x, means, reg):
 
 def _logp_of(x, result: GMMResult):
     """(x on the result's device, (N, K) log-probs under the mixture)."""
-    x = _as_points(x, result.means.device)
+    x = _as_points(x, result.means.device).float()
     return x, _log_prob_t(x, result.means, result.variances,
                           torch.log(result.weights), result.covariance_type)
 

@@ -10,10 +10,19 @@ tolerance is set. The semantics are the JAX package's:
   n_iter + 1 stats calls;
 - converged = shift <= max(tol, 0) and n_iter > 0.
 
-Supported: layout='samples', no mesh, float32 inputs, kernel in {'xla',
-'refined', 'pallas', 'auto'}, and sample weights on 'xla' and 'pallas'
-(the weighted kernel route: B4, or B2 + B3 past its limit). The rest
-raises NotImplementedError naming the ROADMAP.md item that ports it.
+Supported: layout='samples', no mesh, float32 or bfloat16 inputs, kernel
+in {'xla', 'refined', 'pallas', 'pallas_bf16', 'auto', 'auto:quantized'},
+and sample weights on 'xla' and 'pallas' (the weighted kernel route: B4,
+or B2 + B3 past its limit). The rest raises NotImplementedError naming
+the ROADMAP.md item that ports it.
+
+bf16 points stay one 2-byte copy on the device, as in the JAX package.
+The plain paths promote them to f32 against f32 centroids. The kernel
+route runs B5 (bf16 cross operands, f32 accumulate, stats of the rows at
+their own dtype), which also serves f32 points under 'pallas_bf16'; the
+other kernels take bf16 rows widened (`ops/lloyd_kernels.widened`). So on
+one bf16 dataset 'xla' and 'pallas' give different results, as they do
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tdc_tpu_torch.data.loader import restore_bf16
 from tdc_tpu_torch.models._common import validate_sample_weight
 from tdc_tpu_torch.ops.assign import (
     apply_centroid_update,
@@ -75,7 +85,8 @@ def _weighted_stats_fn(kernel: str, block_rows: int, k: int, d: int, w):
     return lambda x, c: lloyd_stats_weighted(x, c, w)
 
 
-def _stats_fn(kernel: str, block_rows: int, k: int, d: int, w=None):
+def _stats_fn(kernel: str, block_rows: int, k: int, d: int, w=None,
+              dtype: torch.dtype = torch.float32):
     if w is not None and kernel in ("xla", "pallas"):
         return _weighted_stats_fn(kernel, block_rows, k, d, w)
     if kernel == "xla":
@@ -87,18 +98,20 @@ def _stats_fn(kernel: str, block_rows: int, k: int, d: int, w=None):
             return lambda x, c: lloyd_stats_padded_blocked(
                 x, c, block_rows, lloyd_stats_refined)
         return lloyd_stats_refined
-    if kernel == "pallas":
-        # The CUDA kernel route, decided once per fit (one event).
+    if kernel in ("pallas", "pallas_bf16"):
+        # The CUDA kernel route, decided once per fit (one event): B1 or
+        # B5 by the rows' dtype and mxu_dtype, or B2 + B3 past the fused
+        # limit.
         from tdc_tpu_torch.ops.lloyd_kernels import lloyd_stats_for
 
-        return lloyd_stats_for(k, d, label="kmeans_fit")
-    if kernel in ("pallas_bf16", "auto:quantized"):
-        raise _not_ported(f"kernel={kernel!r}", "Queue B, B5")
+        return lloyd_stats_for(
+            k, d, dtype=dtype, label="kmeans_fit",
+            mxu_dtype="bfloat16" if kernel == "pallas_bf16" else None)
     if kernel == "tall":
         raise _not_ported("kernel='tall'", "Queue B, B10")
     raise ValueError(
-        f"unknown kernel {kernel!r} (use 'xla', 'refined', 'pallas' or "
-        "'auto')")
+        f"unknown kernel {kernel!r} (use 'xla', 'refined', 'pallas', "
+        "'pallas_bf16' or 'auto')")
 
 
 def _device_memory_bytes(device: torch.device) -> int:
@@ -166,7 +179,8 @@ def _lloyd_loop(
     history=True records (sse, shift) per iteration on the device. `w`
     (sample weights) routes to the weighted stats; 'relocate' then reads
     the weight mass."""
-    stats_fn = _stats_fn(kernel, block_rows, *init_centroids.shape, w=w)
+    stats_fn = _stats_fn(kernel, block_rows, *init_centroids.shape, w=w,
+                         dtype=x.dtype)
     c = init_centroids.to(torch.float32)
     if spherical:
         c = _normalize(c)
@@ -233,14 +247,16 @@ def resolve_init(x: torch.Tensor, k: int, init, generator,
 
 
 def _as_points(x, device: torch.device) -> torch.Tensor:
-    x = torch.as_tensor(x)
-    if x.dtype == torch.bfloat16:
-        raise _not_ported("bfloat16 inputs", "Queue B, B5")
+    """(N, d) points on `device`: bfloat16 stays bfloat16 (a numpy array
+    of ml_dtypes' bfloat16 too, without importing it), any other float
+    type becomes float32."""
+    x = torch.as_tensor(restore_bf16(x) if isinstance(x, np.ndarray) else x)
     if not x.is_floating_point():
         raise TypeError(f"points must be floating point, got {x.dtype}")
     if x.dim() != 2:
         raise ValueError(f"points must be (N, d), got {tuple(x.shape)}")
-    return x.to(device=device, dtype=torch.float32).contiguous()
+    dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    return x.to(device=device, dtype=dtype).contiguous()
 
 
 def kmeans_fit(
@@ -264,7 +280,8 @@ def kmeans_fit(
     """Fit K-Means.
 
     Args:
-      x: (N, d) points (numpy or torch), converted to float32 on `device`.
+      x: (N, d) points (numpy or torch) on `device`: bfloat16 stays
+        bfloat16, any other float type becomes float32.
       k: number of clusters.
       init: 'kmeans++', 'random', 'first_k', or an explicit (K, d) array.
       generator: torch.Generator on `device` for the stochastic inits
@@ -273,9 +290,12 @@ def kmeans_fit(
         exactly max_iters iterations).
       spherical: cosine K-Means (points and centroids L2-normalized).
       kernel: 'xla' (plain PyTorch ops), 'refined' (exact-distance champion
-        refinement), 'pallas' (the CUDA kernels: B1 fused, or B2 + B3
-        sorted past the fused limit; with weights B4, or B2 + B3 over
-        [w·x | w]) or 'auto' (pallas on CUDA, xla on the CPU).
+        refinement), 'pallas' (the CUDA kernels: B1 fused, B5 for bf16
+        points, or B2 + B3 sorted past the fused limit; with weights B4,
+        or B2 + B3 over [w·x | w]), 'pallas_bf16' (B5 on f32 points too:
+        bf16 cross operands, f32 stats; unweighted, single-device),
+        'auto' (pallas on CUDA, xla on the CPU) or 'auto:quantized' (auto,
+        and pallas_bf16 where it applies).
       sample_weight: optional (N,) nonnegative per-point weights (sklearn
         `sample_weight` parity): the stats become Σw·x, the weight mass and
         Σw·min d², and the stochastic inits draw by weight. 'refined'
@@ -286,6 +306,16 @@ def kmeans_fit(
         'relocate' (sklearn parity: reseed from the costliest points).
       device: None means 'cuda'; 'cpu' runs the plain versions.
     """
+    if kernel == "pallas_bf16" and mesh is not None:
+        raise ValueError(
+            "kernel='pallas_bf16' is single-device (the bf16 epilogue has no "
+            "data-parallel tower; cast the input to bf16 with "
+            "kernel='pallas' for the same product precision on a mesh)")
+    if kernel == "pallas_bf16" and sample_weight is not None:
+        raise ValueError(
+            "kernel='pallas_bf16' does not support sample_weight (the "
+            "weighted epilogue keeps full precision); drop the explicit "
+            "kernel")
     if mesh is not None:
         raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
     if layout != "samples":
@@ -317,7 +347,8 @@ def kmeans_fit(
 
         kernel = resolve_kernel(
             kernel, k=k, d=d, device=dev, label="kmeans_fit",
-            model="kmeans" if sample_weight is None else "kmeans_weighted")
+            model="kmeans" if sample_weight is None else "kmeans_weighted",
+            itemsize=x.element_size())
     w = None
     if sample_weight is not None:
         if kernel == "refined":
@@ -330,7 +361,7 @@ def kmeans_fit(
     block_rows = (auto_block_rows(n, k, device=dev)
                   if kernel in ("xla", "refined") else 0)
     if spherical:
-        x = _normalize(x)
+        x = _normalize(x.float())
     c_init = resolve_init(x, k, init, generator, w)
     return _lloyd_loop(x, c_init, int(max_iters), float(tol),
                        bool(spherical), kernel, block_rows, bool(history),
@@ -343,12 +374,15 @@ def kmeans_predict(x, centroids, *, spherical: bool = False,
 
     kernel: 'xla', 'pallas' (B2, the blockwise distance-argmin kernel: no
     (N, K) buffer), or 'auto' — pallas on CUDA once the (N, K) matrix
-    would pass 1 GiB, as the JAX version does on a TPU.
+    would pass 1 GiB, as the JAX version does on a TPU ('auto:quantized'
+    resolves the same way: predict has no stats to quantize). bf16 points
+    run promoted on 'xla' and widened, with the centroids rounded to bf16,
+    on 'pallas', as the JAX version's two paths do.
     """
     dev = resolve_device(device)
     x = _as_points(x, dev)
     if spherical:
-        x = _normalize(x)
+        x = _normalize(x.float())
     c = torch.as_tensor(centroids).to(dev, torch.float32).contiguous()
     if kernel.startswith("auto"):
         big = 4 * x.shape[0] * c.shape[0] > (1 << 30)

@@ -44,6 +44,8 @@ SIGNATURES = {
                               _P, _P, _P],
     "tdc_lloyd_stats_fused_weighted": [_P, _P, _P, _P, _LL, _I, _I, _I, _P,
                                        _P, _P, _P, _P, _P],
+    "tdc_lloyd_stats_fused_bf16": [_P, _I, _P, _P, _LL, _I, _I, _I, _P, _P,
+                                   _P, _P, _P, _P, _P, _P],
     "tdc_segment_sums": [_P, _P, _LL, _I, _I, _P, _P, _P, _P],
     "tdc_segment_chunk_rows": [],
     "tdc_fuzzy_normalizer": [_P, _P, _P, _LL, _I, _I, _F, _F, _P, _P, _P],

@@ -29,9 +29,11 @@ from tdc_tpu_torch.ops import _build
 from tdc_tpu_torch.ops.assign import FuzzyStats
 from tdc_tpu_torch.ops.lloyd_kernels import (
     _PLAIN_TILE_ELEMS,
+    ROW_DTYPES,
     _check,
     _sq_norms,
     _stream,
+    widened,
 )
 from tdc_tpu_torch.utils.structlog import emit
 
@@ -114,9 +116,12 @@ def fuzzy_stats_fused(x: torch.Tensor, centroids: torch.Tensor,
                       m: float = 2.0, eps: float = 1e-9) -> FuzzyStats:
     """B6: fuzzy C-means sufficient stats, no (N, K) buffer. Returns
     FuzzyStats(weighted_sums (K, d), weights (K,), objective ()) in f32,
-    the objective clamped at 0. Takes every (K, d)."""
-    _check("fuzzy_stats_fused", x, centroids)
+    the objective clamped at 0. Takes every (K, d). bf16 rows run widened
+    (`lloyd_kernels.widened`), as the JAX kernel rounds the centroids to
+    the rows' dtype."""
+    _check("fuzzy_stats_fused", x, centroids, ROW_DTYPES)
     _check_m("fuzzy_stats_fused", m)
+    x, centroids = widened(x, centroids)
     if x.device.type == "cpu":
         return fuzzy_stats_fused_plain(x, centroids, m=m, eps=eps)
     c2 = _sq_norms(centroids)

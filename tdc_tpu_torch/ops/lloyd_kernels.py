@@ -1,15 +1,16 @@
-"""The Lloyd kernels B1, B2 and B4 (counterpart:
-tdc_tpu/ops/pallas_kernels.py, the `lloyd_stats_fused`, `distance_argmin`,
-`lloyd_stats_fused_weighted`, `lloyd_stats_auto[_weighted]` and
-`resolve_kernel` parts).
+"""The Lloyd kernels B1, B2, B4 and B5 (counterpart:
+tdc_tpu/ops/pallas_kernels.py, the `lloyd_stats_fused` (with and without
+mxu_dtype="bfloat16"), `distance_argmin`, `lloyd_stats_fused_weighted`,
+`lloyd_stats_auto[_weighted]` and `resolve_kernel` parts).
 
 Each kernel has three parts here:
 
 - the wrapper (`distance_argmin`, `lloyd_stats_fused`,
-  `lloyd_stats_fused_weighted`), which checks its
+  `lloyd_stats_fused_weighted`, `lloyd_stats_fused_bf16`), which checks its
   inputs, allocates every output and workspace with `torch.empty`, and on
   a CUDA tensor launches the hand-written kernel from
-  `csrc/lloyd_kernels.cu` on the current stream or raises;
+  `csrc/lloyd_kernels.cu` (B5: `csrc/lloyd_bf16_kernels.cu`) on the
+  current stream or raises;
 - the plain PyTorch version (`*_plain`), the same function with the same
   shifted-distance form ‖c‖² − 2x·c, tie-break (smallest index among equal
   minima) and SSE formula. The wrapper uses it only for a CPU tensor; the
@@ -19,8 +20,13 @@ Each kernel has three parts here:
   increments.
 
 The kernels are compute-bound on the H100 at the main path's shapes (the
-2·N·K·d distance product on the f32 CUDA cores); see the notes in
-`csrc/lloyd_kernels.cu` and PERF.md.
+2·N·K·d distance product: on the f32 CUDA cores for B1, B2 and B4, on the
+bf16 tensor cores for B5); see the notes in the sources and PERF.md.
+
+bf16 rows. B5 takes them natively, and it also serves f32 rows under
+mxu_dtype="bfloat16" (`kernel="pallas_bf16"`). B2 and B4, like B6, take
+bf16 rows widened to f32 (`widened`): the same function as the JAX
+kernels on bf16 rows, computed by the f32 kernels.
 """
 
 from __future__ import annotations
@@ -47,7 +53,12 @@ FUSED_MAX_KD = 1 << 19
 _PLAIN_TILE_ELEMS = 1 << 26
 
 
-def _check(name: str, x: torch.Tensor, c: torch.Tensor) -> None:
+# Row dtypes the kernel wrappers take (B1 and B9: float32 only).
+ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(name: str, x: torch.Tensor, c: torch.Tensor,
+           x_dtypes: tuple = (torch.float32,)) -> None:
     if x.dim() != 2 or c.dim() != 2:
         raise ValueError(f"{name}: x and centroids must be 2-D, got "
                          f"{tuple(x.shape)} and {tuple(c.shape)}")
@@ -56,9 +67,10 @@ def _check(name: str, x: torch.Tensor, c: torch.Tensor) -> None:
                          f"d={c.shape[1]}")
     if c.shape[0] < 1:
         raise ValueError(f"{name}: need at least one centroid")
-    if x.dtype != torch.float32 or c.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 only in this slice, got "
-                        f"{x.dtype} and {c.dtype}")
+    if x.dtype not in x_dtypes or c.dtype != torch.float32:
+        want = " or ".join(str(t).removeprefix("torch.") for t in x_dtypes)
+        raise TypeError(f"{name}: x must be {want} and the centroids "
+                        f"float32, got {x.dtype} and {c.dtype}")
     if x.device != c.device:
         raise ValueError(f"{name}: x on {x.device}, centroids on {c.device}")
     if x.device.type not in ("cpu", "cuda"):
@@ -66,6 +78,17 @@ def _check(name: str, x: torch.Tensor, c: torch.Tensor) -> None:
     if x.device.type == "cuda" and not (x.is_contiguous()
                                         and c.is_contiguous()):
         raise ValueError(f"{name}: the CUDA kernel needs contiguous inputs")
+
+
+def widened(x: torch.Tensor, centroids: torch.Tensor):
+    """(rows, centroids) for an f32 kernel (B2, B4, B6) given bf16 rows:
+    the rows widened to f32, which is exact, and the centroids rounded to
+    bf16 and widened, as the JAX wrappers cast the centroids to x.dtype,
+    so ‖c‖² comes from the rounded values. f32 rows pass through. The cost
+    is one f32 copy of the rows per call."""
+    if x.dtype != torch.bfloat16:
+        return x, centroids
+    return x.float(), centroids.to(torch.bfloat16).float()
 
 
 def _sq_norms(c: torch.Tensor) -> torch.Tensor:
@@ -106,8 +129,9 @@ def distance_argmin(x: torch.Tensor, centroids: torch.Tensor, *,
     """B2: (argmin (N,) int32, min squared distance (N,) f32) with no
     (N, K) buffer. Without `return_dist` the distance is the shifted
     ‖c‖² − 2x·c (argmin-valid); with it ‖x‖² is added back and clamped
-    at 0."""
-    _check("distance_argmin", x, centroids)
+    at 0. bf16 rows run widened (`widened`)."""
+    _check("distance_argmin", x, centroids, ROW_DTYPES)
+    x, centroids = widened(x, centroids)
     if x.device.type == "cpu":
         return distance_argmin_plain(x, centroids, return_dist=return_dist)
     n, d = x.shape
@@ -242,8 +266,8 @@ def lloyd_stats_fused_weighted(x: torch.Tensor, centroids: torch.Tensor,
     Returns SufficientStats(sums = Σw·x (K, d), counts = the weight mass
     (K,), sse = Σ w·min d² ()) in f32, SSE clamped at 0. A zero-weight row
     adds nothing. Raises past the fused limit (use
-    lloyd_stats_auto_weighted)."""
-    _check("lloyd_stats_fused_weighted", x, centroids)
+    lloyd_stats_auto_weighted). bf16 rows run widened (`widened`)."""
+    _check("lloyd_stats_fused_weighted", x, centroids, ROW_DTYPES)
     _check_weights("lloyd_stats_fused_weighted", x, sample_weight)
     k, d = centroids.shape
     if not fused_weighted_fits(k, d):
@@ -252,6 +276,7 @@ def lloyd_stats_fused_weighted(x: torch.Tensor, centroids: torch.Tensor,
             f"FUSED_MAX_KD = {FUSED_MAX_KD}; use lloyd_stats_auto_weighted "
             "(sorted route)"
         )
+    x, centroids = widened(x, centroids)
     if x.device.type == "cpu":
         return lloyd_stats_fused_weighted_plain(x, centroids, sample_weight)
     dev = x.device
@@ -276,21 +301,123 @@ def lloyd_stats_fused_weighted(x: torch.Tensor, centroids: torch.Tensor,
 lloyd_stats_fused_weighted.launches = 0
 
 
-def lloyd_stats_for(k: int, d: int, *, label: str = ""):
-    """The kernel route's stats function for (K, d): `lloyd_stats_fused`
-    (B1) within FUSED_MAX_KD, else `lloyd_stats_sorted` (B2 + B3). One
-    `kernel_selected` event names the choice and the reason; a fit asks
-    once and reuses the function for every iteration."""
+def _bf16_operands(x: torch.Tensor, centroids: torch.Tensor):
+    """(centroids rounded to bf16, ‖c‖² f32) for B5: ‖c‖² of the f32
+    centroids for f32 rows, of the rounded ones for bf16 rows (the JAX
+    wrapper's `centroids.astype(x.dtype)` before its ‖c‖²)."""
+    cb = centroids.to(torch.bfloat16).contiguous()
+    return cb, _sq_norms(cb.float() if x.dtype == torch.bfloat16
+                         else centroids)
+
+
+def lloyd_stats_fused_bf16_plain(x: torch.Tensor, centroids: torch.Tensor,
+                                 *, return_labels: bool = False):
+    """Plain version of B5: champions by c2 − 2·x̃·c̃ᵀ, where x̃ and c̃ are
+    the rows and centroids rounded to bf16 (the products of two bf16
+    values are exact in f32; the f32 matmul sums them), then Σx of the
+    rows at their own dtype (f32 unrounded, bf16 widened), counts, and
+    SSE = max(Σ min + Σ‖x‖², 0) with the same rows. With `return_labels`
+    also the (N,) int32 champions."""
+    k, d = centroids.shape
+    cb, c2 = _bf16_operands(x, centroids)
+    cr = cb.float()
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    counts = torch.zeros(k, dtype=torch.float32, device=x.device)
+    sse = torch.zeros((), dtype=torch.float32, device=x.device)
+    labels = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    rows = max(1, _PLAIN_TILE_ELEMS // k)
+    for s in range(0, x.shape[0], rows):
+        xb = x[s:s + rows].float()
+        lab, mind = _champions_plain(xb.to(torch.bfloat16).float(), cr, c2)
+        labels[s:s + rows] = lab
+        sums.index_add_(0, lab.long(), xb)
+        counts += torch.bincount(lab.long(), minlength=k).to(torch.float32)
+        sse = sse + mind.sum() + (xb * xb).sum()
+    stats = SufficientStats(sums=sums, counts=counts,
+                            sse=torch.clamp_min(sse, 0.0))
+    return (stats, labels) if return_labels else stats
+
+
+def lloyd_stats_fused_bf16(x: torch.Tensor, centroids: torch.Tensor, *,
+                           return_labels: bool = False):
+    """B5: Lloyd sufficient stats with the distance cross product on bf16
+    operands and f32 accumulation (the bf16 tensor cores), in one pass over
+    x, no (N, K) buffer. x is f32 (the JAX kernel's mxu_dtype="bfloat16")
+    or bf16 (its plain kernel on bf16 inputs; the two are the same
+    function there); the centroids are f32. Returns SufficientStats(sums
+    (K, d), counts (K,), sse ()) in f32, SSE clamped at 0; Σx and ‖x‖²
+    read the rows at their own dtype. With `return_labels` also the (N,)
+    int32 champions. Raises past the fused limit (use lloyd_stats_auto)."""
+    _check("lloyd_stats_fused_bf16", x, centroids, ROW_DTYPES)
+    k, d = centroids.shape
+    if not fused_fits(k, d):
+        raise ValueError(
+            f"lloyd_stats_fused_bf16: K·d = {k * d} exceeds FUSED_MAX_KD = "
+            f"{FUSED_MAX_KD}; use lloyd_stats_auto (sorted route)"
+        )
+    if x.device.type == "cpu":
+        return lloyd_stats_fused_bf16_plain(x, centroids,
+                                            return_labels=return_labels)
+    dev = x.device
+    grid = fused_grid(dev)
+    ws = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
+    cnt = torch.empty((grid, k), dtype=torch.int32, device=dev)
+    sse_part = torch.empty(grid, dtype=torch.float64, device=dev)
+    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty(k, dtype=torch.float32, device=dev)
+    sse = torch.empty((), dtype=torch.float32, device=dev)
+    labels = (torch.empty(x.shape[0], dtype=torch.int32, device=dev)
+              if return_labels else None)
+    lib = _build.load().lib
+    cb, c2 = _bf16_operands(x, centroids)
+    _build.check(lib.tdc_lloyd_stats_fused_bf16(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), cb.data_ptr(),
+        c2.data_ptr(), x.shape[0], k, d, grid, ws.data_ptr(), cnt.data_ptr(),
+        sse_part.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        sse.data_ptr(), None if labels is None else labels.data_ptr(),
+        _stream(x),
+    ), "lloyd_stats_fused_bf16")
+    lloyd_stats_fused_bf16.launches += 1
+    stats = SufficientStats(sums=sums, counts=counts, sse=sse)
+    return (stats, labels) if return_labels else stats
+
+
+lloyd_stats_fused_bf16.launches = 0
+
+
+def lloyd_stats_for(k: int, d: int, *, dtype: torch.dtype = torch.float32,
+                    mxu_dtype: str | None = None, label: str = ""):
+    """The kernel route's stats function for (K, d) and the rows' dtype:
+    within FUSED_MAX_KD `lloyd_stats_fused` (B1) for f32 rows, or
+    `lloyd_stats_fused_bf16` (B5) for bf16 rows or with
+    mxu_dtype="bfloat16"; else `lloyd_stats_sorted` (B2 + B3), where
+    mxu_dtype is dropped and the rows run at their own precision, as in the
+    JAX package. One `kernel_selected` event names the choice and the
+    reason; a fit asks once and reuses the function for every
+    iteration."""
     from tdc_tpu_torch.ops.sorted_stats import lloyd_stats_sorted
 
+    if mxu_dtype not in (None, "bfloat16"):
+        raise ValueError(
+            f"lloyd_stats_for: mxu_dtype={mxu_dtype!r} (only 'bfloat16', or "
+            "None for full input precision)")
+    bf16 = dtype == torch.bfloat16 or mxu_dtype is not None
     if fused_fits(k, d):
         fn, route, reason = lloyd_stats_fused, "fused", (
             f"K·d = {k * d} <= {FUSED_MAX_KD}: the per-CTA (K, d) "
             "workspace of the fused kernel stays bounded")
+        if bf16:
+            fn, route = lloyd_stats_fused_bf16, "fused_bf16"
+            reason += ("; bf16 cross operands on the tensor cores, f32 "
+                       "accumulate (" + ("bf16 rows" if mxu_dtype is None
+                                         else "mxu_dtype='bfloat16'") + ")")
     else:
         fn, route, reason = lloyd_stats_sorted, "sorted", (
             f"K·d = {k * d} > {FUSED_MAX_KD}: the fused kernel's "
             "workspace would grow past its limit")
+        if mxu_dtype is not None and dtype != torch.bfloat16:
+            reason += ("; the bf16 epilogue is fused-only, so the sorted "
+                       "path runs at full input precision")
     emit("kernel_selected", kernel=route, model="kmeans", k=int(k), d=int(d),
          reason=reason, label=label or "lloyd_stats_auto")
     return fn
@@ -298,9 +425,10 @@ def lloyd_stats_for(k: int, d: int, *, label: str = ""):
 
 def lloyd_stats_auto(x: torch.Tensor,
                      centroids: torch.Tensor) -> SufficientStats:
-    """Lloyd stats on the kernel route: B1 where its workspace fits, else
-    the sorted path (ops/sorted_stats.lloyd_stats_sorted)."""
-    return lloyd_stats_for(*centroids.shape)(x, centroids)
+    """Lloyd stats on the kernel route: B1 (f32 rows) or B5 (bf16 rows)
+    where the fused workspace fits, else the sorted path
+    (ops/sorted_stats.lloyd_stats_sorted)."""
+    return lloyd_stats_for(*centroids.shape, dtype=x.dtype)(x, centroids)
 
 
 def lloyd_stats_weighted_for(k: int, d: int, *, label: str = ""):
@@ -335,7 +463,7 @@ def lloyd_stats_auto_weighted(x: torch.Tensor, centroids: torch.Tensor,
 
 def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
                    model: str = "kmeans", label: str = "",
-                   ineligible: str | None = None) -> str:
+                   ineligible: str | None = None, itemsize: int = 4) -> str:
     """The default-kernel policy: 'auto' resolves to 'pallas' (the CUDA
     kernels) on a CUDA device and to 'xla' (plain PyTorch) on the CPU, with
     one `kernel_selected` event; an explicit name passes through. CUDA
@@ -344,12 +472,15 @@ def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
     route takes every (K, d). `ineligible` names a caller-side reason the
     kernels cannot apply at all (weighted fuzzy stats run in f32 plain ops;
     the GMM kernel is diag/spherical and unweighted): auto then resolves to
-    'xla' with that reason in the event."""
-    if kernel != "auto":
-        if kernel == "auto:quantized":
-            raise NotImplementedError(
-                "kernel='auto:quantized' needs the bf16 B1 variant "
-                "(ROADMAP.md Queue B, B5)")
+    'xla' with that reason in the event.
+
+    'auto:quantized' is auto plus permission to pick 'pallas_bf16' (B5 on
+    f32 rows: bf16 cross operands, f32 stats) where it applies: CUDA,
+    model='kmeans' (unweighted), f32 rows (itemsize 4: bf16 rows already
+    run B5 under 'pallas') and (K, d) within the fused limit. Anywhere
+    else it takes the plain auto choice, with the reason in the event,
+    never an error."""
+    if kernel not in ("auto", "auto:quantized"):
         return kernel
     if model not in ("kmeans", "kmeans_weighted", "fuzzy", "gmm"):
         raise NotImplementedError(
@@ -366,6 +497,21 @@ def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
         choice, reason = "xla", (
             f"device={device.type}: the kernels are CUDA-only; plain "
             "PyTorch ops run instead")
+    if kernel == "auto:quantized" and choice == "pallas":
+        if model != "kmeans":
+            reason += (f"; bf16 epilogue declined: it is unweighted "
+                       f"kmeans-fused only (model={model})")
+        elif itemsize != 4:
+            reason += ("; bf16 epilogue declined: the rows are not f32, and "
+                       "bf16 rows already run it under 'pallas'")
+        elif not fused_fits(k, d):
+            reason += (f"; bf16 epilogue declined: K·d = {k * d} is past "
+                       "the fused limit, where the sorted path runs at full "
+                       "input precision")
+        else:
+            choice = "pallas_bf16"
+            reason += ("; :quantized accepted: bf16 cross operands on the "
+                       "tensor cores, f32 accumulate and f32 stats")
     emit("kernel_selected", kernel=choice, model=model, k=int(k), d=int(d),
          reason=reason, label=label)
     return choice

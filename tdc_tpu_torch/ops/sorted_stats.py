@@ -24,6 +24,13 @@ package's (K, d) sums.
 The weighted route (`lloyd_stats_sorted_weighted`) sorts [w·x | w]
 (N, d+1) instead of x: B3 then gives Σw·x in the first d columns and the
 weight mass in the last, with no kernel of its own.
+
+bf16 rows take both routes widened: B2 on the rows widened to f32 with
+the centroids rounded to bf16 (`lloyd_kernels.widened`, as the JAX
+wrapper casts the centroids to x.dtype), and B3 on the gathered rows
+widened to f32, which is exact. Under kernel="pallas_bf16" past the fused
+limit the routes run at the rows' own precision, as in the JAX package
+(`lloyd_kernels.lloyd_stats_for` says so in its event).
 """
 
 from __future__ import annotations

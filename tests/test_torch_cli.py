@@ -1,6 +1,7 @@
 """The port's CLI against the JAX package's on the same .npz, on the CPU,
 for distributedKMeans, distributedFuzzyCMeans and gaussianMixture, with
-and without a shared --weight_file.
+and without a shared --weight_file, and on bfloat16 data files (.npy and
+.npz, as ml_dtypes arrays store them) under --dtype float32 and bfloat16.
 
 Both write one CSV row; they must agree on every column except the
 timings, `backend` and `points_per_sec_per_chip`, with `sse` within rtol
@@ -10,6 +11,7 @@ log-likelihood).
 
 import csv
 
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -90,6 +92,38 @@ def test_cli_rows_agree_fuzzy_weighted(npz, weights, tmp_path):
                                 f"--weight_file={weights}"], kernel="xla")
 
 
+@pytest.fixture(scope="module")
+def bf16_files(npz, tmp_path_factory):
+    """The npz fixture's points as ml_dtypes bfloat16, saved with np.save
+    and np.savez (numpy stores them as unstructured '|V2')."""
+    with np.load(npz) as z:
+        x, y = z["X"].astype(ml_dtypes.bfloat16), z["Y"]
+    root = tmp_path_factory.mktemp("bf16")
+    np.save(root / "x.npy", x)
+    np.savez(root / "x.npz", X=x, Y=y)
+    assert np.load(root / "x.npy").dtype == np.dtype("V2")
+    return {"npy": str(root / "x.npy"), "npz": str(root / "x.npz")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["npy", "npz"])
+def test_cli_rows_agree_bf16_file(bf16_files, kind, dtype, tmp_path):
+    # A bf16 file stays bf16 under either --dtype in both CLIs, so the
+    # kernel route runs B5's plain version against the JAX CLI's
+    # interpret-mode fused kernel on bf16 inputs.
+    _rows_agree(bf16_files[kind], tmp_path, [*FLAGS, f"--dtype={dtype}"])
+
+
+@pytest.mark.parametrize("kernel", ["xla", "pallas_bf16"])
+def test_cli_rows_agree_bf16(npz, kernel, tmp_path):
+    # xla: f32 points cast to bf16 on the device, promoted by the plain
+    # stats; pallas_bf16: f32 points, B5's bf16 cross operands.
+    flags = [f for f in FLAGS if f != "--kernel=pallas"]
+    dtype = "bfloat16" if kernel == "xla" else "float32"
+    _rows_agree(npz, tmp_path, [*flags, f"--kernel={kernel}",
+                                f"--dtype={dtype}"], kernel=kernel)
+
+
 def test_cli_rows_agree_gmm(npz, tmp_path):
     # The E-step kernel route (B9's plain version on the CPU) against the
     # JAX CLI's interpret-mode fused E-step.
@@ -130,6 +164,7 @@ def test_cli_gmm_rejections(npz, flags, message, capsys):
     (["--method_name=distributedFuzzyCMeans", "--kernel=pallas"],
      "distributedKMeans only"),
     (["--kernel=refined"], "refined"),
+    (["--kernel=pallas_bf16"], "does not support --weight_file"),
 ])
 def test_cli_weight_file_rejections(npz, weights, flags, message, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -137,6 +172,17 @@ def test_cli_weight_file_rejections(npz, weights, flags, message, capsys):
                    f"--weight_file={weights}", *flags])
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("method", ["distributedFuzzyCMeans",
+                                    "gaussianMixture"])
+def test_cli_pallas_bf16_is_kmeans_only(npz, method, capsys):
+    for cli in (jcli, tcli):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(["--K=4", f"--data_file={npz}", "--kernel=pallas_bf16",
+                      f"--method_name={method}"])
+        assert exc.value.code == 2
+        assert "distributedKMeans only" in capsys.readouterr().err
 
 
 def test_cli_missing_or_misshapen_weight_file(npz, tmp_path, capsys):
@@ -169,7 +215,7 @@ def test_cli_default_device_fails_without_a_card(npz, tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--method_name=bisectingKMeans"],
     ["--n_GPUs=2"],
-    ["--dtype=bfloat16"],
+    ["--init=kmeans_parallel"],
 ])
 def test_cli_unported_flags_name_the_roadmap(npz, flags, capsys):
     with pytest.raises(SystemExit) as exc:

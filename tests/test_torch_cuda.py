@@ -13,12 +13,20 @@ within rtol 1e-5, two runs bitwise equal; copies of a centroid take no
 mass. B9 (the diag-GMM E-step): Σr·x within 1e-5 of Σr|x| per component,
 Σr·x², nk and ll_sum within rtol 1e-5, two runs bitwise equal; a diag
 kernel fit against the plain fit: equal n_iter and converged, means
-within 1e-4, the mean log-likelihood within rtol 1e-5."""
+within 1e-4, the mean log-likelihood within rtol 1e-5. B5 (bf16 cross
+operands on the tensor cores) on f32 and bf16 rows: labels and counts
+equal to the plain version's (the blobs keep every row far from a tie in
+B5's own metric), sums within rtol 1e-5 and atol 1e-4, SSE within rtol
+1e-5, two runs bitwise equal; centroids that differ in f32 but round to
+the same bf16 values tie on bf16 rows and the smaller index wins; a bf16
+kernel fit against the same fit on the CPU (plain version): equal n_iter
+and converged, centroids within 1e-4."""
 
 import pytest
 import torch
 
 from tdc_tpu_torch.models import gmm as tgmm
+from tdc_tpu_torch.models import kmeans as tkm
 from tdc_tpu_torch.ops import fuzzy_kernels as fk
 from tdc_tpu_torch.ops import gmm_kernels as gk
 from tdc_tpu_torch.ops import lloyd_kernels as lk
@@ -179,3 +187,54 @@ def test_b9_fit_matches_plain_fit(gen):
     torch.testing.assert_close(a.means, b.means, rtol=0.0, atol=1e-4)
     torch.testing.assert_close(a.log_likelihood, b.log_likelihood,
                                rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,d", [(1000, 37, 19), (5000, 130, 128),
+                                   ((1 << 16) + 37, 300, 19),
+                                   (3000, 70, 200)])
+def test_b5_matches_plain(gen, n, k, d, dtype):
+    # d = 19 takes the scalar loads and pads the product to 32 columns;
+    # d = 200 takes two staged chunks of d per K tile.
+    x, c = _data(gen, n, k, d)
+    x = x.to(dtype)
+    st, lab = lk.lloyd_stats_fused_bf16(x, c, return_labels=True)
+    again = lk.lloyd_stats_fused_bf16(x, c)
+    assert all(torch.equal(a, b) for a, b in zip(st, again))
+    want, plab = lk.lloyd_stats_fused_bf16_plain(x, c, return_labels=True)
+    assert torch.equal(lab, plab)
+    assert torch.equal(st.counts, want.counts)
+    torch.testing.assert_close(st.sums, want.sums, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(st.sse, want.sse, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("d", [19, 128])
+def test_b5_bf16_ties_go_to_the_smallest_index(gen, d):
+    k, copies = 300, [5, 67, 200, 299]
+    x, c = _data(gen, 4000, k, d)
+    c = c.to(torch.bfloat16).float()
+    c[copies] = c[3] * (1 + 2.0 ** -10)  # other f32 values, same bf16
+    assert not torch.equal(c[copies[0]], c[3])
+    assert torch.equal(c[copies].to(torch.bfloat16),
+                       c[3].expand(len(copies), d).to(torch.bfloat16))
+    xb = x.to(torch.bfloat16)
+    st, lab = lk.lloyd_stats_fused_bf16(xb, c, return_labels=True)
+    _, plab = lk.lloyd_stats_fused_bf16_plain(xb, c, return_labels=True)
+    assert torch.equal(lab, plab)
+    assert not torch.isin(lab, torch.tensor(copies, device="cuda")).any()
+    assert not st.counts[copies].any() and not st.sums[copies].any()
+
+
+def test_b5_fit_matches_the_plain_fit(gen):
+    x, c = _data(gen, 20000, 64, 32)
+    xb = x.to(torch.bfloat16)
+    init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
+    before = lk.lloyd_stats_fused_bf16.launches
+    a = tkm.kmeans_fit(xb, 64, init=init, max_iters=30, tol=1e-4,
+                       kernel="pallas")
+    assert lk.lloyd_stats_fused_bf16.launches == before + a.n_iter + 1
+    b = tkm.kmeans_fit(xb.cpu(), 64, init=init.cpu(), max_iters=30,
+                       tol=1e-4, kernel="pallas", device="cpu")
+    assert (a.n_iter, a.converged) == (b.n_iter, b.converged)
+    torch.testing.assert_close(a.centroids.cpu(), b.centroids, rtol=0.0,
+                               atol=1e-4)

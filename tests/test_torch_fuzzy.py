@@ -249,8 +249,8 @@ def test_fit_in_jax_predict_in_port():
     {"mesh": object()},
     {"sample_weight": np.ones(100, np.float32), "mesh": object()},
     {"layout": "features"},
-    {"kernel": "pallas_bf16"},
-    {"kernel": "auto:quantized"},
+    {"init": "kmeans_parallel"},
+    {"init": "k-means||"},
     {"kernel": "tall"},
     {"init": "kmeans||"},
 ])
@@ -274,3 +274,18 @@ def test_fuzzy_default_device_is_cuda_and_never_falls_back():
         pytest.skip("a card is present: the default device works here")
     with pytest.raises(RuntimeError, match="CUDA"):
         tfz.fuzzy_cmeans_fit(np.zeros((10, 2), np.float32), 2)
+
+
+def test_fuzzy_pallas_bf16_raises_the_reference_error():
+    # The bf16 epilogue exists for the Lloyd kernel only: Fuzzy C-Means
+    # does not know the kernel, in both packages, with the same message.
+    x = np.random.default_rng(0).normal(size=(100, 4)).astype(np.float32)
+    msgs = []
+    for fit, kw in ((jfz.fuzzy_cmeans_fit, {}),
+                    (tfz.fuzzy_cmeans_fit, {"device": "cpu"})):
+        with pytest.raises(ValueError) as exc:
+            fit(x, 3, init="first_k", max_iters=2, kernel="pallas_bf16",
+                **kw)
+        msgs.append(str(exc.value))
+    assert msgs[1] == msgs[0] == (
+        "unknown kernel 'pallas_bf16' (use 'xla' or 'pallas')")

@@ -391,3 +391,44 @@ def test_gmm_validations():
     with pytest.raises(ValueError, match="full variances"):
         convert.gmm_state_from_numpy(init, np.ones((6, 4), np.float32),
                                      np.ones(6) / 6, "full", device="cpu")
+
+
+def _collapsing_points():
+    """Five unit blobs in d=6 with every 7th row replaced by row 3 (215
+    identical rows): from first_k means a full-covariance component
+    collapses onto the repeated row within a few EM steps."""
+    rng = np.random.default_rng(1)
+    x = np.concatenate([rng.normal(loc=c, size=(300, 6)) for c in range(5)])
+    x = x.astype(np.float32)
+    x[::7] = x[3]
+    return x
+
+
+@pytest.mark.parametrize("cov_type", ["full", "tied"])
+def test_collapsing_component_gives_nan_not_an_error(cov_type):
+    # A covariance that is not positive definite: the JAX package's
+    # Cholesky factor is NaN, and the NaN runs through n_iter, converged,
+    # the log-likelihood and the means; the port matches instead of
+    # raising. Values near the collapse are not compared.
+    x = _collapsing_points()
+    kw = dict(init="first_k", max_iters=30, tol=1e-4,
+              covariance_type=cov_type)
+    j = jgmm.gmm_fit(x, 4, **kw)
+    t = tgmm.gmm_fit(x, 4, device="cpu", **kw)
+    assert t.n_iter == int(j.n_iter)
+    assert t.converged == bool(j.converged)
+    assert np.isnan(float(t.log_likelihood)) == np.isnan(
+        float(j.log_likelihood))
+    np.testing.assert_array_equal(np.isnan(t.means.numpy()),
+                                  np.isnan(np.asarray(j.means)))
+    if cov_type == "full":
+        assert int(j.n_iter) == 7 and not bool(j.converged)
+        assert np.isnan(float(j.log_likelihood))
+        assert np.isnan(np.asarray(j.means)).any()
+
+
+def test_cholesky_of_a_singular_covariance_is_nan():
+    cov = torch.stack([torch.eye(3), torch.zeros((3, 3))])
+    chol = tgmm._cholesky(cov)
+    assert torch.equal(chol[0], torch.eye(3))
+    assert bool(torch.isnan(chol[1]).all())

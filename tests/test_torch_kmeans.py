@@ -136,9 +136,9 @@ def test_kmeans_fit_stochastic_init_is_seeded():
     {"mesh": object()},
     {"sample_weight": np.ones(100, np.float32), "mesh": object()},
     {"layout": "features"},
-    {"kernel": "pallas_bf16"},
+    {"kernel": "tall"},
     {"init": "kmeans||"},
-    {"x": torch.zeros((100, 4), dtype=torch.bfloat16)},
+    {"x": torch.zeros((100, 4), dtype=torch.bfloat16), "layout": "features"},
 ])
 def test_unported_options_raise_naming_the_roadmap(kw):
     kw = dict(kw)

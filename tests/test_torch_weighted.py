@@ -410,7 +410,9 @@ def test_weighted_rejections():
         with pytest.raises(NotImplementedError, match="A4"):
             fit(x, 8, init=init, sample_weight=w, mesh=object(),
                 device="cpu")
-        with pytest.raises(NotImplementedError, match="B5"):
+        # The JAX package's errors: K-Means rejects the weights, Fuzzy
+        # C-Means does not know the kernel.
+        with pytest.raises(ValueError, match="pallas_bf16"):
             fit(x, 8, init=init, sample_weight=w, kernel="pallas_bf16",
                 device="cpu")
 
