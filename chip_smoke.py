@@ -4,9 +4,10 @@
 
 Builds the port's CUDA kernels from `tdc_tpu_torch/csrc/` and drives its
 main paths through the CLI: in-memory single-GPU f32 Lloyd K-Means, with
-and without sample weights, bf16 Lloyd K-Means, Fuzzy C-Means and
-diagonal Gaussian Mixture EM. Phases, each of which raises on failure
-(nothing is caught):
+and without sample weights, bf16 Lloyd K-Means, Fuzzy C-Means, diagonal
+Gaussian Mixture EM, and feature-major K-Means and Fuzzy C-Means
+(--layout=features). Phases, each of which raises on failure (nothing is
+caught):
 
 1. Device: a CUDA card is required; prints its name and power limit.
 2. Build: nvcc builds the kernels; prints the build seconds.
@@ -37,6 +38,16 @@ diagonal Gaussian Mixture EM. Phases, each of which raises on failure
    Σ|x| against Σx by the kernel's own labels, SSE within REL_TOL
    relative, bitwise repeatable. Centroids that differ in f32 but round to
    the same bf16 values tie on bf16 rows: the smallest index wins.
+   B10 and B11 (the feature-major Lloyd and fuzzy stats) at the reference
+   sweep's largest point, N=10^8, d=5, K=15, on f32 and bf16 columns (B11
+   at m=2 and m=1.7), at the ragged N=2^16+37, K=300, d=19 and at a wide
+   N=2^18, K=1024, d=128: B10's labels equal to the plain version's except
+   at near-ties in its own metric (d² of the operands as the kernel sees
+   them), counts equal where the labels agree, Σx within REL_TOL of Σ|x|
+   by its own labels; B11 as B6; both bitwise repeatable. B1 on
+   xt.T.contiguous() at the 10^8 shape is timed beside B10 (a number, not
+   a check). Duplicated centroids take 0 columns in B10 and the same
+   mass, bitwise, as the original in B11.
 4. Main path, fused route: the CLI at N=2^22, d=128, K=1024,
    --kernel=pallas, 10 iterations; B1 must launch n_iter + 1 times per fit.
 5. Main path, sorted route: the CLI at K=16,384, d=768, --init=random,
@@ -61,13 +72,20 @@ diagonal Gaussian Mixture EM. Phases, each of which raises on failure
    lloyd_stats_auto on bf16 rows at K=16,384, d=768: B2 and B3 launch,
    B5 does not, and the stats equal those of the same route on the
    widened rows and rounded centroids bitwise.
-11. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
+11. Main path, tall routes: the CLI with --layout=features at N=10^8,
+   d=5, K=15, 20 iterations, for distributedKMeans (f32 and
+   --dtype=bfloat16) and distributedFuzzyCMeans (m=2), and on a .fm.npy
+   file of N=2^24 written by to_feature_major; B10 (B11 for fuzzy) must
+   launch n_iter + 1 times per fit and no other kernel ever.
+12. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
    the plain labels.
-12. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
+13. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
    kernel="xla" fit from the same init give the same n_iter and
    centroids (means) within tolerance, for K-Means, weighted K-Means,
-   Fuzzy C-Means and diag and spherical GMM; and a bf16 K-Means fit on
-   B5 against the same fit on the CPU (B5's plain version).
+   Fuzzy C-Means and diag and spherical GMM; a bf16 K-Means fit on B5
+   against the same fit on the CPU (B5's plain version); and
+   layout="features" K-Means (B10) and Fuzzy C-Means (B11) fits at N=2^16,
+   d=5, K=15 against the same fits on the CPU.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -91,7 +109,7 @@ import numpy as np
 import torch
 
 from tdc_tpu_torch.cli import main as cli
-from tdc_tpu_torch.data import make_blobs
+from tdc_tpu_torch.data import make_blobs, to_feature_major
 from tdc_tpu_torch.models import (
     fuzzy_cmeans_fit,
     gmm_fit,
@@ -104,6 +122,7 @@ from tdc_tpu_torch.ops import fuzzy_kernels as fk
 from tdc_tpu_torch.ops import gmm_kernels as gk
 from tdc_tpu_torch.ops import lloyd_kernels as lk
 from tdc_tpu_torch.ops import sorted_stats as ss
+from tdc_tpu_torch.ops import tall as tk
 from tdc_tpu_torch.ops.assign import fuzzy_memberships
 from tdc_tpu_torch.ops.init import init_random
 
@@ -157,6 +176,20 @@ BF16_SORTED_N = 1 << 17  # rows of the bf16 sorted-route check
 FUZZY_MS = (2.0, 1.7)  # B6 is checked at both fuzzifiers
 FUZZY_RAGGED = ((1 << 16) + 37, 300, 19)  # N, K, d: no multiple of a tile
 ZERO_SHARE = 0.05  # share of the weights set exactly to 0
+# The feature-major routes: the reference sweep's largest point (n_obs =
+# 100M, n_dim = 5, K in {15, 12, 9, 6, 3}; SURVEY.md), uncut.
+TALL_SHAPE = (10 ** 8, 15, 5)  # N, K, d
+TALL_WIDE = (1 << 18, 1024, 128)
+TALL_ARGS = [
+    "--method_name=distributedKMeans", f"--n_obs={TALL_SHAPE[0]}",
+    f"--n_dim={TALL_SHAPE[2]}", f"--K={TALL_SHAPE[1]}", "--layout=features",
+    "--n_max_iters=20", "--tol=-1", "--seed=0",
+]
+TALL_FUZZY_ARGS = ["--method_name=distributedFuzzyCMeans", *TALL_ARGS[1:],
+                   "--fuzzifier=2.0"]
+TALL_BF16_ARGS = [*TALL_ARGS, "--dtype=bfloat16"]
+FM_N = 1 << 24  # points of the .fm.npy file route
+TALL_STEP = 1 << 24  # columns per step of the f64 reference sums
 
 
 def smi() -> str:
@@ -708,10 +741,206 @@ def phase_fuzzy_kernel(gen) -> dict:
     return out
 
 
+def tall_blobs(gen, n, k, d):
+    """Feature-major points (d, n) around k centers, every center used
+    (column j belongs to center j % k), built in column chunks."""
+    centers = (torch.rand((k, d), generator=gen, device="cuda") * 2 - 1) * 3
+    xt = torch.randn((d, n), generator=gen, device="cuda")
+    ct = centers.T.contiguous()
+    for s in range(0, n, TALL_STEP):
+        lab = torch.arange(s, min(n, s + TALL_STEP), device="cuda") % k
+        xt[:, s:s + TALL_STEP] += ct[:, lab]
+    return xt, centers.contiguous()
+
+
+def tall_label_sums(xt, lab, k):
+    """(Σx, Σ|x|) per label of f32-widened columns, summed in f64."""
+    sums = torch.zeros((k, xt.shape[0]), dtype=torch.float64, device="cuda")
+    abs_sums = torch.zeros_like(sums)
+    for s in range(0, xt.shape[1], TALL_STEP):
+        xb = xt[:, s:s + TALL_STEP].double().T
+        lb = lab[s:s + TALL_STEP].long()
+        sums.index_add_(0, lb, xb)
+        abs_sums.index_add_(0, lb, xb.abs())
+    return sums.float(), abs_sums.float()
+
+
+def tall_near_ties(name, xt, c, got, want) -> int:
+    """B10's labels equal the plain version's except at near-ties in its
+    own metric: d² of the columns and the centroids as the kernel sees
+    them (rounded to bf16 for bf16 columns), in f64 here. Near: within
+    TIE_TOL of ‖x‖² + max ‖c‖². Returns the count of near-tie
+    differences."""
+    diff = (got != want).nonzero().flatten()
+    if diff.numel():
+        cr = tk._operands(xt, c)[0].double()
+        xd = xt[:, diff].double().T
+
+        def value(lab):
+            return ((xd - cr[lab[diff].long()]) ** 2).sum(1)
+
+        scale = (xd * xd).sum(1) + (cr * cr).sum(1).max()
+        far = ((value(got) - value(want)).abs() > TIE_TOL * scale).sum()
+        require(int(far) == 0, f"{name}: {int(far)} labels differ from the "
+                               "plain version beyond a near-tie")
+    return int(diff.numel())
+
+
+def check_tall_lloyd(name, xt, c) -> tuple[float, int]:
+    """B10 against its plain version: two runs bitwise equal, labels equal
+    except at near-ties, counts equal where the labels agree, Σx within
+    REL_TOL of Σ|x| by the kernel's own labels, SSE within REL_TOL
+    relative. Returns (max abs error of the sums, near-tie count)."""
+    k = c.shape[0]
+    got, lab = tk.lloyd_stats_tall(xt, c, return_labels=True)
+    again, lab2 = tk.lloyd_stats_tall(xt, c, return_labels=True)
+    repeatable(name, (*got, lab), (*again, lab2))
+    want, plab = tk.lloyd_stats_tall_plain(xt, c, return_labels=True)
+    ties = tall_near_ties(name, xt, c, lab, plab)
+
+    def bincount(lab):
+        return torch.bincount(lab.long(), minlength=k).to(torch.float32)
+
+    other = lab != plab
+    require(torch.equal(got.counts - want.counts,
+                        bincount(lab[other]) - bincount(plab[other])),
+            f"{name}: counts differ where the labels agree")
+    mine, abs_sums = tall_label_sums(xt, lab, k)
+    err = check_close(f"{name} sums", got.sums, mine, abs_sums)
+    if not ties:
+        check_close(f"{name} sums (plain)", got.sums, want.sums, abs_sums)
+    check_close(f"{name} sse", got.sse, want.sse, want.sse.abs())
+    return err, ties
+
+
+def tall_fuzzy_abs_sums(xt, c, m):
+    """Σμ|x| per cluster, the scale of B11's Σμx check (column blocks)."""
+    cr, c2 = tk._operands(xt, c)
+    out = torch.zeros(c.shape, dtype=torch.float64, device="cuda")
+    cols = max(1, (1 << 26) // c.shape[0])
+    for s in range(0, xt.shape[1], cols):
+        xb = xt[:, s:s + cols].float()
+        mu = tk.tall_memberships(xb, cr, c2, m)[0]
+        out += mu.double() @ xb.abs().T.double()
+    return out.float()
+
+
+def check_tall_fuzzy(name, xt, c, m) -> float:
+    """B11 against its plain version: two runs bitwise equal, Σμx within
+    REL_TOL of Σμ|x|, Σμ and the objective within REL_TOL relative."""
+    got = tk.fuzzy_stats_tall(xt, c, m)
+    repeatable(name, got, tk.fuzzy_stats_tall(xt, c, m))
+    want = tk.fuzzy_stats_tall_plain(xt, c, m)
+    err = check_close(f"{name} sums", got.weighted_sums, want.weighted_sums,
+                      tall_fuzzy_abs_sums(xt, c, m))
+    check_close(f"{name} weights", got.weights, want.weights,
+                want.weights.abs())
+    check_close(f"{name} objective", got.objective, want.objective,
+                want.objective.abs())
+    return err
+
+
+def phase_tall_kernel(gen) -> dict:
+    """Phase 3, B10 and B11: at the tall routes' shape on f32 and bf16
+    columns (the f32 numbers, m=2 for B11, are the JSON line's), B1 on the
+    transposed points timed beside B10, then the ragged and wide cases."""
+    n, k, d = TALL_SHAPE
+    xt, c = tall_blobs(gen, n, k, d)
+    b10, b11 = {}, {}
+    for cols in (xt, xt.to(torch.bfloat16)):
+        key = ("bf16_columns" if cols.dtype == torch.bfloat16
+               else "f32_columns")
+        # Bytes: the columns once, the centroids and c2 in, Σx, counts
+        # and the SSE out. Operations: the 2·N·K·d distance product (B11:
+        # and the μᵀx accumulate, 4·N·K·d); its powers run on the SFU.
+        nbytes = (cols.element_size() * n * d
+                  + 4.0 * (2 * k * d + 2 * k + 1))
+        err, ties = check_tall_lloyd(f"B10 {key}", cols, c)
+        b_ms, b_by = bound_ms(2.0 * n * k * d, nbytes)
+        b10[key] = dict(
+            max_abs_err=err, near_ties=ties,
+            ms=median_ms(lambda: tk.lloyd_stats_tall(cols, c), 5),
+            plain_ms=median_ms(lambda: tk.lloyd_stats_tall_plain(cols, c), 3),
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"[B10] N={n} K={k} d={d} {key}: {json.dumps(b10[key])}",
+              flush=True)
+        b_ms, b_by = bound_ms(4.0 * n * k * d, nbytes)
+        for m in FUZZY_MS:
+            b11[(key, m)] = dict(
+                max_abs_err=check_tall_fuzzy(f"B11 {key} m={m}", cols, c, m),
+                ms=median_ms(lambda: tk.fuzzy_stats_tall(cols, c, m), 5),
+                plain_ms=median_ms(
+                    lambda: tk.fuzzy_stats_tall_plain(cols, c, m), 3),
+                bound_ms=b_ms, bound_by=b_by)
+            print(f"[B11] N={n} K={k} d={d} {key} m={m}: "
+                  f"{json.dumps(b11[(key, m)])}", flush=True)
+        del cols
+    # B1 on the same points stored sample-major: whether the layout pays
+    # on this card (timed only; B1 has its own checks above).
+    xs = xt.T.contiguous()
+    b1_ms = median_ms(lambda: lk.lloyd_stats_fused(xs, c), 3)
+    print(f"[B10] B1 on xt.T.contiguous() N={n} K={k} d={d}: {b1_ms:.4f} ms "
+          f"against B10's {b10['f32_columns']['ms']:.4f} ms", flush=True)
+    del xs, xt, c
+    out_b10 = dict(**b10["f32_columns"], library_ms=None,
+                   bf16_columns=b10["bf16_columns"], b1_on_transpose_ms=b1_ms)
+    out_b11 = dict(**b11[("f32_columns", 2.0)], library_ms=None,
+                   m_1_7=b11[("f32_columns", 1.7)],
+                   bf16_columns={str(m): b11[("bf16_columns", m)]
+                                 for m in FUZZY_MS})
+    for n, k, d in (FUZZY_RAGGED, TALL_WIDE):
+        xt, c = tall_blobs(gen, n, k, d)
+        for cols in (xt, xt.to(torch.bfloat16)):
+            err, ties = check_tall_lloyd(f"B10 N={n} {cols.dtype}", cols, c)
+            errs = [check_tall_fuzzy(f"B11 N={n} {cols.dtype} m={m}", cols,
+                                     c, m) for m in FUZZY_MS]
+            print(f"[B10] [B11] N={n} K={k} d={d} {cols.dtype}: equal to the "
+                  f"plain versions (B10 max abs err {err:.3g}, {ties} "
+                  f"near-ties; B11 {max(errs):.3g}), bitwise repeatable",
+                  flush=True)
+        del xt, c
+    return {"B10": out_b10, "B11": out_b11}
+
+
+def phase_tall_ties(gen) -> None:
+    """Phase 3, tall ties: copies of centroid 3 (at 5, 9 and 14 for K=15,
+    the private accumulate; at 5, 67, 200 and K-1 for K=300, the tile
+    one). In B10 every tie goes to the smallest index: labels equal the
+    plain version's, no label lands on a copy, the copies take 0 columns
+    and 0 sums. In B11 a copy takes the same Σμx and Σμ as centroid 3,
+    bitwise."""
+    for k, d, copies in ((TALL_SHAPE[1], TALL_SHAPE[2], [5, 9, 14]),
+                         (FUZZY_RAGGED[1], FUZZY_RAGGED[2],
+                          [5, 67, 200, FUZZY_RAGGED[1] - 1])):
+        xt, c = tall_blobs(gen, TIE_N, k, d)
+        c[copies] = c[3].clone()
+        for cols in (xt, xt.to(torch.bfloat16)):
+            got, lab = tk.lloyd_stats_tall(cols, c, return_labels=True)
+            plab = tk.lloyd_stats_tall_plain(cols, c, return_labels=True)[1]
+            require(torch.equal(lab, plab),
+                    f"tall ties (K={k}): B10 labels differ from the plain "
+                    "version's")
+            require(not bool(torch.isin(lab, torch.tensor(
+                copies, device="cuda")).any())
+                and not bool(got.counts[copies].any())
+                and not bool(got.sums[copies].any()),
+                f"tall ties (K={k}): a copy took columns in B10")
+            f = tk.fuzzy_stats_tall(cols, c, 2.0)
+            require(all(torch.equal(f.weights[j], f.weights[3])
+                        and torch.equal(f.weighted_sums[j],
+                                        f.weighted_sums[3])
+                        for j in copies),
+                    f"tall ties (K={k}): B11 copies took other mass")
+        print(f"[ties] tall N={TIE_N} K={k} d={d}: copies {copies} of "
+              "centroid 3 took 0 columns in B10 (f32 and bf16 columns) and "
+              "the same mass as centroid 3 in B11", flush=True)
+
+
 WRAPPERS = {"B1": lk.lloyd_stats_fused, "B2": lk.distance_argmin,
             "B3": ss.segment_sums, "B4": lk.lloyd_stats_fused_weighted,
             "B5": lk.lloyd_stats_fused_bf16, "B6": fk.fuzzy_stats_fused,
-            "B9": gk.gmm_stats_fused}
+            "B9": gk.gmm_stats_fused, "B10": tk.lloyd_stats_tall,
+            "B11": tk.fuzzy_stats_tall}
 
 
 def reset_counts() -> None:
@@ -775,9 +1004,11 @@ def main() -> int:
     numbers["B4"] = phase_weighted_kernel(gen)
     numbers["B9"] = phase_gmm_kernel(gen)
     numbers["B5"] = phase_bf16_kernel(gen)
+    numbers.update(phase_tall_kernel(gen))
     print(f"[kernels] {json.dumps(numbers)}", flush=True)
     phase_ties(gen)
     phase_bf16_ties(gen)
+    phase_tall_ties(gen)
 
     with tempfile.TemporaryDirectory() as tmp:
         row, seen = run_cli(MAIN_ARGS, tmp, "fused_route")
@@ -849,6 +1080,40 @@ def main() -> int:
             if name == "bf16_route":
                 numbers["B5"]["launches"] = seen["B5"]
         os.remove(xfile)
+
+        # The tall routes: --layout=features at the reference sweep's
+        # shape; seeding (k-means++ on the first 2^18 columns) runs no
+        # kernel.
+        for route_args, name, key in (
+                (TALL_ARGS, "tall_route", "B10"),
+                (TALL_FUZZY_ARGS, "tall_fuzzy_route", "B11"),
+                (TALL_BF16_ARGS, "tall_bf16_route", "B10")):
+            row, seen = run_cli(route_args, tmp, name)
+            n_iter = int(row["n_iter"])
+            require(n_iter == 20 and row["kernel"] == "tall",
+                    f"{name}: {n_iter} iterations, kernel {row['kernel']!r}")
+            require_launches(name, seen, **{key: 2 * (n_iter + 1)})
+            if name != "tall_bf16_route":
+                numbers[key]["launches"] = seen[key]
+        # The .fm.npy file route: a sample-major .npy of the CLI's blobs,
+        # converted once by to_feature_major, read back as it is.
+        npy = os.path.join(tmp, "points.npy")
+        fm = os.path.join(tmp, "points.fm.npy")
+        xs, _ = make_blobs(1, FM_N, TALL_SHAPE[2], TALL_SHAPE[1],
+                           device="cuda")
+        np.save(npy, xs.cpu().numpy())
+        del xs
+        to_feature_major(npy, fm)
+        os.remove(npy)
+        row, seen = run_cli(
+            [a for a in TALL_ARGS if not a.startswith(("--n_obs", "--n_dim"))]
+            + [f"--data_file={fm}"], tmp, "tall_fm_file_route")
+        n_iter = int(row["n_iter"])
+        require(n_iter == 20 and row["kernel"] == "tall"
+                and int(row["n_obs"]) == FM_N,
+                f"tall_fm_file_route: row {row}")
+        require_launches("tall_fm_file_route", seen, B10=2 * (n_iter + 1))
+        os.remove(fm)
 
     # The sorted route on bf16 rows: B2 on the widened rows with the
     # centroids rounded to bf16, B3 on the gathered f32 rows; the same
@@ -967,6 +1232,29 @@ def main() -> int:
           f"diff {cerr:.3g}, sse {float(a.sse):.8g} vs {float(b.sse):.8g}",
           flush=True)
 
+    # Feature-major fits: B10 and B11 on the card against the same fits
+    # on the CPU (their plain versions), from the same init.
+    xt, c = tall_blobs(gen, 1 << 16, TALL_SHAPE[1], TALL_SHAPE[2])
+    init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
+    for fit, kw, key in ((kmeans_fit, {}, "B10"),
+                         (fuzzy_cmeans_fit, {"m": 2.0}, "B11")):
+        reset_counts()
+        a = fit(xt, c.shape[0], init=init, max_iters=50, tol=1e-4,
+                layout="features", **kw)
+        require(WRAPPERS[key].launches == a.n_iter + 1,
+                f"tall fit: {key} did not carry it")
+        b = fit(xt.cpu(), c.shape[0], init=init.cpu(), max_iters=50,
+                tol=1e-4, layout="features", device="cpu", **kw)
+        require(a.n_iter == b.n_iter and a.converged == b.converged,
+                f"tall fit parity ({key}): n_iter {a.n_iter} vs {b.n_iter}")
+        cerr = (a.centroids.cpu() - b.centroids).abs().max().item()
+        require(cerr <= 1e-4, f"tall fit parity ({key}): centroids differ "
+                              f"by {cerr}")
+        print(f"[tall_fit] {key} N=65536 K={c.shape[0]} d={c.shape[1]}: "
+              f"n_iter {a.n_iter} == {b.n_iter} (CPU plain), converged "
+              f"{a.converged}, max centroid diff {cerr:.3g}", flush=True)
+    del xt, c, init
+
     src = "tdc_tpu_torch/csrc/"
     meta = {
         "B1": ("lloyd_stats_fused", src + "lloyd_kernels.cu",
@@ -983,6 +1271,10 @@ def main() -> int:
                "tdc_tpu/ops/pallas_kernels.py:764"),
         "B9": ("gmm_stats_fused", src + "gmm_kernels.cu",
                "tdc_tpu/ops/pallas_kernels.py:1408"),
+        "B10": ("lloyd_stats_tall", src + "tall_kernels.cu",
+                "tdc_tpu/ops/tall.py:172"),
+        "B11": ("fuzzy_stats_tall", src + "tall_kernels.cu",
+                "tdc_tpu/ops/tall.py:299"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():

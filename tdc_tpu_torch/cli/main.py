@@ -25,6 +25,12 @@ bf16: --dtype bfloat16 holds one 2-byte copy of the points on the device
 --kernel=pallas_bf16 runs B5 on f32 points (K-Means only, unweighted). A
 bfloat16 --data_file (ml_dtypes arrays saved with np.save/np.savez) stays
 bfloat16 under either --dtype, as the JAX CLI passes it through uncast.
+Feature-major: --layout=features stores the points (d, N) and runs B10
+(K-Means) or B11 (Fuzzy C-Means) for every stats call, on synthetic data
+or a --data_file (a `*.fm.npy` is read as it is, any other file is
+transposed); the CSV row's `kernel` is then 'tall'. --layout=auto (the
+default) runs the samples layout: the JAX CLI's auto picks features only
+on a TPU.
 """
 
 from __future__ import annotations
@@ -114,6 +120,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help=".npy of (N,) nonnegative per-point sample weights "
                         "(sklearn sample_weight parity; in-memory, "
                         "single-device)")
+    p.add_argument("--layout", type=str, default="auto",
+                   choices=("auto", "samples", "features"),
+                   help="device storage of the points: 'features' stores "
+                        "them (d, N) and runs the tall kernels (B10, B11; "
+                        "kmeans/fuzzy, in-memory, unweighted, default "
+                        "kernel); a '*.fm.npy' --data_file is read as it "
+                        "is. 'auto' = samples (the JAX CLI's auto picks "
+                        "features only on a TPU)")
     return p
 
 
@@ -161,6 +175,9 @@ def validate_args(parser, args) -> None:
             args.spherical or args.empty_policy != "keep"):
         parser.error("--spherical and --empty_policy=relocate are "
                      "distributedKMeans only")
+    if args.empty_policy == "relocate" and args.layout == "features":
+        parser.error("--empty_policy=relocate needs the sample-major "
+                     "layout (--layout=samples)")
     if args.init == "kmeans_parallel":
         parser.error("--init=kmeans_parallel is not ported yet (ROADMAP.md "
                      "Queue A, A8a)")
@@ -190,6 +207,16 @@ def validate_args(parser, args) -> None:
         parser.error("--init=kmeans is a gaussianMixture seeding mode")
     elif args.covariance_type != "diag":
         parser.error("--covariance_type applies to gaussianMixture only")
+    if args.layout == "features":
+        # The JAX CLI's checks for the flags the port has.
+        if args.method_name not in ("distributedKMeans",
+                                    "distributedFuzzyCMeans"):
+            parser.error("--layout=features supports kmeans/fuzzy only")
+        if args.weight_file:
+            parser.error("--layout=features does not support --weight_file")
+        if args.kernel is not None:
+            parser.error("--layout=features selects the tall kernel; "
+                         "--kernel cannot be combined with it")
     if args.weight_file:
         _validate_weight_file(parser, args)
 
@@ -200,17 +227,25 @@ def run_experiment(args) -> dict:
     import numpy as np
     import torch
 
-    from tdc_tpu_torch.data import load_points, make_blobs
+    from tdc_tpu_torch.data import (
+        load_points,
+        load_points_feature_major,
+        make_blobs,
+    )
     from tdc_tpu_torch.models import fuzzy_cmeans_fit, gmm_fit, kmeans_fit
     from tdc_tpu_torch.utils.device import resolve_device
     from tdc_tpu_torch.utils.timing import PhaseTimers
 
     timers = PhaseTimers()
     bf16 = args.dtype == "bfloat16"
+    # 'auto' resolves to samples, as the JAX CLI's does off a TPU.
+    layout = "features" if args.layout == "features" else "samples"
+    features = layout == "features"
     with timers.phase("setup") as out:
         dev = resolve_device(args.device)
         if args.data_file:
-            x, _ = load_points(args.data_file)
+            x, _ = (load_points_feature_major if features
+                    else load_points)(args.data_file)
             if not isinstance(x, torch.Tensor):
                 x = torch.from_numpy(np.array(x))
             # A bf16 file stays bf16 under --dtype float32 too: the JAX CLI
@@ -222,8 +257,9 @@ def run_experiment(args) -> dict:
             x, _ = make_blobs(args.seed + 1, args.n_obs, args.n_dim,
                               max(args.K, 2), class_sep=args.class_sep,
                               device=dev,
-                              dtype=torch.bfloat16 if bf16 else torch.float32)
-        n_obs, n_dim = x.shape
+                              dtype=torch.bfloat16 if bf16 else torch.float32,
+                              layout=layout)
+        n_obs, n_dim = x.shape[::-1] if features else x.shape
         out["block_on"] = x
         weights = None
         if args.weight_file:
@@ -249,14 +285,14 @@ def run_experiment(args) -> dict:
                 x, args.K, m=args.fuzzifier, init=args.init, generator=gen,
                 max_iters=args.n_max_iters, tol=args.tol,
                 kernel=args.kernel or "xla", sample_weight=weights,
-                device=dev,
+                layout=layout, device=dev,
             )
         return kmeans_fit(
             x, args.K, init=args.init, generator=gen,
             max_iters=args.n_max_iters, tol=args.tol,
             spherical=args.spherical, kernel=args.kernel or "xla",
             sample_weight=weights, empty_policy=args.empty_policy,
-            device=dev,
+            layout=layout, device=dev,
         )
 
     # Initialization = the first fit, including the kernels' first-use
@@ -293,7 +329,7 @@ def run_experiment(args) -> dict:
         "converged": bool(result.converged),
         "num_batches": 1,
         "tol": args.tol,
-        "kernel": args.kernel or "",
+        "kernel": "tall" if features else (args.kernel or ""),
         "status": "ok",
     }
 

@@ -1,0 +1,814 @@
+// B10 `lloyd_stats_tall` and B11 `fuzzy_stats_tall` for Hopper (sm_90a):
+// the Lloyd and fuzzy sufficient statistics over feature-major points,
+// xt (d, N), f32 or bf16.
+//
+// B10 replaces `lloyd_stats_tall` (tdc_tpu/ops/tall.py:132, `pallas_call`
+// at :172; body `_tall_lloyd_kernel` :75). Per column j and centroid k:
+//   x2 = Σ_f x_fj²,  cross = Σ_f c_kf·x_fj (f32, f in increasing order),
+//   d² = max((x2 − 2·cross) + c2_k, 0)
+// the champion is the smallest index among equal minima (champion.cuh's
+// `better()`), and the outputs are Σx (K, d), counts (K,) and the SSE Σ of
+// the clamped minima, all f32. For bf16 columns the wrapper passes the
+// centroids rounded to bf16 (and c2 of the rounded values), so every
+// product c·x is exact in f32, as the reference's bf16 contraction is.
+//
+// B11 replaces `fuzzy_stats_tall` (tall.py:266, `pallas_call` at :299;
+// body `_tall_fuzzy_kernel` :215): from the same d²,
+//   inv = (d² + eps)^(−1/(m−1)),  u = inv / Σ_k inv,  μ = u^m
+// and the outputs are Σμx (K, d), Σμ (K,) and Σμ·d² (), all f32. At m = 2
+// the powers take the exact forms 1/v and u·u (what XLA compiles `** -1.0`
+// and `** 2.0` to), as B6 does; any other m takes powf. The build uses no
+// fast-math. The reference runs its accumulate at DEFAULT precision on a
+// TPU; here it is f32, the result of its interpret mode.
+//
+// Bound on this card: bytes. At the reference sweep's shape (N = 10^8,
+// d = 5, K = 15) one call reads 2.0 GB of f32 columns (0.597 ms at
+// 3.35 TB/s), against 2·N·K·d = 1.5e10 flops for B10 (0.224 ms at 67
+// TFLOP/s) and 4·N·K·d for B11 (0.448 ms). These are the port's first
+// bandwidth-bound kernels.
+//
+// Design. One thread per point column, so a warp's loads of
+// xt[f, j0:j0+32] coalesce; a CTA of 256 threads walks column tiles of 256
+// in a grid-stride loop. The centroids and c2 sit in shared memory, read
+// by every thread at the same address (a broadcast). Masked columns
+// replace the reference's padded columns and their correction
+// (tall.py:197-207, :326-334): a column past N adds nothing. Two forms:
+//
+// - private (d ≤ 8 and K·(d+1) ≤ 96, the reference sweep's shapes): the
+//   kernels are bound by the instructions they issue per column, so the
+//   path spends as few as it can. The column's d features sit in
+//   registers and the next tile's are loaded while the current one
+//   computes. The centroids are staged feature-major, so one 16-byte
+//   shared load serves 4 of them, and taken in register groups of 16; the
+//   feature loop is unrolled to 8 under a uniform guard f < d, so only d
+//   FMAs run per centroid. B10 takes the first centroid as its champion
+//   and a later one only on strict <, which is the smallest-index rule.
+//   B11 keeps a column's d² and inv in registers from its first pass (s)
+//   to its second (μ) where K ≤ 16, and recomputes them otherwise. Every
+//   thread keeps its own (K, d+1) accumulator in shared memory, laid out
+//   [entry][thread] so a warp's updates fall in 32 distinct banks whatever
+//   the labels, and adds its columns into it in column order: B10 adds its
+//   column to its champion's row (d + 1 updates a column), B11 adds μx and
+//   μ to every row. At the end the CTA sums the 256 accumulators in thread
+//   order (f64) and writes one (K, d) partial. Warp shuffles per (k, f)
+//   would cost more than the read of the column.
+// - tile (every other shape): the column's features sit in registers 8 at
+//   a time (wider d reloads its chunks from L1); the centroids are staged
+//   once per CTA or, where K·d does not fit 32 KB, per K stage and column
+//   tile. Every CTA owns a (K, d) f32 slice of a (G, K, d) workspace in
+//   device memory. B10 takes B1's accumulate: per column tile the
+//   champions (champion.cuh's `better()`) go to shared memory and one
+//   thread per feature adds the tile's columns, in column order, into its
+//   champion's row; counts are integer atomics. B11 stages μ for 32
+//   centroids and x for 32 features of the tile in shared memory, and each
+//   thread sums 4 (centroid, feature) entries over the tile's columns in
+//   order, then adds them into the slice.
+//
+// Every sum has a fixed order: within a thread (columns in order), within
+// a CTA (threads or columns in order) and across CTAs (the G partials
+// summed in slice order by lloyd_reduce.cuh for B10 and `tall_fuzzy_reduce`
+// for B11). No float atomics: two runs are bitwise equal.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "champion.cuh"
+#include "lloyd_reduce.cuh"
+
+namespace {
+
+using tdc::better;
+using tdc::kArgSentinel;
+
+constexpr int kCols = 256;       // threads per CTA = columns per tile
+constexpr int kDR = 8;           // features per register chunk
+constexpr int kKG = 16;          // private: centroids per register group
+constexpr int kPrivMax = 96;     // private while d ≤ kDR, K·(d+1) ≤ this
+constexpr int kStageFloats = 8192;  // tile: centroid stage of ≤ 32 KB
+constexpr int kKT = 32;          // B11 tile: centroids per μ tile
+constexpr int kDS = 32;          // B11 tile: features per x slice
+constexpr int kPad = kCols + 1;  // row stride of the B11 tiles (banks)
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+bool private_mode(int k, int d) {
+  return d <= kDR && (long long)k * (d + 1) <= kPrivMax;
+}
+
+// d² from x2, cross and c2, as the reference computes it; NaN stays NaN.
+__device__ __forceinline__ float tall_d2(float x2, float cross, float c2) {
+  const float v = (x2 - 2.f * cross) + c2;
+  return v < 0.f ? 0.f : v;
+}
+
+template <bool kM2>
+__device__ __forceinline__ float inv_power(float v, float p) {
+  return kM2 ? 1.f / v : powf(v, p);
+}
+template <bool kM2>
+__device__ __forceinline__ float mu_power(float u, float m) {
+  return kM2 ? u * u : powf(u, m);
+}
+
+// ---------------------------------------------------------------------------
+// The private form (d ≤ kDR, K·(d+1) ≤ kPrivMax).
+
+// The d features of column `col` (0 past d or past N).
+template <typename T>
+__device__ __forceinline__ void load_column(const T* __restrict__ xt,
+                                            long long n, int d,
+                                            long long col,
+                                            float (&xr)[kDR]) {
+  const T* p = xt + col;
+#pragma unroll
+  for (int f = 0; f < kDR; ++f) {
+    xr[f] = (f < d && col < n) ? widen(p[f * n]) : 0.f;
+  }
+}
+
+// Shared memory of the private form: the centroids feature-major
+// cs[kDR][kp] (kp = K rounded up to kKG, zero padded), c2s[kp], the
+// accumulators acc[rows][kCols] f32, cnt[K][kCols] int (B10) and
+// red[kCols] f64.
+__host__ __device__ __forceinline__ int padded_k(int k) {
+  return (k + kKG - 1) / kKG * kKG;
+}
+
+size_t private_smem(int k, int d, bool lloyd) {
+  const int kp = padded_k(k);
+  const size_t rows = lloyd ? (size_t)k * d : (size_t)k * (d + 1);
+  return (size_t)(kDR + 1) * kp * 4 + rows * kCols * 4 +
+         (lloyd ? (size_t)k * kCols * 4 : 0) + (size_t)kCols * 8;
+}
+
+__device__ __forceinline__ void stage_private(const float* __restrict__ c,
+                                              const float* __restrict__ c2,
+                                              int k, int d, int kp,
+                                              float* cs, float* c2s) {
+  for (int i = threadIdx.x; i < kDR * kp; i += kCols) {
+    const int f = i / kp, j = i % kp;
+    cs[i] = (f < d && j < k) ? c[(long long)j * d + f] : 0.f;
+  }
+  for (int i = threadIdx.x; i < kp; i += kCols) c2s[i] = i < k ? c2[i] : 0.f;
+}
+
+// d² of the column to centroids kg .. kg + kKG - 1 (garbage past K).
+__device__ __forceinline__ void group_d2(const float* cs, const float* c2s,
+                                         int kp, int d, int kg,
+                                         const float (&x0)[kDR], float x2,
+                                         float (&dd)[kKG]) {
+#pragma unroll
+  for (int q = 0; q < kKG; ++q) dd[q] = 0.f;
+#pragma unroll
+  for (int f = 0; f < kDR; ++f) {
+    if (f < d) {
+      const float4* row = reinterpret_cast<const float4*>(cs + f * kp + kg);
+#pragma unroll
+      for (int q = 0; q < kKG / 4; ++q) {
+        const float4 cc = row[q];
+        dd[4 * q] = fmaf(cc.x, x0[f], dd[4 * q]);
+        dd[4 * q + 1] = fmaf(cc.y, x0[f], dd[4 * q + 1]);
+        dd[4 * q + 2] = fmaf(cc.z, x0[f], dd[4 * q + 2]);
+        dd[4 * q + 3] = fmaf(cc.w, x0[f], dd[4 * q + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kKG; ++q) dd[q] = tall_d2(x2, dd[q], c2s[kg + q]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCols, 2)
+    tall_lloyd_private(const T* __restrict__ xt, const float* __restrict__ c,
+                       const float* __restrict__ c2, long long n, int k,
+                       int d, float* __restrict__ ws, int* __restrict__ cnt,
+                       double* __restrict__ sse_part,
+                       int* __restrict__ labels) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kp = padded_k(k);
+  const int kd = k * d;
+  float* cs = reinterpret_cast<float*>(smem);
+  float* c2s = cs + kDR * kp;
+  float* acc = c2s + kp;
+  int* pcnt = reinterpret_cast<int*>(acc + kd * kCols);
+  double* red = reinterpret_cast<double*>(pcnt + k * kCols);
+  const int t = threadIdx.x;
+  stage_private(c, c2, k, d, kp, cs, c2s);
+  for (int i = t; i < kd * kCols; i += kCols) acc[i] = 0.f;
+  for (int i = t; i < k * kCols; i += kCols) pcnt[i] = 0;
+  __syncthreads();
+
+  double sse = 0.0;
+  const long long ntiles = (n + kCols - 1) / kCols;
+  const long long stride = (long long)gridDim.x * kCols;
+  float xn[kDR];
+  load_column(xt, n, d, (long long)blockIdx.x * kCols + t, xn);
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long col = tile * kCols + t;
+    float x0[kDR];
+#pragma unroll
+    for (int f = 0; f < kDR; ++f) x0[f] = xn[f];
+    load_column(xt, n, d, col + stride, xn);  // in flight meanwhile
+    float x2 = 0.f;
+#pragma unroll
+    for (int f = 0; f < kDR; ++f) x2 = fmaf(x0[f], x0[f], x2);
+    float best = 0.f;
+    int barg = 0;
+    for (int kg = 0; kg < k; kg += kKG) {
+      float dd[kKG];
+      group_d2(cs, c2s, kp, d, kg, x0, x2, dd);
+#pragma unroll
+      for (int q = 0; q < kKG; ++q) {
+        const int j = kg + q;
+        // The first centroid unconditionally, later ones on strict <: the
+        // smallest index among equal minima.
+        if (j < k && (j == 0 || dd[q] < best)) {
+          best = dd[q];
+          barg = j;
+        }
+      }
+    }
+    if (col < n) {
+      float* row = acc + barg * d * kCols + t;
+#pragma unroll
+      for (int f = 0; f < kDR; ++f) {
+        if (f < d) row[f * kCols] += x0[f];
+      }
+      pcnt[barg * kCols + t] += 1;
+      sse += (double)best;
+      if (labels != nullptr) labels[col] = barg;
+    }
+  }
+
+  red[t] = sse;
+  __syncthreads();
+  float* my_ws = ws + (long long)blockIdx.x * kd;
+  int* my_cnt = cnt + (long long)blockIdx.x * k;
+  for (int e = t; e < kd; e += kCols) {
+    double s = 0.0;
+    for (int u = 0; u < kCols; ++u) s += (double)acc[e * kCols + u];
+    my_ws[e] = (float)s;
+  }
+  for (int j = t; j < k; j += kCols) {
+    int s = 0;
+    for (int u = 0; u < kCols; ++u) s += pcnt[j * kCols + u];
+    my_cnt[j] = s;
+  }
+  if (t == 0) {
+    double s = 0.0;
+    for (int u = 0; u < kCols; ++u) s += red[u];
+    sse_part[blockIdx.x] = s;
+  }
+}
+
+template <typename T, bool kM2>
+__global__ void __launch_bounds__(kCols, 2)
+    tall_fuzzy_private(const T* __restrict__ xt, const float* __restrict__ c,
+                       const float* __restrict__ c2, long long n, int k,
+                       int d, float p, float mexp, float eps,
+                       float* __restrict__ ws, double* __restrict__ wpart,
+                       double* __restrict__ opart) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kp = padded_k(k);
+  const int d1 = d + 1;
+  float* cs = reinterpret_cast<float*>(smem);
+  float* c2s = cs + kDR * kp;
+  float* acc = c2s + kp;
+  double* red = reinterpret_cast<double*>(acc + k * d1 * kCols);
+  const int t = threadIdx.x;
+  stage_private(c, c2, k, d, kp, cs, c2s);
+  for (int i = t; i < k * d1 * kCols; i += kCols) acc[i] = 0.f;
+  __syncthreads();
+
+  double obj = 0.0;  // this thread's columns' Σμ·d²
+  const long long ntiles = (n + kCols - 1) / kCols;
+  const long long stride = (long long)gridDim.x * kCols;
+  float xn[kDR];
+  load_column(xt, n, d, (long long)blockIdx.x * kCols + t, xn);
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long col = tile * kCols + t;
+    float x0[kDR];
+#pragma unroll
+    for (int f = 0; f < kDR; ++f) x0[f] = xn[f];
+    load_column(xt, n, d, col + stride, xn);
+    float x2 = 0.f;
+#pragma unroll
+    for (int f = 0; f < kDR; ++f) x2 = fmaf(x0[f], x0[f], x2);
+    // Pass 1: s = Σ_k inv. dd and iv keep the last group's d² and inv,
+    // the only group where K ≤ kKG.
+    float dd[kKG], iv[kKG];
+    float s = 0.f;
+    for (int kg = 0; kg < k; kg += kKG) {
+      group_d2(cs, c2s, kp, d, kg, x0, x2, dd);
+#pragma unroll
+      for (int q = 0; q < kKG; ++q) {
+        if (kg + q < k) {
+          iv[q] = inv_power<kM2>(dd[q] + eps, p);
+          s += iv[q];
+        }
+      }
+    }
+    if (col >= n) continue;
+    // Pass 2: μ = (inv / s)^m into every row of the accumulator.
+    float ob = 0.f;
+    for (int kg = 0; kg < k; kg += kKG) {
+      if (k > kKG) {
+        group_d2(cs, c2s, kp, d, kg, x0, x2, dd);
+#pragma unroll
+        for (int q = 0; q < kKG; ++q) iv[q] = inv_power<kM2>(dd[q] + eps, p);
+      }
+#pragma unroll
+      for (int q = 0; q < kKG; ++q) {
+        const int j = kg + q;
+        if (j < k) {
+          const float mu = mu_power<kM2>(iv[q] / s, mexp);
+          ob = fmaf(mu, dd[q], ob);
+          float* row = acc + j * d1 * kCols + t;
+#pragma unroll
+          for (int f = 0; f < kDR; ++f) {
+            if (f < d) row[f * kCols] = fmaf(mu, x0[f], row[f * kCols]);
+          }
+          row[d * kCols] += mu;
+        }
+      }
+    }
+    obj += (double)ob;
+  }
+
+  red[t] = obj;
+  __syncthreads();
+  float* my_ws = ws + (long long)blockIdx.x * k * d;
+  double* my_w = wpart + (long long)blockIdx.x * k;
+  for (int e = t; e < k * d1; e += kCols) {
+    double sum = 0.0;
+    for (int u = 0; u < kCols; ++u) sum += (double)acc[e * kCols + u];
+    const int j = e / d1, f = e % d1;
+    if (f < d) {
+      my_ws[j * d + f] = (float)sum;
+    } else {
+      my_w[j] = sum;
+    }
+  }
+  if (t == 0) {
+    double sum = 0.0;
+    for (int u = 0; u < kCols; ++u) sum += red[u];
+    opart[blockIdx.x] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tile form (every other shape).
+
+// The launch geometry, the same on the host and in every thread.
+struct Geo {
+  long long n;  // columns (points)
+  int k, d;     // centroids, features
+  int dp;       // d rounded up to kDR
+  int nch;      // register chunks per column, dp / kDR
+  int kc;       // centroids per stage (a multiple of 4)
+  int nstage;   // stages over K
+};
+
+Geo make_geo(long long n, int k, int d) {
+  Geo g;
+  g.n = n;
+  g.k = k;
+  g.d = d;
+  g.dp = (d + kDR - 1) / kDR * kDR;
+  g.nch = g.dp / kDR;
+  const int k4 = (k + 3) / 4 * 4;
+  int fit = kStageFloats / g.dp / 4 * 4;
+  if (fit < 4) fit = 4;
+  g.kc = k4 < fit ? k4 : fit;
+  g.nstage = (k + g.kc - 1) / g.kc;
+  return g;
+}
+
+// Bytes of the centroid stage: cs (kc, dp) and c2s (kc).
+size_t stage_bytes(const Geo& g) {
+  return (size_t)g.kc * g.dp * 4 + (size_t)g.kc * 4;
+}
+
+// Stage s: centroids [s·kc, s·kc + kn) into cs (rows padded to a multiple
+// of 4, features to dp, with zeros) and their c2 into c2s. The caller
+// synchronises before and after.
+__device__ void stage_centroids(const float* __restrict__ c,
+                                const float* __restrict__ c2, const Geo& g,
+                                int s, float* cs, float* c2s) {
+  const int k0 = s * g.kc;
+  const int kn = min(g.kc, g.k - k0);
+  const int rows = (kn + 3) / 4 * 4;
+  for (int i = threadIdx.x; i < rows * g.dp; i += kCols) {
+    const int r = i / g.dp, f = i % g.dp;
+    cs[i] = (r < kn && f < g.d) ? c[(long long)(k0 + r) * g.d + f] : 0.f;
+  }
+  for (int i = threadIdx.x; i < rows; i += kCols) {
+    c2s[i] = i < kn ? c2[k0 + i] : 0.f;
+  }
+}
+
+// Features ch·kDR .. ch·kDR + 7 of column `col`; 0 past d or past N (an
+// L1 hit after the column's first load).
+template <typename T>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ xt,
+                                           const Geo& g, long long col,
+                                           int ch, float (&xr)[kDR]) {
+  const bool live = col < g.n;
+#pragma unroll
+  for (int f = 0; f < kDR; ++f) {
+    const int ff = ch * kDR + f;
+    xr[f] = (live && ff < g.d) ? widen(xt[(long long)ff * g.n + col]) : 0.f;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float column_sq_norm(const T* __restrict__ xt,
+                                                const Geo& g, long long col) {
+  float x2 = 0.f;
+  for (int ch = 0; ch < g.nch; ++ch) {
+    float xr[kDR];
+    load_chunk(xt, g, col, ch, xr);
+#pragma unroll
+    for (int f = 0; f < kDR; ++f) x2 = fmaf(xr[f], xr[f], x2);
+  }
+  return x2;
+}
+
+// cross for the 4 staged centroids at rows r .. r+3: Σ_f cs·x, f in
+// increasing order (the zero padding adds exactly nothing).
+template <typename T>
+__device__ __forceinline__ void dots4(const T* __restrict__ xt, const Geo& g,
+                                      long long col, const float* cs, int r,
+                                      float (&acc)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] = 0.f;
+  for (int ch = 0; ch < g.nch; ++ch) {
+    float xr[kDR];
+    load_chunk(xt, g, col, ch, xr);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* row = cs + (r + q) * g.dp + ch * kDR;
+      const float4 a = *reinterpret_cast<const float4*>(row);
+      const float4 b = *reinterpret_cast<const float4*>(row + 4);
+      const float cv[kDR] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int f = 0; f < kDR; ++f) acc[q] = fmaf(cv[f], xr[f], acc[q]);
+    }
+  }
+}
+
+// B10's tile form. Shared memory after the centroid stage: lab (kCols)
+// int, val (kCols) f32.
+template <typename T>
+__global__ void __launch_bounds__(kCols, 2)
+    tall_lloyd_tile(const T* __restrict__ xt, const float* __restrict__ c,
+                    const float* __restrict__ c2, Geo g,
+                    float* __restrict__ ws, int* __restrict__ cnt,
+                    double* __restrict__ sse_part,
+                    int* __restrict__ labels) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* cs = reinterpret_cast<float*>(smem);
+  float* c2s = cs + g.kc * g.dp;
+  int* s_lab = reinterpret_cast<int*>(c2s + g.kc);
+  float* s_val = reinterpret_cast<float*>(s_lab + kCols);
+  const int t = threadIdx.x;
+  const long long kd = (long long)g.k * g.d;
+  float* my_ws = ws + blockIdx.x * kd;
+  int* my_cnt = cnt + (long long)blockIdx.x * g.k;
+  for (long long i = t; i < kd; i += kCols) my_ws[i] = 0.f;
+  for (int i = t; i < g.k; i += kCols) my_cnt[i] = 0;
+  if (g.nstage == 1) stage_centroids(c, c2, g, 0, cs, c2s);
+  __syncthreads();
+
+  double sse = 0.0;  // thread 0's
+  const long long ntiles = (g.n + kCols - 1) / kCols;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long col = tile * kCols + t;
+    const float x2 = column_sq_norm(xt, g, col);
+    float best = CUDART_INF_F;
+    int barg = kArgSentinel;
+    for (int s = 0; s < g.nstage; ++s) {
+      if (g.nstage > 1) {
+        __syncthreads();
+        stage_centroids(c, c2, g, s, cs, c2s);
+        __syncthreads();
+      }
+      const int k0 = s * g.kc;
+      const int kn = min(g.kc, g.k - k0);
+      for (int r = 0; r < kn; r += 4) {
+        float cross[4];
+        dots4(xt, g, col, cs, r, cross);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (r + q < kn) {
+            const float v = tall_d2(x2, cross[q], c2s[r + q]);
+            if (better(v, k0 + r + q, best, barg)) {
+              best = v;
+              barg = k0 + r + q;
+            }
+          }
+        }
+      }
+    }
+    const bool live = col < g.n && barg < g.k;
+    if (labels != nullptr && col < g.n) labels[col] = barg;
+    s_lab[t] = live ? barg : kArgSentinel;
+    s_val[t] = best;
+    if (live) atomicAdd(&my_cnt[barg], 1);  // integers: exact, any order
+    __syncthreads();
+    const long long c0 = tile * kCols;
+    const int rows = (int)min((long long)kCols, g.n - c0);
+    for (int f = t; f < g.d; f += kCols) {
+      const T* xrow = xt + (long long)f * g.n + c0;
+      for (int r = 0; r < rows; ++r) {
+        const int lab = s_lab[r];
+        if (lab < g.k) my_ws[(long long)lab * g.d + f] += widen(xrow[r]);
+      }
+    }
+    if (t == 0) {
+      for (int r = 0; r < rows; ++r) {
+        if (s_lab[r] < g.k) sse += (double)s_val[r];
+      }
+    }
+    __syncthreads();
+  }
+  if (t == 0) sse_part[blockIdx.x] = sse;
+}
+
+// B11's tile form. Shared memory after the centroid stage: mu (kKT, kPad)
+// f32, xs (kDS, kPad) f32, red (kCols) f64.
+size_t fuzzy_tile_smem(const Geo& g) {
+  size_t b = stage_bytes(g) + (size_t)(kKT + kDS) * kPad * 4;
+  return (b + 15) / 16 * 16 + (size_t)kCols * 8;
+}
+
+// s = Σ_k (d²_k + eps)^p over every centroid, for one column. Re-stages
+// the centroids where there is more than one stage (every thread calls it
+// in step, so the barriers are uniform); leaves the last stage in place.
+template <typename T, bool kM2>
+__device__ __forceinline__ float column_normalizer(
+    const T* __restrict__ xt, const float* __restrict__ c,
+    const float* __restrict__ c2, const Geo& g, long long col, float x2,
+    float p, float eps, float* cs, float* c2s) {
+  float s = 0.f;
+  for (int st = 0; st < g.nstage; ++st) {
+    if (g.nstage > 1) {
+      __syncthreads();
+      stage_centroids(c, c2, g, st, cs, c2s);
+      __syncthreads();
+    }
+    const int kn = min(g.kc, g.k - st * g.kc);
+    for (int r = 0; r < kn; r += 4) {
+      float cross[4];
+      dots4(xt, g, col, cs, r, cross);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (r + q < kn) {
+          s += inv_power<kM2>(tall_d2(x2, cross[q], c2s[r + q]) + eps, p);
+        }
+      }
+    }
+  }
+  return s;
+}
+
+template <typename T, bool kM2>
+__global__ void __launch_bounds__(kCols, 2)
+    tall_fuzzy_tile(const T* __restrict__ xt, const float* __restrict__ c,
+                    const float* __restrict__ c2, Geo g, float p, float mexp,
+                    float eps, float* __restrict__ ws,
+                    double* __restrict__ wpart,
+                    double* __restrict__ opart) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* cs = reinterpret_cast<float*>(smem);
+  float* c2s = cs + g.kc * g.dp;
+  float* mu_s = c2s + g.kc;
+  float* xs = mu_s + kKT * kPad;
+  double* red = reinterpret_cast<double*>(
+      (reinterpret_cast<size_t>(xs + kDS * kPad) + 15) / 16 * 16);
+  const int t = threadIdx.x;
+  const long long kd = (long long)g.k * g.d;
+  float* my_ws = ws + blockIdx.x * kd;
+  double* my_w = wpart + (long long)blockIdx.x * g.k;
+  for (long long i = t; i < kd; i += kCols) my_ws[i] = 0.f;
+  for (int i = t; i < g.k; i += kCols) my_w[i] = 0.0;
+  if (g.nstage == 1) stage_centroids(c, c2, g, 0, cs, c2s);
+  __syncthreads();
+
+  double obj = 0.0;  // this thread's columns' Σμ·d²
+  const long long ntiles = (g.n + kCols - 1) / kCols;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long col = tile * kCols + t;
+    const bool live = col < g.n;
+    const float x2 = column_sq_norm(xt, g, col);
+    const float s = column_normalizer<T, kM2>(xt, c, c2, g, col, x2, p, eps,
+                                              cs, c2s);
+    float ob = 0.f;
+    for (int st = 0; st < g.nstage; ++st) {
+      if (g.nstage > 1) {
+        __syncthreads();
+        stage_centroids(c, c2, g, st, cs, c2s);
+        __syncthreads();
+      }
+      const int k0 = st * g.kc;
+      const int kn = min(g.kc, g.k - k0);
+      for (int kt = 0; kt < kn; kt += kKT) {
+        // μ of this column for the kKT centroids at kt (0 past K, N).
+        for (int r = 0; r < kKT; r += 4) {
+          float cross[4] = {0.f, 0.f, 0.f, 0.f};
+          if (kt + r < kn) dots4(xt, g, col, cs, kt + r, cross);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float mu = 0.f;
+            if (live && kt + r + q < kn) {
+              const float d2 = tall_d2(x2, cross[q], c2s[kt + r + q]);
+              mu = mu_power<kM2>(inv_power<kM2>(d2 + eps, p) / s, mexp);
+              ob = fmaf(mu, d2, ob);
+            }
+            mu_s[(r + q) * kPad + t] = mu;
+          }
+        }
+        __syncthreads();
+        if (t < kKT && kt + t < kn) {
+          float w = 0.f;
+          for (int r = 0; r < kCols; ++r) w += mu_s[t * kPad + r];
+          my_w[k0 + kt + t] += (double)w;
+        }
+        // Entries of thread t: centroid kt + t/8, features f0 + 4·(t%8)
+        // .. +3, summed over the tile's columns in order.
+        const int kk = t / 8, f4 = (t % 8) * 4;
+        for (int f0 = 0; f0 < g.d; f0 += kDS) {
+          for (int f = 0; f < kDS; ++f) {
+            const int ff = f0 + f;
+            xs[f * kPad + t] =
+                (live && ff < g.d) ? widen(xt[(long long)ff * g.n + col])
+                                   : 0.f;
+          }
+          __syncthreads();
+          float a[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int r = 0; r < kCols; ++r) {
+            const float mu = mu_s[kk * kPad + r];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              a[q] = fmaf(mu, xs[(f4 + q) * kPad + r], a[q]);
+            }
+          }
+          if (kt + kk < kn) {
+            const long long j = k0 + kt + kk;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int ff = f0 + f4 + q;
+              if (ff < g.d) my_ws[j * g.d + ff] += a[q];
+            }
+          }
+          __syncthreads();
+        }
+      }
+    }
+    if (live) obj += (double)ob;
+  }
+
+  red[t] = obj;
+  __syncthreads();
+  if (t == 0) {
+    double sum = 0.0;
+    for (int u = 0; u < kCols; ++u) sum += red[u];
+    opart[blockIdx.x] = sum;
+  }
+}
+
+// Sums the G partials in slice order: Σμx (K, d), Σμ (K,) and the
+// objective, clamped at 0 as the reference clamps it.
+__global__ void tall_fuzzy_reduce(const float* __restrict__ ws,
+                                  const double* __restrict__ wpart,
+                                  const double* __restrict__ opart, int grid,
+                                  int k, int d, float* __restrict__ wsums,
+                                  float* __restrict__ weights,
+                                  float* __restrict__ objective) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long kd = (long long)k * d;
+  if (e < kd) {
+    double s = 0.0;
+    for (int g = 0; g < grid; ++g) s += (double)ws[g * kd + e];
+    wsums[e] = (float)s;
+  }
+  if (e < k) {
+    double s = 0.0;
+    for (int g = 0; g < grid; ++g) s += wpart[(long long)g * k + e];
+    weights[e] = (float)s;
+  }
+  if (e == 0) {
+    double s = 0.0;
+    for (int g = 0; g < grid; ++g) s += opart[g];
+    objective[0] = fmaxf((float)s, 0.f);
+  }
+}
+
+// Raises the kernel's dynamic shared memory limit, then launches it.
+template <typename Kernel, typename... Args>
+int launch(Kernel* kern, int grid, size_t smem, cudaStream_t st,
+           Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kCols, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int lloyd_stats(const T* xt, const float* c, const float* c2, long long n,
+                int k, int d, int grid, float* ws, int* cnt,
+                double* sse_part, int* labels, cudaStream_t st) {
+  if (private_mode(k, d)) {
+    return launch(tall_lloyd_private<T>, grid, private_smem(k, d, true), st,
+                  xt, c, c2, n, k, d, ws, cnt, sse_part, labels);
+  }
+  const Geo g = make_geo(n, k, d);
+  return launch(tall_lloyd_tile<T>, grid, stage_bytes(g) + kCols * 8, st,
+                xt, c, c2, g, ws, cnt, sse_part, labels);
+}
+
+template <typename T, bool kM2>
+int fuzzy_stats(const T* xt, const float* c, const float* c2, long long n,
+                int k, int d, float p, float mexp, float eps, int grid,
+                float* ws, double* wpart, double* opart, cudaStream_t st) {
+  if (private_mode(k, d)) {
+    return launch(tall_fuzzy_private<T, kM2>, grid,
+                  private_smem(k, d, false), st, xt, c, c2, n, k, d, p, mexp,
+                  eps, ws, wpart, opart);
+  }
+  const Geo g = make_geo(n, k, d);
+  return launch(tall_fuzzy_tile<T, kM2>, grid, fuzzy_tile_smem(g), st, xt, c,
+                c2, g, p, mexp, eps, ws, wpart, opart);
+}
+
+}  // namespace
+
+// B10. xt (d, N) f32 (bf16 = 0) or bf16 (bf16 = 1); c (K, d) f32, already
+// rounded to bf16 for bf16 columns, c2 (K,) of those values. ws (grid, K,
+// d) f32, cnt (grid, K) int and sse_part (grid,) f64 are workspace;
+// labels (N,) int32 may be null.
+extern "C" int tdc_tall_lloyd_stats(const void* xt, int bf16, const float* c,
+                                    const float* c2, long long n, int k,
+                                    int d, int grid, float* ws, int* cnt,
+                                    double* sse_part, float* sums,
+                                    float* counts, float* sse, int* labels,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err =
+      bf16 ? lloyd_stats(static_cast<const __nv_bfloat16*>(xt), c, c2, n, k,
+                         d, grid, ws, cnt, sse_part, labels, st)
+           : lloyd_stats(static_cast<const float*>(xt), c, c2, n, k, d, grid,
+                         ws, cnt, sse_part, labels, st);
+  if (err != 0) return err;
+  return tdc::launch_lloyd_reduce(ws, cnt, sse_part, grid, k, d, sums, counts,
+                                  sse, st);
+}
+
+// B11. As B10, with p = −1/(m−1), mexp = m and eps; ws (grid, K, d) f32,
+// wpart (grid, K) f64 and opart (grid,) f64 are workspace.
+extern "C" int tdc_tall_fuzzy_stats(const void* xt, int bf16, const float* c,
+                                    const float* c2, long long n, int k,
+                                    int d, float p, float mexp, float eps,
+                                    int grid, float* ws, double* wpart,
+                                    double* opart, float* wsums,
+                                    float* weights, float* objective,
+                                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool m2 = p == -1.f && mexp == 2.f;
+  const auto* xf = static_cast<const float*>(xt);
+  const auto* xb = static_cast<const __nv_bfloat16*>(xt);
+  int err;
+  if (bf16) {
+    err = m2 ? fuzzy_stats<__nv_bfloat16, true>(xb, c, c2, n, k, d, p, mexp,
+                                                 eps, grid, ws, wpart, opart,
+                                                 st)
+             : fuzzy_stats<__nv_bfloat16, false>(xb, c, c2, n, k, d, p, mexp,
+                                                  eps, grid, ws, wpart, opart,
+                                                  st);
+  } else {
+    err = m2 ? fuzzy_stats<float, true>(xf, c, c2, n, k, d, p, mexp, eps,
+                                        grid, ws, wpart, opart, st)
+             : fuzzy_stats<float, false>(xf, c, c2, n, k, d, p, mexp, eps,
+                                         grid, ws, wpart, opart, st);
+  }
+  if (err != 0) return err;
+  const long long kd = (long long)k * d;
+  const long long total = kd > k ? kd : (long long)k;
+  tall_fuzzy_reduce<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      ws, wpart, opart, grid, k, d, wsums, weights, objective);
+  return (int)cudaGetLastError();
+}
+
+// B10's and B11's workspace rows G for N columns on `sms` SMs: two CTAs
+// per SM, at most one per 256-column tile, at least 1.
+extern "C" int tdc_tall_grid(long long n, int sms) {
+  const long long tiles = (n + kCols - 1) / kCols;
+  long long g = 2LL * sms;
+  if (tiles < g) g = tiles;
+  return g < 1 ? 1 : (int)g;
+}

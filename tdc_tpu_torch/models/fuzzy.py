@@ -14,10 +14,13 @@ package's:
   makes n_iter + 1 stats calls;
 - converged = shift <= max(tol, 0) and n_iter > 0.
 
-Supported: layout='samples', no mesh, float32 or bfloat16 inputs, kernel
-in {'xla', 'pallas', 'auto', 'auto:quantized'} ('auto:quantized' takes
-the plain auto choice: the bf16 epilogue is K-Means only; 'pallas_bf16'
-is an unknown kernel here, as in the JAX package). bf16 points run
+Supported: no mesh, float32 or bfloat16 inputs, layout='samples' or
+'features' (x is (d, N) and every stats call runs B11, `ops/tall.py`,
+with the JAX package's restrictions: no mesh or weights, kernel 'xla',
+meaning unset, or 'tall'), kernel in {'xla', 'pallas', 'auto',
+'auto:quantized'} ('auto:quantized' takes the plain auto choice: the
+bf16 epilogue is K-Means only; 'pallas_bf16' is an unknown kernel here,
+as in the JAX package). bf16 points run
 promoted on 'xla' and widened, with the centroids rounded to bf16, on
 B6, as the JAX package's two paths do. Sample weights run the f32 plain
 stats ('xla'), as in the JAX package: an explicit kernel='pallas' with
@@ -35,6 +38,7 @@ import torch
 from tdc_tpu_torch.models._common import validate_sample_weight
 from tdc_tpu_torch.models.kmeans import (
     _as_points,
+    _init_block,
     _not_ported,
     auto_block_rows,
     kmeans_predict,
@@ -79,7 +83,11 @@ def _fuzzy_stats_fn(kernel: str, m: float, block_rows: int, k: int, d: int,
         fn = fuzzy_stats_for(k, d, label="fuzzy_fit")
         return lambda x, c: fn(x, c, m)
     if kernel == "tall":
-        raise _not_ported("kernel='tall'", "Queue B, B11")
+        # B11 over feature-major points; on sample-major points its shape
+        # check raises, as the JAX package's tall kernel fails there.
+        from tdc_tpu_torch.ops.tall import fuzzy_stats_tall
+
+        return lambda x, c: fuzzy_stats_tall(x, c, m=m)
     if kernel != "xla":
         raise ValueError(f"unknown kernel {kernel!r} (use 'xla' or 'pallas')")
     if block_rows:
@@ -145,6 +153,7 @@ def fuzzy_cmeans_fit(
     sample_weight=None,
     layout: str = "samples",
     history: bool = False,
+    init_sample: int = 1 << 18,
     device=None,
 ) -> FuzzyCMeansResult:
     """Fit Fuzzy C-Means.
@@ -164,17 +173,38 @@ def fuzzy_cmeans_fit(
       sample_weight: optional (N,) nonnegative per-point weights: each
         row's u^m is scaled by its weight (memberships do not depend on
         it); f32 plain stats only.
+      layout: 'samples' (x is (N, d)) or 'features' (x is (d, N); every
+        stats call runs B11; no mesh or weights, kernel 'xla' or 'tall').
       history: also return (objective, shift) per iteration.
+      init_sample: 'features' layout only: the inits run on the first
+        `init_sample` points, transposed to a sample-major f32 block.
       device: None means 'cuda'; 'cpu' runs the plain versions.
     """
     if m <= 1.0:
         raise ValueError(f"fuzzifier m must be > 1, got {m}")
+    if layout not in ("samples", "features"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if layout == "features":
+        if mesh is not None or sample_weight is not None:
+            raise ValueError(
+                "layout='features' does not support mesh/sample_weight yet"
+            )
+        if kernel not in ("xla", "tall"):
+            # 'xla' (the signature default) means "unset".
+            raise ValueError(
+                f"layout='features' runs the tall kernel; kernel={kernel!r} "
+                "is not supported with it"
+            )
+        dev = resolve_device(device)
+        x = _as_points(x, dev, "(d, N)")
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        c_init = resolve_init(_init_block(x, init_sample), k, init,
+                              generator)
+        return _fcm_loop(x, c_init, int(max_iters), float(tol), float(m),
+                         "tall", 0, bool(history))
     if mesh is not None:
         raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
-    if layout != "samples":
-        if layout == "features":
-            raise _not_ported("layout='features'", "Queue B, B11")
-        raise ValueError(f"unknown layout {layout!r}")
     dev = resolve_device(device)
     x = _as_points(x, dev)
     n, d = x.shape

@@ -10,11 +10,13 @@ tolerance is set. The semantics are the JAX package's:
   n_iter + 1 stats calls;
 - converged = shift <= max(tol, 0) and n_iter > 0.
 
-Supported: layout='samples', no mesh, float32 or bfloat16 inputs, kernel
-in {'xla', 'refined', 'pallas', 'pallas_bf16', 'auto', 'auto:quantized'},
-and sample weights on 'xla' and 'pallas' (the weighted kernel route: B4,
-or B2 + B3 past its limit). The rest raises NotImplementedError naming
-the ROADMAP.md item that ports it.
+Supported: no mesh, float32 or bfloat16 inputs, kernel in {'xla',
+'refined', 'pallas', 'pallas_bf16', 'auto', 'auto:quantized'}, sample
+weights on 'xla' and 'pallas' (the weighted kernel route: B4, or B2 + B3
+past its limit), and layout='features': x is (d, N) and every stats call
+runs B10 (`ops/tall.py`), with the JAX package's restrictions (no mesh,
+weights or relocation; kernel 'xla', meaning unset, or 'tall'). The rest
+raises NotImplementedError naming the ROADMAP.md item that ports it.
 
 bf16 points stay one 2-byte copy on the device, as in the JAX package.
 The plain paths promote them to f32 against f32 centroids. The kernel
@@ -108,7 +110,11 @@ def _stats_fn(kernel: str, block_rows: int, k: int, d: int, w=None,
             k, d, dtype=dtype, label="kmeans_fit",
             mxu_dtype="bfloat16" if kernel == "pallas_bf16" else None)
     if kernel == "tall":
-        raise _not_ported("kernel='tall'", "Queue B, B10")
+        # B10 over feature-major points; on sample-major points its shape
+        # check raises, as the JAX package's tall kernel fails there.
+        from tdc_tpu_torch.ops.tall import lloyd_stats_tall
+
+        return lloyd_stats_tall
     raise ValueError(
         f"unknown kernel {kernel!r} (use 'xla', 'refined', 'pallas', "
         "'pallas_bf16' or 'auto')")
@@ -246,17 +252,24 @@ def resolve_init(x: torch.Tensor, k: int, init, generator,
     raise ValueError(f"unknown init: {init!r}")
 
 
-def _as_points(x, device: torch.device) -> torch.Tensor:
-    """(N, d) points on `device`: bfloat16 stays bfloat16 (a numpy array
-    of ml_dtypes' bfloat16 too, without importing it), any other float
-    type becomes float32."""
+def _as_points(x, device: torch.device, shape: str = "(N, d)"
+               ) -> torch.Tensor:
+    """2-D points on `device` ((N, d), or (d, N) in the features layout):
+    bfloat16 stays bfloat16 (a numpy array of ml_dtypes' bfloat16 too,
+    without importing it), any other float type becomes float32."""
     x = torch.as_tensor(restore_bf16(x) if isinstance(x, np.ndarray) else x)
     if not x.is_floating_point():
         raise TypeError(f"points must be floating point, got {x.dtype}")
     if x.dim() != 2:
-        raise ValueError(f"points must be (N, d), got {tuple(x.shape)}")
+        raise ValueError(f"points must be {shape}, got {tuple(x.shape)}")
     dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     return x.to(device=device, dtype=dtype).contiguous()
+
+
+def _init_block(xt: torch.Tensor, init_sample: int) -> torch.Tensor:
+    """The first `init_sample` points of feature-major xt (d, N) as a
+    sample-major f32 block: where the features layout seeds."""
+    return xt[:, :min(xt.shape[1], init_sample)].T.float().contiguous()
 
 
 def kmeans_fit(
@@ -274,6 +287,7 @@ def kmeans_fit(
     n_init: int = 1,
     layout: str = "samples",
     history: bool = False,
+    init_sample: int = 1 << 18,
     empty_policy: str = "keep",
     device=None,
 ) -> KMeansResult:
@@ -301,11 +315,40 @@ def kmeans_fit(
         Σw·min d², and the stochastic inits draw by weight. 'refined'
         rejects them.
       n_init: restarts for stochastic inits; the lowest final SSE wins.
+      layout: 'samples' (x is (N, d)) or 'features' (x is (d, N); every
+        stats call runs B10, `ops/tall.py`; no mesh, weights or
+        relocation, kernel 'xla' or 'tall').
       history: also return (sse, shift) per iteration.
+      init_sample: 'features' layout only: the inits run on the first
+        `init_sample` points, transposed to a sample-major f32 block.
       empty_policy: 'keep' (an empty cluster keeps its centroid) or
         'relocate' (sklearn parity: reseed from the costliest points).
       device: None means 'cuda'; 'cpu' runs the plain versions.
     """
+    # The layout checks first, in the JAX package's order and words.
+    if layout not in ("samples", "features"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if empty_policy not in ("keep", "relocate"):
+        raise ValueError(f"unknown empty_policy {empty_policy!r}")
+    if empty_policy == "relocate" and layout == "features":
+        raise ValueError(
+            "empty_policy='relocate' needs the sample-major layout (the "
+            "relocation pass gathers point rows)"
+        )
+    features = layout == "features"
+    if features:
+        if mesh is not None or sample_weight is not None:
+            raise ValueError(
+                "layout='features' does not support mesh/sample_weight yet"
+            )
+        if kernel not in ("xla", "tall"):
+            # 'xla' (the signature default) means "unset"; an explicit
+            # other kernel must not be silently discarded.
+            raise ValueError(
+                f"layout='features' runs the tall kernel; kernel={kernel!r} "
+                "is not supported with it"
+            )
+        kernel = "tall"
     if kernel == "pallas_bf16" and mesh is not None:
         raise ValueError(
             "kernel='pallas_bf16' is single-device (the bf16 epilogue has no "
@@ -318,15 +361,8 @@ def kmeans_fit(
             "kernel")
     if mesh is not None:
         raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
-    if layout != "samples":
-        if layout == "features":
-            raise _not_ported("layout='features'", "Queue B, B10")
-        raise ValueError(f"unknown layout {layout!r}")
-    if empty_policy not in ("keep", "relocate"):
-        raise ValueError(f"unknown empty_policy {empty_policy!r}")
     dev = resolve_device(device)
-    x = _as_points(x, dev)
-    n, d = x.shape
+    x = _as_points(x, dev, "(d, N)" if features else "(N, d)")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     stochastic = isinstance(init, str) and init != "first_k"
@@ -336,12 +372,23 @@ def kmeans_fit(
             res = kmeans_fit(
                 x, k, init=init, generator=generator, max_iters=max_iters,
                 tol=tol, spherical=spherical, kernel=kernel,
-                sample_weight=sample_weight, n_init=1, history=history,
+                sample_weight=sample_weight, n_init=1, layout=layout,
+                history=history, init_sample=init_sample,
                 empty_policy=empty_policy, device=dev,
             )
             if best is None or float(res.sse) < float(best.sse):
                 best = res
         return best
+    if features:
+        if spherical:
+            x = x.float()
+            x = x / torch.clamp_min(
+                torch.linalg.norm(x, dim=0, keepdim=True), 1e-12)
+        c_init = resolve_init(_init_block(x, init_sample), k, init,
+                              generator)
+        return _lloyd_loop(x, c_init, int(max_iters), float(tol),
+                           bool(spherical), "tall", 0, bool(history))
+    n, d = x.shape
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
 

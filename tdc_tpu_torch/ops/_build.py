@@ -36,8 +36,8 @@ _F = ctypes.c_float
 # name -> argtypes; every pointer and the stream are void*, every entry
 # point that launches returns an int CUDA error code
 # (tdc_segment_chunk_rows, tdc_fuzzy_k_tile, tdc_fuzzy_grid,
-# tdc_gmm_row_block and tdc_gmm_grid return the geometry that sizes B3's,
-# B6's and B9's workspaces).
+# tdc_gmm_row_block, tdc_gmm_grid and tdc_tall_grid return the geometry
+# that sizes B3's, B6's, B9's, B10's and B11's workspaces).
 SIGNATURES = {
     "tdc_distance_argmin": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "tdc_lloyd_stats_fused": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P,
@@ -58,6 +58,11 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _P],
     "tdc_gmm_row_block": [],
     "tdc_gmm_grid": [_LL, _I, _I, _I],
+    "tdc_tall_lloyd_stats": [_P, _I, _P, _P, _LL, _I, _I, _I, _P, _P, _P,
+                             _P, _P, _P, _P, _P],
+    "tdc_tall_fuzzy_stats": [_P, _I, _P, _P, _LL, _I, _I, _F, _F, _F, _I,
+                             _P, _P, _P, _P, _P, _P, _P],
+    "tdc_tall_grid": [_LL, _I],
 }
 
 

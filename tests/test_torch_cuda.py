@@ -20,17 +20,27 @@ B5's own metric), sums within rtol 1e-5 and atol 1e-4, SSE within rtol
 1e-5, two runs bitwise equal; centroids that differ in f32 but round to
 the same bf16 values tie on bf16 rows and the smaller index wins; a bf16
 kernel fit against the same fit on the CPU (plain version): equal n_iter
-and converged, centroids within 1e-4."""
+and converged, centroids within 1e-4. B10 and B11 (the feature-major
+Lloyd and fuzzy stats) on f32 and bf16 columns, in the private (small
+K·(d+1)) and tile forms: B10 as B1 (labels and counts equal, sums within
+rtol 1e-5 and atol 1e-4), B11 as B6, both bitwise repeatable (the
+private form at d ≤ 8 in one and two register groups of centroids, the
+tile form past it); copies of a
+centroid take no columns in B10 and the same mass as the original in
+B11; layout="features" fits on the card against the same fits on the
+CPU: equal n_iter and converged, centroids within 1e-4."""
 
 import pytest
 import torch
 
+from tdc_tpu_torch.models import fuzzy as tfz
 from tdc_tpu_torch.models import gmm as tgmm
 from tdc_tpu_torch.models import kmeans as tkm
 from tdc_tpu_torch.ops import fuzzy_kernels as fk
 from tdc_tpu_torch.ops import gmm_kernels as gk
 from tdc_tpu_torch.ops import lloyd_kernels as lk
 from tdc_tpu_torch.ops import sorted_stats as ss
+from tdc_tpu_torch.ops import tall as tt
 from tdc_tpu_torch.ops.assign import fuzzy_memberships
 
 pytestmark = pytest.mark.cuda
@@ -238,3 +248,70 @@ def test_b5_fit_matches_the_plain_fit(gen):
     assert (a.n_iter, a.converged) == (b.n_iter, b.converged)
     torch.testing.assert_close(a.centroids.cpu(), b.centroids, rtol=0.0,
                                atol=1e-4)
+
+
+def _tall(gen, n, k, d):
+    x, c = _data(gen, n, k, d)
+    return x.T.contiguous(), c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,d", [(1000, 15, 5), (2000, 30, 2),
+                                   (3000, 8, 11), (1000, 37, 19),
+                                   (3000, 130, 128)])
+def test_b10_b11_match_plain(gen, n, k, d, dtype):
+    xt, c = _tall(gen, n, k, d)
+    xt = xt.to(dtype)
+    st, lab = tt.lloyd_stats_tall(xt, c, return_labels=True)
+    again, lab2 = tt.lloyd_stats_tall(xt, c, return_labels=True)
+    assert all(torch.equal(a, b) for a, b in zip((*st, lab), (*again, lab2)))
+    want, plab = tt.lloyd_stats_tall_plain(xt, c, return_labels=True)
+    assert torch.equal(lab, plab) and torch.equal(st.counts, want.counts)
+    torch.testing.assert_close(st.sums, want.sums, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(st.sse, want.sse, rtol=1e-5, atol=1e-4)
+    cr, c2 = tt._operands(xt, c)
+    for m in (2.0, 1.7):
+        f = tt.fuzzy_stats_tall(xt, c, m)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(f, tt.fuzzy_stats_tall(xt, c, m)))
+        pf = tt.fuzzy_stats_tall_plain(xt, c, m)
+        xf = xt.float()
+        scale = tt.tall_memberships(xf, cr, c2, m)[0] @ xf.abs().T  # Σμ|x|
+        assert ((f.weighted_sums - pf.weighted_sums).abs()
+                <= 1e-5 * scale + 1e-6).all()
+        torch.testing.assert_close(f.weights, pf.weights, rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(f.objective, pf.objective, rtol=1e-5,
+                                   atol=0.0)
+
+
+@pytest.mark.parametrize("k,d", [(15, 5), (300, 19)])
+def test_b10_b11_ties(gen, k, d):
+    xt, c = _tall(gen, 4000, k, d)
+    copies = [5, 9, k - 1]
+    c[copies] = c[3].clone()
+    st, lab = tt.lloyd_stats_tall(xt, c, return_labels=True)
+    assert torch.equal(lab, tt.lloyd_stats_tall_plain(xt, c,
+                                                      return_labels=True)[1])
+    assert not st.counts[copies].any() and not st.sums[copies].any()
+    f = tt.fuzzy_stats_tall(xt, c, 2.0)
+    for j in copies:
+        assert torch.equal(f.weights[j], f.weights[3])
+        assert torch.equal(f.weighted_sums[j], f.weighted_sums[3])
+
+
+def test_tall_fits_match_the_plain_fits(gen):
+    xt, c = _tall(gen, 20000, 15, 5)
+    init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
+    for fit, wrapper, kw in ((tkm.kmeans_fit, tt.lloyd_stats_tall, {}),
+                             (tfz.fuzzy_cmeans_fit, tt.fuzzy_stats_tall,
+                              {"m": 2.0})):
+        before = wrapper.launches
+        a = fit(xt, 15, init=init, max_iters=30, tol=1e-4,
+                layout="features", **kw)
+        assert wrapper.launches == before + a.n_iter + 1
+        b = fit(xt.cpu(), 15, init=init.cpu(), max_iters=30, tol=1e-4,
+                layout="features", device="cpu", **kw)
+        assert (a.n_iter, a.converged) == (b.n_iter, b.converged)
+        torch.testing.assert_close(a.centroids.cpu(), b.centroids,
+                                   rtol=0.0, atol=1e-4)

@@ -22,6 +22,7 @@ import torch
 from tdc_tpu.models import fuzzy as jfz
 from tdc_tpu.ops import assign as jassign
 from tdc_tpu.ops import pallas_kernels as jpk
+from tdc_tpu.ops import tall as jtall
 from tdc_tpu_torch import convert
 from tdc_tpu_torch.models import fuzzy as tfz
 from tdc_tpu_torch.ops import assign as tassign
@@ -248,16 +249,45 @@ def test_fit_in_jax_predict_in_port():
 @pytest.mark.parametrize("kw", [
     {"mesh": object()},
     {"sample_weight": np.ones(100, np.float32), "mesh": object()},
-    {"layout": "features"},
     {"init": "kmeans_parallel"},
     {"init": "k-means||"},
-    {"kernel": "tall"},
     {"init": "kmeans||"},
 ])
 def test_unported_fuzzy_options_raise_naming_the_roadmap(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tfz.fuzzy_cmeans_fit(np.zeros((100, 4), np.float32), 3,
                              device="cpu", max_iters=2, **kw)
+
+
+@pytest.mark.parametrize("case", ["features", "tall_on_samples"])
+def test_fuzzy_feature_major_options_follow_jax(case):
+    # Both raised NotImplementedError (naming B11) before the features
+    # layout was ported. Now the layout fits as the JAX package's does,
+    # and kernel='tall' on sample-major points fails in both packages
+    # (ValueError in the port, a TypeError in the JAX package). N is the
+    # JAX kernel's own column block, so it pads no columns: its padding
+    # correction subtracts each fake column's memberships and cancels.
+    n = jtall.tall_block_n(5, 6, temps=5)
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(-4, 4, size=(5, 6))
+    x = (centers[rng.integers(0, 5, size=n)]
+         + rng.normal(size=(n, 6))).astype(np.float32)
+    init = x[:5].copy()
+    if case == "tall_on_samples":
+        for fit, kw in ((jfz.fuzzy_cmeans_fit, {}),
+                        (tfz.fuzzy_cmeans_fit, {"device": "cpu"})):
+            with pytest.raises((ValueError, TypeError)):
+                fit(x, 5, init=init, max_iters=2, kernel="tall", **kw)
+        return
+    xt = np.ascontiguousarray(x.T)
+    j = jfz.fuzzy_cmeans_fit(xt, 5, init=init, max_iters=6, tol=-1.0,
+                             layout="features")
+    t = tfz.fuzzy_cmeans_fit(xt, 5, init=init, max_iters=6, tol=-1.0,
+                             layout="features", device="cpu")
+    assert t.n_iter == int(j.n_iter) == 6
+    assert t.converged == bool(j.converged)
+    np.testing.assert_allclose(t.centroids.numpy(), np.asarray(j.centroids),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_fuzzy_fit_rejects_m_at_most_one_and_unknown_kernel():

@@ -8,6 +8,7 @@ tie, so the trajectories do not fork).
 """
 
 import jax
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -135,16 +136,37 @@ def test_kmeans_fit_stochastic_init_is_seeded():
 @pytest.mark.parametrize("kw", [
     {"mesh": object()},
     {"sample_weight": np.ones(100, np.float32), "mesh": object()},
-    {"layout": "features"},
-    {"kernel": "tall"},
     {"init": "kmeans||"},
-    {"x": torch.zeros((100, 4), dtype=torch.bfloat16), "layout": "features"},
 ])
 def test_unported_options_raise_naming_the_roadmap(kw):
-    kw = dict(kw)
-    x = kw.pop("x", np.zeros((100, 4), np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tkm.kmeans_fit(x, 3, device="cpu", max_iters=2, **kw)
+        tkm.kmeans_fit(np.zeros((100, 4), np.float32), 3, device="cpu",
+                       max_iters=2, **kw)
+
+
+@pytest.mark.parametrize("case", ["features", "tall_on_samples",
+                                  "features_bf16"])
+def test_feature_major_options_follow_jax(case):
+    # These three raised NotImplementedError (naming B10) before the
+    # features layout was ported. Now: the layout fits as the JAX
+    # package's does, on f32 and bf16 columns, and kernel='tall' on
+    # sample-major points fails in both packages (ValueError in the port,
+    # a shape error in the JAX package).
+    x, init = _blobs(2, n=1024, k=6, d=5)
+    if case == "tall_on_samples":
+        for fit, kw in ((jkm.kmeans_fit, {}), (tkm.kmeans_fit,
+                                               {"device": "cpu"})):
+            with pytest.raises((ValueError, TypeError)):
+                fit(x, 6, init=init, max_iters=2, kernel="tall", **kw)
+        return
+    xt = np.ascontiguousarray(x.T)
+    if case == "features_bf16":
+        xt = xt.astype(ml_dtypes.bfloat16)
+    j = jkm.kmeans_fit(xt, 6, init=init, max_iters=8, tol=1e-4,
+                       layout="features")
+    t = tkm.kmeans_fit(xt, 6, init=init, max_iters=8, tol=1e-4,
+                       layout="features", device="cpu")
+    _assert_fit(j, t)
 
 
 def test_default_device_is_cuda_and_never_falls_back():
