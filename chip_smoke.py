@@ -5,9 +5,10 @@
 Builds the port's CUDA kernels from `tdc_tpu_torch/csrc/` and drives its
 main paths through the CLI: in-memory single-GPU f32 Lloyd K-Means, with
 and without sample weights, bf16 Lloyd K-Means, Fuzzy C-Means, diagonal
-Gaussian Mixture EM, and feature-major K-Means and Fuzzy C-Means
-(--layout=features). Phases, each of which raises on failure (nothing is
-caught):
+Gaussian Mixture EM, feature-major K-Means and Fuzzy C-Means
+(--layout=features), and two ranks on the one card: the K-sharded Fuzzy
+C-Means tower (--shard_k) and data-parallel K-Means (--n_GPUs=2). Phases,
+each of which raises on failure (nothing is caught):
 
 1. Device: a CUDA card is required; prints its name and power limit.
 2. Build: nvcc builds the kernels; prints the build seconds.
@@ -48,6 +49,12 @@ caught):
    xt.T.contiguous() at the 10^8 shape is timed beside B10 (a number, not
    a check). Duplicated centroids take 0 columns in B10 and the same
    mass, bitwise, as the original in B11.
+   B7 and B8 (the two-pass fuzzy kernels of the K-sharded tower) at
+   N=2^19, K=16,384, d=768 for m=2.0 and m=1.7 and on bf16 rows, and at
+   the ragged shape: s within REL_TOL relative of the plain version's, B8
+   (given that s) as B6, both bitwise repeatable; and the tower's
+   identity on one process: s summed over two K-shards, B8 on each shard
+   with it, equal to B6 on all K within B6's tolerances.
 4. Main path, fused route: the CLI at N=2^22, d=128, K=1024,
    --kernel=pallas, 10 iterations; B1 must launch n_iter + 1 times per fit.
 5. Main path, sorted route: the CLI at K=16,384, d=768, --init=random,
@@ -77,9 +84,22 @@ caught):
    --dtype=bfloat16) and distributedFuzzyCMeans (m=2), and on a .fm.npy
    file of N=2^24 written by to_feature_major; B10 (B11 for fuzzy) must
    launch n_iter + 1 times per fit and no other kernel ever.
-12. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
+12. Main path, multi-GPU routes, two ranks on the one card (spawned, each
+   joining from the environment as under torchrun; gloo on the card's
+   tensors, since NCCL takes one rank per GPU): the K-sharded fuzzy
+   route, --method_name=distributedFuzzyCMeans --kernel=pallas
+   --shard_k=2 --n_GPUs=2 at N=2^19, d=768, K=16,384, 4 iterations, B7
+   and B8 launching 2·(n_iter + 1) times on each rank and nothing else,
+   its objective within REL_TOL of the same fit in this process on a 1x1
+   grid from the same init; and the data-parallel fused route, phase 4's
+   CLI with --n_GPUs=2, B1 launching 2·(n_iter + 1) times on each rank,
+   its SSE within REL_TOL of phase 4's. Rank 0 alone writes the row.
+13. NCCL at world size 1: kmeans_fit(mesh=make_mesh(1), kernel="pallas")
+   at the fused shape and fuzzy_fit_sharded on a 1x1 grid at the
+   K-sharded shape (3 iterations) against the same fits without a mesh.
+14. Predict: kmeans_predict(kernel="pallas") on 2^20 points (B2) against
    the plain labels.
-13. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
+15. Whole-fit parity: at N=2^16 a kernel="pallas" fit and a plain
    kernel="xla" fit from the same init give the same n_iter and
    centroids (means) within tolerance, for K-Means, weighted K-Means,
    Fuzzy C-Means and diag and spherical GMM; a bf16 K-Means fit on B5
@@ -98,15 +118,20 @@ from __future__ import annotations
 import csv
 import json
 import math
+import multiprocessing as mp
 import os
+import queue as queue_lib
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tdc_tpu_torch.cli import main as cli
 from tdc_tpu_torch.data import make_blobs, to_feature_major
@@ -125,6 +150,12 @@ from tdc_tpu_torch.ops import sorted_stats as ss
 from tdc_tpu_torch.ops import tall as tk
 from tdc_tpu_torch.ops.assign import fuzzy_memberships
 from tdc_tpu_torch.ops.init import init_random
+from tdc_tpu_torch.parallel.mesh import make_mesh
+from tdc_tpu_torch.parallel.sharded_k import (
+    _resolve_init_sharded,
+    fuzzy_fit_sharded,
+    make_mesh_2d,
+)
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): f32 on the CUDA
 # cores, dense bf16 on the tensor cores and HBM3 bandwidth. bound_ms is
@@ -190,6 +221,20 @@ TALL_FUZZY_ARGS = ["--method_name=distributedFuzzyCMeans", *TALL_ARGS[1:],
 TALL_BF16_ARGS = [*TALL_ARGS, "--dtype=bfloat16"]
 FM_N = 1 << 24  # points of the .fm.npy file route
 TALL_STEP = 1 << 24  # columns per step of the f64 reference sums
+# The multi-GPU routes: two ranks on the one card (gloo on its CUDA
+# tensors: NCCL takes one rank per GPU). The K-sharded fuzzy route is the
+# sorted route's large-K shape on a (1, 2) grid, B7 and B8 on each shard;
+# the data-parallel fused route is the fused route on two ranks, B1 on
+# each.
+RANKS = 2
+SHARD_ARGS = [
+    "--method_name=distributedFuzzyCMeans", "--kernel=pallas",
+    f"--shard_k={RANKS}", f"--n_GPUs={RANKS}", f"--n_obs={SORTED_N}",
+    f"--n_dim={SORTED_D}", f"--K={SORTED_K}", "--n_max_iters=4", "--tol=-1",
+    "--init=random", "--fuzzifier=2", "--seed=0",
+]
+DP_ARGS = [*MAIN_ARGS, f"--n_GPUs={RANKS}"]
+RANK_TIMEOUT = 600  # seconds a rank may take for one route
 
 
 def smi() -> str:
@@ -741,6 +786,107 @@ def phase_fuzzy_kernel(gen) -> dict:
     return out
 
 
+def check_twopass(name, x, c, m) -> tuple[float, float]:
+    """B7 and B8 against their plain versions on the same s: two runs
+    bitwise equal (B8 also without B7's ‖x‖², which it then computes to
+    the same bits); s within REL_TOL relative; B8's stats as B6's.
+    Returns the largest absolute errors of s and of Σμx."""
+    xw, cw = lk.widened(x, c)
+    s, x2 = fk.fuzzy_normalizer(x, c, m, return_x2=True)
+    repeatable(f"{name} B7", (s,), (fk.fuzzy_normalizer(x, c, m),))
+    want_s = fk.fuzzy_normalizer_plain(xw, cw, m)
+    err7 = check_close(f"{name} B7 s", s, want_s, want_s.abs())
+    got = fk.fuzzy_accumulate(x, c, s, m, x2=x2)
+    repeatable(f"{name} B8", got, fk.fuzzy_accumulate(x, c, s, m))
+    want = fk.fuzzy_accumulate_plain(xw, cw, s, m)
+    err8 = check_close(f"{name} B8 sums", got.weighted_sums,
+                       want.weighted_sums, fuzzy_abs_sums(xw, cw, m))
+    check_close(f"{name} B8 weights", got.weights, want.weights,
+                want.weights.abs())
+    check_close(f"{name} B8 objective", got.objective, want.objective,
+                want.objective.abs())
+    return err7, err8
+
+
+def phase_twopass_kernel(gen) -> dict:
+    """Phase 3, B7 and B8: at the K-sharded route's regime (K=16,384,
+    d=768, N=2^19) for each fuzzifier and on bf16 rows, the tower's
+    identity on one process against B6, then the ragged shape."""
+    n, k, d = SORTED_N, SORTED_K, SORTED_D
+    x, c = blob_data(gen, n, k, d)
+    per_m = {}
+    for m in FUZZY_MS:
+        err7, err8 = check_twopass(f"B7/B8 m={m}", x, c, m)
+        s, x2 = fk.fuzzy_normalizer(x, c, m, return_x2=True)
+        reps, plain_reps = (5, 3) if m == 2.0 else (3, 1)
+        per_m[m] = dict(
+            b7_err=err7, b8_err=err8,
+            b7_ms=median_ms(lambda: fk.fuzzy_normalizer(x, c, m), reps),
+            b8_ms=median_ms(
+                lambda: fk.fuzzy_accumulate(x, c, s, m, x2=x2), reps),
+            b7_plain_ms=median_ms(
+                lambda: fk.fuzzy_normalizer_plain(x, c, m), plain_reps),
+            b8_plain_ms=median_ms(
+                lambda: fk.fuzzy_accumulate_plain(x, c, s, m), plain_reps))
+        del s, x2
+        print(f"[B7/B8] N={n} K={k} d={d} m={m}: {json.dumps(per_m[m])}",
+              flush=True)
+    # The tower's identity on one process: s summed over two K-shards, B8
+    # on each shard with that s, concatenated, against B6 on all K.
+    halves = (c[:k // 2].contiguous(), c[k // 2:].contiguous())
+    s = (fk.fuzzy_normalizer(x, halves[0], 2.0)
+         + fk.fuzzy_normalizer(x, halves[1], 2.0))
+    per = [fk.fuzzy_accumulate(x, h, s, 2.0) for h in halves]
+    whole = fk.fuzzy_stats_fused(x, c, 2.0)
+    ident = check_close("tower identity sums",
+                        torch.cat([p.weighted_sums for p in per]),
+                        whole.weighted_sums, fuzzy_abs_sums(x, c, 2.0))
+    check_close("tower identity weights",
+                torch.cat([p.weights for p in per]), whole.weights,
+                whole.weights.abs())
+    check_close("tower identity objective",
+                per[0].objective + per[1].objective, whole.objective,
+                whole.objective.abs())
+    print(f"[B7/B8] two K-shards on one process: Σμx within "
+          f"{ident:.3g} of B6's on all K, Σμ and J_m within {REL_TOL} "
+          "relative", flush=True)
+    del s, per, whole, halves
+    xb = x.to(torch.bfloat16)
+    del x
+    bf16 = dict(zip(("b7_err", "b8_err"),
+                    check_twopass("B7/B8 bf16", xb, c, 2.0)))
+    s, x2 = fk.fuzzy_normalizer(xb, c, 2.0, return_x2=True)
+    bf16.update(b7_ms=median_ms(lambda: fk.fuzzy_normalizer(xb, c, 2.0), 3),
+                b8_ms=median_ms(
+                    lambda: fk.fuzzy_accumulate(xb, c, s, 2.0, x2=x2), 3))
+    print(f"[B7/B8] bf16 rows N={n} K={k} d={d} m=2.0: {json.dumps(bf16)}",
+          flush=True)
+    del xb, c, s, x2
+    b7 = bound_ms(2.0 * n * k * d, 4.0 * (n * d + k * d + k + n))
+    b8 = bound_ms(4.0 * n * k * d, 4.0 * (n * d + 2 * k * d + 2 * k + 2 * n
+                                         + 1))
+    main = per_m[2.0]
+    out = {
+        "B7": dict(max_abs_err=main["b7_err"], ms=main["b7_ms"],
+                   plain_ms=main["b7_plain_ms"], bound_ms=b7[0],
+                   bound_by=b7[1], library_ms=None,
+                   m_1_7=per_m[1.7]["b7_ms"], bf16_ms=bf16["b7_ms"]),
+        "B8": dict(max_abs_err=main["b8_err"], ms=main["b8_ms"],
+                   plain_ms=main["b8_plain_ms"], bound_ms=b8[0],
+                   bound_by=b8[1], library_ms=None,
+                   m_1_7=per_m[1.7]["b8_ms"], bf16_ms=bf16["b8_ms"]),
+    }
+
+    n, k, d = FUZZY_RAGGED
+    x, c = blob_data(gen, n, k, d)
+    for m in FUZZY_MS:
+        check_twopass(f"B7/B8 ragged m={m}", x, c, m)
+    check_twopass("B7/B8 ragged bf16", x.to(torch.bfloat16), c, 2.0)
+    print(f"[B7/B8] ragged N={n} K={k} d={d}: equal to the plain versions "
+          "at m=2 and 1.7, f32 and bf16 rows", flush=True)
+    return out
+
+
 def tall_blobs(gen, n, k, d):
     """Feature-major points (d, n) around k centers, every center used
     (column j belongs to center j % k), built in column chunks."""
@@ -939,6 +1085,7 @@ def phase_tall_ties(gen) -> None:
 WRAPPERS = {"B1": lk.lloyd_stats_fused, "B2": lk.distance_argmin,
             "B3": ss.segment_sums, "B4": lk.lloyd_stats_fused_weighted,
             "B5": lk.lloyd_stats_fused_bf16, "B6": fk.fuzzy_stats_fused,
+            "B7": fk.fuzzy_normalizer, "B8": fk.fuzzy_accumulate,
             "B9": gk.gmm_stats_fused, "B10": tk.lloyd_stats_tall,
             "B11": tk.fuzzy_stats_tall}
 
@@ -983,6 +1130,131 @@ def run_cli(args, tmp, name) -> tuple[dict, dict]:
     return row, seen
 
 
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_one_rank_nccl(gen) -> None:
+    """NCCL at world size 1: a process group of one rank, so every
+    all_reduce and broadcast of the mesh paths runs through NCCL. The
+    data-parallel fused fit and the K-sharded fuzzy fit on a 1x1 grid
+    against the same fits without a mesh (B1 both; B7 + B8 against B6),
+    from the same init: n_iter equal, centroids within 1e-4."""
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        n, k, d = B1_SHAPE
+        x, c = blob_data(gen, n, k, d)
+        init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
+        reset_counts()
+        a = kmeans_fit(x, k, init=init, mesh=make_mesh(1), kernel="pallas",
+                       max_iters=10, tol=-1)
+        require_launches("nccl kmeans", counts(), B1=a.n_iter + 1)
+        b = kmeans_fit(x, k, init=init, kernel="pallas", max_iters=10,
+                       tol=-1)
+        cerr = (a.centroids - b.centroids).abs().max().item()
+        require(a.n_iter == b.n_iter and cerr <= 1e-4,
+                f"nccl kmeans: n_iter {a.n_iter} vs {b.n_iter}, centroids "
+                f"differ by {cerr}")
+        print(f"[nccl_1] kmeans_fit(mesh=make_mesh(1)) N={n} K={k} d={d}: "
+              f"n_iter {a.n_iter} == {b.n_iter}, max centroid diff "
+              f"{cerr:.3g}, sse {float(a.sse):.8g} vs {float(b.sse):.8g}",
+              flush=True)
+        del x, c, init, a, b
+        n, k, d = SORTED_N, SORTED_K, SORTED_D
+        x, c = blob_data(gen, n, k, d)
+        init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
+        reset_counts()
+        a = fuzzy_fit_sharded(x, k, make_mesh_2d(1, 1), init=init,
+                              max_iters=3, tol=-1, kernel="pallas")
+        require_launches("nccl fuzzy_fit_sharded", counts(),
+                         B7=a.n_iter + 1, B8=a.n_iter + 1)
+        b = fuzzy_cmeans_fit(x, k, init=init, max_iters=3, tol=-1,
+                             kernel="pallas")
+        cerr = (a.centroids - b.centroids).abs().max().item()
+        require(a.n_iter == b.n_iter and cerr <= 1e-4,
+                f"nccl fuzzy_fit_sharded: n_iter {a.n_iter} vs {b.n_iter}, "
+                f"centroids differ by {cerr}")
+        print(f"[nccl_1] fuzzy_fit_sharded(make_mesh_2d(1, 1)) N={n} K={k} "
+              f"d={d}: n_iter {a.n_iter} == {b.n_iter} (B6 fit), max "
+              f"centroid diff {cerr:.3g}, objective "
+              f"{float(a.objective):.8g} vs {float(b.objective):.8g}",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_cli(rank, world, port, args, queue) -> None:
+    """One rank of a multi-GPU CLI run, launched as torchrun would: the
+    CLI joins the process group from the environment. Sends back (rank,
+    exit code, launch counts) or (rank, -1, the traceback)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    try:
+        reset_counts()
+        rc = cli.main(args)
+        queue.put((rank, rc, counts()))
+    except BaseException:
+        queue.put((rank, -1, traceback.format_exc()))
+
+
+def run_ranks(args, tmp, name) -> tuple[dict, list]:
+    """The CLI on RANKS spawned ranks, counts reset in each just before;
+    returns (rank 0's CSV row, each rank's launch counts). Every rank must
+    exit 0 and the log must hold one row: rank 0's."""
+    log = os.path.join(tmp, f"{name}.csv")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_cli, args=(
+        r, RANKS, port, [*args, f"--log_file={log}"], queue))
+        for r in range(RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        while len(got) < RANKS:  # drain before joining
+            try:
+                rank, rc, seen = queue.get(timeout=5)
+                got[rank] = (rc, seen)
+            except queue_lib.Empty:
+                # A rank that died without a word ends the run now, not
+                # at the time limit.
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                require(not dead and time.monotonic() < deadline,
+                        f"{name}: ranks {dead} exited without a result "
+                        f"(exit codes {[p.exitcode for p in procs]}), or "
+                        f"{RANK_TIMEOUT} s passed")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank in range(RANKS):
+        rc, seen = got[rank]
+        require(rc == 0, f"{name}: rank {rank} exited {rc}: {seen}")
+    with open(log, newline="") as f:
+        rows = list(csv.DictReader(f))
+    require(len(rows) == 1, f"{name}: {len(rows)} rows, expected rank 0's")
+    row = rows[0]
+    seen = [got[r][1] for r in range(RANKS)]
+    print(f"[{name}] {time.perf_counter() - t0:.1f} s on {RANKS} ranks, "
+          f"launches {seen}, row {json.dumps(row)}", flush=True)
+    require(row["status"] == "ok" and row["backend"] == "cuda"
+            and row["num_GPUs"] == str(RANKS), f"{name}: row {row}")
+    require(math.isfinite(float(row["sse"])) and float(row["sse"]) >= 0.0,
+            f"{name}: cost column {row['sse']}")
+    return row, seen
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1005,6 +1277,7 @@ def main() -> int:
     numbers["B9"] = phase_gmm_kernel(gen)
     numbers["B5"] = phase_bf16_kernel(gen)
     numbers.update(phase_tall_kernel(gen))
+    numbers.update(phase_twopass_kernel(gen))
     print(f"[kernels] {json.dumps(numbers)}", flush=True)
     phase_ties(gen)
     phase_bf16_ties(gen)
@@ -1012,6 +1285,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         row, seen = run_cli(MAIN_ARGS, tmp, "fused_route")
+        fused_row = row
         n_iter = int(row["n_iter"])
         require(n_iter == 10, f"fused route ran {n_iter} iterations")
         # Two fits (initialization and computation), n_iter + 1 stats each.
@@ -1115,6 +1389,51 @@ def main() -> int:
         require_launches("tall_fm_file_route", seen, B10=2 * (n_iter + 1))
         os.remove(fm)
 
+        # The multi-GPU routes: two ranks on the one card. First the
+        # K-sharded fuzzy route, B7 and B8 on each rank's K-shard; then
+        # the same fit in this process on a 1x1 grid from the same init
+        # (the CLI's rank 0 draws it on the first 65,536 of its points,
+        # make_blobs(seed + 1), with a generator seeded with the seed).
+        row, seen = run_ranks(SHARD_ARGS, tmp, "sharded_fuzzy_route")
+        n_iter = int(row["n_iter"])
+        require(n_iter == 4, f"sharded fuzzy route ran {n_iter} iterations")
+        for rank, per_rank in enumerate(seen):
+            require_launches(f"sharded fuzzy route, rank {rank}", per_rank,
+                             B7=2 * (n_iter + 1), B8=2 * (n_iter + 1))
+        numbers["B7"]["launches"] = seen[0]["B7"]
+        numbers["B8"]["launches"] = seen[0]["B8"]
+        x, _ = make_blobs(1, SORTED_N, SORTED_D, SORTED_K, device="cuda")
+        init = _resolve_init_sharded(
+            x, SORTED_K, "random", torch.Generator(device="cuda").manual_seed(0))
+        one = fuzzy_fit_sharded(x, SORTED_K, make_mesh_2d(1, 1), init=init,
+                                max_iters=4, tol=-1, kernel="pallas")
+        rel = abs(float(row["sse"]) - float(one.objective)) / abs(
+            float(one.objective))
+        require(one.n_iter == n_iter and rel <= REL_TOL,
+                f"sharded fuzzy route: n_iter {n_iter} vs {one.n_iter}, "
+                f"objective {row['sse']} vs {float(one.objective)}")
+        print(f"[sharded_fuzzy_route] against one process on a 1x1 grid: "
+              f"n_iter {n_iter} == {one.n_iter}, objective {row['sse']} vs "
+              f"{float(one.objective):.8g} (rel {rel:.3g})", flush=True)
+        del x, init, one
+        # The data-parallel fused route: B1 on each rank's half of the
+        # rows, against the one-GPU fused route's row.
+        row, seen = run_ranks(DP_ARGS, tmp, "dp_fused_route")
+        n_iter = int(row["n_iter"])
+        for rank, per_rank in enumerate(seen):
+            require_launches(f"dp fused route, rank {rank}", per_rank,
+                             B1=2 * (n_iter + 1))
+        rel = abs(float(row["sse"]) - float(fused_row["sse"])) / float(
+            fused_row["sse"])
+        require(n_iter == int(fused_row["n_iter"]) and rel <= REL_TOL,
+                f"dp fused route: n_iter {n_iter}, sse {row['sse']} vs the "
+                f"one-GPU route's {fused_row['sse']}")
+        print(f"[dp_fused_route] against the one-GPU fused route: n_iter "
+              f"{n_iter} == {fused_row['n_iter']}, sse {row['sse']} vs "
+              f"{fused_row['sse']} (rel {rel:.3g})", flush=True)
+
+    phase_one_rank_nccl(gen)
+
     # The sorted route on bf16 rows: B2 on the widened rows with the
     # centroids rounded to bf16, B3 on the gathered f32 rows; the same
     # stats, bitwise, as the f32 route on those operands.
@@ -1135,7 +1454,7 @@ def main() -> int:
           f"{float(got.sse):.8g}", flush=True)
     del xb, c, got
 
-    # Phase 10: predict with B2 on 2^20 points.
+    # Phase 14: predict with B2 on 2^20 points.
     x, c = blob_data(gen, 1 << 20, SORTED_K, SORTED_D)
     before = lk.distance_argmin.launches
     lab = kmeans_predict(x, c, kernel="pallas")
@@ -1146,7 +1465,7 @@ def main() -> int:
           f"except {ties} near-ties", flush=True)
     del x, c, lab
 
-    # Phase 11: whole fit, kernel against plain, same init.
+    # Phase 15: whole fit, kernel against plain, same init.
     x, c = blob_data(gen, 1 << 16, B1_SHAPE[1], B1_SHAPE[2])
     init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
     fits = {kern: kmeans_fit(x, c.shape[0], init=init, max_iters=50,
@@ -1269,6 +1588,10 @@ def main() -> int:
                "tdc_tpu/ops/pallas_kernels.py:405"),
         "B6": ("fuzzy_stats_fused", src + "fuzzy_kernels.cu",
                "tdc_tpu/ops/pallas_kernels.py:764"),
+        "B7": ("fuzzy_normalizer", src + "fuzzy_kernels.cu",
+               "tdc_tpu/ops/pallas_kernels.py:1160"),
+        "B8": ("fuzzy_accumulate", src + "fuzzy_kernels.cu",
+               "tdc_tpu/ops/pallas_kernels.py:1215"),
         "B9": ("gmm_stats_fused", src + "gmm_kernels.cu",
                "tdc_tpu/ops/pallas_kernels.py:1408"),
         "B10": ("lloyd_stats_tall", src + "tall_kernels.cu",

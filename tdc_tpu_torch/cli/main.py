@@ -1,6 +1,6 @@
 """Experiment CLI — the reference-parity subset of tdc_tpu/cli/main.py
-for in-memory, single-GPU Lloyd K-Means, Fuzzy C-Means and Gaussian
-Mixture EM.
+for in-memory Lloyd K-Means, Fuzzy C-Means and Gaussian Mixture EM, on one
+GPU or, for K-Means and Fuzzy C-Means, on several.
 
 Same flags (where ported), the same three timed phases (setup; a first fit
 counted as initialization; a warm re-fit counted as computation), the
@@ -31,6 +31,14 @@ or a --data_file (a `*.fm.npy` is read as it is, any other file is
 transposed); the CSV row's `kernel` is then 'tall'. --layout=auto (the
 default) runs the samples layout: the JAX CLI's auto picks features only
 on a TPU.
+Several GPUs: one process per GPU, e.g. `torchrun --nproc_per_node=4 -m
+tdc_tpu_torch.cli.main --n_GPUs=4 ...` (--n_GPUs must equal the launch's
+world size). distributedKMeans and distributedFuzzyCMeans then run data
+parallel (each rank fits its block of rows, the stats are all-reduced);
+--shard_k=P runs distributedFuzzyCMeans on the K-sharded tower over an
+(n_GPUs/P, P) grid of ranks (--kernel=pallas: B7 + B8 on each shard).
+Every rank builds the same points; rank 0 alone writes the CSV row and
+prints the summary. --device cpu runs the ranks on gloo.
 """
 
 from __future__ import annotations
@@ -60,7 +68,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_dim", type=int, default=None, help="dimensionality")
     p.add_argument("--K", type=int, required=True, help="number of clusters")
     p.add_argument("--n_GPUs", "--n_devices", dest="n_devices", type=int,
-                   default=None, help="devices to use (must be 1)")
+                   default=None,
+                   help="devices to use: one rank each, so it must equal "
+                        "the launch's world size (default: that size); "
+                        "more than 1 needs a distributed launch "
+                        "(torchrun --nproc_per_node=N)")
+    p.add_argument("--shard_k", type=int, default=1,
+                   help="model-axis size: shard the K centroids this many "
+                        "ways over an (n_GPUs/shard_k, shard_k) grid of "
+                        "ranks (the K=16,384 regime; distributedFuzzyCMeans "
+                        "in memory; requires n_GPUs %% shard_k == 0 and "
+                        "K %% shard_k == 0)")
+    p.add_argument("--num_batches", type=int, default=1,
+                   help="streamed batches; only 1 (in memory): the "
+                        "streamed drivers are not ported yet (ROADMAP.md "
+                        "Queue A, A7)")
+    p.add_argument("--streamed", action="store_true",
+                   help="the streamed driver: not ported yet (ROADMAP.md "
+                        "Queue A, A7)")
     p.add_argument("--n_max_iters", type=int, default=20,
                    help="iteration cap (reference default 20)")
     p.add_argument("--seed", type=int, default=123128,
@@ -152,6 +177,53 @@ def _validate_weight_file(parser, args) -> None:
         parser.error(f"weight file has shape {shape}; expected ({want},)")
 
 
+def _validate_devices(parser, args) -> None:
+    """--n_GPUs against the launch, and --shard_k."""
+    from tdc_tpu_torch.parallel.multihost import launched_world_size
+
+    world = launched_world_size()
+    n = args.n_devices
+    if n is not None and n < 1:
+        parser.error("--n_GPUs must be >= 1")
+    if n is not None and n > 1 and world == 1:
+        parser.error(
+            f"--n_GPUs={n} runs one process per GPU: launch them with "
+            f"`torchrun --nproc_per_node={n} -m tdc_tpu_torch.cli.main "
+            f"--n_GPUs={n} ...` (or set RANK, WORLD_SIZE, MASTER_ADDR and "
+            "MASTER_PORT for each process)")
+    if n is not None and world > 1 and n != world:
+        parser.error(f"--n_GPUs={n} but this launch has {world} ranks; "
+                     "they must be equal (one rank per GPU)")
+    n = n or world
+    if n > 1 and args.method_name == "gaussianMixture":
+        parser.error("--n_GPUs > 1 with gaussianMixture is not ported yet "
+                     "(ROADMAP.md Queue A, A4: the GMM's mesh)")
+    if args.num_batches != 1 or args.streamed:
+        parser.error(
+            "--num_batches/--streamed run the streamed drivers, which are "
+            "not ported yet (ROADMAP.md Queue A, A7"
+            + ("; with --shard_k, the streamed K-sharded towers of A9)"
+               if args.shard_k > 1 else ")"))
+    if args.shard_k < 1:
+        parser.error("--shard_k must be >= 1")
+    if args.shard_k > 1:
+        if args.K % args.shard_k != 0:
+            parser.error(f"--K={args.K} not divisible by "
+                         f"--shard_k={args.shard_k}")
+        if args.method_name != "distributedFuzzyCMeans":
+            parser.error(f"--shard_k with {args.method_name} is not ported "
+                         "yet (ROADMAP.md Queue A, A9: the K-sharded K-Means "
+                         "and GMM towers; the port shards K for "
+                         "distributedFuzzyCMeans in memory)")
+        if args.weight_file:
+            parser.error("--weight_file is not supported with "
+                         "--minibatch/--mean_combine/--shard_k")
+    if args.kernel == "pallas_bf16" and n > 1:
+        parser.error("--kernel=pallas_bf16 is single-device (no "
+                     "shard_map tower; cast inputs to bf16 with "
+                     "--kernel=pallas for the same MXU precision)")
+
+
 def validate_args(parser, args) -> None:
     if args.method_name in _LATER_METHODS:
         parser.error(f"--method_name={args.method_name} is not ported yet "
@@ -168,9 +240,7 @@ def validate_args(parser, args) -> None:
             parser.error(f"--{name} must be >= 1")
     if args.n_obs is not None and args.n_obs < args.K:
         parser.error("--n_obs must be >= --K")
-    if args.n_devices is not None and args.n_devices != 1:
-        parser.error("--n_GPUs must be 1: multi-GPU data parallel is not "
-                     "ported yet (ROADMAP.md Queue A, A4)")
+    _validate_devices(parser, args)
     if args.method_name != "distributedKMeans" and (
             args.spherical or args.empty_policy != "keep"):
         parser.error("--spherical and --empty_policy=relocate are "
@@ -233,6 +303,12 @@ def run_experiment(args) -> dict:
         make_blobs,
     )
     from tdc_tpu_torch.models import fuzzy_cmeans_fit, gmm_fit, kmeans_fit
+    from tdc_tpu_torch.parallel.mesh import make_mesh
+    from tdc_tpu_torch.parallel.multihost import process_count
+    from tdc_tpu_torch.parallel.sharded_k import (
+        fuzzy_fit_sharded,
+        make_mesh_2d,
+    )
     from tdc_tpu_torch.utils.device import resolve_device
     from tdc_tpu_torch.utils.timing import PhaseTimers
 
@@ -242,6 +318,18 @@ def run_experiment(args) -> dict:
     layout = "features" if args.layout == "features" else "samples"
     features = layout == "features"
     with timers.phase("setup") as out:
+        n_devices = args.n_devices or process_count()
+        if features and n_devices > 1:
+            raise ValueError(
+                "--layout=features is single-device; pass --n_GPUs=1")
+        mesh = mesh2d = None
+        if args.shard_k > 1:
+            if n_devices % args.shard_k != 0:
+                raise ValueError(f"n_devices={n_devices} not divisible by "
+                                 f"shard_k={args.shard_k}")
+            mesh2d = make_mesh_2d(n_devices // args.shard_k, args.shard_k)
+        elif n_devices > 1:
+            mesh = make_mesh(n_devices)
         dev = resolve_device(args.device)
         if args.data_file:
             x, _ = (load_points_feature_major if features
@@ -273,6 +361,12 @@ def run_experiment(args) -> dict:
 
     def fit():
         gen = torch.Generator(device=dev).manual_seed(args.seed)
+        if mesh2d is not None:
+            return fuzzy_fit_sharded(
+                x, args.K, mesh2d, m=args.fuzzifier, init=args.init,
+                generator=gen, max_iters=args.n_max_iters, tol=args.tol,
+                kernel=args.kernel or "xla", device=dev,
+            )
         if gmm:
             return gmm_fit(
                 x, args.K, init=args.init, generator=gen,
@@ -285,14 +379,14 @@ def run_experiment(args) -> dict:
                 x, args.K, m=args.fuzzifier, init=args.init, generator=gen,
                 max_iters=args.n_max_iters, tol=args.tol,
                 kernel=args.kernel or "xla", sample_weight=weights,
-                layout=layout, device=dev,
+                layout=layout, mesh=mesh, device=dev,
             )
         return kmeans_fit(
             x, args.K, init=args.init, generator=gen,
             max_iters=args.n_max_iters, tol=args.tol,
             spherical=args.spherical, kernel=args.kernel or "xla",
             sample_weight=weights, empty_policy=args.empty_policy,
-            layout=layout, device=dev,
+            layout=layout, mesh=mesh, device=dev,
         )
 
     # Initialization = the first fit, including the kernels' first-use
@@ -305,7 +399,6 @@ def run_experiment(args) -> dict:
         result = fit()
         out["block_on"] = result.means if gmm else result.centroids
 
-    n_devices = 1
     n_iter = int(result.n_iter)
     comp = timers.get("computation")
     pps = (n_obs * n_iter / comp / n_devices) if comp > 0 else float("inf")
@@ -339,6 +432,25 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     validate_args(parser, args)
 
+    import torch.distributed as dist
+
+    from tdc_tpu_torch.parallel import multihost
+
+    # A torchrun launch: _run joins its process group, and it is left at
+    # the end; a group the caller made stays the caller's.
+    owned = not dist.is_initialized()
+    try:
+        return _run(args)
+    finally:
+        if owned:
+            multihost.shutdown()
+
+
+def _run(args) -> int:
+    """Join the launch's process group (if any) and run the experiment;
+    rank 0 alone writes the CSV row (an error row too) and prints the
+    summary."""
+    from tdc_tpu_torch.parallel import multihost
     from tdc_tpu_torch.utils.logging import append_result_row, error_row
     from tdc_tpu_torch.utils.structlog import RunLog
 
@@ -356,14 +468,19 @@ def main(argv=None) -> int:
         "n_dim": args.n_dim or "",
         "num_batches": 1,
     }
+    rank = int(os.environ.get("RANK", "0"))
     try:
+        rank, _ = multihost.initialize_from_env(device=args.device)
         row = run_experiment(args)
     except Exception as e:  # reference :362-377: capture into the CSV, exit 1
-        if args.log_file:
+        if args.log_file and rank == 0:
             append_result_row(args.log_file, error_row(base, e))
         runlog.event("run_error", error=type(e).__name__, message=str(e)[:500])
         print(f"FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    multihost.barrier()
+    if rank != 0:
+        return 0
     if args.log_file:
         append_result_row(args.log_file, row)
     runlog.event("run_ok", **{k: row[k] for k in

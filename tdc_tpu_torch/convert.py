@@ -3,7 +3,8 @@ the JAX package and the port.
 
 The packages' results reduce to plain arrays: pass
 `np.asarray(jax_result.centroids)` (and optionally n_iter, sse or
-objective, shift, converged) to `kmeans_state_from_numpy` or
+objective, shift, converged, and the (n_iter, 2) history, as
+`fuzzy_fit_sharded` returns it) to `kmeans_state_from_numpy` or
 `fuzzy_state_from_numpy`, or a GMMResult's means, variances, weights and
 covariance_type to `gmm_state_from_numpy`, to predict and score with the
 port from a model the JAX package fitted; `to_numpy` goes the other way
@@ -54,11 +55,15 @@ def fuzzy_state_from_numpy(
     objective: float = float("nan"),
     shift: float = float("nan"),
     converged: bool = False,
+    history=None,
     device=None,
 ) -> FuzzyCMeansResult:
-    """A FuzzyCMeansResult on `device` (None = 'cuda') from numpy state."""
+    """A FuzzyCMeansResult on `device` (None = 'cuda') from numpy state;
+    `history` is the (n_iter, 2) [objective, shift] array, kept as
+    numpy."""
     return FuzzyCMeansResult(
         n_iter=int(n_iter), converged=bool(converged),
+        history=None if history is None else np.asarray(history, np.float32),
         **_state(centroids, device, objective=objective, shift=shift))
 
 
@@ -115,10 +120,13 @@ def to_numpy(result: KMeansResult | FuzzyCMeansResult | GMMResult) -> dict:
             "covariance_type": result.covariance_type,
         }
     cost = "sse" if isinstance(result, KMeansResult) else "objective"
-    return {
+    out = {
         "centroids": result.centroids.detach().cpu().numpy(),
         "n_iter": np.int32(result.n_iter),
         cost: np.float32(float(getattr(result, cost))),
         "shift": np.float32(float(result.shift)),
         "converged": np.bool_(result.converged),
     }
+    if result.history is not None:
+        out["history"] = np.asarray(result.history, np.float32)
+    return out

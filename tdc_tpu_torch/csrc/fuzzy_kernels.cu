@@ -1,8 +1,14 @@
-// B6 `fuzzy_stats_fused` for Hopper (sm_90a).
+// B6 `fuzzy_stats_fused`, B7 `fuzzy_normalizer` and B8 `fuzzy_accumulate`
+// for Hopper (sm_90a).
 //
 // Replaces `fuzzy_stats_fused` (tdc_tpu/ops/pallas_kernels.py:708,
 // `pallas_call` at :764; body `_fused_epilogue_kernel` with
-// `_fuzzy_fold_for` :668). Per row i and centroid k:
+// `_fuzzy_fold_for` :668) with both phases below, and the two-pass
+// kernels of the K-sharded fuzzy tower with one phase each:
+// `fuzzy_normalizer` (`pallas_call` at :1160, body `_fuzzy_norm_kernel`)
+// with phase 1 and `fuzzy_accumulate` (:1215, `_fuzzy_accum_kernel`) with
+// phase 2, whose s is then the sum of every K-shard's phase 1. Per row i
+// and centroid k:
 //   d²  = max(‖x‖² + ‖c‖² − 2x·c, 0)        (‖x‖² computed here, ‖c‖² given)
 //   inv = (d² + eps)^(−1/(m−1)),  u = inv / Σ_k inv,  μ = u^m
 // and the outputs are Σ_i μ x_i (K, d), Σ_i μ (K,) and Σ μ d² (), all f32.
@@ -342,6 +348,17 @@ __global__ void fuzzy_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+// ‖x_i‖² alone, for B8 when no phase 1 ran on these rows: 16 lanes a row,
+// the same order as phase 1's, so the bits equal the ones it writes.
+__global__ void __launch_bounds__(kThreads)
+    row_sq_norms_kernel(const float* __restrict__ x, long long n, int d,
+                        float* __restrict__ x2_out) {
+  const long long row = (long long)blockIdx.x * (kThreads / 16) +
+                        threadIdx.x / 16;
+  const float s = row_sq_norm(x, n, d, row);
+  if (threadIdx.x % 16 == 0 && row < n) x2_out[row] = s;
+}
+
 int k_tiles(int k) { return (k + kFuzzyBN - 1) / kFuzzyBN; }
 int d_slices(int d) { return (d + kDC - 1) / kDC; }
 
@@ -374,8 +391,21 @@ extern "C" int tdc_fuzzy_normalizer(const float* x, const float* c,
   return (int)cudaGetLastError();
 }
 
+// ‖x‖² (N,) f32 of the rows, as phase 1 computes it.
+extern "C" int tdc_row_sq_norms(const float* x, long long n, int d, float* x2,
+                                void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((n + kThreads / 16 - 1) / (kThreads / 16));
+  row_sq_norms_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, n, d,
+                                                                    x2);
+  return (int)cudaGetLastError();
+}
+
 // Phase 2 alone, given s and ‖x‖²: the accumulate and the fixed-order
-// reduction.
+// reduction. s may come from other centroids than c (B8 in the K-sharded
+// tower takes the sum of every shard's phase 1): u = inv / s holds as it
+// is, and at m = 2 the exact 1/v and u·u forms do not depend on where s
+// came from.
 extern "C" int tdc_fuzzy_accumulate(const float* x, const float* c,
                                     const float* c2, const float* s,
                                     const float* x2, long long n, int k,

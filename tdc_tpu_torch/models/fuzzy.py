@@ -14,7 +14,9 @@ package's:
   makes n_iter + 1 stats calls;
 - converged = shift <= max(tol, 0) and n_iter > 0.
 
-Supported: no mesh, float32 or bfloat16 inputs, layout='samples' or
+Supported: mesh= (data parallel, as in `models/kmeans.py`: every rank
+passes the same x, rank 0 seeds, the stats are all-reduced), float32 or
+bfloat16 inputs, layout='samples' or
 'features' (x is (d, N) and every stats call runs B11, `ops/tall.py`,
 with the JAX package's restrictions: no mesh or weights, kernel 'xla',
 meaning unset, or 'tall'), kernel in {'xla', 'pallas', 'auto',
@@ -39,10 +41,10 @@ from tdc_tpu_torch.models._common import validate_sample_weight
 from tdc_tpu_torch.models.kmeans import (
     _as_points,
     _init_block,
-    _not_ported,
     auto_block_rows,
     kmeans_predict,
     resolve_init,
+    resolve_init_replicated,
 )
 from tdc_tpu_torch.ops.assign import (
     fuzzy_memberships,
@@ -105,12 +107,19 @@ def _fcm_loop(
     block_rows: int = 0,
     history: bool = False,
     w: torch.Tensor | None = None,
+    mesh=None,
 ) -> FuzzyCMeansResult:
     """The fuzzy C-means iteration. tol < 0 disables the convergence test;
     history=True records (objective, shift) per iteration on the device.
-    `w` (sample weights) routes to the weighted plain stats."""
+    `w` (sample weights) routes to the weighted plain stats. With `mesh`,
+    x (and w) are this rank's rows and the stats are summed over the data
+    axis."""
     stats_fn = _fuzzy_stats_fn(kernel, m, block_rows, *init_centroids.shape,
                                w=w)
+    if mesh is not None:
+        from tdc_tpu_torch.parallel.reduce import reduced_tree_stats
+
+        stats_fn = reduced_tree_stats(mesh, stats_fn)
     c = init_centroids.to(torch.float32)
     hist = (torch.full((max_iters, 2), float("nan"), device=x.device)
             if history else None)
@@ -167,6 +176,8 @@ def fuzzy_cmeans_fit(
         (default: one seeded with 0).
       max_iters: iteration cap; tol: center-shift tolerance (negative =
         exactly max_iters iterations).
+      mesh: a `parallel.mesh.Mesh`: x (and sample_weight) the same on every
+        rank, N divisible by the mesh size; each rank fits its rows.
       kernel: 'xla' (plain PyTorch ops, N-blocked past the memory budget),
         'pallas' (the CUDA kernel B6) or 'auto' / 'auto:quantized' (pallas
         on CUDA, xla on the CPU; xla whenever sample_weight is given).
@@ -203,8 +214,6 @@ def fuzzy_cmeans_fit(
                               generator)
         return _fcm_loop(x, c_init, int(max_iters), float(tol), float(m),
                          "tall", 0, bool(history))
-    if mesh is not None:
-        raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
     dev = resolve_device(device)
     x = _as_points(x, dev)
     n, d = x.shape
@@ -227,10 +236,21 @@ def fuzzy_cmeans_fit(
                 "kernel='pallas' does not support sample_weight; drop the "
                 "explicit kernel")
         w = validate_sample_weight(sample_weight, n, k, dev)
-    block_rows = auto_block_rows(n, k, device=dev) if kernel == "xla" else 0
-    c_init = resolve_init(x, k, init, generator, w)
+    if mesh is not None:
+        from tdc_tpu_torch.parallel.mesh import shard_points
+
+        if n % mesh.size != 0:
+            raise ValueError(f"N={n} not divisible by mesh size {mesh.size}")
+        c_init = resolve_init_replicated(x, k, init, generator, mesh, w)
+        x = shard_points(x, mesh)
+        if w is not None:
+            w = shard_points(w, mesh)
+    else:
+        c_init = resolve_init(x, k, init, generator, w)
+    block_rows = (auto_block_rows(x.shape[0], k, device=dev)
+                  if kernel == "xla" else 0)
     return _fcm_loop(x, c_init, int(max_iters), float(tol), float(m), kernel,
-                     block_rows, bool(history), w)
+                     block_rows, bool(history), w, mesh)
 
 
 def fuzzy_predict(x, centroids, *, m: float = 2.0, soft: bool = False,

@@ -10,13 +10,18 @@ tolerance is set. The semantics are the JAX package's:
   n_iter + 1 stats calls;
 - converged = shift <= max(tol, 0) and n_iter > 0.
 
-Supported: no mesh, float32 or bfloat16 inputs, kernel in {'xla',
-'refined', 'pallas', 'pallas_bf16', 'auto', 'auto:quantized'}, sample
-weights on 'xla' and 'pallas' (the weighted kernel route: B4, or B2 + B3
-past its limit), and layout='features': x is (d, N) and every stats call
-runs B10 (`ops/tall.py`), with the JAX package's restrictions (no mesh,
-weights or relocation; kernel 'xla', meaning unset, or 'tall'). The rest
-raises NotImplementedError naming the ROADMAP.md item that ports it.
+Supported: float32 or bfloat16 inputs, kernel in {'xla', 'refined',
+'pallas', 'pallas_bf16', 'auto', 'auto:quantized'}, sample weights on
+'xla' and 'pallas' (the weighted kernel route: B4, or B2 + B3 past its
+limit), layout='features': x is (d, N) and every stats call runs B10
+(`ops/tall.py`), with the JAX package's restrictions (no mesh, weights or
+relocation; kernel 'xla', meaning unset, or 'tall'), and mesh=: one
+process per GPU (`parallel/mesh.py`), every rank passing the same x;
+rank 0 seeds and broadcasts the init, each rank takes its block of rows,
+and the stats of every iteration are all-reduced over the data axis
+(`parallel/reduce.py`), so every rank runs the same loop and returns the
+same centroids. The rest raises NotImplementedError naming the ROADMAP.md
+item that ports it.
 
 bf16 points stay one 2-byte copy on the device, as in the JAX package.
 The plain paths promote them to f32 against f32 centroids. The kernel
@@ -180,13 +185,20 @@ def _lloyd_loop(
     history: bool = False,
     empty_policy: str = "keep",
     w: torch.Tensor | None = None,
+    mesh=None,
 ) -> KMeansResult:
     """The Lloyd iteration. tol < 0 disables the convergence test;
     history=True records (sse, shift) per iteration on the device. `w`
     (sample weights) routes to the weighted stats; 'relocate' then reads
-    the weight mass."""
+    the weight mass. With `mesh`, x (and w) are this rank's rows and the
+    stats are summed over the data axis, so the shift, and with it every
+    branch, is the same on every rank."""
     stats_fn = _stats_fn(kernel, block_rows, *init_centroids.shape, w=w,
                          dtype=x.dtype)
+    if mesh is not None:
+        from tdc_tpu_torch.parallel.reduce import reduced_tree_stats
+
+        stats_fn = reduced_tree_stats(mesh, stats_fn)
     c = init_centroids.to(torch.float32)
     if spherical:
         c = _normalize(c)
@@ -224,6 +236,13 @@ def _lloyd_loop(
     )
 
 
+def _check_generator(generator, x: torch.Tensor) -> None:
+    if generator.device.type != x.device.type:
+        raise ValueError(
+            f"the generator lives on {generator.device}, the points on "
+            f"{x.device}; seed a generator on the points' device")
+
+
 def resolve_init(x: torch.Tensor, k: int, init, generator,
                  sample_weight=None) -> torch.Tensor:
     """Turn an init spec ('first_k' | 'random' | 'kmeans++' | array) into
@@ -241,15 +260,36 @@ def resolve_init(x: torch.Tensor, k: int, init, generator,
         return init_first_k(x, k)
     if init in ("kmeans||", "k-means||", "kmeans_parallel"):
         raise _not_ported(f"init={init!r}", "Queue A, A8")
-    if generator.device.type != x.device.type:
-        raise ValueError(
-            f"the generator lives on {generator.device}, the points on "
-            f"{x.device}; seed a generator on the points' device")
+    _check_generator(generator, x)
     if init == "random":
         return init_random(generator, x, k, sample_weight)
     if init in ("kmeans++", "k-means++"):
         return init_kmeans_pp(generator, x, k, sample_weight)
     raise ValueError(f"unknown init: {init!r}")
+
+
+def resolve_init_replicated(x: torch.Tensor, k: int, init, generator,
+                            mesh, sample_weight=None) -> torch.Tensor:
+    """resolve_init for a mesh: a stochastic init is drawn on rank 0 alone
+    and broadcast (JAX: the init replicated over the mesh), so the ranks'
+    generators need not agree. Explicit arrays, 'first_k' and every
+    refusal resolve on every rank alike, so no rank raises alone and
+    leaves the others waiting in the broadcast."""
+    from tdc_tpu_torch.parallel.mesh import replicate
+    from tdc_tpu_torch.parallel.multihost import process_index
+
+    drawn = isinstance(init, str) and init in ("random", "kmeans++",
+                                               "k-means++")
+    if drawn and process_index() != 0:
+        _check_generator(generator, x)
+        if init == "random" and k > x.shape[0]:
+            raise ValueError(
+                f"cannot draw k={k} distinct rows from N={x.shape[0]}")
+        c = torch.empty((k, x.shape[1]), dtype=torch.float32,
+                        device=x.device)
+    else:
+        c = resolve_init(x, k, init, generator, sample_weight)
+    return replicate(c, mesh)
 
 
 def _as_points(x, device: torch.device, shape: str = "(N, d)"
@@ -270,6 +310,28 @@ def _init_block(xt: torch.Tensor, init_sample: int) -> torch.Tensor:
     """The first `init_sample` points of feature-major xt (d, N) as a
     sample-major f32 block: where the features layout seeds."""
     return xt[:, :min(xt.shape[1], init_sample)].T.float().contiguous()
+
+
+def _check_kernel_options(kernel: str, sample_weight, mesh) -> None:
+    """The JAX package's refusals of an explicit kernel with weights or a
+    mesh, in its words (checked again after 'auto' resolves)."""
+    if sample_weight is not None and kernel == "pallas" and mesh is not None:
+        raise ValueError(
+            "kernel='pallas' with sample_weight is single-device (the "
+            "weighted kernels have no shard_map tower); drop mesh or the "
+            "explicit kernel"
+        )
+    if kernel == "pallas_bf16" and mesh is not None:
+        raise ValueError(
+            "kernel='pallas_bf16' is single-device (the bf16-MXU epilogue "
+            "has no shard_map tower; cast the input to bf16 with "
+            "kernel='pallas' for the same MXU precision on a mesh)"
+        )
+    if kernel == "pallas_bf16" and sample_weight is not None:
+        raise ValueError(
+            "kernel='pallas_bf16' does not support sample_weight (the "
+            "weighted epilogue keeps full precision); drop the explicit "
+            "kernel")
 
 
 def kmeans_fit(
@@ -303,6 +365,9 @@ def kmeans_fit(
       max_iters: iteration cap; tol: center-shift tolerance (negative =
         exactly max_iters iterations).
       spherical: cosine K-Means (points and centroids L2-normalized).
+      mesh: a `parallel.mesh.Mesh` (`make_mesh`): x (and sample_weight)
+        the same on every rank, N divisible by the mesh size; each rank
+        fits its block of rows and all of them return the same result.
       kernel: 'xla' (plain PyTorch ops), 'refined' (exact-distance champion
         refinement), 'pallas' (the CUDA kernels: B1 fused, B5 for bf16
         points, or B2 + B3 sorted past the fused limit; with weights B4,
@@ -349,18 +414,11 @@ def kmeans_fit(
                 "is not supported with it"
             )
         kernel = "tall"
-    if kernel == "pallas_bf16" and mesh is not None:
-        raise ValueError(
-            "kernel='pallas_bf16' is single-device (the bf16 epilogue has no "
-            "data-parallel tower; cast the input to bf16 with "
-            "kernel='pallas' for the same product precision on a mesh)")
-    if kernel == "pallas_bf16" and sample_weight is not None:
-        raise ValueError(
-            "kernel='pallas_bf16' does not support sample_weight (the "
-            "weighted epilogue keeps full precision); drop the explicit "
-            "kernel")
-    if mesh is not None:
-        raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
+    _check_kernel_options(kernel, sample_weight, mesh)
+    if mesh is not None and empty_policy == "relocate":
+        raise _not_ported(
+            "empty_policy='relocate' with a mesh (the costliest points are "
+            "spread over the ranks)", "Queue A, A4")
     dev = resolve_device(device)
     x = _as_points(x, dev, "(d, N)" if features else "(N, d)")
     if generator is None:
@@ -372,8 +430,8 @@ def kmeans_fit(
             res = kmeans_fit(
                 x, k, init=init, generator=generator, max_iters=max_iters,
                 tol=tol, spherical=spherical, kernel=kernel,
-                sample_weight=sample_weight, n_init=1, layout=layout,
-                history=history, init_sample=init_sample,
+                mesh=mesh, sample_weight=sample_weight, n_init=1,
+                layout=layout, history=history, init_sample=init_sample,
                 empty_policy=empty_policy, device=dev,
             )
             if best is None or float(res.sse) < float(best.sse):
@@ -395,7 +453,13 @@ def kmeans_fit(
         kernel = resolve_kernel(
             kernel, k=k, d=d, device=dev, label="kmeans_fit",
             model="kmeans" if sample_weight is None else "kmeans_weighted",
-            itemsize=x.element_size())
+            itemsize=x.element_size(),
+            ineligible=(
+                "sample weights with a mesh have no weighted kernel tower"
+                if sample_weight is not None and mesh is not None else None),
+            mxu_ineligible=("the bf16 epilogue has no data-parallel tower"
+                            if mesh is not None else None))
+        _check_kernel_options(kernel, sample_weight, mesh)
     w = None
     if sample_weight is not None:
         if kernel == "refined":
@@ -405,14 +469,28 @@ def kmeans_fit(
                 "kernel='refined' does not support sample_weight; drop the "
                 "explicit kernel")
         w = validate_sample_weight(sample_weight, n, k, dev)
-    block_rows = (auto_block_rows(n, k, device=dev)
-                  if kernel in ("xla", "refined") else 0)
     if spherical:
         x = _normalize(x.float())
-    c_init = resolve_init(x, k, init, generator, w)
+    if mesh is not None:
+        from tdc_tpu_torch.parallel.mesh import shard_points
+
+        if n % mesh.size != 0:
+            # Padding rows would bias cluster means; the exact path
+            # requires even shardability (the JAX package's words).
+            raise ValueError(
+                f"N={n} not divisible by mesh size {mesh.size}; "
+                "truncate/pad the data or use streamed_kmeans_fit")
+        c_init = resolve_init_replicated(x, k, init, generator, mesh, w)
+        x = shard_points(x, mesh)
+        if w is not None:
+            w = shard_points(w, mesh)
+    else:
+        c_init = resolve_init(x, k, init, generator, w)
+    block_rows = (auto_block_rows(x.shape[0], k, device=dev)
+                  if kernel in ("xla", "refined") else 0)
     return _lloyd_loop(x, c_init, int(max_iters), float(tol),
                        bool(spherical), kernel, block_rows, bool(history),
-                       empty_policy, w)
+                       empty_policy, w, mesh)
 
 
 def kmeans_predict(x, centroids, *, spherical: bool = False,

@@ -51,6 +51,7 @@ SIGNATURES = {
     "tdc_fuzzy_normalizer": [_P, _P, _P, _LL, _I, _I, _F, _F, _P, _P, _P],
     "tdc_fuzzy_accumulate": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _F, _F,
                              _I, _P, _P, _P, _P, _P, _P, _P],
+    "tdc_row_sq_norms": [_P, _LL, _I, _P, _P],
     "tdc_fuzzy_k_tile": [],
     "tdc_fuzzy_grid": [_LL, _I, _I, _I],
     "tdc_gmm_normalizer": [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P],

@@ -1,7 +1,9 @@
-"""The fuzzy kernel B6 (counterpart: tdc_tpu/ops/pallas_kernels.py, the
-`_fuzzy_fold_for`, `fuzzy_stats_fused` and `fuzzy_stats_auto` parts).
+"""The fuzzy kernels B6, B7 and B8 (counterpart:
+tdc_tpu/ops/pallas_kernels.py, the `_fuzzy_fold_for`, `fuzzy_stats_fused`,
+`fuzzy_stats_auto`, `fuzzy_normalizer`, `fuzzy_accumulate` and
+`fuzzy_stats_twopass` parts).
 
-As in `ops/lloyd_kernels.py`, the kernel has three parts here:
+As in `ops/lloyd_kernels.py`, each kernel has three parts here:
 
 - the wrapper `fuzzy_stats_fused`, which checks its inputs, allocates every
   output and workspace with `torch.empty`, and on a CUDA tensor launches
@@ -19,6 +21,14 @@ The kernel is two phases (the row normaliser, then a K-tiled accumulate
 that recomputes the distance tile), so it takes every (K, d): there is no
 route limit and no fallback. See the note in `csrc/fuzzy_kernels.cu` and
 PERF.md.
+
+B7 (`fuzzy_normalizer`) and B8 (`fuzzy_accumulate`) are those two phases
+as kernels of their own, for the K-sharded tower
+(`parallel/sharded_k.py`): B7 gives s = Σ_k (d² + eps)^(−1/(m−1)) over
+the centroids it is given, the tower sums s over the model axis, and B8
+takes that s from outside. `fuzzy_stats_twopass` is B7 then B8. B6 calls
+the same phases without touching B7's or B8's counters, so a route's
+launch counts name the kernels it really ran.
 """
 
 from __future__ import annotations
@@ -150,3 +160,122 @@ def fuzzy_stats_auto(x: torch.Tensor, centroids: torch.Tensor,
                      m: float = 2.0) -> FuzzyStats:
     """Fuzzy stats on the kernel route (tests and the fit loop share it)."""
     return fuzzy_stats_for(*centroids.shape)(x, centroids, m)
+
+
+def _check_s(name: str, x: torch.Tensor, s: torch.Tensor) -> None:
+    if s.shape != (x.shape[0],):
+        raise ValueError(f"{name}: s must be ({x.shape[0]},), one normaliser "
+                         f"per row, got {tuple(s.shape)}")
+    if s.dtype != torch.float32:
+        raise TypeError(f"{name}: s must be float32, got {s.dtype}")
+    if s.device != x.device:
+        raise ValueError(f"{name}: x on {x.device}, s on {s.device}")
+
+
+def _twopass_operands(name: str, x: torch.Tensor, centroids: torch.Tensor,
+                      m: float):
+    """Checked kernel operands of B7 and B8: bf16 rows widened and the
+    centroids rounded to bf16 before ‖c‖², as `_twopass_prep` casts them
+    to x.dtype."""
+    _check(name, x, centroids, ROW_DTYPES)
+    _check_m(name, m)
+    return widened(x, centroids)
+
+
+def _plain_inv(x, centroids, m, eps):
+    """(row slice, rows, clamped d², inv) over row blocks of at most
+    _PLAIN_TILE_ELEMS (rows, K) elements, f32 as in the kernels."""
+    c2 = _sq_norms(centroids)
+    p = -1.0 / (m - 1.0)
+    rows = max(1, _PLAIN_TILE_ELEMS // centroids.shape[0])
+    for s in range(0, x.shape[0], rows):
+        xb = x[s:s + rows]
+        x2 = (xb * xb).sum(dim=1, keepdim=True)
+        d2 = torch.clamp_min(x2 + c2 - 2.0 * (xb @ centroids.T), 0.0)
+        yield slice(s, s + rows), xb, d2, (d2 + eps) ** p
+
+
+def fuzzy_normalizer_plain(x: torch.Tensor, centroids: torch.Tensor,
+                           m: float = 2.0, eps: float = 1e-9) -> torch.Tensor:
+    """Plain version of B7: s (N,) f32, Σ_k (d² + eps)^(−1/(m−1)) over
+    these centroids only, each row's sum taken in f64 and rounded once."""
+    _check_m("fuzzy_normalizer_plain", m)
+    s = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    for rows, _, _, inv in _plain_inv(x, centroids, m, eps):
+        s[rows] = inv.sum(dim=1, dtype=torch.float64).float()
+    return s
+
+
+def fuzzy_accumulate_plain(x: torch.Tensor, centroids: torch.Tensor,
+                           s: torch.Tensor, m: float = 2.0,
+                           eps: float = 1e-9) -> FuzzyStats:
+    """Plain version of B8: with u = inv / s and μ = u^m, Σμx (K, d),
+    Σμ (K,) and Σμd² (clamped at 0), the sums in f64 rounded once. s is
+    taken as given: in the K-sharded tower it sums other centroids too."""
+    _check_m("fuzzy_accumulate_plain", m)
+    k, d = centroids.shape
+    wsums = torch.zeros((k, d), dtype=torch.float64, device=x.device)
+    weights = torch.zeros(k, dtype=torch.float64, device=x.device)
+    objective = torch.zeros((), dtype=torch.float64, device=x.device)
+    for rows, xb, d2, inv in _plain_inv(x, centroids, m, eps):
+        mu = (inv / s[rows, None]) ** m
+        wsums += mu.T.double() @ xb.double()
+        weights += mu.sum(dim=0, dtype=torch.float64)
+        objective += (mu * d2).sum(dtype=torch.float64)
+    return FuzzyStats(weighted_sums=wsums.float(), weights=weights.float(),
+                      objective=torch.clamp_min(objective, 0.0).float())
+
+
+def fuzzy_normalizer(x: torch.Tensor, centroids: torch.Tensor,
+                     m: float = 2.0, eps: float = 1e-9, *,
+                     return_x2: bool = False):
+    """B7: the row normaliser s (N,) f32 = Σ_k (d² + eps)^(−1/(m−1)) over
+    THESE centroids, with no (N, K) buffer. With return_x2, also ‖x‖²
+    (N,) f32 as the kernel computed it, for `fuzzy_accumulate(x2=...)`."""
+    x, centroids = _twopass_operands("fuzzy_normalizer", x, centroids, m)
+    if x.device.type == "cpu":
+        s = fuzzy_normalizer_plain(x, centroids, m, eps)
+        return (s, (x * x).sum(dim=1)) if return_x2 else s
+    s, x2 = _normalize_phase(x, centroids, _sq_norms(centroids), m, eps)
+    fuzzy_normalizer.launches += 1
+    return (s, x2) if return_x2 else s
+
+
+fuzzy_normalizer.launches = 0
+
+
+def fuzzy_accumulate(x: torch.Tensor, centroids: torch.Tensor,
+                     s: torch.Tensor, m: float = 2.0, eps: float = 1e-9, *,
+                     x2: torch.Tensor | None = None) -> FuzzyStats:
+    """B8: FuzzyStats of THESE centroids given the row normaliser s (N,)
+    f32, from `fuzzy_normalizer` or, in the K-sharded tower, its sum over
+    the model shards: Σμx (K, d), Σμ (K,) and Σμd² clamped at 0, with
+    u = inv / s and μ = u^m. x2 (‖x‖², as B7 returns it) saves the
+    kernel a pass over x; the plain version recomputes it."""
+    x, centroids = _twopass_operands("fuzzy_accumulate", x, centroids, m)
+    _check_s("fuzzy_accumulate", x, s)
+    if x.device.type == "cpu":
+        return fuzzy_accumulate_plain(x, centroids, s, m, eps)
+    if x2 is None:
+        x2 = torch.empty(max(x.shape[0], 1), dtype=torch.float32,
+                         device=x.device)
+        _build.check(_build.load().lib.tdc_row_sq_norms(
+            x.data_ptr(), x.shape[0], x.shape[1], x2.data_ptr(), _stream(x),
+        ), "fuzzy_accumulate (row norms)")
+    else:
+        _check_s("fuzzy_accumulate (x2)", x, x2)
+    out = _accumulate_phase(x, centroids, _sq_norms(centroids),
+                            s.contiguous(), x2.contiguous(), m, eps)
+    fuzzy_accumulate.launches += 1
+    return out
+
+
+fuzzy_accumulate.launches = 0
+
+
+def fuzzy_stats_twopass(x: torch.Tensor, centroids: torch.Tensor,
+                        m: float = 2.0, eps: float = 1e-9) -> FuzzyStats:
+    """B7 then B8 on the same centroids: the fuzzy stats of B6, as the
+    K-sharded tower computes them on one shard."""
+    s, x2 = fuzzy_normalizer(x, centroids, m, eps, return_x2=True)
+    return fuzzy_accumulate(x, centroids, s, m, eps, x2=x2)

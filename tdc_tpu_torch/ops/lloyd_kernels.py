@@ -463,16 +463,21 @@ def lloyd_stats_auto_weighted(x: torch.Tensor, centroids: torch.Tensor,
 
 def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
                    model: str = "kmeans", label: str = "",
-                   ineligible: str | None = None, itemsize: int = 4) -> str:
+                   ineligible: str | None = None,
+                   mxu_ineligible: str | None = None,
+                   itemsize: int = 4) -> str:
     """The default-kernel policy: 'auto' resolves to 'pallas' (the CUDA
     kernels) on a CUDA device and to 'xla' (plain PyTorch) on the CPU, with
     one `kernel_selected` event; an explicit name passes through. CUDA
     plays the part that platform == 'tpu' plays in the JAX version.
-    `model` is 'kmeans', 'kmeans_weighted', 'fuzzy' or 'gmm'; every kernel
-    route takes every (K, d). `ineligible` names a caller-side reason the
+    `model` is 'kmeans', 'kmeans_weighted', 'fuzzy', 'fuzzy_sharded' (the
+    K-sharded tower: B7 + B8 on each shard) or 'gmm'; every kernel route
+    takes every (K, d). `ineligible` names a caller-side reason the
     kernels cannot apply at all (weighted fuzzy stats run in f32 plain ops;
-    the GMM kernel is diag/spherical and unweighted): auto then resolves to
-    'xla' with that reason in the event.
+    the GMM kernel is diag/spherical and unweighted; weights on a mesh):
+    auto then resolves to 'xla' with that reason in the event.
+    `mxu_ineligible` names one that rules out only the bf16 epilogue (a
+    mesh): ':quantized' then takes the plain auto choice.
 
     'auto:quantized' is auto plus permission to pick 'pallas_bf16' (B5 on
     f32 rows: bf16 cross operands, f32 stats) where it applies: CUDA,
@@ -482,7 +487,8 @@ def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
     never an error."""
     if kernel not in ("auto", "auto:quantized"):
         return kernel
-    if model not in ("kmeans", "kmeans_weighted", "fuzzy", "gmm"):
+    if model not in ("kmeans", "kmeans_weighted", "fuzzy", "fuzzy_sharded",
+                     "gmm"):
         raise NotImplementedError(
             f"resolve_kernel: model={model!r} is not ported yet "
             "(ROADMAP.md Queue A)")
@@ -501,6 +507,8 @@ def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
         if model != "kmeans":
             reason += (f"; bf16 epilogue declined: it is unweighted "
                        f"kmeans-fused only (model={model})")
+        elif mxu_ineligible is not None:
+            reason += f"; bf16 epilogue declined: {mxu_ineligible}"
         elif itemsize != 4:
             reason += ("; bf16 epilogue declined: the rows are not f32, and "
                        "bf16 rows already run it under 'pallas'")

@@ -6,10 +6,16 @@ and without a shared --weight_file, and on bfloat16 data files (.npy and
 Both write one CSV row; they must agree on every column except the
 timings, `backend` and `points_per_sec_per_chip`, with `sse` within rtol
 1e-5 (float32 summation order; a gaussianMixture row's `sse` is the mean
-log-likelihood).
+log-likelihood). So must the rows of two ranks (gloo on the CPU) and of
+the JAX CLI on two devices, for the K-sharded fuzzy tower (--shard_k=2)
+and data-parallel K-Means.
 """
 
 import csv
+import multiprocessing as mp
+import queue as queue_lib
+import time
+import traceback
 
 import ml_dtypes
 import numpy as np
@@ -214,7 +220,7 @@ def test_cli_default_device_fails_without_a_card(npz, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--method_name=bisectingKMeans"],
-    ["--n_GPUs=2"],
+    ["--shard_k=2"],
     ["--init=kmeans_parallel"],
 ])
 def test_cli_unported_flags_name_the_roadmap(npz, flags, capsys):
@@ -222,3 +228,119 @@ def test_cli_unported_flags_name_the_roadmap(npz, flags, capsys):
         tcli.main(["--K=4", f"--data_file={npz}", *flags])
     assert exc.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+# Several ranks: two gloo ranks on the CPU, each a spawned process that
+# joins through a file:// store and calls the port's CLI, which runs in
+# the process group it finds. Rank 0 alone writes the row.
+
+def _cli_rank(rank, world, init_method, runs, queue):
+    import torch
+
+    from tdc_tpu_torch.parallel import multihost
+
+    torch.set_num_threads(1)
+    try:
+        multihost.initialize_distributed(init_method, world, rank,
+                                         device="cpu")
+        queue.put((rank, [tcli.main(argv) for argv in runs]))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        multihost.shutdown()
+
+
+def _cli_on_ranks(tmp_path, runs, world=2, timeout=240):
+    """Each rank runs the CLI once per argv in `runs`; returns rank 0's
+    exit codes (every rank's must agree)."""
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    init = f"file://{tmp_path / 'store'}"
+    procs = [ctx.Process(target=_cli_rank,
+                         args=(r, world, init, runs, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < world:  # drain before joining
+            try:
+                rank, out = queue.get(timeout=2)
+                got[rank] = out
+            except queue_lib.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                if dead or time.monotonic() > deadline:
+                    pytest.fail(f"ranks {dead} exited without a result, or "
+                                f"{timeout} s passed")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank in range(world):
+        if isinstance(got.get(rank), str):
+            pytest.fail(f"rank {rank} failed:\n{got[rank]}")
+    assert all(got[r] == got[0] for r in range(world))
+    return got[0]
+
+
+def test_cli_rows_agree_on_two_ranks(npz, tmp_path):
+    """The K-sharded fuzzy row (--shard_k=2: a (1, 2) grid, B7 + B8's
+    plain versions) and the data-parallel K-Means row on two ranks against
+    the JAX CLI's rows on 2 devices; then synthetic points from --seed on
+    two ranks (the fit refuses points that differ between ranks) against
+    the port's single-rank row."""
+    sharded = [*FUZZY_FLAGS, "--shard_k=2"]
+    synth = ["--method_name=distributedKMeans", "--n_obs=2000",
+             "--n_dim=4", "--K=8", "--init=first_k", "--tol=-1",
+             "--n_max_iters=5", "--seed=3", "--kernel=pallas"]
+    logs = {name: tmp_path / f"{name}.csv"
+            for name in ("sharded", "dp", "synth", "synth1")}
+    runs = [[*sharded, f"--data_file={npz}", "--n_GPUs=2", "--device=cpu",
+             f"--log_file={logs['sharded']}"],
+            [*FLAGS, f"--data_file={npz}", "--n_GPUs=2", "--device=cpu",
+             f"--log_file={logs['dp']}"],
+            [*synth, "--n_GPUs=2", "--device=cpu",
+             f"--log_file={logs['synth']}"]]
+    assert _cli_on_ranks(tmp_path, runs) == [0, 0, 0]
+    for flags, name in ((sharded, "sharded"), (FLAGS, "dp")):
+        jlog = tmp_path / f"jax_{name}.csv"
+        assert jcli.main([*flags, f"--data_file={npz}", f"--log_file={jlog}",
+                          "--n_GPUs=2", "--cache_dir="]) == 0
+        j, t = _row(jlog), _row(logs[name])
+        assert list(j) == list(t)
+        assert (t["num_GPUs"], t["n_chips"], t["n_iter"], t["status"],
+                t["backend"]) == ("2", "2", "5", "ok", "cpu")
+        np.testing.assert_allclose(float(t["sse"]), float(j["sse"]),
+                                   rtol=1e-5)
+        for col in set(j) - TIMING - {"sse"}:
+            assert t[col] == j[col], col
+    assert tcli.main([*synth, "--device=cpu",
+                      f"--log_file={logs['synth1']}"]) == 0
+    two, one = _row(logs["synth"]), _row(logs["synth1"])
+    assert (two["num_GPUs"], one["num_GPUs"]) == ("2", "1")
+    assert two["n_iter"] == one["n_iter"] == "5"
+    np.testing.assert_allclose(float(two["sse"]), float(one["sse"]),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("flags, words", [
+    (["--shard_k=2"], "A9"),
+    (["--shard_k=2", "--method_name=gaussianMixture"], "A9"),
+    (["--shard_k=3", "--method_name=distributedFuzzyCMeans"],
+     "not divisible by --shard_k=3"),
+    (["--n_GPUs=2"], "torchrun --nproc_per_node=2"),
+    (["--n_GPUs=2", "--method_name=distributedFuzzyCMeans",
+      "--shard_k=2"], "torchrun --nproc_per_node=2"),
+    (["--method_name=distributedFuzzyCMeans", "--shard_k=2",
+      "--num_batches=4"], "streamed K-sharded towers of A9"),
+    (["--streamed"], "A7"),
+])
+def test_cli_multi_gpu_rejections(npz, flags, words, capsys):
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(["--K=4", f"--data_file={npz}", *flags])
+    assert exc.value.code == 2
+    assert words in capsys.readouterr().err

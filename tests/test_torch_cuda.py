@@ -7,7 +7,11 @@ Tolerances: labels and counts equal; sums and distances within rtol 1e-5
 and atol 1e-4 (float32, different summation order); two runs bitwise
 equal. With duplicated centroids every tie goes to the smallest index.
 B6 (fuzzy stats): weighted sums within 1e-5 of Σμ|x| per cluster, weights
-and objective within rtol 1e-5, two runs bitwise equal. B4 (weighted
+and objective within rtol 1e-5, two runs bitwise equal. B7 and B8 (the
+two-pass fuzzy kernels of the K-sharded tower) on f32 and bf16 rows: s
+within rtol 1e-5 of the plain version's, B8 as B6 and bitwise equal with
+and without B7's ‖x‖²; s summed over two K-shards and B8 per shard give
+B6's stats on all K within the same tolerances. B4 (weighted
 Lloyd stats): sums within rtol 1e-5 and atol 1e-4, the mass and the SSE
 within rtol 1e-5, two runs bitwise equal; copies of a centroid take no
 mass. B9 (the diag-GMM E-step): Σr·x within 1e-5 of Σr|x| per component,
@@ -124,6 +128,51 @@ def test_b6_matches_plain(gen, n, k, d, m):
                                atol=1e-6)
     torch.testing.assert_close(st.objective, want.objective, rtol=1e-5,
                                atol=0.0)
+
+
+def _assert_fuzzy(st, want, x, c, m):
+    """Σμx within 1e-5 of Σμ|x|, Σμ and J_m within rtol 1e-5."""
+    scale = (fuzzy_memberships(x, c, m) ** m).T @ x.abs()  # Σμ|x|
+    assert ((st.weighted_sums - want.weighted_sums).abs()
+            <= 1e-5 * scale + 1e-6).all()
+    torch.testing.assert_close(st.weights, want.weights, rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(st.objective, want.objective, rtol=1e-5,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [2.0, 1.7])
+@pytest.mark.parametrize("n,k,d", [(1000, 38, 19), (5000, 130, 128)])
+def test_b7_b8_match_plain_and_b6(gen, n, k, d, m, dtype):
+    x, c = _data(gen, n, k, d)
+    x = x.to(dtype)
+    xw, cw = lk.widened(x, c)  # what both kernels compute on
+    s, x2 = fk.fuzzy_normalizer(x, c, m, return_x2=True)
+    assert torch.equal(s, fk.fuzzy_normalizer(x, c, m))
+    torch.testing.assert_close(s, fk.fuzzy_normalizer_plain(xw, cw, m),
+                               rtol=1e-5, atol=0.0)
+    st = fk.fuzzy_accumulate(x, c, s, m, x2=x2)
+    # Without x2, B8 computes ‖x‖² itself, to the same bits as B7.
+    again = fk.fuzzy_accumulate(x, c, s, m)
+    assert all(torch.equal(a, b) for a, b in zip(st, again))
+    _assert_fuzzy(st, fk.fuzzy_accumulate_plain(xw, cw, s, m), xw, cw, m)
+    # The tower's identity on one process: s summed over two K-shards,
+    # B8 per shard with that s, equals B6 on all K; B6 counts only B6.
+    counts = (fk.fuzzy_normalizer.launches, fk.fuzzy_accumulate.launches)
+    whole = fk.fuzzy_stats_fused(x, c, m)
+    assert (fk.fuzzy_normalizer.launches,
+            fk.fuzzy_accumulate.launches) == counts
+    halves = (c[:k // 2].contiguous(), c[k // 2:].contiguous())
+    s2 = fk.fuzzy_normalizer(x, halves[0], m) + fk.fuzzy_normalizer(
+        x, halves[1], m)
+    per = [fk.fuzzy_accumulate(x, h, s2, m) for h in halves]
+    got = type(whole)(torch.cat([p.weighted_sums for p in per]),
+                      torch.cat([p.weights for p in per]),
+                      per[0].objective + per[1].objective)
+    _assert_fuzzy(got, whole, xw, cw, m)
+    assert fk.fuzzy_normalizer.launches == counts[0] + 2
+    assert fk.fuzzy_accumulate.launches == counts[1] + 2
 
 
 def _weights(gen, n):

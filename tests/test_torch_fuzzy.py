@@ -28,6 +28,7 @@ from tdc_tpu_torch.models import fuzzy as tfz
 from tdc_tpu_torch.ops import assign as tassign
 from tdc_tpu_torch.ops import fuzzy_kernels as tfk
 from tdc_tpu_torch.ops import lloyd_kernels as tlk
+from tdc_tpu_torch.parallel import mesh as tmesh
 
 RTOL = 1e-5
 MS = [2.0, 1.7]
@@ -246,9 +247,14 @@ def test_fit_in_jax_predict_in_port():
     assert "sse" not in back
 
 
+# A mesh of one rank needs no process group.
+ONE_RANK = tmesh.make_mesh(1)
+
+
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()},
-    {"sample_weight": np.ones(100, np.float32), "mesh": object()},
+    {"mesh": ONE_RANK, "init": "kmeans_parallel"},
+    {"sample_weight": np.ones(100, np.float32), "mesh": ONE_RANK,
+     "init": "k-means||"},
     {"init": "kmeans_parallel"},
     {"init": "k-means||"},
     {"init": "kmeans||"},

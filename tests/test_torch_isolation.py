@@ -36,7 +36,9 @@ def test_no_jax_imports_in_port_or_chip_smoke():
     assert len(files) > 10
     names = {f.name for f in files}
     assert {"fuzzy.py", "fuzzy_kernels.py", "_common.py", "gmm.py",
-            "gmm_kernels.py", "loader.py", "synthetic.py", "tall.py"} <= names
+            "gmm_kernels.py", "loader.py", "synthetic.py", "tall.py",
+            "multihost.py", "mesh.py", "reduce.py", "collectives.py",
+            "sharded_k.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
@@ -52,7 +54,8 @@ def test_importing_the_port_loads_no_jax():
         "tdc_tpu_torch.models._common, tdc_tpu_torch.ops.sorted_stats, "
         "tdc_tpu_torch.models.gmm, tdc_tpu_torch.ops.gmm_kernels, "
         "tdc_tpu_torch.convert, tdc_tpu_torch.data.loader, "
-        "tdc_tpu_torch.data.synthetic; "
+        "tdc_tpu_torch.data.synthetic, tdc_tpu_torch.parallel, "
+        "tdc_tpu_torch.parallel.sharded_k; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tdc_tpu', 'ml_dtypes')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -16,6 +16,7 @@ import torch
 from tdc_tpu.models import kmeans as jkm
 from tdc_tpu_torch import convert
 from tdc_tpu_torch.models import kmeans as tkm
+from tdc_tpu_torch.parallel import mesh as tmesh
 
 RTOL = 1e-5
 
@@ -133,9 +134,14 @@ def test_kmeans_fit_stochastic_init_is_seeded():
     assert float(best.sse) <= float(fits[2].sse) + 1e-3
 
 
+# A mesh of one rank needs no process group.
+ONE_RANK = tmesh.make_mesh(1)
+
+
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()},
-    {"sample_weight": np.ones(100, np.float32), "mesh": object()},
+    {"mesh": ONE_RANK, "empty_policy": "relocate"},
+    {"sample_weight": np.ones(100, np.float32), "mesh": ONE_RANK,
+     "init": "kmeans||"},
     {"init": "kmeans||"},
 ])
 def test_unported_options_raise_naming_the_roadmap(kw):

@@ -1,0 +1,175 @@
+"""The two-pass fuzzy kernels B7 (`fuzzy_normalizer`) and B8
+(`fuzzy_accumulate`) of the port against the JAX package, on the CPU.
+
+The same seeded numpy inputs go to both packages. The JAX side runs its
+Pallas kernels in interpret mode (automatic off-TPU) with their default
+blocks, which pad N, K and d and mask or correct the padding. On the
+port's side, CPU tensors take the plain PyTorch versions.
+
+Tolerances (float32, different summation order in the two frameworks):
+s rtol 1e-6; Σμ and J_m rtol 1e-5; Σμx within 1e-5 of Σμ|x| per entry.
+The centroids are drawn apart from the points: at a centroid that sits on
+a point, the expanded d² = ‖x‖² + ‖c‖² − 2x·c is rounding noise in both
+packages and s is dominated by its inverse, so no tolerance holds there.
+bf16 rows go to both as bf16 (the port reads ml_dtypes' bfloat16 numpy
+arrays as they are); both round the centroids to bf16 before ‖c‖².
+"""
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from tdc_tpu.ops import pallas_kernels as jpk
+from tdc_tpu_torch.ops import fuzzy_kernels as tfk
+
+S_RTOL = 1e-6
+RTOL = 1e-5
+MS = [2.0, 1.7]
+SHAPES = {"ragged": (300, 37, 19), "even": (256, 64, 8)}
+DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
+
+
+def _case(shape, dtype="f32", seed=0):
+    n, k, d = SHAPES[shape]
+    rng = np.random.default_rng(seed + sum(map(ord, shape)))
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    c = rng.normal(scale=1.5, size=(k, d)).astype(np.float32)
+    return x.astype(DTYPES[dtype]), c
+
+
+def _t(a):
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.asarray(a))
+
+
+def _rounded(x, c):
+    """The centroids as both kernels see them: rounded to the rows'
+    dtype."""
+    return c.astype(x.dtype).astype(np.float32)
+
+
+def _abs_sums(x, c, s, m):
+    """Σμ|x| per (cluster, feature) from the JAX normaliser, f64."""
+    xf = x.astype(np.float64)
+    cf = _rounded(x, c).astype(np.float64)
+    d2 = np.maximum((xf * xf).sum(1)[:, None] + (cf * cf).sum(1)[None]
+                    - 2 * xf @ cf.T, 0)
+    mu = ((d2 + 1e-9) ** (-1 / (m - 1)) / s[:, None]) ** m
+    return mu.T @ np.abs(xf)
+
+
+def _assert_stats(got, want, scale):
+    np.testing.assert_allclose(got.weighted_sums.numpy(),
+                               np.asarray(want.weighted_sums), rtol=0,
+                               atol=1e-5 * float(scale.max()))
+    np.testing.assert_allclose(got.weights.numpy(), np.asarray(want.weights),
+                               rtol=RTOL)
+    np.testing.assert_allclose(float(got.objective), float(want.objective),
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("m", MS)
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_b7_b8_and_twopass_against_interpret_mode(shape, m, dtype):
+    x, c = _case(shape, dtype)
+    s_want = np.asarray(jpk.fuzzy_normalizer(x, c, m)).reshape(-1)
+    s = tfk.fuzzy_normalizer(_t(x), _t(c), m)
+    assert s.shape == (x.shape[0],) and s.dtype == torch.float32
+    np.testing.assert_allclose(s.numpy(), s_want, rtol=S_RTOL)
+    np.testing.assert_allclose(
+        tfk.fuzzy_normalizer_plain(_t(x).float(), _t(_rounded(x, c)), m)
+        .numpy(), s_want, rtol=S_RTOL)
+    scale = _abs_sums(x, c, s_want, m)
+    want = jpk.fuzzy_accumulate(x, c, s_want[:, None], m)
+    _assert_stats(tfk.fuzzy_accumulate(_t(x), _t(c), s, m), want, scale)
+    _assert_stats(tfk.fuzzy_stats_twopass(_t(x), _t(c), m),
+                  jpk.fuzzy_stats_twopass(x, c, m), scale)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("m", MS)
+def test_shard_identity(parts, m):
+    """s summed over contiguous K-blocks equals s over all K, and B8 on
+    each block with that s, concatenated, equals B8 (and B6) on all K:
+    the K-sharded tower's identity."""
+    x, c = _case("ragged", seed=1)
+    xt, ct = _t(x), _t(c)
+    blocks = torch.tensor_split(ct, parts)
+    s = sum(tfk.fuzzy_normalizer(xt, b, m) for b in blocks)
+    whole = tfk.fuzzy_normalizer(xt, ct, m)
+    np.testing.assert_allclose(s.numpy(), whole.numpy(), rtol=S_RTOL)
+    per = [tfk.fuzzy_accumulate(xt, b, s, m) for b in blocks]
+    got = tfk.FuzzyStats(
+        weighted_sums=torch.cat([p.weighted_sums for p in per]),
+        weights=torch.cat([p.weights for p in per]),
+        objective=sum(p.objective for p in per))
+    scale = _abs_sums(x, c, whole.double().numpy(), m)
+    for want in (tfk.fuzzy_accumulate(xt, ct, whole, m),
+                 tfk.fuzzy_stats_fused(xt, ct, m)):
+        _assert_stats(got, want, scale)
+    # And against the JAX kernels on the same blocks, with the JAX sum.
+    s_j = sum(np.asarray(jpk.fuzzy_normalizer(x, b.numpy(), m))
+              for b in blocks)
+    np.testing.assert_allclose(s.numpy(), s_j.reshape(-1), rtol=S_RTOL)
+
+
+@pytest.mark.parametrize("m", MS)
+def test_b8_takes_an_external_s(m):
+    """B8 with an s that came from outside (here: twice its own, as if
+    another shard held centroids with the same normaliser) scales every
+    membership by 1/2: μ by 2^−m, against the JAX kernel given the same
+    s."""
+    x, c = _case("even", seed=2)
+    s = tfk.fuzzy_normalizer(_t(x), _t(c), m)
+    got = tfk.fuzzy_accumulate(_t(x), _t(c), 2 * s, m)
+    own = tfk.fuzzy_accumulate(_t(x), _t(c), s, m)
+    np.testing.assert_allclose(got.weights.numpy(),
+                               own.weights.numpy() * 2.0 ** -m, rtol=RTOL)
+    want = jpk.fuzzy_accumulate(x, c, 2 * s.numpy()[:, None], m)
+    _assert_stats(got, want, _abs_sums(x, c, 2 * s.double().numpy(), m))
+
+
+def test_b7_b8_errors_and_counts():
+    x, c = _case("even")
+    xt, ct = _t(x), _t(c)
+    s = tfk.fuzzy_normalizer(xt, ct)
+    before = (tfk.fuzzy_normalizer.launches, tfk.fuzzy_accumulate.launches)
+    tfk.fuzzy_stats_twopass(xt, ct)
+    tfk.fuzzy_accumulate(xt, ct, s)
+    # The plain versions run on CPU tensors: no kernel launched, no count.
+    assert (tfk.fuzzy_normalizer.launches,
+            tfk.fuzzy_accumulate.launches) == before
+    for fn, args in ((tfk.fuzzy_normalizer, (xt, ct)),
+                     (tfk.fuzzy_accumulate, (xt, ct, s)),
+                     (tfk.fuzzy_stats_twopass, (xt, ct))):
+        for m in (1.0, 0.5):
+            with pytest.raises(ValueError, match="m must be > 1"):
+                fn(*args, m)
+    with pytest.raises(ValueError, match="d="):
+        tfk.fuzzy_normalizer(xt, ct[:, :3])
+    with pytest.raises(ValueError, match="2-D"):
+        tfk.fuzzy_normalizer(xt[0], ct)
+    with pytest.raises(TypeError):
+        tfk.fuzzy_normalizer(xt.double(), ct.double())
+    with pytest.raises(ValueError, match="one normaliser per row"):
+        tfk.fuzzy_accumulate(xt, ct, s[:-1])
+    with pytest.raises(ValueError, match="one normaliser per row"):
+        tfk.fuzzy_accumulate(xt, ct, s[:, None])
+    with pytest.raises(TypeError, match="float32"):
+        tfk.fuzzy_accumulate(xt, ct, s.double())
+
+
+def test_resolve_kernel_fuzzy_sharded_picks_the_two_pass_kernels():
+    """'auto' for the K-sharded tower: B7 + B8 ('pallas') on CUDA, the
+    plain ops ('xla') on the CPU, as the JAX package's policy picks its
+    two-pass kernels on a TPU."""
+    from tdc_tpu_torch.ops import lloyd_kernels as tlk
+
+    for dev, want in (("cuda", "pallas"), ("cpu", "xla")):
+        assert tlk.resolve_kernel("auto", k=8192, d=768, device=dev,
+                                  model="fuzzy_sharded") == want
+    assert tlk.resolve_kernel("pallas", k=8, d=4, device="cpu",
+                              model="fuzzy_sharded") == "pallas"

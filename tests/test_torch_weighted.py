@@ -36,6 +36,7 @@ from tdc_tpu_torch.ops import assign as tassign
 from tdc_tpu_torch.ops import init as tinit
 from tdc_tpu_torch.ops import lloyd_kernels as tlk
 from tdc_tpu_torch.ops import sorted_stats as tss
+from tdc_tpu_torch.parallel import mesh as tmesh
 
 RTOL = 1e-5
 
@@ -406,10 +407,12 @@ def test_weighted_rejections():
     with pytest.raises(ValueError, match="pallas"):
         tfz.fuzzy_cmeans_fit(x, 8, init=init, sample_weight=w,
                              kernel="pallas", device="cpu")
-    for fit in (tkm.kmeans_fit, tfz.fuzzy_cmeans_fit):
-        with pytest.raises(NotImplementedError, match="A4"):
-            fit(x, 8, init=init, sample_weight=w, mesh=object(),
-                device="cpu")
+    for fit, words in ((tkm.kmeans_fit, "single-device"),
+                       (tfz.fuzzy_cmeans_fit, "does not support")):
+        # The JAX package's refusals of the weighted kernels on a mesh.
+        with pytest.raises(ValueError, match=words):
+            fit(x, 8, init=init, sample_weight=w, kernel="pallas",
+                mesh=tmesh.make_mesh(1), device="cpu")
         # The JAX package's errors: K-Means rejects the weights, Fuzzy
         # C-Means does not know the kernel.
         with pytest.raises(ValueError, match="pallas_bf16"):
