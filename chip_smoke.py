@@ -7,8 +7,11 @@ main paths through the CLI: in-memory single-GPU f32 Lloyd K-Means, with
 and without sample weights, bf16 Lloyd K-Means, Fuzzy C-Means, diagonal
 Gaussian Mixture EM, feature-major K-Means and Fuzzy C-Means
 (--layout=features), and two ranks on the one card: the K-sharded Fuzzy
-C-Means tower (--shard_k) and data-parallel K-Means (--n_GPUs=2). Phases,
-each of which raises on failure (nothing is caught):
+C-Means tower (--shard_k) and data-parallel K-Means (--n_GPUs=2); and
+through the functions: the sorted stats with the row gather fused in
+(sorted_cluster_stats(fuse_gather=True)) and the K-sharded K-Means tower
+(kmeans_fit_sharded) on two ranks. Phases, each of which raises on
+failure (nothing is caught):
 
 1. Device: a CUDA card is required; prints its name and power limit.
 2. Build: nvcc builds the kernels; prints the build seconds.
@@ -55,10 +58,23 @@ each of which raises on failure (nothing is caught):
    (given that s) as B6, both bitwise repeatable; and the tower's
    identity on one process: s summed over two K-shards, B8 on each shard
    with it, equal to B6 on all K within B6's tolerances.
+   B12 (B3 with the row gather fused in) at N=2^19, K=16,384, d=768 on
+   B3's three label sets, on one K-shard's relative labels of phase 12's
+   K-sharded K-Means route (8,192 segments, the other shard's rows on the
+   sentinel) and on bf16 rows: bitwise equal to B3 on x.index_select(0,
+   order) (widened to f32), bitwise repeatable, within REL_TOL of Σ|x|
+   of its plain version; timed beside its plain version, the route it
+   replaces (index_select, then B3) and index_add_, the library call for
+   the same function, held to the kernel like the plain version.
 4. Main path, fused route: the CLI at N=2^22, d=128, K=1024,
    --kernel=pallas, 10 iterations; B1 must launch n_iter + 1 times per fit.
 5. Main path, sorted route: the CLI at K=16,384, d=768, --init=random,
    past B1's limit, so B2 and B3 carry it (cuts listed at SORTED_ARGS).
+   Then the fused-gather step at its shape and init: 4 Lloyd iterations
+   of B2 and sorted_cluster_stats(pallas=True, fuse_gather=True) (B12),
+   and of B2 and the same without the fusion (B3); each launches B2 and
+   its kernel 4 times, nothing else, and the centroids are bitwise equal
+   after every iteration.
 6. Main path, fuzzy route: the CLI with --method_name=distributedFuzzyCMeans
    at N=2^22, d=128, K=1024, --kernel=pallas, 10 iterations; B6 must
    launch n_iter + 1 times per fit and B1, B2, B3 never.
@@ -91,9 +107,16 @@ each of which raises on failure (nothing is caught):
    --shard_k=2 --n_GPUs=2 at N=2^19, d=768, K=16,384, 4 iterations, B7
    and B8 launching 2·(n_iter + 1) times on each rank and nothing else,
    its objective within REL_TOL of the same fit in this process on a 1x1
-   grid from the same init; and the data-parallel fused route, phase 4's
-   CLI with --n_GPUs=2, B1 launching 2·(n_iter + 1) times on each rank,
-   its SSE within REL_TOL of phase 4's. Rank 0 alone writes the row.
+   grid from the same init; the K-sharded K-Means route,
+   kmeans_fit_sharded(kernel="pallas") on a (1, 2) grid at the same
+   shape and 4 iterations (tol < 0) from --init=random on the first 2^16
+   rows, B2 and B3 launching n_iter + 1 times on each rank and nothing
+   else, n_iter and its SSE (within REL_TOL) as the same fit in this
+   process on a 1x1 grid, its centroids within 1e-4 of kmeans_fit on one
+   GPU (the sorted route) from that init; and the data-parallel fused
+   route, phase 4's CLI with --n_GPUs=2, B1 launching 2·(n_iter + 1)
+   times on each rank, its SSE within REL_TOL of phase 4's. Rank 0 alone
+   writes the CLI routes' rows.
 13. NCCL at world size 1: kmeans_fit(mesh=make_mesh(1), kernel="pallas")
    at the fused shape and fuzzy_fit_sharded on a 1x1 grid at the
    K-sharded shape (3 iterations) against the same fits without a mesh.
@@ -148,12 +171,18 @@ from tdc_tpu_torch.ops import gmm_kernels as gk
 from tdc_tpu_torch.ops import lloyd_kernels as lk
 from tdc_tpu_torch.ops import sorted_stats as ss
 from tdc_tpu_torch.ops import tall as tk
-from tdc_tpu_torch.ops.assign import fuzzy_memberships
+from tdc_tpu_torch.ops.assign import (
+    SufficientStats,
+    apply_centroid_update,
+    fuzzy_memberships,
+)
 from tdc_tpu_torch.ops.init import init_random
+from tdc_tpu_torch.parallel import multihost
 from tdc_tpu_torch.parallel.mesh import make_mesh
 from tdc_tpu_torch.parallel.sharded_k import (
     _resolve_init_sharded,
     fuzzy_fit_sharded,
+    kmeans_fit_sharded,
     make_mesh_2d,
 )
 
@@ -235,6 +264,9 @@ SHARD_ARGS = [
 ]
 DP_ARGS = [*MAIN_ARGS, f"--n_GPUs={RANKS}"]
 RANK_TIMEOUT = 600  # seconds a rank may take for one route
+# Lloyd iterations of the fused-gather sorted step and of the K-sharded
+# K-Means route, both at the sorted route's shape (tol < 0).
+SORTED_ITERS = 4
 
 
 def smi() -> str:
@@ -435,7 +467,91 @@ def phase_kernels(gen) -> dict:
                              ("ms", "longest_run", "max_abs_err")}
                       for name in ("balanced", "one_heavy")},
         weighted_rows=weighted_b3)
+    del runs, main, xs, starts, offsets, lib
+    # B12 on B3's label sets, and on one K-shard's relative labels: shard 1
+    # of the K-sharded K-Means route's (1, 2) grid at its init, the rows
+    # that the other shard's centroids win carrying the sentinel.
+    init = _resolve_init_sharded(
+        x, k, "random", torch.Generator(device="cuda").manual_seed(0))
+    shard = lk.distance_argmin(x, init)[0] - k // 2
+    del init
+    out["B12"] = phase_gathered_kernel(
+        x, {"cli": (cli_labels, k), "balanced": (balanced, k),
+            "one_heavy": (heavy, k), "k_shard": (shard, k // 2)})
     return out
+
+
+def sort_segments(labels, k):
+    """(order int32, starts (k+1,) int32) of the sorted stats: labels
+    outside [0, k) take the sentinel k and sort last."""
+    labels = torch.where((labels >= 0) & (labels < k), labels, k)
+    keys, order = torch.sort(labels.to(torch.int32), stable=True)
+    starts = torch.searchsorted(
+        keys, torch.arange(k + 1, dtype=torch.int32, device=keys.device))
+    return order.to(torch.int32), starts.to(torch.int32)
+
+
+def check_b12(name, x, order, starts) -> float:
+    """B12 bitwise equal to B3 on x.index_select(0, order) (rows widened
+    to f32), bitwise repeatable, and within REL_TOL of its plain version
+    (scale: Σ|x| per segment). Returns the largest error."""
+    got = ss.gathered_segment_sums(x, order, starts)
+    repeatable(f"B12 ({name})", (got,),
+               (ss.gathered_segment_sums(x, order, starts),))
+    xs = x.index_select(0, order).float().contiguous()
+    require(torch.equal(got, ss.segment_sums(xs, starts)),
+            f"B12 ({name}): not bitwise B3 on the gathered rows")
+    return check_close(f"B12 sums ({name})", got,
+                       ss.gathered_segment_sums_plain(x, order, starts),
+                       ss.segment_sums_plain(xs.abs(), starts))
+
+
+def phase_gathered_kernel(x, label_sets) -> dict:
+    """B12 (B3 with the row gather fused in) on each (labels, segments)
+    set, f32 rows, and on the `cli` set's rows in bf16. On the `cli` set
+    also its plain version, the route it replaces (index_select, then B3)
+    and the library call for the same function (index_add_ into k + 1
+    rows, the sentinel's last; timed and held to the kernel here only,
+    the port never calls it)."""
+    n, d = x.shape
+    other = {}
+    for name, (labels, k) in label_sets.items():
+        order, starts = sort_segments(labels, k)
+        err = check_b12(name, x, order, starts)
+        other[name] = dict(
+            max_abs_err=err, segments=k,
+            longest_run=int((starts[1:] - starts[:-1]).max()),
+            ms=median_ms(lambda: ss.gathered_segment_sums(x, order, starts),
+                         20))
+    labels, k = label_sets["cli"]
+    order, starts = sort_segments(labels, k)
+    main = other.pop("cli")
+    clamped = torch.where((labels >= 0) & (labels < k), labels, k).long()
+    lib = torch.zeros((k + 1, d), device="cuda").index_add_(0, clamped, x)
+    check_close("B12 library", ss.gathered_segment_sums(x, order, starts),
+                lib[:k], ss.segment_sums_plain(
+                    x.index_select(0, order).abs(), starts))
+    del lib
+    xb = x.to(torch.bfloat16)
+    bf16_err = check_b12("cli, bf16 rows", xb, order, starts)
+    b_ms, b_by = bound_ms(float(n * d),
+                          4.0 * n * d + 4.0 * n + 4.0 * (k + 1) + 4.0 * k * d)
+    bf16_bound = bound_ms(float(n * d), 2.0 * n * d + 4.0 * n
+                          + 4.0 * (k + 1) + 4.0 * k * d)[0]
+    return dict(
+        **main,
+        plain_ms=median_ms(
+            lambda: ss.gathered_segment_sums_plain(x, order, starts), 5),
+        route_ms=median_ms(
+            lambda: ss.segment_sums(x.index_select(0, order), starts), 20),
+        library_ms=median_ms(
+            lambda: torch.zeros((k + 1, d), device="cuda").index_add_(
+                0, clamped, x), 5),
+        bound_ms=b_ms, bound_by=b_by, other_labels=other,
+        bf16_rows=dict(
+            max_abs_err=bf16_err, bound_ms=bf16_bound,
+            ms=median_ms(lambda: ss.gathered_segment_sums(xb, order, starts),
+                         20)))
 
 
 def check_weighted(name, x, c, w) -> float:
@@ -1087,7 +1203,7 @@ WRAPPERS = {"B1": lk.lloyd_stats_fused, "B2": lk.distance_argmin,
             "B5": lk.lloyd_stats_fused_bf16, "B6": fk.fuzzy_stats_fused,
             "B7": fk.fuzzy_normalizer, "B8": fk.fuzzy_accumulate,
             "B9": gk.gmm_stats_fused, "B10": tk.lloyd_stats_tall,
-            "B11": tk.fuzzy_stats_tall}
+            "B11": tk.fuzzy_stats_tall, "B12": ss.gathered_segment_sums}
 
 
 def reset_counts() -> None:
@@ -1187,13 +1303,18 @@ def phase_one_rank_nccl(gen) -> None:
         dist.destroy_process_group()
 
 
+def _rank_env(rank, world, port) -> None:
+    """The environment torchrun gives a rank."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
 def _rank_cli(rank, world, port, args, queue) -> None:
     """One rank of a multi-GPU CLI run, launched as torchrun would: the
     CLI joins the process group from the environment. Sends back (rank,
     exit code, launch counts) or (rank, -1, the traceback)."""
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    _rank_env(rank, world, port)
     try:
         reset_counts()
         rc = cli.main(args)
@@ -1202,18 +1323,55 @@ def _rank_cli(rank, world, port, args, queue) -> None:
         queue.put((rank, -1, traceback.format_exc()))
 
 
-def run_ranks(args, tmp, name) -> tuple[dict, list]:
-    """The CLI on RANKS spawned ranks, counts reset in each just before;
-    returns (rank 0's CSV row, each rank's launch counts). Every rank must
-    exit 0 and the log must hold one row: rank 0's."""
-    log = os.path.join(tmp, f"{name}.csv")
+def sharded_kmeans_init(x) -> torch.Tensor:
+    """The K-sharded K-Means route's init: --init=random on the first
+    65,536 rows, a generator seeded with 0, as the K-sharded fuzzy route
+    draws it."""
+    return _resolve_init_sharded(
+        x, SORTED_K, "random", torch.Generator(device="cuda").manual_seed(0))
+
+
+def _rank_kmeans_sharded(rank, world, port, args, queue) -> None:
+    """One rank of the K-sharded K-Means route: kmeans_fit_sharded on a
+    (1, world) grid, every rank making the same points and init. Sends
+    back (rank, 0, {launches, n_iter, sse, seconds, centroids on rank 0})
+    or (rank, -1, the traceback)."""
+    _rank_env(rank, world, port)
+    try:
+        multihost.initialize_from_env()
+        try:
+            x, _ = make_blobs(1, SORTED_N, SORTED_D, SORTED_K, device="cuda")
+            init = sharded_kmeans_init(x)
+            mesh = make_mesh_2d(1, world)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = kmeans_fit_sharded(x, SORTED_K, mesh, init=init,
+                                     max_iters=SORTED_ITERS, tol=-1,
+                                     kernel="pallas")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            # numpy, not a tensor: torch would share a CPU tensor's
+            # storage by file descriptor, gone once the rank exits.
+            out = dict(launches=counts(), n_iter=res.n_iter,
+                       sse=float(res.sse), seconds=seconds,
+                       centroids=(res.centroids.cpu().numpy() if rank == 0
+                                  else None))
+        finally:
+            multihost.shutdown()
+        queue.put((rank, 0, out))
+    except BaseException:
+        queue.put((rank, -1, traceback.format_exc()))
+
+
+def spawn_ranks(target, args, name) -> list:
+    """`target(rank, RANKS, port, args, queue)` on RANKS spawned ranks;
+    returns each rank's result. Every rank must send (rank, 0, result)."""
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_rank_cli, args=(
-        r, RANKS, port, [*args, f"--log_file={log}"], queue))
-        for r in range(RANKS)]
-    t0 = time.perf_counter()
+    procs = [ctx.Process(target=target, args=(r, RANKS, port, args, queue))
+             for r in range(RANKS)]
     for p in procs:
         p.start()
     got = {}
@@ -1221,8 +1379,8 @@ def run_ranks(args, tmp, name) -> tuple[dict, list]:
     try:
         while len(got) < RANKS:  # drain before joining
             try:
-                rank, rc, seen = queue.get(timeout=5)
-                got[rank] = (rc, seen)
+                rank, rc, result = queue.get(timeout=5)
+                got[rank] = (rc, result)
             except queue_lib.Empty:
                 # A rank that died without a word ends the run now, not
                 # at the time limit.
@@ -1239,13 +1397,22 @@ def run_ranks(args, tmp, name) -> tuple[dict, list]:
                 p.kill()
                 p.join()
     for rank in range(RANKS):
-        rc, seen = got[rank]
-        require(rc == 0, f"{name}: rank {rank} exited {rc}: {seen}")
+        rc, result = got[rank]
+        require(rc == 0, f"{name}: rank {rank} exited {rc}: {result}")
+    return [got[r][1] for r in range(RANKS)]
+
+
+def run_ranks(args, tmp, name) -> tuple[dict, list]:
+    """The CLI on RANKS spawned ranks, counts reset in each just before;
+    returns (rank 0's CSV row, each rank's launch counts). Every rank must
+    exit 0 and the log must hold one row: rank 0's."""
+    log = os.path.join(tmp, f"{name}.csv")
+    t0 = time.perf_counter()
+    seen = spawn_ranks(_rank_cli, [*args, f"--log_file={log}"], name)
     with open(log, newline="") as f:
         rows = list(csv.DictReader(f))
     require(len(rows) == 1, f"{name}: {len(rows)} rows, expected rank 0's")
     row = rows[0]
-    seen = [got[r][1] for r in range(RANKS)]
     print(f"[{name}] {time.perf_counter() - t0:.1f} s on {RANKS} ranks, "
           f"launches {seen}, row {json.dumps(row)}", flush=True)
     require(row["status"] == "ok" and row["backend"] == "cuda"
@@ -1253,6 +1420,85 @@ def run_ranks(args, tmp, name) -> tuple[dict, list]:
     require(math.isfinite(float(row["sse"])) and float(row["sse"]) >= 0.0,
             f"{name}: cost column {row['sse']}")
     return row, seen
+
+
+def phase_fused_gather_step() -> int:
+    """SORTED_ITERS Lloyd iterations at the sorted route's shape from its
+    --init=random draws, twice: B2, then sorted_cluster_stats(pallas=True,
+    fuse_gather=True) (B12), and B2, then sorted_cluster_stats(pallas=True)
+    (B3). The centroids must be bitwise equal after every iteration.
+    Returns B12's launches."""
+    n, k, d = SORTED_N, SORTED_K, SORTED_D
+    x, _ = make_blobs(1, n, d, k, device="cuda")
+    c0 = init_random(torch.Generator(device="cuda").manual_seed(0), x, k)
+    trails, seen = {}, {}
+    for fuse in (True, False):
+        c, trail = c0, []
+        reset_counts()
+        for _ in range(SORTED_ITERS):
+            labels = lk.distance_argmin(x, c)[0]
+            sums, cnt = ss.sorted_cluster_stats(x, labels, k, pallas=True,
+                                                fuse_gather=fuse)
+            c = apply_centroid_update(
+                SufficientStats(sums=sums, counts=cnt, sse=None), c)
+            trail.append(c)
+        seen[fuse] = counts()
+        trails[fuse] = trail
+    require_launches("fused-gather step", seen[True], B2=SORTED_ITERS,
+                     B12=SORTED_ITERS)
+    require_launches("unfused step", seen[False], B2=SORTED_ITERS,
+                     B3=SORTED_ITERS)
+    for i, (a, b) in enumerate(zip(trails[True], trails[False])):
+        require(torch.equal(a, b), f"fused-gather step: centroids differ "
+                                   f"from the B3 step's after iteration {i}")
+    print(f"[fused_gather_step] N={n} K={k} d={d}: {SORTED_ITERS} iterations "
+          f"on B2 + B12 and on B2 + B3, centroids bitwise equal after each; "
+          f"launches {seen[True]} and {seen[False]}", flush=True)
+    return seen[True]["B12"]
+
+
+def phase_sharded_kmeans() -> None:
+    """The K-sharded K-Means route: kmeans_fit_sharded(kernel="pallas") on
+    a (1, 2) grid, two ranks on the one card, at the sorted route's shape:
+    B2 and B3 launch n_iter + 1 times on each rank and nothing else; n_iter
+    and the SSE (within REL_TOL relative) as the same fit in this process
+    on a 1x1 grid; centroids within 1e-4 of the one-GPU sorted route,
+    kmeans_fit(kernel="pallas"), from the same init."""
+    name = "sharded_kmeans_route"
+    ranks = spawn_ranks(_rank_kmeans_sharded, None, name)
+    n_iter = ranks[0]["n_iter"]
+    require(n_iter == SORTED_ITERS, f"{name} ran {n_iter} iterations")
+    for rank, r in enumerate(ranks):
+        require_launches(f"{name}, rank {rank}", r["launches"],
+                         B2=n_iter + 1, B3=n_iter + 1)
+        require(r["n_iter"] == n_iter and r["sse"] == ranks[0]["sse"],
+                f"{name}: rank {rank} reports n_iter {r['n_iter']}, sse "
+                f"{r['sse']}; rank 0 {n_iter}, {ranks[0]['sse']}")
+    seconds = max(r["seconds"] for r in ranks)
+    print(f"[{name}] N={SORTED_N} K={SORTED_K} d={SORTED_D} on a (1, "
+          f"{RANKS}) grid: computation time {seconds:.6f} s for {n_iter} "
+          f"iterations, {SORTED_N * n_iter / seconds:.1f} pt·iter/s per "
+          f"chip, sse {ranks[0]['sse']!r}, launches "
+          f"{[r['launches'] for r in ranks]}", flush=True)
+    x, _ = make_blobs(1, SORTED_N, SORTED_D, SORTED_K, device="cuda")
+    init = sharded_kmeans_init(x)
+    one = kmeans_fit_sharded(x, SORTED_K, make_mesh_2d(1, 1), init=init,
+                             max_iters=SORTED_ITERS, tol=-1, kernel="pallas")
+    rel = abs(ranks[0]["sse"] - float(one.sse)) / abs(float(one.sse))
+    require(one.n_iter == n_iter and rel <= REL_TOL,
+            f"{name}: n_iter {n_iter} vs {one.n_iter} on a 1x1 grid, sse "
+            f"{ranks[0]['sse']} vs {float(one.sse)}")
+    del one
+    fit = kmeans_fit(x, SORTED_K, init=init, max_iters=SORTED_ITERS, tol=-1,
+                     kernel="pallas")
+    cerr = float(np.abs(ranks[0]["centroids"]
+                        - fit.centroids.cpu().numpy()).max())
+    require(fit.n_iter == n_iter and cerr <= 1e-4,
+            f"{name}: n_iter {n_iter} vs {fit.n_iter} on one GPU, centroids "
+            f"differ by {cerr}")
+    print(f"[{name}] against one process on a 1x1 grid: n_iter {n_iter}, "
+          f"sse rel {rel:.3g}; against kmeans_fit on one GPU: max centroid "
+          f"diff {cerr:.3g}, sse {float(fit.sse):.8g}", flush=True)
 
 
 def main() -> int:
@@ -1298,6 +1544,7 @@ def main() -> int:
                          B3=2 * (n_iter + 1))
         numbers["B2"]["launches"] = seen["B2"]
         numbers["B3"]["launches"] = seen["B3"]
+        numbers["B12"]["launches"] = phase_fused_gather_step()
 
         # The fuzzy route: its row's sse column holds the objective J_m.
         # Seeding (k-means++) runs no kernel.
@@ -1416,6 +1663,7 @@ def main() -> int:
               f"n_iter {n_iter} == {one.n_iter}, objective {row['sse']} vs "
               f"{float(one.objective):.8g} (rel {rel:.3g})", flush=True)
         del x, init, one
+        phase_sharded_kmeans()
         # The data-parallel fused route: B1 on each rank's half of the
         # rows, against the one-GPU fused route's row.
         row, seen = run_ranks(DP_ARGS, tmp, "dp_fused_route")
@@ -1598,6 +1846,8 @@ def main() -> int:
                 "tdc_tpu/ops/tall.py:172"),
         "B11": ("fuzzy_stats_tall", src + "tall_kernels.cu",
                 "tdc_tpu/ops/tall.py:299"),
+        "B12": ("gathered_segment_sums", src + "segment_sums.cu",
+                "tdc_tpu/ops/sorted_stats.py:292"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():

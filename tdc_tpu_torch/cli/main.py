@@ -210,10 +210,16 @@ def _validate_devices(parser, args) -> None:
         if args.K % args.shard_k != 0:
             parser.error(f"--K={args.K} not divisible by "
                          f"--shard_k={args.shard_k}")
+        if args.method_name == "distributedKMeans":
+            parser.error(
+                "--shard_k with distributedKMeans is not ported yet: the "
+                "CLI runs it through the streamed K-sharded tower "
+                "(ROADMAP.md Queue A, A7 and A9); in memory, call "
+                "tdc_tpu_torch.parallel.kmeans_fit_sharded")
         if args.method_name != "distributedFuzzyCMeans":
             parser.error(f"--shard_k with {args.method_name} is not ported "
-                         "yet (ROADMAP.md Queue A, A9: the K-sharded K-Means "
-                         "and GMM towers; the port shards K for "
+                         "yet (ROADMAP.md Queue A, A9: the K-sharded GMM "
+                         "tower; the port shards K for "
                          "distributedFuzzyCMeans in memory)")
         if args.weight_file:
             parser.error("--weight_file is not supported with "

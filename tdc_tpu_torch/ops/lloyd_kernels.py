@@ -470,9 +470,10 @@ def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
     kernels) on a CUDA device and to 'xla' (plain PyTorch) on the CPU, with
     one `kernel_selected` event; an explicit name passes through. CUDA
     plays the part that platform == 'tpu' plays in the JAX version.
-    `model` is 'kmeans', 'kmeans_weighted', 'fuzzy', 'fuzzy_sharded' (the
-    K-sharded tower: B7 + B8 on each shard) or 'gmm'; every kernel route
-    takes every (K, d). `ineligible` names a caller-side reason the
+    `model` is 'kmeans', 'kmeans_weighted', 'kmeans_sharded' (the K-sharded
+    K-Means tower: B2 + B3 on each shard, `k` its K/P centroids),
+    'fuzzy', 'fuzzy_sharded' (the K-sharded fuzzy tower: B7 + B8 on each
+    shard) or 'gmm'; every kernel route takes every (K, d). `ineligible` names a caller-side reason the
     kernels cannot apply at all (weighted fuzzy stats run in f32 plain ops;
     the GMM kernel is diag/spherical and unweighted; weights on a mesh):
     auto then resolves to 'xla' with that reason in the event.
@@ -487,8 +488,8 @@ def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
     never an error."""
     if kernel not in ("auto", "auto:quantized"):
         return kernel
-    if model not in ("kmeans", "kmeans_weighted", "fuzzy", "fuzzy_sharded",
-                     "gmm"):
+    if model not in ("kmeans", "kmeans_weighted", "kmeans_sharded", "fuzzy",
+                     "fuzzy_sharded", "gmm"):
         raise NotImplementedError(
             f"resolve_kernel: model={model!r} is not ported yet "
             "(ROADMAP.md Queue A)")

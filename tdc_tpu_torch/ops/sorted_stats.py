@@ -1,4 +1,4 @@
-"""Sort-based cluster sufficient statistics and the B3 kernel
+"""Sort-based cluster sufficient statistics and the B3 and B12 kernels
 (counterpart: tdc_tpu/ops/sorted_stats.py).
 
 Sort the points by label and every cluster's rows form one contiguous run
@@ -7,7 +7,13 @@ runs — N·d adds, instead of the dense one-hot contraction's 2·N·K·d FLOPs.
 The sort, the run boundaries and the counts stay plain PyTorch
 (`torch.sort(stable=True)`, `torch.searchsorted`), as the JAX wrapper
 keeps them in XLA. The segmented sum is B3 (`segment_sums`,
-`csrc/segment_sums.cu`), the counterpart of `_windowed_stats_pallas`.
+`csrc/segment_sums.cu`), the counterpart of `_windowed_stats_pallas`, over
+the rows gathered into sorted order; with `fuse_gather=True` it is B12
+(`gathered_segment_sums`, the same source), the counterpart of
+`_gathered_windowed_stats_pallas`, which reads the unsorted rows through
+the sort permutation itself, so no gathered copy is made. No entry point
+of the JAX package passes `fuse_gather=True`, and none here does: its
+default stays False.
 
 The JAX kernel numbers the runs by dense rank and writes them into
 (B, 2B) windows because a TPU kernel walks fixed-size blocks in grid
@@ -28,8 +34,9 @@ weight mass in the last, with no kernel of its own.
 bf16 rows take both routes widened: B2 on the rows widened to f32 with
 the centroids rounded to bf16 (`lloyd_kernels.widened`, as the JAX
 wrapper casts the centroids to x.dtype), and B3 on the gathered rows
-widened to f32, which is exact. Under kernel="pallas_bf16" past the fused
-limit the routes run at the rows' own precision, as in the JAX package
+widened to f32, which is exact (B12 reads the bf16 rows and widens them
+in registers). Under kernel="pallas_bf16" past the fused limit the
+routes run at the rows' own precision, as in the JAX package
 (`lloyd_kernels.lloyd_stats_for` says so in its event).
 """
 
@@ -51,19 +58,23 @@ def sorted_counts(sorted_labels: torch.Tensor, k: int) -> torch.Tensor:
     return (lo[1:] - lo[:-1]).to(torch.float32)
 
 
+def _check_starts(name: str, starts: torch.Tensor, rows: torch.Tensor,
+                  what: str) -> None:
+    if starts.dim() != 1 or starts.dtype != torch.int32 or starts.numel() < 1:
+        raise TypeError(f"{name}: starts must be a non-empty 1-D int32 "
+                        "tensor")
+    if rows.device != starts.device:
+        raise ValueError(f"{name}: {what} on {rows.device}, starts on "
+                         f"{starts.device}")
+    if rows.device.type == "cuda" and not (rows.is_contiguous()
+                                           and starts.is_contiguous()):
+        raise ValueError(f"{name}: the CUDA kernel needs contiguous inputs")
+
+
 def _check_segments(xs: torch.Tensor, starts: torch.Tensor) -> None:
     if xs.dim() != 2 or xs.dtype != torch.float32:
         raise TypeError("segment_sums: xs must be a 2-D float32 tensor")
-    if starts.dim() != 1 or starts.dtype != torch.int32 or starts.numel() < 1:
-        raise TypeError("segment_sums: starts must be a non-empty 1-D int32 "
-                        "tensor")
-    if xs.device != starts.device:
-        raise ValueError(f"segment_sums: xs on {xs.device}, starts on "
-                         f"{starts.device}")
-    if xs.device.type == "cuda" and not (xs.is_contiguous()
-                                         and starts.is_contiguous()):
-        raise ValueError("segment_sums: the CUDA kernel needs contiguous "
-                         "inputs")
+    _check_starts("segment_sums", starts, xs, "xs")
 
 
 def segment_sums_plain(xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
@@ -78,6 +89,19 @@ def segment_sums_plain(xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, seg, xs[lo:lo + seg.numel()])
 
 
+def _outputs(rows: torch.Tensor, starts: torch.Tensor):
+    """(library, out (S, d), head and tail (chunks, d) workspaces, S) for
+    B3 or B12 over `rows`' N rows: one head and one tail row of partial
+    sums per pass-1 chunk of rows."""
+    (n, d), n_seg = rows.shape, starts.numel() - 1
+    lib = _build.load().lib
+    chunks = -(-n // lib.tdc_segment_chunk_rows())
+    out = torch.empty((n_seg, d), dtype=torch.float32, device=rows.device)
+    head = torch.empty((chunks, d), dtype=torch.float32, device=rows.device)
+    tail = torch.empty((chunks, d), dtype=torch.float32, device=rows.device)
+    return lib, out, head, tail, n_seg
+
+
 def segment_sums(xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     """B3: per-segment row sums of sorted rows. `starts` (S+1,) int32 is
     nondecreasing within [0, N]; segment s is rows [starts[s],
@@ -88,15 +112,10 @@ def segment_sums(xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     _check_segments(xs, starts)
     if xs.device.type == "cpu":
         return segment_sums_plain(xs, starts)
-    (n, d), n_seg = xs.shape, starts.numel() - 1
-    lib = _build.load().lib
-    chunks = -(-n // lib.tdc_segment_chunk_rows())
-    out = torch.empty((n_seg, d), dtype=torch.float32, device=xs.device)
-    head = torch.empty((chunks, d), dtype=torch.float32, device=xs.device)
-    tail = torch.empty((chunks, d), dtype=torch.float32, device=xs.device)
+    lib, out, head, tail, n_seg = _outputs(xs, starts)
     _build.check(lib.tdc_segment_sums(
-        xs.data_ptr(), starts.data_ptr(), n, n_seg, d, head.data_ptr(),
-        tail.data_ptr(), out.data_ptr(),
+        xs.data_ptr(), starts.data_ptr(), xs.shape[0], n_seg, xs.shape[1],
+        head.data_ptr(), tail.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(xs.device).cuda_stream,
     ), "segment_sums")
     segment_sums.launches += 1
@@ -106,12 +125,60 @@ def segment_sums(xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
 segment_sums.launches = 0
 
 
+def _check_gathered(x: torch.Tensor, order: torch.Tensor,
+                    starts: torch.Tensor) -> None:
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("gathered_segment_sums: x must be a 2-D float32 or "
+                        "bfloat16 tensor")
+    if (order.dim() != 1 or order.dtype != torch.int32
+            or order.numel() != x.shape[0]):
+        raise TypeError("gathered_segment_sums: order must be a 1-D int32 "
+                        "tensor with one entry per row of x")
+    _check_starts("gathered_segment_sums", starts, x, "x")
+    _check_starts("gathered_segment_sums", starts, order, "order")
+
+
+def gathered_segment_sums_plain(x: torch.Tensor, order: torch.Tensor,
+                                starts: torch.Tensor) -> torch.Tensor:
+    """Plain version of B12: B3's plain version on x[order] in f32."""
+    return segment_sums_plain(x.index_select(0, order).float(), starts)
+
+
+def gathered_segment_sums(x: torch.Tensor, order: torch.Tensor,
+                          starts: torch.Tensor) -> torch.Tensor:
+    """B12: out[s] = Σ x[order[p]] for p in [starts[s], starts[s+1]): B3
+    on the rows x[order] without gathering them first. x (N, d) is f32 or
+    bf16 (read as it is, widened in registers); order (N,) int32 indexes
+    its rows. The add order is B3's, so the result is bitwise B3's on
+    x.index_select(0, order) widened to f32."""
+    _check_gathered(x, order, starts)
+    if x.device.type == "cpu":
+        return gathered_segment_sums_plain(x, order, starts)
+    lib, out, head, tail, n_seg = _outputs(x, starts)
+    _build.check(lib.tdc_gathered_segment_sums(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), order.data_ptr(),
+        starts.data_ptr(), x.shape[0], n_seg, x.shape[1], head.data_ptr(),
+        tail.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    ), "gathered_segment_sums")
+    gathered_segment_sums.launches += 1
+    return out
+
+
+gathered_segment_sums.launches = 0
+
+
 def sorted_cluster_stats(
-    x: torch.Tensor, labels: torch.Tensor, k: int, *, pallas: bool = False
+    x: torch.Tensor, labels: torch.Tensor, k: int, *, pallas: bool = False,
+    fuse_gather: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(Σx per cluster (k, d) f32, counts (k,) f32) from per-point labels.
     Labels outside [0, k) are ignored. pallas=True runs the segmented sum
-    through B3 (`segment_sums`); pallas=False through its plain version."""
+    through B3 (`segment_sums`) on the gathered rows; pallas=False through
+    its plain version. fuse_gather=True (with pallas=True only, as in the
+    JAX package) runs B12 (`gathered_segment_sums`) on the unsorted rows,
+    f32 or bf16, and the sort permutation instead: the same sums, no
+    gathered copy."""
     labels = labels.to(torch.int32)
     labels = torch.where((labels >= 0) & (labels < k), labels,
                          torch.full_like(labels, k))
@@ -119,8 +186,13 @@ def sorted_cluster_stats(
     lo = torch.searchsorted(
         keys, torch.arange(k + 1, dtype=torch.int32, device=x.device))
     counts = (lo[1:] - lo[:-1]).to(torch.float32)
-    xs = x.index_select(0, order).to(torch.float32).contiguous()
     starts = lo.to(torch.int32)
+    if pallas and fuse_gather:
+        xg = x if x.dtype == torch.bfloat16 else x.to(torch.float32)
+        sums = gathered_segment_sums(xg.contiguous(), order.to(torch.int32),
+                                     starts)
+        return sums, counts
+    xs = x.index_select(0, order).to(torch.float32).contiguous()
     sums = (segment_sums if pallas else segment_sums_plain)(xs, starts)
     return sums, counts
 

@@ -1,6 +1,6 @@
 """Multi-GPU runs on torch.distributed (counterpart: tdc_tpu/parallel):
 process groups, the grid of ranks, data-parallel stats and the K-sharded
-fuzzy tower (`parallel.sharded_k`, imported on its own)."""
+K-Means and fuzzy towers (`parallel.sharded_k`)."""
 
 from tdc_tpu_torch.parallel.collectives import (
     distributed_fuzzy_stats,
@@ -16,7 +16,17 @@ from tdc_tpu_torch.parallel.multihost import (
     initialize_distributed,
     initialize_from_env,
 )
+from tdc_tpu_torch.parallel.sharded_k import (
+    fuzzy_fit_sharded,
+    kmeans_fit_sharded,
+    make_mesh_2d,
+    make_sharded_lloyd_step,
+    make_sharded_stats,
+    sharded_assign,
+)
 
 __all__ = ["Mesh", "distributed_fuzzy_stats", "distributed_lloyd_stats",
-           "initialize_distributed", "initialize_from_env", "make_mesh",
-           "replicate", "shard_points"]
+           "fuzzy_fit_sharded", "initialize_distributed",
+           "initialize_from_env", "kmeans_fit_sharded", "make_mesh",
+           "make_mesh_2d", "make_sharded_lloyd_step", "make_sharded_stats",
+           "replicate", "shard_points", "sharded_assign"]

@@ -1,33 +1,49 @@
-"""The in-memory K-sharded Fuzzy C-Means tower (counterpart:
-tdc_tpu/parallel/sharded_k.py, the `make_mesh_2d`, `_device_loop`,
-`_resolve_init_sharded`, `_fuzzy_fit_fns`, `make_sharded_fuzzy_stats` and
-`fuzzy_fit_sharded` parts).
+"""The in-memory K-sharded towers: K-Means and Fuzzy C-Means
+(counterpart: tdc_tpu/parallel/sharded_k.py, the `make_mesh_2d`,
+`_block_champions`, `_block_stats`, `make_sharded_stats`, `sum_sq`,
+`make_sharded_lloyd_step`, `sharded_assign`, `_device_loop`,
+`_resolve_init_sharded`, `kmeans_fit_sharded`, `_fuzzy_fit_fns`,
+`make_sharded_fuzzy_stats` and `fuzzy_fit_sharded` parts).
 
 A (data, model) grid of ranks: a rank's data coordinate picks its rows,
 its model coordinate its block of K/P contiguous centroids
 (`P(MODEL_AXIS, None)` in the JAX package). No rank ever holds more than
-(rows, K/P) of anything. The one quantity that crosses model shards per
-point is the membership normaliser s = Σ_k (d² + eps)^(−1/(m−1)): each
-shard computes its own part, the parts are summed over the model axis,
-and each shard accumulates its centroids' stats with that s. On the
-kernel route that is B7 (`fuzzy_normalizer`), an all_reduce of s, then
-B8 (`fuzzy_accumulate`); on 'xla' the same in plain ops, a block of rows
-at a time. The stats are then summed over the data axis, the objective
-over both axes (after B8 clamps each shard's part at 0, as the JAX kernel
+(rows, K/P) of anything.
+
+K-Means: each shard finds every row's nearest of its K/P centroids (B2,
+`distance_argmin`, on the kernel route), the global champion is the
+smallest of the shards' minima (ties to the smallest global index), and
+each shard sums the rows its own centroids won with the sort-based stats
+(B3), a sentinel label for the rows another shard won. JAX all_gathers
+the shards' (min, arg) pairs over the model axis; here each shard writes
+its pair into its own row of zero (P, rows) buffers that an all_reduce
+sums (adding zeros is exact), and the JAX selection follows as it is.
+The stats are then summed over the data axis. The loop and the final SSE
+run the shifted minima ‖c‖² − 2x·c and add Σ‖x‖², computed once per fit.
+
+Fuzzy C-Means: the one quantity that crosses model shards per point is
+the membership normaliser s = Σ_k (d² + eps)^(−1/(m−1)): each shard
+computes its own part, the parts are summed over the model axis, and each
+shard accumulates its centroids' stats with that s. On the kernel route
+that is B7 (`fuzzy_normalizer`), an all_reduce of s, then B8
+(`fuzzy_accumulate`); on 'xla' the same in plain ops, a block of rows at
+a time. The stats are then summed over the data axis, the objective over
+both axes (after B8 clamps each shard's part at 0, as the JAX kernel
 does).
 
-Rows are split np.array_split-wise, so a ragged N gives the ranks unequal
-rows and pads nothing: the JAX package's zero-row padding and its exact
-correction (`_pad_rows_sharded`, `_fuzzy_pad_correction`) have nothing
-to correct here. The loop runs on the host, reading the shift once per
+The fuzzy tower splits rows np.array_split-wise, so a ragged N gives the
+ranks unequal rows and pads nothing: the JAX package's zero-row padding
+and its exact correction (`_pad_rows_sharded`, `_fuzzy_pad_correction`)
+have nothing to correct here. The K-Means tower refuses a ragged N, as
+the JAX one does. The loops run on the host, reading the shift once per
 iteration; the shift comes from the all-reduced stats, so every rank
 takes the same branch. Every rank returns the whole (K, d) centroids,
 assembled by an all_reduce of a zero (K, d) buffer in which each model
-shard fills its own rows (adding zeros is exact). The collectives are
-all_reduce and broadcast only, which gloo takes on CUDA tensors.
+shard fills its own rows. The collectives are all_reduce and broadcast
+only, which gloo takes on CUDA tensors.
 
-The streamed towers and the K-Means and GMM towers are not ported
-(ROADMAP.md Queue A, A9).
+Not ported: the streamed towers, the GMM tower, coarse and bounded
+assignment and the compressed gathers (ROADMAP.md Queue A, A7, A9, A10).
 """
 
 from __future__ import annotations
@@ -36,7 +52,10 @@ import torch
 
 from tdc_tpu_torch.models.fuzzy import FuzzyCMeansResult
 from tdc_tpu_torch.models.kmeans import (
+    KMeansResult,
     _as_points,
+    _normalize,
+    _not_ported,
     auto_block_rows,
     resolve_init,
     resolve_init_replicated,
@@ -132,6 +151,144 @@ def make_sharded_fuzzy_stats(mesh: Mesh, m: float = 2.0, eps: float = 1e-9,
     return stats
 
 
+def _block_champions(x_blk, c_loc, kernel: str, mesh: Mesh,
+                     shifted: bool = False):
+    """Per-row global (min d², argmin) across all K shards. Each model
+    shard scores the rows against its local centroids; the per-shard
+    champions cross the model axis as two (P, rows) buffers, each shard's
+    in its own row of zeros, summed by all_reduce. shifted=True drops the
+    row-constant ‖x‖² (and the 0-clamp) from the minima: every shard
+    shifts a row by the same amount, so the champions do not change."""
+    k_per = c_loc.shape[0]
+    j = mesh.axis_index(MODEL_AXIS)
+    if kernel == "pallas":
+        from tdc_tpu_torch.ops.lloyd_kernels import distance_argmin
+
+        arg, lmin = distance_argmin(x_blk, c_loc, return_dist=not shifted)
+    else:
+        d2 = pairwise_sq_dist(x_blk, c_loc, shifted=shifted)  # (rows, K/P)
+        lmin, arg = torch.min(d2, dim=1)  # the first index among equal minima
+    n_model = mesh.axis_size(MODEL_AXIS)
+    mins = torch.zeros((n_model, x_blk.shape[0]), dtype=torch.float32,
+                       device=x_blk.device)
+    args = torch.zeros((n_model, x_blk.shape[0]), dtype=torch.int32,
+                       device=x_blk.device)
+    mins[j] = lmin
+    args[j] = arg.to(torch.int32) + j * k_per
+    mesh.psum(mins, MODEL_AXIS)
+    mesh.psum(args, MODEL_AXIS)
+    # The JAX selection: min, then the smallest index among the shards
+    # that reach it. The same bits on every rank.
+    gmin = mins.min(dim=0).values
+    garg = torch.where(mins == gmin[None, :], args, 2 ** 30).min(dim=0).values
+    return gmin, garg
+
+
+def _block_stats(x_blk, c_loc, kernel: str, mesh: Mesh,
+                 shifted: bool = False):
+    """(sums (K/P, d), counts (K/P,), sse ()) of this shard's centroids
+    over the rows: rows another shard won take the sentinel label K/P,
+    which the sort-based stats drop."""
+    from tdc_tpu_torch.ops.sorted_stats import sorted_cluster_stats
+
+    k_per = c_loc.shape[0]
+    gmin, garg = _block_champions(x_blk, c_loc, kernel, mesh, shifted)
+    rel = garg - mesh.axis_index(MODEL_AXIS) * k_per
+    sums, counts = sorted_cluster_stats(x_blk, rel, k_per,
+                                        pallas=kernel == "pallas")
+    return sums, counts, gmin.sum()
+
+
+def _row_blocks(x_loc, block_rows: int, kernel: str) -> list:
+    """This rank's rows as the towers take them: block_rows at a time on
+    'xla' (its (block, K/P) distances bound the memory; the rows must be
+    a multiple), at once on the kernel route, which has no such buffer."""
+    n_loc = x_loc.shape[0]
+    if not (block_rows and n_loc > block_rows and kernel != "pallas"):
+        return [x_loc]
+    if n_loc % block_rows != 0:
+        raise ValueError(
+            f"local shard rows {n_loc} not divisible by "
+            f"block_rows={block_rows}"
+        )
+    return list(x_loc.split(block_rows))
+
+
+def make_sharded_stats(mesh: Mesh, kernel: str = "xla", block_rows: int = 0,
+                       shifted: bool = False):
+    """fn(x_loc, c_loc) → (sums (K/P, d), counts (K/P,), sse ()) of this
+    rank's model shard, summed over the data axis; sse is the same on
+    every rank. x_loc is this rank's rows, c_loc its K/P centroids.
+    block_rows > 0 takes the rows that many at a time on 'xla'.
+    shifted=True returns sse without Σ‖x‖² (see `_block_champions`)."""
+
+    def stats(x_loc, c_loc):
+        k_per, d = c_loc.shape
+        sums = torch.zeros((k_per, d), dtype=torch.float32,
+                           device=x_loc.device)
+        counts = torch.zeros(k_per, dtype=torch.float32, device=x_loc.device)
+        sse = torch.zeros((), dtype=torch.float32, device=x_loc.device)
+        for blk in _row_blocks(x_loc, block_rows, kernel):
+            s, ct, e = _block_stats(blk, c_loc, kernel, mesh, shifted)
+            sums, counts, sse = sums + s, counts + ct, sse + e
+        # One data-axis all_reduce of [Σx | counts | sse].
+        flat = mesh.psum(torch.cat([sums.reshape(-1), counts,
+                                    sse.reshape(1)]), DATA_AXIS)
+        return (flat[:k_per * d].view(k_per, d), flat[k_per * d:-1],
+                flat[-1])
+
+    return stats
+
+
+def sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """Σ‖x‖² as an f32 scalar: the iteration-invariant SSE term, computed
+    once per fit and passed to the sharded step as `x2sum`."""
+    xf = x.float()
+    return (xf * xf).sum()
+
+
+def make_sharded_lloyd_step(mesh: Mesh, kernel: str = "xla",
+                            block_rows: int = 0, spherical: bool = False):
+    """step(x_loc, c_loc, x2sum) → (new c_loc, shift over all K, sse at
+    c_loc), x2sum = Σ‖x‖² over all rows (`sum_sq`): the distance pass
+    reports shifted minima (the same champions) and the SSE is max(Σ
+    shifted minima + x2sum, 0), which loses relative precision when the
+    SSE is far below Σ‖x‖², as in the JAX package. The rows are not
+    padded, so the JAX step's padding correction has nothing to do."""
+    stats_shifted = make_sharded_stats(mesh, kernel, block_rows,
+                                       shifted=True)
+
+    def step(x_loc, c_loc, x2sum):
+        sums, counts, sse = stats_shifted(x_loc, c_loc)
+        sse = torch.clamp_min(sse + x2sum, 0.0)
+        new_c = torch.where(counts[:, None] > 0,
+                            sums / torch.clamp_min(counts[:, None], 1.0),
+                            c_loc)
+        if spherical:
+            new_c = _normalize(new_c)
+        shift = _model_max(torch.linalg.norm(new_c - c_loc, dim=-1).max(),
+                           mesh)
+        return new_c, shift, sse
+
+    return step
+
+
+def sharded_assign(mesh: Mesh, kernel: str = "xla", block_rows: int = 0,
+                   shifted: bool = True):
+    """fn(x_loc, c_loc) → the global labels (int32) of this rank's rows,
+    blocked as the stats tower. shifted=True (the default) compares the
+    unclamped ‖c‖² − 2x·c, as the fit's step does; shifted=False the
+    clamped d², which can tie near-duplicate centroids at 0 (either index
+    is a valid argmin)."""
+
+    def assign(x_loc, c_loc):
+        return torch.cat([
+            _block_champions(blk, c_loc, kernel, mesh, shifted)[1]
+            for blk in _row_blocks(x_loc, block_rows, kernel)])
+
+    return assign
+
+
 def _model_max(v: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The largest of every model shard's scalar v, the same bits on every
     rank, by a sum: each shard writes its v into its own slot of zeros."""
@@ -185,6 +342,85 @@ def _device_loop(step, c0, max_iters: int, tol: float):
         hist[n_iter, 1] = shift
         n_iter += 1
     return c, shift, n_iter, hist[:n_iter]
+
+
+def kmeans_fit_sharded(
+    x,
+    k: int,
+    mesh: Mesh,
+    *,
+    init,
+    generator: torch.Generator | None = None,
+    max_iters: int = 20,
+    tol: float = 1e-4,
+    spherical: bool = False,
+    kernel: str = "xla",
+    block_rows: int = 0,
+    assign: str = "exact",
+    gather: str = "fp32",
+    device=None,
+) -> KMeansResult:
+    """Lloyd K-Means with the rows sharded over 'data' and the centroids
+    over 'model' (`make_mesh_2d`): the large-K regime. Every rank passes
+    the same x, N a multiple of the data axis and K of the model axis;
+    init is a (K, d) array or a name, which rank 0 resolves on the first
+    ≤ 65,536 rows and broadcasts. kernel: 'xla', 'pallas' (B2 + B3 on
+    each shard) or 'auto' (pallas on CUDA). block_rows > 0 takes each
+    rank's rows that many at a time on 'xla'; 0 takes them at once, as in
+    the JAX package. Returns the whole (K, d) centroids on every rank,
+    n_iter, the SSE at the returned centroids, the last shift, converged
+    (tol ≥ 0 and shift ≤ tol) and the (n_iter, 2) [sse, shift] history,
+    row i the SSE at iteration i's input centroids. assign='exact' and
+    gather='fp32' only: the others are not ported."""
+    from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
+
+    n_data = mesh.axis_size(DATA_AXIS)
+    n_model = mesh.axis_size(MODEL_AXIS)
+    if x.shape[0] % n_data != 0:
+        raise ValueError(f"N={x.shape[0]} not divisible by data axis "
+                         f"{n_data}")
+    if k % n_model != 0:
+        raise ValueError(f"K={k} not divisible by model axis {n_model}")
+    if gather != "fp32":
+        raise _not_ported(f"kmeans_fit_sharded(gather={gather!r})",
+                          "Queue A, A9: parallel/gather.py")
+    if assign != "exact":
+        raise _not_ported(f"kmeans_fit_sharded(assign={assign!r})",
+                          "Queue A, A10: ops/subk.py, ops/bounds.py")
+    dev = resolve_device(device)
+    x = _as_points(x, dev)
+    if spherical:
+        x = _normalize(x.float())
+    kernel = resolve_kernel(kernel, k=k // n_model, d=x.shape[1],
+                            device=dev, model="kmeans_sharded",
+                            label="kmeans_fit_sharded")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if isinstance(init, str):
+        c = resolve_init_replicated(x[:min(x.shape[0], 65536)], k, init,
+                                    generator, mesh)
+    else:
+        c = replicate(_resolve_init_sharded(x, k, init, generator), mesh)
+    if spherical:
+        c = _normalize(c)
+    x_loc = shard_points(x, mesh)
+    j, k_per = mesh.axis_index(MODEL_AXIS), k // n_model
+    c_loc = c[j * k_per:(j + 1) * k_per].contiguous()
+    # Once per fit; the step then skips the ‖x‖² re-read.
+    x2sum = mesh.psum(sum_sq(x_loc).reshape(1), DATA_AXIS)[0]
+    step = make_sharded_lloyd_step(mesh, kernel, int(block_rows), spherical)
+    c_loc, shift, n_iter, hist = _device_loop(
+        lambda ci: step(x_loc, ci, x2sum), c_loc, int(max_iters), float(tol))
+    # One extra step: the SSE at the RETURNED centroids.
+    _, _, sse = step(x_loc, c_loc, x2sum)
+    return KMeansResult(
+        centroids=_whole_centroids(c_loc, mesh),
+        n_iter=n_iter,
+        sse=sse,
+        shift=shift,
+        converged=bool(tol >= 0 and float(shift) <= tol),
+        history=hist.cpu().numpy(),
+    )
 
 
 def fuzzy_fit_sharded(

@@ -328,7 +328,8 @@ def test_cli_rows_agree_on_two_ranks(npz, tmp_path):
 
 
 @pytest.mark.parametrize("flags, words", [
-    (["--shard_k=2"], "A9"),
+    (["--shard_k=2"], "A7 and A9); in memory, call "
+     "tdc_tpu_torch.parallel.kmeans_fit_sharded"),
     (["--shard_k=2", "--method_name=gaussianMixture"], "A9"),
     (["--shard_k=3", "--method_name=distributedFuzzyCMeans"],
      "not divisible by --shard_k=3"),

@@ -32,7 +32,11 @@ private form at d ≤ 8 in one and two register groups of centroids, the
 tile form past it); copies of a
 centroid take no columns in B10 and the same mass as the original in
 B11; layout="features" fits on the card against the same fits on the
-CPU: equal n_iter and converged, centroids within 1e-4."""
+CPU: equal n_iter and converged, centroids within 1e-4. B12 (B3 with the
+row gather fused in) on f32 and bf16 rows: bitwise equal to B3 on the
+gathered rows (widened to f32), bitwise repeatable, within rtol 1e-5 and
+atol 1e-4 of its plain version; the fused and unfused sorted stats are
+bitwise equal."""
 
 import pytest
 import torch
@@ -94,6 +98,33 @@ def test_b3_long_runs_and_empty_segments(gen):
     torch.testing.assert_close(got, ss.segment_sums_plain(xs, starts),
                                rtol=1e-5, atol=1e-4)
     assert not got[0].any() and not got[2].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,d", [(1000, 37, 19), (5000, 130, 128),
+                                   (0, 5, 40)])
+def test_b12_is_b3_on_the_gathered_rows(gen, n, k, d, dtype):
+    # Labels past k (the K-sharded sentinel) sort last and are skipped.
+    x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    lab = torch.randint(0, k + 3, (n,), generator=gen, device="cuda")
+    keys, order = torch.sort(lab.to(torch.int32), stable=True)
+    starts = torch.searchsorted(
+        keys, torch.arange(k + 1, dtype=torch.int32, device="cuda")
+    ).to(torch.int32)
+    order = order.to(torch.int32)
+    before = ss.gathered_segment_sums.launches
+    got = ss.gathered_segment_sums(x, order, starts)
+    assert ss.gathered_segment_sums.launches == before + 1
+    assert torch.equal(got, ss.gathered_segment_sums(x, order, starts))
+    want = ss.segment_sums(x.index_select(0, order).float().contiguous(),
+                           starts)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        got, ss.gathered_segment_sums_plain(x, order, starts),
+        rtol=1e-5, atol=1e-4)
+    fused = ss.sorted_cluster_stats(x, lab, k, pallas=True, fuse_gather=True)
+    unfused = ss.sorted_cluster_stats(x, lab, k, pallas=True)
+    assert all(torch.equal(a, b) for a, b in zip(fused, unfused))
 
 
 @pytest.mark.parametrize("d", [19, 128])

@@ -18,7 +18,15 @@ that cancels ‖x‖², also atol 1e-5·Σ‖x‖²), the history's costs as the
 cost and its shifts rtol 1e-5 / atol 2·√d times the centroid bound (a
 shift compares two centroid sets, each within that bound). Across world
 sizes the stats agree within the same f32 bound, not bitwise; at one
-world size two runs are bitwise equal.
+world size two runs are bitwise equal. The K-sharded K-Means tower
+(`kmeans_fit_sharded`, N=300, K=8, grids (1, 2), (2, 1) and (2, 2), also
+spherical) is held to the same fit bounds, its SSE with atol 1e-5·Σ‖x‖²
+on both kernels (both packages add Σ‖x‖² to the shifted minima); its
+stats with the true minima (`make_sharded_stats`, rows in blocks on
+'xla') as the data-parallel stats; `sharded_assign` labels are equal,
+shifted and clamped, a centroid copied into the other model shard losing
+every row to the lower index; its refusals are the JAX package's words,
+and assign/gather modes that are not ported name their ROADMAP item.
 """
 
 import multiprocessing as mp
@@ -139,7 +147,72 @@ def _job(world):
         r2 = _sharded(xs, init_s, (2, 2), "pallas")
         out["repeat_sharded"] = (torch.equal(r1.centroids, r2.centroids)
                                  and torch.equal(r1.objective, r2.objective))
+    _kmeans_sharded_job(world, out)
     return out
+
+
+def _tied(init):
+    """The init with centroid 1 copied into the first centroid of the
+    upper half of K: on a grid with two model shards, one copy in each."""
+    c = init.copy()
+    c[SK // 2 + 1] = c[1]
+    return c
+
+
+def _kmeans_sharded_job(world, out):
+    """The K-sharded K-Means tower on this world's grids: fits and labels
+    for both kernels, a tie across model shards, repeats and refusals."""
+    x, init = _blobs(3, N, SK, D)
+    xt = torch.from_numpy(x)
+    for grid in GRIDS[world]:
+        mesh = tsk.make_mesh_2d(*grid)
+        x_loc = tmesh.shard_points(xt, mesh)
+        j, k_per = mesh.axis_index("model"), SK // grid[1]
+        c_loc = torch.from_numpy(init[j * k_per:(j + 1) * k_per])
+        for kern in KERNELS:
+            for spherical in (False, True):
+                res = tsk.kmeans_fit_sharded(
+                    x, SK, mesh, init=init, max_iters=10, tol=1e-4,
+                    kernel=kern, spherical=spherical, device="cpu")
+                out["kmeans_sharded", grid, kern, spherical] = _fit_out(res)
+            # The stats with the true minima, rows in blocks on 'xla'.
+            out["kmeans_sharded_stats", grid, kern] = (j, tuple(
+                t.numpy() for t in tsk.make_sharded_stats(
+                    mesh, kern, block_rows=N // grid[0] // 3)(x_loc, c_loc)))
+            for name, c, shifted in (("init", init, True),
+                                     ("tie", _tied(init), True),
+                                     ("clamped", init, False)):
+                cl = torch.from_numpy(c[j * k_per:(j + 1) * k_per])
+                out["kmeans_assign", grid, kern, name] = (
+                    mesh.axis_index("data"),
+                    tsk.sharded_assign(mesh, kern, shifted=shifted)(
+                        x_loc, cl).numpy())
+    grid = GRIDS[world][0]
+    mesh = tsk.make_mesh_2d(*grid)
+    runs = [tsk.kmeans_fit_sharded(x, SK, mesh, init=init, max_iters=10,
+                                   tol=1e-4, kernel="pallas", device="cpu")
+            for _ in range(2)]
+    out["repeat_kmeans_sharded"] = all(
+        torch.equal(getattr(runs[0], f), getattr(runs[1], f))
+        for f in ("centroids", "sse", "shift"))
+    for name, call, err in (
+            ("ks_ragged_n", lambda: tsk.kmeans_fit_sharded(
+                x[:N - 1], SK, tsk.make_mesh_2d(world, 1), init="first_k",
+                device="cpu"), ValueError),
+            ("ks_ragged_k", lambda: tsk.kmeans_fit_sharded(
+                x, SK - 1, tsk.make_mesh_2d(1, world), init="first_k",
+                device="cpu"), ValueError),
+            ("ks_assign", lambda: tsk.kmeans_fit_sharded(
+                x, SK, mesh, init=init, assign="coarse", device="cpu"),
+             NotImplementedError),
+            ("ks_gather", lambda: tsk.kmeans_fit_sharded(
+                x, SK, mesh, init=init, gather="int8", device="cpu"),
+             NotImplementedError)):
+        try:
+            call()
+            out[name] = None
+        except err as e:
+            out[name] = str(e)
 
 
 def _rank_main(rank, world, init_method, queue):
@@ -398,6 +471,85 @@ def test_fuzzy_fit_sharded_against_the_jax_tower(groups, case, kern):
         kernel=kern, device="cpu"))
     _assert_fit(got, one["centroids"], one["n_iter"], one["converged"],
                 one["cost"], one["history"])
+
+
+def _labels_by_data_shard(ranks, key, n_data):
+    """The whole (N,) labels from each rank's rows: the ranks of one data
+    coordinate agree, and the data coordinates concatenate in order."""
+    parts = {}
+    for r in ranks:
+        i, lab = r[key]
+        if i in parts:
+            np.testing.assert_array_equal(lab, parts[i])
+        parts[i] = lab
+    return np.concatenate([parts[i] for i in range(n_data)])
+
+
+@pytest.mark.parametrize("kern", KERNELS)
+@pytest.mark.parametrize("case", ["1x2", "2x1", "2x2", "1x2_spherical",
+                                  "2x2_spherical"])
+def test_kmeans_fit_sharded_against_the_jax_tower(groups, case, kern):
+    import jax.numpy as jnp
+
+    from tdc_tpu.parallel import sharded_k as jsk
+
+    grid = tuple(int(v) for v in case[:3].split("x"))
+    spherical = case.endswith("spherical")
+    ranks = groups[grid[0] * grid[1]]
+    x, init = _blobs(3, N, SK, D)
+    jm = jsk.make_mesh_2d(*grid)
+    j = jsk.kmeans_fit_sharded(x, SK, jm, init=init, max_iters=10, tol=1e-4,
+                               kernel=kern, spherical=spherical)
+    # Both packages report the SSE as Σ shifted minima + Σ‖x‖² (the x2sum
+    # step): its f32 rounding scales with Σ‖x‖² (N on the unit sphere).
+    xs = x / np.linalg.norm(x, axis=1, keepdims=True) if spherical else x
+    cost_atol = 1e-5 * float((xs.astype(np.float64) ** 2).sum())
+    _assert_fit(_same_on_every_rank(
+        ranks, ("kmeans_sharded", grid, kern, spherical)), j.centroids,
+        j.n_iter, j.converged, j.sse, j.history, cost_atol)
+    if spherical:
+        return
+    # The stats with the true minima (the JAX tower's default), each model
+    # shard's own K/P rows, the data axis summed.
+    want = jsk.make_sharded_stats(jm, kern)(jnp.asarray(x), jnp.asarray(init))
+    k_per = SK // grid[1]
+    for r in ranks:
+        m, got = r["kmeans_sharded_stats", grid, kern]
+        rows = slice(m * k_per, (m + 1) * k_per)
+        np.testing.assert_allclose(got[0], np.asarray(want[0])[rows],
+                                   rtol=RTOL, atol=1e-4)
+        np.testing.assert_array_equal(got[1], np.asarray(want[1])[rows])
+        np.testing.assert_allclose(got[2], np.asarray(want[2]), rtol=RTOL)
+    for name, c, shifted in (("init", init, True), ("tie", _tied(init), True),
+                             ("clamped", init, False)):
+        want = np.asarray(jsk.sharded_assign(jm, kern, shifted=shifted)(
+            jnp.asarray(x), jnp.asarray(c)))
+        got = _labels_by_data_shard(ranks, ("kmeans_assign", grid, kern,
+                                            name), grid[0])
+        np.testing.assert_array_equal(got, want)
+        if name == "tie":
+            # The copy in the upper shard never wins: the lower global
+            # index takes every row the two share.
+            assert (got == 1).any() and not (got == SK // 2 + 1).any()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_kmeans_fit_sharded_repeats_and_refusals(groups, world):
+    from tdc_tpu.parallel import sharded_k as jsk
+
+    assert all(r["repeat_kmeans_sharded"] for r in groups[world])
+    x, init = _blobs(3, N, SK, D)
+    for key, call in (
+            ("ks_ragged_n", lambda: jsk.kmeans_fit_sharded(
+                x[:N - 1], SK, jsk.make_mesh_2d(world, 1), init="first_k")),
+            ("ks_ragged_k", lambda: jsk.kmeans_fit_sharded(
+                x, SK - 1, jsk.make_mesh_2d(1, world), init="first_k"))):
+        with pytest.raises(ValueError) as exc:
+            call()
+        assert _same_on_every_rank(groups[world], key) == str(exc.value)
+    for key, item in (("ks_assign", "A10"), ("ks_gather", "A9")):
+        msg = _same_on_every_rank(groups[world], key)
+        assert "not ported" in msg and item in msg
 
 
 def test_host_shard_bounds_and_a_world_of_one():
