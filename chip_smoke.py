@@ -20,8 +20,13 @@ failure (nothing is caught):
    version on the same inputs (tolerances below), run twice to check it
    is bitwise repeatable, and timed with CUDA events. B3 runs on the
    labels of the sorted route's first iteration (its timed case), on
-   balanced labels and on one heavy label, and is also held to
-   torch.segment_reduce, the library call that computes the same sums.
+   balanced labels, on one heavy label and on one K-shard's relative
+   labels, and is held to torch.segment_reduce, the library call that
+   computes the same sums, on each: timed whole, pass 1 and pass 2 apart,
+   and beside the library call (B3 and B12 and their yardsticks as the
+   mean of 20 back-to-back calls, `batched_ms`; one-call medians, the
+   earlier method, are printed beside). The build's ptxas registers and spills
+   of every kernel are printed first.
    Duplicated centroids check the tie rule of B1, B2 and B3 on the card.
    B6 (fuzzy stats) at N=2^22, K=1024, d=128 for m=2.0 and m=1.7, and at
    a ragged N=2^16+37, K=300, d=19 with one point exactly on a centroid,
@@ -57,7 +62,10 @@ failure (nothing is caught):
    the ragged shape: s within REL_TOL relative of the plain version's, B8
    (given that s) as B6, both bitwise repeatable; and the tower's
    identity on one process: s summed over two K-shards, B8 on each shard
-   with it, equal to B6 on all K within B6's tolerances.
+   with it, equal to B6 on all K within B6's tolerances. B8's design line
+   gives its product count and μ scratch; its two halves (the μ kernels,
+   then μᵀ·X) are timed apart, and it is also timed at K/2 = 8,192 (one
+   rank's shard of the K-sharded route) beside its plain version.
    B12 (B3 with the row gather fused in) at N=2^19, K=16,384, d=768 on
    B3's three label sets, on one K-shard's relative labels of phase 12's
    K-sharded K-Means route (8,192 segments, the other shard's rows on the
@@ -144,6 +152,7 @@ import math
 import multiprocessing as mp
 import os
 import queue as queue_lib
+import shutil
 import socket
 import statistics
 import subprocess
@@ -267,6 +276,13 @@ RANK_TIMEOUT = 600  # seconds a rank may take for one route
 # Lloyd iterations of the fused-gather sorted step and of the K-sharded
 # K-Means route, both at the sorted route's shape (tol < 0).
 SORTED_ITERS = 4
+# Earlier times that this run's are printed beside (chip_smoke.py on an
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md): B12 before B3's redesign
+# (one-call medians), B6 at the fuzzy route's shape, and the K-sharded
+# fuzzy route before B8's redesign.
+B12_EARLIER_MS, B12_BF16_EARLIER_MS = 1.2460, 1.3586
+B6_EARLIER_MS = 111.82
+SHARDED_FUZZY_EARLIER_S = 20.7764
 
 
 def smi() -> str:
@@ -275,6 +291,33 @@ def smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def ptxas_table(log: str) -> list:
+    """(source, kernel, registers, spill stores/loads) of every kernel in
+    the build's `nvcc -Xptxas -v` log, names demangled by c++filt where it
+    is installed."""
+    rows, source, kernel, spills = [], "", "", ""
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "spill stores" in line:
+            parts = line.split()
+            spills = f"{parts[parts.index('spill') - 2]}/" + (
+                f"{parts[parts.index('loads') - 3]}")
+        elif "Used" in line and "registers" in line and kernel:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            rows.append([source, kernel, regs, spills])
+            kernel = ""
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r[1] for r in rows),
+            capture_output=True, text=True).stdout
+        for r, name in zip(rows, names.splitlines()):
+            r[1] = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return rows
 
 
 def require(cond: bool, what: str) -> None:
@@ -398,87 +441,118 @@ def phase_kernels(gen) -> dict:
 
     # B3 on the labels of the sorted route's first iteration: the CLI's
     # data (make_blobs(seed + 1)) and its --init=random centroids (seed),
-    # assigned by B2 — a skewed run-length distribution. Also timed on
-    # the balanced labels above and on a stated adversarial one: half the
-    # rows in label 0, the rest spread evenly.
+    # assigned by B2 — a skewed run-length distribution. Also on the
+    # balanced labels above, on a stated adversarial one (half the rows in
+    # label 0, the rest spread evenly) and on one K-shard's relative labels
+    # (below), each beside torch.segment_reduce.
     x, _ = make_blobs(1, n, d, k, device="cuda")
     c0 = init_random(torch.Generator(device="cuda").manual_seed(0), x, k)
     cli_labels = lk.distance_argmin(x, c0)[0]
     del c0
     rows = torch.arange(n, device="cuda")
     heavy = torch.where(rows < n // 2, 0, rows % k).to(torch.int32)
-    runs = {}
-    for name, labels in (("cli", cli_labels), ("balanced", balanced),
-                         ("one_heavy", heavy)):
-        keys, order = torch.sort(labels, stable=True)
-        starts = torch.searchsorted(
-            keys, torch.arange(k + 1, dtype=torch.int32, device="cuda")
-        ).to(torch.int32)
-        xs = x.index_select(0, order).contiguous()
-        got = ss.segment_sums(xs, starts)
-        repeatable("B3", (got,), (ss.segment_sums(xs, starts),))
-        want = ss.segment_sums_plain(xs, starts)
-        abs_sums = ss.segment_sums_plain(xs.abs(), starts)
-        err = check_close(f"B3 sums ({name})", got, want, abs_sums)
-        runs[name] = dict(
-            max_abs_err=err, xs=xs, starts=starts,
-            longest_run=int((starts[1:] - starts[:-1]).max()),
-            ms=median_ms(lambda: ss.segment_sums(xs, starts), 20))
-        del keys, order, got, want, abs_sums
-    # B3 on the weighted sorted route's first-iteration rows: [w·x | w]
-    # sorted by the labels of its weighted --init=random centroids (the
-    # CLI's weight file is make_weights(n, seed=n)).
-    w = make_weights(n, n)
-    c0 = init_random(torch.Generator(device="cuda").manual_seed(0), x, k, w)
-    keys, order = torch.sort(lk.distance_argmin(x, c0)[0], stable=True)
-    del c0
-    wstarts = torch.searchsorted(
-        keys, torch.arange(k + 1, dtype=torch.int32, device="cuda")
-    ).to(torch.int32)
-    xw = torch.cat([x * w[:, None], w[:, None]], dim=1).index_select(
-        0, order).contiguous()
-    got = ss.segment_sums(xw, wstarts)
-    repeatable("B3 weighted", (got,), (ss.segment_sums(xw, wstarts),))
-    err = check_close("B3 sums (weighted rows)", got,
-                      ss.segment_sums_plain(xw, wstarts),
-                      ss.segment_sums_plain(xw.abs(), wstarts))
-    weighted_b3 = dict(
-        d=d + 1, max_abs_err=err,
-        longest_run=int((wstarts[1:] - wstarts[:-1]).max()),
-        ms=median_ms(lambda: ss.segment_sums(xw, wstarts), 20))
-    del w, keys, order, wstarts, xw, got
-    main = runs["cli"]
-    xs, starts = main.pop("xs"), main.pop("starts")
-    # The library call for the same function (timed here only; the port
-    # never calls it), held to the kernel like the plain version.
-    offsets = starts.long()
-    lib = torch.segment_reduce(xs, "sum", offsets=offsets, axis=0)
-    check_close("B3 library", ss.segment_sums(xs, starts), lib,
-                ss.segment_sums_plain(xs.abs(), starts))
-    b_ms, b_by = bound_ms(float(n * d), 4.0 * (n * d + k + 1 + k * d))
-    out["B3"] = dict(
-        **main,
-        plain_ms=median_ms(lambda: ss.segment_sums_plain(xs, starts), 5),
-        library_ms=median_ms(
-            lambda: torch.segment_reduce(xs, "sum", offsets=offsets, axis=0),
-            5),
-        bound_ms=b_ms, bound_by=b_by,
-        other_labels={name: {key: runs[name][key] for key in
-                             ("ms", "longest_run", "max_abs_err")}
-                      for name in ("balanced", "one_heavy")},
-        weighted_rows=weighted_b3)
-    del runs, main, xs, starts, offsets, lib
-    # B12 on B3's label sets, and on one K-shard's relative labels: shard 1
-    # of the K-sharded K-Means route's (1, 2) grid at its init, the rows
-    # that the other shard's centroids win carrying the sentinel.
+    # Shard 1 of the K-sharded K-Means route's (1, 2) grid at its init:
+    # the rows that the other shard's centroids win carry the sentinel.
     init = _resolve_init_sharded(
         x, k, "random", torch.Generator(device="cuda").manual_seed(0))
     shard = lk.distance_argmin(x, init)[0] - k // 2
     del init
-    out["B12"] = phase_gathered_kernel(
-        x, {"cli": (cli_labels, k), "balanced": (balanced, k),
-            "one_heavy": (heavy, k), "k_shard": (shard, k // 2)})
+    label_sets = {"cli": (cli_labels, k), "balanced": (balanced, k),
+                  "one_heavy": (heavy, k), "k_shard": (shard, k // 2)}
+    runs = {}
+    for name, (labels, segs) in label_sets.items():
+        order, starts = sort_segments(labels, segs)
+        xs = x.index_select(0, order).contiguous()
+        runs[name] = check_b3(name, xs, starts)
+        if name != "cli":
+            print(f"[B3] {name} N={n} segments={segs} d={d}: "
+                  f"{json.dumps(runs[name])}", flush=True)
+        del order, starts, xs
+    # B3 on the weighted sorted route's first-iteration rows: [w·x | w]
+    # sorted by the labels of its weighted --init=random centroids (the
+    # CLI's weight file is make_weights(n, seed=n)): d+1 = 769 columns,
+    # B3's scalar loads.
+    w = make_weights(n, n)
+    c0 = init_random(torch.Generator(device="cuda").manual_seed(0), x, k, w)
+    order, wstarts = sort_segments(lk.distance_argmin(x, c0)[0], k)
+    del c0
+    xw = torch.cat([x * w[:, None], w[:, None]], dim=1).index_select(
+        0, order).contiguous()
+    weighted_b3 = dict(d=d + 1, **check_b3("weighted rows", xw, wstarts))
+    print(f"[B3] weighted rows N={n} K={k} d={d + 1}: "
+          f"{json.dumps(weighted_b3)}", flush=True)
+    del w, order, wstarts, xw
+    # The cli set's row for the JSON line, its plain version timed there
+    # too, and the one-call medians (the earlier method) beside it.
+    order, starts = sort_segments(cli_labels, k)
+    xs = x.index_select(0, order).contiguous()
+    offsets = starts.long()
+    main = dict(
+        runs["cli"],
+        plain_ms=batched_ms(lambda: ss.segment_sums_plain(xs, starts), 5),
+        one_call_ms=median_ms(lambda: ss.segment_sums(xs, starts), 20),
+        one_call_library_ms=median_ms(lambda: torch.segment_reduce(
+            xs, "sum", offsets=offsets, axis=0), 20))
+    print(f"[B3] cli N={n} K={k} d={d}: {json.dumps(main)}", flush=True)
+    b_ms, b_by = bound_ms(float(n * d), 4.0 * (n * d + k + 1 + k * d))
+    out["B3"] = dict(
+        **main, bound_ms=b_ms, bound_by=b_by,
+        other_labels={name: runs[name] for name in
+                      ("balanced", "one_heavy", "k_shard")},
+        weighted_rows=weighted_b3)
+    del runs, main, xs, starts, offsets
+    out["B12"] = phase_gathered_kernel(x, label_sets)
     return out
+
+
+def batched_ms(fn, reps: int = 20, rounds: int = 3) -> float:
+    """Mean time of `reps` back-to-back calls between two CUDA events, the
+    median of `rounds` such runs. For sub-millisecond calls (B3, B12 and
+    their yardsticks), where one call between two events also holds the
+    host's time to launch it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def check_b3(name, xs, starts) -> dict:
+    """B3 on one label set: bitwise repeatable, within REL_TOL of Σ|x| of
+    its plain version and of torch.segment_reduce (the library call for
+    the same sums, over the rows of the segments; timed here only, the
+    port never calls it). Timed whole and pass by pass (pass 2 on the
+    workspace pass 1 just wrote), beside the library call."""
+    got = ss.segment_sums(xs, starts)
+    repeatable(f"B3 ({name})", (got,), (ss.segment_sums(xs, starts),))
+    abs_sums = ss.segment_sums_plain(xs.abs(), starts)
+    err = check_close(f"B3 sums ({name})", got,
+                      ss.segment_sums_plain(xs, starts), abs_sums)
+    lo, hi = int(starts[0]), int(starts[-1])
+    rows, offsets = xs[lo:hi], (starts - lo).long()
+    check_close(f"B3 library ({name})", got, torch.segment_reduce(
+        rows, "sum", offsets=offsets, axis=0), abs_sums)
+    work = ss._workspace(xs, starts)
+    ss._launch_segment_sums(xs, starts, work)
+    ms = batched_ms(lambda: ss.segment_sums(xs, starts))
+    lib_ms = batched_ms(lambda: torch.segment_reduce(
+        rows, "sum", offsets=offsets, axis=0))
+    return dict(
+        max_abs_err=err, longest_run=int((starts[1:] - starts[:-1]).max()),
+        ms=ms,
+        pass1_ms=batched_ms(lambda: ss._launch_segment_sums(
+            xs, starts, work, 1)),
+        pass2_ms=batched_ms(lambda: ss._launch_segment_sums(
+            xs, starts, work, 2)),
+        library_ms=lib_ms, vs_library=ms / lib_ms)
 
 
 def sort_segments(labels, k):
@@ -512,7 +586,7 @@ def phase_gathered_kernel(x, label_sets) -> dict:
     also its plain version, the route it replaces (index_select, then B3)
     and the library call for the same function (index_add_ into k + 1
     rows, the sentinel's last; timed and held to the kernel here only,
-    the port never calls it)."""
+    the port never calls it). Times are `batched_ms`, as B3's."""
     n, d = x.shape
     other = {}
     for name, (labels, k) in label_sets.items():
@@ -521,8 +595,7 @@ def phase_gathered_kernel(x, label_sets) -> dict:
         other[name] = dict(
             max_abs_err=err, segments=k,
             longest_run=int((starts[1:] - starts[:-1]).max()),
-            ms=median_ms(lambda: ss.gathered_segment_sums(x, order, starts),
-                         20))
+            ms=batched_ms(lambda: ss.gathered_segment_sums(x, order, starts)))
     labels, k = label_sets["cli"]
     order, starts = sort_segments(labels, k)
     main = other.pop("cli")
@@ -538,20 +611,29 @@ def phase_gathered_kernel(x, label_sets) -> dict:
                           4.0 * n * d + 4.0 * n + 4.0 * (k + 1) + 4.0 * k * d)
     bf16_bound = bound_ms(float(n * d), 2.0 * n * d + 4.0 * n
                           + 4.0 * (k + 1) + 4.0 * k * d)[0]
-    return dict(
+    out = dict(
         **main,
-        plain_ms=median_ms(
+        plain_ms=batched_ms(
             lambda: ss.gathered_segment_sums_plain(x, order, starts), 5),
-        route_ms=median_ms(
-            lambda: ss.segment_sums(x.index_select(0, order), starts), 20),
-        library_ms=median_ms(
+        route_ms=batched_ms(
+            lambda: ss.segment_sums(x.index_select(0, order), starts)),
+        library_ms=batched_ms(
             lambda: torch.zeros((k + 1, d), device="cuda").index_add_(
                 0, clamped, x), 5),
+        one_call_ms=median_ms(
+            lambda: ss.gathered_segment_sums(x, order, starts), 20),
         bound_ms=b_ms, bound_by=b_by, other_labels=other,
         bf16_rows=dict(
             max_abs_err=bf16_err, bound_ms=bf16_bound,
-            ms=median_ms(lambda: ss.gathered_segment_sums(xb, order, starts),
-                         20)))
+            ms=batched_ms(lambda: ss.gathered_segment_sums(xb, order,
+                                                           starts)),
+            one_call_ms=median_ms(
+                lambda: ss.gathered_segment_sums(xb, order, starts), 20)))
+    print(f"[B12] N={n} K={k} d={d} (before B3's redesign: "
+          f"{B12_EARLIER_MS} ms on f32 rows, {B12_BF16_EARLIER_MS} on bf16, "
+          f"one call each): {json.dumps(out)}",
+          flush=True)
+    return out
 
 
 def check_weighted(name, x, c, w) -> float:
@@ -864,6 +946,8 @@ def phase_fuzzy_kernel(gen) -> dict:
         # The kernel's two phases timed apart (the row normaliser, then
         # the K-tiled accumulate): where B6's time goes.
         s, x2 = fk._normalize_phase(x, c, c2, m, 1e-9)
+        # Phase 2 at d = 128 is one kernel; the μ-scratch route that B8
+        # takes past d = 128 is timed beside it on the same inputs.
         per_m[m] = dict(
             max_abs_err=check_fuzzy(f"B6 m={m}", x, c, m),
             ms=median_ms(lambda: fk.fuzzy_stats_fused(x, c, m), 5),
@@ -871,11 +955,13 @@ def phase_fuzzy_kernel(gen) -> dict:
                 lambda: fk._normalize_phase(x, c, c2, m, 1e-9), 5),
             accumulate_ms=median_ms(
                 lambda: fk._accumulate_phase(x, c, c2, s, x2, m, 1e-9), 5),
+            accumulate_mu_scratch_ms=median_ms(
+                lambda: fk._accumulate_mu(x, c, c2, s, x2, m, 1e-9), 3),
             plain_ms=median_ms(lambda: fk.fuzzy_stats_fused_plain(x, c, m),
                                3))
         del s, x2
-        print(f"[B6] N={n} K={k} d={d} m={m}: {json.dumps(per_m[m])}",
-              flush=True)
+        print(f"[B6] N={n} K={k} d={d} m={m} (earlier: {B6_EARLIER_MS} ms "
+              f"at m=2): {json.dumps(per_m[m])}", flush=True)
     # Distance product and μᵀx accumulate on the FMA pipe; the N·K powers
     # run on the SFU beside them and do not set the bound.
     b_ms, b_by = bound_ms(4.0 * n * k * d,
@@ -930,20 +1016,49 @@ def phase_twopass_kernel(gen) -> dict:
     identity on one process against B6, then the ragged shape."""
     n, k, d = SORTED_N, SORTED_K, SORTED_D
     x, c = blob_data(gen, n, k, d)
+    # B8's design at this shape: at d > 128, μ once per (row, centroid)
+    # into the bounded scratch, then μᵀ·X: 2 products of 2·N·K·d (the
+    # distance and the accumulate), where one kernel per 128-column slice
+    # would compute the distance again in each of its ⌈d/128⌉ slices.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rc, kc, grid = fk.mu_scratch_plan(n, k, d, 2 * sms)
+    design = dict(
+        phase2="mu_scratch" if d > fk._D_SLICE else "one_slice",
+        products=2, products_before=1 + -(-d // fk._D_SLICE),
+        rows_per_chunk=rc, k_per_chunk=kc, row_ranges=grid,
+        scratch_bytes=4 * rc * kc, scratch_budget=fk.MU_SCRATCH_BYTES)
+    print(f"[B8 design] N={n} K={k} d={d}: {json.dumps(design)}", flush=True)
+    c2 = lk._sq_norms(c)
     per_m = {}
     for m in FUZZY_MS:
         err7, err8 = check_twopass(f"B7/B8 m={m}", x, c, m)
         s, x2 = fk.fuzzy_normalizer(x, c, m, return_x2=True)
         reps, plain_reps = (5, 3) if m == 2.0 else (3, 1)
+        # B8's two halves timed apart: the μ kernels, then μᵀ·X and the
+        # fixed-order sums (each alone on the scratch the other left).
         per_m[m] = dict(
             b7_err=err7, b8_err=err8,
             b7_ms=median_ms(lambda: fk.fuzzy_normalizer(x, c, m), reps),
             b8_ms=median_ms(
                 lambda: fk.fuzzy_accumulate(x, c, s, m, x2=x2), reps),
+            b8_mu_ms=median_ms(lambda: fk._accumulate_mu(
+                x, c, c2, s, x2, m, 1e-9, halves=1), 3),
+            b8_mux_ms=median_ms(lambda: fk._accumulate_mu(
+                x, c, c2, s, x2, m, 1e-9, halves=2), 3),
             b7_plain_ms=median_ms(
                 lambda: fk.fuzzy_normalizer_plain(x, c, m), plain_reps),
             b8_plain_ms=median_ms(
                 lambda: fk.fuzzy_accumulate_plain(x, c, s, m), plain_reps))
+        if m == 2.0:
+            # The K-sharded route's per-rank shape: one K-shard of K/2
+            # centroids, s over all K (as the tower sums it).
+            half = c[:k // 2].contiguous()
+            per_m[m].update(
+                b8_k_half_ms=median_ms(
+                    lambda: fk.fuzzy_accumulate(x, half, s, m, x2=x2), 3),
+                b8_k_half_plain_ms=median_ms(
+                    lambda: fk.fuzzy_accumulate_plain(x, half, s, m), 1))
+            del half
         del s, x2
         print(f"[B7/B8] N={n} K={k} d={d} m={m}: {json.dumps(per_m[m])}",
               flush=True)
@@ -977,7 +1092,7 @@ def phase_twopass_kernel(gen) -> dict:
                     lambda: fk.fuzzy_accumulate(xb, c, s, 2.0, x2=x2), 3))
     print(f"[B7/B8] bf16 rows N={n} K={k} d={d} m=2.0: {json.dumps(bf16)}",
           flush=True)
-    del xb, c, s, x2
+    del xb, c, c2, s, x2
     b7 = bound_ms(2.0 * n * k * d, 4.0 * (n * d + k * d + k + n))
     b8 = bound_ms(4.0 * n * k * d, 4.0 * (n * d + 2 * k * d + 2 * k + 2 * n
                                          + 1))
@@ -990,7 +1105,11 @@ def phase_twopass_kernel(gen) -> dict:
         "B8": dict(max_abs_err=main["b8_err"], ms=main["b8_ms"],
                    plain_ms=main["b8_plain_ms"], bound_ms=b8[0],
                    bound_by=b8[1], library_ms=None,
-                   m_1_7=per_m[1.7]["b8_ms"], bf16_ms=bf16["b8_ms"]),
+                   m_1_7=per_m[1.7]["b8_ms"], bf16_ms=bf16["b8_ms"],
+                   k_half_ms=main["b8_k_half_ms"],
+                   k_half_plain_ms=main["b8_k_half_plain_ms"],
+                   mu_ms=main["b8_mu_ms"], mux_ms=main["b8_mux_ms"],
+                   design=design),
     }
 
     n, k, d = FUZZY_RAGGED
@@ -1511,10 +1630,9 @@ def main() -> int:
 
     kl = _build.load()
     print(f"[build] {kl.build_seconds:.1f} s -> {kl.path.name}", flush=True)
-    for line in kl.log.splitlines():
-        if ("registers" in line or "spill" in line or line.startswith("==")
-                or "Function properties" in line):
-            print(f"[build] {line.strip()}")
+    for source, kernel, regs, spills in ptxas_table(kl.log):
+        print(f"[build] {source} {kernel}: {regs} registers, spill stores/"
+              f"loads {spills} bytes")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     numbers = phase_kernels(gen)
@@ -1649,6 +1767,9 @@ def main() -> int:
                              B7=2 * (n_iter + 1), B8=2 * (n_iter + 1))
         numbers["B7"]["launches"] = seen[0]["B7"]
         numbers["B8"]["launches"] = seen[0]["B8"]
+        print(f"[sharded_fuzzy_route] computation time "
+              f"{row['computation_time']} s for {n_iter} iterations (before "
+              f"B8's redesign: {SHARDED_FUZZY_EARLIER_S} s)", flush=True)
         x, _ = make_blobs(1, SORTED_N, SORTED_D, SORTED_K, device="cuda")
         init = _resolve_init_sharded(
             x, SORTED_K, "random", torch.Generator(device="cuda").manual_seed(0))

@@ -12,22 +12,21 @@
 //   d²  = max(‖x‖² + ‖c‖² − 2x·c, 0)        (‖x‖² computed here, ‖c‖² given)
 //   inv = (d² + eps)^(−1/(m−1)),  u = inv / Σ_k inv,  μ = u^m
 // and the outputs are Σ_i μ x_i (K, d), Σ_i μ (K,) and Σ μ d² (), all f32.
-// No (N, K) buffer exists.
+// No (N, K) buffer for the whole K exists.
 //
 // Bound on this card: operations. The distance product and the μᵀ·x
 // accumulate are 2·N·K·d FMA-pipe flops each (4·N·K·d), and every one of
 // the N·K elements takes powers on the SFU; x is read in N·d·4 bytes, three
 // orders of magnitude below the flops at K = 1024, d = 128.
 //
-// Two troubles of the TPU design, and what this design does about them:
+// Three troubles of the TPU design, and what this design does about them:
 // - The row normaliser Σ_k inv needs the whole K row before any μ. The TPU
-//   kernel holds a (block_n, K) tile in VMEM. Here two phases (design (b)
-//   of PERF.md §6): `fuzzy_norm_kernel` walks every K tile for a block of
-//   128 rows and writes s_i = Σ_k inv_ik (and ‖x_i‖²) to (N,) f32 buffers;
-//   then `fuzzy_accum_kernel` recomputes the distance tile per (K tile,
-//   row block), forms μ = (inv / s)^m and accumulates. The recompute costs one
-//   more 2·N·K·d product (6·N·K·d flops in all) and buys a kernel with no
-//   K·d limit and no (N, K) buffer.
+//   kernel holds a (block_n, K) tile in VMEM. Here two phases:
+//   `fuzzy_norm_kernel` walks every K tile for a block of 128 rows and
+//   writes s_i = Σ_k inv_ik (and ‖x_i‖²) to (N,) f32 buffers; phase 2
+//   recomputes the distance tile once and forms μ = (inv / s)^m. The
+//   recompute costs one more 2·N·K·d product (6·N·K·d flops in all) and
+//   buys a kernel with no K·d limit and no (N, K) buffer.
 // - Every row adds into every cluster, so the (K, d) accumulator cannot be
 //   read-modify-written per row as B1 does. It is tiled: a CTA owns one
 //   K tile of 64 centroids, one 128-column slice of d and a contiguous
@@ -35,14 +34,36 @@
 //   rows and writes it once. Within a 128-row block the sums are f32
 //   registers in row order; across row blocks they are carried in f64 in
 //   shared memory (two CTAs per SM). The G partials over row ranges are
-//   summed in a fixed order by `fuzzy_reduce_kernel`: no float atomics, so
-//   two runs are bitwise equal.
+//   summed in a fixed order: no float atomics, so two runs are bitwise
+//   equal.
+// - The TPU kernel holds a whole (block_k, d) accumulator in VMEM, so one
+//   distance tile serves every column of d. A CTA here holds 128 columns,
+//   so phase 2 takes one of two forms:
+//   - d <= kDC (one slice): `fuzzy_accum_kernel` computes the distance
+//     tile and accumulates into its slice in one kernel (B6 at the fuzzy
+//     route's d = 128).
+//   - d > kDC: run as one kernel per slice, the distance tile would be
+//     recomputed in each of ⌈d/128⌉ slices: 1 + ⌈d/128⌉ products of
+//     2·N·K·d, 7 at d = 768, where B8 measured 3.7x slower than its
+//     plain version. Instead (design (a) in PERF.md): `fuzzy_mu_kernel`
+//     computes each distance tile once over all of d and writes μ to a
+//     scratch of at most MU_SCRATCH_BYTES (ops/fuzzy_kernels.py, 512
+//     MiB, whatever N and K), one (row chunk, K chunk) at a time, with the
+//     Σμd² partials; `fuzzy_mux_kernel` then computes Σμx = μᵀ·X (and Σμ)
+//     of the chunk as a tiled f32 product over row ranges, the partials
+//     summed in g order. 2 products of 2·N·K·d at every d, plus 8·N·K
+//     bytes of μ traffic (69 GB at N = 2^19, K = 16,384: ~21 ms at 3.35
+//     TB/s beside the ~394 ms bound). Design (b), one CTA holding a K
+//     tile's Σμx over all of d, was not taken: f64 carries for a 32 x 768
+//     tile take 192 KB of the CTA's 227 KB of shared memory, one CTA per
+//     SM with little room left to stage x, and each K tile re-reads all
+//     of x.
 //
 // Ragged N, K and d are masked: rows past N get μ = 0, centroids past K are
 // never candidates (the job of `_PAD_CENTROID` and the `n_fake` correction
 // in the JAX wrapper). The powers keep the JAX formula: powf, or at m = 2
 // the exact 1/v and u·u that XLA compiles those powers to; the build uses
-// no fast-math. The two phases are separate C entry points.
+// no fast-math. The phases are separate C entry points.
 
 #include <cuda_runtime.h>
 
@@ -57,25 +78,28 @@ using namespace tdc;
 constexpr int kFuzzyBN = 64;  // centroids per K tile (TN = 4 per thread)
 constexpr int kTN = kFuzzyBN / 16;
 
-// The dot products of rows row0 + ty*TM + m with centroids of the K tile
-// starting at kt, over all of d, into acc[m][q] (centroid kt + tx*4 + q).
-// The next BK-column step is loaded while the current one computes. Ends
-// with a __syncthreads(), so `sm` may be reused right after.
-template <bool kVec>
+// The dot products of rows row0 + ty*TM + m with the BN centroids of the
+// K tile starting at kt, over all of d, into acc[m][q]: centroid kt +
+// (q / 4) * 64 + tx * 4 + q % 4 (groups of 4 that lie 64 apart, as in
+// `block_champion`). The next BK-column step is loaded while the current
+// one computes. Ends with a __syncthreads(), so `sm` may be reused right
+// after.
+template <bool kVec, int BN = kFuzzyBN>
 __device__ __forceinline__ void tile_dots(const float* __restrict__ x,
                                           const float* __restrict__ c,
                                           long long n, int k, int d,
                                           long long row0, int kt,
-                                          AssignSmem<kFuzzyBN>& sm,
-                                          float (&acc)[TM][kTN]) {
+                                          AssignSmem<BN>& sm,
+                                          float (&acc)[TM][BN / 16]) {
+  constexpr int TN = BN / 16;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
   for (int m = 0; m < TM; ++m)
 #pragma unroll
-    for (int q = 0; q < kTN; ++q) acc[m][q] = 0.f;
+    for (int q = 0; q < TN; ++q) acc[m][q] = 0.f;
   const int ndk = (d + BK - 1) / BK;
-  StepRegs<kVec, kFuzzyBN> regs;
+  StepRegs<kVec, BN> regs;
   regs.load(x, c, n, k, d, row0, kt, 0);
   for (int s = 0; s < ndk; ++s) {
     regs.store(sm);
@@ -87,12 +111,20 @@ __device__ __forceinline__ void tile_dots(const float* __restrict__ x,
       const float4 a1 =
           *reinterpret_cast<const float4*>(&sm.xs[kk][ty * TM + 4]);
       const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float4 b = *reinterpret_cast<const float4*>(&sm.cs[kk][tx * 4]);
-      const float bb[kTN] = {b.x, b.y, b.z, b.w};
+      float bb[TN];
+#pragma unroll
+      for (int g = 0; g < TN / 4; ++g) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(&sm.cs[kk][g * 64 + tx * 4]);
+        bb[4 * g] = b.x;
+        bb[4 * g + 1] = b.y;
+        bb[4 * g + 2] = b.z;
+        bb[4 * g + 3] = b.w;
+      }
 #pragma unroll
       for (int m = 0; m < TM; ++m)
 #pragma unroll
-        for (int q = 0; q < kTN; ++q) acc[m][q] = fmaf(a[m], bb[q], acc[m][q]);
+        for (int q = 0; q < TN; ++q) acc[m][q] = fmaf(a[m], bb[q], acc[m][q]);
     }
     __syncthreads();
   }
@@ -320,6 +352,244 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// Phase 2 at d > kDC (design (a)): μ through a bounded scratch.
+//
+// Centroids per K tile of the μ kernel: 128 (8 x 8 dot products per
+// thread, one CTA per SM) at m = 2; at other m, powf needs the registers
+// and 64 (two CTAs per SM) is faster on the card. A K chunk is a multiple
+// of kMuBN, and so of both tiles and of the μᵀ·X kernel's kFuzzyBN.
+constexpr int kMuBN = 128;
+//
+// `fuzzy_mu_kernel`, one CTA per 128-row block of a row chunk: for each
+// BN-wide K tile of the K chunk [kc0, kc0 + kc), the distance tile
+// over all of d
+// (one product per (row, centroid) pair), then μ = (inv / s)^m written to
+// mu[row − row_lo][kt − kc0] (0 for rows past N and centroids past K),
+// and the block's Σμd² (f32 per tile, f64 across tiles, the threads in
+// order) to opart[row block].
+template <bool kVec, bool kM2, int BN>
+__global__ void __launch_bounds__(kThreads)
+    fuzzy_mu_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                    const float* __restrict__ c2,
+                    const float* __restrict__ s_row,
+                    const float* __restrict__ x2_row, long long n, int k,
+                    int d, float p, float mexp, float eps, long long row_lo,
+                    int kc0, int kc, float* __restrict__ mu,
+                    double* __restrict__ opart) {
+  constexpr int TN = BN / 16;
+  __shared__ AssignSmem<BN> sm;
+  __shared__ double red[kThreads];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const long long row0 = row_lo + (long long)blockIdx.x * BM;
+  float x2r[TM], sr[TM];
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+    const long long row = row0 + ty * TM + m;
+    x2r[m] = row < n ? x2_row[row] : 0.f;
+    sr[m] = row < n ? s_row[row] : 1.f;
+  }
+  double otot = 0.0;
+  for (int kt = kc0; kt < kc0 + kc; kt += BN) {
+    float acc[TM][TN];
+    tile_dots<kVec, BN>(x, c, n, k, d, row0, kt, sm, acc);
+    float ob = 0.f;
+#pragma unroll
+    for (int m = 0; m < TM; ++m) {
+      const bool live = row0 + ty * TM + m < n;
+      float* dst = mu + (row0 - row_lo + ty * TM + m) * kc + (kt - kc0);
+#pragma unroll
+      for (int g = 0; g < TN / 4; ++g) {
+        float out[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = kt + g * 64 + tx * 4 + q;
+          float v = 0.f;
+          if (live && j < k) {
+            const float d2 = true_d2(x2r[m], c2[j], acc[m][4 * g + q]);
+            const float u = inv_power<kM2>(d2 + eps, p) / sr[m];
+            v = mu_power<kM2>(u, mexp);
+            ob = fmaf(v, d2, ob);
+          }
+          out[q] = v;
+        }
+        *reinterpret_cast<float4*>(dst + g * 64 + tx * 4) =
+            make_float4(out[0], out[1], out[2], out[3]);
+      }
+    }
+    otot += (double)ob;
+  }
+  red[tid] = otot;
+  __syncthreads();
+  if (tid == 0) {
+    double o = 0.0;
+    for (int t = 0; t < kThreads; ++t) o += red[t];
+    opart[row0 / BM] = o;  // row_lo is a multiple of BM
+  }
+}
+
+// `fuzzy_mux_kernel`'s shared memory, 78 KB: two CTAs fit one SM.
+struct __align__(16) MuxSmem {
+  double tot[32][kThreads];  // thread t's 4 x 8 running Σμx at [i][t]
+  double red[kThreads];      // a block's Σμ quarters
+  float mu[kRC][kFuzzyBN];   // μ of one step's rows, the K tile
+  float xc[kRC][kDC];        // x of one step's rows, columns of the slice
+};
+
+// Σμx = μᵀ·X and Σμ of one K chunk. CTA (blockIdx.x, blockIdx.y,
+// blockIdx.z) = (K tile of the chunk, kDC-column d slice, row range g of
+// the row chunk [row_lo, row_hi)). Each kRC-row step stages μ (from the
+// scratch) and x in shared memory, the next step's loads in flight while
+// it computes; each 128-row block is summed in f32 registers in row order
+// and carried in f64 in shared memory. A warp covers 8 centroid groups x
+// 4 column groups, so one step of a thread's 4 x 8 block reads 3 shared
+// wavefronts for 32 FMAs. Writes its (64, kDC) Σμx partial to
+// ws[g_base + g] and, in the d slice 0 CTAs, its Σμ partial to
+// wpart[g_base + g]: per block, thread t sums rows 4(t/64)..+3 of each
+// step of column t % 64 in f32, the 4 quarters add in order in f64, and
+// the blocks carry in f64.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    fuzzy_mux_kernel(const float* __restrict__ x, const float* __restrict__ mu,
+                     long long n, int d, long long row_lo, long long row_hi,
+                     int kc, int g_base, float* __restrict__ ws,
+                     double* __restrict__ wpart) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  MuxSmem& sm = *reinterpret_cast<MuxSmem*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int kt = blockIdx.x * kFuzzyBN;  // within the chunk
+  const int dc = blockIdx.y * kDC;
+  const bool slice0 = blockIdx.y == 0;
+  const int g = blockIdx.z, grid = gridDim.z;
+  const long long nb = (row_hi - row_lo + BM - 1) / BM;
+  const long long b0 = nb * g / grid, b1 = nb * (g + 1) / grid;
+  // Accumulate mapping: centroids kt + cg*4 + i (i < 4), columns
+  // dc + colg*4 + jj and dc + 64 + colg*4 + jj (jj < 4).
+  const int lane = tid % 32, warp = tid / 32;
+  const int cg = (warp % 2) * 8 + lane / 4, colg = (warp / 2) * 4 + lane % 4;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sm.tot[e][tid] = 0.0;
+  double wtot = 0.0;  // Σμ of centroid kt + tid (tid < 64)
+  // One step: kRC rows from local row r (of the row chunk). Thread tid
+  // stages μ row r + tid/16, float4 column (tid % 16) * 4.
+  ChunkRegs<kVec> chunk;
+  float4 mnext = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto load_step = [&](long long r) {
+    chunk.load(x, n, d, row_lo + r, dc);
+    mnext = *reinterpret_cast<const float4*>(mu + (r + tid / 16) * kc + kt +
+                                             (tid % 16) * 4);
+  };
+  if (b0 < b1) load_step(b0 * BM);
+  for (long long b = b0; b < b1; ++b) {
+    float blk[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) blk[i][jj] = 0.f;
+    float wb = 0.f;
+    for (int r0 = 0; r0 < BM; r0 += kRC) {
+      // Each step ends with a barrier, so the staging tiles may be
+      // overwritten; this barrier publishes them.
+      chunk.store(sm.xc);
+      *reinterpret_cast<float4*>(&sm.mu[tid / 16][(tid % 16) * 4]) = mnext;
+      __syncthreads();
+      if (r0 + kRC < BM) {
+        load_step(b * BM + r0 + kRC);
+      } else if (b + 1 < b1) {
+        load_step((b + 1) * BM);
+      }
+      if (slice0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) wb += sm.mu[(tid / 64) * 4 + q][tid % 64];
+      }
+#pragma unroll 4
+      for (int rr = 0; rr < kRC; ++rr) {
+        const float4 a = *reinterpret_cast<const float4*>(&sm.mu[rr][cg * 4]);
+        const float4 v0 =
+            *reinterpret_cast<const float4*>(&sm.xc[rr][colg * 4]);
+        const float4 v1 =
+            *reinterpret_cast<const float4*>(&sm.xc[rr][64 + colg * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            blk[i][jj] = fmaf(av[i], bv[jj], blk[i][jj]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        sm.tot[i * 8 + jj][tid] += (double)blk[i][jj];
+    if (slice0) {  // the block's Σμ: its 4 quarters in order
+      sm.red[tid] = (double)wb;
+      __syncthreads();
+      if (tid < 64)
+        wtot += ((sm.red[tid] + sm.red[tid + 64]) + sm.red[tid + 128]) +
+                sm.red[tid + 192];
+    }
+  }
+  float* dst = ws + (long long)(g_base + g) * kc * d;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = kt + cg * 4 + i;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = dc + (jj < 4 ? colg * 4 + jj : 64 + colg * 4 + jj - 4);
+      if (col < d)
+        dst[(long long)j * d + col] = (float)sm.tot[i * 8 + jj][tid];
+    }
+  }
+  if (slice0 && tid < 64)
+    wpart[(long long)(g_base + g) * kc + kt + tid] = wtot;
+}
+
+// One K chunk's sums from its G partials, each in g order: Σμx and Σμ of
+// centroid kc0 + j.
+__global__ void mu_reduce_kernel(const float* __restrict__ ws,
+                                 const double* __restrict__ wpart, int grid,
+                                 int kc, int kn, int d,
+                                 float* __restrict__ wsums,
+                                 float* __restrict__ weights) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long kd = (long long)kn * d;
+  if (e < kd) {
+    const long long j = e / d, col = e % d;
+    double s = 0.0;
+    for (int g = 0; g < grid; ++g)
+      s += (double)ws[((long long)g * kc + j) * d + col];
+    wsums[e] = (float)s;
+  }
+  if (e < kn) {
+    double s = 0.0;
+    for (int g = 0; g < grid; ++g) s += wpart[(long long)g * kc + e];
+    weights[e] = (float)s;
+  }
+}
+
+// objective = max(Σ parts, 0): 256 threads each sum a contiguous slice in
+// order, then thread 0 sums the slices in order.
+__global__ void __launch_bounds__(kThreads)
+    sum_parts_kernel(const double* __restrict__ parts, long long len,
+                     float* __restrict__ objective) {
+  __shared__ double red[kThreads];
+  const long long per = (len + kThreads - 1) / kThreads;
+  const long long a = threadIdx.x * per;
+  const long long b = a + per < len ? a + per : len;
+  double s = 0.0;
+  for (long long i = a; i < b; ++i) s += parts[i];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double o = 0.0;
+    for (int t = 0; t < kThreads; ++t) o += red[t];
+    objective[0] = fmaxf((float)o, 0.f);
+  }
+}
+
 // Sums the G partials in g order: Σμx (K, d), Σμ (K,) and the objective,
 // clamped at 0 as the JAX wrapper clamps it.
 __global__ void fuzzy_reduce_kernel(const float* __restrict__ ws,
@@ -436,3 +706,75 @@ extern "C" int tdc_fuzzy_accumulate(const float* x, const float* c,
       ws, wpart, opart, grid, ntk, k, d, wsums, weights, objective);
   return (int)cudaGetLastError();
 }
+
+// Phase 2 at d > kDC through the μ scratch (design (a); see the note at
+// the top). mu holds rows_per_chunk x k_per_chunk f32 (multiples of BM and
+// of kMuBN); for each K chunk and each row chunk in it, the μ kernel
+// then the μᵀ·X kernel on `grid` row ranges; ws (row chunks · grid,
+// k_per_chunk, d) f32, wpart (row chunks · grid, k_per_chunk) f64 and
+// opart (K chunks, ceil(N / BM)) f64 hold the partials. `halves`: bit 0 runs
+// the μ kernels, bit 1 the μᵀ·X kernels and the reductions; 3 is the
+// kernel, 1 and 2 time the halves apart.
+extern "C" int tdc_fuzzy_accumulate_mu(
+    const float* x, const float* c, const float* c2, const float* s,
+    const float* x2, long long n, int k, int d, float p, float mexp,
+    float eps, long long rows_per_chunk, int k_per_chunk, int grid,
+    float* mu, float* ws, double* wpart, double* opart, float* wsums,
+    float* weights, float* objective, int halves, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n < 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  if (rows_per_chunk <= 0 || rows_per_chunk % BM != 0 || k_per_chunk <= 0 ||
+      k_per_chunk % kMuBN != 0 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = vector_loads_ok(x, c, d), m2 = p == -1.f && mexp == 2.f;
+  auto* mk = vec ? (m2 ? fuzzy_mu_kernel<true, true, kMuBN>
+                       : fuzzy_mu_kernel<true, false, kFuzzyBN>)
+                 : (m2 ? fuzzy_mu_kernel<false, true, kMuBN>
+                       : fuzzy_mu_kernel<false, false, kFuzzyBN>);
+  auto* xk = vec ? fuzzy_mux_kernel<true> : fuzzy_mux_kernel<false>;
+  const int smem = (int)sizeof(MuxSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      xk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long nb = (n + BM - 1) / BM;
+  for (int kc0 = 0, kci = 0; kc0 < k; kc0 += k_per_chunk, ++kci) {
+    const int kn = k - kc0 < k_per_chunk ? k - kc0 : k_per_chunk;
+    // The chunk's width in the scratch: whole μ-kernel tiles, each two
+    // μᵀ·X tiles.
+    const int kw = (kn + kMuBN - 1) / kMuBN * kMuBN;
+    int rci = 0;
+    for (long long row_lo = 0; row_lo < n; row_lo += rows_per_chunk, ++rci) {
+      const long long row_hi =
+          n - row_lo < rows_per_chunk ? n : row_lo + rows_per_chunk;
+      if (halves & 1) {
+        mk<<<(unsigned)((row_hi - row_lo + BM - 1) / BM), kThreads, 0, st>>>(
+            x, c, c2, s, x2, n, k, d, p, mexp, eps, row_lo, kc0, kw, mu,
+            opart + kci * nb);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+      }
+      if (halves & 2) {
+        const dim3 xgrid((unsigned)(kw / kFuzzyBN), (unsigned)d_slices(d),
+                         (unsigned)grid);
+        xk<<<xgrid, kThreads, smem, st>>>(x, mu, n, d, row_lo, row_hi, kw,
+                                          rci * grid, ws, wpart);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+      }
+    }
+    if (halves & 2) {
+      const long long kd = (long long)kn * d;
+      mu_reduce_kernel<<<(unsigned)((kd + 255) / 256), 256, 0, st>>>(
+          ws, wpart, rci * grid, kw, kn, d,
+          wsums + (long long)kc0 * d, weights + kc0);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  if (halves & 2) {
+    const long long kchunks = (k + k_per_chunk - 1) / k_per_chunk;
+    sum_parts_kernel<<<1, kThreads, 0, st>>>(opart, kchunks * nb, objective);
+  }
+  return (int)cudaGetLastError();
+}
+

@@ -35,9 +35,10 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # name -> argtypes; every pointer and the stream are void*, every entry
 # point that launches returns an int CUDA error code
-# (tdc_segment_chunk_rows, tdc_fuzzy_k_tile, tdc_fuzzy_grid,
-# tdc_gmm_row_block, tdc_gmm_grid and tdc_tall_grid return the geometry
-# that sizes B3's and B12's, B6's, B9's, B10's and B11's workspaces).
+# (tdc_segment_chunk_rows, tdc_segment_meta_bytes, tdc_fuzzy_k_tile,
+# tdc_fuzzy_grid, tdc_gmm_row_block, tdc_gmm_grid and tdc_tall_grid return
+# the geometry that sizes B3's and B12's, B6's, B9's, B10's and B11's
+# workspaces).
 SIGNATURES = {
     "tdc_distance_argmin": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "tdc_lloyd_stats_fused": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P,
@@ -46,13 +47,17 @@ SIGNATURES = {
                                        _P, _P, _P, _P, _P],
     "tdc_lloyd_stats_fused_bf16": [_P, _I, _P, _P, _LL, _I, _I, _I, _P, _P,
                                    _P, _P, _P, _P, _P, _P],
-    "tdc_segment_sums": [_P, _P, _LL, _I, _I, _P, _P, _P, _P],
+    "tdc_segment_sums": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _I, _P],
     "tdc_gathered_segment_sums": [_P, _I, _P, _P, _LL, _I, _I, _P, _P, _P,
-                                  _P],
+                                  _P, _P],
     "tdc_segment_chunk_rows": [],
+    "tdc_segment_meta_bytes": [],
     "tdc_fuzzy_normalizer": [_P, _P, _P, _LL, _I, _I, _F, _F, _P, _P, _P],
     "tdc_fuzzy_accumulate": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _F, _F,
                              _I, _P, _P, _P, _P, _P, _P, _P],
+    "tdc_fuzzy_accumulate_mu": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _F, _F,
+                                _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _P],
     "tdc_row_sq_norms": [_P, _LL, _I, _P, _P],
     "tdc_fuzzy_k_tile": [],
     "tdc_fuzzy_grid": [_LL, _I, _I, _I],

@@ -18,9 +18,12 @@ As in `ops/lloyd_kernels.py`, each kernel has three parts here:
   launch increments.
 
 The kernel is two phases (the row normaliser, then a K-tiled accumulate
-that recomputes the distance tile), so it takes every (K, d): there is no
-route limit and no fallback. See the note in `csrc/fuzzy_kernels.cu` and
-PERF.md.
+that recomputes the distance tile once), so it takes every (K, d): there
+is no route limit and no fallback. At d <= 128 the accumulate is one
+kernel; past it, μ goes through a scratch of at most MU_SCRATCH_BYTES
+(`mu_scratch_plan`) to a μᵀ·X kernel, so the distance is computed once
+per (row, centroid) pair at every d. See the note in
+`csrc/fuzzy_kernels.cu` and PERF.md.
 
 B7 (`fuzzy_normalizer`) and B8 (`fuzzy_accumulate`) are those two phases
 as kernels of their own, for the K-sharded tower
@@ -94,24 +97,63 @@ def _normalize_phase(x, centroids, c2, m, eps):
     return s, x2
 
 
-def _accumulate_phase(x, centroids, c2, s, x2, m, eps) -> FuzzyStats:
-    """Phase 2 of B6 on CUDA tensors, given phase 1's (s, ‖x‖²): the
-    K-tiled accumulate and the fixed-order sum of its partials."""
+# Phase 2's geometry, as `csrc/fuzzy_kernels.cu` and `csrc/champion.cuh`
+# fix it: centroids per K tile of the μᵀ·X kernel (kFuzzyBN) and of the μ
+# kernel (kMuBN, which a K chunk is a multiple of), rows per row block
+# (BM) and columns per d slice (kDC). At d <= _D_SLICE phase 2 is one
+# kernel that computes each distance tile once; past it, μ goes through a
+# scratch.
+_K_TILE = 64
+_MU_K_TILE = 128
+_ROW_BLOCK = 128
+_D_SLICE = 128
+# The μ scratch of phase 2 at d > _D_SLICE: at most this many bytes,
+# whatever N and K (each process allocates its own).
+MU_SCRATCH_BYTES = 512 << 20
+
+
+def mu_scratch_plan(n: int, k: int, d: int,
+                    target_ctas: int) -> tuple[int, int, int]:
+    """(rows per chunk, centroids per chunk, row ranges G) of phase 2 at
+    d > _D_SLICE. The scratch holds μ for one (row chunk, K chunk) pair,
+    rows per chunk x centroids per chunk f32 within MU_SCRATCH_BYTES:
+    every row in one chunk where the budget allows (the widest K chunk
+    then), else one μ-kernel K tile and as many row blocks as fit; both
+    multiples of their tiles, at least one tile each. G splits a row
+    chunk's row blocks so that about `target_ctas` CTAs run the μᵀ·X
+    kernel over its (K tile, d slice) pairs."""
+    cap = MU_SCRATCH_BYTES // 4  # f32 elements
+    rows_all = max(1, -(-n // _ROW_BLOCK)) * _ROW_BLOCK
+    k_all = -(-k // _MU_K_TILE) * _MU_K_TILE
+    kc = min(k_all, max(_MU_K_TILE, cap // rows_all // _MU_K_TILE
+                        * _MU_K_TILE))
+    rc = min(rows_all, max(_ROW_BLOCK, cap // kc // _ROW_BLOCK * _ROW_BLOCK))
+    tiles = (kc // _K_TILE) * (-(-d // _D_SLICE))
+    grid = max(1, min(target_ctas // tiles, rc // _ROW_BLOCK, 65535))
+    return rc, kc, grid
+
+
+def _stats_buffers(k, d, dev):
+    return (torch.empty((k, d), dtype=torch.float32, device=dev),
+            torch.empty(k, dtype=torch.float32, device=dev),
+            torch.empty((), dtype=torch.float32, device=dev))
+
+
+def _accumulate_one_slice(x, centroids, c2, s, x2, m, eps) -> FuzzyStats:
+    """Phase 2 as one kernel (d <= _D_SLICE: one d slice, so each distance
+    tile is computed once), and the fixed-order sum of its partials."""
     n, d = x.shape
     k = centroids.shape[0]
     dev = x.device
     lib = _build.load().lib
-    # Row ranges G: about two CTAs per SM over all (K tile, d slice, row
-    # range) triples.
+    # About two CTAs per SM.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid = lib.tdc_fuzzy_grid(n, k, d, 2 * sms)
     ntk = -(-k // lib.tdc_fuzzy_k_tile())
     ws = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
     wpart = torch.empty((grid, k), dtype=torch.float64, device=dev)
     opart = torch.empty((grid, ntk), dtype=torch.float64, device=dev)
-    wsums = torch.empty((k, d), dtype=torch.float32, device=dev)
-    weights = torch.empty(k, dtype=torch.float32, device=dev)
-    objective = torch.empty((), dtype=torch.float32, device=dev)
+    wsums, weights, objective = _stats_buffers(k, d, dev)
     _build.check(lib.tdc_fuzzy_accumulate(
         x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), s.data_ptr(),
         x2.data_ptr(), n, k, d, -1.0 / (m - 1.0), m, eps, grid,
@@ -120,6 +162,46 @@ def _accumulate_phase(x, centroids, c2, s, x2, m, eps) -> FuzzyStats:
     ), "fuzzy_stats_fused (accumulate)")
     return FuzzyStats(weighted_sums=wsums, weights=weights,
                       objective=objective)
+
+
+def _accumulate_mu(x, centroids, c2, s, x2, m, eps,
+                   halves: int = 3) -> FuzzyStats:
+    """Phase 2 through the μ scratch (design (a), csrc/fuzzy_kernels.cu):
+    μ once per (row, centroid) into the bounded scratch of
+    `mu_scratch_plan`, then μᵀ·X. `halves` 1 or 2 runs the μ or the μᵀ·X
+    kernels alone, for timing them apart (chip_smoke.py); its outputs are
+    then not the stats."""
+    n, d = x.shape
+    k = centroids.shape[0]
+    dev = x.device
+    lib = _build.load().lib
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rc, kc, grid = mu_scratch_plan(n, k, d, 2 * sms)
+    nb = -(-n // _ROW_BLOCK)
+    mu = torch.empty(rc * kc, dtype=torch.float32, device=dev)
+    ws = torch.empty((-(-n // rc) * grid, kc, d), dtype=torch.float32,
+                     device=dev)
+    wpart = torch.empty((ws.shape[0], kc), dtype=torch.float64, device=dev)
+    opart = torch.empty((-(-k // kc), nb), dtype=torch.float64, device=dev)
+    wsums, weights, objective = _stats_buffers(k, d, dev)
+    _build.check(lib.tdc_fuzzy_accumulate_mu(
+        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), s.data_ptr(),
+        x2.data_ptr(), n, k, d, -1.0 / (m - 1.0), m, eps, rc, kc, grid,
+        mu.data_ptr(), ws.data_ptr(), wpart.data_ptr(), opart.data_ptr(),
+        wsums.data_ptr(), weights.data_ptr(), objective.data_ptr(), halves,
+        _stream(x),
+    ), "fuzzy_stats_fused (accumulate, μ scratch)")
+    return FuzzyStats(weighted_sums=wsums, weights=weights,
+                      objective=objective)
+
+
+def _accumulate_phase(x, centroids, c2, s, x2, m, eps) -> FuzzyStats:
+    """Phase 2 of B6 and B8 on CUDA tensors, given phase 1's (s, ‖x‖²):
+    the one-slice kernel at d <= _D_SLICE, the μ scratch past it, so the
+    distance is computed once per (row, centroid) pair at every d."""
+    if x.shape[1] <= _D_SLICE:
+        return _accumulate_one_slice(x, centroids, c2, s, x2, m, eps)
+    return _accumulate_mu(x, centroids, c2, s, x2, m, eps)
 
 
 def fuzzy_stats_fused(x: torch.Tensor, centroids: torch.Tensor,

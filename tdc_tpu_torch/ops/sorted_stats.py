@@ -19,8 +19,9 @@ The JAX kernel numbers the runs by dense rank and writes them into
 (B, 2B) windows because a TPU kernel walks fixed-size blocks in grid
 order; the wrapper then gathers rank → label and zeroes absent labels.
 On Hopper the kernel cuts the sorted rows into fixed chunks, one CTA
-each, and sums a run that crosses chunks from its per-chunk partials in a
-second pass, so the runs need no windows and are indexed by label
+each; a CTA sums each short run that starts in its chunk whole, and a
+long run is summed from its per-chunk partials in a second pass, so the
+runs need no windows and are indexed by label
 directly (run j = rows [lo[j], lo[j+1]) of the sorted order, where lo
 comes from the same searchsorted that gives the counts): an absent label
 is an empty run, whose sum the kernel writes as zeros, and the rank
@@ -89,35 +90,51 @@ def segment_sums_plain(xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, seg, xs[lo:lo + seg.numel()])
 
 
-def _outputs(rows: torch.Tensor, starts: torch.Tensor):
-    """(library, out (S, d), head and tail (chunks, d) workspaces, S) for
-    B3 or B12 over `rows`' N rows: one head and one tail row of partial
-    sums per pass-1 chunk of rows."""
+def _workspace(rows: torch.Tensor, starts: torch.Tensor):
+    """(library, out (S, d), head and tail (chunks, d), meta, S) for B3 or
+    B12 over `rows`' N rows: one head and one tail row of partial sums
+    and one record of pass 2's bookkeeping per pass-1 chunk of rows, the
+    chunk size and record size as the kernel library gives them."""
     (n, d), n_seg = rows.shape, starts.numel() - 1
     lib = _build.load().lib
     chunks = -(-n // lib.tdc_segment_chunk_rows())
-    out = torch.empty((n_seg, d), dtype=torch.float32, device=rows.device)
-    head = torch.empty((chunks, d), dtype=torch.float32, device=rows.device)
-    tail = torch.empty((chunks, d), dtype=torch.float32, device=rows.device)
-    return lib, out, head, tail, n_seg
+    dev = rows.device
+    out = torch.empty((n_seg, d), dtype=torch.float32, device=dev)
+    head = torch.empty((chunks, d), dtype=torch.float32, device=dev)
+    tail = torch.empty((chunks, d), dtype=torch.float32, device=dev)
+    meta = torch.empty(chunks * lib.tdc_segment_meta_bytes(),
+                       dtype=torch.uint8, device=dev)
+    return lib, out, head, tail, meta, n_seg
+
+
+def _launch_segment_sums(xs: torch.Tensor, starts: torch.Tensor, work,
+                         passes: int = 3) -> torch.Tensor:
+    """B3's launches on CUDA tensors into the workspace `work` of
+    `_workspace`: `passes` 3 runs both passes; 1 or 2 runs one alone on
+    the same workspace, for timing them apart (`chip_smoke.py`; pass 2
+    reads what pass 1 wrote there). Counts no launch: `segment_sums` is
+    the kernel's entry point."""
+    lib, out, head, tail, meta, n_seg = work
+    _build.check(lib.tdc_segment_sums(
+        xs.data_ptr(), starts.data_ptr(), xs.shape[0], n_seg, xs.shape[1],
+        head.data_ptr(), tail.data_ptr(), out.data_ptr(), meta.data_ptr(),
+        passes, torch.cuda.current_stream(xs.device).cuda_stream,
+    ), "segment_sums")
+    return out
 
 
 def segment_sums(xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     """B3: per-segment row sums of sorted rows. `starts` (S+1,) int32 is
     nondecreasing within [0, N]; segment s is rows [starts[s],
-    starts[s+1]). Each CTA owns a fixed chunk of rows and adds every run
-    in it in row order; a run that crosses chunks is summed from its
-    per-chunk partials in chunk order: deterministic, no atomics, and no
-    CTA waits on a long run. Empty segments give zero rows."""
+    starts[s+1]). Each CTA owns a fixed chunk of rows and adds, in row
+    order, every short segment that starts there; a long one is cut at
+    chunk edges and summed from its per-chunk partials in chunk order:
+    deterministic, no atomics, and no CTA waits on a long run. Empty
+    segments give zero rows."""
     _check_segments(xs, starts)
     if xs.device.type == "cpu":
         return segment_sums_plain(xs, starts)
-    lib, out, head, tail, n_seg = _outputs(xs, starts)
-    _build.check(lib.tdc_segment_sums(
-        xs.data_ptr(), starts.data_ptr(), xs.shape[0], n_seg, xs.shape[1],
-        head.data_ptr(), tail.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(xs.device).cuda_stream,
-    ), "segment_sums")
+    out = _launch_segment_sums(xs, starts, _workspace(xs, starts))
     segment_sums.launches += 1
     return out
 
@@ -154,11 +171,11 @@ def gathered_segment_sums(x: torch.Tensor, order: torch.Tensor,
     _check_gathered(x, order, starts)
     if x.device.type == "cpu":
         return gathered_segment_sums_plain(x, order, starts)
-    lib, out, head, tail, n_seg = _outputs(x, starts)
+    lib, out, head, tail, meta, n_seg = _workspace(x, starts)
     _build.check(lib.tdc_gathered_segment_sums(
         x.data_ptr(), int(x.dtype == torch.bfloat16), order.data_ptr(),
         starts.data_ptr(), x.shape[0], n_seg, x.shape[1], head.data_ptr(),
-        tail.data_ptr(), out.data_ptr(),
+        tail.data_ptr(), out.data_ptr(), meta.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     ), "gathered_segment_sums")
     gathered_segment_sums.launches += 1

@@ -36,7 +36,13 @@ CPU: equal n_iter and converged, centroids within 1e-4. B12 (B3 with the
 row gather fused in) on f32 and bf16 rows: bitwise equal to B3 on the
 gathered rows (widened to f32), bitwise repeatable, within rtol 1e-5 and
 atol 1e-4 of its plain version; the fused and unfused sorted stats are
-bitwise equal."""
+bitwise equal. The edges of B3's and B12's design (scalar widths,
+misaligned rows, a run over hundreds of chunks, empty segments, rows
+outside the segments, one segment of every row): B3 within 1e-5 of Σ|x|
+per segment of its plain version, empty segments exactly zero, B12 bitwise
+B3 on the gathered rows. B8's μ-scratch design (d = 130 and 769, and
+d = 7 on the one-slice kernel; ragged N and K, s from two K-shards, a
+scratch budget cut down to several chunks): as B6, bitwise repeatable."""
 
 import pytest
 import torch
@@ -98,6 +104,112 @@ def test_b3_long_runs_and_empty_segments(gen):
     torch.testing.assert_close(got, ss.segment_sums_plain(xs, starts),
                                rtol=1e-5, atol=1e-4)
     assert not got[0].any() and not got[2].any()
+
+
+# Edge cases of B3's and B12's design: widths that are not a multiple of
+# 4 (scalar loads; d = 769 is the weighted sorted route's), rows whose
+# base is not 16-byte aligned, a run over hundreds of 32-row chunks (its
+# heads summed in groups), empty segments at both ends, starts[0] > 0,
+# rows past the last segment, and one segment holding every row (alone,
+# and followed by empty segments at N). Each: (N, d, starts or None for
+# random labels over 50 segments).
+SEGMENT_CASES = {
+    "d769": (5000, 769, None),
+    "d131": (5000, 131, None),
+    "d3": (4000, 3, None),
+    "misaligned": (5000, 64, None),
+    "long_run": (30000, 64, [0, 10, 20010, 20011, 30000]),
+    "empty_ends": (3000, 40, [0, 0, 0, 100, 2000, 3000, 3000, 3000]),
+    "offset_start": (2000, 48, [37, 500, 1500, 1600]),
+    "one_segment": ((1 << 17) + 5, 32, [0, (1 << 17) + 5]),
+    "one_segment_then_empty": (1 << 16, 16, [0] + [1 << 16] * 100),
+}
+
+
+def _rows(t: torch.Tensor, misaligned: bool) -> torch.Tensor:
+    """t itself, or a contiguous copy whose base is one element past a
+    16-byte boundary."""
+    if not misaligned:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
+def test_b3_b12_design_edges(gen, case):
+    n, d, starts = SEGMENT_CASES[case]
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    if starts is None:
+        lab = torch.randint(0, 50, (n,), generator=gen, device="cuda")
+        keys, order = torch.sort(lab.to(torch.int32), stable=True)
+        starts = torch.searchsorted(
+            keys, torch.arange(51, dtype=torch.int32, device="cuda"))
+    else:
+        order = torch.randperm(n, generator=gen, device="cuda")
+    starts = torch.as_tensor(starts, device="cuda").to(torch.int32)
+    order = order.to(torch.int32)
+    mis = case == "misaligned"
+    xs = _rows(x.index_select(0, order).contiguous(), mis)
+    got = ss.segment_sums(xs, starts)
+    assert torch.equal(got, ss.segment_sums(xs, starts))
+    # Within 1e-5 of Σ|x| per segment: a sum of m terms in another order
+    # differs by up to m·2^-24·Σ|x| (runs here reach 20,000 rows).
+    err = (got - ss.segment_sums_plain(xs, starts)).abs()
+    assert (err <= 1e-5 * ss.segment_sums_plain(xs.abs(), starts)
+            + 1e-6).all()
+    empty = (starts[1:] == starts[:-1]).nonzero().flatten()
+    assert not got[empty].any()
+    # B12 on the unsorted rows: bitwise B3 on the gathered rows, f32 and
+    # bf16 (widened), whatever path each takes.
+    for rows in (x, x.to(torch.bfloat16)):
+        rows = _rows(rows, mis)
+        g12 = ss.gathered_segment_sums(rows, order, starts)
+        assert torch.equal(g12, ss.gathered_segment_sums(rows, order, starts))
+        want = ss.segment_sums(
+            rows.index_select(0, order).float().contiguous(), starts)
+        assert torch.equal(g12, want)
+
+
+def _fuzzy_abs_sums(x, c, s, m, eps=1e-9):
+    """Σμ|x| per (cluster, feature) with μ = ((d² + eps)^p / s)^m for the
+    given s, in f64: the scale of the Σμx check."""
+    xd, cd = x.double(), c.double()
+    d2 = ((xd * xd).sum(1, keepdim=True) + (cd * cd).sum(1)
+          - 2 * xd @ cd.T).clamp_min(0)
+    mu = ((d2 + eps) ** (-1.0 / (m - 1.0)) / s.double()[:, None]) ** m
+    return mu.T @ xd.abs()
+
+
+@pytest.mark.parametrize("small_scratch", [False, True])
+@pytest.mark.parametrize("m", [2.0, 1.7])
+@pytest.mark.parametrize("n,k,d", [(3001, 130, 7), (3001, 130, 130),
+                                   (2000, 70, 769)])
+def test_b8_one_distance_product_design(gen, n, k, d, m, small_scratch,
+                                        monkeypatch):
+    # B8 past d = 128 takes the μ scratch; d = 7 stays on the one-slice
+    # kernel. K is not a multiple of the 64-centroid tile and N is ragged;
+    # s comes from two K-shards. With the scratch budget cut to three
+    # tiles, the 130 and 769 cases cross several K chunks and row chunks.
+    if small_scratch:
+        monkeypatch.setattr(fk, "MU_SCRATCH_BYTES", 3 * 128 * 128 * 4)
+    x, c = _data(gen, n, k, d)
+    halves = (c[:k // 2].contiguous(), c[k // 2:].contiguous())
+    s = fk.fuzzy_normalizer(x, halves[0], m) + fk.fuzzy_normalizer(
+        x, halves[1], m)
+    for h in halves:
+        st = fk.fuzzy_accumulate(x, h, s, m)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(st, fk.fuzzy_accumulate(x, h, s, m)))
+        want = fk.fuzzy_accumulate_plain(x, h, s, m)
+        scale = _fuzzy_abs_sums(x, h, s, m).float()
+        assert ((st.weighted_sums - want.weighted_sums).abs()
+                <= 1e-5 * scale + 1e-6).all()
+        torch.testing.assert_close(st.weights, want.weights, rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(st.objective, want.objective, rtol=1e-5,
+                                   atol=0.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -173,3 +173,44 @@ def test_resolve_kernel_fuzzy_sharded_picks_the_two_pass_kernels():
                                   model="fuzzy_sharded") == want
     assert tlk.resolve_kernel("pallas", k=8, d=4, device="cpu",
                               model="fuzzy_sharded") == "pallas"
+
+
+# The μ scratch of B8's (and B6's) phase 2 past d = 128 is sized on the
+# host, so its plan is checked here: the K-sharded route's shape at all K
+# and at K/2, ragged shapes, more rows than the budget holds at one K
+# tile, no rows, and a budget cut down so that both K and the rows split
+# into several chunks (the card test of that case is in
+# tests/test_torch_cuda.py).
+PLAN_SHAPES = [(1 << 19, 16384, 768), (1 << 19, 8192, 768), (3001, 130, 130),
+               (1 << 23, 300, 769), (0, 70, 769), (1, 1, 129)]
+SMALL_BUDGET = 3 * 128 * 128 * 4
+
+
+@pytest.mark.parametrize("budget", [None, SMALL_BUDGET])
+@pytest.mark.parametrize("n,k,d", PLAN_SHAPES)
+def test_mu_scratch_plan_stays_in_its_budget(n, k, d, budget, monkeypatch):
+    if budget is not None:
+        monkeypatch.setattr(tfk, "MU_SCRATCH_BYTES", budget)
+    rc, kc, grid = tfk.mu_scratch_plan(n, k, d, 264)
+    assert rc % 128 == 0 and kc % 128 == 0 and rc >= 128 and kc >= 128
+    assert 4 * rc * kc <= tfk.MU_SCRATCH_BYTES
+    assert kc <= -(-k // 128) * 128 and rc <= max(1, -(-n // 128)) * 128
+    assert 1 <= grid <= rc // 128
+    if n < 4096:
+        # The chunk loops of tdc_fuzzy_accumulate_mu cover every (row,
+        # centroid) pair exactly once.
+        seen = np.zeros((n, k), dtype=np.int32)
+        for k0 in range(0, k, kc):
+            for r0 in range(0, n, rc):
+                seen[r0:r0 + rc, k0:k0 + kc] += 1
+        assert (seen == 1).all()
+
+
+def test_mu_scratch_plan_at_the_route_shape(monkeypatch):
+    # One row chunk of all 2^19 rows and 256 centroids (512 MiB), 11 row
+    # ranges for 264 CTAs over 4 K tiles x 6 d slices; with the budget
+    # cut to three 128 x 128 tiles, 8 row chunks of 384 rows and 2 K
+    # chunks of 128 centroids.
+    assert tfk.mu_scratch_plan(1 << 19, 16384, 768, 264) == (1 << 19, 256, 11)
+    monkeypatch.setattr(tfk, "MU_SCRATCH_BYTES", SMALL_BUDGET)
+    assert tfk.mu_scratch_plan(3001, 130, 130, 264) == (384, 128, 3)
