@@ -28,8 +28,11 @@ failure (nothing is caught):
    earlier method, are printed beside). The build's ptxas registers and spills
    of every kernel are printed first.
    Duplicated centroids check the tie rule of B1, B2 and B3 on the card.
-   B6 (fuzzy stats) at N=2^22, K=1024, d=128 for m=2.0 and m=1.7, and at
-   a ragged N=2^16+37, K=300, d=19 with one point exactly on a centroid,
+   B6 (fuzzy stats) at N=2^22, K=1024, d=128 for m=2.0 and m=1.7, its two
+   phases timed apart (the row normaliser writing the inv scratch, then μ
+   and Σμx on the tensor cores) and the design before it (B7's kernel,
+   then B8's one-slice kernel) beside it on the same inputs, and at a
+   ragged N=2^16+37, K=300, d=19 with one point exactly on a centroid,
    which must take full membership there. B4 (weighted Lloyd stats) at
    N=2^22, K=1024, d=128 and at the ragged shape, with weights uniform in
    [0, 3) and about 5% exactly 0; B3 is also timed on the weighted sorted
@@ -37,8 +40,11 @@ failure (nothing is caught):
    weights too: copies take no mass in B4 or the weighted sorted stats.
    B9 (the diag-GMM E-step) at N=2^22, K=1024, d=128 and at the ragged
    shape, with variances and weights from the blobs' hard-assignment
-   moments, its two phases timed apart; at the ragged shape also with
-   the variances 30× wider, so each row's responsibilities spread.
+   moments, its two phases timed apart (phase 1 also with its E-step
+   product on the f32 FMA pipe, with and without its scratch writes); at
+   the ragged shape also with the variances 30× wider, so each row's
+   responsibilities spread. On every case the E-step product's f32 form
+   is held to B9's checks too, its error beside the kernel's.
    B5 (the bf16 tensor-core Lloyd stats) at N=2^22, K=1024, d=128 and at
    the ragged shape, on f32 rows (kernel="pallas_bf16") and on bf16 rows,
    with its labels: labels equal to the plain version's except at
@@ -200,6 +206,7 @@ from tdc_tpu_torch.parallel.sharded_k import (
 # the larger of ops/peak and bytes/bandwidth for the work one call needs.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
+PEAK_TF32_TC_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Tolerances (float32, different summation order than the plain version):
@@ -278,10 +285,11 @@ RANK_TIMEOUT = 600  # seconds a rank may take for one route
 SORTED_ITERS = 4
 # Earlier times that this run's are printed beside (chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W, PERF.md): B12 before B3's redesign
-# (one-call medians), B6 at the fuzzy route's shape, and the K-sharded
-# fuzzy route before B8's redesign.
+# (one-call medians), B6 (m=2, m=1.7) and B9 at the routes' shape before
+# their redesign, and the K-sharded fuzzy route before B8's redesign.
 B12_EARLIER_MS, B12_BF16_EARLIER_MS = 1.2460, 1.3586
-B6_EARLIER_MS = 111.82
+B6_EARLIER_MS = {2.0: 112.06, 1.7: 141.45}
+B9_EARLIER_MS = 197.72
 SHARDED_FUZZY_EARLIER_S = 20.7764
 
 
@@ -346,6 +354,15 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
                                        else "bytes")
 
 
+def tc_bound_ms(tc_flops: float, f32_flops: float,
+                nbytes: float) -> float:
+    """The bound of a kernel whose product of tc_flops runs on the tensor
+    cores in 3xTF32 (three TF32 products) and the rest on the f32 pipe:
+    the larger of that time and bytes/bandwidth."""
+    t_ops = 3.0 * tc_flops / PEAK_TF32_TC_FLOPS + f32_flops / PEAK_F32_FLOPS
+    return 1e3 * max(t_ops, nbytes / PEAK_HBM_BYTES)
+
+
 def blob_data(gen, n, k, d):
     """Points around k well-separated centers, every center used: the
     centers are the centroids, so no near-ties are expected."""
@@ -364,13 +381,24 @@ def make_weights(n: int, seed: int) -> torch.Tensor:
                        0.0, w).contiguous()
 
 
+# The largest share of its tolerance that each check_close used, by name.
+TOL_SHARES = {}
+
+
 def check_close(name, got, want, scale):
     err = (got - want).abs()
-    bad = err > REL_TOL * scale + 1e-6
+    tol = REL_TOL * scale + 1e-6
+    bad = err > tol
     require(not bool(bad.any()),
             f"{name}: {int(bad.sum())} entries beyond {REL_TOL}·scale "
             f"(max err {float(err.max())})")
+    TOL_SHARES[name] = float((err / tol).max())
     return float(err.max())
+
+
+def tol_shares(prefix) -> dict:
+    return {k: round(v, 4) for k, v in TOL_SHARES.items()
+            if k.startswith(prefix)}
 
 
 def check_labels(name, x, c, got, want) -> int:
@@ -690,13 +718,14 @@ def gmm_abs_sums(x, means, var, w):
     return out.float()
 
 
-def check_gmm(name, x, means, var, w) -> float:
-    """B9 against its plain version: two runs bitwise equal, Σr·x within
-    REL_TOL of Σr|x| and Σr·x² of itself per component, nk and ll_sum
-    within REL_TOL relative. Returns the larger max abs error of the two
-    moment sums."""
-    got = gk.gmm_stats_fused(x, means, var, w)
-    repeatable(name, got, gk.gmm_stats_fused(x, means, var, w))
+def check_gmm(name, x, means, var, w, fn=None) -> float:
+    """B9 (or `fn`, another route to its stats) against its plain version:
+    two runs bitwise equal, Σr·x within REL_TOL of Σr|x| and Σr·x² of
+    itself per component, nk and ll_sum within REL_TOL relative. Returns
+    the larger max abs error of the two moment sums."""
+    fn = fn or (lambda: gk.gmm_stats_fused(x, means, var, w))
+    got = fn()
+    repeatable(name, got, fn())
     want = gk.gmm_stats_fused_plain(x, means, var, w)
     err = max(check_close(f"{name} sx", got.sx, want.sx,
                           gmm_abs_sums(x, means, var, w)),
@@ -706,33 +735,59 @@ def check_gmm(name, x, means, var, w) -> float:
     return err
 
 
+def f32_estep_err(name, x, means, var, w) -> float:
+    """B9 with phase 1's E-step product on the f32 FMA pipe, the form the
+    tensor-core one replaced, held to B9's checks: its max abs error."""
+    ops = gk._operands(means, var, w)
+    return check_gmm(name, x, means, var, w,
+                     fn=lambda: gk._launch(x, *ops, phases=11))
+
+
 def phase_gmm_kernel(gen) -> dict:
     """Phase 3, B9: at the GMM route's shape, then the ragged case. The
     variances and weights are the hard-assignment moments of the blobs
     around their centers (what gmm_fit starts from), so the log-probs have
-    the magnitudes a fit sees."""
+    the magnitudes a fit sees. Phase 1 (the E-step product on the tensor
+    cores and the row logsumexp, writing the log-prob scratch) and phase 2
+    (the moments on the tensor cores, from the scratch) are timed apart;
+    phase 1 also in its f32 FMA-pipe form, with and without the scratch
+    writes. On every case that form is held to B9's checks too, its error
+    beside the kernel's."""
     n, k, d = B1_SHAPE
     x, c = blob_data(gen, n, k, d)
     var, w = gm._moments_from_hard_assign(x, c, 1e-6)
-    nv, muinv, bias = gk._operands(c, var, w)
-    norm, ll_part = gk._normalize_phase(x, nv, muinv, bias)
-    # The two E-step products and the two moment products on the FMA
-    # pipe; the 2·N·K exps run on the SFU beside them.
-    b_ms, b_by = bound_ms(8.0 * n * k * d + 3.0 * n * d,
-                          4.0 * (n * d + 4 * k * d + 2 * k + 2))
+    ops = gk._operands(c, var, w)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rc, kp, grid = fk.row_scratch_plan(n, k, fk._TC_K_TILE // 2,
+                                       -(-d // fk._D_SLICE), sms)
+    design = dict(rows_per_chunk=rc, chunks=-(-n // rc), row_ranges=grid,
+                  scratch_bytes=4 * rc * kp,
+                  scratch_budget=fk.MU_SCRATCH_BYTES,
+                  estep_flops=4 * n * k * d, estep_flops_before=8 * n * k * d)
+    print(f"[B9 design] N={n} K={k} d={d}: {json.dumps(design)}", flush=True)
+    # The E-step and moment products (4·N·K·d each) on the f32 FMA pipe
+    # (the f32 bound) or on the tensor cores in 3xTF32 (the tensor-core
+    # bound); the 2·N·K exps on the SFU beside them.
+    nbytes = 4.0 * (n * d + 4 * k * d + 2 * k + 2)
+    b_ms, b_by = bound_ms(8.0 * n * k * d + 3.0 * n * d, nbytes)
     out = dict(
         max_abs_err=check_gmm("B9", x, c, var, w),
         ms=median_ms(lambda: gk.gmm_stats_fused(x, c, var, w), 5),
-        normalizer_ms=median_ms(
-            lambda: gk._normalize_phase(x, nv, muinv, bias), 5),
-        accumulate_ms=median_ms(
-            lambda: gk._accumulate_phase(x, nv, muinv, bias, norm,
-                                         ll_part), 5),
+        normalizer_ms=median_ms(lambda: gk._launch(x, *ops, phases=1), 5),
+        accumulate_ms=median_ms(lambda: gk._launch(x, *ops, phases=2), 5),
+        normalizer_f32_ms=median_ms(lambda: gk._launch(x, *ops, phases=9),
+                                    5),
+        normalizer_f32_no_scratch_ms=median_ms(
+            lambda: gk._launch(x, *ops, phases=13), 5),
         plain_ms=median_ms(lambda: gk.gmm_stats_fused_plain(x, c, var, w),
                            3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    print(f"[B9] N={n} K={k} d={d}: {json.dumps(out)}", flush=True)
-    del x, c, var, w, nv, muinv, bias, norm, ll_part
+        bound_ms=b_ms, bound_by=b_by,
+        bound_tc_ms=tc_bound_ms(8.0 * n * k * d, 3.0 * n * d, nbytes),
+        library_ms=None,
+        f32_estep_err=f32_estep_err("B9 f32 E-step", x, c, var, w))
+    print(f"[B9] N={n} K={k} d={d} (earlier: {B9_EARLIER_MS} ms): "
+          f"{json.dumps(out)}", flush=True)
+    del x, c, var, w, ops
     n, k, d = FUZZY_RAGGED
     x, c = blob_data(gen, n, k, d)
     var, w = gm._moments_from_hard_assign(x, c, 1e-6)
@@ -740,8 +795,12 @@ def phase_gmm_kernel(gen) -> dict:
     # spread over several components instead of one.
     for name, scale in (("ragged", 1.0), ("ragged soft", 30.0)):
         err = check_gmm(f"B9 {name}", x, c, var * scale, w)
+        f32 = f32_estep_err(f"B9 {name} f32 E-step", x, c, var * scale, w)
         print(f"[B9] {name} N={n} K={k} d={d}: equal to the plain version "
-              f"(max abs err {err:.3g}), bitwise repeatable", flush=True)
+              f"(max abs err {err:.3g}; {f32:.3g} with the E-step on the "
+              "f32 FMA pipe), bitwise repeatable", flush=True)
+    print(f"[B9] share of the tolerance used: {json.dumps(tol_shares('B9'))}",
+          flush=True)
     return out
 
 
@@ -920,11 +979,13 @@ def fuzzy_abs_sums(x, c, m):
     return out.float()
 
 
-def check_fuzzy(name, x, c, m) -> float:
-    """B6 against its plain version: two runs bitwise equal, Σμx within
-    REL_TOL of Σμ|x|, Σμ and the objective within REL_TOL relative."""
-    got = fk.fuzzy_stats_fused(x, c, m)
-    repeatable(name, got, fk.fuzzy_stats_fused(x, c, m))
+def check_fuzzy(name, x, c, m, fn=None) -> float:
+    """B6 (or `fn`, another route to its stats) against its plain version:
+    two runs bitwise equal, Σμx within REL_TOL of Σμ|x|, Σμ and the
+    objective within REL_TOL relative."""
+    fn = fn or (lambda: fk.fuzzy_stats_fused(x, c, m))
+    got = fn()
+    repeatable(name, got, fn())
     want = fk.fuzzy_stats_fused_plain(x, c, m)
     err = check_close(f"{name} sums", got.weighted_sums, want.weighted_sums,
                       fuzzy_abs_sums(x, c, m))
@@ -937,37 +998,56 @@ def check_fuzzy(name, x, c, m) -> float:
 
 def phase_fuzzy_kernel(gen) -> dict:
     """Phase 3, B6: at the fuzzy route's shape for each fuzzifier (the
-    m=2.0 numbers are the route's), then the ragged case."""
+    m=2.0 numbers are the route's), then the ragged case. Phase 1 (the
+    row normaliser, writing the inv scratch) and phase 2 (μ and Σμx on the
+    tensor cores, from the scratch) are timed apart, and the design before
+    it (B7's kernel, then B8's one-slice kernel, which computes the
+    distance again, all f32 on the CUDA cores) beside them on the same
+    inputs, with its error."""
     n, k, d = B1_SHAPE
     x, c = blob_data(gen, n, k, d)
     c2 = (c * c).sum(dim=1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rc, kp, grid = fk.row_scratch_plan(n, k, fk._TC_K_TILE,
+                                       -(-d // fk._D_SLICE), sms)
+    design = dict(rows_per_chunk=rc, chunks=-(-n // rc), row_ranges=grid,
+                  scratch_bytes=4 * rc * kp,
+                  scratch_budget=fk.MU_SCRATCH_BYTES,
+                  distance_flops=2 * n * k * d,
+                  distance_flops_before=4 * n * k * d,
+                  powf_per_element_m_not_2=2, before=3)
+    print(f"[B6 design] N={n} K={k} d={d}: {json.dumps(design)}", flush=True)
     per_m = {}
     for m in FUZZY_MS:
-        # The kernel's two phases timed apart (the row normaliser, then
-        # the K-tiled accumulate): where B6's time goes.
-        s, x2 = fk._normalize_phase(x, c, c2, m, 1e-9)
-        # Phase 2 at d = 128 is one kernel; the μ-scratch route that B8
-        # takes past d = 128 is timed beside it on the same inputs.
+        def recompute(m=m):
+            s, x2 = fk._normalize_phase(x, c, c2, m, 1e-9)
+            return fk._accumulate_one_slice(x, c, c2, s, x2, m, 1e-9)
+
         per_m[m] = dict(
             max_abs_err=check_fuzzy(f"B6 m={m}", x, c, m),
             ms=median_ms(lambda: fk.fuzzy_stats_fused(x, c, m), 5),
             normalizer_ms=median_ms(
-                lambda: fk._normalize_phase(x, c, c2, m, 1e-9), 5),
+                lambda: fk._launch(x, c, c2, m, 1e-9, phases=1), 5),
             accumulate_ms=median_ms(
-                lambda: fk._accumulate_phase(x, c, c2, s, x2, m, 1e-9), 5),
-            accumulate_mu_scratch_ms=median_ms(
-                lambda: fk._accumulate_mu(x, c, c2, s, x2, m, 1e-9), 3),
+                lambda: fk._launch(x, c, c2, m, 1e-9, phases=2), 5),
+            recompute_design_ms=median_ms(recompute, 5),
+            recompute_design_err=check_fuzzy(
+                f"B6 recompute design m={m}", x, c, m, fn=recompute),
             plain_ms=median_ms(lambda: fk.fuzzy_stats_fused_plain(x, c, m),
                                3))
-        del s, x2
-        print(f"[B6] N={n} K={k} d={d} m={m} (earlier: {B6_EARLIER_MS} ms "
-              f"at m=2): {json.dumps(per_m[m])}", flush=True)
-    # Distance product and μᵀx accumulate on the FMA pipe; the N·K powers
-    # run on the SFU beside them and do not set the bound.
-    b_ms, b_by = bound_ms(4.0 * n * k * d,
-                          4.0 * (n * d + 2 * k * d + 2 * k + 1))
-    out = dict(**per_m[2.0], bound_ms=b_ms, bound_by=b_by, library_ms=None,
-               m_1_7=per_m[1.7])
+        print(f"[B6] N={n} K={k} d={d} m={m} (earlier: {B6_EARLIER_MS[m]} "
+              f"ms): {json.dumps(per_m[m])}", flush=True)
+    # The distance product (2·N·K·d) on the FMA pipe; μᵀx (2·N·K·d) on the
+    # FMA pipe (the f32 bound) or on the tensor cores in 3xTF32 (the
+    # tensor-core bound); the N·K powers on the SFU beside them.
+    nbytes = 4.0 * (n * d + 2 * k * d + 2 * k + 1)
+    b_ms, b_by = bound_ms(4.0 * n * k * d, nbytes)
+    out = dict(**per_m[2.0], bound_ms=b_ms, bound_by=b_by,
+               bound_tc_ms=tc_bound_ms(2.0 * n * k * d, 2.0 * n * k * d,
+                                       nbytes),
+               library_ms=None, m_1_7=per_m[1.7])
+    print(f"[B6] bounds: {b_ms} ms ({b_by}) on the f32 FMA pipe, "
+          f"{out['bound_tc_ms']} ms with μᵀx on the tensor cores", flush=True)
     del x, c, c2
 
     n, k, d = FUZZY_RAGGED
@@ -985,6 +1065,8 @@ def phase_fuzzy_kernel(gen) -> dict:
         print(f"[B6] ragged N={n} K={k} d={d} m={m}: equal to the plain "
               f"version; the point on centroid {j} has membership "
               f"{float(w[j]):.9g} there", flush=True)
+    print(f"[B6] share of the tolerance used: {json.dumps(tol_shares('B6'))}",
+          flush=True)
     return out
 
 

@@ -3,61 +3,70 @@
 //
 // Replaces `fuzzy_stats_fused` (tdc_tpu/ops/pallas_kernels.py:708,
 // `pallas_call` at :764; body `_fused_epilogue_kernel` with
-// `_fuzzy_fold_for` :668) with both phases below, and the two-pass
-// kernels of the K-sharded fuzzy tower with one phase each:
+// `_fuzzy_fold_for` :668) with two phases through a scratch, and the
+// two-pass kernels of the K-sharded fuzzy tower with one phase each:
 // `fuzzy_normalizer` (`pallas_call` at :1160, body `_fuzzy_norm_kernel`)
 // with phase 1 and `fuzzy_accumulate` (:1215, `_fuzzy_accum_kernel`) with
-// phase 2, whose s is then the sum of every K-shard's phase 1. Per row i
-// and centroid k:
+// a phase 2 of its own, whose s is then the sum of every K-shard's phase 1.
+// Per row i and centroid k:
 //   d²  = max(‖x‖² + ‖c‖² − 2x·c, 0)        (‖x‖² computed here, ‖c‖² given)
 //   inv = (d² + eps)^(−1/(m−1)),  u = inv / Σ_k inv,  μ = u^m
 // and the outputs are Σ_i μ x_i (K, d), Σ_i μ (K,) and Σ μ d² (), all f32.
-// No (N, K) buffer for the whole K exists.
+// No (N, K) buffer for all N exists.
 //
 // Bound on this card: operations. The distance product and the μᵀ·x
-// accumulate are 2·N·K·d FMA-pipe flops each (4·N·K·d), and every one of
-// the N·K elements takes powers on the SFU; x is read in N·d·4 bytes, three
-// orders of magnitude below the flops at K = 1024, d = 128.
+// accumulate are 2·N·K·d flops each; B6 runs the first on the f32 FMA
+// pipe and the second on the tensor cores as 3 TF32 products (6·N·K·d at
+// 495 TFLOP/s), B7 and B8 both on the FMA pipe. Every one of the N·K
+// elements takes powers on the SFU; x is read in N·d·4 bytes, and B6's
+// inv scratch moves 8·N·K bytes (34 GB at N = 2^22, K = 1024).
 //
-// Three troubles of the TPU design, and what this design does about them:
+// Troubles of the TPU design, and what this design does about them:
 // - The row normaliser Σ_k inv needs the whole K row before any μ. The TPU
-//   kernel holds a (block_n, K) tile in VMEM. Here two phases:
+//   kernel holds a (block_n, K) tile in VMEM. Here two phases.
 //   `fuzzy_norm_kernel` walks every K tile for a block of 128 rows and
-//   writes s_i = Σ_k inv_ik (and ‖x_i‖²) to (N,) f32 buffers; phase 2
-//   recomputes the distance tile once and forms μ = (inv / s)^m. The
-//   recompute costs one more 2·N·K·d product (6·N·K·d flops in all) and
-//   buys a kernel with no K·d limit and no (N, K) buffer.
-// - Every row adds into every cluster, so the (K, d) accumulator cannot be
-//   read-modify-written per row as B1 does. It is tiled: a CTA owns one
-//   K tile of 64 centroids, one 128-column slice of d and a contiguous
-//   range of row blocks, keeps its (64, 128) block of Σμx across all its
-//   rows and writes it once. Within a 128-row block the sums are f32
-//   registers in row order; across row blocks they are carried in f64 in
-//   shared memory (two CTAs per SM). The G partials over row ranges are
-//   summed in a fixed order: no float atomics, so two runs are bitwise
-//   equal.
-// - The TPU kernel holds a whole (block_k, d) accumulator in VMEM, so one
-//   distance tile serves every column of d. A CTA here holds 128 columns,
-//   so phase 2 takes one of two forms:
+//   writes s_i = Σ_k inv_ik to an (N,) f32 buffer (B7's kernel; B8 also
+//   takes ‖x_i‖² from it).
+// - B6 (`tdc_fuzzy_stats`): `fuzzy_norm_scratch_kernel`, the same phase 1,
+//   also writes each inv to a scratch of at most MU_SCRATCH_BYTES
+//   (ops/fuzzy_kernels.py, 512 MiB, whatever N and K), one row chunk of
+//   whole K rows at a time, and q_i = s_i^(1−m);
+//   `fuzzy_accum_tc_kernel` reads the chunk's inv, forms μ = (inv / s)^m
+//   and accumulates Σμ and Σμx on the tensor cores in 3xTF32
+//   (tf32_accum.cuh: 128 centroids x a 128-column slice a CTA, f32
+//   fragments per 128-row block, f64 carries in shared memory, one CTA
+//   per SM). The distance product runs once per (row, centroid) pair:
+//   4·N·K·d flops where the design before this one recomputed it in phase
+//   2 (6·N·K·d). On the tensor cores in 3xTF32 the distance product failed
+//   B6's card tolerance at m = 1.7 (PERF.md), so it stays on the f32 FMA
+//   pipe. Phase 2 needs no d²: Σμd² is Σ (u·q − eps·μ), since
+//   μ·(d² + eps) = u·s^(1−m). So each element takes one power in each
+//   phase (inv, then u^m): 2 powf at m != 2 where it took 3.
+// - Every row adds into every cluster, so the (K, d) accumulator is
+//   tiled: a CTA of phase 2 owns one K tile, one column slice and a
+//   contiguous range of row blocks of the chunk, and adds its sums to its
+//   own f64 slot once per chunk, in chunk order; the G slots are summed
+//   in a fixed order: no float atomics, so two runs are bitwise equal.
+// - B8 (the K-sharded tower) gets s from outside and computes the distance
+//   again:
 //   - d <= kDC (one slice): `fuzzy_accum_kernel` computes the distance
-//     tile and accumulates into its slice in one kernel (B6 at the fuzzy
-//     route's d = 128).
+//     tile and accumulates into its slice in one kernel, f32 on the CUDA
+//     cores.
 //   - d > kDC: run as one kernel per slice, the distance tile would be
 //     recomputed in each of ⌈d/128⌉ slices: 1 + ⌈d/128⌉ products of
 //     2·N·K·d, 7 at d = 768, where B8 measured 3.7x slower than its
 //     plain version. Instead (design (a) in PERF.md): `fuzzy_mu_kernel`
 //     computes each distance tile once over all of d and writes μ to a
-//     scratch of at most MU_SCRATCH_BYTES (ops/fuzzy_kernels.py, 512
-//     MiB, whatever N and K), one (row chunk, K chunk) at a time, with the
-//     Σμd² partials; `fuzzy_mux_kernel` then computes Σμx = μᵀ·X (and Σμ)
-//     of the chunk as a tiled f32 product over row ranges, the partials
-//     summed in g order. 2 products of 2·N·K·d at every d, plus 8·N·K
-//     bytes of μ traffic (69 GB at N = 2^19, K = 16,384: ~21 ms at 3.35
-//     TB/s beside the ~394 ms bound). Design (b), one CTA holding a K
-//     tile's Σμx over all of d, was not taken: f64 carries for a 32 x 768
-//     tile take 192 KB of the CTA's 227 KB of shared memory, one CTA per
-//     SM with little room left to stage x, and each K tile re-reads all
-//     of x.
+//     scratch of at most MU_SCRATCH_BYTES, one (row chunk, K chunk) at a
+//     time, with the Σμd² partials; `fuzzy_mux_kernel` then computes
+//     Σμx = μᵀ·X (and Σμ) of the chunk as a tiled f32 product over row
+//     ranges, the partials summed in g order. 2 products of 2·N·K·d at
+//     every d, plus 8·N·K bytes of μ traffic (69 GB at N = 2^19, K =
+//     16,384: ~21 ms at 3.35 TB/s beside the ~394 ms bound). Design (b),
+//     one CTA holding a K tile's Σμx over all of d, was not taken: f64
+//     carries for a 32 x 768 tile take 192 KB of the CTA's 227 KB of
+//     shared memory, one CTA per SM with little room left to stage x, and
+//     each K tile re-reads all of x.
 //
 // Ragged N, K and d are masked: rows past N get μ = 0, centroids past K are
 // never candidates (the job of `_PAD_CENTROID` and the `n_fake` correction
@@ -70,6 +79,7 @@
 #include <type_traits>
 
 #include "champion.cuh"
+#include "tf32_accum.cuh"
 
 namespace {
 
@@ -148,8 +158,8 @@ __device__ __forceinline__ float mu_power(float u, float m) {
   return kM2 ? u * u : powf(u, m);
 }
 
-// Phase 1: s_i = Σ_k (d²_ik + eps)^p, p = −1/(m−1), and ‖x_i‖² for phase
-// 2. One CTA per 128 rows.
+// Phase 1 of B7 (and of B8 after it): s_i = Σ_k (d²_ik + eps)^p,
+// p = −1/(m−1), and ‖x_i‖² for phase 2. One CTA per 128 rows.
 template <bool kVec, bool kM2>
 __global__ void __launch_bounds__(kThreads)
     fuzzy_norm_kernel(const float* __restrict__ x, const float* __restrict__ c,
@@ -194,9 +204,145 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Phase 2's shared memory, 110.5 KB: two CTAs fit one SM. The f64 running
-// sums of Σμx live here, not in registers, which keeps a thread within
-// the 128 registers that two 256-thread CTAs per SM allow.
+// B6's phase 1: B7's phase 1 over the rows [row_lo, row_lo +
+// 128·gridDim.x) ∩ [0, n), writing besides s_i q_i = s_i^(1−m) (1 / s_i at
+// m = 2) for phase 2's objective, and each inv = (d² + eps)^p to
+// scr[(row − row_lo)·kp + j] for j < kp (0 past k). A kernel of its own:
+// as one template with B7's, B7's form took 125 registers where it had
+// 111 and ran 18% slower at m = 2 (PERF.md).
+template <bool kVec, bool kM2>
+__global__ void __launch_bounds__(kThreads)
+    fuzzy_norm_scratch_kernel(const float* __restrict__ x,
+                              const float* __restrict__ c,
+                              const float* __restrict__ c2, long long n,
+                              int k, int d, float p, float eps, float qexp,
+                              long long row_lo, float* __restrict__ scr,
+                              int kp, float* __restrict__ s_out,
+                              float* __restrict__ q_out) {
+  __shared__ AssignSmem<kFuzzyBN> sm;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long row0 = row_lo + (long long)blockIdx.x * BM;
+  float x2[TM], s[TM];
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+    x2[m] = row_sq_norm(x, n, d, row0 + ty * TM + m);
+    s[m] = 0.f;
+  }
+  for (int kt = 0; kt < k; kt += kFuzzyBN) {
+    float acc[TM][kTN];
+    tile_dots<kVec>(x, c, n, k, d, row0, kt, sm, acc);
+#pragma unroll
+    for (int q = 0; q < kTN; ++q) {
+      const int j = kt + tx * 4 + q;
+      if (j < k) {
+        const float cj = c2[j];
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+          const float v =
+              inv_power<kM2>(true_d2(x2[m], cj, acc[m][q]) + eps, p);
+          s[m] += v;
+          acc[m][q] = v;
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < TM; ++m) acc[m][q] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < TM; ++m) {
+      const long long row = row0 + ty * TM + m;
+      if (row < n)
+        *reinterpret_cast<float4*>(scr + (row - row_lo) * kp + kt + tx * 4) =
+            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    }
+  }
+  // Sum the 16 column owners of each row in a fixed butterfly order
+  // (a + b == b + a, so every lane ends with the same bits).
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+#pragma unroll
+    for (int off = 8; off >= 1; off >>= 1)
+      s[m] += __shfl_xor_sync(0xffffffffu, s[m], off);
+    const long long row = row0 + ty * TM + m;
+    if (tx == 0 && row < n) {
+      s_out[row] = s[m];
+      q_out[row] = kM2 ? 1.f / s[m] : powf(s[m], qexp);
+    }
+  }
+}
+
+// B6's phase-2 weights from the scratch's inv and the row's (s, q):
+// u = inv / s and μ = u^m as the formula has them, and the objective's
+// side sum u·q − eps·μ, which is μ·d²: μ·(d² + eps) = u·s^(1−m), since
+// inv^(m−1) = 1/(d² + eps). So phase 2 needs no d² and inv takes one
+// power per element, in phase 1.
+template <bool kM2>
+struct FuzzyWeights {
+  const float* s;
+  const float* q;
+  float mexp, eps;
+  using Row = float2;
+  static constexpr bool kSide = true;
+  __device__ __forceinline__ Row row(long long r) const {
+    return make_float2(s[r], q[r]);
+  }
+  __device__ __forceinline__ float operator()(float inv, Row sq,
+                                              float& side) const {
+    const float u = inv / sq.x;
+    const float mu = mu_power<kM2>(u, mexp);
+    side = fmaf(u, sq.y, fmaf(-eps, mu, side));
+    return mu;
+  }
+};
+
+// B6's phase 2 on the tensor cores (tf32_accum.cuh): Σμ, Σμx and the
+// objective's partials.
+template <bool kVec, bool kM2>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    fuzzy_accum_tc_kernel(const float* __restrict__ x,
+                          const float* __restrict__ scr, int kp,
+                          const float* __restrict__ s_row,
+                          const float* __restrict__ q_row, float mexp,
+                          float eps, int k, int d, long long row_lo,
+                          long long row_hi, TcOut out) {
+  tc_accumulate<FuzzyWeights<kM2>, kVec, false>(
+      FuzzyWeights<kM2>{s_row, q_row, mexp, eps}, x, scr, kp, k, d, row_lo,
+      row_hi, out);
+}
+
+// Sums B6's G slots in g order: Σμx (K, d), Σμ (K,), and the objective
+// Σ (u·q − eps·μ) over the (G, K tiles) partials, clamped at 0 as the JAX
+// wrapper clamps it.
+__global__ void fuzzy_tc_reduce_kernel(const double* __restrict__ ws,
+                                       const double* __restrict__ wpart,
+                                       const double* __restrict__ opart,
+                                       int grid, int ntk, int k, int d,
+                                       float* __restrict__ wsums,
+                                       float* __restrict__ weights,
+                                       float* __restrict__ objective) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long kd = (long long)k * d;
+  if (e < kd) {
+    double s = 0.0;
+    for (int g = 0; g < grid; ++g) s += ws[g * kd + e];
+    wsums[e] = (float)s;
+  }
+  if (e < k) {
+    double s = 0.0;
+    for (int g = 0; g < grid; ++g) s += wpart[(long long)g * k + e];
+    weights[e] = (float)s;
+  }
+  if (e == 0) {
+    double s = 0.0;
+    for (long long t = 0; t < (long long)grid * ntk; ++t) s += opart[t];
+    objective[0] = fmaxf((float)s, 0.f);
+  }
+}
+
+// B8's phase 2 at d <= kDC. Its shared memory, 110.5 KB: two CTAs fit
+// one SM. The f64 running sums of Σμx live here, not in registers, which
+// keeps a thread within the 128 registers that two 256-thread CTAs per SM
+// allow.
 struct __align__(16) AccumSmem {
   double tot[32][kThreads];  // thread t's 4 x 8 running Σμx at [i][t]
   double red[kThreads];      // the CTA's final fixed-order reductions
@@ -207,10 +353,11 @@ struct __align__(16) AccumSmem {
   } u;
 };
 
-// Phase 2. CTA (blockIdx.x, blockIdx.y, blockIdx.z) = (K tile, d slice,
-// row range g of G). Writes its Σμx partial to ws[g] and, in the d slice 0
-// CTAs, its Σμ partial to wpart[g] and its Σμd² partial to
-// opart[g * gridDim.x + blockIdx.x]. Dynamic shared memory: AccumSmem.
+// B8's phase 2 at d <= kDC. CTA (blockIdx.x, blockIdx.y, blockIdx.z) =
+// (K tile, d slice, row range g of G). Writes its Σμx partial to ws[g]
+// and, in the d slice 0 CTAs, its Σμ partial to wpart[g] and its Σμd²
+// partial to opart[g * gridDim.x + blockIdx.x]. Dynamic shared memory:
+// AccumSmem.
 template <bool kVec, bool kM2>
 __global__ void __launch_bounds__(kThreads, 2)
     fuzzy_accum_kernel(const float* __restrict__ x, const float* __restrict__ c,
@@ -778,3 +925,62 @@ extern "C" int tdc_fuzzy_accumulate_mu(
   return (int)cudaGetLastError();
 }
 
+// B6, one row chunk of rows_per_chunk rows (a multiple of 128) at a time:
+// phase 1 writes s and q (N,) and the chunk's inv to scr (rows_per_chunk
+// x kp f32, kp a multiple of 128, phase 2's K tile, and >= k); phase 2
+// adds the chunk's Σμ, Σμx and objective partials to the slots of wpart
+// (grid, K), ws (grid, K, d) and opart (grid, K tiles), all f64; then the
+// fixed-order reduction. `phases`: bit 0 runs phase 1, bit 1 phase 2 and the
+// reduction (3 is the kernel; 1 and 2 time the phases apart, 2 on the
+// scratch the last chunk left).
+extern "C" int tdc_fuzzy_stats(const float* x, const float* c,
+                               const float* c2, long long n, int k, int d,
+                               float p, float mexp, float eps,
+                               long long rows_per_chunk, int kp, int grid,
+                               float* scr, float* s, float* q, double* ws,
+                               double* wpart, double* opart, float* wsums,
+                               float* weights, float* objective, int phases,
+                               void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n < 0 || k <= 0 || d <= 0 || rows_per_chunk <= 0 ||
+      rows_per_chunk % BM != 0 || kp % kTcK != 0 || kp < k || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = vector_loads_ok(x, c, d), m2 = p == -1.f && mexp == 2.f;
+  auto* nkern = vec ? (m2 ? fuzzy_norm_scratch_kernel<true, true>
+                          : fuzzy_norm_scratch_kernel<true, false>)
+                    : (m2 ? fuzzy_norm_scratch_kernel<false, true>
+                          : fuzzy_norm_scratch_kernel<false, false>);
+  auto* akern = vec ? (m2 ? fuzzy_accum_tc_kernel<true, true>
+                          : fuzzy_accum_tc_kernel<true, false>)
+                    : (m2 ? fuzzy_accum_tc_kernel<false, true>
+                          : fuzzy_accum_tc_kernel<false, false>);
+  const int smem = (int)sizeof(TcAccumSmem<false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      akern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 agrid = tc_grid(k, d, false, grid);
+  // At least one chunk, so an empty x still writes zero sums.
+  for (long long lo = 0; lo == 0 || lo < n; lo += rows_per_chunk) {
+    const long long hi = n - lo < rows_per_chunk ? n : lo + rows_per_chunk;
+    if ((phases & 1) && hi > lo) {
+      nkern<<<(unsigned)((hi - lo + BM - 1) / BM), kThreads, 0, st>>>(
+          x, c, c2, n, k, d, p, eps, 1.f - mexp, lo, scr, kp, s, q);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    if (phases & 2) {
+      akern<<<agrid, kTcThreads, smem, st>>>(
+          x, scr, kp, s, q, mexp, eps, k, d, lo, hi > lo ? hi : lo,
+          TcOut{ws, wpart, opart, lo == 0});
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  if (phases & 2) {
+    const long long kd = (long long)k * d;
+    fuzzy_tc_reduce_kernel<<<(unsigned)((kd + 255) / 256), 256, 0, st>>>(
+        ws, wpart, opart, grid, (int)agrid.x, k, d, wsums, weights,
+        objective);
+  }
+  return (int)cudaGetLastError();
+}

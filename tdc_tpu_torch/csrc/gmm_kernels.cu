@@ -11,40 +11,49 @@
 //         products summed into one running sum over d)
 //   norm_i = logsumexp_k logp,  r = exp(logp − norm_i)
 // and the outputs are ll_sum = Σ_i norm_i (), nk = Σ_i r (K,), Σ_i r·x and
-// Σ_i r·x² (K, d), all f32. No (N, K) buffer exists.
+// Σ_i r·x² (K, d), all f32. No (N, K) buffer for all N exists.
 //
-// Bound on this card: operations. The two E-step products and the two
-// moment products are 2·N·K·d FMA-pipe flops each (8·N·K·d); the 2·N·K
-// exps run on the SFU beside them; x is read in N·d·4 bytes, three orders
-// of magnitude below the flops at K = 1024, d = 128.
+// Bound on this card: operations. The E-step product and the moment
+// product rᵀ·[x | x²] are 4·N·K·d flops each, both run on the tensor cores
+// as 3 TF32 products (24·N·K·d at 495 TFLOP/s; 8·N·K·d on the f32 FMA
+// pipe, 67 TFLOP/s, the bound of the design before this one); the 2·N·K
+// exps run on the SFU beside them; x is read in N·d·4 bytes and the
+// log-prob scratch moves 8·N·K bytes (34 GB at N = 2^22, K = 1024).
 //
 // Troubles of the TPU design, and what this design does about them:
 // - Every row adds into all K components, and the row logsumexp needs the
 //   whole K row before any responsibility. The TPU kernel holds a
-//   (block_n, K) tile and both (K, d) accumulators in VMEM. Here, as in B6
-//   (csrc/fuzzy_kernels.cu), two phases: `gmm_norm_kernel` walks every K
-//   tile for a block of 128 rows with an online max and rescaled sum (the
-//   flash-attention recurrence) and writes norm (N,) f32 and the block's
-//   Σ norm as an f64 partial; then `gmm_accum_kernel` recomputes the
-//   log-prob tile per (K tile, row block), forms r = exp(logp − norm) and
-//   accumulates. The recompute costs the two E-step products once more
-//   (12·N·K·d flops in all) and buys a kernel with no K·d limit.
-// - A CTA of phase 2 owns one K tile of 64 components, one 128-column slice
-//   of d and a contiguous range of row blocks, and keeps its (64, 128)
-//   blocks of Σr·x and Σr·x²: f32 registers in row order within a 128-row
-//   block, f64 in shared memory across blocks (128 KB, so one CTA per SM).
-//   The G row-range partials and the Σ norm partials are summed in a fixed
-//   order by `gmm_reduce_kernel`: no float atomics, so two runs are
-//   bitwise equal. Both phases compute the log-prob tile with the same
-//   code, so r of a row's dominant component is exp(0) = 1 exactly.
-// - Registers: one running sum per (row, component) pair, not one per
-//   product, keeps phase 1 within the 128 registers of two CTAs per SM
-//   without spilling on the 16-byte load path (two sums spilled ~600
-//   bytes; PERF.md has both versions' times). Scaling by −½ is exact, so
+//   (block_n, K) tile and both (K, d) accumulators in VMEM. Here two
+//   phases per row chunk. `gmm_norm_tc_kernel` walks every K tile for a
+//   block of 128 rows with an online max and rescaled sum (the
+//   flash-attention recurrence), writes norm (N,) f32 and the block's Σ
+//   norm as an f64 partial, and writes each log-prob tile to a scratch of
+//   at most MU_SCRATCH_BYTES (ops/fuzzy_kernels.py, 512 MiB, whatever N
+//   and K): the chunk is as many rows as the scratch holds whole K rows
+//   of. `gmm_accum_tc_kernel` then reads the chunk's log-probs and forms
+//   r = exp(logp − norm). The E-step product runs once per (row,
+//   component) pair: 8·N·K·d flops where the design before this one
+//   recomputed the product in phase 2 (12·N·K·d). Both phases read the
+//   same logp bits, so r of a row's dominant component is exp(0) = 1
+//   exactly.
+// - Phase 2's moment product runs on the tensor cores in 3xTF32
+//   (tf32_accum.cuh): a CTA of 16 warps owns 64 components x one
+//   128-column slice of x and its squares (x² formed as it is staged,
+//   never as an N x d copy), so each r is formed once; f32 fragments per
+//   128-row block, f64 carries in 128 KB of shared memory (the design
+//   before held both moments' f64 sums there too, for 8 warps). The carries
+//   go to per-row-range f64 slots in chunk order and the slots are summed
+//   in g order by `gmm_reduce_kernel`: no float atomics, so two runs are
+//   bitwise equal.
+// - The E-step product, Σ x²·nv + x·mv + bias, is the reference's expanded
+//   Mahalanobis form, which cancels when σ² is small. Its 3xTF32 form on
+//   the tensor cores was taken once it met B9's card tolerances with the
+//   same max errors as the f32 FMA-pipe form on the route's inputs and the
+//   ragged and ragged soft cases (PERF.md). `gmm_norm_kernel`, that f32
+//   form (one running sum per (row, component) pair, within the 128
+//   registers of two CTAs per SM on the 16-byte load path), stays as what
+//   the tensor-core form is measured against. Scaling by −½ is exact, so
 //   only the order of the additions differs from the reference's.
-// - Cancellation: Σ x²·nv + x·mv + bias is the reference's expanded
-//   Mahalanobis form, which cancels when σ² is small. It is kept as it is,
-//   to give the reference's numbers.
 //
 // Ragged N, K and d are masked: rows past N get r = 0 and add nothing to
 // Σ norm, components past K are never candidates (the job of the −1e30
@@ -57,6 +66,7 @@
 #include <type_traits>
 
 #include "champion.cuh"
+#include "tf32_accum.cuh"
 
 namespace {
 
@@ -69,6 +79,20 @@ struct __align__(16) GmmDotSmem {
   float xs[BK][kXsStride];   // x tile, transposed: xs[col][row]
   float nv[BK][kGmmBN + 4];  // −½/σ² tile, transposed: nv[col][component]
   float mv[BK][kGmmBN + 4];  // μ/σ² tile, transposed
+};
+
+// The tensor-core phase 1's shared memory: row-major tiles of one
+// BK-column step, rows 20 floats apart (the MMA fragment loads are then
+// free of bank conflicts), and the row merges.
+constexpr int kRowStride = BK + 4;
+struct __align__(16) GmmTcSmem {
+  float x[BM][kRowStride];       // x tile: [row][col]
+  float x2[BM][kRowStride];      // its squares
+  float nv[kGmmBN][kRowStride];  // −½/σ² tile: [component][col]
+  float mv[kGmmBN][kRowStride];  // μ/σ² tile
+  float mx[2][BM];               // the two component halves' running max
+  float s[2][BM];                // and rescaled sums, per row
+  float norm[BM];
 };
 
 // One BK-column step of the x, −½/σ² and μ/σ² tiles, held in registers
@@ -132,6 +156,28 @@ struct GmmStepRegs {
         sm.nv[kk + w][cc] = a[w];
         sm.mv[kk + w][cc] = b[w];
       }
+    }
+  }
+
+  // The same step, row-major, with x² beside x (the tensor-core form).
+  __device__ __forceinline__ void store_rows(GmmTcSmem& sm) const {
+#pragma unroll
+    for (int t = 0; t < kX; ++t) {
+      const int i = threadIdx.x + t * kThreads;
+      const int r = i / kPer, kk = (i % kPer) * kW;
+      T sq = x[t];
+      float* f = reinterpret_cast<float*>(&sq);
+#pragma unroll
+      for (int w = 0; w < kW; ++w) f[w] = f[w] * f[w];
+      *reinterpret_cast<T*>(&sm.x[r][kk]) = x[t];
+      *reinterpret_cast<T*>(&sm.x2[r][kk]) = sq;
+    }
+#pragma unroll
+    for (int t = 0; t < kC; ++t) {
+      const int i = threadIdx.x + t * kThreads;
+      const int cc = i / kPer, kk = (i % kPer) * kW;
+      *reinterpret_cast<T*>(&sm.nv[cc][kk]) = nv[t];
+      *reinterpret_cast<T*>(&sm.mv[cc][kk]) = mv[t];
     }
   }
 };
@@ -208,19 +254,24 @@ __device__ __forceinline__ float lse_rescale(float mx, float s, float to) {
   return s == 0.f ? 0.f : s * expf(mx - to);
 }
 
-// Phase 1: norm_i = logsumexp_k logp_ik, and the CTA's Σ norm over its
-// valid rows as an f64 partial. One CTA per 128 rows.
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
+// Phase 1: norm_i = logsumexp_k logp_ik over the rows [row_lo, row_lo +
+// 128·gridDim.x) ∩ [0, n), one CTA per 128 rows, and the CTA's Σ norm over
+// its valid rows as an f64 partial at ll_part[row0 / 128]. kScratch: also
+// each row's log-prob tiles, scr[(row − row_lo)·kp + j] for j < kp
+// (components past k hold values phase 2 never reads). The scalar-load
+// form (d % 4 != 0) takes one CTA per SM: at two its registers spilled.
+template <bool kVec, bool kScratch>
+__global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
     gmm_norm_kernel(const float* __restrict__ x, const float* __restrict__ nv,
                     const float* __restrict__ mv,
                     const float* __restrict__ bias, long long n, int k, int d,
+                    long long row_lo, float* __restrict__ scr, int kp,
                     float* __restrict__ norm_out,
                     double* __restrict__ ll_part) {
   __shared__ GmmDotSmem sm;
   __shared__ double red[kThreads / 16];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long row0 = (long long)blockIdx.x * BM;
+  const long long row0 = row_lo + (long long)blockIdx.x * BM;
   float mx[TM], s[TM];
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
@@ -230,6 +281,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int kt = 0; kt < k; kt += kGmmBN) {
     float lp[TM][kTN];
     tile_logp<kVec>(x, nv, mv, bias, n, k, d, row0, kt, sm, lp);
+    if (kScratch) {
+#pragma unroll
+      for (int m = 0; m < TM; ++m) {
+        const long long row = row0 + ty * TM + m;
+        if (row < n)
+          *reinterpret_cast<float4*>(scr + (row - row_lo) * kp + kt +
+                                     tx * 4) =
+              make_float4(lp[m][0], lp[m][1], lp[m][2], lp[m][3]);
+      }
+    }
 #pragma unroll
     for (int q = 0; q < kTN; ++q) {
       if (kt + tx * 4 + q < k) {
@@ -263,167 +324,211 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (threadIdx.x == 0) {
     double t = 0.0;
     for (int i = 0; i < kThreads / 16; ++i) t += red[i];
-    ll_part[blockIdx.x] = t;
+    ll_part[row0 / BM] = t;  // row_lo is a multiple of BM
   }
 }
 
-// Phase 2's shared memory, 178.75 KB: one CTA per SM. The f64 running sums
-// of Σr·x and Σr·x² live here, not in registers.
-struct __align__(16) GmmAccumSmem {
-  double tot[64][kThreads];  // thread t's 4 x 8 Σr·x at [0, 32), Σr·x² at
-                             // [32, 64), each at [i][t]
-  double red[kThreads];      // the CTA's final fixed-order reductions
-  float r[BM][kGmmBN];       // r of the row block's K tile
-  union __align__(16) {
-    GmmDotSmem dots;
-    float xc[kRC][kDC];  // x rows of one accumulate step, columns of the slice
-  } u;
+// The tensor-core E-step product of phase 1: one kDepth-column step of acc += A·Bᵀ, A and B row-major in shared memory
+// with rows kS floats apart (kS ≡ 4 (mod 32): the fragment loads are free
+// of bank conflicts). The warp's fragments cover rows r0 + i·16 (+8) of
+// A (i < 2) and rows c0 + j·8 of B (j < 4); r0 and c0 include the
+// lane's group, lane / 4.
+template <int kS, int kDepth>
+__device__ __forceinline__ void mma_rows_3xtf32(float (&acc)[2][4][4],
+                                                const float (*a)[kS],
+                                                const float (*b)[kS],
+                                                int r0, int c0) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int kk = 0; kk < kDepth; kk += 8) {
+    unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + i * 16;
+      split_tf32(a[r][kk + t4], ah[i][0], al[i][0]);
+      split_tf32(a[r + 8][kk + t4], ah[i][1], al[i][1]);
+      split_tf32(a[r][kk + t4 + 4], ah[i][2], al[i][2]);
+      split_tf32(a[r + 8][kk + t4 + 4], ah[i][3], al[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      split_tf32(b[c0 + j * 8][kk + t4], bh[j][0], bl[j][0]);
+      split_tf32(b[c0 + j * 8][kk + t4 + 4], bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
+  }
+}
+
+// Phase 1 with the E-step product on the tensor cores in 3xTF32
+// (tf32_accum.cuh's split and MMA): the same outputs as gmm_norm_kernel
+// with kScratch, the logp of a (row, component) pair summed in another
+// order. Warp (wr, wc) holds rows wr·32..+32 and components wc·32..+32 of
+// each 128 x 64 tile as 2 x 4 m16n8 tiles; per BK-column step the x² · nv
+// and x · mv products go into the same fragments. The online logsumexp
+// runs per fragment row; the 4 lanes of a row and then the two component
+// halves merge in a fixed order. The scalar-load form (d % 4 != 0) takes
+// one CTA per SM: at two its registers spilled.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
+    gmm_norm_tc_kernel(const float* __restrict__ x,
+                       const float* __restrict__ nv,
+                       const float* __restrict__ mv,
+                       const float* __restrict__ bias, long long n, int k,
+                       int d, long long row_lo, float* __restrict__ scr,
+                       int kp, float* __restrict__ norm_out,
+                       double* __restrict__ ll_part) {
+  __shared__ GmmTcSmem sm;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int wr = warp % 4, wc = warp / 4;
+  const long long row0 = row_lo + (long long)blockIdx.x * BM;
+  float mx[2][2], ss[2][2];  // row wr·32 + i·16 + gq + 8h at [i][h]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[i][h] = -CUDART_INF_F;
+      ss[i][h] = 0.f;
+    }
+  const int ndk = (d + BK - 1) / BK;
+  for (int kt = 0; kt < k; kt += kGmmBN) {
+    float acc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+    GmmStepRegs<kVec> regs;
+    regs.load(x, nv, mv, n, k, d, row0, kt, 0);
+    for (int st = 0; st < ndk; ++st) {
+      regs.store_rows(sm);
+      __syncthreads();
+      if (st + 1 < ndk) regs.load(x, nv, mv, n, k, d, row0, kt, (st + 1) * BK);
+      mma_rows_3xtf32<kRowStride, BK>(acc, sm.x2, sm.nv, wr * 32 + gq,
+                                      wc * 32 + gq);
+      mma_rows_3xtf32<kRowStride, BK>(acc, sm.x, sm.mv, wr * 32 + gq,
+                                      wc * 32 + gq);
+      __syncthreads();
+    }
+    // logp = the product + bias (−inf past k): to the scratch; then each
+    // row's 8 values of the tile join its running (max, sum) at once, the
+    // max first, so each takes one exp and no branch.
+    float bj[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = kt + wc * 32 + j * 8 + 2 * t4 + e;
+        bj[j][e] = c < k ? bias[c] : -CUDART_INF_F;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = row0 + wr * 32 + i * 16 + gq + 8 * h;
+        float top = mx[i][h];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float* v = &acc[i][j][2 * h];
+          v[0] += bj[j][0];
+          v[1] += bj[j][1];
+          top = fmaxf(top, fmaxf(v[0], v[1]));
+          if (row < n)
+            *reinterpret_cast<float2*>(scr + (row - row_lo) * kp + kt +
+                                       wc * 32 + j * 8 + 2 * t4) =
+                make_float2(v[0], v[1]);
+        }
+        if (top != -CUDART_INF_F) {
+          float sum = lse_rescale(mx[i][h], ss[i][h], top);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            sum += expf(acc[i][j][2 * h] - top) +
+                   expf(acc[i][j][2 * h + 1] - top);
+          ss[i][h] = sum;
+          mx[i][h] = top;
+        }
+      }
+  }
+  // Merge the 4 lanes of each row (fmaxf and + commute, so both lanes of a
+  // pair end with the same bits), then the two component halves.
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, mx[i][h], off);
+        const float os = __shfl_xor_sync(0xffffffffu, ss[i][h], off);
+        const float top = fmaxf(mx[i][h], om);
+        ss[i][h] = lse_rescale(mx[i][h], ss[i][h], top) +
+                   lse_rescale(om, os, top);
+        mx[i][h] = top;
+      }
+      if (t4 == 0) {
+        const int r = wr * 32 + i * 16 + gq + 8 * h;
+        sm.mx[wc][r] = mx[i][h];
+        sm.s[wc][r] = ss[i][h];
+      }
+    }
+  __syncthreads();
+  if (tid < BM) {
+    const float a = sm.mx[0][tid], b = sm.mx[1][tid];
+    const float top = fmaxf(a, b);
+    const float sum = lse_rescale(a, sm.s[0][tid], top) +
+                      lse_rescale(b, sm.s[1][tid], top);
+    const float nr = top + logf(sum);
+    sm.norm[tid] = nr;
+    if (row0 + tid < n) norm_out[row0 + tid] = nr;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double t = 0.0;
+    for (int r = 0; r < BM && row0 + r < n; ++r) t += (double)sm.norm[r];
+    ll_part[row0 / BM] = t;  // row_lo is a multiple of BM
+  }
+}
+
+// Phase 2's weights: r = exp(logp − norm) from the scratch's logp and the
+// row's norm, the same bits phase 1 normalised, so a row's dominant
+// component takes exp(0) = 1 exactly.
+struct GmmWeights {
+  const float* norm;
+  using Row = float;
+  static constexpr bool kSide = false;
+  __device__ __forceinline__ Row row(long long r) const { return norm[r]; }
+  __device__ __forceinline__ float operator()(float lp, Row nr,
+                                              float&) const {
+    return expf(lp - nr);
+  }
 };
 
-// Phase 2. CTA (blockIdx.x, blockIdx.y, blockIdx.z) = (K tile, d slice,
-// row range g of G). Writes its Σr·x and Σr·x² partials to wsx[g] and
-// wsxx[g] and, in the d slice 0 CTAs, its Σr partial to wpart[g].
-// Dynamic shared memory: GmmAccumSmem.
+// Phase 2 on the tensor cores (tf32_accum.cuh): Σr, and Σr·x and Σr·x²
+// from one r tile of 64 components, against a slice of x and its squares.
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 1)
-    gmm_accum_kernel(const float* __restrict__ x, const float* __restrict__ nv,
-                     const float* __restrict__ mv,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ norm_row, long long n, int k,
-                     int d, float* __restrict__ wsx, float* __restrict__ wsxx,
-                     double* __restrict__ wpart) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  GmmAccumSmem& sm = *reinterpret_cast<GmmAccumSmem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int kt = blockIdx.x * kGmmBN;
-  const int dc = blockIdx.y * kDC;
-  const int g = blockIdx.z, grid = gridDim.z;
-  const long long nb = (n + BM - 1) / BM;
-  const long long b0 = nb * g / grid, b1 = nb * (g + 1) / grid;
-  // Accumulate mapping: components kt + cg*4 + i (i < 4), columns
-  // dc + colg*4 + jj and dc + 64 + colg*4 + jj (jj < 4).
-  const int cg = tid / 16, colg = tid % 16;
-#pragma unroll
-  for (int e = 0; e < 64; ++e) sm.tot[e][tid] = 0.0;
-  double wtot[kTN];
-#pragma unroll
-  for (int q = 0; q < kTN; ++q) wtot[q] = 0.0;
-
-  for (long long b = b0; b < b1; ++b) {
-    const long long row0 = b * BM;
-    float nr[TM];  // this thread's rows' norm, loaded before the tile
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const long long row = row0 + ty * TM + m;
-      nr[m] = row < n ? norm_row[row] : 0.f;
-    }
-    ChunkRegs<kVec> chunk;
-    {
-      float lp[TM][kTN];
-      tile_logp<kVec>(x, nv, mv, bias, n, k, d, row0, kt, sm.u.dots, lp);
-      chunk.load(x, n, d, row0, dc);  // in flight while r is computed
-      float wb[kTN] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        const bool live = row0 + ty * TM + m < n;
-        float out[kTN];
-#pragma unroll
-        for (int q = 0; q < kTN; ++q) {
-          float r = 0.f;
-          if (live && kt + tx * 4 + q < k) {
-            r = expf(lp[m][q] - nr[m]);
-            wb[q] += r;
-          }
-          out[q] = r;
-        }
-        *reinterpret_cast<float4*>(&sm.r[ty * TM + m][tx * 4]) =
-            make_float4(out[0], out[1], out[2], out[3]);
-      }
-#pragma unroll
-      for (int q = 0; q < kTN; ++q) wtot[q] += (double)wb[q];
-    }
-    float bx[4][8], bxx[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        bx[i][jj] = 0.f;
-        bxx[i][jj] = 0.f;
-      }
-    for (int r0 = 0; r0 < BM; r0 += kRC) {
-      // tile_logp ended with a barrier, and each step below ends with
-      // one, so the chunk may overwrite the staging tiles; this barrier
-      // also publishes r.
-      chunk.store(sm.u.xc);
-      __syncthreads();
-      if (r0 + kRC < BM) chunk.load(x, n, d, row0 + r0 + kRC, dc);
-#pragma unroll 4
-      for (int rr = 0; rr < kRC; ++rr) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(&sm.r[r0 + rr][cg * 4]);
-        const float4 v0 =
-            *reinterpret_cast<const float4*>(&sm.u.xc[rr][colg * 4]);
-        const float4 v1 =
-            *reinterpret_cast<const float4*>(&sm.u.xc[rr][64 + colg * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const float sq = bv[jj] * bv[jj];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            bx[i][jj] = fmaf(av[i], bv[jj], bx[i][jj]);
-            bxx[i][jj] = fmaf(av[i], sq, bxx[i][jj]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        sm.tot[i * 8 + jj][tid] += (double)bx[i][jj];
-        sm.tot[32 + i * 8 + jj][tid] += (double)bxx[i][jj];
-      }
-  }
-
-  const long long kd = (long long)k * d;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int j = kt + cg * 4 + i;
-    if (j >= k) continue;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = dc + (jj < 4 ? colg * 4 + jj : 64 + colg * 4 + jj - 4);
-      if (col < d) {
-        const long long at = g * kd + (long long)j * d + col;
-        wsx[at] = (float)sm.tot[i * 8 + jj][tid];
-        wsxx[at] = (float)sm.tot[32 + i * 8 + jj][tid];
-      }
-    }
-  }
-  if (blockIdx.y != 0) return;  // every d slice computes the same r
-  // Σr per component kt + tx*4 + q: the 16 row owners (ty) in order.
-#pragma unroll
-  for (int q = 0; q < kTN; ++q) {
-    sm.red[tid] = wtot[q];
-    __syncthreads();
-    if (ty == 0) {
-      double w = 0.0;
-      for (int t = 0; t < 16; ++t) w += sm.red[t * 16 + tx];
-      const int j = kt + tx * 4 + q;
-      if (j < k) wpart[(long long)g * k + j] = w;
-    }
-    __syncthreads();
-  }
+__global__ void __launch_bounds__(kTcThreads, 1)
+    gmm_accum_tc_kernel(const float* __restrict__ x,
+                        const float* __restrict__ scr, int kp,
+                        const float* __restrict__ norm, int k, int d,
+                        long long row_lo, long long row_hi, TcOut out) {
+  tc_accumulate<GmmWeights, kVec, true>(GmmWeights{norm}, x, scr, kp, k, d,
+                                        row_lo, row_hi, out);
 }
 
-// Sums the G partials in g order: Σr·x, Σr·x² (K, d) and nk (K,), and the
-// nll phase-1 partials of Σ norm in block order.
-__global__ void gmm_reduce_kernel(const float* __restrict__ wsx,
-                                  const float* __restrict__ wsxx,
+// Sums the G slots in g order: Σr·x, Σr·x² (K, d) from the (G, K, 2d)
+// carries, nk (K,), and Σ norm from the phase-1 partials in block order.
+__global__ void gmm_reduce_kernel(const double* __restrict__ ws,
                                   const double* __restrict__ wpart,
                                   const double* __restrict__ ll_part,
                                   int grid, long long nll, int k, int d,
@@ -434,10 +539,11 @@ __global__ void gmm_reduce_kernel(const float* __restrict__ wsx,
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long kd = (long long)k * d;
   if (e < kd) {
+    const long long at = (e / d) * 2 * d + e % d;
     double a = 0.0, b = 0.0;
     for (int g = 0; g < grid; ++g) {
-      a += (double)wsx[g * kd + e];
-      b += (double)wsxx[g * kd + e];
+      a += ws[g * 2 * kd + at];
+      b += ws[g * 2 * kd + at + d];
     }
     sx[e] = (float)a;
     sxx[e] = (float)b;
@@ -454,10 +560,6 @@ __global__ void gmm_reduce_kernel(const float* __restrict__ wsx,
   }
 }
 
-int k_tiles(int k) { return (k + kGmmBN - 1) / kGmmBN; }
-int d_slices(int d) { return (d + kDC - 1) / kDC; }
-long long row_blocks(long long n) { return n > 0 ? (n + BM - 1) / BM : 0; }
-
 bool vector_ok(const float* x, const float* nv, const float* mv, int d) {
   return vector_loads_ok(x, nv, d) && vector_loads_ok(x, mv, d);
 }
@@ -467,52 +569,65 @@ bool vector_ok(const float* x, const float* nv, const float* mv, int d) {
 // Rows per phase-1 CTA: the Σ norm partials are (ceil(N / this),) f64.
 extern "C" int tdc_gmm_row_block() { return BM; }
 
-// Row ranges G of phase 2: about `target_ctas` CTAs in all, each range at
-// least one 128-row block, at least 1.
-extern "C" int tdc_gmm_grid(long long n, int k, int d, int target_ctas) {
-  return accumulate_row_ranges(n, (long long)k_tiles(k) * d_slices(d),
-                               target_ctas);
-}
-
-// Phase 1 alone: norm (N,) f32 and the Σ norm partials (ceil(N/128),) f64.
-extern "C" int tdc_gmm_normalizer(const float* x, const float* nv,
-                                  const float* mv, const float* bias,
-                                  long long n, int k, int d, float* norm,
-                                  double* ll_part, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  auto* kern = vector_ok(x, nv, mv, d) ? gmm_norm_kernel<true>
-                                       : gmm_norm_kernel<false>;
-  kern<<<(unsigned)row_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-      x, nv, mv, bias, n, k, d, norm, ll_part);
-  return (int)cudaGetLastError();
-}
-
-// Phase 2 alone, given phase 1's norm and partials: the accumulate and the
-// fixed-order reduction into ll_sum (), nk (K,), sx and sxx (K, d).
-extern "C" int tdc_gmm_accumulate(const float* x, const float* nv,
-                                  const float* mv, const float* bias,
-                                  const float* norm, const double* ll_part,
-                                  long long n, int k, int d, int grid,
-                                  float* wsx, float* wsxx, double* wpart,
-                                  float* ll_sum, float* nk, float* sx,
-                                  float* sxx, void* stream) {
+// B9, one row chunk of rows_per_chunk rows (a multiple of 128) at a time:
+// phase 1 writes norm (N,), the Σ norm partials ll_part (ceil(N/128),) and
+// the chunk's log-probs to scr (rows_per_chunk x kp f32, kp a multiple of
+// 64, phase 2's K tile, and >= k); phase 2 adds the chunk's Σr, Σr·x, Σr·x² to the slots of
+// ws (grid, K, 2d) and wpart (grid, K), both f64; then the fixed-order
+// reduction into ll_sum (), nk (K,), sx and sxx (K, d). `phases`: bit 0
+// runs phase 1, bit 1 phase 2 and the reduction (3 is the kernel; 1 and 2
+// time the phases apart, 2 on the scratch the last chunk left), bit 3
+// runs phase 1's E-step product on the f32 FMA pipe instead of the tensor
+// cores (the error and time it is compared with), bit 2 then makes it
+// skip the scratch writes (timing their cost only).
+extern "C" int tdc_gmm_stats(const float* x, const float* nv, const float* mv,
+                             const float* bias, long long n, int k, int d,
+                             long long rows_per_chunk, int kp, int grid,
+                             float* scr, float* norm, double* ll_part,
+                             double* ws, double* wpart, float* ll_sum,
+                             float* nk, float* sx, float* sxx, int phases,
+                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  auto* kern = vector_ok(x, nv, mv, d) ? gmm_accum_kernel<true>
-                                       : gmm_accum_kernel<false>;
-  const int smem = (int)sizeof(GmmAccumSmem);
+  if (n < 0 || k <= 0 || d <= 0 || rows_per_chunk <= 0 ||
+      rows_per_chunk % BM != 0 || kp % (kTcK / 2) != 0 || kp < k ||
+      grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = vector_ok(x, nv, mv, d);
+  const bool write = !(phases & 4), tc = !(phases & 8);
+  auto* nkern = tc ? (vec ? gmm_norm_tc_kernel<true>
+                          : gmm_norm_tc_kernel<false>)
+                   : vec ? (write ? gmm_norm_kernel<true, true>
+                                  : gmm_norm_kernel<true, false>)
+                         : (write ? gmm_norm_kernel<false, true>
+                                  : gmm_norm_kernel<false, false>);
+  auto* akern = vec ? gmm_accum_tc_kernel<true> : gmm_accum_tc_kernel<false>;
+  const int smem = (int)sizeof(TcAccumSmem<true>);
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      akern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 agrid((unsigned)k_tiles(k), (unsigned)d_slices(d),
-                   (unsigned)grid);
-  kern<<<agrid, kThreads, smem, st>>>(x, nv, mv, bias, norm, n, k, d, wsx,
-                                      wsxx, wpart);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long kd = (long long)k * d;
-  const long long total = kd > k ? kd : (long long)k;
-  gmm_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      wsx, wsxx, wpart, ll_part, grid, row_blocks(n), k, d, sx, sxx, nk,
-      ll_sum);
+  const dim3 agrid = tc_grid(k, d, true, grid);
+  // At least one chunk, so an empty x still writes zero sums.
+  for (long long lo = 0; lo == 0 || lo < n; lo += rows_per_chunk) {
+    const long long hi = n - lo < rows_per_chunk ? n : lo + rows_per_chunk;
+    if ((phases & 1) && hi > lo) {
+      nkern<<<(unsigned)((hi - lo + BM - 1) / BM), kThreads, 0, st>>>(
+          x, nv, mv, bias, n, k, d, lo, scr, kp, norm, ll_part);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    if (phases & 2) {
+      akern<<<agrid, kTcThreads, smem, st>>>(
+          x, scr, kp, norm, k, d, lo, hi > lo ? hi : lo,
+          TcOut{ws, wpart, nullptr, lo == 0});
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  if (phases & 2) {
+    const long long kd = (long long)k * d;
+    gmm_reduce_kernel<<<(unsigned)((kd + 255) / 256), 256, 0, st>>>(
+        ws, wpart, ll_part, grid, (n + BM - 1) / BM, k, d, sx, sxx, nk,
+        ll_sum);
+  }
   return (int)cudaGetLastError();
 }

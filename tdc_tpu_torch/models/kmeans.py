@@ -167,7 +167,11 @@ def _relocate_empty(x, new_c, counts, block_rows: int) -> torch.Tensor:
     if not block_rows:
         block_rows = auto_block_rows(int(x.shape[0]), k, device=x.device)
     mind = _blocked_min_dist(x, new_c, block_rows)
-    top = torch.topk(mind, min(k, x.shape[0]), sorted=True).indices
+    # The costliest rows in jax.lax.top_k's order: descending cost, the
+    # lower index first among equal costs (a stable sort; torch.topk gives
+    # no order among equal values).
+    top = torch.sort(mind, descending=True, stable=True).indices[
+        :min(k, x.shape[0])]
     rank = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0,
                        top.shape[0] - 1)
     cand = x[top].to(torch.float32)

@@ -36,9 +36,8 @@ _F = ctypes.c_float
 # name -> argtypes; every pointer and the stream are void*, every entry
 # point that launches returns an int CUDA error code
 # (tdc_segment_chunk_rows, tdc_segment_meta_bytes, tdc_fuzzy_k_tile,
-# tdc_fuzzy_grid, tdc_gmm_row_block, tdc_gmm_grid and tdc_tall_grid return
-# the geometry that sizes B3's and B12's, B6's, B9's, B10's and B11's
-# workspaces).
+# tdc_fuzzy_grid, tdc_gmm_row_block and tdc_tall_grid return the geometry
+# that sizes B3's and B12's, B8's, B9's, B10's and B11's workspaces).
 SIGNATURES = {
     "tdc_distance_argmin": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "tdc_lloyd_stats_fused": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P,
@@ -58,14 +57,14 @@ SIGNATURES = {
     "tdc_fuzzy_accumulate_mu": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _F, _F,
                                 _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _P],
+    "tdc_fuzzy_stats": [_P, _P, _P, _LL, _I, _I, _F, _F, _F, _LL, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "tdc_row_sq_norms": [_P, _LL, _I, _P, _P],
     "tdc_fuzzy_k_tile": [],
     "tdc_fuzzy_grid": [_LL, _I, _I, _I],
-    "tdc_gmm_normalizer": [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _P],
-    "tdc_gmm_accumulate": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P,
-                           _P, _P, _P, _P, _P, _P],
+    "tdc_gmm_stats": [_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _P, _I, _P],
     "tdc_gmm_row_block": [],
-    "tdc_gmm_grid": [_LL, _I, _I, _I],
     "tdc_tall_lloyd_stats": [_P, _I, _P, _P, _LL, _I, _I, _I, _P, _P, _P,
                              _P, _P, _P, _P, _P],
     "tdc_tall_fuzzy_stats": [_P, _I, _P, _P, _LL, _I, _I, _F, _F, _F, _I,

@@ -79,7 +79,12 @@ def assign_refined(
             (diff * diff).sum(dim=-1),
         )
     d2 = pairwise_sq_dist(xf, cf)
-    _, idx2 = torch.topk(d2, 2, dim=-1, largest=False, sorted=True)  # (N, 2)
+    # The two nominees in jax.lax.top_k's order: the lower index first
+    # among equal values (torch.topk gives no order among equal values).
+    # torch.argmin returns the first minimal index.
+    first = torch.argmin(d2, dim=-1)
+    d2 = d2.scatter(1, first[:, None], torch.inf)
+    idx2 = torch.stack([first, torch.argmin(d2, dim=-1)], dim=1)  # (N, 2)
     diff = xf[:, None, :] - cf[idx2]  # (N, 2, d)
     e = (diff * diff).sum(dim=-1)  # (N, 2) exact distances
     mind, pick = torch.min(e, dim=-1)

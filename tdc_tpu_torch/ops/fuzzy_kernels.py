@@ -17,21 +17,22 @@ As in `ops/lloyd_kernels.py`, each kernel has three parts here:
 - a launch counter, `fuzzy_stats_fused.launches`, which only the kernel
   launch increments.
 
-The kernel is two phases (the row normaliser, then a K-tiled accumulate
-that recomputes the distance tile once), so it takes every (K, d): there
-is no route limit and no fallback. At d <= 128 the accumulate is one
-kernel; past it, μ goes through a scratch of at most MU_SCRATCH_BYTES
-(`mu_scratch_plan`) to a μᵀ·X kernel, so the distance is computed once
-per (row, centroid) pair at every d. See the note in
+The kernel is two phases per row chunk (the row normaliser, which writes
+the chunk's inv = (d² + eps)^(−1/(m−1)) to a scratch of at most
+MU_SCRATCH_BYTES, `row_scratch_plan`; then μ and Σμx on the tensor cores
+from that scratch), so it takes every (K, d) and computes each distance
+once: there is no route limit and no fallback. See the note in
 `csrc/fuzzy_kernels.cu` and PERF.md.
 
-B7 (`fuzzy_normalizer`) and B8 (`fuzzy_accumulate`) are those two phases
-as kernels of their own, for the K-sharded tower
-(`parallel/sharded_k.py`): B7 gives s = Σ_k (d² + eps)^(−1/(m−1)) over
-the centroids it is given, the tower sums s over the model axis, and B8
-takes that s from outside. `fuzzy_stats_twopass` is B7 then B8. B6 calls
-the same phases without touching B7's or B8's counters, so a route's
-launch counts name the kernels it really ran.
+B7 (`fuzzy_normalizer`) and B8 (`fuzzy_accumulate`) are two phases of
+their own, for the K-sharded tower (`parallel/sharded_k.py`): B7 gives
+s = Σ_k (d² + eps)^(−1/(m−1)) over the centroids it is given (B6's phase
+1 without the scratch writes), the tower sums s over the model axis, and B8
+takes that s from outside and computes the distance again: at d <= 128
+in one kernel, past it through a μ scratch of at most MU_SCRATCH_BYTES
+(`mu_scratch_plan`) to a μᵀ·X kernel. `fuzzy_stats_twopass` is B7 then
+B8. Each wrapper counts only its own launches, so a route's launch counts
+name the kernels it really ran.
 """
 
 from __future__ import annotations
@@ -84,8 +85,8 @@ def fuzzy_stats_fused_plain(x: torch.Tensor, centroids: torch.Tensor,
 
 
 def _normalize_phase(x, centroids, c2, m, eps):
-    """Phase 1 of B6 on CUDA tensors: (s, ‖x‖²), each (N,) f32. Counts no
-    launch: `fuzzy_stats_fused` is the kernel's entry point."""
+    """B7's kernel on CUDA tensors: (s, ‖x‖²), each (N,) f32. Counts no
+    launch: `fuzzy_normalizer` is the kernel's entry point."""
     n, d = x.shape
     s = torch.empty(max(n, 1), dtype=torch.float32, device=x.device)
     x2 = torch.empty(max(n, 1), dtype=torch.float32, device=x.device)
@@ -97,18 +98,21 @@ def _normalize_phase(x, centroids, c2, m, eps):
     return s, x2
 
 
-# Phase 2's geometry, as `csrc/fuzzy_kernels.cu` and `csrc/champion.cuh`
-# fix it: centroids per K tile of the μᵀ·X kernel (kFuzzyBN) and of the μ
-# kernel (kMuBN, which a K chunk is a multiple of), rows per row block
-# (BM) and columns per d slice (kDC). At d <= _D_SLICE phase 2 is one
-# kernel that computes each distance tile once; past it, μ goes through a
-# scratch.
+# The phases' geometry, as `csrc/fuzzy_kernels.cu`, `csrc/champion.cuh`
+# and `csrc/tf32_accum.cuh` fix it: centroids per K tile of the phase-1
+# kernels and of the μᵀ·X kernel (kFuzzyBN), of B6's phase 2 (kTcK) and
+# of the μ kernel (kMuBN, which a K chunk is a multiple of), rows per row
+# block (BM) and columns per d slice (kDC, kTcC). At d <= _D_SLICE, B8's
+# phase 2 is one kernel that computes each distance tile once; past it, μ
+# goes through a scratch.
 _K_TILE = 64
 _MU_K_TILE = 128
+_TC_K_TILE = 128  # B6's phase-2 K tile (B9's: half of it)
 _ROW_BLOCK = 128
 _D_SLICE = 128
-# The μ scratch of phase 2 at d > _D_SLICE: at most this many bytes,
-# whatever N and K (each process allocates its own).
+# The scratch of B8's phase 2 at d > _D_SLICE, and of B6's and B9's
+# phases: at most this many bytes, whatever N and K (each process
+# allocates its own).
 MU_SCRATCH_BYTES = 512 << 20
 
 
@@ -131,6 +135,26 @@ def mu_scratch_plan(n: int, k: int, d: int,
     tiles = (kc // _K_TILE) * (-(-d // _D_SLICE))
     grid = max(1, min(target_ctas // tiles, rc // _ROW_BLOCK, 65535))
     return rc, kc, grid
+
+
+def row_scratch_plan(n: int, k: int, comps: int, slices: int,
+                     target_ctas: int) -> tuple[int, int, int]:
+    """(rows per chunk, scratch values a row kp, row ranges G) of the
+    two-phase kernels that pass phase 1's (row, component) values to phase
+    2 through a scratch (B6: inv; B9: the log-probs). Phase 1 needs whole
+    K rows, so the scratch holds rows per chunk x kp f32 within
+    MU_SCRATCH_BYTES, kp = K rounded up to phase 2's K tile of `comps`
+    components: every row in one chunk where the budget allows, else as
+    many 128-row blocks as fit, at least one. G splits a chunk's row
+    blocks so that about `target_ctas` CTAs run phase 2 over its (K tile,
+    column slice) pairs, `slices` column slices each."""
+    kp = -(-k // comps) * comps
+    rows_all = max(1, -(-n // _ROW_BLOCK)) * _ROW_BLOCK
+    rc = min(rows_all, max(_ROW_BLOCK, MU_SCRATCH_BYTES // 4 // kp
+                           // _ROW_BLOCK * _ROW_BLOCK))
+    tiles = (kp // comps) * slices
+    grid = max(1, min(target_ctas // tiles, rc // _ROW_BLOCK, 65535))
+    return rc, kp, grid
 
 
 def _stats_buffers(k, d, dev):
@@ -195,8 +219,42 @@ def _accumulate_mu(x, centroids, c2, s, x2, m, eps,
                       objective=objective)
 
 
+def _launch(x, centroids, c2, m, eps, phases: int = 3) -> FuzzyStats:
+    """B6 on CUDA tensors, one row chunk of the inv scratch at a time
+    (`row_scratch_plan`): phase 1 (the row normaliser, writing the chunk's
+    inv = (d² + eps)^(−1/(m−1))), then phase 2 (μ and Σμx on the tensor
+    cores), then the fixed-order sum of the partials. `phases` 1 or 2 runs
+    one phase alone, for timing them apart (chip_smoke.py); the outputs
+    are then not the stats. Counts no launch: `fuzzy_stats_fused` is the
+    kernel's entry point."""
+    n, d = x.shape
+    k = centroids.shape[0]
+    dev = x.device
+    # One phase-2 CTA per SM.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rc, kp, grid = row_scratch_plan(n, k, _TC_K_TILE, -(-d // _D_SLICE),
+                                    sms)
+    f32, f64 = torch.float32, torch.float64
+    scr = torch.empty(rc * kp, dtype=f32, device=dev)
+    s = torch.empty(max(n, 1), dtype=f32, device=dev)
+    q = torch.empty(max(n, 1), dtype=f32, device=dev)
+    ws = torch.empty((grid, k, d), dtype=f64, device=dev)
+    wpart = torch.empty((grid, k), dtype=f64, device=dev)
+    opart = torch.empty((grid, kp // _TC_K_TILE), dtype=f64, device=dev)
+    wsums, weights, objective = _stats_buffers(k, d, dev)
+    _build.check(_build.load().lib.tdc_fuzzy_stats(
+        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), n, k, d,
+        -1.0 / (m - 1.0), m, eps, rc, kp, grid, scr.data_ptr(),
+        s.data_ptr(), q.data_ptr(), ws.data_ptr(), wpart.data_ptr(),
+        opart.data_ptr(), wsums.data_ptr(), weights.data_ptr(),
+        objective.data_ptr(), phases, _stream(x),
+    ), "fuzzy_stats_fused")
+    return FuzzyStats(weighted_sums=wsums, weights=weights,
+                      objective=objective)
+
+
 def _accumulate_phase(x, centroids, c2, s, x2, m, eps) -> FuzzyStats:
-    """Phase 2 of B6 and B8 on CUDA tensors, given phase 1's (s, ‖x‖²):
+    """Phase 2 of B8 on CUDA tensors, given B7's (s, ‖x‖²):
     the one-slice kernel at d <= _D_SLICE, the μ scratch past it, so the
     distance is computed once per (row, centroid) pair at every d."""
     if x.shape[1] <= _D_SLICE:
@@ -216,9 +274,7 @@ def fuzzy_stats_fused(x: torch.Tensor, centroids: torch.Tensor,
     x, centroids = widened(x, centroids)
     if x.device.type == "cpu":
         return fuzzy_stats_fused_plain(x, centroids, m=m, eps=eps)
-    c2 = _sq_norms(centroids)
-    s, x2 = _normalize_phase(x, centroids, c2, m, eps)
-    out = _accumulate_phase(x, centroids, c2, s, x2, m, eps)
+    out = _launch(x, centroids, _sq_norms(centroids), m, eps)
     fuzzy_stats_fused.launches += 1
     return out
 

@@ -15,11 +15,13 @@ As in `ops/fuzzy_kernels.py`, the kernel has three parts here:
 - a launch counter, `gmm_stats_fused.launches`, which only the kernel
   launch increments.
 
-The kernel is two phases (the row logsumexp, then a K-tiled accumulate
-that recomputes the log-prob tile), so it takes every (K, d): the JAX
-package's VMEM model `gmm_block_n` has no counterpart, and there is no
-route limit and no fallback. See the note in `csrc/gmm_kernels.cu` and
-PERF.md.
+The kernel is two phases per row chunk (the E-step product and the row
+logsumexp, which writes the chunk's log-probs to a scratch of at most
+MU_SCRATCH_BYTES, then a K-tiled accumulate that reads them; both
+products on the tensor cores in 3xTF32), so it takes every (K, d): the
+JAX package's VMEM model `gmm_block_n` has no counterpart, and there is
+no route limit and no fallback. See the note in `csrc/gmm_kernels.cu`
+and PERF.md.
 """
 
 from __future__ import annotations
@@ -30,6 +32,11 @@ from typing import NamedTuple
 import torch
 
 from tdc_tpu_torch.ops import _build
+from tdc_tpu_torch.ops.fuzzy_kernels import (
+    _D_SLICE,
+    _TC_K_TILE,
+    row_scratch_plan,
+)
 from tdc_tpu_torch.ops.lloyd_kernels import _PLAIN_TILE_ELEMS, _check, _stream
 from tdc_tpu_torch.utils.structlog import emit
 
@@ -106,47 +113,43 @@ def gmm_stats_fused_plain(x: torch.Tensor, means: torch.Tensor,
                     sxx=sxx.float())
 
 
-def _normalize_phase(x, nv, muinv, bias):
-    """Phase 1 of B9 on CUDA tensors: (norm (N,) f32, the per-CTA Σ norm
-    partials f64). Counts no launch: `gmm_stats_fused` is the kernel's
-    entry point."""
-    n, d = x.shape
-    lib = _build.load().lib
-    blocks = -(-n // lib.tdc_gmm_row_block())
-    norm = torch.empty(max(n, 1), dtype=torch.float32, device=x.device)
-    ll_part = torch.empty(max(blocks, 1), dtype=torch.float64,
-                          device=x.device)
-    _build.check(lib.tdc_gmm_normalizer(
-        x.data_ptr(), nv.data_ptr(), muinv.data_ptr(), bias.data_ptr(), n,
-        nv.shape[0], d, norm.data_ptr(), ll_part.data_ptr(), _stream(x),
-    ), "gmm_stats_fused (normaliser)")
-    return norm, ll_part
-
-
-def _accumulate_phase(x, nv, muinv, bias, norm, ll_part) -> GMMStats:
-    """Phase 2 of B9 on CUDA tensors, given phase 1's outputs: the K-tiled
-    accumulate and the fixed-order sum of its partials."""
+def _launch(x, nv, muinv, bias, phases: int = 3) -> GMMStats:
+    """B9 on CUDA tensors, one row chunk of the log-prob scratch at a time
+    (`row_scratch_plan`): phase 1 (the E-step product on the tensor cores
+    and the row logsumexp, writing the chunk's log-probs), then phase 2
+    (r = exp(logp − norm) and the moments on the tensor cores), then the
+    fixed-order sum of the partials. `phases` 1 or 2 runs one phase alone;
+    with 8 added, phase 1 takes the E-step product on the f32 FMA pipe
+    instead, and with 4 more, skips its scratch writes: what chip_smoke.py
+    times and checks the kernel against. Counts no launch:
+    `gmm_stats_fused` is the kernel's entry point."""
     n, d = x.shape
     k = nv.shape[0]
     dev = x.device
     lib = _build.load().lib
-    # Row ranges G: about one CTA per SM (phase 2's 179 KB of shared
-    # memory fits one) over all (K tile, d slice, row range) triples.
+    # One phase-2 CTA per SM, over its (64-component K tile, slice of x
+    # and its squares) pairs.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = lib.tdc_gmm_grid(n, k, d, sms)
-    wsx = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
-    wsxx = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
-    wpart = torch.empty((grid, k), dtype=torch.float64, device=dev)
-    ll_sum = torch.empty((), dtype=torch.float32, device=dev)
-    nk = torch.empty(k, dtype=torch.float32, device=dev)
-    sx = torch.empty((k, d), dtype=torch.float32, device=dev)
-    sxx = torch.empty((k, d), dtype=torch.float32, device=dev)
-    _build.check(lib.tdc_gmm_accumulate(
-        x.data_ptr(), nv.data_ptr(), muinv.data_ptr(), bias.data_ptr(),
-        norm.data_ptr(), ll_part.data_ptr(), n, k, d, grid, wsx.data_ptr(),
-        wsxx.data_ptr(), wpart.data_ptr(), ll_sum.data_ptr(), nk.data_ptr(),
-        sx.data_ptr(), sxx.data_ptr(), _stream(x),
-    ), "gmm_stats_fused (accumulate)")
+    rc, kp, grid = row_scratch_plan(n, k, _TC_K_TILE // 2,
+                                    -(-d // _D_SLICE), sms)
+    blocks = -(-n // lib.tdc_gmm_row_block())
+    f32, f64 = torch.float32, torch.float64
+    scr = torch.empty(rc * kp, dtype=f32, device=dev)
+    norm = torch.empty(max(n, 1), dtype=f32, device=dev)
+    ll_part = torch.empty(max(blocks, 1), dtype=f64, device=dev)
+    ws = torch.empty((grid, k, 2 * d), dtype=f64, device=dev)
+    wpart = torch.empty((grid, k), dtype=f64, device=dev)
+    ll_sum = torch.empty((), dtype=f32, device=dev)
+    nk = torch.empty(k, dtype=f32, device=dev)
+    sx = torch.empty((k, d), dtype=f32, device=dev)
+    sxx = torch.empty((k, d), dtype=f32, device=dev)
+    _build.check(lib.tdc_gmm_stats(
+        x.data_ptr(), nv.data_ptr(), muinv.data_ptr(), bias.data_ptr(), n,
+        k, d, rc, kp, grid, scr.data_ptr(), norm.data_ptr(),
+        ll_part.data_ptr(), ws.data_ptr(), wpart.data_ptr(),
+        ll_sum.data_ptr(), nk.data_ptr(), sx.data_ptr(), sxx.data_ptr(),
+        phases, _stream(x),
+    ), "gmm_stats_fused")
     return GMMStats(ll_sum=ll_sum, nk=nk, sx=sx, sxx=sxx)
 
 
@@ -159,9 +162,7 @@ def gmm_stats_fused(x: torch.Tensor, means: torch.Tensor,
     _check_gmm("gmm_stats_fused", x, means, variances, weights)
     if x.device.type == "cpu":
         return gmm_stats_fused_plain(x, means, variances, weights)
-    nv, muinv, bias = _operands(means, variances, weights)
-    norm, ll_part = _normalize_phase(x, nv, muinv, bias)
-    out = _accumulate_phase(x, nv, muinv, bias, norm, ll_part)
+    out = _launch(x, *_operands(means, variances, weights))
     gmm_stats_fused.launches += 1
     return out
 

@@ -7,7 +7,8 @@ Tolerances: labels and counts equal; sums and distances within rtol 1e-5
 and atol 1e-4 (float32, different summation order); two runs bitwise
 equal. With duplicated centroids every tie goes to the smallest index.
 B6 (fuzzy stats): weighted sums within 1e-5 of Σμ|x| per cluster, weights
-and objective within rtol 1e-5, two runs bitwise equal. B7 and B8 (the
+and objective within rtol 1e-5, two runs bitwise equal, also across
+several row chunks of its scratch. B7 and B8 (the
 two-pass fuzzy kernels of the K-sharded tower) on f32 and bf16 rows: s
 within rtol 1e-5 of the plain version's, B8 as B6 and bitwise equal with
 and without B7's ‖x‖²; s summed over two K-shards and B8 per shard give
@@ -15,7 +16,8 @@ B6's stats on all K within the same tolerances. B4 (weighted
 Lloyd stats): sums within rtol 1e-5 and atol 1e-4, the mass and the SSE
 within rtol 1e-5, two runs bitwise equal; copies of a centroid take no
 mass. B9 (the diag-GMM E-step): Σr·x within 1e-5 of Σr|x| per component,
-Σr·x², nk and ll_sum within rtol 1e-5, two runs bitwise equal; a diag
+Σr·x², nk and ll_sum within rtol 1e-5, two runs bitwise equal, also with
+the scratch budget of B6 and B9 cut to a few row blocks; a diag
 kernel fit against the plain fit: equal n_iter and converged, means
 within 1e-4, the mean log-likelihood within rtol 1e-5. B5 (bf16 cross
 operands on the tensor cores) on f32 and bf16 rows: labels and counts
@@ -256,9 +258,18 @@ def test_ties_go_to_the_smallest_index(gen, d):
     assert torch.equal(counts, want) and not sums[copies].any()
 
 
+# A scratch budget of three 128-row blocks of one 128-wide K tile: B6
+# and B9 then run several row chunks and add their partials across chunk
+# edges.
+SMALL_SCRATCH = 3 * 128 * 128 * 4
+
+
+@pytest.mark.parametrize("small_scratch", [False, True])
 @pytest.mark.parametrize("m", [2.0, 1.7])
 @pytest.mark.parametrize("n,k,d", [(1000, 37, 19), (5000, 130, 128)])
-def test_b6_matches_plain(gen, n, k, d, m):
+def test_b6_matches_plain(gen, n, k, d, m, small_scratch, monkeypatch):
+    if small_scratch:
+        monkeypatch.setattr(fk, "MU_SCRATCH_BYTES", SMALL_SCRATCH)
     x, c = _data(gen, n, k, d)
     st = fk.fuzzy_stats_fused(x, c, m)
     again = fk.fuzzy_stats_fused(x, c, m)
@@ -353,14 +364,18 @@ def test_b4_ties_take_no_mass(gen, d):
         torch.testing.assert_close(got.counts, mass, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("small_scratch", [False, True])
 @pytest.mark.parametrize("spread", [1.0, 30.0])
 @pytest.mark.parametrize("n,k,d", [(1000, 37, 19), (5000, 130, 128),
-                                   ((1 << 16) + 37, 300, 19)])
-def test_b9_matches_plain(gen, n, k, d, spread):
+                                   ((1 << 16) + 37, 300, 19), (3001, 70, 130)])
+def test_b9_matches_plain(gen, n, k, d, spread, small_scratch, monkeypatch):
     # The ragged shapes mask rows, components and columns; d = 19 takes
-    # the scalar loads. Variances and weights are the hard-assignment
-    # moments, as a fit starts from; spread 30 widens the variances so the
-    # responsibilities of a row spread over several components.
+    # the scalar loads, d = 130 two column slices of x and two of x².
+    # Variances and weights are the hard-assignment moments, as a fit
+    # starts from; spread 30 widens the variances so the responsibilities
+    # of a row spread over several components.
+    if small_scratch:
+        monkeypatch.setattr(fk, "MU_SCRATCH_BYTES", SMALL_SCRATCH)
     x, c = _data(gen, n, k, d)
     var, w = tgmm._moments_from_hard_assign(x, c, 1e-6)
     var = var * spread

@@ -75,6 +75,37 @@ def test_kmeans_fit_relocate_empty_cluster():
     assert np.abs(t.centroids.numpy()).max() < 100.0  # it was relocated
 
 
+def test_refined_fit_with_duplicated_seeds_matches_jax():
+    """C4: five copies of x[1] among the seeds. Every tie goes to the
+    lowest index, as jax.lax.top_k orders it, so the copies stay empty
+    and x[1]'s rows go to centroid 1 in both packages."""
+    x = np.random.default_rng(3).normal(size=(2000, 12)).astype(np.float32)
+    init = np.concatenate([x[:30], np.repeat(x[1:2], 5, axis=0)])
+    j, t = _fit_both(x, init, max_iters=15, tol=1e-4, kernel="refined")
+    _assert_fit(j, t)
+    from tdc_tpu.ops import assign as jassign
+    from tdc_tpu_torch.ops import assign as tassign
+    want = np.asarray(jassign.assign_refined(x, np.asarray(j.centroids))[0])
+    got = tassign.assign_refined(torch.from_numpy(x), t.centroids)[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_relocate_empty_takes_equal_costs_in_top_k_order():
+    """C4's second site: rows of equal cost relocate in jax.lax.top_k's
+    order (descending cost, the lower index first): (1, 0), then (-1, 0)."""
+    x = np.array([[1, 0], [-1, 0], [0, 1], [0, -1], [0, 0], [.5, 0],
+                  [0, .5], [-.5, 0], [0, -.5]], np.float32)
+    new_c = np.array([[0, 0], [100, 100], [200, 200]], np.float32)
+    counts = np.array([9, 0, 0], np.float32)
+    want = np.asarray(jkm._relocate_empty(
+        jax.numpy.asarray(x), jax.numpy.asarray(new_c),
+        jax.numpy.asarray(counts), 0))
+    got = tkm._relocate_empty(torch.from_numpy(x), torch.from_numpy(new_c),
+                              torch.from_numpy(counts), 0).numpy()
+    np.testing.assert_array_equal(want[1:], [[1, 0], [-1, 0]])
+    np.testing.assert_array_equal(got, want)
+
+
 def test_kmeans_fit_history():
     x, init = _blobs(4)
     j, t = _fit_both(x, init, max_iters=12, tol=1e-4, history=True)

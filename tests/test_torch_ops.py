@@ -121,6 +121,18 @@ def test_assign_refined():
                                atol=1e-5)
 
 
+def test_assign_refined_ties_go_to_the_lowest_index():
+    """C4: four equal centroids nominate in jax.lax.top_k's order (the
+    lower index first among equal distances), so the label is 0."""
+    x = np.zeros((1, 4), np.float32)
+    c = np.ones((4, 4), np.float32)
+    wl, wm = jassign.assign_refined(x, c)
+    gl, gm = tassign.assign_refined(_t(x), _t(c))
+    assert int(np.asarray(wl)[0]) == 0
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
+
+
 def test_apply_centroid_update_keeps_empty_cluster():
     x, c = _data(7)
     c[4] = 1e3  # nobody's nearest: an empty cluster

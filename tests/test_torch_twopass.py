@@ -214,3 +214,55 @@ def test_mu_scratch_plan_at_the_route_shape(monkeypatch):
     assert tfk.mu_scratch_plan(1 << 19, 16384, 768, 264) == (1 << 19, 256, 11)
     monkeypatch.setattr(tfk, "MU_SCRATCH_BYTES", SMALL_BUDGET)
     assert tfk.mu_scratch_plan(3001, 130, 130, 264) == (384, 128, 3)
+
+
+# B6 and B9 pass phase 1's (row, component) values to phase 2 through a
+# scratch of whole K rows (`row_scratch_plan`), one row chunk at a time:
+# the routes' shape (B6: 128-component K tiles, one slice of x; B9: 64,
+# x and its squares), ragged K, a slice of x past d = 128, huge K (one
+# 128-row block is over the budget and is taken anyway), no rows, one row,
+# and the budget cut down to a few row blocks (the card tests of that case
+# are in tests/test_torch_cuda.py).
+ROW_PLAN_SHAPES = [(1 << 22, 1024, 128, 1), (1 << 22, 1024, 64, 1),
+                   ((1 << 16) + 37, 300, 64, 1), (3001, 130, 64, 2),
+                   (0, 70, 128, 1), (1, 1, 128, 1),
+                   (1 << 20, 1 << 21, 128, 6)]
+
+
+@pytest.mark.parametrize("budget", [None, SMALL_BUDGET])
+@pytest.mark.parametrize("n,k,comps,slices", ROW_PLAN_SHAPES)
+def test_row_scratch_plan_stays_in_its_budget(n, k, comps, slices, budget,
+                                              monkeypatch):
+    if budget is not None:
+        monkeypatch.setattr(tfk, "MU_SCRATCH_BYTES", budget)
+    rc, kp, grid = tfk.row_scratch_plan(n, k, comps, slices, 132)
+    assert kp % comps == 0 and kp % 64 == 0 and k <= kp < k + comps
+    assert rc % 128 == 0 and 128 <= rc <= max(1, -(-n // 128)) * 128
+    if 4 * 128 * kp <= tfk.MU_SCRATCH_BYTES:
+        assert 4 * rc * kp <= tfk.MU_SCRATCH_BYTES
+    else:
+        assert rc == 128
+    assert 1 <= grid <= rc // 128
+    tiles = kp // comps * slices
+    assert grid * tiles <= max(132, tiles)
+    if n < 4096:
+        # The chunk loops of tdc_fuzzy_stats and tdc_gmm_stats cover every
+        # row exactly once.
+        seen = np.zeros(n, dtype=np.int32)
+        for r0 in range(0, n, rc):
+            seen[r0:r0 + rc] += 1
+        assert (seen == 1).all()
+
+
+def test_row_scratch_plan_at_the_route_shape(monkeypatch):
+    # N=2^22, K=1024 on 132 SMs: 32 row chunks of 131,072 rows (512 MiB),
+    # 16 row ranges for B6's 8 K tiles and 8 for B9's 16; the ragged shape
+    # in one chunk; with the budget cut, 12 chunks of 256 rows.
+    assert tfk.row_scratch_plan(1 << 22, 1024, 128, 1, 132) == (131072,
+                                                                 1024, 16)
+    assert tfk.row_scratch_plan(1 << 22, 1024, 64, 1, 132) == (131072,
+                                                                1024, 8)
+    assert tfk.row_scratch_plan((1 << 16) + 37, 300, 64, 1, 132) == (
+        65664, 320, 26)
+    monkeypatch.setattr(tfk, "MU_SCRATCH_BYTES", SMALL_BUDGET)
+    assert tfk.row_scratch_plan(3001, 130, 64, 2, 132) == (256, 192, 2)
