@@ -40,11 +40,10 @@ failure (nothing is caught):
    weights too: copies take no mass in B4 or the weighted sorted stats.
    B9 (the diag-GMM E-step) at N=2^22, K=1024, d=128 and at the ragged
    shape, with variances and weights from the blobs' hard-assignment
-   moments, its two phases timed apart (phase 1 also with its E-step
-   product on the f32 FMA pipe, with and without its scratch writes); at
-   the ragged shape also with the variances 30× wider, so each row's
-   responsibilities spread. On every case the E-step product's f32 form
-   is held to B9's checks too, its error beside the kernel's.
+   moments, its two phases timed apart; at the ragged shape also with
+   the variances 30× wider, so each row's responsibilities spread. B6's
+   and B9's bound_ms is their tensor-core bound (their products on the
+   tensor cores in 3xTF32), bound_f32_ms their bound on the f32 FMA pipe.
    B5 (the bf16 tensor-core Lloyd stats) at N=2^22, K=1024, d=128 and at
    the ragged shape, on f32 rows (kernel="pallas_bf16") and on bf16 rows,
    with its labels: labels equal to the plain version's except at
@@ -68,7 +67,9 @@ failure (nothing is caught):
    the ragged shape: s within REL_TOL relative of the plain version's, B8
    (given that s) as B6, both bitwise repeatable; and the tower's
    identity on one process: s summed over two K-shards, B8 on each shard
-   with it, equal to B6 on all K within B6's tolerances. B8's design line
+   with it, equal to B6 on all K within B6's tolerances. B6 at that shape
+   (m=2; phase 2 over six column slices, phase 1's K tiles split) is held
+   to its plain version and timed beside B7 then B8. B8's design line
    gives its product count and μ scratch; its two halves (the μ kernels,
    then μᵀ·X) are timed apart, and it is also timed at K/2 = 8,192 (one
    rank's shard of the K-sharded route) beside its plain version.
@@ -355,12 +356,14 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def tc_bound_ms(tc_flops: float, f32_flops: float,
-                nbytes: float) -> float:
-    """The bound of a kernel whose product of tc_flops runs on the tensor
+                nbytes: float) -> tuple[float, str]:
+    """The bound of a kernel whose products of tc_flops run on the tensor
     cores in 3xTF32 (three TF32 products) and the rest on the f32 pipe:
     the larger of that time and bytes/bandwidth."""
     t_ops = 3.0 * tc_flops / PEAK_TF32_TC_FLOPS + f32_flops / PEAK_F32_FLOPS
-    return 1e3 * max(t_ops, nbytes / PEAK_HBM_BYTES)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def blob_data(gen, n, k, d):
@@ -735,24 +738,15 @@ def check_gmm(name, x, means, var, w, fn=None) -> float:
     return err
 
 
-def f32_estep_err(name, x, means, var, w) -> float:
-    """B9 with phase 1's E-step product on the f32 FMA pipe, the form the
-    tensor-core one replaced, held to B9's checks: its max abs error."""
-    ops = gk._operands(means, var, w)
-    return check_gmm(name, x, means, var, w,
-                     fn=lambda: gk._launch(x, *ops, phases=11))
-
-
 def phase_gmm_kernel(gen) -> dict:
     """Phase 3, B9: at the GMM route's shape, then the ragged case. The
     variances and weights are the hard-assignment moments of the blobs
     around their centers (what gmm_fit starts from), so the log-probs have
     the magnitudes a fit sees. Phase 1 (the E-step product on the tensor
     cores and the row logsumexp, writing the log-prob scratch) and phase 2
-    (the moments on the tensor cores, from the scratch) are timed apart;
-    phase 1 also in its f32 FMA-pipe form, with and without the scratch
-    writes. On every case that form is held to B9's checks too, its error
-    beside the kernel's."""
+    (the moments on the tensor cores, from the scratch) are timed apart.
+    Both products run on the tensor cores, so bound_ms is the tensor-core
+    bound; bound_f32_ms is the bound on the f32 FMA pipe."""
     n, k, d = B1_SHAPE
     x, c = blob_data(gen, n, k, d)
     var, w = gm._moments_from_hard_assign(x, c, 1e-6)
@@ -761,30 +755,26 @@ def phase_gmm_kernel(gen) -> dict:
     rc, kp, grid = fk.row_scratch_plan(n, k, fk._TC_K_TILE // 2,
                                        -(-d // fk._D_SLICE), sms)
     design = dict(rows_per_chunk=rc, chunks=-(-n // rc), row_ranges=grid,
+                  k_splits=fk.phase1_k_splits(rc, k, 2 * sms),
                   scratch_bytes=4 * rc * kp,
                   scratch_budget=fk.MU_SCRATCH_BYTES,
                   estep_flops=4 * n * k * d, estep_flops_before=8 * n * k * d)
     print(f"[B9 design] N={n} K={k} d={d}: {json.dumps(design)}", flush=True)
-    # The E-step and moment products (4·N·K·d each) on the f32 FMA pipe
-    # (the f32 bound) or on the tensor cores in 3xTF32 (the tensor-core
-    # bound); the 2·N·K exps on the SFU beside them.
+    # The E-step and moment products (4·N·K·d each) on the tensor cores in
+    # 3xTF32 (bound_ms), or on the f32 FMA pipe (bound_f32_ms); the 2·N·K
+    # exps on the SFU beside them.
     nbytes = 4.0 * (n * d + 4 * k * d + 2 * k + 2)
-    b_ms, b_by = bound_ms(8.0 * n * k * d + 3.0 * n * d, nbytes)
+    b_ms, b_by = tc_bound_ms(8.0 * n * k * d, 3.0 * n * d, nbytes)
     out = dict(
         max_abs_err=check_gmm("B9", x, c, var, w),
         ms=median_ms(lambda: gk.gmm_stats_fused(x, c, var, w), 5),
         normalizer_ms=median_ms(lambda: gk._launch(x, *ops, phases=1), 5),
         accumulate_ms=median_ms(lambda: gk._launch(x, *ops, phases=2), 5),
-        normalizer_f32_ms=median_ms(lambda: gk._launch(x, *ops, phases=9),
-                                    5),
-        normalizer_f32_no_scratch_ms=median_ms(
-            lambda: gk._launch(x, *ops, phases=13), 5),
         plain_ms=median_ms(lambda: gk.gmm_stats_fused_plain(x, c, var, w),
                            3),
         bound_ms=b_ms, bound_by=b_by,
-        bound_tc_ms=tc_bound_ms(8.0 * n * k * d, 3.0 * n * d, nbytes),
-        library_ms=None,
-        f32_estep_err=f32_estep_err("B9 f32 E-step", x, c, var, w))
+        bound_f32_ms=bound_ms(8.0 * n * k * d + 3.0 * n * d, nbytes)[0],
+        library_ms=None)
     print(f"[B9] N={n} K={k} d={d} (earlier: {B9_EARLIER_MS} ms): "
           f"{json.dumps(out)}", flush=True)
     del x, c, var, w, ops
@@ -795,10 +785,8 @@ def phase_gmm_kernel(gen) -> dict:
     # spread over several components instead of one.
     for name, scale in (("ragged", 1.0), ("ragged soft", 30.0)):
         err = check_gmm(f"B9 {name}", x, c, var * scale, w)
-        f32 = f32_estep_err(f"B9 {name} f32 E-step", x, c, var * scale, w)
         print(f"[B9] {name} N={n} K={k} d={d}: equal to the plain version "
-              f"(max abs err {err:.3g}; {f32:.3g} with the E-step on the "
-              "f32 FMA pipe), bitwise repeatable", flush=True)
+              f"(max abs err {err:.3g}), bitwise repeatable", flush=True)
     print(f"[B9] share of the tolerance used: {json.dumps(tol_shares('B9'))}",
           flush=True)
     return out
@@ -1011,6 +999,7 @@ def phase_fuzzy_kernel(gen) -> dict:
     rc, kp, grid = fk.row_scratch_plan(n, k, fk._TC_K_TILE,
                                        -(-d // fk._D_SLICE), sms)
     design = dict(rows_per_chunk=rc, chunks=-(-n // rc), row_ranges=grid,
+                  k_splits=fk.phase1_k_splits(rc, k, 2 * sms),
                   scratch_bytes=4 * rc * kp,
                   scratch_budget=fk.MU_SCRATCH_BYTES,
                   distance_flops=2 * n * k * d,
@@ -1038,16 +1027,15 @@ def phase_fuzzy_kernel(gen) -> dict:
         print(f"[B6] N={n} K={k} d={d} m={m} (earlier: {B6_EARLIER_MS[m]} "
               f"ms): {json.dumps(per_m[m])}", flush=True)
     # The distance product (2·N·K·d) on the FMA pipe; μᵀx (2·N·K·d) on the
-    # FMA pipe (the f32 bound) or on the tensor cores in 3xTF32 (the
-    # tensor-core bound); the N·K powers on the SFU beside them.
+    # tensor cores in 3xTF32 (bound_ms) or on the FMA pipe (bound_f32_ms);
+    # the N·K powers on the SFU beside them.
     nbytes = 4.0 * (n * d + 2 * k * d + 2 * k + 1)
-    b_ms, b_by = bound_ms(4.0 * n * k * d, nbytes)
+    b_ms, b_by = tc_bound_ms(2.0 * n * k * d, 2.0 * n * k * d, nbytes)
     out = dict(**per_m[2.0], bound_ms=b_ms, bound_by=b_by,
-               bound_tc_ms=tc_bound_ms(2.0 * n * k * d, 2.0 * n * k * d,
-                                       nbytes),
+               bound_f32_ms=bound_ms(4.0 * n * k * d, nbytes)[0],
                library_ms=None, m_1_7=per_m[1.7])
-    print(f"[B6] bounds: {b_ms} ms ({b_by}) on the f32 FMA pipe, "
-          f"{out['bound_tc_ms']} ms with μᵀx on the tensor cores", flush=True)
+    print(f"[B6] bounds: {b_ms} ms ({b_by}) with μᵀx on the tensor cores, "
+          f"{out['bound_f32_ms']} ms on the f32 FMA pipe", flush=True)
     del x, c, c2
 
     n, k, d = FUZZY_RAGGED
@@ -1164,6 +1152,19 @@ def phase_twopass_kernel(gen) -> dict:
           f"{ident:.3g} of B6's on all K, Σμ and J_m within {REL_TOL} "
           "relative", flush=True)
     del s, per, whole, halves
+    # B6 past d = 128 (⌈d/128⌉ column slices in phase 2) and at large K (a
+    # chunk of few rows, phase 1's K tiles split), against its plain
+    # version and beside B7 then B8 (`fuzzy_stats_twopass`, B6's design
+    # before PR 11 at this d).
+    rc, _, _ = fk.row_scratch_plan(n, k, fk._TC_K_TILE,
+                                   -(-d // fk._D_SLICE), sms)
+    wide = dict(rows_per_chunk=rc,
+                k_splits=fk.phase1_k_splits(rc, k, 2 * sms),
+                max_abs_err=check_fuzzy(f"B6 d={d}", x, c, 2.0),
+                ms=median_ms(lambda: fk.fuzzy_stats_fused(x, c, 2.0), 3),
+                twopass_ms=median_ms(
+                    lambda: fk.fuzzy_stats_twopass(x, c, 2.0), 3))
+    print(f"[B6] N={n} K={k} d={d} m=2.0: {json.dumps(wide)}", flush=True)
     xb = x.to(torch.bfloat16)
     del x
     bf16 = dict(zip(("b7_err", "b8_err"),
@@ -2062,6 +2063,9 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
+            # B6, B9: bound_ms is the tensor-core bound, this the f32 one.
+            **({"bound_f32_ms": m["bound_f32_ms"]}
+               if "bound_f32_ms" in m else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -27,10 +27,10 @@
 //   `fuzzy_norm_kernel` walks every K tile for a block of 128 rows and
 //   writes s_i = Σ_k inv_ik to an (N,) f32 buffer (B7's kernel; B8 also
 //   takes ‖x_i‖² from it).
-// - B6 (`tdc_fuzzy_stats`): `fuzzy_norm_scratch_kernel`, the same phase 1,
-//   also writes each inv to a scratch of at most MU_SCRATCH_BYTES
-//   (ops/fuzzy_kernels.py, 512 MiB, whatever N and K), one row chunk of
-//   whole K rows at a time, and q_i = s_i^(1−m);
+// - B6 (`tdc_fuzzy_stats`): `fuzzy_norm_scratch_kernel`, the same phase 1
+//   (both are `row_normalizer`), also writes each inv to a scratch of at
+//   most MU_SCRATCH_BYTES (ops/fuzzy_kernels.py, 512 MiB, whatever N and
+//   K), one row chunk of whole K rows at a time, and q_i = s_i^(1−m);
 //   `fuzzy_accum_tc_kernel` reads the chunk's inv, forms μ = (inv / s)^m
 //   and accumulates Σμ and Σμx on the tensor cores in 3xTF32
 //   (tf32_accum.cuh: 128 centroids x a 128-column slice a CTA, f32
@@ -41,7 +41,12 @@
 //   B6's card tolerance at m = 1.7 (PERF.md), so it stays on the f32 FMA
 //   pipe. Phase 2 needs no d²: Σμd² is Σ (u·q − eps·μ), since
 //   μ·(d² + eps) = u·s^(1−m). So each element takes one power in each
-//   phase (inv, then u^m): 2 powf at m != 2 where it took 3.
+//   phase (inv, then u^m): 2 powf at m != 2 where it took 3 (past d =
+//   128, phase 2 forms μ again in each 128-column slice: 1 + ⌈d/128⌉).
+// - At large K the scratch holds few rows (8,192 at K = 16,384: 64 row
+//   blocks, half the SMs); phase 1 then splits each row block's K tiles
+//   among CTAs (`phase1_k_splits` in ops/fuzzy_kernels.py) and
+//   `fuzzy_s_merge_kernel` adds the splits' s in split order.
 // - Every row adds into every cluster, so the (K, d) accumulator is
 //   tiled: a CTA of phase 2 owns one K tile, one column slice and a
 //   contiguous range of row blocks of the chunk, and adds its sums to its
@@ -158,77 +163,28 @@ __device__ __forceinline__ float mu_power(float u, float m) {
   return kM2 ? u * u : powf(u, m);
 }
 
-// Phase 1 of B7 (and of B8 after it): s_i = Σ_k (d²_ik + eps)^p,
-// p = −1/(m−1), and ‖x_i‖² for phase 2. One CTA per 128 rows.
-template <bool kVec, bool kM2>
-__global__ void __launch_bounds__(kThreads)
-    fuzzy_norm_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                      const float* __restrict__ c2, long long n, int k, int d,
-                      float p, float eps, float* __restrict__ s_out,
-                      float* __restrict__ x2_out) {
-  __shared__ AssignSmem<kFuzzyBN> sm;
+// Phase 1's body over the 128 rows from row0: ‖x_i‖², then per K tile
+// from kt_lo while kt < kt_hi (multiples of 64) the dot products and inv
+// = (d²_ik + eps)^p, p = −1/(m−1), summed into s_i and handed to
+// `tile(kt, inv)` (0 past k); then s_i over the 16
+// column owners of each row in a fixed butterfly order (a + b == b + a,
+// so every lane ends with the same bits) and `row(i, s_i, ‖x_i‖²)` on one
+// lane of each row below n. B7 keeps no inv (its `tile` does nothing, and
+// the stores into acc are dead code there), B6 writes them to its scratch.
+template <bool kVec, bool kM2, class Tile, class Row>
+__device__ __forceinline__ void row_normalizer(
+    const float* __restrict__ x, const float* __restrict__ c,
+    const float* __restrict__ c2, long long n, int k, int d, float p,
+    float eps, long long row0, int kt_lo, int kt_hi,
+    AssignSmem<kFuzzyBN>& sm, Tile tile, Row row) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long row0 = (long long)blockIdx.x * BM;
   float x2[TM], s[TM];
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
     x2[m] = row_sq_norm(x, n, d, row0 + ty * TM + m);
     s[m] = 0.f;
   }
-  for (int kt = 0; kt < k; kt += kFuzzyBN) {
-    float acc[TM][kTN];
-    tile_dots<kVec>(x, c, n, k, d, row0, kt, sm, acc);
-#pragma unroll
-    for (int q = 0; q < kTN; ++q) {
-      const int j = kt + tx * 4 + q;
-      if (j < k) {
-        const float cj = c2[j];
-#pragma unroll
-        for (int m = 0; m < TM; ++m)
-          s[m] += inv_power<kM2>(true_d2(x2[m], cj, acc[m][q]) + eps, p);
-      }
-    }
-  }
-  // Sum the 16 column owners of each row in a fixed butterfly order
-  // (a + b == b + a, so every lane ends with the same bits).
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-#pragma unroll
-    for (int off = 8; off >= 1; off >>= 1)
-      s[m] += __shfl_xor_sync(0xffffffffu, s[m], off);
-    const long long row = row0 + ty * TM + m;
-    if (tx == 0 && row < n) {
-      s_out[row] = s[m];
-      x2_out[row] = x2[m];
-    }
-  }
-}
-
-// B6's phase 1: B7's phase 1 over the rows [row_lo, row_lo +
-// 128·gridDim.x) ∩ [0, n), writing besides s_i q_i = s_i^(1−m) (1 / s_i at
-// m = 2) for phase 2's objective, and each inv = (d² + eps)^p to
-// scr[(row − row_lo)·kp + j] for j < kp (0 past k). A kernel of its own:
-// as one template with B7's, B7's form took 125 registers where it had
-// 111 and ran 18% slower at m = 2 (PERF.md).
-template <bool kVec, bool kM2>
-__global__ void __launch_bounds__(kThreads)
-    fuzzy_norm_scratch_kernel(const float* __restrict__ x,
-                              const float* __restrict__ c,
-                              const float* __restrict__ c2, long long n,
-                              int k, int d, float p, float eps, float qexp,
-                              long long row_lo, float* __restrict__ scr,
-                              int kp, float* __restrict__ s_out,
-                              float* __restrict__ q_out) {
-  __shared__ AssignSmem<kFuzzyBN> sm;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long row0 = row_lo + (long long)blockIdx.x * BM;
-  float x2[TM], s[TM];
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    x2[m] = row_sq_norm(x, n, d, row0 + ty * TM + m);
-    s[m] = 0.f;
-  }
-  for (int kt = 0; kt < k; kt += kFuzzyBN) {
+  for (int kt = kt_lo; kt < kt_hi; kt += kFuzzyBN) {
     float acc[TM][kTN];
     tile_dots<kVec>(x, c, n, k, d, row0, kt, sm, acc);
 #pragma unroll
@@ -248,27 +204,90 @@ __global__ void __launch_bounds__(kThreads)
         for (int m = 0; m < TM; ++m) acc[m][q] = 0.f;
       }
     }
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const long long row = row0 + ty * TM + m;
-      if (row < n)
-        *reinterpret_cast<float4*>(scr + (row - row_lo) * kp + kt + tx * 4) =
-            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-    }
+    tile(kt, acc);
   }
-  // Sum the 16 column owners of each row in a fixed butterfly order
-  // (a + b == b + a, so every lane ends with the same bits).
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
 #pragma unroll
     for (int off = 8; off >= 1; off >>= 1)
       s[m] += __shfl_xor_sync(0xffffffffu, s[m], off);
-    const long long row = row0 + ty * TM + m;
-    if (tx == 0 && row < n) {
-      s_out[row] = s[m];
-      q_out[row] = kM2 ? 1.f / s[m] : powf(s[m], qexp);
-    }
+    const long long i = row0 + ty * TM + m;
+    if (tx == 0 && i < n) row(i, s[m], x2[m]);
   }
+}
+
+// Phase 1 of B7 (and of B8 after it): s_i and ‖x_i‖² for phase 2. One CTA
+// per 128 rows.
+template <bool kVec, bool kM2>
+__global__ void __launch_bounds__(kThreads)
+    fuzzy_norm_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                      const float* __restrict__ c2, long long n, int k, int d,
+                      float p, float eps, float* __restrict__ s_out,
+                      float* __restrict__ x2_out) {
+  __shared__ AssignSmem<kFuzzyBN> sm;
+  row_normalizer<kVec, kM2>(
+      x, c, c2, n, k, d, p, eps, (long long)blockIdx.x * BM, 0, k, sm,
+      [](int, const float (&)[TM][kTN]) {},
+      [&](long long i, float s, float x2) {
+        s_out[i] = s;
+        x2_out[i] = x2;
+      });
+}
+
+// B6's phase 1: B7's phase 1 over the rows [row_lo, row_lo +
+// 128·gridDim.x) ∩ [0, n), CTA (blockIdx.x, blockIdx.y) on a block of 128
+// rows and split blockIdx.y of gridDim.y of the K tiles: each inv = (d² +
+// eps)^p to scr[(row − row_lo)·kp + j] (0 past k), and the split's sum of
+// them to spart[split·stride + row − row_lo].
+template <bool kVec, bool kM2>
+__global__ void __launch_bounds__(kThreads)
+    fuzzy_norm_scratch_kernel(const float* __restrict__ x,
+                              const float* __restrict__ c,
+                              const float* __restrict__ c2, long long n,
+                              int k, int d, float p, float eps,
+                              long long row_lo, float* __restrict__ scr,
+                              int kp, float* __restrict__ spart,
+                              long long stride) {
+  __shared__ AssignSmem<kFuzzyBN> sm;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long row0 = row_lo + (long long)blockIdx.x * BM;
+  const int nkt = (k + kFuzzyBN - 1) / kFuzzyBN;
+  row_normalizer<kVec, kM2>(
+      x, c, c2, n, k, d, p, eps, row0,
+      nkt * blockIdx.y / gridDim.y * kFuzzyBN,
+      nkt * (blockIdx.y + 1) / gridDim.y * kFuzzyBN, sm,
+      [&](int kt, const float (&inv)[TM][kTN]) {
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+          const long long i = row0 + ty * TM + m;
+          if (i < n)
+            *reinterpret_cast<float4*>(scr + (i - row_lo) * kp + kt +
+                                       tx * 4) =
+                make_float4(inv[m][0], inv[m][1], inv[m][2], inv[m][3]);
+        }
+      },
+      [&](long long i, float s, float) {
+        spart[blockIdx.y * stride + (i - row_lo)] = s;
+      });
+}
+
+// B6's row merge over its `splits` K splits for the rows [row_lo,
+// row_hi): s_i, the splits' sums added in split order, and q_i =
+// s_i^(1−m) (1 / s_i at m = 2) for phase 2's objective.
+template <bool kM2>
+__global__ void fuzzy_s_merge_kernel(const float* __restrict__ spart,
+                                     int splits, long long stride,
+                                     long long row_lo, long long row_hi,
+                                     float qexp, float* __restrict__ s_out,
+                                     float* __restrict__ q_out) {
+  const long long row =
+      row_lo + (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= row_hi) return;
+  const long long at = row - row_lo;
+  float s = spart[at];
+  for (int j = 1; j < splits; ++j) s += spart[j * stride + at];
+  s_out[row] = s;
+  q_out[row] = kM2 ? 1.f / s : powf(s, qexp);
 }
 
 // B6's phase-2 weights from the scratch's inv and the row's (s, q):
@@ -926,30 +945,36 @@ extern "C" int tdc_fuzzy_accumulate_mu(
 }
 
 // B6, one row chunk of rows_per_chunk rows (a multiple of 128) at a time:
-// phase 1 writes s and q (N,) and the chunk's inv to scr (rows_per_chunk
-// x kp f32, kp a multiple of 128, phase 2's K tile, and >= k); phase 2
-// adds the chunk's Σμ, Σμx and objective partials to the slots of wpart
-// (grid, K), ws (grid, K, d) and opart (grid, K tiles), all f64; then the
-// fixed-order reduction. `phases`: bit 0 runs phase 1, bit 1 phase 2 and the
-// reduction (3 is the kernel; 1 and 2 time the phases apart, 2 on the
-// scratch the last chunk left).
+// phase 1 writes the chunk's inv to scr (rows_per_chunk x kp f32, kp a
+// multiple of 128, phase 2's K tile, and >= k) in (row block, K split)
+// CTAs, `splits` of them a row block (1 <= splits <= the 64-wide K tiles;
+// spart holds splits x rows_per_chunk f32 of their sums), then merges the
+// splits into s and q (N,); phase 2 adds the chunk's Σμ, Σμx and
+// objective partials to the slots of wpart (grid, K), ws (grid, K, d) and
+// opart (grid, K tiles), all f64; then the fixed-order reduction.
+// `phases`: bit 0 runs phase 1, bit 1 phase 2 and the reduction (3 is the
+// kernel; 1 and 2 time the phases apart, 2 on the scratch the last chunk
+// left).
 extern "C" int tdc_fuzzy_stats(const float* x, const float* c,
                                const float* c2, long long n, int k, int d,
                                float p, float mexp, float eps,
                                long long rows_per_chunk, int kp, int grid,
-                               float* scr, float* s, float* q, double* ws,
+                               int splits, float* scr, float* spart,
+                               float* s, float* q, double* ws,
                                double* wpart, double* opart, float* wsums,
                                float* weights, float* objective, int phases,
                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n < 0 || k <= 0 || d <= 0 || rows_per_chunk <= 0 ||
-      rows_per_chunk % BM != 0 || kp % kTcK != 0 || kp < k || grid < 1)
+      rows_per_chunk % BM != 0 || kp % kTcK != 0 || kp < k || grid < 1 ||
+      splits < 1 || splits > k_tiles(k) || phases < 1 || phases > 3)
     return (int)cudaErrorInvalidValue;
   const bool vec = vector_loads_ok(x, c, d), m2 = p == -1.f && mexp == 2.f;
   auto* nkern = vec ? (m2 ? fuzzy_norm_scratch_kernel<true, true>
                           : fuzzy_norm_scratch_kernel<true, false>)
                     : (m2 ? fuzzy_norm_scratch_kernel<false, true>
                           : fuzzy_norm_scratch_kernel<false, false>);
+  auto* mkern = m2 ? fuzzy_s_merge_kernel<true> : fuzzy_s_merge_kernel<false>;
   auto* akern = vec ? (m2 ? fuzzy_accum_tc_kernel<true, true>
                           : fuzzy_accum_tc_kernel<true, false>)
                     : (m2 ? fuzzy_accum_tc_kernel<false, true>
@@ -963,8 +988,11 @@ extern "C" int tdc_fuzzy_stats(const float* x, const float* c,
   for (long long lo = 0; lo == 0 || lo < n; lo += rows_per_chunk) {
     const long long hi = n - lo < rows_per_chunk ? n : lo + rows_per_chunk;
     if ((phases & 1) && hi > lo) {
-      nkern<<<(unsigned)((hi - lo + BM - 1) / BM), kThreads, 0, st>>>(
-          x, c, c2, n, k, d, p, eps, 1.f - mexp, lo, scr, kp, s, q);
+      const unsigned blocks = (unsigned)((hi - lo + BM - 1) / BM);
+      nkern<<<dim3(blocks, (unsigned)splits), kThreads, 0, st>>>(
+          x, c, c2, n, k, d, p, eps, lo, scr, kp, spart, rows_per_chunk);
+      mkern<<<(unsigned)((hi - lo + 255) / 256), 256, 0, st>>>(
+          spart, splits, rows_per_chunk, lo, hi, 1.f - mexp, s, q);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

@@ -24,13 +24,16 @@
 // - Every row adds into all K components, and the row logsumexp needs the
 //   whole K row before any responsibility. The TPU kernel holds a
 //   (block_n, K) tile and both (K, d) accumulators in VMEM. Here two
-//   phases per row chunk. `gmm_norm_tc_kernel` walks every K tile for a
-//   block of 128 rows with an online max and rescaled sum (the
-//   flash-attention recurrence), writes norm (N,) f32 and the block's Σ
-//   norm as an f64 partial, and writes each log-prob tile to a scratch of
-//   at most MU_SCRATCH_BYTES (ops/fuzzy_kernels.py, 512 MiB, whatever N
-//   and K): the chunk is as many rows as the scratch holds whole K rows
-//   of. `gmm_accum_tc_kernel` then reads the chunk's log-probs and forms
+//   phases per row chunk. `gmm_norm_tc_kernel` walks the K tiles of its
+//   split for a block of 128 rows with an online max and rescaled sum
+//   (the flash-attention recurrence) and writes each log-prob tile to a
+//   scratch of at most MU_SCRATCH_BYTES (ops/fuzzy_kernels.py, 512 MiB,
+//   whatever N and K): the chunk is as many rows as the scratch holds
+//   whole K rows of. Where a chunk has too few row blocks to fill the card
+//   (8,192 rows at K = 16,384), each row block's K tiles are split among
+//   several CTAs (`phase1_k_splits`); `gmm_norm_merge_kernel` merges the
+//   splits' (max, sum) in split order into norm (N,) f32 and each block's
+//   Σ norm as an f64 partial. `gmm_accum_tc_kernel` then reads the chunk's log-probs and forms
 //   r = exp(logp − norm). The E-step product runs once per (row,
 //   component) pair: 8·N·K·d flops where the design before this one
 //   recomputed the product in phase 2 (12·N·K·d). Both phases read the
@@ -47,13 +50,11 @@
 //   bitwise equal.
 // - The E-step product, Σ x²·nv + x·mv + bias, is the reference's expanded
 //   Mahalanobis form, which cancels when σ² is small. Its 3xTF32 form on
-//   the tensor cores was taken once it met B9's card tolerances with the
-//   same max errors as the f32 FMA-pipe form on the route's inputs and the
-//   ragged and ragged soft cases (PERF.md). `gmm_norm_kernel`, that f32
-//   form (one running sum per (row, component) pair, within the 128
-//   registers of two CTAs per SM on the 16-byte load path), stays as what
-//   the tensor-core form is measured against. Scaling by −½ is exact, so
-//   only the order of the additions differs from the reference's.
+//   the tensor cores meets B9's card tolerances with the same max errors
+//   as an f32 FMA-pipe form of phase 1 (one running sum per (row,
+//   component) pair) on the route's inputs and the ragged and ragged soft
+//   cases (PERF.md). Scaling by −½ is exact, so only the order of the
+//   additions differs from the reference's.
 //
 // Ragged N, K and d are masked: rows past N get r = 0 and add nothing to
 // Σ norm, components past K are never candidates (the job of the −1e30
@@ -72,14 +73,7 @@ namespace {
 
 using namespace tdc;
 
-constexpr int kGmmBN = 64;  // components per K tile (4 per thread)
-constexpr int kTN = kGmmBN / 16;
-
-struct __align__(16) GmmDotSmem {
-  float xs[BK][kXsStride];   // x tile, transposed: xs[col][row]
-  float nv[BK][kGmmBN + 4];  // −½/σ² tile, transposed: nv[col][component]
-  float mv[BK][kGmmBN + 4];  // μ/σ² tile, transposed
-};
+constexpr int kGmmBN = 64;  // components per phase-1 K tile
 
 // The tensor-core phase 1's shared memory: row-major tiles of one
 // BK-column step, rows 20 floats apart (the MMA fragment loads are then
@@ -92,7 +86,6 @@ struct __align__(16) GmmTcSmem {
   float mv[kGmmBN][kRowStride];  // μ/σ² tile
   float mx[2][BM];               // the two component halves' running max
   float s[2][BM];                // and rescaled sums, per row
-  float norm[BM];
 };
 
 // One BK-column step of the x, −½/σ² and μ/σ² tiles, held in registers
@@ -136,30 +129,7 @@ struct GmmStepRegs {
     }
   }
 
-  __device__ __forceinline__ void store(GmmDotSmem& sm) const {
-#pragma unroll
-    for (int t = 0; t < kX; ++t) {
-      const int i = threadIdx.x + t * kThreads;
-      const int r = i / kPer, kk = (i % kPer) * kW;
-      const float* v = reinterpret_cast<const float*>(&x[t]);
-#pragma unroll
-      for (int w = 0; w < kW; ++w) sm.xs[kk + w][r] = v[w];
-    }
-#pragma unroll
-    for (int t = 0; t < kC; ++t) {
-      const int i = threadIdx.x + t * kThreads;
-      const int cc = i / kPer, kk = (i % kPer) * kW;
-      const float* a = reinterpret_cast<const float*>(&nv[t]);
-      const float* b = reinterpret_cast<const float*>(&mv[t]);
-#pragma unroll
-      for (int w = 0; w < kW; ++w) {
-        sm.nv[kk + w][cc] = a[w];
-        sm.mv[kk + w][cc] = b[w];
-      }
-    }
-  }
-
-  // The same step, row-major, with x² beside x (the tensor-core form).
+  // Stores the step row-major, with x² beside x.
   __device__ __forceinline__ void store_rows(GmmTcSmem& sm) const {
 #pragma unroll
     for (int t = 0; t < kX; ++t) {
@@ -182,154 +152,14 @@ struct GmmStepRegs {
   }
 };
 
-// logp of rows row0 + ty*TM + m against components kt + tx*4 + q of one K
-// tile, over all of d, into lp[m][q]: x²·nv then x·mv added for each column
-// in increasing order, then the bias. Components past k get bias 0 and must
-// be skipped by the caller. Ends with a __syncthreads(), so `sm` may be
-// reused right after.
-template <bool kVec>
-__device__ __forceinline__ void tile_logp(const float* __restrict__ x,
-                                          const float* __restrict__ nv,
-                                          const float* __restrict__ mv,
-                                          const float* __restrict__ bias,
-                                          long long n, int k, int d,
-                                          long long row0, int kt,
-                                          GmmDotSmem& sm,
-                                          float (&lp)[TM][kTN]) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int q = 0; q < kTN; ++q) lp[m][q] = 0.f;
-  const int ndk = (d + BK - 1) / BK;
-  GmmStepRegs<kVec> regs;
-  regs.load(x, nv, mv, n, k, d, row0, kt, 0);
-  for (int s = 0; s < ndk; ++s) {
-    regs.store(sm);
-    __syncthreads();
-    if (s + 1 < ndk) regs.load(x, nv, mv, n, k, d, row0, kt, (s + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sm.xs[kk][ty * TM]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&sm.xs[kk][ty * TM + 4]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float4 b = *reinterpret_cast<const float4*>(&sm.nv[kk][tx * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&sm.mv[kk][tx * 4]);
-      const float bn[kTN] = {b.x, b.y, b.z, b.w};
-      const float bm[kTN] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        const float a2 = a[m] * a[m];
-#pragma unroll
-        for (int q = 0; q < kTN; ++q)
-          lp[m][q] = fmaf(a[m], bm[q], fmaf(a2, bn[q], lp[m][q]));
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int q = 0; q < kTN; ++q) {
-    const int j = kt + tx * 4 + q;
-    const float bj = j < k ? bias[j] : 0.f;
-#pragma unroll
-    for (int m = 0; m < TM; ++m) lp[m][q] += bj;
-  }
-}
-
-// One step of the online logsumexp: (mx, s) holds max and Σ exp(v − max)
-// over the values seen so far; (−inf, 0) is empty.
-__device__ __forceinline__ void lse_add(float& mx, float& s, float v) {
-  if (v > mx) {
-    s = s * expf(mx - v) + 1.f;
-    mx = v;
-  } else if (v != -CUDART_INF_F) {
-    s += expf(v - mx);
-  }
-}
-
 // s·exp(mx − to), 0 for an empty (−inf, 0) pair.
 __device__ __forceinline__ float lse_rescale(float mx, float s, float to) {
   return s == 0.f ? 0.f : s * expf(mx - to);
 }
 
-// Phase 1: norm_i = logsumexp_k logp_ik over the rows [row_lo, row_lo +
-// 128·gridDim.x) ∩ [0, n), one CTA per 128 rows, and the CTA's Σ norm over
-// its valid rows as an f64 partial at ll_part[row0 / 128]. kScratch: also
-// each row's log-prob tiles, scr[(row − row_lo)·kp + j] for j < kp
-// (components past k hold values phase 2 never reads). The scalar-load
-// form (d % 4 != 0) takes one CTA per SM: at two its registers spilled.
-template <bool kVec, bool kScratch>
-__global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
-    gmm_norm_kernel(const float* __restrict__ x, const float* __restrict__ nv,
-                    const float* __restrict__ mv,
-                    const float* __restrict__ bias, long long n, int k, int d,
-                    long long row_lo, float* __restrict__ scr, int kp,
-                    float* __restrict__ norm_out,
-                    double* __restrict__ ll_part) {
-  __shared__ GmmDotSmem sm;
-  __shared__ double red[kThreads / 16];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long row0 = row_lo + (long long)blockIdx.x * BM;
-  float mx[TM], s[TM];
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    mx[m] = -CUDART_INF_F;
-    s[m] = 0.f;
-  }
-  for (int kt = 0; kt < k; kt += kGmmBN) {
-    float lp[TM][kTN];
-    tile_logp<kVec>(x, nv, mv, bias, n, k, d, row0, kt, sm, lp);
-    if (kScratch) {
-#pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        const long long row = row0 + ty * TM + m;
-        if (row < n)
-          *reinterpret_cast<float4*>(scr + (row - row_lo) * kp + kt +
-                                     tx * 4) =
-              make_float4(lp[m][0], lp[m][1], lp[m][2], lp[m][3]);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kTN; ++q) {
-      if (kt + tx * 4 + q < k) {
-#pragma unroll
-        for (int m = 0; m < TM; ++m) lse_add(mx[m], s[m], lp[m][q]);
-      }
-    }
-  }
-  // Merge the 16 column owners of each row in a fixed butterfly order
-  // (fmaxf and + commute, so every lane ends with the same bits).
-  double part = 0.0;
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-#pragma unroll
-    for (int off = 8; off >= 1; off >>= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, mx[m], off);
-      const float os = __shfl_xor_sync(0xffffffffu, s[m], off);
-      const float top = fmaxf(mx[m], om);
-      s[m] = lse_rescale(mx[m], s[m], top) + lse_rescale(om, os, top);
-      mx[m] = top;
-    }
-    const long long row = row0 + ty * TM + m;
-    if (row < n) {
-      const float norm = mx[m] + logf(s[m]);
-      if (tx == 0) norm_out[row] = norm;
-      part += (double)norm;
-    }
-  }
-  if (tx == 0) red[ty] = part;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double t = 0.0;
-    for (int i = 0; i < kThreads / 16; ++i) t += red[i];
-    ll_part[row0 / BM] = t;  // row_lo is a multiple of BM
-  }
-}
-
-// The tensor-core E-step product of phase 1: one kDepth-column step of acc += A·Bᵀ, A and B row-major in shared memory
-// with rows kS floats apart (kS ≡ 4 (mod 32): the fragment loads are free
+// The E-step product of phase 1 on the tensor cores: one kDepth-column
+// step of acc += A·Bᵀ in 3xTF32, A and B row-major in shared memory with
+// rows kS floats apart (kS ≡ 4 (mod 32): the fragment loads are free
 // of bank conflicts). The warp's fragments cover rows r0 + i·16 (+8) of
 // A (i < 2) and rows c0 + j·8 of B (j < 4); r0 and c0 include the
 // lane's group, lane / 4.
@@ -370,15 +200,20 @@ __device__ __forceinline__ void mma_rows_3xtf32(float (&acc)[2][4][4],
   }
 }
 
-// Phase 1 with the E-step product on the tensor cores in 3xTF32
-// (tf32_accum.cuh's split and MMA): the same outputs as gmm_norm_kernel
-// with kScratch, the logp of a (row, component) pair summed in another
-// order. Warp (wr, wc) holds rows wr·32..+32 and components wc·32..+32 of
-// each 128 x 64 tile as 2 x 4 m16n8 tiles; per BK-column step the x² · nv
-// and x · mv products go into the same fragments. The online logsumexp
-// runs per fragment row; the 4 lanes of a row and then the two component
-// halves merge in a fixed order. The scalar-load form (d % 4 != 0) takes
-// one CTA per SM: at two its registers spilled.
+// Phase 1 over the rows [row_lo, row_lo + 128·gridDim.x) ∩ [0, n): CTA
+// (blockIdx.x, blockIdx.y) takes a block of 128 rows and split blockIdx.y
+// of gridDim.y of the K tiles, writes each row's log-probs there to
+// scr[(row − row_lo)·kp + j] (components past k hold values phase 2 never
+// reads), and the row's running (max, Σ exp(logp − max)) over its split
+// to part[split·stride + row − row_lo] and part[(splits + split)·stride +
+// row − row_lo]. The E-step product runs on the tensor cores in 3xTF32
+// (tf32_accum.cuh's split and MMA). Warp (wr, wc) holds rows wr·32..+32
+// and components wc·32..+32 of each 128 x 64 tile as 2 x 4 m16n8 tiles;
+// per BK-column step the x² · nv and x · mv products go into the same
+// fragments. The online logsumexp runs per fragment row; the 4 lanes of a
+// row and then the two component halves merge in a fixed order. The
+// scalar-load form (d % 4 != 0) takes one CTA per SM: at two its
+// registers spilled.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
     gmm_norm_tc_kernel(const float* __restrict__ x,
@@ -386,8 +221,7 @@ __global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
                        const float* __restrict__ mv,
                        const float* __restrict__ bias, long long n, int k,
                        int d, long long row_lo, float* __restrict__ scr,
-                       int kp, float* __restrict__ norm_out,
-                       double* __restrict__ ll_part) {
+                       int kp, float* __restrict__ part, long long stride) {
   __shared__ GmmTcSmem sm;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int gq = lane / 4, t4 = lane % 4;
@@ -402,7 +236,10 @@ __global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
       ss[i][h] = 0.f;
     }
   const int ndk = (d + BK - 1) / BK;
-  for (int kt = 0; kt < k; kt += kGmmBN) {
+  const int nkt = (k + kGmmBN - 1) / kGmmBN;
+  const int kt_hi = nkt * (blockIdx.y + 1) / gridDim.y * kGmmBN;
+  for (int kt = nkt * blockIdx.y / gridDim.y * kGmmBN; kt < kt_hi;
+       kt += kGmmBN) {
     float acc[2][4][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -483,19 +320,44 @@ __global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
       }
     }
   __syncthreads();
-  if (tid < BM) {
+  if (tid < BM && row0 + tid < n) {
     const float a = sm.mx[0][tid], b = sm.mx[1][tid];
     const float top = fmaxf(a, b);
-    const float sum = lse_rescale(a, sm.s[0][tid], top) +
-                      lse_rescale(b, sm.s[1][tid], top);
-    const float nr = top + logf(sum);
-    sm.norm[tid] = nr;
-    if (row0 + tid < n) norm_out[row0 + tid] = nr;
+    const long long at = blockIdx.y * stride + (row0 - row_lo) + tid;
+    part[at] = top;
+    part[gridDim.y * stride + at] = lse_rescale(a, sm.s[0][tid], top) +
+                                    lse_rescale(b, sm.s[1][tid], top);
+  }
+}
+
+// Phase 1's row merge over its `splits` K splits, for the rows [row_lo,
+// row_lo + 128·gridDim.x) ∩ [0, n), one CTA of 128 threads per 128 rows:
+// norm_i = top + log Σ_j s_j·exp(mx_j − top), top = max_j mx_j, the
+// splits in order (one split: top + log s), and the CTA's Σ norm over its
+// rows, in row order, as an f64 partial at ll_part[row0 / 128].
+__global__ void __launch_bounds__(BM)
+    gmm_norm_merge_kernel(const float* __restrict__ part, int splits,
+                          long long stride, long long n, long long row_lo,
+                          float* __restrict__ norm_out,
+                          double* __restrict__ ll_part) {
+  __shared__ float nrm[BM];
+  const long long row0 = row_lo + (long long)blockIdx.x * BM;
+  const long long row = row0 + threadIdx.x;
+  if (row < n) {
+    const long long at = row - row_lo;
+    float top = -CUDART_INF_F;
+    for (int j = 0; j < splits; ++j) top = fmaxf(top, part[j * stride + at]);
+    float sum = 0.f;
+    for (int j = 0; j < splits; ++j)
+      sum += lse_rescale(part[j * stride + at],
+                         part[(splits + j) * stride + at], top);
+    nrm[threadIdx.x] = top + logf(sum);
+    norm_out[row] = nrm[threadIdx.x];
   }
   __syncthreads();
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     double t = 0.0;
-    for (int r = 0; r < BM && row0 + r < n; ++r) t += (double)sm.norm[r];
+    for (int r = 0; r < BM && row0 + r < n; ++r) t += (double)nrm[r];
     ll_part[row0 / BM] = t;  // row_lo is a multiple of BM
   }
 }
@@ -570,36 +432,33 @@ bool vector_ok(const float* x, const float* nv, const float* mv, int d) {
 extern "C" int tdc_gmm_row_block() { return BM; }
 
 // B9, one row chunk of rows_per_chunk rows (a multiple of 128) at a time:
-// phase 1 writes norm (N,), the Σ norm partials ll_part (ceil(N/128),) and
-// the chunk's log-probs to scr (rows_per_chunk x kp f32, kp a multiple of
-// 64, phase 2's K tile, and >= k); phase 2 adds the chunk's Σr, Σr·x, Σr·x² to the slots of
-// ws (grid, K, 2d) and wpart (grid, K), both f64; then the fixed-order
-// reduction into ll_sum (), nk (K,), sx and sxx (K, d). `phases`: bit 0
-// runs phase 1, bit 1 phase 2 and the reduction (3 is the kernel; 1 and 2
-// time the phases apart, 2 on the scratch the last chunk left), bit 3
-// runs phase 1's E-step product on the f32 FMA pipe instead of the tensor
-// cores (the error and time it is compared with), bit 2 then makes it
-// skip the scratch writes (timing their cost only).
+// phase 1 writes the chunk's log-probs to scr (rows_per_chunk x kp f32,
+// kp a multiple of 64, phase 2's K tile, and >= k) in (row block, K
+// split) CTAs, `splits` of them a row block (1 <= splits <= the 64-wide K
+// tiles; part holds 2 x splits x rows_per_chunk f32 of their running
+// (max, sum)), then merges the splits into norm (N,) and the Σ norm
+// partials ll_part (ceil(N/128),); phase 2 adds the chunk's Σr, Σr·x,
+// Σr·x² to the slots of ws (grid, K, 2d) and wpart (grid, K), both f64;
+// then the fixed-order reduction into ll_sum (), nk (K,), sx and sxx (K,
+// d). `phases`: bit 0 runs phase 1, bit 1 phase 2 and the reduction (3 is
+// the kernel; 1 and 2 time the phases apart, 2 on the scratch the last
+// chunk left).
 extern "C" int tdc_gmm_stats(const float* x, const float* nv, const float* mv,
                              const float* bias, long long n, int k, int d,
                              long long rows_per_chunk, int kp, int grid,
-                             float* scr, float* norm, double* ll_part,
-                             double* ws, double* wpart, float* ll_sum,
-                             float* nk, float* sx, float* sxx, int phases,
+                             int splits, float* scr, float* part,
+                             float* norm, double* ll_part, double* ws,
+                             double* wpart, float* ll_sum, float* nk,
+                             float* sx, float* sxx, int phases,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n < 0 || k <= 0 || d <= 0 || rows_per_chunk <= 0 ||
       rows_per_chunk % BM != 0 || kp % (kTcK / 2) != 0 || kp < k ||
-      grid < 1)
+      grid < 1 || splits < 1 || splits > (k + kGmmBN - 1) / kGmmBN ||
+      phases < 1 || phases > 3)
     return (int)cudaErrorInvalidValue;
   const bool vec = vector_ok(x, nv, mv, d);
-  const bool write = !(phases & 4), tc = !(phases & 8);
-  auto* nkern = tc ? (vec ? gmm_norm_tc_kernel<true>
-                          : gmm_norm_tc_kernel<false>)
-                   : vec ? (write ? gmm_norm_kernel<true, true>
-                                  : gmm_norm_kernel<true, false>)
-                         : (write ? gmm_norm_kernel<false, true>
-                                  : gmm_norm_kernel<false, false>);
+  auto* nkern = vec ? gmm_norm_tc_kernel<true> : gmm_norm_tc_kernel<false>;
   auto* akern = vec ? gmm_accum_tc_kernel<true> : gmm_accum_tc_kernel<false>;
   const int smem = (int)sizeof(TcAccumSmem<true>);
   cudaError_t err = cudaFuncSetAttribute(
@@ -610,8 +469,11 @@ extern "C" int tdc_gmm_stats(const float* x, const float* nv, const float* mv,
   for (long long lo = 0; lo == 0 || lo < n; lo += rows_per_chunk) {
     const long long hi = n - lo < rows_per_chunk ? n : lo + rows_per_chunk;
     if ((phases & 1) && hi > lo) {
-      nkern<<<(unsigned)((hi - lo + BM - 1) / BM), kThreads, 0, st>>>(
-          x, nv, mv, bias, n, k, d, lo, scr, kp, norm, ll_part);
+      const unsigned blocks = (unsigned)((hi - lo + BM - 1) / BM);
+      nkern<<<dim3(blocks, (unsigned)splits), kThreads, 0, st>>>(
+          x, nv, mv, bias, n, k, d, lo, scr, kp, part, rows_per_chunk);
+      gmm_norm_merge_kernel<<<blocks, BM, 0, st>>>(
+          part, splits, rows_per_chunk, n, lo, norm, ll_part);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

@@ -58,12 +58,13 @@ SIGNATURES = {
                                 _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _P],
     "tdc_fuzzy_stats": [_P, _P, _P, _LL, _I, _I, _F, _F, _F, _LL, _I, _I,
-                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+                        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                        _P],
     "tdc_row_sq_norms": [_P, _LL, _I, _P, _P],
     "tdc_fuzzy_k_tile": [],
     "tdc_fuzzy_grid": [_LL, _I, _I, _I],
-    "tdc_gmm_stats": [_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P, _P, _P,
-                      _P, _P, _P, _P, _P, _P, _I, _P],
+    "tdc_gmm_stats": [_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _I, _P, _P,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "tdc_gmm_row_block": [],
     "tdc_tall_lloyd_stats": [_P, _I, _P, _P, _LL, _I, _I, _I, _P, _P, _P,
                              _P, _P, _P, _P, _P],

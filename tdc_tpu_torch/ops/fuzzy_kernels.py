@@ -157,6 +157,18 @@ def row_scratch_plan(n: int, k: int, comps: int, slices: int,
     return rc, kp, grid
 
 
+def phase1_k_splits(rows_per_chunk: int, k: int, target_ctas: int) -> int:
+    """K splits of each 128-row block in phase 1 of the two-phase kernels
+    (B6, B9): as many as bring a row chunk's launch to about `target_ctas`
+    CTAs, at most one 64-wide K tile a split, at least 1. A split's CTA
+    takes a contiguous range of the block's K tiles; a merge kernel adds
+    the splits' row sums in split order. One split wherever a chunk's row
+    blocks fill the card (the fuzzy and GMM routes' shape); more where the
+    scratch holds few rows (8,192 at K = 16,384)."""
+    blocks = max(1, rows_per_chunk // _ROW_BLOCK)
+    return max(1, min(-(-k // _K_TILE), -(-target_ctas // blocks)))
+
+
 def _stats_buffers(k, d, dev):
     return (torch.empty((k, d), dtype=torch.float32, device=dev),
             torch.empty(k, dtype=torch.float32, device=dev),
@@ -222,20 +234,23 @@ def _accumulate_mu(x, centroids, c2, s, x2, m, eps,
 def _launch(x, centroids, c2, m, eps, phases: int = 3) -> FuzzyStats:
     """B6 on CUDA tensors, one row chunk of the inv scratch at a time
     (`row_scratch_plan`): phase 1 (the row normaliser, writing the chunk's
-    inv = (d² + eps)^(−1/(m−1))), then phase 2 (μ and Σμx on the tensor
-    cores), then the fixed-order sum of the partials. `phases` 1 or 2 runs
+    inv = (d² + eps)^(−1/(m−1)), its K tiles split `phase1_k_splits`
+    ways), then phase 2 (μ and Σμx on the tensor cores), then the
+    fixed-order sum of the partials. `phases` 1 or 2 runs
     one phase alone, for timing them apart (chip_smoke.py); the outputs
     are then not the stats. Counts no launch: `fuzzy_stats_fused` is the
     kernel's entry point."""
     n, d = x.shape
     k = centroids.shape[0]
     dev = x.device
-    # One phase-2 CTA per SM.
+    # One phase-2 CTA per SM, two phase-1 CTAs.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rc, kp, grid = row_scratch_plan(n, k, _TC_K_TILE, -(-d // _D_SLICE),
                                     sms)
+    splits = phase1_k_splits(rc, k, 2 * sms)
     f32, f64 = torch.float32, torch.float64
     scr = torch.empty(rc * kp, dtype=f32, device=dev)
+    spart = torch.empty(splits * rc, dtype=f32, device=dev)
     s = torch.empty(max(n, 1), dtype=f32, device=dev)
     q = torch.empty(max(n, 1), dtype=f32, device=dev)
     ws = torch.empty((grid, k, d), dtype=f64, device=dev)
@@ -244,10 +259,10 @@ def _launch(x, centroids, c2, m, eps, phases: int = 3) -> FuzzyStats:
     wsums, weights, objective = _stats_buffers(k, d, dev)
     _build.check(_build.load().lib.tdc_fuzzy_stats(
         x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), n, k, d,
-        -1.0 / (m - 1.0), m, eps, rc, kp, grid, scr.data_ptr(),
-        s.data_ptr(), q.data_ptr(), ws.data_ptr(), wpart.data_ptr(),
-        opart.data_ptr(), wsums.data_ptr(), weights.data_ptr(),
-        objective.data_ptr(), phases, _stream(x),
+        -1.0 / (m - 1.0), m, eps, rc, kp, grid, splits, scr.data_ptr(),
+        spart.data_ptr(), s.data_ptr(), q.data_ptr(), ws.data_ptr(),
+        wpart.data_ptr(), opart.data_ptr(), wsums.data_ptr(),
+        weights.data_ptr(), objective.data_ptr(), phases, _stream(x),
     ), "fuzzy_stats_fused")
     return FuzzyStats(weighted_sums=wsums, weights=weights,
                       objective=objective)

@@ -35,6 +35,7 @@ from tdc_tpu_torch.ops import _build
 from tdc_tpu_torch.ops.fuzzy_kernels import (
     _D_SLICE,
     _TC_K_TILE,
+    phase1_k_splits,
     row_scratch_plan,
 )
 from tdc_tpu_torch.ops.lloyd_kernels import _PLAIN_TILE_ELEMS, _check, _stream
@@ -116,25 +117,27 @@ def gmm_stats_fused_plain(x: torch.Tensor, means: torch.Tensor,
 def _launch(x, nv, muinv, bias, phases: int = 3) -> GMMStats:
     """B9 on CUDA tensors, one row chunk of the log-prob scratch at a time
     (`row_scratch_plan`): phase 1 (the E-step product on the tensor cores
-    and the row logsumexp, writing the chunk's log-probs), then phase 2
-    (r = exp(logp − norm) and the moments on the tensor cores), then the
-    fixed-order sum of the partials. `phases` 1 or 2 runs one phase alone;
-    with 8 added, phase 1 takes the E-step product on the f32 FMA pipe
-    instead, and with 4 more, skips its scratch writes: what chip_smoke.py
-    times and checks the kernel against. Counts no launch:
-    `gmm_stats_fused` is the kernel's entry point."""
+    and the row logsumexp, writing the chunk's log-probs, its K tiles
+    split `phase1_k_splits` ways), then phase 2 (r = exp(logp − norm)
+    and the moments on the tensor cores), then the fixed-order sum of the
+    partials. `phases` 1 or 2 runs one phase alone,
+    for timing them apart (chip_smoke.py); the outputs are then not the
+    stats. Counts no launch: `gmm_stats_fused` is the kernel's entry
+    point."""
     n, d = x.shape
     k = nv.shape[0]
     dev = x.device
     lib = _build.load().lib
     # One phase-2 CTA per SM, over its (64-component K tile, slice of x
-    # and its squares) pairs.
+    # and its squares) pairs; two phase-1 CTAs.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rc, kp, grid = row_scratch_plan(n, k, _TC_K_TILE // 2,
                                     -(-d // _D_SLICE), sms)
+    splits = phase1_k_splits(rc, k, 2 * sms)
     blocks = -(-n // lib.tdc_gmm_row_block())
     f32, f64 = torch.float32, torch.float64
     scr = torch.empty(rc * kp, dtype=f32, device=dev)
+    part = torch.empty(2 * splits * rc, dtype=f32, device=dev)
     norm = torch.empty(max(n, 1), dtype=f32, device=dev)
     ll_part = torch.empty(max(blocks, 1), dtype=f64, device=dev)
     ws = torch.empty((grid, k, 2 * d), dtype=f64, device=dev)
@@ -145,8 +148,8 @@ def _launch(x, nv, muinv, bias, phases: int = 3) -> GMMStats:
     sxx = torch.empty((k, d), dtype=f32, device=dev)
     _build.check(lib.tdc_gmm_stats(
         x.data_ptr(), nv.data_ptr(), muinv.data_ptr(), bias.data_ptr(), n,
-        k, d, rc, kp, grid, scr.data_ptr(), norm.data_ptr(),
-        ll_part.data_ptr(), ws.data_ptr(), wpart.data_ptr(),
+        k, d, rc, kp, grid, splits, scr.data_ptr(), part.data_ptr(),
+        norm.data_ptr(), ll_part.data_ptr(), ws.data_ptr(), wpart.data_ptr(),
         ll_sum.data_ptr(), nk.data_ptr(), sx.data_ptr(), sxx.data_ptr(),
         phases, _stream(x),
     ), "gmm_stats_fused")

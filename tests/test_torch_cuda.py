@@ -266,8 +266,11 @@ SMALL_SCRATCH = 3 * 128 * 128 * 4
 
 @pytest.mark.parametrize("small_scratch", [False, True])
 @pytest.mark.parametrize("m", [2.0, 1.7])
-@pytest.mark.parametrize("n,k,d", [(1000, 37, 19), (5000, 130, 128)])
+@pytest.mark.parametrize("n,k,d", [(1000, 37, 19), (5000, 130, 128),
+                                   (3001, 130, 130), (2000, 70, 769)])
 def test_b6_matches_plain(gen, n, k, d, m, small_scratch, monkeypatch):
+    # d = 130 and 769 take several 128-column slices of phase 2 (the last
+    # one ragged), d = 769 also the scalar loads.
     if small_scratch:
         monkeypatch.setattr(fk, "MU_SCRATCH_BYTES", SMALL_SCRATCH)
     x, c = _data(gen, n, k, d)

@@ -11,12 +11,16 @@ atol 1e-4 (|sums| ≲ 100 here, float32 summation order); SSE and minimum
 distances within rtol 1e-5 and 1e-5 of the squared-norm scale.
 """
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from tdc_tpu.ops import pallas_kernels as jpk
 from tdc_tpu.ops import sorted_stats as jss
+from tdc_tpu_torch.ops import _build
 from tdc_tpu_torch.ops import assign as tassign
 from tdc_tpu_torch.ops import lloyd_kernels as tlk
 from tdc_tpu_torch.ops import sorted_stats as tss
@@ -173,3 +177,31 @@ def test_plain_versions_do_not_count_launches():
     tlk.lloyd_stats_fused(_t(x), _t(c))
     assert (tlk.distance_argmin.launches, tlk.lloyd_stats_fused.launches,
             tss.segment_sums.launches) == before
+
+
+
+def _c_entry_points():
+    """name -> parameter list of every `extern "C"` function in csrc/."""
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" \w+\s+(tdc_\w+)\(([^)]*)\)', text):
+            params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+            found[m.group(1)] = params
+    return found
+
+
+def _ctype_of(param: str):
+    if "*" in param:
+        return ctypes.c_void_p
+    decl = " ".join(param.replace("const ", "").split()[:-1])
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}[decl]
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_ctypes_signatures_match_the_sources(name):
+    # Each entry point's argtypes list the C parameters one for one: a
+    # missing or extra argument shifts every later pointer on the card.
+    params = _c_entry_points()[name]
+    assert [_ctype_of(p) for p in params] == _build.SIGNATURES[name]

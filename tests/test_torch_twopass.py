@@ -266,3 +266,32 @@ def test_row_scratch_plan_at_the_route_shape(monkeypatch):
         65664, 320, 26)
     monkeypatch.setattr(tfk, "MU_SCRATCH_BYTES", SMALL_BUDGET)
     assert tfk.row_scratch_plan(3001, 130, 64, 2, 132) == (256, 192, 2)
+
+
+@pytest.mark.parametrize("n,k,comps,slices", ROW_PLAN_SHAPES)
+def test_phase1_k_splits_fill_the_card(n, k, comps, slices):
+    # Phase 1 of B6 and B9 splits each row block's 64-wide K tiles among
+    # `splits` CTAs: at least one tile a split, and a chunk's launch
+    # reaches the target CTAs wherever the K tiles allow.
+    rc, _, _ = tfk.row_scratch_plan(n, k, comps, slices, 132)
+    splits = tfk.phase1_k_splits(rc, k, 264)
+    tiles = -(-k // 64)
+    assert 1 <= splits <= tiles
+    assert (rc // 128) * splits >= min(264, (rc // 128) * tiles)
+    # Each split's range of K tiles, as the phase-1 kernels take it, is
+    # contiguous, non-empty, and together they cover every tile once.
+    bounds = [tiles * j // splits for j in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == tiles
+    assert all(a < b for a, b in zip(bounds, bounds[1:]))
+
+
+def test_phase1_k_splits_at_the_routes_and_large_k():
+    # The routes' shape fills the card with 1,024 row blocks a chunk: one
+    # split. At K=16,384 a chunk holds 8,192 rows (64 blocks): 5 splits,
+    # 320 CTAs a launch; the ragged shape (513 blocks in one chunk): 1.
+    assert tfk.phase1_k_splits(131072, 1024, 264) == 1
+    rc, _, _ = tfk.row_scratch_plan(1 << 19, 16384, 128, 6, 132)
+    assert rc == 8192 and tfk.phase1_k_splits(rc, 16384, 264) == 5
+    assert tfk.phase1_k_splits(65664, 300, 264) == 1
+    # Few rows: every K tile its own split, but no more.
+    assert tfk.phase1_k_splits(128, 130, 264) == 3
