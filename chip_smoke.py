@@ -28,6 +28,13 @@ failure (nothing is caught):
    earlier method, are printed beside). The build's ptxas registers and spills
    of every kernel are printed first.
    Duplicated centroids check the tie rule of B1, B2 and B3 on the card.
+   B1 and B4 (their distance product on the tensor cores in 3xTF32) are
+   held with their labels: labels equal to the plain version's but at
+   near-ties, counts equal and no near-tie at the route's shape, and the
+   same checks on a near-tie input (2^16 points 1e-5 off the bisector of
+   two centroids: the near-tie count is printed); each prints its
+   pre-pass, zeroing and reduce time and the design before it (phase
+   split, near-ties, share of the tolerance used) beside its own numbers.
    B6 (fuzzy stats) at N=2^22, K=1024, d=128 for m=2.0 and m=1.7, its two
    phases timed apart (the row normaliser writing the inv scratch, then μ
    and Σμx on the tensor cores) and the design before it (B7's kernel,
@@ -291,6 +298,17 @@ SORTED_ITERS = 4
 B12_EARLIER_MS, B12_BF16_EARLIER_MS = 1.2460, 1.3586
 B6_EARLIER_MS = {2.0: 112.06, 1.7: 141.45}
 B9_EARLIER_MS = 197.72
+# B1 and B4 before their redesign (the product on the f32 FMA pipe), at
+# the route's shape, printed beside this run's: the phase split and the
+# answers measured by scripts/b1_b4_phases.py --parent on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md). near_ties: labels that differ
+# from the plain version's on the near-tie input (2^16 rows at the
+# route's K and d); tol_share: the largest share of the sums' tolerance
+# used at the route's shape.
+B1_EARLIER = dict(ms=38.40, product_fold_ms=33.50, accumulate_ms=4.79,
+                  zero_reduce_ms=0.21, near_ties=0, tol_share=0.4401)
+B4_EARLIER = dict(ms=38.85, accumulate_ms=4.95, zero_reduce_ms=0.19,
+                  near_ties=0, tol_share=0.4063)
 SHARDED_FUZZY_EARLIER_S = 20.7764
 
 
@@ -419,6 +437,81 @@ def check_labels(name, x, c, got, want) -> int:
     return int(diff.numel())
 
 
+def near_tie_data(gen, n, k, d):
+    """Points 1e-5 off the midpoint of centroids i % k and (i + 1) % k
+    (centroids as blob_data's centers): every row sits on a near-tie of two
+    centroids, where a product's rounding may pick either."""
+    c = ((torch.rand((k, d), generator=gen, device="cuda") * 2 - 1) * 3
+         ).contiguous()
+    a = torch.arange(n, device="cuda") % k
+    x = (c[a] + c[(a + 1) % k]) / 2
+    return (x + 1e-5 * torch.randn((n, d), generator=gen, device="cuda")
+            ).contiguous(), c
+
+
+def check_fused(name, x, c, w=None) -> tuple[float, int]:
+    """B1 (w None) or B4 against its plain version, with labels: two runs
+    bitwise equal; labels equal to the plain version's but at near-ties
+    (check_labels); where they all agree, counts equal (B4: the mass
+    within REL_TOL relative) and the sums within REL_TOL of Σ|x| (B4:
+    Σw|x|) per cluster, else the sums within REL_TOL of f64 sums by the
+    kernel's own labels; the SSE within REL_TOL relative. Returns (max abs
+    error of the sums, near-tie count)."""
+    if w is None:
+        run = lambda: lk.lloyd_stats_fused(x, c, return_labels=True)
+        want, plab = lk.lloyd_stats_fused_plain(x, c, return_labels=True)
+        wt = torch.ones(x.shape[0], device="cuda")
+    else:
+        run = lambda: lk.lloyd_stats_fused_weighted(x, c, w,
+                                                    return_labels=True)
+        want, plab = lk.lloyd_stats_fused_weighted_plain(
+            x, c, w, return_labels=True)
+        wt = w
+    (got, lab), (again, lab2) = run(), run()
+    repeatable(name, (*got, lab), (*again, lab2))
+    ties = check_labels(name, x, c, lab, plab)
+    ref_lab = lab if ties else plab
+    abs_sums = torch.zeros_like(want.sums).index_add_(
+        0, ref_lab.long(), wt[:, None] * x.abs())
+    if ties:
+        ref = torch.zeros(want.sums.shape, dtype=torch.float64,
+                          device="cuda").index_add_(
+            0, lab.long(), wt[:, None].double() * x.double())
+        err = check_close(f"{name} sums (own labels)", got.sums.double(),
+                          ref, abs_sums.double())
+    else:
+        if w is None:
+            require(torch.equal(got.counts, want.counts),
+                    f"{name}: counts differ")
+        else:
+            check_close(f"{name} mass", got.counts, want.counts,
+                        want.counts.abs())
+        err = check_close(f"{name} sums", got.sums, want.sums, abs_sums)
+    check_close(f"{name} sse", got.sse, want.sse, want.sse.abs())
+    return err, ties
+
+
+def fused_bound(n, k, d, weighted) -> dict:
+    """B1's or B4's bound: the 2·N·K·d product on the tensor cores in
+    3xTF32 and the accumulate's N·d adds (B4: 2·N·d, with w·x) on the f32
+    pipe (bound_ms), or all of it on the f32 pipe (bound_f32_ms); bytes:
+    x (B4: and w) once, the centroids, the sums, counts and SSE."""
+    rest = (2.0 if weighted else 1.0) * n * d
+    nbytes = 4.0 * (n * d + (n if weighted else 0) + 2 * k * d + 2 * k + 1)
+    b_ms, b_by = tc_bound_ms(2.0 * n * k * d, rest, nbytes)
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                bound_f32_ms=bound_ms(2.0 * n * k * d + rest, nbytes)[0])
+
+
+def fused_phases(x, c, w=None) -> dict:
+    """B1's or B4's launches with no rows at the route's grid: the
+    centroid pre-pass, the workspace zeroing and the slice reduce."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ww = None if w is None else w[:0]
+    return dict(prepass_zero_reduce_ms=median_ms(
+        lambda: lk._fused_tc(x[:0], c, ww, False, sms), 5))
+
+
 def repeatable(name, a, b) -> None:
     for u, v in zip(a, b):
         require(torch.equal(u, v), f"{name}: two runs differ bitwise")
@@ -430,22 +523,23 @@ def phase_kernels(gen) -> dict:
     out = {}
     n, k, d = B1_SHAPE
     x, c = blob_data(gen, n, k, d)
-    got = lk.lloyd_stats_fused(x, c)
-    repeatable("B1", got, lk.lloyd_stats_fused(x, c))
-    want = lk.lloyd_stats_fused_plain(x, c)
-    require(torch.equal(got.counts, want.counts), "B1: counts differ")
-    abs_sums = torch.zeros_like(want.sums).index_add_(
-        0, lk.distance_argmin_plain(x, c)[0].long(), x.abs())
-    err = check_close("B1 sums", got.sums, want.sums, abs_sums)
-    check_close("B1 sse", got.sse, want.sse, want.sse.abs())
-    b_ms, b_by = bound_ms(2.0 * n * k * d + n * d,
-                          4.0 * (n * d + 2 * k * d + 2 * k + 1))
+    err, ties = check_fused("B1", x, c)
+    require(ties == 0, f"B1: {ties} labels differ at the route's shape "
+                       "(counts must be equal there)")
     out["B1"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, near_ties=ties,
         ms=median_ms(lambda: lk.lloyd_stats_fused(x, c), 5),
         plain_ms=median_ms(lambda: lk.lloyd_stats_fused_plain(x, c), 3),
-        bound_ms=b_ms, bound_by=b_by)
-    del x, c, got, want, abs_sums
+        **fused_bound(n, k, d, False), **fused_phases(x, c))
+    del x, c
+    xn, cn = near_tie_data(gen, TIE_N, k, d)
+    out["B1"]["near_tie_input"] = check_fused("B1 near-tie input", xn,
+                                              cn)[1]
+    del xn, cn
+    print(f"[B1] N={n} K={k} d={d} (3xTF32 on the tensor cores): "
+          f"{json.dumps(out['B1'])}; share of the tolerance used: "
+          f"{json.dumps(tol_shares('B1'))}; before the redesign: "
+          f"{json.dumps(B1_EARLIER)}", flush=True)
 
     n, k, d = SORTED_N, SORTED_K, SORTED_D
     x, c = blob_data(gen, n, k, d)
@@ -667,45 +761,36 @@ def phase_gathered_kernel(x, label_sets) -> dict:
     return out
 
 
-def check_weighted(name, x, c, w) -> float:
-    """B4 against its plain version: two runs bitwise equal, Σw·x within
-    REL_TOL of Σw|x| per cluster, the mass and the SSE within REL_TOL
-    relative."""
-    got = lk.lloyd_stats_fused_weighted(x, c, w)
-    repeatable(name, got, lk.lloyd_stats_fused_weighted(x, c, w))
-    want = lk.lloyd_stats_fused_weighted_plain(x, c, w)
-    abs_sums = torch.zeros_like(want.sums).index_add_(
-        0, lk.distance_argmin_plain(x, c)[0].long(), w[:, None] * x.abs())
-    err = check_close(f"{name} sums", got.sums, want.sums, abs_sums)
-    check_close(f"{name} mass", got.counts, want.counts, want.counts.abs())
-    check_close(f"{name} sse", got.sse, want.sse, want.sse.abs())
-    return err
-
-
 def phase_weighted_kernel(gen) -> dict:
     """Phase 3, B4: at the weighted fused route's shape, then the ragged
     case."""
     n, k, d = B1_SHAPE
     x, c = blob_data(gen, n, k, d)
     w = make_weights(n, 1)
-    # B1's bound with the weight operand: one more read per row and the
-    # w·x product (N·d) beside the accumulate's N·d adds.
-    b_ms, b_by = bound_ms(2.0 * n * k * d + 2.0 * n * d,
-                          4.0 * (n * d + n + 2 * k * d + 2 * k + 1))
+    err, ties = check_fused("B4", x, c, w)
+    require(ties == 0, f"B4: {ties} labels differ at the route's shape")
     out = dict(
-        max_abs_err=check_weighted("B4", x, c, w),
+        max_abs_err=err, near_ties=ties,
         ms=median_ms(lambda: lk.lloyd_stats_fused_weighted(x, c, w), 5),
         plain_ms=median_ms(
             lambda: lk.lloyd_stats_fused_weighted_plain(x, c, w), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        zero_weights=int((w == 0).sum()))
-    print(f"[B4] N={n} K={k} d={d}: {json.dumps(out)}", flush=True)
+        **fused_bound(n, k, d, True), library_ms=None,
+        zero_weights=int((w == 0).sum()), **fused_phases(x, c, w))
     del x, c, w
+    xn, cn = near_tie_data(gen, TIE_N, k, d)
+    out["near_tie_input"] = check_fused("B4 near-tie input", xn, cn,
+                                        make_weights(TIE_N, 3))[1]
+    del xn, cn
+    print(f"[B4] N={n} K={k} d={d} (3xTF32 on the tensor cores): "
+          f"{json.dumps(out)}; share of the tolerance used: "
+          f"{json.dumps(tol_shares('B4'))}; before the redesign: "
+          f"{json.dumps(B4_EARLIER)}", flush=True)
     n, k, d = FUZZY_RAGGED
     x, c = blob_data(gen, n, k, d)
-    err = check_weighted("B4 ragged", x, c, make_weights(n, 2))
+    err, ties = check_fused("B4 ragged", x, c, make_weights(n, 2))
     print(f"[B4] ragged N={n} K={k} d={d}: equal to the plain version "
-          f"(max abs err {err:.3g}), bitwise repeatable", flush=True)
+          f"(max abs err {err:.3g}, {ties} near-ties), bitwise repeatable",
+          flush=True)
     return out
 
 
@@ -2063,8 +2148,9 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
-            # B6, B9: bound_ms is the tensor-core bound, this the f32 one.
-            **({"bound_f32_ms": m["bound_f32_ms"]}
+            # B1, B4, B6, B9: bound_ms is the tensor-core bound (3xTF32),
+            # this the f32-pipe one.
+            **({"bound_f32_ms": m["bound_f32_ms"], "bound_form": "3xTF32"}
                if "bound_f32_ms" in m else {}),
         })
     print(json.dumps({"kernels": kernels}))

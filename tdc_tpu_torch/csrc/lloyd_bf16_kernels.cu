@@ -330,8 +330,8 @@ int launch_bf16(const T* x, const __nv_bfloat16* cb, const float* c2,
           : launch_main<T, false>(x, cb, c2, n, k, d, grid, ws, cnt,
                                   sse_part, labels, s);
   if (err != cudaSuccess) return (int)err;
-  return tdc::launch_lloyd_reduce(ws, cnt, sse_part, grid, k, d, sums,
-                                  counts, sse, s);
+  return tdc::launch_lloyd_reduce(ws, cnt, nullptr, sse_part, grid, k, d,
+                                  sums, counts, sse, s);
 }
 
 }  // namespace

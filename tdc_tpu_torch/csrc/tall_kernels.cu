@@ -765,8 +765,8 @@ extern "C" int tdc_tall_lloyd_stats(const void* xt, int bf16, const float* c,
            : lloyd_stats(static_cast<const float*>(xt), c, c2, n, k, d, grid,
                          ws, cnt, sse_part, labels, st);
   if (err != 0) return err;
-  return tdc::launch_lloyd_reduce(ws, cnt, sse_part, grid, k, d, sums, counts,
-                                  sse, st);
+  return tdc::launch_lloyd_reduce(ws, cnt, nullptr, sse_part, grid, k, d,
+                                  sums, counts, sse, st);
 }
 
 // B11. As B10, with p = −1/(m−1), mexp = m and eps; ws (grid, K, d) f32,

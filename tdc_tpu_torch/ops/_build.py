@@ -37,13 +37,15 @@ _F = ctypes.c_float
 # point that launches returns an int CUDA error code
 # (tdc_segment_chunk_rows, tdc_segment_meta_bytes, tdc_fuzzy_k_tile,
 # tdc_fuzzy_grid, tdc_gmm_row_block and tdc_tall_grid return the geometry
-# that sizes B3's and B12's, B8's, B9's, B10's and B11's workspaces).
+# that sizes B3's and B12's, B8's, B9's, B10's and B11's workspaces;
+# tdc_lloyd_scratch_floats, in LONG_RESULTS, the size of B1's and B4's
+# per-call scratch).
 SIGNATURES = {
     "tdc_distance_argmin": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
-    "tdc_lloyd_stats_fused": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P,
-                              _P, _P, _P],
-    "tdc_lloyd_stats_fused_weighted": [_P, _P, _P, _P, _LL, _I, _I, _I, _P,
-                                       _P, _P, _P, _P, _P],
+    "tdc_lloyd_stats_fused": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P],
+    "tdc_lloyd_stats_fused_weighted": [_P, _P, _P, _LL, _I, _I, _I, _P, _P,
+                                       _P, _P, _P, _P, _P, _P, _P],
     "tdc_lloyd_stats_fused_bf16": [_P, _I, _P, _P, _LL, _I, _I, _I, _P, _P,
                                    _P, _P, _P, _P, _P, _P],
     "tdc_segment_sums": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _I, _P],
@@ -71,7 +73,10 @@ SIGNATURES = {
     "tdc_tall_fuzzy_stats": [_P, _I, _P, _P, _LL, _I, _I, _F, _F, _F, _I,
                              _P, _P, _P, _P, _P, _P, _P],
     "tdc_tall_grid": [_LL, _I],
+    "tdc_lloyd_scratch_floats": [_I, _I],
 }
+# Entry points that return a long long instead of an int.
+LONG_RESULTS = ("tdc_lloyd_scratch_floats",)
 
 
 class KernelLibrary(NamedTuple):
@@ -160,7 +165,7 @@ def load() -> KernelLibrary:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _LL if name in LONG_RESULTS else ctypes.c_int
     lib.tdc_error_string.argtypes = [ctypes.c_int]
     lib.tdc_error_string.restype = ctypes.c_char_p
     _LOADED = KernelLibrary(lib, out, seconds, log)

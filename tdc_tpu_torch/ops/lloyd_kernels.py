@@ -20,8 +20,9 @@ Each kernel has three parts here:
   increments.
 
 The kernels are compute-bound on the H100 at the main path's shapes (the
-2·N·K·d distance product: on the f32 CUDA cores for B1, B2 and B4, on the
-bf16 tensor cores for B5); see the notes in the sources and PERF.md.
+2·N·K·d distance product: on the f32 CUDA cores for B2, on the TF32 tensor
+cores as three TF32 products (3xTF32) for B1 and B4, on the bf16 tensor
+cores for B5); see the notes in the sources and PERF.md.
 
 bf16 rows. B5 takes them natively, and it also serves f32 rows under
 mxu_dtype="bfloat16" (`kernel="pallas_bf16"`). B2 and B4, like B6, take
@@ -38,15 +39,18 @@ from tdc_tpu_torch.ops.assign import SufficientStats
 from tdc_tpu_torch.utils import device as _device  # noqa: F401  (f32 policy)
 from tdc_tpu_torch.utils.structlog import emit
 
-# B1's route limit. The fused kernel keeps one (K, d) f32 partial per CTA
-# in device memory (grid = 2 x SM count = 264 CTAs on an H100 SXM). K·d up
-# to 2^19 keeps that workspace ≤ 264 · 2^19 · 4 B = 528 MiB, and its
-# zeroing and fixed-order reduction under ~1% of the distance work at the
-# same K·d. Beyond it lloyd_stats_auto takes the sorted route (B2 + B3),
-# whose memory does not grow with K·d.
+# B1's route limit. The fused kernels keep one (K, d) f32 partial per CTA
+# in device memory (B1 and B4: one CTA per SM, 132 on an H100 SXM; B5: two,
+# 264). K·d up to 2^19 keeps that workspace ≤ 264 · 2^19 · 4 B = 528 MiB,
+# and its zeroing and fixed-order reduction under ~1% of the distance work
+# at the same K·d. Beyond it lloyd_stats_auto takes the sorted route (B2 +
+# B3), whose memory does not grow with K·d.
 FUSED_MAX_KD = 1 << 19
-# B4 (weighted) keeps (K, d+1) per CTA, the mass in column d, and is held
-# to the same workspace limit: K·(d+1) ≤ FUSED_MAX_KD.
+# B4 (weighted) is held to K·(d+1) ≤ FUSED_MAX_KD, as the JAX package's
+# weighted route is (its accumulator carries the mass as column d).
+
+# Rows per block of B1 and B4 (csrc/lloyd_kernels.cu, kTcBM).
+_TC_BM = 128
 
 # Rows per block of the plain versions: keeps their (rows, K) distance
 # tile at 256 MiB, so they run at the main path's shapes on the card.
@@ -153,30 +157,76 @@ def distance_argmin(x: torch.Tensor, centroids: torch.Tensor, *,
 distance_argmin.launches = 0
 
 
-def lloyd_stats_fused_plain(x: torch.Tensor,
-                            centroids: torch.Tensor) -> SufficientStats:
+def lloyd_stats_fused_plain(x: torch.Tensor, centroids: torch.Tensor, *,
+                            return_labels: bool = False):
     """Plain version of B1: champions by the shifted distance, then Σx per
-    cluster, counts, and SSE = max(Σ min + Σ‖x‖², 0)."""
+    cluster, counts, and SSE = max(Σ min + Σ‖x‖², 0). With
+    `return_labels` also the (N,) int32 champions."""
     k, d = centroids.shape
     c2 = _sq_norms(centroids)
     sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
     counts = torch.zeros(k, dtype=torch.float32, device=x.device)
     sse = torch.zeros((), dtype=torch.float32, device=x.device)
+    labels = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
     rows = max(1, _PLAIN_TILE_ELEMS // k)
     for s in range(0, x.shape[0], rows):
         xb = x[s:s + rows]
-        labels, mind = _champions_plain(xb, centroids, c2)
-        lab = labels.long()
+        labels[s:s + rows], mind = _champions_plain(xb, centroids, c2)
+        lab = labels[s:s + rows].long()
         sums.index_add_(0, lab, xb)
         counts += torch.bincount(lab, minlength=k).to(torch.float32)
         sse = sse + mind.sum() + (xb * xb).sum()
-    return SufficientStats(sums=sums, counts=counts,
-                           sse=torch.clamp_min(sse, 0.0))
+    stats = SufficientStats(sums=sums, counts=counts,
+                            sse=torch.clamp_min(sse, 0.0))
+    return (stats, labels) if return_labels else stats
 
 
 def fused_grid(device: torch.device) -> int:
-    """B1's CTA count: two per SM (two 256-thread CTAs fit one SM)."""
+    """B5's CTA count: two per SM (two 256-thread CTAs fit one SM)."""
     return 2 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fused_tc_grid(device: torch.device, n: int) -> int:
+    """B1's and B4's CTA count: one per SM (each takes 227 KB of shared
+    memory), no more than there are 128-row blocks, at least one."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(sms, -(-n // _TC_BM)))
+
+
+def _fused_tc(x: torch.Tensor, centroids: torch.Tensor,
+              sample_weight: torch.Tensor | None, return_labels: bool,
+              grid: int | None = None):
+    """Launches B1 (sample_weight None) or B4 on CUDA tensors on `grid`
+    CTAs (default `fused_tc_grid`); returns (stats, labels or None). The
+    scratch: the centroids split into TF32 halves in the layout the kernel
+    streams and ‖c‖² (sized by the library), the (grid, K, d) sums and the
+    (grid, K) counts (B1, int32) or mass (B4, f32) of each CTA."""
+    (n, d), k, dev = x.shape, centroids.shape[0], x.device
+    grid = fused_tc_grid(dev, n) if grid is None else grid
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.load().lib
+    scratch = torch.empty(lib.tdc_lloyd_scratch_floats(k, d), **f32)
+    ws = torch.empty((grid, k, d), **f32)
+    part = (torch.empty((grid, k), dtype=torch.int32, device=dev)
+            if sample_weight is None else torch.empty((grid, k), **f32))
+    sse_part = torch.empty(grid, dtype=torch.float64, device=dev)
+    sums = torch.empty((k, d), **f32)
+    counts = torch.empty(k, **f32)
+    sse = torch.empty((), **f32)
+    labels = (torch.empty(n, dtype=torch.int32, device=dev)
+              if return_labels else None)
+    head = (x.data_ptr(), centroids.data_ptr())
+    if sample_weight is not None:
+        head += (sample_weight.data_ptr(),)
+    entry = ("tdc_lloyd_stats_fused" if sample_weight is None
+             else "tdc_lloyd_stats_fused_weighted")
+    _build.check(getattr(lib, entry)(
+        *head, n, k, d, grid, scratch.data_ptr(), ws.data_ptr(),
+        part.data_ptr(), sse_part.data_ptr(), sums.data_ptr(),
+        counts.data_ptr(), sse.data_ptr(),
+        None if labels is None else labels.data_ptr(), _stream(x),
+    ), entry.removeprefix("tdc_"))
+    return SufficientStats(sums=sums, counts=counts, sse=sse), labels
 
 
 def fused_fits(k: int, d: int) -> bool:
@@ -184,11 +234,12 @@ def fused_fits(k: int, d: int) -> bool:
     return k * d <= FUSED_MAX_KD
 
 
-def lloyd_stats_fused(x: torch.Tensor,
-                      centroids: torch.Tensor) -> SufficientStats:
+def lloyd_stats_fused(x: torch.Tensor, centroids: torch.Tensor, *,
+                      return_labels: bool = False):
     """B1: Lloyd sufficient stats in one pass over x, no (N, K) buffer.
     Returns SufficientStats(sums (K, d), counts (K,), sse ()) in f32, SSE
-    clamped at 0. Raises past the fused limit (use lloyd_stats_auto)."""
+    clamped at 0; with `return_labels` also the (N,) int32 champions.
+    Raises past the fused limit (use lloyd_stats_auto)."""
     _check("lloyd_stats_fused", x, centroids)
     k, d = centroids.shape
     if not fused_fits(k, d):
@@ -197,24 +248,11 @@ def lloyd_stats_fused(x: torch.Tensor,
             f"{FUSED_MAX_KD}; use lloyd_stats_auto (sorted route)"
         )
     if x.device.type == "cpu":
-        return lloyd_stats_fused_plain(x, centroids)
-    dev = x.device
-    grid = fused_grid(dev)
-    ws = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
-    cnt = torch.empty((grid, k), dtype=torch.int32, device=dev)
-    sse_part = torch.empty(grid, dtype=torch.float64, device=dev)
-    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
-    counts = torch.empty(k, dtype=torch.float32, device=dev)
-    sse = torch.empty((), dtype=torch.float32, device=dev)
-    lib = _build.load().lib
-    c2 = _sq_norms(centroids)
-    _build.check(lib.tdc_lloyd_stats_fused(
-        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), x.shape[0], k, d,
-        grid, ws.data_ptr(), cnt.data_ptr(), sse_part.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), sse.data_ptr(), _stream(x),
-    ), "lloyd_stats_fused")
+        return lloyd_stats_fused_plain(x, centroids,
+                                       return_labels=return_labels)
+    stats, labels = _fused_tc(x, centroids, None, return_labels)
     lloyd_stats_fused.launches += 1
-    return SufficientStats(sums=sums, counts=counts, sse=sse)
+    return (stats, labels) if return_labels else stats
 
 
 lloyd_stats_fused.launches = 0
@@ -234,39 +272,43 @@ def _check_weights(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
 
 def lloyd_stats_fused_weighted_plain(
         x: torch.Tensor, centroids: torch.Tensor,
-        sample_weight: torch.Tensor) -> SufficientStats:
+        sample_weight: torch.Tensor, *, return_labels: bool = False):
     """Plain version of B4: champions by the shifted distance, then Σw·x
     per cluster, the mass Σw as counts, and SSE = max(Σ w·(min + ‖x‖²),
-    0)."""
+    0). With `return_labels` also the (N,) int32 champions."""
     k, d = centroids.shape
     c2 = _sq_norms(centroids)
     sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
     mass = torch.zeros(k, dtype=torch.float32, device=x.device)
     sse = torch.zeros((), dtype=torch.float32, device=x.device)
+    labels = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
     rows = max(1, _PLAIN_TILE_ELEMS // k)
     for s in range(0, x.shape[0], rows):
         xb, wb = x[s:s + rows], sample_weight[s:s + rows]
-        labels, mind = _champions_plain(xb, centroids, c2)
-        lab = labels.long()
+        labels[s:s + rows], mind = _champions_plain(xb, centroids, c2)
+        lab = labels[s:s + rows].long()
         sums.index_add_(0, lab, xb * wb[:, None])
         mass.index_add_(0, lab, wb)
         sse = sse + (wb * (mind + (xb * xb).sum(dim=1))).sum()
-    return SufficientStats(sums=sums, counts=mass,
-                           sse=torch.clamp_min(sse, 0.0))
+    stats = SufficientStats(sums=sums, counts=mass,
+                            sse=torch.clamp_min(sse, 0.0))
+    return (stats, labels) if return_labels else stats
 
 
 def fused_weighted_fits(k: int, d: int) -> bool:
-    """Whether B4's (grid, K, d+1) workspace stays within FUSED_MAX_KD."""
+    """Whether B4 is within its limit, K·(d+1) ≤ FUSED_MAX_KD."""
     return k * (d + 1) <= FUSED_MAX_KD
 
 
 def lloyd_stats_fused_weighted(x: torch.Tensor, centroids: torch.Tensor,
-                               sample_weight: torch.Tensor) -> SufficientStats:
+                               sample_weight: torch.Tensor, *,
+                               return_labels: bool = False):
     """B4: weighted Lloyd stats in one pass over x, no (N, K) buffer.
     Returns SufficientStats(sums = Σw·x (K, d), counts = the weight mass
-    (K,), sse = Σ w·min d² ()) in f32, SSE clamped at 0. A zero-weight row
-    adds nothing. Raises past the fused limit (use
-    lloyd_stats_auto_weighted). bf16 rows run widened (`widened`)."""
+    (K,), sse = Σ w·min d² ()) in f32, SSE clamped at 0; with
+    `return_labels` also the (N,) int32 champions. A zero-weight row adds
+    nothing. Raises past the fused limit (use lloyd_stats_auto_weighted).
+    bf16 rows run widened (`widened`)."""
     _check("lloyd_stats_fused_weighted", x, centroids, ROW_DTYPES)
     _check_weights("lloyd_stats_fused_weighted", x, sample_weight)
     k, d = centroids.shape
@@ -278,24 +320,11 @@ def lloyd_stats_fused_weighted(x: torch.Tensor, centroids: torch.Tensor,
         )
     x, centroids = widened(x, centroids)
     if x.device.type == "cpu":
-        return lloyd_stats_fused_weighted_plain(x, centroids, sample_weight)
-    dev = x.device
-    grid = fused_grid(dev)
-    ws = torch.empty((grid, k, d + 1), dtype=torch.float32, device=dev)
-    sse_part = torch.empty(grid, dtype=torch.float64, device=dev)
-    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
-    mass = torch.empty(k, dtype=torch.float32, device=dev)
-    sse = torch.empty((), dtype=torch.float32, device=dev)
-    lib = _build.load().lib
-    c2 = _sq_norms(centroids)
-    _build.check(lib.tdc_lloyd_stats_fused_weighted(
-        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(),
-        sample_weight.data_ptr(), x.shape[0], k, d, grid, ws.data_ptr(),
-        sse_part.data_ptr(), sums.data_ptr(), mass.data_ptr(),
-        sse.data_ptr(), _stream(x),
-    ), "lloyd_stats_fused_weighted")
+        return lloyd_stats_fused_weighted_plain(x, centroids, sample_weight,
+                                                return_labels=return_labels)
+    stats, labels = _fused_tc(x, centroids, sample_weight, return_labels)
     lloyd_stats_fused_weighted.launches += 1
-    return SufficientStats(sums=sums, counts=mass, sse=sse)
+    return (stats, labels) if return_labels else stats
 
 
 lloyd_stats_fused_weighted.launches = 0

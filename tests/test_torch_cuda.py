@@ -41,8 +41,16 @@ atol 1e-4 of its plain version; the fused and unfused sorted stats are
 bitwise equal. The edges of B3's and B12's design (scalar widths,
 misaligned rows, a run over hundreds of chunks, empty segments, rows
 outside the segments, one segment of every row): B3 within 1e-5 of Σ|x|
-per segment of its plain version, empty segments exactly zero, B12 bitwise
-B3 on the gathered rows. B8's μ-scratch design (d = 130 and 769, and
+per segment of f64 sums on the card (the plain version's f32
+`index_add_` adds in the varying order of its atomics), empty segments
+exactly zero, B12 bitwise B3 on the gathered rows. The edges of B1's
+and B4's tensor-core design (several 128-column chunks, the scalar path,
+a misaligned base, K at the route limit, N below one block and not a
+multiple of it) and a near-tie input: labels equal to the plain
+version's but at near-ties (within 1e-5 of ‖x‖² + max ‖c‖²), counts
+equal and sums within 1e-5 of Σ|x| (B4: Σw|x|) where they all agree,
+else against f64 sums by the kernel's own labels, the mass and SSE
+within rtol 1e-5, two runs bitwise equal. B8's μ-scratch design (d = 130 and 769, and
 d = 7 on the one-slice kernel; ragged N and K, s from two K-shards, a
 scratch budget cut down to several chunks): as B6, bitwise repeatable."""
 
@@ -95,6 +103,21 @@ def test_b1_b2_b3_match_plain(gen, n, k, d):
     torch.testing.assert_close(sums, want.sums, rtol=1e-5, atol=1e-4)
 
 
+def _segment_sums_f64(xs, starts):
+    """B3's sums in f64 on the card, the reference of the B3 and B12
+    tests: the plain version's f32 `index_add_` adds in the order its
+    atomics land, which changes from run to run by more than B3's own
+    error over a long run; in f64 that order moves nothing at f32
+    tolerances."""
+    lengths = (starts[1:] - starts[:-1]).long()
+    seg = torch.repeat_interleave(
+        torch.arange(starts.numel() - 1, device=xs.device), lengths)
+    lo = int(starts[0])
+    out = torch.zeros((starts.numel() - 1, xs.shape[1]), dtype=torch.float64,
+                      device=xs.device)
+    return out.index_add_(0, seg, xs[lo:lo + seg.numel()].double())
+
+
 def test_b3_long_runs_and_empty_segments(gen):
     # Rows before the first segment and after the last, empty segments, a
     # run across ~125 chunks of rows and runs at chunk edges.
@@ -103,7 +126,7 @@ def test_b3_long_runs_and_empty_segments(gen):
                           dtype=torch.int32, device="cuda")
     got = ss.segment_sums(xs, starts)
     assert torch.equal(got, ss.segment_sums(xs, starts))
-    torch.testing.assert_close(got, ss.segment_sums_plain(xs, starts),
+    torch.testing.assert_close(got.double(), _segment_sums_f64(xs, starts),
                                rtol=1e-5, atol=1e-4)
     assert not got[0].any() and not got[2].any()
 
@@ -158,9 +181,8 @@ def test_b3_b12_design_edges(gen, case):
     assert torch.equal(got, ss.segment_sums(xs, starts))
     # Within 1e-5 of Σ|x| per segment: a sum of m terms in another order
     # differs by up to m·2^-24·Σ|x| (runs here reach 20,000 rows).
-    err = (got - ss.segment_sums_plain(xs, starts)).abs()
-    assert (err <= 1e-5 * ss.segment_sums_plain(xs.abs(), starts)
-            + 1e-6).all()
+    err = (got.double() - _segment_sums_f64(xs, starts)).abs()
+    assert (err <= 1e-5 * _segment_sums_f64(xs.abs(), starts) + 1e-6).all()
     empty = (starts[1:] == starts[:-1]).nonzero().flatten()
     assert not got[empty].any()
     # B12 on the unsorted rows: bitwise B3 on the gathered rows, f32 and
@@ -234,7 +256,8 @@ def test_b12_is_b3_on_the_gathered_rows(gen, n, k, d, dtype):
                            starts)
     assert torch.equal(got, want)
     torch.testing.assert_close(
-        got, ss.gathered_segment_sums_plain(x, order, starts),
+        got.double(),
+        _segment_sums_f64(x.index_select(0, order).float(), starts),
         rtol=1e-5, atol=1e-4)
     fused = ss.sorted_cluster_stats(x, lab, k, pallas=True, fuse_gather=True)
     unfused = ss.sorted_cluster_stats(x, lab, k, pallas=True)
@@ -365,6 +388,104 @@ def test_b4_ties_take_no_mass(gen, d):
                 ss.lloyd_stats_sorted_weighted(x, c, w)):
         assert not got.counts[copies].any() and not got.sums[copies].any()
         torch.testing.assert_close(got.counts, mass, rtol=1e-5, atol=1e-5)
+
+
+# Edges of B1's and B4's tensor-core design (N, K, d): several 128-column
+# chunks of x (d = 130, 769: restaged per 256-centroid K tile); d % 4 != 0
+# and a base one float past a 16-byte boundary (the scalar loads and
+# accumulate); K at the route limit (16 K tiles); N below one 128-row
+# block and N not a multiple of it.
+FUSED_CASES = {
+    "d130": (3001, 130, 130),
+    "d769": (2000, 70, 769),
+    "scalar_d19": (3001, 37, 19),
+    "misaligned": (3001, 130, 128),
+    "route_limit_k": ((1 << 14) + 3, 4096, 128),
+    "below_one_block": (100, 37, 64),
+    "ragged_blocks": (128 * 5 + 17, 300, 64),
+}
+
+
+def _near_tie_data(gen, n, k, d):
+    """Points 1e-5 off the midpoint of centroids i % k and (i + 1) % k:
+    each sits on a near-tie of two centroids."""
+    c = torch.rand((k, d), generator=gen, device="cuda") * 6 - 3
+    a = torch.arange(n, device="cuda") % k
+    x = (c[a] + c[(a + 1) % k]) / 2
+    return x + 1e-5 * torch.randn((n, d), generator=gen, device="cuda"), c
+
+
+def _check_fused(x, c, w=None):
+    """B1 (w None) or B4 against its plain version: two runs bitwise
+    equal; labels equal to the plain version's but at near-ties (within
+    1e-5 of ‖x‖² + max ‖c‖², in f64); counts equal (B1) and the sums
+    within 1e-5 of Σ|x| (B4: Σw|x|) per cluster where the labels agree,
+    else against f64 sums by the kernel's own labels; the mass and the
+    SSE within rtol 1e-5. Returns the number of near-tie labels."""
+    k = c.shape[0]
+    if w is None:
+        got, lab = lk.lloyd_stats_fused(x, c, return_labels=True)
+        again, lab2 = lk.lloyd_stats_fused(x, c, return_labels=True)
+        want, plab = lk.lloyd_stats_fused_plain(x, c, return_labels=True)
+        wt = torch.ones(x.shape[0], device="cuda")
+    else:
+        got, lab = lk.lloyd_stats_fused_weighted(x, c, w, return_labels=True)
+        again, lab2 = lk.lloyd_stats_fused_weighted(x, c, w,
+                                                    return_labels=True)
+        want, plab = lk.lloyd_stats_fused_weighted_plain(
+            x, c, w, return_labels=True)
+        wt = w
+    assert all(torch.equal(a, b) for a, b in zip((*got, lab),
+                                                 (*again, lab2)))
+    diff = (lab != plab).nonzero().flatten()
+    if diff.numel():
+        xd = x[diff].double()
+        dg = ((xd - c[lab[diff].long()].double()) ** 2).sum(1)
+        dw = ((xd - c[plab[diff].long()].double()) ** 2).sum(1)
+        scale = (xd * xd).sum(1) + (c.double() ** 2).sum(1).max()
+        assert ((dg - dw).abs() <= 1e-5 * scale).all()
+    ref_lab = plab if not diff.numel() else lab
+    abs_sums = torch.zeros((k, x.shape[1]), dtype=torch.float64,
+                           device="cuda").index_add_(
+        0, ref_lab.long(), wt[:, None].double() * x.abs().double())
+    if diff.numel():
+        ref = torch.zeros_like(abs_sums).index_add_(
+            0, lab.long(), wt[:, None].double() * x.double())
+    else:
+        ref = want.sums.double()
+        if w is None:
+            assert torch.equal(got.counts, want.counts)
+        else:
+            torch.testing.assert_close(got.counts, want.counts, rtol=1e-5,
+                                       atol=1e-5)
+    assert ((got.sums.double() - ref).abs() <= 1e-5 * abs_sums + 1e-6).all()
+    torch.testing.assert_close(got.sse, want.sse, rtol=1e-5, atol=0.0)
+    return int(diff.numel())
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_b1_b4_tensor_core_design_edges(gen, case, weighted):
+    n, k, d = FUSED_CASES[case]
+    if weighted:  # B4's limit is K·(d+1) <= FUSED_MAX_KD
+        k = min(k, lk.FUSED_MAX_KD // (d + 1))
+    x, c = _data(gen, n, k, d)
+    x = _rows(x.contiguous(), case == "misaligned")
+    w = _weights(gen, n) if weighted else None
+    before = (lk.lloyd_stats_fused.launches,
+              lk.lloyd_stats_fused_weighted.launches)
+    _check_fused(x, c, w)
+    assert (lk.lloyd_stats_fused.launches,
+            lk.lloyd_stats_fused_weighted.launches) == (
+        before[0] + 2 * (not weighted), before[1] + 2 * weighted)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("n,k,d", [(1 << 14, 1024, 128), (5000, 300, 19)])
+def test_b1_b4_near_ties(gen, n, k, d, weighted):
+    # Labels may differ from the plain version's only at near-ties.
+    x, c = _near_tie_data(gen, n, k, d)
+    _check_fused(x, c, _weights(gen, n) if weighted else None)
 
 
 @pytest.mark.parametrize("small_scratch", [False, True])

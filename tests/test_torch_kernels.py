@@ -77,6 +77,18 @@ def test_lloyd_stats_fused(fn, case):
 
 
 @pytest.mark.parametrize("case", CASES)
+def test_lloyd_stats_fused_return_labels(case):
+    # With return_labels B1 also gives each row's champion: the JAX
+    # package's distance_argmin labels; the stats are unchanged.
+    x, c = _case(case)
+    st, lab = tlk.lloyd_stats_fused(_t(x), _t(c), return_labels=True)
+    assert lab.dtype == torch.int32 and lab.shape == (x.shape[0],)
+    np.testing.assert_array_equal(lab.numpy(),
+                                  np.asarray(jpk.distance_argmin(x, c)[0]))
+    _assert_stats(st, jpk.lloyd_stats_fused(x, c), x, c)
+
+
+@pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("return_dist", [False, True])
 def test_distance_argmin(case, return_dist):
     x, c = _case(case)

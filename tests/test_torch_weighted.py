@@ -142,6 +142,20 @@ def test_lloyd_stats_fused_weighted_against_interpret_mode(fn, case):
 
 
 @pytest.mark.parametrize("case", CASES)
+def test_lloyd_stats_fused_weighted_return_labels(case):
+    # With return_labels B4 also gives each row's champion (zero-weight
+    # rows too): the JAX package's distance_argmin labels; the stats are
+    # unchanged.
+    x, c, w = _case(case)
+    st, lab = tlk.lloyd_stats_fused_weighted(_t(x), _t(c), _t(w),
+                                             return_labels=True)
+    assert lab.dtype == torch.int32 and lab.shape == (x.shape[0],)
+    np.testing.assert_array_equal(lab.numpy(),
+                                  np.asarray(jpk.distance_argmin(x, c)[0]))
+    _assert_lloyd(st, jpk.lloyd_stats_fused_weighted(x, c, w, block_n=256))
+
+
+@pytest.mark.parametrize("case", CASES)
 def test_lloyd_stats_sorted_weighted(case):
     x, c, w = _case(case)
     got = tss.lloyd_stats_sorted_weighted(_t(x), _t(c), _t(w))
