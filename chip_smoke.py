@@ -31,10 +31,13 @@ failure (nothing is caught):
    B1 and B4 (their distance product on the tensor cores in 3xTF32) are
    held with their labels: labels equal to the plain version's but at
    near-ties, counts equal and no near-tie at the route's shape, and the
-   same checks on a near-tie input (2^16 points 1e-5 off the bisector of
-   two centroids: the near-tie count is printed); each prints its
-   pre-pass, zeroing and reduce time and the design before it (phase
-   split, near-ties, share of the tolerance used) beside its own numbers.
+   same checks on a near-tie input (2^16 points off the bisector of two
+   centroids, by offsets whose true gaps straddle the near-tie limit, so
+   that a product coarser than f32 flips labels beyond it and fails: the
+   near-tie count, the largest flipped gap as a share of the limit and
+   the rows past it are printed); each prints its fixed cost (one block
+   per CTA) and the design before it (phase split, near-ties, share of
+   the tolerance used) beside its own numbers.
    B6 (fuzzy stats) at N=2^22, K=1024, d=128 for m=2.0 and m=1.7, its two
    phases timed apart (the row normaliser writing the inv scratch, then μ
    and Σμx on the tensor cores) and the design before it (B7's kernel,
@@ -303,8 +306,9 @@ B9_EARLIER_MS = 197.72
 # answers measured by scripts/b1_b4_phases.py --parent on an NVIDIA H100
 # 80GB HBM3 at 700 W (PERF.md). near_ties: labels that differ
 # from the plain version's on the near-tie input (2^16 rows at the
-# route's K and d); tol_share: the largest share of the sums' tolerance
-# used at the route's shape.
+# route's K and d), gap_share: the largest true gap among them as a
+# share of the near-tie limit; tol_share: the largest share of the sums'
+# tolerance used at the route's shape.
 B1_EARLIER = dict(ms=38.40, product_fold_ms=33.50, accumulate_ms=4.79,
                   zero_reduce_ms=0.21, near_ties=0, tol_share=0.4401)
 B4_EARLIER = dict(ms=38.85, accumulate_ms=4.95, zero_reduce_ms=0.19,
@@ -404,6 +408,9 @@ def make_weights(n: int, seed: int) -> torch.Tensor:
 
 # The largest share of its tolerance that each check_close used, by name.
 TOL_SHARES = {}
+# The largest true gap between a flipped label's two candidates, as a
+# share of the near-tie limit, by check_labels' name.
+TIE_GAP_SHARES = {}
 
 
 def check_close(name, got, want, scale):
@@ -431,22 +438,56 @@ def check_labels(name, x, c, got, want) -> int:
         dg = ((xd - c[got[diff].long()].double()) ** 2).sum(1)
         dw = ((xd - c[want[diff].long()].double()) ** 2).sum(1)
         scale = (xd * xd).sum(1) + (c.double() ** 2).sum(1).max()
-        far = ((dg - dw).abs() > TIE_TOL * scale).sum()
+        share = (dg - dw).abs() / (TIE_TOL * scale)
+        TIE_GAP_SHARES[name] = float(share.max())
+        far = (share > 1).sum()
         require(int(far) == 0, f"{name}: {int(far)} labels differ from the "
                                "plain version beyond a near-tie")
     return int(diff.numel())
 
 
 def near_tie_data(gen, n, k, d):
-    """Points 1e-5 off the midpoint of centroids i % k and (i + 1) % k
-    (centroids as blob_data's centers): every row sits on a near-tie of two
-    centroids, where a product's rounding may pick either."""
+    """Points off the midpoint of centroids i % k and (i + 1) % k
+    (centroids as blob_data's centers) by a Gaussian offset whose scale,
+    drawn per row, is log-uniform over 1e-6..10^-2.5 a coordinate: the
+    true gaps between the two candidates' distances run from far inside
+    the near-tie limit (TIE_TOL) to some ten times past it. A product as
+    exact as f32 flips labels only inside it; one TF32 pass (2^-11
+    operands) flips rows past it, and check_labels fails it."""
     c = ((torch.rand((k, d), generator=gen, device="cuda") * 2 - 1) * 3
          ).contiguous()
     a = torch.arange(n, device="cuda") % k
     x = (c[a] + c[(a + 1) % k]) / 2
-    return (x + 1e-5 * torch.randn((n, d), generator=gen, device="cuda")
+    s = 10.0 ** (-6.0 + 3.5 * torch.rand((n, 1), generator=gen,
+                                         device="cuda"))
+    return (x + s * torch.randn((n, d), generator=gen, device="cuda")
             ).contiguous(), c
+
+
+def tie_reach(x, c) -> int:
+    """Rows of near_tie_data's input whose two candidates' exact distances
+    differ by more than the near-tie limit and by at most ten times it:
+    the labels that a product coarser than f32 flips and check_labels must
+    then refuse. Fails unless they are a tenth of the rows or more."""
+    n, k = x.shape[0], c.shape[0]
+    a = torch.arange(n, device=x.device) % k
+    xd, cd = x.double(), c.double()
+    gap = (((xd - cd[a]) ** 2).sum(1)
+           - ((xd - cd[(a + 1) % k]) ** 2).sum(1)).abs()
+    lim = TIE_TOL * ((xd * xd).sum(1) + (cd * cd).sum(1).max())
+    reach = int(((gap > lim) & (gap <= 10 * lim)).sum())
+    require(reach >= n // 10, f"near-tie input: only {reach} of {n} rows "
+                              "lie past the near-tie limit")
+    return reach
+
+
+def check_near_ties(name, x, c, w=None) -> dict:
+    """check_fused on near_tie_data's input: the near-tie count, the
+    largest flipped gap as a share of the limit, and the rows past it."""
+    reach = tie_reach(x, c)
+    ties = check_fused(name, x, c, w)[1]
+    return dict(near_ties=ties, gap_share=TIE_GAP_SHARES.get(name, 0.0),
+                rows_past_limit=reach)
 
 
 def check_fused(name, x, c, w=None) -> tuple[float, int]:
@@ -504,12 +545,13 @@ def fused_bound(n, k, d, weighted) -> dict:
 
 
 def fused_phases(x, c, w=None) -> dict:
-    """B1's or B4's launches with no rows at the route's grid: the
-    centroid pre-pass, the workspace zeroing and the slice reduce."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ww = None if w is None else w[:0]
-    return dict(prepass_zero_reduce_ms=median_ms(
-        lambda: lk._fused_tc(x[:0], c, ww, False, sms), 5))
+    """B1's or B4's fixed cost at the route's grid: one 128-row block per
+    CTA (the centroid pre-pass, the workspace zeroing, one block's
+    product and accumulate, the slice reduce)."""
+    rows = 128 * torch.cuda.get_device_properties(0).multi_processor_count
+    ww = None if w is None else w[:rows]
+    return dict(one_block_ms=median_ms(
+        lambda: lk._fused_tc(x[:rows], c, ww, False), 5))
 
 
 def repeatable(name, a, b) -> None:
@@ -533,8 +575,8 @@ def phase_kernels(gen) -> dict:
         **fused_bound(n, k, d, False), **fused_phases(x, c))
     del x, c
     xn, cn = near_tie_data(gen, TIE_N, k, d)
-    out["B1"]["near_tie_input"] = check_fused("B1 near-tie input", xn,
-                                              cn)[1]
+    out["B1"]["near_tie_input"] = check_near_ties("B1 near-tie input", xn,
+                                                  cn)
     del xn, cn
     print(f"[B1] N={n} K={k} d={d} (3xTF32 on the tensor cores): "
           f"{json.dumps(out['B1'])}; share of the tolerance used: "
@@ -778,8 +820,8 @@ def phase_weighted_kernel(gen) -> dict:
         zero_weights=int((w == 0).sum()), **fused_phases(x, c, w))
     del x, c, w
     xn, cn = near_tie_data(gen, TIE_N, k, d)
-    out["near_tie_input"] = check_fused("B4 near-tie input", xn, cn,
-                                        make_weights(TIE_N, 3))[1]
+    out["near_tie_input"] = check_near_ties("B4 near-tie input", xn, cn,
+                                            make_weights(TIE_N, 3))
     del xn, cn
     print(f"[B4] N={n} K={k} d={d} (3xTF32 on the tensor cores): "
           f"{json.dumps(out)}; share of the tolerance used: "

@@ -19,6 +19,11 @@ script runs, each in its own process with its own build, these builds:
   `mma.sync` m16n8k8 (the helpers in csrc/tf32_accum.cuh) on the same
   shared-memory tiles instead of `wgmma` (an alternative form, timed and
   checked, not kept);
+- one_tf32: the control: the product as one TF32 pass (x_hi·c_hi only,
+  the two correction products dropped), checked only: the near-tie
+  input's labels must then differ from the plain version's beyond a
+  near-tie (`far` > 0), which is what fails it in chip_smoke.py and the
+  card tests;
 - parent (with --parent TREE, the tdc_tpu_torch/ of an earlier commit,
   e.g. unpacked with `git archive <commit> tdc_tpu_torch`): as it is;
 - parent_no_accumulate and parent_no_norm: the earlier design
@@ -27,17 +32,24 @@ script runs, each in its own process with its own build, these builds:
 
 Every build times (`time`) B1 and B4 at N=2^22, K=1024, d=128 on the
 smoke run's blobs (B4 with its weights: uniform in [0, 3), ~5% zero), and
-the same calls with no rows at the route's grid (`n0`: the workspace
-zeroing and the slice reduce, with the full design's centroid pre-pass).
-So for either design full − no_accumulate is what the accumulate adds
-(the full design runs it beside the next block's product), and for the
-parent ‖x‖² and SSE = no_accumulate − no_norm, product and fold =
-no_norm − n0. The full and parent builds also run `checks`: B1 and B4
-against their plain versions on the smoke run's shapes, the card tests'
-shapes, duplicated centroids and a near-tie input (points near the
-bisector of two centroids), reporting for each case the labels that
-differ from the plain version's (all must be near-ties: within 1e-5 of
-‖x‖² + max ‖c‖² in f64), the largest error of the sums against the
+the fixed cost: the parent's calls with no rows (`n0`: the workspace
+zeroing and the slice reduce at its grid, which does not depend on N),
+the full design's with one 128-row block per CTA (`one_block`: the
+centroid pre-pass, the zeroing, one block's product and accumulate and
+the reduce). So for either design full − no_accumulate is what the
+accumulate adds (the full design runs it beside the next block's
+product), and for the parent ‖x‖² and SSE = no_accumulate − no_norm,
+product and fold = no_norm − n0. The full and parent builds also run
+`checks`: B1 and B4 against their plain versions on the smoke run's
+shapes, the card tests' shapes, duplicated centroids and a near-tie
+input (points off the bisector of two centroids by offsets log-uniform
+over 1e-6..10^-2.5 a coordinate, so that the true gaps straddle the
+near-tie limit), reporting for each case the labels that differ from
+the plain version's (`near_ties`; all must be near-ties: within 1e-5 of
+‖x‖² + max ‖c‖² in f64, `far` counts those that are not), the largest
+true gap among them as a share of that limit (`gap_share`), on the
+near-tie inputs the rows whose true gap lies past the limit and within
+ten times it (`past_limit`), the largest error of the sums against the
 plain version's where the labels agree and against f64 sums by the
 kernel's own labels, as a share of the card tolerance (1e-5 of Σ|x| or
 Σw|x| per cluster), the SSE's relative error, and whether two runs are
@@ -48,8 +60,8 @@ products.
 Each build is a copy of tdc_tpu_torch/ under DIR (default
 scratch_trees/b1_b4_phases, which .gitignore lists), timed with CUDA
 events (median of 5 after a warm-up), in the order given (default: full,
-no_accumulate, mma_sync, then with --parent the three parent builds,
-then full once more, times only). The cut builds compute wrong stats; only their
+no_accumulate, mma_sync, one_tf32, then with --parent the three parent
+builds, then full once more, times only). The cut builds compute wrong stats; only their
 times are read. Prints one JSON line per run, then the card's name and
 power limit. Needs a CUDA card and nvcc.
 """
@@ -110,6 +122,14 @@ MMA_SYNC_PRODUCT = """\
             }
           }
 """
+ONE_TF32_PRODUCT = """\
+          for (int kk = 0; kk < ks; ++kk) {
+            const unsigned long long db = sw128_desc(cs + 8 * kk);
+            if (half == 0) {
+              wgmma_m64n256k8_tf32(acc, sw128_desc(xh + 8 * kk), db, 1);
+            }
+          }
+"""
 PARENT_ACCUMULATE = (
     ("    for (int j = tid; j < cols; j += kThreads) {\n"
      "      for (int r = 0; r < rows; ++r) {",
@@ -147,6 +167,8 @@ BUILDS = {
     "no_accumulate": ("repo", {"spans": CUT_ACCUMULATE}, ("time",)),
     "mma_sync": ("repo", {"swaps": ((WGMMA_PRODUCT, MMA_SYNC_PRODUCT),)},
                  ("time", "checks")),
+    "one_tf32": ("repo", {"swaps": ((WGMMA_PRODUCT, ONE_TF32_PRODUCT),)},
+                 ("checks",)),
     "parent": ("parent", {}, ("time", "checks")),
     "parent_no_accumulate": ("parent", {"spans": PARENT_ACCUMULATE},
                              ("time",)),
@@ -186,12 +208,27 @@ def card_data(gen, n, k, d):
     return x, centers
 
 def near_ties(gen, n, k, d):
-    # Points 1e-5 off the midpoint of centroids i % k and (i + 1) % k.
+    # Points off the midpoint of centroids i % k and (i + 1) % k, by
+    # offsets log-uniform over 1e-6..10^-2.5 a coordinate (chip_smoke.py's
+    # near_tie_data).
     c = (torch.rand((k, d), generator=gen, device="cuda") * 2 - 1) * 3
     a = torch.arange(n, device="cuda") % k
     x = (c[a] + c[(a + 1) % k]) / 2
-    x = x + 1e-5 * torch.randn((n, d), generator=gen, device="cuda")
+    s = 10.0 ** (-6.0 + 3.5 * torch.rand((n, 1), generator=gen,
+                                         device="cuda"))
+    x = x + s * torch.randn((n, d), generator=gen, device="cuda")
     return x.contiguous(), c
+
+def past_limit(x, c):
+    # Rows whose two candidates' true gap lies past the near-tie limit
+    # and within ten times it.
+    n, k = x.shape[0], c.shape[0]
+    a = torch.arange(n, device="cuda") % k
+    xd, cd = x.double(), c.double()
+    gap = (((xd - cd[a]) ** 2).sum(1)
+           - ((xd - cd[(a + 1) % k]) ** 2).sum(1)).abs()
+    lim = TIE_TOL * ((xd * xd).sum(1) + (cd * cd).sum(1).max())
+    return int(((gap > lim) & (gap <= 10 * lim)).sum())
 
 def weights(n, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -217,13 +254,14 @@ def reading(x, c, w=None):
             else lk.lloyd_stats_fused_weighted_plain(x, c, w))
     wt = torch.ones(x.shape[0], device="cuda") if w is None else w
     diff = (lab != plab).nonzero().flatten()
-    far = 0
+    far, gap_share = 0, 0.0
     if diff.numel():
         xd = x[diff].double()
         dg = ((xd - c[lab[diff].long()].double()) ** 2).sum(1)
         dw = ((xd - c[plab[diff].long()].double()) ** 2).sum(1)
         scale = (xd * xd).sum(1) + (c.double() ** 2).sum(1).max()
-        far = int(((dg - dw).abs() > TIE_TOL * scale).sum())
+        share = (dg - dw).abs() / (TIE_TOL * scale)
+        far, gap_share = int((share > 1).sum()), float(share.max())
     def share(got, ref, lab):
         absx = torch.zeros_like(ref).index_add_(
             0, lab.long(), (wt[:, None] * x.abs()).to(ref.dtype))
@@ -234,6 +272,7 @@ def reading(x, c, w=None):
                       device="cuda").index_add_(
         0, lab.long(), wt[:, None].double() * x.double())
     out = {"near_ties": int(diff.numel()), "far": far,
+           "gap_share": gap_share,
            "repeatable": all(torch.equal(a, b) for a, b in zip(st, again)),
            "sse_rel": float((st.sse.double() - want.sse.double()).abs()
                             / want.sse.double().abs().clamp_min(1e-30))}
@@ -259,13 +298,13 @@ w = weights(n, 1)
 if "time" in runs:
     out["b1_ms"] = median_ms(lambda: lk.lloyd_stats_fused(x, c))
     out["b4_ms"] = median_ms(lambda: lk.lloyd_stats_fused_weighted(x, c, w))
-    if hasattr(lk, "_fused_tc"):  # no rows at the route's grid
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        out["b1_n0_ms"] = median_ms(
-            lambda: lk._fused_tc(x[:0], c, None, False, sms))
-        out["b4_n0_ms"] = median_ms(
-            lambda: lk._fused_tc(x[:0], c, w[:0], False, sms))
-    else:
+    if hasattr(lk, "fused_tc_grid"):  # one 128-row block per CTA
+        m = 128 * torch.cuda.get_device_properties(0).multi_processor_count
+        out["b1_one_block_ms"] = median_ms(
+            lambda: lk.lloyd_stats_fused(x[:m], c))
+        out["b4_one_block_ms"] = median_ms(
+            lambda: lk.lloyd_stats_fused_weighted(x[:m], c, w[:m]))
+    else:  # no rows: the grid does not depend on N
         out["b1_n0_ms"] = median_ms(lambda: lk.lloyd_stats_fused(x[:0], c))
         out["b4_n0_ms"] = median_ms(
             lambda: lk.lloyd_stats_fused_weighted(x[:0], c, w[:0]))
@@ -293,6 +332,7 @@ if "checks" in runs:
                             }.items():
         xs, cs = near_ties(gen, n, k, d)
         chk[name] = reading(xs, cs)
+        chk[name]["past_limit"] = past_limit(xs, cs)
         chk[name + "_weighted"] = reading(xs, cs, weights(n, 4))
     print(json.dumps({"build": build, "checks": chk}), flush=True)
 """
@@ -311,7 +351,7 @@ def main() -> int:
     if args.builds:
         order = args.builds.split(",")
     else:
-        order = ["full", "no_accumulate", "mma_sync"]
+        order = ["full", "no_accumulate", "mma_sync", "one_tf32"]
         if args.parent:
             order += ["parent", "parent_no_accumulate", "parent_no_norm"]
         order.append("full")

@@ -194,15 +194,14 @@ def fused_tc_grid(device: torch.device, n: int) -> int:
 
 
 def _fused_tc(x: torch.Tensor, centroids: torch.Tensor,
-              sample_weight: torch.Tensor | None, return_labels: bool,
-              grid: int | None = None):
-    """Launches B1 (sample_weight None) or B4 on CUDA tensors on `grid`
-    CTAs (default `fused_tc_grid`); returns (stats, labels or None). The
+              sample_weight: torch.Tensor | None, return_labels: bool):
+    """Launches B1 (sample_weight None) or B4 on CUDA tensors on
+    `fused_tc_grid` CTAs; returns (stats, labels or None). The
     scratch: the centroids split into TF32 halves in the layout the kernel
     streams and ‖c‖² (sized by the library), the (grid, K, d) sums and the
     (grid, K) counts (B1, int32) or mass (B4, f32) of each CTA."""
     (n, d), k, dev = x.shape, centroids.shape[0], x.device
-    grid = fused_tc_grid(dev, n) if grid is None else grid
+    grid = fused_tc_grid(dev, n)
     f32 = dict(dtype=torch.float32, device=dev)
     lib = _build.load().lib
     scratch = torch.empty(lib.tdc_lloyd_scratch_floats(k, d), **f32)

@@ -407,12 +407,30 @@ FUSED_CASES = {
 
 
 def _near_tie_data(gen, n, k, d):
-    """Points 1e-5 off the midpoint of centroids i % k and (i + 1) % k:
-    each sits on a near-tie of two centroids."""
+    """Points off the midpoint of centroids i % k and (i + 1) % k by a
+    Gaussian offset whose scale, drawn per row, is log-uniform over
+    1e-6..10^-2.5 a coordinate: the true gaps between the two candidates'
+    distances run from far inside the near-tie limit (1e-5 of ‖x‖² +
+    max ‖c‖²) to some ten times past it, where a product coarser than f32
+    (one TF32 pass) flips labels and the label check fails it."""
     c = torch.rand((k, d), generator=gen, device="cuda") * 6 - 3
     a = torch.arange(n, device="cuda") % k
     x = (c[a] + c[(a + 1) % k]) / 2
-    return x + 1e-5 * torch.randn((n, d), generator=gen, device="cuda"), c
+    s = 10.0 ** (-6.0 + 3.5 * torch.rand((n, 1), generator=gen,
+                                         device="cuda"))
+    return x + s * torch.randn((n, d), generator=gen, device="cuda"), c
+
+
+def _rows_past_tie_limit(x, c):
+    """Rows of _near_tie_data's input whose true gap lies past the
+    near-tie limit and within ten times it."""
+    n, k = x.shape[0], c.shape[0]
+    a = torch.arange(n, device="cuda") % k
+    xd, cd = x.double(), c.double()
+    gap = (((xd - cd[a]) ** 2).sum(1)
+           - ((xd - cd[(a + 1) % k]) ** 2).sum(1)).abs()
+    lim = 1e-5 * ((xd * xd).sum(1) + (cd * cd).sum(1).max())
+    return int(((gap > lim) & (gap <= 10 * lim)).sum())
 
 
 def _check_fused(x, c, w=None):
@@ -483,8 +501,11 @@ def test_b1_b4_tensor_core_design_edges(gen, case, weighted):
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("n,k,d", [(1 << 14, 1024, 128), (5000, 300, 19)])
 def test_b1_b4_near_ties(gen, n, k, d, weighted):
-    # Labels may differ from the plain version's only at near-ties.
+    # Labels may differ from the plain version's only at near-ties; a
+    # tenth of the rows or more lie past the limit, where a product
+    # coarser than f32 would flip some.
     x, c = _near_tie_data(gen, n, k, d)
+    assert _rows_past_tie_limit(x, c) >= n // 10
     _check_fused(x, c, _weights(gen, n) if weighted else None)
 
 
