@@ -71,7 +71,10 @@ failure (nothing is caught):
    by its own labels; B11 as B6; both bitwise repeatable. B1 on
    xt.T.contiguous() at the 10^8 shape is timed beside B10 (a number, not
    a check). Duplicated centroids take 0 columns in B10 and the same
-   mass, bitwise, as the original in B11.
+   mass, bitwise, as the original in B11. B11's bound_ms is its
+   tensor-core bound (its μᵀx on the tensor cores in 3xTF32, the
+   distances on the f32 pipe, or the bytes), bound_f32_ms all of it on
+   the f32 pipe.
    B7 and B8 (the two-pass fuzzy kernels of the K-sharded tower) at
    N=2^19, K=16,384, d=768 for m=2.0 and m=1.7 and on bf16 rows, and at
    the ragged shape: s within REL_TOL relative of the plain version's, B8
@@ -314,6 +317,15 @@ B1_EARLIER = dict(ms=38.40, product_fold_ms=33.50, accumulate_ms=4.79,
 B4_EARLIER = dict(ms=38.85, accumulate_ms=4.95, zero_reduce_ms=0.19,
                   near_ties=0, tol_share=0.4063)
 SHARDED_FUZZY_EARLIER_S = 20.7764
+# B5 and B11 before their redesign (PR 6's `wmma` kernel, PR 7's private
+# form), at the routes' shapes: the phase split measured by
+# scripts/b5_phases.py --parent and scripts/b11_phases.py --parent on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md); tol_share: the largest share
+# of the sums' tolerance used.
+B5_EARLIER = dict(ms=15.10, f32_rows_ms=15.11, staging_product_ms=8.40,
+                  fold_ms=4.19, accumulate_ms=2.52, tol_share=0.4694)
+B11_EARLIER = dict(ms=6.85, accumulate_ms=2.43, powers_ms=1.40,
+                   rest_ms=3.02, m_1_7_ms=15.70, tol_share=0.0080)
 
 
 def smi() -> str:
@@ -993,14 +1005,21 @@ def phase_bf16_kernel(gen) -> dict:
         key = "bf16_rows" if rows.dtype == torch.bfloat16 else "f32_rows"
         err, ties = check_b5(f"B5 {key}", rows, c)
         b_ms, b_by = b5_bound(n, k, d, rows.element_size())
+        one = 128 * torch.cuda.get_device_properties(0).multi_processor_count
         per[key] = dict(
             max_abs_err=err, near_ties=ties,
+            tol_share=TOL_SHARES[f"B5 {key} sums"],
             ms=median_ms(lambda: lk.lloyd_stats_fused_bf16(rows, c), 5),
             plain_ms=median_ms(
                 lambda: lk.lloyd_stats_fused_bf16_plain(rows, c), 3),
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by,
+            # the fixed cost: one 128-row block per CTA
+            one_block_ms=median_ms(
+                lambda: lk.lloyd_stats_fused_bf16(rows[:one], c), 5))
         print(f"[B5] N={n} K={k} d={d} {key}: {json.dumps(per[key])}",
               flush=True)
+    print(f"[B5] before the redesign (PR 6's kernel, PERF.md): "
+          f"{json.dumps(B5_EARLIER)}", flush=True)
     out = dict(**per["bf16_rows"], library_ms=None, f32_rows=per["f32_rows"])
     del x, c, rows
     n, k, d = FUZZY_RAGGED
@@ -1442,8 +1461,10 @@ def phase_tall_kernel(gen) -> dict:
         key = ("bf16_columns" if cols.dtype == torch.bfloat16
                else "f32_columns")
         # Bytes: the columns once, the centroids and c2 in, Σx, counts
-        # and the SSE out. Operations: the 2·N·K·d distance product (B11:
-        # and the μᵀx accumulate, 4·N·K·d); its powers run on the SFU.
+        # and the SSE out. Operations: the 2·N·K·d distance product on
+        # the f32 pipe; B11 adds the 2·N·K·d of μᵀx, on the tensor cores
+        # in 3xTF32 (bound_ms) or on the f32 pipe too (bound_f32_ms); its
+        # powers run on the SFU.
         nbytes = (cols.element_size() * n * d
                   + 4.0 * (2 * k * d + 2 * k + 1))
         err, ties = check_tall_lloyd(f"B10 {key}", cols, c)
@@ -1455,17 +1476,21 @@ def phase_tall_kernel(gen) -> dict:
             bound_ms=b_ms, bound_by=b_by)
         print(f"[B10] N={n} K={k} d={d} {key}: {json.dumps(b10[key])}",
               flush=True)
-        b_ms, b_by = bound_ms(4.0 * n * k * d, nbytes)
+        b_ms, b_by = tc_bound_ms(2.0 * n * k * d, 2.0 * n * k * d, nbytes)
+        b_f32_ms = bound_ms(4.0 * n * k * d, nbytes)[0]
         for m in FUZZY_MS:
             b11[(key, m)] = dict(
                 max_abs_err=check_tall_fuzzy(f"B11 {key} m={m}", cols, c, m),
                 ms=median_ms(lambda: tk.fuzzy_stats_tall(cols, c, m), 5),
                 plain_ms=median_ms(
                     lambda: tk.fuzzy_stats_tall_plain(cols, c, m), 3),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b_f32_ms,
+                tol_share=TOL_SHARES[f"B11 {key} m={m} sums"])
             print(f"[B11] N={n} K={k} d={d} {key} m={m}: "
                   f"{json.dumps(b11[(key, m)])}", flush=True)
         del cols
+    print(f"[B11] before the redesign (PR 7's private form, PERF.md): "
+          f"{json.dumps(B11_EARLIER)}", flush=True)
     # B1 on the same points stored sample-major: whether the layout pays
     # on this card (timed only; B1 has its own checks above).
     xs = xt.T.contiguous()
@@ -2190,8 +2215,8 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
-            # B1, B4, B6, B9: bound_ms is the tensor-core bound (3xTF32),
-            # this the f32-pipe one.
+            # B1, B4, B6, B9, B11: bound_ms is the tensor-core bound
+            # (3xTF32), this the f32-pipe one.
             **({"bound_f32_ms": m["bound_f32_ms"], "bound_form": "3xTF32"}
                if "bound_f32_ms" in m else {}),
         })

@@ -1,128 +1,267 @@
-"""Where the time of B5 goes on one NVIDIA GPU.
+"""Where the time of B5 goes on one NVIDIA GPU, beside an earlier design.
 
-    python3 scripts/b5_phases.py [--out DIR]
+    python3 scripts/b5_phases.py [--out DIR] [--parent TREE]
+                                 [--builds NAME,...]
 
 B5 is the bf16 tensor-core Lloyd stats kernel of the PyTorch/CUDA port
-(tdc_tpu_torch/csrc/lloyd_bf16_kernels.cu). This script times it at
-N=2^22, K=1024, d=128 on f32 and on bf16 rows in three builds:
+(`lloyd_stats_fused_bf16`, tdc_tpu_torch/csrc/lloyd_bf16_kernels.cu): per
+128-row block the staging of x as bf16, the distance product on the
+tensor cores, the champion fold, then the accumulate of the block's rows
+into the CTA's workspace slice. The script runs, each in its own process
+with its own build, these builds:
 
 - full: the kernel as it is;
-- no_accumulate: without the phase that adds each row into its
-  champion's workspace slice;
-- no_fold: without the champion fold as well (no row gets a label, so
-  nothing is accumulated): the staging, the tensor-core product and the
-  stores of the cross tile are left.
+- no_accumulate: without the accumulate (the grouping of each block's
+  rows by label, their sums, counts and SSE terms);
+- no_fold: without the champion fold as well (no row gets a label);
+- no_product: without the tensor-core product as well: the staging of x,
+  the centroid stages' stream and the hand-over of the (empty) labels
+  are left;
+- one_chain, four_chains, no_pingpong: variants, timed and checked: the
+  ping-pong fold's compares in one or four chains a row (the kernel's:
+  two), and every K tile as one m64n256k16 chain folded after the tile
+  instead of four ping-ponged quarters;
+- acc_grouping and acc_no_x, probes of the accumulate: only its
+  grouping of the rows by label (no workspace row is read, added or
+  written), and everything but its reads of x;
+- parent, parent_no_accumulate, parent_no_fold (with --parent TREE, the
+  tdc_tpu_torch/ of an earlier commit, e.g. unpacked with `git archive
+  <commit> tdc_tpu_torch`): the earlier design (`lloyd_bf16_kernel`,
+  `nvcuda::wmma`, PRs 6-12) as it is, without its accumulate, and
+  without its fold as well.
 
-So accumulate = full − no_accumulate, fold = no_accumulate − no_fold, and
-no_fold is the rest. Each build is a copy of tdc_tpu_torch/ under DIR
-(default scratch_trees/b5_phases, which .gitignore lists) with that
-source removed, built by its own ops/_build.py and timed in its own
-process with CUDA events (median of 7 after a warm-up), in the order
-full, no_accumulate, no_fold, full. The cut builds compute wrong stats;
-only their times are read. Prints one JSON line per run, then the card's
-name and power limit. Needs a CUDA card and nvcc.
+So for either design accumulate = full − no_accumulate (the full design
+runs it beside the next block's product), fold = no_accumulate − no_fold,
+and for the full design product = no_fold − no_product. Every build times
+(`time`) B5 at N=2^22, K=1024, d=128 on chip_smoke.py's blobs, f32 and
+bf16 rows. The full, variant and parent builds also run `checks`: chip_smoke.py's
+B5 check (labels equal to the plain version's but at near-ties in B5's
+own metric, counts equal where they agree, sums within 1e-5 of Σ|x|, SSE
+within 1e-5 relative, bitwise repeatable) at that shape and at the ragged
+N=2^16+37, K=300, d=19, reporting the near-tie count, the sums' max
+error and the largest share of a tolerance used, or the first failure.
+
+Each build is a copy of tdc_tpu_torch/ and chip_smoke.py under DIR
+(default scratch_trees/b5_phases, which .gitignore lists), timed with
+CUDA events (median of 7 after a warm-up), in the order full,
+no_accumulate, no_fold, no_product, one_chain, four_chains,
+no_pingpong, acc_grouping, acc_no_x, then with
+--parent the three parent builds, then full once more (times only). Each
+run also prints the ptxas registers and spills of the source's kernels
+(where it built them) and ptxas's warnings. The cut builds compute wrong
+stats; only their times are read. Prints one JSON line per run, then the
+card's name and power limit. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import shutil
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 SOURCE = "csrc/lloyd_bf16_kernels.cu"
-ACCUMULATE = ("    for (int j = tid; j < d; j += kThreads) {\n"
-              "      for (int r0 = 0; r0 < rows; r0 += kGroup) {",
-              "    if (tid == 0) {\n"
-              "      for (int r = 0; r < rows; ++r) sse +=")
-FOLD = ("          if (better(v, j, best, barg)) {\n"
-        "            best = v;\n"
-        "            barg = j;\n"
-        "          }\n", "          (void)v;\n")
+
+# (start, end) markers of source removed, [start, end); (old, new)
+# replacements. The full design's:
+ACCUMULATE = {"spans": (("      sse += accumulate_block<T, kVec>(",
+                         "      warp_arrive(&sm.freed[i & 1]);"),)}
+FOLD = {"swaps": (("""\
+      if (col + 1 < k && v1 <= tb[h][p]) {
+        tb[h][p] = v1;
+        tj[h][p] = col + 1;
+      }
+      if (col < k && v0 <= tb[h][p]) {
+        tb[h][p] = v0;
+        tj[h][p] = col;
+      }
+""", "      (void)v0;\n      (void)v1;\n"),)}
+PRODUCT = {"swaps": (("""\
+      if (cb == 0 && kk == 0) {
+        wgmma_m64n64k16_bf16_first(acc, da, db);
+      } else {
+        wgmma_m64n64k16_bf16(acc, da, db, 1);
+      }
+""", "      (void)da;\n      (void)db;\n"), ("""\
+            wgmma_m64n256k16_bf16(acc, sw128_desc(xa + 16 * kk),
+                                  sw128_desc(cs + 16 * kk), 1);
+""", "            (void)xa;\n            (void)cs;\n"))}
+# Variants, timed and checked: the ping-pong fold's compares in one chain
+# or four a row (the kernel's: two), and every K tile as one m64n256k16
+# chain folded after the tile (no ping-pong).
+def _chains(c: int) -> dict:
+    return {"swaps": tuple(
+        (f"        fold<kQuarter, 2>(acc_{a}, c2p",
+         f"        fold<kQuarter, {c}>(acc_{a}, c2p") for a in "pq")}
 
 
-def cut_accumulate(text: str) -> str:
-    start, end = text.index(ACCUMULATE[0]), text.index(ACCUMULATE[1])
-    return text[:start] + text[end:]
+ONE_CHAIN = _chains(1)
+FOUR_CHAINS = _chains(4)
+NO_PINGPONG = {"swaps": (
+    ("  const bool pingpong = nch == 1 && 2 * ncb <= kSlots;",
+     "  const bool pingpong = false;"),)}
+# Probes of the accumulate: its grouping alone (no workspace row is
+# read, added or written), and the accumulate without its reads of x.
+ACC_GROUPING = {"spans": (
+    ("  for (int s0 = aw; s0 < nseg; s0 += kAccWarps * kSegsPerPass) {",
+     "  named_barrier(3, kAccThreads);\n  double t = 0.0;"),)}
+ACC_NO_X = {"swaps": (
+    ("          xv[u] = C::load(x + (row0 + sm.order[p0[u]]) * d + j);",
+     "          xv[u] = V{};"),
+    ("          add(a[u], C::load(x + (row0 + sm.order[p]) * d + j));",
+     "          add(a[u], xv[u]);"))}
+# The earlier design's (lloyd_bf16_kernel):
+PARENT_ACCUMULATE = {"spans": (
+    ("    for (int j = tid; j < d; j += kThreads) {\n"
+     "      for (int r0 = 0; r0 < rows; r0 += kGroup) {",
+     "    if (tid == 0) {\n"
+     "      for (int r = 0; r < rows; ++r) sse +="),)}
+PARENT_FOLD = {"swaps": (("""\
+          if (better(v, j, best, barg)) {
+            best = v;
+            barg = j;
+          }
+""", "          (void)v;\n"),)}
 
 
-def cut_fold(text: str) -> str:
-    if FOLD[0] not in text:
-        raise ValueError("the fold's source is not where this script expects")
-    return text.replace(FOLD[0], FOLD[1])
+def cut(tree: Path, spans=(), swaps=()) -> None:
+    """Applies the cuts to tree/tdc_tpu_torch/SOURCE; raises where a
+    marker is not found exactly once."""
+    path = tree / "tdc_tpu_torch" / SOURCE
+    text = path.read_text()
+    for marker in [s for span in spans for s in span] + [o for o, _ in swaps]:
+        if text.count(marker) != 1:
+            raise ValueError(f"a cut's source is not where this script "
+                             f"expects in {SOURCE}: {marker.strip()[:60]!r}")
+    for start, end in spans:
+        a = text.index(start)
+        text = text[:a] + text[text.index(end, a):]
+    for old, new in swaps:
+        text = text.replace(old, new)
+    path.write_text(text)
 
 
+def _join(*cuts) -> dict:
+    return {"spans": sum((c.get("spans", ()) for c in cuts), ()),
+            "swaps": sum((c.get("swaps", ()) for c in cuts), ())}
+
+
+# name -> (source: "repo" or "parent", cuts, runs)
 BUILDS = {
-    "full": lambda text: text,
-    "no_accumulate": cut_accumulate,
-    "no_fold": lambda text: cut_fold(cut_accumulate(text)),
+    "full": ("repo", {}, ("time", "checks")),
+    "no_accumulate": ("repo", ACCUMULATE, ("time",)),
+    "no_fold": ("repo", _join(ACCUMULATE, FOLD), ("time",)),
+    "no_product": ("repo", _join(ACCUMULATE, FOLD, PRODUCT), ("time",)),
+    "one_chain": ("repo", ONE_CHAIN, ("time", "checks")),
+    "four_chains": ("repo", FOUR_CHAINS, ("time", "checks")),
+    "no_pingpong": ("repo", NO_PINGPONG, ("time", "checks")),
+    "acc_grouping": ("repo", ACC_GROUPING, ("time",)),
+    "acc_no_x": ("repo", ACC_NO_X, ("time",)),
+    "parent": ("parent", {}, ("time", "checks")),
+    "parent_no_accumulate": ("parent", PARENT_ACCUMULATE, ("time",)),
+    "parent_no_fold": ("parent", _join(PARENT_ACCUMULATE, PARENT_FOLD),
+                       ("time",)),
 }
 
+TIMER = r"""
+import json, statistics, sys, time
+SOURCE = "lloyd_bf16_kernels.cu"
+import torch
+import chip_smoke as cs
+from tdc_tpu_torch.ops import _build, lloyd_kernels as lk
 
-def make_build(out: Path, name: str) -> Path:
-    root = out / name
-    pkg = root / "tdc_tpu_torch"
-    if root.exists():
-        shutil.rmtree(root)
-    shutil.copytree(REPO / "tdc_tpu_torch", pkg,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = pkg / SOURCE
-    src.write_text(BUILDS[name](src.read_text()))
-    return root
+def median_ms(fn, reps=7):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(); fn(); b.record(); b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
 
+def reading(name, x, c):
+    cs.TOL_SHARES.clear()
+    try:
+        err, ties = cs.check_b5(name, x, c)
+    except AssertionError as e:
+        return {"passes": False, "failure": str(e)}
+    return {"passes": True, "near_ties": ties, "max_abs_err": err,
+            "tol_share": max(cs.TOL_SHARES.values())}
 
-def time_build(root: str) -> dict:
-    sys.path.insert(0, root)
-    import torch
-
-    from tdc_tpu_torch.ops import lloyd_kernels as lk
-
-    if not lk.__file__.startswith(root):
-        raise RuntimeError(f"imported {lk.__file__}, not the copy in {root}")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    n, k, d = 1 << 22, 1024, 128
-    centers = (torch.rand((k, d), generator=gen, device="cuda") * 2 - 1) * 3
-    x = (torch.randn((n, d), generator=gen, device="cuda")
-         + centers[torch.arange(n, device="cuda") % k])
-    out = {"build": Path(root).name}
+build, runs = sys.argv[1], sys.argv[2].split(",")
+t0 = time.perf_counter()
+kl = _build.load()
+out = {"build": build, "build_s": time.perf_counter() - t0}
+# registers and spill stores/loads of the kernels of the source (when
+# this process built them), and ptxas's warnings about them
+out["ptxas"] = [r[1:] for r in cs.ptxas_table(kl.log) if r[0] == SOURCE]
+out["ptxas_warnings"] = sorted({l.strip() for l in kl.log.splitlines()
+                                if "arning" in l})
+gen = torch.Generator(device="cuda").manual_seed(0)
+n, k, d = cs.B1_SHAPE
+x, c = cs.blob_data(gen, n, k, d)
+for rows in (x, x.to(torch.bfloat16)):
+    key = str(rows.dtype).removeprefix("torch.")
+    if "time" in runs:
+        out[f"{key}_ms"] = median_ms(lambda: lk.lloyd_stats_fused_bf16(rows, c))
+    if "checks" in runs:
+        out[f"{key}_checks"] = reading(f"B5 {key}", rows, c)
+del x, c, rows
+if "checks" in runs:
+    x, c = cs.blob_data(gen, *cs.FUZZY_RAGGED)
     for rows in (x, x.to(torch.bfloat16)):
-        lk.lloyd_stats_fused_bf16(rows, centers)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(7):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            lk.lloyd_stats_fused_bf16(rows, centers)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        out[f"{str(rows.dtype).removeprefix('torch.')}_ms"] = (
-            statistics.median(times))
-    return out
+        key = str(rows.dtype).removeprefix("torch.")
+        out[f"ragged_{key}_checks"] = reading(f"B5 ragged {key}", rows, c)
+print(json.dumps(out), flush=True)
+"""
 
 
 def main() -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--out", default=str(REPO / "scratch_trees" / "b5_phases"))
-    p.add_argument("--time", default=None, help=argparse.SUPPRESS)
-    args = p.parse_args()
-    if args.time:
-        print(json.dumps(time_build(args.time)), flush=True)
-        return 0
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=str(REPO / "scratch_trees" /
+                                         "b5_phases"))
+    ap.add_argument("--parent", default=None,
+                    help="a directory holding an earlier tdc_tpu_torch/")
+    ap.add_argument("--builds", default=None,
+                    help="comma-separated builds to run, in order")
+    args = ap.parse_args()
     out = Path(args.out)
-    roots = {name: make_build(out, name) for name in BUILDS}
-    for name in ("full", "no_accumulate", "no_fold", "full"):
-        subprocess.run([sys.executable, __file__, "--time", str(roots[name])],
-                       check=True)
+    order = ["full", "no_accumulate", "no_fold", "no_product", "one_chain",
+             "four_chains", "no_pingpong", "acc_grouping", "acc_no_x"]
+    if args.builds:
+        order = args.builds.split(",")
+    elif args.parent:
+        order += ["parent", "parent_no_accumulate", "parent_no_fold"]
+    if not args.builds:
+        order.append("full")
+    roots = {"repo": REPO, "parent": Path(args.parent) if args.parent
+             else None}
+    for name in dict.fromkeys(order):
+        source, cuts, _ = BUILDS[name]
+        if roots[source] is None:
+            raise SystemExit(f"build {name} needs --parent")
+        tree = out / name
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(roots[source] / "tdc_tpu_torch",
+                        tree / "tdc_tpu_torch",
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
+        shutil.copy(REPO / "chip_smoke.py", tree / "chip_smoke.py")
+        cut(tree, **cuts)
+    seen = set()
+    for name in order:
+        runs = BUILDS[name][2] if name not in seen else ("time",)
+        seen.add(name)
+        subprocess.run([sys.executable, "-c", TIMER, name, ",".join(runs)],
+                       cwd=out / name, check=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
     return 0
 
 

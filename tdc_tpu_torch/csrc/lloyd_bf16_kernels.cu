@@ -1,5 +1,4 @@
-// B5 `lloyd_stats_fused(mxu_dtype="bfloat16")` for Hopper (sm_90a): the
-// port's first tensor-core kernel.
+// B5 `lloyd_stats_fused(mxu_dtype="bfloat16")` for Hopper (sm_90a).
 //
 // Replaces `lloyd_stats_fused` (tdc_tpu/ops/pallas_kernels.py:414) with
 // mxu_dtype="bfloat16": the epilogue `_LLOYD_BF16_EPILOGUE` (:405), whose
@@ -15,60 +14,134 @@
 //
 // Bound on this card: the 2·N·K·d product on the bf16 tensor cores, 989
 // TFLOP/s dense (H100 SXM data sheet): 1.11 ms at N = 2^22, K = 1024,
-// d = 128, against 0.64 ms to read f32 x once. The design moves that
-// product onto the tensor cores (`nvcuda::wmma` 16x16x16 bf16 fragments,
-// f32 accumulate) and keeps the rest of B1: G persistent CTAs, each with
-// its own (K, d) f32 slice of a (G, K, d) workspace and integer counts,
-// summed in slice order by lloyd_reduce.cuh; no float atomics, bitwise
-// repeatable. Per 128-row block a CTA stages the rows as bf16 in shared
-// memory (f32 rows rounded to nearest even at the load; columns past d
-// load as 0, which pads d to a multiple of 16 and adds exactly nothing),
-// and per 64-centroid K tile the rounded centroids. Each of the 8 warps
-// multiplies a 32 x 32 piece of the (128, 64) cross tile; the f32 tile
-// goes to shared memory, where two threads per row fold it with
-// champion.cuh's rule (a later K tile wins only on strict <). Centroids
-// past K are never candidates. Where d fits one 128-column chunk the row
-// block stays in shared memory across all K tiles. The accumulate phase
-// is B1's (one thread per column adds the block's rows into the CTA's
-// slice) taken 8 rows at a time, so 8 read-modify-writes of the slice are
-// in flight instead of one. Left for later PRs: `wgmma` on TMA-fed,
-// pipelined tiles (the K tile is staged with its latency exposed), the
-// fold on the accumulator registers instead of a shared-memory round
-// trip, and an accumulate phase that overlaps the next block's product.
+// d = 128, against 0.64 ms to read f32 x once. At one bf16 product per
+// k-step the product is a sixth of B1's 3xTF32 one, so the champion fold
+// and the staging of x between products are most of what is left; the
+// design keeps both off the tensor core's path where it can.
+//
+// Design: B1's kernel (lloyd_kernels.cu, `lloyd_fused_tc_kernel`) with
+// bf16 operands. A CTA of three warpgroups, one per SM, G = min(SMs, row
+// blocks) of them, each taking every G-th 128-row block:
+//
+// - Centroids: a pre-pass (`bf16_stages`) lays the rounded centroids out
+//   once per call as swizzled K-major stages of 256 centroids x 64 bf16
+//   columns (32 KiB; zero past K and d) and gives c2 padded with +inf past
+//   K. The producer warp (warp 8) streams the stages through a ring of
+//   kSlots slots with bulk copies and mbarriers, the same sequence for
+//   every row block.
+// - Product (warpgroups 0 and 1, 64 rows each): each stages its rows of
+//   a 256-column chunk of x as bf16 (f32 rows rounded to nearest even,
+//   bf16 rows as they are, 0 past n and d; where d <= 256 once per block,
+//   past it per K tile and chunk) behind its own named barrier, summing
+//   each row's ‖x‖² at the row's dtype on the way. Where d <= 128 each K
+//   tile runs as four quarters of 64 centroids, one `wgmma` m64n64k16
+//   bf16 product a k-step of 16 columns into one of two sets of 32 f32
+//   accumulators a thread, which ping-pong: the champion fold of one
+//   quarter reads its accumulators in registers while the tensor cores
+//   compute the next (the smallest index among equal minima, a later
+//   quarter only on strict <, champion.cuh's rule). Past d = 128 each K
+//   tile is one m64n256k16 chain, folded after it. The block's labels,
+//   minima and ‖x‖² go to one of two buffers.
+// - Accumulate (warps 9-11), one block behind the product, so the two
+//   overlap: the block's rows are grouped by label (`group_rows`); each
+//   warp takes whole labels, kSegsPerPass at once, loads the workspace
+//   row once, adds the group's rows in row order at their own dtype and
+//   stores it once. Counts are the group sizes. Each row's SSE term is
+//   its minimum plus ‖x‖², the reference's function; the block's terms go
+//   through a fixed f64 tree.
+// Each CTA adds into its own (K, d) slice of a (G, K, d) f32 workspace
+// with integer counts and an f64 SSE partial; lloyd_reduce.cuh sums the
+// slices in slice order. No float atomics: two runs are bitwise equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
+
+#include <cstdint>
+#include <type_traits>
 
 #include "champion.cuh"
 #include "lloyd_reduce.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using tdc::better;
-using tdc::kArgSentinel;
-using tdc::kThreads;
+using namespace tdc;
 
-constexpr int kBM = 128;       // rows per block
-constexpr int kBN = 64;        // centroids per K tile
-constexpr int kBD = 128;       // columns of d per staged chunk
-constexpr int kLdT = kBD + 8;  // bf16 tile stride: 272 B, conflict-free
-constexpr int kLdX = kBN + 4;  // f32 cross tile stride
-constexpr int kWarpRows = 32;  // each warp's piece of the cross tile
-constexpr int kWarpCols = 32;
-constexpr int kGroup = 8;  // rows per step of the accumulate phase
+constexpr int kBM = 128;         // rows per block: two warpgroups of 64
+constexpr int kBN = 256;         // centroids per K tile (a ring stage)
+constexpr int kQuarter = kBN / 4;  // centroids per ping-pong product
+constexpr int kColBlock = 64;    // bf16 columns per swizzled tile row
+constexpr int kChunkBlocks = 4;  // column blocks per staged x chunk
+constexpr int kSlots = 4;        // centroid stages in the ring
+constexpr int kConsumers = 256;  // the product's two warpgroups
+constexpr int kProducerWarp = kConsumers / 32;
+constexpr int kAccWarps = 3;  // the accumulate's warps, after the producer
+constexpr int kAccThreads = 32 * kAccWarps;
+constexpr int kB5Threads = kConsumers + 32 + kAccThreads;
+constexpr int kStageElems = kBN * kColBlock;                // 32 KiB
+constexpr int kSlabElems = kChunkBlocks * 64 * kColBlock;  // 32 KiB
+constexpr int kSkip = 0x7fffffff;  // label of a row past n
+constexpr int kSegsPerPass = 8;    // labels a warp accumulates at once
 
-struct Bf16Smem {
-  __nv_bfloat16 xs[kBM][kLdT];  // the row block, bf16
-  __nv_bfloat16 cs[kBN][kLdT];  // the K tile, bf16
-  float cross[kBM][kLdX];       // x·cᵀ of the tile, f32
-  float c2[kBN];
-  float best[kBM];
-  float val[kBM];  // min + ‖x‖² per row
-  int lab[kBM];
+// 195 KB, one CTA per SM.
+struct __align__(1024) Bf16Smem {
+  __nv_bfloat16 xs[2][kSlabElems];  // [warpgroup][column block][64][64]
+  __nv_bfloat16 ring[kSlots][kStageElems];
+  unsigned long long full[kSlots];   // a stage has landed
+  unsigned long long empty[kSlots];  // the product is done with a slot
+  unsigned long long ready[2];  // a block's labels are written
+  unsigned long long freed[2];  // the accumulate is done with them
+  int lab[2][kBM];
+  float best[2][kBM];  // the row's minimum, c2 − 2·x̃·c̃
+  float x2[2][kBM];    // the row's ‖x‖²
+  float x2_new[kBM];   // ‖x‖² of the rows being staged
+  unsigned char order[kBM];    // rows grouped by label, stably
+  unsigned char seg[kBM + 1];  // group starts in `order`
+  int nseg;
+  unsigned heads[kBM / 32];  // ballots of group heads,
+  unsigned live[kBM / 32];   // and of rows with a label < K
 };
+
+// K padded to the K tile: the rows of every stage.
+__host__ __device__ inline int padded_k(int k) {
+  return (k + kBN - 1) / kBN * kBN;
+}
+__host__ __device__ inline int col_blocks(int d) {
+  return (d + kColBlock - 1) / kColBlock;
+}
+
+// Floats of the per-call scratch: the stages (bf16, two to a float),
+// then c2 padded to the K tile.
+inline long long scratch_floats(int k, int d) {
+  return (long long)padded_k(k) * col_blocks(d) * kColBlock / 2 + padded_k(k);
+}
+
+// One thread per (row j < K padded, column block cb, 16-byte chunk q):
+// stage (j / 256, cb) in order of K tile, then column block.
+__global__ void bf16_stages(const __nv_bfloat16* __restrict__ cb_in,
+                            const float* __restrict__ c2, int k, int d,
+                            __nv_bfloat16* __restrict__ stages,
+                            float* __restrict__ c2p) {
+  const int ncb = col_blocks(d);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)padded_k(k) * ncb * 8) return;
+  const int q = (int)(i % 8);
+  const int cb = (int)((i / 8) % ncb);
+  const int j = (int)(i / (8 * ncb));
+  alignas(16) __nv_bfloat16 v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int col = cb * kColBlock + 8 * q + e;
+    v[e] = (j < k && col < d) ? cb_in[(long long)j * d + col]
+                              : __float2bfloat16_rn(0.f);
+  }
+  __nv_bfloat16* stage =
+      stages + ((long long)(j / kBN) * ncb + cb) * kStageElems;
+  *reinterpret_cast<uint4*>(stage + swizzle_col_bf16(j % kBN, 8 * q)) =
+      *reinterpret_cast<const uint4*>(v);
+  if (cb == 0 && q == 0) c2p[j] = j < k ? c2[j] : CUDART_INF_F;
+}
 
 __device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
   return __float2bfloat16_rn(v);
@@ -81,254 +154,538 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Stages rows [0, kRows) x columns [dk, dk + kBD) of the row-major
-// (nrows, d) matrix src as bf16 into dst; rows past nrows and columns past
-// d are 0. kVec: 16-byte loads (d % 8 == 0, 16-byte aligned base).
-template <typename T, bool kVec, int kRows>
-__device__ __forceinline__ void stage_bf16(const T* __restrict__ src,
-                                           long long nrows, int d, int dk,
-                                           __nv_bfloat16 (*dst)[kLdT]) {
-  constexpr int kW = kVec ? 16 / (int)sizeof(T) : 1;  // elements per load
-  constexpr int kPer = kBD / kW;                       // loads per row
-#pragma unroll 4
-  for (int i = threadIdx.x; i < kRows * kPer; i += kThreads) {
-    const int r = i / kPer;
-    const int col = (i % kPer) * kW;
-    const int gc = dk + col;
-    alignas(16) T v[kW];
-    alignas(16) __nv_bfloat16 out[kW];
-    if (r < nrows && gc < d) {
-      if constexpr (kVec) {
-        *reinterpret_cast<uint4*>(v) =
-            *reinterpret_cast<const uint4*>(src + (long long)r * d + gc);
-      } else {
-        v[0] = src[(long long)r * d + gc];
-      }
+// Eight columns [col, col + 8) of row `row` as bf16, 0 past n and d, and
+// the sum of their squares at the row's own dtype (f32 unrounded, bf16
+// widened), in column order. kVec: 16-byte loads (f32 rows: d % 4 == 0;
+// bf16 rows: d % 8 == 0; the base 16-byte aligned).
+template <typename T, bool kVec>
+__device__ __forceinline__ uint4 load8_bf16(const T* __restrict__ x,
+                                            long long n, int d,
+                                            long long row, int col,
+                                            float& sq) {
+  alignas(16) T in[8];
+  if constexpr (kVec) {
+    constexpr int kPer = 16 / (int)sizeof(T);  // elements per 16 bytes
 #pragma unroll
-      for (int w = 0; w < kW; ++w) out[w] = to_bf16(v[w]);
-    } else {
-#pragma unroll
-      for (int w = 0; w < kW; ++w) out[w] = __float2bfloat16_rn(0.f);
+    for (int h = 0; h < 8 / kPer; ++h) {
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (row < n && col + kPer * h < d)
+        u = *reinterpret_cast<const uint4*>(x + row * d + col + kPer * h);
+      *reinterpret_cast<uint4*>(in + kPer * h) = u;
     }
-    if constexpr (kW == 8) {
-      *reinterpret_cast<uint4*>(&dst[r][col]) =
-          *reinterpret_cast<const uint4*>(out);
-    } else if constexpr (kW == 4) {
-      *reinterpret_cast<uint2*>(&dst[r][col]) =
-          *reinterpret_cast<const uint2*>(out);
-    } else {
-      dst[r][col] = out[0];
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      in[e] = (row < n && col + e < d) ? x[row * d + col + e] : T(0.f);
+    }
+  }
+  alignas(16) __nv_bfloat16 out[8];
+  sq = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float v = to_f32(in[e]);
+    sq = fmaf(v, v, sq);
+    out[e] = to_bf16(in[e]);
+  }
+  return *reinterpret_cast<const uint4*>(out);
+}
+
+// Stages columns [64·cb0, 64·(cb0 + nb)) of the calling warpgroup's 64
+// rows of the block at row0 into its half of the x buffer as bf16, 0
+// past n and d, kUnroll column blocks of loads in flight (fewer where the
+// accumulators are live); adds the staged values' squares into sq, by
+// the thread's four rows. Between the group's named barriers.
+template <typename T, bool kVec, int kUnroll>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ x,
+                                           long long n, int d,
+                                           long long row0, int cb0, int nb,
+                                           Bf16Smem& sm, float (&sq)[4]) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, cw = (tid / 32) % 4;
+  const int q = lane % 8, rr = lane / 8;
+#pragma unroll(kUnroll)
+  for (int b = 0; b < nb; ++b) {
+#pragma unroll
+    for (int r4 = 0; r4 < 4; ++r4) {
+      const int rl = r4 * 16 + cw * 4 + rr;
+      float s;
+      const uint4 v = load8_bf16<T, kVec>(x, n, d, row0 + 64 * wg + rl,
+                                          (cb0 + b) * kColBlock + 8 * q, s);
+      sq[r4] += s;
+      *reinterpret_cast<uint4*>(
+          &sm.xs[wg][b * 64 * kColBlock + swizzle_col_bf16(rl, 8 * q)]) = v;
     }
   }
 }
 
-// T is the row dtype (float or __nv_bfloat16); cb the rounded centroids.
-// `labels` (may be null) receives each row's champion.
+// The staged rows' ‖x‖²: each row's 8 lanes (bits 0-2 of the lane) add
+// their parts in a fixed tree, and one of them writes it to x2_new.
+__device__ __forceinline__ void write_row_norms(const float (&sq)[4],
+                                                Bf16Smem& sm) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, cw = (tid / 32) % 4;
+#pragma unroll
+  for (int r4 = 0; r4 < 4; ++r4) {
+    float t = sq[r4];
+#pragma unroll
+    for (int off = 1; off <= 4; off <<= 1)
+      t += __shfl_xor_sync(0xffffffffu, t, off);
+    if (lane % 8 == 0) sm.x2_new[64 * wg + r4 * 16 + cw * 4 + lane / 8] = t;
+  }
+}
+
+// kW columns of a row, widened to f32 (kW = 4: one 16- or 8-byte load).
 template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
-    lloyd_bf16_kernel(const T* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ cb,
-                      const float* __restrict__ c2, long long n, int k, int d,
-                      float* __restrict__ ws, int* __restrict__ cnt,
-                      double* __restrict__ sse_part,
-                      int* __restrict__ labels) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+struct Cols {
+  using V = typename std::conditional<kVec, float4, float>::type;
+  static __device__ __forceinline__ V load(const T* __restrict__ p) {
+    if constexpr (!kVec) {
+      return to_f32(*p);
+    } else if constexpr (std::is_same<T, float>::value) {
+      return *reinterpret_cast<const float4*>(p);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      const float2 lo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      return make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+  }
+};
+
+__device__ __forceinline__ void add(float& a, float x) { a += x; }
+__device__ __forceinline__ void add(float4& a, const float4& x) {
+  a.x += x.x;
+  a.y += x.y;
+  a.z += x.z;
+  a.w += x.w;
+}
+
+// The accumulate of one block (warps 9-11): group the rows by label, add
+// each group into the CTA's workspace slice and count it, and return the
+// block's SSE terms, min + ‖x‖², summed (a fixed f64 tree; the value of
+// warp 9's lanes).
+template <typename T, bool kVec>
+__device__ __forceinline__ double accumulate_block(
+    const T* __restrict__ x, long long row0, int rows, int k, int d,
+    const int* lab, const float* best, const float* x2,
+    float* __restrict__ my_ws, int* __restrict__ my_cnt, Bf16Smem& sm) {
+  const int at = threadIdx.x - kConsumers - 32, lane = at % 32, aw = at / 32;
+  group_rows<kBM, kAccWarps>(lab, k, at, 3, sm);
+  // Each warp takes every 3rd group, kSegsPerPass at a time: the
+  // workspace row of the group's label is read once, the group's rows are
+  // added in row order, and it is written once; the kSegsPerPass rows are
+  // independent, so their loads are all in flight together.
+  constexpr int kW = kVec ? 4 : 1;
+  using C = Cols<T, kVec>;
+  using V = typename C::V;
+  const int nseg = sm.nseg;
+  for (int s0 = aw; s0 < nseg; s0 += kAccWarps * kSegsPerPass) {
+    int gl[kSegsPerPass], p0[kSegsPerPass], p1[kSegsPerPass];
+#pragma unroll
+    for (int u = 0; u < kSegsPerPass; ++u) {
+      const int s = s0 + u * kAccWarps;
+      const bool ok = s < nseg;
+      p0[u] = ok ? sm.seg[s] : 0;
+      p1[u] = ok ? sm.seg[s + 1] : 0;
+      gl[u] = ok ? lab[sm.order[p0[u]]] : -1;
+    }
+    for (int jj = 0; jj < d; jj += 32 * kW) {
+      const int j = jj + lane * kW;
+      const bool in = j < d;
+      V a[kSegsPerPass], xv[kSegsPerPass];
+#pragma unroll
+      for (int u = 0; u < kSegsPerPass; ++u) {
+        a[u] = xv[u] = V{};
+        if (gl[u] >= 0 && in) {
+          a[u] = *reinterpret_cast<const V*>(my_ws + (long long)gl[u] * d + j);
+          xv[u] = C::load(x + (row0 + sm.order[p0[u]]) * d + j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSegsPerPass; ++u) {
+        if (gl[u] < 0 || !in) continue;
+        add(a[u], xv[u]);
+        for (int p = p0[u] + 1; p < p1[u]; ++p)
+          add(a[u], C::load(x + (row0 + sm.order[p]) * d + j));
+        *reinterpret_cast<V*>(my_ws + (long long)gl[u] * d + j) = a[u];
+      }
+    }
+    // Lane u counts group u: the labels differ, so the read-modify-writes
+    // are independent and all in flight at once.
+    int cl = -1, cn = 0;
+#pragma unroll
+    for (int u = 0; u < kSegsPerPass; ++u) {
+      if (lane == u) {
+        cl = gl[u];
+        cn = p1[u] - p0[u];
+      }
+    }
+    if (cl >= 0) my_cnt[cl] += cn;
+  }
+  named_barrier(3, kAccThreads);
+  double t = 0.0;  // the block's SSE terms: a fixed f64 tree
+  if (aw == 0) {
+#pragma unroll
+    for (int q = 0; q < kBM / 32; ++q) {
+      const int r = lane + 32 * q;
+      // A row with no finite candidate keeps NaN, as min + ‖x‖² does.
+      if (r < rows) {
+        t += lab[r] < k ? (double)(best[r] + x2[r])
+                        : (double)__int_as_float(0x7fc00000);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1)
+      t += __shfl_xor_sync(0xffffffffu, t, off);
+  }
+  named_barrier(3, kAccThreads);  // order and seg are free for the next
+  return t;
+}
+
+// Waits for the ncb stages of the K tile whose first stage is number g.
+__device__ __forceinline__ void wait_tile(Bf16Smem& sm, unsigned g,
+                                          int ncb) {
+  for (int cb = 0; cb < ncb; ++cb) {
+    mbar_wait(&sm.full[(g + cb) % kSlots], ((g + cb) / kSlots) & 1);
+  }
+  __syncwarp();  // `wgmma` is aligned: the warp converged
+}
+
+// Issues (and commits) quarter q of the K tile whose stages start at g:
+// x against the quarter's 64 centroids over every column block, one
+// `wgmma` m64n64k16 a k-step. Its first k-step only writes the
+// accumulators, so they are dead (free for the fold's temporaries and
+// the staging) before it.
+__device__ __forceinline__ void issue_quarter(float (&acc)[kQuarter / 2],
+                                              const __nv_bfloat16* xw,
+                                              Bf16Smem& sm, unsigned g,
+                                              int ncb, int d, int q) {
+  wgmma_fence();
+  for (int cb = 0; cb < ncb; ++cb) {
+    const __nv_bfloat16* xa = xw + cb * 64 * kColBlock;
+    const __nv_bfloat16* cs =
+        sm.ring[(g + cb) % kSlots] + q * kQuarter * kColBlock;
+    const int ks = min(kColBlock / 16, (d - cb * kColBlock + 15) / 16);
+    for (int kk = 0; kk < ks; ++kk) {
+      const unsigned long long da = sw128_desc(xa + 16 * kk);
+      const unsigned long long db = sw128_desc(cs + 16 * kk);
+      if (cb == 0 && kk == 0) {
+        wgmma_m64n64k16_bf16_first(acc, da, db);
+      } else {
+        wgmma_m64n64k16_bf16(acc, da, db, 1);
+      }
+    }
+  }
+  wgmma_commit();
+  fence_operands(acc);
+}
+
+// The fold of kN centroids c0 .. c0 + kN - 1 (a quarter or a K tile):
+// this thread's kN / 4 columns (8j + 2·t4 and + 1) for its two rows, in
+// kChains chains a row (by j) so that the compares overlap. Each chain
+// runs from its last column down with <=, so the smallest index among
+// equal minima wins in it; the chains' champions and the running one
+// then meet by champion.cuh's rule (value, then index: a later tile only
+// on strict <).
+template <int kN, int kChains>
+__device__ __forceinline__ void fold(const float (&acc)[kN / 2],
+                                     const float* __restrict__ c2p, int k,
+                                     int c0, int t4, float (&best)[2],
+                                     int (&barg)[2]) {
+  float tb[2][kChains];
+  int tj[2][kChains];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int p = 0; p < kChains; ++p) {
+      tb[h][p] = CUDART_INF_F;
+      tj[h][p] = kArgSentinel;
+    }
+  }
+#pragma unroll
+  for (int j = kN / 8 - 1; j >= 0; --j) {
+    const int col = c0 + 8 * j + 2 * t4;
+    const int p = j % kChains;
+    const float2 cc = __ldg(reinterpret_cast<const float2*>(c2p + col));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = cc.x - 2.f * acc[4 * j + 2 * h];
+      const float v1 = cc.y - 2.f * acc[4 * j + 2 * h + 1];
+      if (col + 1 < k && v1 <= tb[h][p]) {
+        tb[h][p] = v1;
+        tj[h][p] = col + 1;
+      }
+      if (col < k && v0 <= tb[h][p]) {
+        tb[h][p] = v0;
+        tj[h][p] = col;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int p = 0; p < kChains; ++p) {
+      if (better(tb[h][p], tj[h][p], best[h], barg[h])) {
+        best[h] = tb[h][p];
+        barg[h] = tj[h][p];
+      }
+    }
+  }
+}
+
+// T is the row dtype (float or __nv_bfloat16). stages and c2p come from
+// the pre-pass; ws is (grid, K, d), cnt (grid, K); labels may be null.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kB5Threads, 1)
+    lloyd_bf16_tc_kernel(const T* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ stages,
+                         const float* __restrict__ c2p, long long n, int k,
+                         int d, float* __restrict__ ws, int* __restrict__ cnt,
+                         double* __restrict__ sse_part,
+                         int* __restrict__ labels) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
   Bf16Smem& sm = *reinterpret_cast<Bf16Smem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * kWarpRows;  // the warp's rows in the block
-  const int wn = (warp % 2) * kWarpCols;  // its columns in the K tile
-  // The fold: two threads per row, each over 32 of the tile's columns in
-  // a rotated order, so a warp's 32 shared loads hit 32 distinct banks
-  // (better() makes the order irrelevant to the result).
-  const int frow = tid >> 1, half = tid & 1;
-  const int rot = (frow + 16 * half) & 31;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const long long kd = (long long)k * d;
   float* my_ws = ws + blockIdx.x * kd;
   int* my_cnt = cnt + (long long)blockIdx.x * k;
-  for (long long i = tid; i < kd; i += kThreads) my_ws[i] = 0.f;
-  for (int i = tid; i < k; i += kThreads) my_cnt[i] = 0;
-  double sse = 0.0;  // thread 0's copy is the CTA's partial
-  const int nd = (d + kBD - 1) / kBD;
-  const long long nblocks = (n + kBM - 1) / kBM;
-  for (long long b = blockIdx.x; b < nblocks; b += gridDim.x) {
-    const long long row0 = b * kBM;
-    const T* xb = x + row0 * d;
-    float best = CUDART_INF_F;
-    int barg = kArgSentinel;
-    for (int kt = 0; kt < k; kt += kBN) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-      for (int dk = 0; dk < d; dk += kBD) {
-        if (nd > 1 || kt == 0) {
-          stage_bf16<T, kVec, kBM>(xb, n - row0, d, dk, sm.xs);
-        }
-        stage_bf16<__nv_bfloat16, kVec, kBN>(cb + (long long)kt * d, k - kt,
-                                             d, dk, sm.cs);
-        if (dk == 0 && tid < kBN) {
-          sm.c2[tid] = kt + tid < k ? c2[kt + tid] : CUDART_INF_F;
-        }
-        __syncthreads();
-        const int steps = (min(kBD, d - dk) + 15) / 16;
-        for (int s = 0; s < steps; ++s) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> a[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> bt[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            wmma::load_matrix_sync(a[i], &sm.xs[wm + 16 * i][16 * s], kLdT);
-            wmma::load_matrix_sync(bt[i], &sm.cs[wn + 16 * i][16 * s], kLdT);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              wmma::mma_sync(acc[i][j], a[i], bt[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(&sm.cross[wm + 16 * i][wn + 16 * j],
-                                  acc[i][j], kLdX, wmma::mem_row_major);
-      __syncthreads();
-#pragma unroll 8
-      for (int q = 0; q < 32; ++q) {
-        const int col = half * 32 + ((q + rot) & 31);
-        const int j = kt + col;
-        if (j < k) {
-          const float v = sm.c2[col] - 2.f * sm.cross[frow][col];
-          if (better(v, j, best, barg)) {
-            best = v;
-            barg = j;
-          }
-        }
-      }
-      __syncthreads();
+  if (tid == 0) {
+    if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers / 32);
     }
-    {  // the row's two fold threads are lanes 2r and 2r + 1
-      const float ov = __shfl_xor_sync(0xffffffffu, best, 1);
-      const int oj = __shfl_xor_sync(0xffffffffu, barg, 1);
-      if (better(ov, oj, best, barg)) {
-        best = ov;
-        barg = oj;
-      }
+    for (int q = 0; q < 2; ++q) {
+      mbar_init(&sm.ready[q], kConsumers / 32);
+      mbar_init(&sm.freed[q], kAccWarps);
     }
-    if (half == 0) {
-      sm.best[frow] = best;
-      sm.lab[frow] = barg;
-    }
-    __syncthreads();
-    // ‖x‖² of the rows at their own dtype, 16 lanes per row in a fixed
-    // order; the counts; the labels when asked for.
-    {
-      const int tx = tid % 16, g = tid / 16;
-      for (int m = 0; m < kBM / 16; ++m) {
-        const int r = g * (kBM / 16) + m;
-        const long long row = row0 + r;
-        float s = 0.f;
-        if (row < n) {
-          for (int col = tx; col < d; col += 16) {
-            const float v = to_f32(xb[(long long)r * d + col]);
-            s = fmaf(v, v, s);
-          }
-        }
-#pragma unroll
-        for (int off = 8; off >= 1; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (tx == 0) {
-          sm.val[r] = sm.best[r] + s;
-          const int lab = sm.lab[r];
-          if (row < n) {
-            // Integer atomics commute exactly: counts stay deterministic.
-            if (lab < k) atomicAdd(&my_cnt[lab], 1);
-            if (labels) labels[row] = lab;
-          }
-        }
-      }
-    }
-    __syncthreads();
-    const int rows = (int)min((long long)kBM, n - row0);
-    // One thread per column adds the block's rows into the CTA's slice,
-    // kGroup rows at a time: rows of the group that share a label are
-    // first summed into the earliest of them, in row order, so the
-    // group's labels are distinct and its kGroup read-modify-writes of
-    // the workspace can all be in flight at once (one by one, each waits
-    // for the last, the slice being too large for L2 to keep). The order
-    // of every sum is fixed: the result is bitwise repeatable.
-    for (int j = tid; j < d; j += kThreads) {
-      for (int r0 = 0; r0 < rows; r0 += kGroup) {
-        int lab[kGroup];
-        float v[kGroup];
-#pragma unroll
-        for (int g = 0; g < kGroup; ++g) {
-          const int r = r0 + g;
-          lab[g] = r < rows ? sm.lab[r] : k;
-          v[g] = lab[g] < k ? to_f32(xb[(long long)r * d + j]) : 0.f;
-        }
-#pragma unroll
-        for (int g = 1; g < kGroup; ++g) {
-#pragma unroll
-          for (int h = 0; h < g; ++h) {
-            if (lab[g] < k && lab[h] == lab[g]) {
-              v[h] += v[g];
-              lab[g] = k;
-            }
-          }
-        }
-        float w[kGroup];
-#pragma unroll
-        for (int g = 0; g < kGroup; ++g) {
-          if (lab[g] < k) w[g] = my_ws[(long long)lab[g] * d + j];
-        }
-#pragma unroll
-        for (int g = 0; g < kGroup; ++g) {
-          if (lab[g] < k) my_ws[(long long)lab[g] * d + j] = w[g] + v[g];
-        }
-      }
-    }
-    if (tid == 0) {
-      for (int r = 0; r < rows; ++r) sse += (double)sm.val[r];
-    }
-    __syncthreads();
+    mbar_init_fence();
   }
-  if (tid == 0) sse_part[blockIdx.x] = sse;
+  for (long long i = tid; i < kd; i += kB5Threads) my_ws[i] = 0.f;
+  for (int i = tid; i < k; i += kB5Threads) my_cnt[i] = 0;
+  __syncthreads();
+
+  const int ncb = col_blocks(d);
+  const int nch = (ncb + kChunkBlocks - 1) / kChunkBlocks;
+  const int nkt = (k + kBN - 1) / kBN;
+  const long long nblocks = (n + kBM - 1) / kBM;
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      unsigned g = 0;
+      for (long long b = blockIdx.x; b < nblocks; b += gridDim.x) {
+        const long long nb = b + gridDim.x;
+        if (kVec && nb < nblocks) {
+          prefetch_l2(x + nb * kBM * d,
+                      (unsigned)(min((long long)kBM, n - nb * kBM) * d *
+                                 (long long)sizeof(T)));
+        }
+        for (int kt = 0; kt < nkt; ++kt) {
+          for (int cb = 0; cb < ncb; ++cb, ++g) {
+            const int slot = g % kSlots;
+            mbar_wait(&sm.empty[slot], ((g / kSlots) & 1) ^ 1);
+            const unsigned bytes = kStageElems * 2;
+            mbar_expect_tx(&sm.full[slot], bytes);
+            bulk_copy_g2s(sm.ring[slot],
+                          stages + ((long long)kt * ncb + cb) * kStageElems,
+                          bytes, &sm.full[slot]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  if (warp > kProducerWarp) {  // the accumulate
+    double sse = 0.0;  // the first accumulate thread's is the CTA's
+    unsigned i = 0;
+    for (long long b = blockIdx.x; b < nblocks; b += gridDim.x, ++i) {
+      const long long row0 = b * kBM;
+      const int rows = (int)min((long long)kBM, n - row0);
+      mbar_wait(&sm.ready[i & 1], (i >> 1) & 1);
+      sse += accumulate_block<T, kVec>(x, row0, rows, k, d, sm.lab[i & 1],
+                                       sm.best[i & 1], sm.x2[i & 1], my_ws,
+                                       my_cnt, sm);
+      warp_arrive(&sm.freed[i & 1]);
+    }
+    if (tid == kConsumers + 32) sse_part[blockIdx.x] = sse;
+    return;
+  }
+
+  // The product: warpgroup wg owns rows 64·wg.. of the block. In the
+  // accumulator layout thread (warp ww of the group, lane gq·4 + t4) holds
+  // rows 16·ww + gq and + 8, columns 8j + 2·t4 and + 1 of the product.
+  // Where d <= 128 (the ring then holds two K tiles' stages) each K tile
+  // runs as four quarters of 64 centroids, `wgmma` m64n64k16 chains into
+  // two sets of 32 accumulators that ping-pong: the fold of one quarter
+  // runs while the tensor cores compute the next. Past it each K tile is
+  // one m64n256k16 chain over its stages, folded after the tile.
+  const int wg = warp / 4, ww = warp % 4, gq = lane / 4, t4 = lane % 4;
+  const int rl0 = 64 * wg + 16 * ww + gq;
+  const __nv_bfloat16* xw = sm.xs[wg];
+  const bool pingpong = nch == 1 && 2 * ncb <= kSlots;
+  unsigned g = 0, i = 0;
+  for (long long b = blockIdx.x; b < nblocks; b += gridDim.x, ++i) {
+    const long long row0 = b * kBM;
+    const int rows = (int)min((long long)kBM, n - row0);
+    float sq[4] = {0.f, 0.f, 0.f, 0.f};  // this thread's parts of ‖x‖²
+    if (nch == 1) {  // the group's rows, once: its products are done
+      named_barrier(1 + wg, 128);
+      stage_rows<T, kVec, 2>(x, n, d, row0, 0, ncb, sm, sq);
+      write_row_norms(sq, sm);
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+    }
+    float best[2] = {CUDART_INF_F, CUDART_INF_F};
+    int barg[2] = {kArgSentinel, kArgSentinel};
+    if (pingpong) {
+      // Quarters 2p (into acc_p) and 2p + 1 (into acc_q) of the block's
+      // 4·nkt; quarter u is quarter u % 4 of K tile u / 4.
+      float acc_p[kQuarter / 2], acc_q[kQuarter / 2];
+      const int nq = 4 * nkt;
+      wait_tile(sm, g, ncb);
+      issue_quarter(acc_p, xw, sm, g, ncb, d, 0);
+      issue_quarter(acc_q, xw, sm, g, ncb, d, 1);
+      for (int u = 0; u < nq; u += 2) {
+        const unsigned gt = g + (u / 4) * ncb;  // this tile's first stage
+        wgmma_wait<1>();  // quarter u is done
+        fence_operands(acc_p);
+        fold<kQuarter, 2>(acc_p, c2p, k, u * kQuarter, t4, best, barg);
+        if (u + 2 < nq) {
+          const unsigned gn = g + ((u + 2) / 4) * ncb;
+          if (gn != gt) wait_tile(sm, gn, ncb);
+          issue_quarter(acc_p, xw, sm, gn, ncb, d, (u + 2) % 4);
+          wgmma_wait<1>();  // quarter u + 1 is done
+        } else {
+          wgmma_wait<0>();
+        }
+        fence_operands(acc_q);
+        if ((u + 1) % 4 == 3) {  // the tile's last quarter: free its stages
+          for (int cb = 0; cb < ncb; ++cb)
+            warp_arrive(&sm.empty[(gt + cb) % kSlots]);
+        }
+        fold<kQuarter, 2>(acc_q, c2p, k, (u + 1) * kQuarter, t4, best, barg);
+        if (u + 3 < nq) {
+          issue_quarter(acc_q, xw, sm, g + ((u + 3) / 4) * ncb, ncb, d,
+                        (u + 3) % 4);
+        }
+      }
+      g += nkt * ncb;
+    } else {
+      float acc[kBN / 2];
+      for (int kt = 0; kt < nkt; ++kt) {
+        // Zeroed here rather than by the first product's scale-d: outside
+        // the K tiles the accumulators are dead, which frees their 128
+        // registers for the staging.
+#pragma unroll
+        for (int e = 0; e < kBN / 2; ++e) acc[e] = 0.f;
+        int prev = -1;
+        for (int cb = 0; cb < ncb; ++cb, ++g) {
+          if (nch > 1 && cb % kChunkBlocks == 0) {
+            // A new x chunk: the group's `wgmma`s on its half are done.
+            if (prev >= 0) {
+              wgmma_wait<0>();
+              warp_arrive(&sm.empty[prev]);
+              prev = -1;
+            }
+            named_barrier(1 + wg, 128);
+            stage_rows<T, kVec, 1>(x, n, d, row0, cb,
+                                   min(kChunkBlocks, ncb - cb), sm, sq);
+            // ‖x‖² once the first K tile has staged every chunk.
+            if (kt == 0 && cb + kChunkBlocks >= ncb) write_row_norms(sq, sm);
+            fence_proxy_async();
+            named_barrier(1 + wg, 128);
+          }
+          const __nv_bfloat16* xa = xw + (cb % kChunkBlocks) * 64 * kColBlock;
+          const int ks = min(kColBlock / 16, (d - cb * kColBlock + 15) / 16);
+          const int slot = g % kSlots;
+          mbar_wait(&sm.full[slot], (g / kSlots) & 1);
+          __syncwarp();  // `wgmma` is aligned: the warp converged
+          const __nv_bfloat16* cs = sm.ring[slot];
+          wgmma_fence();
+          fence_operands(acc);
+          for (int kk = 0; kk < ks; ++kk) {
+            wgmma_m64n256k16_bf16(acc, sw128_desc(xa + 16 * kk),
+                                  sw128_desc(cs + 16 * kk), 1);
+          }
+          wgmma_commit();
+          fence_operands(acc);
+          wgmma_wait<1>();  // the previous stage's products are done
+          if (prev >= 0) warp_arrive(&sm.empty[prev]);
+          prev = slot;
+        }
+        wgmma_wait<0>();
+        warp_arrive(&sm.empty[prev]);
+        fence_operands(acc);
+        fold<kBN, 1>(acc, c2p, k, kt * kBN, t4, best, barg);
+      }
+    }
+    // Across the quad (lanes differing in bits 0-1), then one writer per
+    // row, once the accumulate is done with this buffer's last use (and
+    // the group has written x2_new).
+    mbar_wait(&sm.freed[i & 1], ((i >> 1) & 1) ^ 1);
+    named_barrier(1 + wg, 128);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best[h], off);
+        const int oj = __shfl_xor_sync(0xffffffffu, barg[h], off);
+        if (better(ov, oj, best[h], barg[h])) {
+          best[h] = ov;
+          barg[h] = oj;
+        }
+      }
+      const int r = rl0 + 8 * h;
+      if (t4 == 0) {
+        const bool live = r < rows;
+        sm.lab[i & 1][r] = live ? barg[h] : kSkip;
+        sm.best[i & 1][r] = best[h];
+        sm.x2[i & 1][r] = sm.x2_new[r];
+        if (labels && live) labels[row0 + r] = barg[h];
+      }
+    }
+    warp_arrive(&sm.ready[i & 1]);
+  }
 }
 
 template <typename T, bool kVec>
-cudaError_t launch_main(const T* x, const __nv_bfloat16* cb, const float* c2,
-                        long long n, int k, int d, int grid, float* ws,
-                        int* cnt, double* sse_part, int* labels,
-                        cudaStream_t s) {
+cudaError_t launch_main(const T* x, const __nv_bfloat16* stages,
+                        const float* c2p, long long n, int k, int d,
+                        int grid, float* ws, int* cnt, double* sse_part,
+                        int* labels, cudaStream_t s) {
+  auto kernel = lloyd_bf16_tc_kernel<T, kVec>;
   const int smem = (int)sizeof(Bf16Smem);  // past 48 KB: dynamic only
   cudaError_t err = cudaFuncSetAttribute(
-      lloyd_bf16_kernel<T, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  lloyd_bf16_kernel<T, kVec><<<grid, kThreads, smem, s>>>(
-      x, cb, c2, n, k, d, ws, cnt, sse_part, labels);
+  kernel<<<grid, kB5Threads, smem, s>>>(x, stages, c2p, n, k, d, ws, cnt,
+                                        sse_part, labels);
   return cudaGetLastError();
 }
 
+// The pre-pass, the main kernel and the slice reduce.
 template <typename T>
 int launch_bf16(const T* x, const __nv_bfloat16* cb, const float* c2,
-                long long n, int k, int d, int grid, float* ws, int* cnt,
-                double* sse_part, float* sums, float* counts, float* sse,
-                int* labels, cudaStream_t s) {
-  const bool vec = d % 8 == 0 &&
-                   reinterpret_cast<unsigned long long>(x) % 16 == 0 &&
-                   reinterpret_cast<unsigned long long>(cb) % 16 == 0;
-  const cudaError_t err =
-      vec ? launch_main<T, true>(x, cb, c2, n, k, d, grid, ws, cnt, sse_part,
-                                 labels, s)
-          : launch_main<T, false>(x, cb, c2, n, k, d, grid, ws, cnt,
-                                  sse_part, labels, s);
+                long long n, int k, int d, int grid, float* scratch,
+                float* ws, int* cnt, double* sse_part, float* sums,
+                float* counts, float* sse, int* labels, cudaStream_t s) {
+  auto* stages = reinterpret_cast<__nv_bfloat16*>(scratch);
+  float* c2p = scratch + scratch_floats(k, d) - padded_k(k);
+  const long long items = (long long)padded_k(k) * col_blocks(d) * 8;
+  bf16_stages<<<(unsigned)((items + 255) / 256), 256, 0, s>>>(cb, c2, k, d,
+                                                              stages, c2p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kVecCols = 16 / (int)sizeof(T);  // columns per 16 bytes
+  const bool vec = d % kVecCols == 0 &&
+                   reinterpret_cast<unsigned long long>(x) % 16 == 0;
+  err = vec ? launch_main<T, true>(x, stages, c2p, n, k, d, grid, ws, cnt,
+                                   sse_part, labels, s)
+            : launch_main<T, false>(x, stages, c2p, n, k, d, grid, ws, cnt,
+                                    sse_part, labels, s);
   if (err != cudaSuccess) return (int)err;
   return tdc::launch_lloyd_reduce(ws, cnt, nullptr, sse_part, grid, k, d,
                                   sums, counts, sse, s);
@@ -337,19 +694,28 @@ int launch_bf16(const T* x, const __nv_bfloat16* cb, const float* c2,
 }  // namespace
 
 // B5: x is (n, d) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); cb the (k, d)
-// centroids rounded to bf16; c2 (k,) f32; ws (grid, k, d) f32, cnt
-// (grid, k) int32 and sse_part (grid,) f64 are the workspace; labels (n,)
-// int32 or null.
+// centroids rounded to bf16; c2 (k,) f32; scratch
+// (tdc_lloyd_bf16_scratch_floats(k, d) floats: the stages and the padded
+// c2), ws (grid, k, d) f32, cnt (grid, k) int32 and sse_part (grid,) f64
+// are the workspace; labels (n,) int32 or null.
 extern "C" int tdc_lloyd_stats_fused_bf16(
     const void* x, int x_bf16, const void* cb, const float* c2, long long n,
-    int k, int d, int grid, float* ws, int* cnt, double* sse_part,
-    float* sums, float* counts, float* sse, int* labels, void* stream) {
+    int k, int d, int grid, float* scratch, float* ws, int* cnt,
+    double* sse_part, float* sums, float* counts, float* sse, int* labels,
+    void* stream) {
   const auto* c = static_cast<const __nv_bfloat16*>(cb);
   cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16) {
     return launch_bf16(static_cast<const __nv_bfloat16*>(x), c, c2, n, k, d,
-                       grid, ws, cnt, sse_part, sums, counts, sse, labels, s);
+                       grid, scratch, ws, cnt, sse_part, sums, counts, sse,
+                       labels, s);
   }
-  return launch_bf16(static_cast<const float*>(x), c, c2, n, k, d, grid, ws,
-                     cnt, sse_part, sums, counts, sse, labels, s);
+  return launch_bf16(static_cast<const float*>(x), c, c2, n, k, d, grid,
+                     scratch, ws, cnt, sse_part, sums, counts, sse, labels,
+                     s);
+}
+
+// Floats of B5's per-call scratch.
+extern "C" int64_t tdc_lloyd_bf16_scratch_floats(int k, int d) {
+  return scratch_floats(k, d);
 }

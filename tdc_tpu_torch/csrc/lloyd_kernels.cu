@@ -45,7 +45,7 @@
 #include "champion.cuh"
 #include "lloyd_reduce.cuh"
 #include "tf32_accum.cuh"
-#include "wgmma_tf32.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -285,22 +285,6 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ x,
   }
 }
 
-// Tells a barrier of `count` warps that this warp is done; the warp
-// leaves converged, as the aligned instructions after it require.
-__device__ __forceinline__ void warp_arrive(unsigned long long* bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
-  __syncwarp();
-}
-
-// The sum over the warp's lanes in a fixed order; every lane gets it.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off >= 1; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // a += x (B1) or a += w·x (B4), and the row's (x − c)² over these
 // columns, per element.
 template <bool kWeighted>
@@ -333,53 +317,12 @@ __device__ __forceinline__ double accumulate_block(
     const int* lab, float* __restrict__ my_ws, int* __restrict__ my_cnt,
     float* __restrict__ my_mass, FusedSmem& sm) {
   const int at = threadIdx.x - kConsumers - 32, lane = at % 32, aw = at / 32;
-  // Each row's rank in (label, row): the rows grouped by label, stably.
+  // Rows without a label < K keep this term: NaN where the row has no
+  // finite candidate (as min + ‖x‖² is), 0 past n.
   for (int t = at; t < kTcBM; t += kAccThreads) {
-    const int l = lab[t];
-    int rank = 0;
-#pragma unroll 8
-    for (int r = 0; r < kTcBM; ++r) {
-      const int o = lab[r];
-      rank += (o < l) | ((o == l) & (r < t));
-    }
-    sm.order[rank] = (unsigned char)t;
-    // Rows without a label < K keep this term: NaN where the row has no
-    // finite candidate (as min + ‖x‖² is), 0 past n.
-    if (l >= k) sm.val[t] = t < rows ? __int_as_float(0x7fc00000) : 0.f;
+    if (lab[t] >= k) sm.val[t] = t < rows ? __int_as_float(0x7fc00000) : 0.f;
   }
-  named_barrier(3, kAccThreads);
-  // Group heads, in label order; rows with a label < K sort first.
-  for (int q = aw; q < kTcBM / 32; q += kAccWarps) {
-    const int p = 32 * q + lane;
-    const int l = lab[sm.order[p]];
-    const bool live = l < k;
-    const bool head = live && (p == 0 || lab[sm.order[p - 1]] != l);
-    const unsigned hb = __ballot_sync(0xffffffffu, head);
-    const unsigned lb = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) {
-      sm.heads[q] = hb;
-      sm.live[q] = lb;
-    }
-  }
-  named_barrier(3, kAccThreads);
-  for (int q = aw; q < kTcBM / 32; q += kAccWarps) {
-    int before = 0;
-    for (int v = 0; v < q; ++v) before += __popc(sm.heads[v]);
-    if (sm.heads[q] >> lane & 1)
-      sm.seg[before + __popc(sm.heads[q] & ((1u << lane) - 1))] =
-          (unsigned char)(32 * q + lane);
-  }
-  if (at == 0) {
-    int heads = 0, nlive = 0;
-#pragma unroll
-    for (int v = 0; v < kTcBM / 32; ++v) {
-      heads += __popc(sm.heads[v]);
-      nlive += __popc(sm.live[v]);
-    }
-    sm.seg[heads] = (unsigned char)nlive;
-    sm.nseg = heads;
-  }
-  named_barrier(3, kAccThreads);
+  group_rows<kTcBM, kAccWarps>(lab, k, at, 3, sm);
   // Each warp takes every 3rd group, kSegsPerPass at a time: the
   // workspace row of the group's label is read once, the group's rows are
   // added in row order, and it is written once.

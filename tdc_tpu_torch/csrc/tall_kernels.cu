@@ -43,15 +43,22 @@
 //   feature loop is unrolled to 8 under a uniform guard f < d, so only d
 //   FMAs run per centroid. B10 takes the first centroid as its champion
 //   and a later one only on strict <, which is the smallest-index rule.
-//   B11 keeps a column's d² and inv in registers from its first pass (s)
-//   to its second (μ) where K ≤ 16, and recomputes them otherwise. Every
-//   thread keeps its own (K, d+1) accumulator in shared memory, laid out
-//   [entry][thread] so a warp's updates fall in 32 distinct banks whatever
-//   the labels, and adds its columns into it in column order: B10 adds its
-//   column to its champion's row (d + 1 updates a column), B11 adds μx and
-//   μ to every row. At the end the CTA sums the 256 accumulators in thread
-//   order (f64) and writes one (K, d) partial. Warp shuffles per (k, f)
-//   would cost more than the read of the column.
+//   B10 keeps its own (K, d+1) accumulator per thread in shared memory,
+//   laid out [entry][thread] so a warp's updates fall in 32 distinct banks
+//   whatever the labels, and adds its column to its champion's row (d + 1
+//   updates a column) in column order; at the end the CTA sums the 256
+//   accumulators in thread order (f64). B11 keeps a column's d² and inv in
+//   registers from its first pass (s) to its second (μ) where K ≤ 16, and
+//   recomputes them otherwise; at m = 2 its powers are the exact 1/v and
+//   u·u, with u = inv · (1/s), one division a column. Its accumulate
+//   Σ_j μ_kj·x_fj and Σ_j μ_kj runs on the tensor cores: each thread
+//   writes its column's μ and features (and a ones column) to its warp's
+//   shared tiles, and the warp runs `mma.sync` m16n8k8 over its 32 columns
+//   with the 3xTF32 split (B6's, tf32_accum.cuh), whose f32 fragments add
+//   into f64 carries every 32 columns; the CTA sums its 8 warps' carries
+//   in warp order. A per-(column, entry) read-modify-write of a shared
+//   accumulator (the earlier design, 90 of each a column at the route's
+//   shape) was most of B11's instructions.
 // - tile (every other shape): the column's features sit in registers 8 at
 //   a time (wider d reloads its chunks from L1); the centroids are staged
 //   once per CTA or, where K·d does not fit 32 KB, per K stage and column
@@ -64,22 +71,28 @@
 //   thread sums 4 (centroid, feature) entries over the tile's columns in
 //   order, then adds them into the slice.
 //
-// Every sum has a fixed order: within a thread (columns in order), within
-// a CTA (threads or columns in order) and across CTAs (the G partials
-// summed in slice order by lloyd_reduce.cuh for B10 and `tall_fuzzy_reduce`
-// for B11). No float atomics: two runs are bitwise equal.
+// Every sum has a fixed order: within a thread or a warp (columns in
+// order), within a CTA (threads, warps or columns in order) and across
+// CTAs (the G partials summed in slice order by lloyd_reduce.cuh for B10
+// and `tall_fuzzy_reduce` for B11). No float atomics: two runs are bitwise
+// equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <type_traits>
+
 #include "champion.cuh"
 #include "lloyd_reduce.cuh"
+#include "tf32_accum.cuh"
 
 namespace {
 
 using tdc::better;
 using tdc::kArgSentinel;
+using tdc::mma_tf32;
+using tdc::split_tf32;
 
 constexpr int kCols = 256;       // threads per CTA = columns per tile
 constexpr int kDR = 8;           // features per register chunk
@@ -130,19 +143,17 @@ __device__ __forceinline__ void load_column(const T* __restrict__ xt,
   }
 }
 
-// Shared memory of the private form: the centroids feature-major
+// Shared memory of B10's private form: the centroids feature-major
 // cs[kDR][kp] (kp = K rounded up to kKG, zero padded), c2s[kp], the
-// accumulators acc[rows][kCols] f32, cnt[K][kCols] int (B10) and
-// red[kCols] f64.
+// accumulators acc[K·d][kCols] f32, cnt[K][kCols] int and red[kCols] f64.
 __host__ __device__ __forceinline__ int padded_k(int k) {
   return (k + kKG - 1) / kKG * kKG;
 }
 
-size_t private_smem(int k, int d, bool lloyd) {
+size_t private_smem(int k, int d) {
   const int kp = padded_k(k);
-  const size_t rows = lloyd ? (size_t)k * d : (size_t)k * (d + 1);
-  return (size_t)(kDR + 1) * kp * 4 + rows * kCols * 4 +
-         (lloyd ? (size_t)k * kCols * 4 : 0) + (size_t)kCols * 8;
+  return (size_t)(kDR + 1) * kp * 4 + (size_t)k * d * kCols * 4 +
+         (size_t)k * kCols * 4 + (size_t)kCols * 8;
 }
 
 __device__ __forceinline__ void stage_private(const float* __restrict__ c,
@@ -265,24 +276,71 @@ __global__ void __launch_bounds__(kCols, 2)
   }
 }
 
-template <typename T, bool kM2>
-__global__ void __launch_bounds__(kCols, 2)
+// B11's private form accumulates μᵀ·X on the tensor cores: each warp
+// writes its 32 columns' μ (K padded to kMT·16) and features (with a
+// ones column at d for Σμ, in a second n8 tile where d = 8) to its own
+// shared tiles and runs `mma.sync` m16n8k8 over them with the 3xTF32 split
+// (tf32_accum.cuh; bf16 columns are exact in TF32, so their lo half is 0
+// and dropped). kTiles is the number of (m16, n8) output tiles, 1 or at
+// most 3 (K·(d+1) <= 96 with d <= 8: K <= 16 at d = 8, K <= 48 else).
+constexpr int kMuPad = 8;  // μ row stride ≡ 8 (mod 32): no bank conflicts
+
+__host__ __device__ __forceinline__ int mu_stride(int k) {
+  return padded_k(k) + kMuPad;
+}
+
+// The (m16, n8) tiles of the private form's μᵀ·X: one per 16 centroids,
+// and a second n8 tile (the ones column) where d = kDR.
+__host__ __device__ __forceinline__ int fuzzy_tiles(int k, int d) {
+  return padded_k(k) / kKG * (d == kDR ? 2 : 1);
+}
+
+// Shared memory of B11's private form: cs[kDR][kp], c2s[kp], per warp the
+// μ tile [32][mu_stride] and the column tile [32][kDR] f32, the warps'
+// (K, d+1) carries f64 and red[kCols] f64.
+size_t fuzzy_private_smem(int k, int d) {
+  const int kp = padded_k(k);
+  const int warps = kCols / 32;
+  return (size_t)(kDR + 1) * kp * 4 +
+         (size_t)kCols * (mu_stride(k) + kDR) * 4 +
+         (size_t)warps * kPrivMax * 8 + (size_t)kCols * 8;
+}
+
+// Two CTAs per SM at one output tile; one where three tiles' f32 and f64
+// fragments (48 registers) would spill under the two-CTA limit of 128.
+template <typename T, bool kM2, int kTiles>
+__global__ void __launch_bounds__(kCols, kTiles == 1 ? 2 : 1)
     tall_fuzzy_private(const T* __restrict__ xt, const float* __restrict__ c,
                        const float* __restrict__ c2, long long n, int k,
                        int d, float p, float mexp, float eps,
                        float* __restrict__ ws, double* __restrict__ wpart,
                        double* __restrict__ opart) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // bf16 columns are exact in TF32: their split has no lo half.
+  constexpr bool kExactX = !std::is_same<T, float>::value;
   const int kp = padded_k(k);
   const int d1 = d + 1;
+  const int ms = mu_stride(k);
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
   float* cs = reinterpret_cast<float*>(smem);
   float* c2s = cs + kDR * kp;
-  float* acc = c2s + kp;
-  double* red = reinterpret_cast<double*>(acc + k * d1 * kCols);
-  const int t = threadIdx.x;
+  float* mus = c2s + kp + warp * 32 * ms;  // this warp's μ tile
+  float* xsm = c2s + kp + kCols * ms + warp * 32 * kDR;  // its columns
+  double* wred = reinterpret_cast<double*>(c2s + kp + kCols * (ms + kDR));
+  double* red = wred + (kCols / 32) * kPrivMax;
   stage_private(c, c2, k, d, kp, cs, c2s);
-  for (int i = t; i < k * d1 * kCols; i += kCols) acc[i] = 0.f;
   __syncthreads();
+
+  // mma fragments: lane = gq·4 + t4; tile tt is centroids 16·(tt / nt)..
+  // and n8 tile tt % nt (nt = 2 where d = kDR: tile 1 is the ones column).
+  const int gq = lane / 4, t4 = lane % 4;
+  const int ntile = fuzzy_tiles(k, d);
+  const int nt = d == kDR ? 2 : 1;
+  double carry[kTiles][4];
+#pragma unroll
+  for (int tt = 0; tt < kTiles; ++tt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) carry[tt][r] = 0.0;
 
   double obj = 0.0;  // this thread's columns' Σμ·d²
   const long long ntiles = (n + kCols - 1) / kCols;
@@ -291,6 +349,7 @@ __global__ void __launch_bounds__(kCols, 2)
   load_column(xt, n, d, (long long)blockIdx.x * kCols + t, xn);
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long col = tile * kCols + t;
+    const bool live = col < n;
     float x0[kDR];
 #pragma unroll
     for (int f = 0; f < kDR; ++f) x0[f] = xn[f];
@@ -312,40 +371,109 @@ __global__ void __launch_bounds__(kCols, 2)
         }
       }
     }
-    if (col >= n) continue;
-    // Pass 2: μ = (inv / s)^m into every row of the accumulator.
+    // Pass 2: μ = (inv · (1/s))^m into this column's row of the μ tile
+    // (0 past K and past N), Σμ·d² in registers.
+    const float rs = 1.f / s;
     float ob = 0.f;
-    for (int kg = 0; kg < k; kg += kKG) {
+    float* mrow = mus + lane * ms;
+    for (int kg = 0; kg < kp; kg += kKG) {
       if (k > kKG) {
         group_d2(cs, c2s, kp, d, kg, x0, x2, dd);
 #pragma unroll
         for (int q = 0; q < kKG; ++q) iv[q] = inv_power<kM2>(dd[q] + eps, p);
       }
+      float mu[kKG];
 #pragma unroll
       for (int q = 0; q < kKG; ++q) {
-        const int j = kg + q;
-        if (j < k) {
-          const float mu = mu_power<kM2>(iv[q] / s, mexp);
-          ob = fmaf(mu, dd[q], ob);
-          float* row = acc + j * d1 * kCols + t;
+        mu[q] = 0.f;
+        if (live && kg + q < k) {
+          mu[q] = mu_power<kM2>(iv[q] * rs, mexp);
+          ob = fmaf(mu[q], dd[q], ob);
+        }
+      }
 #pragma unroll
-          for (int f = 0; f < kDR; ++f) {
-            if (f < d) row[f * kCols] = fmaf(mu, x0[f], row[f * kCols]);
+      for (int q = 0; q < kKG; q += 4) {
+        *reinterpret_cast<float4*>(mrow + kg + q) =
+            make_float4(mu[q], mu[q + 1], mu[q + 2], mu[q + 3]);
+      }
+    }
+    {  // the column's features, then 1 (Σμ) where d < kDR, then 0
+      float xr[kDR];
+#pragma unroll
+      for (int f = 0; f < kDR; ++f) {
+        xr[f] = f < d ? x0[f] : (f == d ? 1.f : 0.f);
+      }
+      *reinterpret_cast<float4*>(xsm + lane * kDR) =
+          make_float4(xr[0], xr[1], xr[2], xr[3]);
+      *reinterpret_cast<float4*>(xsm + lane * kDR + 4) =
+          make_float4(xr[4], xr[5], xr[6], xr[7]);
+    }
+    if (live) obj += (double)ob;
+    __syncwarp();
+    // μᵀ·X over the warp's 32 columns, 8 at a time, in f32 fragments, then
+    // into the f64 carries (every 32 columns of the warp).
+#pragma unroll
+    for (int tt = 0; tt < kTiles; ++tt) {
+      if (tt < ntile) {
+        const int m0 = 16 * (tt / nt);
+        const bool ones = tt % nt == 1;
+        // lo·hi, hi·lo and hi·hi in three chains, so their MMAs overlap.
+        float acc[3][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 32; kk += 8) {
+          unsigned ah[4], al[4], bh[2], bl[2];
+          const float av[4] = {mus[(kk + t4) * ms + m0 + gq],
+                               mus[(kk + t4) * ms + m0 + gq + 8],
+                               mus[(kk + t4 + 4) * ms + m0 + gq],
+                               mus[(kk + t4 + 4) * ms + m0 + gq + 8]};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(av[e], ah[e], al[e]);
+          const float bv[2] = {
+              ones ? (gq == 0 ? 1.f : 0.f) : xsm[(kk + t4) * kDR + gq],
+              ones ? (gq == 0 ? 1.f : 0.f) : xsm[(kk + t4 + 4) * kDR + gq]};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (kExactX) {
+              bh[e] = __float_as_uint(bv[e]);
+              bl[e] = 0u;
+            } else {
+              split_tf32(bv[e], bh[e], bl[e]);
+            }
           }
-          row[d * kCols] += mu;
+          mma_tf32(acc[0], al, bh[0], bh[1]);
+          if (!kExactX) mma_tf32(acc[1], ah, bl[0], bl[1]);
+          mma_tf32(acc[2], ah, bh[0], bh[1]);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // the small products first
+          carry[tt][r] +=
+              ((double)acc[0][r] + (double)acc[1][r]) + (double)acc[2][r];
         }
       }
     }
-    obj += (double)ob;
+    __syncwarp();  // the tiles are free for the next column tile
   }
 
+  // The warps' carries: entry (centroid j, column f ≤ d) of warp w at
+  // wred[w][j·(d+1) + f], summed in warp order; column d is Σμ.
+#pragma unroll
+  for (int tt = 0; tt < kTiles; ++tt) {
+    if (tt < ntile) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = 16 * (tt / nt) + gq + (r >= 2 ? 8 : 0);
+        const int f = 8 * (tt % nt) + 2 * t4 + (r & 1);
+        if (j < k && f <= d) wred[warp * kPrivMax + j * d1 + f] = carry[tt][r];
+      }
+    }
+  }
   red[t] = obj;
   __syncthreads();
   float* my_ws = ws + (long long)blockIdx.x * k * d;
   double* my_w = wpart + (long long)blockIdx.x * k;
   for (int e = t; e < k * d1; e += kCols) {
     double sum = 0.0;
-    for (int u = 0; u < kCols; ++u) sum += (double)acc[e * kCols + u];
+    for (int w = 0; w < kCols / 32; ++w) sum += wred[w * kPrivMax + e];
     const int j = e / d1, f = e % d1;
     if (f < d) {
       my_ws[j * d + f] = (float)sum;
@@ -724,7 +852,7 @@ int lloyd_stats(const T* xt, const float* c, const float* c2, long long n,
                 int k, int d, int grid, float* ws, int* cnt,
                 double* sse_part, int* labels, cudaStream_t st) {
   if (private_mode(k, d)) {
-    return launch(tall_lloyd_private<T>, grid, private_smem(k, d, true), st,
+    return launch(tall_lloyd_private<T>, grid, private_smem(k, d), st,
                   xt, c, c2, n, k, d, ws, cnt, sse_part, labels);
   }
   const Geo g = make_geo(n, k, d);
@@ -737,9 +865,10 @@ int fuzzy_stats(const T* xt, const float* c, const float* c2, long long n,
                 int k, int d, float p, float mexp, float eps, int grid,
                 float* ws, double* wpart, double* opart, cudaStream_t st) {
   if (private_mode(k, d)) {
-    return launch(tall_fuzzy_private<T, kM2>, grid,
-                  private_smem(k, d, false), st, xt, c, c2, n, k, d, p, mexp,
-                  eps, ws, wpart, opart);
+    auto kern = fuzzy_tiles(k, d) == 1 ? tall_fuzzy_private<T, kM2, 1>
+                                       : tall_fuzzy_private<T, kM2, 3>;
+    return launch(kern, grid, fuzzy_private_smem(k, d), st, xt, c, c2, n, k,
+                  d, p, mexp, eps, ws, wpart, opart);
   }
   const Geo g = make_geo(n, k, d);
   return launch(tall_fuzzy_tile<T, kM2>, grid, fuzzy_tile_smem(g), st, xt, c,

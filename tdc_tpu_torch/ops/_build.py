@@ -38,8 +38,8 @@ _F = ctypes.c_float
 # (tdc_segment_chunk_rows, tdc_segment_meta_bytes, tdc_fuzzy_k_tile,
 # tdc_fuzzy_grid, tdc_gmm_row_block and tdc_tall_grid return the geometry
 # that sizes B3's and B12's, B8's, B9's, B10's and B11's workspaces;
-# tdc_lloyd_scratch_floats, in LONG_RESULTS, the size of B1's and B4's
-# per-call scratch).
+# tdc_lloyd_scratch_floats and tdc_lloyd_bf16_scratch_floats, in
+# LONG_RESULTS, the size of B1's and B4's and of B5's per-call scratch).
 SIGNATURES = {
     "tdc_distance_argmin": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "tdc_lloyd_stats_fused": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -47,7 +47,7 @@ SIGNATURES = {
     "tdc_lloyd_stats_fused_weighted": [_P, _P, _P, _LL, _I, _I, _I, _P, _P,
                                        _P, _P, _P, _P, _P, _P, _P],
     "tdc_lloyd_stats_fused_bf16": [_P, _I, _P, _P, _LL, _I, _I, _I, _P, _P,
-                                   _P, _P, _P, _P, _P, _P],
+                                   _P, _P, _P, _P, _P, _P, _P],
     "tdc_segment_sums": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _I, _P],
     "tdc_gathered_segment_sums": [_P, _I, _P, _P, _LL, _I, _I, _P, _P, _P,
                                   _P, _P],
@@ -74,9 +74,10 @@ SIGNATURES = {
                              _P, _P, _P, _P, _P, _P, _P],
     "tdc_tall_grid": [_LL, _I],
     "tdc_lloyd_scratch_floats": [_I, _I],
+    "tdc_lloyd_bf16_scratch_floats": [_I, _I],
 }
 # Entry points that return a long long instead of an int.
-LONG_RESULTS = ("tdc_lloyd_scratch_floats",)
+LONG_RESULTS = ("tdc_lloyd_scratch_floats", "tdc_lloyd_bf16_scratch_floats")
 
 
 class KernelLibrary(NamedTuple):

@@ -40,8 +40,8 @@ from tdc_tpu_torch.utils import device as _device  # noqa: F401  (f32 policy)
 from tdc_tpu_torch.utils.structlog import emit
 
 # B1's route limit. The fused kernels keep one (K, d) f32 partial per CTA
-# in device memory (B1 and B4: one CTA per SM, 132 on an H100 SXM; B5: two,
-# 264). K·d up to 2^19 keeps that workspace ≤ 264 · 2^19 · 4 B = 528 MiB,
+# in device memory (B1, B4 and B5: one CTA per SM, 132 on an H100 SXM).
+# K·d up to 2^19 keeps that workspace ≤ 132 · 2^19 · 4 B = 264 MiB,
 # and its zeroing and fixed-order reduction under ~1% of the distance work
 # at the same K·d. Beyond it lloyd_stats_auto takes the sorted route (B2 +
 # B3), whose memory does not grow with K·d.
@@ -49,7 +49,8 @@ FUSED_MAX_KD = 1 << 19
 # B4 (weighted) is held to K·(d+1) ≤ FUSED_MAX_KD, as the JAX package's
 # weighted route is (its accumulator carries the mass as column d).
 
-# Rows per block of B1 and B4 (csrc/lloyd_kernels.cu, kTcBM).
+# Rows per block of B1, B4 (csrc/lloyd_kernels.cu, kTcBM) and B5
+# (csrc/lloyd_bf16_kernels.cu, kBM).
 _TC_BM = 128
 
 # Rows per block of the plain versions: keeps their (rows, K) distance
@@ -181,14 +182,10 @@ def lloyd_stats_fused_plain(x: torch.Tensor, centroids: torch.Tensor, *,
     return (stats, labels) if return_labels else stats
 
 
-def fused_grid(device: torch.device) -> int:
-    """B5's CTA count: two per SM (two 256-thread CTAs fit one SM)."""
-    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def fused_tc_grid(device: torch.device, n: int) -> int:
-    """B1's and B4's CTA count: one per SM (each takes 227 KB of shared
-    memory), no more than there are 128-row blocks, at least one."""
+    """B1's, B4's and B5's CTA count: one per SM (each takes most of its
+    shared memory), no more than there are 128-row blocks, at least
+    one."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(sms, -(-n // _TC_BM)))
 
@@ -386,24 +383,26 @@ def lloyd_stats_fused_bf16(x: torch.Tensor, centroids: torch.Tensor, *,
     if x.device.type == "cpu":
         return lloyd_stats_fused_bf16_plain(x, centroids,
                                             return_labels=return_labels)
-    dev = x.device
-    grid = fused_grid(dev)
-    ws = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
+    (n, d), dev = x.shape, x.device
+    grid = fused_tc_grid(dev, n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.load().lib
+    scratch = torch.empty(lib.tdc_lloyd_bf16_scratch_floats(k, d), **f32)
+    ws = torch.empty((grid, k, d), **f32)
     cnt = torch.empty((grid, k), dtype=torch.int32, device=dev)
     sse_part = torch.empty(grid, dtype=torch.float64, device=dev)
-    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
-    counts = torch.empty(k, dtype=torch.float32, device=dev)
-    sse = torch.empty((), dtype=torch.float32, device=dev)
-    labels = (torch.empty(x.shape[0], dtype=torch.int32, device=dev)
+    sums = torch.empty((k, d), **f32)
+    counts = torch.empty(k, **f32)
+    sse = torch.empty((), **f32)
+    labels = (torch.empty(n, dtype=torch.int32, device=dev)
               if return_labels else None)
-    lib = _build.load().lib
     cb, c2 = _bf16_operands(x, centroids)
     _build.check(lib.tdc_lloyd_stats_fused_bf16(
         x.data_ptr(), int(x.dtype == torch.bfloat16), cb.data_ptr(),
-        c2.data_ptr(), x.shape[0], k, d, grid, ws.data_ptr(), cnt.data_ptr(),
-        sse_part.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-        sse.data_ptr(), None if labels is None else labels.data_ptr(),
-        _stream(x),
+        c2.data_ptr(), n, k, d, grid, scratch.data_ptr(), ws.data_ptr(),
+        cnt.data_ptr(), sse_part.data_ptr(), sums.data_ptr(),
+        counts.data_ptr(), sse.data_ptr(),
+        None if labels is None else labels.data_ptr(), _stream(x),
     ), "lloyd_stats_fused_bf16")
     lloyd_stats_fused_bf16.launches += 1
     stats = SufficientStats(sums=sums, counts=counts, sse=sse)

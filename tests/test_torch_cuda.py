@@ -26,14 +26,23 @@ B5's own metric), sums within rtol 1e-5 and atol 1e-4, SSE within rtol
 1e-5, two runs bitwise equal; centroids that differ in f32 but round to
 the same bf16 values tie on bf16 rows and the smaller index wins; a bf16
 kernel fit against the same fit on the CPU (plain version): equal n_iter
-and converged, centroids within 1e-4. B10 and B11 (the feature-major
+and converged, centroids within 1e-4. The edges of B5's tensor-core
+design (K = 1, K = 37, K·d at FUSED_MAX_KD, d = 8, 200 and 300, N = 1, a
+misaligned base) on f32 and bf16 rows: labels equal but at near-ties in
+B5's own metric, counts equal where they agree, sums within 1e-5 of Σ|x|
+against f64 sums by the kernel's own labels, SSE within rtol 1e-5,
+bitwise repeatable. B10 and B11 (the feature-major
 Lloyd and fuzzy stats) on f32 and bf16 columns, in the private (small
 K·(d+1)) and tile forms: B10 as B1 (labels and counts equal, sums within
 rtol 1e-5 and atol 1e-4), B11 as B6, both bitwise repeatable (the
 private form at d ≤ 8 in one and two register groups of centroids, the
 tile form past it); copies of a
 centroid take no columns in B10 and the same mass as the original in
-B11; layout="features" fits on the card against the same fits on the
+B11; the edges of B11's private form (its μᵀ·X on the tensor cores: d =
+1, 7 and 8, K = 1, 15, 16 and 48, K·(d+1) = 96, and 97 and 98 on the
+tile form) at ragged N, m = 2 and 1.7, f32 and bf16 columns, as B6, with
+copied centroids taking the original's mass bitwise; layout="features"
+fits on the card against the same fits on the
 CPU: equal n_iter and converged, centroids within 1e-4. B12 (B3 with the
 row gather fused in) on f32 and bf16 rows: bitwise equal to B3 on the
 gathered rows (widened to f32), bitwise repeatable, within rtol 1e-5 and
@@ -602,6 +611,74 @@ def test_b5_fit_matches_the_plain_fit(gen):
                                atol=1e-4)
 
 
+# The edges of B5's tensor-core design: K = 1; K below the 256-centroid
+# tile and not a multiple of 8; K·d at FUSED_MAX_KD; d = 8 (one k-step of
+# a 64-column block); d = 200 (one 256-column chunk of x, four column
+# blocks, the last partial); d = 300 (two chunks, x restaged per K tile);
+# N = 1; a misaligned base (the scalar path).
+B5_CASES = {
+    "k1": (2000, 1, 64),
+    "k37": (3001, 37, 64),
+    "kd_at_limit": (5000, 4096, 128),
+    "d8": (3001, 37, 8),
+    "d200": (3000, 70, 200),
+    "d300_two_chunks": (2000, 70, 300),
+    "n1": (1, 37, 19),
+    "n1_d128": (1, 300, 128),
+    "misaligned": (3001, 130, 128),
+}
+
+
+def _check_b5(x, c):
+    """B5 against its plain version: two runs bitwise equal; labels equal
+    to the plain version's but at near-ties in B5's own metric (c2 −
+    2·x̃·c̃ on the bf16-rounded operands, in f64: within 1e-5 of ‖x̃‖² +
+    max ‖c̃‖²); counts equal where the labels agree; sums within 1e-5 of
+    Σ|x| against f64 sums by the kernel's own labels; SSE within rtol
+    1e-5."""
+    k = c.shape[0]
+    st, lab = lk.lloyd_stats_fused_bf16(x, c, return_labels=True)
+    again, lab2 = lk.lloyd_stats_fused_bf16(x, c, return_labels=True)
+    assert all(torch.equal(a, b) for a, b in zip((*st, lab),
+                                                 (*again, lab2)))
+    want, plab = lk.lloyd_stats_fused_bf16_plain(x, c, return_labels=True)
+    other = lab != plab
+    diff = other.nonzero().flatten()
+    if diff.numel():
+        cb, c2 = lk._bf16_operands(x, c)
+        xr, cr = x[diff].to(torch.bfloat16).double(), cb.double()
+
+        def value(lb):
+            j = lb[diff].long()
+            return c2[j].double() - 2.0 * (xr * cr[j]).sum(1)
+
+        scale = (xr * xr).sum(1) + (cr * cr).sum(1).max()
+        assert ((value(lab) - value(plab)).abs() <= 1e-5 * scale).all()
+
+    def bincount(lb):
+        return torch.bincount(lb.long(), minlength=k).to(torch.float32)
+
+    assert torch.equal(st.counts - want.counts,
+                       bincount(lab[other]) - bincount(plab[other]))
+    xd = x.double()
+    ref = torch.zeros((k, x.shape[1]), dtype=torch.float64,
+                      device="cuda").index_add_(0, lab.long(), xd)
+    scale = torch.zeros_like(ref).index_add_(0, lab.long(), xd.abs())
+    assert ((st.sums.double() - ref).abs() <= 1e-5 * scale + 1e-6).all()
+    torch.testing.assert_close(st.sse, want.sse, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(B5_CASES))
+def test_b5_tensor_core_design_edges(gen, case, dtype):
+    n, k, d = B5_CASES[case]
+    x, c = _data(gen, n, k, d)
+    x = _rows(x.to(dtype).contiguous(), case == "misaligned")
+    before = lk.lloyd_stats_fused_bf16.launches
+    _check_b5(x, c)
+    assert lk.lloyd_stats_fused_bf16.launches == before + 2
+
+
 def _tall(gen, n, k, d):
     x, c = _data(gen, n, k, d)
     return x.T.contiguous(), c
@@ -667,3 +744,54 @@ def test_tall_fits_match_the_plain_fits(gen):
         assert (a.n_iter, a.converged) == (b.n_iter, b.converged)
         torch.testing.assert_close(a.centroids.cpu(), b.centroids,
                                    rtol=0.0, atol=1e-4)
+
+
+# The edges of B11's private form (d <= 8, K·(d+1) <= 96; its μᵀ·X on the
+# tensor cores in (m16, n8) tiles): d = 1 and 8; K = 1, 15 and 16;
+# K·(d+1) = 96 at K = 16, d = 5 (the route's d) and at K = 48, d = 1
+# (three m16 tiles); d = 7 (the ones column fills the n8 tile) and d = 8
+# (the ones column in a second n8 tile). K·(d+1) = 97 (K = 1, d = 96) and
+# 98 (K = 49, d = 1) take the tile form. N is ragged (no multiple of the
+# 256-column tile) throughout.
+B11_CASES = {
+    "d1_k1": (3001, 1, 1),
+    "d1_k48_kd96": (3001, 48, 1),
+    "d5_k15": (5003, 15, 5),
+    "d5_k16_kd96": (5003, 16, 5),
+    "d7_k12_kd96": (3001, 12, 7),
+    "d8_k1": (3001, 1, 8),
+    "d8_k10": (3001, 10, 8),
+    "tile_kd97": (3001, 1, 96),
+    "tile_kd98": (3001, 49, 1),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [2.0, 1.7])
+@pytest.mark.parametrize("case", list(B11_CASES))
+def test_b11_private_form_edges(gen, case, m, dtype):
+    # As test_b10_b11_match_plain; where K > 2, copies of centroid 1 at
+    # index 2 and K-1 take its Σμx and Σμ, bitwise.
+    n, k, d = B11_CASES[case]
+    xt, c = _tall(gen, n, k, d)
+    copies = [2, k - 1] if k > 3 else []
+    if copies:
+        c[copies] = c[1].clone()
+    xt = xt.to(dtype)
+    before = tt.fuzzy_stats_tall.launches
+    f = tt.fuzzy_stats_tall(xt, c, m)
+    assert all(torch.equal(a, b)
+               for a, b in zip(f, tt.fuzzy_stats_tall(xt, c, m)))
+    assert tt.fuzzy_stats_tall.launches == before + 2
+    pf = tt.fuzzy_stats_tall_plain(xt, c, m)
+    cr, c2 = tt._operands(xt, c)
+    xf = xt.float()
+    scale = tt.tall_memberships(xf, cr, c2, m)[0] @ xf.abs().T  # Σμ|x|
+    assert ((f.weighted_sums - pf.weighted_sums).abs()
+            <= 1e-5 * scale + 1e-6).all()
+    torch.testing.assert_close(f.weights, pf.weights, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(f.objective, pf.objective, rtol=1e-5,
+                               atol=0.0)
+    for j in copies:
+        assert torch.equal(f.weights[j], f.weights[1])
+        assert torch.equal(f.weighted_sums[j], f.weighted_sums[1])
