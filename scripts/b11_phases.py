@@ -15,29 +15,20 @@ builds:
   tensor cores);
 - no_accumulate: without the accumulate (μ and the columns are not
   written to the warp's tiles, no product);
-- no_powers: μ := inv (no division by s, no power m);
+- no_powers: μ := inv (no power of inv / s);
 - no_inv: at m = 2, inv := v (no 1/v);
 - no_distance: d² := ‖x‖² + ‖c‖² (no distance product);
-- fast_powers: a variant, timed and checked: at m ≠ 2 the two powers
-  from one log2f of each d² + eps and one of s, and exp2f, in place of
-  two powf;
-- three_ctas, one_cta: variants, timed and checked: three CTAs an SM
-  (85 registers a thread) or one instead of two at one output tile;
-- rcp_approx: a variant, timed and checked: at m = 2, 1/v as the
-  approximate reciprocal (`__fdividef`: one MUFU.RCP and a multiply)
-  instead of the IEEE division;
 - parent, parent_no_accumulate, parent_no_powers (with --parent TREE,
   the tdc_tpu_torch/ of an earlier commit, e.g. unpacked with `git
   archive <commit> tdc_tpu_torch`): the earlier private form (per-thread
   (K, d+1) accumulators in shared memory, PR 7) as it is, without its
   read-modify-writes of them, and with μ := inv.
 
-So accumulate = full − no_accumulate and powers = full − no_powers, for
-either design, 1/v = full − no_inv and the distances = full −
-no_distance at m = 2. Every build times (`time`) B11 at N=10^8, K=15, d=5 on
-chip_smoke.py's feature-major blobs: f32 columns at m=2 and m=1.7, bf16
-columns at m=2. The full, rcp_approx and parent builds also run
-`checks`:
+So accumulate = full − no_accumulate and powers = full − no_powers for
+either design, and 1/v = full − no_inv and the distances = full −
+no_distance at m = 2. Every build times (`time`) B11 at N=10^8, K=15,
+d=5 on chip_smoke.py's feature-major blobs: f32 columns at m=2 and
+m=1.7, bf16 columns at m=2. The full and parent builds also run `checks`:
 chip_smoke.py's B11 check (bitwise repeatable, Σμx within 1e-5 of Σμ|x|,
 Σμ and the objective within 1e-5 relative) at that shape on f32 and bf16
 columns at m=2 and 1.7, reporting the sums' max error and the largest
@@ -46,11 +37,12 @@ share of a tolerance used, or the first failure.
 Each build is a copy of tdc_tpu_torch/ and chip_smoke.py under DIR
 (default scratch_trees/b11_phases, which .gitignore lists), timed with
 CUDA events (median of 7 after a warm-up), in the order full,
-no_accumulate, no_powers, no_inv, no_distance, rcp_approx, then with
---parent the three
-parent builds, then full once more (times only). The cut builds compute
-wrong stats; only their times are read. Prints one JSON line per run,
-then the card's name and power limit. Needs a CUDA card and nvcc.
+no_accumulate, no_powers, no_inv, no_distance, then with --parent the
+three parent builds, then full once more (times only). The cut builds
+compute wrong stats; only their times are read. Each run also prints
+the ptxas registers and spills of the B11 kernels (where it built them)
+and ptxas's warnings. Prints one JSON line per run, then the card's name
+and power limit. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -76,12 +68,12 @@ ACCUMULATE = {
             make_float4(mu[q], mu[q + 1], mu[q + 2], mu[q + 3]);
 """, "        (void)mrow;\n"),),
 }
-POWERS = {"swaps": (("          mu[q] = mu_power<kM2>(iv[q] * rs, mexp);",
-                     "          mu[q] = iv[q];"),)}
+POWERS = {"swaps": (("          mu[q] = private_mu<kM2>(w[q], rs, ls, mexp);",
+                     "          mu[q] = private_inv<kM2>(w[q]);"),)}
 # Pass 1's parts: 1/v at m = 2 (inv := v), and the distance product (d²
 # := ‖x‖² + ‖c‖², no centroid is read).
-NO_INV = {"swaps": (("  return kM2 ? 1.f / v : powf(v, p);",
-                     "  return kM2 ? v : powf(v, p);"),)}
+NO_INV = {"swaps": (("  return kM2 ? 1.f / v : p * log2f(v);",
+                     "  return kM2 ? v : p * log2f(v);"),)}
 NO_DISTANCE = {"swaps": (("""\
     if (f < d) {
       const float4* row = reinterpret_cast<const float4*>(cs + f * kp + kg);""",
@@ -89,35 +81,6 @@ NO_DISTANCE = {"swaps": (("""\
     if (f < 0) {
       const float4* row = reinterpret_cast<const float4*>(cs + f * kp + kg);"""
                           ),)}
-# Variants, timed and checked: three CTAs an SM at one output tile (85
-# registers a thread) instead of two, and one.
-THREE_CTAS = {"swaps": (("__launch_bounds__(kCols, kTiles == 1 ? 2 : 1)",
-                         "__launch_bounds__(kCols, kTiles == 1 ? 3 : 1)"),)}
-ONE_CTA = {"swaps": (("__launch_bounds__(kCols, kTiles == 1 ? 2 : 1)",
-                      "__launch_bounds__(kCols, 1)"),)}
-# A variant, timed and checked: at m ≠ 2, the two powers from one log2
-# of each d² + eps and one of s (exp2f and log2f in place of two powf):
-# inv = 2^(p·L), μ = 2^(m·(p·L − log2 s)), L = log2(d² + eps).
-FAST_POWERS = {"swaps": (
-    ("""\
-          iv[q] = inv_power<kM2>(dd[q] + eps, p);
-          s += iv[q];""", """\
-          iv[q] = kM2 ? 1.f / (dd[q] + eps) : p * log2f(dd[q] + eps);
-          s += kM2 ? iv[q] : exp2f(iv[q]);"""),
-    ("        for (int q = 0; q < kKG; ++q) iv[q] = inv_power<kM2>(dd[q] + eps, p);",
-     "        for (int q = 0; q < kKG; ++q)\n"
-     "          iv[q] = kM2 ? 1.f / (dd[q] + eps) : p * log2f(dd[q] + eps);"),
-    ("    const float rs = 1.f / s;",
-     "    const float rs = 1.f / s;\n"
-     "    const float ls = kM2 ? 0.f : log2f(s);"),
-    ("          mu[q] = mu_power<kM2>(iv[q] * rs, mexp);",
-     "          mu[q] = kM2 ? (iv[q] * rs) * (iv[q] * rs)\n"
-     "                      : exp2f(mexp * (iv[q] - ls));"),
-)}
-# A variant, timed and checked: 1/v at m = 2 as the approximate
-# reciprocal (one MUFU.RCP and a multiply) instead of the IEEE division.
-RCP_APPROX = {"swaps": (("  return kM2 ? 1.f / v : powf(v, p);",
-                         "  return kM2 ? __fdividef(1.f, v) : powf(v, p);"),)}
 # The earlier design's:
 PARENT_ACCUMULATE = {"swaps": (("""\
           float* row = acc + j * d1 * kCols + t;
@@ -156,10 +119,6 @@ BUILDS = {
     "no_powers": ("repo", POWERS, ("time",)),
     "no_inv": ("repo", NO_INV, ("time",)),
     "no_distance": ("repo", NO_DISTANCE, ("time",)),
-    "rcp_approx": ("repo", RCP_APPROX, ("time", "checks")),
-    "fast_powers": ("repo", FAST_POWERS, ("time", "checks")),
-    "three_ctas": ("repo", THREE_CTAS, ("time", "checks")),
-    "one_cta": ("repo", ONE_CTA, ("time", "checks")),
     "parent": ("parent", {}, ("time", "checks")),
     "parent_no_accumulate": ("parent", PARENT_ACCUMULATE, ("time",)),
     "parent_no_powers": ("parent", PARENT_POWERS, ("time",)),
@@ -227,8 +186,7 @@ def main() -> int:
                     help="comma-separated builds to run, in order")
     args = ap.parse_args()
     out = Path(args.out)
-    order = ["full", "no_accumulate", "no_powers", "no_inv", "no_distance",
-             "rcp_approx", "fast_powers", "three_ctas", "one_cta"]
+    order = ["full", "no_accumulate", "no_powers", "no_inv", "no_distance"]
     if args.builds:
         order = args.builds.split(",")
     elif args.parent:

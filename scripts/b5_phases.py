@@ -17,10 +17,6 @@ with its own build, these builds:
 - no_product: without the tensor-core product as well: the staging of x,
   the centroid stages' stream and the hand-over of the (empty) labels
   are left;
-- one_chain, four_chains, no_pingpong: variants, timed and checked: the
-  ping-pong fold's compares in one or four chains a row (the kernel's:
-  two), and every K tile as one m64n256k16 chain folded after the tile
-  instead of four ping-ponged quarters;
 - acc_grouping and acc_no_x, probes of the accumulate: only its
   grouping of the rows by label (no workspace row is read, added or
   written), and everything but its reads of x;
@@ -34,7 +30,7 @@ So for either design accumulate = full − no_accumulate (the full design
 runs it beside the next block's product), fold = no_accumulate − no_fold,
 and for the full design product = no_fold − no_product. Every build times
 (`time`) B5 at N=2^22, K=1024, d=128 on chip_smoke.py's blobs, f32 and
-bf16 rows. The full, variant and parent builds also run `checks`: chip_smoke.py's
+bf16 rows. The full and parent builds also run `checks`: chip_smoke.py's
 B5 check (labels equal to the plain version's but at near-ties in B5's
 own metric, counts equal where they agree, sums within 1e-5 of Σ|x|, SSE
 within 1e-5 relative, bitwise repeatable) at that shape and at the ragged
@@ -44,8 +40,7 @@ error and the largest share of a tolerance used, or the first failure.
 Each build is a copy of tdc_tpu_torch/ and chip_smoke.py under DIR
 (default scratch_trees/b5_phases, which .gitignore lists), timed with
 CUDA events (median of 7 after a warm-up), in the order full,
-no_accumulate, no_fold, no_product, one_chain, four_chains,
-no_pingpong, acc_grouping, acc_no_x, then with
+no_accumulate, no_fold, no_product, acc_grouping, acc_no_x, then with
 --parent the three parent builds, then full once more (times only). Each
 run also prints the ptxas registers and spills of the source's kernels
 (where it built them) and ptxas's warnings. The cut builds compute wrong
@@ -69,39 +64,19 @@ SOURCE = "csrc/lloyd_bf16_kernels.cu"
 ACCUMULATE = {"spans": (("      sse += accumulate_block<T, kVec>(",
                          "      warp_arrive(&sm.freed[i & 1]);"),)}
 FOLD = {"swaps": (("""\
-      if (col + 1 < k && v1 <= tb[h][p]) {
-        tb[h][p] = v1;
-        tj[h][p] = col + 1;
-      }
-      if (col < k && v0 <= tb[h][p]) {
-        tb[h][p] = v0;
-        tj[h][p] = col;
-      }
-""", "      (void)v0;\n      (void)v1;\n"),)}
+          if (col < k && better(v0, col, best[h], barg[h])) {
+            best[h] = v0;
+            barg[h] = col;
+          }
+          if (col + 1 < k && better(v1, col + 1, best[h], barg[h])) {
+            best[h] = v1;
+            barg[h] = col + 1;
+          }
+""", "          (void)v0;\n          (void)v1;\n"),)}
 PRODUCT = {"swaps": (("""\
-      if (cb == 0 && kk == 0) {
-        wgmma_m64n64k16_bf16_first(acc, da, db);
-      } else {
-        wgmma_m64n64k16_bf16(acc, da, db, 1);
-      }
-""", "      (void)da;\n      (void)db;\n"), ("""\
-            wgmma_m64n256k16_bf16(acc, sw128_desc(xa + 16 * kk),
-                                  sw128_desc(cs + 16 * kk), 1);
-""", "            (void)xa;\n            (void)cs;\n"))}
-# Variants, timed and checked: the ping-pong fold's compares in one chain
-# or four a row (the kernel's: two), and every K tile as one m64n256k16
-# chain folded after the tile (no ping-pong).
-def _chains(c: int) -> dict:
-    return {"swaps": tuple(
-        (f"        fold<kQuarter, 2>(acc_{a}, c2p",
-         f"        fold<kQuarter, {c}>(acc_{a}, c2p") for a in "pq")}
-
-
-ONE_CHAIN = _chains(1)
-FOUR_CHAINS = _chains(4)
-NO_PINGPONG = {"swaps": (
-    ("  const bool pingpong = nch == 1 && 2 * ncb <= kSlots;",
-     "  const bool pingpong = false;"),)}
+          wgmma_m64n256k16_bf16(acc, sw128_desc(xa + 16 * kk),
+                                sw128_desc(cs + 16 * kk), 1);
+""", "          (void)xa;\n          (void)cs;\n"),)}
 # Probes of the accumulate: its grouping alone (no workspace row is
 # read, added or written), and the accumulate without its reads of x.
 ACC_GROUPING = {"spans": (
@@ -154,9 +129,6 @@ BUILDS = {
     "no_accumulate": ("repo", ACCUMULATE, ("time",)),
     "no_fold": ("repo", _join(ACCUMULATE, FOLD), ("time",)),
     "no_product": ("repo", _join(ACCUMULATE, FOLD, PRODUCT), ("time",)),
-    "one_chain": ("repo", ONE_CHAIN, ("time", "checks")),
-    "four_chains": ("repo", FOUR_CHAINS, ("time", "checks")),
-    "no_pingpong": ("repo", NO_PINGPONG, ("time", "checks")),
     "acc_grouping": ("repo", ACC_GROUPING, ("time",)),
     "acc_no_x": ("repo", ACC_NO_X, ("time",)),
     "parent": ("parent", {}, ("time", "checks")),
@@ -230,8 +202,8 @@ def main() -> int:
                     help="comma-separated builds to run, in order")
     args = ap.parse_args()
     out = Path(args.out)
-    order = ["full", "no_accumulate", "no_fold", "no_product", "one_chain",
-             "four_chains", "no_pingpong", "acc_grouping", "acc_no_x"]
+    order = ["full", "no_accumulate", "no_fold", "no_product",
+             "acc_grouping", "acc_no_x"]
     if args.builds:
         order = args.builds.split(",")
     elif args.parent:

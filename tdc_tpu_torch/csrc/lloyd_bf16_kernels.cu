@@ -16,8 +16,11 @@
 // TFLOP/s dense (H100 SXM data sheet): 1.11 ms at N = 2^22, K = 1024,
 // d = 128, against 0.64 ms to read f32 x once. At one bf16 product per
 // k-step the product is a sixth of B1's 3xTF32 one, so the champion fold
-// and the staging of x between products are most of what is left; the
-// design keeps both off the tensor core's path where it can.
+// and the accumulate, on the CUDA cores, take most of the time (PERF.md).
+// Accumulators in halves or quarters of a K tile that ping-pong, so that
+// the fold of one overlaps the product of the next, need more than the
+// 168 registers a thread that one 384-thread CTA an SM leaves: they
+// spilled and ran slower.
 //
 // Design: B1's kernel (lloyd_kernels.cu, `lloyd_fused_tc_kernel`) with
 // bf16 operands. A CTA of three warpgroups, one per SM, G = min(SMs, row
@@ -32,21 +35,19 @@
 // - Product (warpgroups 0 and 1, 64 rows each): each stages its rows of
 //   a 256-column chunk of x as bf16 (f32 rows rounded to nearest even,
 //   bf16 rows as they are, 0 past n and d; where d <= 256 once per block,
-//   past it per K tile and chunk) behind its own named barrier, summing
-//   each row's ‖x‖² at the row's dtype on the way. Where d <= 128 each K
-//   tile runs as four quarters of 64 centroids, one `wgmma` m64n64k16
-//   bf16 product a k-step of 16 columns into one of two sets of 32 f32
-//   accumulators a thread, which ping-pong: the champion fold of one
-//   quarter reads its accumulators in registers while the tensor cores
-//   compute the next (the smallest index among equal minima, a later
-//   quarter only on strict <, champion.cuh's rule). Past d = 128 each K
-//   tile is one m64n256k16 chain, folded after it. The block's labels,
-//   minima and ‖x‖² go to one of two buffers.
+//   past it per K tile and chunk: `kOneChunk`, a kernel each) behind its
+//   own named barrier, summing each row's ‖x‖² at the row's dtype on the
+//   way, and per k-step of 16 columns issues one `wgmma` m64n256k16 bf16
+//   product into 128 f32 accumulators a thread. After each K tile the champion fold reads the
+//   accumulators in registers (champion.cuh's `better`: the smallest
+//   index among equal minima, a later tile only on strict <). The block's
+//   labels, minima and ‖x‖² go to one of two buffers.
 // - Accumulate (warps 9-11), one block behind the product, so the two
 //   overlap: the block's rows are grouped by label (`group_rows`); each
 //   warp takes whole labels, kSegsPerPass at once, loads the workspace
 //   row once, adds the group's rows in row order at their own dtype and
-//   stores it once. Counts are the group sizes. Each row's SSE term is
+//   stores it once. Counts are the group sizes, one lane a group, so a
+//   pass's count updates are in flight together. Each row's SSE term is
 //   its minimum plus ‖x‖², the reference's function; the block's terms go
 //   through a fixed f64 tree.
 // Each CTA adds into its own (K, d) slice of a (G, K, d) f32 workspace
@@ -69,8 +70,7 @@ namespace {
 using namespace tdc;
 
 constexpr int kBM = 128;         // rows per block: two warpgroups of 64
-constexpr int kBN = 256;         // centroids per K tile (a ring stage)
-constexpr int kQuarter = kBN / 4;  // centroids per ping-pong product
+constexpr int kBN = 256;         // centroids per K tile (one m64n256)
 constexpr int kColBlock = 64;    // bf16 columns per swizzled tile row
 constexpr int kChunkBlocks = 4;  // column blocks per staged x chunk
 constexpr int kSlots = 4;        // centroid stages in the ring
@@ -82,9 +82,9 @@ constexpr int kB5Threads = kConsumers + 32 + kAccThreads;
 constexpr int kStageElems = kBN * kColBlock;                // 32 KiB
 constexpr int kSlabElems = kChunkBlocks * 64 * kColBlock;  // 32 KiB
 constexpr int kSkip = 0x7fffffff;  // label of a row past n
-constexpr int kSegsPerPass = 8;    // labels a warp accumulates at once
+constexpr int kSegsPerPass = 4;    // labels a warp accumulates at once
 
-// 195 KB, one CTA per SM.
+// 197 KiB, one CTA per SM.
 struct __align__(1024) Bf16Smem {
   __nv_bfloat16 xs[2][kSlabElems];  // [warpgroup][column block][64][64]
   __nv_bfloat16 ring[kSlots][kStageElems];
@@ -192,45 +192,53 @@ __device__ __forceinline__ uint4 load8_bf16(const T* __restrict__ x,
 
 // Stages columns [64·cb0, 64·(cb0 + nb)) of the calling warpgroup's 64
 // rows of the block at row0 into its half of the x buffer as bf16, 0
-// past n and d, kUnroll column blocks of loads in flight (fewer where the
-// accumulators are live); adds the staged values' squares into sq, by
-// the thread's four rows. Between the group's named barriers.
-template <typename T, bool kVec, int kUnroll>
+// past n and d. With `norms`, the staged values' squares at the rows' own
+// dtype go to x2_new (added where a column block past the first is
+// staged): each row's 8 lanes (bits 0-2 of the lane) add their parts in a
+// fixed tree. kLive: the accumulators are live, so one load is in flight
+// and the parts are added per column block; else eight, and the parts
+// are summed in registers first. Between the group's named barriers.
+template <typename T, bool kVec, bool kLive>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ x,
                                            long long n, int d,
                                            long long row0, int cb0, int nb,
-                                           Bf16Smem& sm, float (&sq)[4]) {
+                                           Bf16Smem& sm, bool norms) {
   const int tid = threadIdx.x, lane = tid % 32;
   const int wg = tid / 128, cw = (tid / 32) % 4;
   const int q = lane % 8, rr = lane / 8;
-#pragma unroll(kUnroll)
-  for (int b = 0; b < nb; ++b) {
-#pragma unroll
-    for (int r4 = 0; r4 < 4; ++r4) {
-      const int rl = r4 * 16 + cw * 4 + rr;
-      float s;
-      const uint4 v = load8_bf16<T, kVec>(x, n, d, row0 + 64 * wg + rl,
-                                          (cb0 + b) * kColBlock + 8 * q, s);
-      sq[r4] += s;
-      *reinterpret_cast<uint4*>(
-          &sm.xs[wg][b * 64 * kColBlock + swizzle_col_bf16(rl, 8 * q)]) = v;
-    }
-  }
-}
-
-// The staged rows' ‖x‖²: each row's 8 lanes (bits 0-2 of the lane) add
-// their parts in a fixed tree, and one of them writes it to x2_new.
-__device__ __forceinline__ void write_row_norms(const float (&sq)[4],
-                                                Bf16Smem& sm) {
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int wg = tid / 128, cw = (tid / 32) % 4;
-#pragma unroll
-  for (int r4 = 0; r4 < 4; ++r4) {
-    float t = sq[r4];
+  auto stage = [&](int b, int r4) {
+    const int rl = r4 * 16 + cw * 4 + rr;
+    float s;
+    const uint4 v = load8_bf16<T, kVec>(x, n, d, row0 + 64 * wg + rl,
+                                        (cb0 + b) * kColBlock + 8 * q, s);
+    *reinterpret_cast<uint4*>(
+        &sm.xs[wg][b * 64 * kColBlock + swizzle_col_bf16(rl, 8 * q)]) = v;
+    return s;
+  };
+  auto add_norm = [&](float t, int r4, bool first) {
 #pragma unroll
     for (int off = 1; off <= 4; off <<= 1)
       t += __shfl_xor_sync(0xffffffffu, t, off);
-    if (lane % 8 == 0) sm.x2_new[64 * wg + r4 * 16 + cw * 4 + lane / 8] = t;
+    float& out = sm.x2_new[64 * wg + r4 * 16 + cw * 4 + rr];
+    if (q == 0) out = first ? t : out + t;
+  };
+  if constexpr (kLive) {
+#pragma unroll 1
+    for (int i = 0; i < 4 * nb; ++i) {
+      const float s = stage(i / 4, i % 4);
+      if (norms) add_norm(s, i % 4, cb0 + i / 4 == 0);
+    }
+  } else {
+    float sq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+    for (int b = 0; b < nb; ++b) {
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) sq[r4] += stage(b, r4);
+    }
+    if (norms) {
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) add_norm(sq[r4], r4, cb0 == 0);
+    }
   }
 }
 
@@ -344,100 +352,12 @@ __device__ __forceinline__ double accumulate_block(
   return t;
 }
 
-// Waits for the ncb stages of the K tile whose first stage is number g.
-__device__ __forceinline__ void wait_tile(Bf16Smem& sm, unsigned g,
-                                          int ncb) {
-  for (int cb = 0; cb < ncb; ++cb) {
-    mbar_wait(&sm.full[(g + cb) % kSlots], ((g + cb) / kSlots) & 1);
-  }
-  __syncwarp();  // `wgmma` is aligned: the warp converged
-}
-
-// Issues (and commits) quarter q of the K tile whose stages start at g:
-// x against the quarter's 64 centroids over every column block, one
-// `wgmma` m64n64k16 a k-step. Its first k-step only writes the
-// accumulators, so they are dead (free for the fold's temporaries and
-// the staging) before it.
-__device__ __forceinline__ void issue_quarter(float (&acc)[kQuarter / 2],
-                                              const __nv_bfloat16* xw,
-                                              Bf16Smem& sm, unsigned g,
-                                              int ncb, int d, int q) {
-  wgmma_fence();
-  for (int cb = 0; cb < ncb; ++cb) {
-    const __nv_bfloat16* xa = xw + cb * 64 * kColBlock;
-    const __nv_bfloat16* cs =
-        sm.ring[(g + cb) % kSlots] + q * kQuarter * kColBlock;
-    const int ks = min(kColBlock / 16, (d - cb * kColBlock + 15) / 16);
-    for (int kk = 0; kk < ks; ++kk) {
-      const unsigned long long da = sw128_desc(xa + 16 * kk);
-      const unsigned long long db = sw128_desc(cs + 16 * kk);
-      if (cb == 0 && kk == 0) {
-        wgmma_m64n64k16_bf16_first(acc, da, db);
-      } else {
-        wgmma_m64n64k16_bf16(acc, da, db, 1);
-      }
-    }
-  }
-  wgmma_commit();
-  fence_operands(acc);
-}
-
-// The fold of kN centroids c0 .. c0 + kN - 1 (a quarter or a K tile):
-// this thread's kN / 4 columns (8j + 2·t4 and + 1) for its two rows, in
-// kChains chains a row (by j) so that the compares overlap. Each chain
-// runs from its last column down with <=, so the smallest index among
-// equal minima wins in it; the chains' champions and the running one
-// then meet by champion.cuh's rule (value, then index: a later tile only
-// on strict <).
-template <int kN, int kChains>
-__device__ __forceinline__ void fold(const float (&acc)[kN / 2],
-                                     const float* __restrict__ c2p, int k,
-                                     int c0, int t4, float (&best)[2],
-                                     int (&barg)[2]) {
-  float tb[2][kChains];
-  int tj[2][kChains];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int p = 0; p < kChains; ++p) {
-      tb[h][p] = CUDART_INF_F;
-      tj[h][p] = kArgSentinel;
-    }
-  }
-#pragma unroll
-  for (int j = kN / 8 - 1; j >= 0; --j) {
-    const int col = c0 + 8 * j + 2 * t4;
-    const int p = j % kChains;
-    const float2 cc = __ldg(reinterpret_cast<const float2*>(c2p + col));
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float v0 = cc.x - 2.f * acc[4 * j + 2 * h];
-      const float v1 = cc.y - 2.f * acc[4 * j + 2 * h + 1];
-      if (col + 1 < k && v1 <= tb[h][p]) {
-        tb[h][p] = v1;
-        tj[h][p] = col + 1;
-      }
-      if (col < k && v0 <= tb[h][p]) {
-        tb[h][p] = v0;
-        tj[h][p] = col;
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int p = 0; p < kChains; ++p) {
-      if (better(tb[h][p], tj[h][p], best[h], barg[h])) {
-        best[h] = tb[h][p];
-        barg[h] = tj[h][p];
-      }
-    }
-  }
-}
-
 // T is the row dtype (float or __nv_bfloat16). stages and c2p come from
 // the pre-pass; ws is (grid, K, d), cnt (grid, K); labels may be null.
-template <typename T, bool kVec>
+// kOneChunk: d fits one staged chunk (d <= 256), so the rows are staged
+// once per block and never while the accumulators are live; a kernel of
+// its own, so that the restaging path's registers do not constrain it.
+template <typename T, bool kVec, bool kOneChunk>
 __global__ void __launch_bounds__(kB5Threads, 1)
     lloyd_bf16_tc_kernel(const T* __restrict__ x,
                          const __nv_bfloat16* __restrict__ stages,
@@ -468,7 +388,7 @@ __global__ void __launch_bounds__(kB5Threads, 1)
   __syncthreads();
 
   const int ncb = col_blocks(d);
-  const int nch = (ncb + kChunkBlocks - 1) / kChunkBlocks;
+  const int nch = kOneChunk ? 1 : (ncb + kChunkBlocks - 1) / kChunkBlocks;
   const int nkt = (k + kBN - 1) / kBN;
   const long long nblocks = (n + kBM - 1) / kBM;
 
@@ -514,112 +434,88 @@ __global__ void __launch_bounds__(kB5Threads, 1)
     return;
   }
 
-  // The product: warpgroup wg owns rows 64·wg.. of the block. In the
+  // The product: warpgroup wg owns rows 64·wg.. of the block; in the
   // accumulator layout thread (warp ww of the group, lane gq·4 + t4) holds
-  // rows 16·ww + gq and + 8, columns 8j + 2·t4 and + 1 of the product.
-  // Where d <= 128 (the ring then holds two K tiles' stages) each K tile
-  // runs as four quarters of 64 centroids, `wgmma` m64n64k16 chains into
-  // two sets of 32 accumulators that ping-pong: the fold of one quarter
-  // runs while the tensor cores compute the next. Past it each K tile is
-  // one m64n256k16 chain over its stages, folded after the tile.
+  // rows 16·ww + gq and + 8, columns 8j + 2·t4 and + 1 (j < 32).
   const int wg = warp / 4, ww = warp % 4, gq = lane / 4, t4 = lane % 4;
   const int rl0 = 64 * wg + 16 * ww + gq;
-  const __nv_bfloat16* xw = sm.xs[wg];
-  const bool pingpong = nch == 1 && 2 * ncb <= kSlots;
   unsigned g = 0, i = 0;
+  float acc[kBN / 2];
   for (long long b = blockIdx.x; b < nblocks; b += gridDim.x, ++i) {
     const long long row0 = b * kBM;
     const int rows = (int)min((long long)kBM, n - row0);
-    float sq[4] = {0.f, 0.f, 0.f, 0.f};  // this thread's parts of ‖x‖²
-    if (nch == 1) {  // the group's rows, once: its products are done
+    if (kOneChunk) {  // the group's rows, once: its products are done
       named_barrier(1 + wg, 128);
-      stage_rows<T, kVec, 2>(x, n, d, row0, 0, ncb, sm, sq);
-      write_row_norms(sq, sm);
+      stage_rows<T, kVec, false>(x, n, d, row0, 0, ncb, sm, true);
       fence_proxy_async();
       named_barrier(1 + wg, 128);
     }
     float best[2] = {CUDART_INF_F, CUDART_INF_F};
     int barg[2] = {kArgSentinel, kArgSentinel};
-    if (pingpong) {
-      // Quarters 2p (into acc_p) and 2p + 1 (into acc_q) of the block's
-      // 4·nkt; quarter u is quarter u % 4 of K tile u / 4.
-      float acc_p[kQuarter / 2], acc_q[kQuarter / 2];
-      const int nq = 4 * nkt;
-      wait_tile(sm, g, ncb);
-      issue_quarter(acc_p, xw, sm, g, ncb, d, 0);
-      issue_quarter(acc_q, xw, sm, g, ncb, d, 1);
-      for (int u = 0; u < nq; u += 2) {
-        const unsigned gt = g + (u / 4) * ncb;  // this tile's first stage
-        wgmma_wait<1>();  // quarter u is done
-        fence_operands(acc_p);
-        fold<kQuarter, 2>(acc_p, c2p, k, u * kQuarter, t4, best, barg);
-        if (u + 2 < nq) {
-          const unsigned gn = g + ((u + 2) / 4) * ncb;
-          if (gn != gt) wait_tile(sm, gn, ncb);
-          issue_quarter(acc_p, xw, sm, gn, ncb, d, (u + 2) % 4);
-          wgmma_wait<1>();  // quarter u + 1 is done
-        } else {
-          wgmma_wait<0>();
-        }
-        fence_operands(acc_q);
-        if ((u + 1) % 4 == 3) {  // the tile's last quarter: free its stages
-          for (int cb = 0; cb < ncb; ++cb)
-            warp_arrive(&sm.empty[(gt + cb) % kSlots]);
-        }
-        fold<kQuarter, 2>(acc_q, c2p, k, (u + 1) * kQuarter, t4, best, barg);
-        if (u + 3 < nq) {
-          issue_quarter(acc_q, xw, sm, g + ((u + 3) / 4) * ncb, ncb, d,
-                        (u + 3) % 4);
-        }
-      }
-      g += nkt * ncb;
-    } else {
-      float acc[kBN / 2];
-      for (int kt = 0; kt < nkt; ++kt) {
-        // Zeroed here rather than by the first product's scale-d: outside
-        // the K tiles the accumulators are dead, which frees their 128
-        // registers for the staging.
+    for (int kt = 0; kt < nkt; ++kt) {
+      // Zeroed here rather than by the first product's scale-d: outside
+      // the K tiles the accumulators are dead, which frees their 128
+      // registers for the staging.
 #pragma unroll
-        for (int e = 0; e < kBN / 2; ++e) acc[e] = 0.f;
-        int prev = -1;
-        for (int cb = 0; cb < ncb; ++cb, ++g) {
-          if (nch > 1 && cb % kChunkBlocks == 0) {
-            // A new x chunk: the group's `wgmma`s on its half are done.
-            if (prev >= 0) {
-              wgmma_wait<0>();
-              warp_arrive(&sm.empty[prev]);
-              prev = -1;
-            }
-            named_barrier(1 + wg, 128);
-            stage_rows<T, kVec, 1>(x, n, d, row0, cb,
-                                   min(kChunkBlocks, ncb - cb), sm, sq);
-            // ‖x‖² once the first K tile has staged every chunk.
-            if (kt == 0 && cb + kChunkBlocks >= ncb) write_row_norms(sq, sm);
-            fence_proxy_async();
-            named_barrier(1 + wg, 128);
+      for (int e = 0; e < kBN / 2; ++e) acc[e] = 0.f;
+      int prev = -1;
+      for (int cb = 0; cb < ncb; ++cb, ++g) {
+        if (!kOneChunk && cb % kChunkBlocks == 0) {
+          // A new x chunk: the group's `wgmma`s on its half are done.
+          if (prev >= 0) {
+            wgmma_wait<0>();
+            warp_arrive(&sm.empty[prev]);
+            prev = -1;
           }
-          const __nv_bfloat16* xa = xw + (cb % kChunkBlocks) * 64 * kColBlock;
-          const int ks = min(kColBlock / 16, (d - cb * kColBlock + 15) / 16);
-          const int slot = g % kSlots;
-          mbar_wait(&sm.full[slot], (g / kSlots) & 1);
-          __syncwarp();  // `wgmma` is aligned: the warp converged
-          const __nv_bfloat16* cs = sm.ring[slot];
-          wgmma_fence();
-          fence_operands(acc);
-          for (int kk = 0; kk < ks; ++kk) {
-            wgmma_m64n256k16_bf16(acc, sw128_desc(xa + 16 * kk),
-                                  sw128_desc(cs + 16 * kk), 1);
-          }
-          wgmma_commit();
-          fence_operands(acc);
-          wgmma_wait<1>();  // the previous stage's products are done
-          if (prev >= 0) warp_arrive(&sm.empty[prev]);
-          prev = slot;
+          named_barrier(1 + wg, 128);
+          // ‖x‖² is summed while the first K tile stages the chunks.
+          stage_rows<T, kVec, true>(x, n, d, row0, cb,
+                                    min(kChunkBlocks, ncb - cb), sm, kt == 0);
+          fence_proxy_async();
+          named_barrier(1 + wg, 128);
         }
-        wgmma_wait<0>();
-        warp_arrive(&sm.empty[prev]);
+        const __nv_bfloat16* xa =
+            &sm.xs[wg][(cb % kChunkBlocks) * 64 * kColBlock];
+        const int ks = min(kColBlock / 16, (d - cb * kColBlock + 15) / 16);
+        const int slot = g % kSlots;
+        mbar_wait(&sm.full[slot], (g / kSlots) & 1);
+        __syncwarp();  // `wgmma` is aligned: the warp converged
+        const __nv_bfloat16* cs = sm.ring[slot];
+        wgmma_fence();
         fence_operands(acc);
-        fold<kBN, 1>(acc, c2p, k, kt * kBN, t4, best, barg);
+        for (int kk = 0; kk < ks; ++kk) {
+          wgmma_m64n256k16_bf16(acc, sw128_desc(xa + 16 * kk),
+                                sw128_desc(cs + 16 * kk), 1);
+        }
+        wgmma_commit();
+        fence_operands(acc);
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (prev >= 0) warp_arrive(&sm.empty[prev]);
+        prev = slot;
+      }
+      wgmma_wait<0>();
+      warp_arrive(&sm.empty[prev]);
+      fence_operands(acc);
+      // The fold: this thread's 64 columns of the K tile for its two rows,
+      // in column order, by champion.cuh's rule (the smallest index among
+      // equal minima; a later tile only on strict <).
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = kt * kBN + 8 * j + 2 * t4;
+        const float2 cc = __ldg(reinterpret_cast<const float2*>(c2p + col));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v0 = cc.x - 2.f * acc[4 * j + 2 * h];
+          const float v1 = cc.y - 2.f * acc[4 * j + 2 * h + 1];
+          if (col < k && better(v0, col, best[h], barg[h])) {
+            best[h] = v0;
+            barg[h] = col;
+          }
+          if (col + 1 < k && better(v1, col + 1, best[h], barg[h])) {
+            best[h] = v1;
+            barg[h] = col + 1;
+          }
+        }
       }
     }
     // Across the quad (lanes differing in bits 0-1), then one writer per
@@ -651,12 +547,12 @@ __global__ void __launch_bounds__(kB5Threads, 1)
   }
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kOneChunk>
 cudaError_t launch_main(const T* x, const __nv_bfloat16* stages,
                         const float* c2p, long long n, int k, int d,
                         int grid, float* ws, int* cnt, double* sse_part,
                         int* labels, cudaStream_t s) {
-  auto kernel = lloyd_bf16_tc_kernel<T, kVec>;
+  auto kernel = lloyd_bf16_tc_kernel<T, kVec, kOneChunk>;
   const int smem = (int)sizeof(Bf16Smem);  // past 48 KB: dynamic only
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -682,10 +578,12 @@ int launch_bf16(const T* x, const __nv_bfloat16* cb, const float* c2,
   constexpr int kVecCols = 16 / (int)sizeof(T);  // columns per 16 bytes
   const bool vec = d % kVecCols == 0 &&
                    reinterpret_cast<unsigned long long>(x) % 16 == 0;
-  err = vec ? launch_main<T, true>(x, stages, c2p, n, k, d, grid, ws, cnt,
-                                   sse_part, labels, s)
-            : launch_main<T, false>(x, stages, c2p, n, k, d, grid, ws, cnt,
-                                    sse_part, labels, s);
+  const bool one = col_blocks(d) <= kChunkBlocks;
+  auto run = vec ? (one ? launch_main<T, true, true>
+                        : launch_main<T, true, false>)
+                 : (one ? launch_main<T, false, true>
+                        : launch_main<T, false, false>);
+  err = run(x, stages, c2p, n, k, d, grid, ws, cnt, sse_part, labels, s);
   if (err != cudaSuccess) return (int)err;
   return tdc::launch_lloyd_reduce(ws, cnt, nullptr, sse_part, grid, k, d,
                                   sums, counts, sse, s);

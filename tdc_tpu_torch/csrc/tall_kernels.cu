@@ -17,7 +17,8 @@
 //   inv = (d² + eps)^(−1/(m−1)),  u = inv / Σ_k inv,  μ = u^m
 // and the outputs are Σμx (K, d), Σμ (K,) and Σμ·d² (), all f32. At m = 2
 // the powers take the exact forms 1/v and u·u (what XLA compiles `** -1.0`
-// and `** 2.0` to), as B6 does; any other m takes powf. The build uses no
+// and `** 2.0` to), as B6 does; at any other m the tile form takes powf
+// and the private form exp2 and log2 (`private_w`). The build uses no
 // fast-math. The reference runs its accumulate at DEFAULT precision on a
 // TPU; here it is f32, the result of its interpret mode.
 //
@@ -50,8 +51,10 @@
 //   accumulators in thread order (f64). B11 keeps a column's d² and inv in
 //   registers from its first pass (s) to its second (μ) where K ≤ 16, and
 //   recomputes them otherwise; at m = 2 its powers are the exact 1/v and
-//   u·u, with u = inv · (1/s), one division a column. Its accumulate
-//   Σ_j μ_kj·x_fj and Σ_j μ_kj runs on the tensor cores: each thread
+//   u·u, with u = inv · (1/s), one division a column; at other m one
+//   log2 of each d² + eps and of s, and exp2, replace two powf. Its
+//   accumulate Σ_j μ_kj·x_fj and Σ_j μ_kj runs on the tensor cores: each
+//   thread
 //   writes its column's μ and features (and a ones column) to its warp's
 //   shared tiles, and the warp runs `mma.sync` m16n8k8 over its 32 columns
 //   with the 3xTF32 split (B6's, tf32_accum.cuh), whose f32 fragments add
@@ -125,6 +128,25 @@ __device__ __forceinline__ float inv_power(float v, float p) {
 template <bool kM2>
 __device__ __forceinline__ float mu_power(float u, float m) {
   return kM2 ? u * u : powf(u, m);
+}
+
+// The private form's powers from w, one value per (column, centroid): at
+// m = 2 w = 1/v, inv = w and μ = (w·(1/s))², as the tile form's exact
+// forms; otherwise w = p·log2(v), inv = 2^w and μ = 2^(m·(w − log2 s)):
+// one log2 of each v and one of s in place of two powf (within the card
+// tolerance at m = 1.7, PERF.md).
+template <bool kM2>
+__device__ __forceinline__ float private_w(float v, float p) {
+  return kM2 ? 1.f / v : p * log2f(v);
+}
+template <bool kM2>
+__device__ __forceinline__ float private_inv(float w) {
+  return kM2 ? w : exp2f(w);
+}
+template <bool kM2>
+__device__ __forceinline__ float private_mu(float w, float rs, float ls,
+                                            float m) {
+  return kM2 ? (w * rs) * (w * rs) : exp2f(m * (w - ls));
 }
 
 // ---------------------------------------------------------------------------
@@ -357,37 +379,38 @@ __global__ void __launch_bounds__(kCols, kTiles == 1 ? 2 : 1)
     float x2 = 0.f;
 #pragma unroll
     for (int f = 0; f < kDR; ++f) x2 = fmaf(x0[f], x0[f], x2);
-    // Pass 1: s = Σ_k inv. dd and iv keep the last group's d² and inv,
-    // the only group where K ≤ kKG.
-    float dd[kKG], iv[kKG];
+    // Pass 1: s = Σ_k inv. dd and w keep the last group's d² and w (see
+    // private_w), the only group where K ≤ kKG.
+    float dd[kKG], w[kKG];
     float s = 0.f;
     for (int kg = 0; kg < k; kg += kKG) {
       group_d2(cs, c2s, kp, d, kg, x0, x2, dd);
 #pragma unroll
       for (int q = 0; q < kKG; ++q) {
         if (kg + q < k) {
-          iv[q] = inv_power<kM2>(dd[q] + eps, p);
-          s += iv[q];
+          w[q] = private_w<kM2>(dd[q] + eps, p);
+          s += private_inv<kM2>(w[q]);
         }
       }
     }
-    // Pass 2: μ = (inv · (1/s))^m into this column's row of the μ tile
-    // (0 past K and past N), Σμ·d² in registers.
+    // Pass 2: μ = (inv / s)^m into this column's row of the μ tile (0
+    // past K and past N), Σμ·d² in registers.
     const float rs = 1.f / s;
+    const float ls = kM2 ? 0.f : log2f(s);
     float ob = 0.f;
     float* mrow = mus + lane * ms;
     for (int kg = 0; kg < kp; kg += kKG) {
       if (k > kKG) {
         group_d2(cs, c2s, kp, d, kg, x0, x2, dd);
 #pragma unroll
-        for (int q = 0; q < kKG; ++q) iv[q] = inv_power<kM2>(dd[q] + eps, p);
+        for (int q = 0; q < kKG; ++q) w[q] = private_w<kM2>(dd[q] + eps, p);
       }
       float mu[kKG];
 #pragma unroll
       for (int q = 0; q < kKG; ++q) {
         mu[q] = 0.f;
         if (live && kg + q < k) {
-          mu[q] = mu_power<kM2>(iv[q] * rs, mexp);
+          mu[q] = private_mu<kM2>(w[q], rs, ls, mexp);
           ob = fmaf(mu[q], dd[q], ob);
         }
       }
@@ -446,8 +469,7 @@ __global__ void __launch_bounds__(kCols, kTiles == 1 ? 2 : 1)
         }
 #pragma unroll
         for (int r = 0; r < 4; ++r) {  // the small products first
-          carry[tt][r] +=
-              ((double)acc[0][r] + (double)acc[1][r]) + (double)acc[2][r];
+          carry[tt][r] += (double)((acc[0][r] + acc[1][r]) + acc[2][r]);
         }
       }
     }

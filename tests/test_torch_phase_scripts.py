@@ -19,7 +19,10 @@ from pathlib import Path
 
 import pytest
 
+import tdc_tpu_torch
+
 REPO = Path(__file__).resolve().parent.parent
+PKG = Path(tdc_tpu_torch.__file__).resolve().parent  # the scripts' copy root
 
 
 def _script(name: str):
@@ -52,7 +55,7 @@ def _cut_builds():
 
 def _sources(tree: Path) -> dict:
     return {p.name: p.read_text()
-            for p in sorted((tree / "tdc_tpu_torch" / "csrc").iterdir())}
+            for p in sorted((tree / PKG.name / "csrc").iterdir())}
 
 
 def test_every_script_has_cut_builds():
@@ -63,8 +66,7 @@ def test_every_script_has_cut_builds():
 
 @pytest.mark.parametrize("script,build", _cut_builds())
 def test_cut_build_applies_and_changes_the_source(tmp_path, script, build):
-    shutil.copytree(REPO / "tdc_tpu_torch" / "csrc",
-                    tmp_path / "tdc_tpu_torch" / "csrc")
+    shutil.copytree(PKG / "csrc", tmp_path / PKG.name / "csrc")
     before = _sources(tmp_path)
     _apply(script, build, tmp_path)
     after = _sources(tmp_path)
@@ -77,7 +79,6 @@ def test_cut_build_applies_and_changes_the_source(tmp_path, script, build):
 def test_a_cut_that_misses_raises(tmp_path, script):
     # A marker that is not in the source must fail loudly, not time a
     # build that cut nothing.
-    shutil.copytree(REPO / "tdc_tpu_torch" / "csrc",
-                    tmp_path / "tdc_tpu_torch" / "csrc")
+    shutil.copytree(PKG / "csrc", tmp_path / PKG.name / "csrc")
     with pytest.raises(ValueError):
         _script(script).cut(tmp_path, swaps=(("no such source text", ""),))
