@@ -17,8 +17,6 @@ with its own build, these builds:
 - no_product: without the tensor-core product as well: the staging of x,
   the centroid stages' stream and the hand-over of the (empty) labels
   are left;
-- two_chains, four_chains: variants, timed and checked: the fold's
-  compares in two or four independent chains a row;
 - acc_grouping and acc_no_x, probes of the accumulate: only its
   grouping of the rows by label (no workspace row is read, added or
   written), and everything but its reads of x;
@@ -79,72 +77,6 @@ PRODUCT = {"swaps": (("""\
           wgmma_m64n256k16_bf16(acc, sw128_desc(xa + 16 * kk),
                                 sw128_desc(cs + 16 * kk), 1);
 """, "          (void)xa;\n          (void)cs;\n"),)}
-# Variants, timed and checked: the fold's compares in c independent
-# chains a row (columns by j % c, each from its last column down with
-# <=), the chains' champions then joined by champion.cuh's rule.
-def _chains(c: int) -> dict:
-    chained = f"""\
-      float tb[2][{c}], tj_[2][{c}];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int p = 0; p < {c}; ++p) {{
-          tb[h][p] = CUDART_INF_F;
-          tj_[h][p] = kArgSentinel;
-        }}
-#pragma unroll
-      for (int j = kBN / 8 - 1; j >= 0; --j) {{
-        const int col = kt * kBN + 8 * j + 2 * t4;
-        const int p = j % {c};
-        const float2 cc = __ldg(reinterpret_cast<const float2*>(c2p + col));
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {{
-          const float v0 = cc.x - 2.f * acc[4 * j + 2 * h];
-          const float v1 = cc.y - 2.f * acc[4 * j + 2 * h + 1];
-          if (col + 1 < k && v1 <= tb[h][p]) {{
-            tb[h][p] = v1;
-            tj_[h][p] = col + 1;
-          }}
-          if (col < k && v0 <= tb[h][p]) {{
-            tb[h][p] = v0;
-            tj_[h][p] = col;
-          }}
-        }}
-      }}
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int p = 0; p < {c}; ++p)
-          if (better(tb[h][p], tj_[h][p], best[h], barg[h])) {{
-            best[h] = tb[h][p];
-            barg[h] = tj_[h][p];
-          }}
-"""
-    return {"swaps": ((FOLD_LOOP, chained),)}
-
-
-FOLD_LOOP = """\
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        const int col = kt * kBN + 8 * j + 2 * t4;
-        const float2 cc = __ldg(reinterpret_cast<const float2*>(c2p + col));
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float v0 = cc.x - 2.f * acc[4 * j + 2 * h];
-          const float v1 = cc.y - 2.f * acc[4 * j + 2 * h + 1];
-          if (col < k && better(v0, col, best[h], barg[h])) {
-            best[h] = v0;
-            barg[h] = col;
-          }
-          if (col + 1 < k && better(v1, col + 1, best[h], barg[h])) {
-            best[h] = v1;
-            barg[h] = col + 1;
-          }
-        }
-      }
-"""
-TWO_CHAINS = _chains(2)
-FOUR_CHAINS = _chains(4)
 # Probes of the accumulate: its grouping alone (no workspace row is
 # read, added or written), and the accumulate without its reads of x.
 ACC_GROUPING = {"spans": (
@@ -197,8 +129,6 @@ BUILDS = {
     "no_accumulate": ("repo", ACCUMULATE, ("time",)),
     "no_fold": ("repo", _join(ACCUMULATE, FOLD), ("time",)),
     "no_product": ("repo", _join(ACCUMULATE, FOLD, PRODUCT), ("time",)),
-    "two_chains": ("repo", TWO_CHAINS, ("time", "checks")),
-    "four_chains": ("repo", FOUR_CHAINS, ("time", "checks")),
     "acc_grouping": ("repo", ACC_GROUPING, ("time",)),
     "acc_no_x": ("repo", ACC_NO_X, ("time",)),
     "parent": ("parent", {}, ("time", "checks")),
