@@ -81,17 +81,6 @@ NO_DISTANCE = {"swaps": (("""\
     if (f < 0) {
       const float4* row = reinterpret_cast<const float4*>(cs + f * kp + kg);"""
                           ),)}
-# The register accumulate (K <= 16) without its sums, and the tensor-core
-# accumulate in its place (a variant, timed and checked).
-REGS_ACCUMULATE = {"swaps": (("""\
-#pragma unroll
-        for (int f = 0; f < kDR; ++f) {
-          if (f < d) acc[q][f] = fmaf(mu, x0[f], acc[q][f]);
-        }
-        acc[q][kDR] += mu;
-""", ""),)}
-MMA_ACCUMULATE = {"swaps": (("  if (private_mode(k, d) && k <= kKG) {",
-                             "  if (false) {"),)}
 # The earlier design's:
 PARENT_ACCUMULATE = {"swaps": (("""\
           float* row = acc + j * d1 * kCols + t;
@@ -130,8 +119,6 @@ BUILDS = {
     "no_powers": ("repo", POWERS, ("time",)),
     "no_inv": ("repo", NO_INV, ("time",)),
     "no_distance": ("repo", NO_DISTANCE, ("time",)),
-    "regs_no_accumulate": ("repo", REGS_ACCUMULATE, ("time",)),
-    "mma_accumulate": ("repo", MMA_ACCUMULATE, ("time", "checks")),
     "parent": ("parent", {}, ("time", "checks")),
     "parent_no_accumulate": ("parent", PARENT_ACCUMULATE, ("time",)),
     "parent_no_powers": ("parent", PARENT_POWERS, ("time",)),

@@ -510,120 +510,6 @@ __global__ void __launch_bounds__(kCols, kTiles == 1 ? 2 : 1)
   }
 }
 
-// B11's private form where K ≤ kKG: each thread keeps its columns'
-// (K, d+1) sums in registers, acc[kKG][kDR + 1] under uniform guards
-// (q < K, f < d), μ·x and μ added by one FMA or add each, in column order;
-// at the end the CTA sums its threads' sums in thread order (f64)
-// through shared memory: red (K·(d+1), kCols) f32, then obj (kCols) f64.
-// The 144 accumulators take one CTA an SM.
-size_t fuzzy_regs_smem(int k, int d) {
-  return (size_t)(kDR + 1) * padded_k(k) * 4 +
-         (size_t)k * (d + 1) * kCols * 4 + (size_t)kCols * 8;
-}
-
-template <typename T, bool kM2>
-__global__ void __launch_bounds__(kCols, 1)
-    tall_fuzzy_private_regs(const T* __restrict__ xt,
-                            const float* __restrict__ c,
-                            const float* __restrict__ c2, long long n, int k,
-                            int d, float p, float mexp, float eps,
-                            float* __restrict__ ws,
-                            double* __restrict__ wpart,
-                            double* __restrict__ opart) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kp = padded_k(k);
-  const int d1 = d + 1;
-  const int t = threadIdx.x;
-  float* cs = reinterpret_cast<float*>(smem);
-  float* c2s = cs + kDR * kp;
-  float* red = c2s + kp;
-  double* ored = reinterpret_cast<double*>(red + k * d1 * kCols);
-  stage_private(c, c2, k, d, kp, cs, c2s);
-  __syncthreads();
-
-  float acc[kKG][kDR + 1];
-#pragma unroll
-  for (int q = 0; q < kKG; ++q)
-#pragma unroll
-    for (int f = 0; f <= kDR; ++f) acc[q][f] = 0.f;
-  double obj = 0.0;  // this thread's columns' Σμ·d²
-  const long long ntiles = (n + kCols - 1) / kCols;
-  const long long stride = (long long)gridDim.x * kCols;
-  float xn[kDR];
-  load_column(xt, n, d, (long long)blockIdx.x * kCols + t, xn);
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long col = tile * kCols + t;
-    float x0[kDR];
-#pragma unroll
-    for (int f = 0; f < kDR; ++f) x0[f] = xn[f];
-    load_column(xt, n, d, col + stride, xn);
-    if (col >= n) continue;
-    float x2 = 0.f;
-#pragma unroll
-    for (int f = 0; f < kDR; ++f) x2 = fmaf(x0[f], x0[f], x2);
-    // Pass 1: s = Σ_k inv, with d² and w kept for pass 2.
-    float dd[kKG], w[kKG];
-    float s = 0.f;
-    group_d2(cs, c2s, kp, d, 0, x0, x2, dd);
-#pragma unroll
-    for (int q = 0; q < kKG; ++q) {
-      if (q < k) {
-        w[q] = private_w<kM2>(dd[q] + eps, p);
-        s += private_inv<kM2>(w[q]);
-      }
-    }
-    // Pass 2: μ = (inv / s)^m into the sums, Σμ·d² beside.
-    const float rs = 1.f / s;
-    const float ls = kM2 ? 0.f : log2f(s);
-    float ob = 0.f;
-#pragma unroll
-    for (int q = 0; q < kKG; ++q) {
-      if (q < k) {
-        const float mu = private_mu<kM2>(w[q], rs, ls, mexp);
-        ob = fmaf(mu, dd[q], ob);
-#pragma unroll
-        for (int f = 0; f < kDR; ++f) {
-          if (f < d) acc[q][f] = fmaf(mu, x0[f], acc[q][f]);
-        }
-        acc[q][kDR] += mu;
-      }
-    }
-    obj += (double)ob;
-  }
-
-  // Entry (centroid q, column f ≤ d; column d is Σμ) of thread u at
-  // red[(q·(d+1) + f)·kCols + u], summed in thread order.
-#pragma unroll
-  for (int q = 0; q < kKG; ++q) {
-    if (q < k) {
-#pragma unroll
-      for (int f = 0; f < kDR; ++f) {
-        if (f < d) red[(q * d1 + f) * kCols + t] = acc[q][f];
-      }
-      red[(q * d1 + d) * kCols + t] = acc[q][kDR];
-    }
-  }
-  ored[t] = obj;
-  __syncthreads();
-  float* my_ws = ws + (long long)blockIdx.x * k * d;
-  double* my_w = wpart + (long long)blockIdx.x * k;
-  for (int e = t; e < k * d1; e += kCols) {
-    double sum = 0.0;
-    for (int u = 0; u < kCols; ++u) sum += (double)red[e * kCols + u];
-    const int j = e / d1, f = e % d1;
-    if (f < d) {
-      my_ws[j * d + f] = (float)sum;
-    } else {
-      my_w[j] = sum;
-    }
-  }
-  if (t == 0) {
-    double sum = 0.0;
-    for (int u = 0; u < kCols; ++u) sum += ored[u];
-    opart[blockIdx.x] = sum;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The tile form (every other shape).
 
@@ -1000,11 +886,6 @@ template <typename T, bool kM2>
 int fuzzy_stats(const T* xt, const float* c, const float* c2, long long n,
                 int k, int d, float p, float mexp, float eps, int grid,
                 float* ws, double* wpart, double* opart, cudaStream_t st) {
-  if (private_mode(k, d) && k <= kKG) {
-    return launch(tall_fuzzy_private_regs<T, kM2>, grid,
-                  fuzzy_regs_smem(k, d), st, xt, c, c2, n, k, d, p, mexp,
-                  eps, ws, wpart, opart);
-  }
   if (private_mode(k, d)) {
     auto kern = fuzzy_tiles(k, d) == 1 ? tall_fuzzy_private<T, kM2, 1>
                                        : tall_fuzzy_private<T, kM2, 3>;
