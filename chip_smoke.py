@@ -270,6 +270,10 @@ ZERO_SHARE = 0.05  # share of the weights set exactly to 0
 # 100M, n_dim = 5, K in {15, 12, 9, 6, 3}; SURVEY.md), uncut.
 TALL_SHAPE = (10 ** 8, 15, 5)  # N, K, d
 TALL_WIDE = (1 << 18, 1024, 128)
+# B11's private form at a small N: too few columns for one TF32 pass's
+# rounding of μᵀ·X to average out below REL_TOL of Σμ|x|, so its Σμx check
+# fails a product that is not 3xTF32 (scripts/b11_phases.py's one_tf32).
+TALL_SMALL = (1000, 15, 5)
 TALL_ARGS = [
     "--method_name=distributedKMeans", f"--n_obs={TALL_SHAPE[0]}",
     f"--n_dim={TALL_SHAPE[2]}", f"--K={TALL_SHAPE[1]}", "--layout=features",
@@ -389,12 +393,14 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
                                        else "bytes")
 
 
-def tc_bound_ms(tc_flops: float, f32_flops: float,
-                nbytes: float) -> tuple[float, str]:
+def tc_bound_ms(tc_flops: float, f32_flops: float, nbytes: float,
+                passes: int = 3) -> tuple[float, str]:
     """The bound of a kernel whose products of tc_flops run on the tensor
-    cores in 3xTF32 (three TF32 products) and the rest on the f32 pipe:
-    the larger of that time and bytes/bandwidth."""
-    t_ops = 3.0 * tc_flops / PEAK_TF32_TC_FLOPS + f32_flops / PEAK_F32_FLOPS
+    cores as `passes` TF32 products (3xTF32: three; two where one operand
+    is exact in TF32) and the rest on the f32 pipe: the larger of that
+    time and bytes/bandwidth."""
+    t_ops = (passes * tc_flops / PEAK_TF32_TC_FLOPS
+             + f32_flops / PEAK_F32_FLOPS)
     t_bytes = nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -1453,7 +1459,8 @@ def check_tall_fuzzy(name, xt, c, m) -> float:
 def phase_tall_kernel(gen) -> dict:
     """Phase 3, B10 and B11: at the tall routes' shape on f32 and bf16
     columns (the f32 numbers, m=2 for B11, are the JSON line's), B1 on the
-    transposed points timed beside B10, then the ragged and wide cases."""
+    transposed points timed beside B10, then the small, ragged and wide
+    cases."""
     n, k, d = TALL_SHAPE
     xt, c = tall_blobs(gen, n, k, d)
     b10, b11 = {}, {}
@@ -1463,8 +1470,9 @@ def phase_tall_kernel(gen) -> dict:
         # Bytes: the columns once, the centroids and c2 in, Σx, counts
         # and the SSE out. Operations: the 2·N·K·d distance product on
         # the f32 pipe; B11 adds the 2·N·K·d of μᵀx, on the tensor cores
-        # in 3xTF32 (bound_ms) or on the f32 pipe too (bound_f32_ms); its
-        # powers run on the SFU.
+        # in 3xTF32 (bound_ms; two TF32 passes on bf16 columns, which are
+        # exact in TF32) or on the f32 pipe too (bound_f32_ms); its powers
+        # run on the SFU.
         nbytes = (cols.element_size() * n * d
                   + 4.0 * (2 * k * d + 2 * k + 1))
         err, ties = check_tall_lloyd(f"B10 {key}", cols, c)
@@ -1476,7 +1484,8 @@ def phase_tall_kernel(gen) -> dict:
             bound_ms=b_ms, bound_by=b_by)
         print(f"[B10] N={n} K={k} d={d} {key}: {json.dumps(b10[key])}",
               flush=True)
-        b_ms, b_by = tc_bound_ms(2.0 * n * k * d, 2.0 * n * k * d, nbytes)
+        b_ms, b_by = tc_bound_ms(2.0 * n * k * d, 2.0 * n * k * d, nbytes,
+                                 passes=2 if key == "bf16_columns" else 3)
         b_f32_ms = bound_ms(4.0 * n * k * d, nbytes)[0]
         for m in FUZZY_MS:
             b11[(key, m)] = dict(
@@ -1504,7 +1513,7 @@ def phase_tall_kernel(gen) -> dict:
                    m_1_7=b11[("f32_columns", 1.7)],
                    bf16_columns={str(m): b11[("bf16_columns", m)]
                                  for m in FUZZY_MS})
-    for n, k, d in (FUZZY_RAGGED, TALL_WIDE):
+    for n, k, d in (TALL_SMALL, FUZZY_RAGGED, TALL_WIDE):
         xt, c = tall_blobs(gen, n, k, d)
         for cols in (xt, xt.to(torch.bfloat16)):
             err, ties = check_tall_lloyd(f"B10 N={n} {cols.dtype}", cols, c)

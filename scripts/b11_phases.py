@@ -18,6 +18,10 @@ builds:
 - no_powers: μ := inv (no power of inv / s);
 - no_inv: at m = 2, inv := v (no 1/v);
 - no_distance: d² := ‖x‖² + ‖c‖² (no distance product);
+- one_tf32: the control: μᵀ·X as one TF32 pass (μ_hi·x_hi, the two
+  correction products dropped), checked only: its Σμx must fail the
+  small-N check below, which is what fails it in chip_smoke.py and the
+  card tests;
 - parent, parent_no_accumulate, parent_no_powers (with --parent TREE,
   the tdc_tpu_torch/ of an earlier commit, e.g. unpacked with `git
   archive <commit> tdc_tpu_torch`): the earlier private form (per-thread
@@ -28,18 +32,21 @@ So accumulate = full − no_accumulate and powers = full − no_powers for
 either design, and 1/v = full − no_inv and the distances = full −
 no_distance at m = 2. Every build times (`time`) B11 at N=10^8, K=15,
 d=5 on chip_smoke.py's feature-major blobs: f32 columns at m=2 and
-m=1.7, bf16 columns at m=2. The full and parent builds also run `checks`:
-chip_smoke.py's B11 check (bitwise repeatable, Σμx within 1e-5 of Σμ|x|,
-Σμ and the objective within 1e-5 relative) at that shape on f32 and bf16
-columns at m=2 and 1.7, reporting the sums' max error and the largest
-share of a tolerance used, or the first failure.
+m=1.7, bf16 columns at m=2. The full, one_tf32 and parent builds run
+`checks`: chip_smoke.py's B11 check (bitwise repeatable, Σμx within 1e-5
+of Σμ|x|, Σμ and the objective within 1e-5 relative) on f32 and bf16
+columns at m=2 and 1.7, at that shape and at chip_smoke.py's TALL_SMALL
+(N=1000: too few columns for one TF32 pass's rounding to average out),
+reporting the sums' max error and the largest share of a tolerance used,
+or the first failure.
 
 Each build is a copy of tdc_tpu_torch/ and chip_smoke.py under DIR
 (default scratch_trees/b11_phases, which .gitignore lists), timed with
 CUDA events (median of 7 after a warm-up), in the order full,
-no_accumulate, no_powers, no_inv, no_distance, then with --parent the
-three parent builds, then full once more (times only). The cut builds
-compute wrong stats; only their times are read. Each run also prints
+no_accumulate, no_powers, no_inv, no_distance, one_tf32, then with
+--parent the three parent builds, then full once more (times only);
+--builds picks builds. The cut builds compute wrong stats; only their
+times and check readings are read (scripts/_phases.py runs them). Each run also prints
 the ptxas registers and spills of the B11 kernels (where it built them)
 and ptxas's warnings. Prints one JSON line per run, then the card's name
 and power limit. Needs a CUDA card and nvcc.
@@ -47,99 +54,70 @@ and power limit. Needs a CUDA card and nvcc.
 
 from __future__ import annotations
 
-import argparse
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parent.parent
+from _phases import edit, main
+
 SOURCE = "csrc/tall_kernels.cu"
 
-# (start, end) markers of source removed, [start, end); (old, new)
-# replacements. The full design's:
-ACCUMULATE = {
-    "spans": (("    {  // the column's features",
-               "    if (live) obj += (double)ob;\n    __syncwarp();"),
-              ("    // μᵀ·X over the warp's 32 columns",
-               "    __syncwarp();  // the tiles are free")),
-    "swaps": (("""\
+# The full design's cuts:
+ACCUMULATE = edit(SOURCE, spans=(
+    ("    {  // the column's features",
+     "    if (live) obj += (double)ob;\n    __syncwarp();"),
+    ("    // μᵀ·X over the warp's 32 columns",
+     "    __syncwarp();  // the tiles are free")), swaps=(("""\
         *reinterpret_cast<float4*>(mrow + kg + q) =
             make_float4(mu[q], mu[q + 1], mu[q + 2], mu[q + 3]);
-""", "        (void)mrow;\n"),),
-}
-POWERS = {"swaps": (("          mu[q] = private_mu<kM2>(w[q], rs, ls, mexp);",
-                     "          mu[q] = private_inv<kM2>(w[q]);"),)}
+""", "        (void)mrow;\n"),))
+POWERS = edit(SOURCE, swaps=((
+    "          mu[q] = fuzzy_mu<kM2>(w[q], rs, ls, mexp);",
+    "          mu[q] = fuzzy_inv<kM2>(w[q]);"),))
 # Pass 1's parts: 1/v at m = 2 (inv := v), and the distance product (d²
 # := ‖x‖² + ‖c‖², no centroid is read).
-NO_INV = {"swaps": (("  return kM2 ? 1.f / v : p * log2f(v);",
-                     "  return kM2 ? v : p * log2f(v);"),)}
-NO_DISTANCE = {"swaps": (("""\
+NO_INV = edit(SOURCE, swaps=(("  return kM2 ? 1.f / v : p * log2f(v);",
+                              "  return kM2 ? v : p * log2f(v);"),))
+NO_DISTANCE = edit(SOURCE, swaps=(("""\
     if (f < d) {
       const float4* row = reinterpret_cast<const float4*>(cs + f * kp + kg);""",
-                          """\
+                                   """\
     if (f < 0) {
       const float4* row = reinterpret_cast<const float4*>(cs + f * kp + kg);"""
-                          ),)}
+                                   ),))
+# The control: μᵀ·X as one TF32 pass (μ_hi·x_hi; the lo·hi and hi·lo
+# products dropped).
+ONE_TF32 = edit(SOURCE, swaps=(("""\
+          mma_tf32(acc[0], al, bh[0], bh[1]);
+          if (!kExactX) mma_tf32(acc[1], ah, bl[0], bl[1]);
+""", "          (void)al;\n          (void)bl;\n"),))
 # The earlier design's:
-PARENT_ACCUMULATE = {"swaps": (("""\
+PARENT_ACCUMULATE = edit(SOURCE, swaps=(("""\
           float* row = acc + j * d1 * kCols + t;
 #pragma unroll
           for (int f = 0; f < kDR; ++f) {
             if (f < d) row[f * kCols] = fmaf(mu, x0[f], row[f * kCols]);
           }
           row[d * kCols] += mu;
-""", ""),)}
-PARENT_POWERS = {"swaps": (
-    ("          const float mu = mu_power<kM2>(iv[q] / s, mexp);",
-     "          const float mu = iv[q];"),)}
+""", ""),))
+PARENT_POWERS = edit(SOURCE, swaps=((
+    "          const float mu = mu_power<kM2>(iv[q] / s, mexp);",
+    "          const float mu = iv[q];"),))
 
-
-def cut(tree: Path, spans=(), swaps=()) -> None:
-    """Applies the cuts to tree/tdc_tpu_torch/SOURCE; raises where a
-    marker is not found exactly once."""
-    path = tree / "tdc_tpu_torch" / SOURCE
-    text = path.read_text()
-    for marker in [s for span in spans for s in span] + [o for o, _ in swaps]:
-        if text.count(marker) != 1:
-            raise ValueError(f"a cut's source is not where this script "
-                             f"expects in {SOURCE}: {marker.strip()[:60]!r}")
-    for start, end in spans:
-        a = text.index(start)
-        text = text[:a] + text[text.index(end, a):]
-    for old, new in swaps:
-        text = text.replace(old, new)
-    path.write_text(text)
-
-
-# name -> (source: "repo" or "parent", cuts, runs)
+# name -> (root, cut, runs)
 BUILDS = {
-    "full": ("repo", {}, ("time", "checks")),
+    "full": ("repo", (), ("time", "checks")),
     "no_accumulate": ("repo", ACCUMULATE, ("time",)),
     "no_powers": ("repo", POWERS, ("time",)),
     "no_inv": ("repo", NO_INV, ("time",)),
     "no_distance": ("repo", NO_DISTANCE, ("time",)),
-    "parent": ("parent", {}, ("time", "checks")),
+    "one_tf32": ("repo", ONE_TF32, ("checks",)),
+    "parent": ("parent", (), ("time", "checks")),
     "parent_no_accumulate": ("parent", PARENT_ACCUMULATE, ("time",)),
     "parent_no_powers": ("parent", PARENT_POWERS, ("time",)),
 }
 
 TIMER = r"""
-import json, statistics, sys, time
-import torch
 import chip_smoke as cs
 from tdc_tpu_torch.ops import _build, tall as tk
-
-def median_ms(fn, reps=7):
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record(); fn(); b.record(); b.synchronize()
-        out.append(a.elapsed_time(b))
-    return statistics.median(out)
 
 def reading(name, xt, c, m):
     cs.TOL_SHARES.clear()
@@ -150,7 +128,6 @@ def reading(name, xt, c, m):
     return {"passes": True, "max_abs_err": err,
             "tol_share": max(cs.TOL_SHARES.values())}
 
-build, runs = sys.argv[1], sys.argv[2].split(",")
 t0 = time.perf_counter()
 kl = _build.load()
 out = {"build": build, "build_s": time.perf_counter() - t0}
@@ -172,53 +149,21 @@ for cols in (xt, xt.to(torch.bfloat16)):
             out[f"{key}_m{m}_checks"] = reading(f"B11 {key} m={m}", cols, c,
                                                 m)
     del cols
+del xt, c
+if "checks" in runs:  # the small N, where one TF32 pass shows
+    xt, c = cs.tall_blobs(gen, *cs.TALL_SMALL)
+    for cols in (xt, xt.to(torch.bfloat16)):
+        key = str(cols.dtype).removeprefix("torch.")
+        for m in cs.FUZZY_MS:
+            out[f"small_{key}_m{m}_checks"] = reading(
+                f"B11 small {key} m={m}", cols, c, m)
 print(json.dumps(out), flush=True)
 """
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=str(REPO / "scratch_trees" /
-                                         "b11_phases"))
-    ap.add_argument("--parent", default=None,
-                    help="a directory holding an earlier tdc_tpu_torch/")
-    ap.add_argument("--builds", default=None,
-                    help="comma-separated builds to run, in order")
-    args = ap.parse_args()
-    out = Path(args.out)
-    order = ["full", "no_accumulate", "no_powers", "no_inv", "no_distance"]
-    if args.builds:
-        order = args.builds.split(",")
-    elif args.parent:
-        order += ["parent", "parent_no_accumulate", "parent_no_powers"]
-    if not args.builds:
-        order.append("full")
-    roots = {"repo": REPO, "parent": Path(args.parent) if args.parent
-             else None}
-    for name in dict.fromkeys(order):
-        source, cuts, _ = BUILDS[name]
-        if roots[source] is None:
-            raise SystemExit(f"build {name} needs --parent")
-        tree = out / name
-        shutil.rmtree(tree, ignore_errors=True)
-        shutil.copytree(roots[source] / "tdc_tpu_torch",
-                        tree / "tdc_tpu_torch",
-                        ignore=shutil.ignore_patterns("_build",
-                                                      "__pycache__"))
-        shutil.copy(REPO / "chip_smoke.py", tree / "chip_smoke.py")
-        cut(tree, **cuts)
-    seen = set()
-    for name in order:
-        runs = BUILDS[name][2] if name not in seen else ("time",)
-        seen.add(name)
-        subprocess.run([sys.executable, "-c", TIMER, name, ",".join(runs)],
-                       cwd=out / name, check=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main("b11_phases", BUILDS, TIMER,
+                  ["full", "no_accumulate", "no_powers", "no_inv",
+                   "no_distance", "one_tf32"],
+                  ["parent", "parent_no_accumulate", "parent_no_powers"],
+                  reps=7))

@@ -57,31 +57,27 @@ bitwise equal. The parent's labels are those of its B2
 (`distance_argmin`), which runs the same champion fold on the same f32
 products.
 
-Each build is a copy of tdc_tpu_torch/ under DIR (default
-scratch_trees/b1_b4_phases, which .gitignore lists), timed with CUDA
-events (median of 5 after a warm-up), in the order given (default: full,
-no_accumulate, mma_sync, one_tf32, then with --parent the three parent
-builds, then full once more, times only). The cut builds compute wrong stats; only their
-times are read. Prints one JSON line per run, then the card's name and
-power limit. Needs a CUDA card and nvcc.
+Each build is a copy of tdc_tpu_torch/ (and chip_smoke.py) under DIR
+(default scratch_trees/b1_b4_phases, which .gitignore lists), timed with
+CUDA events (median of 5 after a warm-up), in the order given (default:
+full, no_accumulate, mma_sync, one_tf32, then with --parent the three
+parent builds, then full once more, times only; scripts/_phases.py runs
+them). The cut builds compute wrong stats; only their times are read.
+Prints one JSON line per run, then the card's name and power limit.
+Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
-import argparse
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parent.parent
+from _phases import edit, main
+
 SOURCE = "csrc/lloyd_kernels.cu"
 
-# (start, end) markers of the source removed, [start, end).
-CUT_ACCUMULATE = (
+ACCUMULATE = edit(SOURCE, spans=(
     ("      sse += accumulate_block<kVec, kWeighted>(",
-     "      warp_arrive(&sm.freed[i & 1]);"),
-)
+     "      warp_arrive(&sm.freed[i & 1]);"),))
 # The product as `mma.sync` m16n8k8 (tf32_accum.cuh's `mma_tf32`) on the
 # same swizzled tiles: each warp's 16 rows times the stage's 256
 # centroids as 32 n8 tiles, whose f32 fragments are laid out as `wgmma`'s
@@ -130,69 +126,38 @@ ONE_TF32_PRODUCT = """\
             }
           }
 """
-PARENT_ACCUMULATE = (
+PARENT_ACCUMULATE = edit(SOURCE, spans=(
     ("    for (int j = tid; j < cols; j += kThreads) {\n"
      "      for (int r = 0; r < rows; ++r) {",
-     "    if (tid == 0) {\n      for (int r = 0; r < rows; ++r) sse +="),
-)
-# (old, new) replacements: the parent's ‖x‖² read and its SSE loop.
-PARENT_NORM = (
+     "    if (tid == 0) {\n      for (int r = 0; r < rows; ++r) sse +="),))
+# The parent's ‖x‖² read and its SSE loop.
+PARENT_NORM = edit(SOURCE, swaps=(
     ("      const float x2 = row_sq_norm(x, n, d, row);",
      "      const float x2 = 0.f;"),
     ("      for (int r = 0; r < rows; ++r) sse += (double)s_val[r];",
-     "      (void)rows;"),
-)
+     "      (void)rows;")))
 
 
-def cut(tree: Path, spans=(), swaps=()) -> None:
-    path = tree / "tdc_tpu_torch" / SOURCE
-    text = path.read_text()
-    for start, end in spans:
-        if start not in text or end not in text:
-            raise ValueError(f"the cut's source is not where this script "
-                             f"expects in {SOURCE}")
-        a = text.index(start)
-        text = text[:a] + text[text.index(end, a):]
-    for old, new in swaps:
-        if old not in text:
-            raise ValueError(f"the cut's source is not where this script "
-                             f"expects in {SOURCE}")
-        text = text.replace(old, new)
-    path.write_text(text)
-
-
-# name -> (source: "repo" or "parent", cuts, runs)
+# name -> (root, cut, runs)
 BUILDS = {
-    "full": ("repo", {}, ("time", "checks")),
-    "no_accumulate": ("repo", {"spans": CUT_ACCUMULATE}, ("time",)),
-    "mma_sync": ("repo", {"swaps": ((WGMMA_PRODUCT, MMA_SYNC_PRODUCT),)},
+    "full": ("repo", (), ("time", "checks")),
+    "no_accumulate": ("repo", ACCUMULATE, ("time",)),
+    "mma_sync": ("repo", edit(SOURCE, swaps=((WGMMA_PRODUCT,
+                                              MMA_SYNC_PRODUCT),)),
                  ("time", "checks")),
-    "one_tf32": ("repo", {"swaps": ((WGMMA_PRODUCT, ONE_TF32_PRODUCT),)},
+    "one_tf32": ("repo", edit(SOURCE, swaps=((WGMMA_PRODUCT,
+                                              ONE_TF32_PRODUCT),)),
                  ("checks",)),
-    "parent": ("parent", {}, ("time", "checks")),
-    "parent_no_accumulate": ("parent", {"spans": PARENT_ACCUMULATE},
-                             ("time",)),
-    "parent_no_norm": ("parent", {"spans": PARENT_ACCUMULATE,
-                                  "swaps": PARENT_NORM}, ("time",)),
+    "parent": ("parent", (), ("time", "checks")),
+    "parent_no_accumulate": ("parent", PARENT_ACCUMULATE, ("time",)),
+    "parent_no_norm": ("parent", PARENT_ACCUMULATE + PARENT_NORM,
+                       ("time",)),
 }
 
 TIMER = r"""
-import json, statistics, sys, time
-import torch
 from tdc_tpu_torch.ops import _build, lloyd_kernels as lk
 
 REL_TOL, TIE_TOL = 1e-5, 1e-5
-
-def median_ms(fn, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record(); fn(); b.record(); b.synchronize()
-        out.append(a.elapsed_time(b))
-    return statistics.median(out)
 
 def blobs(gen, n, k, d):
     centers = (torch.rand((k, d), generator=gen, device="cuda") * 2 - 1) * 3
@@ -287,7 +252,6 @@ def reading(x, c, w=None):
                                      ).max())
     return out
 
-build, runs = sys.argv[1], sys.argv[2].split(",")
 t0 = time.perf_counter()
 _build.load()
 out = {"build": build, "build_s": time.perf_counter() - t0}
@@ -338,52 +302,9 @@ if "checks" in runs:
 """
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=str(REPO / "scratch_trees" /
-                                         "b1_b4_phases"))
-    ap.add_argument("--parent", default=None,
-                    help="a directory holding an earlier tdc_tpu_torch/")
-    ap.add_argument("--builds", default=None,
-                    help="comma-separated builds to run, in order")
-    args = ap.parse_args()
-    out = Path(args.out)
-    if args.builds:
-        order = args.builds.split(",")
-    else:
-        order = ["full", "no_accumulate", "mma_sync", "one_tf32"]
-        if args.parent:
-            order += ["parent", "parent_no_accumulate", "parent_no_norm"]
-        order.append("full")
-    roots = {"repo": REPO, "parent": Path(args.parent) if args.parent
-             else None}
-    for name in dict.fromkeys(order):
-        source, cuts, _ = BUILDS[name]
-        if roots[source] is None:
-            raise SystemExit(f"build {name} needs --parent")
-        tree = out / name
-        shutil.rmtree(tree, ignore_errors=True)
-        shutil.copytree(roots[source] / "tdc_tpu_torch",
-                        tree / "tdc_tpu_torch",
-                        ignore=shutil.ignore_patterns("_build",
-                                                      "__pycache__"))
-        cut(tree, **cuts)
-    seen = set()
-    for name in order:
-        runs = BUILDS[name][2]
-        if name in seen:  # a closing repeat: times only
-            runs = ("time",)
-        seen.add(name)
-        done = subprocess.run([sys.executable, "-c", TIMER, name,
-                               ",".join(runs)], cwd=out / name)
-        if done.returncode:
-            raise SystemExit(f"build {name}: exit {done.returncode}")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
-    return 0
-
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main("b1_b4_phases", BUILDS, TIMER,
+                  ["full", "no_accumulate", "mma_sync", "one_tf32"],
+                  ["parent", "parent_no_accumulate", "parent_no_norm"],
+                  reps=5))

@@ -44,26 +44,23 @@ no_accumulate, no_fold, no_product, acc_grouping, acc_no_x, then with
 --parent the three parent builds, then full once more (times only). Each
 run also prints the ptxas registers and spills of the source's kernels
 (where it built them) and ptxas's warnings. The cut builds compute wrong
-stats; only their times are read. Prints one JSON line per run, then the
+stats; only their times are read; --builds picks builds
+(scripts/_phases.py runs them). Prints one JSON line per run, then the
 card's name and power limit. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
-import argparse
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parent.parent
+from _phases import edit, main
+
 SOURCE = "csrc/lloyd_bf16_kernels.cu"
 
-# (start, end) markers of source removed, [start, end); (old, new)
-# replacements. The full design's:
-ACCUMULATE = {"spans": (("      sse += accumulate_block<T, kVec>(",
-                         "      warp_arrive(&sm.freed[i & 1]);"),)}
-FOLD = {"swaps": (("""\
+# The full design's cuts:
+ACCUMULATE = edit(SOURCE, spans=(("      sse += accumulate_block<T, kVec>(",
+                                  "      warp_arrive(&sm.freed[i & 1]);"),))
+FOLD = edit(SOURCE, swaps=(("""\
           if (col < k && better(v0, col, best[h], barg[h])) {
             best[h] = v0;
             barg[h] = col;
@@ -72,88 +69,52 @@ FOLD = {"swaps": (("""\
             best[h] = v1;
             barg[h] = col + 1;
           }
-""", "          (void)v0;\n          (void)v1;\n"),)}
-PRODUCT = {"swaps": (("""\
+""", "          (void)v0;\n          (void)v1;\n"),))
+PRODUCT = edit(SOURCE, swaps=(("""\
           wgmma_m64n256k16_bf16(acc, sw128_desc(xa + 16 * kk),
                                 sw128_desc(cs + 16 * kk), 1);
-""", "          (void)xa;\n          (void)cs;\n"),)}
+""", "          (void)xa;\n          (void)cs;\n"),))
 # Probes of the accumulate: its grouping alone (no workspace row is
 # read, added or written), and the accumulate without its reads of x.
-ACC_GROUPING = {"spans": (
+ACC_GROUPING = edit(SOURCE, spans=(
     ("  for (int s0 = aw; s0 < nseg; s0 += kAccWarps * kSegsPerPass) {",
-     "  named_barrier(3, kAccThreads);\n  double t = 0.0;"),)}
-ACC_NO_X = {"swaps": (
+     "  named_barrier(3, kAccThreads);\n  double t = 0.0;"),))
+ACC_NO_X = edit(SOURCE, swaps=(
     ("          xv[u] = C::load(x + (row0 + sm.order[p0[u]]) * d + j);",
      "          xv[u] = V{};"),
     ("          add(a[u], C::load(x + (row0 + sm.order[p]) * d + j));",
-     "          add(a[u], xv[u]);"))}
+     "          add(a[u], xv[u]);")))
 # The earlier design's (lloyd_bf16_kernel):
-PARENT_ACCUMULATE = {"spans": (
+PARENT_ACCUMULATE = edit(SOURCE, spans=(
     ("    for (int j = tid; j < d; j += kThreads) {\n"
      "      for (int r0 = 0; r0 < rows; r0 += kGroup) {",
      "    if (tid == 0) {\n"
-     "      for (int r = 0; r < rows; ++r) sse +="),)}
-PARENT_FOLD = {"swaps": (("""\
+     "      for (int r = 0; r < rows; ++r) sse +="),))
+PARENT_FOLD = edit(SOURCE, swaps=(("""\
           if (better(v, j, best, barg)) {
             best = v;
             barg = j;
           }
-""", "          (void)v;\n"),)}
+""", "          (void)v;\n"),))
 
-
-def cut(tree: Path, spans=(), swaps=()) -> None:
-    """Applies the cuts to tree/tdc_tpu_torch/SOURCE; raises where a
-    marker is not found exactly once."""
-    path = tree / "tdc_tpu_torch" / SOURCE
-    text = path.read_text()
-    for marker in [s for span in spans for s in span] + [o for o, _ in swaps]:
-        if text.count(marker) != 1:
-            raise ValueError(f"a cut's source is not where this script "
-                             f"expects in {SOURCE}: {marker.strip()[:60]!r}")
-    for start, end in spans:
-        a = text.index(start)
-        text = text[:a] + text[text.index(end, a):]
-    for old, new in swaps:
-        text = text.replace(old, new)
-    path.write_text(text)
-
-
-def _join(*cuts) -> dict:
-    return {"spans": sum((c.get("spans", ()) for c in cuts), ()),
-            "swaps": sum((c.get("swaps", ()) for c in cuts), ())}
-
-
-# name -> (source: "repo" or "parent", cuts, runs)
+# name -> (root, cut, runs)
 BUILDS = {
-    "full": ("repo", {}, ("time", "checks")),
+    "full": ("repo", (), ("time", "checks")),
     "no_accumulate": ("repo", ACCUMULATE, ("time",)),
-    "no_fold": ("repo", _join(ACCUMULATE, FOLD), ("time",)),
-    "no_product": ("repo", _join(ACCUMULATE, FOLD, PRODUCT), ("time",)),
+    "no_fold": ("repo", ACCUMULATE + FOLD, ("time",)),
+    "no_product": ("repo", ACCUMULATE + FOLD + PRODUCT, ("time",)),
     "acc_grouping": ("repo", ACC_GROUPING, ("time",)),
     "acc_no_x": ("repo", ACC_NO_X, ("time",)),
-    "parent": ("parent", {}, ("time", "checks")),
+    "parent": ("parent", (), ("time", "checks")),
     "parent_no_accumulate": ("parent", PARENT_ACCUMULATE, ("time",)),
-    "parent_no_fold": ("parent", _join(PARENT_ACCUMULATE, PARENT_FOLD),
+    "parent_no_fold": ("parent", PARENT_ACCUMULATE + PARENT_FOLD,
                        ("time",)),
 }
 
 TIMER = r"""
-import json, statistics, sys, time
 SOURCE = "lloyd_bf16_kernels.cu"
-import torch
 import chip_smoke as cs
 from tdc_tpu_torch.ops import _build, lloyd_kernels as lk
-
-def median_ms(fn, reps=7):
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record(); fn(); b.record(); b.synchronize()
-        out.append(a.elapsed_time(b))
-    return statistics.median(out)
 
 def reading(name, x, c):
     cs.TOL_SHARES.clear()
@@ -164,7 +125,6 @@ def reading(name, x, c):
     return {"passes": True, "near_ties": ties, "max_abs_err": err,
             "tol_share": max(cs.TOL_SHARES.values())}
 
-build, runs = sys.argv[1], sys.argv[2].split(",")
 t0 = time.perf_counter()
 kl = _build.load()
 out = {"build": build, "build_s": time.perf_counter() - t0}
@@ -192,50 +152,10 @@ print(json.dumps(out), flush=True)
 """
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=str(REPO / "scratch_trees" /
-                                         "b5_phases"))
-    ap.add_argument("--parent", default=None,
-                    help="a directory holding an earlier tdc_tpu_torch/")
-    ap.add_argument("--builds", default=None,
-                    help="comma-separated builds to run, in order")
-    args = ap.parse_args()
-    out = Path(args.out)
-    order = ["full", "no_accumulate", "no_fold", "no_product",
-             "acc_grouping", "acc_no_x"]
-    if args.builds:
-        order = args.builds.split(",")
-    elif args.parent:
-        order += ["parent", "parent_no_accumulate", "parent_no_fold"]
-    if not args.builds:
-        order.append("full")
-    roots = {"repo": REPO, "parent": Path(args.parent) if args.parent
-             else None}
-    for name in dict.fromkeys(order):
-        source, cuts, _ = BUILDS[name]
-        if roots[source] is None:
-            raise SystemExit(f"build {name} needs --parent")
-        tree = out / name
-        shutil.rmtree(tree, ignore_errors=True)
-        shutil.copytree(roots[source] / "tdc_tpu_torch",
-                        tree / "tdc_tpu_torch",
-                        ignore=shutil.ignore_patterns("_build",
-                                                      "__pycache__"))
-        shutil.copy(REPO / "chip_smoke.py", tree / "chip_smoke.py")
-        cut(tree, **cuts)
-    seen = set()
-    for name in order:
-        runs = BUILDS[name][2] if name not in seen else ("time",)
-        seen.add(name)
-        subprocess.run([sys.executable, "-c", TIMER, name, ",".join(runs)],
-                       cwd=out / name, check=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
-    return 0
-
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main("b5_phases", BUILDS, TIMER,
+                  ["full", "no_accumulate", "no_fold", "no_product",
+                   "acc_grouping", "acc_no_x"],
+                  ["parent", "parent_no_accumulate", "parent_no_fold"],
+                  reps=7))

@@ -3,6 +3,7 @@ their 3xTF32 split buys in accuracy, and how they fare past the fuzzy and
 GMM routes' shape.
 
     python3 scripts/b6_b9_phases.py [--out DIR] [--parent TREE]
+                                    [--builds NAME,...]
 
 B6 (fuzzy stats) and B9 (the diag-GMM E-step) of the PyTorch/CUDA port
 run their phase 2 on the tensor cores (tdc_tpu_torch/csrc/tf32_accum.cuh,
@@ -39,21 +40,20 @@ What each build runs:
 Each build is a copy of tdc_tpu_torch/ and chip_smoke.py under DIR
 (default scratch_trees/b6_b9_phases, which .gitignore lists), timed with
 CUDA events (median of 5 after a warm-up; 3 at the wide shapes), in the
-order full, one_tf32, no_mma, parent, full. The cut builds compute wrong
-stats; only their times and check readings are read. Prints one JSON line
+order full, one_tf32, no_mma, parent, full (the last time only phase2
+and wide); --builds picks builds (scripts/_phases.py runs them). The cut
+builds compute wrong stats; only their times and check readings are
+read. Prints one JSON line
 per run, then the card's name and power limit. Needs a CUDA card and
 nvcc.
 """
 
 from __future__ import annotations
 
-import argparse
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parent.parent
+from _phases import edit, main
+
 # The two small products of the split, in phase 2 (tf32_accum.cuh) and in
 # B9's phase 1 (gmm_kernels.cu), and phase 2's large one.
 SMALL = {
@@ -73,45 +73,30 @@ LARGE = {"csrc/tf32_accum.cuh": (
     "bh[j][0], bh[j][1]);\n",)}
 
 
-def cut(tree: Path, lines: dict) -> None:
-    for source, cuts in lines.items():
-        path = tree / "tdc_tpu_torch" / source
-        text = path.read_text()
-        for line in cuts:
-            if line not in text:
-                raise ValueError(f"the product's source is not where this "
-                                 f"script expects in {source}")
-            indent = line[:len(line) - len(line.lstrip())]
-            text = text.replace(line, indent +
-                                "for (int j = 0; j < 4; ++j) {}\n")
-        path.write_text(text)
+
+def no_product(lines: dict) -> tuple:
+    """The cut that leaves an empty loop in place of each product line."""
+    return sum((edit(source, swaps=[
+        (line, line[:len(line) - len(line.lstrip())]
+         + "for (int j = 0; j < 4; ++j) {}\n") for line in cuts])
+        for source, cuts in lines.items()), ())
 
 
+# name -> (root, cut, runs)
 BUILDS = {
-    "full": ({}, ("phase2", "checks", "wide")),
-    "one_tf32": (SMALL, ("phase2", "checks")),
-    "no_mma": ({"csrc/tf32_accum.cuh": (*SMALL["csrc/tf32_accum.cuh"],
-                                        *LARGE["csrc/tf32_accum.cuh"])},
+    "full": ("repo", (), ("phase2", "checks", "wide")),
+    "one_tf32": ("repo", no_product(SMALL), ("phase2", "checks")),
+    "no_mma": ("repo", no_product(
+        {"csrc/tf32_accum.cuh": (*SMALL["csrc/tf32_accum.cuh"],
+                                 *LARGE["csrc/tf32_accum.cuh"])}),
                ("phase2",)),
+    "parent": ("parent", (), ("checks", "wide")),
 }
 
 TIMER = r"""
-import json, statistics, sys, time
-import torch
 import chip_smoke as cs
 from tdc_tpu_torch.models import gmm as gm
 from tdc_tpu_torch.ops import _build, fuzzy_kernels as fk, gmm_kernels as gk
-
-def median_ms(fn, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record(); fn(); b.record(); b.synchronize()
-        out.append(a.elapsed_time(b))
-    return statistics.median(out)
 
 def reading(check, name, *args):
     cs.TOL_SHARES.clear()
@@ -122,7 +107,6 @@ def reading(check, name, *args):
     return {"passes": True, "max_abs_err": err,
             "tol_share": max(cs.TOL_SHARES.values())}
 
-build, runs = sys.argv[1], sys.argv[2].split(",")
 t0 = time.perf_counter()
 _build.load()
 out = {"build": build, "build_s": time.perf_counter() - t0}
@@ -177,43 +161,8 @@ print(json.dumps(out), flush=True)
 """
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=str(REPO / "scratch_trees" /
-                                         "b6_b9_phases"))
-    ap.add_argument("--parent", default=None,
-                    help="a directory holding an earlier tdc_tpu_torch/")
-    args = ap.parse_args()
-    out = Path(args.out)
-    builds = dict(BUILDS)
-    sources = {name: REPO for name in builds}
-    order = ["full", "one_tf32", "no_mma"]
-    if args.parent:
-        builds["parent"] = ({}, ("checks", "wide"))
-        sources["parent"] = Path(args.parent)
-        order.append("parent")
-    order.append("full")
-    for name, (lines, _) in builds.items():
-        tree = out / name
-        shutil.rmtree(tree, ignore_errors=True)
-        shutil.copytree(sources[name] / "tdc_tpu_torch",
-                        tree / "tdc_tpu_torch",
-                        ignore=shutil.ignore_patterns("_build",
-                                                      "__pycache__"))
-        shutil.copy(REPO / "chip_smoke.py", tree / "chip_smoke.py")
-        cut(tree, lines)
-    for i, name in enumerate(order):
-        runs = builds[name][1]
-        if i == len(order) - 1:  # the closing full run: times only
-            runs = ("phase2", "wide")
-        subprocess.run([sys.executable, "-c", TIMER, name, ",".join(runs)],
-                       cwd=out / name, check=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
-    return 0
-
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main("b6_b9_phases", BUILDS, TIMER,
+                  ["full", "one_tf32", "no_mma"], ["parent"], reps=5,
+                  repeat_runs=("phase2", "wide")))

@@ -388,7 +388,6 @@ __global__ void __launch_bounds__(kB5Threads, 1)
   __syncthreads();
 
   const int ncb = col_blocks(d);
-  const int nch = kOneChunk ? 1 : (ncb + kChunkBlocks - 1) / kChunkBlocks;
   const int nkt = (k + kBN - 1) / kBN;
   const long long nblocks = (n + kBM - 1) / kBM;
 

@@ -17,10 +17,10 @@
 //   inv = (d² + eps)^(−1/(m−1)),  u = inv / Σ_k inv,  μ = u^m
 // and the outputs are Σμx (K, d), Σμ (K,) and Σμ·d² (), all f32. At m = 2
 // the powers take the exact forms 1/v and u·u (what XLA compiles `** -1.0`
-// and `** 2.0` to), as B6 does; at any other m the tile form takes powf
-// and the private form exp2 and log2 (`private_w`). The build uses no
-// fast-math. The reference runs its accumulate at DEFAULT precision on a
-// TPU; here it is f32, the result of its interpret mode.
+// and `** 2.0` to), as B6 does, with u = inv · (1/s); at any other m both
+// forms take exp2 and log2 (`fuzzy_w`). The build uses no fast-math. The
+// reference runs its accumulate at DEFAULT precision on a TPU; here it is
+// f32, the result of its interpret mode.
 //
 // Bound on this card: bytes. At the reference sweep's shape (N = 10^8,
 // d = 5, K = 15) one call reads 2.0 GB of f32 columns (0.597 ms at
@@ -50,11 +50,8 @@
 //   updates a column) in column order; at the end the CTA sums the 256
 //   accumulators in thread order (f64). B11 keeps a column's d² and inv in
 //   registers from its first pass (s) to its second (μ) where K ≤ 16, and
-//   recomputes them otherwise; at m = 2 its powers are the exact 1/v and
-//   u·u, with u = inv · (1/s), one division a column; at other m one
-//   log2 of each d² + eps and of s, and exp2, replace two powf. Its
-//   accumulate Σ_j μ_kj·x_fj and Σ_j μ_kj runs on the tensor cores: each
-//   thread
+//   recomputes them otherwise (its powers: `fuzzy_w`). Its accumulate
+//   Σ_j μ_kj·x_fj and Σ_j μ_kj runs on the tensor cores: each thread
 //   writes its column's μ and features (and a ones column) to its warp's
 //   shared tiles, and the warp runs `mma.sync` m16n8k8 over its 32 columns
 //   with the 3xTF32 split (B6's, tf32_accum.cuh), whose f32 fragments add
@@ -121,31 +118,22 @@ __device__ __forceinline__ float tall_d2(float x2, float cross, float c2) {
   return v < 0.f ? 0.f : v;
 }
 
-template <bool kM2>
-__device__ __forceinline__ float inv_power(float v, float p) {
-  return kM2 ? 1.f / v : powf(v, p);
-}
-template <bool kM2>
-__device__ __forceinline__ float mu_power(float u, float m) {
-  return kM2 ? u * u : powf(u, m);
-}
-
-// The private form's powers from w, one value per (column, centroid): at
-// m = 2 w = 1/v, inv = w and μ = (w·(1/s))², as the tile form's exact
-// forms; otherwise w = p·log2(v), inv = 2^w and μ = 2^(m·(w − log2 s)):
-// one log2 of each v and one of s in place of two powf (within the card
+// B11's powers from w, one value per (column, centroid), in both forms:
+// at m = 2 w = 1/v, inv = w and μ = (w·(1/s))², the exact forms;
+// otherwise w = p·log2(v), inv = 2^w and μ = 2^(m·(w − log2 s)): one
+// log2 of each v and one of s in place of two powf (within the card
 // tolerance at m = 1.7, PERF.md).
 template <bool kM2>
-__device__ __forceinline__ float private_w(float v, float p) {
+__device__ __forceinline__ float fuzzy_w(float v, float p) {
   return kM2 ? 1.f / v : p * log2f(v);
 }
 template <bool kM2>
-__device__ __forceinline__ float private_inv(float w) {
+__device__ __forceinline__ float fuzzy_inv(float w) {
   return kM2 ? w : exp2f(w);
 }
 template <bool kM2>
-__device__ __forceinline__ float private_mu(float w, float rs, float ls,
-                                            float m) {
+__device__ __forceinline__ float fuzzy_mu(float w, float rs, float ls,
+                                          float m) {
   return kM2 ? (w * rs) * (w * rs) : exp2f(m * (w - ls));
 }
 
@@ -380,7 +368,7 @@ __global__ void __launch_bounds__(kCols, kTiles == 1 ? 2 : 1)
 #pragma unroll
     for (int f = 0; f < kDR; ++f) x2 = fmaf(x0[f], x0[f], x2);
     // Pass 1: s = Σ_k inv. dd and w keep the last group's d² and w (see
-    // private_w), the only group where K ≤ kKG.
+    // fuzzy_w), the only group where K ≤ kKG.
     float dd[kKG], w[kKG];
     float s = 0.f;
     for (int kg = 0; kg < k; kg += kKG) {
@@ -388,8 +376,8 @@ __global__ void __launch_bounds__(kCols, kTiles == 1 ? 2 : 1)
 #pragma unroll
       for (int q = 0; q < kKG; ++q) {
         if (kg + q < k) {
-          w[q] = private_w<kM2>(dd[q] + eps, p);
-          s += private_inv<kM2>(w[q]);
+          w[q] = fuzzy_w<kM2>(dd[q] + eps, p);
+          s += fuzzy_inv<kM2>(w[q]);
         }
       }
     }
@@ -403,14 +391,14 @@ __global__ void __launch_bounds__(kCols, kTiles == 1 ? 2 : 1)
       if (k > kKG) {
         group_d2(cs, c2s, kp, d, kg, x0, x2, dd);
 #pragma unroll
-        for (int q = 0; q < kKG; ++q) w[q] = private_w<kM2>(dd[q] + eps, p);
+        for (int q = 0; q < kKG; ++q) w[q] = fuzzy_w<kM2>(dd[q] + eps, p);
       }
       float mu[kKG];
 #pragma unroll
       for (int q = 0; q < kKG; ++q) {
         mu[q] = 0.f;
         if (live && kg + q < k) {
-          mu[q] = private_mu<kM2>(w[q], rs, ls, mexp);
+          mu[q] = fuzzy_mu<kM2>(w[q], rs, ls, mexp);
           ob = fmaf(mu[q], dd[q], ob);
         }
       }
@@ -718,7 +706,8 @@ __device__ __forceinline__ float column_normalizer(
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         if (r + q < kn) {
-          s += inv_power<kM2>(tall_d2(x2, cross[q], c2s[r + q]) + eps, p);
+          s += fuzzy_inv<kM2>(
+              fuzzy_w<kM2>(tall_d2(x2, cross[q], c2s[r + q]) + eps, p));
         }
       }
     }
@@ -757,6 +746,8 @@ __global__ void __launch_bounds__(kCols, 2)
     const float x2 = column_sq_norm(xt, g, col);
     const float s = column_normalizer<T, kM2>(xt, c, c2, g, col, x2, p, eps,
                                               cs, c2s);
+    const float rs = 1.f / s;
+    const float ls = kM2 ? 0.f : log2f(s);
     float ob = 0.f;
     for (int st = 0; st < g.nstage; ++st) {
       if (g.nstage > 1) {
@@ -776,7 +767,7 @@ __global__ void __launch_bounds__(kCols, 2)
             float mu = 0.f;
             if (live && kt + r + q < kn) {
               const float d2 = tall_d2(x2, cross[q], c2s[kt + r + q]);
-              mu = mu_power<kM2>(inv_power<kM2>(d2 + eps, p) / s, mexp);
+              mu = fuzzy_mu<kM2>(fuzzy_w<kM2>(d2 + eps, p), rs, ls, mexp);
               ob = fmaf(mu, d2, ob);
             }
             mu_s[(r + q) * kPad + t] = mu;

@@ -2,7 +2,7 @@
 
 scripts/b1_b4_phases.py, b5_phases.py, b6_b9_phases.py and b11_phases.py
 time the port's kernels in builds with a phase cut out of the source
-text (see each script's docstring). A cut is a text patch that must find
+text (see each script's docstring; scripts/_phases.py applies the cuts). A cut is a text patch that must find
 its markers; after an edit of a kernel it may no longer apply, and then
 the script fails only on the card. Here every cut build of the current
 tree is applied to a copy of tdc_tpu_torch/csrc/ under tmp_path: it must
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import importlib.util
 import shutil
+import sys
 from pathlib import Path
 
 import pytest
@@ -23,6 +24,10 @@ import tdc_tpu_torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(tdc_tpu_torch.__file__).resolve().parent  # the scripts' copy root
+SCRIPTS = ("b1_b4_phases", "b5_phases", "b6_b9_phases", "b11_phases")
+if str(REPO / "scripts") not in sys.path:  # where the scripts find _phases
+    sys.path.append(str(REPO / "scripts"))
+import _phases  # noqa: E402
 
 
 def _script(name: str):
@@ -33,24 +38,11 @@ def _script(name: str):
     return module
 
 
-def _apply(script: str, build: str, tree: Path) -> None:
-    m = _script(script)
-    if script == "b6_b9_phases":  # BUILDS: name -> (lines, runs)
-        m.cut(tree, m.BUILDS[build][0])
-    else:  # BUILDS: name -> (source, cuts, runs)
-        m.cut(tree, **m.BUILDS[build][1])
-
-
 def _cut_builds():
-    out = []
-    for script in ("b1_b4_phases", "b5_phases", "b6_b9_phases",
-                   "b11_phases"):
-        for name, spec in _script(script).BUILDS.items():
-            repo_build = script == "b6_b9_phases" or spec[0] == "repo"
-            cuts = spec[0] if script == "b6_b9_phases" else spec[1]
-            if repo_build and cuts:
-                out.append((script, name))
-    return out
+    # BUILDS: name -> (root, cut, runs)
+    return [(script, name) for script in SCRIPTS
+            for name, (root, edits, _) in _script(script).BUILDS.items()
+            if root == "repo" and edits]
 
 
 def _sources(tree: Path) -> dict:
@@ -60,25 +52,27 @@ def _sources(tree: Path) -> dict:
 
 def test_every_script_has_cut_builds():
     scripts = {s for s, _ in _cut_builds()}
-    assert scripts == {"b1_b4_phases", "b5_phases", "b6_b9_phases",
-                       "b11_phases"}
+    assert scripts == set(SCRIPTS)
 
 
 @pytest.mark.parametrize("script,build", _cut_builds())
 def test_cut_build_applies_and_changes_the_source(tmp_path, script, build):
     shutil.copytree(PKG / "csrc", tmp_path / PKG.name / "csrc")
     before = _sources(tmp_path)
-    _apply(script, build, tmp_path)
+    _phases.cut(tmp_path, _script(script).BUILDS[build][1])
     after = _sources(tmp_path)
     assert after != before, f"{script} {build} left the sources as they were"
     assert after.keys() == before.keys()
 
 
-@pytest.mark.parametrize("script", ["b1_b4_phases", "b5_phases",
-                                    "b11_phases"])
+@pytest.mark.parametrize("script", SCRIPTS)
 def test_a_cut_that_misses_raises(tmp_path, script):
-    # A marker that is not in the source must fail loudly, not time a
-    # build that cut nothing.
+    # A marker that is not in the source, or is in it more than once, must
+    # fail loudly, not time a build that cut nothing or too much.
     shutil.copytree(PKG / "csrc", tmp_path / PKG.name / "csrc")
-    with pytest.raises(ValueError):
-        _script(script).cut(tmp_path, swaps=(("no such source text", ""),))
+    source = next(edits[0][0] for root, edits, _ in
+                  _script(script).BUILDS.values() if root == "repo" and edits)
+    for marker in ("no such source text", "\n"):
+        with pytest.raises(ValueError):
+            _phases.cut(tmp_path, _phases.edit(source,
+                                               swaps=((marker, ""),)))
