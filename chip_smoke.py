@@ -27,7 +27,13 @@ failure (nothing is caught):
    mean of 20 back-to-back calls, `batched_ms`; one-call medians, the
    earlier method, are printed beside). The build's ptxas registers and spills
    of every kernel are printed first.
-   Duplicated centroids check the tie rule of B1, B2 and B3 on the card.
+   B2 (its distance product on the tensor cores in 3xTF32, each row's
+   champion scored again in f32) is held with its labels: equal to the
+   plain version's but at near-ties on the blobs and on a near-tie input
+   at K=16,384, d=768 (see below), its minima in both forms within
+   REL_TOL of ‖x‖² + max ‖c‖², bitwise repeatable.
+   Duplicated centroids check the tie rule of B1, B2 and B3 on the card,
+   with copies in the same and in the next 256-centroid K tile.
    B1 and B4 (their distance product on the tensor cores in 3xTF32) are
    held with their labels: labels equal to the plain version's but at
    near-ties, counts equal and no near-tie at the route's shape, and the
@@ -76,8 +82,11 @@ failure (nothing is caught):
    distances on the f32 pipe, or the bytes), bound_f32_ms all of it on
    the f32 pipe.
    B7 and B8 (the two-pass fuzzy kernels of the K-sharded tower) at
-   N=2^19, K=16,384, d=768 for m=2.0 and m=1.7 and on bf16 rows, and at
-   the ragged shape: s within REL_TOL relative of the plain version's, B8
+   N=2^19, K=16,384, d=768 for m=2.0 and m=1.7 and on bf16 rows, at the
+   ragged shape and at N=2^16+37, K=37, d=768 (where the nearest
+   centroids dominate s; B7's product runs on the tensor cores in 3xTF32,
+   each row's champion scored again in f32): s within REL_TOL relative
+   of the plain version's, B8
    (given that s) as B6, both bitwise repeatable; and the tower's
    identity on one process: s summed over two K-shards, B8 on each shard
    with it, equal to B6 on all K within B6's tolerances. B6 at that shape
@@ -265,6 +274,7 @@ MXU_ARGS = [a.replace("--kernel=pallas", "--kernel=pallas_bf16")
 BF16_SORTED_N = 1 << 17  # rows of the bf16 sorted-route check
 FUZZY_MS = (2.0, 1.7)  # B6 is checked at both fuzzifiers
 FUZZY_RAGGED = ((1 << 16) + 37, 300, 19)  # N, K, d: no multiple of a tile
+SMALL_K_SHAPE = ((1 << 16) + 37, 37, 768)  # B7 where the nearest dominate
 ZERO_SHARE = 0.05  # share of the weights set exactly to 0
 # The feature-major routes: the reference sweep's largest point (n_obs =
 # 100M, n_dim = 5, K in {15, 12, 9, 6, 3}; SURVEY.md), uncut.
@@ -613,16 +623,40 @@ def phase_kernels(gen) -> dict:
     err = max(err, check_close("B2 shifted min", smind,
                                lk.distance_argmin_plain(x, c)[1], scale))
     require(torch.equal(slab, lab), "B2: shifted and true forms disagree")
-    b_ms, b_by = bound_ms(2.0 * n * k * d, 4.0 * (n * d + k * d + k) + 8.0 * n)
+    # The 2·N·K·d product on the tensor cores in 3xTF32 (bound_ms) or on
+    # the f32 FMA pipe (bound_f32_ms); the champion's ‖x − c‖² (2·N·d) on
+    # the FMA pipe beside it.
+    nbytes = 4.0 * (n * d + k * d + k) + 8.0 * n
+    b_ms, b_by = tc_bound_ms(2.0 * n * k * d, 2.0 * n * d, nbytes)
     out["B2"] = dict(
         max_abs_err=err, near_ties=ties,
         ms=median_ms(lambda: lk.distance_argmin(x, c, return_dist=True), 5),
         plain_ms=median_ms(
             lambda: lk.distance_argmin_plain(x, c, return_dist=True), 3),
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by,
+        bound_f32_ms=bound_ms(2.0 * n * k * d + 2.0 * n * d, nbytes)[0])
+    del x, c, mind, plab, pmind, slab, smind, scale
+    # B2 on the near-tie input at the route's K and d: labels may differ
+    # from the plain version's only at near-ties.
+    xn, cn = near_tie_data(gen, TIE_N, k, d)
+    reach = tie_reach(xn, cn)
+    nlab, nmin = lk.distance_argmin(xn, cn, return_dist=True)
+    repeatable("B2 near-tie input", (nlab, nmin),
+               lk.distance_argmin(xn, cn, return_dist=True))
+    plab, pmin = lk.distance_argmin_plain(xn, cn, return_dist=True)
+    out["B2"]["near_tie_input"] = dict(
+        near_ties=check_labels("B2 near-tie input", xn, cn, nlab, plab),
+        gap_share=TIE_GAP_SHARES.get("B2 near-tie input", 0.0),
+        rows_past_limit=reach,
+        min_err=check_close("B2 near-tie input min", nmin, pmin,
+                            (xn * xn).sum(1) + (cn * cn).sum(1).max()))
+    del xn, cn, nlab, nmin, plab, pmin
+    print(f"[B2] N={n} K={k} d={d} (3xTF32 on the tensor cores): "
+          f"{json.dumps(out['B2'])}; share of the tolerance used: "
+          f"{json.dumps(tol_shares('B2'))}", flush=True)
 
     balanced = lab  # every center owns n/k = 32 points
-    del x, c, lab, mind, plab, pmind, slab, smind, scale
+    del lab
 
     # B3 on the labels of the sorted route's first iteration: the CLI's
     # data (make_blobs(seed + 1)) and its --init=random centroids (seed),
@@ -1069,14 +1103,16 @@ def phase_bf16_ties(gen) -> None:
 
 def phase_ties(gen) -> None:
     """Phase 3, ties: copies of centroid 3 at indices 5 (same K tile,
-    another lane), 67 (the same thread's tile for B2, the next tile for
-    B1), 200 (a later tile) and K-1 (the last, partial tile). Every tie
-    goes to the smallest index: labels equal the plain version's exactly,
-    no label lands on a copy, and the copies count 0 rows."""
+    another lane), 67 and 200 (the same 256-centroid K tile of B1 and B2,
+    another thread; a later 64-wide tile of B6's phase 1), 256 and 300
+    (the next 256-centroid tile: a later tile wins only on strict <) and
+    K-1 (the last tile). Every tie goes to the smallest index: labels
+    equal the plain version's exactly, no label lands on a copy, and the
+    copies count 0 rows."""
     for n, k, d in ((TIE_N, B1_SHAPE[1], B1_SHAPE[2]),
                     (TIE_N, SORTED_K, SORTED_D)):
         x, c = blob_data(gen, n, k, d)
-        copies = [5, 67, 200, k - 1]
+        copies = [5, 67, 200, 256, 300, k - 1]
         c[copies] = c[3].clone()
         lab = lk.distance_argmin(x, c)[0]
         require(torch.equal(lab, lk.distance_argmin_plain(x, c)[0]),
@@ -1328,15 +1364,24 @@ def phase_twopass_kernel(gen) -> dict:
     print(f"[B7/B8] bf16 rows N={n} K={k} d={d} m=2.0: {json.dumps(bf16)}",
           flush=True)
     del xb, c, c2, s, x2
-    b7 = bound_ms(2.0 * n * k * d, 4.0 * (n * d + k * d + k + n))
+    # B7: the 2·N·K·d product on the tensor cores in 3xTF32 (bound_ms) or
+    # on the f32 FMA pipe (bound_f32_ms); the N·K powers and the champion's
+    # ‖x − c‖² (2·N·d) on the FMA pipe beside it.
+    b7_bytes = 4.0 * (n * d + k * d + k + 2 * n)
+    b7 = tc_bound_ms(2.0 * n * k * d, n * k + 2.0 * n * d, b7_bytes)
     b8 = bound_ms(4.0 * n * k * d, 4.0 * (n * d + 2 * k * d + 2 * k + 2 * n
                                          + 1))
     main = per_m[2.0]
     out = {
         "B7": dict(max_abs_err=main["b7_err"], ms=main["b7_ms"],
                    plain_ms=main["b7_plain_ms"], bound_ms=b7[0],
-                   bound_by=b7[1], library_ms=None,
-                   m_1_7=per_m[1.7]["b7_ms"], bf16_ms=bf16["b7_ms"]),
+                   bound_by=b7[1],
+                   bound_f32_ms=bound_ms(2.0 * n * k * d + n * k
+                                         + 2.0 * n * d, b7_bytes)[0],
+                   library_ms=None, m_1_7=per_m[1.7]["b7_ms"],
+                   bf16_ms=bf16["b7_ms"],
+                   tol_share={m: TOL_SHARES[f"B7/B8 m={m} B7 s"]
+                              for m in FUZZY_MS}),
         "B8": dict(max_abs_err=main["b8_err"], ms=main["b8_ms"],
                    plain_ms=main["b8_plain_ms"], bound_ms=b8[0],
                    bound_by=b8[1], library_ms=None,
@@ -1354,6 +1399,15 @@ def phase_twopass_kernel(gen) -> dict:
     check_twopass("B7/B8 ragged bf16", x.to(torch.bfloat16), c, 2.0)
     print(f"[B7/B8] ragged N={n} K={k} d={d}: equal to the plain versions "
           "at m=2 and 1.7, f32 and bf16 rows", flush=True)
+    # B7 at the route's d with few centroids: the nearest ones dominate s,
+    # where the tensor core's truncating accumulation would show.
+    n, k, d = SMALL_K_SHAPE
+    x, c = blob_data(gen, n, k, d)
+    for m in FUZZY_MS:
+        check_twopass(f"B7/B8 small K m={m}", x, c, m)
+    print(f"[B7/B8] N={n} K={k} d={d}: equal to the plain versions at m=2 "
+          f"and 1.7; share of B7's tolerance used: "
+          f"{json.dumps(tol_shares('B7/B8'))}", flush=True)
     return out
 
 
@@ -2224,8 +2278,8 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
-            # B1, B4, B6, B9, B11: bound_ms is the tensor-core bound
-            # (3xTF32), this the f32-pipe one.
+            # B1, B2, B4, B6, B7, B9, B11: bound_ms is the tensor-core
+            # bound (3xTF32), this the f32-pipe one.
             **({"bound_f32_ms": m["bound_f32_ms"], "bound_form": "3xTF32"}
                if "bound_f32_ms" in m else {}),
         })

@@ -1,24 +1,25 @@
-// The distance → champion fold shared by the Lloyd kernels (B1, B2).
-// Its tile geometry and staging also serve the two-phase kernels B6 and
-// B9, and so does the accumulate-step chunk `ChunkRegs` at its end.
+// The champion rule of the Lloyd kernels (B1, B2, B4, B5, B10), and the
+// f32 tile geometry and staging of the fuzzy kernels' CUDA-core distance
+// products (B6's phase 1, B8), with the accumulate-step chunk `ChunkRegs`
+// at its end.
 //
 // Counterpart of the JAX package's `champion_tile`
 // (tdc_tpu/ops/pallas_kernels.py:99) and the running (min, argmin) of
 // `_distance_argmin_kernel` (:119): per row, the smallest shifted distance
 // ‖c‖² − 2x·c over all K centroids, and among equal minima the smallest
 // centroid index. A later K tile therefore wins only on strict `<`, which
-// is what the lexicographic (value, index) order below gives.
+// is what the lexicographic (value, index) order of `better` gives.
 //
-// Layout: a CTA of 256 threads owns BM = 128 rows. Per K tile of BN = 64
-// or 128 centroids it stages BK = 16 columns of x and of the centroids in
-// shared memory at a time and accumulates the 128 x BN dot products in
-// registers, 8 rows x BN/16 centroids per thread, with f32 FMA on the CUDA
-// cores (no TF32). The next step's tiles are loaded into registers while
-// the current step computes. Every dot product sums over d in increasing
-// order, so results are bitwise repeatable. Ragged N, K and d are masked loads: rows past N and
-// columns past d load as 0, and centroids past K are never candidates —
-// the job of `_PAD_CENTROID` and the `n_fake` correction in the JAX
-// wrappers.
+// Layout of the f32 tiles: a CTA of 256 threads owns BM = 128 rows. Per K
+// tile of BN = 64 or 128 centroids it stages BK = 16 columns of x and of
+// the centroids in shared memory at a time and accumulates the 128 x BN
+// dot products in registers, 8 rows x BN/16 centroids per thread, with
+// f32 FMA on the CUDA cores (no TF32). The next step's tiles are loaded
+// into registers while the current step computes. Every dot product sums
+// over d in increasing order, so results are bitwise repeatable. Ragged
+// N, K and d are masked loads: rows past N and columns past d load as 0,
+// and centroids past K are never candidates — the job of `_PAD_CENTROID`
+// and the `n_fake` correction in the JAX wrappers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -117,100 +118,6 @@ struct StepRegs {
     }
   }
 };
-
-// Champion of rows row0 + ty*TM + m (m < TM), where ty = threadIdx.x / 16.
-// On return every one of the 16 threads sharing a row holds that row's
-// (best, barg); rows past n hold garbage and must not be written.
-// The (K tile, d step) pairs run as one flat loop so that the prefetch of
-// the next step also crosses K-tile boundaries.
-template <bool kVec, int BN>
-__device__ __forceinline__ void block_champion(
-    const float* __restrict__ x, const float* __restrict__ c,
-    const float* __restrict__ c2, long long n, int k, int d, long long row0,
-    AssignSmem<BN>& sm, float (&best)[TM], int (&barg)[TM]) {
-  constexpr int TN = BN / 16;  // centroids per thread
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    best[m] = CUDART_INF_F;
-    barg[m] = kArgSentinel;
-  }
-  const int ndk = (d + BK - 1) / BK;
-  const int steps = ((k + BN - 1) / BN) * ndk;
-  float acc[TM][TN];
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[m][q] = 0.f;
-  StepRegs<kVec, BN> regs;
-  regs.load(x, c, n, k, d, row0, 0, 0);
-  for (int s = 0; s < steps; ++s) {
-    const int kt = (s / ndk) * BN;
-    const int dk = (s % ndk) * BK;
-    regs.store(sm);
-    __syncthreads();
-    if (s + 1 < steps) {
-      regs.load(x, c, n, k, d, row0, ((s + 1) / ndk) * BN,
-                ((s + 1) % ndk) * BK);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sm.xs[kk][ty * TM]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&sm.xs[kk][ty * TM + 4]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float bb[TN];
-#pragma unroll
-      for (int g = 0; g < TN / 4; ++g) {
-        const float4 b =
-            *reinterpret_cast<const float4*>(&sm.cs[kk][g * 64 + tx * 4]);
-        bb[4 * g] = b.x;
-        bb[4 * g + 1] = b.y;
-        bb[4 * g + 2] = b.z;
-        bb[4 * g + 3] = b.w;
-      }
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int q = 0; q < TN; ++q) acc[m][q] = fmaf(a[m], bb[q], acc[m][q]);
-    }
-    __syncthreads();
-    if (dk + BK >= d) {  // last d step of this K tile: fold and reset
-#pragma unroll
-      for (int q = 0; q < TN; ++q) {
-        const int j = kt + (q / 4) * 64 + tx * 4 + q % 4;
-        if (j < k) {
-          const float cj = c2[j];
-#pragma unroll
-          for (int m = 0; m < TM; ++m) {
-            const float v = cj - 2.f * acc[m][q];
-            if (better(v, j, best[m], barg[m])) {
-              best[m] = v;
-              barg[m] = j;
-            }
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < TM; ++m) acc[m][q] = 0.f;
-      }
-    }
-  }
-  // Fold the 16 column owners of each row (lanes differing in bits 0-3),
-  // in a fixed butterfly order.
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-#pragma unroll
-    for (int off = 8; off >= 1; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best[m], off);
-      const int oj = __shfl_xor_sync(0xffffffffu, barg[m], off);
-      if (better(ov, oj, best[m], barg[m])) {
-        best[m] = ov;
-        barg[m] = oj;
-      }
-    }
-  }
-}
 
 // Whether the 16-byte load path applies: d a multiple of 4 and both base
 // pointers 16-byte aligned (then every row start is too).

@@ -6,8 +6,9 @@
 // `_fuzzy_fold_for` :668) with two phases through a scratch, and the
 // two-pass kernels of the K-sharded fuzzy tower with one phase each:
 // `fuzzy_normalizer` (`pallas_call` at :1160, body `_fuzzy_norm_kernel`)
-// with phase 1 and `fuzzy_accumulate` (:1215, `_fuzzy_accum_kernel`) with
-// a phase 2 of its own, whose s is then the sum of every K-shard's phase 1.
+// with a row normaliser on the tensor cores and `fuzzy_accumulate`
+// (:1215, `_fuzzy_accum_kernel`) with a phase 2 of its own, whose s is
+// then the sum of every K-shard's normaliser.
 // Per row i and centroid k:
 //   d²  = max(‖x‖² + ‖c‖² − 2x·c, 0)        (‖x‖² computed here, ‖c‖² given)
 //   inv = (d² + eps)^(−1/(m−1)),  u = inv / Σ_k inv,  μ = u^m
@@ -17,18 +18,19 @@
 // Bound on this card: operations. The distance product and the μᵀ·x
 // accumulate are 2·N·K·d flops each; B6 runs the first on the f32 FMA
 // pipe and the second on the tensor cores as 3 TF32 products (6·N·K·d at
-// 495 TFLOP/s), B7 and B8 both on the FMA pipe. Every one of the N·K
+// 495 TFLOP/s), B7 its product on the tensor cores in 3xTF32, B8 both on
+// the FMA pipe. Every one of the N·K
 // elements takes powers on the SFU; x is read in N·d·4 bytes, and B6's
 // inv scratch moves 8·N·K bytes (34 GB at N = 2^22, K = 1024).
 //
 // Troubles of the TPU design, and what this design does about them:
 // - The row normaliser Σ_k inv needs the whole K row before any μ. The TPU
 //   kernel holds a (block_n, K) tile in VMEM. Here two phases.
-//   `fuzzy_norm_kernel` walks every K tile for a block of 128 rows and
-//   writes s_i = Σ_k inv_ik to an (N,) f32 buffer (B7's kernel; B8 also
-//   takes ‖x_i‖² from it).
-// - B6 (`tdc_fuzzy_stats`): `fuzzy_norm_scratch_kernel`, the same phase 1
-//   (both are `row_normalizer`), also writes each inv to a scratch of at
+//   B7's `fuzzy_norm_tc_kernel` walks every K tile for a block of 128 rows
+//   on the tensor cores (tc_distance.cuh) and writes s_i = Σ_k inv_ik to
+//   an (N,) f32 buffer (B8 also takes ‖x_i‖² from it).
+// - B6 (`tdc_fuzzy_stats`): `fuzzy_norm_scratch_kernel`, phase 1 on the
+//   f32 FMA pipe (`row_normalizer`), also writes each inv to a scratch of at
 //   most MU_SCRATCH_BYTES (ops/fuzzy_kernels.py, 512 MiB, whatever N and
 //   K), one row chunk of whole K rows at a time, and q_i = s_i^(1−m);
 //   `fuzzy_accum_tc_kernel` reads the chunk's inv, forms μ = (inv / s)^m
@@ -75,15 +77,17 @@
 //
 // Ragged N, K and d are masked: rows past N get μ = 0, centroids past K are
 // never candidates (the job of `_PAD_CENTROID` and the `n_fake` correction
-// in the JAX wrapper). The powers keep the JAX formula: powf, or at m = 2
-// the exact 1/v and u·u that XLA compiles those powers to; the build uses
-// no fast-math. The phases are separate C entry points.
+// in the JAX wrapper). The powers keep the JAX formula: powf (B7:
+// 2^(p·log2 v)), or at m = 2 the exact 1/v and u·u that XLA compiles those
+// powers to; the build uses no fast-math. The phases are separate C entry
+// points.
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 #include "champion.cuh"
+#include "tc_distance.cuh"
 #include "tf32_accum.cuh"
 
 namespace {
@@ -95,10 +99,10 @@ constexpr int kTN = kFuzzyBN / 16;
 
 // The dot products of rows row0 + ty*TM + m with the BN centroids of the
 // K tile starting at kt, over all of d, into acc[m][q]: centroid kt +
-// (q / 4) * 64 + tx * 4 + q % 4 (groups of 4 that lie 64 apart, as in
-// `block_champion`). The next BK-column step is loaded while the current
-// one computes. Ends with a __syncthreads(), so `sm` may be reused right
-// after.
+// (q / 4) * 64 + tx * 4 + q % 4 (groups of 4 that lie 64 apart, so the
+// 16-byte shared loads stay free of bank conflicts). The next BK-column
+// step is loaded while the current one computes. Ends with a
+// __syncthreads(), so `sm` may be reused right after.
 template <bool kVec, int BN = kFuzzyBN>
 __device__ __forceinline__ void tile_dots(const float* __restrict__ x,
                                           const float* __restrict__ c,
@@ -169,8 +173,7 @@ __device__ __forceinline__ float mu_power(float u, float m) {
 // `tile(kt, inv)` (0 past k); then s_i over the 16
 // column owners of each row in a fixed butterfly order (a + b == b + a,
 // so every lane ends with the same bits) and `row(i, s_i, ‖x_i‖²)` on one
-// lane of each row below n. B7 keeps no inv (its `tile` does nothing, and
-// the stores into acc are dead code there), B6 writes them to its scratch.
+// lane of each row below n. B6 writes each inv to its scratch (`tile`).
 template <bool kVec, bool kM2, class Tile, class Row>
 __device__ __forceinline__ void row_normalizer(
     const float* __restrict__ x, const float* __restrict__ c,
@@ -216,25 +219,152 @@ __device__ __forceinline__ void row_normalizer(
   }
 }
 
-// Phase 1 of B7 (and of B8 after it): s_i and ‖x_i‖² for phase 2. One CTA
-// per 128 rows.
+// B7's rescore takes B8's own x·c* below this share of ‖x‖² + ‖c‖²
+// (fuzzy_norm_tc_kernel).
+constexpr float kIllCond = 1.f / 1024.f;
+
+// x·c in one f32 chain over d, the order of `tile_dots` (B8). Out of line:
+// inlined into B7's m = 2 kernel, where it runs for almost no row, it
+// slowed the whole kernel from 169 to 190 ms at the route's shape
+// (PERF.md).
+__device__ __noinline__ float chain_dot(const float* x, const float* c,
+                                        int d) {
+  float t = 0.f;
+  for (int col = 0; col < d; ++col) t = fmaf(x[col], c[col], t);
+  return t;
+}
+
+// B7's powers: inv = v^p, p = −1/(m−1). At m = 2 the exact 1/v that B6
+// takes; at other m 2^(p·log2 v), B11's form (tall_kernels.cu `fuzzy_w`),
+// one log2 and one exp2 in place of powf.
+template <bool kM2>
+__device__ __forceinline__ float norm_inv(float v, float p) {
+  return kM2 ? 1.f / v : exp2f(p * log2f(v));
+}
+
+// B7 on `tc_distance` (tc_distance.cuh): the distance product on the
+// tensor cores in 3xTF32. Per block, ‖x_i‖² first (16 lanes a row, the
+// order of `row_sq_norm`, so the bits equal `row_sq_norms_kernel`'s, which
+// B8 computes when it is not given them); per K tile each thread sums its
+// 64 entries' inv = (d² + eps)^p, d² = max(‖x‖² + c2 − 2·x·c, 0), in f32
+// and adds that into an f64 running s per row, and keeps the row's
+// champion (champion.cuh's rule) with the inv it summed for it. The
+// tensor core accumulates in f32 with truncation (PERF.md: min + ‖x‖²
+// biased by 4.4e-5 relative at d = 769): the nearest centroids, where the
+// cancellation in ‖x‖² + c2 − 2·x·c is worst, dominate s where K is small.
+// So each row's champion is scored again on the CUDA cores (c2n: ‖c‖² as
+// the wrapper gives B8 too; see the epilogue) and its inv replaces the one
+// summed: s = Σ inv − inv_tc(c*) + inv(d²(c*)), in f64, rounded once. c2
+// is the pre-pass's, padded with +inf.
 template <bool kVec, bool kM2>
-__global__ void __launch_bounds__(kThreads)
-    fuzzy_norm_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                      const float* __restrict__ c2, long long n, int k, int d,
-                      float p, float eps, float* __restrict__ s_out,
-                      float* __restrict__ x2_out) {
-  __shared__ AssignSmem<kFuzzyBN> sm;
-  row_normalizer<kVec, kM2>(
-      x, c, c2, n, k, d, p, eps, (long long)blockIdx.x * BM, 0, k, sm,
-      [](int, const float (&)[TM][kTN]) {},
-      [&](long long i, float s, float x2) {
-        s_out[i] = s;
-        x2_out[i] = x2;
+__global__ void __launch_bounds__(kDistThreads, 1)
+    fuzzy_norm_tc_kernel(const float* __restrict__ x,
+                         const float* __restrict__ c,
+                         const float* __restrict__ split,
+                         const float* __restrict__ c2,
+                         const float* __restrict__ c2n, long long n, int k,
+                         int d, float p, float eps,
+                         float* __restrict__ s_out,
+                         float* __restrict__ x2_out) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  DistSmem& sm = *reinterpret_cast<DistSmem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rl0 = 64 * (warp / 4) + 16 * (warp % 4) + lane / 4;
+  float best[2], binv[2];
+  int barg[2];
+  double s[2];
+  tc_distance<kVec>(
+      x, split, n, k, d, sm,
+      [&](long long row0) {
+#pragma unroll 1
+        for (int i = 0; i < 8; ++i) {
+          const int r = epilogue_row(i);
+          const float v = row_sq_norm(x, n, d, row0 + r);
+          if (tid % 16 == 0) sm.x2[r] = v;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          best[h] = CUDART_INF_F;
+          barg[h] = kArgSentinel;
+          binv[h] = 0.f;
+          s[h] = 0.0;
+        }
+      },
+      [&](int kt, const float (&acc)[kTcBN / 2]) {
+        const float x2[2] = {sm.x2[rl0], sm.x2[rl0 + 8]};
+        float ts[2] = {0.f, 0.f};
+        for_each_entry(kt, acc, c2, [&](int h, int col, float cc, float a) {
+          const float v = cc - 2.f * a;
+          // 0 past K: d² is +inf there
+          const float inv =
+              norm_inv<kM2>(fmaxf(x2[h] + cc - 2.f * a, 0.f) + eps, p);
+          ts[h] += inv;
+          if (v < best[h]) {
+            best[h] = v;
+            barg[h] = col;
+            binv[h] = inv;
+          }
+        });
+        s[0] += (double)ts[0];
+        s[1] += (double)ts[1];
+      },
+      [&](long long row0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          champion_quad(best[h], barg[h], binv[h]);
+#pragma unroll
+          for (int off = 1; off <= 2; off <<= 1)
+            s[h] += __shfl_xor_sync(0xffffffffu, s[h], off);
+          if (lane % 4 == 0) {
+            const int r = rl0 + 8 * h;
+            sm.lab[r] = barg[h];
+            sm.val[r] = binv[h];
+            sm.s[r] = s[h];
+          }
+        }
+        named_barrier(1 + warp / 4, 128);
+        // The champion's d² from x·c* in f32, 16 lanes a row, and B8's
+        // ‖c‖² (c2n). Where that d² is all cancellation (a row on a
+        // centroid: below kIllCond of ‖x‖² + ‖c‖²), x·c* as B8 will
+        // compute it, in one f32 chain over d, so that the row's μ =
+        // (inv / s)^m stays ≤ 1 (with a d² of other rounding it has no
+        // bound, and the K-sharded fit drifted from the same fit on one K
+        // shard: PERF.md). Its inv replaces the summed one; powf at
+        // m != 2, as B8.
+        const int tx = tid % 16;
+#pragma unroll 1
+        for (int i = 0; i < 8; ++i) {
+          const int r = epilogue_row(i);
+          const long long row = row0 + r;
+          const int j = sm.lab[r];
+          const bool live = row < n && j < k;
+          const float* xp = x + row * d;
+          const float* cp = c + (long long)(live ? j : 0) * d;
+          float t = 0.f;  // x·c*
+          if (live) {
+            for (int col = tx; col < d; col += 16)
+              t = fmaf(xp[col], cp[col], t);
+          }
+          t = row_lanes_sum(t);
+          if (tx == 0 && row < n) {
+            double sr = sm.s[r];
+            if (live) {
+              const float x2 = sm.x2[r], cj = c2n[j];
+              float d2 = true_d2(x2, cj, t);
+              if (d2 < kIllCond * (x2 + cj)) {
+                d2 = true_d2(x2, cj, chain_dot(xp, cp, d));
+              }
+              sr += (double)inv_power<kM2>(d2 + eps, p) - (double)sm.val[r];
+            }
+            s_out[row] = (float)sr;
+            x2_out[row] = sm.x2[r];
+          }
+        }
+        named_barrier(1 + warp / 4, 128);  // the row state is free
       });
 }
 
-// B6's phase 1: B7's phase 1 over the rows [row_lo, row_lo +
+// B6's phase 1: `row_normalizer` over the rows [row_lo, row_lo +
 // 128·gridDim.x) ∩ [0, n), CTA (blockIdx.x, blockIdx.y) on a block of 128
 // rows and split blockIdx.y of gridDim.y of the K tiles: each inv = (d² +
 // eps)^p to scr[(row − row_lo)·kp + j] (0 past k), and the split's sum of
@@ -810,20 +940,31 @@ extern "C" int tdc_fuzzy_grid(long long n, int k, int d, int target_ctas) {
                                target_ctas);
 }
 
-// Phase 1 alone: s (N,) f32, the row normaliser, and ‖x‖² (N,) f32.
+// B7: s (N,) f32, the row normaliser, and ‖x‖² (N,) f32 on `grid` CTAs,
+// given c2 (K,) = ‖c‖² as B8 takes it; scratch
+// (tdc_lloyd_scratch_floats(k, d) floats) for the split centroids and the
+// pre-pass's ‖c‖².
 extern "C" int tdc_fuzzy_normalizer(const float* x, const float* c,
                                     const float* c2, long long n, int k,
-                                    int d, float p, float eps, float* s,
-                                    float* x2, void* stream) {
+                                    int d, float p, float eps, int grid,
+                                    float* scratch, float* s, float* x2,
+                                    void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = (cudaError_t)launch_centroid_split(c, k, d, scratch, st);
+  if (err != cudaSuccess) return (int)err;
   const bool vec = vector_loads_ok(x, c, d), m2 = p == -1.f;
-  auto* kern = vec ? (m2 ? fuzzy_norm_kernel<true, true>
-                         : fuzzy_norm_kernel<true, false>)
-                   : (m2 ? fuzzy_norm_kernel<false, true>
-                         : fuzzy_norm_kernel<false, false>);
-  const unsigned blocks = (unsigned)((n + BM - 1) / BM);
-  kern<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, c, c2, n, k, d, p,
-                                                      eps, s, x2);
+  auto* kern = vec ? (m2 ? fuzzy_norm_tc_kernel<true, true>
+                         : fuzzy_norm_tc_kernel<true, false>)
+                   : (m2 ? fuzzy_norm_tc_kernel<false, true>
+                         : fuzzy_norm_tc_kernel<false, false>);
+  const int smem = (int)sizeof(DistSmem);  // past 48 KB: dynamic only
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kDistThreads, smem, st>>>(x, c, scratch,
+                                         scratch + split_floats(k, d), c2, n,
+                                         k, d, p, eps, s, x2);
   return (int)cudaGetLastError();
 }
 

@@ -2,16 +2,19 @@
 // `lloyd_stats_fused_weighted` for Hopper (sm_90a).
 //
 // B2 replaces `distance_argmin` / `_distance_argmin_kernel`
-// (tdc_tpu/ops/pallas_kernels.py:175, body :119). One CTA per 128-row
-// block loops over all K tiles and keeps a running (min, argmin) per row
-// (champion.cuh); no (N, K) buffer exists. Bound on this card: at K = 16,384
-// and d = 768 the 2·N·K·d FMA work on the f32 CUDA cores outweighs reading
-// x by three orders of magnitude, so it is compute-bound. The design keeps
-// every operand of the inner loop in shared memory or registers (8 x 8
-// register tile per thread, four 16-byte shared loads per 64 FMAs), and
-// prefetches the next step's tiles into registers (16-byte loads where
-// d % 4 == 0) while the current one computes; the tensor-core form
-// (3xTF32 or split-bf16 `wgmma`) is later work.
+// (tdc_tpu/ops/pallas_kernels.py:175, body :119): per row the (min,
+// argmin) of the distance over all K, with no (N, K) buffer. Bound on this
+// card: the 2·N·K·d distance product (at K = 16,384 and d = 768 reading x
+// is three orders of magnitude less). The earlier design ran it on the f32
+// FMA pipe (328.18 ms at N = 2^19 against a 196.93 ms floor there); here
+// it runs on the TF32 tensor cores in 3xTF32 (79.96 ms at 495 TFLOP/s),
+// `tc_distance` (tc_distance.cuh), and `distance_argmin_tc_kernel` below
+// folds each K tile's accumulators into a running champion per row in
+// registers (champion.cuh's rule). The returned minimum is not the tensor
+// core's: the tensor core accumulates in f32 with truncation, which biased
+// min + ‖x‖² by up to 4.4e-5 relative at d = 769 (PERF.md). Each row's
+// champion is scored again on the CUDA cores, ‖x − c*‖² (return_dist) or
+// ‖c*‖² − 2·x·c* in f32, 16 lanes a row, as B1's SSE term is.
 //
 // B1 replaces `lloyd_stats_fused` (pallas_kernels.py:414; body
 // `_fused_epilogue_kernel` :301 with `_cross_mxu` :341 and `_lloyd_fold`
@@ -44,6 +47,7 @@
 
 #include "champion.cuh"
 #include "lloyd_reduce.cuh"
+#include "tc_distance.cuh"
 #include "tf32_accum.cuh"
 #include "wgmma.cuh"
 
@@ -51,48 +55,18 @@ namespace {
 
 using namespace tdc;
 
-// B2 takes the 128-wide K tile (one CTA per SM, fewer shared loads per
-// FMA).
-constexpr int kArgminBN = 128;
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 1)
-    distance_argmin_kernel(const float* __restrict__ x,
-                           const float* __restrict__ c,
-                           const float* __restrict__ c2, long long n, int k,
-                           int d, int return_dist, int* __restrict__ labels,
-                           float* __restrict__ mind) {
-  __shared__ AssignSmem<kArgminBN> sm;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long row0 = (long long)blockIdx.x * BM;
-  float best[TM];
-  int barg[TM];
-  block_champion<kVec>(x, c, c2, n, k, d, row0, sm, best, barg);
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const long long row = row0 + ty * TM + m;
-    float v = best[m];
-    if (return_dist) v = fmaxf(v + row_sq_norm(x, n, d, row), 0.f);
-    if (tx == 0 && row < n) {
-      labels[row] = barg[m];
-      mind[row] = v;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------
 // B1 and B4: the distance product on the tensor cores in 3xTF32.
 //
 // A CTA of three warpgroups, one per SM, G = min(SMs, row blocks) of
 // them, each taking every G-th 128-row block:
 //
-// - Centroids: a pre-pass (`split_centroids`, `centroid_norms`) splits
-//   them once per call into TF32 halves, hi = rna(c) and lo = rna(c − hi),
-//   laid out as the swizzled 32-column tiles that `wgmma` reads, one
-//   256-centroid K tile and one half at a time (a "stage", 32 KiB), and
-//   gives c2 = ‖c‖², +inf past K. The producer warp (warp 8) streams the
-//   stages through a ring of kSlots shared-memory slots with bulk copies
-//   and mbarriers, the same sequence for every row block.
+// - Centroids: the pre-pass (`launch_centroid_split`: `split_centroids`,
+//   `centroid_norms` below; the layout in tc_distance.cuh) splits them
+//   into TF32 halves, in 32 KiB stages, and gives c2. The producer warp
+//   (warp 8) streams the stages through a ring of kSlots shared-memory
+//   slots with bulk copies and mbarriers, the same sequence for every row
+//   block.
 // - Product (warpgroups 0 and 1, 64 rows each): each stages its rows of
 //   a 128-column chunk of x into its half of the x buffer, split the same
 //   way (hi and lo, 128 KiB in all; where d <= 128 once per block, past it
@@ -120,9 +94,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Twelve warps leave 168 registers a thread: the accumulators are live
 // only inside a K tile, and restaging past d = 128 loads one column block
 // at a time. No float atomics anywhere: two runs are bitwise equal.
-constexpr int kTcBM = 128;  // rows per block: two warpgroups of 64
-constexpr int kTcBN = 256;  // centroids per K tile (one m64n256 per k-step)
-constexpr int kColBlock = 32;  // columns per swizzled tile row (128 bytes)
 constexpr int kChunkBlocks = 4;  // column blocks per staged x chunk
 constexpr int kSlots = 3;        // centroid stages in the ring
 constexpr int kConsumers = 256;  // the product's two warpgroups
@@ -130,7 +101,6 @@ constexpr int kProducerWarp = kConsumers / 32;
 constexpr int kAccWarps = 3;  // the accumulate's warps, after the producer
 constexpr int kAccThreads = 32 * kAccWarps;
 constexpr int kFusedThreads = kConsumers + 32 + kAccThreads;
-constexpr int kStageFloats = kTcBN * kColBlock;  // 32 KiB
 constexpr int kSlabFloats = kChunkBlocks * 64 * kColBlock;  // 32 KiB
 constexpr int kSkip = 0x7fffffff;  // label of a row past n
 constexpr int kSegsPerPass = 4;  // labels a warp accumulates at once
@@ -151,28 +121,6 @@ struct __align__(1024) FusedSmem {
   unsigned heads[kTcBM / 32];  // ballots of group heads,
   unsigned live[kTcBM / 32];   // and of rows with a label < K
 };
-
-// Rows of the split-centroid buffer: K padded to 8 (one swizzle atom).
-__host__ __device__ inline int split_rows(int k) { return (k + 7) / 8 * 8; }
-
-// Floats of the split centroids: hi and lo of every 32-column block of
-// every row. The per-call scratch holds them, then c2 padded to the K tile.
-inline long long split_floats(int k, int d) {
-  return 2LL * kColBlock * ((d + kColBlock - 1) / kColBlock) * split_rows(k);
-}
-
-// Float offset of stage (kt, cb, half) in the split-centroid buffer: the
-// K tiles in order, in each the column blocks, in each hi then lo, each a
-// tile of R rows (256, fewer in the last K tile).
-__device__ __forceinline__ long long stage_offset(int kt, int cb, int half,
-                                                  int ncb, int rows) {
-  return (long long)kt * kTcBN * 2 * kColBlock * ncb +
-         (long long)(2 * cb + half) * rows * kColBlock;
-}
-
-__device__ __forceinline__ int tile_rows(int kt, int k8) {
-  return min(kTcBN, k8 - kt * kTcBN);
-}
 
 // One thread per (row j < K8, column block cb, 16-byte chunk q).
 __global__ void split_centroids(const float* __restrict__ c, int k, int d,
@@ -670,12 +618,7 @@ int launch_fused(const float* x, const float* c, const float* w, long long n,
                  float* counts, float* sse, int* labels, cudaStream_t s) {
   float* split = scratch;
   float* c2 = scratch + split_floats(k, d);
-  const long long items = split_floats(k, d) / 8;  // 4 hi + 4 lo a thread
-  split_centroids<<<(unsigned)((items + 255) / 256), 256, 0, s>>>(c, k, d,
-                                                                  split);
-  const int kp = (k + kTcBN - 1) / kTcBN * kTcBN;
-  centroid_norms<<<(kp * 32 + 255) / 256, 256, 0, s>>>(c, k, d, c2);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = (cudaError_t)launch_centroid_split(c, k, d, scratch, s);
   if (err != cudaSuccess) return (int)err;
   err = vector_loads_ok(x, c, d)
             ? launch_tc<true, kWeighted>(x, c, split, c2, w, n, k, d, grid,
@@ -685,6 +628,148 @@ int launch_fused(const float* x, const float* c, const float* w, long long n,
   if (err != cudaSuccess) return (int)err;
   return launch_lloyd_reduce(ws, cnt, mass, sse_part, grid, k, d, sums,
                              counts, sse, s);
+}
+
+// ---------------------------------------------------------------------
+// B2 on `tc_distance`: the fold keeps each row's two best shifted
+// distances c2 − 2·x·c and their indices in registers (strict < in a
+// thread's increasing columns), and after a block's last K tile the quad's
+// merge (champion.cuh's rule). The tensor core's values decide only where
+// they are far apart: its truncating accumulation errs by up to ~3.5e-5
+// of ‖x‖² + ‖c‖² at d = 768 (PERF.md). Each row is scored again on the
+// CUDA cores, 16 lanes a row, in f32: its champion, and its runner-up
+// where the two lie within kNearTie of ‖x‖² + ‖c‖² (about seven times
+// that error) of each other; between those two the f32 shifted distances
+// ‖c‖² − 2·x·c decide, smallest index among equal ones. So the label is
+// the one f32 values give wherever the tensor core's could mislead,
+// whatever the K tiling: the K-sharded tower, which compares the shards'
+// f32 minima, picks the labels of one GPU. The minimum returned is the
+// label's ‖x − c‖² (return_dist; as B1's SSE term) or its ‖c‖² − 2·x·c,
+// both from that pass. A row with no finite candidate keeps the sentinel
+// label and a NaN minimum.
+constexpr float kNearTie = 1.f / 4096.f;
+
+template <bool kVec>
+__global__ void __launch_bounds__(kDistThreads, 1)
+    distance_argmin_tc_kernel(const float* __restrict__ x,
+                              const float* __restrict__ c,
+                              const float* __restrict__ split,
+                              const float* __restrict__ c2, long long n,
+                              int k, int d, int return_dist,
+                              int* __restrict__ labels,
+                              float* __restrict__ mind) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  DistSmem& sm = *reinterpret_cast<DistSmem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rl0 = 64 * (warp / 4) + 16 * (warp % 4) + lane / 4;
+  float b1[2], b2[2];  // a row's best and runner-up
+  int j1[2], j2[2];
+  tc_distance<kVec>(
+      x, split, n, k, d, sm,
+      [&](long long) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          b1[h] = b2[h] = CUDART_INF_F;
+          j1[h] = j2[h] = kArgSentinel;
+        }
+      },
+      [&](int kt, const float (&acc)[kTcBN / 2]) {
+        for_each_entry(kt, acc, c2, [&](int h, int col, float cc, float a) {
+          const float v = cc - 2.f * a;
+          if (v < b2[h]) {
+            if (v < b1[h]) {
+              b2[h] = b1[h];
+              j2[h] = j1[h];
+              b1[h] = v;
+              j1[h] = col;
+            } else {
+              b2[h] = v;
+              j2[h] = col;
+            }
+          }
+        });
+      },
+      [&](long long row0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          top2_quad(b1[h], j1[h], b2[h], j2[h]);
+          if (lane % 4 == 0) {
+            sm.lab[rl0 + 8 * h] = j1[h];
+            sm.lab2[rl0 + 8 * h] = j2[h];
+            sm.val[rl0 + 8 * h] = b2[h] - b1[h];
+          }
+        }
+        named_barrier(1 + warp / 4, 128);
+        const int tx = tid % 16;
+#pragma unroll 1
+        for (int i = 0; i < 8; ++i) {
+          const int r = epilogue_row(i);
+          const long long row = row0 + r;
+          int j = sm.lab[r];
+          // x·c, ‖c‖², ‖x − c‖² and ‖x‖²: one pass per candidate
+          float xc = 0.f, cc = 0.f, dd = 0.f, xx = 0.f;
+          const float* xp = x + row * d;
+          if (row < n && j < k) {
+            const float* cp = c + (long long)j * d;
+            for (int col = tx; col < d; col += 16) {
+              const float xv = xp[col], cv = cp[col], t = xv - cv;
+              xc = fmaf(xv, cv, xc);
+              cc = fmaf(cv, cv, cc);
+              dd = fmaf(t, t, dd);
+              xx = fmaf(xv, xv, xx);
+            }
+          }
+          xc = row_lanes_sum(xc);
+          cc = row_lanes_sum(cc);
+          dd = row_lanes_sum(dd);
+          xx = row_lanes_sum(xx);
+          float v = cc - 2.f * xc;
+          const int jr = sm.lab2[r];
+          const bool near = row < n && j < k && jr < k &&
+                            sm.val[r] <= kNearTie * (xx + cc + c2[jr]);
+          if (__any_sync(0xffffffffu, near)) {
+            float xc2 = 0.f, cc2 = 0.f, dd2 = 0.f;
+            if (near) {
+              const float* cp = c + (long long)jr * d;
+              for (int col = tx; col < d; col += 16) {
+                const float xv = xp[col], cv = cp[col], t = xv - cv;
+                xc2 = fmaf(xv, cv, xc2);
+                cc2 = fmaf(cv, cv, cc2);
+                dd2 = fmaf(t, t, dd2);
+              }
+            }
+            xc2 = row_lanes_sum(xc2);
+            cc2 = row_lanes_sum(cc2);
+            dd2 = row_lanes_sum(dd2);
+            const float v2 = cc2 - 2.f * xc2;
+            if (near && better(v2, jr, v, j)) {
+              j = jr;
+              v = v2;
+              dd = dd2;
+            }
+          }
+          if (tx == 0 && row < n) {
+            labels[row] = j;
+            mind[row] = j >= k ? CUDART_NAN_F : return_dist ? dd : v;
+          }
+        }
+        named_barrier(1 + warp / 4, 128);  // the row state is free
+      });
+}
+
+template <bool kVec>
+cudaError_t launch_argmin(const float* x, const float* c, const float* split,
+                          const float* c2, long long n, int k, int d,
+                          int grid, int return_dist, int* labels, float* mind,
+                          cudaStream_t s) {
+  auto kernel = distance_argmin_tc_kernel<kVec>;
+  const int smem = (int)sizeof(DistSmem);  // past 48 KB: dynamic only
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kDistThreads, smem, s>>>(x, c, split, c2, n, k, d,
+                                          return_dist, labels, mind);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -701,20 +786,33 @@ int tdc::launch_lloyd_reduce(const float* ws, const int* cnt,
   return (int)cudaGetLastError();
 }
 
-extern "C" int tdc_distance_argmin(const float* x, const float* c,
-                                   const float* c2, long long n, int k, int d,
-                                   int return_dist, int* labels, float* mind,
-                                   void* stream) {
-  const unsigned blocks = (unsigned)((n + BM - 1) / BM);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (vector_loads_ok(x, c, d)) {
-    distance_argmin_kernel<true><<<blocks, kThreads, 0, s>>>(
-        x, c, c2, n, k, d, return_dist, labels, mind);
-  } else {
-    distance_argmin_kernel<false><<<blocks, kThreads, 0, s>>>(
-        x, c, c2, n, k, d, return_dist, labels, mind);
-  }
+int tdc::launch_centroid_split(const float* c, int k, int d,
+                               float* scratch, cudaStream_t s) {
+  const long long items = split_floats(k, d) / 8;  // 4 hi + 4 lo a thread
+  split_centroids<<<(unsigned)((items + 255) / 256), 256, 0, s>>>(c, k, d,
+                                                                  scratch);
+  const int kp = (k + kTcBN - 1) / kTcBN * kTcBN;
+  centroid_norms<<<(kp * 32 + 255) / 256, 256, 0, s>>>(
+      c, k, d, scratch + split_floats(k, d));
   return (int)cudaGetLastError();
+}
+
+// B2: labels (n,) int32 and the minima (n,) f32 on `grid` CTAs; scratch
+// (tdc_lloyd_scratch_floats(k, d) floats) for the split centroids and ‖c‖².
+extern "C" int tdc_distance_argmin(const float* x, const float* c,
+                                   long long n, int k, int d,
+                                   int return_dist, int grid, float* scratch,
+                                   int* labels, float* mind, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = (cudaError_t)launch_centroid_split(c, k, d, scratch, s);
+  if (err != cudaSuccess) return (int)err;
+  const float* c2 = scratch + split_floats(k, d);
+  err = vector_loads_ok(x, c, d)
+            ? launch_argmin<true>(x, c, scratch, c2, n, k, d, grid,
+                                  return_dist, labels, mind, s)
+            : launch_argmin<false>(x, c, scratch, c2, n, k, d, grid,
+                                   return_dist, labels, mind, s);
+  return (int)err;
 }
 
 // B1: scratch (tdc_lloyd_scratch_floats(k, d) floats: the split
@@ -742,9 +840,9 @@ extern "C" int tdc_lloyd_stats_fused_weighted(
                             (cudaStream_t)stream);
 }
 
-// Floats of B1's and B4's per-call scratch.
+// Floats of the per-call scratch of B1, B2, B4 and B7.
 extern "C" int64_t tdc_lloyd_scratch_floats(int k, int d) {
-  return split_floats(k, d) + (long long)(k + kTcBN - 1) / kTcBN * kTcBN;
+  return centroid_scratch_floats(k, d);
 }
 
 extern "C" const char* tdc_error_string(int err) {

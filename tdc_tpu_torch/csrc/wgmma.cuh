@@ -1,8 +1,8 @@
 // Hopper primitives for the tensor-core Lloyd kernels (B1 and B4 in
 // 3xTF32, B5 in bf16): shared-memory matrix descriptors, `wgmma`
 // m64n256k8 on TF32 and m64n256k16 on bf16 operands, mbarriers, bulk
-// copies into shared memory, named barriers, and the accumulate warps'
-// helpers. Written against the PTX ISA for sm_90a; no CUTLASS.
+// copies into shared memory, named barriers, register budgets by
+// warpgroup (`setmaxnreg`), and the accumulate warps' helpers. Written against the PTX ISA for sm_90a; no CUTLASS.
 //
 // Operand layout (both A and B K-major): a tile of R rows x 128 bytes (32
 // floats or 64 bf16), row r at r·128 bytes from a 1024-byte aligned base,
@@ -176,6 +176,18 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Moves the calling warpgroup's register budget to N a thread (a multiple
+// of 8): `dec` hands registers back, `inc` waits until it can take them.
+// All four warps of the group run it, converged.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Orders this thread's earlier shared-memory writes before later reads of

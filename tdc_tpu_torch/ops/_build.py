@@ -39,9 +39,10 @@ _F = ctypes.c_float
 # tdc_fuzzy_grid, tdc_gmm_row_block and tdc_tall_grid return the geometry
 # that sizes B3's and B12's, B8's, B9's, B10's and B11's workspaces;
 # tdc_lloyd_scratch_floats and tdc_lloyd_bf16_scratch_floats, in
-# LONG_RESULTS, the size of B1's and B4's and of B5's per-call scratch).
+# LONG_RESULTS, the size of the per-call scratch of B1, B2, B4 and B7 and
+# of B5's).
 SIGNATURES = {
-    "tdc_distance_argmin": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
+    "tdc_distance_argmin": [_P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
     "tdc_lloyd_stats_fused": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P,
                               _P, _P, _P, _P],
     "tdc_lloyd_stats_fused_weighted": [_P, _P, _P, _LL, _I, _I, _I, _P, _P,
@@ -53,7 +54,8 @@ SIGNATURES = {
                                   _P, _P],
     "tdc_segment_chunk_rows": [],
     "tdc_segment_meta_bytes": [],
-    "tdc_fuzzy_normalizer": [_P, _P, _P, _LL, _I, _I, _F, _F, _P, _P, _P],
+    "tdc_fuzzy_normalizer": [_P, _P, _P, _LL, _I, _I, _F, _F, _I, _P, _P,
+                             _P, _P],
     "tdc_fuzzy_accumulate": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _F, _F,
                              _I, _P, _P, _P, _P, _P, _P, _P],
     "tdc_fuzzy_accumulate_mu": [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _F, _F,

@@ -26,8 +26,9 @@ once: there is no route limit and no fallback. See the note in
 
 B7 (`fuzzy_normalizer`) and B8 (`fuzzy_accumulate`) are two phases of
 their own, for the K-sharded tower (`parallel/sharded_k.py`): B7 gives
-s = Σ_k (d² + eps)^(−1/(m−1)) over the centroids it is given (B6's phase
-1 without the scratch writes), the tower sums s over the model axis, and B8
+s = Σ_k (d² + eps)^(−1/(m−1)) over the centroids it is given (its
+distance product on the tensor cores in 3xTF32, each row's nearest
+centroid scored again in f32), the tower sums s over the model axis, and B8
 takes that s from outside and computes the distance again: at d <= 128
 in one kernel, past it through a μ scratch of at most MU_SCRATCH_BYTES
 (`mu_scratch_plan`) to a μᵀ·X kernel. `fuzzy_stats_twopass` is B7 then
@@ -47,6 +48,7 @@ from tdc_tpu_torch.ops.lloyd_kernels import (
     _check,
     _sq_norms,
     _stream,
+    fused_tc_grid,
     widened,
 )
 from tdc_tpu_torch.utils.structlog import emit
@@ -85,16 +87,24 @@ def fuzzy_stats_fused_plain(x: torch.Tensor, centroids: torch.Tensor,
 
 
 def _normalize_phase(x, centroids, c2, m, eps):
-    """B7's kernel on CUDA tensors: (s, ‖x‖²), each (N,) f32. Counts no
-    launch: `fuzzy_normalizer` is the kernel's entry point."""
+    """B7's kernel on CUDA tensors: (s, ‖x‖²), each (N,) f32, on
+    `fused_tc_grid` CTAs with a scratch for the centroids split into TF32
+    halves and ‖c‖². c2 is ‖c‖² as B8 takes it: each row's nearest
+    centroid is scored again with B8's arithmetic. Counts no launch:
+    `fuzzy_normalizer` is the kernel's entry point."""
     n, d = x.shape
+    k = centroids.shape[0]
     s = torch.empty(max(n, 1), dtype=torch.float32, device=x.device)
     x2 = torch.empty(max(n, 1), dtype=torch.float32, device=x.device)
-    _build.check(_build.load().lib.tdc_fuzzy_normalizer(
-        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), n,
-        centroids.shape[0], d, -1.0 / (m - 1.0), eps, s.data_ptr(),
+    lib = _build.load().lib
+    scratch = torch.empty(lib.tdc_lloyd_scratch_floats(k, d),
+                          dtype=torch.float32, device=x.device)
+    _build.check(lib.tdc_fuzzy_normalizer(
+        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), n, k, d,
+        -1.0 / (m - 1.0), eps,
+        fused_tc_grid(x.device, n), scratch.data_ptr(), s.data_ptr(),
         x2.data_ptr(), _stream(x),
-    ), "fuzzy_stats_fused (normaliser)")
+    ), "fuzzy_normalizer")
     return s, x2
 
 

@@ -20,9 +20,9 @@ Each kernel has three parts here:
   increments.
 
 The kernels are compute-bound on the H100 at the main path's shapes (the
-2·N·K·d distance product: on the f32 CUDA cores for B2, on the TF32 tensor
-cores as three TF32 products (3xTF32) for B1 and B4, on the bf16 tensor
-cores for B5); see the notes in the sources and PERF.md.
+2·N·K·d distance product: on the TF32 tensor cores as three TF32 products
+(3xTF32) for B1, B2 and B4, on the bf16 tensor cores for B5); see the
+notes in the sources and PERF.md.
 
 bf16 rows. B5 takes them natively, and it also serves f32 rows under
 mxu_dtype="bfloat16" (`kernel="pallas_bf16"`). B2 and B4, like B6, take
@@ -134,7 +134,10 @@ def distance_argmin(x: torch.Tensor, centroids: torch.Tensor, *,
     """B2: (argmin (N,) int32, min squared distance (N,) f32) with no
     (N, K) buffer. Without `return_dist` the distance is the shifted
     ‖c‖² − 2x·c (argmin-valid); with it ‖x‖² is added back and clamped
-    at 0. bf16 rows run widened (`widened`)."""
+    at 0 (the kernel scores the champion again in f32: ‖x − c‖², or
+    ‖c‖² − 2x·c). The kernel takes `fused_tc_grid` CTAs and a scratch for
+    the centroids split into TF32 halves and ‖c‖². bf16 rows run widened
+    (`widened`)."""
     _check("distance_argmin", x, centroids, ROW_DTYPES)
     x, centroids = widened(x, centroids)
     if x.device.type == "cpu":
@@ -146,10 +149,12 @@ def distance_argmin(x: torch.Tensor, centroids: torch.Tensor, *,
     if n == 0:
         return labels, mind
     lib = _build.load().lib
-    c2 = _sq_norms(centroids)
+    scratch = torch.empty(lib.tdc_lloyd_scratch_floats(k, d),
+                          dtype=torch.float32, device=x.device)
     _build.check(lib.tdc_distance_argmin(
-        x.data_ptr(), centroids.data_ptr(), c2.data_ptr(), n, k, d,
-        int(return_dist), labels.data_ptr(), mind.data_ptr(), _stream(x),
+        x.data_ptr(), centroids.data_ptr(), n, k, d, int(return_dist),
+        fused_tc_grid(x.device, n), scratch.data_ptr(), labels.data_ptr(),
+        mind.data_ptr(), _stream(x),
     ), "distance_argmin")
     distance_argmin.launches += 1
     return labels, mind
@@ -183,8 +188,8 @@ def lloyd_stats_fused_plain(x: torch.Tensor, centroids: torch.Tensor, *,
 
 
 def fused_tc_grid(device: torch.device, n: int) -> int:
-    """B1's, B4's and B5's CTA count: one per SM (each takes most of its
-    shared memory), no more than there are 128-row blocks, at least
+    """The CTA count of B1, B2, B4, B5 and B7: one per SM (each takes most
+    of its shared memory), no more than there are 128-row blocks, at least
     one."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(sms, -(-n // _TC_BM)))

@@ -61,7 +61,16 @@ equal and sums within 1e-5 of Σ|x| (B4: Σw|x|) where they all agree,
 else against f64 sums by the kernel's own labels, the mass and SSE
 within rtol 1e-5, two runs bitwise equal. B8's μ-scratch design (d = 130 and 769, and
 d = 7 on the one-slice kernel; ragged N and K, s from two K-shards, a
-scratch budget cut down to several chunks): as B6, bitwise repeatable."""
+scratch budget cut down to several chunks): as B6, bitwise repeatable.
+The edges of B2's and B7's tensor-core design (N ragged and below one
+block; K = 1, K < 256, a partial last 256-centroid tile; d = 1, 19, 64,
+128, 130, 768, 769; a misaligned base): B2's labels equal to the plain
+version's and its minima (both forms) within rtol 1e-5 and atol 1e-4,
+B7's s within rtol 1e-5 at m = 2 and 1.7 with B8 bitwise equal with and
+without B7's ‖x‖², both bitwise repeatable; B2 on near-tie inputs (d =
+768 and 19): labels equal but at near-ties; copies of a centroid in the
+same and the next K tiles go to the smallest index; rows equal to
+centroids: B7 then B8 give memberships that sum to at most 1 a row."""
 
 import pytest
 import torch
@@ -275,9 +284,9 @@ def test_b12_is_b3_on_the_gathered_rows(gen, n, k, d, dtype):
 
 @pytest.mark.parametrize("d", [19, 128])
 def test_ties_go_to_the_smallest_index(gen, d):
-    # Copies of centroid 3: in the same K tile on another lane (5), in
-    # B2's 128-wide tile on the same thread and B1's next 64-wide tile
-    # (67), in a later tile (200) and in the last, partial tile (299).
+    # Copies of centroid 3: in the same 256-centroid K tile of B1 and B2
+    # on another lane (5) and on other threads (67, 200), and in the next,
+    # partial tile (299).
     k, copies = 300, [5, 67, 200, 299]
     x, c = _data(gen, 4000, k, d)
     c[copies] = c[3].clone()
@@ -516,6 +525,116 @@ def test_b1_b4_near_ties(gen, n, k, d, weighted):
     x, c = _near_tie_data(gen, n, k, d)
     assert _rows_past_tie_limit(x, c) >= n // 10
     _check_fused(x, c, _weights(gen, n) if weighted else None)
+
+
+# Edges of B2's and B7's tensor-core design (N, K, d): N not a multiple
+# of the 128-row block and below one block; K with a partial last
+# 256-centroid tile, K < 256 and K = 1; d = 1 and 19 (the scalar loads,
+# a partial k-step), 128, 130 (a partial column block), 768 (the route's)
+# and 769; a base one float past a 16-byte boundary.
+DISTANCE_CASES = {
+    "d1_k1": (129, 1, 1),
+    "d19_k37": (1000, 37, 19),
+    "d128_k300": (3001, 300, 128),
+    "d130_k257": (777, 257, 130),
+    "d768_k1": (300, 1, 768),
+    "d768_k37": (1000, 37, 768),
+    "d768_k600": (2000, 600, 768),
+    "d769_k70": (2000, 70, 769),
+    "below_one_block": (100, 37, 64),
+    "misaligned": (3001, 130, 128),
+}
+
+
+@pytest.mark.parametrize("return_dist", [True, False])
+@pytest.mark.parametrize("case", list(DISTANCE_CASES))
+def test_b2_tensor_core_design_edges(gen, case, return_dist):
+    # Labels equal to the plain version's (the blobs keep every row far
+    # from a tie), minima within rtol 1e-5 and atol 1e-4 in both forms,
+    # two runs bitwise equal, one launch a call.
+    n, k, d = DISTANCE_CASES[case]
+    x, c = _data(gen, n, k, d)
+    x = _rows(x.contiguous(), case == "misaligned")
+    before = lk.distance_argmin.launches
+    lab, mind = lk.distance_argmin(x, c, return_dist=return_dist)
+    again = lk.distance_argmin(x, c, return_dist=return_dist)
+    assert lk.distance_argmin.launches == before + 2
+    assert torch.equal(lab, again[0]) and torch.equal(mind, again[1])
+    plab, pmind = lk.distance_argmin_plain(x, c, return_dist=return_dist)
+    assert torch.equal(lab, plab)
+    torch.testing.assert_close(mind, pmind, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,k,d", [(1 << 14, 1024, 768), (5000, 300, 19)])
+def test_b2_near_ties(gen, n, k, d):
+    # Labels may differ from the plain version's only at near-ties; a
+    # tenth of the rows or more lie past the limit, where a product
+    # coarser than f32 would flip some. The minima stay within rtol 1e-5
+    # and atol 1e-4 either way: the two candidates' distances nearly tie.
+    x, c = _near_tie_data(gen, n, k, d)
+    assert _rows_past_tie_limit(x, c) >= n // 10
+    lab, mind = lk.distance_argmin(x, c, return_dist=True)
+    plab, pmind = lk.distance_argmin_plain(x, c, return_dist=True)
+    diff = (lab != plab).nonzero().flatten()
+    if diff.numel():
+        xd = x[diff].double()
+        dg = ((xd - c[lab[diff].long()].double()) ** 2).sum(1)
+        dw = ((xd - c[plab[diff].long()].double()) ** 2).sum(1)
+        scale = (xd * xd).sum(1) + (c.double() ** 2).sum(1).max()
+        assert ((dg - dw).abs() <= 1e-5 * scale).all()
+    torch.testing.assert_close(mind, pmind, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [2.0, 1.7])
+@pytest.mark.parametrize("case", list(DISTANCE_CASES))
+def test_b7_tensor_core_design_edges(gen, case, m):
+    # s within rtol 1e-5 of the plain version's (at K = 1 and 37, d = 768
+    # the nearest centroid carries much of s: the champion's f32 rescore
+    # holds it), two runs bitwise equal, ‖x‖² bitwise as B8 computes it.
+    n, k, d = DISTANCE_CASES[case]
+    x, c = _data(gen, n, k, d)
+    x = _rows(x.contiguous(), case == "misaligned")
+    before = fk.fuzzy_normalizer.launches
+    s, x2 = fk.fuzzy_normalizer(x, c, m, return_x2=True)
+    assert torch.equal(s, fk.fuzzy_normalizer(x, c, m))
+    assert fk.fuzzy_normalizer.launches == before + 2
+    torch.testing.assert_close(s, fk.fuzzy_normalizer_plain(x, c, m),
+                               rtol=1e-5, atol=0.0)
+    st = fk.fuzzy_accumulate(x, c, s, m, x2=x2)
+    again = fk.fuzzy_accumulate(x, c, s, m)  # ‖x‖² computed by B8
+    assert all(torch.equal(a, b) for a, b in zip(st, again))
+
+
+@pytest.mark.parametrize("m", [2.0, 1.7])
+def test_b7_b8_rows_on_centroids(gen, m):
+    # Rows equal to centroids: their nearest d² is all cancellation, so
+    # B7's s must hold the inv that B8 computes for that pair, or the
+    # row's μ = (inv / s)^m has no bound. Each row's memberships sum to
+    # at most 1: Σμ over all K stays within N (rtol 1e-5).
+    k, d = 300, 768
+    c = torch.rand((k, d), generator=gen, device="cuda") * 6 - 3
+    x = torch.cat([c[:64], c[100:164]]).contiguous()
+    s = fk.fuzzy_normalizer(x, c, m)
+    st = fk.fuzzy_accumulate(x, c, s, m)
+    assert torch.isfinite(st.weights).all()
+    assert float(st.weights.sum()) <= x.shape[0] * (1 + 1e-5)
+
+
+@pytest.mark.parametrize("d", [19, 768])
+def test_ties_across_the_k_tile_boundary(gen, d):
+    # Copies of centroid 3 in its own 256-centroid K tile (5, 67, 200,
+    # 255) and in the next ones (256, 300, 511, 512, 599): a later tile
+    # wins only on strict <, so every tie goes to the smallest index; B7
+    # counts each copy in s, as the plain version does.
+    k, copies = 600, [5, 67, 200, 255, 256, 300, 511, 512, 599]
+    x, c = _data(gen, 3000, k, d)
+    c[copies] = c[3].clone()
+    lab = lk.distance_argmin(x, c)[0]
+    assert torch.equal(lab, lk.distance_argmin_plain(x, c)[0])
+    assert not torch.isin(lab, torch.tensor(copies, device="cuda")).any()
+    torch.testing.assert_close(fk.fuzzy_normalizer(x, c),
+                               fk.fuzzy_normalizer_plain(x, c),
+                               rtol=1e-5, atol=0.0)
 
 
 @pytest.mark.parametrize("small_scratch", [False, True])
