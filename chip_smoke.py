@@ -275,6 +275,15 @@ BF16_SORTED_N = 1 << 17  # rows of the bf16 sorted-route check
 FUZZY_MS = (2.0, 1.7)  # B6 is checked at both fuzzifiers
 FUZZY_RAGGED = ((1 << 16) + 37, 300, 19)  # N, K, d: no multiple of a tile
 SMALL_K_SHAPE = ((1 << 16) + 37, 37, 768)  # B7 where the nearest dominate
+# B7 where its 3xTF32 product and the champion's f32 rescore are what
+# hold s (scripts/b2_b7_phases.py): at d = 1, K = 1 s is one centroid's inv,
+# all cancellation near it (without the rescore hundreds to tens of
+# thousands of times the tolerance); at d = 19, K = 37 one TF32 pass
+# reads 3.7 to 5.5 times it. On rows on centroids, without the rescore,
+# Σμ runs past N by many orders of magnitude.
+B7_EDGE_SHAPES = ((129, 1, 1), (1000, 37, 19))
+# Rows equal to centroids (K, d): their nearest d² is all cancellation.
+ON_CENTROIDS = (300, 768)
 ZERO_SHARE = 0.05  # share of the weights set exactly to 0
 # The feature-major routes: the reference sweep's largest point (n_obs =
 # 100M, n_dim = 5, K in {15, 12, 9, 6, 3}; SURVEY.md), uncut.
@@ -474,34 +483,49 @@ def check_labels(name, x, c, got, want) -> int:
     return int(diff.numel())
 
 
-def near_tie_data(gen, n, k, d):
-    """Points off the midpoint of centroids i % k and (i + 1) % k
-    (centroids as blob_data's centers) by a Gaussian offset whose scale,
-    drawn per row, is log-uniform over 1e-6..10^-2.5 a coordinate: the
-    true gaps between the two candidates' distances run from far inside
-    the near-tie limit (TIE_TOL) to some ten times past it. A product as
-    exact as f32 flips labels only inside it; one TF32 pass (2^-11
-    operands) flips rows past it, and check_labels fails it."""
+def near_tie_data(gen, n, k, d, ways=2):
+    """Points off the point equidistant from centroids i % k .. (i + ways
+    - 1) % k in their affine span (centroids as blob_data's centers; at
+    ways = 2 the midpoint) by a Gaussian offset whose scale, drawn per
+    row, is log-uniform over 1e-6..10^-2.5 a coordinate: the true gaps
+    between the candidates' distances run from far inside the near-tie
+    limit (TIE_TOL) to some ten times past it. A product as exact as f32
+    flips labels only inside it; one TF32 pass (2^-11 operands) flips rows
+    past it, and check_labels fails it. At ways = 3 one TF32 pass also
+    drops the nearest of three candidates out of a kernel's two best, so
+    that an exact decision between those two still picks past the limit."""
     c = ((torch.rand((k, d), generator=gen, device="cuda") * 2 - 1) * 3
          ).contiguous()
-    a = torch.arange(n, device="cuda") % k
-    x = (c[a] + c[(a + 1) % k]) / 2
+    # The equidistant point of each group in f64: p0 + Σ α_i u_i with u_i
+    # = p_i − p0 and (U Uᵀ) α = ‖u_i‖² / 2.
+    group = (torch.arange(k, device="cuda")[:, None]
+             + torch.arange(ways, device="cuda")) % k
+    p = c.double()[group]
+    u = p[:, 1:] - p[:, :1]
+    gram = u @ u.transpose(1, 2)
+    alpha = torch.linalg.solve(gram, 0.5 * gram.diagonal(dim1=1, dim2=2))
+    center = (p[:, 0] + (alpha[:, None] @ u)[:, 0]).float()
+    del group, p, u, gram, alpha
+    x = center[torch.arange(n, device="cuda") % k]
     s = 10.0 ** (-6.0 + 3.5 * torch.rand((n, 1), generator=gen,
                                          device="cuda"))
     return (x + s * torch.randn((n, d), generator=gen, device="cuda")
             ).contiguous(), c
 
 
-def tie_reach(x, c) -> int:
-    """Rows of near_tie_data's input whose two candidates' exact distances
-    differ by more than the near-tie limit and by at most ten times it:
-    the labels that a product coarser than f32 flips and check_labels must
-    then refuse. Fails unless they are a tenth of the rows or more."""
+def tie_reach(x, c, ways=2) -> int:
+    """Rows of near_tie_data's input whose group's nearest and farthest
+    candidates' exact distances differ by more than the near-tie limit and
+    by at most ten times it: the labels that a product coarser than f32
+    flips and check_labels must then refuse. Fails unless they are a tenth
+    of the rows or more."""
     n, k = x.shape[0], c.shape[0]
-    a = torch.arange(n, device=x.device) % k
+    group = (torch.arange(n, device=x.device)[:, None]
+             + torch.arange(ways, device=x.device)) % k
     xd, cd = x.double(), c.double()
-    gap = (((xd - cd[a]) ** 2).sum(1)
-           - ((xd - cd[(a + 1) % k]) ** 2).sum(1)).abs()
+    dist = torch.stack([((xd - cd[group[:, i]]) ** 2).sum(1)
+                        for i in range(ways)], 1)
+    gap = dist.max(1).values - dist.min(1).values
     lim = TIE_TOL * ((xd * xd).sum(1) + (cd * cd).sum(1).max())
     reach = int(((gap > lim) & (gap <= 10 * lim)).sum())
     require(reach >= n // 10, f"near-tie input: only {reach} of {n} rows "
@@ -636,21 +660,26 @@ def phase_kernels(gen) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         bound_f32_ms=bound_ms(2.0 * n * k * d + 2.0 * n * d, nbytes)[0])
     del x, c, mind, plab, pmind, slab, smind, scale
-    # B2 on the near-tie input at the route's K and d: labels may differ
-    # from the plain version's only at near-ties.
-    xn, cn = near_tie_data(gen, TIE_N, k, d)
-    reach = tie_reach(xn, cn)
-    nlab, nmin = lk.distance_argmin(xn, cn, return_dist=True)
-    repeatable("B2 near-tie input", (nlab, nmin),
-               lk.distance_argmin(xn, cn, return_dist=True))
-    plab, pmin = lk.distance_argmin_plain(xn, cn, return_dist=True)
-    out["B2"]["near_tie_input"] = dict(
-        near_ties=check_labels("B2 near-tie input", xn, cn, nlab, plab),
-        gap_share=TIE_GAP_SHARES.get("B2 near-tie input", 0.0),
-        rows_past_limit=reach,
-        min_err=check_close("B2 near-tie input min", nmin, pmin,
-                            (xn * xn).sum(1) + (cn * cn).sum(1).max()))
-    del xn, cn, nlab, nmin, plab, pmin
+    # B2 on the near-tie inputs at the route's K and d: labels may differ
+    # from the plain version's only at near-ties. Two candidates a row:
+    # one TF32 pass flips labels past the limit unless an f32 decision
+    # between the two best follows; three: one TF32 pass also drops the
+    # nearest out of the two best, so only the 3xTF32 product passes.
+    for ways, key in ((2, "near_tie_input"), (3, "near_tie_input_3way")):
+        xn, cn = near_tie_data(gen, TIE_N, k, d, ways)
+        reach = tie_reach(xn, cn, ways)
+        nlab, nmin = lk.distance_argmin(xn, cn, return_dist=True)
+        name = f"B2 {key.replace('_', ' ')}"
+        repeatable(name, (nlab, nmin),
+                   lk.distance_argmin(xn, cn, return_dist=True))
+        plab, pmin = lk.distance_argmin_plain(xn, cn, return_dist=True)
+        out["B2"][key] = dict(
+            near_ties=check_labels(name, xn, cn, nlab, plab),
+            gap_share=TIE_GAP_SHARES.get(name, 0.0),
+            rows_past_limit=reach,
+            min_err=check_close(f"{name} min", nmin, pmin,
+                                (xn * xn).sum(1) + (cn * cn).sum(1).max()))
+        del xn, cn, nlab, nmin, plab, pmin
     print(f"[B2] N={n} K={k} d={d} (3xTF32 on the tensor cores): "
           f"{json.dumps(out['B2'])}; share of the tolerance used: "
           f"{json.dumps(tol_shares('B2'))}", flush=True)
@@ -1268,6 +1297,30 @@ def check_twopass(name, x, c, m) -> tuple[float, float]:
     return err7, err8
 
 
+def on_centroids_share(gen, m) -> float:
+    """B7 then B8 on 128 rows equal to centroids (ON_CENTROIDS): B7's s
+    must hold the inv that B8 computes for a row and its own centroid, or
+    the row's μ = (inv / s)^m has no bound. Each row's memberships sum to
+    at most 1, so Σμ is at most N: returns (Σμ − N) / (REL_TOL·N), the
+    share of that tolerance used (below 0 within N; inf if not finite)."""
+    k, d = ON_CENTROIDS
+    c = ((torch.rand((k, d), generator=gen, device="cuda") * 2 - 1) * 3
+         ).contiguous()
+    x = torch.cat([c[:64], c[100:164]]).contiguous()
+    st = fk.fuzzy_accumulate(x, c, fk.fuzzy_normalizer(x, c, m), m)
+    if not bool(torch.isfinite(st.weights).all()):
+        return float("inf")
+    n = x.shape[0]
+    return (float(st.weights.double().sum()) - n) / (REL_TOL * n)
+
+
+def check_on_centroids(name, gen, m) -> None:
+    share = on_centroids_share(gen, m)
+    require(share <= 1, f"{name}: Σμ past N on rows on centroids "
+                        f"({share} of the tolerance)")
+    TOL_SHARES[name] = share
+
+
 def phase_twopass_kernel(gen) -> dict:
     """Phase 3, B7 and B8: at the K-sharded route's regime (K=16,384,
     d=768, N=2^19) for each fuzzifier and on bf16 rows, the tower's
@@ -1406,8 +1459,17 @@ def phase_twopass_kernel(gen) -> dict:
     for m in FUZZY_MS:
         check_twopass(f"B7/B8 small K m={m}", x, c, m)
     print(f"[B7/B8] N={n} K={k} d={d}: equal to the plain versions at m=2 "
-          f"and 1.7; share of B7's tolerance used: "
-          f"{json.dumps(tol_shares('B7/B8'))}", flush=True)
+          f"and 1.7", flush=True)
+    for n, k, d in B7_EDGE_SHAPES:
+        x, c = blob_data(gen, n, k, d)
+        for m in FUZZY_MS:
+            check_twopass(f"B7/B8 {n}x{k}x{d} m={m}", x, c, m)
+    for m in FUZZY_MS:
+        check_on_centroids(f"B7/B8 rows on centroids m={m}", gen, m)
+    print(f"[B7/B8] N x K x d {B7_EDGE_SHAPES} and rows on centroids (K, "
+          f"d) = {ON_CENTROIDS}: equal to the plain versions, Σμ within N; "
+          f"share of the tolerance used: {json.dumps(tol_shares('B7/B8'))}",
+          flush=True)
     return out
 
 

@@ -29,18 +29,26 @@ each in its own process with its own build, these builds:
   decision between the two best where they nearly tie), checked only:
   the 3xTF32 product must keep `far` = 0 on its own;
 - one_tf32: the control: no_near_tie with the product as one TF32 pass
-  (x_hi·c_hi only), checked only: on the near-tie input at d = 768 B2's
+  (x_hi·c_hi only), checked only: on the near-tie inputs at d = 768 B2's
   labels must then differ from the plain version's beyond a near-tie
   (`far` > 0), which is what fails it in chip_smoke.py and the card
-  tests. (With the f32 decision left in, a one-pass product's errors fall
-  inside its margin and its labels pass: the decision, not the product,
-  holds them to f32 there);
+  tests;
+- one_tf32_decided: the product as one TF32 pass with B2's f32 decision
+  between the two best left in, checked only. On the two-candidate input
+  its errors fall inside the decision's margin and its labels pass; on
+  the three-candidate input (rows near the point equidistant from three
+  centroids) one pass drops the nearest out of the two best, and `far`
+  must be > 0 there while the full build keeps 0: what the two correction
+  products buy;
 - parent (with --parent TREE, the tdc_tpu_torch/ of an earlier commit,
   e.g. unpacked with `git archive <commit> tdc_tpu_torch`): as it is
   (before this design, B2 and B7 on the f32 FMA pipe).
 
 Every build that times (`time`) runs B2 (`return_dist=True`) and B7 at
-m = 2 and m = 1.7 at N=2^19, K=16,384, d=768 on chip_smoke.py's blobs;
+m = 2 and m = 1.7 at N=2^19, K=16,384, d=768 on chip_smoke.py's blobs,
+and B2 at B1's shape (N=2^22, K=1024, d=128; the full build also B1):
+what the product of tc_distance, which restages x every K tile, costs
+beside B1, which stages x once a block;
 the full and parent builds also time B2 and B7 with one 128-row block per
 CTA (`one_block`: the pre-pass and one block's product, the fixed cost).
 `checks` reports, per case, B2's labels that differ from the plain
@@ -50,11 +58,14 @@ share of that limit (`gap_share`), on the near-tie inputs the rows whose
 true gap lies past the limit and within ten times it (`past_limit`), the
 largest error of B2's minima (both forms) and of B7's s (m = 2 and 1.7)
 as a share of the card tolerance (1e-5 of ‖x‖² + max ‖c‖², 1e-5 of s),
-and whether two runs are bitwise equal. Cases: the route's shape, a
-near-tie input at d = 768 (points off the bisector of two centroids by
-offsets log-uniform over 1e-6..10^-2.5 a coordinate) and a ragged one
-(d = 19), K = 37 at d = 768 (the nearest centroid carries a large share
-of s), and the card tests' edges. Each build also prints the registers
+and whether two runs are bitwise equal. Cases: the route's shape,
+near-tie inputs at d = 768 and ragged ones (d = 19): points off the
+point equidistant from two (`near_ties_*`) or three (`near_ties_3way_*`)
+centroids by offsets log-uniform over 1e-6..10^-2.5 a coordinate
+(chip_smoke.py's near_tie_data), K = 37 at d = 768 (the nearest centroid
+carries a large share of s), and the card tests' edges; for B7 also rows
+equal to centroids (`on_centroids_b7`: Σμ − N as a share of 1e-5·N,
+which must stay ≤ 1). Each build also prints the registers
 and spill stores/loads of its kernels (`nvcc -Xptxas -v`, when it built
 them).
 
@@ -62,7 +73,7 @@ Each build is a copy of tdc_tpu_torch/ (and chip_smoke.py) under DIR
 (default scratch_trees/b2_b7_phases, which .gitignore lists), timed with
 CUDA events (median of 3 after a warm-up), in the order given (default:
 full, no_fold, no_restage, no_reload, no_rescore, no_near_tie, one_tf32,
-then with --parent the parent, then full once more, times only;
+one_tf32_decided, then with --parent the parent, then full once more, times only;
 scripts/_phases.py runs them).
 The cut builds compute wrong answers; only their times (or, for the
 checked ones, their errors) are read. Prints one JSON line per run, then
@@ -101,15 +112,17 @@ RESCORE = edit("csrc/fuzzy_kernels.cu", swaps=((
 # B2's labels from the tensor core's values alone: no f32 decision where
 # the two best nearly tie.
 NEAR_TIE = edit("csrc/lloyd_kernels.cu", swaps=((
-    "                            sm.val[r] <= kNearTie * (xx + cc + c2[jr]);\n",
+    "                            sm.val[r] <= kNearTie * (sc.xx + sc.cc + c2[jr]);\n",
     "                            sm.val[r] < 0.f;\n"),))
-ONE_TF32 = NEAR_TIE + edit(HEADER, swaps=(
+# The product as one TF32 pass: x_hi·c_hi only.
+PRODUCT_ONE_TF32 = edit(HEADER, swaps=(
     ("          wgmma_m64n256k8_tf32(acc, sw128_desc(xl + 8 * kk), db, 1);\n",
      ""),
     ("        for (int kk = 0; kk < ks; ++kk) {\n"
      "          wgmma_m64n256k8_tf32(acc, sw128_desc(xh + 8 * kk),\n"
      "                               sw128_desc(cl + 8 * kk), 1);\n"
      "        }\n", "")))
+ONE_TF32 = NEAR_TIE + PRODUCT_ONE_TF32
 
 # name -> (root, cut, runs)
 BUILDS = {
@@ -120,6 +133,7 @@ BUILDS = {
     "no_rescore": ("repo", RESCORE, ("checks",)),
     "no_near_tie": ("repo", NEAR_TIE, ("checks",)),
     "one_tf32": ("repo", ONE_TF32, ("checks",)),
+    "one_tf32_decided": ("repo", PRODUCT_ONE_TF32, ("checks",)),
     "parent": ("parent", (), ("time", "one_block", "checks")),
 }
 
@@ -137,7 +151,7 @@ def card_data(gen, n, k, d):
     x = torch.randn((n, d), generator=gen, device="cuda") + centers[lab]
     return x.contiguous(), centers
 
-def b2_reading(x, c, near=False):
+def b2_reading(x, c, ways=0):
     lab, mn = lk.distance_argmin(x, c, return_dist=True)
     lab2, mn2 = lk.distance_argmin(x, c, return_dist=True)
     slab, smn = lk.distance_argmin(x, c)
@@ -161,8 +175,8 @@ def b2_reading(x, c, near=False):
            "forms_agree": bool(torch.equal(slab, lab)),
            "repeatable": bool(torch.equal(lab, lab2)
                               and torch.equal(mn, mn2))}
-    if near:
-        out["past_limit"] = cs.tie_reach(x, c)
+    if ways:
+        out["past_limit"] = cs.tie_reach(x, c, ways)
     return out
 
 def b7_reading(x, c):
@@ -192,6 +206,16 @@ if "time" in runs:
         lambda: lk.distance_argmin(x, c, return_dist=True))
     for m in (2.0, 1.7):
         out[f"b7_m{m}_ms"] = median_ms(lambda: fk.fuzzy_normalizer(x, c, m))
+if "time" in runs:
+    # B2 at B1's shape (N=2^22, K=1024, d=128), and in the full build B1
+    # itself: what the product of tc_distance, x restaged every K tile,
+    # costs where B1 stages x once a block.
+    x1, c1 = cs.blob_data(torch.Generator(device="cuda").manual_seed(1),
+                          *cs.B1_SHAPE)
+    out["b2_b1_shape_ms"] = median_ms(lambda: lk.distance_argmin(x1, c1))
+    if build == "full":
+        out["b1_ms"] = median_ms(lambda: lk.lloyd_stats_fused(x1, c1))
+    del x1, c1
 if "one_block" in runs:  # one 128-row block per CTA
     rows = 128 * torch.cuda.get_device_properties(0).multi_processor_count
     xs = x[:rows]
@@ -202,10 +226,13 @@ print(json.dumps(out), flush=True)
 if "checks" in runs:
     chk = {"route_b2": b2_reading(x, c), "route_b7": b7_reading(x, c)}
     del x, c
-    xs, cs_ = cs.near_tie_data(gen, 1 << 16, 1024, 768)
-    chk["near_ties_d768"] = b2_reading(xs, cs_, near=True)
-    xs, cs_ = cs.near_tie_data(gen, (1 << 16) + 37, 300, 19)
-    chk["near_ties_ragged"] = b2_reading(xs, cs_, near=True)
+    for ways, tag in ((2, ""), (3, "3way_")):
+        xs, cs_ = cs.near_tie_data(gen, 1 << 16, 1024, 768, ways)
+        chk[f"near_ties_{tag}d768"] = b2_reading(xs, cs_, ways)
+        xs, cs_ = cs.near_tie_data(gen, (1 << 16) + 37, 300, 19, ways)
+        chk[f"near_ties_{tag}ragged"] = b2_reading(xs, cs_, ways)
+    chk["on_centroids_b7"] = {f"m{m}": cs.on_centroids_share(gen, m)
+                              for m in (2.0, 1.7)}
     for name, (n, k, d) in {"small_k_d768": ((1 << 16) + 37, 37, 768),
                             "ragged": ((1 << 16) + 37, 300, 19),
                             "1000x37x19": (1000, 37, 19),
@@ -224,5 +251,6 @@ if "checks" in runs:
 if __name__ == "__main__":
     sys.exit(main("b2_b7_phases", BUILDS, TIMER,
                   ["full", "no_fold", "no_restage", "no_reload",
-                   "no_rescore", "no_near_tie", "one_tf32"],
+                   "no_rescore", "no_near_tie", "one_tf32",
+                   "one_tf32_decided"],
                   ["parent"], reps=3))

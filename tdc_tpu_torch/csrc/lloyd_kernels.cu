@@ -649,6 +649,34 @@ int launch_fused(const float* x, const float* c, const float* w, long long n,
 // label and a NaN minimum.
 constexpr float kNearTie = 1.f / 4096.f;
 
+// A row's x·c, ‖c‖², ‖x − c‖² and (kXX) ‖x‖² for centroid j in f32, the
+// calling thread's 16-lane group summing over d in a fixed order; zeros
+// where !live. Every lane of the group gets them.
+struct RowScore {
+  float xc, cc, dd, xx;
+};
+template <bool kXX>
+__device__ __forceinline__ RowScore row_score(const float* __restrict__ xp,
+                                              const float* __restrict__ c,
+                                              int j, int d, bool live) {
+  RowScore r = {0.f, 0.f, 0.f, 0.f};
+  if (live) {
+    const float* cp = c + (long long)j * d;
+    for (int col = threadIdx.x % 16; col < d; col += 16) {
+      const float xv = xp[col], cv = cp[col], t = xv - cv;
+      r.xc = fmaf(xv, cv, r.xc);
+      r.cc = fmaf(cv, cv, r.cc);
+      r.dd = fmaf(t, t, r.dd);
+      if (kXX) r.xx = fmaf(xv, xv, r.xx);
+    }
+  }
+  r.xc = row_lanes_sum(r.xc);
+  r.cc = row_lanes_sum(r.cc);
+  r.dd = row_lanes_sum(r.dd);
+  if (kXX) r.xx = row_lanes_sum(r.xx);
+  return r;
+}
+
 template <bool kVec>
 __global__ void __launch_bounds__(kDistThreads, 1)
     distance_argmin_tc_kernel(const float* __restrict__ x,
@@ -705,52 +733,25 @@ __global__ void __launch_bounds__(kDistThreads, 1)
         for (int i = 0; i < 8; ++i) {
           const int r = epilogue_row(i);
           const long long row = row0 + r;
-          int j = sm.lab[r];
-          // x·c, ‖c‖², ‖x − c‖² and ‖x‖²: one pass per candidate
-          float xc = 0.f, cc = 0.f, dd = 0.f, xx = 0.f;
           const float* xp = x + row * d;
-          if (row < n && j < k) {
-            const float* cp = c + (long long)j * d;
-            for (int col = tx; col < d; col += 16) {
-              const float xv = xp[col], cv = cp[col], t = xv - cv;
-              xc = fmaf(xv, cv, xc);
-              cc = fmaf(cv, cv, cc);
-              dd = fmaf(t, t, dd);
-              xx = fmaf(xv, xv, xx);
-            }
-          }
-          xc = row_lanes_sum(xc);
-          cc = row_lanes_sum(cc);
-          dd = row_lanes_sum(dd);
-          xx = row_lanes_sum(xx);
-          float v = cc - 2.f * xc;
+          int j = sm.lab[r];
+          RowScore sc = row_score<true>(xp, c, j, d, row < n && j < k);
+          float v = sc.cc - 2.f * sc.xc;
           const int jr = sm.lab2[r];
           const bool near = row < n && j < k && jr < k &&
-                            sm.val[r] <= kNearTie * (xx + cc + c2[jr]);
+                            sm.val[r] <= kNearTie * (sc.xx + sc.cc + c2[jr]);
           if (__any_sync(0xffffffffu, near)) {
-            float xc2 = 0.f, cc2 = 0.f, dd2 = 0.f;
-            if (near) {
-              const float* cp = c + (long long)jr * d;
-              for (int col = tx; col < d; col += 16) {
-                const float xv = xp[col], cv = cp[col], t = xv - cv;
-                xc2 = fmaf(xv, cv, xc2);
-                cc2 = fmaf(cv, cv, cc2);
-                dd2 = fmaf(t, t, dd2);
-              }
-            }
-            xc2 = row_lanes_sum(xc2);
-            cc2 = row_lanes_sum(cc2);
-            dd2 = row_lanes_sum(dd2);
-            const float v2 = cc2 - 2.f * xc2;
+            const RowScore s2 = row_score<false>(xp, c, jr, d, near);
+            const float v2 = s2.cc - 2.f * s2.xc;
             if (near && better(v2, jr, v, j)) {
               j = jr;
               v = v2;
-              dd = dd2;
+              sc = s2;
             }
           }
           if (tx == 0 && row < n) {
             labels[row] = j;
-            mind[row] = j >= k ? CUDART_NAN_F : return_dist ? dd : v;
+            mind[row] = j >= k ? CUDART_NAN_F : return_dist ? sc.dd : v;
           }
         }
         named_barrier(1 + warp / 4, 128);  // the row state is free

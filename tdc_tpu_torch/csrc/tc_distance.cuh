@@ -31,6 +31,11 @@
 // loads in flight and the fold's state. (Nine warps, a producer warp and
 // no `setmaxnreg`, cap a thread at 168 registers: an SM quarter's
 // register file holds three of the warps. B2 and B7 spilled there.)
+// B1 and B4 keep their own loop (`lloyd_fused_tc_kernel`): up to d = 128
+// they stage x once a block, into 128 KiB that do not fit beside this
+// ring (restaging it every K tile cost B2 5% at their shape, PERF.md),
+// and their accumulate warps would share the producer's warpgroup and,
+// `setmaxnreg` acting on a whole warpgroup, its 40 registers.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -424,29 +424,41 @@ FUSED_CASES = {
 }
 
 
-def _near_tie_data(gen, n, k, d):
-    """Points off the midpoint of centroids i % k and (i + 1) % k by a
+def _near_tie_data(gen, n, k, d, ways=2):
+    """Points off the point equidistant from centroids i % k .. (i + ways
+    - 1) % k in their affine span (at ways = 2 the midpoint) by a
     Gaussian offset whose scale, drawn per row, is log-uniform over
-    1e-6..10^-2.5 a coordinate: the true gaps between the two candidates'
+    1e-6..10^-2.5 a coordinate: the true gaps between the candidates'
     distances run from far inside the near-tie limit (1e-5 of ‖x‖² +
     max ‖c‖²) to some ten times past it, where a product coarser than f32
-    (one TF32 pass) flips labels and the label check fails it."""
+    (one TF32 pass) flips labels and the label check fails it. At ways =
+    3 one TF32 pass also drops the nearest of three candidates out of a
+    kernel's two best."""
     c = torch.rand((k, d), generator=gen, device="cuda") * 6 - 3
-    a = torch.arange(n, device="cuda") % k
-    x = (c[a] + c[(a + 1) % k]) / 2
+    group = (torch.arange(k, device="cuda")[:, None]
+             + torch.arange(ways, device="cuda")) % k
+    p = c.double()[group]
+    u = p[:, 1:] - p[:, :1]  # (U Uᵀ) α = ‖u_i‖² / 2
+    gram = u @ u.transpose(1, 2)
+    alpha = torch.linalg.solve(gram, 0.5 * gram.diagonal(dim1=1, dim2=2))
+    center = (p[:, 0] + (alpha[:, None] @ u)[:, 0]).float()
+    x = center[torch.arange(n, device="cuda") % k]
     s = 10.0 ** (-6.0 + 3.5 * torch.rand((n, 1), generator=gen,
                                          device="cuda"))
     return x + s * torch.randn((n, d), generator=gen, device="cuda"), c
 
 
-def _rows_past_tie_limit(x, c):
-    """Rows of _near_tie_data's input whose true gap lies past the
-    near-tie limit and within ten times it."""
+def _rows_past_tie_limit(x, c, ways=2):
+    """Rows of _near_tie_data's input whose group's nearest and farthest
+    candidates lie past the near-tie limit from each other and within ten
+    times it."""
     n, k = x.shape[0], c.shape[0]
-    a = torch.arange(n, device="cuda") % k
+    group = (torch.arange(n, device="cuda")[:, None]
+             + torch.arange(ways, device="cuda")) % k
     xd, cd = x.double(), c.double()
-    gap = (((xd - cd[a]) ** 2).sum(1)
-           - ((xd - cd[(a + 1) % k]) ** 2).sum(1)).abs()
+    dist = torch.stack([((xd - cd[group[:, i]]) ** 2).sum(1)
+                        for i in range(ways)], 1)
+    gap = dist.max(1).values - dist.min(1).values
     lim = 1e-5 * ((xd * xd).sum(1) + (cd * cd).sum(1).max())
     return int(((gap > lim) & (gap <= 10 * lim)).sum())
 
@@ -565,14 +577,18 @@ def test_b2_tensor_core_design_edges(gen, case, return_dist):
     torch.testing.assert_close(mind, pmind, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("ways", [2, 3])
 @pytest.mark.parametrize("n,k,d", [(1 << 14, 1024, 768), (5000, 300, 19)])
-def test_b2_near_ties(gen, n, k, d):
+def test_b2_near_ties(gen, n, k, d, ways):
     # Labels may differ from the plain version's only at near-ties; a
     # tenth of the rows or more lie past the limit, where a product
-    # coarser than f32 would flip some. The minima stay within rtol 1e-5
-    # and atol 1e-4 either way: the two candidates' distances nearly tie.
-    x, c = _near_tie_data(gen, n, k, d)
-    assert _rows_past_tie_limit(x, c) >= n // 10
+    # coarser than f32 would flip some. With three candidates a row, one
+    # TF32 pass also drops the nearest out of the kernel's two best, which
+    # its f32 decision between those two cannot repair. The minima stay
+    # within rtol 1e-5 and atol 1e-4 either way: the candidates' distances
+    # nearly tie.
+    x, c = _near_tie_data(gen, n, k, d, ways)
+    assert _rows_past_tie_limit(x, c, ways) >= n // 10
     lab, mind = lk.distance_argmin(x, c, return_dist=True)
     plab, pmind = lk.distance_argmin_plain(x, c, return_dist=True)
     diff = (lab != plab).nonzero().flatten()
