@@ -71,7 +71,14 @@ failure (nothing is caught):
    B10 and B11 (the feature-major Lloyd and fuzzy stats) at the reference
    sweep's largest point, N=10^8, d=5, K=15, on f32 and bf16 columns (B11
    at m=2 and m=1.7), at the ragged N=2^16+37, K=300, d=19 and at a wide
-   N=2^18, K=1024, d=128: B10's labels equal to the plain version's except
+   N=2^18, K=1024, d=128; first, B10's streaming form at its edges
+   (TALL_EDGES: a ring slot and one column, each CTA's ring wrapping,
+   misaligned rows, K·(d+1) at its limit), each under a watchdog that
+   ends the run if the kernel does not finish. B10 prints its split at
+   the route's shape (the kernel's stream-only path: the columns through
+   the ring and nothing else) and its time at N=10^8, K=16, d=8 beside
+   its bound; the ptxas lines of its instantiations (in the [build]
+   table) must show 0 spills. B10's labels equal to the plain version's except
    at near-ties in its own metric (d² of the operands as the kernel sees
    them), counts equal where the labels agree, Σx within REL_TOL of Σ|x|
    by its own labels; B11 as B6; both bitwise repeatable. B1 on
@@ -289,6 +296,20 @@ ZERO_SHARE = 0.05  # share of the weights set exactly to 0
 # 100M, n_dim = 5, K in {15, 12, 9, 6, 3}; SURVEY.md), uncut.
 TALL_SHAPE = (10 ** 8, 15, 5)  # N, K, d
 TALL_WIDE = (1 << 18, 1024, 128)
+# B10's streaming form (one CTA per SM; at K=15, d=5 12 consumer warps,
+# 1536-column tiles through a ring of 2 slots on f32 columns, 5 on bf16;
+# ops/tall.py `lloyd_plan`) at its edges, small and fast, before the 10^8
+# shape: one tile and one column; more tiles than slots × CTAs (every
+# CTA's ring wraps); rows misaligned for the bulk copies (N·itemsize % 16
+# != 0: the last tiles read directly); K·(d+1) = 144 at d = 8, the form's
+# limit (8 warps, 1024-column tiles), misaligned, and one of its tiles and
+# one column.
+TALL_EDGES = ((1537, 15, 5), (1 << 21, 15, 5), ((1 << 20) + 3, 15, 5),
+              ((1 << 16) + 37, 16, 8), (1025, 16, 8))
+# Past the earlier private form's limit (K·(d+1) = 96): timed with its
+# bound (3.2 GB of f32 columns).
+TALL_K16_D8 = (10 ** 8, 16, 8)
+HANG_S = 60  # seconds a B10 edge case may take before the run ends
 # B11's private form at a small N: too few columns for one TF32 pass's
 # rounding of μᵀ·X to average out below REL_TOL of Σμ|x|, so its Σμx check
 # fails a product that is not 3xTF32 (scripts/b11_phases.py's one_tf32).
@@ -1572,34 +1593,85 @@ def check_tall_fuzzy(name, xt, c, m) -> float:
     return err
 
 
+def watched(fn, what: str):
+    """fn() under a watchdog: where the card has not finished its work
+    HANG_S seconds later (an mbarrier wait that never completes), the run
+    ends at once with a message, without waiting on the card."""
+    out = fn()
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.monotonic()
+    while not done.query():
+        if time.monotonic() - t0 > HANG_S:
+            print(f"chip_smoke: {what} did not finish in {HANG_S} s",
+                  file=sys.stderr, flush=True)
+            os._exit(3)
+        time.sleep(0.01)
+    return out
+
+
+def tall_lloyd_bytes(cols, k, d) -> float:
+    """B10's bytes: the columns once, the centroids and c2 in, Σx, counts
+    and the SSE out."""
+    return cols.element_size() * cols.shape[1] * d + 4.0 * (2 * k * d
+                                                             + 2 * k + 1)
+
+
+def phase_tall_edges(gen) -> None:
+    """Phase 3, B10's streaming form at its edges (TALL_EDGES), f32 and
+    bf16 columns, each first call watched, then held to the plain
+    version."""
+    for n, k, d in TALL_EDGES:
+        xt, c = tall_blobs(gen, n, k, d)
+        for cols in (xt, xt.to(torch.bfloat16)):
+            watched(lambda: tk.lloyd_stats_tall(cols, c),
+                    f"B10 N={n} K={k} d={d} {cols.dtype}")
+            err, ties = check_tall_lloyd(f"B10 N={n} K={k} d={d} "
+                                         f"{cols.dtype}", cols, c)
+            plan = tk.lloyd_plan(k, d, cols.element_size())
+            print(f"[B10] edge N={n} K={k} d={d} {cols.dtype} ({plan.warps} "
+                  f"warps, {plan.slots} ring slots): equal to the plain "
+                  f"version (max abs err {err:.3g}, {ties} near-ties), "
+                  "bitwise repeatable", flush=True)
+        del xt, c
+
+
 def phase_tall_kernel(gen) -> dict:
-    """Phase 3, B10 and B11: at the tall routes' shape on f32 and bf16
-    columns (the f32 numbers, m=2 for B11, are the JSON line's), B1 on the
-    transposed points timed beside B10, then the small, ragged and wide
-    cases."""
+    """Phase 3, B10 and B11: B10's edges, then at the tall routes' shape
+    on f32 and bf16 columns (the f32 numbers, m=2 for B11, are the JSON
+    line's), B10's split and its time at K=16, d=8, B1 on the transposed
+    points timed beside B10, then the small, ragged and wide cases."""
+    phase_tall_edges(gen)
     n, k, d = TALL_SHAPE
     xt, c = tall_blobs(gen, n, k, d)
     b10, b11 = {}, {}
     for cols in (xt, xt.to(torch.bfloat16)):
         key = ("bf16_columns" if cols.dtype == torch.bfloat16
                else "f32_columns")
-        # Bytes: the columns once, the centroids and c2 in, Σx, counts
-        # and the SSE out. Operations: the 2·N·K·d distance product on
-        # the f32 pipe; B11 adds the 2·N·K·d of μᵀx, on the tensor cores
-        # in 3xTF32 (bound_ms; two TF32 passes on bf16 columns, which are
-        # exact in TF32) or on the f32 pipe too (bound_f32_ms); its powers
-        # run on the SFU.
-        nbytes = (cols.element_size() * n * d
-                  + 4.0 * (2 * k * d + 2 * k + 1))
+        # Operations: the 2·N·K·d distance product on the f32 pipe; B11
+        # adds the 2·N·K·d of μᵀx, on the tensor cores in 3xTF32
+        # (bound_ms; two TF32 passes on bf16 columns, which are exact in
+        # TF32) or on the f32 pipe too (bound_f32_ms); its powers run on
+        # the SFU.
+        nbytes = tall_lloyd_bytes(cols, k, d)
         err, ties = check_tall_lloyd(f"B10 {key}", cols, c)
         b_ms, b_by = bound_ms(2.0 * n * k * d, nbytes)
+        ms = median_ms(lambda: tk.lloyd_stats_tall(cols, c), 5)
+        # The split: the stream-only path takes the columns through the
+        # ring and nothing else; the rest is the arithmetic's share.
+        stream_ms = median_ms(
+            lambda: tk._launch_lloyd(cols, c, stream_only=True), 5)
         b10[key] = dict(
-            max_abs_err=err, near_ties=ties,
-            ms=median_ms(lambda: tk.lloyd_stats_tall(cols, c), 5),
+            max_abs_err=err, near_ties=ties, ms=ms,
             plain_ms=median_ms(lambda: tk.lloyd_stats_tall_plain(cols, c), 3),
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by, stream_ms=stream_ms,
+            stream_tb_s=cols.element_size() * n * d / stream_ms / 1e9,
+            plan=tk.lloyd_plan(k, d, cols.element_size())._asdict())
         print(f"[B10] N={n} K={k} d={d} {key}: {json.dumps(b10[key])}",
               flush=True)
+        print(f"[B10] split {key}: stream only {stream_ms:.4f} ms "
+              f"({b10[key]['stream_tb_s']:.3f} TB/s), the arithmetic "
+              f"{ms - stream_ms:.4f} ms more, of {ms:.4f} ms", flush=True)
         b_ms, b_by = tc_bound_ms(2.0 * n * k * d, 2.0 * n * k * d, nbytes,
                                  passes=2 if key == "bf16_columns" else 3)
         b_f32_ms = bound_ms(4.0 * n * k * d, nbytes)[0]
@@ -1623,8 +1695,20 @@ def phase_tall_kernel(gen) -> dict:
     print(f"[B10] B1 on xt.T.contiguous() N={n} K={k} d={d}: {b1_ms:.4f} ms "
           f"against B10's {b10['f32_columns']['ms']:.4f} ms", flush=True)
     del xs, xt, c
+    # Past the earlier private form's limit: the streaming form at K=16,
+    # d=8 (timed; TALL_EDGES checks the shape at N=2^16+37).
+    n8, k8, d8 = TALL_K16_D8
+    xt, c = tall_blobs(gen, n8, k8, d8)
+    b_ms, b_by = bound_ms(2.0 * n8 * k8 * d8, tall_lloyd_bytes(xt, k8, d8))
+    wide = dict(ms=median_ms(lambda: tk.lloyd_stats_tall(xt, c), 5),
+                bound_ms=b_ms, bound_by=b_by,
+                plan=tk.lloyd_plan(k8, d8, 4)._asdict())
+    print(f"[B10] N={n8} K={k8} d={d8} f32_columns: {json.dumps(wide)}",
+          flush=True)
+    del xt, c
     out_b10 = dict(**b10["f32_columns"], library_ms=None,
-                   bf16_columns=b10["bf16_columns"], b1_on_transpose_ms=b1_ms)
+                   bf16_columns=b10["bf16_columns"], b1_on_transpose_ms=b1_ms,
+                   k16_d8=wide)
     out_b11 = dict(**b11[("f32_columns", 2.0)], library_ms=None,
                    m_1_7=b11[("f32_columns", 1.7)],
                    bf16_columns={str(m): b11[("bf16_columns", m)]
@@ -1645,8 +1729,8 @@ def phase_tall_kernel(gen) -> dict:
 
 def phase_tall_ties(gen) -> None:
     """Phase 3, tall ties: copies of centroid 3 (at 5, 9 and 14 for K=15,
-    the private accumulate; at 5, 67, 200 and K-1 for K=300, the tile
-    one). In B10 every tie goes to the smallest index: labels equal the
+    B10's streaming form, across its groups of 4 centroids; at 5, 67, 200
+    and K-1 for K=300, the tile form). In B10 every tie goes to the smallest index: labels equal the
     plain version's, no label lands on a copy, the copies take 0 columns
     and 0 sums. In B11 a copy takes the same Σμx and Σμ as centroid 3,
     bitwise."""
@@ -1993,6 +2077,13 @@ def main() -> int:
     for source, kernel, regs, spills in ptxas_table(kl.log):
         print(f"[build] {source} {kernel}: {regs} registers, spill stores/"
               f"loads {spills} bytes")
+    # B10's instantiations (its streaming form, one per d, dtype and warp
+    # count, and its tile form) must not spill.
+    b10_rows = [r for r in ptxas_table(kl.log) if "tall_lloyd" in r[1]]
+    for _, kernel, _, spills in b10_rows:
+        require(spills == "0/0", f"B10: {kernel} spills {spills} bytes")
+    require(bool(b10_rows) or not kl.log,
+            "B10: no ptxas line for its kernels in the build log")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     numbers = phase_kernels(gen)

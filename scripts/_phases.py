@@ -1,8 +1,8 @@
 """What the phase scripts (b1_b4_phases.py, b2_b7_phases.py, b5_phases.py,
-b6_b9_phases.py, b11_phases.py) share: copy the port's package into one
-tree per build, cut a phase out of its kernel sources by text markers,
-and run a timer program in each build's own process, so that each build
-compiles its own kernels.
+b6_b9_phases.py, b10_phases.py, b11_phases.py) share: copy the port's
+package into one tree per build, cut a phase out of its kernel sources by
+text markers, and run a timer program in each build's own process, so
+that each build compiles its own kernels.
 
 A cut is a tuple of edits (source, spans, swaps) of
 tdc_tpu_torch/<source>: the text from each span's start marker up to its

@@ -37,7 +37,8 @@ _F = ctypes.c_float
 # point that launches returns an int CUDA error code
 # (tdc_segment_chunk_rows, tdc_segment_meta_bytes, tdc_fuzzy_k_tile,
 # tdc_fuzzy_grid, tdc_gmm_row_block and tdc_tall_grid return the geometry
-# that sizes B3's and B12's, B8's, B9's, B10's and B11's workspaces;
+# that sizes B3's and B12's, B8's, B9's, B11's and B10's tile form's
+# workspaces;
 # tdc_lloyd_scratch_floats and tdc_lloyd_bf16_scratch_floats, in
 # LONG_RESULTS, the size of the per-call scratch of B1, B2, B4 and B7 and
 # of B5's).
@@ -70,8 +71,8 @@ SIGNATURES = {
     "tdc_gmm_stats": [_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "tdc_gmm_row_block": [],
-    "tdc_tall_lloyd_stats": [_P, _I, _P, _P, _LL, _I, _I, _I, _P, _P, _P,
-                             _P, _P, _P, _P, _P],
+    "tdc_tall_lloyd_stats": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _P, _P, _P, _P, _P, _P],
     "tdc_tall_fuzzy_stats": [_P, _I, _P, _P, _LL, _I, _I, _F, _F, _F, _I,
                              _P, _P, _P, _P, _P, _P, _P],
     "tdc_tall_grid": [_LL, _I],

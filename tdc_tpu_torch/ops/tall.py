@@ -30,9 +30,18 @@ products c·x are then exact in f32.
 error contract: where it gives 0 the JAX functions raise, and so do these,
 with the same words. The kernels themselves take every shape below that
 limit and size themselves for the card.
+
+B10 has two forms (csrc/tall_kernels.cu). Its streaming form (d <= 8 and
+K·(d+1) <= LLOYD_MAX_ENTRIES) runs one persistent CTA per SM that streams
+column tiles through a ring of shared-memory slots; its plan
+(`lloyd_plan`, `lloyd_grid`) is made here and checked by the kernel's
+entry point, which refuses a plan that does not fit. Every other
+shape takes the tile form.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -112,9 +121,73 @@ def _operands(xt: torch.Tensor, centroids: torch.Tensor):
     return c, (c * c).sum(dim=1)
 
 
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _grid(n: int, device: torch.device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _build.load().lib.tdc_tall_grid(n, sms)
+    """B11's and B10's tile form's CTAs (csrc `tdc_tall_grid`)."""
+    return _build.load().lib.tdc_tall_grid(n, _sms(device))
+
+
+# B10's streaming form, as csrc/tall_kernels.cu lays it out: 8 or 12
+# consumer warps whose threads take 4 adjacent columns each of a tile of
+# 128·warps columns; a CTA's shared memory holds the slots' mbarriers
+# (LLOYD_MAX_SLOTS pairs), the centroids and their ‖c‖² (K rounded up to
+# 4), one f64 SSE a consumer thread, each consumer thread's (K, d+1)
+# accumulator, then (at a 128-byte boundary) the ring: slots of d rows of
+# a tile's elements and 16 bytes.
+LLOYD_WARPS = (12, 8)  # the widest that fits first
+LLOYD_MAX_ENTRIES = 144  # K·(d+1), with d <= 8
+LLOYD_MAX_SLOTS = 16
+SMEM_LIMIT = 232448  # dynamic shared memory a CTA may take on sm_90
+
+
+class LloydPlan(NamedTuple):
+    """B10's streaming form: consumer warps and ring slots; (0, 0) for
+    the tile form."""
+    warps: int
+    slots: int
+
+    @property
+    def tile_cols(self) -> int:
+        return 128 * self.warps
+
+
+def lloyd_smem(k: int, d: int, slots: int, itemsize: int,
+               warps: int) -> int:
+    """Bytes of shared memory of B10's streaming form."""
+    threads = 32 * warps
+    kp4 = -(-k // 4) * 4
+    head = (2 * LLOYD_MAX_SLOTS * 8 + (d + 1) * kp4 * 4 + threads * 8
+            + k * (d + 1) * threads * 4)
+    ring = -(-head // 128) * 128
+    return ring + slots * d * (4 * threads * itemsize + 16)
+
+
+def lloyd_plan(k: int, d: int, itemsize: int) -> LloydPlan:
+    """B10's form at (K, d): the tile form (d > 8 or K·(d+1) >
+    LLOYD_MAX_ENTRIES; at that limit the 8-warp form's accumulators still
+    leave two slots and 32 KiB of f32 columns at every d), else the
+    streaming form with the most consumer warps whose accumulators leave
+    room for a ring of at least two slots and 32 KiB of columns, and as
+    many slots as then fit, at most LLOYD_MAX_SLOTS."""
+    if d > 8 or k * (d + 1) > LLOYD_MAX_ENTRIES:
+        return LloydPlan(0, 0)
+    for warps in LLOYD_WARPS:
+        tile_bytes = d * 128 * warps * itemsize
+        least = max(2, -(-(32 << 10) // tile_bytes))
+        if lloyd_smem(k, d, least, itemsize, warps) <= SMEM_LIMIT:
+            break
+    slot = tile_bytes + 16 * d
+    slots = (SMEM_LIMIT - lloyd_smem(k, d, 0, itemsize, warps)) // slot
+    return LloydPlan(warps, min(LLOYD_MAX_SLOTS, slots))
+
+
+def lloyd_grid(n: int, sms: int, plan: LloydPlan) -> int:
+    """CTAs (workspace rows) of B10's streaming form: one per SM, at most
+    one per tile, at least 1."""
+    return max(1, min(sms, -(-n // plan.tile_cols)))
 
 
 def _column_d2(xb: torch.Tensor, c: torch.Tensor, c2: torch.Tensor):
@@ -153,23 +226,20 @@ def lloyd_stats_tall_plain(xt: torch.Tensor, centroids: torch.Tensor, *,
     return (stats, labels) if return_labels else stats
 
 
-def lloyd_stats_tall(xt: torch.Tensor, centroids: torch.Tensor, *,
-                     return_labels: bool = False):
-    """B10: Lloyd sufficient stats over feature-major points xt (d, N) in
-    one pass, no (K, N) buffer. Returns SufficientStats(sums (K, d), counts
-    (K,), sse ()) in f32, equal to the sample-major stats of xt.T; with
-    `return_labels` also the (N,) int32 champions. Raises where the JAX
-    package's `lloyd_stats_tall` does (K past its VMEM limit)."""
-    _check_tall("lloyd_stats_tall", xt, centroids)
+def _launch_lloyd(xt: torch.Tensor, centroids: torch.Tensor,
+                  return_labels: bool = False, stream_only: bool = False):
+    """B10 on CUDA tensors: (SufficientStats, labels or None). stream_only
+    (streaming form only): the kernel takes the columns and adds Σx² to
+    the SSE, nothing else (its stats are not B10's): the time of its
+    memory path."""
     d, n = xt.shape
     k = centroids.shape[0]
-    _check_limit("lloyd_stats_tall", xt, k, temps=3)
-    if xt.device.type == "cpu":
-        return lloyd_stats_tall_plain(xt, centroids,
-                                      return_labels=return_labels)
     dev = xt.device
-    grid = _grid(n, dev)
-    ws = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
+    plan = lloyd_plan(k, d, xt.element_size())
+    grid = lloyd_grid(n, _sms(dev), plan) if plan.warps else _grid(n, dev)
+    # the streaming form's partial sums stay f64 until one rounding
+    ws = torch.empty((grid, k, d), device=dev, dtype=torch.float64
+                     if plan.warps else torch.float32)
     cnt = torch.empty((grid, k), dtype=torch.int32, device=dev)
     sse_part = torch.empty(grid, dtype=torch.float64, device=dev)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
@@ -180,13 +250,30 @@ def lloyd_stats_tall(xt: torch.Tensor, centroids: torch.Tensor, *,
     c, c2 = _operands(xt, centroids)
     _build.check(_build.load().lib.tdc_tall_lloyd_stats(
         xt.data_ptr(), int(xt.dtype == torch.bfloat16), c.data_ptr(),
-        c2.data_ptr(), n, k, d, grid, ws.data_ptr(), cnt.data_ptr(),
-        sse_part.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-        sse.data_ptr(), None if labels is None else labels.data_ptr(),
-        _stream(xt),
+        c2.data_ptr(), n, k, d, grid, plan.warps, plan.slots,
+        int(stream_only),
+        ws.data_ptr(), cnt.data_ptr(), sse_part.data_ptr(), sums.data_ptr(),
+        counts.data_ptr(), sse.data_ptr(),
+        None if labels is None else labels.data_ptr(), _stream(xt),
     ), "lloyd_stats_tall")
+    return SufficientStats(sums=sums, counts=counts, sse=sse), labels
+
+
+def lloyd_stats_tall(xt: torch.Tensor, centroids: torch.Tensor, *,
+                     return_labels: bool = False):
+    """B10: Lloyd sufficient stats over feature-major points xt (d, N) in
+    one pass, no (K, N) buffer. Returns SufficientStats(sums (K, d), counts
+    (K,), sse ()) in f32, equal to the sample-major stats of xt.T; with
+    `return_labels` also the (N,) int32 champions. Raises where the JAX
+    package's `lloyd_stats_tall` does (K past its VMEM limit)."""
+    _check_tall("lloyd_stats_tall", xt, centroids)
+    k = centroids.shape[0]
+    _check_limit("lloyd_stats_tall", xt, k, temps=3)
+    if xt.device.type == "cpu":
+        return lloyd_stats_tall_plain(xt, centroids,
+                                      return_labels=return_labels)
+    stats, labels = _launch_lloyd(xt, centroids, return_labels)
     lloyd_stats_tall.launches += 1
-    stats = SufficientStats(sums=sums, counts=counts, sse=sse)
     return (stats, labels) if return_labels else stats
 
 

@@ -70,7 +70,17 @@ B7's s within rtol 1e-5 at m = 2 and 1.7 with B8 bitwise equal with and
 without B7's ‖x‖², both bitwise repeatable; B2 on near-tie inputs (d =
 768 and 19): labels equal but at near-ties; copies of a centroid in the
 same and the next K tiles go to the smallest index; rows equal to
-centroids: B7 then B8 give memberships that sum to at most 1 a row."""
+centroids: B7 then B8 give memberships that sum to at most 1 a row. The
+edges of B10's streaming form (N = 1, 1000, one column past a tile with
+12 and 8 warps, misaligned rows and base, a ring that wraps, d = 1..8 at
+K·(d+1) = 144, K = 1..3, the tile form just past it) on f32 and bf16
+columns: labels equal to the plain version's but at near-ties (within
+1e-5 of ‖x‖² + max ‖c‖² in f64), counts equal where they agree, sums
+within 1e-5 of Σ|x| against f64 sums by the kernel's own labels, SSE
+within rtol 1e-5, two runs bitwise equal; its stream-only path reads
+every column once (Σ‖x‖² within rtol 1e-5); copies of a centroid across
+its groups of 4 take no columns; columns on centroids and past the f32
+range take the exact path and the smallest index."""
 
 import pytest
 import torch
@@ -930,3 +940,133 @@ def test_b11_private_form_edges(gen, case, m, dtype):
     for j in copies:
         assert torch.equal(f.weights[j], f.weights[1])
         assert torch.equal(f.weighted_sums[j], f.weighted_sums[1])
+
+
+# The edges of B10's streaming form (d <= 8, K·(d+1) <= 144; one CTA per
+# SM, 8 or 12 consumer warps streaming tiles of 128 columns a warp through
+# a ring of shared-memory slots; tt.lloyd_plan): N = 1, N = 1000 (one
+# partial tile), one column past a tile (a ring slot) with 12 and with 8
+# warps, N % 8 != 0 (every row but the first misaligned for the bulk
+# copies, the last tiles read directly), a base one element past a 16-byte
+# boundary (the first tile read directly), N past slots × SMs tiles (each
+# CTA's ring wraps: 2 slots at K = 15, d = 5 on f32 columns, 5 on bf16);
+# d = 1 to 8 at K = 144 // (d+1), the form's limit, K = 1, K % 4 = 1, 2,
+# 3 (the last group's sizes), and K·(d+1) = 153 on the tile form.
+B10_CASES = {
+    "n1": (1, 15, 5, False),
+    "n1000": (1000, 15, 5, False),
+    "past_one_slot": (tt.lloyd_plan(15, 5, 4).tile_cols + 1, 15, 5, False),
+    "past_one_slot_8_warps": (tt.lloyd_plan(16, 8, 4).tile_cols + 1, 16, 8,
+                              False),
+    "misaligned_rows": (4099, 15, 5, False),
+    "misaligned_base": (5003, 15, 5, True),
+    "ring_wraps": ((1 << 21) + 5, 15, 5, False),
+    "k1": (3001, 1, 5, False),
+    "k2_d8": (3001, 2, 8, False),
+    "k3": (3001, 3, 3, False),
+    **{f"d{d}_limit": (3001, 144 // (d + 1), d, False) for d in range(1, 9)},
+    "tile_kd153": (3001, 17, 8, False),
+}
+
+
+def _check_b10(xt, c):
+    """B10 against its plain version: two runs bitwise equal; labels equal
+    to the plain version's but at near-ties in B10's own metric (d² of the
+    columns and the centroids as the kernel sees them, in f64: within 1e-5
+    of ‖x‖² + max ‖c‖²); counts equal where the labels agree; sums within
+    1e-5 of Σ|x| against f64 sums by the kernel's own labels; SSE within
+    rtol 1e-5."""
+    k = c.shape[0]
+    st, lab = tt.lloyd_stats_tall(xt, c, return_labels=True)
+    again, lab2 = tt.lloyd_stats_tall(xt, c, return_labels=True)
+    assert all(torch.equal(a, b) for a, b in zip((*st, lab),
+                                                 (*again, lab2)))
+    want, plab = tt.lloyd_stats_tall_plain(xt, c, return_labels=True)
+    other = lab != plab
+    diff = other.nonzero().flatten()
+    xd = xt.double().T
+    if diff.numel():
+        cr = tt._operands(xt, c)[0].double()
+
+        def value(lb):
+            return ((xd[diff] - cr[lb[diff].long()]) ** 2).sum(1)
+
+        scale = (xd[diff] ** 2).sum(1) + (cr * cr).sum(1).max()
+        assert ((value(lab) - value(plab)).abs() <= 1e-5 * scale).all()
+
+    def bincount(lb):
+        return torch.bincount(lb.long(), minlength=k).to(torch.float32)
+
+    assert torch.equal(st.counts - want.counts,
+                       bincount(lab[other]) - bincount(plab[other]))
+    ref = torch.zeros((k, xt.shape[0]), dtype=torch.float64,
+                      device="cuda").index_add_(0, lab.long(), xd)
+    scale = torch.zeros_like(ref).index_add_(0, lab.long(), xd.abs())
+    assert ((st.sums.double() - ref).abs() <= 1e-5 * scale + 1e-6).all()
+    torch.testing.assert_close(st.sse, want.sse, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(B10_CASES))
+def test_b10_streaming_form_edges(gen, case, dtype):
+    n, k, d, misaligned = B10_CASES[case]
+    xt, c = _tall(gen, n, k, d)
+    xt = _rows(xt.to(dtype).contiguous(), misaligned)
+    before = tt.lloyd_stats_tall.launches
+    _check_b10(xt, c)
+    assert tt.lloyd_stats_tall.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,misaligned", [(4096, False), (4099, False),
+                                          (5003, True)])
+def test_b10_stream_only_reads_every_column_once(gen, n, misaligned, dtype):
+    # The timing instrument: the kernel takes the columns and adds Σx² of
+    # the live ones, so its SSE is Σ‖x‖² over the N columns (each read once,
+    # from its own place in the ring or in device memory).
+    xt, c = _tall(gen, n, 15, 5)
+    xt = _rows(xt.to(dtype).contiguous(), misaligned)
+    st, _ = tt._launch_lloyd(xt, c, stream_only=True)
+    torch.testing.assert_close(st.sse.double(),
+                               (xt.double() ** 2).sum(), rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d", [(24, 5), (16, 8), (72, 1)])
+def test_b10_streaming_form_ties(gen, k, d, dtype):
+    # Copies of centroid 3 (the last of the first group of 4) in the next
+    # groups and in the last one: every tie goes to the smallest index, so
+    # the copies take no columns.
+    xt, c = _tall(gen, 5003, k, d)
+    copies = [4, 7, 9, k - 1]
+    c[copies] = c[3].clone()
+    xt = xt.to(dtype)
+    st, lab = tt.lloyd_stats_tall(xt, c, return_labels=True)
+    assert torch.equal(lab, tt.lloyd_stats_tall_plain(xt, c,
+                                                      return_labels=True)[1])
+    assert not st.counts[copies].any() and not st.sums[copies].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d", [(15, 5), (16, 8), (3, 1)])
+def test_b10_columns_on_centroids_take_the_exact_path(gen, k, d, dtype):
+    # A column equal to a centroid has d² = 0 up to rounding, where the
+    # streaming form's unclamped minimum may be ≤ 0: those columns are
+    # scored again with the clamp, so copies of a centroid still lose to
+    # it and the labels are the plain version's. Columns with x2 past
+    # 1e38 − max ‖c‖² take the same path.
+    xt, c = _tall(gen, 4099, k, d)
+    if k > 2:
+        c[k - 1] = c[1].clone()
+    c = c.to(dtype).float()  # exact in either dtype
+    on = torch.arange(0, xt.shape[1], 3, device="cuda")
+    xt[:, on] = c.T[:, on % k]
+    xt[:, 7] = 1e19  # x2 = d·1e38, past the limit
+    xt = xt.to(dtype)
+    st, lab = tt.lloyd_stats_tall(xt, c, return_labels=True)
+    plab = tt.lloyd_stats_tall_plain(xt, c, return_labels=True)[1]
+    assert torch.equal(lab[on], plab[on])
+    want = torch.where(on % k == k - 1, 1, on % k) if k > 2 else on % k
+    assert torch.equal(lab[on].long(), want)
+    if k > 2:
+        assert st.counts[k - 1] == 0

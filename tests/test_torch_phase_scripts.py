@@ -1,7 +1,7 @@
 """The phase scripts' cut builds still apply to the kernel sources.
 
-scripts/b1_b4_phases.py, b2_b7_phases.py, b5_phases.py, b6_b9_phases.py
-and b11_phases.py time the port's kernels in builds with a phase cut out of the source
+scripts/b1_b4_phases.py, b2_b7_phases.py, b5_phases.py, b6_b9_phases.py,
+b10_phases.py and b11_phases.py time the port's kernels in builds with a phase cut out of the source
 text (see each script's docstring; scripts/_phases.py applies the cuts). A cut is a text patch that must find
 its markers; after an edit of a kernel it may no longer apply, and then
 the script fails only on the card. Here every cut build of the current
@@ -25,7 +25,7 @@ import tdc_tpu_torch
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(tdc_tpu_torch.__file__).resolve().parent  # the scripts' copy root
 SCRIPTS = ("b1_b4_phases", "b2_b7_phases", "b5_phases", "b6_b9_phases",
-           "b11_phases")
+           "b10_phases", "b11_phases")
 if str(REPO / "scripts") not in sys.path:  # where the scripts find _phases
     sys.path.append(str(REPO / "scripts"))
 import _phases  # noqa: E402

@@ -234,6 +234,60 @@ def test_tall_block_n_is_the_reference_rule(k, d, itemsize, temps):
             == jtall.tall_block_n(k, d, itemsize, temps=temps))
 
 
+# B10's streaming-form plan (consumer warps, ring slots, CTAs), made on
+# the host and checked by the kernel's entry point on the card.
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_b10_plan_fits_beside_the_accumulators(itemsize):
+    for d in range(1, 9):
+        for k in range(1, 200):
+            plan = ttall.lloyd_plan(k, d, itemsize)
+            if k * (d + 1) > ttall.LLOYD_MAX_ENTRIES:
+                assert plan == (0, 0)  # the tile form
+                continue
+            # The most warps that leave room for two slots and 32 KiB of
+            # columns; as many slots as fit in the CTA's shared memory,
+            # at most 16.
+            assert plan.warps in ttall.LLOYD_WARPS
+            for w in ttall.LLOYD_WARPS:
+                if w <= plan.warps:
+                    break
+                ring = -(-(32 << 10) // (d * 128 * w * itemsize))
+                assert ttall.lloyd_smem(k, d, max(2, ring), itemsize,
+                                        w) > ttall.SMEM_LIMIT
+            assert 2 <= plan.slots <= ttall.LLOYD_MAX_SLOTS
+            assert plan.slots * d * plan.tile_cols * itemsize >= 32 << 10
+            smem = ttall.lloyd_smem(k, d, plan.slots, itemsize, plan.warps)
+            assert smem <= ttall.SMEM_LIMIT
+            assert (plan.slots == ttall.LLOYD_MAX_SLOTS
+                    or ttall.lloyd_smem(k, d, plan.slots + 1, itemsize,
+                                        plan.warps) > ttall.SMEM_LIMIT)
+    assert ttall.lloyd_plan(1, 9, 4) == (0, 0)  # d > 8: the tile form
+
+
+@pytest.mark.parametrize("k,d,itemsize,warps,slots,smem", [
+    # the tall route: 12 warps, 15 · 6 · 1.5 KiB of accumulators
+    (15, 5, 4, 12, 2, 203552), (15, 5, 2, 12, 5, 219152),
+    # K·(d+1) = 144, the limit: 8 warps and two f32 slots at d = 8
+    (16, 8, 4, 8, 2, 216192), (16, 8, 2, 8, 4, 216448),
+    (72, 1, 4, 8, 16, 216192), (9, 8, 4, 12, 2, 226816),
+])
+def test_b10_plan_at_the_route_and_the_limit(k, d, itemsize, warps, slots,
+                                             smem):
+    plan = ttall.lloyd_plan(k, d, itemsize)
+    assert plan == (warps, slots)
+    assert ttall.lloyd_smem(k, d, slots, itemsize, warps) == smem
+
+
+@pytest.mark.parametrize("n,sms,warps,grid", [
+    (10 ** 8, 132, 12, 132), (1, 132, 12, 1), (1536, 132, 12, 1),
+    (1537, 132, 12, 2), (1024, 132, 8, 1), (1025, 132, 8, 2),
+    (132 * 1024, 132, 8, 132), (1 << 21, 114, 8, 114), (0, 132, 8, 1),
+])
+def test_b10_grid_is_one_cta_per_sm_and_at_most_one_per_tile(n, sms, warps,
+                                                            grid):
+    assert ttall.lloyd_grid(n, sms, ttall.LloydPlan(warps, 2)) == grid
+
+
 def _save(path, x):
     if x.dtype == ml_dtypes.bfloat16:
         x = x.view(np.dtype("V2"))  # how numpy stores ml_dtypes' bfloat16
