@@ -6,8 +6,10 @@ Builds the port's CUDA kernels from `tdc_tpu_torch/csrc/` and drives its
 main paths through the CLI: in-memory single-GPU f32 Lloyd K-Means, with
 and without sample weights, bf16 Lloyd K-Means, Fuzzy C-Means, diagonal
 Gaussian Mixture EM, feature-major K-Means and Fuzzy C-Means
-(--layout=features), and two ranks on the one card: the K-sharded Fuzzy
-C-Means tower (--shard_k) and data-parallel K-Means (--n_GPUs=2); and
+(--layout=features), the streamed fits (--num_batches) with the
+OOM-adaptive retry, and two ranks on the one card: the K-sharded Fuzzy
+C-Means tower (--shard_k), data-parallel K-Means (--n_GPUs=2) and
+streamed K-Means; and
 through the functions: the sorted stats with the row gather fused in
 (sorted_cluster_stats(fuse_gather=True)) and the K-sharded K-Means tower
 (kmeans_fit_sharded) on two ranks. Phases, each of which raises on
@@ -173,6 +175,26 @@ failure (nothing is caught):
    against the same fit on the CPU (B5's plain version); and
    layout="features" K-Means (B10) and Fuzzy C-Means (B11) fits at N=2^16,
    d=5, K=15 against the same fits on the CPU.
+
+16. Main path, streamed routes (--num_batches), through the CLI, each
+   against the in-memory fit on the same points from the same init
+   (--init=first_k): [stream_route] at BASELINE.json config 3's shape
+   (N=10^7, d=128, K=1024, f32, 8 batches, --kernel=pallas, 10
+   iterations): n_iter and converged equal, centroids within 1e-4, B1
+   launching batches x passes per fit (the passes read from the fit's
+   `comms`) and nothing else; computation seconds, pt·iter/s, and a pass
+   split into its copies alone and B1 alone. [stream_fuzzy] (m=2, B6) and
+   [stream_gmm] (diag, B9; held to the in-memory EM loop from the
+   streamed fit's first-batch start) on the same points, 4 iterations.
+   [stream_ref]: the reference notebook's job (N cut from 5*10^8 to 10^8,
+   d=2, K=3, 8 batches), exact and --mean_combine. [stream_dp]: two ranks
+   (gloo on the card's tensors), 4 batches, --reduce=per_batch and
+   per_pass, against one rank's streamed fit. [oom]: a spawned process
+   caps its own allocator below the points' bytes
+   (torch.cuda.set_per_process_memory_fraction) and runs the CLI in
+   memory on the stream route's points from a .npy: exit 0, num_batches
+   > 1 chosen by doubling, centroids equal to the streamed fit at that
+   count called directly.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -370,6 +392,40 @@ B5_EARLIER = dict(ms=15.10, f32_rows_ms=15.11, staging_product_ms=8.40,
                   fold_ms=4.19, accumulate_ms=2.52, tol_share=0.4694)
 B11_EARLIER = dict(ms=6.85, accumulate_ms=2.43, powers_ms=1.40,
                    rest_ms=3.02, m_1_7_ms=15.70, tol_share=0.0080)
+# The streamed routes (--num_batches): BASELINE.json config 3's shape
+# (N=10^7, d=128, K=1024, f32) in 8 batches, --init=first_k so the
+# streamed fit and the in-memory one start alike; the same points for
+# fuzzy (m=2, B6) and diag GMM (B9), 4 iterations; the reference
+# notebook's 5*10^8 x 2, K=3 job with N cut to 10^8, 8 batches; two ranks
+# on 4 batches at the fused route's shape (N one past a multiple of the
+# ranks in every batch, so each rank's slice is padded and corrected).
+STREAM_N, STREAM_D, STREAM_K = 10 ** 7, 128, 1024
+STREAM_BATCHES = 8
+STREAM_ARGS = [
+    "--method_name=distributedKMeans", f"--n_obs={STREAM_N}",
+    f"--n_dim={STREAM_D}", f"--K={STREAM_K}", "--kernel=pallas",
+    "--n_max_iters=10", "--tol=-1", "--seed=0", "--init=first_k",
+]
+STREAM_FUZZY_ARGS = ["--method_name=distributedFuzzyCMeans",
+                     *STREAM_ARGS[1:-3], "--n_max_iters=4", "--tol=-1",
+                     "--seed=0", "--init=first_k", "--fuzzifier=2.0"]
+STREAM_GMM_ARGS = ["--method_name=gaussianMixture", *STREAM_ARGS[1:-3],
+                   "--n_max_iters=4", "--tol=-1", "--seed=0",
+                   "--init=first_k", "--covariance_type=diag"]
+REF_ARGS = [
+    "--method_name=distributedKMeans", f"--n_obs={10 ** 8}", "--n_dim=2",
+    "--K=3", "--kernel=pallas", "--n_max_iters=20", "--tol=1e-4",
+    "--seed=0", "--init=first_k",
+]
+STREAM_DP_ARGS = [
+    "--method_name=distributedKMeans", f"--n_obs={(1 << 22) + 3}",
+    "--n_dim=128", "--K=1024", "--kernel=pallas", "--n_max_iters=10",
+    "--tol=-1", "--seed=0", "--init=first_k", "--num_batches=4",
+]
+# The [oom] child's allocator may hold this share of the points' bytes;
+# its fits run OOM_ITERS iterations, to keep the phase short.
+OOM_SHARE = 0.5
+OOM_ITERS = 2
 
 
 def smi() -> str:
@@ -2064,6 +2120,370 @@ def phase_sharded_kmeans() -> None:
           f"diff {cerr:.3g}, sse {float(fit.sse):.8g}", flush=True)
 
 
+class Captured:
+    """While active, records the result of each call of the named fits
+    of `tdc_tpu_torch.models`, which the CLI calls: the last one of each
+    is the computation fit's."""
+
+    def __init__(self, *names):
+        import tdc_tpu_torch.models as tmodels
+
+        self.mod, self.names, self.real, self.last = tmodels, names, {}, {}
+
+    def __enter__(self):
+        for name in self.names:
+            real = self.real[name] = getattr(self.mod, name)
+
+            def wrapped(*a, _real=real, _name=name, **kw):
+                out = _real(*a, **kw)
+                self.last[_name] = out
+                return out
+
+            setattr(self.mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.mod, name, real)
+
+
+def run_cli_captured(args, tmp, name, *fits) -> tuple[dict, dict, dict]:
+    """run_cli, also returning the computation fit's result of each of
+    `fits` (names in tdc_tpu_torch.models)."""
+    with Captured(*fits) as cap:
+        row, seen = run_cli(args, tmp, name)
+    return row, seen, cap.last
+
+
+def stream_points(n, d, k) -> np.ndarray:
+    """The CLI's synthetic points at --seed=0 (make_blobs(seed + 1)), on
+    the host."""
+    x, _ = make_blobs(1, n, d, k, device="cuda")
+    host = x.cpu().numpy()
+    del x
+    return host
+
+
+def check_centroids(name, a, b, tol=1e-4) -> float:
+    err = (a.cpu() - b.cpu()).abs().max().item()
+    require(err <= tol, f"{name}: centroids differ by {err} (tolerance "
+                        f"{tol})")
+    return err
+
+
+def copy_pass_s(host, rows) -> tuple[float, list]:
+    """Seconds of one pass of the streamed batches' copies to the card
+    alone (the host's clock; each copy is synchronous), and the copies."""
+    from tdc_tpu_torch.data import NpzStream
+    from tdc_tpu_torch.models.streaming import _device_rows
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = [_device_rows(b, b.shape[0], "cuda")
+           for b in NpzStream(host, rows)()]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dev
+
+
+def pass_split(host, rows, c, npy) -> dict:
+    """One pass over the streamed batches split in two: the batches'
+    copies to the card alone, from the host array and from the same
+    points memory-mapped from `npy` (twice: the first pass reads the page
+    cache into the mapping), and B1 on the copied batches alone (CUDA
+    events), with `c` the fit's centroids. Launches here are not the main
+    path's."""
+    copy_s, dev = copy_pass_s(host, rows)
+    kernel_ms = sum(median_ms(lambda xb=xb: lk.lloyd_stats_fused(xb, c), 3)
+                    for xb in dev)
+    del dev
+    mapped = np.load(npy, mmap_mode="r")
+    mmap_s = [copy_pass_s(mapped, rows)[0] for _ in range(2)]
+    return dict(copy_s=copy_s, kernel_ms=kernel_ms,
+                copy_gb_s=host.nbytes / copy_s / 1e9, mmap_s=mmap_s)
+
+
+def stream_line(name, row, res, split=None) -> str:
+    comp = float(row["computation_time"])
+    passes = res.comms.passes
+    out = (f"[{name}] computation_time {comp} s, "
+           f"{row['points_per_sec_per_chip']} pt·iter/s, {passes} passes "
+           f"of {row['num_batches']} batches: {comp / passes:.4f} s a pass")
+    if split is not None:
+        out += (f"; copies alone {split['copy_s']:.4f} s a pass "
+                f"({split['copy_gb_s']:.2f} GB/s, "
+                f"{split['copy_s'] / (comp / passes):.1%} of the pass; from "
+                f"a memory-mapped .npy {split['mmap_s'][0]:.4f} s, then "
+                f"{split['mmap_s'][1]:.4f} s), "
+                f"kernel alone {split['kernel_ms']:.3f} ms a pass")
+    return out
+
+
+def _oom_child(npy, log, fraction, queue) -> None:
+    """The [oom] child: its allocator capped below the points' bytes, the
+    CLI's in-memory fit (--num_batches=1) on the stream route's points,
+    then the streamed fit at the count the CLI chose, called directly.
+    Sends back (0, 0, {rc, row, equal, err}) or (0, -1, the traceback)."""
+    try:
+        from tdc_tpu_torch.data import NpzStream
+        from tdc_tpu_torch.models import streamed_kmeans_fit
+
+        torch.cuda.set_per_process_memory_fraction(fraction)
+        args = [a for a in STREAM_ARGS
+                if not a.startswith(("--n_obs", "--n_dim"))]
+        with Captured("streamed_kmeans_fit") as cap:
+            rc = cli.main([*args, f"--data_file={npy}", "--num_batches=1",
+                           f"--n_max_iters={OOM_ITERS}",
+                           f"--log_file={log}"])
+        with open(log, newline="") as f:
+            row = list(csv.DictReader(f))[-1]
+        out = dict(rc=rc, row=row, equal=False, err=None)
+        got = cap.last.get("streamed_kmeans_fit")
+        if rc == 0 and got is not None:
+            nb = int(row["num_batches"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = streamed_kmeans_fit(
+                NpzStream.from_npy(npy, -(-STREAM_N // nb)), STREAM_K,
+                STREAM_D, init="first_k", max_iters=OOM_ITERS, tol=-1,
+                kernel="pallas")
+            torch.cuda.synchronize()
+            out["direct_s"] = time.perf_counter() - t0
+            out["equal"] = bool(torch.equal(got.centroids, want.centroids))
+            out["err"] = (got.centroids - want.centroids).abs().max().item()
+        queue.put((0, 0, out))
+    except BaseException:
+        queue.put((0, -1, traceback.format_exc()))
+
+
+def phase_oom(npy, tmp, points_bytes) -> dict:
+    """[oom]: a spawned process caps its own allocator
+    (torch.cuda.set_per_process_memory_fraction) at OOM_SHARE of the
+    points' bytes and runs the CLI in memory on them: it must exit 0 with
+    a row whose num_batches > 1 was chosen by doubling, and centroids
+    equal to the streamed fit at that count called directly."""
+    total = torch.cuda.mem_get_info()[1]
+    fraction = OOM_SHARE * points_bytes / total
+    log = os.path.join(tmp, "oom.csv")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_oom_child, args=(npy, log, fraction, queue))
+    t0 = time.perf_counter()
+    proc.start()
+    try:
+        while True:
+            try:
+                _, rc, out = queue.get(timeout=5)
+                break
+            except queue_lib.Empty:
+                require(proc.exitcode is None
+                        and time.perf_counter() - t0 < RANK_TIMEOUT,
+                        f"[oom] child exited {proc.exitcode} without a "
+                        "result, or the time ran out")
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    require(rc == 0, f"[oom] child failed: {out}")
+    row = out["row"]
+    nb = int(row["num_batches"])
+    require(out["rc"] == 0 and row["status"] == "ok", f"[oom] row {row}")
+    require(nb > 1 and nb & (nb - 1) == 0,
+            f"[oom] num_batches {nb}: not a doubling of 1")
+    require(out["equal"], f"[oom] centroids differ from the direct streamed "
+                          f"fit at {nb} batches by {out['err']}")
+    print(f"[oom] allocator capped at {fraction * total / 1e9:.3f} GB "
+          f"({fraction:.5f} of {total / 1e9:.1f} GB) under the points' "
+          f"{points_bytes / 1e9:.3f} GB: exit 0 after "
+          f"{time.perf_counter() - t0:.1f} s, num_batches {nb} by doubling, "
+          f"computation_time {row['computation_time']} s, centroids bitwise "
+          f"equal to the direct streamed fit at {nb} batches (which took "
+          f"{out['direct_s']:.3f} s for {OOM_ITERS + 1} passes)", flush=True)
+    return row
+
+
+def phase_streams(tmp) -> dict:
+    """The streamed phases: [stream_route], [stream_fuzzy], [stream_gmm],
+    [stream_ref], [stream_dp] and [oom]. Returns the stream route's
+    numbers."""
+    from tdc_tpu_torch.models import gmm as tg
+
+    batches = ["--num_batches", str(STREAM_BATCHES)]
+    # [stream_route]: in memory, then streamed, through the CLI. From
+    # first_k seeds (several in one blob, whose boundary then cuts it) the
+    # two fits start alike, but 10 Lloyd steps at 10^7 points carry the
+    # f32 summation-order difference into label flips at near-ties: the
+    # centroid gap is printed with the per-iteration SSE, and the
+    # centroids are held (1e-4) after one step from those seeds and after
+    # 10 steps from seeds near the blobs' means, through the functions.
+    hist = {key: os.path.join(tmp, f"stream_{key}_history.csv")
+            for key in ("mem", "st")}
+    row_m, seen, fits = run_cli_captured(
+        [*STREAM_ARGS, f"--history_file={hist['mem']}"], tmp, "stream_mem",
+        "kmeans_fit")
+    mem = fits["kmeans_fit"]
+    require(int(row_m["n_iter"]) == 10 and row_m["num_batches"] == "1",
+            f"stream_mem: row {row_m}")
+    require_launches("stream_mem", seen, B1=2 * 11)
+    row, seen, fits = run_cli_captured(
+        [*STREAM_ARGS, *batches, f"--history_file={hist['st']}"], tmp,
+        "stream_route", "streamed_kmeans_fit")
+    st = fits["streamed_kmeans_fit"]
+    passes = st.comms.passes
+    require(row["num_batches"] == str(STREAM_BATCHES) and passes == 11,
+            f"stream_route: row {row}, {passes} passes")
+    require_launches("stream_route", seen, B1=2 * STREAM_BATCHES * passes)
+    require((st.n_iter, st.converged) == (mem.n_iter, mem.converged),
+            f"stream_route: n_iter/converged {st.n_iter}/{st.converged} vs "
+            f"{mem.n_iter}/{mem.converged} in memory")
+    sse_rel = abs(float(row["sse"]) - float(row_m["sse"])) / float(
+        row_m["sse"])
+    require(sse_rel <= REL_TOL, f"stream_route: sse {row['sse']} vs "
+                                f"{row_m['sse']} in memory")
+    h_m, h_s = (np.loadtxt(hist[key], delimiter=",", skiprows=1)
+                for key in ("mem", "st"))
+    gap = (st.centroids - mem.centroids).abs().max().item()
+    host = stream_points(STREAM_N, STREAM_D, STREAM_K)
+    rows = -(-STREAM_N // STREAM_BATCHES)
+    npy = os.path.join(tmp, "stream_points.npy")
+    np.save(npy, host)
+    split = pass_split(host, rows, st.centroids, npy)
+    print(stream_line("stream_route", row, st, split) + f"; in memory "
+          f"{row_m['computation_time']} s; n_iter {st.n_iter} == "
+          f"{mem.n_iter}, sse {row['sse']} vs {row_m['sse']} (rel "
+          f"{sse_rel:.3g}); per-iteration sse rel "
+          f"{np.abs(h_s[:, 1] / h_m[:, 1] - 1).round(10).tolist()}; "
+          f"centroid gap after 10 steps {gap:.4g}", flush=True)
+    from tdc_tpu_torch.data import NpzStream
+    from tdc_tpu_torch.models import kmeans_fit as fit_mem
+    from tdc_tpu_torch.models import streamed_kmeans_fit as fit_st
+
+    x = torch.from_numpy(host).cuda()
+    _, y = make_blobs(1, STREAM_N, STREAM_D, STREAM_K, device="cuda")
+    means = torch.zeros((STREAM_K, STREAM_D), device="cuda").index_add_(
+        0, y.long(), x) / torch.bincount(y.long(), minlength=STREAM_K
+                                         ).clamp_min(1)[:, None].float()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    # tol >= 0 where the fit may stop moving: at tol < 0 the in-memory
+    # fit calls a zero shift converged and the streamed one does not (the
+    # JAX package's two streamed and in-memory fits' rules).
+    for label, init, iters, tol in (
+            ("one step from first_k", x[:STREAM_K].clone(), 1, -1.0),
+            ("up to 10 steps (tol 1e-4) from the blobs' means + 0.3 noise",
+             means + 0.3 * torch.randn(means.shape, generator=g,
+                                       device="cuda"), 10, 1e-4)):
+        a = fit_st(NpzStream(host, rows), STREAM_K, STREAM_D, init=init,
+                   max_iters=iters, tol=tol, kernel="pallas")
+        b = fit_mem(x, STREAM_K, init=init, max_iters=iters, tol=tol,
+                    kernel="pallas")
+        require((a.n_iter, a.converged) == (b.n_iter, b.converged),
+                f"stream_route, {label}: n_iter {a.n_iter} vs {b.n_iter}")
+        err = check_centroids(f"stream_route, {label}", a.centroids,
+                              b.centroids)
+        print(f"[stream_route] {label}: streamed against in memory, "
+              f"n_iter {a.n_iter} == {b.n_iter}, converged {a.converged}, "
+              f"max centroid diff {err:.3g}, sse {float(a.sse):.10g} vs "
+              f"{float(b.sse):.10g}", flush=True)
+    del x, y, means
+    numbers = dict(row=row, mem_row=row_m, split=split, passes=passes)
+    # [stream_fuzzy]: B6 per batch against the in-memory fit.
+    row_m, seen_m, fits = run_cli_captured(STREAM_FUZZY_ARGS, tmp,
+                                           "stream_fuzzy_mem",
+                                           "fuzzy_cmeans_fit")
+    mem = fits["fuzzy_cmeans_fit"]
+    require_launches("stream_fuzzy_mem", seen_m, B6=2 * 5)
+    row, seen, fits = run_cli_captured([*STREAM_FUZZY_ARGS, *batches], tmp,
+                                       "stream_fuzzy", "streamed_fuzzy_fit")
+    st = fits["streamed_fuzzy_fit"]
+    require_launches("stream_fuzzy", seen,
+                     B6=2 * STREAM_BATCHES * st.comms.passes)
+    require((st.n_iter, st.converged) == (mem.n_iter, mem.converged),
+            f"stream_fuzzy: n_iter/converged {st.n_iter}/{st.converged} vs "
+            f"{mem.n_iter}/{mem.converged}")
+    err = check_centroids("stream_fuzzy", st.centroids, mem.centroids)
+    rel = abs(float(st.objective) - float(mem.objective)) / float(
+        mem.objective)
+    require(rel <= REL_TOL, f"stream_fuzzy: objective rel {rel}")
+    print(stream_line("stream_fuzzy", row, st) + f"; in memory "
+          f"{row_m['computation_time']} s; max centroid diff {err:.3g}, "
+          f"objective rel {rel:.3g}", flush=True)
+    # [stream_gmm]: B9 per batch. The in-memory EM loop runs from the
+    # streamed fit's start (means from the first batch's first K rows,
+    # variances and weights from its hard assignment): an in-memory CLI
+    # fit seeds its variances on all rows instead.
+    row, seen, fits = run_cli_captured([*STREAM_GMM_ARGS, *batches], tmp,
+                                       "stream_gmm", "streamed_gmm_fit")
+    st = fits["streamed_gmm_fit"]
+    require_launches("stream_gmm", seen,
+                     B9=2 * STREAM_BATCHES * st.comms.passes)
+    rows = -(-STREAM_N // STREAM_BATCHES)
+    first = torch.from_numpy(host[:rows]).cuda()
+    means0 = first[:STREAM_K].clone()
+    var0, w0 = tg._moments_from_hard_assign(first, means0, 1e-6)
+    del first
+    x = torch.from_numpy(host).cuda()
+    means, var, w, n_iter, ll, conv = tg._em_loop(
+        x, means0, var0, w0, 4, -1.0, 1e-6, "diag", None, "pallas")
+    del x
+    require((st.n_iter, st.converged) == (n_iter, conv),
+            f"stream_gmm: n_iter/converged {st.n_iter}/{st.converged} vs "
+            f"{n_iter}/{conv} in memory")
+    err = check_centroids("stream_gmm", st.means, means)
+    rel = abs(float(st.log_likelihood) - float(ll)) / abs(float(ll))
+    require(rel <= REL_TOL, f"stream_gmm: log-likelihood rel {rel}")
+    print(stream_line("stream_gmm", row, st) + f"; max mean diff "
+          f"{err:.3g} against the in-memory EM loop from the same start, "
+          f"log-likelihood rel {rel:.3g}", flush=True)
+    del host
+    # [stream_ref]: the reference notebook's job, exact and mean-combined.
+    row_m, _, fits = run_cli_captured(REF_ARGS, tmp, "stream_ref_mem",
+                                      "kmeans_fit")
+    mem = fits["kmeans_fit"]
+    row, seen, fits = run_cli_captured([*REF_ARGS, *batches], tmp,
+                                       "stream_ref", "streamed_kmeans_fit")
+    st = fits["streamed_kmeans_fit"]
+    require_launches("stream_ref", seen,
+                     B1=2 * STREAM_BATCHES * st.comms.passes)
+    require((st.n_iter, st.converged) == (mem.n_iter, mem.converged),
+            f"stream_ref: n_iter/converged {st.n_iter}/{st.converged} vs "
+            f"{mem.n_iter}/{mem.converged}")
+    err = check_centroids("stream_ref", st.centroids, mem.centroids)
+    row_c, _, _ = run_cli_captured([*REF_ARGS, *batches, "--mean_combine"],
+                                   tmp, "stream_ref_mean_combine")
+    require(float(row_c["sse"]) >= float(row["sse"]) * (1 - REL_TOL),
+            f"stream_ref: mean_combine sse {row_c['sse']} below the exact "
+            f"fit's {row['sse']}")
+    print(stream_line("stream_ref", row, st) + f"; in memory "
+          f"{row_m['computation_time']} s, n_iter {mem.n_iter}, max "
+          f"centroid diff {err:.3g}; mean_combine computation_time "
+          f"{row_c['computation_time']} s, n_iter {row_c['n_iter']}, sse "
+          f"{row_c['sse']} against the exact {row['sse']}", flush=True)
+    # [stream_dp]: two ranks, per batch and per pass, against one rank.
+    one, seen, fits = run_cli_captured(STREAM_DP_ARGS, tmp, "stream_dp_one",
+                                       "streamed_kmeans_fit")
+    passes = fits["streamed_kmeans_fit"].comms.passes
+    for reduce in ("per_batch", "per_pass"):
+        name = f"stream_dp_{reduce}"
+        row, seen = run_ranks([*STREAM_DP_ARGS, f"--n_GPUs={RANKS}",
+                               f"--reduce={reduce}"], tmp, name)
+        for rank, per_rank in enumerate(seen):
+            require_launches(f"{name}, rank {rank}", per_rank,
+                             B1=2 * 4 * passes)
+        rel = abs(float(row["sse"]) - float(one["sse"])) / float(one["sse"])
+        require(row["n_iter"] == one["n_iter"] and rel <= REL_TOL,
+                f"{name}: n_iter {row['n_iter']}, sse {row['sse']} vs one "
+                f"rank's {one['n_iter']}, {one['sse']}")
+        print(f"[{name}] against one rank: n_iter {row['n_iter']} == "
+              f"{one['n_iter']}, sse {row['sse']} vs {one['sse']} (rel "
+              f"{rel:.3g}); computation_time {row['computation_time']} s "
+              f"(one rank {one['computation_time']} s)", flush=True)
+    # [oom]: the stream route's points from the file.
+    numbers["oom_row"] = phase_oom(npy, tmp,
+                                   STREAM_N * STREAM_D * 4)
+    os.remove(npy)
+    return numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2251,6 +2671,9 @@ def main() -> int:
         print(f"[dp_fused_route] against the one-GPU fused route: n_iter "
               f"{n_iter} == {fused_row['n_iter']}, sse {row['sse']} vs "
               f"{fused_row['sse']} (rel {rel:.3g})", flush=True)
+
+        # The streamed routes (--num_batches) and the OOM-adaptive retry.
+        phase_streams(tmp)
 
     phase_one_rank_nccl(gen)
 

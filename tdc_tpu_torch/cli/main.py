@@ -7,12 +7,25 @@ counted as initialization; a warm re-fit counted as computation), the
 same CSV row and the same summary line, with `backend` = 'cuda' or 'cpu'
 (a fuzzy row's `sse` column holds the objective J_m and a
 gaussianMixture row's the mean log-likelihood, as in the JAX CLI).
-Errors land in the CSV as an error row and exit 1. Unlike the JAX CLI
-there is no OOM-adaptive retry: an out-of-memory error is reported, not
-retried (the streamed driver it would fall back to is not ported yet).
+Errors land in the CSV as an error row and exit 1. Every fit runs under
+the OOM-adaptive retry (`data/batching.oom_adaptive`, reference
+:357-360): a CUDA out-of-memory error frees the attempt's device memory
+and runs the fit again, streamed, on twice the batches; the row's
+`num_batches` is the count that finished. No other error is retried.
+
+Streamed (`--num_batches` > 1, `--streamed`): the exact streamed fits
+(`models/streaming.py`, `models/gmm.streamed_gmm_fit`) over
+ceil(n_obs / num_batches)-row batches of host points, copied to the card
+batch by batch; `--weight_file` streams alongside. `--mean_combine` runs
+the reference's approximation instead (an independent fit per batch,
+centroids averaged; distributedKMeans). `--reduce=per_pass` all-reduces
+once per pass instead of once per batch on several GPUs; `--prefetch`
+reads batches on a background thread; `--history_file` writes the
+per-iteration [cost, shift] CSV of a K-Means or fuzzy fit.
 
 Run: python -m tdc_tpu_torch.cli.main --method_name=distributedKMeans \
      --n_obs=4194304 --n_dim=128 --K=1024 --kernel=pallas --log_file=log.csv
+Streamed: add --num_batches=8 (or --data_file=x.npy, memory-mapped).
 Fuzzy: --method_name=distributedFuzzyCMeans --fuzzifier=2.0
 GMM: --method_name=gaussianMixture --covariance_type=diag (diag,
 spherical, tied or full; --kernel=pallas runs the E-step kernel B9, diag
@@ -46,6 +59,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import warnings
 
 METHOD_NAMES = ("distributedKMeans", "distributedFuzzyCMeans",
                 "gaussianMixture")
@@ -80,12 +94,31 @@ def build_parser() -> argparse.ArgumentParser:
                         "in memory; requires n_GPUs %% shard_k == 0 and "
                         "K %% shard_k == 0)")
     p.add_argument("--num_batches", type=int, default=1,
-                   help="streamed batches; only 1 (in memory): the "
-                        "streamed drivers are not ported yet (ROADMAP.md "
-                        "Queue A, A7)")
+                   help="initial serial batch count; doubled on OOM "
+                        "(reference :357-360 semantics); > 1 streams")
     p.add_argument("--streamed", action="store_true",
-                   help="the streamed driver: not ported yet (ROADMAP.md "
-                        "Queue A, A7)")
+                   help="force exact streamed Lloyd even if data fits")
+    p.add_argument("--minibatch", action="store_true",
+                   help="Sculley-style mini-batch K-Means: not ported yet "
+                        "(ROADMAP.md Queue A, A8b)")
+    p.add_argument("--mean_combine", action="store_true",
+                   help="reference-parity batch mode: independent Lloyd per "
+                        "batch, unweighted mean of per-batch centers "
+                        "(reference :310 approximation; kmeans only)")
+    p.add_argument("--reduce", type=str, default="per_batch",
+                   choices=("per_batch", "per_pass", "per_pass:bf16",
+                            "per_pass:int8"),
+                   help="cross-GPU stats reduction of the streamed fits: "
+                        "'per_pass' all-reduces once per iteration instead "
+                        "of once per batch (f32 summation reorder); the "
+                        "quantized ':bf16'/':int8' are not ported yet "
+                        "(ROADMAP.md Queue A, A7)")
+    p.add_argument("--prefetch", type=int, default=0,
+                   help="streamed modes: background-thread batch prefetch "
+                        "depth (0 = off)")
+    p.add_argument("--history_file", type=str, default=None,
+                   help="write per-iteration (cost, shift) CSV "
+                        "(kmeans/fuzzy)")
     p.add_argument("--n_max_iters", type=int, default=20,
                    help="iteration cap (reference default 20)")
     p.add_argument("--seed", type=int, default=123128,
@@ -143,8 +176,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append structured JSONL run events here")
     p.add_argument("--weight_file", type=str, default=None,
                    help=".npy of (N,) nonnegative per-point sample weights "
-                        "(sklearn sample_weight parity; in-memory, "
-                        "single-device)")
+                        "(sklearn sample_weight parity; in-memory and "
+                        "streamed, single-device)")
     p.add_argument("--layout", type=str, default="auto",
                    choices=("auto", "samples", "features"),
                    help="device storage of the points: 'features' stores "
@@ -177,6 +210,67 @@ def _validate_weight_file(parser, args) -> None:
         parser.error(f"weight file has shape {shape}; expected ({want},)")
 
 
+def _streamy(args) -> bool:
+    """Whether the first attempt already streams."""
+    return args.streamed or args.num_batches > 1 or args.mean_combine
+
+
+def _validate_streaming(parser, args) -> None:
+    """The JAX CLI's checks of the streamed flags, in its words; the
+    options that are not ported name their ROADMAP.md item."""
+    if args.num_batches < 1:
+        parser.error("--num_batches must be >= 1")
+    if args.prefetch < 0:
+        parser.error("--prefetch must be >= 0")
+    if args.minibatch:
+        parser.error("--minibatch is not ported yet (ROADMAP.md Queue A, "
+                     "A8b: models/minibatch.py)")
+    if ":" in args.reduce:
+        parser.error(f"--reduce={args.reduce} (the quantized per-pass "
+                     "reduce with error feedback) is not ported yet "
+                     "(ROADMAP.md Queue A, A7)")
+    if args.mean_combine:
+        if args.method_name != "distributedKMeans":
+            parser.error("--mean_combine supports distributedKMeans only")
+        if args.shard_k > 1:
+            parser.error("--mean_combine excludes --minibatch/--shard_k")
+    if args.empty_policy != "keep":
+        for flag in ("streamed", "mean_combine"):
+            if getattr(args, flag):
+                parser.error(f"--empty_policy=relocate is in-memory only; "
+                             f"--{flag} is not supported (mini-batch has "
+                             "its own --reassignment_ratio policy)")
+        if args.num_batches > 1:
+            parser.error("--empty_policy=relocate is in-memory single-shard")
+    if args.kernel == "refined":
+        for flag in ("streamed", "mean_combine"):
+            if getattr(args, flag):
+                parser.error(f"--kernel=refined is the in-memory exact-"
+                             f"champion path; --{flag} is not supported")
+        if args.num_batches > 1:
+            parser.error("--kernel=refined is in-memory single-shard "
+                         "(use it for iters-to-converge parity runs)")
+    if args.kernel == "pallas_bf16":
+        if args.mean_combine:
+            parser.error("--kernel=pallas_bf16 has no --mean_combine "
+                         "plumbing (the epilogue lives in the fused Lloyd "
+                         "stats kernel)")
+        if args.num_batches > 1 and not args.streamed:
+            parser.error("--kernel=pallas_bf16 is single-shard (in-memory "
+                         "or --streamed)")
+    if args.layout == "features":
+        for flag in ("streamed", "mean_combine"):
+            if getattr(args, flag):
+                parser.error(f"--layout=features is an in-memory device "
+                             f"layout; --{flag} is not supported with it")
+        if args.num_batches > 1:
+            parser.error("--layout=features is single-batch, single-shard "
+                         "(it exists to make the full dataset fit in HBM)")
+    if args.weight_file and args.mean_combine:
+        parser.error("--weight_file is not supported with "
+                     "--minibatch/--mean_combine/--shard_k")
+
+
 def _validate_devices(parser, args) -> None:
     """--n_GPUs against the launch, and --shard_k."""
     from tdc_tpu_torch.parallel.multihost import launched_world_size
@@ -198,12 +292,11 @@ def _validate_devices(parser, args) -> None:
     if n > 1 and args.method_name == "gaussianMixture":
         parser.error("--n_GPUs > 1 with gaussianMixture is not ported yet "
                      "(ROADMAP.md Queue A, A4: the GMM's mesh)")
-    if args.num_batches != 1 or args.streamed:
+    if args.shard_k > 1 and _streamy(args):
         parser.error(
-            "--num_batches/--streamed run the streamed drivers, which are "
-            "not ported yet (ROADMAP.md Queue A, A7"
-            + ("; with --shard_k, the streamed K-sharded towers of A9)"
-               if args.shard_k > 1 else ")"))
+            "--num_batches/--streamed/--mean_combine with --shard_k run the "
+            "streamed K-sharded towers of A9, which are not ported yet "
+            "(ROADMAP.md Queue A, A9)")
     if args.shard_k < 1:
         parser.error("--shard_k must be >= 1")
     if args.shard_k > 1:
@@ -246,6 +339,7 @@ def validate_args(parser, args) -> None:
             parser.error(f"--{name} must be >= 1")
     if args.n_obs is not None and args.n_obs < args.K:
         parser.error("--n_obs must be >= --K")
+    _validate_streaming(parser, args)
     _validate_devices(parser, args)
     if args.method_name != "distributedKMeans" and (
             args.spherical or args.empty_policy != "keep"):
@@ -299,30 +393,32 @@ def validate_args(parser, args) -> None:
 
 def run_experiment(args) -> dict:
     """Load/generate data, fit twice (initialization, computation), and
-    return the result row dict."""
+    return the result row dict. Each fit runs under `oom_adaptive`; the
+    points stay on the host when a fit streams them (a loaded file, or
+    generated points too large for the card's budget) and are copied to
+    the card inside the first in-memory fit, so an out-of-memory copy is
+    retried streamed like any other out-of-memory fit."""
     import numpy as np
     import torch
 
     from tdc_tpu_torch.data import (
+        NpzStream,
         load_points,
         load_points_feature_major,
         make_blobs,
+        oom_adaptive,
     )
-    from tdc_tpu_torch.models import fuzzy_cmeans_fit, gmm_fit, kmeans_fit
+    from tdc_tpu_torch.data.batching import device_hbm_bytes
     from tdc_tpu_torch.parallel.mesh import make_mesh
     from tdc_tpu_torch.parallel.multihost import process_count
-    from tdc_tpu_torch.parallel.sharded_k import (
-        fuzzy_fit_sharded,
-        make_mesh_2d,
-    )
+    from tdc_tpu_torch.parallel.sharded_k import make_mesh_2d
     from tdc_tpu_torch.utils.device import resolve_device
     from tdc_tpu_torch.utils.timing import PhaseTimers
 
     timers = PhaseTimers()
     bf16 = args.dtype == "bfloat16"
     # 'auto' resolves to samples, as the JAX CLI's does off a TPU.
-    layout = "features" if args.layout == "features" else "samples"
-    features = layout == "features"
+    features = args.layout == "features"
     with timers.phase("setup") as out:
         n_devices = args.n_devices or process_count()
         if features and n_devices > 1:
@@ -337,24 +433,36 @@ def run_experiment(args) -> dict:
         elif n_devices > 1:
             mesh = make_mesh(n_devices)
         dev = resolve_device(args.device)
-        if args.data_file:
-            x, _ = (load_points_feature_major if features
-                    else load_points)(args.data_file)
+        gen_dtype = torch.bfloat16 if bf16 else torch.float32
+        if args.data_file and features:
+            x, _ = load_points_feature_major(args.data_file)
             if not isinstance(x, torch.Tensor):
                 x = torch.from_numpy(np.array(x))
-            # A bf16 file stays bf16 under --dtype float32 too: the JAX CLI
-            # hands it to the fit uncast.
+            x = x.to(device=dev, dtype=torch.bfloat16
+                     if bf16 or x.dtype == torch.bfloat16 else torch.float32)
+            n_dim, n_obs = x.shape
+        elif args.data_file:
+            # Host points (a .npy is memory-mapped): copied to the card by
+            # the first in-memory fit, or batch by batch when streamed. A
+            # bf16 file stays bf16 under --dtype float32 too (the JAX CLI
+            # hands it to the fit uncast).
+            x, _ = load_points(args.data_file)
             bf16 = bf16 or x.dtype == torch.bfloat16
-            x = x.to(device=dev,
-                     dtype=torch.bfloat16 if bf16 else torch.float32)
+            n_obs, n_dim = x.shape
         else:
-            x, _ = make_blobs(args.seed + 1, args.n_obs, args.n_dim,
-                              max(args.K, 2), class_sep=args.class_sep,
-                              device=dev,
-                              dtype=torch.bfloat16 if bf16 else torch.float32,
-                              layout=layout)
-        n_obs, n_dim = x.shape[::-1] if features else x.shape
-        out["block_on"] = x
+            n_obs, n_dim = args.n_obs, args.n_dim
+            # Points past 40% of the card's memory are generated on the
+            # host (the JAX CLI's rule), where the streamed retry reads
+            # them; below it, on the card, as the in-memory fit wants them.
+            big = (dev.type == "cuda" and n_obs * n_dim
+                   * (2 if bf16 else 4) > 0.4 * device_hbm_bytes(dev))
+            x, _ = make_blobs(args.seed + 1, n_obs, n_dim, max(args.K, 2),
+                              class_sep=args.class_sep,
+                              device="cpu" if big else dev, dtype=gen_dtype,
+                              layout="features" if features else "samples")
+            if features:
+                n_dim, n_obs = x.shape
+        out["block_on"] = x if isinstance(x, torch.Tensor) else None
         weights = None
         if args.weight_file:
             weights = np.load(args.weight_file)
@@ -364,51 +472,160 @@ def run_experiment(args) -> dict:
 
     fuzzy = args.method_name == "distributedFuzzyCMeans"
     gmm = args.method_name == "gaussianMixture"
+    state = {"x": x, "features": features, "device_x": None,
+             "stream": None}
 
-    def fit():
+    def host_points():
+        """The points on the host, for a streamed fit: a copy on the card
+        comes back (feature-major ones sample-major) and is dropped, so a
+        streamed retry after an out-of-memory in-memory fit does not keep
+        the whole dataset on the card."""
+        xx = state["x"]
+        if isinstance(xx, torch.Tensor) and xx.device.type != "cpu":
+            xx = xx.cpu()
+            if state["features"]:
+                xx = xx.T.contiguous()
+                state["features"] = False
+            state["x"] = xx
+            state["device_x"] = None
+        return xx
+
+    def device_points():
+        """The points on the card at the fit's dtype, copied once and kept
+        for the computation fit."""
+        if state["device_x"] is None:
+            xx = state["x"]
+            if not isinstance(xx, torch.Tensor):
+                # A memory map is read-only: the CPU fit gets a copy, the
+                # card's copy reads it directly.
+                xx = np.array(xx) if dev.type == "cpu" else xx
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    xx = torch.from_numpy(xx)
+            dtype = (torch.bfloat16 if bf16 or xx.dtype == torch.bfloat16
+                     else torch.float32)
+            state["device_x"] = xx.to(device=dev, dtype=dtype)
+        return state["device_x"]
+
+    def fit(num_batches: int):
+        from tdc_tpu_torch.models import (
+            fuzzy_cmeans_fit,
+            gmm_fit,
+            kmeans_fit,
+            mean_combine_fit,
+            streamed_fuzzy_fit,
+            streamed_gmm_fit,
+            streamed_kmeans_fit,
+        )
+        from tdc_tpu_torch.parallel.sharded_k import fuzzy_fit_sharded
+
+        streamed = args.streamed or num_batches > 1 or args.mean_combine
+        if args.reduce != "per_batch" and (not streamed or args.mean_combine):
+            # Fail fast instead of silently ignoring the knob (the JAX
+            # CLI's words).
+            raise SystemExit(
+                f"--reduce={args.reduce} applies to the streamed "
+                "kmeans/fuzzy/gaussianMixture drivers (add "
+                "--streamed/--num_batches); in-memory fits already "
+                "reduce once per iteration, and mean_combine/minibatch/"
+                "bisecting/--shard_k gaussianMixture take no strategy")
         gen = torch.Generator(device=dev).manual_seed(args.seed)
+        kernel = args.kernel or "xla"
+        history = args.history_file is not None
+        if streamed and mesh2d is not None:
+            raise NotImplementedError(
+                "a streamed fit with --shard_k (after an out-of-memory "
+                "retry) runs the streamed K-sharded towers, which are not "
+                "ported to tdc_tpu_torch yet (ROADMAP.md Queue A, A9)")
+        if streamed:
+            rows = -(-n_obs // num_batches)
+            stream = NpzStream(host_points(), rows)
+            state["stream"] = stream
+            wstream = (None if weights is None
+                       else NpzStream(np.asarray(weights, np.float32), rows))
+            common = dict(generator=gen, max_iters=args.n_max_iters,
+                          tol=args.tol, mesh=mesh, prefetch=args.prefetch,
+                          kernel=kernel, device=dev)
+            if args.mean_combine:
+                return mean_combine_fit(stream, args.K, n_dim,
+                                        init=args.init,
+                                        spherical=args.spherical, **common)
+            common.update(sample_weight_batches=wstream, reduce=args.reduce)
+            if gmm:
+                return streamed_gmm_fit(
+                    stream, args.K, n_dim, init=args.init,
+                    covariance_type=args.covariance_type, **common)
+            if fuzzy:
+                return streamed_fuzzy_fit(stream, args.K, n_dim,
+                                          m=args.fuzzifier, init=args.init,
+                                          **common)
+            return streamed_kmeans_fit(stream, args.K, n_dim,
+                                       init=args.init,
+                                       spherical=args.spherical, **common)
+        state["stream"] = None
+        xx = device_points()
         if mesh2d is not None:
             return fuzzy_fit_sharded(
-                x, args.K, mesh2d, m=args.fuzzifier, init=args.init,
+                xx, args.K, mesh2d, m=args.fuzzifier, init=args.init,
                 generator=gen, max_iters=args.n_max_iters, tol=args.tol,
-                kernel=args.kernel or "xla", device=dev,
+                kernel=kernel, device=dev,
             )
         if gmm:
             return gmm_fit(
-                x, args.K, init=args.init, generator=gen,
+                xx, args.K, init=args.init, generator=gen,
                 max_iters=args.n_max_iters, tol=args.tol,
                 covariance_type=args.covariance_type, sample_weight=weights,
-                kernel=args.kernel or "xla", device=dev,
+                kernel=kernel, device=dev,
             )
+        layout = "features" if state["features"] else "samples"
         if fuzzy:
             return fuzzy_cmeans_fit(
-                x, args.K, m=args.fuzzifier, init=args.init, generator=gen,
-                max_iters=args.n_max_iters, tol=args.tol,
-                kernel=args.kernel or "xla", sample_weight=weights,
-                layout=layout, mesh=mesh, device=dev,
+                xx, args.K, m=args.fuzzifier, init=args.init, generator=gen,
+                max_iters=args.n_max_iters, tol=args.tol, kernel=kernel,
+                sample_weight=weights, layout=layout, mesh=mesh,
+                history=history, device=dev,
             )
         return kmeans_fit(
-            x, args.K, init=args.init, generator=gen,
+            xx, args.K, init=args.init, generator=gen,
             max_iters=args.n_max_iters, tol=args.tol,
-            spherical=args.spherical, kernel=args.kernel or "xla",
-            sample_weight=weights, empty_policy=args.empty_policy,
-            layout=layout, mesh=mesh, device=dev,
+            spherical=args.spherical, kernel=kernel, sample_weight=weights,
+            empty_policy=args.empty_policy, layout=layout, mesh=mesh,
+            history=history, device=dev,
         )
 
+    def centers(result):
+        return result.means if gmm else result.centroids
+
     # Initialization = the first fit, including the kernels' first-use
-    # build; computation = a warm re-fit, what steady-state clustering
-    # costs.
+    # build and an in-memory fit's copy of the points to the card;
+    # computation = a warm re-fit at the batch count that finished, what
+    # steady-state clustering costs.
     with timers.phase("initialization") as out:
-        result = fit()
-        out["block_on"] = result.means if gmm else result.centroids
+        result, num_batches = oom_adaptive(
+            fit, initial_num_batches=args.num_batches)
+        out["block_on"] = centers(result)
     with timers.phase("computation") as out:
-        result = fit()
-        out["block_on"] = result.means if gmm else result.centroids
+        result = fit(num_batches)
+        out["block_on"] = centers(result)
+
+    if args.history_file and getattr(result, "history", None) is not None:
+        import csv
+
+        with open(args.history_file, "w", newline="") as f:
+            w = csv.writer(f, lineterminator="\n")
+            w.writerow(["iteration", "objective" if fuzzy else "sse",
+                        "shift"])
+            for i, (cost_i, shift_i) in enumerate(
+                    np.asarray(result.history), 1):
+                w.writerow([i, cost_i, shift_i])
 
     n_iter = int(result.n_iter)
+    n_iter_run = (n_iter if getattr(result, "n_iter_run", None) is None
+                  else int(result.n_iter_run))
     comp = timers.get("computation")
-    pps = (n_obs * n_iter / comp / n_devices) if comp > 0 else float("inf")
-    return {
+    pps = (n_obs * n_iter_run / comp / n_devices) if comp > 0 else float(
+        "inf")
+    row = {
         "method_name": args.method_name,
         "seed": args.seed,
         "num_GPUs": n_devices,
@@ -419,18 +636,26 @@ def run_experiment(args) -> dict:
         "initialization_time": round(timers.get("initialization"), 6),
         "computation_time": round(comp, 6),
         "n_iter": n_iter,
-        "n_iter_run": n_iter,
+        "n_iter_run": n_iter_run,
         "backend": dev.type,
         "n_chips": n_devices,
         "points_per_sec_per_chip": round(pps, 1),
         "sse": float(result.log_likelihood if gmm
                      else result.objective if fuzzy else result.sse),
         "converged": bool(result.converged),
-        "num_batches": 1,
+        "num_batches": num_batches,
         "tol": args.tol,
-        "kernel": "tall" if features else (args.kernel or ""),
+        "kernel": "tall" if state["features"] else (args.kernel or ""),
         "status": "ok",
     }
+    comms = getattr(result, "comms", None)
+    if state["stream"] is not None:
+        # For the run log, not the CSV: the computation fit's geometry.
+        row["_stream"] = {
+            "batches": state["stream"].num_batches,
+            "passes": None if comms is None else comms.passes,
+            "reduces": None if comms is None else comms.reduces}
+    return row
 
 
 def main(argv=None) -> int:
@@ -472,7 +697,7 @@ def _run(args) -> int:
         "K": args.K,
         "n_obs": args.n_obs or "",
         "n_dim": args.n_dim or "",
-        "num_batches": 1,
+        "num_batches": args.num_batches,
     }
     rank = int(os.environ.get("RANK", "0"))
     try:
@@ -487,11 +712,13 @@ def _run(args) -> int:
     multihost.barrier()
     if rank != 0:
         return 0
+    stream = row.pop("_stream", None)
     if args.log_file:
         append_result_row(args.log_file, row)
     runlog.event("run_ok", **{k: row[k] for k in
                               ("n_iter", "sse", "converged", "computation_time",
-                               "points_per_sec_per_chip", "num_batches")})
+                               "points_per_sec_per_chip", "num_batches")},
+                 **({} if stream is None else {"stream": stream}))
     print(
         f"{row['method_name']}: n_iter={row['n_iter']} "
         f"sse={row['sse']:.6g} converged={row['converged']} "

@@ -1,11 +1,19 @@
-"""Dataset loading (counterpart: tdc_tpu/data/loader.py, the
-`load_points`, `_restore_bf16`, `load_points_feature_major` and
-`to_feature_major` parts): the reference's .npz layout (keys 'X', 'Y'),
-plain .npy files and feature-major `*.fm.npy` files, bfloat16 included.
-The files are the JAX package's: each package reads the other's.
+"""Dataset loading and streaming (counterpart: tdc_tpu/data/loader.py,
+the `load_points`, `_restore_bf16`, `load_points_feature_major`,
+`to_feature_major`, `batch_iterator` and `NpzStream` parts): the
+reference's .npz layout (keys 'X', 'Y'), plain .npy files and
+feature-major `*.fm.npy` files, bfloat16 included. The files are the JAX
+package's: each package reads the other's.
+
+`NpzStream` is the streamed fits' batch source: a re-iterable stream of
+(B, d) host batches over a memory-mapped or in-memory array. Its CRC32
+sidecar verification is not ported (ROADMAP.md Queue A, A7(d)) and
+raises.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -23,6 +31,9 @@ def restore_bf16(x):
 
 
 FEATURE_MAJOR_SUFFIX = ".fm.npy"
+CRC_SIDECAR_SUFFIX = ".crc.json"
+_CRC_NOT_PORTED = ("CRC32 sidecar verification is not ported to "
+                   "tdc_tpu_torch yet (ROADMAP.md Queue A, A7(d))")
 
 
 def load_points(data_file: str, *, mmap: bool = True):
@@ -95,3 +106,87 @@ def to_feature_major(src_path: str, dst_path: str, *,
         out[:, s:s + chunk_rows] = np.asarray(src[s:s + chunk_rows]).T
     out.flush()
     return dst_path
+
+
+def batch_iterator(x, num_batches: int):
+    """Sequential contiguous batches with np.array_split semantics (the
+    reference's `np.array_split(x, num_batches)`): the first
+    n % num_batches batches take one row more."""
+    n = x.shape[0]
+    base, extra = divmod(n, num_batches)
+    start = 0
+    for i in range(num_batches):
+        size = base + (1 if i < extra else 0)
+        yield x[start:start + size]
+        start += size
+
+
+def crc_sidecar_path(data_path: str) -> str:
+    """Conventional sidecar location next to a data file."""
+    return data_path + CRC_SIDECAR_SUFFIX
+
+
+def write_crc_sidecar(x, batch_rows: int, path: str) -> str:
+    """Not ported: raises NotImplementedError naming ROADMAP.md A7(d)."""
+    raise NotImplementedError(_CRC_NOT_PORTED)
+
+
+class NpzStream:
+    """Re-iterable stream of (B, d) host batches over a memory-mapped or
+    in-memory array (numpy, '|V2' bfloat16 included, or a CPU tensor).
+
+    `stream()` returns a fresh iterator each call: one full pass per fit
+    iteration. Batch i is rows [i·batch_rows, (i+1)·batch_rows), the last
+    one short. Each batch is a view of the backing array, not a copy: the
+    streamed fits copy only the rows they stage (under a mesh, this
+    rank's rows of every batch), so a rank never reads another rank's
+    rows from a memory-mapped file. A bfloat16 '|V2' array stays '|V2'
+    here and is restored (`restore_bf16`) when staged.
+
+    `crc_sidecar` (per-batch CRC32 verification) is not ported and
+    raises (ROADMAP.md Queue A, A7(d)).
+    """
+
+    def __init__(self, x, batch_rows: int, crc_sidecar=None):
+        if crc_sidecar is not None:
+            raise NotImplementedError(_CRC_NOT_PORTED)
+        if int(batch_rows) < 1:
+            raise ValueError(f"batch_rows must be >= 1, got {batch_rows}")
+        self.x = x
+        self.batch_rows = int(batch_rows)
+
+    @classmethod
+    def from_npy(cls, path: str, batch_rows: int, *, mmap: bool = True,
+                 verify_crc: str = "auto") -> "NpzStream":
+        """Open a .npy as a stream (memory-mapped by default). The JAX
+        package arms CRC verification when the sidecar exists
+        (verify_crc='auto') or is required; here a sidecar that would be
+        read raises, naming A7(d), rather than be silently ignored."""
+        if verify_crc not in ("auto", "require", "off"):
+            raise ValueError(
+                f"verify_crc={verify_crc!r}: use 'auto', 'require', "
+                "or 'off'")
+        if verify_crc == "require" or (
+                verify_crc == "auto" and os.path.exists(
+                    crc_sidecar_path(path))):
+            raise NotImplementedError(_CRC_NOT_PORTED)
+        s = cls(np.load(path, mmap_mode="r" if mmap else None), batch_rows)
+        s.path = path
+        return s
+
+    def __call__(self):
+        for i in range(self.num_batches):
+            yield self.read_batch(i)
+
+    def read_batch(self, i: int):
+        """Batch `i` of the `__call__` order, as a view."""
+        start = i * self.batch_rows
+        return self.x[start:start + self.batch_rows]
+
+    @property
+    def num_batches(self) -> int:
+        return -(-self.x.shape[0] // self.batch_rows)
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.x.shape[0])

@@ -68,6 +68,8 @@ class FuzzyCMeansResult(NamedTuple):
     history: object = None
     # Iterations executed by THIS fit call (None = same as n_iter).
     n_iter_run: object = None
+    # The streamed fits' parallel.reduce.CommsReport (None in memory).
+    comms: object = None
 
 
 def _fuzzy_stats_fn(kernel: str, m: float, block_rows: int, k: int, d: int,

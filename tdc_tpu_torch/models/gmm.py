@@ -29,10 +29,18 @@ else xla, with one `kernel_selected` event. Sample weights run on xla.
 
 Supported: float32 or bfloat16 inputs (bf16 points are widened to f32 at
 entry, as the JAX version takes `xf = x.astype(f32)` throughout), no
-mesh. Mesh (data parallel), the streamed out-of-core fit and the
-K-sharded fit are not ported: mesh raises NotImplementedError naming
-ROADMAP.md A4; the streamed and K-sharded fits (A7, A9) have no entry
-point in the port yet.
+mesh in memory: mesh raises NotImplementedError naming ROADMAP.md A4;
+the K-sharded fit (A9) has no entry point in the port yet.
+
+`streamed_gmm_fit` is the exact out-of-core EM (counterpart:
+`streamed_gmm_fit`, `_batch_gmm_stats[_weighted]`,
+`_gmm_zero_row_correction`, `_accumulate_gmm[_weighted]` and
+`_gmm_pass_correction`): one pass over a re-iterable stream of batches
+per EM iteration, the E-step stats summed over the batches, all four
+covariance types (B9 per batch for diag and spherical on 'pallas', the
+torch E-step otherwise), the streamed K-Means' pass machinery
+(`models/streaming.py`): rank slices padded and corrected under a mesh,
+per-batch or per-pass reduces, the batch screen.
 
 A covariance that is not positive definite (a component collapsed onto
 repeated rows) gives a NaN Cholesky factor for that component, as
@@ -58,7 +66,7 @@ from tdc_tpu_torch.models.kmeans import (
     resolve_init,
 )
 from tdc_tpu_torch.ops.assign import assign_clusters, cluster_stats
-from tdc_tpu_torch.ops.gmm_kernels import gmm_stats_for
+from tdc_tpu_torch.ops.gmm_kernels import GMMStats, gmm_stats_for
 from tdc_tpu_torch.utils.device import resolve_device
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -78,6 +86,8 @@ class GMMResult(NamedTuple):
     # Iterations executed by THIS fit call (None = same as n_iter).
     n_iter_run: object = None
     covariance_type: str = "diag"
+    # The streamed fit's parallel.reduce.CommsReport (None in memory).
+    comms: object = None
 
 
 def _log_prob(x, means, variances, log_weights):
@@ -475,3 +485,262 @@ def gmm_sample(result: GMMResult, n_samples: int,
         chols = torch.linalg.cholesky(result.variances)  # (K, d, d)
         x = means + torch.einsum("nd,ned->ne", z, chols[comp])
     return x, comp.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Streamed EM
+# ---------------------------------------------------------------------------
+
+
+def _gmm_sxx_shape(k: int, d: int, cov_type: str) -> tuple:
+    return {"diag": (k, d), "spherical": (k, d), "tied": (d, d),
+            "full": (k, d, d)}[cov_type]
+
+
+def _gmm_shapes(k: int, d: int, cov_type: str) -> GMMStats:
+    return GMMStats(ll_sum=(), nk=(k,), sx=(k, d),
+                    sxx=_gmm_sxx_shape(k, d, cov_type))
+
+
+def _second_moment(xf, r, cov_type: str):
+    """The covariance type's second moment of one batch: Σr·x² (K, d),
+    Σr·xxᵀ (K, d, d) as K (d, B) × (B, d) products, or the
+    responsibility-free Σxxᵀ (d, d) for tied (r holds the weights there,
+    or None)."""
+    if cov_type in ("diag", "spherical"):
+        return r.T @ (xf * xf)
+    if cov_type == "full":
+        return torch.stack([(xf * r[:, j:j + 1]).T @ xf
+                            for j in range(r.shape[1])])
+    return (xf if r is None else xf * r[:, None]).T @ xf
+
+
+def _batch_gmm_stats(batch, means, variances, weights, kernel: str = "xla",
+                     cov_type: str = "diag", stats_fn=None) -> GMMStats:
+    """One batch's E-step stats, uncorrected. kernel='pallas' runs B9
+    (`stats_fn`, the fit's `gmm_stats_for` choice), spherical with the
+    scalar variance broadcast across d."""
+    xf = batch.float()
+    if kernel == "pallas":
+        d = xf.shape[1]
+        var_d = (variances if cov_type == "diag"
+                 else variances[:, None].expand(-1, d).contiguous())
+        fn = stats_fn or gmm_stats_for(*means.shape)
+        return fn(xf, means.contiguous(), var_d, weights)
+    logp = _log_prob_t(xf, means, variances, torch.log(weights), cov_type)
+    norm = torch.logsumexp(logp, dim=1, keepdim=True)
+    r = torch.exp(logp - norm)
+    return GMMStats(ll_sum=norm.sum(), nk=r.sum(dim=0), sx=r.T @ xf,
+                    sxx=_second_moment(xf, None if cov_type == "tied"
+                                       else r, cov_type))
+
+
+def _batch_gmm_stats_weighted(batch, w, means, variances, weights,
+                              cov_type: str = "diag") -> GMMStats:
+    """Weighted one-batch E-step stats: responsibilities scaled by w, so
+    zero-weight rows add exactly nothing."""
+    xf = batch.float()
+    logp = _log_prob_t(xf, means, variances, torch.log(weights), cov_type)
+    norm = torch.logsumexp(logp, dim=1, keepdim=True)
+    r = torch.exp(logp - norm) * w[:, None]
+    return GMMStats(ll_sum=(w * norm[:, 0]).sum(), nk=r.sum(dim=0),
+                    sx=r.T @ xf,
+                    sxx=_second_moment(xf, w if cov_type == "tied" else r,
+                                       cov_type))
+
+
+def _gmm_zero_row_correction(means, variances, weights, n_pad, d: int,
+                             cov_type: str):
+    """(Δll, Δnk) that `n_pad` zero rows contributed: their
+    responsibilities and log-likelihood depend only on the parameters
+    (zero rows add nothing to sx or sxx)."""
+    zlogp = _log_prob_t(torch.zeros((1, d), dtype=torch.float32,
+                                    device=means.device), means, variances,
+                        torch.log(weights), cov_type)
+    znorm = torch.logsumexp(zlogp, dim=1)
+    zr = torch.exp(zlogp - znorm[:, None])[0]
+    n_pad = float(n_pad)
+    return n_pad * znorm[0], n_pad * zr
+
+
+def _gmm_pass_correction(red: GMMStats, means, variances, weights, n_pad,
+                         cov_type: str) -> GMMStats:
+    """`red` less n_pad zero rows' contribution (per batch or once per
+    pass: the parameters are pass-constant, so both are one evaluation
+    scaled by the pad count)."""
+    dll, dnk = _gmm_zero_row_correction(means, variances, weights, n_pad,
+                                        means.shape[1], cov_type)
+    return GMMStats(ll_sum=red.ll_sum - dll, nk=red.nk - dnk, sx=red.sx,
+                    sxx=red.sxx)
+
+
+def _accumulate_gmm(acc: GMMStats, batch, means, variances, weights, n_pad,
+                    kernel: str = "xla", cov_type: str = "diag",
+                    stats_fn=None) -> GMMStats:
+    """Add one (possibly zero-padded) batch's EM stats and subtract the
+    padding's exact contribution."""
+    from tdc_tpu_torch.parallel.reduce import tree_add
+
+    s = _batch_gmm_stats(batch, means, variances, weights, kernel, cov_type,
+                         stats_fn)
+    if float(n_pad) > 0:
+        s = _gmm_pass_correction(s, means, variances, weights, n_pad,
+                                 cov_type)
+    return tree_add(acc, s)
+
+
+def _accumulate_gmm_weighted(acc: GMMStats, batch, w, means, variances,
+                             weights, cov_type: str = "diag") -> GMMStats:
+    """Add one weighted batch's EM stats (pad rows carry zero weight: no
+    correction)."""
+    from tdc_tpu_torch.parallel.reduce import tree_add
+
+    return tree_add(acc, _batch_gmm_stats_weighted(batch, w, means,
+                                                   variances, weights,
+                                                   cov_type))
+
+
+def streamed_gmm_fit(
+    batches,
+    k: int,
+    d: int,
+    *,
+    init="kmeans",
+    generator: torch.Generator | None = None,
+    max_iters: int = 100,
+    tol: float = 1e-4,
+    reg_covar: float = 1e-6,
+    mesh=None,
+    prefetch: int = 0,
+    ckpt_dir: str | None = None,
+    ckpt_every: int = 5,
+    kernel: str = "xla",
+    covariance_type: str = "diag",
+    sample_weight_batches=None,
+    reduce="per_batch",
+    device=None,
+) -> GMMResult:
+    """Exact streamed EM over a re-iterable stream of (B, d) batches: one
+    full pass per EM iteration, the E-step stats summed over the batches
+    (the JAX version's contract; see `models/streaming.py` for the stream,
+    the mesh and `reduce`).
+
+    The means come from `init` ('kmeans': a short K-Means fit, as
+    gmm_fit; any resolve_init spec; or an explicit (K, d) array), the
+    variances and weights from the hard assignment to them, all on the
+    FIRST batch (rank 0's, broadcast, under a mesh). The log-likelihood
+    and the M-step normalize by the stream's row count (by Σw when
+    weighted). kernel='pallas' runs B9 for diag and spherical, unweighted
+    and single-device. ckpt_dir is not ported (ROADMAP.md Queue A,
+    A7(b)). Returns a GMMResult with `comms`."""
+    from tdc_tpu_torch.models import streaming as st
+    from tdc_tpu_torch.parallel import reduce as reduce_lib
+
+    if covariance_type not in COVARIANCE_TYPES:
+        raise ValueError(
+            f"covariance_type must be one of {COVARIANCE_TYPES}, "
+            f"got {covariance_type!r}")
+    weighted = sample_weight_batches is not None
+    strategy = reduce_lib.resolve_reduce(reduce)
+    st._refuse_unported("streamed_gmm_fit", ckpt_dir=ckpt_dir,
+                        strategy=strategy)
+    dev = resolve_device(device)
+    if kernel.startswith("auto"):
+        from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
+
+        kernel = resolve_kernel(
+            kernel, k=k, d=d, device=dev, model="gmm",
+            label="streamed_gmm_fit",
+            ineligible=(
+                "the fused E-step is diag/spherical, unweighted, "
+                "single-device only"
+                if (covariance_type not in ("diag", "spherical")
+                    or weighted or mesh is not None) else None))
+    if kernel not in ("xla", "pallas"):
+        raise ValueError(f"unknown kernel {kernel!r} (use 'xla' or 'pallas')")
+    if kernel == "pallas" and mesh is not None:
+        raise ValueError(
+            "streamed kernel='pallas' supports single-device streams only")
+    if kernel == "pallas" and covariance_type not in ("diag", "spherical"):
+        raise ValueError(
+            "streamed kernel='pallas' supports covariance_type "
+            "'diag'/'spherical' only (spherical runs the diag kernel with "
+            "the scalar variance broadcast)")
+    if kernel == "pallas" and weighted:
+        raise ValueError(
+            "streamed kernel='pallas' supports unweighted streams only "
+            "(the fused E-step kernel has no weight input)")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    stream = st._weighted_stream(batches, sample_weight_batches)
+    # Seeding moments stay unweighted (an initialization heuristic).
+    first, _, first_rows = st._first_batch(stream, d, weighted, dev)
+    first = first.float()
+    if isinstance(init, str) and init == "kmeans":
+        means = kmeans_fit(first, k, init="kmeans++", generator=generator,
+                           max_iters=10, tol=1e-3, n_init=3,
+                           device=dev).centroids
+    else:
+        means = resolve_init(first, k, init, generator)
+    # A copy: first_k's rows are a view that would keep the whole first
+    # batch on the device for the fit.
+    means = means.to(torch.float32).clone()
+    if means.shape != (k, d):
+        raise ValueError(f"init means shape {tuple(means.shape)} != "
+                         f"{(k, d)}")
+    variances, weights = _moments_from_hard_assign(first, means, reg_covar)
+    variances = _diag_to_cov(variances, weights, covariance_type)
+    del first
+    if mesh is not None:
+        # First-batch draws may differ per rank: rank 0's start EM.
+        from tdc_tpu_torch.parallel.mesh import replicate
+
+        means, variances, weights = (replicate(t.contiguous(), mesh)
+                                     for t in (means, variances, weights))
+    st._check_equal_local_rows(first_rows, mesh, dev)
+    stats_fn = (gmm_stats_for(k, d, label="streamed_gmm_fit")
+                if kernel == "pallas" else None)
+
+    def local(xb, wb, params):
+        if wb is not None:
+            return _batch_gmm_stats_weighted(xb, wb, *params,
+                                             covariance_type)
+        return _batch_gmm_stats(xb, *params, kernel, covariance_type,
+                                stats_fn)
+
+    machine = st._Pass(
+        stream, d=d, mesh=mesh, device=dev, prefetch=prefetch,
+        weighted=weighted, strategy=strategy,
+        shapes=_gmm_shapes(k, d, covariance_type), local=local,
+        correct=lambda s, n, p, dt: _gmm_pass_correction(
+            s, *p, n, covariance_type))
+
+    def full_pass(params):
+        acc, rows = machine.run(params)
+        # Weighted: Σw == Σ_k nk (Σ_k r = 1 per unit weight); the floor
+        # guards only against division by zero.
+        norm = (max(float(acc.nk.sum()), 1e-12) if weighted
+                else max(rows, 1))
+        return acc, norm
+
+    prev_ll = ll = -float("inf")
+    n_iter, converged = 0, False
+    for n_iter in range(1, int(max_iters) + 1):
+        acc, n_rows = full_pass((means, variances, weights))
+        ll = float(acc.ll_sum) / n_rows
+        means, variances, weights = _m_step_t(acc.nk, acc.sx, acc.sxx,
+                                              n_rows, reg_covar,
+                                              covariance_type)
+        if n_iter > 1 and ll - prev_ll <= tol:
+            converged = True
+            break
+        prev_ll = ll
+    # The log-likelihood of the RETURNED parameters.
+    acc, n_rows = full_pass((means, variances, weights))
+    final_ll = float(acc.ll_sum) / n_rows
+    return GMMResult(
+        means=means, variances=variances, weights=weights, n_iter=n_iter,
+        log_likelihood=torch.tensor(final_ll, dtype=torch.float32,
+                                    device=dev),
+        converged=converged, n_iter_run=n_iter,
+        covariance_type=covariance_type, comms=machine.report())

@@ -66,6 +66,8 @@ class KMeansResult(NamedTuple):
     history: object = None
     # Iterations executed by THIS fit call (None = same as n_iter).
     n_iter_run: object = None
+    # The streamed fits' parallel.reduce.CommsReport (None in memory).
+    comms: object = None
 
 
 def _normalize(c: torch.Tensor) -> torch.Tensor:

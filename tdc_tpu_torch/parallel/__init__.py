@@ -1,6 +1,7 @@
 """Multi-GPU runs on torch.distributed (counterpart: tdc_tpu/parallel):
-process groups, the grid of ranks, data-parallel stats and the K-sharded
-K-Means and fuzzy towers (`parallel.sharded_k`)."""
+process groups, the grid of ranks, data-parallel stats, the reduce
+strategies of the streamed fits and the K-sharded K-Means and fuzzy
+towers (`parallel.sharded_k`)."""
 
 from tdc_tpu_torch.parallel.collectives import (
     distributed_fuzzy_stats,
@@ -11,6 +12,12 @@ from tdc_tpu_torch.parallel.mesh import (
     make_mesh,
     replicate,
     shard_points,
+)
+from tdc_tpu_torch.parallel.reduce import (
+    GLOBAL_COMMS,
+    CommsReport,
+    ReduceStrategy,
+    resolve_reduce,
 )
 from tdc_tpu_torch.parallel.multihost import (
     initialize_distributed,
@@ -25,8 +32,10 @@ from tdc_tpu_torch.parallel.sharded_k import (
     sharded_assign,
 )
 
-__all__ = ["Mesh", "distributed_fuzzy_stats", "distributed_lloyd_stats",
+__all__ = ["GLOBAL_COMMS", "CommsReport", "Mesh", "ReduceStrategy",
+           "distributed_fuzzy_stats", "distributed_lloyd_stats",
            "fuzzy_fit_sharded", "initialize_distributed",
            "initialize_from_env", "kmeans_fit_sharded", "make_mesh",
            "make_mesh_2d", "make_sharded_lloyd_step", "make_sharded_stats",
-           "replicate", "shard_points", "sharded_assign"]
+           "replicate", "resolve_reduce", "shard_points",
+           "sharded_assign"]

@@ -42,6 +42,9 @@ assembled by an all_reduce of a zero (K, d) buffer in which each model
 shard fills its own rows. The collectives are all_reduce and broadcast
 only, which gloo takes on CUDA tensors.
 
+`padding_correction` is the exact zero-row correction the streamed fits
+apply where a rank's slice of a batch is padded (`models/streaming.py`).
+
 Not ported: the streamed towers, the GMM tower, coarse and bounded
 assignment and the compressed gathers (ROADMAP.md Queue A, A7, A9, A10).
 """
@@ -245,6 +248,22 @@ def sum_sq(x: torch.Tensor) -> torch.Tensor:
     once per fit and passed to the sharded step as `x2sum`."""
     xf = x.float()
     return (xf * xf).sum()
+
+
+def padding_correction(counts: torch.Tensor, sse: torch.Tensor,
+                       centroids: torch.Tensor, n_pad):
+    """Remove the exact contribution of `n_pad` zero-padding rows from
+    Lloyd stats: each lands on the argmin-‖c‖² cluster (the smallest
+    index on ties) with zero Σx, one count and ‖c_j‖² of SSE. Returns
+    (counts, sse); `centroids` are those the rows were scored against
+    (cast to the batch dtype on the kernel routes)."""
+    c = centroids.float()
+    c2 = (c * c).sum(dim=-1)
+    j = torch.argmin(c2)
+    n_pad = torch.as_tensor(n_pad, dtype=torch.float32, device=c.device)
+    counts = counts.clone()
+    counts[j] -= n_pad
+    return counts, sse - n_pad * c2[j]
 
 
 def make_sharded_lloyd_step(mesh: Mesh, kernel: str = "xla",

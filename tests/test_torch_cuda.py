@@ -80,7 +80,15 @@ within 1e-5 of Σ|x| against f64 sums by the kernel's own labels, SSE
 within rtol 1e-5, two runs bitwise equal; its stream-only path reads
 every column once (Σ‖x‖² within rtol 1e-5); copies of a centroid across
 its groups of 4 take no columns; columns on centroids and past the f32
-range take the exact path and the smallest index."""
+range take the exact path and the smallest index. The streamed fits
+(K-Means on B1, Fuzzy C-Means on B6, diag GMM on B9, 7 batches with a
+ragged last one) against the same streamed fits on the CPU: equal n_iter
+and converged, centroids within 1e-4, the cost within rtol 1e-5, one
+launch per batch of each pass. A real out-of-memory error in
+`oom_adaptive`'s first attempt: the retry, at twice the batches, finds
+memory_allocated() at its level before the fit. A features-layout fit on
+B10's tile form (K=17, d=8: K·(d+1) = 153) against the CPU fit: equal
+n_iter and converged, centroids within 1e-4."""
 
 import pytest
 import torch
@@ -1070,3 +1078,80 @@ def test_b10_columns_on_centroids_take_the_exact_path(gen, k, d, dtype):
     assert torch.equal(lab[on].long(), want)
     if k > 2:
         assert st.counts[k - 1] == 0
+
+
+# The streamed fits on the card against the same fits on the CPU (the
+# kernels' plain versions), 7 batches with a ragged last one, from the
+# same explicit init: equal n_iter and converged, centroids (means) within
+# 1e-4, the cost within rtol 1e-5; each kernel launches once per batch of
+# each pass.
+def test_streamed_fits_on_the_card_match_the_cpu(gen):
+    from tdc_tpu_torch.data import NpzStream
+    from tdc_tpu_torch.models import streaming as tst
+
+    x, c = _data(gen, 7000, 37, 19)
+    init = (c + 0.3 * torch.randn(c.shape, generator=gen,
+                                  device="cuda")).cpu()
+    host = x.cpu().numpy()
+    cases = (
+        (tst.streamed_kmeans_fit, lk.lloyd_stats_fused, {}, "sse"),
+        (tst.streamed_fuzzy_fit, fk.fuzzy_stats_fused, {"m": 2.0},
+         "objective"),
+        (tgmm.streamed_gmm_fit, gk.gmm_stats_fused,
+         {"covariance_type": "diag"}, "log_likelihood"),
+    )
+    for fit, wrapper, kw, cost in cases:
+        before = wrapper.launches
+        a = fit(NpzStream(host, 1100), 37, 19, init=init, max_iters=30,
+                tol=1e-4, kernel="pallas", **kw)
+        assert wrapper.launches == before + 7 * a.comms.passes
+        b = fit(NpzStream(host, 1100), 37, 19, init=init, max_iters=30,
+                tol=1e-4, kernel="pallas", device="cpu", **kw)
+        assert (a.n_iter, a.converged) == (b.n_iter, b.converged)
+        ca = a.means if hasattr(a, "means") else a.centroids
+        cb = b.means if hasattr(b, "means") else b.centroids
+        torch.testing.assert_close(ca.cpu(), cb, rtol=0.0, atol=1e-4)
+        torch.testing.assert_close(getattr(a, cost).cpu().float(),
+                                   getattr(b, cost).float(), rtol=1e-5,
+                                   atol=0.0)
+
+
+def test_oom_retry_frees_the_failed_attempt(gen):
+    """A real CUDA out-of-memory error in the first attempt: the retry
+    runs with twice the batches and finds the card's allocated memory
+    back at its level before the fit."""
+    from tdc_tpu_torch.data.batching import oom_adaptive
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    seen = []
+
+    def run(num_batches):
+        held = torch.empty(1 << 28, device="cuda")  # 1 GiB of leftovers
+        seen.append(torch.cuda.memory_allocated())
+        if num_batches == 1:
+            total = torch.cuda.get_device_properties(0).total_memory
+            torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+        del held
+        return num_batches
+
+    assert oom_adaptive(run) == (2, 2)
+    assert seen[1] == seen[0]
+    assert torch.cuda.memory_allocated() == start
+
+
+# ROADMAP.md "To probe": B10's tile form (K·(d+1) > 144) rounds its
+# per-CTA sums in f32. A features-layout fit on the tile form against the
+# same fit on the CPU: equal n_iter and converged, centroids within 1e-4.
+def test_tall_fit_on_the_tile_form_matches_the_plain_fit(gen):
+    xt, c = _tall(gen, 200000, 17, 8)
+    init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
+    before = tt.lloyd_stats_tall.launches
+    a = tkm.kmeans_fit(xt, 17, init=init, max_iters=50, tol=1e-4,
+                       layout="features")
+    assert tt.lloyd_stats_tall.launches == before + a.n_iter + 1
+    b = tkm.kmeans_fit(xt.cpu(), 17, init=init.cpu(), max_iters=50,
+                       tol=1e-4, layout="features", device="cpu")
+    assert (a.n_iter, a.converged) == (b.n_iter, b.converged)
+    torch.testing.assert_close(a.centroids.cpu(), b.centroids, rtol=0.0,
+                               atol=1e-4)
