@@ -180,7 +180,10 @@ failure (nothing is caught):
    against the in-memory fit on the same points from the same init
    (--init=first_k): [stream_route] at BASELINE.json config 3's shape
    (N=10^7, d=128, K=1024, f32, 8 batches, --kernel=pallas, 10
-   iterations): n_iter and converged equal, centroids within 1e-4, B1
+   iterations): n_iter and converged equal, every iteration's SSE within
+   1e-6 of the other's (10 steps carry near-tie label flips into the
+   centroids: the rows they flip are printed), centroids within 1e-4
+   after one step and after a fit from seeds near the blobs' means, B1
    launching batches x passes per fit (the passes read from the fit's
    `comms`) and nothing else; computation seconds, pt·iter/s, and a pass
    split into its copies alone and B1 alone. [stream_fuzzy] (m=2, B6) and
@@ -188,8 +191,9 @@ failure (nothing is caught):
    streamed fit's first-batch start) on the same points, 4 iterations.
    [stream_ref]: the reference notebook's job (N cut from 5*10^8 to 10^8,
    d=2, K=3, 8 batches), exact and --mean_combine. [stream_dp]: two ranks
-   (gloo on the card's tensors), 4 batches, --reduce=per_batch and
-   per_pass, against one rank's streamed fit. [oom]: a spawned process
+   (gloo on the card's tensors), 4 batches, one Lloyd step,
+   --reduce=per_batch and per_pass, against one rank's streamed fit
+   (n_iter, SSE, centroids within 1e-4). [oom]: a spawned process
    caps its own allocator below the points' bytes
    (torch.cuda.set_per_process_memory_fraction) and runs the CLI in
    memory on the stream route's points from a .npy: exit 0, num_batches
@@ -417,15 +421,23 @@ REF_ARGS = [
     "--K=3", "--kernel=pallas", "--n_max_iters=20", "--tol=1e-4",
     "--seed=0", "--init=first_k",
 ]
+# The two-rank fits take one Lloyd step (and the scoring pass): from
+# first_k seeds a later step flips near-tie labels between the ranks' sum
+# order and one rank's (5 steps ended 0.0138 apart in a centroid with the
+# SSE equal), and the centroids are held to one rank's within 1e-4.
 STREAM_DP_ARGS = [
     "--method_name=distributedKMeans", f"--n_obs={(1 << 22) + 3}",
-    "--n_dim=128", "--K=1024", "--kernel=pallas", "--n_max_iters=10",
+    "--n_dim=128", "--K=1024", "--kernel=pallas", "--n_max_iters=1",
     "--tol=-1", "--seed=0", "--init=first_k", "--num_batches=4",
 ]
 # The [oom] child's allocator may hold this share of the points' bytes;
 # its fits run OOM_ITERS iterations, to keep the phase short.
 OOM_SHARE = 0.5
-OOM_ITERS = 2
+OOM_ITERS = 1
+# The 10-step streamed and in-memory stream route fits: each iteration's
+# SSE within this share of the other's (measured up to 8.3e-8 on an H100:
+# the f32 sums' order, and the near-tie label flips it carries).
+STEP_SSE_TOL = 1e-6
 
 
 def smi() -> str:
@@ -1932,12 +1944,20 @@ def _rank_env(rank, world, port) -> None:
 def _rank_cli(rank, world, port, args, queue) -> None:
     """One rank of a multi-GPU CLI run, launched as torchrun would: the
     CLI joins the process group from the environment. Sends back (rank,
-    exit code, launch counts) or (rank, -1, the traceback)."""
+    exit code, (launch counts, rank 0's centroids of the computation fit
+    as numpy, or None)) or (rank, -1, the traceback)."""
     _rank_env(rank, world, port)
     try:
         reset_counts()
-        rc = cli.main(args)
-        queue.put((rank, rc, counts()))
+        with Captured("kmeans_fit", "streamed_kmeans_fit") as cap:
+            rc = cli.main(args)
+        seen = counts()
+        # numpy, not a tensor: torch would share a CPU tensor's storage
+        # by file descriptor, gone once the rank exits.
+        fit = cap.last.get("streamed_kmeans_fit", cap.last.get("kmeans_fit"))
+        c = (fit.centroids.cpu().numpy() if rank == 0 and fit is not None
+             else None)
+        queue.put((rank, rc, (seen, c)))
     except BaseException:
         queue.put((rank, -1, traceback.format_exc()))
 
@@ -2021,13 +2041,15 @@ def spawn_ranks(target, args, name) -> list:
     return [got[r][1] for r in range(RANKS)]
 
 
-def run_ranks(args, tmp, name) -> tuple[dict, list]:
+def run_ranks(args, tmp, name) -> tuple[dict, list, object]:
     """The CLI on RANKS spawned ranks, counts reset in each just before;
-    returns (rank 0's CSV row, each rank's launch counts). Every rank must
+    returns (rank 0's CSV row, each rank's launch counts, rank 0's
+    centroids of its K-Means computation fit or None). Every rank must
     exit 0 and the log must hold one row: rank 0's."""
     log = os.path.join(tmp, f"{name}.csv")
     t0 = time.perf_counter()
-    seen = spawn_ranks(_rank_cli, [*args, f"--log_file={log}"], name)
+    got = spawn_ranks(_rank_cli, [*args, f"--log_file={log}"], name)
+    seen = [g[0] for g in got]
     with open(log, newline="") as f:
         rows = list(csv.DictReader(f))
     require(len(rows) == 1, f"{name}: {len(rows)} rows, expected rank 0's")
@@ -2038,7 +2060,7 @@ def run_ranks(args, tmp, name) -> tuple[dict, list]:
             and row["num_GPUs"] == str(RANKS), f"{name}: row {row}")
     require(math.isfinite(float(row["sse"])) and float(row["sse"]) >= 0.0,
             f"{name}: cost column {row['sse']}")
-    return row, seen
+    return row, seen, got[0][1]
 
 
 def phase_fused_gather_step() -> int:
@@ -2171,35 +2193,48 @@ def check_centroids(name, a, b, tol=1e-4) -> float:
     return err
 
 
-def copy_pass_s(host, rows) -> tuple[float, list]:
-    """Seconds of one pass of the streamed batches' copies to the card
-    alone (the host's clock; each copy is synchronous), and the copies."""
+def pass_split(host, rows, c) -> dict:
+    """One pass over the streamed batches split in two: each batch's copy
+    to the card alone (the host's clock; the copy is synchronous), and B1
+    on it alone (CUDA events), with `c` the fit's centroids; one batch on
+    the card at a time, as in the fit. Launches here are not the main
+    path's."""
     from tdc_tpu_torch.data import NpzStream
     from tdc_tpu_torch.models.streaming import _device_rows
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dev = [_device_rows(b, b.shape[0], "cuda")
-           for b in NpzStream(host, rows)()]
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, dev
-
-
-def pass_split(host, rows, c, npy) -> dict:
-    """One pass over the streamed batches split in two: the batches'
-    copies to the card alone, from the host array and from the same
-    points memory-mapped from `npy` (twice: the first pass reads the page
-    cache into the mapping), and B1 on the copied batches alone (CUDA
-    events), with `c` the fit's centroids. Launches here are not the main
-    path's."""
-    copy_s, dev = copy_pass_s(host, rows)
-    kernel_ms = sum(median_ms(lambda xb=xb: lk.lloyd_stats_fused(xb, c), 3)
-                    for xb in dev)
-    del dev
-    mapped = np.load(npy, mmap_mode="r")
-    mmap_s = [copy_pass_s(mapped, rows)[0] for _ in range(2)]
+    copy_s = kernel_ms = 0.0
+    for b in NpzStream(host, rows)():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xb = _device_rows(b, b.shape[0], "cuda")
+        torch.cuda.synchronize()
+        copy_s += time.perf_counter() - t0
+        kernel_ms += median_ms(lambda: lk.lloyd_stats_fused(xb, c), 3)
+        del xb
     return dict(copy_s=copy_s, kernel_ms=kernel_ms,
-                copy_gb_s=host.nbytes / copy_s / 1e9, mmap_s=mmap_s)
+                copy_gb_s=host.nbytes / copy_s / 1e9)
+
+
+def label_flips(x, a, b, chunk=1 << 20) -> tuple[int, float]:
+    """Rows of `x` whose nearest centroid (plain f32) differs between the
+    centroid sets `a` and `b`, and among them the largest gap between
+    their two labels' squared distances under `a`, as a share of
+    ‖x‖² + ‖c‖² (the share TIE_TOL bounds for a kernel's own ties)."""
+    flips, worst = 0, 0.0
+    for s in range(0, x.shape[0], chunk):
+        xb = x[s:s + chunk]
+        la = torch.cdist(xb, a).argmin(1)
+        lb = torch.cdist(xb, b).argmin(1)
+        diff = la != lb
+        if not bool(diff.any()):
+            continue
+        xd = xb[diff]
+        da = ((xd - a[la[diff]]) ** 2).sum(1)
+        db = ((xd - a[lb[diff]]) ** 2).sum(1)
+        scale = (xd ** 2).sum(1) + (a[la[diff]] ** 2).sum(1)
+        flips += int(diff.sum())
+        worst = max(worst, float(((db - da).abs() / scale).max()))
+    return flips, worst
 
 
 def stream_line(name, row, res, split=None) -> str:
@@ -2211,9 +2246,7 @@ def stream_line(name, row, res, split=None) -> str:
     if split is not None:
         out += (f"; copies alone {split['copy_s']:.4f} s a pass "
                 f"({split['copy_gb_s']:.2f} GB/s, "
-                f"{split['copy_s'] / (comp / passes):.1%} of the pass; from "
-                f"a memory-mapped .npy {split['mmap_s'][0]:.4f} s, then "
-                f"{split['mmap_s'][1]:.4f} s), "
+                f"{split['copy_s'] / (comp / passes):.1%} of the pass), "
                 f"kernel alone {split['kernel_ms']:.3f} ms a pass")
     return out
 
@@ -2313,9 +2346,11 @@ def phase_streams(tmp) -> dict:
     # first_k seeds (several in one blob, whose boundary then cuts it) the
     # two fits start alike, but 10 Lloyd steps at 10^7 points carry the
     # f32 summation-order difference into label flips at near-ties: the
-    # centroid gap is printed with the per-iteration SSE, and the
-    # centroids are held (1e-4) after one step from those seeds and after
-    # 10 steps from seeds near the blobs' means, through the functions.
+    # CLI fits are held to each other's SSE at every iteration
+    # (STEP_SSE_TOL), and the final centroids' gap is printed with the
+    # rows whose label it flips; the centroids are held (1e-4) after one
+    # step from those seeds and after 10 steps from seeds near the blobs'
+    # means, through the functions.
     hist = {key: os.path.join(tmp, f"stream_{key}_history.csv")
             for key in ("mem", "st")}
     row_m, seen, fits = run_cli_captured(
@@ -2342,23 +2377,33 @@ def phase_streams(tmp) -> dict:
                                 f"{row_m['sse']} in memory")
     h_m, h_s = (np.loadtxt(hist[key], delimiter=",", skiprows=1)
                 for key in ("mem", "st"))
-    gap = (st.centroids - mem.centroids).abs().max().item()
+    steps = np.abs(h_s[:, 1] / h_m[:, 1] - 1)
+    require(h_s.shape == h_m.shape == (10, 3)
+            and float(steps.max()) <= STEP_SSE_TOL,
+            f"stream_route: per-iteration sse rel {steps.tolist()} "
+            f"(tolerance {STEP_SSE_TOL})")
     host = stream_points(STREAM_N, STREAM_D, STREAM_K)
     rows = -(-STREAM_N // STREAM_BATCHES)
     npy = os.path.join(tmp, "stream_points.npy")
     np.save(npy, host)
-    split = pass_split(host, rows, st.centroids, npy)
+    split = pass_split(host, rows, st.centroids)
     print(stream_line("stream_route", row, st, split) + f"; in memory "
           f"{row_m['computation_time']} s; n_iter {st.n_iter} == "
           f"{mem.n_iter}, sse {row['sse']} vs {row_m['sse']} (rel "
           f"{sse_rel:.3g}); per-iteration sse rel "
-          f"{np.abs(h_s[:, 1] / h_m[:, 1] - 1).round(10).tolist()}; "
-          f"centroid gap after 10 steps {gap:.4g}", flush=True)
+          f"{steps.round(10).tolist()} (tolerance {STEP_SSE_TOL})",
+          flush=True)
     from tdc_tpu_torch.data import NpzStream
     from tdc_tpu_torch.models import kmeans_fit as fit_mem
     from tdc_tpu_torch.models import streamed_kmeans_fit as fit_st
 
     x = torch.from_numpy(host).cuda()
+    gap = (st.centroids - mem.centroids).abs().max().item()
+    flips, worst = label_flips(x, mem.centroids, st.centroids)
+    print(f"[stream_route] after 10 steps the streamed and in-memory "
+          f"centroids differ by at most {gap:.4g}; {flips} of {STREAM_N} "
+          f"rows change label between them, the largest gap between their "
+          f"two labels' distances {worst:.3g} of ‖x‖² + ‖c‖²", flush=True)
     _, y = make_blobs(1, STREAM_N, STREAM_D, STREAM_K, device="cuda")
     means = torch.zeros((STREAM_K, STREAM_D), device="cuda").index_add_(
         0, y.long(), x) / torch.bincount(y.long(), minlength=STREAM_K
@@ -2462,10 +2507,11 @@ def phase_streams(tmp) -> dict:
     one, seen, fits = run_cli_captured(STREAM_DP_ARGS, tmp, "stream_dp_one",
                                        "streamed_kmeans_fit")
     passes = fits["streamed_kmeans_fit"].comms.passes
+    one_c = fits["streamed_kmeans_fit"].centroids.cpu()
     for reduce in ("per_batch", "per_pass"):
         name = f"stream_dp_{reduce}"
-        row, seen = run_ranks([*STREAM_DP_ARGS, f"--n_GPUs={RANKS}",
-                               f"--reduce={reduce}"], tmp, name)
+        row, seen, c = run_ranks([*STREAM_DP_ARGS, f"--n_GPUs={RANKS}",
+                                  f"--reduce={reduce}"], tmp, name)
         for rank, per_rank in enumerate(seen):
             require_launches(f"{name}, rank {rank}", per_rank,
                              B1=2 * 4 * passes)
@@ -2473,10 +2519,12 @@ def phase_streams(tmp) -> dict:
         require(row["n_iter"] == one["n_iter"] and rel <= REL_TOL,
                 f"{name}: n_iter {row['n_iter']}, sse {row['sse']} vs one "
                 f"rank's {one['n_iter']}, {one['sse']}")
+        err = check_centroids(name, torch.from_numpy(c), one_c)
         print(f"[{name}] against one rank: n_iter {row['n_iter']} == "
               f"{one['n_iter']}, sse {row['sse']} vs {one['sse']} (rel "
-              f"{rel:.3g}); computation_time {row['computation_time']} s "
-              f"(one rank {one['computation_time']} s)", flush=True)
+              f"{rel:.3g}), max centroid diff {err:.3g}; computation_time "
+              f"{row['computation_time']} s (one rank "
+              f"{one['computation_time']} s)", flush=True)
     # [oom]: the stream route's points from the file.
     numbers["oom_row"] = phase_oom(npy, tmp,
                                    STREAM_N * STREAM_D * 4)
@@ -2630,7 +2678,7 @@ def main() -> int:
         # the same fit in this process on a 1x1 grid from the same init
         # (the CLI's rank 0 draws it on the first 65,536 of its points,
         # make_blobs(seed + 1), with a generator seeded with the seed).
-        row, seen = run_ranks(SHARD_ARGS, tmp, "sharded_fuzzy_route")
+        row, seen, _ = run_ranks(SHARD_ARGS, tmp, "sharded_fuzzy_route")
         n_iter = int(row["n_iter"])
         require(n_iter == 4, f"sharded fuzzy route ran {n_iter} iterations")
         for rank, per_rank in enumerate(seen):
@@ -2658,7 +2706,7 @@ def main() -> int:
         phase_sharded_kmeans()
         # The data-parallel fused route: B1 on each rank's half of the
         # rows, against the one-GPU fused route's row.
-        row, seen = run_ranks(DP_ARGS, tmp, "dp_fused_route")
+        row, seen, _ = run_ranks(DP_ARGS, tmp, "dp_fused_route")
         n_iter = int(row["n_iter"])
         for rank, per_rank in enumerate(seen):
             require_launches(f"dp fused route, rank {rank}", per_rank,

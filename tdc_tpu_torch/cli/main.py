@@ -472,14 +472,20 @@ def run_experiment(args) -> dict:
 
     fuzzy = args.method_name == "distributedFuzzyCMeans"
     gmm = args.method_name == "gaussianMixture"
+    # The points live only in `state` from here: a streamed retry after an
+    # out-of-memory in-memory fit must be able to drop every copy on the
+    # card.
     state = {"x": x, "features": features, "device_x": None,
              "stream": None}
+    del x
 
     def host_points():
-        """The points on the host, for a streamed fit: a copy on the card
-        comes back (feature-major ones sample-major) and is dropped, so a
-        streamed retry after an out-of-memory in-memory fit does not keep
-        the whole dataset on the card."""
+        """The points on the host, for a streamed fit. The in-memory fits'
+        copy on the card is dropped, and points that were on the card come
+        back (feature-major ones sample-major), so a streamed fit, a retry
+        after an out-of-memory in-memory fit included, keeps no copy of the
+        whole dataset on the card."""
+        state["device_x"] = None
         xx = state["x"]
         if isinstance(xx, torch.Tensor) and xx.device.type != "cpu":
             xx = xx.cpu()
@@ -487,7 +493,6 @@ def run_experiment(args) -> dict:
                 xx = xx.T.contiguous()
                 state["features"] = False
             state["x"] = xx
-            state["device_x"] = None
         return xx
 
     def device_points():

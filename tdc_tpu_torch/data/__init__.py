@@ -1,20 +1,17 @@
 """Dataset generation, loading, streaming and device-memory-aware
 batching (counterpart: tdc_tpu/data)."""
 
-from tdc_tpu_torch.data.batching import auto_batch_size, oom_adaptive
+from tdc_tpu_torch.data.batching import oom_adaptive
 from tdc_tpu_torch.data.loader import (
     FEATURE_MAJOR_SUFFIX,
     NpzStream,
-    batch_iterator,
     crc_sidecar_path,
     load_points,
     load_points_feature_major,
     to_feature_major,
-    write_crc_sidecar,
 )
 from tdc_tpu_torch.data.synthetic import make_blobs
 
-__all__ = ["FEATURE_MAJOR_SUFFIX", "NpzStream", "auto_batch_size",
-           "batch_iterator", "crc_sidecar_path", "load_points",
-           "load_points_feature_major", "make_blobs", "oom_adaptive",
-           "to_feature_major", "write_crc_sidecar"]
+__all__ = ["FEATURE_MAJOR_SUFFIX", "NpzStream", "crc_sidecar_path",
+           "load_points", "load_points_feature_major", "make_blobs",
+           "oom_adaptive", "to_feature_major"]

@@ -1,14 +1,15 @@
-"""Device-memory-aware batch sizing and the OOM-adaptive retry
-(counterpart: tdc_tpu/data/batching.py).
+"""The card's memory and the OOM-adaptive retry (counterpart:
+tdc_tpu/data/batching.py, its `device_hbm_bytes`, `is_oom_error` and
+`oom_adaptive`).
 
-Reference counterparts: the hand-tuned per-GPU-count max_size table
-(New-Distributed-KMeans.ipynb#cell13) and the OOM-halving loop
-(`except ResourceExhaustedError: num_batches *= 2`,
-scripts/distribuitedClustering.py:357-360). The initial size is computed
-from the card's memory and the working-set model of the stats routes,
-and the retry loop doubles num_batches on a CUDA out-of-memory error and
-on nothing else: a kernel that fails to build or launch raises as it is,
-never retried on smaller batches.
+Reference counterpart: the OOM-halving loop (`except
+ResourceExhaustedError: num_batches *= 2`,
+scripts/distribuitedClustering.py:357-360). The retry loop doubles
+num_batches on a CUDA out-of-memory error and on nothing else: a kernel
+that fails to build or launch raises as it is, never retried on smaller
+batches. The JAX package's working-set batch sizing (`auto_batch_size`)
+serves its mini-batch fit and its device cache, which are not ported
+(ROADMAP.md Queue A, A8b and A7(c)).
 """
 
 from __future__ import annotations
@@ -20,8 +21,6 @@ import torch
 
 T = TypeVar("T")
 
-_SAFETY_FRACTION = 0.6
-
 
 def device_hbm_bytes(device=None) -> int:
     """The card's total memory (`torch.cuda.mem_get_info`). A CPU device
@@ -29,38 +28,9 @@ def device_hbm_bytes(device=None) -> int:
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda":
         raise ValueError(
-            f"device_hbm_bytes: {dev} has no device memory; batch sizing "
-            "applies to a CUDA device")
+            f"device_hbm_bytes: {dev} has no device memory; it applies "
+            "to a CUDA device")
     return int(torch.cuda.mem_get_info(dev)[1])
-
-
-def working_set_row_bytes(n_dim: int, k: int, *, itemsize: int = 4,
-                          kernel: str = "xla") -> int:
-    """Per-point working-set bytes of one stats pass: the plain matmul
-    form budgets the (N, K) distance row and the f32 one-hot row per
-    point; the kernels ('pallas') keep no (N, K) buffer, so a row costs
-    its own bytes plus a label and a distance."""
-    if kernel == "pallas":
-        return itemsize * n_dim + 8
-    return itemsize * n_dim + 4 * k + 4 * k
-
-
-def hbm_budget_bytes(device=None) -> int:
-    """The per-device byte budget batch sizing works within: the safety
-    fraction of the card's memory."""
-    return int(_SAFETY_FRACTION * device_hbm_bytes(device))
-
-
-def auto_batch_size(n_dim: int, k: int, *, n_devices: int = 1,
-                    itemsize: int = 4, device=None, kernel: str = "xla",
-                    resident_bytes: int = 0) -> int:
-    """The most points per global batch that fit the per-device working
-    set: n_devices · (budget − resident_bytes) / row bytes, at least 1."""
-    bytes_per_row = working_set_row_bytes(n_dim, k, itemsize=itemsize,
-                                          kernel=kernel)
-    budget = hbm_budget_bytes(device) - resident_bytes
-    per_device = int(max(budget, 0) / bytes_per_row)
-    return max(per_device * n_devices, 1)
 
 
 def is_oom_error(e: BaseException) -> bool:

@@ -1,9 +1,9 @@
 """Dataset loading and streaming (counterpart: tdc_tpu/data/loader.py,
 the `load_points`, `_restore_bf16`, `load_points_feature_major`,
-`to_feature_major`, `batch_iterator` and `NpzStream` parts): the
-reference's .npz layout (keys 'X', 'Y'), plain .npy files and
-feature-major `*.fm.npy` files, bfloat16 included. The files are the JAX
-package's: each package reads the other's.
+`to_feature_major` and `NpzStream` parts): the reference's .npz layout
+(keys 'X', 'Y'), plain .npy files and feature-major `*.fm.npy` files,
+bfloat16 included. The files are the JAX package's: each package reads
+the other's.
 
 `NpzStream` is the streamed fits' batch source: a re-iterable stream of
 (B, d) host batches over a memory-mapped or in-memory array. Its CRC32
@@ -108,27 +108,9 @@ def to_feature_major(src_path: str, dst_path: str, *,
     return dst_path
 
 
-def batch_iterator(x, num_batches: int):
-    """Sequential contiguous batches with np.array_split semantics (the
-    reference's `np.array_split(x, num_batches)`): the first
-    n % num_batches batches take one row more."""
-    n = x.shape[0]
-    base, extra = divmod(n, num_batches)
-    start = 0
-    for i in range(num_batches):
-        size = base + (1 if i < extra else 0)
-        yield x[start:start + size]
-        start += size
-
-
 def crc_sidecar_path(data_path: str) -> str:
     """Conventional sidecar location next to a data file."""
     return data_path + CRC_SIDECAR_SUFFIX
-
-
-def write_crc_sidecar(x, batch_rows: int, path: str) -> str:
-    """Not ported: raises NotImplementedError naming ROADMAP.md A7(d)."""
-    raise NotImplementedError(_CRC_NOT_PORTED)
 
 
 class NpzStream:

@@ -34,9 +34,9 @@ the K-sharded fit (A9) has no entry point in the port yet.
 
 `streamed_gmm_fit` is the exact out-of-core EM (counterpart:
 `streamed_gmm_fit`, `_batch_gmm_stats[_weighted]`,
-`_gmm_zero_row_correction`, `_accumulate_gmm[_weighted]` and
-`_gmm_pass_correction`): one pass over a re-iterable stream of batches
-per EM iteration, the E-step stats summed over the batches, all four
+`_gmm_zero_row_correction` and `_gmm_pass_correction`; the JAX
+`_accumulate_gmm[_weighted]` are the pass's `_gmm_pass_fns`): one pass
+over a re-iterable stream of batches per EM iteration, the E-step stats summed over the batches, all four
 covariance types (B9 per batch for diag and spherical on 'pallas', the
 torch E-step otherwise), the streamed K-Means' pass machinery
 (`models/streaming.py`): rank slices padded and corrected under a mesh,
@@ -574,30 +574,20 @@ def _gmm_pass_correction(red: GMMStats, means, variances, weights, n_pad,
                     sxx=red.sxx)
 
 
-def _accumulate_gmm(acc: GMMStats, batch, means, variances, weights, n_pad,
-                    kernel: str = "xla", cov_type: str = "diag",
-                    stats_fn=None) -> GMMStats:
-    """Add one (possibly zero-padded) batch's EM stats and subtract the
-    padding's exact contribution."""
-    from tdc_tpu_torch.parallel.reduce import tree_add
+def _gmm_pass_fns(kernel: str, cov_type: str, stats_fn=None):
+    """(local, correct) of an EM pass (`models/streaming._Pass`), with the
+    parameters (means, variances, weights) as the pass's params: one
+    batch's E-step stats (weighted ones on the torch E-step, pad rows of
+    zero weight adding nothing), and the subtraction of n_pad zero rows
+    (`_gmm_pass_correction`)."""
 
-    s = _batch_gmm_stats(batch, means, variances, weights, kernel, cov_type,
-                         stats_fn)
-    if float(n_pad) > 0:
-        s = _gmm_pass_correction(s, means, variances, weights, n_pad,
-                                 cov_type)
-    return tree_add(acc, s)
+    def local(xb, wb, params):
+        if wb is not None:
+            return _batch_gmm_stats_weighted(xb, wb, *params, cov_type)
+        return _batch_gmm_stats(xb, *params, kernel, cov_type, stats_fn)
 
-
-def _accumulate_gmm_weighted(acc: GMMStats, batch, w, means, variances,
-                             weights, cov_type: str = "diag") -> GMMStats:
-    """Add one weighted batch's EM stats (pad rows carry zero weight: no
-    correction)."""
-    from tdc_tpu_torch.parallel.reduce import tree_add
-
-    return tree_add(acc, _batch_gmm_stats_weighted(batch, w, means,
-                                                   variances, weights,
-                                                   cov_type))
+    return local, (lambda s, n_pad, params, dtype: _gmm_pass_correction(
+        s, *params, n_pad, cov_type))
 
 
 def streamed_gmm_fit(
@@ -613,7 +603,7 @@ def streamed_gmm_fit(
     mesh=None,
     prefetch: int = 0,
     ckpt_dir: str | None = None,
-    ckpt_every: int = 5,
+    ckpt_every: int | None = None,
     kernel: str = "xla",
     covariance_type: str = "diag",
     sample_weight_batches=None,
@@ -631,8 +621,8 @@ def streamed_gmm_fit(
     FIRST batch (rank 0's, broadcast, under a mesh). The log-likelihood
     and the M-step normalize by the stream's row count (by Σw when
     weighted). kernel='pallas' runs B9 for diag and spherical, unweighted
-    and single-device. ckpt_dir is not ported (ROADMAP.md Queue A,
-    A7(b)). Returns a GMMResult with `comms`."""
+    and single-device. ckpt_dir and ckpt_every are not ported (ROADMAP.md
+    Queue A, A7(b)). Returns a GMMResult with `comms`."""
     from tdc_tpu_torch.models import streaming as st
     from tdc_tpu_torch.parallel import reduce as reduce_lib
 
@@ -643,7 +633,7 @@ def streamed_gmm_fit(
     weighted = sample_weight_batches is not None
     strategy = reduce_lib.resolve_reduce(reduce)
     st._refuse_unported("streamed_gmm_fit", ckpt_dir=ckpt_dir,
-                        strategy=strategy)
+                        ckpt_every=ckpt_every, strategy=strategy)
     dev = resolve_device(device)
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
@@ -698,22 +688,15 @@ def streamed_gmm_fit(
         means, variances, weights = (replicate(t.contiguous(), mesh)
                                      for t in (means, variances, weights))
     st._check_equal_local_rows(first_rows, mesh, dev)
-    stats_fn = (gmm_stats_for(k, d, label="streamed_gmm_fit")
-                if kernel == "pallas" else None)
-
-    def local(xb, wb, params):
-        if wb is not None:
-            return _batch_gmm_stats_weighted(xb, wb, *params,
-                                             covariance_type)
-        return _batch_gmm_stats(xb, *params, kernel, covariance_type,
-                                stats_fn)
-
+    local, correct = _gmm_pass_fns(
+        kernel, covariance_type,
+        gmm_stats_for(k, d, label="streamed_gmm_fit")
+        if kernel == "pallas" else None)
     machine = st._Pass(
         stream, d=d, mesh=mesh, device=dev, prefetch=prefetch,
         weighted=weighted, strategy=strategy,
         shapes=_gmm_shapes(k, d, covariance_type), local=local,
-        correct=lambda s, n, p, dt: _gmm_pass_correction(
-            s, *p, n, covariance_type))
+        correct=correct)
 
     def full_pass(params):
         acc, rows = machine.run(params)

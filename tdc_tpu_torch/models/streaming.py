@@ -1,6 +1,6 @@
 """Exact out-of-core Lloyd K-Means and Fuzzy C-Means over streamed
 batches (counterpart: tdc_tpu/models/streaming.py, the core:
-`_accumulate*`, `_history_array`, `_prefetched`, `_run_pass`,
+`_history_array`, `_prefetched`, `_run_pass`,
 `_prepare_batch`, `_check_equal_local_rows`, `streaming_fold`,
 `streamed_kmeans_fit`, `mean_combine_fit` and `streamed_fuzzy_fit`).
 
@@ -431,17 +431,18 @@ class _Pass:
             gathers=c.gathers)
 
 
-def _refuse_unported(label: str, *, ckpt_dir=None, ckpt_every_batches=None,
-                     ckpt_keep_last_n=None, residency="stream", ingest=None,
+def _refuse_unported(label: str, *, ckpt_dir=None, ckpt_every=None,
+                     ckpt_every_batches=None, ckpt_keep_last_n=None,
+                     residency="stream", ingest=None,
                      assign="exact", probe=None, bounds="hamerly",
                      strategy=None) -> None:
     """The streamed fits' options that are not ported, each naming its
     ROADMAP.md item."""
-    if (ckpt_dir is not None or ckpt_every_batches is not None
-            or ckpt_keep_last_n is not None):
+    if any(v is not None for v in (ckpt_dir, ckpt_every, ckpt_every_batches,
+                                   ckpt_keep_last_n)):
         raise _not_ported(
-            f"{label}: checkpoint/resume (ckpt_dir, ckpt_every_batches, "
-            "ckpt_keep_last_n)", "Queue A, A7(b)")
+            f"{label}: checkpoint/resume (ckpt_dir, ckpt_every, "
+            "ckpt_every_batches, ckpt_keep_last_n)", "Queue A, A7(b)")
     if residency not in RESIDENCY_MODES:
         raise ValueError(f"residency={residency!r}: use one of "
                          f"{RESIDENCY_MODES}")
@@ -585,31 +586,16 @@ def _batch_lloyd_stats(batch, w, centroids, spherical: bool,
     return route(batch, centroids, w)
 
 
-def _accumulate(acc: SufficientStats, batch: torch.Tensor, centroids,
-                n_pad, spherical: bool, kernel: str = "xla",
-                route: _LloydRoute | None = None) -> SufficientStats:
-    """Add one (possibly zero-padded) batch's Lloyd stats into `acc` and
-    subtract the padding's exact contribution (zero rows land on the
-    argmin-‖c‖² cluster with zero Σx and ‖c_j‖² of SSE each; spherical
+def _lloyd_pass_fns(spherical: bool, route: _LloydRoute, kernel: str):
+    """(local, correct) of a K-Means pass (`_Pass`): one batch's Lloyd
+    stats on `route` (weighted: pad rows carry zero weight and add
+    exactly nothing), and the subtraction of n_pad zero rows (each lands
+    on the argmin-‖c‖² cluster with zero Σx and ‖c_j‖² of SSE; spherical
     leaves zero rows unnormalized, with the same result)."""
-    route = route or _LloydRoute(*centroids.shape, kernel,
-                                 "streamed_kmeans_fit")
-    s = _batch_lloyd_stats(batch, None, centroids, spherical, route)
-    if float(n_pad) > 0:
-        s = _corrected_lloyd(s, n_pad, centroids, kernel, batch.dtype)
-    return reduce_lib.tree_add(acc, s)
-
-
-def _accumulate_weighted(acc: SufficientStats, batch, w, centroids,
-                         spherical: bool, kernel: str = "xla",
-                         route: _LloydRoute | None = None
-                         ) -> SufficientStats:
-    """Add one weighted batch's stats: pad rows carry zero weight, so
-    they add exactly nothing and need no correction."""
-    route = route or _LloydRoute(*centroids.shape, kernel,
-                                 "streamed_kmeans_fit")
-    return reduce_lib.tree_add(
-        acc, _batch_lloyd_stats(batch, w, centroids, spherical, route))
+    return (lambda xb, wb, c: _batch_lloyd_stats(xb, wb, c, spherical,
+                                                 route),
+            lambda s, n_pad, c, dtype: _corrected_lloyd(s, n_pad, c, kernel,
+                                                        dtype))
 
 
 def _check_kernel(kernel, *, weighted, mesh) -> None:
@@ -647,7 +633,7 @@ def streamed_kmeans_fit(
     spherical: bool = False,
     mesh=None,
     ckpt_dir: str | None = None,
-    ckpt_every: int = 5,
+    ckpt_every: int | None = None,
     ckpt_every_batches: int | None = None,
     ckpt_keep_last_n: int | None = None,
     prefetch: int = 0,
@@ -684,9 +670,10 @@ def streamed_kmeans_fit(
       reduce: 'per_batch' (one all_reduce per batch) or 'per_pass' (one
         per iteration); a ReduceStrategy.
       device: None means 'cuda'; 'cpu' runs the plain versions.
-      ckpt_dir, ckpt_every_batches, ckpt_keep_last_n, residency, ingest,
-      assign, probe, bounds: the JAX version's, not ported (they raise,
-        naming their ROADMAP.md item) but at their defaults.
+      ckpt_dir, ckpt_every, ckpt_every_batches, ckpt_keep_last_n,
+      residency, ingest, assign, probe, bounds: the JAX version's, not
+        ported (they raise, naming their ROADMAP.md item) but at their
+        defaults (None for the checkpoint options).
 
     Returns a KMeansResult with the per-iteration [sse, shift] history
     and `comms` (the reduces this fit issued).
@@ -694,6 +681,7 @@ def streamed_kmeans_fit(
     weighted = sample_weight_batches is not None
     strategy = reduce_lib.resolve_reduce(reduce)
     _refuse_unported("streamed_kmeans_fit", ckpt_dir=ckpt_dir,
+                     ckpt_every=ckpt_every,
                      ckpt_every_batches=ckpt_every_batches,
                      ckpt_keep_last_n=ckpt_keep_last_n, residency=residency,
                      ingest=ingest, assign=assign, probe=probe,
@@ -719,14 +707,12 @@ def streamed_kmeans_fit(
     if spherical:
         c = _normalize(c)
     _check_equal_local_rows(first_rows, mesh, dev)
-    route = _LloydRoute(k, d, kernel, "streamed_kmeans_fit")
+    local, correct = _lloyd_pass_fns(
+        spherical, _LloydRoute(k, d, kernel, "streamed_kmeans_fit"), kernel)
     machine = _Pass(stream, d=d, mesh=mesh, device=dev, prefetch=prefetch,
                     weighted=weighted, strategy=strategy,
-                    shapes=_lloyd_shapes(k, d),
-                    local=lambda xb, wb, c: _batch_lloyd_stats(
-                        xb, wb, c, spherical, route),
-                    correct=lambda s, n, c, dt: _corrected_lloyd(
-                        s, n, c, kernel, dt))
+                    shapes=_lloyd_shapes(k, d), local=local,
+                    correct=correct)
     shift, history, n_iter = float("inf"), [], 0
     for n_iter in range(1, int(max_iters) + 1):
         acc, _ = machine.run(c)
@@ -849,15 +835,13 @@ def mean_combine_fit(
     # Score the combined centers exactly, one stats pass over the stream
     # on this rank (no collective, as the JAX version scores its batches
     # single-device).
-    route = _LloydRoute(k, d, kernel, "mean_combine_fit")
-    zero = lambda: reduce_lib.zero_deferred(_lloyd_shapes(k, d), dev)
-
-    def step(acc, sb):
-        xb = _prepare_batch(sb, dev)[0]
-        return _accumulate(acc, xb, c, 0, spherical, kernel, route), sb.rows
-
-    acc, _ = _run_pass(batches, prefetch, zero, step,
-                       stage=lambda b: _stage(b, d, None, False))
+    local, correct = _lloyd_pass_fns(
+        spherical, _LloydRoute(k, d, kernel, "mean_combine_fit"), kernel)
+    acc, _ = _Pass(batches, d=d, mesh=None, device=dev, prefetch=prefetch,
+                   weighted=False,
+                   strategy=reduce_lib.resolve_reduce("per_batch"),
+                   shapes=_lloyd_shapes(k, d), local=local,
+                   correct=correct).run(c)
     return KMeansResult(
         centroids=c, n_iter=n_iter, sse=acc.sse,
         shift=torch.tensor(shift, dtype=torch.float32, device=dev),
@@ -918,28 +902,14 @@ class _FuzzyRoute:
         return fuzzy_stats(xb, c, m=self.m)
 
 
-def _accumulate_fuzzy(acc: FuzzyStats, batch, centroids, n_pad, m: float,
-                      kernel: str = "xla",
-                      route: _FuzzyRoute | None = None) -> FuzzyStats:
-    """Add one (possibly zero-padded) batch's fuzzy stats and subtract the
-    padding's exact contribution (see `_corrected_fuzzy`)."""
-    k, d = centroids.shape
-    route = route or _FuzzyRoute(k, d, m, kernel, "streamed_fuzzy_fit")
-    s = route(batch, centroids)
-    if float(n_pad) > 0:
-        s = _corrected_fuzzy(s, n_pad, centroids, m, kernel, batch.dtype)
-    return reduce_lib.tree_add(acc, s)
-
-
-def _accumulate_fuzzy_weighted(acc: FuzzyStats, batch, w, centroids,
-                               m: float,
-                               route: _FuzzyRoute | None = None
-                               ) -> FuzzyStats:
-    """Weighted batch fuzzy stats, f32 plain ops (the JAX package's mass
-    exactness rule); zero-weight pad rows add nothing."""
-    k, d = centroids.shape
-    route = route or _FuzzyRoute(k, d, m, "xla", "streamed_fuzzy_fit")
-    return reduce_lib.tree_add(acc, route(batch, centroids, w))
+def _fuzzy_pass_fns(route: _FuzzyRoute, m: float, kernel: str):
+    """(local, correct) of a Fuzzy C-Means pass (`_Pass`): one batch's
+    fuzzy stats on `route` (weighted ones in f32 plain ops, the JAX
+    package's mass exactness rule; zero-weight pad rows add nothing), and
+    the subtraction of n_pad zero rows (`_corrected_fuzzy`)."""
+    return (lambda xb, wb, c: route(xb, c, wb),
+            lambda s, n_pad, c, dtype: _corrected_fuzzy(s, n_pad, c, m,
+                                                        kernel, dtype))
 
 
 def streamed_fuzzy_fit(
@@ -954,7 +924,7 @@ def streamed_fuzzy_fit(
     tol: float = 1e-4,
     mesh=None,
     ckpt_dir: str | None = None,
-    ckpt_every: int = 5,
+    ckpt_every: int | None = None,
     ckpt_every_batches: int | None = None,
     ckpt_keep_last_n: int | None = None,
     prefetch: int = 0,
@@ -974,6 +944,7 @@ def streamed_fuzzy_fit(
     weighted = sample_weight_batches is not None
     strategy = reduce_lib.resolve_reduce(reduce)
     _refuse_unported("streamed_fuzzy_fit", ckpt_dir=ckpt_dir,
+                     ckpt_every=ckpt_every,
                      ckpt_every_batches=ckpt_every_batches,
                      ckpt_keep_last_n=ckpt_keep_last_n, residency=residency,
                      ingest=ingest, strategy=strategy)
@@ -999,13 +970,13 @@ def streamed_fuzzy_fit(
     c, first_rows = _resolve_stream_init(stream, k, d, init, generator,
                                          mesh, weighted, dev)
     _check_equal_local_rows(first_rows, mesh, dev)
-    route = _FuzzyRoute(k, d, float(m), kernel, "streamed_fuzzy_fit")
+    local, correct = _fuzzy_pass_fns(
+        _FuzzyRoute(k, d, float(m), kernel, "streamed_fuzzy_fit"), float(m),
+        kernel)
     machine = _Pass(stream, d=d, mesh=mesh, device=dev, prefetch=prefetch,
                     weighted=weighted, strategy=strategy,
-                    shapes=_fuzzy_shapes(k, d),
-                    local=lambda xb, wb, c: route(xb, c, wb),
-                    correct=lambda s, n, c, dt: _corrected_fuzzy(
-                        s, n, c, float(m), kernel, dt))
+                    shapes=_fuzzy_shapes(k, d), local=local,
+                    correct=correct)
     shift, history, n_iter = float("inf"), [], 0
     for n_iter in range(1, int(max_iters) + 1):
         acc, _ = machine.run(c)

@@ -1140,6 +1140,47 @@ def test_oom_retry_frees_the_failed_attempt(gen):
     assert torch.cuda.memory_allocated() == start
 
 
+def test_cli_oom_retry_frees_the_in_memory_copy(gen, tmp_path, monkeypatch):
+    """A --data_file fit whose in-memory fit runs out of memory after the
+    CLI copied the points to the card: the streamed retry starts with the
+    card's allocated memory back at its level before the fit, and the
+    computation fit after it holds no copy of the points either."""
+    import numpy as np
+
+    import tdc_tpu_torch.models as tmodels
+    from tdc_tpu_torch.cli import main as tcli
+
+    x, _ = _data(gen, 1 << 20, 37, 64)  # 256 MiB of points
+    path = tmp_path / "x.npy"
+    np.save(path, x.cpu().numpy())
+    del x
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    real_stream = tmodels.streamed_kmeans_fit
+    on_card, at_retry = [], []
+
+    def oom_fit(xx, *a, **kw):
+        on_card.append(xx.device.type)
+        total = torch.cuda.get_device_properties(0).total_memory
+        torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+
+    def stream_fit(*a, **kw):
+        torch.cuda.synchronize()
+        at_retry.append(torch.cuda.memory_allocated())
+        return real_stream(*a, **kw)
+
+    monkeypatch.setattr(tmodels, "kmeans_fit", oom_fit)
+    monkeypatch.setattr(tmodels, "streamed_kmeans_fit", stream_fit)
+    log = tmp_path / "oom.csv"
+    assert tcli.main(["--K=37", "--init=first_k", "--tol=-1",
+                      "--n_max_iters=2", "--kernel=pallas",
+                      f"--data_file={path}", f"--log_file={log}"]) == 0
+    assert on_card == ["cuda"]
+    # The computation fit's start holds the first fit's result, a few KiB.
+    assert at_retry[0] == start
+    assert 0 <= at_retry[1] - start < (1 << 20)
+
+
 # ROADMAP.md "To probe": B10's tile form (K·(d+1) > 144) rounds its
 # per-CTA sums in f32. A features-layout fit on the tile form against the
 # same fit on the CPU: equal n_iter and converged, centroids within 1e-4.

@@ -251,10 +251,19 @@ def test_streamed_gmm_named_init_seeds_on_the_first_batch():
     _assert_fit(_out(got), _out(want))
 
 
+def _pass_stats(fns, xb, wb, params, n_pad, dtype=torch.float32):
+    """One batch's stats as a streamed fit's pass makes them from its
+    (local, correct) pair: local, then the n_pad zero rows subtracted."""
+    local, correct = fns
+    s = local(xb, wb, params)
+    return correct(s, n_pad, params, dtype) if n_pad else s
+
+
 def test_per_batch_accumulate_against_jax():
-    """One batch's corrected stats: `_accumulate` (Lloyd) and
-    `_accumulate_fuzzy` against the JAX functions on a zero-padded batch,
-    and `_accumulate_gmm` against its JAX twin. The port's fuzzy kernel
+    """One batch's corrected stats as the fits' passes make them
+    (`_lloyd_pass_fns`, `_fuzzy_pass_fns`, `_gmm_pass_fns`) against the JAX
+    `_accumulate`, `_accumulate_fuzzy` and `_accumulate_gmm` on a
+    zero-padded batch. The port's fuzzy kernel
     route is held to the JAX package's plain route: the JAX interpret-mode
     B6 pads this 100-row batch to its 128-row block and subtracts that
     padding too, which leaves 3.4e-4 of Σμ in cluster 4 here (the port's
@@ -272,9 +281,9 @@ def test_per_batch_accumulate_against_jax():
         zero = SufficientStats(jnp.zeros((K, D)), jnp.zeros(K), jnp.zeros(()))
         want = jst._accumulate(zero, jnp.asarray(xb), jnp.asarray(init),
                                jnp.asarray(97), False, kern)
-        got = tst._accumulate(tred.zero_deferred(tst._lloyd_shapes(K, D),
-                                                 "cpu"),
-            torch.from_numpy(xb), c, 3, False, kern)
+        got = _pass_stats(tst._lloyd_pass_fns(
+            False, tst._LloydRoute(K, D, kern, "test"), kern),
+            torch.from_numpy(xb), None, c, 3)
         np.testing.assert_array_equal(got.counts.numpy(),
                                       np.asarray(want.counts))
         np.testing.assert_allclose(got.sums.numpy(), np.asarray(want.sums),
@@ -285,9 +294,9 @@ def test_per_batch_accumulate_against_jax():
         want = jst._accumulate_fuzzy(zero, jnp.asarray(xb),
                                      jnp.asarray(init), jnp.asarray(97),
                                      2.0, "xla")
-        got = tst._accumulate_fuzzy(tred.zero_deferred(
-            tst._fuzzy_shapes(K, D), "cpu"),
-            torch.from_numpy(xb), c, 3, 2.0, kern)
+        got = _pass_stats(tst._fuzzy_pass_fns(
+            tst._FuzzyRoute(K, D, 2.0, kern, "test"), 2.0, kern),
+            torch.from_numpy(xb), None, c, 3)
         for u, v in zip(got, want):
             np.testing.assert_allclose(u.numpy(), np.asarray(v), rtol=RTOL,
                                        atol=1e-4)
@@ -300,19 +309,19 @@ def test_per_batch_accumulate_against_jax():
         want = jgmm._accumulate_gmm(jacc, jnp.asarray(xb), jnp.asarray(init),
                                     jnp.asarray(v), jnp.asarray(wts),
                                     jnp.asarray(97), "xla", cov)
-        got = tgmm._accumulate_gmm(
-            tred.zero_deferred(tgmm._gmm_shapes(K, D, cov), "cpu"),
-            torch.from_numpy(xb), c,
-            torch.from_numpy(v), torch.from_numpy(wts), 3, "xla", cov)
+        got = _pass_stats(tgmm._gmm_pass_fns("xla", cov),
+                          torch.from_numpy(xb), None,
+                          (c, torch.from_numpy(v), torch.from_numpy(wts)), 3)
         for u, v2 in zip(got, want):
             np.testing.assert_allclose(u.numpy(), np.asarray(v2), rtol=RTOL,
                                        atol=1e-4)
 
 
 def test_weighted_per_batch_accumulate_against_jax():
-    """One weighted batch (pad rows of zero weight): Lloyd on both
-    routes (B4's plain version on 'pallas'), fuzzy and GMM, against the
-    JAX functions."""
+    """One weighted batch (pad rows of zero weight) as the fits' passes
+    stage it: Lloyd on both routes (B4's plain version on 'pallas'), fuzzy
+    and GMM, against the JAX `_accumulate_weighted`,
+    `_accumulate_fuzzy_weighted` and `_accumulate_gmm_weighted`."""
     import jax.numpy as jnp
 
     from tdc_tpu.models import gmm as jgmm
@@ -328,17 +337,16 @@ def test_weighted_per_batch_accumulate_against_jax():
     for kern in ("xla", "pallas"):
         zero = SufficientStats(jnp.zeros((K, D)), jnp.zeros(K), jnp.zeros(()))
         want = jst._accumulate_weighted(zero, jx, jw, jc, False, kern)
-        got = tst._accumulate_weighted(
-            tred.zero_deferred(tst._lloyd_shapes(K, D), "cpu"), tx, tw, c,
-            False, kern)
+        got = _pass_stats(tst._lloyd_pass_fns(
+            False, tst._LloydRoute(K, D, kern, "test"), kern), tx, tw, c, 0)
         np.testing.assert_allclose(got.sums.numpy(), np.asarray(want.sums),
                                    rtol=RTOL, atol=1e-4)
         for u, v in zip(got[1:], want[1:]):
             np.testing.assert_allclose(u.numpy(), np.asarray(v), rtol=RTOL)
     zero = FuzzyStats(jnp.zeros((K, D)), jnp.zeros(K), jnp.zeros(()))
     want = jst._accumulate_fuzzy_weighted(zero, jx, jw, jc, 1.7)
-    got = tst._accumulate_fuzzy_weighted(
-        tred.zero_deferred(tst._fuzzy_shapes(K, D), "cpu"), tx, tw, c, 1.7)
+    got = _pass_stats(tst._fuzzy_pass_fns(
+        tst._FuzzyRoute(K, D, 1.7, "xla", "test"), 1.7, "xla"), tx, tw, c, 0)
     for u, v in zip(got, want):
         np.testing.assert_allclose(u.numpy(), np.asarray(v), rtol=RTOL,
                                    atol=1e-4)
@@ -349,10 +357,10 @@ def test_weighted_per_batch_accumulate_against_jax():
                                          jnp.asarray(np.eye(D) * 1.5,
                                                      jnp.float32),
                                          jnp.asarray(wts), "tied")
-    got = tgmm._accumulate_gmm_weighted(
-        tred.zero_deferred(tgmm._gmm_shapes(K, D, "tied"), "cpu"), tx, tw,
-        c, torch.from_numpy((np.eye(D) * 1.5).astype(np.float32)),
-        torch.from_numpy(wts), "tied")
+    got = _pass_stats(tgmm._gmm_pass_fns("xla", "tied"), tx, tw,
+                      (c, torch.from_numpy((np.eye(D) * 1.5)
+                                           .astype(np.float32)),
+                       torch.from_numpy(wts)), 0)
     for u, v in zip(got, want):
         np.testing.assert_allclose(u.numpy(), np.asarray(v), rtol=RTOL,
                                    atol=1e-4)
@@ -628,36 +636,17 @@ def test_oom_adaptive_drops_the_failed_attempt_before_retrying():
     assert tbat.oom_adaptive(run) == (2, 2)
 
 
-def test_batch_sizing_against_jax(monkeypatch):
-    from tdc_tpu.data import batching as jbat
-
+def test_batch_sizing_against_jax():
+    """The card's memory, which the CLI sizes generated points against: a
+    CPU device has none and raises (the JAX version guesses 16 GiB)."""
     with pytest.raises(ValueError, match="no device memory"):
         tbat.device_hbm_bytes("cpu")
-    monkeypatch.setattr(tbat, "device_hbm_bytes", lambda device=None: 80e9)
-    monkeypatch.setattr(jbat, "device_hbm_bytes", lambda device=None: 80e9)
-    for kw in (dict(kernel="xla"), dict(kernel="pallas"),
-               dict(kernel="pallas", itemsize=2, n_devices=4),
-               dict(kernel="xla", resident_bytes=10 ** 10)):
-        assert (tbat.auto_batch_size(128, 1024, **kw)
-                == jbat.auto_batch_size(128, 1024, **kw))
-        assert (tbat.working_set_row_bytes(
-            128, 1024, itemsize=kw.get("itemsize", 4), kernel=kw["kernel"])
-            == jbat.working_set_row_bytes(
-                128, 1024, itemsize=kw.get("itemsize", 4),
-                kernel=kw["kernel"]))
-    assert tbat.hbm_budget_bytes() == jbat.hbm_budget_bytes() == int(48e9)
 
 
 def test_npz_stream_and_batch_iterator_against_jax(tmp_path):
     from tdc_tpu.data import loader as jload
 
     x, _ = _blobs()
-    for nb in (1, 3, 8):
-        got = list(tload.batch_iterator(x, nb))
-        want = list(jload.batch_iterator(x, nb))
-        assert len(got) == len(want) == nb
-        for a, b in zip(got, want):
-            np.testing.assert_array_equal(a, b)
     path = str(tmp_path / "x.npy")
     np.save(path, x)
     s, js = tload.NpzStream.from_npy(path, ROWS), jload.NpzStream.from_npy(
@@ -735,8 +724,8 @@ def test_nonfinite_batch_makes_the_fit_raise():
                                        device="cpu"), "A8"),
     (lambda s: tload.NpzStream(np.zeros((4, 2)), 2, crc_sidecar={}),
      "A7(d)"),
-    (lambda s: tload.write_crc_sidecar(np.zeros((4, 2)), 2, "x.crc.json"),
-     "A7(d)"),
+    (lambda s: tst.streamed_fuzzy_fit(s, K, D, init="first_k", ckpt_every=5,
+                                      device="cpu"), "A7(b)"),
 ])
 def test_refusals_name_their_queue_item(call, item):
     x, _ = _blobs()
@@ -929,6 +918,44 @@ def test_cli_oom_retries_streamed_at_twice_the_batches(npy, tmp_path,
     assert tcli.main([*flags, f"--data_file={npy}", f"--log_file={log}",
                       "--device", "cpu"]) == 1
     assert _row(log)["status"] == "error:RuntimeError"
+
+
+@pytest.mark.parametrize("method, fit, streamed", [
+    ("distributedKMeans", "kmeans_fit", "streamed_kmeans_fit"),
+    ("distributedFuzzyCMeans", "fuzzy_cmeans_fit", "streamed_fuzzy_fit"),
+    ("gaussianMixture", "gmm_fit", "streamed_gmm_fit"),
+])
+def test_cli_oom_retry_drops_the_in_memory_copy(npy, tmp_path, monkeypatch,
+                                                method, fit, streamed):
+    """An in-memory fit that runs out of memory after the CLI copied the
+    --data_file points for it: no reference to that copy is left when the
+    streamed retry starts, nor in the computation fit (on the card the
+    copy is the whole dataset)."""
+    import weakref
+
+    import tdc_tpu_torch.models as tmodels
+
+    real_stream = getattr(tmodels, streamed)
+    copies, alive = [], []
+
+    def oom_fit(xx, *a, **kw):
+        copies.append(weakref.ref(xx))
+        raise _oom()
+
+    def stream_fit(*a, **kw):
+        alive.append([ref() is not None for ref in copies])
+        return real_stream(*a, **kw)
+
+    monkeypatch.setattr(tmodels, fit, oom_fit)
+    monkeypatch.setattr(tmodels, streamed, stream_fit)
+    log = tmp_path / "oom.csv"
+    flags = [f for f in CLI_FLAGS if not f.startswith(("--num_batches",
+                                                       "--K="))]
+    assert tcli.main([*flags, f"--method_name={method}", "--K=8",
+                      f"--data_file={npy}", f"--log_file={log}",
+                      "--device", "cpu"]) == 0
+    assert _row(log)["num_batches"] == "2"
+    assert alive == [[False], [False]]
 
 
 @pytest.mark.parametrize("flags, words", [
