@@ -198,7 +198,32 @@ failure (nothing is caught):
    (torch.cuda.set_per_process_memory_fraction) and runs the CLI in
    memory on the stream route's points from a .npy: exit 0, num_batches
    > 1 chosen by doubling, centroids equal to the streamed fit at that
-   count called directly.
+   count called directly. [minibatch]: --minibatch on the same points
+   file (8 batches, 3 epochs, first_k seeds) on --kernel=pallas (B1 once
+   per batch and epoch in each fit, nothing else) and on --kernel=xla
+   (no kernel), every epoch's last-batch SSE within 1e-5 and shift
+   within 1e-3 of the other's (relative: near-tie label flips move
+   centroids apart); one step on the first batch from the same state,
+   B1's labels equal the plain version's but at near-ties and the
+   clusters they do not touch within 1e-4 of 'xla'; one epoch bitwise
+   repeatable; the weighted step (B4 once per batch).
+17. The model zoo. [seeding]: k-means++ and k-means‖ alone at N=2^22,
+   d=128, K=1024 (the fused route's points), timed, twice each from one
+   generator seed: K distinct rows of x, bitwise repeats, no kernel
+   launched; then phase 4's CLI with --init=kmeans_parallel (B1 as in
+   phase 4), its computation_time beside phase 4's. [bisecting]: the CLI
+   with --method_name=bisectingKMeans in memory at N=2^22, d=128, K=32
+   (K cut from the fused route's 1024: each split is a weighted 2-means
+   over all N rows, one after another), no kernel launched, its fit
+   bitwise equal to the function called again; streamed at N=2^20 in 4
+   batches, K=4, its SSE within REL_TOL of the in-memory fit's on the
+   same points. [estimators]: KMeans(kernel="pallas", init="kmeans||")
+   on the fused route's points (B1 n_iter_ + 1 times, B2 once for
+   labels_, which equal kmeans_predict's); FuzzyCMeans (B6),
+   GaussianMixture (B9) and BisectingKMeans at N=2^16, K=32, each
+   bitwise equal to its function; save_fitted then load_fitted predicts
+   the same labels; silhouette, Davies-Bouldin and Calinski-Harabasz at
+   N=2^16, finite and bitwise repeatable.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -2525,11 +2550,347 @@ def phase_streams(tmp) -> dict:
               f"{rel:.3g}), max centroid diff {err:.3g}; computation_time "
               f"{row['computation_time']} s (one rank "
               f"{one['computation_time']} s)", flush=True)
+    numbers["minibatch"] = phase_minibatch(npy, tmp, smi())
     # [oom]: the stream route's points from the file.
     numbers["oom_row"] = phase_oom(npy, tmp,
                                    STREAM_N * STREAM_D * 4)
     os.remove(npy)
     return numbers
+
+
+# The model zoo's phases. [seeding]: k-means++ and k-means‖ alone at the
+# fused route's points, then the fused route seeded by k-means‖.
+# [minibatch]: BASELINE.json config 3's shape (the stream route's points
+# file), --minibatch in STREAM_BATCHES batches, MB_EPOCHS epochs from
+# first_k seeds, on the kernel route and on 'xla'. [bisecting]: in memory
+# at N=2^22, d=128 with K cut to 32 (each split is a weighted 2-means over
+# all N rows, one after another), and streamed at N=2^20 in 4 batches,
+# K=4, against the same points in memory. [estimators]: KMeans on the
+# fused route's points; the others, persistence and the metrics at
+# ZOO_N rows.
+MB_EPOCHS = 3
+MB_ARGS = ["--method_name=distributedKMeans", f"--K={STREAM_K}",
+           "--kernel=pallas", "--minibatch", f"--num_batches={STREAM_BATCHES}",
+           "--init=first_k", f"--n_max_iters={MB_EPOCHS}", "--tol=-1",
+           "--seed=0"]
+# The kernel run against the 'xla' run, each epoch: B1 and the plain
+# form break near-ties apart from the first batch on (the one-step check
+# below counts them), and a flipped row moves a centroid by one row over
+# its count, against shifts of ~33 an epoch; the [minibatch] line prints
+# how far the final centroids end apart.
+MB_SSE_TOL = 1e-5
+MB_SHIFT_TOL = 1e-3
+BIS_ARGS = ["--method_name=bisectingKMeans", f"--n_obs={B1_SHAPE[0]}",
+            f"--n_dim={B1_SHAPE[2]}", "--K=32", "--n_max_iters=10",
+            "--seed=0"]
+BIS_STREAM_ARGS = ["--method_name=bisectingKMeans", f"--n_obs={1 << 20}",
+                   f"--n_dim={B1_SHAPE[2]}", "--K=4", "--n_max_iters=10",
+                   "--seed=0"]
+ZOO_N, ZOO_K = 1 << 16, 32
+
+
+def row_hashes(x, chunk=1 << 20) -> torch.Tensor:
+    """Exact fingerprints of the rows of f32 x: each row's bits as int32
+    times fixed coefficients below 2^24, summed in int64 (no rounding, no
+    overflow at d <= 256, the same in any order)."""
+    g = torch.Generator(device=x.device).manual_seed(1)
+    coef = torch.randint(1, 1 << 24, (x.shape[1],), generator=g,
+                         device=x.device, dtype=torch.int64)
+    return torch.cat([
+        (x[s:s + chunk].contiguous().view(torch.int32).to(torch.int64)
+         * coef).sum(dim=1) for s in range(0, x.shape[0], chunk)])
+
+
+def timed_s(fn):
+    """(fn(), seconds on the host's clock between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_seeding(card, tmp, fused_row) -> dict:
+    """[seeding]: each seeding alone at the fused route's points (the
+    CLI's make_blobs(seed + 1)), twice from one generator seed: K
+    distinct rows of x, bitwise repeats, no kernel launched; then the
+    fused route through the CLI with --init=kmeans_parallel."""
+    from tdc_tpu_torch.ops.init import init_kmeans_pp
+    from tdc_tpu_torch.ops.kmeans_parallel import init_kmeans_parallel
+
+    n, k, d = B1_SHAPE
+    x, _ = make_blobs(1, n, d, k, device="cuda")
+    hx = row_hashes(x)
+    out = {}
+    for name, fn in (("kmeans++", init_kmeans_pp),
+                     ("kmeans||", init_kmeans_parallel)):
+        runs = []
+        for _ in range(2):
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            reset_counts()
+            c, secs = timed_s(lambda: fn(gen, x, k))
+            require_launches(f"seeding {name}", counts())
+            runs.append((c, secs))
+        (a, s1), (b, s2) = runs
+        require(torch.equal(a, b), f"seeding {name}: not bitwise repeatable")
+        hc = row_hashes(a)
+        require(int(torch.unique(hc).numel()) == k,
+                f"seeding {name}: the {k} seeds are not distinct rows")
+        require(bool(torch.isin(hc, hx).all()),
+                f"seeding {name}: a seed is not a row of x")
+        out[name] = s1
+        print(f"[seeding] {name} alone, N={n} K={k} d={d}: {s1:.6f} s "
+              f"(again {s2:.6f} s), {k} distinct rows of x, bitwise "
+              f"repeatable, no kernel launched; {card}", flush=True)
+    del x, hx
+    row, seen = run_cli([*MAIN_ARGS, "--init=kmeans_parallel"], tmp,
+                        "fused_route_kmeans_parallel")
+    n_iter = int(row["n_iter"])
+    require(n_iter == 10, f"fused route (k-means‖) ran {n_iter} iterations")
+    require_launches("fused route (k-means‖)", seen, B1=2 * (n_iter + 1))
+    out["route_s"] = float(row["computation_time"])
+    print(f"[seeding] the fused route's computation_time: "
+          f"{row['computation_time']} s seeded by k-means‖ against "
+          f"{fused_row['computation_time']} s by k-means++ (sse "
+          f"{row['sse']} vs {fused_row['sse']}); k-means‖ alone "
+          f"{out['kmeans||']:.6f} s, k-means++ alone "
+          f"{out['kmeans++']:.6f} s; {card}", flush=True)
+    return out
+
+
+def phase_minibatch(npy, tmp, card) -> dict:
+    """[minibatch]: the CLI's --minibatch on the stream route's points
+    file, on the kernel route (B1 once per batch and epoch in each of the
+    CLI's two fits, no other kernel) and on 'xla' (no kernel): every
+    epoch's last-batch SSE within MB_SSE_TOL and shift within
+    MB_SHIFT_TOL (relative) of the other's. One step from the first_k
+    state on the first batch: B1's labels equal the plain version's but
+    at near-ties, and every cluster no differing label touches moves as
+    on 'xla' (1e-4). The kernel fit of one epoch repeats bitwise; the
+    weighted step launches B4 once per batch."""
+    from tdc_tpu_torch.data import NpzStream
+    from tdc_tpu_torch.models import (
+        MiniBatchKMeans,
+        MiniBatchState,
+        minibatch_kmeans_fit,
+        minibatch_step,
+    )
+
+    rows = -(-STREAM_N // STREAM_BATCHES)
+    hist, res = {}, {}
+    for kern in ("pallas", "xla"):
+        hist[kern] = os.path.join(tmp, f"minibatch_{kern}_history.csv")
+        args = [a.replace("--kernel=pallas", f"--kernel={kern}")
+                for a in MB_ARGS]
+        row, seen, fits = run_cli_captured(
+            [*args, f"--data_file={npy}", f"--history_file={hist[kern]}"],
+            tmp, f"minibatch_{kern}", "minibatch_kmeans_fit")
+        require(int(row["n_iter"]) == MB_EPOCHS
+                and row["num_batches"] == str(STREAM_BATCHES),
+                f"minibatch_{kern}: row {row}")
+        require_launches(f"minibatch_{kern}", seen, **(
+            {"B1": 2 * STREAM_BATCHES * MB_EPOCHS} if kern == "pallas"
+            else {}))
+        res[kern] = (row, fits["minibatch_kmeans_fit"])
+    h_p, h_x = (np.loadtxt(hist[k], delimiter=",", skiprows=1)
+                for k in ("pallas", "xla"))
+    sse_rel = np.abs(h_p[:, 1] / h_x[:, 1] - 1)
+    shift_rel = np.abs(h_p[:, 2] / h_x[:, 2] - 1)
+    require(h_p.shape == h_x.shape == (MB_EPOCHS, 3)
+            and float(sse_rel.max()) <= MB_SSE_TOL
+            and float(shift_rel.max()) <= MB_SHIFT_TOL,
+            f"minibatch: per-epoch sse rel {sse_rel.tolist()} (tolerance "
+            f"{MB_SSE_TOL}), shift rel {shift_rel.tolist()} (tolerance "
+            f"{MB_SHIFT_TOL})")
+    row = res["pallas"][0]
+    gap = (res["pallas"][1].centroids
+           - res["xla"][1].centroids).abs().max().item()
+    comp = float(row["computation_time"])
+    print(f"[minibatch] N={STREAM_N} K={STREAM_K} d={STREAM_D}, "
+          f"{STREAM_BATCHES} batches of {rows} rows, {MB_EPOCHS} epochs: "
+          f"computation_time {comp} s ({comp / MB_EPOCHS:.4f} s an epoch, "
+          f"{row['points_per_sec_per_chip']} pt·iter/s; 'xla' "
+          f"{res['xla'][0]['computation_time']} s); per-epoch sse rel "
+          f"{sse_rel.round(12).tolist()}, shift rel "
+          f"{shift_rel.round(8).tolist()} against 'xla', final centroids "
+          f"{gap:.4g} apart; {card}", flush=True)
+    host = np.load(npy, mmap_mode="r")
+    xb = torch.from_numpy(np.ascontiguousarray(host[:rows])).cuda()
+    c0 = xb[:STREAM_K].clone()
+    _, lab = lk.lloyd_stats_fused(xb, c0, return_labels=True)
+    plain = lk.distance_argmin_plain(xb, c0)[0]
+    ties = check_labels("minibatch step", xb, c0, lab, plain)
+    diff = lab != plain
+    touched = torch.zeros(STREAM_K, dtype=torch.bool, device="cuda")
+    touched[lab[diff].long()] = True
+    touched[plain[diff].long()] = True
+    steps = {}
+    for kern in ("pallas", "xla"):
+        steps[kern] = minibatch_step(
+            MiniBatchState(c0.clone(), torch.zeros(STREAM_K, device="cuda"),
+                           0, torch.tensor(float("inf"), device="cuda")),
+            xb, kernel=kern)
+    keep = ~touched
+    a, b = steps["pallas"], steps["xla"]
+    err = (a.centroids - b.centroids)[keep].abs().max().item()
+    require(err <= 1e-4 and torch.equal(a.counts[keep], b.counts[keep]),
+            f"minibatch step: untouched clusters differ by {err}")
+    del xb, c0, lab, plain, steps, a, b
+    one = [minibatch_kmeans_fit(NpzStream(host, rows), STREAM_K, STREAM_D,
+                                init="first_k", epochs=1, tol=-1.0,
+                                kernel="pallas") for _ in range(2)]
+    require(torch.equal(one[0].centroids, one[1].centroids),
+            "minibatch: the kernel fit is not bitwise repeatable")
+    w = make_weights(STREAM_N, 5).cpu().numpy()
+    mbk = MiniBatchKMeans(STREAM_K, STREAM_D, init="first_k",
+                          kernel="pallas", reassignment_ratio=0.01)
+    reset_counts()
+    for i, b in enumerate(NpzStream(host, rows)()):
+        mbk.partial_fit(b, w[i * rows:(i + 1) * rows])
+    seen = counts()
+    require_launches("minibatch weighted", seen, B4=STREAM_BATCHES)
+    require(bool(torch.isfinite(mbk.centroids).all()),
+            "minibatch weighted: centroids not finite")
+    print(f"[minibatch] one step on the first batch: {ties} labels differ "
+          f"from the plain version's, all at near-ties, touching "
+          f"{int(touched.sum())} clusters; the other clusters within "
+          f"{err:.3g} of 'xla'; one epoch repeats bitwise; weighted (B4) "
+          f"launches {seen}; {card}", flush=True)
+    return dict(row=row, xla_row=res["xla"][0])
+
+
+def phase_bisecting(tmp, card) -> dict:
+    """[bisecting]: the CLI in memory at N=2^22, K=32 (no kernel: each
+    split runs on 'xla'), its computation fit bitwise equal to the
+    function called again with the CLI's generator seed; streamed at
+    N=2^20 in 4 batches, K=4, its SSE within REL_TOL of the in-memory
+    fit's on the same points."""
+    from tdc_tpu_torch.models import bisecting_kmeans_fit
+
+    row, seen, fits = run_cli_captured(BIS_ARGS, tmp, "bisecting",
+                                       "bisecting_kmeans_fit")
+    require_launches("bisecting", seen)
+    got = fits["bisecting_kmeans_fit"]
+    n, d = B1_SHAPE[0], B1_SHAPE[2]
+    x, _ = make_blobs(1, n, d, 32, device="cuda")
+    again = bisecting_kmeans_fit(
+        x, 32, generator=torch.Generator(device="cuda").manual_seed(0),
+        max_iters=10, tol=1e-4)
+    del x
+    require(torch.equal(again.centroids, got.centroids)
+            and float(again.sse) == float(got.sse)
+            and again.n_iter == got.n_iter,
+            "bisecting: the fit is not bitwise repeatable")
+    print(f"[bisecting] in memory, N={n} K=32 d={d}: computation_time "
+          f"{row['computation_time']} s, {row['n_iter']} Lloyd iterations "
+          f"over 31 splits, sse {row['sse']}, no kernel launched, bitwise "
+          f"repeatable; {card}", flush=True)
+    rows = {}
+    for name, extra in (("bisecting_streamed", ["--num_batches=4"]),
+                        ("bisecting_small", [])):
+        rows[name], seen = run_cli([*BIS_STREAM_ARGS, *extra], tmp, name)
+        require_launches(name, seen)
+    st, mem = rows["bisecting_streamed"], rows["bisecting_small"]
+    require(st["num_batches"] == "4", f"bisecting_streamed: row {st}")
+    rel = abs(float(st["sse"]) / float(mem["sse"]) - 1)
+    require(rel <= REL_TOL, f"bisecting: streamed sse {st['sse']} vs "
+                            f"{mem['sse']} in memory")
+    print(f"[bisecting] streamed, N={1 << 20} K=4 in 4 batches: "
+          f"computation_time {st['computation_time']} s (in memory "
+          f"{mem['computation_time']} s), sse {st['sse']} vs {mem['sse']} "
+          f"in memory (rel {rel:.3g}); {card}", flush=True)
+    return dict(row=row, streamed_row=st)
+
+
+def phase_estimators(tmp, card) -> None:
+    """[estimators]: KMeans(kernel='pallas', init='kmeans||') on the fused
+    route's points (B1 n_iter_ + 1 times, B2 once for labels_, which equal
+    kmeans_predict's); FuzzyCMeans (B6), GaussianMixture (B9) and
+    BisectingKMeans at ZOO_N rows, each bitwise equal to its function from
+    the same generator seed; save_fitted then load_fitted predicts the
+    same labels; the three metrics, bitwise repeatable."""
+    from tdc_tpu_torch import (
+        BisectingKMeans,
+        FuzzyCMeans,
+        GaussianMixture,
+        KMeans,
+        bisecting_kmeans_fit,
+        calinski_harabasz_score,
+        davies_bouldin_score,
+        load_fitted,
+        save_fitted,
+        silhouette_score,
+    )
+
+    n, k, d = B1_SHAPE
+    x, _ = make_blobs(1, n, d, k, device="cuda")
+    reset_counts()
+    est, secs = timed_s(lambda: KMeans(k, kernel="pallas", init="kmeans||",
+                                       max_iter=10).fit(x))
+    seen = counts()
+    require_launches("estimators KMeans", seen, B1=est.n_iter_ + 1, B2=1)
+    labels = kmeans_predict(x, est.cluster_centers_).cpu().numpy()
+    require(np.array_equal(est.labels_, labels),
+            "estimators KMeans: labels_ differ from kmeans_predict")
+    print(f"[estimators] KMeans(kernel='pallas', init='kmeans||') N={n} "
+          f"K={k} d={d}: fit {secs:.4f} s, n_iter_ {est.n_iter_}, inertia_ "
+          f"{est.inertia_:.8g}, launches {seen}, labels_ equal to "
+          f"kmeans_predict; {card}", flush=True)
+    del x
+    xs, _ = make_blobs(2, ZOO_N, d, ZOO_K, device="cuda")
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    checks = (
+        ("FuzzyCMeans", lambda: FuzzyCMeans(ZOO_K, kernel="pallas",
+                                            max_iter=20).fit(xs),
+         lambda: fuzzy_cmeans_fit(xs, ZOO_K, generator=gen(), max_iters=20,
+                                  kernel="pallas").centroids,
+         "cluster_centers_", {"B6": None}),
+        ("GaussianMixture", lambda: GaussianMixture(ZOO_K, kernel="pallas",
+                                                    max_iter=20).fit(xs),
+         lambda: gmm_fit(xs, ZOO_K, generator=gen(), max_iters=20,
+                         kernel="pallas").means,
+         "means_", {"B9": None}),
+        ("BisectingKMeans", lambda: BisectingKMeans(ZOO_K,
+                                                    max_iter=10).fit(xs),
+         lambda: bisecting_kmeans_fit(xs, ZOO_K, generator=gen(),
+                                      max_iters=10).centroids,
+         "cluster_centers_", {}),
+    )
+    for name, fit_est, fit_fn, attr, kernels in checks:
+        reset_counts()
+        e = fit_est()
+        seen = counts()
+        for key in kernels:
+            require(seen[key] > 0, f"estimators {name}: {key} not launched")
+        want = fit_fn().cpu().numpy()
+        require(np.array_equal(getattr(e, attr), want),
+                f"estimators {name}: not equal to its function")
+        print(f"[estimators] {name} N={ZOO_N} K={ZOO_K} d={d}: n_iter_ "
+              f"{e.n_iter_}, equal to its function bitwise, launches "
+              f"{seen}; {card}", flush=True)
+    small = KMeans(ZOO_K, kernel="pallas", init="kmeans||").fit(xs)
+    model_dir = os.path.join(tmp, "fitted")
+    version = save_fitted(model_dir, model="kmeans",
+                          arrays={"centroids": small.cluster_centers_})
+    fm = load_fitted(model_dir)
+    require(fm.version == version and np.array_equal(
+        kmeans_predict(xs, fm.centroids).cpu().numpy(), small.predict(xs)),
+        "persist: the loaded model predicts other labels")
+    scores = {}
+    for fn in (silhouette_score, davies_bouldin_score,
+               calinski_harabasz_score):
+        (a, secs) = timed_s(lambda: fn(xs, small.labels_))
+        require(math.isfinite(a) and fn(xs, small.labels_) == a,
+                f"{fn.__name__}: {a} not finite or not repeatable")
+        scores[fn.__name__] = (a, secs)
+    print(f"[estimators] save_fitted / load_fitted (version {version}) "
+          f"predicts the same labels; metrics at N={ZOO_N} K={ZOO_K}: "
+          + ", ".join(f"{name} {v:.8g} ({s:.4f} s)"
+                      for name, (v, s) in scores.items())
+          + f", each bitwise repeatable; {card}", flush=True)
 
 
 def main() -> int:
@@ -2720,8 +3081,14 @@ def main() -> int:
               f"{n_iter} == {fused_row['n_iter']}, sse {row['sse']} vs "
               f"{fused_row['sse']} (rel {rel:.3g})", flush=True)
 
-        # The streamed routes (--num_batches) and the OOM-adaptive retry.
+        # The streamed routes (--num_batches), the mini-batch route and the
+        # OOM-adaptive retry.
         phase_streams(tmp)
+
+        # The model zoo: seeding, bisecting, the estimators.
+        phase_seeding(card, tmp, fused_row)
+        phase_bisecting(tmp, card)
+        phase_estimators(tmp, card)
 
     phase_one_rank_nccl(gen)
 

@@ -38,6 +38,28 @@ _LAZY = {
     "kmeans_state_from_numpy": ("tdc_tpu_torch.convert",
                                 "kmeans_state_from_numpy"),
     "to_numpy": ("tdc_tpu_torch.convert", "to_numpy"),
+    "KMeans": ("tdc_tpu_torch.models.estimators", "KMeans"),
+    "BisectingKMeans": ("tdc_tpu_torch.models.estimators",
+                        "BisectingKMeans"),
+    "FuzzyCMeans": ("tdc_tpu_torch.models.estimators", "FuzzyCMeans"),
+    "GaussianMixture": ("tdc_tpu_torch.models.estimators",
+                        "GaussianMixture"),
+    "MiniBatchKMeans": ("tdc_tpu_torch.models.minibatch", "MiniBatchKMeans"),
+    "minibatch_kmeans_fit": ("tdc_tpu_torch.models.minibatch",
+                             "minibatch_kmeans_fit"),
+    "bisecting_kmeans_fit": ("tdc_tpu_torch.models.bisecting",
+                             "bisecting_kmeans_fit"),
+    "init_kmeans_parallel": ("tdc_tpu_torch.ops.kmeans_parallel",
+                             "init_kmeans_parallel"),
+    "save_fitted": ("tdc_tpu_torch.models.persist", "save_fitted"),
+    "load_fitted": ("tdc_tpu_torch.models.persist", "load_fitted"),
+    "silhouette_score": ("tdc_tpu_torch.analysis.metrics",
+                         "silhouette_score"),
+    "davies_bouldin_score": ("tdc_tpu_torch.analysis.metrics",
+                             "davies_bouldin_score"),
+    "calinski_harabasz_score": ("tdc_tpu_torch.analysis.metrics",
+                                "calinski_harabasz_score"),
+    "make_mesh": ("tdc_tpu_torch.parallel.mesh", "make_mesh"),
 }
 
 __all__ = [*_LAZY, "__version__"]

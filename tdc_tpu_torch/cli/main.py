@@ -1,6 +1,6 @@
 """Experiment CLI — the reference-parity subset of tdc_tpu/cli/main.py
-for in-memory Lloyd K-Means, Fuzzy C-Means and Gaussian Mixture EM, on one
-GPU or, for K-Means and Fuzzy C-Means, on several.
+for Lloyd K-Means, Fuzzy C-Means, Gaussian Mixture EM and bisecting
+K-Means, on one GPU or, but for Gaussian Mixture EM, on several.
 
 Same flags (where ported), the same three timed phases (setup; a first fit
 counted as initialization; a warm re-fit counted as computation), the
@@ -27,6 +27,14 @@ Run: python -m tdc_tpu_torch.cli.main --method_name=distributedKMeans \
      --n_obs=4194304 --n_dim=128 --K=1024 --kernel=pallas --log_file=log.csv
 Streamed: add --num_batches=8 (or --data_file=x.npy, memory-mapped).
 Fuzzy: --method_name=distributedFuzzyCMeans --fuzzifier=2.0
+Bisecting: --method_name=bisectingKMeans (K−1 weighted 2-means splits on
+'xla', each seeded by k-means++; streamed with --num_batches/--streamed).
+Mini-batch: --minibatch (distributedKMeans; one Sculley step per batch,
+--n_max_iters epochs over ceil(n_obs / num_batches)-row batches, or rows
+from the card's memory, `auto_batch_size`, when --num_batches is 1; on
+the CPU, which has no device memory to size against, one batch of every
+row), with --reassignment_ratio (sklearn's low-count reseed, default
+0.01). --init=kmeans_parallel seeds with k-means‖.
 GMM: --method_name=gaussianMixture --covariance_type=diag (diag,
 spherical, tied or full; --kernel=pallas runs the E-step kernel B9, diag
 or spherical and unweighted; --init=kmeans seeds with a short K-Means)
@@ -62,18 +70,14 @@ import sys
 import warnings
 
 METHOD_NAMES = ("distributedKMeans", "distributedFuzzyCMeans",
-                "gaussianMixture")
-# Methods of the JAX CLI that the port has not reached yet.
-_LATER_METHODS = {
-    "bisectingKMeans": "Queue A, A8",
-}
+                "gaussianMixture", "bisectingKMeans")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tdc_tpu_torch",
-        description="K-Means, Fuzzy C-Means and Gaussian Mixture EM on "
-                    "one NVIDIA GPU "
+        description="K-Means, Fuzzy C-Means, Gaussian Mixture EM and "
+                    "bisecting K-Means on NVIDIA GPUs "
                     "(PyTorch + CUDA kernels)",
     )
     p.add_argument("--n_obs", type=int, default=None,
@@ -99,8 +103,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--streamed", action="store_true",
                    help="force exact streamed Lloyd even if data fits")
     p.add_argument("--minibatch", action="store_true",
-                   help="Sculley-style mini-batch K-Means: not ported yet "
-                        "(ROADMAP.md Queue A, A8b)")
+                   help="Sculley-style mini-batch K-Means (BASELINE config 3): "
+                        "one update per batch, n_max_iters epochs; batch size "
+                        "from device memory unless --num_batches is given")
+    p.add_argument("--reassignment_ratio", type=float, default=0.01,
+                   help="mini-batch low-count-center reseed threshold "
+                        "(sklearn MiniBatchKMeans parity; 0 disables)")
     p.add_argument("--mean_combine", action="store_true",
                    help="reference-parity batch mode: independent Lloyd per "
                         "batch, unweighted mean of per-batch centers "
@@ -222,9 +230,8 @@ def _validate_streaming(parser, args) -> None:
         parser.error("--num_batches must be >= 1")
     if args.prefetch < 0:
         parser.error("--prefetch must be >= 0")
-    if args.minibatch:
-        parser.error("--minibatch is not ported yet (ROADMAP.md Queue A, "
-                     "A8b: models/minibatch.py)")
+    if args.minibatch and args.shard_k > 1:
+        parser.error("--minibatch and --shard_k are mutually exclusive")
     if ":" in args.reduce:
         parser.error(f"--reduce={args.reduce} (the quantized per-pass "
                      "reduce with error feedback) is not ported yet "
@@ -232,10 +239,10 @@ def _validate_streaming(parser, args) -> None:
     if args.mean_combine:
         if args.method_name != "distributedKMeans":
             parser.error("--mean_combine supports distributedKMeans only")
-        if args.shard_k > 1:
+        if args.minibatch or args.shard_k > 1:
             parser.error("--mean_combine excludes --minibatch/--shard_k")
     if args.empty_policy != "keep":
-        for flag in ("streamed", "mean_combine"):
+        for flag in ("minibatch", "streamed", "mean_combine"):
             if getattr(args, flag):
                 parser.error(f"--empty_policy=relocate is in-memory only; "
                              f"--{flag} is not supported (mini-batch has "
@@ -243,7 +250,7 @@ def _validate_streaming(parser, args) -> None:
         if args.num_batches > 1:
             parser.error("--empty_policy=relocate is in-memory single-shard")
     if args.kernel == "refined":
-        for flag in ("streamed", "mean_combine"):
+        for flag in ("minibatch", "streamed", "mean_combine"):
             if getattr(args, flag):
                 parser.error(f"--kernel=refined is the in-memory exact-"
                              f"champion path; --{flag} is not supported")
@@ -251,24 +258,31 @@ def _validate_streaming(parser, args) -> None:
             parser.error("--kernel=refined is in-memory single-shard "
                          "(use it for iters-to-converge parity runs)")
     if args.kernel == "pallas_bf16":
-        if args.mean_combine:
-            parser.error("--kernel=pallas_bf16 has no --mean_combine "
-                         "plumbing (the epilogue lives in the fused Lloyd "
-                         "stats kernel)")
+        for flag in ("minibatch", "mean_combine"):
+            if getattr(args, flag):
+                parser.error(f"--kernel=pallas_bf16 has no --{flag} "
+                             f"plumbing (the epilogue lives in the fused "
+                             f"Lloyd stats kernel)")
         if args.num_batches > 1 and not args.streamed:
             parser.error("--kernel=pallas_bf16 is single-shard (in-memory "
                          "or --streamed)")
     if args.layout == "features":
-        for flag in ("streamed", "mean_combine"):
+        for flag in ("streamed", "minibatch", "mean_combine"):
             if getattr(args, flag):
                 parser.error(f"--layout=features is an in-memory device "
                              f"layout; --{flag} is not supported with it")
         if args.num_batches > 1:
             parser.error("--layout=features is single-batch, single-shard "
                          "(it exists to make the full dataset fit in HBM)")
-    if args.weight_file and args.mean_combine:
+    if args.weight_file and (args.minibatch or args.mean_combine):
         parser.error("--weight_file is not supported with "
                      "--minibatch/--mean_combine/--shard_k")
+    if not (0 <= args.reassignment_ratio <= 1):
+        parser.error("--reassignment_ratio must be in [0, 1]")
+    if args.reassignment_ratio != 0.01 and not args.minibatch:
+        # Reject rather than silently ignore: the flag only drives the
+        # mini-batch reseed policy.
+        parser.error("--reassignment_ratio applies to --minibatch only")
 
 
 def _validate_devices(parser, args) -> None:
@@ -323,10 +337,28 @@ def _validate_devices(parser, args) -> None:
                      "--kernel=pallas for the same MXU precision)")
 
 
+def _validate_bisecting(parser, args) -> None:
+    """The JAX CLI's bisectingKMeans checks, in its words: each split is
+    a weighted 2-means on the plain path, seeded by k-means++."""
+    for flag in ("minibatch", "mean_combine", "spherical"):
+        if getattr(args, flag):
+            parser.error(f"--{flag} is not supported with bisectingKMeans")
+    if args.shard_k > 1:
+        # The JAX CLI's shard_k check fires first for this method.
+        parser.error("--shard_k supports distributedKMeans, "
+                     "distributedFuzzyCMeans, and gaussianMixture")
+    if args.kernel is not None:
+        parser.error("bisectingKMeans has no --kernel selection (each "
+                     "split is a weighted XLA-path 2-means)")
+    if args.init != "kmeans++":
+        parser.error("bisectingKMeans seeds every split with kmeans++; "
+                     f"--init={args.init} would be silently ignored")
+    if args.history_file:
+        parser.error("bisectingKMeans produces no per-iteration "
+                     "history (--history_file is kmeans/fuzzy)")
+
+
 def validate_args(parser, args) -> None:
-    if args.method_name in _LATER_METHODS:
-        parser.error(f"--method_name={args.method_name} is not ported yet "
-                     f"(ROADMAP.md {_LATER_METHODS[args.method_name]})")
     if args.method_name not in METHOD_NAMES:
         parser.error(f"unknown --method_name {args.method_name!r}")
     if args.data_file is None and (args.n_obs is None or args.n_dim is None):
@@ -339,6 +371,10 @@ def validate_args(parser, args) -> None:
             parser.error(f"--{name} must be >= 1")
     if args.n_obs is not None and args.n_obs < args.K:
         parser.error("--n_obs must be >= --K")
+    if args.minibatch and args.method_name != "distributedKMeans":
+        parser.error("--minibatch supports distributedKMeans only")
+    if args.method_name == "bisectingKMeans":
+        _validate_bisecting(parser, args)
     _validate_streaming(parser, args)
     _validate_devices(parser, args)
     if args.method_name != "distributedKMeans" and (
@@ -348,9 +384,6 @@ def validate_args(parser, args) -> None:
     if args.empty_policy == "relocate" and args.layout == "features":
         parser.error("--empty_policy=relocate needs the sample-major "
                      "layout (--layout=samples)")
-    if args.init == "kmeans_parallel":
-        parser.error("--init=kmeans_parallel is not ported yet (ROADMAP.md "
-                     "Queue A, A8a)")
     if args.kernel == "refined" and args.method_name != "distributedKMeans":
         parser.error("--kernel=refined is distributedKMeans only")
     if args.kernel == "pallas_bf16":
@@ -408,7 +441,7 @@ def run_experiment(args) -> dict:
         make_blobs,
         oom_adaptive,
     )
-    from tdc_tpu_torch.data.batching import device_hbm_bytes
+    from tdc_tpu_torch.data.batching import auto_batch_size, device_hbm_bytes
     from tdc_tpu_torch.parallel.mesh import make_mesh
     from tdc_tpu_torch.parallel.multihost import process_count
     from tdc_tpu_torch.parallel.sharded_k import make_mesh_2d
@@ -514,10 +547,13 @@ def run_experiment(args) -> dict:
 
     def fit(num_batches: int):
         from tdc_tpu_torch.models import (
+            bisecting_kmeans_fit,
             fuzzy_cmeans_fit,
             gmm_fit,
             kmeans_fit,
             mean_combine_fit,
+            minibatch_kmeans_fit,
+            streamed_bisecting_kmeans_fit,
             streamed_fuzzy_fit,
             streamed_gmm_fit,
             streamed_kmeans_fit,
@@ -525,7 +561,10 @@ def run_experiment(args) -> dict:
         from tdc_tpu_torch.parallel.sharded_k import fuzzy_fit_sharded
 
         streamed = args.streamed or num_batches > 1 or args.mean_combine
-        if args.reduce != "per_batch" and (not streamed or args.mean_combine):
+        bisecting = args.method_name == "bisectingKMeans"
+        if args.reduce != "per_batch" and (
+                not streamed or args.mean_combine or args.minibatch
+                or bisecting):
             # Fail fast instead of silently ignoring the knob (the JAX
             # CLI's words).
             raise SystemExit(
@@ -542,12 +581,37 @@ def run_experiment(args) -> dict:
                 "a streamed fit with --shard_k (after an out-of-memory "
                 "retry) runs the streamed K-sharded towers, which are not "
                 "ported to tdc_tpu_torch yet (ROADMAP.md Queue A, A9)")
+        if args.minibatch:
+            # Batches of the host points: ceil(n_obs / num_batches) rows,
+            # or as many as the card's working-set budget holds (the whole
+            # set on the CPU, which has no device memory to size against).
+            if num_batches > 1 or dev.type == "cpu":
+                rows = -(-n_obs // num_batches)
+            else:
+                rows = min(auto_batch_size(n_dim, args.K,
+                                           n_devices=n_devices,
+                                           kernel=kernel, device=dev),
+                           n_obs)
+            stream = NpzStream(host_points(), rows)
+            state["stream"] = stream
+            return minibatch_kmeans_fit(
+                stream, args.K, n_dim, init=args.init, generator=gen,
+                epochs=args.n_max_iters, tol=args.tol, mesh=mesh,
+                prefetch=args.prefetch,
+                reassignment_ratio=args.reassignment_ratio, kernel=kernel,
+                device=dev)
         if streamed:
             rows = -(-n_obs // num_batches)
             stream = NpzStream(host_points(), rows)
             state["stream"] = stream
             wstream = (None if weights is None
                        else NpzStream(np.asarray(weights, np.float32), rows))
+            if bisecting:
+                return streamed_bisecting_kmeans_fit(
+                    stream, args.K, n_dim, generator=gen,
+                    max_iters=args.n_max_iters, tol=args.tol,
+                    prefetch=args.prefetch, sample_weight_batches=wstream,
+                    mesh=mesh, device=dev)
             common = dict(generator=gen, max_iters=args.n_max_iters,
                           tol=args.tol, mesh=mesh, prefetch=args.prefetch,
                           kernel=kernel, device=dev)
@@ -575,6 +639,10 @@ def run_experiment(args) -> dict:
                 generator=gen, max_iters=args.n_max_iters, tol=args.tol,
                 kernel=kernel, device=dev,
             )
+        if bisecting:
+            return bisecting_kmeans_fit(
+                xx, args.K, generator=gen, max_iters=args.n_max_iters,
+                tol=args.tol, sample_weight=weights, mesh=mesh, device=dev)
         if gmm:
             return gmm_fit(
                 xx, args.K, init=args.init, generator=gen,

@@ -1,15 +1,14 @@
-"""The card's memory and the OOM-adaptive retry (counterpart:
-tdc_tpu/data/batching.py, its `device_hbm_bytes`, `is_oom_error` and
-`oom_adaptive`).
+"""The card's memory, batch sizing and the OOM-adaptive retry
+(counterpart: tdc_tpu/data/batching.py).
 
-Reference counterpart: the OOM-halving loop (`except
+Reference counterparts: the hand-tuned per-GPU-count max_size table
+(New-Distributed-KMeans.ipynb#cell13) and the OOM-halving loop (`except
 ResourceExhaustedError: num_batches *= 2`,
-scripts/distribuitedClustering.py:357-360). The retry loop doubles
-num_batches on a CUDA out-of-memory error and on nothing else: a kernel
-that fails to build or launch raises as it is, never retried on smaller
-batches. The JAX package's working-set batch sizing (`auto_batch_size`)
-serves its mini-batch fit and its device cache, which are not ported
-(ROADMAP.md Queue A, A8b and A7(c)).
+scripts/distribuitedClustering.py:357-360). Batch rows come from the
+card's memory and the port's own working set per row
+(`working_set_row_bytes`); the retry loop doubles num_batches on a CUDA
+out-of-memory error and on nothing else: a kernel that fails to build or
+launch raises as it is, never retried on smaller batches.
 """
 
 from __future__ import annotations
@@ -31,6 +30,41 @@ def device_hbm_bytes(device=None) -> int:
             f"device_hbm_bytes: {dev} has no device memory; it applies "
             "to a CUDA device")
     return int(torch.cuda.mem_get_info(dev)[1])
+
+
+# Share of the card's memory that batch sizing works within (the JAX
+# package's safety fraction).
+SAFETY_FRACTION = 0.6
+
+
+def working_set_row_bytes(n_dim: int, k: int, *, itemsize: int = 4,
+                          kernel: str = "xla") -> int:
+    """Device bytes one point row costs in one Lloyd stats pass of the
+    port. 'pallas': the row itself and 16 bytes (B1 and B5 keep no
+    (rows, K) buffer; past B1's K·d limit the sorted route keeps a label,
+    a min d² and a sort index a row). The plain 'xla' form: the row, its
+    (K,) f32 distances and its one-hot row, built as int64 and cast to
+    f32 (16·K bytes in all)."""
+    if kernel == "pallas":
+        return itemsize * n_dim + 16
+    return itemsize * n_dim + 16 * k
+
+
+def hbm_budget_bytes(device=None) -> int:
+    """The bytes batch sizing works within: SAFETY_FRACTION of the
+    card's memory (a CPU device raises, as `device_hbm_bytes` does)."""
+    return int(SAFETY_FRACTION * device_hbm_bytes(device))
+
+
+def auto_batch_size(n_dim: int, k: int, *, n_devices: int = 1,
+                    itemsize: int = 4, device=None,
+                    kernel: str = "xla") -> int:
+    """The most points per global batch whose working set fits each
+    card's budget: rows per card = budget / working_set_row_bytes, times
+    n_devices, at least 1."""
+    per_row = working_set_row_bytes(n_dim, k, itemsize=itemsize,
+                                    kernel=kernel)
+    return max(hbm_budget_bytes(device) // per_row * n_devices, 1)
 
 
 def is_oom_error(e: BaseException) -> bool:

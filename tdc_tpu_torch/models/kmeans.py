@@ -55,6 +55,10 @@ from tdc_tpu_torch.ops.init import init_first_k, init_kmeans_pp, init_random
 from tdc_tpu_torch.utils.device import resolve_device
 
 
+# The names of k-means‖ seeding (ops/kmeans_parallel.py).
+PARALLEL_INITS = ("kmeans||", "k-means||", "kmeans_parallel")
+
+
 class KMeansResult(NamedTuple):
     centroids: torch.Tensor  # (K, d) float32
     n_iter: int  # iterations run
@@ -251,10 +255,11 @@ def _check_generator(generator, x: torch.Tensor) -> None:
 
 def resolve_init(x: torch.Tensor, k: int, init, generator,
                  sample_weight=None) -> torch.Tensor:
-    """Turn an init spec ('first_k' | 'random' | 'kmeans++' | array) into
-    (K, d) float32 centroids on x's device. With sample_weight the
-    stochastic inits draw ∝ w ('random', the first k-means++ center) or
-    ∝ w·D² (later k-means++ rounds), so zero-weight points never seed."""
+    """Turn an init spec ('first_k' | 'random' | 'kmeans++' | 'kmeans||'
+    | array) into (K, d) float32 centroids on x's device. With
+    sample_weight the stochastic inits draw ∝ w ('random', the first
+    k-means++ center) or ∝ w·D² (later k-means++ rounds, k-means‖
+    oversampling), so zero-weight points never seed."""
     if not isinstance(init, str):
         c = torch.as_tensor(np.asarray(init) if not isinstance(
             init, torch.Tensor) else init).to(x.device, torch.float32)
@@ -264,13 +269,16 @@ def resolve_init(x: torch.Tensor, k: int, init, generator,
         return c
     if init == "first_k":
         return init_first_k(x, k)
-    if init in ("kmeans||", "k-means||", "kmeans_parallel"):
-        raise _not_ported(f"init={init!r}", "Queue A, A8")
     _check_generator(generator, x)
     if init == "random":
         return init_random(generator, x, k, sample_weight)
     if init in ("kmeans++", "k-means++"):
         return init_kmeans_pp(generator, x, k, sample_weight)
+    if init in PARALLEL_INITS:
+        from tdc_tpu_torch.ops.kmeans_parallel import init_kmeans_parallel
+
+        return init_kmeans_parallel(generator, x, k,
+                                    sample_weight=sample_weight)
     raise ValueError(f"unknown init: {init!r}")
 
 
@@ -285,7 +293,7 @@ def resolve_init_replicated(x: torch.Tensor, k: int, init, generator,
     from tdc_tpu_torch.parallel.multihost import process_index
 
     drawn = isinstance(init, str) and init in ("random", "kmeans++",
-                                               "k-means++")
+                                               "k-means++", *PARALLEL_INITS)
     if drawn and process_index() != 0:
         _check_generator(generator, x)
         if init == "random" and k > x.shape[0]:
@@ -365,7 +373,9 @@ def kmeans_fit(
       x: (N, d) points (numpy or torch) on `device`: bfloat16 stays
         bfloat16, any other float type becomes float32.
       k: number of clusters.
-      init: 'kmeans++', 'random', 'first_k', or an explicit (K, d) array.
+      init: 'kmeans++', 'kmeans||' (k-means‖; also 'k-means||',
+        'kmeans_parallel'), 'random', 'first_k', or an explicit (K, d)
+        array.
       generator: torch.Generator on `device` for the stochastic inits
         (default: one seeded with 0).
       max_iters: iteration cap; tol: center-shift tolerance (negative =

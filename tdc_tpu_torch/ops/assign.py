@@ -180,6 +180,22 @@ def lloyd_stats_padded_blocked(
     )
 
 
+def segment_sum(values: torch.Tensor, segments: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """(k,) f32 sums of `values` by segment id in [0, k), the same bits on
+    every run and device: rows in a stable sort by segment, one f64
+    running sum, each segment's sum the difference of its ends (an
+    `index_add_` would add f32 atomics in no fixed order on CUDA)."""
+    seg = segments.long()
+    order = torch.argsort(seg, stable=True)
+    counts = torch.bincount(seg, minlength=k)
+    run = torch.cat([torch.zeros(1, dtype=torch.float64,
+                                 device=values.device),
+                     torch.cumsum(values.double()[order], 0)])
+    ends = torch.cumsum(counts, 0)
+    return (run[ends] - run[ends - counts]).float()
+
+
 def apply_centroid_update(
     stats: SufficientStats, prev_centroids: torch.Tensor
 ) -> torch.Tensor:

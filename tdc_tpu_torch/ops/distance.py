@@ -69,3 +69,17 @@ def pairwise_sq_dist_direct(
 def pairwise_dist(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Euclidean distance (N, K)."""
     return torch.sqrt(pairwise_sq_dist(x, centroids))
+
+
+def cosine_similarity(x: torch.Tensor,
+                      centroids: torch.Tensor) -> torch.Tensor:
+    """(N, K) cosine similarity for spherical K-Means: rows and centroids
+    L2-normalized (norms clamped at 1e-12), then one f32 product (TF32
+    off, as the JAX version's HIGHEST precision)."""
+    x = x.float()
+    c = centroids.float()
+    x_n = x / torch.clamp_min(torch.linalg.norm(x, dim=-1, keepdim=True),
+                              1e-12)
+    c_n = c / torch.clamp_min(torch.linalg.norm(c, dim=-1, keepdim=True),
+                              1e-12)
+    return x_n @ c_n.T

@@ -1,7 +1,10 @@
 """The port's CLI against the JAX package's on the same .npz, on the CPU,
-for distributedKMeans, distributedFuzzyCMeans and gaussianMixture, with
-and without a shared --weight_file, and on bfloat16 data files (.npy and
+for distributedKMeans, distributedFuzzyCMeans, gaussianMixture and
+bisectingKMeans (k-means++ pinned in both packages), --minibatch and
+--init=kmeans_parallel (the JAX CLI's draws fed to the port), with and
+without a shared --weight_file, and on bfloat16 data files (.npy and
 .npz, as ml_dtypes arrays store them) under --dtype float32 and bfloat16.
+The JAX CLI's checks of these flags give the same words in both.
 
 Both write one CSV row; they must agree on every column except the
 timings, `backend` and `points_per_sec_per_chip`, with `sse` within rtol
@@ -219,15 +222,166 @@ def test_cli_default_device_fails_without_a_card(npz, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--method_name=bisectingKMeans"],
     ["--shard_k=2"],
-    ["--init=kmeans_parallel"],
 ])
 def test_cli_unported_flags_name_the_roadmap(npz, flags, capsys):
     with pytest.raises(SystemExit) as exc:
         tcli.main(["--K=4", f"--data_file={npz}", *flags])
     assert exc.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def _pin_kmeanspp(monkeypatch):
+    """Both packages' k-means++ pinned to the same function of its inputs
+    (tests/test_torch_bisecting.py), so every bisecting split starts
+    alike."""
+    from test_torch_bisecting import pin_jax, pin_port
+
+    from tdc_tpu.models import kmeans as jkm
+    from tdc_tpu_torch.models import kmeans as tkm
+
+    monkeypatch.setattr(jkm, "init_kmeans_pp", pin_jax)
+    monkeypatch.setattr(tkm, "init_kmeans_pp", pin_port)
+
+
+def _inject_kmeans_parallel(monkeypatch, n, k, seed=7):
+    """The port's k-means‖ fed the JAX CLI's draws (its key is
+    PRNGKey(--seed), handed to init_kmeans_parallel as it is)."""
+    import jax
+
+    from test_torch_kmeans_parallel import JaxDraws, inject
+
+    inject(monkeypatch, JaxDraws(jax.random.PRNGKey(seed), n, k))
+
+
+def _rows_match(npz, tmp_path, flags):
+    """Both CLIs on the same file: every column equal but the timings and
+    `sse` (rtol 1e-5). Returns the port's row."""
+    jlog, tlog = tmp_path / "jax.csv", tmp_path / "port.csv"
+    assert jcli.main([*flags, f"--data_file={npz}", f"--log_file={jlog}",
+                      "--n_GPUs=1", "--cache_dir="]) == 0
+    assert tcli.main([*flags, f"--data_file={npz}", f"--log_file={tlog}",
+                      "--device", "cpu"]) == 0
+    j, t = _row(jlog), _row(tlog)
+    assert list(j) == list(t) and t["status"] == "ok"
+    np.testing.assert_allclose(float(t["sse"]), float(j["sse"]), rtol=1e-5)
+    for col in set(j) - TIMING - {"sse"}:
+        assert t[col] == j[col], col
+    return t
+
+
+@pytest.mark.parametrize("flags", [
+    ["--method_name=bisectingKMeans"],
+    ["--init=kmeans_parallel"],
+])
+def test_cli_retired_refusals_now_agree_with_jax(npz, tmp_path, flags,
+                                                 monkeypatch):
+    # Both raised a parse error naming the ROADMAP (A8) before bisecting
+    # and k-means‖ were ported. Now: the same options give the JAX CLI's
+    # row (k-means++ pinned in both packages for the splits; the JAX
+    # draws for k-means‖).
+    _pin_kmeanspp(monkeypatch)
+    _inject_kmeans_parallel(monkeypatch, 3000, 4)
+    _rows_match(npz, tmp_path, ["--K=4", "--n_max_iters=5", "--seed=7",
+                                *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--method_name=bisectingKMeans", "--K=12", "--n_max_iters=10"],
+    ["--method_name=bisectingKMeans", "--K=12", "--n_max_iters=10",
+     "WEIGHTS"],
+    ["--method_name=bisectingKMeans", "--K=12", "--n_max_iters=10",
+     "--num_batches=3"],
+    ["--method_name=bisectingKMeans", "--K=12", "--n_max_iters=10",
+     "--streamed", "WEIGHTS"],
+], ids=["in_memory", "weighted", "streamed", "streamed_weighted"])
+def test_cli_bisecting_rows_agree(npz, weights, tmp_path, flags,
+                                  monkeypatch):
+    _pin_kmeanspp(monkeypatch)
+    flags = [f"--weight_file={weights}" if f == "WEIGHTS" else f
+             for f in flags]
+    t = _rows_match(npz, tmp_path, ["--seed=7", "--tol=1e-4", *flags])
+    assert t["method_name"] == "bisectingKMeans" and int(t["n_iter"]) >= 11
+
+
+@pytest.mark.parametrize("flags", [
+    ["--kernel=xla", "--num_batches=4"],
+    ["--kernel=pallas", "--num_batches=4"],
+    ["--kernel=pallas", "--num_batches=3", "--reassignment_ratio=0"],
+    ["--kernel=xla"],  # one batch: the whole set (no device memory)
+    ["--kernel=xla", "--num_batches=5", "--init=kmeans_parallel"],
+], ids=["xla", "pallas", "pallas_no_reassign", "one_batch", "kmeans_par"])
+def test_cli_minibatch_rows_agree(npz, tmp_path, flags, monkeypatch):
+    # The reassignment's uniforms: the JAX CLI's (its MiniBatchKMeans
+    # splits PRNGKey(--seed) into an init key and a step key), from the
+    # start in each of the two fits.
+    import jax
+
+    from test_torch_minibatch import JaxUniforms
+
+    from tdc_tpu_torch import models as tmodels
+    from tdc_tpu_torch.models import minibatch as tmb
+
+    init_key, step_key = jax.random.split(jax.random.PRNGKey(7))
+    real = tmodels.minibatch_kmeans_fit
+
+    def fed(*args, **kwargs):
+        monkeypatch.setattr(tmb, "_uniforms", JaxUniforms(step_key))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tmodels, "minibatch_kmeans_fit", fed)
+    rows = -(-3000 // int(next((f.split("=")[1] for f in flags
+                                if f.startswith("--num_batches")), 1)))
+    # --init=kmeans_parallel seeds on the first batch with the init key.
+    from test_torch_kmeans_parallel import JaxDraws, inject
+
+    inject(monkeypatch, JaxDraws(init_key, rows, 40))
+    t = _rows_match(npz, tmp_path, ["--K=40", "--n_max_iters=4",
+                                    "--tol=-1", "--seed=7", "--minibatch",
+                                    "--init=first_k", *flags])
+    assert t["n_iter"] == "4"
+
+
+@pytest.mark.parametrize("flags", [
+    ["--method_name=distributedFuzzyCMeans"],
+    ["--method_name=gaussianMixture", "--kernel=pallas"],
+    ["--num_batches=3", "--kernel=pallas"],
+])
+def test_cli_kmeans_parallel_rows_agree(npz, tmp_path, flags, monkeypatch):
+    n = 3000 if "--num_batches=3" not in flags else 1000  # the first batch
+    _inject_kmeans_parallel(monkeypatch, n, 40)
+    _rows_match(npz, tmp_path, ["--K=40", "--n_max_iters=5", "--tol=-1",
+                                "--seed=7", "--init=kmeans_parallel",
+                                *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--minibatch", "--method_name=distributedFuzzyCMeans"],
+    ["--minibatch", "--shard_k=2", "--n_GPUs=2"],
+    ["--minibatch", "--mean_combine"],
+    ["--minibatch", "--empty_policy=relocate"],
+    ["--minibatch", "--kernel=refined"],
+    ["--minibatch", "--kernel=pallas_bf16"],
+    ["--minibatch", "--layout=features"],
+    ["--minibatch", "WEIGHTS"],
+    ["--reassignment_ratio=0.5"],
+    ["--minibatch", "--reassignment_ratio=1.5"],
+    ["--method_name=bisectingKMeans", "--spherical"],
+    ["--method_name=bisectingKMeans", "--mean_combine"],
+    ["--method_name=bisectingKMeans", "--kernel=xla"],
+    ["--method_name=bisectingKMeans", "--init=first_k"],
+    ["--method_name=bisectingKMeans", "--history_file=h.csv"],
+])
+def test_cli_checks_in_the_jax_words(npz, weights, flags, capsys):
+    flags = [f"--weight_file={weights}" if f == "WEIGHTS" else f
+             for f in flags]
+    words = []
+    for cli in (jcli, tcli):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(["--K=4", f"--data_file={npz}", *flags])
+        assert exc.value.code == 2
+        words.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert words[1].split("error: ")[1] == words[0].split("error: ")[1]
 
 
 # Several ranks: two gloo ranks on the CPU, each a spawned process that

@@ -1196,3 +1196,73 @@ def test_tall_fit_on_the_tile_form_matches_the_plain_fit(gen):
     assert (a.n_iter, a.converged) == (b.n_iter, b.converged)
     torch.testing.assert_close(a.centroids.cpu(), b.centroids, rtol=0.0,
                                atol=1e-4)
+
+
+# The model zoo on the card (no new kernel: B1 and B4 carry the mini-batch
+# steps, k-means‖ and bisecting run on plain ops). k-means‖: K distinct
+# rows, bitwise repeats, the same seeds as on the CPU from the same draws.
+def test_kmeans_parallel_on_the_card(gen, monkeypatch):
+    from tdc_tpu_torch.ops import kmeans_parallel as tkp
+
+    x, _ = _data(gen, 5000, 37, 19)
+    runs = [tkp.init_kmeans_parallel(
+        torch.Generator(device="cuda").manual_seed(3), x, 37)
+        for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert len({tuple(r) for r in runs[0].cpu().tolist()}) == 37
+    # The CPU run fed the card run's draws picks the same rows (the
+    # products differ in their last bits only).
+    draws = []
+    real = tkp._draw
+    monkeypatch.setattr(tkp, "_draw", lambda *a: draws.append(real(*a))
+                        or draws[-1])
+    card = tkp.init_kmeans_parallel(
+        torch.Generator(device="cuda").manual_seed(3), x, 37)
+    it = iter(draws)
+    monkeypatch.setattr(tkp, "_draw", lambda *a: next(it).cpu())
+    cpu = tkp.init_kmeans_parallel(torch.Generator(), x.cpu(), 37)
+    assert torch.equal(card.cpu(), cpu)
+
+
+# Mini-batch steps on B1 and B4: the stats route launches once a step;
+# the state matches the CPU step (the kernels' plain versions) within
+# 1e-4, the counts exactly.
+@pytest.mark.parametrize("weighted", [False, True])
+def test_minibatch_steps_on_the_kernels(gen, weighted):
+    from tdc_tpu_torch.models import minibatch as tmb
+
+    x, c = _data(gen, 6000, 37, 19)
+    w = (torch.rand(6000, generator=gen, device="cuda") * 2
+         if weighted else None)
+    fn = lk.lloyd_stats_fused_weighted if weighted else lk.lloyd_stats_fused
+    states = {}
+    for dev in ("cuda", "cpu"):
+        st = tmb.MiniBatchState(c.to(dev).clone(), torch.zeros(37,
+                                                               device=dev),
+                                0, torch.tensor(float("inf"), device=dev))
+        before = fn.launches
+        for s in range(0, 6000, 2000):
+            st = tmb.minibatch_step(
+                st, x[s:s + 2000].to(dev), sample_weight=(
+                    None if w is None else w[s:s + 2000].to(dev)),
+                kernel="pallas")
+        assert fn.launches == before + (3 if dev == "cuda" else 0)
+        states[dev] = st
+    a, b = states["cuda"], states["cpu"]
+    torch.testing.assert_close(a.centroids.cpu(), b.centroids, rtol=0.0,
+                               atol=1e-4)
+    torch.testing.assert_close(a.counts.cpu(), b.counts, rtol=1e-5,
+                               atol=1e-4)
+
+
+# Bisecting on the card: bitwise repeats, and the CPU fit's labels.
+def test_bisecting_on_the_card(gen):
+    from tdc_tpu_torch.models import bisecting as tbis
+
+    x, _ = _data(gen, 4000, 6, 5)
+    fits = [tbis.bisecting_kmeans_fit(
+        x, 6, generator=torch.Generator(device="cuda").manual_seed(1),
+        return_labels=True) for _ in range(2)]
+    assert torch.equal(fits[0][0].centroids, fits[1][0].centroids)
+    assert (fits[0][1] == fits[1][1]).all()
+    assert int(fits[0][0].n_iter) >= 5

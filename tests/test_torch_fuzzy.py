@@ -253,16 +253,36 @@ ONE_RANK = tmesh.make_mesh(1)
 
 @pytest.mark.parametrize("kw", [
     {"mesh": ONE_RANK, "init": "kmeans_parallel"},
-    {"sample_weight": np.ones(100, np.float32), "mesh": ONE_RANK,
-     "init": "k-means||"},
+    {"sample_weight": True, "mesh": ONE_RANK, "init": "k-means||"},
     {"init": "kmeans_parallel"},
     {"init": "k-means||"},
     {"init": "kmeans||"},
 ])
-def test_unported_fuzzy_options_raise_naming_the_roadmap(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfz.fuzzy_cmeans_fit(np.zeros((100, 4), np.float32), 3,
-                             device="cpu", max_iters=2, **kw)
+def test_fuzzy_kmeans_parallel_init_follows_jax(monkeypatch, kw):
+    # These raised NotImplementedError (naming A8) before k-means‖ was
+    # ported. Now: seeded with JAX's draws, the fit is the JAX package's
+    # (rank 0 draws and broadcasts on the one-rank mesh).
+    from test_torch_kmeans_parallel import JaxDraws, inject
+
+    kw = dict(kw)
+    x, _ = _blobs(6)
+    w = None
+    if kw.pop("sample_weight", False):
+        w = np.random.default_rng(6).uniform(0, 2, len(x)).astype(
+            np.float32)
+        w[::9] = 0.0
+    k = 6
+    key = jax.random.PRNGKey(4)
+    inject(monkeypatch, JaxDraws(key, len(x), k, weighted=w is not None))
+    j = jfz.fuzzy_cmeans_fit(x, k, init=kw["init"], key=key,
+                             sample_weight=w, max_iters=15, tol=1e-4)
+    t = tfz.fuzzy_cmeans_fit(x, k, sample_weight=w, max_iters=15, tol=1e-4,
+                             device="cpu", **kw)
+    assert t.n_iter == int(j.n_iter) and t.converged == bool(j.converged)
+    np.testing.assert_allclose(t.centroids.numpy(), np.asarray(j.centroids),
+                               rtol=RTOL, atol=1e-5)
+    np.testing.assert_allclose(float(t.objective), float(j.objective),
+                               rtol=RTOL)
 
 
 @pytest.mark.parametrize("case", ["features", "tall_on_samples"])

@@ -38,7 +38,9 @@ def test_no_jax_imports_in_port_or_chip_smoke():
     assert {"fuzzy.py", "fuzzy_kernels.py", "_common.py", "gmm.py",
             "gmm_kernels.py", "loader.py", "synthetic.py", "tall.py",
             "multihost.py", "mesh.py", "reduce.py", "collectives.py",
-            "sharded_k.py"} <= names
+            "sharded_k.py", "kmeans_parallel.py", "minibatch.py",
+            "bisecting.py", "persist.py", "estimators.py",
+            "metrics.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
@@ -55,7 +57,13 @@ def test_importing_the_port_loads_no_jax():
         "tdc_tpu_torch.models.gmm, tdc_tpu_torch.ops.gmm_kernels, "
         "tdc_tpu_torch.convert, tdc_tpu_torch.data.loader, "
         "tdc_tpu_torch.data.synthetic, tdc_tpu_torch.parallel, "
-        "tdc_tpu_torch.parallel.sharded_k; "
+        "tdc_tpu_torch.parallel.sharded_k, "
+        "tdc_tpu_torch.ops.kmeans_parallel, tdc_tpu_torch.models.minibatch, "
+        "tdc_tpu_torch.models.bisecting, tdc_tpu_torch.models.persist, "
+        "tdc_tpu_torch.models.estimators, tdc_tpu_torch.analysis.metrics, "
+        "tdc_tpu_torch.data.batching; "
+        "import tdc_tpu_torch as t; "
+        "[getattr(t, n) for n in t.__all__]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tdc_tpu', 'ml_dtypes')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -76,3 +84,16 @@ def test_chip_smoke_fails_without_a_card():
                           env=env)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_every_public_name_of_the_jax_package_resolves_from_the_port():
+    import tdc_tpu
+
+    missing = [name for name in tdc_tpu.__all__
+               if not hasattr(tdc_tpu_torch, name)]
+    assert missing == []
+    for name in ("BisectingKMeans", "MiniBatchKMeans", "bisecting_kmeans_fit",
+                 "minibatch_kmeans_fit", "init_kmeans_parallel",
+                 "save_fitted", "load_fitted"):
+        assert callable(getattr(tdc_tpu_torch, name)), name
+    assert set(tdc_tpu.__all__) <= set(tdc_tpu_torch.__all__)

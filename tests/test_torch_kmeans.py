@@ -171,14 +171,34 @@ ONE_RANK = tmesh.make_mesh(1)
 
 @pytest.mark.parametrize("kw", [
     {"mesh": ONE_RANK, "empty_policy": "relocate"},
-    {"sample_weight": np.ones(100, np.float32), "mesh": ONE_RANK,
-     "init": "kmeans||"},
-    {"init": "kmeans||"},
 ])
 def test_unported_options_raise_naming_the_roadmap(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tkm.kmeans_fit(np.zeros((100, 4), np.float32), 3, device="cpu",
                        max_iters=2, **kw)
+
+
+@pytest.mark.parametrize("weighted_on_a_mesh", [True, False])
+def test_kmeans_parallel_init_follows_jax(monkeypatch, weighted_on_a_mesh):
+    # Both raised NotImplementedError (naming A8) before k-means‖ was
+    # ported. Now: seeded with JAX's draws, the fit is the JAX package's
+    # (rank 0 draws and broadcasts on the one-rank mesh).
+    from test_torch_kmeans_parallel import JaxDraws, inject
+
+    x, init = _blobs(4)
+    w = None
+    if weighted_on_a_mesh:
+        w = np.random.default_rng(4).uniform(0, 2, len(x)).astype(
+            np.float32)
+        w[::9] = 0.0
+    key = jax.random.PRNGKey(3)
+    inject(monkeypatch, JaxDraws(key, len(x), 12, weighted=w is not None))
+    j = jkm.kmeans_fit(x, 12, init="kmeans||", key=key, sample_weight=w,
+                       max_iters=10, tol=1e-4)
+    t = tkm.kmeans_fit(x, 12, init="kmeans||", sample_weight=w,
+                       mesh=ONE_RANK if weighted_on_a_mesh else None,
+                       max_iters=10, tol=1e-4, device="cpu")
+    _assert_fit(j, t)
 
 
 @pytest.mark.parametrize("case", ["features", "tall_on_samples",

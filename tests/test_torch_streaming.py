@@ -720,8 +720,6 @@ def test_nonfinite_batch_makes_the_fit_raise():
     (lambda s: tgmm.streamed_gmm_fit(s, K, D, init="first_k",
                                      reduce="per_pass:bf16", device="cpu"),
      "A7)"),
-    (lambda s: tst.streamed_kmeans_fit(s, K, D, init="kmeans||",
-                                       device="cpu"), "A8"),
     (lambda s: tload.NpzStream(np.zeros((4, 2)), 2, crc_sidecar={}),
      "A7(d)"),
     (lambda s: tst.streamed_fuzzy_fit(s, K, D, init="first_k", ckpt_every=5,
@@ -732,6 +730,27 @@ def test_refusals_name_their_queue_item(call, item):
     with pytest.raises(NotImplementedError, match=item.replace(
             "(", r"\(").replace(")", r"\)")):
         call(tload.NpzStream(x, ROWS))
+
+
+def test_streamed_kmeans_parallel_init_follows_jax(monkeypatch):
+    # This raised NotImplementedError (naming A8) before k-means‖ was
+    # ported. Now: seeded on the first batch with JAX's draws, the
+    # streamed fit is the JAX package's.
+    import jax
+
+    from test_torch_kmeans_parallel import JaxDraws, inject
+
+    from tdc_tpu.models import streaming as jst
+
+    x, _ = _blobs()
+    key = jax.random.PRNGKey(8)
+    inject(monkeypatch, JaxDraws(key, ROWS, K))
+    want = jst.streamed_kmeans_fit(_jstream(x, ROWS), K, D, init="kmeans||",
+                                   key=key, max_iters=12, tol=1e-4)
+    got = tst.streamed_kmeans_fit(tload.NpzStream(x, ROWS), K, D,
+                                  init="kmeans||", max_iters=12, tol=1e-4,
+                                  device="cpu")
+    _assert_fit(_out(got), _out(want))
 
 
 def test_kernel_refusals_in_the_jax_words():
@@ -958,9 +977,42 @@ def test_cli_oom_retry_drops_the_in_memory_copy(npy, tmp_path, monkeypatch,
     assert alive == [[False], [False]]
 
 
+@pytest.mark.parametrize("flags", [["--minibatch"],
+                                   ["--init=kmeans_parallel"]])
+def test_cli_streamed_retired_refusals_agree_with_jax(npy, tmp_path, flags,
+                                                      monkeypatch):
+    # Both were refused (naming A8b and A8a) before mini-batch and
+    # k-means‖ were ported. Now: the same flags over the streamed rows
+    # give the JAX CLI's row (--init is first_k in CLI_FLAGS, the last
+    # --init wins; k-means‖ seeds on the first batch with JAX's draws:
+    # the mini-batch fit's init key, the streamed fit's PRNGKey(--seed)
+    # as it is).
+    import jax
+
+    from test_torch_kmeans_parallel import JaxDraws, inject
+
+    from tdc_tpu.cli import main as jcli
+
+    key = jax.random.PRNGKey(7)
+    if "--minibatch" in flags:
+        key = jax.random.split(key)[0]
+    inject(monkeypatch, JaxDraws(key, 750, 40))
+    jlog, tlog = tmp_path / "jax.csv", tmp_path / "port.csv"
+    args = [*CLI_FLAGS, *flags, "--reassignment_ratio=0"
+            if "--minibatch" in flags else "--kernel=pallas",
+            f"--data_file={npy}"]
+    assert jcli.main([*args, f"--log_file={jlog}", "--n_GPUs=1",
+                      "--cache_dir="]) == 0
+    assert tcli.main([*args, f"--log_file={tlog}", "--device", "cpu"]) == 0
+    j, t = _row(jlog), _row(tlog)
+    assert list(j) == list(t)
+    assert (t["num_batches"], t["n_iter"], t["status"]) == ("4", "5", "ok")
+    np.testing.assert_allclose(float(t["sse"]), float(j["sse"]), rtol=RTOL)
+    for col in set(j) - TIMING - {"sse"}:
+        assert t[col] == j[col], col
+
+
 @pytest.mark.parametrize("flags, words", [
-    (["--minibatch"], "A8b"),
-    (["--init=kmeans_parallel"], "A8a"),
     (["--num_batches=4", "--reduce=per_pass:bf16"], "A7)"),
     (["--method_name=distributedFuzzyCMeans", "--shard_k=2",
       "--mean_combine"], "--mean_combine supports distributedKMeans only"),
