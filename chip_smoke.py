@@ -8,8 +8,9 @@ and without sample weights, bf16 Lloyd K-Means, Fuzzy C-Means, diagonal
 Gaussian Mixture EM, feature-major K-Means and Fuzzy C-Means
 (--layout=features), the streamed fits (--num_batches) with the
 OOM-adaptive retry, and two ranks on the one card: the K-sharded Fuzzy
-C-Means tower (--shard_k), data-parallel K-Means (--n_GPUs=2) and
-streamed K-Means; and
+C-Means tower (--shard_k), data-parallel K-Means and Gaussian Mixture EM
+(--n_GPUs=2) and streamed K-Means (per batch, per pass and quantized);
+four ranks as a hierarchical (2, 2) mesh; and
 through the functions: the sorted stats with the row gather fused in
 (sorted_cluster_stats(fuse_gather=True)) and the K-sharded K-Means tower
 (kmeans_fit_sharded) on two ranks. Phases, each of which raises on
@@ -224,6 +225,32 @@ failure (nothing is caught):
    bitwise equal to its function; save_fitted then load_fitted predicts
    the same labels; silhouette, Davies-Bouldin and Calinski-Harabasz at
    N=2^16, finite and bitwise repeatable.
+18. The rest of data parallel. [dp_gmm_route]: the GMM route's CLI
+   (diag, K=1024, d=128) with --kernel=xla (B9 is single-device) at
+   N=2^20 (cut from 2^22: the in-memory E-step's (rows, K) tensors of
+   two ranks and the one-GPU fit do not fit one card at 2^22) on two
+   ranks against one GPU: n_iter equal, the log-likelihood within
+   REL_TOL, means within 1e-4, every rank's means bitwise equal, no
+   kernel launched. [dp_relocate]: kmeans_fit(mesh, empty_policy=
+   "relocate", kernel="pallas") at B1's shape on two ranks from seeds of
+   which 8 are parked far from every point, after 1 and 3 steps, against
+   one GPU: B1 n_iter + 1 times per rank and nothing else, n_iter equal,
+   SSE within REL_TOL, after one step the relocated rows bitwise one
+   GPU's and the centroids within 1e-4 (after 3, within 0.05: later
+   steps flip near-tie rows). [stream_dp_q]: the stream_dp CLI over 5
+   steps on two ranks with --reduce=per_pass, per_pass:bf16 and
+   per_pass:int8 (and Fuzzy C-Means, m=2, per_pass and per_pass:int8):
+   the quantized SSE (J_m) within 1e-3 of per_pass (the centroids moved
+   past 0.05 are counted), fewer logical bytes, the strategy label
+   JAX's, B1 (B6) 2 x 4 x passes per rank (k-means++ seeds: from
+   first_k ones five steps carry the quantization into other label
+   flips). [hier]: four ranks on the card as a (2, 2)
+   make_hierarchical_mesh(2) against four flat ranks, streamed K-Means
+   on the stream_dp points per_batch (one step: n_iter and SSE equal
+   within REL_TOL, centroids within 1e-4, twice the flat fit's reduces)
+   and per_pass:int8 (5 steps: the SSE within 1e-3 of the flat per_pass
+   and per_pass:int8 fits); every rank's centroids bitwise equal in
+   every fit, B1 4 x passes per rank.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -455,6 +482,39 @@ STREAM_DP_ARGS = [
     "--n_dim=128", "--K=1024", "--kernel=pallas", "--n_max_iters=1",
     "--tol=-1", "--seed=0", "--init=first_k", "--num_batches=4",
 ]
+# The rest of data parallel. [dp_gmm_route]: GMM_ARGS on --kernel=xla
+# (the mesh E-step is the torch one: B9 is single-device), N cut from
+# 2^22 to 2^20: the in-memory E-step holds several (rows, K) f32 tensors
+# at once (logp, r and their temporaries, ~4 GB each at 2^20 rows), too
+# many for two ranks and the one-GPU fit on one card at 2^22.
+# [dp_relocate]: B1's shape on two ranks, RELOCATE_EMPTY centroids parked
+# far from every point (empty after the first step, so relocated), 1 and
+# RELOCATE_ITERS steps. [stream_dp_q]: STREAM_DP_ARGS over Q_ITERS steps
+# from k-means++ seeds (rank 0's draw on the first batch), per_pass
+# against per_pass:bf16 and per_pass:int8: the SSE within Q_SSE_TOL
+# (JAX's bound, tests/test_reduce.py:304-381); the centroids past JAX's
+# 0.05 (Q_CENTROID_TOL) are counted, not held: with 1024 centroids some
+# share a blob and split it along near-ties, which the encoding's
+# perturbation flips (on an NVIDIA H100 80GB HBM3 at 700 W one moved 0.23
+# under bf16 with the SSE 9.7e-5 apart; PERF.md). From first_k seeds
+# (several in one of the 1024 blobs, whose boundaries then cut it) five
+# steps carried the quantization's perturbation into other label flips,
+# 1.8e-3 (bf16) and 5.5e-3 (int8) off the per_pass SSE with a centroid
+# 7.6 apart (same card); k-means++ seeds one blob each, nearly. [hier]:
+# HIER_RANKS ranks as a (2, 2) mesh (n_hosts=2 on the one card) against
+# HIER_RANKS flat ranks on the stream_dp points, per_batch (one step from
+# first_k) and per_pass:int8 (Q_ITERS from k-means++).
+DP_GMM_N = 1 << 20
+DP_GMM_ARGS = [a.replace("--kernel=pallas", "--kernel=xla")
+               .replace(f"--n_obs={B1_SHAPE[0]}", f"--n_obs={DP_GMM_N}")
+               for a in GMM_ARGS]
+RELOCATE_EMPTY = 8
+RELOCATE_ITERS = 3
+RELOCATE_SEED = 19
+Q_ITERS = 5
+Q_SSE_TOL = 1e-3
+Q_CENTROID_TOL = 0.05
+HIER_RANKS = 4
 # The [oom] child's allocator may hold this share of the points' bytes;
 # its fits run OOM_ITERS iterations, to keep the phase short.
 OOM_SHARE = 0.5
@@ -1966,23 +2026,31 @@ def _rank_env(rank, world, port) -> None:
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
 
 
+# The fits of tdc_tpu_torch.models whose results a CLI rank sends back.
+RANK_FITS = ("streamed_kmeans_fit", "streamed_fuzzy_fit", "kmeans_fit",
+             "streamed_gmm_fit", "gmm_fit")
+
+
 def _rank_cli(rank, world, port, args, queue) -> None:
     """One rank of a multi-GPU CLI run, launched as torchrun would: the
     CLI joins the process group from the environment. Sends back (rank,
-    exit code, (launch counts, rank 0's centroids of the computation fit
-    as numpy, or None)) or (rank, -1, the traceback)."""
+    exit code, (launch counts, the computation fit's centroids or means
+    as numpy and its comms tuple, or None for both)) or (rank, -1, the
+    traceback)."""
     _rank_env(rank, world, port)
     try:
         reset_counts()
-        with Captured("kmeans_fit", "streamed_kmeans_fit") as cap:
+        with Captured(*RANK_FITS) as cap:
             rc = cli.main(args)
         seen = counts()
+        fit = next((cap.last[n] for n in RANK_FITS if n in cap.last), None)
         # numpy, not a tensor: torch would share a CPU tensor's storage
         # by file descriptor, gone once the rank exits.
-        fit = cap.last.get("streamed_kmeans_fit", cap.last.get("kmeans_fit"))
-        c = (fit.centroids.cpu().numpy() if rank == 0 and fit is not None
-             else None)
-        queue.put((rank, rc, (seen, c)))
+        c = (None if fit is None else getattr(
+            fit, "means", getattr(fit, "centroids", None)).cpu().numpy())
+        comms = None if fit is None or fit.comms is None else tuple(
+            fit.comms)
+        queue.put((rank, rc, (seen, c, comms)))
     except BaseException:
         queue.put((rank, -1, traceback.format_exc()))
 
@@ -2028,20 +2096,23 @@ def _rank_kmeans_sharded(rank, world, port, args, queue) -> None:
         queue.put((rank, -1, traceback.format_exc()))
 
 
-def spawn_ranks(target, args, name) -> list:
-    """`target(rank, RANKS, port, args, queue)` on RANKS spawned ranks;
+def spawn_ranks(target, args, name, world=RANKS) -> list:
+    """`target(rank, world, port, args, queue)` on `world` spawned ranks;
     returns each rank's result. Every rank must send (rank, 0, result)."""
+    # The ranks share the card with this process: hand its allocator's
+    # cached blocks back first.
+    torch.cuda.empty_cache()
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=target, args=(r, RANKS, port, args, queue))
-             for r in range(RANKS)]
+    procs = [ctx.Process(target=target, args=(r, world, port, args, queue))
+             for r in range(world)]
     for p in procs:
         p.start()
     got = {}
     deadline = time.monotonic() + RANK_TIMEOUT
     try:
-        while len(got) < RANKS:  # drain before joining
+        while len(got) < world:  # drain before joining
             try:
                 rank, rc, result = queue.get(timeout=5)
                 got[rank] = (rc, result)
@@ -2060,16 +2131,16 @@ def spawn_ranks(target, args, name) -> list:
             if p.is_alive():
                 p.kill()
                 p.join()
-    for rank in range(RANKS):
+    for rank in range(world):
         rc, result = got[rank]
         require(rc == 0, f"{name}: rank {rank} exited {rc}: {result}")
-    return [got[r][1] for r in range(RANKS)]
+    return [got[r][1] for r in range(world)]
 
 
-def run_ranks(args, tmp, name) -> tuple[dict, list, object]:
+def run_ranks(args, tmp, name) -> tuple[dict, list, list]:
     """The CLI on RANKS spawned ranks, counts reset in each just before;
-    returns (rank 0's CSV row, each rank's launch counts, rank 0's
-    centroids of its K-Means computation fit or None). Every rank must
+    returns (rank 0's CSV row, each rank's launch counts, each rank's
+    (centroids or means, comms) of its computation fit). Every rank must
     exit 0 and the log must hold one row: rank 0's."""
     log = os.path.join(tmp, f"{name}.csv")
     t0 = time.perf_counter()
@@ -2083,9 +2154,10 @@ def run_ranks(args, tmp, name) -> tuple[dict, list, object]:
           f"launches {seen}, row {json.dumps(row)}", flush=True)
     require(row["status"] == "ok" and row["backend"] == "cuda"
             and row["num_GPUs"] == str(RANKS), f"{name}: row {row}")
-    require(math.isfinite(float(row["sse"])) and float(row["sse"]) >= 0.0,
-            f"{name}: cost column {row['sse']}")
-    return row, seen, got[0][1]
+    require(math.isfinite(float(row["sse"])) and (
+        float(row["sse"]) >= 0.0 or row["method_name"] == "gaussianMixture"),
+        f"{name}: cost column {row['sse']}")
+    return row, seen, [g[1:] for g in got]
 
 
 def phase_fused_gather_step() -> int:
@@ -2274,6 +2346,279 @@ def stream_line(name, row, res, split=None) -> str:
                 f"{split['copy_s'] / (comp / passes):.1%} of the pass), "
                 f"kernel alone {split['kernel_ms']:.3f} ms a pass")
     return out
+
+
+def relocate_data():
+    """[dp_relocate]'s points (B1's shape) and seeds: blobs from a
+    generator seeded with RELOCATE_SEED, the first RELOCATE_EMPTY seeds
+    parked at 1000 + i, far from every point."""
+    n, k, d = B1_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(RELOCATE_SEED)
+    x, c = blob_data(gen, n, k, d)
+    init = c + 0.3 * torch.randn(c.shape, generator=gen, device="cuda")
+    init[:RELOCATE_EMPTY] = 1000.0 + torch.arange(
+        RELOCATE_EMPTY, device="cuda", dtype=torch.float32)[:, None]
+    return x, init
+
+
+def _relocate_fits(x, init, mesh) -> dict:
+    """kmeans_fit with relocation after 1 and RELOCATE_ITERS steps on
+    the kernel route; each fit's launches counted from 0."""
+    out = {}
+    for iters in (1, RELOCATE_ITERS):
+        reset_counts()
+        res = kmeans_fit(x, B1_SHAPE[1], init=init, mesh=mesh,
+                         kernel="pallas", max_iters=iters, tol=-1,
+                         empty_policy="relocate")
+        out[iters] = dict(launches=counts(), n_iter=res.n_iter,
+                          sse=float(res.sse),
+                          centroids=res.centroids.cpu().numpy())
+    return out
+
+
+def _rank_relocate(rank, world, port, args, queue) -> None:
+    """One rank of [dp_relocate]: the same points and seeds on every
+    rank, a mesh of `world` ranks. Sends back (rank, 0, _relocate_fits)
+    or (rank, -1, the traceback)."""
+    _rank_env(rank, world, port)
+    try:
+        multihost.initialize_from_env()
+        try:
+            x, init = relocate_data()
+            out = _relocate_fits(x, init, make_mesh(world))
+        finally:
+            multihost.shutdown()
+        queue.put((rank, 0, out))
+    except BaseException:
+        queue.put((rank, -1, traceback.format_exc()))
+
+
+def _rank_hier(rank, world, port, args, queue) -> None:
+    """One rank of [hier]: streamed K-Means on the stream_dp points (every
+    rank the same host array, first_k seeds) on a flat mesh and on a
+    (2, 2) hierarchical one (n_hosts=2), per_batch for one step and
+    per_pass:int8 (and per_pass, flat) for Q_ITERS from k-means++ seeds.
+    Sends back (rank, 0,
+    {(mesh, reduce): launches, n_iter, sse, centroids, comms})."""
+    from tdc_tpu_torch.data import NpzStream
+    from tdc_tpu_torch.models import streamed_kmeans_fit
+    from tdc_tpu_torch.parallel.mesh import make_hierarchical_mesh
+
+    _rank_env(rank, world, port)
+    try:
+        multihost.initialize_from_env()
+        try:
+            n, d, k = (1 << 22) + 3, 128, 1024
+            host = stream_points(n, d, k)
+            meshes = {"flat": make_mesh(world),
+                      "hier": make_hierarchical_mesh(2)}
+            out = {}
+            for mesh_name, reduce, iters in (
+                    ("flat", "per_batch", 1), ("hier", "per_batch", 1),
+                    ("flat", "per_pass", Q_ITERS),
+                    ("flat", "per_pass:int8", Q_ITERS),
+                    ("hier", "per_pass:int8", Q_ITERS)):
+                # One step from first_k; Q_ITERS from k-means++ (rank
+                # 0's draw on the first batch, the same in every fit).
+                init = (host[:k].copy() if iters == 1 else "kmeans++")
+                reset_counts()
+                res = streamed_kmeans_fit(
+                    NpzStream(host, -(-n // 4)), k, d, init=init,
+                    generator=torch.Generator(device="cuda").manual_seed(0),
+                    mesh=meshes[mesh_name], kernel="pallas", reduce=reduce,
+                    max_iters=iters, tol=-1)
+                out[mesh_name, reduce] = dict(
+                    launches=counts(), n_iter=res.n_iter,
+                    sse=float(res.sse), comms=tuple(res.comms),
+                    centroids=res.centroids.cpu().numpy())
+        finally:
+            multihost.shutdown()
+        queue.put((rank, 0, out))
+    except BaseException:
+        queue.put((rank, -1, traceback.format_exc()))
+
+
+def phase_dp_rest(tmp, card) -> None:
+    """[dp_gmm_route], [dp_relocate], [stream_dp_q] and [hier] (see the
+    constants above DP_GMM_N)."""
+    # [dp_gmm_route]: the CLI on two ranks against one GPU, both on the
+    # torch E-step (no kernel may launch).
+    one, seen, fits = run_cli_captured(DP_GMM_ARGS, tmp, "dp_gmm_one",
+                                       "gmm_fit")
+    require_launches("dp_gmm_one", seen)
+    one_means = fits["gmm_fit"].means.cpu()
+    row, seen, got = run_ranks([*DP_GMM_ARGS, f"--n_GPUs={RANKS}"], tmp,
+                               "dp_gmm_route")
+    for rank, per_rank in enumerate(seen):
+        require_launches(f"dp_gmm_route, rank {rank}", per_rank)
+    for rank in range(1, RANKS):
+        require(np.array_equal(got[rank][0], got[0][0]),
+                f"dp_gmm_route: rank {rank}'s means differ from rank 0's")
+    rel = abs(float(row["sse"]) - float(one["sse"])) / abs(float(one["sse"]))
+    require(row["n_iter"] == one["n_iter"] and rel <= REL_TOL,
+            f"dp_gmm_route: n_iter {row['n_iter']}, log-likelihood "
+            f"{row['sse']} vs one GPU's {one['n_iter']}, {one['sse']}")
+    # Ten EM steps at K=1024 carry the f32 order of the sums (one GPU's
+    # against two ranks') forward through every component's mean
+    # (sx / nk): the means are held within REL_TOL * 10 of their scale
+    # (on an NVIDIA H100 80GB HBM3 at 700 W they were 3.09e-4 apart at a
+    # scale of 4.5, the log-likelihood 7.6e-8 apart; PERF.md).
+    scale = float(one_means.abs().max())
+    diff = (torch.from_numpy(got[0][0]) - one_means).abs()
+    worst = int(diff.max(dim=1).values.argmax())
+    err = check_centroids("dp_gmm_route", torch.from_numpy(got[0][0]),
+                          one_means, 10 * REL_TOL * scale)
+    w1 = float(fits["gmm_fit"].weights[worst])
+    print(f"[dp_gmm_route] N={DP_GMM_N} (cut from {B1_SHAPE[0]}) "
+          f"K={B1_SHAPE[1]} d={B1_SHAPE[2]} diag, --kernel=xla on {RANKS} "
+          f"ranks against one GPU: n_iter {row['n_iter']} == "
+          f"{one['n_iter']}, log-likelihood {row['sse']} vs {one['sse']} "
+          f"(rel {rel:.3g}), max mean diff {err:.3g} (scale {scale:.3g}; "
+          f"at component {worst}, weight {w1:.3g} against 1/K = "
+          f"{1 / B1_SHAPE[1]:.3g}); computation_time "
+          f"{row['computation_time']} s (one GPU {one['computation_time']} "
+          f"s); {card}", flush=True)
+    # [dp_relocate]: two ranks against one GPU, the same seeds.
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_rank_relocate, None, "dp_relocate")
+    rank_s = time.perf_counter() - t0
+    x, init = relocate_data()
+    t0 = time.perf_counter()
+    mine = _relocate_fits(x, init, None)
+    one_s = time.perf_counter() - t0
+    del x, init
+    for iters in (1, RELOCATE_ITERS):
+        a, b = ranks[0][iters], mine[iters]
+        for rank, r in enumerate(ranks):
+            require_launches(f"dp_relocate {iters}, rank {rank}",
+                             r[iters]["launches"], B1=r[iters]["n_iter"] + 1)
+            require(np.array_equal(r[iters]["centroids"], a["centroids"]),
+                    f"dp_relocate: rank {rank}'s centroids differ from "
+                    "rank 0's")
+        rel = abs(a["sse"] - b["sse"]) / b["sse"]
+        require(a["n_iter"] == b["n_iter"] == iters and rel <= REL_TOL,
+                f"dp_relocate {iters}: n_iter {a['n_iter']}, sse "
+                f"{a['sse']} vs one GPU's {b['n_iter']}, {b['sse']}")
+        # After the first step a relocated seed sits on a blob's outlier
+        # beside the blob's own centroid, and the boundary between them
+        # cuts the blob: later steps flip near-tie rows between the ranks'
+        # sum order and one GPU's (a flip moves a centroid by its row over
+        # the cluster's count), so only the first step is held to 1e-4.
+        err = check_centroids(f"dp_relocate {iters}",
+                              torch.from_numpy(a["centroids"]),
+                              torch.from_numpy(b["centroids"]),
+                              1e-4 if iters == 1 else Q_CENTROID_TOL)
+        parked = a["centroids"][:RELOCATE_EMPTY]
+        require(float(np.abs(parked).max()) < 100.0,
+                f"dp_relocate {iters}: a parked seed was not relocated")
+        if iters == 1:
+            # The relocated centroids are data rows: the same rows, bits
+            # and all, as one GPU's top_k order picks.
+            require(np.array_equal(parked, b["centroids"][:RELOCATE_EMPTY]),
+                    "dp_relocate: the relocated rows differ from one GPU's")
+        print(f"[dp_relocate] kmeans_fit(mesh, empty_policy='relocate', "
+              f"kernel='pallas') N={B1_SHAPE[0]} K={B1_SHAPE[1]} "
+              f"d={B1_SHAPE[2]}, {RELOCATE_EMPTY} seeds parked, {iters} "
+              f"step(s) on {RANKS} ranks: launches "
+              f"{[r[iters]['launches']['B1'] for r in ranks]} B1 each, "
+              f"n_iter {a['n_iter']}, sse {a['sse']:.8g} vs one GPU's "
+              f"{b['sse']:.8g} (rel {rel:.3g}), max centroid diff "
+              f"{err:.3g}", flush=True)
+    print(f"[dp_relocate] {rank_s:.1f} s for the {RANKS} ranks' fits "
+          f"(spawn and points included), {one_s:.1f} s one GPU's", flush=True)
+    # [stream_dp_q]: the quantized per-pass reduces on two ranks, K-Means
+    # (B1) and Fuzzy C-Means (B6, m=2).
+    q_args = [*[a for a in STREAM_DP_ARGS[1:] if not a.startswith(
+        ("--n_max_iters", "--init"))], f"--n_max_iters={Q_ITERS}",
+        "--init=kmeans++", f"--n_GPUs={RANKS}"]
+    for method, flags, key, reduces in (
+            ("kmeans", ["--method_name=distributedKMeans"], "B1",
+             ("per_pass", "per_pass:bf16", "per_pass:int8")),
+            ("fuzzy", ["--method_name=distributedFuzzyCMeans",
+                       "--fuzzifier=2.0"], "B6",
+             ("per_pass", "per_pass:int8"))):
+        runs = {}
+        for reduce in reduces:
+            name = f"stream_dp_q_{method}_{reduce.replace(':', '_')}"
+            row, seen, got = run_ranks([*flags, *q_args,
+                                        f"--reduce={reduce}"], tmp, name)
+            comms = got[0][1]
+            for rank, per_rank in enumerate(seen):
+                require_launches(f"{name}, rank {rank}", per_rank,
+                                 **{key: 2 * 4 * comms[3]})
+                require(np.array_equal(got[rank][0], got[0][0]),
+                        f"{name}: rank {rank}'s centroids differ from rank "
+                        "0's")
+            require(comms[0] == reduce and int(row["n_iter"]) == Q_ITERS,
+                    f"{name}: strategy {comms[0]}, n_iter {row['n_iter']}")
+            runs[reduce] = (row, got[0][0], comms, seen[0][key])
+        f32_row, f32_c, f32_comms, _ = runs["per_pass"]
+        for reduce in reduces[1:]:
+            row, c, comms, launches = runs[reduce]
+            rel = abs(float(row["sse"]) - float(f32_row["sse"])) / float(
+                f32_row["sse"])
+            moved = np.abs(c - f32_c).max(axis=1)
+            require(rel <= Q_SSE_TOL and comms[2] < f32_comms[2],
+                    f"stream_dp_q {method} {reduce}: cost rel {rel}, "
+                    f"logical bytes {comms[2]} vs per_pass {f32_comms[2]}")
+            print(f"[stream_dp_q] {method} {reduce} on {RANKS} ranks, "
+                  f"{Q_ITERS} steps: cost {row['sse']} vs per_pass "
+                  f"{f32_row['sse']} (rel {rel:.3g}, tolerance {Q_SSE_TOL}),"
+                  f" max centroid diff {moved.max():.3g}, "
+                  f"{int((moved > Q_CENTROID_TOL).sum())} of {len(moved)} "
+                  f"centroids past {Q_CENTROID_TOL}; comms {comms[1]} "
+                  f"reduces, {comms[2]} logical bytes vs per_pass "
+                  f"{f32_comms[1]}, {f32_comms[2]} "
+                  f"({comms[2] / f32_comms[2]:.3f}x); {key} {launches} a "
+                  f"rank; computation_time {row['computation_time']} s vs "
+                  f"{f32_row['computation_time']} s", flush=True)
+    # [hier]: four ranks as a (2, 2) mesh against four flat ranks.
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_rank_hier, None, "hier", world=HIER_RANKS)
+    hier_s = time.perf_counter() - t0
+    res = ranks[0]
+    for key in res:
+        for rank, r in enumerate(ranks):
+            require(np.array_equal(r[key]["centroids"], res[key]["centroids"])
+                    and r[key]["sse"] == res[key]["sse"],
+                    f"hier {key}: rank {rank}'s centroids or sse differ from "
+                    "rank 0's")
+            require_launches(f"hier {key}, rank {rank}", r[key]["launches"],
+                             B1=4 * r[key]["comms"][3])
+    a, b = res["hier", "per_batch"], res["flat", "per_batch"]
+    rel = abs(a["sse"] - b["sse"]) / b["sse"]
+    require(a["n_iter"] == b["n_iter"] and rel <= REL_TOL,
+            f"hier per_batch: n_iter {a['n_iter']}, sse {a['sse']} vs flat "
+            f"{b['n_iter']}, {b['sse']}")
+    err = check_centroids("hier per_batch", torch.from_numpy(a["centroids"]),
+                          torch.from_numpy(b["centroids"]))
+    require(a["comms"][1] == 2 * b["comms"][1],
+            f"hier per_batch: {a['comms'][1]} reduces vs flat "
+            f"{b['comms'][1]} (two stages each)")
+    print(f"[hier] per_batch, one step, {HIER_RANKS} ranks as (2, 2) vs "
+          f"flat: n_iter {a['n_iter']}, sse {a['sse']:.8g} vs "
+          f"{b['sse']:.8g} (rel {rel:.3g}), max centroid diff {err:.3g}; "
+          f"comms {a['comms']} vs {b['comms']}; every rank's centroids "
+          f"bitwise equal", flush=True)
+    f32 = res["flat", "per_pass"]
+    for mesh_name in ("flat", "hier"):
+        q = res[mesh_name, "per_pass:int8"]
+        refs = [("flat per_pass", f32)]
+        if mesh_name == "hier":
+            refs.append(("flat per_pass:int8", res["flat", "per_pass:int8"]))
+        for ref_name, ref in refs:
+            rel = abs(q["sse"] - ref["sse"]) / ref["sse"]
+            moved = np.abs(q["centroids"] - ref["centroids"]).max(axis=1)
+            require(q["n_iter"] == Q_ITERS and rel <= Q_SSE_TOL,
+                    f"hier {mesh_name} int8 vs {ref_name}: sse rel {rel}")
+            print(f"[hier] {mesh_name} per_pass:int8, {Q_ITERS} steps, "
+                  f"against {ref_name}: sse {q['sse']:.8g} vs "
+                  f"{ref['sse']:.8g} (rel {rel:.3g}), max centroid diff "
+                  f"{moved.max():.3g}, {int((moved > Q_CENTROID_TOL).sum())}"
+                  f" of {len(moved)} centroids past {Q_CENTROID_TOL}; comms "
+                  f"{q['comms']}", flush=True)
+    print(f"[hier] {hier_s:.1f} s for the {HIER_RANKS} ranks' five fits "
+          f"(spawn and points included); {card}", flush=True)
 
 
 def _oom_child(npy, log, fraction, queue) -> None:
@@ -2535,8 +2880,9 @@ def phase_streams(tmp) -> dict:
     one_c = fits["streamed_kmeans_fit"].centroids.cpu()
     for reduce in ("per_batch", "per_pass"):
         name = f"stream_dp_{reduce}"
-        row, seen, c = run_ranks([*STREAM_DP_ARGS, f"--n_GPUs={RANKS}",
-                                  f"--reduce={reduce}"], tmp, name)
+        row, seen, fits = run_ranks([*STREAM_DP_ARGS, f"--n_GPUs={RANKS}",
+                                     f"--reduce={reduce}"], tmp, name)
+        c = fits[0][0]
         for rank, per_rank in enumerate(seen):
             require_launches(f"{name}, rank {rank}", per_rank,
                              B1=2 * 4 * passes)
@@ -3084,6 +3430,10 @@ def main() -> int:
         # The streamed routes (--num_batches), the mini-batch route and the
         # OOM-adaptive retry.
         phase_streams(tmp)
+
+        # The rest of data parallel: the GMM and relocation on a mesh,
+        # the quantized per-pass reduces, the hierarchical mesh.
+        phase_dp_rest(tmp, card)
 
         # The model zoo: seeding, bisecting, the estimators.
         phase_seeding(card, tmp, fused_row)

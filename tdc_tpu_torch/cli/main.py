@@ -1,6 +1,6 @@
 """Experiment CLI — the reference-parity subset of tdc_tpu/cli/main.py
 for Lloyd K-Means, Fuzzy C-Means, Gaussian Mixture EM and bisecting
-K-Means, on one GPU or, but for Gaussian Mixture EM, on several.
+K-Means, on one GPU or on several.
 
 Same flags (where ported), the same three timed phases (setup; a first fit
 counted as initialization; a warm re-fit counted as computation), the
@@ -19,7 +19,10 @@ ceil(n_obs / num_batches)-row batches of host points, copied to the card
 batch by batch; `--weight_file` streams alongside. `--mean_combine` runs
 the reference's approximation instead (an independent fit per batch,
 centroids averaged; distributedKMeans). `--reduce=per_pass` all-reduces
-once per pass instead of once per batch on several GPUs; `--prefetch`
+once per pass instead of once per batch on several GPUs, and
+`--reduce=per_pass:bf16` or `:int8` also quantizes the (K, d) sums on
+the wire with error feedback (kmeans, fuzzy and gaussianMixture);
+`--prefetch`
 reads batches on a background thread; `--history_file` writes the
 per-iteration [cost, shift] CSV of a K-Means or fuzzy fit.
 
@@ -54,8 +57,10 @@ default) runs the samples layout: the JAX CLI's auto picks features only
 on a TPU.
 Several GPUs: one process per GPU, e.g. `torchrun --nproc_per_node=4 -m
 tdc_tpu_torch.cli.main --n_GPUs=4 ...` (--n_GPUs must equal the launch's
-world size). distributedKMeans and distributedFuzzyCMeans then run data
-parallel (each rank fits its block of rows, the stats are all-reduced);
+world size). distributedKMeans, distributedFuzzyCMeans and
+gaussianMixture then run data parallel (each rank fits its block of rows,
+the stats are all-reduced; gaussianMixture on the torch E-step, as
+--kernel=pallas is single-device);
 --shard_k=P runs distributedFuzzyCMeans on the K-sharded tower over an
 (n_GPUs/P, P) grid of ranks (--kernel=pallas: B7 + B8 on each shard).
 Every rank builds the same points; rank 0 alone writes the CSV row and
@@ -118,9 +123,10 @@ def build_parser() -> argparse.ArgumentParser:
                             "per_pass:int8"),
                    help="cross-GPU stats reduction of the streamed fits: "
                         "'per_pass' all-reduces once per iteration instead "
-                        "of once per batch (f32 summation reorder); the "
-                        "quantized ':bf16'/':int8' are not ported yet "
-                        "(ROADMAP.md Queue A, A7)")
+                        "of once per batch (f32 summation reorder); "
+                        "':bf16'/':int8' additionally quantize the (K, d) "
+                        "sums on the wire with error feedback (1-D meshes "
+                        "of several GPUs only)")
     p.add_argument("--prefetch", type=int, default=0,
                    help="streamed modes: background-thread batch prefetch "
                         "depth (0 = off)")
@@ -232,10 +238,6 @@ def _validate_streaming(parser, args) -> None:
         parser.error("--prefetch must be >= 0")
     if args.minibatch and args.shard_k > 1:
         parser.error("--minibatch and --shard_k are mutually exclusive")
-    if ":" in args.reduce:
-        parser.error(f"--reduce={args.reduce} (the quantized per-pass "
-                     "reduce with error feedback) is not ported yet "
-                     "(ROADMAP.md Queue A, A7)")
     if args.mean_combine:
         if args.method_name != "distributedKMeans":
             parser.error("--mean_combine supports distributedKMeans only")
@@ -293,6 +295,10 @@ def _validate_devices(parser, args) -> None:
     n = args.n_devices
     if n is not None and n < 1:
         parser.error("--n_GPUs must be >= 1")
+    if (args.method_name == "gaussianMixture" and args.kernel == "pallas"
+            and n is not None and n > 1):
+        # The JAX CLI's parse-time check (the launch is checked after).
+        parser.error("--kernel=pallas gaussianMixture is single-device")
     if n is not None and n > 1 and world == 1:
         parser.error(
             f"--n_GPUs={n} runs one process per GPU: launch them with "
@@ -303,9 +309,13 @@ def _validate_devices(parser, args) -> None:
         parser.error(f"--n_GPUs={n} but this launch has {world} ranks; "
                      "they must be equal (one rank per GPU)")
     n = n or world
-    if n > 1 and args.method_name == "gaussianMixture":
-        parser.error("--n_GPUs > 1 with gaussianMixture is not ported yet "
-                     "(ROADMAP.md Queue A, A4: the GMM's mesh)")
+    if (args.shard_k > 1 and _streamy(args)
+            and args.reduce.startswith("per_pass:")):
+        # The JAX CLI's words (its K-sharded streamed drivers run per_batch
+        # and per_pass only).
+        parser.error("--reduce=per_pass:bf16|int8 applies to the 1-D "
+                     "streamed fits; --shard_k supports "
+                     "--reduce=per_batch|per_pass")
     if args.shard_k > 1 and _streamy(args):
         parser.error(
             "--num_batches/--streamed/--mean_combine with --shard_k run the "
@@ -449,6 +459,8 @@ def run_experiment(args) -> dict:
     from tdc_tpu_torch.utils.timing import PhaseTimers
 
     timers = PhaseTimers()
+    fuzzy = args.method_name == "distributedFuzzyCMeans"
+    gmm = args.method_name == "gaussianMixture"
     bf16 = args.dtype == "bfloat16"
     # 'auto' resolves to samples, as the JAX CLI's does off a TPU.
     features = args.layout == "features"
@@ -457,6 +469,11 @@ def run_experiment(args) -> dict:
         if features and n_devices > 1:
             raise ValueError(
                 "--layout=features is single-device; pass --n_GPUs=1")
+        if gmm and args.kernel == "pallas" and n_devices > 1:
+            # The parse-time check sees only an explicit --n_GPUs.
+            raise ValueError(
+                "--kernel=pallas gaussianMixture is single-device "
+                f"(resolved n_devices={n_devices}); pass --n_GPUs=1")
         mesh = mesh2d = None
         if args.shard_k > 1:
             if n_devices % args.shard_k != 0:
@@ -503,8 +520,6 @@ def run_experiment(args) -> dict:
                 raise ValueError(f"weight file has shape {weights.shape}; "
                                  f"expected ({n_obs},)")
 
-    fuzzy = args.method_name == "distributedFuzzyCMeans"
-    gmm = args.method_name == "gaussianMixture"
     # The points live only in `state` from here: a streamed retry after an
     # out-of-memory in-memory fit must be able to drop every copy on the
     # card.
@@ -646,7 +661,7 @@ def run_experiment(args) -> dict:
         if gmm:
             return gmm_fit(
                 xx, args.K, init=args.init, generator=gen,
-                max_iters=args.n_max_iters, tol=args.tol,
+                max_iters=args.n_max_iters, tol=args.tol, mesh=mesh,
                 covariance_type=args.covariance_type, sample_weight=weights,
                 kernel=kernel, device=dev,
             )

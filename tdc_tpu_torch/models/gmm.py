@@ -28,9 +28,15 @@ under the kernel's name. 'auto' resolves to pallas on CUDA where eligible,
 else xla, with one `kernel_selected` event. Sample weights run on xla.
 
 Supported: float32 or bfloat16 inputs (bf16 points are widened to f32 at
-entry, as the JAX version takes `xf = x.astype(f32)` throughout), no
-mesh in memory: mesh raises NotImplementedError naming ROADMAP.md A4;
-the K-sharded fit (A9) has no entry point in the port yet.
+entry, as the JAX version takes `xf = x.astype(f32)` throughout), and
+mesh= for all four covariance types: every rank passes the same x, takes
+its block of rows (`parallel.mesh.shard_points`), and each E-step's
+log-likelihood, Σr, Σr·x and second moment, the hard-assignment moments
+of the start and the tied type's Σxxᵀ are summed over the data axes in
+one all_reduce each; the M-step (and its Cholesky factors) then runs
+alike on every rank. The mesh E-step is the torch one: kernel='pallas'
+with a mesh raises, as the JAX version refuses its Pallas E-step there.
+The K-sharded fit (A9) has no entry point in the port yet.
 
 `streamed_gmm_fit` is the exact out-of-core EM (counterpart:
 `streamed_gmm_fit`, `_batch_gmm_stats[_weighted]`,
@@ -60,10 +66,10 @@ import torch
 from tdc_tpu_torch.models._common import validate_sample_weight
 from tdc_tpu_torch.models.kmeans import (
     _as_points,
-    _not_ported,
     auto_block_rows,
     kmeans_fit,
     resolve_init,
+    resolve_init_replicated,
 )
 from tdc_tpu_torch.ops.assign import assign_clusters, cluster_stats
 from tdc_tpu_torch.ops.gmm_kernels import GMMStats, gmm_stats_for
@@ -207,20 +213,37 @@ def _m_step_t(nk, sx, second, wsum, reg, cov_type: str):
     return means, cov, weights / weights.sum()
 
 
+def _psum_data(mesh, *ts):
+    """The tensors `ts` summed over the mesh's data axes in one
+    all_reduce (f32)."""
+    from tdc_tpu_torch.parallel.mesh import data_axes
+    from tdc_tpu_torch.parallel.reduce import tree_all_reduce
+
+    return tuple(tree_all_reduce(tuple(ts), mesh, data_axes(mesh)))
+
+
 def _em_loop(x, means0, cov0, weights0, max_iters: int, tol: float,
              reg: float, cov_type: str = "diag", w=None,
-             kernel: str = "xla"):
+             kernel: str = "xla", mesh=None, n=None):
     """The EM iteration; returns (means, cov, weights, n_iter, final_ll,
     converged). `w` (sample weights) scales each row's responsibilities
-    (xla only)."""
-    n, d = x.shape
-    wsum = (w.sum() if w is not None
-            else torch.tensor(float(n), dtype=torch.float32, device=x.device))
+    (xla only). With `mesh`, x (and w) are this rank's rows, n the
+    global row count, and the E-step's sums are summed over the data
+    axes."""
+    d = x.shape[1]
+    if n is None:
+        n = x.shape[0]
+    if w is not None:
+        wsum = w.sum() if mesh is None else _psum_data(mesh, w.sum())[0]
+    else:
+        wsum = torch.tensor(float(n), dtype=torch.float32, device=x.device)
     if cov_type == "tied":
         # Σ wᵢ xxᵀ is iteration-constant (responsibilities sum to 1 per
         # point), so the tied M-step needs only nk and sx per iteration.
         xw = x if w is None else x * w[:, None]
         s_total = xw.T @ x
+        if mesh is not None:
+            s_total = _psum_data(mesh, s_total)[0]
     if kernel == "pallas":
         stats_fn = gmm_stats_for(means0.shape[0], d, label="gmm_fit")
 
@@ -239,9 +262,6 @@ def _em_loop(x, means0, cov0, weights0, max_iters: int, tol: float,
         r = torch.exp(logp - norm)
         if w is not None:
             r = r * w[:, None]
-            ll = (w * norm[:, 0]).sum() / wsum
-        else:
-            ll = norm.mean()
         nk = r.sum(dim=0)
         sx = r.T @ x
         if cov_type in ("diag", "spherical"):
@@ -252,6 +272,14 @@ def _em_loop(x, means0, cov0, weights0, max_iters: int, tol: float,
                               for j in range(r.shape[1])])
         else:  # tied: the second moment is the precomputed constant
             s2 = None
+        if mesh is not None:
+            ll_sum = (norm.sum() if w is None
+                      else (w * norm[:, 0]).sum())
+            sums = (ll_sum, nk, sx) + (() if s2 is None else (s2,))
+            ll_sum, nk, sx, *rest = _psum_data(mesh, *sums)
+            return ll_sum / wsum, nk, sx, (rest[0] if rest else None)
+        ll = ((w * norm[:, 0]).sum() / wsum if w is not None
+              else norm.mean())
         return ll, nk, sx, s2
 
     means, cov, weights = means0, cov0, weights0
@@ -293,29 +321,31 @@ def gmm_fit(
 
     Args:
       x: (N, d) points (numpy or torch), float32 on `device` (bfloat16
-        widened, which is exact).
+        widened, which is exact). With `mesh`, the same on every rank and
+        N divisible by the mesh size.
       init: 'kmeans' (a short K-Means fit seeds the means: k-means++, 10
         iterations, tol 1e-3, best of 3 — sklearn's default), any
         resolve_init spec ('kmeans++', 'random', 'first_k'), or an explicit
         (K, d) means array. Initial variances and weights come from the
-        hard assignment to the initial means.
+        hard assignment to the initial means. With `mesh`, the draws are
+        rank 0's (`kmeans_fit(mesh=)`, `resolve_init_replicated`).
       generator: torch.Generator on `device` for the stochastic inits
         (default: one seeded with 0).
       tol: threshold on the mean per-point log-likelihood gain (sklearn
         semantics).
       reg_covar: variance floor added every M-step.
+      mesh: a `parallel.mesh.Mesh` (`make_mesh`, `make_hierarchical_mesh`):
+        each rank fits its rows and every rank returns the same result.
       covariance_type: 'diag' | 'spherical' | 'tied' | 'full'
         (result.variances takes the matching shape).
       sample_weight: optional (N,) nonnegative per-point weights, scaling
         each point's responsibilities (equivalent to repeating rows); xla
         only.
       kernel: 'xla' (plain PyTorch ops), 'pallas' (the E-step kernel B9:
-        diag or spherical, unweighted) or 'auto' / 'auto:quantized'
-        (pallas on CUDA where eligible, xla otherwise).
+        diag or spherical, unweighted, single-device) or 'auto' /
+        'auto:quantized' (pallas on CUDA where eligible, xla otherwise).
       device: None means 'cuda'; 'cpu' runs the plain versions.
     """
-    if mesh is not None:
-        raise _not_ported("mesh (multi-GPU data parallel)", "Queue A, A4")
     if covariance_type not in COVARIANCE_TYPES:
         raise ValueError(
             f"covariance_type must be one of {COVARIANCE_TYPES}, "
@@ -324,14 +354,15 @@ def gmm_fit(
     x = _as_points(x, dev).float()
     n, d = x.shape
     eligible = (covariance_type in ("diag", "spherical")
-                and sample_weight is None)
+                and sample_weight is None and mesh is None)
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
 
         kernel = resolve_kernel(
             kernel, k=k, d=d, device=dev, model="gmm", label="gmm_fit",
             ineligible=(None if eligible else
-                        "the fused E-step is diag/spherical, unweighted"))
+                        "the fused E-step is diag/spherical, unweighted, "
+                        "single-device only"))
     if kernel not in ("xla", "pallas"):
         raise ValueError(f"unknown kernel {kernel!r} (use 'xla' or 'pallas')")
     if kernel == "pallas" and not eligible:
@@ -343,24 +374,36 @@ def gmm_fit(
         w = validate_sample_weight(sample_weight, n, k, dev)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    if mesh is not None and n % mesh.size != 0:
+        raise ValueError(f"N={n} not divisible by mesh size {mesh.size}")
     if isinstance(init, str) and init == "kmeans":
         # Best of 3 k-means++ restarts by SSE: one draw can split or merge
         # blobs, and EM inherits that basin.
         means0 = kmeans_fit(
             x, k, init="kmeans++", generator=generator, max_iters=10,
-            tol=1e-3, n_init=3, sample_weight=sample_weight, device=dev,
+            tol=1e-3, mesh=mesh, n_init=3, sample_weight=sample_weight,
+            device=dev,
         ).centroids
+    elif mesh is not None:
+        means0 = resolve_init_replicated(x, k, init, generator, mesh, w)
     else:
         means0 = resolve_init(x, k, init, generator, w)
     means0 = means0.to(torch.float32).contiguous()
+    if mesh is not None:
+        from tdc_tpu_torch.parallel.mesh import shard_points
+
+        x = shard_points(x, mesh)
+        if w is not None:
+            w = shard_points(w, mesh)
     # Initial variances and weights from the hard assignment to the
     # initial means (sklearn's one-hot responsibilities): a loose global
     # variance lets early E-steps merge separated components.
-    variances0, weights0 = _moments_from_hard_assign(x, means0, reg_covar)
+    variances0, weights0 = _moments_from_hard_assign(x, means0, reg_covar,
+                                                     mesh, n)
     cov0 = _diag_to_cov(variances0, weights0, covariance_type)
     means, cov, weights, n_iter, ll, converged = _em_loop(
         x, means0, cov0, weights0, int(max_iters), float(tol),
-        float(reg_covar), covariance_type, w, kernel)
+        float(reg_covar), covariance_type, w, kernel, mesh, n)
     return GMMResult(means=means, variances=cov, weights=weights,
                      n_iter=n_iter, log_likelihood=ll, converged=converged,
                      covariance_type=covariance_type)
@@ -380,28 +423,40 @@ def _diag_to_cov(var, weights, cov_type: str):
                                        device=var.device)[None]
 
 
-def _moments_from_hard_assign(x, means, reg):
+def _moments_from_hard_assign(x, means, reg, mesh=None, n=None):
     """(variances (K, d), weights (K,)) from one-hot nearest-mean
     responsibilities: per-component variance around the component's own
     empirical mean, the global variance for empty components. Labels
     (smallest index on ties) and moments are taken in row blocks of
-    `auto_block_rows`, so no (N, K) buffer outgrows the memory budget."""
-    n = x.shape[0]
+    `auto_block_rows`, so no (N, K) buffer outgrows the memory budget.
+    With `mesh`, x is this rank's rows and n the global row count: the
+    moments, and the global mean and variance, are summed over the data
+    axes."""
     k = means.shape[0]
-    rows = auto_block_rows(n, k, device=x.device) or max(n, 1)
+    rows = auto_block_rows(x.shape[0], k, device=x.device) or max(
+        x.shape[0], 1)
     nk = torch.zeros(k, dtype=torch.float32, device=x.device)
     moments = torch.zeros((k, 2 * x.shape[1]), dtype=torch.float32,
                           device=x.device)
-    for s in range(0, n, rows):
+    for s in range(0, x.shape[0], rows):
         xb = x[s:s + rows]
         sums, counts = cluster_stats(torch.cat([xb, xb * xb], dim=1),
                                      assign_clusters(xb, means), k)
         moments += sums
         nk += counts
+    if mesh is None:
+        n = x.shape[0]
+        gvar = torch.var(x, dim=0, unbiased=False)
+    else:
+        # jnp.var over the global rows: the global mean, then the mean
+        # squared deviation from it.
+        moments, nk, xsum = _psum_data(mesh, moments, nk, x.sum(dim=0))
+        dev2 = _psum_data(mesh, ((x - xsum / n) ** 2).sum(dim=0))[0]
+        gvar = dev2 / n
     safe = torch.clamp_min(nk, 1.0)[:, None]
     mu, ex2 = (moments / safe).chunk(2, dim=1)
     var = torch.clamp_min(ex2 - mu * mu, 0.0) + reg
-    gvar = torch.clamp_min(torch.var(x, dim=0, unbiased=False), 1e-6) + reg
+    gvar = torch.clamp_min(gvar, 1e-6) + reg
     var = torch.where(nk[:, None] > 0, var, gvar[None, :])
     w = torch.clamp_min(nk / n, 1e-12)
     return var, w / w.sum()
@@ -633,7 +688,7 @@ def streamed_gmm_fit(
     weighted = sample_weight_batches is not None
     strategy = reduce_lib.resolve_reduce(reduce)
     st._refuse_unported("streamed_gmm_fit", ckpt_dir=ckpt_dir,
-                        ckpt_every=ckpt_every, strategy=strategy)
+                        ckpt_every=ckpt_every, strategy=strategy, mesh=mesh)
     dev = resolve_device(device)
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel

@@ -161,11 +161,23 @@ def _blocked_min_dist(x, c, block_rows: int) -> torch.Tensor:
     ])
 
 
-def _relocate_empty(x, new_c, counts, block_rows: int) -> torch.Tensor:
+def _relocate_empty(x, new_c, counts, block_rows: int,
+                    mesh=None) -> torch.Tensor:
     """sklearn-style empty-cluster relocation: every zero-count centroid is
     replaced by a distinct highest-cost point (largest squared distance to
     its nearest UPDATED centroid); the i-th empty slot takes the i-th
-    costliest point. The cost pass runs only when a cluster is empty."""
+    costliest point. The cost pass runs only when a cluster is empty.
+
+    With `mesh`, x is this rank's rows and `counts` the summed ones, so
+    every rank takes the same branch. The costliest rows are taken in
+    jax.lax.top_k's order over the global row index (rank-major: the
+    ranks hold contiguous blocks): each rank's top min(K, n_local) by a
+    stable descending sort, then (cost, global index, row) of every rank
+    in one all_reduce of a zero-filled (ranks · m, d + 2) f64 buffer in
+    which each rank fills its own slots (adding zeros is exact; gloo on
+    CUDA tensors has no all_gather), ordered by cost descending and, among
+    equal costs, by global index ascending. Every rank picks the same
+    rows, bit for bit."""
     k = new_c.shape[0]
     empty = counts <= 0.0
     if not bool(empty.any()):
@@ -178,10 +190,36 @@ def _relocate_empty(x, new_c, counts, block_rows: int) -> torch.Tensor:
     # no order among equal values).
     top = torch.sort(mind, descending=True, stable=True).indices[
         :min(k, x.shape[0])]
-    rank = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0,
-                       top.shape[0] - 1)
     cand = x[top].to(torch.float32)
+    if mesh is not None:
+        cand = _global_candidates(x, mind[top], top, cand, k, mesh)
+    rank = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0,
+                       cand.shape[0] - 1)
     return torch.where(empty[:, None], cand[rank], new_c)
+
+
+def _global_candidates(x, cost, top, cand, k: int, mesh) -> torch.Tensor:
+    """The (min(K, N), d) f32 rows of the global top-K costs, in top_k's
+    order, from every rank's local top (see `_relocate_empty`)."""
+    from tdc_tpu_torch.parallel.mesh import data_axes, data_index
+
+    # kmeans_fit(mesh=) takes N divisible by the ranks: equal blocks.
+    index, count = data_index(mesh)
+    n_local = x.shape[0]
+    m = min(k, n_local)
+    buf = torch.zeros((count * m, x.shape[1] + 2), dtype=torch.float64,
+                      device=x.device)
+    slot = buf[index * m:(index + 1) * m]
+    slot[:, 0] = cost
+    slot[:, 1] = (top + index * n_local).to(torch.float64)
+    slot[:, 2:] = cand
+    mesh.psum(buf, *data_axes(mesh))
+    # Cost descending, the global index ascending among equal costs: a
+    # stable sort by cost of the candidates in index order.
+    by_index = torch.sort(buf[:, 1], stable=True).indices
+    order = by_index[torch.sort(buf[by_index, 0], descending=True,
+                                stable=True).indices]
+    return buf[order[:min(k, n_local * count)], 2:].to(torch.float32)
 
 
 def _lloyd_loop(
@@ -222,7 +260,8 @@ def _lloyd_loop(
         if spherical:
             new_c = _normalize(new_c)
         if empty_policy == "relocate":
-            new_c = _relocate_empty(x, new_c, stats.counts, block_rows)
+            new_c = _relocate_empty(x, new_c, stats.counts, block_rows,
+                                    mesh)
             if spherical:
                 new_c = _normalize(new_c)
         shift = torch.linalg.norm(new_c - c, dim=-1).max()
@@ -431,10 +470,6 @@ def kmeans_fit(
             )
         kernel = "tall"
     _check_kernel_options(kernel, sample_weight, mesh)
-    if mesh is not None and empty_policy == "relocate":
-        raise _not_ported(
-            "empty_policy='relocate' with a mesh (the costliest points are "
-            "spread over the ranks)", "Queue A, A4")
     dev = resolve_device(device)
     x = _as_points(x, dev, "(d, N)" if features else "(N, d)")
     if generator is None:

@@ -29,7 +29,12 @@ on the argmin-‖c‖² cluster). The pad count, like a bad batch, travels in
 the stats' all_reduce, so every rank corrects by the same count and
 raises on the same batch. reduce='per_batch' all-reduces every batch;
 'per_pass' accumulates each rank's stats in f32 and all-reduces once per
-pass (`parallel/reduce.py`). The fit result's `comms` counts both.
+pass (`parallel/reduce.py`); 'per_pass:bf16' and 'per_pass:int8' also
+encode the (K, d) sums on the wire, each rank carrying its residual from
+pass to pass (error feedback). On a hierarchical mesh
+(`make_hierarchical_mesh`) a rank's rows are its joint (dcn, ici) block
+and every reduce runs ici first. The fit result's `comms` counts the
+reduces and their logical bytes.
 
 The loops run on the host, as the in-memory fits' do: the shift is read
 once per iteration when tol >= 0. The semantics are the JAX fits':
@@ -41,8 +46,8 @@ streamed fit seeded by name differs from an in-memory one.
 
 Not ported, each raising NotImplementedError that names its ROADMAP.md
 item: checkpoint/resume (A7(b)), residency other than "stream" (A7(c)),
-an ingest policy other than the strict default (A7(d)), the quantized
-per-pass reduces (A7), and coarse or bounded assignment (A10).
+an ingest policy other than the strict default (A7(d)), and coarse or
+bounded assignment (A10).
 """
 
 from __future__ import annotations
@@ -185,14 +190,13 @@ class _Staged(NamedTuple):
 
 
 def _data_ranks(mesh) -> tuple[int, int]:
-    """(this rank's index, count) along the mesh's data axis; (0, 1)
-    without a mesh."""
+    """(this rank's block, the block count) along the mesh's data axes
+    (`parallel.mesh.data_index`); (0, 1) without a mesh."""
     if mesh is None:
         return 0, 1
-    from tdc_tpu_torch.parallel.mesh import data_axes
+    from tdc_tpu_torch.parallel.mesh import data_index
 
-    name = data_axes(mesh)[0]
-    return mesh.axis_index(name), mesh.axis_size(name)
+    return data_index(mesh)
 
 
 def _host_rows(a):
@@ -319,7 +323,9 @@ class _Pass:
     (uncorrected); correct(stats, n_pad, params, dtype) subtracts n_pad
     zero rows' contribution. Per pass: stage, copy, screen, stats; per
     batch (or once per pass) the all_reduce that also carries the pad
-    count and the bad-batch count; then the correction."""
+    count and the bad-batch count; then the correction. A quantized
+    per-pass reduce keeps this rank's error-feedback residual in
+    `self.err` from pass to pass."""
 
     def __init__(self, batches, *, d, mesh, device, prefetch, weighted,
                  strategy, shapes, local, correct):
@@ -334,20 +340,28 @@ class _Pass:
         self.passes = 0
         self.strategy = strategy
         self.zero = lambda: reduce_lib.zero_deferred(shapes, device)
+        self.err = None
         if self.multi:
             from tdc_tpu_torch.parallel.mesh import data_axes
 
-            self.cost = reduce_lib.tree_reduce_cost(shapes, data_axes(mesh))
+            quantize = strategy.quantize
+            self.cost = reduce_lib.tree_reduce_cost(shapes, data_axes(mesh),
+                                                    quantize)
             self.zero, self.acc_add, self.reducer = (
-                reduce_lib.make_deferred_fns(mesh, shapes, local, None,
+                reduce_lib.make_deferred_fns(mesh, shapes, local, quantize,
                                              device))
+            if quantize is not None:
+                self.err = self.zero()
         self.checked_rows = False
 
     def _reduced(self, s, extra, params, dtype, where):
         """All-reduce `s` with `extra` = [pad rows, non-finite batches,
         batches with negative weights] riding in the same buffer: every
         rank then corrects by the same count and raises alike."""
-        s, ex = self.reducer(s, extra)
+        if self.err is None:
+            s, ex = self.reducer(s, extra)
+        else:
+            s, self.err, ex = self.reducer(s, self.err, extra)
         self.counter.add(*self.cost)
         pad, nonfinite, negative = (float(v) for v in ex)
         if negative > 0:
@@ -435,9 +449,10 @@ def _refuse_unported(label: str, *, ckpt_dir=None, ckpt_every=None,
                      ckpt_every_batches=None, ckpt_keep_last_n=None,
                      residency="stream", ingest=None,
                      assign="exact", probe=None, bounds="hamerly",
-                     strategy=None) -> None:
+                     strategy=None, mesh=None) -> None:
     """The streamed fits' options that are not ported, each naming its
-    ROADMAP.md item."""
+    ROADMAP.md item; then the JAX package's check of a quantized reduce
+    (`_reduce_plan`), in its words."""
     if any(v is not None for v in (ckpt_dir, ckpt_every, ckpt_every_batches,
                                    ckpt_keep_last_n)):
         raise _not_ported(
@@ -458,10 +473,11 @@ def _refuse_unported(label: str, *, ckpt_dir=None, ckpt_every=None,
         raise _not_ported(
             f"{label}: assign={assign!r}, probe={probe!r}, bounds="
             f"{bounds!r} (coarse and bounded assignment)", "Queue A, A10")
-    if strategy is not None and strategy.quantize is not None:
-        raise _not_ported(
-            f"{label}: reduce={strategy.label()!r} (the quantized per-pass "
-            "reduce with error feedback)", "Queue A, A7")
+    if (strategy is not None and strategy.quantize is not None
+            and _data_ranks(mesh)[1] <= 1):
+        raise ValueError(
+            "quantized stats reduce requires a multi-device mesh (there is "
+            "no cross-device reduce to quantize)")
 
 
 def _first_batch(stream, d: int, weighted: bool, device):
@@ -667,8 +683,10 @@ def streamed_kmeans_fit(
       kernel: 'xla', 'pallas' (B1, B5 on bf16 batches, B2 + B3 past the
         fused limit; weighted B4 or B2 + B3), 'pallas_bf16' (B5),
         'auto' or 'auto:quantized'.
-      reduce: 'per_batch' (one all_reduce per batch) or 'per_pass' (one
-        per iteration); a ReduceStrategy.
+      reduce: 'per_batch' (one all_reduce per batch), 'per_pass' (one
+        per iteration), 'per_pass:bf16' or 'per_pass:int8' (the (K, d)
+        sums quantized on the wire with error feedback; a mesh of several
+        ranks only); a ReduceStrategy.
       device: None means 'cuda'; 'cpu' runs the plain versions.
       ckpt_dir, ckpt_every, ckpt_every_batches, ckpt_keep_last_n,
       residency, ingest, assign, probe, bounds: the JAX version's, not
@@ -685,7 +703,7 @@ def streamed_kmeans_fit(
                      ckpt_every_batches=ckpt_every_batches,
                      ckpt_keep_last_n=ckpt_keep_last_n, residency=residency,
                      ingest=ingest, assign=assign, probe=probe,
-                     bounds=bounds, strategy=strategy)
+                     bounds=bounds, strategy=strategy, mesh=mesh)
     dev = resolve_device(device)
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
@@ -947,7 +965,7 @@ def streamed_fuzzy_fit(
                      ckpt_every=ckpt_every,
                      ckpt_every_batches=ckpt_every_batches,
                      ckpt_keep_last_n=ckpt_keep_last_n, residency=residency,
-                     ingest=ingest, strategy=strategy)
+                     ingest=ingest, strategy=strategy, mesh=mesh)
     dev = resolve_device(device)
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel

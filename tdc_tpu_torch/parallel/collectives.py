@@ -4,8 +4,9 @@ tdc_tpu/parallel/collectives.py).
 Each rank runs the stats of its rows as on one GPU (`kernel="pallas"`:
 the kernel route, B1 or B5 fused or B2 + B3 sorted for Lloyd, B6 for
 fuzzy; `"xla"`: plain PyTorch ops), then one all_reduce sums the stats
-over the data axis (`reduce.reduced_tree_stats`). Only the (K, d) stats
-cross between ranks.
+over the data axis (`reduce.reduced_tree_stats`); on a hierarchical
+(dcn, ici) mesh two, the ici axis first. Only the (K, d) stats cross
+between ranks.
 """
 
 from __future__ import annotations

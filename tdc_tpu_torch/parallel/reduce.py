@@ -1,11 +1,12 @@
 """Cross-rank reduction of sufficient statistics (counterpart:
 tdc_tpu/parallel/reduce.py: `reduced_tree_stats`, the reduce strategies
 `ReduceStrategy` / `resolve_reduce`, the comms accounting `CommsCounter` /
-`CommsReport`, and the per-pass deferred reduce).
+`CommsReport`, the two-stage and quantized `tree_psum` and the per-pass
+deferred reduce).
 
 Each rank computes the stats of its own rows; every field is then summed
-over the data axis, so every rank holds the stats of all rows. The fields
-travel as one f32 buffer in one `all_reduce`.
+over the data axes, so every rank holds the stats of all rows. The f32
+fields travel as one buffer in one `all_reduce` per mesh axis.
 
 A streamed fit reduces either once per batch ("per_batch", the default)
 or once per pass ("per_pass"): the per-pass mode accumulates each rank's
@@ -14,9 +15,21 @@ stats locally in f32 across the pass (`make_deferred_fns`,
 collectives per iteration instead of O(num_batches). It reorders the f32
 sums, so the two modes agree to accumulation tolerance, not bitwise.
 
-Not ported: the quantized per-pass reduces with error feedback
-("per_pass:bf16", "per_pass:int8"; ROADMAP.md Queue A, A7) and the
-two-stage `tree_psum` of a hierarchical mesh (A4).
+On a hierarchical (dcn, ici) mesh (`mesh.make_hierarchical_mesh`) every
+reduce runs in two stages, the ici axis first (`Mesh.psum`'s order).
+
+"per_pass:bf16" and "per_pass:int8" also encode the rank-≥2 float fields
+(the (K, d) sums, the GMM's second moments) on the last stage of the
+reduce (`tree_psum`): bf16, or int8 codes on a per-row scale that the
+ranks agree by a MAX all_reduce. Each rank keeps what the encoding lost
+(its residual) and adds it into the next pass's reduce (error feedback),
+so the error is deferred, not dropped. The int8 codes travel as int32: a
+sum of int8 codes overflows int8 at two ranks (JAX carries them as f32).
+The bf16 values travel as their two bytes, every rank's in its own row
+of one buffer, and are added in f32 and rounded once, as JAX's psum of bf16
+adds them (`_bf16_sum`). The logical bytes count both as the JAX
+package's model does: two bytes a bf16 value, one an int8 code. Counts
+and scalars stay f32.
 """
 
 from __future__ import annotations
@@ -27,18 +40,12 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from tdc_tpu_torch.parallel.mesh import Mesh, data_axes
 
 _QUANT_MODES = (None, "bf16", "int8")
 _MODES = ("per_batch", "per_pass")
-
-
-def _quantized_not_ported(quantize) -> NotImplementedError:
-    return NotImplementedError(
-        f"the quantized per-pass reduce (per_pass:{quantize}, with error "
-        "feedback) is not ported to tdc_tpu_torch yet (ROADMAP.md Queue A, "
-        "A7)")
 
 
 @dataclass(frozen=True)
@@ -47,9 +54,11 @@ class ReduceStrategy:
 
     mode: "per_batch" (one reduce per streamed batch) or "per_pass"
       (rank-local accumulation, one reduce per iteration).
-    quantize: None | "bf16" | "int8", the JAX package's wire encodings of
-      the (K, d) sums; accepted here and refused by the streamed fits,
-      naming ROADMAP.md A7.
+    quantize: None | "bf16" | "int8", the wire encoding of the rank-≥2
+      stats fields, per-pass mode only, with error feedback.
+
+    The two-stage reduce is not a flag: a mesh from
+    `make_hierarchical_mesh` makes every strategy reduce in two stages.
     """
 
     mode: str = "per_batch"
@@ -158,33 +167,165 @@ class CommsReport(NamedTuple):
         return self.reduces / max(self.passes, 1)
 
 
-def tree_reduce_cost(shapes, axes) -> tuple[int, int]:
-    """(reduces, logical_bytes) of ONE f32 reduce of a stats tree whose
+def _quantized_shape(shape) -> bool:
+    """Fields that ride the quantized wire: the rank-≥2 ones (every stats
+    field here is f32). Counts and scalars stay f32."""
+    return len(shape) >= 2
+
+
+def tree_reduce_cost(shapes, axes, quantize: str | None = None
+                     ) -> tuple[int, int]:
+    """(reduces, logical_bytes) of ONE reduce of a stats tree whose
     fields have the logical `shapes` (e.g. sums (K, d), counts (K,), sse
-    ()), over mesh `axes`: one reduce per axis, each moving the whole
-    payload."""
-    payload = sum(4 * math.prod(s) for s in shapes)
-    return len(axes), len(axes) * payload
+    ()), over mesh `axes`: one reduce per axis, each moving the whole f32
+    payload, but the last stage moves the quantized fields at 2 (bf16) or
+    1 (int8) bytes an element, int8 with a 4-byte scale a row and one
+    scale-agreement reduce per quantized field."""
+    f32_payload = sum(4 * math.prod(s) for s in shapes)
+    n_stages = len(axes)
+    if quantize is None:
+        return n_stages, n_stages * f32_payload
+    q_elem = 1 if quantize == "int8" else 2
+    q_shapes = [s for s in shapes if _quantized_shape(s)]
+    q_payload = sum(4 * math.prod(s) for s in shapes
+                    if not _quantized_shape(s))
+    q_payload += sum(q_elem * math.prod(s) for s in q_shapes)
+    reduces = n_stages
+    nbytes = (n_stages - 1) * f32_payload + q_payload
+    if quantize == "int8":
+        scales = sum(4 * math.prod(s[:-1]) for s in q_shapes)
+        reduces += len(q_shapes)
+        nbytes += 2 * scales  # the scales on the wire, then their MAX
+    return reduces, nbytes
+
+
+def _split(flat: torch.Tensor, like: list) -> list:
+    """`flat` cut into the shapes of the tensors in `like`, in order."""
+    out, at = [], 0
+    for t in like:
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return out
+
+
+def _psum_parts(mesh: Mesh, parts: list, *axes: str,
+                op=dist.ReduceOp.SUM) -> list:
+    """`parts` (tensors of one dtype) reduced over `axes` in one packed
+    all_reduce a stage, each back in its own shape."""
+    if not parts:
+        return []
+    return _split(mesh.psum(torch.cat([t.reshape(-1) for t in parts]),
+                            *axes, op=op), parts)
+
+
+def _rebuild(like, fields):
+    """`fields` in the container type of `like` (a NamedTuple or a
+    tuple)."""
+    return (type(like)(*fields) if hasattr(like, "_fields")
+            else type(like)(fields))
 
 
 def tree_all_reduce(stats, mesh: Mesh, axes: tuple[str, ...], extra=None):
-    """The NamedTuple `stats` with every field summed over `axes`: one
-    all_reduce of the fields packed into one f32 buffer (each element's
-    sum is the same as a reduce of its own field). `extra`, a 1-D f32
-    tensor, rides in the same buffer and comes back summed as a second
-    return value (the streamed fits' pad-row and bad-batch counts)."""
+    """The NamedTuple `stats` with every field summed over `axes` (ici
+    before dcn): one all_reduce a stage of the fields packed into one f32
+    buffer (each element's sum is the same as a reduce of its own field).
+    `extra`, a 1-D f32 tensor, rides in the same buffer and comes back
+    summed as a second return value (the streamed fits' pad-row and
+    bad-batch counts)."""
     fields = [t.float() for t in stats]
-    parts = [t.reshape(-1) for t in fields]
-    if extra is not None:
-        parts.append(extra.float().reshape(-1))
-    flat = torch.cat(parts)
-    mesh.psum(flat, *axes)
-    out, at = [], 0
-    for t in fields:
-        out.append(flat[at:at + t.numel()].view(t.shape))
-        at += t.numel()
-    red = type(stats)(*out)
-    return red if extra is None else (red, flat[at:])
+    parts = fields + ([] if extra is None else [extra.float()])
+    out = _psum_parts(mesh, parts, *axes)
+    red = _rebuild(stats, out[:len(fields)])
+    return red if extra is None else (red, out[-1])
+
+
+def _bf16_sum(qs, mesh: Mesh, axis: str) -> list:
+    """The ranks' bf16 fields `qs` summed over one mesh axis as JAX's
+    psum of bf16 sums them: added in f32, rounded to bf16 once. The bf16
+    values travel in one all_reduce of a zero-filled (ranks, n) bf16
+    buffer in which each rank fills its own row, summed as bytes (uint8:
+    adding zero bytes leaves every bit as it was; a bf16 all_reduce would
+    round after every addition, and gloo on CUDA tensors has no
+    all_gather); every rank then adds the rows in rank order, so every
+    rank holds the same bits."""
+    if not qs:
+        return []
+    n = sum(q.numel() for q in qs)
+    rows = torch.zeros((mesh.axis_size(axis), n), dtype=torch.bfloat16,
+                       device=qs[0].device)
+    rows[mesh.axis_index(axis)] = torch.cat([q.reshape(-1) for q in qs])
+    mesh.psum(rows.view(torch.uint8), axis)
+    total = rows[0].float()
+    for row in rows[1:]:
+        total = total + row.float()
+    return _split(total.to(torch.bfloat16).float(), qs)
+
+
+def _q_psum(ys, mesh: Mesh, axis: str, quantize: str):
+    """The last stage of a quantized reduce of the fields `ys` over one
+    mesh axis (JAX's `_q_psum_leaf`, the fields packed into one
+    all_reduce): (the reduced f32 fields, this rank's residuals y −
+    decode(encode(y)))."""
+    if quantize == "bf16":
+        qs = [y.to(torch.bfloat16) for y in ys]
+        return (_bf16_sum(qs, mesh, axis),
+                [y - q.float() for y, q in zip(ys, qs)])
+    # int8: one scale a row, the MAX of every rank's row max, so every
+    # rank's codes decode alike; the codes are summed exactly as int32.
+    amax = [y.abs().amax(dim=-1, keepdim=True) for y in ys]
+    amax = _psum_parts(mesh, amax, axis, op=dist.ReduceOp.MAX)
+    scales = [torch.clamp_min(a, 1e-30) / 127.0 for a in amax]
+    qs = [torch.clamp(torch.round(y / sc), -127.0, 127.0)
+          for y, sc in zip(ys, scales)]
+    out = _psum_parts(mesh, [q.to(torch.int32) for q in qs], axis)
+    return ([o.float() * sc for o, sc in zip(out, scales)],
+            [y - q * sc for y, q, sc in zip(ys, qs, scales)])
+
+
+def tree_psum(stats, mesh: Mesh, axes: tuple[str, ...], *,
+              quantize: str | None = None, err=None, extra=None):
+    """Reduce a stats NamedTuple over mesh `axes`, innermost first (ici,
+    then dcn). Returns (reduced, new_err), and the summed `extra` third
+    when it is given (see `tree_all_reduce`); new_err is None when
+    quantize is None.
+
+    quantize encodes the rank-≥2 fields on the LAST stage; `err` (the
+    same structure, this rank's residual from the previous reduce) is
+    added to them before the first stage, so on a hierarchical mesh the
+    encoder sees a value that is the same at every ici position (and
+    agrees the same int8 scale). The new residual is then the same
+    within an ici group; it is kept divided by the group size, so the
+    next reduce's ici stage puts back exactly one copy of it."""
+    if quantize is None:
+        out = tree_all_reduce(stats, mesh, axes, extra)
+        return (out, None) if extra is None else (out[0], None, out[1])
+    order = sorted(axes, key=mesh.axis_names.index, reverse=True)
+    early, last = order[:-1], order[-1]
+    fields = [t.float() for t in stats]
+    if err is None:
+        err = [torch.zeros_like(t) for t in fields]
+    q_idx = [i for i, t in enumerate(fields) if _quantized_shape(t.shape)]
+    f_idx = [i for i in range(len(fields)) if i not in q_idx]
+    plain = [fields[i] for i in f_idx]
+    plain += [] if extra is None else [extra.float()]
+    ys = [fields[i] + err[i].float() for i in q_idx]
+    group = 1
+    if early:
+        # The early stages in f32, plain fields and ys in one buffer.
+        both = _psum_parts(mesh, plain + ys, *early)
+        plain, ys = both[:len(plain)], both[len(plain):]
+        group = math.prod(mesh.axis_size(a) for a in early)
+    plain = _psum_parts(mesh, plain, last)
+    q_out, q_err = _q_psum(ys, mesh, last, quantize)
+    out = [None] * len(fields)
+    new_err = [torch.zeros_like(t) for t in fields]
+    for i, t in zip(f_idx, plain):
+        out[i] = t
+    for i, t, e in zip(q_idx, q_out, q_err):
+        out[i] = t
+        new_err[i] = e / group
+    red, new_err = _rebuild(stats, out), _rebuild(stats, new_err)
+    return (red, new_err) if extra is None else (red, new_err, plain[-1])
 
 
 def reduced_tree_stats(mesh: Mesh, local_fn, axis_name: str | None = None):
@@ -216,17 +357,23 @@ def zero_deferred(example, device) -> tuple:
 
 
 def deferred_reduce(mesh: Mesh, quantize: str | None = None):
-    """The ONE cross-rank reduce of a per-pass accumulator:
-    fn(acc, extra=None) → the reduced tree (and the summed `extra`, as
-    `tree_all_reduce`)."""
-    if quantize is not None:
-        raise _quantized_not_ported(quantize)
+    """The ONE cross-rank reduce of a per-pass accumulator. Without
+    quantize: fn(acc, extra=None) → the reduced tree (and the summed
+    `extra`, as `tree_all_reduce`). With quantize: fn(acc, err,
+    extra=None) → (the reduced tree, new_err[, the summed extra]), err
+    being this rank's error-feedback tree (`tree_psum`)."""
     axes = data_axes(mesh)
+    if quantize is None:
+        def run(acc, extra=None):
+            return tree_all_reduce(acc, mesh, axes, extra)
 
-    def run(acc, extra=None):
-        return tree_all_reduce(acc, mesh, axes, extra)
+        return run
 
-    return run
+    def run_q(acc, err, extra=None):
+        return tree_psum(acc, mesh, axes, quantize=quantize, err=err,
+                         extra=extra)
+
+    return run_q
 
 
 def make_deferred_fns(mesh: Mesh, example, tower, quantize: str | None,
@@ -234,7 +381,8 @@ def make_deferred_fns(mesh: Mesh, example, tower, quantize: str | None,
     """(zero_acc, acc_add, reduce) for a per-pass streamed fit:
     acc_add(acc, *args) adds `tower(*args)`, one batch's stats of this
     rank's rows, into the rank-local accumulator in f32 (no collective);
-    reduce is `deferred_reduce`."""
+    reduce is `deferred_reduce`. zero_acc also makes the quantized modes'
+    first error-feedback tree."""
     reducer = deferred_reduce(mesh, quantize)
 
     def acc_add(acc, *args):

@@ -492,7 +492,10 @@ def test_cli_rows_agree_on_two_ranks(npz, tmp_path):
       "--shard_k=2"], "torchrun --nproc_per_node=2"),
     (["--method_name=distributedFuzzyCMeans", "--shard_k=2",
       "--num_batches=4"], "streamed K-sharded towers of A9"),
-    (["--streamed", "--reduce=per_pass:int8"], "A7"),
+    (["--streamed", "--reduce=per_pass:int8", "--n_GPUs=2"],
+     "torchrun --nproc_per_node=2"),
+    (["--method_name=gaussianMixture", "--kernel=pallas", "--n_GPUs=2"],
+     "--kernel=pallas gaussianMixture is single-device"),
 ])
 def test_cli_multi_gpu_rejections(npz, flags, words, capsys):
     with pytest.raises(SystemExit) as exc:

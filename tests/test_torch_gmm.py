@@ -45,6 +45,7 @@ from tdc_tpu_torch import convert
 from tdc_tpu_torch.models import gmm as tgmm
 from tdc_tpu_torch.models import kmeans as tkm
 from tdc_tpu_torch.ops import gmm_kernels as tgk
+from tdc_tpu_torch.parallel import mesh as tmesh
 
 COV_TYPES = ["diag", "spherical", "tied", "full"]
 MAX_ITERS = 12
@@ -271,6 +272,25 @@ def test_gmm_fit_auto_resolves_by_eligibility(capsys):
     assert "diag/spherical, unweighted" in events[2]["reason"]
 
 
+@pytest.mark.parametrize("cov_type", COV_TYPES)
+def test_gmm_fit_on_a_one_rank_mesh_against_jax(cov_type, capsys):
+    # The mesh path (the E-step's sums through the data-axis reduce, the
+    # start's moments with the global mean and variance) on a mesh of one
+    # rank, against the JAX package's one-device mesh.
+    from tdc_tpu.parallel import mesh as jmesh
+
+    x, init, _ = _blobs(6)
+    kw = dict(init=init, max_iters=MAX_ITERS, tol=TOL,
+              covariance_type=cov_type)
+    want = jgmm.gmm_fit(x, 6, mesh=jmesh.make_mesh(1), **kw)
+    got = tgmm.gmm_fit(x, 6, mesh=tmesh.make_mesh(1), kernel="auto",
+                       device="cpu", **kw)
+    _assert_fit(want, got)
+    events = [json.loads(line) for line in capsys.readouterr().err.splitlines()
+              if '"kernel_selected"' in line and '"gmm_fit"' in line]
+    assert [e["kernel"] for e in events] == ["xla"]
+
+
 def _pinned_kmeanspp(draws):
     """A k-means++ stand-in that returns the given (K, d) draws in turn,
     so both packages' init='kmeans' restarts start from the same seeds."""
@@ -386,8 +406,12 @@ def test_gmm_validations():
                      device="cpu")
     with pytest.raises(ValueError, match="unknown kernel"):
         tgmm.gmm_fit(x, 6, init=init, kernel="refined", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        tgmm.gmm_fit(x, 6, init=init, mesh=object(), device="cpu")
+    # A mesh runs the torch E-step: B9 is single-device, as the JAX
+    # package's Pallas E-step is.
+    with pytest.raises(ValueError, match="unweighted, single-device "
+                                         "E-step only"):
+        tgmm.gmm_fit(x, 6, init=init, mesh=tmesh.make_mesh(1),
+                     kernel="pallas", device="cpu")
     with pytest.raises(ValueError, match="full variances"):
         convert.gmm_state_from_numpy(init, np.ones((6, 4), np.float32),
                                      np.ones(6) / 6, "full", device="cpu")

@@ -173,9 +173,20 @@ ONE_RANK = tmesh.make_mesh(1)
     {"mesh": ONE_RANK, "empty_policy": "relocate"},
 ])
 def test_unported_options_raise_naming_the_roadmap(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tkm.kmeans_fit(np.zeros((100, 4), np.float32), 3, device="cpu",
-                       max_iters=2, **kw)
+    # Relocation with a mesh raised NotImplementedError (naming A4) before
+    # it was ported. Now: on a one-rank mesh it is the mesh-less fit, the
+    # doomed seed relocated (tests/test_kmeans.py:140's input).
+    rng = np.random.default_rng(3)
+    x = np.concatenate([rng.normal([0, 0], 0.2, (50, 2)),
+                        rng.normal([8, 0], 0.2, (50, 2))]).astype(np.float32)
+    init = np.array([[0.1, 0.0], [7.9, 0.0], [500.0, 500.0]], np.float32)
+    got = tkm.kmeans_fit(x, 3, init=init, device="cpu", max_iters=2, **kw)
+    kw = {k: v for k, v in kw.items() if k != "mesh"}
+    want = tkm.kmeans_fit(x, 3, init=init, device="cpu", max_iters=2, **kw)
+    assert got.n_iter == want.n_iter
+    torch.testing.assert_close(got.centroids, want.centroids, rtol=0,
+                               atol=1e-6)
+    assert float(got.centroids[2].abs().max()) < 100.0
 
 
 @pytest.mark.parametrize("weighted_on_a_mesh", [True, False])

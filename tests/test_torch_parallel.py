@@ -27,6 +27,19 @@ stats with the true minima (`make_sharded_stats`, rows in blocks on
 shifted and clamped, a centroid copied into the other model shard losing
 every row to the lower index; its refusals are the JAX package's words,
 and assign/gather modes that are not ported name their ROADMAP item.
+
+Gaussian Mixture EM on a mesh (`gmm_fit(mesh=)`, all four covariance
+types, explicit init means on tests/test_gmm.py's aniso_blobs) against
+JAX's `gmm_fit(mesh=make_mesh(w))`: n_iter and converged equal, the mean
+log-likelihood rtol 1e-5, means atol 1e-4, covariances rtol 1e-4 / atol
+1e-5, weights atol 1e-5 (EM carries the f32 reduction-order differences
+forward). init="kmeans" draws on rank 0: the fit equals one process's
+with rank 0's generator within the same bounds; `GaussianMixture(mesh=)`
+is the function, bitwise. Empty-cluster relocation on a mesh
+(tests/test_kmeans.py:140's doomed seed) against JAX's
+`kmeans_fit(mesh=, empty_policy="relocate")` on both kernels: n_iter
+equal, centroids within 1e-5; on integer points with two rows of equal
+cost on different ranks, the lower global index wins, exactly.
 """
 
 import multiprocessing as mp
@@ -39,7 +52,9 @@ import pytest
 import torch
 
 from tdc_tpu_torch import convert
+from tdc_tpu_torch.models import estimators as test
 from tdc_tpu_torch.models import fuzzy as tfz
+from tdc_tpu_torch.models import gmm as tgmm
 from tdc_tpu_torch.models import kmeans as tkm
 from tdc_tpu_torch.parallel import collectives as tcol
 from tdc_tpu_torch.parallel import mesh as tmesh
@@ -148,7 +163,97 @@ def _job(world):
         out["repeat_sharded"] = (torch.equal(r1.centroids, r2.centroids)
                                  and torch.equal(r1.objective, r2.objective))
     _kmeans_sharded_job(world, out)
+    _gmm_relocate_job(world, out)
     return out
+
+
+COV_TYPES = ("diag", "spherical", "tied", "full")
+
+
+def _aniso_blobs():
+    """tests/test_gmm.py's aniso_blobs: per-dimension scales, unequal
+    sizes (N = 1000, so 2 and 4 ranks split it evenly)."""
+    rng = np.random.default_rng(0)
+    a = rng.normal([0, 0], [0.5, 2.0], size=(600, 2))
+    b = rng.normal([10, 0], [2.0, 0.5], size=(300, 2))
+    c = rng.normal([0, 12], [1.0, 1.0], size=(100, 2))
+    x = np.concatenate([a, b, c]).astype(np.float32)
+    x = x[rng.permutation(len(x))]
+    means0 = np.array([[0.5, 0.3], [9.0, 0.5], [0.4, 11.0]], np.float32)
+    return x, means0
+
+
+def _doomed_seed():
+    """tests/test_kmeans.py:140: two tight blobs and an init centroid
+    parked far away, which captures nothing on the first step."""
+    rng = np.random.default_rng(3)
+    a = rng.normal([0, 0], 0.2, (500, 2)).astype(np.float32)
+    b = rng.normal([8, 0], 0.2, (500, 2)).astype(np.float32)
+    init = np.array([[0.1, 0.0], [7.9, 0.0], [500.0, 500.0]], np.float32)
+    return np.concatenate([a, b]), init
+
+
+def _tied_costs():
+    """400 integer points whose cluster means are exact: (0, ±1), (±1, 0)
+    around (0, 0) and around (8, 0) (with (8, ±2)), plus (0, -30) at row
+    1 and (0, 30) at row 398. After one step the means are (0, 0) and
+    (8, 0) exactly, the two far rows cost 900 each, and they sit on the
+    first and the last rank: the empty cluster must take row 1's
+    (0, -30)."""
+    ring = np.array([[0, 1], [0, -1], [1, 0], [-1, 0]], np.float32)
+    x = np.concatenate([np.tile(ring, (50, 1)),
+                        np.tile(ring + [8, 0], (49, 1)),
+                        [[8, 2], [8, -2]]])
+    x = x[np.random.default_rng(4).permutation(len(x))]
+    x = np.insert(x, 1, [0, -30], axis=0)
+    x = np.insert(x, len(x) - 1, [0, 30], axis=0)
+    init = np.array([[0.1, 0.0], [7.9, 0.0], [500.0, 500.0]], np.float32)
+    return x.astype(np.float32), init
+
+
+def _gmm_out(res):
+    return {"means": res.means.numpy(), "variances": res.variances.numpy(),
+            "weights": res.weights.numpy(), "n_iter": int(res.n_iter),
+            "converged": bool(res.converged),
+            "ll": float(res.log_likelihood)}
+
+
+def _gmm_relocate_job(world, out):
+    """gmm_fit(mesh=) and relocation with a mesh on this world."""
+    mesh = tmesh.make_mesh(world)
+    x, means0 = _aniso_blobs()
+    for cov in COV_TYPES:
+        out["gmm", cov] = _gmm_out(tgmm.gmm_fit(
+            x, 3, init=means0, mesh=mesh, covariance_type=cov,
+            max_iters=50, tol=1e-4, device="cpu"))
+    gen = torch.Generator().manual_seed(5 + tmh.process_index())
+    out["gmm_kmeans_init"] = _gmm_out(tgmm.gmm_fit(
+        x, 3, init="kmeans", generator=gen, mesh=mesh, max_iters=50,
+        device="cpu"))
+    est = test.GaussianMixture(3, covariance_type="full", init=means0,
+                               max_iter=50, mesh=mesh, device="cpu").fit(x)
+    out["gmm_estimator"] = (est.means_, est.covariances_, est.weights_,
+                            est.n_iter_, est.lower_bound_)
+    xd, init = _doomed_seed()
+    for kern in KERNELS:
+        out["relocate", kern] = _fit_out(tkm.kmeans_fit(
+            xd, 3, init=init, mesh=mesh, kernel=kern, max_iters=50,
+            tol=0.0, empty_policy="relocate", device="cpu"))
+    xt, init = _tied_costs()
+    out["relocate_tie"] = _fit_out(tkm.kmeans_fit(
+        xt, 3, init=init, mesh=mesh, max_iters=1, tol=-1.0,
+        empty_policy="relocate", device="cpu"))
+    for name, call in (
+            ("gmm_ragged", lambda: tgmm.gmm_fit(
+                x[:1001 - world], 3, init=means0, mesh=mesh, device="cpu")),
+            ("gmm_pallas", lambda: tgmm.gmm_fit(
+                x, 3, init=means0, mesh=mesh, kernel="pallas",
+                device="cpu"))):
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
 
 
 def _tied(init):
@@ -405,6 +510,108 @@ def test_refusals_in_the_jax_words(groups, world):
         jsk.fuzzy_fit_sharded(xs, SK - 1, jsk.make_mesh_2d(1, world),
                               init="first_k")
     assert _same_on_every_rank(groups[world], "k_ragged") == str(exc.value)
+
+
+def _assert_gmm(got, want, ll_rtol=RTOL):
+    assert got["n_iter"] == int(want.n_iter)
+    assert got["converged"] == bool(want.converged)
+    np.testing.assert_allclose(got["ll"], float(want.log_likelihood),
+                               rtol=ll_rtol)
+    np.testing.assert_allclose(got["means"], np.asarray(want.means), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(got["variances"], np.asarray(want.variances),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got["weights"], np.asarray(want.weights),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("cov", COV_TYPES)
+def test_gmm_fit_on_a_mesh_against_jax(groups, world, cov):
+    from tdc_tpu.models import gmm as jgmm
+    from tdc_tpu.parallel import mesh as jmesh
+
+    x, means0 = _aniso_blobs()
+    got = _same_on_every_rank(groups[world], ("gmm", cov))
+    want = jgmm.gmm_fit(x, 3, init=means0, mesh=jmesh.make_mesh(world),
+                        covariance_type=cov, max_iters=50, tol=1e-4)
+    _assert_gmm(got, want)
+    assert got["converged"] and got["n_iter"] > 2
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gmm_kmeans_init_and_estimator_on_a_mesh(groups, world):
+    x, means0 = _aniso_blobs()
+    # Rank 0's draws seed the best-of-3 K-Means: one process with rank
+    # 0's generator gives the same fit.
+    one = tgmm.gmm_fit(x, 3, init="kmeans",
+                       generator=torch.Generator().manual_seed(5),
+                       max_iters=50, device="cpu")
+    got = dict(_same_on_every_rank(groups[world], "gmm_kmeans_init"))
+    # Restarts that reach the same clustering in another component order
+    # have SSEs equal but for the f32 reduction order, so the mesh and
+    # one process may keep different ones: the same mixture, its
+    # components permuted. Match them by their means first.
+    perm = [int(np.argmin(np.linalg.norm(one.means.numpy() - m, axis=1)))
+            for m in got["means"]]
+    assert sorted(perm) == [0, 1, 2]
+    inv = np.argsort(perm)
+    for f in ("means", "variances", "weights"):
+        got[f] = got[f][inv]
+    _assert_gmm(got, one)
+    est = _same_on_every_rank(groups[world], "gmm_estimator")
+    fit = groups[world][0]["gmm", "full"]
+    for u, v in zip(est[:3], ("means", "variances", "weights")):
+        np.testing.assert_array_equal(u, fit[v])
+    assert (est[3], est[4]) == (fit["n_iter"], fit["ll"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("kern", KERNELS)
+def test_relocate_on_a_mesh_against_jax(groups, world, kern):
+    from tdc_tpu.models import kmeans as jkm
+    from tdc_tpu.parallel import mesh as jmesh
+
+    x, init = _doomed_seed()
+    got = _same_on_every_rank(groups[world], ("relocate", kern))
+    want = jkm.kmeans_fit(x, 3, init=init, mesh=jmesh.make_mesh(world),
+                          kernel=kern, max_iters=50, tol=0.0,
+                          empty_policy="relocate")
+    assert got["n_iter"] == int(want.n_iter)
+    np.testing.assert_allclose(got["centroids"], np.asarray(want.centroids),
+                               rtol=0, atol=1e-5)
+    # The doomed centroid was revived: no cluster ends empty.
+    labels = tkm.kmeans_predict(x, got["centroids"], kernel="xla",
+                                device="cpu").numpy()
+    assert (np.bincount(labels, minlength=3) > 0).all()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_relocate_tie_takes_the_lower_global_index(groups, world):
+    from tdc_tpu.models import kmeans as jkm
+
+    x, init = _tied_costs()
+    got = _same_on_every_rank(groups[world], "relocate_tie")["centroids"]
+    np.testing.assert_array_equal(got[:2], [[0, 0], [8, 0]])
+    np.testing.assert_array_equal(got[2], [0, -30])
+    # The JAX package's top_k on one device takes the same row.
+    want = jkm.kmeans_fit(x, 3, init=init, max_iters=1, tol=-1.0,
+                          empty_policy="relocate").centroids
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gmm_mesh_refusals_in_the_jax_words(groups, world):
+    from tdc_tpu.models import gmm as jgmm
+    from tdc_tpu.parallel import mesh as jmesh
+
+    x, means0 = _aniso_blobs()
+    for key, kw, xx in (("gmm_ragged", {}, x[:1001 - world]),
+                        ("gmm_pallas", {"kernel": "pallas"}, x)):
+        with pytest.raises(ValueError) as exc:
+            jgmm.gmm_fit(xx, 3, init=means0, mesh=jmesh.make_mesh(world),
+                         **kw)
+        assert _same_on_every_rank(groups[world], key) == str(exc.value)
 
 
 def test_refusals_of_kernels_on_a_mesh_in_the_jax_words():

@@ -716,10 +716,11 @@ def test_nonfinite_batch_makes_the_fit_raise():
                                        bounds="elkan", device="cpu"), "A10"),
     (lambda s: tst.streamed_kmeans_fit(s, K, D, init="first_k",
                                        reduce="per_pass:int8",
-                                       device="cpu"), "A7)"),
+                                       ckpt_dir="ck", device="cpu"),
+     "A7(b)"),
     (lambda s: tgmm.streamed_gmm_fit(s, K, D, init="first_k",
-                                     reduce="per_pass:bf16", device="cpu"),
-     "A7)"),
+                                     reduce="per_pass:bf16", ckpt_dir="ck",
+                                     device="cpu"), "A7(b)"),
     (lambda s: tload.NpzStream(np.zeros((4, 2)), 2, crc_sidecar={}),
      "A7(d)"),
     (lambda s: tst.streamed_fuzzy_fit(s, K, D, init="first_k", ckpt_every=5,
@@ -1013,7 +1014,10 @@ def test_cli_streamed_retired_refusals_agree_with_jax(npy, tmp_path, flags,
 
 
 @pytest.mark.parametrize("flags, words", [
-    (["--num_batches=4", "--reduce=per_pass:bf16"], "A7)"),
+    (["--num_batches=4", "--reduce=per_pass:bf16",
+      "--method_name=distributedFuzzyCMeans", "--shard_k=2"],
+     "--reduce=per_pass:bf16|int8 applies to the 1-D streamed fits; "
+     "--shard_k supports --reduce=per_batch|per_pass"),
     (["--method_name=distributedFuzzyCMeans", "--shard_k=2",
       "--mean_combine"], "--mean_combine supports distributedKMeans only"),
     (["--mean_combine", "--weight_file=w.npy"],
@@ -1034,6 +1038,19 @@ def test_cli_reduce_knob_fails_fast_in_memory(npy):
     with pytest.raises(SystemExit, match="applies to the streamed"):
         tcli.main(["--K=4", f"--data_file={npy}", "--reduce=per_pass",
                    "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--mean_combine", "--num_batches=2"],
+    ["--minibatch", "--num_batches=2"],
+    ["--method_name=bisectingKMeans", "--num_batches=2"]])
+def test_cli_quantized_reduce_refusals_in_the_jax_words(npy, flags):
+    # In memory, mean_combine, mini-batch and bisecting take no reduce
+    # strategy: the JAX CLI's words, before any fit.
+    with pytest.raises(SystemExit, match="applies to the streamed "
+                       "kmeans/fuzzy/gaussianMixture drivers"):
+        tcli.main(["--K=4", f"--data_file={npy}", "--reduce=per_pass:int8",
+                   *flags, "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
