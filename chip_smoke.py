@@ -251,6 +251,18 @@ failure (nothing is caught):
    and per_pass:int8 (5 steps: the SSE within 1e-3 of the flat per_pass
    and per_pass:int8 fits); every rank's centroids bitwise equal in
    every fit, B1 4 x passes per rank.
+19. Checkpoints ([ckpt], run inside phase 16 on its points file): the
+   CLI with --ckpt_dir at the stream route's shape (4 steps, a mid-pass
+   save every 3 batches; one fit, timed as the computation, B1 5 x 8);
+   streamed_kmeans_fit killed in pass 3 at batch 7 and resumed from the
+   save at batch 6; a spawned child with the SIGTERM handler installed
+   that signals itself in pass 3 must exit 75 with a mid-pass
+   checkpoint, then resumed here; fuzzy (B6) and diag GMM (B9) at
+   N=2^20 with per-iteration checkpoints, killed in pass 3; two ranks
+   per_batch at N=2^21 killed in pass 2 (rank 0 writes); mini-batch
+   killed in epoch 2. Every resume is bitwise equal to the
+   uninterrupted fit and launches its kernel once per batch it computes
+   (none for the replayed prefix); every save's time and size printed.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -2897,11 +2909,340 @@ def phase_streams(tmp) -> dict:
               f"{row['computation_time']} s (one rank "
               f"{one['computation_time']} s)", flush=True)
     numbers["minibatch"] = phase_minibatch(npy, tmp, smi())
+    phase_ckpt(npy, tmp, smi())
     # [oom]: the stream route's points from the file.
     numbers["oom_row"] = phase_oom(npy, tmp,
                                    STREAM_N * STREAM_D * 4)
     os.remove(npy)
     return numbers
+
+
+# [ckpt]: checkpoint, preemption and resume of the streamed and mini-batch
+# fits. (a) K-Means on B1 at the stream route's shape (STREAM_BATCHES
+# batches, first_k seeds, CKPT_ITERS Lloyd steps, a mid-pass save every
+# CKPT_EVERY_BATCHES batches): the CLI with --ckpt_dir, then the function
+# killed in pass 3 (a stream that raises) and resumed. (b) A spawned
+# child with the SIGTERM handler installed signals itself in pass 3: it
+# must exit PREEMPTED_EXIT_CODE with a mid-pass checkpoint, which the
+# parent resumes. (c) Fuzzy (B6, m=2) and diag GMM (B9) on the first
+# CKPT_SMALL_N points, per-iteration checkpoints, killed in pass 3. (d)
+# Two ranks per_batch (gloo on the card's tensors) on the first
+# CKPT_DP_N points in 4 batches, killed in pass 2. (e) Mini-batch on the
+# points file, killed in epoch 2. Every resume equals the uninterrupted
+# fit bit for bit and launches its kernel once per batch it computes,
+# none for the replayed prefix.
+CKPT_ITERS = 4
+CKPT_EVERY_BATCHES = 3
+CKPT_SMALL_N = 1 << 20
+CKPT_DP_N = 1 << 21
+CKPT_DP_BATCHES = 4
+CKPT_ARGS = ["--method_name=distributedKMeans", f"--K={STREAM_K}",
+             "--kernel=pallas", f"--n_max_iters={CKPT_ITERS}", "--tol=-1",
+             "--seed=0", "--init=first_k",
+             f"--num_batches={STREAM_BATCHES}",
+             f"--ckpt_every_batches={CKPT_EVERY_BATCHES}"]
+
+
+class CrashingStream:
+    """An NpzStream that raises after yielding `fuse` batches in all,
+    across passes (a crash mid-pass). The explicit init's read of the
+    first batch counts as one."""
+
+    def __init__(self, host, rows, fuse):
+        from tdc_tpu_torch.data import NpzStream
+
+        self.inner = NpzStream(host, rows)
+        self.fuse = fuse
+        self.yielded = 0
+
+    def __call__(self):
+        for batch in self.inner():
+            if self.yielded >= self.fuse:
+                raise RuntimeError("injected crash")
+            self.yielded += 1
+            yield batch
+
+
+class SaveTimes:
+    """While active, times every checkpoint save (the copy of the state
+    to the host, the CRCs, the write and the rename) and records the
+    state.npz bytes it left."""
+
+    def __init__(self):
+        from tdc_tpu_torch.utils import checkpoint as ck
+
+        self.ck, self.real, self.saves = ck, ck.save_checkpoint, []
+
+    def __enter__(self):
+        def timed(ckpt_dir, state, step, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = self.real(ckpt_dir, state, step, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            size = os.path.getsize(os.path.join(path, "state.npz"))
+            self.saves.append((ms, size, state.batch_cursor))
+            return path
+
+        self.ck.save_checkpoint = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.ck.save_checkpoint = self.real
+
+    def line(self) -> str:
+        if not self.saves:
+            return "no saves"
+        ms = [s[0] for s in self.saves]
+        mid = [s[1] for s in self.saves if s[2] > 0]
+        end = [s[1] for s in self.saves if s[2] == 0]
+        out = (f"{len(ms)} saves: median {statistics.median(ms):.2f} ms, "
+               f"max {max(ms):.2f} ms")
+        for kind, sizes in (("mid-pass", mid), ("end of iteration", end)):
+            if sizes:
+                out += f"; {len(sizes)} {kind}, {max(sizes)} bytes"
+        return out
+
+
+def _ckpt_sigterm_child(npy, ckpt_dir, fuse) -> None:
+    """[ckpt] (b)'s child: the drain handler installed, the stream route's
+    K-Means from the points file with a stream that sends this process
+    SIGTERM as it yields batch `fuse`; Preempted exits
+    PREEMPTED_EXIT_CODE. Exits 0 if no preemption came."""
+    import signal
+
+    from tdc_tpu_torch.data import NpzStream
+    from tdc_tpu_torch.models import streamed_kmeans_fit
+    from tdc_tpu_torch.utils import preempt
+
+    preempt.install_preemption_handler()
+    host = np.load(npy, mmap_mode="r")
+    rows = -(-STREAM_N // STREAM_BATCHES)
+
+    class Signalling(NpzStream):
+        fetched = 0
+
+        def __call__(self):
+            for b in super().__call__():
+                Signalling.fetched += 1
+                if Signalling.fetched == fuse:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                yield b
+
+    streamed_kmeans_fit(Signalling(host, rows), STREAM_K, STREAM_D,
+                        init=np.ascontiguousarray(host[:STREAM_K]),
+                        max_iters=CKPT_ITERS, tol=-1, kernel="pallas",
+                        ckpt_dir=ckpt_dir, ckpt_every=100,
+                        ckpt_every_batches=CKPT_EVERY_BATCHES)
+
+
+def _rank_ckpt(rank, world, port, args, queue) -> None:
+    """[ckpt] (d)'s rank: streamed K-Means per_batch on a 2-rank mesh from
+    the points file, uninterrupted, then killed in pass 2 after a
+    mid-pass save (rank 0 writes) and resumed. Sends back (rank, 0,
+    {equal, launches of the resume, n_iter_run, cursor}) or (rank, -1,
+    the traceback)."""
+    _rank_env(rank, world, port)
+    try:
+        from tdc_tpu_torch.data import NpzStream
+        from tdc_tpu_torch.models import streamed_kmeans_fit
+        from tdc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+        npy, ckpt_dir = args
+        multihost.initialize_from_env()
+        try:
+            host = np.load(npy, mmap_mode="r")[:CKPT_DP_N]
+            rows = -(-CKPT_DP_N // CKPT_DP_BATCHES)
+            kw = dict(init=np.ascontiguousarray(host[:STREAM_K]),
+                      max_iters=3, tol=-1, kernel="pallas",
+                      mesh=make_mesh(world))
+            full = streamed_kmeans_fit(NpzStream(host, rows), STREAM_K,
+                                       STREAM_D, **kw)
+            ck = dict(ckpt_dir=ckpt_dir, ckpt_every=100,
+                      ckpt_every_batches=2)
+            try:
+                streamed_kmeans_fit(
+                    CrashingStream(host, rows, 1 + CKPT_DP_BATCHES + 3),
+                    STREAM_K, STREAM_D, **kw, **ck)
+            except RuntimeError:
+                pass
+            cursor = restore_checkpoint(ckpt_dir).batch_cursor
+            reset_counts()
+            res = streamed_kmeans_fit(NpzStream(host, rows), STREAM_K,
+                                      STREAM_D, **kw, **ck)
+            out = dict(equal=bool(torch.equal(res.centroids,
+                                              full.centroids)),
+                       launches=counts(), n_iter_run=res.n_iter_run,
+                       cursor=cursor)
+        finally:
+            multihost.shutdown()
+        queue.put((rank, 0, out))
+    except BaseException:
+        queue.put((rank, -1, traceback.format_exc()))
+
+
+def phase_ckpt(npy, tmp, card) -> None:
+    """[ckpt] (see CKPT_ITERS): each resume bitwise equal to the
+    uninterrupted fit, its launches the batches it computed, every save's
+    time and size printed."""
+    from tdc_tpu_torch.data import NpzStream
+    from tdc_tpu_torch.models import (
+        minibatch_kmeans_fit,
+        streamed_fuzzy_fit,
+        streamed_gmm_fit,
+        streamed_kmeans_fit,
+    )
+    from tdc_tpu_torch.utils.checkpoint import restore_checkpoint
+    from tdc_tpu_torch.utils.preempt import PREEMPTED_EXIT_CODE
+
+    host = np.load(npy, mmap_mode="r")
+    nb = STREAM_BATCHES
+    rows = -(-STREAM_N // nb)
+    init = np.ascontiguousarray(host[:STREAM_K])
+    # (a) The CLI: one checkpointed fit, timed as the computation.
+    with SaveTimes() as saves:
+        row, seen, fits = run_cli_captured(
+            [*CKPT_ARGS, f"--data_file={npy}",
+             f"--ckpt_dir={os.path.join(tmp, 'ckpt_cli')}"], tmp,
+            "ckpt_route", "streamed_kmeans_fit")
+    full = fits["streamed_kmeans_fit"]
+    require(row["n_iter"] == row["n_iter_run"] == str(CKPT_ITERS)
+            and row["computation_time"] == row["initialization_time"],
+            f"ckpt_route: row {row}")
+    require_launches("ckpt_route", seen, B1=nb * (CKPT_ITERS + 1))
+    print(f"[ckpt] route: the CLI with --ckpt_dir, N={STREAM_N} K={STREAM_K} "
+          f"d={STREAM_D}, {nb} batches, {CKPT_ITERS} steps: "
+          f"computation_time {row['computation_time']} s (one fit); "
+          f"launches {seen}; {saves.line()}; {card}", flush=True)
+    # (a) The function, killed in pass 3 after the save at batch 6.
+    d = os.path.join(tmp, "ckpt_fn")
+    ck = dict(ckpt_dir=d, ckpt_every=100,
+              ckpt_every_batches=CKPT_EVERY_BATCHES)
+    kw = dict(init=init, max_iters=CKPT_ITERS, tol=-1, kernel="pallas")
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        streamed_kmeans_fit(CrashingStream(host, rows, 1 + 2 * nb + 7),
+                            STREAM_K, STREAM_D, **kw, **ck)
+        require(False, "ckpt: the crashing stream did not crash")
+    except RuntimeError as e:
+        require(str(e) == "injected crash", f"ckpt: {e}")
+    crash_s = time.perf_counter() - t0
+    require_launches("ckpt crash", counts(), B1=2 * nb + 7)
+    saved = restore_checkpoint(d)
+    require((saved.n_iter, saved.batch_cursor) == (2, 6),
+            f"ckpt: saved step {saved.n_iter}, cursor {saved.batch_cursor}")
+    reset_counts()
+    t0 = time.perf_counter()
+    with SaveTimes() as saves:
+        res = streamed_kmeans_fit(NpzStream(host, rows), STREAM_K, STREAM_D,
+                                  **kw, **ck)
+    resume_s = time.perf_counter() - t0
+    seen = counts()
+    require_launches("ckpt resume", seen, B1=(nb - 6) + 2 * nb)
+    require(torch.equal(res.centroids, full.centroids)
+            and (res.n_iter, res.n_iter_run) == (CKPT_ITERS, 2),
+            f"ckpt resume: n_iter {res.n_iter}, n_iter_run "
+            f"{res.n_iter_run}, centroids bitwise "
+            f"{torch.equal(res.centroids, full.centroids)}")
+    print(f"[ckpt] kill in pass 3 at batch 7 ({crash_s:.2f} s), resume "
+          f"from step 2 cursor 6 ({resume_s:.2f} s, launches {seen}: none "
+          f"for the 6 replayed batches): centroids bitwise equal to the "
+          f"uninterrupted fit, n_iter_run {res.n_iter_run}; resume "
+          f"{saves.line()}; {card}", flush=True)
+    # (b) SIGTERM in a child: exit 75 with a mid-pass checkpoint.
+    d = os.path.join(tmp, "ckpt_sigterm")
+    ctx = mp.get_context("spawn")
+    child = ctx.Process(target=_ckpt_sigterm_child,
+                        args=(npy, d, 1 + 2 * nb + 5))
+    t0 = time.perf_counter()
+    child.start()
+    child.join(timeout=RANK_TIMEOUT)
+    if child.is_alive():
+        child.kill()
+        child.join()
+    require(child.exitcode == PREEMPTED_EXIT_CODE,
+            f"ckpt sigterm: the child exited {child.exitcode}")
+    child_s = time.perf_counter() - t0
+    saved = restore_checkpoint(d)
+    require((saved.n_iter, saved.batch_cursor) == (2, 5),
+            f"ckpt sigterm: saved step {saved.n_iter}, cursor "
+            f"{saved.batch_cursor}")
+    reset_counts()
+    res = streamed_kmeans_fit(NpzStream(host, rows), STREAM_K, STREAM_D,
+                              **kw, **{**ck, "ckpt_dir": d})
+    seen = counts()
+    require_launches("ckpt sigterm resume", seen, B1=(nb - 5) + 2 * nb)
+    require(torch.equal(res.centroids, full.centroids),
+            "ckpt sigterm: the resume differs from the uninterrupted fit")
+    print(f"[ckpt] SIGTERM in pass 3: the child exited "
+          f"{child.exitcode} after {child_s:.1f} s with step 2 cursor 5; "
+          f"the resume (launches {seen}) is bitwise the uninterrupted "
+          f"fit; {card}", flush=True)
+    # (c) Fuzzy (B6) and diag GMM (B9), per-iteration checkpoints.
+    small = host[:CKPT_SMALL_N]
+    srows = -(-CKPT_SMALL_N // nb)
+    for name, fit, key, extra in (
+            ("fuzzy", streamed_fuzzy_fit, "B6", dict(m=2.0)),
+            ("gmm", streamed_gmm_fit, "B9", dict(covariance_type="diag"))):
+        kw = dict(init=init, max_iters=CKPT_ITERS, tol=-1, kernel="pallas",
+                  **extra)
+        a = fit(NpzStream(small, srows), STREAM_K, STREAM_D, **kw)
+        d = os.path.join(tmp, f"ckpt_{name}")
+        try:
+            fit(CrashingStream(small, srows, 1 + 2 * nb + 3), STREAM_K,
+                STREAM_D, ckpt_dir=d, ckpt_every=1, **kw)
+            require(False, f"ckpt {name}: the stream did not crash")
+        except RuntimeError:
+            pass
+        reset_counts()
+        with SaveTimes() as saves:
+            b = fit(NpzStream(small, srows), STREAM_K, STREAM_D, ckpt_dir=d,
+                    ckpt_every=1, **kw)
+        seen = counts()
+        require_launches(f"ckpt {name} resume", seen,
+                         **{key: nb * (CKPT_ITERS - 2 + 1)})
+        ca, cb = ((a.means, b.means) if name == "gmm"
+                  else (a.centroids, b.centroids))
+        require(torch.equal(ca, cb) and b.n_iter_run == CKPT_ITERS - 2,
+                f"ckpt {name}: resume differs (n_iter_run {b.n_iter_run})")
+        print(f"[ckpt] {name} N={CKPT_SMALL_N} K={STREAM_K} d={STREAM_D}: "
+              f"killed in pass 3, resumed from step 2 (launches {seen}), "
+              f"bitwise equal; {saves.line()}; {card}", flush=True)
+    # (d) Two ranks per_batch.
+    d = os.path.join(tmp, "ckpt_dp")
+    got = spawn_ranks(_rank_ckpt, (npy, d), "ckpt_dp")
+    for rank, out in enumerate(got):
+        require(out["equal"] and out["n_iter_run"] == 2
+                and out["cursor"] == 2,
+                f"ckpt_dp, rank {rank}: {out}")
+        require_launches(f"ckpt_dp resume, rank {rank}", out["launches"],
+                         B1=(CKPT_DP_BATCHES - 2) + 2 * CKPT_DP_BATCHES)
+    print(f"[ckpt] two ranks per_batch, N={CKPT_DP_N} in {CKPT_DP_BATCHES} "
+          f"batches: killed in pass 2 after the save at batch 2 (rank 0 "
+          f"writes), resumed bitwise on both ranks (launches "
+          f"{[o['launches']['B1'] for o in got]}); {card}", flush=True)
+    # (e) Mini-batch, killed in epoch 2.
+    kw = dict(init="first_k", epochs=3, tol=-1.0, kernel="pallas",
+              reassignment_ratio=0.01)
+    a = minibatch_kmeans_fit(NpzStream(host, rows), STREAM_K, STREAM_D, **kw)
+    d = os.path.join(tmp, "ckpt_mb")
+    try:
+        minibatch_kmeans_fit(CrashingStream(host, rows, nb + 5), STREAM_K,
+                             STREAM_D, ckpt_dir=d, **kw)
+        require(False, "ckpt minibatch: the stream did not crash")
+    except RuntimeError:
+        pass
+    reset_counts()
+    with SaveTimes() as saves:
+        b = minibatch_kmeans_fit(NpzStream(host, rows), STREAM_K, STREAM_D,
+                                 ckpt_dir=d, **kw)
+    seen = counts()
+    require_launches("ckpt minibatch resume", seen, B1=2 * nb)
+    require(torch.equal(a.centroids, b.centroids) and b.n_iter_run == 2,
+            f"ckpt minibatch: resume differs (n_iter_run {b.n_iter_run})")
+    print(f"[ckpt] minibatch: killed in epoch 2, resumed from epoch 1 "
+          f"(launches {seen}, the generator's state restored), bitwise "
+          f"equal; {saves.line()}; {card}", flush=True)
 
 
 # The model zoo's phases. [seeding]: k-means++ and k-means‖ alone at the

@@ -26,6 +26,18 @@ the wire with error feedback (kmeans, fuzzy and gaussianMixture);
 reads batches on a background thread; `--history_file` writes the
 per-iteration [cost, shift] CSV of a K-Means or fuzzy fit.
 
+Checkpoints: --ckpt_dir=DIR runs the fit streamed (the in-memory fits
+take no checkpoint; one batch is the in-memory case) and saves it there
+(`utils/checkpoint.py`, the JAX package's state.npz format), resuming
+from the newest step a rerun finds: the streamed K-Means, fuzzy and
+gaussianMixture fits per iteration, --minibatch per epoch.
+--ckpt_every_batches=N (kmeans/fuzzy) also saves mid-pass every N
+batches, so a resume is bit-identical; --ckpt_keep_last_n=N keeps the
+newest N steps. A checkpointed run times its one fit as the computation
+(a warm re-fit would resume the finished run), and its points per second
+count the iterations that run ran (n_iter_run). As in the JAX CLI, no
+preemption handler is installed (utils/preempt.py is the library's).
+
 Run: python -m tdc_tpu_torch.cli.main --method_name=distributedKMeans \
      --n_obs=4194304 --n_dim=128 --K=1024 --kernel=pallas --log_file=log.csv
 Streamed: add --num_batches=8 (or --data_file=x.npy, memory-mapped).
@@ -130,6 +142,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefetch", type=int, default=0,
                    help="streamed modes: background-thread batch prefetch "
                         "depth (0 = off)")
+    p.add_argument("--ckpt_dir", type=str, default=None,
+                   help="checkpoint/resume directory: runs the fit streamed, "
+                        "saves centroids+iteration (the JAX package's "
+                        "state.npz format) and resumes if present. "
+                        "Checkpoints are size-portable (layout manifest + "
+                        "full host arrays): a save taken at N GPUs resumes "
+                        "at M")
+    p.add_argument("--ckpt_every_batches", type=int, default=None,
+                   help="with --ckpt_dir: also checkpoint mid-pass every N "
+                        "batches (accumulator + batch cursor; resume is "
+                        "bit-identical; kmeans/fuzzy)")
+    p.add_argument("--ckpt_keep_last_n", type=int, default=None,
+                   help="with --ckpt_dir (streamed kmeans/fuzzy): retain "
+                        "only the newest N checkpoint steps (default all; "
+                        "N >= 2 keeps the corruption-fallback step)")
     p.add_argument("--history_file", type=str, default=None,
                    help="write per-iteration (cost, shift) CSV "
                         "(kmeans/fuzzy)")
@@ -225,8 +252,39 @@ def _validate_weight_file(parser, args) -> None:
 
 
 def _streamy(args) -> bool:
-    """Whether the first attempt already streams."""
-    return args.streamed or args.num_batches > 1 or args.mean_combine
+    """Whether the first attempt already streams (a checkpointed fit
+    always does)."""
+    return (args.streamed or args.num_batches > 1 or args.mean_combine
+            or args.ckpt_dir is not None)
+
+
+def _validate_checkpoints(parser, args) -> None:
+    """The JAX CLI's checks of the checkpoint flags, in its words, and
+    the port's refusals of a flag that would be silently ignored."""
+    if args.ckpt_dir and args.mean_combine:
+        # mean_combine has no checkpoint support; accepting the flag would
+        # silently skip checkpointing.
+        parser.error("--ckpt_dir is not supported with --mean_combine")
+    if args.ckpt_keep_last_n is not None:
+        if args.ckpt_keep_last_n < 1:
+            parser.error("--ckpt_keep_last_n must be >= 1")
+        if not args.ckpt_dir:
+            parser.error("--ckpt_keep_last_n requires --ckpt_dir")
+        if (args.minibatch or args.shard_k > 1
+                or args.method_name == "gaussianMixture"):
+            parser.error("--ckpt_keep_last_n applies to the 1-D streamed "
+                         "kmeans/fuzzy fits only")
+    if args.ckpt_every_batches is not None:
+        if args.ckpt_every_batches < 1:
+            parser.error("--ckpt_every_batches must be >= 1")
+        if not args.ckpt_dir:
+            parser.error("--ckpt_every_batches requires --ckpt_dir")
+        if args.method_name == "gaussianMixture":
+            parser.error("gaussianMixture checkpoints per iteration only "
+                         "(--ckpt_every_batches is kmeans/fuzzy)")
+        if args.minibatch:
+            parser.error("--minibatch checkpoints per epoch only "
+                         "(--ckpt_every_batches is kmeans/fuzzy)")
 
 
 def _validate_streaming(parser, args) -> None:
@@ -244,7 +302,7 @@ def _validate_streaming(parser, args) -> None:
         if args.minibatch or args.shard_k > 1:
             parser.error("--mean_combine excludes --minibatch/--shard_k")
     if args.empty_policy != "keep":
-        for flag in ("minibatch", "streamed", "mean_combine"):
+        for flag in ("minibatch", "streamed", "mean_combine", "ckpt_dir"):
             if getattr(args, flag):
                 parser.error(f"--empty_policy=relocate is in-memory only; "
                              f"--{flag} is not supported (mini-batch has "
@@ -252,7 +310,7 @@ def _validate_streaming(parser, args) -> None:
         if args.num_batches > 1:
             parser.error("--empty_policy=relocate is in-memory single-shard")
     if args.kernel == "refined":
-        for flag in ("minibatch", "streamed", "mean_combine"):
+        for flag in ("minibatch", "streamed", "mean_combine", "ckpt_dir"):
             if getattr(args, flag):
                 parser.error(f"--kernel=refined is the in-memory exact-"
                              f"champion path; --{flag} is not supported")
@@ -269,7 +327,7 @@ def _validate_streaming(parser, args) -> None:
             parser.error("--kernel=pallas_bf16 is single-shard (in-memory "
                          "or --streamed)")
     if args.layout == "features":
-        for flag in ("streamed", "minibatch", "mean_combine"):
+        for flag in ("streamed", "minibatch", "mean_combine", "ckpt_dir"):
             if getattr(args, flag):
                 parser.error(f"--layout=features is an in-memory device "
                              f"layout; --{flag} is not supported with it")
@@ -318,8 +376,9 @@ def _validate_devices(parser, args) -> None:
                      "--reduce=per_batch|per_pass")
     if args.shard_k > 1 and _streamy(args):
         parser.error(
-            "--num_batches/--streamed/--mean_combine with --shard_k run the "
-            "streamed K-sharded towers of A9, which are not ported yet "
+            "--num_batches/--streamed/--mean_combine/--ckpt_dir with "
+            "--shard_k run the streamed K-sharded towers of A9, which are "
+            "not ported yet "
             "(ROADMAP.md Queue A, A9)")
     if args.shard_k < 1:
         parser.error("--shard_k must be >= 1")
@@ -366,6 +425,8 @@ def _validate_bisecting(parser, args) -> None:
     if args.history_file:
         parser.error("bisectingKMeans produces no per-iteration "
                      "history (--history_file is kmeans/fuzzy)")
+    if args.ckpt_dir or args.ckpt_every_batches:
+        parser.error("bisectingKMeans does not checkpoint")
 
 
 def validate_args(parser, args) -> None:
@@ -386,6 +447,7 @@ def validate_args(parser, args) -> None:
     if args.method_name == "bisectingKMeans":
         _validate_bisecting(parser, args)
     _validate_streaming(parser, args)
+    _validate_checkpoints(parser, args)
     _validate_devices(parser, args)
     if args.method_name != "distributedKMeans" and (
             args.spherical or args.empty_policy != "keep"):
@@ -575,7 +637,8 @@ def run_experiment(args) -> dict:
         )
         from tdc_tpu_torch.parallel.sharded_k import fuzzy_fit_sharded
 
-        streamed = args.streamed or num_batches > 1 or args.mean_combine
+        streamed = (args.streamed or num_batches > 1 or args.mean_combine
+                    or args.ckpt_dir is not None)
         bisecting = args.method_name == "bisectingKMeans"
         if args.reduce != "per_batch" and (
                 not streamed or args.mean_combine or args.minibatch
@@ -613,8 +676,8 @@ def run_experiment(args) -> dict:
                 stream, args.K, n_dim, init=args.init, generator=gen,
                 epochs=args.n_max_iters, tol=args.tol, mesh=mesh,
                 prefetch=args.prefetch,
-                reassignment_ratio=args.reassignment_ratio, kernel=kernel,
-                device=dev)
+                reassignment_ratio=args.reassignment_ratio,
+                ckpt_dir=args.ckpt_dir, kernel=kernel, device=dev)
         if streamed:
             rows = -(-n_obs // num_batches)
             stream = NpzStream(host_points(), rows)
@@ -634,11 +697,14 @@ def run_experiment(args) -> dict:
                 return mean_combine_fit(stream, args.K, n_dim,
                                         init=args.init,
                                         spherical=args.spherical, **common)
-            common.update(sample_weight_batches=wstream, reduce=args.reduce)
+            common.update(sample_weight_batches=wstream, reduce=args.reduce,
+                          ckpt_dir=args.ckpt_dir)
             if gmm:
                 return streamed_gmm_fit(
                     stream, args.K, n_dim, init=args.init,
                     covariance_type=args.covariance_type, **common)
+            common.update(ckpt_every_batches=args.ckpt_every_batches,
+                          ckpt_keep_last_n=args.ckpt_keep_last_n)
             if fuzzy:
                 return streamed_fuzzy_fit(stream, args.K, n_dim,
                                           m=args.fuzzifier, init=args.init,
@@ -687,14 +753,19 @@ def run_experiment(args) -> dict:
     # Initialization = the first fit, including the kernels' first-use
     # build and an in-memory fit's copy of the points to the card;
     # computation = a warm re-fit at the batch count that finished, what
-    # steady-state clustering costs.
+    # steady-state clustering costs. A checkpointed fit wrote its last
+    # step: a re-fit would resume it and run next to nothing, so its
+    # computation is the first fit's time.
     with timers.phase("initialization") as out:
         result, num_batches = oom_adaptive(
             fit, initial_num_batches=args.num_batches)
         out["block_on"] = centers(result)
-    with timers.phase("computation") as out:
-        result = fit(num_batches)
-        out["block_on"] = centers(result)
+    if args.ckpt_dir:
+        timers.set("computation", timers.get("initialization"))
+    else:
+        with timers.phase("computation") as out:
+            result = fit(num_batches)
+            out["block_on"] = centers(result)
 
     if args.history_file and getattr(result, "history", None) is not None:
         import csv

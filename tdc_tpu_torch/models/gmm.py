@@ -658,7 +658,7 @@ def streamed_gmm_fit(
     mesh=None,
     prefetch: int = 0,
     ckpt_dir: str | None = None,
-    ckpt_every: int | None = None,
+    ckpt_every: int = 5,
     kernel: str = "xla",
     covariance_type: str = "diag",
     sample_weight_batches=None,
@@ -676,10 +676,21 @@ def streamed_gmm_fit(
     FIRST batch (rank 0's, broadcast, under a mesh). The log-likelihood
     and the M-step normalize by the stream's row count (by Σw when
     weighted). kernel='pallas' runs B9 for diag and spherical, unweighted
-    and single-device. ckpt_dir and ckpt_every are not ported (ROADMAP.md
-    Queue A, A7(b)). Returns a GMMResult with `comms`."""
+    and single-device.
+
+    ckpt_dir: a checkpoint (`utils/checkpoint.py`) every `ckpt_every`
+    iterations, on convergence and at the end: the means as the
+    centroids, the variances, weights, log-likelihood and the layout in
+    the meta, the JAX version's. A resume restores first and skips the
+    seeding; it checks k, d, reg_covar, the covariance type and the
+    weighting, in the JAX version's words. Per iteration only (an
+    interrupted pass runs again). A resume of a finished run returns
+    the saved final log-likelihood without a pass. Returns a GMMResult
+    with `comms` and n_iter_run, the iterations this call ran."""
     from tdc_tpu_torch.models import streaming as st
     from tdc_tpu_torch.parallel import reduce as reduce_lib
+    from tdc_tpu_torch.parallel import reshard as reshard_lib
+    from tdc_tpu_torch.utils import checkpoint as ckpt_lib
 
     if covariance_type not in COVARIANCE_TYPES:
         raise ValueError(
@@ -687,8 +698,6 @@ def streamed_gmm_fit(
             f"got {covariance_type!r}")
     weighted = sample_weight_batches is not None
     strategy = reduce_lib.resolve_reduce(reduce)
-    st._refuse_unported("streamed_gmm_fit", ckpt_dir=ckpt_dir,
-                        ckpt_every=ckpt_every, strategy=strategy, mesh=mesh)
     dev = resolve_device(device)
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
@@ -718,31 +727,82 @@ def streamed_gmm_fit(
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     stream = st._weighted_stream(batches, sample_weight_batches)
-    # Seeding moments stay unweighted (an initialization heuristic).
-    first, _, first_rows = st._first_batch(stream, d, weighted, dev)
-    first = first.float()
-    if isinstance(init, str) and init == "kmeans":
-        means = kmeans_fit(first, k, init="kmeans++", generator=generator,
-                           max_iters=10, tol=1e-3, n_init=3,
-                           device=dev).centroids
+    gang = st._is_gang(mesh)
+    # Restore first: a resume does not pay for the seeding it would throw
+    # away.
+    start_iter, prev_ll, saved_final_ll = 0, -float("inf"), None
+    resume_converged = False
+    saved = None if ckpt_dir is None else ckpt_lib.restore_checkpoint(
+        ckpt_dir)
+    if saved is not None:
+        if saved.meta.get("model") != "gmm":
+            raise ValueError(
+                f"checkpoint in {ckpt_dir} is not a GMM checkpoint")
+        if (int(saved.meta.get("k")) != k or int(saved.meta.get("d")) != d
+                or float(saved.meta.get("reg")) != float(reg_covar)):
+            raise ValueError(
+                f"checkpoint in {ckpt_dir} was written with "
+                f"k={saved.meta.get('k')}, d={saved.meta.get('d')}, "
+                f"reg_covar={saved.meta.get('reg')} — refusing to mix "
+                "state")
+        saved_ct = str(saved.meta.get("cov_type", "diag"))
+        if saved_ct != covariance_type:
+            raise ValueError(
+                f"checkpoint in {ckpt_dir} was written with "
+                f"covariance_type={saved_ct!r}, requested "
+                f"{covariance_type!r} — refusing to mix state")
+        saved_w = bool(np.asarray(saved.meta.get("weighted", False)))
+        if saved_w != weighted:
+            raise ValueError(
+                f"checkpoint in {ckpt_dir} was written with "
+                f"weighted={saved_w} — refusing to resume with a "
+                "different weighting")
+        start_iter = saved.n_iter
+        # The next gain compares with the saved iteration's ll, as the
+        # uninterrupted loop's prev_ll does.
+        prev_ll = float(saved.meta.get("ll", -float("inf")))
+        # The ll of the returned parameters, which the finishing run's
+        # scoring pass wrote ("ll" is the E-step's, before the M-step).
+        saved_final_ll = saved.meta.get("final_ll")
+        resume_converged = bool(np.asarray(saved.meta.get("converged",
+                                                          False)))
+        # Full host arrays: placement at any world size is a replicate.
+        means, variances, weights = reshard_lib.redistribute(
+            (saved.centroids, saved.meta["variances"],
+             saved.meta["weights"]),
+            reshard_lib.layout_from_meta(saved.meta), mesh,
+            lambda tree: tuple(st._placed(t, mesh, dev) for t in tree))
+        first_rows = (st._batch_rows(next(iter(stream())))
+                      if mesh is not None else 0)
     else:
-        means = resolve_init(first, k, init, generator)
-    # A copy: first_k's rows are a view that would keep the whole first
-    # batch on the device for the fit.
-    means = means.to(torch.float32).clone()
-    if means.shape != (k, d):
-        raise ValueError(f"init means shape {tuple(means.shape)} != "
-                         f"{(k, d)}")
-    variances, weights = _moments_from_hard_assign(first, means, reg_covar)
-    variances = _diag_to_cov(variances, weights, covariance_type)
-    del first
-    if mesh is not None:
-        # First-batch draws may differ per rank: rank 0's start EM.
-        from tdc_tpu_torch.parallel.mesh import replicate
+        # Seeding moments stay unweighted (an initialization heuristic).
+        first, _, first_rows = st._first_batch(stream, d, weighted, dev)
+        first = first.float()
+        if isinstance(init, str) and init == "kmeans":
+            means = kmeans_fit(first, k, init="kmeans++",
+                               generator=generator, max_iters=10, tol=1e-3,
+                               n_init=3, device=dev).centroids
+        else:
+            means = resolve_init(first, k, init, generator)
+        # A copy: first_k's rows are a view that would keep the whole
+        # first batch on the device for the fit.
+        means = means.to(torch.float32).clone()
+        if means.shape != (k, d):
+            raise ValueError(f"init means shape {tuple(means.shape)} != "
+                             f"{(k, d)}")
+        variances, weights = _moments_from_hard_assign(first, means,
+                                                       reg_covar)
+        variances = _diag_to_cov(variances, weights, covariance_type)
+        del first
+        if mesh is not None:
+            # First-batch draws may differ per rank: rank 0's start EM.
+            from tdc_tpu_torch.parallel.mesh import replicate
 
-        means, variances, weights = (replicate(t.contiguous(), mesh)
-                                     for t in (means, variances, weights))
+            means, variances, weights = (replicate(t.contiguous(), mesh)
+                                         for t in (means, variances,
+                                                   weights))
     st._check_equal_local_rows(first_rows, mesh, dev)
+    st._reduce_plan(strategy, mesh, ckpt_dir, None)
     local, correct = _gmm_pass_fns(
         kernel, covariance_type,
         gmm_stats_for(k, d, label="streamed_gmm_fit")
@@ -753,6 +813,19 @@ def streamed_gmm_fit(
         shapes=_gmm_shapes(k, d, covariance_type), local=local,
         correct=correct)
 
+    def save(n_iter, ll, done, final_ll=None):
+        meta = {"model": "gmm", "k": k, "d": d, "reg": float(reg_covar),
+                "cov_type": covariance_type, "weighted": weighted,
+                "variances": variances, "weights": weights,
+                "ll": float(ll), "converged": bool(done),
+                **reshard_lib.layout_meta(mesh)}
+        if final_ll is not None:
+            meta["final_ll"] = float(final_ll)
+        ckpt_lib.save_checkpoint(
+            ckpt_dir, ckpt_lib.ClusterState(
+                centroids=means, n_iter=n_iter, key=None, batch_cursor=0,
+                meta=meta), step=n_iter, gang=gang)
+
     def full_pass(params):
         acc, rows = machine.run(params)
         # Weighted: Σw == Σ_k nk (Σ_k r = 1 per unit weight); the floor
@@ -761,24 +834,36 @@ def streamed_gmm_fit(
                 else max(rows, 1))
         return acc, norm
 
-    prev_ll = ll = -float("inf")
-    n_iter, converged = 0, False
-    for n_iter in range(1, int(max_iters) + 1):
+    ll = prev_ll
+    n_iter, converged = start_iter, resume_converged
+    for n_iter in (() if resume_converged
+                   else range(start_iter + 1, int(max_iters) + 1)):
         acc, n_rows = full_pass((means, variances, weights))
         ll = float(acc.ll_sum) / n_rows
         means, variances, weights = _m_step_t(acc.nk, acc.sx, acc.sxx,
                                               n_rows, reg_covar,
                                               covariance_type)
-        if n_iter > 1 and ll - prev_ll <= tol:
+        done = n_iter > 1 and ll - prev_ll <= tol
+        if ckpt_dir is not None and (done or n_iter % ckpt_every == 0
+                                     or n_iter == max_iters):
+            save(n_iter, ll, done)
+        if done:
             converged = True
             break
         prev_ll = ll
-    # The log-likelihood of the RETURNED parameters.
-    acc, n_rows = full_pass((means, variances, weights))
-    final_ll = float(acc.ll_sum) / n_rows
+    if (resume_converged or start_iter >= max_iters) \
+            and saved_final_ll is not None:
+        # A resume of a finished run: its scoring pass is on disk.
+        final_ll = float(np.asarray(saved_final_ll))
+    else:
+        # The log-likelihood of the RETURNED parameters.
+        acc, n_rows = full_pass((means, variances, weights))
+        final_ll = float(acc.ll_sum) / n_rows
+        if ckpt_dir is not None and (converged or n_iter >= max_iters):
+            save(n_iter, ll, converged, final_ll=final_ll)
     return GMMResult(
         means=means, variances=variances, weights=weights, n_iter=n_iter,
         log_likelihood=torch.tensor(final_ll, dtype=torch.float32,
                                     device=dev),
-        converged=converged, n_iter_run=n_iter,
+        converged=converged, n_iter_run=n_iter - start_iter,
         covariance_type=covariance_type, comms=machine.report())

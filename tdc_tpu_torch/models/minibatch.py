@@ -30,8 +30,11 @@ reassignment's uniforms and broadcasts them; each replacement row comes
 from the rank that holds it, summed over the data axis (exact: the other
 ranks add zeros).
 
-Not ported: the per-epoch checkpoint (`ckpt_dir`, ROADMAP.md Queue A,
-A7(b)).
+Checkpoints (`minibatch_kmeans_fit(ckpt_dir=)`): per epoch, the JAX
+version's meta (the lifetime counts, the step, the last SSE, the shift
+and the history) and the generator's state under a meta entry of the
+port's own, so a resume continues the same learning rates and the same
+draws: bit-identical to an uninterrupted fit.
 """
 
 from __future__ import annotations
@@ -43,12 +46,18 @@ import torch
 
 from tdc_tpu_torch.models.kmeans import (
     KMeansResult,
-    _not_ported,
     resolve_init,
     resolve_init_replicated,
 )
 from tdc_tpu_torch.ops.assign import lloyd_stats, lloyd_stats_weighted
+from tdc_tpu_torch.utils import checkpoint as ckpt_lib
 from tdc_tpu_torch.utils.device import resolve_device
+from tdc_tpu_torch.utils.heartbeat import maybe_beat
+
+# The meta entries of the generator's state (uint8) and its device type:
+# the port's own (the JAX version saves its threefry key as the key).
+GENERATOR_META = "torch_generator"
+GENERATOR_DEVICE_META = "torch_generator_device"
 
 
 class MiniBatchState(NamedTuple):
@@ -280,6 +289,7 @@ class MiniBatchKMeans:
     Usage:
         mbk = MiniBatchKMeans(k=1024, d=128, init=c0)
         for batch in loader:
+            maybe_beat()  # supervised-gang liveness
             mbk.partial_fit(batch)
         labels = kmeans_predict(x, mbk.centroids)
     """
@@ -423,13 +433,15 @@ def minibatch_kmeans_fit(
       reassignment's draws (default: one seeded with 0 on `device`).
     reassignment_ratio: sklearn parity (default 0.01); 0 disables.
     kernel: 'xla', 'pallas' or 'auto' (pallas on CUDA, xla on the CPU).
-    ckpt_dir, ckpt_every: the JAX version's per-epoch checkpoint; not
-      ported (ckpt_dir raises, naming ROADMAP.md Queue A, A7(b)).
+    ckpt_dir: per-epoch checkpoint and resume: the whole mini-batch state
+      (centroids, lifetime counts, step, last SSE, the generator's state),
+      saved every `ckpt_every` epochs and at the end, so a resumed run
+      continues the same learning rates and draws. A checkpoint of the
+      JAX version carries a threefry key, which no torch generator
+      continues: it resumes only where the fit draws nothing more
+      (reassignment_ratio=0).
     """
-    if ckpt_dir is not None:
-        raise _not_ported("minibatch_kmeans_fit: ckpt_dir (the per-epoch "
-                          "checkpoint and resume)", "Queue A, A7(b)")
-    from tdc_tpu_torch.models.streaming import _prefetched
+    from tdc_tpu_torch.models.streaming import _is_gang, _prefetched
 
     dev = resolve_device(device)
     if kernel.startswith("auto"):
@@ -442,10 +454,39 @@ def minibatch_kmeans_fit(
     mbk = MiniBatchKMeans(k, d, init=init, generator=generator, mesh=mesh,
                           reassignment_ratio=reassignment_ratio,
                           kernel=kernel, device=dev)
-    shift, history, n_epoch = float("inf"), [], 0
-    for n_epoch in range(1, epochs + 1):
+    shift, history, start_epoch = float("inf"), [], 0
+    if ckpt_dir is not None:
+        saved = ckpt_lib.restore_checkpoint(ckpt_dir)
+        if saved is not None:
+            mbk._state = _restored_state(saved, ckpt_dir, k, d, dev,
+                                         reassignment_ratio)
+            start_epoch = int(saved.n_iter)
+            shift = float(saved.meta.get("shift", np.inf))
+            hist = np.asarray(saved.meta.get("history", []), np.float32)
+            history = [tuple(float(v) for v in r) for r in hist.reshape(-1, 2)]
+
+    def save(n_epoch):
+        st = mbk.state
+        meta = {"k": k, "d": d, "minibatch": True, "shift": float(shift),
+                "mb_counts": st.counts, "mb_step": int(st.step),
+                "mb_last_sse": float(st.last_sse)}
+        if st.generator is not None:
+            meta[GENERATOR_META] = st.generator.get_state().numpy()
+            meta[GENERATOR_DEVICE_META] = st.generator.device.type
+        if history:
+            meta["history"] = np.asarray(history, np.float32).reshape(-1, 2)
+        ckpt_lib.save_checkpoint(
+            ckpt_dir, ckpt_lib.ClusterState(
+                centroids=st.centroids, n_iter=n_epoch, key=None,
+                batch_cursor=0, meta=meta),
+            step=n_epoch, gang=_is_gang(mesh))
+
+    n_epoch = start_epoch
+    done = tol >= 0 and shift <= tol
+    for n_epoch in range(start_epoch + 1, epochs + 1) if not done else ():
         c_start = None
         for batch in _prefetched(batches(), prefetch):
+            maybe_beat()  # supervised-gang liveness
             if c_start is None:
                 mbk._ensure_init(batch)
                 c_start = mbk.centroids.clone()
@@ -453,14 +494,61 @@ def minibatch_kmeans_fit(
         shift = float(torch.linalg.norm(mbk.centroids - c_start,
                                         dim=-1).max())
         history.append((float(mbk.state.last_sse), shift))
-        if tol >= 0 and shift <= tol:
+        done = tol >= 0 and shift <= tol
+        if ckpt_dir is not None and (done or n_epoch % ckpt_every == 0
+                                     or n_epoch == epochs):
+            save(n_epoch)
+        if done:
             break
     return KMeansResult(
         centroids=mbk.centroids, n_iter=n_epoch, sse=mbk.state.last_sse,
         shift=torch.tensor(shift, dtype=torch.float32, device=dev),
         converged=bool(tol >= 0 and shift <= tol),
         history=np.asarray(history, np.float32).reshape(-1, 2),
-        n_iter_run=n_epoch)
+        n_iter_run=n_epoch - start_epoch)
+
+
+def _restored_state(saved, ckpt_dir, k, d, device,
+                    reassignment_ratio) -> MiniBatchState:
+    """The MiniBatchState of a checkpoint, checked as the JAX version
+    checks it; the generator from the port's own meta entry."""
+    if saved.meta.get("k") != k or saved.meta.get("d") != d:
+        raise ValueError(
+            f"checkpoint in {ckpt_dir} is for K={saved.meta.get('k')}"
+            f", d={saved.meta.get('d')}, not ({k}, {d})")
+    if not saved.meta.get("minibatch", False):
+        raise ValueError(
+            f"checkpoint in {ckpt_dir} is not a mini-batch state")
+    generator = None
+    if GENERATOR_META in saved.meta:
+        kind = str(saved.meta.get(GENERATOR_DEVICE_META, "cpu"))
+        if kind != device.type:
+            raise ValueError(
+                f"checkpoint in {ckpt_dir} holds a {kind} generator's state; "
+                f"this run draws on {device.type} — resume on a {kind} "
+                "device")
+        generator = torch.Generator(device=device)
+        generator.set_state(torch.from_numpy(
+            np.asarray(saved.meta[GENERATOR_META], np.uint8).copy()))
+    elif reassignment_ratio > 0:
+        raise ValueError(
+            f"checkpoint in {ckpt_dir} carries the JAX package's threefry "
+            "key, which no torch generator can continue: the resumed "
+            "reassignment draws would differ from the run it continues; "
+            "resume with reassignment_ratio=0 or in the JAX package"
+            if saved.key is not None else
+            f"checkpoint in {ckpt_dir} holds no generator state to continue "
+            "the reassignment draws; resume with reassignment_ratio=0")
+    return MiniBatchState(
+        centroids=torch.as_tensor(np.asarray(saved.centroids,
+                                             np.float32)).to(device),
+        counts=torch.as_tensor(np.asarray(saved.meta["mb_counts"],
+                                          np.float32)).to(device),
+        step=int(np.asarray(saved.meta["mb_step"])),
+        last_sse=torch.tensor(
+            float(np.asarray(saved.meta.get("mb_last_sse", np.inf))),
+            dtype=torch.float32, device=device),
+        generator=generator)
 
 
 __all__ = ["MiniBatchKMeans", "MiniBatchState", "minibatch_kmeans_fit",

@@ -13,9 +13,10 @@ same function as the JAX package's), so republishing identical
 parameters is a visible no-op.
 
 This module is numpy only: it takes the port's fit results through
-`convert.to_numpy`. The JAX package's `load_fitted` also serves a raw
-`utils/checkpoint.py` directory; that format is not ported, so such a
-directory raises NotImplementedError naming ROADMAP.md Queue A, A7(b).
+`convert.to_numpy`. `load_fitted` also serves a raw `utils/checkpoint.py`
+directory (step_XXXXXXXX children, either package's state.npz), so a fit
+interrupted or finished under the streamed drivers can be served
+directly.
 """
 
 from __future__ import annotations
@@ -195,16 +196,6 @@ def _prune_old_arrays(model_dir: str, keep: int, current: str,
             pass  # a concurrent publisher already pruned it
 
 
-def _checkpoint_steps(model_dir: str) -> list[int]:
-    """The step numbers of a `utils/checkpoint.py` directory's
-    step_XXXXXXXX children."""
-    if not os.path.isdir(model_dir):
-        return []
-    return sorted(int(name.split("_")[1]) for name in os.listdir(model_dir)
-                  if name.startswith("step_")
-                  and name.split("_")[1].isdigit())
-
-
 def manifest_fingerprint(model_dir: str) -> tuple | None:
     """Cheap change-detection key for hot-reload polling: (mtime_ns, size,
     version) of the manifest, or a (step, stat) key for a checkpoint
@@ -221,14 +212,19 @@ def manifest_fingerprint(model_dir: str) -> tuple | None:
 
 
 def _checkpoint_fingerprint(ckpt_dir: str) -> tuple | None:
-    steps = _checkpoint_steps(ckpt_dir)
-    if not steps:
+    from tdc_tpu_torch.utils.checkpoint import latest_step
+
+    try:
+        step = latest_step(ckpt_dir)
+    except OSError:
         return None
-    step_dir = os.path.join(ckpt_dir, f"step_{steps[-1]:08d}")
+    if step is None:
+        return None
+    step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     for name in ("state.npz", ""):  # manual gang format, else the step dir
         try:
             st = os.stat(os.path.join(step_dir, name) if name else step_dir)
-            return ("ckpt", steps[-1], st.st_mtime_ns, st.st_size)
+            return ("ckpt", step, st.st_mtime_ns, st.st_size)
         except OSError:
             continue
     return None
@@ -236,8 +232,12 @@ def _checkpoint_fingerprint(ckpt_dir: str) -> tuple | None:
 
 def load_fitted(model_dir: str, *, model: str | None = None) -> FittedModel:
     """Load a fitted model from a save_fitted directory (either
-    package's). `model` names the type of a checkpoint directory, which
-    is not ported: such a directory raises NotImplementedError."""
+    package's) or a raw checkpoint directory.
+
+    A checkpoint carries its model type in its meta: a GMM's holds
+    variances and weights, a fuzzy fit's its fuzzifier `m`, anything else
+    is K-Means centroids. `model=` overrides that.
+    """
     manifest_path = os.path.join(model_dir, MANIFEST_NAME)
     if os.path.exists(manifest_path):
         with open(manifest_path) as f:
@@ -256,14 +256,50 @@ def load_fitted(model_dir: str, *, model: str | None = None) -> FittedModel:
             version=man.get("version", ""),
             path=model_dir,
         )
-    if _checkpoint_steps(model_dir):
-        raise NotImplementedError(
-            f"{model_dir} is a checkpoint directory (step_XXXXXXXX); loading "
-            "a checkpoint as a fitted model is not ported to tdc_tpu_torch "
-            "yet (ROADMAP.md Queue A, A7(b): utils/checkpoint.py)")
-    raise FileNotFoundError(
-        f"{model_dir} has neither a {MANIFEST_NAME} nor a loadable "
-        "checkpoint step")
+    return _load_from_checkpoint(model_dir, model)
+
+
+def _load_from_checkpoint(ckpt_dir: str, model: str | None) -> FittedModel:
+    from tdc_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    state = restore_checkpoint(ckpt_dir)
+    if state is None:
+        raise FileNotFoundError(
+            f"{ckpt_dir} has neither a {MANIFEST_NAME} nor a loadable "
+            "checkpoint step")
+    meta = state.meta
+    c = np.asarray(state.centroids)
+    params: dict[str, Any] = {}
+    if model is None:
+        if "variances" in meta and "weights" in meta:
+            model = "gmm"
+        elif "m" in meta:
+            model = "fuzzy"
+        else:
+            model = "kmeans"
+    if model == "gmm":
+        arrays = {"means": c, "variances": np.asarray(meta["variances"]),
+                  "weights": np.asarray(meta["weights"])}
+        # A streamed GMM's checkpoint names its covariance type; the JAX
+        # package's sharded GMM tower writes diag ones without it.
+        params["covariance_type"] = str(meta.get("cov_type", "diag"))
+    else:
+        arrays = {"centroids": c}
+        if model == "fuzzy" and "m" in meta:
+            params["m"] = float(np.asarray(meta["m"]))
+        if "spherical" in meta:
+            params["spherical"] = bool(np.asarray(meta["spherical"]))
+    return FittedModel(
+        model=model,
+        k=int(c.shape[0]),
+        d=int(c.shape[-1]),
+        arrays=arrays,
+        dtype=str(c.dtype),
+        kernel="auto",
+        params=params,
+        version=f"ckpt-step-{state.n_iter}",
+        path=ckpt_dir,
+    )
 
 
 __all__ = ["FittedModel", "list_array_versions", "load_fitted",

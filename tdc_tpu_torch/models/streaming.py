@@ -44,15 +44,28 @@ holds [cost, shift] per iteration. A named init is resolved against the
 first batch of the stream (rank 0's draw, broadcast, under a mesh), so a
 streamed fit seeded by name differs from an in-memory one.
 
+Checkpoints (`ckpt_dir`, `utils/checkpoint.py`): the K-Means and fuzzy
+fits save every `ckpt_every` iterations and at the end, and with
+`ckpt_every_batches` also mid-pass: the accumulator, the batch cursor
+and the rows it covers. A resume replays the interrupted pass's first
+batches on the host only (their shapes: no copy, no kernel) and adds the
+rest in the same order, so a resumed fit equals an uninterrupted one bit
+for bit. A gang (a mesh of several ranks) has rank 0 write and every
+rank meet at a barrier; every rank restores the same step. With
+`utils/preempt.install_preemption_handler` a SIGTERM ends the fit at the
+next batch boundary (one rank) or after the pass (a gang) with a
+checkpoint and `Preempted` (exit code 75); `utils/heartbeat.maybe_beat`
+marks every batch.
+
 Not ported, each raising NotImplementedError that names its ROADMAP.md
-item: checkpoint/resume (A7(b)), residency other than "stream" (A7(c)),
-an ingest policy other than the strict default (A7(d)), and coarse or
-bounded assignment (A10).
+item: residency other than "stream" (A7(c)), an ingest policy other than
+the strict default (A7(d)), and coarse or bounded assignment (A10).
 """
 
 from __future__ import annotations
 
 import queue as queue_lib
+import sys
 import threading
 import warnings
 from typing import Callable, Iterable, NamedTuple
@@ -85,7 +98,11 @@ from tdc_tpu_torch.ops.assign import (
     lloyd_stats_weighted_blocked,
 )
 from tdc_tpu_torch.parallel import reduce as reduce_lib
+from tdc_tpu_torch.parallel import reshard as reshard_lib
+from tdc_tpu_torch.utils import checkpoint as ckpt_lib
+from tdc_tpu_torch.utils import preempt
 from tdc_tpu_torch.utils.device import resolve_device
+from tdc_tpu_torch.utils.heartbeat import maybe_beat
 
 RESIDENCY_MODES = ("stream", "auto", "hbm", "spill")
 
@@ -279,18 +296,110 @@ def _check_equal_local_rows(first_rows: int, mesh, device) -> None:
              "batches)")
 
 
-def _run_pass(batches, prefetch: int, zero_acc, step_fn, stage=None):
+def _batch_rows(batch) -> int:
+    """A stream batch's row count, read from its shape alone (weighted
+    streams yield (x, w) pairs)."""
+    return int((batch[0] if isinstance(batch, tuple) else batch).shape[0])
+
+
+class _Replayed(NamedTuple):
+    """A batch of a resumed pass's replayed prefix: its rows only."""
+
+    rows: int
+
+
+def _run_pass(batches, prefetch: int, zero_acc, step_fn, stage=None, *,
+              ckpt=None, ckpt_every_batches=None, n_iter: int = 0,
+              skip: int = 0, acc0=None, rows0: int = 0, save_args=None,
+              preempt_batch: bool = False, preempt_can_save: bool = False):
     """One accumulation pass over the stream, the loop every streamed
     fit shares: step_fn(acc, batch) -> (acc, n_rows) for each batch,
     `stage` (host-side, on the prefetch thread when prefetch > 0) first.
-    Returns (acc, rows)."""
-    acc = zero_acc()
-    rows = 0
-    it = batches() if stage is None else map(stage, batches())
-    for batch in _prefetched(it, prefetch):
-        acc, n_rows = step_fn(acc, batch)
-        rows += int(n_rows)
-    return acc, rows
+    Returns (acc, rows). The staging thread stops when the loop ends, a
+    raise included.
+
+    Resume (skip > 0): the first `skip` batches are replayed on the host
+    only (their row counts, read from their shapes: no copy to the
+    device, no kernel) into `acc0`, which covers `rows0` rows. A prefix
+    that now holds another row count means the batch layout changed: the
+    pass restarts from its beginning with a fresh accumulator (a note on
+    stderr).
+
+    Mid-pass checkpoints (ckpt + ckpt_every_batches, n_iter > 0 only,
+    never in the final scoring pass): every ckpt_every_batches consumed
+    batches the accumulator, the cursor and the rows go to ckpt.save,
+    with save_args = (centroids, shift, history), constant over a pass.
+
+    Preemption (utils/preempt): with preempt_batch (a fit of one rank), a
+    raised flag ends the pass at the next batch boundary with Preempted,
+    after a mid-pass save where preempt_can_save allows one (the caller
+    set ckpt_every_batches and the accumulator is not a per-pass
+    deferred one) and the periodic save did not just write this state.
+    A gang checks once per pass instead (the fits' loops).
+
+    maybe_beat marks every batch, the replayed ones too."""
+    while True:
+        acc = acc0 if acc0 is not None else zero_acc()
+        rows = rows0
+        skipped_rows = 0
+        prefix_ok = skip == 0
+        mismatch = False
+
+        def staged(skip=skip):
+            for i, batch in enumerate(batches()):
+                if i < skip:
+                    yield _Replayed(_batch_rows(batch))
+                else:
+                    yield batch if stage is None else stage(batch)
+
+        it = _prefetched(staged(), prefetch)
+        try:
+            for i, batch in enumerate(it):
+                maybe_beat(progress=f"iter={n_iter} batch={i}")
+                if i < skip:
+                    if preempt_batch and preempt.requested():
+                        # The checkpoint on disk covers this state.
+                        raise preempt.Preempted(
+                            f"preempted during resume replay at batch "
+                            f"{i + 1}")
+                    skipped_rows += batch.rows
+                    if i == skip - 1:
+                        if skipped_rows != rows0:
+                            mismatch = True
+                            break
+                        prefix_ok = True
+                    continue
+                acc, n_rows = step_fn(acc, batch)
+                rows += int(n_rows)
+                consumed = i + 1
+                can_save = (n_iter > 0 and ckpt is not None
+                            and ckpt.dir is not None)
+                # Host-side bookkeeping (Python ints and flags).
+                saved = bool(can_save and ckpt_every_batches  # tdclint: disable=TDC002
+                             and consumed % ckpt_every_batches == 0)
+                if saved:
+                    ckpt.save(n_iter - 1, *save_args, batch_cursor=consumed,
+                              acc=acc, rows_seen=rows)
+                if preempt_batch and preempt.requested():
+                    if preempt_can_save and can_save and not saved:
+                        ckpt.save(n_iter - 1, *save_args,
+                                  batch_cursor=consumed, acc=acc,
+                                  rows_seen=rows)
+                    raise preempt.Preempted(
+                        f"preempted at batch boundary {consumed} of "
+                        f"iteration {n_iter}")
+        finally:
+            it.close()
+        if not mismatch and not prefix_ok:
+            # The stream ended inside the replayed prefix.
+            mismatch = True
+        if not mismatch:
+            return acc, rows
+        print(f"note: mid-pass checkpoint covers {rows0} rows but the first "
+              f"{skip} batches now hold {skipped_rows}; batch layout changed "
+              "— restarting the interrupted pass from its beginning",
+              file=sys.stderr)
+        skip, acc0, rows0 = 0, None, 0
 
 
 # ---------------------------------------------------------------------------
@@ -373,9 +482,10 @@ class _Pass:
             s = self.correct(s, pad, params, dtype)
         return s
 
-    def run(self, params):
+    def run(self, params, **resume):
         """One pass; returns (stats of every row of the stream, the
-        stream's row count)."""
+        stream's row count). `resume` holds `_run_pass`'s cursor,
+        checkpoint and preemption arguments."""
         self.passes += 1
         dev = self.device
         state = {"extra": torch.zeros(3, dtype=torch.float32, device=dev),
@@ -418,7 +528,7 @@ class _Pass:
             return reduce_lib.tree_add(acc, s), sb.rows
 
         acc, rows = _run_pass(self.batches, self.prefetch, self.zero, step,
-                              stage=stage)
+                              stage=stage, **resume)
         if self.deferred:
             acc = self._reduced(acc, state["extra"], params, state["dtype"],
                                 f"pass {self.passes}")
@@ -445,19 +555,10 @@ class _Pass:
             gathers=c.gathers)
 
 
-def _refuse_unported(label: str, *, ckpt_dir=None, ckpt_every=None,
-                     ckpt_every_batches=None, ckpt_keep_last_n=None,
-                     residency="stream", ingest=None,
-                     assign="exact", probe=None, bounds="hamerly",
-                     strategy=None, mesh=None) -> None:
+def _refuse_unported(label: str, *, residency="stream", ingest=None,
+                     assign="exact", probe=None, bounds="hamerly") -> None:
     """The streamed fits' options that are not ported, each naming its
-    ROADMAP.md item; then the JAX package's check of a quantized reduce
-    (`_reduce_plan`), in its words."""
-    if any(v is not None for v in (ckpt_dir, ckpt_every, ckpt_every_batches,
-                                   ckpt_keep_last_n)):
-        raise _not_ported(
-            f"{label}: checkpoint/resume (ckpt_dir, ckpt_every, "
-            "ckpt_every_batches, ckpt_keep_last_n)", "Queue A, A7(b)")
+    ROADMAP.md item."""
     if residency not in RESIDENCY_MODES:
         raise ValueError(f"residency={residency!r}: use one of "
                          f"{RESIDENCY_MODES}")
@@ -473,11 +574,168 @@ def _refuse_unported(label: str, *, ckpt_dir=None, ckpt_every=None,
         raise _not_ported(
             f"{label}: assign={assign!r}, probe={probe!r}, bounds="
             f"{bounds!r} (coarse and bounded assignment)", "Queue A, A10")
-    if (strategy is not None and strategy.quantize is not None
-            and _data_ranks(mesh)[1] <= 1):
+
+
+def _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
+                 cursor: int = 0) -> None:
+    """The JAX package's checks of `reduce=` against the checkpoint
+    options (`_reduce_plan`), in its words: a quantized reduce needs
+    several ranks and refuses ckpt_dir (a resume would restart the
+    error-feedback residual); a per-pass reduce on several ranks refuses
+    mid-pass checkpoints and a mid-pass cursor (its accumulator is each
+    rank's own partial)."""
+    ranks = _data_ranks(mesh)[1]
+    deferred = strategy.deferred and ranks > 1
+    if strategy.quantize is not None:
+        if ranks <= 1:
+            raise ValueError(
+                "quantized stats reduce requires a multi-device mesh (there "
+                "is no cross-device reduce to quantize)")
+        if ckpt_dir is not None:
+            raise ValueError(
+                "quantized reduce does not support ckpt_dir: a resume would "
+                "restart the error-feedback residual, breaking the "
+                "bit-identical-resume contract")
+    if deferred and ckpt_every_batches:
         raise ValueError(
-            "quantized stats reduce requires a multi-device mesh (there is "
-            "no cross-device reduce to quantize)")
+            "reduce='per_pass' does not support mid-pass checkpointing "
+            "(the deferred accumulator is device-layout state); use "
+            "per-iteration checkpoints (ckpt_every)")
+    if deferred and cursor:
+        raise ValueError(
+            "cannot resume a mid-pass (per-batch) checkpoint with "
+            "reduce='per_pass' — finish the interrupted pass in per-batch "
+            "mode or resume from a per-iteration checkpoint")
+
+
+def _is_gang(mesh) -> bool:
+    """Does the fit span several ranks (processes)? Then its checkpoints
+    have one writer and its preemption check is a collective."""
+    return mesh is not None and mesh.size > 1
+
+
+def _placed(a, mesh, device) -> torch.Tensor:
+    """A host array as a float32 tensor on `device`, rank 0's on every
+    rank of `mesh` (the restore's placement: a replicate)."""
+    t = torch.as_tensor(np.asarray(a, np.float32)).to(device)
+    if mesh is None:
+        return t
+    from tdc_tpu_torch.parallel.mesh import replicate
+
+    return replicate(t, mesh)
+
+
+class _ResumeState(NamedTuple):
+    centroids: object  # (K, d) f32 tensor, or None without a checkpoint
+    start_iter: int
+    shift: float
+    history: list
+    cursor: int  # batches consumed in the interrupted pass (0 = none)
+    rows_seen: int  # rows `acc` covers (checks the batch layout)
+    acc: object  # the restored accumulator, or None
+
+
+class _StreamCheckpointer:
+    """Checkpoint and restore for the streamed K-Means and fuzzy fits
+    (the JAX package's `_StreamCheckpointer`): the accumulator NamedTuple
+    is saved through a {meta name: field} map, and `params` (spherical /
+    m, weighted) are saved and checked on restore, with k and d, in the
+    JAX package's words. Every save records the layout manifest. A
+    mid-pass save rewrites the step of the last completed iteration: the
+    centroids are those of that step, enriched with the pass's progress.
+    """
+
+    def __init__(self, ckpt_dir, k, d, params: dict, acc_map: dict, *,
+                 mesh=None, keep: int | None = None, device=None):
+        self.dir = ckpt_dir
+        self.k, self.d = k, d
+        self.params = params
+        self.acc_map = acc_map
+        self.mesh = mesh
+        self.gang = _is_gang(mesh)
+        self.keep = keep
+        self.device = device
+
+    def restore(self, acc_cls) -> _ResumeState:
+        none = _ResumeState(None, 0, float("inf"), [], 0, 0, None)
+        if self.dir is None:
+            return none
+        saved = ckpt_lib.restore_checkpoint(self.dir)
+        if self.gang:
+            # Every rank must resume at the same point (none included), or
+            # the ranks' collectives part ways.
+            from tdc_tpu_torch.parallel.mesh import check_same_on_every_rank
+
+            point = ([-1, 0, 0] if saved is None else [
+                saved.n_iter, saved.batch_cursor,
+                int(np.asarray(saved.meta.get("acc_rows", 0)))])
+            check_same_on_every_rank(
+                torch.tensor(point, dtype=torch.float64, device=self.device),
+                what="checkpoint steps and cursors restored")
+        if saved is None:
+            return none
+        if saved.meta.get("k") != self.k or saved.meta.get("d") != self.d:
+            raise ValueError(
+                f"checkpoint in {self.dir} is for K={saved.meta.get('k')}, "
+                f"d={saved.meta.get('d')}, not ({self.k}, {self.d})")
+        for name, want in self.params.items():
+            legacy = {"weighted": False}
+            got = saved.meta.get(name, legacy.get(name, want))
+            if isinstance(want, bool):
+                mismatch = bool(got) != want
+            else:
+                mismatch = float(got) != float(want)
+            if mismatch:
+                raise ValueError(
+                    f"checkpoint in {self.dir} was written with {name}={got}; "
+                    f"this run uses {name}={want} — refusing to mix state")
+        start_iter = saved.n_iter
+        # A resume with nothing left to run still reports the run as it
+        # was saved.
+        shift = float(saved.meta.get("shift", float("inf")))
+        hist = np.asarray(saved.meta.get("history", []), np.float32)
+        history = [tuple(float(v) for v in r) for r in hist.reshape(-1, 2)]
+        # Row i of the history is iteration i + 1: pad a shorter one.
+        if len(history) < start_iter:
+            history = ([(float("nan"), float("nan"))]
+                       * (start_iter - len(history)) + history)
+        cursor, rows_seen, acc = 0, 0, None
+        if saved.batch_cursor > 0 and next(iter(self.acc_map)) in saved.meta:
+            cursor = int(saved.batch_cursor)
+            rows_seen = int(np.asarray(saved.meta.get("acc_rows", 0)))
+            acc = acc_cls(**{field: saved.meta[name]
+                             for name, field in self.acc_map.items()})
+
+        def place(tree):
+            c, acc = tree
+            return (_placed(c, self.mesh, self.device),
+                    None if acc is None else acc_cls(*(
+                        _placed(t, self.mesh, self.device) for t in acc)))
+
+        c, acc = reshard_lib.redistribute(
+            (saved.centroids, acc), reshard_lib.layout_from_meta(saved.meta),
+            self.mesh, place)
+        return _ResumeState(c, start_iter, shift, history, cursor, rows_seen,
+                            acc)
+
+    def save(self, n_iter, c, shift, history, *, batch_cursor=0, acc=None,
+             rows_seen=0) -> None:
+        meta = {"k": self.k, "d": self.d, "shift": float(shift)}
+        meta.update(self.params)
+        meta.update(reshard_lib.layout_meta(self.mesh))
+        if history:
+            meta["history"] = np.asarray(
+                [[float(v) for v in r] for r in history],
+                np.float32).reshape(-1, 2)
+        if acc is not None:
+            meta["acc_rows"] = int(rows_seen)
+            meta.update({name: getattr(acc, field)
+                         for name, field in self.acc_map.items()})
+        ckpt_lib.save_checkpoint(
+            self.dir,
+            ckpt_lib.ClusterState(centroids=c, n_iter=n_iter, key=None,
+                                  batch_cursor=batch_cursor, meta=meta),
+            step=n_iter, gang=self.gang, keep_last_n=self.keep)
 
 
 def _first_batch(stream, d: int, weighted: bool, device):
@@ -506,8 +764,11 @@ def _resolve_stream_init(stream, k: int, d: int, init, generator, mesh,
         else:
             c = resolve_init(first, k, init, generator, first_w)
     else:
+        # A copy: the broadcast below writes into it, and on the CPU
+        # .to() would hand back the caller's own (perhaps read-only) array.
         c = torch.as_tensor(init if isinstance(init, torch.Tensor)
-                            else np.asarray(init)).to(device, torch.float32)
+                            else np.asarray(init)).to(device, torch.float32,
+                                                      copy=True)
         if mesh is not None:
             from tdc_tpu_torch.parallel.mesh import replicate
 
@@ -649,7 +910,7 @@ def streamed_kmeans_fit(
     spherical: bool = False,
     mesh=None,
     ckpt_dir: str | None = None,
-    ckpt_every: int | None = None,
+    ckpt_every: int = 5,
     ckpt_every_batches: int | None = None,
     ckpt_keep_last_n: int | None = None,
     prefetch: int = 0,
@@ -688,22 +949,33 @@ def streamed_kmeans_fit(
         sums quantized on the wire with error feedback; a mesh of several
         ranks only); a ReduceStrategy.
       device: None means 'cuda'; 'cpu' runs the plain versions.
-      ckpt_dir, ckpt_every, ckpt_every_batches, ckpt_keep_last_n,
+      ckpt_dir: save a checkpoint (`utils/checkpoint.py`, the JAX
+        package's state.npz format) every `ckpt_every` iterations and at
+        the end, and resume from the newest one found there.
+      ckpt_every_batches: also save mid-pass every this many batches: the
+        accumulator (copied to the host after the batch that completes
+        it), the batch cursor and the rows it covers, so a resume replays
+        the pass's first batches on the host only and adds the rest in
+        the same order: bit-identical to an uninterrupted fit.
+      ckpt_keep_last_n: keep only the newest N steps (None keeps all).
       residency, ingest, assign, probe, bounds: the JAX version's, not
         ported (they raise, naming their ROADMAP.md item) but at their
-        defaults (None for the checkpoint options).
+        defaults.
 
-    Returns a KMeansResult with the per-iteration [sse, shift] history
-    and `comms` (the reduces this fit issued).
+    Preemption (`utils/preempt.install_preemption_handler`): a SIGTERM
+    makes the fit checkpoint at the next batch boundary (one rank; the
+    mid-pass save needs ckpt_every_batches) or after the pass (a gang,
+    whose ranks agree once per pass) and raise Preempted (exit code 75).
+
+    Returns a KMeansResult with the per-iteration [sse, shift] history,
+    `comms` (the reduces this fit issued) and n_iter_run, the iterations
+    this call ran.
     """
     weighted = sample_weight_batches is not None
     strategy = reduce_lib.resolve_reduce(reduce)
-    _refuse_unported("streamed_kmeans_fit", ckpt_dir=ckpt_dir,
-                     ckpt_every=ckpt_every,
-                     ckpt_every_batches=ckpt_every_batches,
-                     ckpt_keep_last_n=ckpt_keep_last_n, residency=residency,
+    _refuse_unported("streamed_kmeans_fit", residency=residency,
                      ingest=ingest, assign=assign, probe=probe,
-                     bounds=bounds, strategy=strategy, mesh=mesh)
+                     bounds=bounds)
     dev = resolve_device(device)
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
@@ -725,38 +997,93 @@ def streamed_kmeans_fit(
     if spherical:
         c = _normalize(c)
     _check_equal_local_rows(first_rows, mesh, dev)
+    ckpt = _StreamCheckpointer(
+        ckpt_dir, k, d,
+        params={"spherical": bool(spherical), "weighted": weighted},
+        acc_map={"acc_sums": "sums", "acc_counts": "counts",
+                 "acc_sse": "sse"},
+        mesh=mesh, keep=ckpt_keep_last_n, device=dev)
+    state = ckpt.restore(SufficientStats)
+    _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
+                 cursor=state.cursor)
     local, correct = _lloyd_pass_fns(
         spherical, _LloydRoute(k, d, kernel, "streamed_kmeans_fit"), kernel)
     machine = _Pass(stream, d=d, mesh=mesh, device=dev, prefetch=prefetch,
                     weighted=weighted, strategy=strategy,
                     shapes=_lloyd_shapes(k, d), local=local,
                     correct=correct)
-    shift, history, n_iter = float("inf"), [], 0
-    for n_iter in range(1, int(max_iters) + 1):
-        acc, _ = machine.run(c)
-        if weighted and n_iter == 1 and float(acc.counts.sum()) <= 0.0:
-            raise ValueError(
-                "all sample weights are zero — the weighted fit has no mass")
+
+    def update(acc, c):
         new_c = apply_centroid_update(acc, c)
-        if spherical:
-            new_c = _normalize(new_c)
-        shift_dev = torch.linalg.norm(new_c - c, dim=-1).max()
-        sync = tol >= 0
-        shift = float(shift_dev) if sync else shift_dev
-        history.append((float(acc.sse) if sync else acc.sse, shift))
-        c = new_c
-        if sync and shift <= tol:
-            break
-    shift = float(shift)
+        return _normalize(new_c) if spherical else new_c
+
+    c, n_iter, shift, history, start_iter = _fit_loop(
+        machine, ckpt, state, c, update, max_iters=max_iters, tol=tol,
+        ckpt_every=ckpt_every, ckpt_every_batches=ckpt_every_batches,
+        mass=(lambda acc: acc.counts) if weighted else None,
+        cost=lambda acc: acc.sse)
     # One more pass so the SSE is the returned centroids' (the loop's is
     # one update stale).
-    sse = machine.run(c)[0].sse
+    sse = machine.run(c, preempt_batch=not ckpt.gang)[0].sse
     return KMeansResult(
         centroids=c, n_iter=n_iter, sse=sse,
         shift=torch.tensor(shift, dtype=torch.float32, device=dev),
         converged=bool(tol >= 0 and shift <= tol),
-        history=_history_array(history), n_iter_run=n_iter,
+        history=_history_array(history), n_iter_run=n_iter - start_iter,
         comms=machine.report())
+
+
+def _fit_loop(machine, ckpt, state, c, update, *, max_iters, tol,
+              ckpt_every, ckpt_every_batches, mass, cost):
+    """The iterations of a streamed K-Means or fuzzy fit (the JAX fits'
+    loop): one pass each from the restored state (the interrupted pass's
+    cursor and accumulator first), `update(acc, c)` the new centroids,
+    the shift read once an iteration when tol >= 0 or checkpointing; a
+    checkpoint every `ckpt_every` iterations, on convergence and at the
+    last; the preemption check after each iteration (a collective on a
+    gang, where the handler is installed). `mass(acc)` (weighted fits)
+    must be positive after the first pass. Returns (centroids, n_iter,
+    shift, history, start_iter)."""
+    if state.centroids is not None:
+        c = state.centroids
+    start_iter, shift, history = state.start_iter, state.shift, state.history
+    cursor, acc0 = state.cursor, state.acc
+    sync = tol >= 0 or ckpt.dir is not None
+    n_iter = start_iter
+    # A restored run that had converged has nothing left to do.
+    done = tol >= 0 and shift <= tol
+    for n_iter in range(start_iter + 1, int(max_iters) + 1) if not done \
+            else ():
+        acc, _ = machine.run(
+            c, n_iter=n_iter, skip=cursor, acc0=acc0,
+            rows0=state.rows_seen if cursor else 0, ckpt=ckpt,
+            ckpt_every_batches=ckpt_every_batches,
+            save_args=(c, shift, history), preempt_batch=not ckpt.gang,
+            preempt_can_save=bool(ckpt_every_batches)
+            and not machine.deferred)
+        cursor, acc0 = 0, None
+        if (mass is not None and n_iter == start_iter + 1
+                and float(mass(acc).sum()) <= 0.0):
+            raise ValueError(
+                "all sample weights are zero — the weighted fit has no mass")
+        new_c = update(acc, c)
+        shift_dev = torch.linalg.norm(new_c - c, dim=-1).max()
+        shift = float(shift_dev) if sync else shift_dev
+        history.append((float(cost(acc)) if sync else cost(acc), shift))
+        c = new_c
+        done = sync and tol >= 0 and shift <= tol
+        saved = ckpt.dir is not None and (
+            done or n_iter % ckpt_every == 0 or n_iter == max_iters)
+        if saved:
+            ckpt.save(n_iter, c, shift, history)
+        if preempt.installed() and preempt.sync_requested(
+                gang=ckpt.gang, mesh=ckpt.mesh, device=ckpt.device):
+            if ckpt.dir is not None and not saved:
+                ckpt.save(n_iter, c, shift, history)
+            raise preempt.Preempted(f"preempted after iteration {n_iter}")
+        if done:
+            break
+    return c, n_iter, float(shift), history, start_iter
 
 
 def streaming_fold(centroids, counts, batch, n_valid=None,
@@ -942,7 +1269,7 @@ def streamed_fuzzy_fit(
     tol: float = 1e-4,
     mesh=None,
     ckpt_dir: str | None = None,
-    ckpt_every: int | None = None,
+    ckpt_every: int = 5,
     ckpt_every_batches: int | None = None,
     ckpt_keep_last_n: int | None = None,
     prefetch: int = 0,
@@ -954,18 +1281,16 @@ def streamed_fuzzy_fit(
     device=None,
 ) -> FuzzyCMeansResult:
     """Exact streamed Fuzzy C-Means: the contract of streamed_kmeans_fit
-    with the per-iteration [objective, shift] history; kernel='pallas'
-    runs B6 per batch and refuses sample weights (the weighted stats run
-    in f32 plain ops for mass exactness)."""
+    (checkpoints, mid-pass resume and the preemption drain included) with
+    the per-iteration [objective, shift] history; kernel='pallas' runs B6
+    per batch and refuses sample weights (the weighted stats run in f32
+    plain ops for mass exactness)."""
     if m <= 1.0:
         raise ValueError(f"fuzzifier m must be > 1, got {m}")
     weighted = sample_weight_batches is not None
     strategy = reduce_lib.resolve_reduce(reduce)
-    _refuse_unported("streamed_fuzzy_fit", ckpt_dir=ckpt_dir,
-                     ckpt_every=ckpt_every,
-                     ckpt_every_batches=ckpt_every_batches,
-                     ckpt_keep_last_n=ckpt_keep_last_n, residency=residency,
-                     ingest=ingest, strategy=strategy, mesh=mesh)
+    _refuse_unported("streamed_fuzzy_fit", residency=residency,
+                     ingest=ingest)
     dev = resolve_device(device)
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
@@ -988,6 +1313,14 @@ def streamed_fuzzy_fit(
     c, first_rows = _resolve_stream_init(stream, k, d, init, generator,
                                          mesh, weighted, dev)
     _check_equal_local_rows(first_rows, mesh, dev)
+    ckpt = _StreamCheckpointer(
+        ckpt_dir, k, d, params={"m": float(m), "weighted": weighted},
+        acc_map={"acc_wsums": "weighted_sums", "acc_weights": "weights",
+                 "acc_obj": "objective"},
+        mesh=mesh, keep=ckpt_keep_last_n, device=dev)
+    state = ckpt.restore(FuzzyStats)
+    _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
+                 cursor=state.cursor)
     local, correct = _fuzzy_pass_fns(
         _FuzzyRoute(k, d, float(m), kernel, "streamed_fuzzy_fit"), float(m),
         kernel)
@@ -995,27 +1328,18 @@ def streamed_fuzzy_fit(
                     weighted=weighted, strategy=strategy,
                     shapes=_fuzzy_shapes(k, d), local=local,
                     correct=correct)
-    shift, history, n_iter = float("inf"), [], 0
-    for n_iter in range(1, int(max_iters) + 1):
-        acc, _ = machine.run(c)
-        if weighted and n_iter == 1 and float(acc.weights.sum()) <= 0.0:
-            raise ValueError(
-                "all sample weights are zero — the weighted fit has no mass")
-        new_c = acc.weighted_sums / torch.clamp_min(acc.weights[:, None],
-                                                    1e-12)
-        shift_dev = torch.linalg.norm(new_c - c, dim=-1).max()
-        sync = tol >= 0
-        shift = float(shift_dev) if sync else shift_dev
-        history.append((float(acc.objective) if sync else acc.objective,
-                        shift))
-        c = new_c
-        if sync and shift <= tol:
-            break
-    shift = float(shift)
-    objective = machine.run(c)[0].objective
+    c, n_iter, shift, history, start_iter = _fit_loop(
+        machine, ckpt, state, c,
+        lambda acc, c: acc.weighted_sums / torch.clamp_min(
+            acc.weights[:, None], 1e-12),
+        max_iters=max_iters, tol=tol, ckpt_every=ckpt_every,
+        ckpt_every_batches=ckpt_every_batches,
+        mass=(lambda acc: acc.weights) if weighted else None,
+        cost=lambda acc: acc.objective)
+    objective = machine.run(c, preempt_batch=not ckpt.gang)[0].objective
     return FuzzyCMeansResult(
         centroids=c, n_iter=n_iter, objective=objective,
         shift=torch.tensor(shift, dtype=torch.float32, device=dev),
         converged=bool(tol >= 0 and shift <= tol),
-        history=_history_array(history), n_iter_run=n_iter,
+        history=_history_array(history), n_iter_run=n_iter - start_iter,
         comms=machine.report())

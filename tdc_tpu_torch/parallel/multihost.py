@@ -86,6 +86,11 @@ def initialize_distributed(init_method: str | None = None,
         world_size if local_world_size is None else local_world_size)
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
+    from tdc_tpu_torch.utils.preempt import reinstall_if_installed
+
+    # The JAX package's call order: a drain handler installed before the
+    # group came up stays in place.
+    reinstall_if_installed()
     set_process_index(rank)
     emit("gang_init", process_id=rank, num_processes=world_size,
          backend=backend)

@@ -175,11 +175,25 @@ def test_fit_over_a_stream_against_jax(monkeypatch, kernel):
                                atol=sse_atol)
 
 
-def test_fit_checkpoint_names_the_roadmap_and_empty_stream_raises():
+def test_fit_checkpoint_names_the_roadmap_and_empty_stream_raises(
+        tmp_path, monkeypatch):
+    # The per-epoch checkpoint is ported: what stays refused is a JAX
+    # checkpoint's threefry key where the fit would draw with it. The
+    # JAX fit writes the state.npz format as under several processes.
+    from tdc_tpu.data import loader as jload
+    from tdc_tpu.parallel import multihost as jmh
+
     x, init, _ = _blobs()
-    with pytest.raises(NotImplementedError, match=r"A7\(b\)"):
+    ck = str(tmp_path / "ck")
+    with monkeypatch.context() as mp_:
+        mp_.setattr(jax, "process_count", lambda: 2)
+        mp_.setattr(jmh, "barrier", lambda *a, **kw: None)
+        jmb.minibatch_kmeans_fit(jload.NpzStream(x, ROWS), K, D, init=init,
+                                 epochs=1, ckpt_dir=ck,
+                                 key=jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="threefry key"):
         tmb.minibatch_kmeans_fit(tload.NpzStream(x, ROWS), K, D, init=init,
-                                 ckpt_dir="ck", device="cpu")
+                                 epochs=2, ckpt_dir=ck, device="cpu")
     with pytest.raises(ValueError, match="partial_fit was never called"):
         tmb.minibatch_kmeans_fit(lambda: iter(()), K, D, init=init,
                                  device="cpu")

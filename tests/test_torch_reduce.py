@@ -461,9 +461,9 @@ def test_quantized_reduce_needs_a_mesh_of_several_ranks():
         tst.streamed_kmeans_fit(NpzStream(x, 32), 2, 2, init=x[:2],
                                 max_iters=1, reduce="per_pass:bf16",
                                 mesh=tmesh.make_mesh(1), device="cpu")
-    # The checkpoint refusal (ROADMAP.md A7(b)) comes first, as the
-    # port's refusals of what it has not ported always do.
-    with pytest.raises(NotImplementedError, match=r"A7\(b\)"):
+    # With ckpt_dir too (checkpoints are ported): the JAX package's
+    # _reduce_plan refuses the single rank first, before ckpt_dir.
+    with pytest.raises(ValueError, match="requires a multi-device mesh"):
         tst.streamed_kmeans_fit(NpzStream(x, 32), 2, 2, init=x[:2],
                                 reduce="per_pass:int8", ckpt_dir="ck",
                                 device="cpu")

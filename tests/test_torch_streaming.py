@@ -726,8 +726,20 @@ def test_nonfinite_batch_makes_the_fit_raise():
     (lambda s: tst.streamed_fuzzy_fit(s, K, D, init="first_k", ckpt_every=5,
                                       device="cpu"), "A7(b)"),
 ])
-def test_refusals_name_their_queue_item(call, item):
+def test_refusals_name_their_queue_item(call, item, tmp_path,
+                                        monkeypatch):
     x, _ = _blobs()
+    if item == "A7(b)":
+        # Checkpoint/resume is ported: these calls run (their relative
+        # "ck" directory in the test's tmp directory), or a quantized
+        # reduce on one rank raises the JAX package's ValueError, which
+        # comes before its refusal of ckpt_dir.
+        monkeypatch.chdir(tmp_path)
+        try:
+            call(tload.NpzStream(x, ROWS))
+        except ValueError as e:
+            assert "requires a multi-device mesh" in str(e)
+        return
     with pytest.raises(NotImplementedError, match=item.replace(
             "(", r"\(").replace(")", r"\)")):
         call(tload.NpzStream(x, ROWS))
