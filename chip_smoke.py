@@ -263,6 +263,20 @@ failure (nothing is caught):
    killed in epoch 2. Every resume is bitwise equal to the
    uninterrupted fit and launches its kernel once per batch it computes
    (none for the replayed prefix); every save's time and size printed.
+20. Residency ([residency], run inside phase 16 on its points file and
+   STREAM_ARGS): (a) the CLI with --residency=hbm: bitwise equal to
+   [stream_route]'s fit (centroids, history, SSE, n_iter), B1 2 x 8 x 11,
+   no batch copied to the card after each fit's first pass; (b)
+   --residency=spill: bitwise, its SpillReport (bytes, copy and stall
+   seconds, overlap bound, cross-pass batches); (c) residency='auto' with
+   the planner's budget set between the 3-slot ring and the 5.12 GB
+   cache: it picks spill (its `residency_spill` event printed), bitwise;
+   (d) Fuzzy C-Means --residency=hbm at [stream_fuzzy]'s shape: bitwise,
+   B6 2 x 8 x 5; (e) residency='hbm' with ckpt_dir, ckpt_every=3, 6
+   iterations, resumed to 10: bitwise [stream_route]'s fit; (f) two ranks
+   --reduce=per_pass --residency=hbm at [stream_dp]'s shape: bitwise its
+   per_pass fit. Each fit's seconds printed; for (a) and (d) also the
+   fill pass's and the mean cached pass's, timed between synchronizes.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -2309,13 +2323,13 @@ def pass_split(host, rows, c) -> dict:
     the card at a time, as in the fit. Launches here are not the main
     path's."""
     from tdc_tpu_torch.data import NpzStream
-    from tdc_tpu_torch.models.streaming import _device_rows
+    from tdc_tpu_torch.data.spill import device_rows
 
     copy_s = kernel_ms = 0.0
     for b in NpzStream(host, rows)():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        xb = _device_rows(b, b.shape[0], "cuda")
+        xb = device_rows(b, b.shape[0], "cuda")
         torch.cuda.synchronize()
         copy_s += time.perf_counter() - t0
         kernel_ms += median_ms(lambda: lk.lloyd_stats_fused(xb, c), 3)
@@ -2813,6 +2827,7 @@ def phase_streams(tmp) -> dict:
               f"{float(b.sse):.10g}", flush=True)
     del x, y, means
     numbers = dict(row=row, mem_row=row_m, split=split, passes=passes)
+    refs = {"route": st, "route_row": row}
     # [stream_fuzzy]: B6 per batch against the in-memory fit.
     row_m, seen_m, fits = run_cli_captured(STREAM_FUZZY_ARGS, tmp,
                                            "stream_fuzzy_mem",
@@ -2821,7 +2836,8 @@ def phase_streams(tmp) -> dict:
     require_launches("stream_fuzzy_mem", seen_m, B6=2 * 5)
     row, seen, fits = run_cli_captured([*STREAM_FUZZY_ARGS, *batches], tmp,
                                        "stream_fuzzy", "streamed_fuzzy_fit")
-    st = fits["streamed_fuzzy_fit"]
+    st = refs["fuzzy"] = fits["streamed_fuzzy_fit"]
+    refs["fuzzy_row"] = row
     require_launches("stream_fuzzy", seen,
                      B6=2 * STREAM_BATCHES * st.comms.passes)
     require((st.n_iter, st.converged) == (mem.n_iter, mem.converged),
@@ -2890,6 +2906,7 @@ def phase_streams(tmp) -> dict:
                                        "streamed_kmeans_fit")
     passes = fits["streamed_kmeans_fit"].comms.passes
     one_c = fits["streamed_kmeans_fit"].centroids.cpu()
+    refs["dp"] = {}
     for reduce in ("per_batch", "per_pass"):
         name = f"stream_dp_{reduce}"
         row, seen, fits = run_ranks([*STREAM_DP_ARGS, f"--n_GPUs={RANKS}",
@@ -2903,11 +2920,13 @@ def phase_streams(tmp) -> dict:
                 f"{name}: n_iter {row['n_iter']}, sse {row['sse']} vs one "
                 f"rank's {one['n_iter']}, {one['sse']}")
         err = check_centroids(name, torch.from_numpy(c), one_c)
+        refs["dp"][reduce] = (row, c)
         print(f"[{name}] against one rank: n_iter {row['n_iter']} == "
               f"{one['n_iter']}, sse {row['sse']} vs {one['sse']} (rel "
               f"{rel:.3g}), max centroid diff {err:.3g}; computation_time "
               f"{row['computation_time']} s (one rank "
               f"{one['computation_time']} s)", flush=True)
+    phase_residency(npy, tmp, refs)
     numbers["minibatch"] = phase_minibatch(npy, tmp, smi())
     phase_ckpt(npy, tmp, smi())
     # [oom]: the stream route's points from the file.
@@ -2915,6 +2934,231 @@ def phase_streams(tmp) -> dict:
                                    STREAM_N * STREAM_D * 4)
     os.remove(npy)
     return numbers
+
+
+def same_fit(name, a, b, cost="sse") -> None:
+    """`a` is `b` bit for bit: centroids, cost, history, n_iter and
+    converged."""
+    require(torch.equal(a.centroids.cpu(), b.centroids.cpu())
+            and float(getattr(a, cost)) == float(getattr(b, cost))
+            and np.array_equal(np.asarray(a.history), np.asarray(b.history))
+            and (a.n_iter, a.converged) == (b.n_iter, b.converged),
+            f"{name}: not the streamed fit's bits (n_iter {a.n_iter} vs "
+            f"{b.n_iter}, {cost} {float(getattr(a, cost))!r} vs "
+            f"{float(getattr(b, cost))!r}, max centroid diff "
+            f"{(a.centroids.cpu() - b.centroids.cpu()).abs().max().item()})")
+
+
+class StagedBytes:
+    """While active, counts the bytes the streamed fits copy from the host
+    to the card batch by batch (`models/streaming.device_rows`, the
+    inline staging, the init's first batch included)."""
+
+    def __init__(self):
+        from tdc_tpu_torch.models import streaming as tst
+
+        self.mod, self.real, self.bytes = tst, tst.device_rows, 0
+
+    def __enter__(self):
+        def counted(a, rows, device):
+            if not (isinstance(a, torch.Tensor) and a.is_cuda):
+                self.bytes += a.nbytes if isinstance(a, np.ndarray) else (
+                    a.numel() * a.element_size())
+            return self.real(a, rows, device)
+
+        self.mod.device_rows = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.device_rows = self.real
+
+
+class PassTimes:
+    """While active, times each pass of the streamed fits on the host
+    clock between synchronizes: `_Pass.run` (a fill pass where it fills a
+    cache) and `_Pass.run_cached`. `last_fit()` is (the last fill pass's
+    seconds, the mean of the cached passes after it, their count)."""
+
+    def __init__(self):
+        from tdc_tpu_torch.models import streaming as tst
+
+        self.cls = tst._Pass
+        self.real = (tst._Pass.run, tst._Pass.run_cached)
+        self.passes = []
+
+    def __enter__(self):
+        def timed(fn, cached):
+            def wrapper(machine, params, *a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(machine, params, *a, **kw)
+                torch.cuda.synchronize()
+                kind = ("cached" if cached else
+                        "fill" if kw.get("fill") is not None else "stream")
+                self.passes.append((kind, time.perf_counter() - t0))
+                return out
+            return wrapper
+
+        self.cls.run = timed(self.real[0], False)
+        self.cls.run_cached = timed(self.real[1], True)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run, self.cls.run_cached = self.real
+
+    def last_fit(self) -> tuple[float, float, int]:
+        kinds = [k for k, _ in self.passes]
+        i = len(kinds) - 1 - kinds[::-1].index("fill")
+        cached = [t for k, t in self.passes[i + 1:] if k == "cached"]
+        return self.passes[i][1], sum(cached) / len(cached), len(cached)
+
+
+def phase_residency(npy, tmp, refs) -> None:
+    """[residency]: the device cache and the spill ring on the stream
+    route's points (phase 20 of the module docstring). `refs` holds the
+    streamed fits they must equal: [stream_route]'s and [stream_fuzzy]'s
+    computation fits and [stream_dp]'s two-rank rows and centroids."""
+    from tdc_tpu_torch.data import NpzStream
+    from tdc_tpu_torch.data import device_cache as tdc
+    from tdc_tpu_torch.models import streamed_kmeans_fit as fit_st
+
+    t_phase = time.perf_counter()
+    batches = ["--num_batches", str(STREAM_BATCHES), f"--data_file={npy}"]
+    rows = -(-STREAM_N // STREAM_BATCHES)
+    # (a) hbm through the CLI.
+    with StagedBytes() as staged, PassTimes() as passes:
+        row, seen, fits = run_cli_captured(
+            [*STREAM_ARGS, *batches, "--residency=hbm"], tmp,
+            "residency_hbm", "streamed_kmeans_fit")
+    res = fits["streamed_kmeans_fit"]
+    require_launches("residency_hbm", seen, B1=2 * STREAM_BATCHES * 11)
+    same_fit("residency_hbm", res, refs["route"])
+    # Each fit copies the init's first batch and its first pass, no more.
+    once = (rows + STREAM_N) * STREAM_D * 4
+    after = staged.bytes - 2 * once
+    require(after == 0, f"residency_hbm: {after} batch bytes staged after "
+                        "the first pass")
+    fill_s, cached_s, n_cached = passes.last_fit()
+    require(n_cached == 10, f"residency_hbm: {n_cached} cached passes")
+    print(f"[residency] (a) hbm: bitwise [stream_route]'s fit; "
+          f"computation_time {row['computation_time']} s a fit "
+          f"([stream_route] {refs['route_row']['computation_time']} s; "
+          f"passes timed between synchronizes: fill pass {fill_s!r} s, "
+          f"cached pass mean {cached_s!r} s over {n_cached}); "
+          f"{staged.bytes} bytes staged in 2 fits, {after} after the first "
+          f"pass; B1 {seen['B1']}", flush=True)
+    # (b) spill through the CLI.
+    row, seen, fits = run_cli_captured(
+        [*STREAM_ARGS, *batches, "--residency=spill"], tmp,
+        "residency_spill", "streamed_kmeans_fit")
+    res = fits["streamed_kmeans_fit"]
+    require_launches("residency_spill", seen, B1=2 * STREAM_BATCHES * 11)
+    same_fit("residency_spill", res, refs["route"])
+    h = res.h2d
+    require(h is not None and h.batches >= STREAM_BATCHES * 11,
+            f"residency_spill: report {h}")
+    print(f"[residency] (b) spill: bitwise [stream_route]'s fit; "
+          f"computation_time {row['computation_time']} s a fit, "
+          f"{float(row['computation_time']) / 11:.4f} s a pass; "
+          f"{h}, overlap_lower_bound {h.overlap_lower_bound:.4f}, "
+          f"{h.h2d_bytes / h.copy_s / 1e9:.2f} GB/s a stage", flush=True)
+    # (c) auto, with the cache over the budget and the ring under it.
+    points = np.load(npy, mmap_mode="r")
+    probe = tdc.plan_residency(
+        "spill", hints=tdc.stream_hints(NpzStream(points, rows)),
+        d=STREAM_D, k=STREAM_K, kernel="pallas", device="cuda")
+    budget = (probe.spill_bytes + probe.resident_bytes) // 2 + \
+        probe.reserve_bytes
+    require(probe.spill_bytes + probe.reserve_bytes < budget
+            < probe.resident_bytes + probe.reserve_bytes,
+            f"residency_auto: budget {budget} for {probe}")
+    real_budget = tdc.planner_budget_bytes
+    log = os.path.join(tmp, "residency_auto.jsonl")
+    os.environ["TDC_RUNLOG"] = log
+    tdc.planner_budget_bytes = lambda device=None: budget
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fit_st(NpzStream(points, rows), STREAM_K, STREAM_D,
+                     init=points[:STREAM_K], max_iters=10, tol=-1.0,
+                     kernel="pallas", residency="auto")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        seen = counts()
+    finally:
+        tdc.planner_budget_bytes = real_budget
+        del os.environ["TDC_RUNLOG"]
+    with open(log) as f:
+        events = [json.loads(line) for line in f]
+    spill_ev = [e for e in events if e["event"] == "residency_spill"]
+    require(res.h2d is not None and len(spill_ev) == 1
+            and spill_ev[0]["reason"] == "cache_over_budget",
+            f"residency_auto: events {events}")
+    require_launches("residency_auto", seen, B1=STREAM_BATCHES * 11)
+    same_fit("residency_auto", res, refs["route"])
+    print(f"[residency] (c) auto under a {budget}-byte budget picked spill, "
+          f"bitwise: event {json.dumps(spill_ev[0])}; {secs:.3f} s the fit",
+          flush=True)
+    # (d) fuzzy hbm through the CLI.
+    with PassTimes() as passes:
+        row, seen, fits = run_cli_captured(
+            [*STREAM_FUZZY_ARGS, *batches, "--residency=hbm"], tmp,
+            "residency_fuzzy_hbm", "streamed_fuzzy_fit")
+    fill_s, cached_s, n_cached = passes.last_fit()
+    require_launches("residency_fuzzy_hbm", seen,
+                     B6=2 * STREAM_BATCHES * 5)
+    same_fit("residency_fuzzy_hbm", fits["streamed_fuzzy_fit"],
+             refs["fuzzy"], "objective")
+    print(f"[residency] (d) fuzzy hbm: bitwise [stream_fuzzy]'s fit; "
+          f"computation_time {row['computation_time']} s a fit "
+          f"([stream_fuzzy] {refs['fuzzy_row']['computation_time']} s; "
+          f"fill pass {fill_s!r} s, cached pass mean {cached_s!r} s over "
+          f"{n_cached}); B6 {seen['B6']}", flush=True)
+    # (e) hbm with checkpoints every 3 iterations, resumed from 6.
+    ck = os.path.join(tmp, "residency_ckpt")
+    kw = dict(init=points[:STREAM_K], tol=-1.0, kernel="pallas",
+              residency="hbm", ckpt_dir=ck, ckpt_every=3)
+    reset_counts()
+    t0 = time.perf_counter()
+    first = fit_st(NpzStream(points, rows), STREAM_K, STREAM_D,
+                   max_iters=6, **kw)
+    b1_first = counts()["B1"]
+    resumed = fit_st(NpzStream(points, rows), STREAM_K, STREAM_D,
+                     max_iters=10, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = sorted(os.listdir(ck))
+    require(first.n_iter == 6 and resumed.n_iter_run == 4
+            and steps == [f"step_{i:08d}" for i in (3, 6, 9, 10)]
+            and b1_first == STREAM_BATCHES * 7
+            and counts()["B1"] == STREAM_BATCHES * 12,
+            f"residency_ckpt: steps {steps}, n_iter_run "
+            f"{resumed.n_iter_run}, launches {counts()}")
+    same_fit("residency_ckpt", resumed, refs["route"])
+    shutil.rmtree(ck)
+    print(f"[residency] (e) hbm with ckpt_every=3: saves {steps}, resumed "
+          f"from iteration 6, bitwise [stream_route]'s fit; {secs:.3f} s "
+          f"both fits, B1 {b1_first} + {counts()['B1'] - b1_first}",
+          flush=True)
+    del points
+    # (f) two ranks, per_pass, hbm.
+    row, seen, fits = run_ranks([*STREAM_DP_ARGS, f"--n_GPUs={RANKS}",
+                                 "--reduce=per_pass", "--residency=hbm"],
+                                tmp, "residency_dp")
+    want_row, want_c = refs["dp"]["per_pass"]
+    for rank, per_rank in enumerate(seen):
+        require_launches(f"residency_dp, rank {rank}", per_rank, B1=2 * 4 * 2)
+    require(np.array_equal(fits[0][0], want_c)
+            and all(np.array_equal(f[0], want_c) for f in fits)
+            and (row["sse"], row["n_iter"]) == (want_row["sse"],
+                                                want_row["n_iter"]),
+            f"residency_dp: sse {row['sse']} vs {want_row['sse']}")
+    print(f"[residency] (f) two ranks per_pass hbm: bitwise [stream_dp]'s "
+          f"per_pass fit, sse {row['sse']}; computation_time "
+          f"{row['computation_time']} s ([stream_dp] "
+          f"{want_row['computation_time']} s)", flush=True)
+    print(f"[residency] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 # [ckpt]: checkpoint, preemption and resume of the streamed and mini-batch

@@ -25,6 +25,12 @@ the wire with error feedback (kmeans, fuzzy and gaussianMixture);
 `--prefetch`
 reads batches on a background thread; `--history_file` writes the
 per-iteration [cost, shift] CSV of a K-Means or fuzzy fit.
+`--residency=hbm` (kmeans/fuzzy, streamed) keeps the batches on the card
+after the first pass and runs the later iterations over them;
+`--residency=spill` copies them through pinned buffers on a copy stream,
+ahead of the compute; `--residency=auto` takes hbm where the card's budget
+holds the dataset (the batch rows then capped to what the cache leaves,
+a `residency_batch_cap` event), else spill, else streams.
 
 Checkpoints: --ckpt_dir=DIR runs the fit streamed (the in-memory fits
 take no checkpoint; one batch is the in-memory case) and saves it there
@@ -139,6 +145,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "':bf16'/':int8' additionally quantize the (K, d) "
                         "sums on the wire with error feedback (1-D meshes "
                         "of several GPUs only)")
+    p.add_argument("--residency", type=str, default="stream",
+                   choices=("stream", "auto", "hbm", "spill"),
+                   help="streamed kmeans/fuzzy dataset residency "
+                        "(data/device_cache.py): 'hbm' caches the padded "
+                        "batches in device memory during iteration 1 and "
+                        "runs iterations 2..N as an eager loop over the "
+                        "cached batches, with no batch copied after pass "
+                        "1; 'spill' stages each batch through pinned "
+                        "buffers on a copy stream, 2 slots ahead of "
+                        "compute (data/spill.py — the over-budget tier, "
+                        "bit-exact with plain streaming); 'auto' picks "
+                        "hbm when dataset + accumulators fit the "
+                        "device's budget, spill when only "
+                        "a slot ring fits, and falls back to streaming "
+                        "(loudly) when neither does")
     p.add_argument("--prefetch", type=int, default=0,
                    help="streamed modes: background-thread batch prefetch "
                         "depth (0 = off)")
@@ -537,6 +558,11 @@ def run_experiment(args) -> dict:
                 "--kernel=pallas gaussianMixture is single-device "
                 f"(resolved n_devices={n_devices}); pass --n_GPUs=1")
         mesh = mesh2d = None
+        if args.shard_k > 1 and args.residency != "stream":
+            raise NotImplementedError(
+                f"--residency={args.residency} with --shard_k runs the "
+                "K-sharded towers' residency, which is not ported to "
+                "tdc_tpu_torch yet (ROADMAP.md Queue A, A9)")
         if args.shard_k > 1:
             if n_devices % args.shard_k != 0:
                 raise ValueError(f"n_devices={n_devices} not divisible by "
@@ -622,6 +648,50 @@ def run_experiment(args) -> dict:
             state["device_x"] = xx.to(device=dev, dtype=dtype)
         return state["device_x"]
 
+    def stream_itemsize() -> int:
+        """The bytes of one element of the streamed points: 2 for bf16
+        points (a bf16 file, or --dtype bfloat16), which the streamed fits
+        copy and cache as they are; 4 for any other, which they stage as
+        f32."""
+        xx = state["x"]
+        return 2 if getattr(xx, "dtype", None) == torch.bfloat16 else 4
+
+    def residency_rows(rows: int, itemsize: int) -> int:
+        """The batch rows under --residency=auto|hbm: a cache that holds
+        the whole dataset for the fit leaves the batches' working set only
+        the rest of the budget, so rows above what the rest holds are
+        capped (a `residency_batch_cap` event); otherwise the fill pass
+        runs out of memory and the retry halves batches against a budget
+        that never fits. The JAX CLI's rule: the cache and the model-state
+        copies `plan_residency` reserves come out of the budget first; no
+        cap where they do not fit (the plan then streams, or forces the
+        cache and abandons it loudly), nor under 'spill' (its ring holds
+        (slots + 1) batches, not the dataset). The cache bytes here are
+        unpadded: the planner, which sees the padded batches, decides."""
+        if args.residency in ("stream", "spill"):
+            return rows
+        from tdc_tpu_torch.data.batching import (
+            planner_budget_bytes,
+            rows_in_budget,
+        )
+        from tdc_tpu_torch.data.device_cache import state_reserve_bytes
+        from tdc_tpu_torch.utils.structlog import emit
+
+        pinned = (-(-n_obs * n_dim * itemsize // max(n_devices, 1))
+                  + state_reserve_bytes(args.K, n_dim))
+        budget = planner_budget_bytes(dev)
+        if pinned >= budget:
+            return rows
+        cap = rows_in_budget(
+            budget, n_dim, args.K, n_devices=n_devices, itemsize=itemsize,
+            kernel="pallas" if args.kernel == "pallas" else "xla",
+            resident_bytes=pinned)
+        if rows > cap:
+            emit("residency_batch_cap", rows=rows, cap=cap,
+                 resident_bytes=pinned)
+            return cap
+        return rows
+
     def fit(num_batches: int):
         from tdc_tpu_torch.models import (
             bisecting_kmeans_fit,
@@ -651,6 +721,23 @@ def run_experiment(args) -> dict:
                 "--streamed/--num_batches); in-memory fits already "
                 "reduce once per iteration, and mean_combine/minibatch/"
                 "bisecting/--shard_k gaussianMixture take no strategy")
+        if args.residency != "stream":
+            # The JAX CLI's refusals: no resident loop on these paths.
+            if (not streamed or args.mean_combine or args.minibatch
+                    or args.method_name in ("bisectingKMeans",
+                                            "gaussianMixture")):
+                raise SystemExit(
+                    f"--residency={args.residency} applies to the streamed "
+                    "kmeans/fuzzy drivers (add --streamed/--num_batches); "
+                    "in-memory fits are already device-resident, and "
+                    "gaussianMixture/bisecting/mean_combine/minibatch "
+                    "have no resident loop")
+            if args.residency == "hbm" and args.ckpt_every_batches:
+                raise SystemExit(
+                    "--residency=hbm is incompatible with "
+                    "--ckpt_every_batches: the compiled on-device loop has "
+                    "no mid-pass boundaries to checkpoint at — drop one, "
+                    "or use --residency=auto to prefer mid-pass durability")
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         kernel = args.kernel or "xla"
         history = args.history_file is not None
@@ -679,7 +766,8 @@ def run_experiment(args) -> dict:
                 reassignment_ratio=args.reassignment_ratio,
                 ckpt_dir=args.ckpt_dir, kernel=kernel, device=dev)
         if streamed:
-            rows = -(-n_obs // num_batches)
+            rows = residency_rows(-(-n_obs // num_batches),
+                                  stream_itemsize())
             stream = NpzStream(host_points(), rows)
             state["stream"] = stream
             wstream = (None if weights is None
@@ -704,7 +792,8 @@ def run_experiment(args) -> dict:
                     stream, args.K, n_dim, init=args.init,
                     covariance_type=args.covariance_type, **common)
             common.update(ckpt_every_batches=args.ckpt_every_batches,
-                          ckpt_keep_last_n=args.ckpt_keep_last_n)
+                          ckpt_keep_last_n=args.ckpt_keep_last_n,
+                          residency=args.residency)
             if fuzzy:
                 return streamed_fuzzy_fit(stream, args.K, n_dim,
                                           m=args.fuzzifier, init=args.init,

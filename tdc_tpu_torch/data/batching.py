@@ -56,15 +56,41 @@ def hbm_budget_bytes(device=None) -> int:
     return int(SAFETY_FRACTION * device_hbm_bytes(device))
 
 
-def auto_batch_size(n_dim: int, k: int, *, n_devices: int = 1,
-                    itemsize: int = 4, device=None,
-                    kernel: str = "xla") -> int:
-    """The most points per global batch whose working set fits each
-    card's budget: rows per card = budget / working_set_row_bytes, times
+# The memory the residency planner assumes for a device that has none to
+# report: the JAX package's default (16 GiB, its `_DEFAULT_HBM_BYTES`), so
+# a fit on the CPU makes the JAX package's residency decisions.
+CPU_PLANNING_BYTES = 16 << 30
+
+
+def planner_budget_bytes(device=None) -> int:
+    """The residency planner's budget (`data/device_cache.py`): the card's
+    `hbm_budget_bytes` on a CUDA device, SAFETY_FRACTION of
+    CPU_PLANNING_BYTES on any other."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return int(SAFETY_FRACTION * CPU_PLANNING_BYTES)
+    return hbm_budget_bytes(dev)
+
+
+def rows_in_budget(budget: int, n_dim: int, k: int, *, n_devices: int = 1,
+                   itemsize: int = 4, kernel: str = "xla",
+                   resident_bytes: int = 0) -> int:
+    """The most points per global batch whose working set fits `budget`
+    bytes a device less `resident_bytes` (a resident dataset cache's
+    share): rows per device = what is left / working_set_row_bytes, times
     n_devices, at least 1."""
     per_row = working_set_row_bytes(n_dim, k, itemsize=itemsize,
                                     kernel=kernel)
-    return max(hbm_budget_bytes(device) // per_row * n_devices, 1)
+    return max(max(budget - resident_bytes, 0) // per_row * n_devices, 1)
+
+
+def auto_batch_size(n_dim: int, k: int, *, n_devices: int = 1,
+                    itemsize: int = 4, device=None,
+                    kernel: str = "xla") -> int:
+    """`rows_in_budget` of each card's `hbm_budget_bytes`."""
+    return rows_in_budget(hbm_budget_bytes(device), n_dim, k,
+                          n_devices=n_devices, itemsize=itemsize,
+                          kernel=kernel)
 
 
 def is_oom_error(e: BaseException) -> bool:

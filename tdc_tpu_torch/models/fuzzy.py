@@ -70,6 +70,9 @@ class FuzzyCMeansResult(NamedTuple):
     n_iter_run: object = None
     # The streamed fits' parallel.reduce.CommsReport (None in memory).
     comms: object = None
+    # The streamed fits' data.spill.SpillReport under the spill tier, else
+    # None.
+    h2d: object = None
 
 
 def _fuzzy_stats_fn(kernel: str, m: float, block_rows: int, k: int, d: int,

@@ -72,6 +72,9 @@ class KMeansResult(NamedTuple):
     n_iter_run: object = None
     # The streamed fits' parallel.reduce.CommsReport (None in memory).
     comms: object = None
+    # The streamed fits' data.spill.SpillReport under the spill tier, else
+    # None.
+    h2d: object = None
 
 
 def _normalize(c: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,16 @@ holds [cost, shift] per iteration. A named init is resolved against the
 first batch of the stream (rank 0's draw, broadcast, under a mesh), so a
 streamed fit seeded by name differs from an in-memory one.
 
+Residency (`residency=`, the JAX package's modes and events): 'hbm'
+fills a device cache during the first pass (`data/device_cache.py`) and
+runs iterations 2..N over it (`_Pass.run_cached`), reading nothing from
+the stream; 'spill' stages the batches ahead of the consumer on worker
+threads, through pinned buffers and a copy stream on the card
+(`data/spill.py`); 'auto' takes the cache where the planner's budget holds
+it, else the ring, else streams. Every mode gives the bits of
+residency='stream': the cache and the ring hold exactly the tensors the
+streamed pass hands to the kernels, visited in the same order.
+
 Checkpoints (`ckpt_dir`, `utils/checkpoint.py`): the K-Means and fuzzy
 fits save every `ckpt_every` iterations and at the end, and with
 `ckpt_every_batches` also mid-pass: the accumulator, the batch cursor
@@ -55,26 +65,28 @@ rank meet at a barrier; every rank restores the same step. With
 `utils/preempt.install_preemption_handler` a SIGTERM ends the fit at the
 next batch boundary (one rank) or after the pass (a gang) with a
 checkpoint and `Preempted` (exit code 75); `utils/heartbeat.maybe_beat`
-marks every batch.
+marks every batch, and every pass over a device cache. A pass over a
+cache ends at the iteration's end: its preemption check comes after it.
 
 Not ported, each raising NotImplementedError that names its ROADMAP.md
-item: residency other than "stream" (A7(c)), an ingest policy other than
-the strict default (A7(d)), and coarse or bounded assignment (A10).
+item: an ingest policy other than the strict default (A7(d)), and coarse
+or bounded assignment (A10).
 """
 
 from __future__ import annotations
 
-import queue as queue_lib
 import sys
-import threading
-import warnings
 from typing import Callable, Iterable, NamedTuple
 
 import numpy as np
 import torch
 
+from tdc_tpu_torch.data import device_cache as cache_lib
+from tdc_tpu_torch.data import spill as spill_lib
+from tdc_tpu_torch.data.device_cache import RESIDENCY_MODES
 from tdc_tpu_torch.data.ingest import IngestAbort, screen_batch
 from tdc_tpu_torch.data.loader import restore_bf16
+from tdc_tpu_torch.data.spill import StagedBatch, device_rows
 from tdc_tpu_torch.models.fuzzy import FuzzyCMeansResult
 from tdc_tpu_torch.models.kmeans import (
     KMeansResult,
@@ -103,8 +115,7 @@ from tdc_tpu_torch.utils import checkpoint as ckpt_lib
 from tdc_tpu_torch.utils import preempt
 from tdc_tpu_torch.utils.device import resolve_device
 from tdc_tpu_torch.utils.heartbeat import maybe_beat
-
-RESIDENCY_MODES = ("stream", "auto", "hbm", "spill")
+from tdc_tpu_torch.utils.structlog import emit
 
 
 # ---------------------------------------------------------------------------
@@ -116,60 +127,10 @@ def _prefetched(it, depth: int):
     """Pull `it` on a background thread through a bounded queue, so the
     host-side part of staging (slicing this rank's rows, restoring bf16
     files, converting dtypes) overlaps the device work. depth <= 0 yields
-    `it` unchanged.
-
-    Producer exceptions re-raise in the consumer after the items queued
-    before them. Early consumer exit (break, .close(), garbage collection
-    of the generator) sets a stop event, drains the queue and joins the
-    producer, so no thread is left parked on a full queue holding
-    batches."""
-    if depth <= 0:
-        yield from it
-        return
-    q = queue_lib.Queue(maxsize=depth)
-    end = object()
-    stop = threading.Event()
-
-    def put(item) -> bool:
-        """A bounded put that gives up once the consumer is gone."""
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue_lib.Full:
-                continue
-        return False
-
-    def produce():
-        try:
-            for item in it:
-                if not put(item) or stop.is_set():
-                    # A put parked on the full queue can still succeed
-                    # after close (the drain frees its slot): never pull
-                    # another item past the consumer's exit.
-                    return
-            put(end)
-        except BaseException as e:  # re-raised in the consumer
-            put(e)
-
-    t = threading.Thread(target=produce, name="tdc-prefetch", daemon=True)
-    t.start()
-    try:
-        while True:
-            item = q.get()
-            if item is end:
-                return
-            if isinstance(item, BaseException):
-                raise item
-            yield item
-    finally:
-        stop.set()
-        try:
-            while True:
-                q.get_nowait()
-        except queue_lib.Empty:
-            pass
-        t.join(timeout=5.0)
+    `it` unchanged. The machinery is `data/spill.prefetch_map`'s:
+    producer exceptions re-raise in the consumer after the items queued
+    before them, and an early consumer exit joins the producer."""
+    return spill_lib.prefetch_map(it, depth)
 
 
 def _history_array(history) -> np.ndarray:
@@ -258,28 +219,21 @@ def _stage(batch, d: int, mesh, weighted: bool) -> _Staged:
     return _Staged(_host_rows(xb), wb, rows, -(-rows // count))
 
 
-def _device_rows(a, slice_rows: int, device) -> torch.Tensor:
-    """`a` on `device`, zero rows appended up to slice_rows."""
-    if isinstance(a, np.ndarray):
-        with warnings.catch_warnings():
-            # A read-only memory map: the tensor is only read from.
-            warnings.simplefilter("ignore", UserWarning)
-            a = torch.from_numpy(a)
-    if a.shape[0] == slice_rows:
-        return a.to(device)
-    out = torch.zeros((slice_rows, *a.shape[1:]), dtype=a.dtype,
-                      device=device)
-    out[:a.shape[0]].copy_(a)
-    return out
-
-
 def _prepare_batch(sb: _Staged, device):
     """(rows, weights or None) of a staged batch on `device`: this rank's
     rows copied with a plain synchronous copy and zero-padded to the rank
     slice ceil(B / P) (zero weights for the pad rows)."""
-    return (_device_rows(sb.x, sb.slice_rows, device),
-            None if sb.w is None else _device_rows(sb.w, sb.slice_rows,
-                                                   device))
+    return (device_rows(sb.x, sb.slice_rows, device),
+            None if sb.w is None else device_rows(sb.w, sb.slice_rows,
+                                                  device))
+
+
+def _put_staged(sb: _Staged, put) -> StagedBatch:
+    """A staged batch on the device through `put(a, rows)`: the spill
+    ring's copies, or `device_rows` inline; the same tensors either way."""
+    return StagedBatch(put(sb.x, sb.slice_rows), int(sb.x.shape[0]),
+                       sb.rows,
+                       None if sb.w is None else put(sb.w, sb.slice_rows))
 
 
 def _check_equal_local_rows(first_rows: int, mesh, device) -> None:
@@ -434,7 +388,10 @@ class _Pass:
     batch (or once per pass) the all_reduce that also carries the pad
     count and the bad-batch count; then the correction. A quantized
     per-pass reduce keeps this rank's error-feedback residual in
-    `self.err` from pass to pass."""
+    `self.err` from pass to pass. `batches` may be a spill ring
+    (`data/spill.py`), whose StagedBatch items skip the inline staging;
+    `run_cached` makes a pass over a device cache instead of the
+    stream."""
 
     def __init__(self, batches, *, d, mesh, device, prefetch, weighted,
                  strategy, shapes, local, correct):
@@ -462,6 +419,15 @@ class _Pass:
             if quantize is not None:
                 self.err = self.zero()
         self.checked_rows = False
+        self._extras = {}
+
+    def _extra(self, pad: float) -> torch.Tensor:
+        """[pad, 0, 0] on the device, made once per value: a cached
+        batch's reduce payload, with no copy from the host per pass."""
+        if pad not in self._extras:
+            self._extras[pad] = torch.tensor(
+                [pad, 0.0, 0.0], dtype=torch.float32, device=self.device)
+        return self._extras[pad]
 
     def _reduced(self, s, extra, params, dtype, where):
         """All-reduce `s` with `extra` = [pad rows, non-finite batches,
@@ -482,9 +448,10 @@ class _Pass:
             s = self.correct(s, pad, params, dtype)
         return s
 
-    def run(self, params, **resume):
+    def run(self, params, fill=None, **resume):
         """One pass; returns (stats of every row of the stream, the
-        stream's row count). `resume` holds `_run_pass`'s cursor,
+        stream's row count). `fill` (a DeviceCacheBuilder) receives every
+        batch that passed its screen. `resume` holds `_run_pass`'s cursor,
         checkpoint and preemption arguments."""
         self.passes += 1
         dev = self.device
@@ -492,40 +459,47 @@ class _Pass:
                  "dtype": torch.float32, "i": 0, "batches": 0}
 
         def stage(batch):
+            if isinstance(batch, StagedBatch):
+                return batch
             return _stage(batch, self.d, self.mesh, self.weighted)
 
-        def step(acc, sb: _Staged):
+        def step(acc, sb):
             i = state["i"]
             state["i"] += 1
-            if sb.rows == 0:
+            if not isinstance(sb, StagedBatch):
+                if sb.rows == 0:
+                    return acc, 0
+                sb = _put_staged(sb, lambda a, rows: device_rows(a, rows,
+                                                                 dev))
+            elif sb.n_local == 0:
                 return acc, 0
             state["batches"] += 1
-            xb, wb = _prepare_batch(sb, dev)
+            xb, wb, n = sb.xb, sb.wb, sb.n_valid
             state["dtype"] = xb.dtype
-            reason = _screen_device(xb[:sb.x.shape[0]],
-                                    None if wb is None
-                                    else wb[:sb.x.shape[0]])
+            reason = _screen_device(xb[:n], None if wb is None else wb[:n])
             if reason is not None and not self.multi:
                 _raise_bad(reason, f"batch {i}")
+            # Weighted pad rows weigh nothing: no correction.
+            pad = 0 if self.weighted else xb.shape[0] - n
+            if fill is not None and reason is None:
+                fill.add(xb, xb.shape[0] - pad, wb)
             if not self.multi:
                 return reduce_lib.tree_add(
-                    acc, self.local(xb, wb, params)), sb.rows
+                    acc, self.local(xb, wb, params)), sb.n_local
             # A bad batch adds nothing: its flag ends the fit on every
             # rank once the reduce carries it.
-            pad = 0.0 if self.weighted else float(sb.slice_rows
-                                                  - sb.x.shape[0])
             extra = torch.tensor(
-                [pad, float(reason not in (None, "negative_weights")),
+                [float(pad), float(reason not in (None, "negative_weights")),
                  float(reason == "negative_weights")],
                 dtype=torch.float32, device=dev)
             if self.deferred:
                 state["extra"] += extra
                 return (acc if reason is not None
-                        else self.acc_add(acc, xb, wb, params)), sb.rows
+                        else self.acc_add(acc, xb, wb, params)), sb.n_local
             s = (self.zero() if reason is not None
                  else self.local(xb, wb, params))
             s = self._reduced(s, extra, params, xb.dtype, f"batch {i}")
-            return reduce_lib.tree_add(acc, s), sb.rows
+            return reduce_lib.tree_add(acc, s), sb.n_local
 
         acc, rows = _run_pass(self.batches, self.prefetch, self.zero, step,
                               stage=stage, **resume)
@@ -546,6 +520,54 @@ class _Pass:
             self.checked_rows = True
         return acc, rows
 
+    def run_cached(self, params, cache):
+        """One pass over a device cache (`data/device_cache.py`): the
+        calls `run` makes for each batch, in the same order (the stats,
+        the reduces, the padding corrections), so the same bits; the
+        screens and copies are left out, the cached batches having passed
+        both when they filled it. Returns the stats."""
+        self.passes += 1
+        w = self.weighted
+        if not self.multi:
+            return cache_lib.scan_cache(
+                self.zero(), cache,
+                lambda a, xb, wb, nv: reduce_lib.tree_add(
+                    a, self.local(xb, wb, params)), w)
+        if self.deferred:
+            acc = cache_lib.scan_cache(
+                self.zero(), cache,
+                lambda a, xb, wb, nv: self.acc_add(a, xb, wb, params), w)
+            return self._reduced(
+                acc, self._extra(float(cache_lib.cache_pad_rows(cache))),
+                params, cache.tail.dtype, f"pass {self.passes}")
+
+        def one(a, xb, wb, nv):
+            s = self._reduced(self.local(xb, wb, params),
+                              self._extra(float(xb.shape[0] - nv)), params,
+                              xb.dtype, "a cached batch")
+            return reduce_lib.tree_add(a, s)
+
+        return cache_lib.scan_cache(self.zero(), cache, one, w)
+
+    def agreed(self, cache, label: str):
+        """`cache` if every rank of a gang filled one, else None on every
+        rank (one collective): the ranks must all run over their caches or
+        all stream, or their collectives part ways."""
+        if not self.multi:
+            return cache
+        import torch.distributed as dist
+
+        from tdc_tpu_torch.parallel.mesh import data_axes
+
+        flag = torch.tensor([int(cache is not None)], dtype=torch.int32,
+                            device=self.device)
+        self.mesh.psum(flag, *data_axes(self.mesh), op=dist.ReduceOp.MIN)
+        if int(flag.item()) == 0 and cache is not None:
+            emit("residency_cache_abandoned", label=label,
+                 reason="abandoned_on_another_rank")
+            return None
+        return cache
+
     def report(self) -> reduce_lib.CommsReport:
         c = self.counter
         return reduce_lib.CommsReport(
@@ -562,10 +584,6 @@ def _refuse_unported(label: str, *, residency="stream", ingest=None,
     if residency not in RESIDENCY_MODES:
         raise ValueError(f"residency={residency!r}: use one of "
                          f"{RESIDENCY_MODES}")
-    if residency != "stream":
-        raise _not_ported(
-            f"{label}: residency={residency!r} (the device cache and the "
-            "spill ring)", "Queue A, A7(c)")
     if ingest not in (None, {}):
         raise _not_ported(
             f"{label}: an ingest policy other than the strict default "
@@ -958,9 +976,14 @@ def streamed_kmeans_fit(
         the pass's first batches on the host only and adds the rest in
         the same order: bit-identical to an uninterrupted fit.
       ckpt_keep_last_n: keep only the newest N steps (None keeps all).
-      residency, ingest, assign, probe, bounds: the JAX version's, not
-        ported (they raise, naming their ROADMAP.md item) but at their
-        defaults.
+      residency: 'stream' (the default), 'hbm', 'spill' or 'auto' (see
+        the module docstring and `data/device_cache.plan_residency`). 'hbm'
+        needs a stream that advertises its size (`NpzStream`,
+        `data.device_cache.SizedBatches`) and refuses ckpt_every_batches;
+        a mid-pass resume streams that run. The result's `h2d` is the
+        spill ring's SpillReport (None off the spill tier).
+      ingest, assign, probe, bounds: the JAX version's, not ported (they
+        raise, naming their ROADMAP.md item) but at their defaults.
 
     Preemption (`utils/preempt.install_preemption_handler`): a SIGTERM
     makes the fit checkpoint at the next batch boundary (one rank; the
@@ -1006,9 +1029,16 @@ def streamed_kmeans_fit(
     state = ckpt.restore(SufficientStats)
     _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
                  cursor=state.cursor)
+    label = "streamed_kmeans_fit"
+    plan, builder = _plan_1d_residency(
+        residency, batches, k, d, mesh, weighted=weighted, kernel=kernel,
+        cursor=state.cursor, label=label,
+        mid_pass_ckpt=ckpt_every_batches is not None, device=dev)
+    run_stream, h2d = _spilled(plan, stream, d, mesh, weighted, dev)
     local, correct = _lloyd_pass_fns(
-        spherical, _LloydRoute(k, d, kernel, "streamed_kmeans_fit"), kernel)
-    machine = _Pass(stream, d=d, mesh=mesh, device=dev, prefetch=prefetch,
+        spherical, _LloydRoute(k, d, kernel, label), kernel)
+    machine = _Pass(run_stream, d=d, mesh=mesh, device=dev,
+                    prefetch=prefetch if h2d is None else 0,
                     weighted=weighted, strategy=strategy,
                     shapes=_lloyd_shapes(k, d), local=local,
                     correct=correct)
@@ -1017,24 +1047,63 @@ def streamed_kmeans_fit(
         new_c = apply_centroid_update(acc, c)
         return _normalize(new_c) if spherical else new_c
 
-    c, n_iter, shift, history, start_iter = _fit_loop(
-        machine, ckpt, state, c, update, max_iters=max_iters, tol=tol,
-        ckpt_every=ckpt_every, ckpt_every_batches=ckpt_every_batches,
-        mass=(lambda acc: acc.counts) if weighted else None,
-        cost=lambda acc: acc.sse)
-    # One more pass so the SSE is the returned centroids' (the loop's is
-    # one update stale).
-    sse = machine.run(c, preempt_batch=not ckpt.gang)[0].sse
+    try:
+        c, n_iter, shift, history, start_iter, cache = _fit_loop(
+            machine, ckpt, state, c, update, max_iters=max_iters, tol=tol,
+            ckpt_every=ckpt_every, ckpt_every_batches=ckpt_every_batches,
+            mass=(lambda acc: acc.counts) if weighted else None,
+            cost=lambda acc: acc.sse,
+            plan=plan, builder=builder, label=label)
+        # One more pass so the SSE is the returned centroids' (the loop's
+        # is one update stale).
+        sse = _final_stats(machine, cache, c, ckpt.gang).sse
+    finally:
+        # End the ring's staging of a next pass (no-op off the spill tier).
+        spill_lib.release(run_stream)
     return KMeansResult(
         centroids=c, n_iter=n_iter, sse=sse,
         shift=torch.tensor(shift, dtype=torch.float32, device=dev),
         converged=bool(tol >= 0 and shift <= tol),
         history=_history_array(history), n_iter_run=n_iter - start_iter,
-        comms=machine.report())
+        comms=machine.report(),
+        h2d=None if h2d is None else h2d.report(plan.spill_slots))
+
+
+def _plan_1d_residency(residency, batches, k, d, mesh, *, weighted,
+                       kernel, cursor, label, mid_pass_ckpt, device):
+    """The planner for the streamed K-Means and fuzzy fits: each of the P
+    data ranks stages ceil(B / P) rows of every batch (the JAX package's
+    single-process mesh geometry: pad to P, P devices). Returns (plan,
+    cache builder or None); residency='stream' returns (None, None)."""
+    if residency == "stream":
+        return None, None
+    ranks = _data_ranks(mesh)[1]
+    plan = cache_lib.plan_residency(
+        residency, hints=cache_lib.stream_hints(batches), d=d, k=k,
+        n_devices=ranks, pad_multiple=ranks,
+        itemsize=cache_lib.stream_itemsize(batches) or 4,
+        weighted=weighted, kernel=kernel, cursor=cursor,
+        mid_pass_ckpt=mid_pass_ckpt, device=device, label=label)
+    builder = (cache_lib.DeviceCacheBuilder(plan.hints.n_batches,
+                                            weighted=weighted, label=label)
+               if plan.resident else None)
+    return plan, builder
+
+
+def _spilled(plan, stream, d, mesh, weighted, device):
+    """(the stream the passes read, its H2DCounter or None): a spill
+    ring over the fit's own staging where `plan` picked the spill tier
+    (`data/spill.wrap_stream`)."""
+
+    def prepare(batch, put):
+        return _put_staged(_stage(batch, d, mesh, weighted), put)
+
+    return spill_lib.wrap_stream(plan, stream, prepare, device=device)
 
 
 def _fit_loop(machine, ckpt, state, c, update, *, max_iters, tol,
-              ckpt_every, ckpt_every_batches, mass, cost):
+              ckpt_every, ckpt_every_batches, mass, cost, plan=None,
+              builder=None, label=""):
     """The iterations of a streamed K-Means or fuzzy fit (the JAX fits'
     loop): one pass each from the restored state (the interrupted pass's
     cursor and accumulator first), `update(acc, c)` the new centroids,
@@ -1042,25 +1111,40 @@ def _fit_loop(machine, ckpt, state, c, update, *, max_iters, tol,
     checkpoint every `ckpt_every` iterations, on convergence and at the
     last; the preemption check after each iteration (a collective on a
     gang, where the handler is installed). `mass(acc)` (weighted fits)
-    must be positive after the first pass. Returns (centroids, n_iter,
-    shift, history, start_iter)."""
+    must be positive after the first pass.
+
+    Residency (`plan`, not None unless residency='stream'): the first
+    pass of the run fills `builder`'s cache, which every rank of a gang
+    must have filled; iterations 2..N then run over it (`run_cached`),
+    the rest of the loop as it is. Returns (centroids, n_iter, shift,
+    history, start_iter, cache or None)."""
     if state.centroids is not None:
         c = state.centroids
     start_iter, shift, history = state.start_iter, state.shift, state.history
     cursor, acc0 = state.cursor, state.acc
     sync = tol >= 0 or ckpt.dir is not None
     n_iter = start_iter
+    cache = None
     # A restored run that had converged has nothing left to do.
     done = tol >= 0 and shift <= tol
     for n_iter in range(start_iter + 1, int(max_iters) + 1) if not done \
             else ():
-        acc, _ = machine.run(
-            c, n_iter=n_iter, skip=cursor, acc0=acc0,
-            rows0=state.rows_seen if cursor else 0, ckpt=ckpt,
-            ckpt_every_batches=ckpt_every_batches,
-            save_args=(c, shift, history), preempt_batch=not ckpt.gang,
-            preempt_can_save=bool(ckpt_every_batches)
-            and not machine.deferred)
+        first = n_iter == start_iter + 1 and not cursor
+        if cache is not None:
+            acc = machine.run_cached(c, cache)
+            maybe_beat(progress=f"iter={n_iter} cached")
+        else:
+            acc, _ = machine.run(
+                c, fill=builder if first else None, n_iter=n_iter,
+                skip=cursor, acc0=acc0,
+                rows0=state.rows_seen if cursor else 0, ckpt=ckpt,
+                ckpt_every_batches=ckpt_every_batches,
+                save_args=(c, shift, history), preempt_batch=not ckpt.gang,
+                preempt_can_save=bool(ckpt_every_batches)
+                and not machine.deferred)
+        if plan is not None and first:
+            cache = machine.agreed(None if builder is None
+                                   else builder.finish(), label)
         cursor, acc0 = 0, None
         if (mass is not None and n_iter == start_iter + 1
                 and float(mass(acc).sum()) <= 0.0):
@@ -1083,7 +1167,15 @@ def _fit_loop(machine, ckpt, state, c, update, *, max_iters, tol,
             raise preempt.Preempted(f"preempted after iteration {n_iter}")
         if done:
             break
-    return c, n_iter, float(shift), history, start_iter
+    return c, n_iter, float(shift), history, start_iter, cache
+
+
+def _final_stats(machine, cache, c, gang: bool):
+    """The reporting pass at the returned centroids: over the cache when
+    the fit has one, else over the stream."""
+    if cache is None:
+        return machine.run(c, preempt_batch=not gang)[0]
+    return machine.run_cached(c, cache)
 
 
 def streaming_fold(centroids, counts, batch, n_valid=None,
@@ -1281,7 +1373,8 @@ def streamed_fuzzy_fit(
     device=None,
 ) -> FuzzyCMeansResult:
     """Exact streamed Fuzzy C-Means: the contract of streamed_kmeans_fit
-    (checkpoints, mid-pass resume and the preemption drain included) with
+    (checkpoints, mid-pass resume, residency and the preemption drain
+    included) with
     the per-iteration [objective, shift] history; kernel='pallas' runs B6
     per batch and refuses sample weights (the weighted stats run in f32
     plain ops for mass exactness)."""
@@ -1321,25 +1414,37 @@ def streamed_fuzzy_fit(
     state = ckpt.restore(FuzzyStats)
     _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
                  cursor=state.cursor)
+    label = "streamed_fuzzy_fit"
+    plan, builder = _plan_1d_residency(
+        residency, batches, k, d, mesh, weighted=weighted, kernel=kernel,
+        cursor=state.cursor, label=label,
+        mid_pass_ckpt=ckpt_every_batches is not None, device=dev)
+    run_stream, h2d = _spilled(plan, stream, d, mesh, weighted, dev)
     local, correct = _fuzzy_pass_fns(
-        _FuzzyRoute(k, d, float(m), kernel, "streamed_fuzzy_fit"), float(m),
-        kernel)
-    machine = _Pass(stream, d=d, mesh=mesh, device=dev, prefetch=prefetch,
+        _FuzzyRoute(k, d, float(m), kernel, label), float(m), kernel)
+    machine = _Pass(run_stream, d=d, mesh=mesh, device=dev,
+                    prefetch=prefetch if h2d is None else 0,
                     weighted=weighted, strategy=strategy,
                     shapes=_fuzzy_shapes(k, d), local=local,
                     correct=correct)
-    c, n_iter, shift, history, start_iter = _fit_loop(
-        machine, ckpt, state, c,
-        lambda acc, c: acc.weighted_sums / torch.clamp_min(
-            acc.weights[:, None], 1e-12),
-        max_iters=max_iters, tol=tol, ckpt_every=ckpt_every,
-        ckpt_every_batches=ckpt_every_batches,
-        mass=(lambda acc: acc.weights) if weighted else None,
-        cost=lambda acc: acc.objective)
-    objective = machine.run(c, preempt_batch=not ckpt.gang)[0].objective
+
+    try:
+        c, n_iter, shift, history, start_iter, cache = _fit_loop(
+            machine, ckpt, state, c,
+            lambda acc, c: acc.weighted_sums / torch.clamp_min(
+                acc.weights[:, None], 1e-12),
+            max_iters=max_iters, tol=tol, ckpt_every=ckpt_every,
+            ckpt_every_batches=ckpt_every_batches,
+            mass=(lambda acc: acc.weights) if weighted else None,
+            cost=lambda acc: acc.objective,
+            plan=plan, builder=builder, label=label)
+        objective = _final_stats(machine, cache, c, ckpt.gang).objective
+    finally:
+        spill_lib.release(run_stream)
     return FuzzyCMeansResult(
         centroids=c, n_iter=n_iter, objective=objective,
         shift=torch.tensor(shift, dtype=torch.float32, device=dev),
         converged=bool(tol >= 0 and shift <= tol),
         history=_history_array(history), n_iter_run=n_iter - start_iter,
-        comms=machine.report())
+        comms=machine.report(),
+        h2d=None if h2d is None else h2d.report(plan.spill_slots))

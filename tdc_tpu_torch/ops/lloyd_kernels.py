@@ -520,15 +520,15 @@ def resolve_kernel(kernel: str, *, k: int, d: int, device: torch.device,
     never an error."""
     if kernel not in ("auto", "auto:quantized"):
         return kernel
-    if model not in ("kmeans", "kmeans_weighted", "kmeans_sharded", "fuzzy",
-                     "fuzzy_sharded", "gmm"):
-        raise NotImplementedError(
-            f"resolve_kernel: model={model!r} is not ported yet "
-            "(ROADMAP.md Queue A)")
     device = torch.device(device)
     if ineligible is not None:
         choice, reason = "xla", ineligible
     elif device.type == "cuda":
+        # The JAX version checks the model only on its accelerator: off it
+        # every model resolves to 'xla'.
+        if model not in ("kmeans", "kmeans_weighted", "kmeans_sharded",
+                         "fuzzy", "fuzzy_sharded", "gmm"):
+            raise ValueError(f"resolve_kernel: unknown model {model!r}")
         choice, reason = "pallas", (
             f"CUDA device: the hand-written {model} kernels apply at any "
             f"(K={k}, d={d})")

@@ -502,3 +502,92 @@ def test_cli_multi_gpu_rejections(npz, flags, words, capsys):
         tcli.main(["--K=4", f"--data_file={npz}", *flags])
     assert exc.value.code == 2
     assert words in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# --residency (the streamed kmeans/fuzzy fits' device cache and spill ring)
+# ---------------------------------------------------------------------------
+
+RESIDENCY_FLAGS = ["--K=40", "--init=first_k", "--tol=-1", "--kernel=xla",
+                   "--n_max_iters=5", "--seed=7", "--num_batches=3"]
+
+
+@pytest.mark.parametrize("residency", ["hbm", "spill", "auto"])
+@pytest.mark.parametrize("method", ["distributedKMeans",
+                                    "distributedFuzzyCMeans"])
+def test_cli_residency_rows_agree(npz, tmp_path, method, residency):
+    """The JAX CLI's row within the f32 tolerance, and the port's own
+    --residency=stream row to the last digit."""
+    flags = [f"--method_name={method}", *RESIDENCY_FLAGS]
+    _rows_agree(npz, tmp_path, [*flags, f"--residency={residency}"],
+                kernel="xla")
+    log = tmp_path / "stream.csv"
+    assert tcli.main([*flags, f"--data_file={npz}", f"--log_file={log}",
+                      "--device", "cpu"]) == 0
+    streamed, resident = _row(log), _row(tmp_path / "port.csv")
+    assert (resident["sse"], resident["n_iter"]) == (streamed["sse"],
+                                                     streamed["n_iter"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--residency=hbm"],
+    ["--residency=auto", "--mean_combine", "--num_batches=2"],
+    ["--residency=spill", "--minibatch", "--num_batches=2"],
+    ["--residency=hbm", "--method_name=bisectingKMeans", "--num_batches=2"],
+    ["--residency=hbm", "--method_name=gaussianMixture", "--num_batches=2"],
+    ["--residency=hbm", "--num_batches=2", "--ckpt_dir=ck",
+     "--ckpt_every_batches=1"],
+])
+def test_cli_residency_refusals_in_the_jax_words(npz, flags, tmp_path,
+                                                 monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    words = []
+    for cli, extra in ((jcli, ["--n_GPUs=1", "--cache_dir="]),
+                       (tcli, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(["--K=4", f"--data_file={npz}", *flags, *extra])
+        words.append(str(exc.value))
+    assert words[0] == words[1]
+    assert "--residency" in words[1]
+
+
+def test_cli_residency_with_shard_k_names_a9(npz, tmp_path, capsys):
+    log = tmp_path / "log.csv"
+    assert tcli.main(["--method_name=distributedFuzzyCMeans", "--K=4",
+                      "--shard_k=2", "--residency=hbm",
+                      f"--data_file={npz}", f"--log_file={log}",
+                      "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert "NotImplementedError" in err and "Queue A, A9" in err
+    assert _row(log)["status"] == "error:NotImplementedError"
+
+
+def test_cli_residency_caps_the_batch_rows(npz, tmp_path, monkeypatch):
+    """--residency=auto with a cache that leaves the batches 500 rows of
+    working set: the rows are capped (a `residency_batch_cap` event), the
+    fit goes resident, and it is the streamed fit on 500-row batches."""
+    import json
+
+    from tdc_tpu_torch.data import batching as tbat
+    from tdc_tpu_torch.data import device_cache as tdc
+
+    pinned = 3000 * 20 * 4 + tdc.state_reserve_bytes(40, 20)
+    budget = pinned + 500 * tbat.working_set_row_bytes(20, 40)
+    for mod in (tbat, tdc):
+        monkeypatch.setattr(mod, "planner_budget_bytes",
+                            lambda device=None: budget)
+    runlog = tmp_path / "run.jsonl"
+    monkeypatch.setenv("TDC_RUNLOG", str(runlog))
+    flags = ["--method_name=distributedKMeans", *RESIDENCY_FLAGS[:-1],
+             f"--data_file={npz}", "--device", "cpu"]
+    assert tcli.main([*flags, "--num_batches=2", "--residency=auto",
+                      f"--log_file={tmp_path / 'auto.csv'}"]) == 0
+    events = [json.loads(line) for line in runlog.read_text().splitlines()]
+    caps = [e for e in events if e["event"] == "residency_batch_cap"]
+    assert caps and (caps[0]["rows"], caps[0]["cap"],
+                     caps[0]["resident_bytes"]) == (1500, 500, pinned)
+    assert not [e for e in events if e["event"] == "residency_fallback"]
+    assert tcli.main([*flags, "--num_batches=6",
+                      f"--log_file={tmp_path / 'stream.csv'}"]) == 0
+    assert _row(tmp_path / "auto.csv")["sse"] == _row(
+        tmp_path / "stream.csv")["sse"]

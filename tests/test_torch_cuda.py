@@ -88,7 +88,11 @@ launch per batch of each pass. A real out-of-memory error in
 `oom_adaptive`'s first attempt: the retry, at twice the batches, finds
 memory_allocated() at its level before the fit. A features-layout fit on
 B10's tile form (K=17, d=8: K·(d+1) = 153) against the CPU fit: equal
-n_iter and converged, centroids within 1e-4."""
+n_iter and converged, centroids within 1e-4. Residency: the streamed
+K-Means (B1) and fuzzy (B6) fits under 'hbm' and 'spill' on the card are
+bitwise the 'stream' fit, the ring's host buffers are pinned and its
+copies run on streams other than the consumer's, and the 'hbm' fit
+launches its kernel once per cached batch of every pass."""
 
 import pytest
 import torch
@@ -1266,3 +1270,46 @@ def test_bisecting_on_the_card(gen):
     assert torch.equal(fits[0][0].centroids, fits[1][0].centroids)
     assert (fits[0][1] == fits[1][1]).all()
     assert int(fits[0][0].n_iter) >= 5
+
+
+def test_residency_on_the_card_is_bitwise_the_stream(gen, monkeypatch):
+    from tdc_tpu_torch.data import NpzStream
+    from tdc_tpu_torch.data import spill as tsp
+    from tdc_tpu_torch.models import streaming as tst
+
+    x, c = _data(gen, 7000, 37, 19)
+    host = x.cpu().numpy()
+    init = c.cpu()
+    pinned, streams = [], []
+    real_put = tsp._PinnedCopies.put_fn
+
+    def watched(self, slot):
+        put = real_put(self, slot)
+
+        def checked(a, rows):
+            out = put(a, rows)
+            pinned.extend(b.is_pinned() for b in self.buffers.values())
+            streams.append(self.streams[slot] != torch.cuda.current_stream())
+            return out
+
+        return checked
+
+    monkeypatch.setattr(tsp._PinnedCopies, "put_fn", watched)
+    for fit, wrapper, kw, cost in (
+            (tst.streamed_kmeans_fit, lk.lloyd_stats_fused, {}, "sse"),
+            (tst.streamed_fuzzy_fit, fk.fuzzy_stats_fused, {"m": 2.0},
+             "objective")):
+        runs = {}
+        for residency in ("stream", "hbm", "spill"):
+            before = wrapper.launches
+            runs[residency] = fit(NpzStream(host, 1100), 37, 19, init=init,
+                                  max_iters=6, tol=-1.0, kernel="pallas",
+                                  residency=residency, **kw)
+            assert wrapper.launches == before + 7 * 7  # 6 iterations + 1
+        for residency in ("hbm", "spill"):
+            a, b = runs[residency], runs["stream"]
+            assert torch.equal(a.centroids, b.centroids)
+            assert torch.equal(getattr(a, cost), getattr(b, cost))
+            assert (a.history == b.history).all()
+        assert runs["spill"].h2d.batches >= 7 * 7
+    assert pinned and all(pinned) and streams and all(streams)

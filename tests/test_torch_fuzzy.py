@@ -150,8 +150,12 @@ def test_resolve_kernel_fuzzy_auto_by_device():
                               model="fuzzy") == "xla"
     assert tlk.resolve_kernel("auto", k=8, d=4, device="cuda",
                               model="fuzzy") == "pallas"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlk.resolve_kernel("auto", k=8, d=4, device="cpu",
+    # An unknown model: 'xla' off the card, the JAX package's ValueError
+    # on it (ROADMAP Queue C5).
+    assert tlk.resolve_kernel("auto", k=8, d=4, device="cpu",
+                              model="bisecting") == "xla"
+    with pytest.raises(ValueError, match="unknown model 'bisecting'"):
+        tlk.resolve_kernel("auto", k=8, d=4, device="cuda",
                            model="bisecting")
 
 

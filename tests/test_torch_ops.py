@@ -166,3 +166,33 @@ def test_seeded_init_picks_distinct_rows_reproducibly(which):
     assert len({tuple(r) for r in a}) == 12
     other = fn(torch.Generator().manual_seed(6), _t(x), 12).numpy()
     assert not np.array_equal(a, other)
+
+
+@pytest.mark.parametrize("platform", ["cpu", "cuda"])
+def test_resolve_kernel_unknown_model_follows_jax(platform, tmp_path,
+                                                  monkeypatch):
+    """ROADMAP Queue C5: an unknown model resolves to 'xla' off the
+    accelerator, with the `kernel_selected` event, and raises the JAX
+    package's ValueError on it (a CUDA device here, a TPU there)."""
+    import json
+
+    from tdc_tpu.ops.pallas_kernels import resolve_kernel as jresolve
+    from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel as tresolve
+
+    log = tmp_path / "run.jsonl"
+    monkeypatch.setenv("TDC_RUNLOG", str(log))
+    kw = dict(k=8, d=4, model="gmm_sharded")
+    if platform == "cpu":
+        assert jresolve("auto", platform="cpu", **kw) == "xla"
+        assert tresolve("auto", device=torch.device("cpu"), **kw) == "xla"
+        events = [json.loads(line) for line in log.read_text().splitlines()]
+        picked = [(e["kernel"], e["model"]) for e in events
+                  if e["event"] == "kernel_selected"]
+        assert picked == [("xla", "gmm_sharded")] * 2
+        return
+    with pytest.raises(ValueError) as want:
+        jresolve("auto", platform="tpu", **kw)
+    with pytest.raises(ValueError) as got:
+        tresolve("auto", device=torch.device("cuda"), **kw)
+    assert str(got.value) == str(want.value) == (
+        "resolve_kernel: unknown model 'gmm_sharded'")
