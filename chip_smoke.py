@@ -277,6 +277,22 @@ failure (nothing is caught):
    --reduce=per_pass --residency=hbm at [stream_dp]'s shape: bitwise its
    per_pass fit. Each fit's seconds printed; for (a) and (d) also the
    fill pass's and the mean cached pass's, timed between synchronizes.
+21. Data plane ([data_plane], run inside phase 16 after [residency]): (a)
+   the CLI with --data_manifest on a manifest that points into the
+   stream route's .npy (one shard at its header's offset, a CRC per
+   batch), --residency=hbm: bitwise [stream_route]'s fit, B1 2 x 8 x 11,
+   the store's bytes, the CRC seconds and the fill pass's seconds
+   printed; (b) at N=2^20 in 8 blobs, 3 steps: the manifest served over
+   HTTP by FlakyHTTPServer (a 503 on every 4th blob request, one
+   truncated body) with --io_retries=4: bitwise the fit over file://,
+   retries > 0, nothing quarantined; (c) a byte flipped in batch 5 on
+   disk: with --max_bad_fraction=0.2 K-Means (B1) and Fuzzy C-Means (B6,
+   2 steps) are bitwise the fits over the manifest without that batch,
+   and the strict default exits 1 with IngestAbort and an `ingest_abort`
+   event; (d) --native_loader (the C++ prefetch loader, built with g++)
+   with and without --residency=spill: bitwise the NpzStream fit; (e)
+   two ranks, --reduce=per_pass, over (c)'s manifest: both ranks
+   quarantine the batch, the fit within 1e-4 of one rank's.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -2061,8 +2077,8 @@ def _rank_cli(rank, world, port, args, queue) -> None:
     """One rank of a multi-GPU CLI run, launched as torchrun would: the
     CLI joins the process group from the environment. Sends back (rank,
     exit code, (launch counts, the computation fit's centroids or means
-    as numpy and its comms tuple, or None for both)) or (rank, -1, the
-    traceback)."""
+    as numpy, its comms tuple and its ingest report tuple, or None for
+    each)) or (rank, -1, the traceback)."""
     _rank_env(rank, world, port)
     try:
         reset_counts()
@@ -2076,7 +2092,9 @@ def _rank_cli(rank, world, port, args, queue) -> None:
             fit, "means", getattr(fit, "centroids", None)).cpu().numpy())
         comms = None if fit is None or fit.comms is None else tuple(
             fit.comms)
-        queue.put((rank, rc, (seen, c, comms)))
+        ingest = getattr(fit, "ingest", None)
+        queue.put((rank, rc, (seen, c, comms,
+                              None if ingest is None else tuple(ingest))))
     except BaseException:
         queue.put((rank, -1, traceback.format_exc()))
 
@@ -2166,7 +2184,7 @@ def spawn_ranks(target, args, name, world=RANKS) -> list:
 def run_ranks(args, tmp, name) -> tuple[dict, list, list]:
     """The CLI on RANKS spawned ranks, counts reset in each just before;
     returns (rank 0's CSV row, each rank's launch counts, each rank's
-    (centroids or means, comms) of its computation fit). Every rank must
+    (centroids or means, comms, ingest report) of its computation fit). Every rank must
     exit 0 and the log must hold one row: rank 0's."""
     log = os.path.join(tmp, f"{name}.csv")
     t0 = time.perf_counter()
@@ -2733,8 +2751,8 @@ def phase_oom(npy, tmp, points_bytes) -> dict:
 
 def phase_streams(tmp) -> dict:
     """The streamed phases: [stream_route], [stream_fuzzy], [stream_gmm],
-    [stream_ref], [stream_dp] and [oom]. Returns the stream route's
-    numbers."""
+    [stream_ref], [stream_dp], [residency], [data_plane], [minibatch],
+    [ckpt] and [oom]. Returns the stream route's numbers."""
     from tdc_tpu_torch.models import gmm as tg
 
     batches = ["--num_batches", str(STREAM_BATCHES)]
@@ -2927,6 +2945,7 @@ def phase_streams(tmp) -> dict:
               f"{row['computation_time']} s (one rank "
               f"{one['computation_time']} s)", flush=True)
     phase_residency(npy, tmp, refs)
+    phase_data_plane(npy, tmp, refs)
     numbers["minibatch"] = phase_minibatch(npy, tmp, smi())
     phase_ckpt(npy, tmp, smi())
     # [oom]: the stream route's points from the file.
@@ -3161,6 +3180,355 @@ def phase_residency(npy, tmp, refs) -> None:
           flush=True)
 
 
+# [data_plane]: the object-store data plane, the ingest guard and the
+# native loader, inside phase_streams on its points file. (a) A manifest
+# over file:// that points into the stream route's .npy after its header
+# (ShardSpec.offset: one shard, 8 batches of 1,250,000 rows, a CRC each),
+# --residency=hbm: bitwise [stream_route]'s fit. (b) At N=PLANE_N (8 blobs
+# of PLANE_N/8 rows), PLANE_ITERS steps, --residency=stream: the manifest
+# served by FlakyHTTPServer (every 4th blob request a 503, one truncated
+# body), --io_retries=4 --io_backoff=0.01: bitwise the fit over file://,
+# retries > 0, nothing quarantined. (c) One byte of batch PLANE_BAD of
+# (b)'s blobs flipped on disk: under --max_bad_fraction=PLANE_BUDGET the
+# K-Means (B1) and fuzzy (B6, PLANE_FUZZY_ITERS steps) fits are bitwise
+# the fits over a manifest that lists every blob but that batch's; under
+# the strict default the CLI exits 1 with IngestAbort and an
+# `ingest_abort` event. (d) --native_loader on the .npy,
+# PLANE_NATIVE_ITERS steps, with --residency=stream (every batch of every
+# pass from the C++ reader's pass) and spill (pread on the ring's workers,
+# no C++ reader opened): bitwise the NpzStream fit.
+# (e) Two ranks, --reduce=per_pass, one step, over (c)'s manifest with
+# its budget: both ranks quarantine the batch, and the fit matches one
+# rank's within [stream_dp]'s 1e-4.
+PLANE_N = 1 << 20
+PLANE_BATCHES = 8
+PLANE_ITERS = 3
+PLANE_FUZZY_ITERS = 2
+# (d)'s depth: one step (cut from 2 to keep the phase short).
+PLANE_NATIVE_ITERS = 1
+PLANE_BAD = 5
+PLANE_BUDGET = 0.2
+
+
+class CrcTimes:
+    """While active, times every CRC32 the manifest stream computes
+    (`data/store.zlib.crc32`, on whichever thread reads)."""
+
+    def __init__(self):
+        import threading
+
+        from tdc_tpu_torch.data import store as tstore
+
+        self.mod, self.real = tstore, tstore.zlib
+        self.seconds, self.bytes = 0.0, 0
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        import zlib
+
+        outer = self
+
+        class Timed:
+            @staticmethod
+            def crc32(data, *a):
+                t0 = time.perf_counter()
+                out = zlib.crc32(data, *a)
+                with outer.lock:
+                    outer.seconds += time.perf_counter() - t0
+                    outer.bytes += len(data)
+                return out
+
+        self.mod.zlib = Timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.zlib = self.real
+
+
+class NativeReads:
+    """While active, counts the batches the native loader hands over from
+    its C++ reader's pass (`__call__`) and from positional reads
+    (`read_batch`)."""
+
+    def __init__(self):
+        import threading
+
+        from tdc_tpu_torch.data.native_loader import NativePrefetchStream
+
+        self.cls = NativePrefetchStream
+        self.real = (NativePrefetchStream.__call__,
+                     NativePrefetchStream.read_batch)
+        self.cpp = self.pread = 0
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        outer = self
+        real_call, real_read = self.real
+
+        def call(stream):
+            for batch in real_call(stream):
+                with outer.lock:
+                    outer.cpp += 1
+                yield batch
+
+        def read_batch(stream, i):
+            with outer.lock:
+                outer.pread += 1
+            return real_read(stream, i)
+
+        self.cls.__call__, self.cls.read_batch = call, read_batch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__, self.cls.read_batch = self.real
+
+
+def native_host_passes(npy, rows) -> dict:
+    """Seconds of one pass over the .npy on the host alone, no fit: the
+    native loader's C++ pass as the fits take it (a fresh buffer a batch),
+    the same C++ reader into one reused buffer (no new pages to fault in),
+    and `read_batch` (positional pread) batch by batch."""
+    import ctypes
+
+    from tdc_tpu_torch.data.native_loader import NativePrefetchStream
+
+    out = {}
+    s = NativePrefetchStream(npy, rows)
+    try:
+        t0 = time.perf_counter()
+        n = sum(b.nbytes for b in s())
+        out["cpp_fresh"] = time.perf_counter() - t0
+        rid = s._reader()
+        s._lib.ldr_reset(rid)
+        buf = np.empty((rows, s.shape[1]), s.dtype)
+        t0 = time.perf_counter()
+        while s._lib.ldr_next(rid, buf.ctypes.data_as(ctypes.c_void_p),
+                              buf.nbytes) > 0:
+            pass
+        out["cpp_reused"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(s.num_batches):
+            s.read_batch(i)
+        out["pread"] = time.perf_counter() - t0
+    finally:
+        s.close()
+    out["bytes"] = n
+    return out
+
+
+def plane_args(*extra, fuzzy=False, iters=PLANE_ITERS) -> list:
+    """The stream route's flags without the synthetic geometry (the data
+    comes from a manifest or a file), `iters` steps."""
+    base = [a for a in (STREAM_FUZZY_ARGS if fuzzy else STREAM_ARGS)
+            if not a.startswith(("--n_obs", "--n_dim", "--n_max_iters"))]
+    return [*base, f"--n_max_iters={iters}", *extra]
+
+
+def store_bytes() -> int:
+    from tdc_tpu_torch.data.store import GLOBAL_STORE
+
+    return GLOBAL_STORE.snapshot()["bytes"]
+
+
+def phase_data_plane(npy, tmp, refs) -> None:
+    """[data_plane] (the comment above PLANE_N). `refs` holds
+    [stream_route]'s computation fit and row."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tdc_tpu_torch.data.manifest import (
+        Manifest,
+        ShardSpec,
+        build_manifest,
+    )
+    from tdc_tpu_torch.testing.flaky_http import FlakyHTTPServer
+
+    t_phase = time.perf_counter()
+    kfit = "streamed_kmeans_fit"
+    points = np.load(npy, mmap_mode="r")
+    rows = -(-STREAM_N // STREAM_BATCHES)
+    # (a) A manifest into the .npy, --residency=hbm.
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(STREAM_BATCHES) as ex:
+        crcs = list(ex.map(lambda i: zlib.crc32(points[i * rows:
+                                                       (i + 1) * rows]),
+                           range(STREAM_BATCHES)))
+    crc_build_s = time.perf_counter() - t0
+    m = Manifest(dtype=np.dtype(np.float32), d=STREAM_D, n_rows=STREAM_N,
+                 batch_rows=rows,
+                 shards=(ShardSpec(os.path.basename(npy), STREAM_N,
+                                   int(points.offset), tuple(crcs)),))
+    man_a = os.path.join(os.path.dirname(npy), "plane_a_manifest.json")
+    with open(man_a, "w") as f:
+        json.dump(m.validate().to_json(), f)
+    b0 = store_bytes()
+    with CrcTimes() as crc, PassTimes() as passes:
+        row, seen, fits = run_cli_captured(
+            plane_args("--streamed", f"--data_manifest={man_a}",
+                       "--residency=hbm", iters=10), tmp, "plane_a", kfit)
+    read = store_bytes() - b0
+    fill_s, cached_s, n_cached = passes.last_fit()
+    require_launches("plane_a", seen, B1=2 * STREAM_BATCHES * 11)
+    res = fits[kfit]
+    same_fit("plane_a", res, refs["route"])
+    require(res.ingest.quarantined_batches == 0
+            and res.ingest.rows_per_pass == STREAM_N,
+            f"plane_a: report {res.ingest}")
+    print(f"[data_plane] (a) manifest over file:// into the .npy, hbm: "
+          f"bitwise [stream_route]'s fit; computation_time "
+          f"{row['computation_time']} s ([stream_route] "
+          f"{refs['route_row']['computation_time']} s); store bytes read "
+          f"{read} in 2 fits (each: the first_k init's batch 0, then the "
+          f"fill pass); CRC32 {crc.seconds!r} s over {crc.bytes} bytes "
+          f"({crc.bytes / max(crc.seconds, 1e-9) / 1e9:.2f} GB/s on the "
+          f"reading thread); last fill pass {fill_s!r} s, cached pass mean "
+          f"{cached_s!r} s over {n_cached}; the manifest's CRCs "
+          f"{crc_build_s:.3f} s on {STREAM_BATCHES} threads; B1 "
+          f"{seen['B1']}", flush=True)
+    # (b) The HTTP store under a fault storm, against file://.
+    bdir = os.path.join(tmp, "plane_blobs")
+    cut = np.ascontiguousarray(points[:PLANE_N])
+    brows = PLANE_N // PLANE_BATCHES
+    man_b = build_manifest(cut, brows, bdir, n_shards=PLANE_BATCHES)
+    del cut
+    flags = ("--streamed", "--residency=stream", "--io_retries=4",
+             "--io_backoff=0.01")
+    with FlakyHTTPServer(bdir, fail_every=4, truncate_requests={5}) as url:
+        t0 = time.perf_counter()
+        row_h, seen_h, fits = run_cli_captured(
+            plane_args(*flags, f"--data_manifest={url}/manifest.json"), tmp,
+            "plane_http", kfit)
+        http_s = time.perf_counter() - t0
+        http = fits[kfit]
+    row_f, seen_f, fits = run_cli_captured(
+        plane_args(*flags, f"--data_manifest=file://{man_b}"), tmp,
+        "plane_file", kfit)
+    passes_b = PLANE_ITERS + 1
+    for name, got in (("plane_http", seen_h), ("plane_file", seen_f)):
+        require_launches(name, got, B1=2 * PLANE_BATCHES * passes_b)
+    same_fit("plane_http", http, fits[kfit])
+    require(http.ingest.retries > 0 and http.ingest.quarantined_batches == 0
+            and fits[kfit].ingest.retries == 0,
+            f"plane_http: reports {http.ingest}, {fits[kfit].ingest}")
+    print(f"[data_plane] (b) HTTP store, N={PLANE_N}, {PLANE_BATCHES} "
+          f"blobs, 503 on every 4th request, one truncated body: bitwise "
+          f"the file:// fit; {http.ingest}; the HTTP CLI run {http_s:.3f} s "
+          f"(computation_time {row_h['computation_time']} s, file:// "
+          f"{row_f['computation_time']} s)", flush=True)
+    # (c) A poisoned batch, against the manifest without it.
+    blob = os.path.join(bdir, f"part-{PLANE_BAD:05d}.bin")
+    raw = bytearray(open(blob, "rb").read())
+    raw[12345] ^= 0x10
+    open(blob, "wb").write(bytes(raw))
+    with open(man_b) as f:
+        doc = json.load(f)
+    doc["shards"] = [sh for i, sh in enumerate(doc["shards"])
+                     if i != PLANE_BAD]
+    doc["n_rows"] = brows * (PLANE_BATCHES - 1)
+    man_c = os.path.join(bdir, "without_bad.json")
+    with open(man_c, "w") as f:
+        json.dump(doc, f)
+    budget = f"--max_bad_fraction={PLANE_BUDGET}"
+    for name, fuzzy, key, fit, cost, iters in (
+            ("plane_kmeans", False, "B1", kfit, "sse", PLANE_ITERS),
+            ("plane_fuzzy", True, "B6", "streamed_fuzzy_fit", "objective",
+             PLANE_FUZZY_ITERS)):
+        row_q, seen_q, q = run_cli_captured(
+            plane_args("--streamed", f"--data_manifest={man_b}", budget,
+                       fuzzy=fuzzy, iters=iters), tmp, name, fit)
+        row_r, seen_r, r = run_cli_captured(
+            plane_args("--streamed", f"--data_manifest={man_c}",
+                       fuzzy=fuzzy, iters=iters), tmp, name + "_removed",
+            fit)
+        for label, got in ((name, seen_q), (name + "_removed", seen_r)):
+            require_launches(label, got, **{
+                key: 2 * (PLANE_BATCHES - 1) * (iters + 1)})
+        same_fit(name, q[fit], r[fit], cost)
+        rep = q[fit].ingest
+        require(rep.quarantined_batches == 1 and rep.quarantined_rows ==
+                brows and rep.crc_failures >= 1, f"{name}: report {rep}")
+        print(f"[data_plane] (c) {name}: batch {PLANE_BAD} flipped on disk, "
+              f"--max_bad_fraction={PLANE_BUDGET}: bitwise the fit without "
+              f"it; {rep}; {key} {seen_q[key]}; computation_time "
+              f"{row_q['computation_time']} s (without the batch "
+              f"{row_r['computation_time']} s)", flush=True)
+    log = os.path.join(tmp, "plane_strict.csv")
+    runlog = os.path.join(tmp, "plane_strict.jsonl")
+    os.environ["TDC_RUNLOG"] = runlog
+    try:
+        rc = cli.main(plane_args("--streamed", f"--data_manifest={man_b}",
+                                 f"--log_file={log}"))
+    finally:
+        del os.environ["TDC_RUNLOG"]
+    with open(log, newline="") as f:
+        err_row = list(csv.DictReader(f))[-1]
+    with open(runlog) as f:
+        aborts = [e for e in map(json.loads, f) if e["event"] ==
+                  "ingest_abort"]
+    require(rc == 1 and "IngestAbort" in json.dumps(err_row) and aborts,
+            f"plane_strict: rc {rc}, row {err_row}, events {aborts}")
+    print(f"[data_plane] (c) the strict default: exit {rc}, "
+          f"{err_row['status']}; event {json.dumps(aborts[0])}", flush=True)
+    # (d) The native loader, inline and through the spill ring.
+    batches = ["--num_batches", str(STREAM_BATCHES), f"--data_file={npy}"]
+    row_n, seen_n, fits = run_cli_captured(
+        plane_args(*batches, iters=PLANE_NATIVE_ITERS), tmp, "plane_npz",
+        kfit)
+    want = fits[kfit]
+    for extra in ([], ["--residency=spill"]):
+        name = "plane_native" + ("_spill" if extra else "")
+        with NativeReads() as reads:
+            row, seen, fits = run_cli_captured(
+                plane_args(*batches, "--native_loader", *extra,
+                           iters=PLANE_NATIVE_ITERS), tmp, name, kfit)
+        require_launches(name, seen,
+                         B1=2 * STREAM_BATCHES * (PLANE_NATIVE_ITERS + 1))
+        same_fit(name, fits[kfit], want)
+        # Two fits a CLI run, each reading batch 0 for its init by pread;
+        # the ring may stage a next pass's first batches too.
+        batches_read = 2 * STREAM_BATCHES * (PLANE_NATIVE_ITERS + 1)
+        require((reads.cpp, reads.pread) == (batches_read, 2) if not extra
+                else reads.cpp == 0 and reads.pread >= batches_read + 2,
+                f"{name}: {reads.cpp} batches from the C++ pass, "
+                f"{reads.pread} by pread")
+        print(f"[data_plane] (d) {name}: bitwise the NpzStream fit; "
+              f"computation_time {row['computation_time']} s (NpzStream "
+              f"{row_n['computation_time']} s); batches from the C++ "
+              f"reader's pass {reads.cpp}, by pread {reads.pread}",
+              flush=True)
+    host = native_host_passes(npy, rows)
+    print(f"[data_plane] (d) one host pass over {host['bytes']} bytes, no "
+          f"fit: the C++ pass {host['cpp_fresh']!r} s (into one reused "
+          f"buffer {host['cpp_reused']!r} s), pread batch by batch "
+          f"{host['pread']!r} s", flush=True)
+    # (e) Two ranks, per_pass, over (c)'s manifest with its budget.
+    one_args = plane_args("--streamed", f"--data_manifest={man_b}", budget,
+                          iters=1)
+    one, _, fits = run_cli_captured(one_args, tmp, "plane_dp_one", kfit)
+    one_c = fits[kfit].centroids.cpu()
+    row, seen, fits = run_ranks([*one_args, f"--n_GPUs={RANKS}",
+                                 "--reduce=per_pass"], tmp, "plane_dp")
+    for rank, per_rank in enumerate(seen):
+        require_launches(f"plane_dp, rank {rank}", per_rank,
+                         B1=2 * (PLANE_BATCHES - 1) * 2)
+    reports = [f[2] for f in fits]
+    require(all(r == reports[0] for r in reports) and reports[0][2:4] ==
+            (1, brows), f"plane_dp: the ranks' reports {reports}")
+    rel = abs(float(row["sse"]) - float(one["sse"])) / float(one["sse"])
+    require(row["n_iter"] == one["n_iter"] and rel <= REL_TOL,
+            f"plane_dp: sse {row['sse']} vs one rank's {one['sse']}")
+    err = check_centroids("plane_dp", torch.from_numpy(fits[0][0]), one_c)
+    print(f"[data_plane] (e) two ranks per_pass: both quarantined batch "
+          f"{PLANE_BAD} (reports {reports[0]}); sse {row['sse']} vs one "
+          f"rank's {one['sse']} (rel {rel:.3g}), max centroid diff "
+          f"{err:.3g}; computation_time {row['computation_time']} s (one "
+          f"rank {one['computation_time']} s)", flush=True)
+    os.remove(man_a)
+    shutil.rmtree(bdir)
+    print(f"[data_plane] phase {time.perf_counter() - t_phase:.1f} s; "
+          f"{smi()}", flush=True)
+
+
 # [ckpt]: checkpoint, preemption and resume of the streamed and mini-batch
 # fits. (a) K-Means on B1 at the stream route's shape (STREAM_BATCHES
 # batches, first_k seeds, CKPT_ITERS Lloyd steps, a mid-pass save every
@@ -3264,9 +3632,13 @@ def _ckpt_sigterm_child(npy, ckpt_dir, fuse) -> None:
 
     class Signalling(NpzStream):
         fetched = 0
+        # Iterate only (no ranged reads through the ingest guard), so
+        # every read passes __call__.
+        read_batch = None
 
         def __call__(self):
-            for b in super().__call__():
+            for i in range(self.num_batches):
+                b = NpzStream.read_batch(self, i)
                 Signalling.fetched += 1
                 if Signalling.fetched == fuse:
                     os.kill(os.getpid(), signal.SIGTERM)

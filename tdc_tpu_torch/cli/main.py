@@ -32,6 +32,18 @@ ahead of the compute; `--residency=auto` takes hbm where the card's budget
 holds the dataset (the batch rows then capped to what the cache leaves,
 a `residency_batch_cap` event), else spill, else streams.
 
+Data plane (streamed kmeans/fuzzy): --data_manifest=URL streams a blob
+manifest (`data/store.py`: a manifest.json over http(s)://, file:// or a
+path; the geometry, dtype and batch rows are the manifest's; with
+--store_base a relative URL resolves against it, --store_timeout is the
+HTTP read deadline), every batch CRC-checked; --native_loader streams an
+.npy --data_file through the C++ prefetch loader
+(`data/native_loader.py`). Every streamed kmeans/fuzzy fit reads through
+the ingest guard (`data/ingest.py`): --io_retries, --io_backoff and
+--io_deadline retry transient read failures, and --max_bad_fraction is
+the share of a pass's rows that quarantined batches may take before the
+fit aborts (default 0: the first quarantine aborts).
+
 Checkpoints: --ckpt_dir=DIR runs the fit streamed (the in-memory fits
 take no checkpoint; one batch is the in-memory case) and saves it there
 (`utils/checkpoint.py`, the JAX package's state.npz format), resuming
@@ -160,6 +172,50 @@ def build_parser() -> argparse.ArgumentParser:
                         "device's budget, spill when only "
                         "a slot ring fits, and falls back to streaming "
                         "(loudly) when neither does")
+    p.add_argument("--native_loader", action="store_true",
+                   help="stream batches through the C++ prefetch loader "
+                        "(requires --data_file pointing at an .npy)")
+    p.add_argument("--data_manifest", type=str, default=None,
+                   help="stream batches from a sharded object-store "
+                        "manifest (data/store.py): http(s):// URL, "
+                        "file:// URL, or local path of a manifest.json "
+                        "(or its directory). Geometry/dtype/batching come "
+                        "from the manifest — batch size is its batch_rows "
+                        "(--num_batches cannot override it) — ranged blob "
+                        "reads are CRC-checked and routed through the "
+                        "ingest guard's retry/quarantine ladder; every "
+                        "rank of a mesh opens every batch. Streamed "
+                        "kmeans/fuzzy only (--streamed)")
+    p.add_argument("--store_timeout", type=float, default=None,
+                   help="with --data_manifest: socket deadline in seconds "
+                        "per ranged read on the HTTP backend (default 10; "
+                        "a stalled read surfaces as a transient timeout "
+                        "the --io_retries ladder owns)")
+    p.add_argument("--store_base", type=str, default=None,
+                   help="base URL/directory a relative --data_manifest "
+                        "resolves against (one configured bucket, many "
+                        "datasets)")
+    # Defaults live in one place, data/ingest.IngestPolicy: None here
+    # means "not set on the command line".
+    p.add_argument("--io_retries", type=int, default=None,
+                   help="streamed kmeans/fuzzy: transient stream-read "
+                        "failures retried per batch read with exponential "
+                        "backoff + jitter (data/ingest.py; 0 disables "
+                        "retry; permanent failures never retry; "
+                        "default 2)")
+    p.add_argument("--io_backoff", type=float, default=None,
+                   help="base retry backoff seconds (attempt n sleeps "
+                        "~base * 2^(n-1) with deterministic jitter; "
+                        "default 0.05)")
+    p.add_argument("--io_deadline", type=float, default=None,
+                   help="wall-clock budget in seconds for one batch read "
+                        "including retries (default: none)")
+    p.add_argument("--max_bad_fraction", type=float, default=None,
+                   help="largest fraction of a pass's rows the ingest "
+                        "quarantine may drop before the fit aborts loudly. "
+                        "The strict default 0.0 aborts on ANY quarantined "
+                        "batch — raise only when bounded data loss is "
+                        "acceptable and monitored")
     p.add_argument("--prefetch", type=int, default=0,
                    help="streamed modes: background-thread batch prefetch "
                         "depth (0 = off)")
@@ -348,7 +404,8 @@ def _validate_streaming(parser, args) -> None:
             parser.error("--kernel=pallas_bf16 is single-shard (in-memory "
                          "or --streamed)")
     if args.layout == "features":
-        for flag in ("streamed", "minibatch", "mean_combine", "ckpt_dir"):
+        for flag in ("streamed", "minibatch", "mean_combine", "ckpt_dir",
+                     "native_loader"):
             if getattr(args, flag):
                 parser.error(f"--layout=features is an in-memory device "
                              f"layout; --{flag} is not supported with it")
@@ -450,14 +507,82 @@ def _validate_bisecting(parser, args) -> None:
         parser.error("bisectingKMeans does not checkpoint")
 
 
+def _validate_data_plane(parser, args) -> None:
+    """The JAX CLI's checks of the data-plane flags, in its words (the
+    manifest feeds the guarded streamed kmeans/fuzzy fits only)."""
+    if args.store_timeout is not None and args.store_timeout <= 0:
+        parser.error("--store_timeout must be > 0 seconds")
+    if ((args.store_timeout is not None or args.store_base)
+            and not args.data_manifest):
+        parser.error("--store_timeout/--store_base require --data_manifest")
+    if args.data_manifest:
+        if args.data_file or args.native_loader:
+            parser.error("--data_manifest replaces --data_file/"
+                         "--native_loader (the manifest names its own "
+                         "blobs)")
+        if args.method_name not in ("distributedKMeans",
+                                    "distributedFuzzyCMeans"):
+            parser.error("--data_manifest feeds the guarded streamed "
+                         "kmeans/fuzzy drivers only")
+        if args.shard_k > 1:
+            parser.error("--data_manifest with --shard_k runs the streamed "
+                         "K-sharded towers of A9, which are not ported yet "
+                         "(ROADMAP.md Queue A, A9)")
+        if not args.streamed:
+            parser.error("--data_manifest requires --streamed (the "
+                         "object-store tier is a streaming data plane; "
+                         "batch size comes from the manifest)")
+        if args.num_batches > 1:
+            parser.error("--data_manifest takes its batching from the "
+                         "manifest's batch_rows (the per-slice CRCs are "
+                         "computed at that granularity); --num_batches "
+                         "cannot override it")
+        if args.minibatch or args.mean_combine:
+            parser.error("--data_manifest supports the exact streamed "
+                         "drivers only (not --minibatch/--mean_combine)")
+        if args.layout == "features":
+            parser.error("--data_manifest streams sample-major batches; "
+                         "--layout=features is an in-memory device layout")
+        if args.weight_file:
+            parser.error("--data_manifest has no weight stream aligned "
+                         "to manifest batches; drop --weight_file")
+
+
+def _validate_ingest(parser, args) -> None:
+    """--native_loader and the ingest policy's flags (the JAX CLI's
+    checks; the loader is refused where it would be silently ignored)."""
+    if args.native_loader:
+        if not (args.data_file and args.data_file.endswith(".npy")):
+            parser.error("--native_loader requires an .npy --data_file")
+        # Rejected rather than silently ignored: the loader feeds the
+        # streamed kmeans/fuzzy fits (mean_combine too) only.
+        if (args.method_name not in ("distributedKMeans",
+                                     "distributedFuzzyCMeans")
+                or args.minibatch or not _streamy(args)):
+            parser.error("--native_loader streams the streamed kmeans/fuzzy "
+                         "fits (add --streamed/--num_batches; not "
+                         "--minibatch, gaussianMixture or bisectingKMeans)")
+    if args.io_retries is not None and args.io_retries < 0:
+        parser.error("--io_retries must be >= 0")
+    if args.io_backoff is not None and args.io_backoff < 0:
+        parser.error("--io_backoff must be >= 0")
+    if args.io_deadline is not None and args.io_deadline <= 0:
+        parser.error("--io_deadline must be > 0 seconds")
+    if args.max_bad_fraction is not None and not (
+            0.0 <= args.max_bad_fraction <= 1.0):
+        parser.error("--max_bad_fraction must be in [0, 1]")
+
+
 def validate_args(parser, args) -> None:
     if args.method_name not in METHOD_NAMES:
         parser.error(f"unknown --method_name {args.method_name!r}")
-    if args.data_file is None and (args.n_obs is None or args.n_dim is None):
-        parser.error("either --data_file or both --n_obs and --n_dim "
-                     "required")
+    if (args.data_file is None and args.data_manifest is None
+            and (args.n_obs is None or args.n_dim is None)):
+        parser.error("either --data_file, --data_manifest, or both "
+                     "--n_obs and --n_dim required")
     if args.data_file is not None and not os.path.exists(args.data_file):
         parser.error(f"data file does not exist: {args.data_file}")
+    _validate_data_plane(parser, args)
     for name in ("K", "n_max_iters"):
         if getattr(args, name) < 1:
             parser.error(f"--{name} must be >= 1")
@@ -515,6 +640,7 @@ def validate_args(parser, args) -> None:
                          "--kernel cannot be combined with it")
     if args.weight_file:
         _validate_weight_file(parser, args)
+    _validate_ingest(parser, args)
 
 
 def run_experiment(args) -> dict:
@@ -572,7 +698,21 @@ def run_experiment(args) -> dict:
             mesh = make_mesh(n_devices)
         dev = resolve_device(args.device)
         gen_dtype = torch.bfloat16 if bf16 else torch.float32
-        if args.data_file and features:
+        manifest = manifest_url = None
+        if args.data_manifest:
+            # The object-store tier: geometry, dtype and batching come from
+            # the manifest; the dataset never lands in host memory.
+            from tdc_tpu_torch.data.store import fetch_manifest, resolve_url
+
+            manifest_url = resolve_url(args.data_manifest, args.store_base)
+            manifest = fetch_manifest(
+                manifest_url,
+                **({} if args.store_timeout is None
+                   else {"timeout": args.store_timeout}))
+            x = None
+            n_obs, n_dim = manifest.n_rows, manifest.d
+            bf16 = bf16 or manifest.dtype.kind == "V"
+        elif args.data_file and features:
             x, _ = load_points_feature_major(args.data_file)
             if not isinstance(x, torch.Tensor):
                 x = torch.from_numpy(np.array(x))
@@ -653,6 +793,8 @@ def run_experiment(args) -> dict:
         points (a bf16 file, or --dtype bfloat16), which the streamed fits
         copy and cache as they are; 4 for any other, which they stage as
         f32."""
+        if manifest is not None:
+            return 2 if manifest.dtype.kind == "V" else 4
         xx = state["x"]
         return 2 if getattr(xx, "dtype", None) == torch.bfloat16 else 4
 
@@ -691,6 +833,24 @@ def run_experiment(args) -> dict:
                  resident_bytes=pinned)
             return cap
         return rows
+
+    def make_stream(rows: int):
+        """The streamed kmeans/fuzzy fits' batch source: the manifest
+        (`rows` ignored: the manifest fixes batch_rows, the CRCs'
+        granularity; every rank opens every batch), the C++ loader over
+        the .npy, or the host points."""
+        if manifest is not None:
+            from tdc_tpu_torch.data.store import open_manifest_stream
+
+            return open_manifest_stream(
+                manifest_url, spec=mesh,
+                **({} if args.store_timeout is None
+                   else {"timeout": args.store_timeout}))
+        if args.native_loader:
+            from tdc_tpu_torch.data.native_loader import NativePrefetchStream
+
+            return NativePrefetchStream(args.data_file, rows)
+        return NpzStream(host_points(), rows)
 
     def fit(num_batches: int):
         from tdc_tpu_torch.models import (
@@ -738,6 +898,25 @@ def run_experiment(args) -> dict:
                     "--ckpt_every_batches: the compiled on-device loop has "
                     "no mid-pass boundaries to checkpoint at — drop one, "
                     "or use --residency=auto to prefer mid-pass durability")
+        from tdc_tpu_torch.data.ingest import IngestPolicy
+
+        overrides = {name: val for name, val in (
+            ("io_retries", args.io_retries),
+            ("io_backoff", args.io_backoff),
+            ("io_deadline", args.io_deadline),
+            ("max_bad_fraction", args.max_bad_fraction)) if val is not None}
+        if overrides and (not streamed or args.mean_combine
+                          or args.minibatch or args.method_name in (
+                              "bisectingKMeans", "gaussianMixture")):
+            # Fail fast instead of silently ignoring knobs on a path that
+            # never routes through the ingest guard (the JAX CLI's words).
+            raise SystemExit(
+                "--io_retries/--io_backoff/--io_deadline/"
+                "--max_bad_fraction apply to the streamed kmeans/fuzzy "
+                "drivers (add --streamed/--num_batches); "
+                "gaussianMixture/bisecting/mean_combine/minibatch "
+                "streams are not routed through the ingest guard")
+        ingest = IngestPolicy(**overrides)
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         kernel = args.kernel or "xla"
         history = args.history_file is not None
@@ -766,9 +945,11 @@ def run_experiment(args) -> dict:
                 reassignment_ratio=args.reassignment_ratio,
                 ckpt_dir=args.ckpt_dir, kernel=kernel, device=dev)
         if streamed:
-            rows = residency_rows(-(-n_obs // num_batches),
-                                  stream_itemsize())
-            stream = NpzStream(host_points(), rows)
+            rows = (manifest.batch_rows if manifest is not None
+                    else residency_rows(-(-n_obs // num_batches),
+                                        stream_itemsize()))
+            stream = (make_stream(rows) if not (bisecting or gmm)
+                      else NpzStream(host_points(), rows))
             state["stream"] = stream
             wstream = (None if weights is None
                        else NpzStream(np.asarray(weights, np.float32), rows))
@@ -793,7 +974,7 @@ def run_experiment(args) -> dict:
                     covariance_type=args.covariance_type, **common)
             common.update(ckpt_every_batches=args.ckpt_every_batches,
                           ckpt_keep_last_n=args.ckpt_keep_last_n,
-                          residency=args.residency)
+                          residency=args.residency, ingest=ingest)
             if fuzzy:
                 return streamed_fuzzy_fit(stream, args.K, n_dim,
                                           m=args.fuzzifier, init=args.init,

@@ -23,9 +23,10 @@ prepared batch on the card, and iterations 2..N run over that cache
   same dtype, contiguous, its first byte aligned as a fresh allocation's
   is), so a pass over the cache makes the same calls on the same values
   as a streamed pass: the same bits. A stream that
-  breaks its advertised geometry, or a CUDA out-of-memory error during
-  the fill, abandons the cache loudly (`residency_cache_abandoned`) and
-  the fit keeps streaming.
+  breaks its advertised geometry, a batch the ingest guard quarantines
+  (`data/ingest.py`), or a CUDA out-of-memory error during the fill,
+  abandons the cache loudly (`residency_cache_abandoned`) and the fit
+  keeps streaming.
 - `DeviceCache` holds the cached batches and this rank's valid rows of
   each; `scan_cache` visits them in stream order.
 """
@@ -408,8 +409,10 @@ class DeviceCacheBuilder:
         self._nv_full: int | None = None
         self._nv_tail: int | None = None
 
-    def _abandon(self, reason: str, **fields) -> None:
-        """Drop the cache (one event, the first reason kept)."""
+    def abandon(self, reason: str, **fields) -> None:
+        """Drop the cache (one event, the first reason kept): a geometry
+        surprise in the fill, or a quarantined batch, which the cache
+        would not hold; the fit streams on."""
         if self.abandoned is None:
             emit("residency_cache_abandoned", label=self.label,
                  reason=reason, **fields)
@@ -423,19 +426,19 @@ class DeviceCacheBuilder:
             return
         i = self._i
         if i >= self.n_batches:
-            self._abandon("more_batches_than_advertised",
-                         advertised=self.n_batches)
+            self.abandon("more_batches_than_advertised",
+                        advertised=self.n_batches)
             return
         if self.weighted != (wb is not None):
-            self._abandon("weight_stream_mismatch")
+            self.abandon("weight_stream_mismatch")
             return
         try:
             if i == self.n_batches - 1:  # the tail (any row count)
                 if self._full_shape is not None and (
                         tuple(xb.shape[1:]) != self._full_shape[1:]):
-                    self._abandon("tail_feature_width_mismatch",
-                                 got=list(xb.shape),
-                                 expected=list(self._full_shape))
+                    self.abandon("tail_feature_width_mismatch",
+                                got=list(xb.shape),
+                                expected=list(self._full_shape))
                     return
                 self._tail, self._w_tail = xb, wb
                 self._nv_tail = int(n_valid)
@@ -449,9 +452,9 @@ class DeviceCacheBuilder:
                             wb, self.n_batches - 1)
                 elif (tuple(xb.shape) != self._full_shape
                       or int(n_valid) != self._nv_full):
-                    self._abandon("batch_geometry_mismatch", batch=i,
-                                 got=list(xb.shape),
-                                 expected=list(self._full_shape))
+                    self.abandon("batch_geometry_mismatch", batch=i,
+                                got=list(xb.shape),
+                                expected=list(self._full_shape))
                     return
                 self._stacked[i].copy_(xb)
                 if self.weighted:
@@ -459,7 +462,7 @@ class DeviceCacheBuilder:
         except Exception as e:
             if not is_oom_error(e):
                 raise
-            self._abandon("hbm_oom_during_fill", error=str(e)[:200])
+            self.abandon("hbm_oom_during_fill", error=str(e)[:200])
         else:
             self._i = i + 1
             return
@@ -470,8 +473,8 @@ class DeviceCacheBuilder:
         """The filled cache, or None if the fill was abandoned (a stream
         that ended before its advertised batch count included)."""
         if self.abandoned is None and self._i != self.n_batches:
-            self._abandon("fewer_batches_than_advertised", got=self._i,
-                         advertised=self.n_batches)
+            self.abandon("fewer_batches_than_advertised", got=self._i,
+                        advertised=self.n_batches)
         if self.abandoned is not None:
             return None
         return DeviceCache(stacked=self._stacked, tail=self._tail,

@@ -63,6 +63,9 @@ class StagedBatch(NamedTuple):
     n_local: int  # the batch's rows as the stream yielded them
     wb: object = None  # their weights (zero for the pad rows), or None
     ready: object = None  # CUDA event after the copies, or None
+    # The ingest guard's quarantine reason (data/ingest.py): the batch is
+    # the all-padding batch of its geometry, n_valid 0; None when clean.
+    verdict: object = None
 
 
 class H2DCounter:

@@ -1,4 +1,5 @@
-"""Synthetic Gaussian blobs (counterpart: tdc_tpu/data/synthetic.py).
+"""Synthetic Gaussian blobs and the reference's .npz layout (counterpart:
+tdc_tpu/data/synthetic.py).
 
 The same recipe as the JAX package — K centers uniform in
 [-2·class_sep, 2·class_sep]^d, uniform labels, unit Gaussian noise — drawn
@@ -47,3 +48,22 @@ def make_blobs(seed: int, n_obs: int, n_dim: int, k: int, *,
         for s in range(0, n_obs, step):
             x[:, s:s + step] += ct[:, labels[s:s + step]]
     return x.to(dtype), labels.to(torch.int32)
+
+
+def make_classification_data(seed: int, n_obs: int, n_dim: int, *,
+                             class_sep: float = 1.5, device=None):
+    """The 2-class variant of the reference's make_data signature
+    (n_classes=2, class_sep=1.5): `make_blobs` with K=2."""
+    return make_blobs(seed, n_obs, n_dim, 2, class_sep=class_sep,
+                      device=device)
+
+
+def save_npz(filepath: str, x, y) -> None:
+    """Write the reference's .npz layout (keys 'X', 'Y'); tensors are
+    copied to the host first."""
+    import numpy as np
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+    np.savez(filepath, X=host(x), Y=host(y))

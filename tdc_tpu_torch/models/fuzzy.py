@@ -73,6 +73,9 @@ class FuzzyCMeansResult(NamedTuple):
     # The streamed fits' data.spill.SpillReport under the spill tier, else
     # None.
     h2d: object = None
+    # The streamed fits' data.ingest.IngestReport (read retries,
+    # quarantined batches and rows, the dropped share); None in memory.
+    ingest: object = None
 
 
 def _fuzzy_stats_fn(kernel: str, m: float, block_rows: int, k: int, d: int,

@@ -75,6 +75,9 @@ class KMeansResult(NamedTuple):
     # The streamed fits' data.spill.SpillReport under the spill tier, else
     # None.
     h2d: object = None
+    # The streamed fits' data.ingest.IngestReport (read retries,
+    # quarantined batches and rows, the dropped share); None in memory.
+    ingest: object = None
 
 
 def _normalize(c: torch.Tensor) -> torch.Tensor:

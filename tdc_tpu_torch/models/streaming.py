@@ -12,10 +12,11 @@ statistics of every batch within an iteration and updates the centroids
 once: the same fit as in memory up to the f32 summation order, with only
 the (K, d) stats on the device between batches.
 
-Each pass reads the stream once (`_run_pass`): every batch is copied to
-the fit's device with a plain synchronous copy (`_prepare_batch`),
-screened for its width and non-finite values (`data/ingest.py`), and
-handed to the stats route of `kernel`: 'pallas' runs the CUDA kernels
+Each pass reads the stream once (`_run_pass`) through the ingest guard
+(`data/ingest.guard_stream`: read retries, the host checks, CRCs): every
+batch is copied to the fit's device with a plain synchronous copy
+(`_prepare_batch`), screened there for non-finite values, and handed to
+the stats route of `kernel`: 'pallas' runs the CUDA kernels
 (B1, B5 on bf16 batches, B2 + B3 past the fused limit; B4 weighted; B6
 for fuzzy), 'pallas_bf16' runs B5, 'xla' the plain PyTorch stats. A
 kernel that fails to build or launch raises; nothing here catches it.
@@ -68,9 +69,25 @@ checkpoint and `Preempted` (exit code 75); `utils/heartbeat.maybe_beat`
 marks every batch, and every pass over a device cache. A pass over a
 cache ends at the iteration's end: its preemption check comes after it.
 
-Not ported, each raising NotImplementedError that names its ROADMAP.md
-item: an ingest policy other than the strict default (A7(d)), and coarse
-or bounded assignment (A10).
+Ingest (`ingest=`, `data/ingest.IngestPolicy`; the result's `ingest` is
+the IngestReport): a quarantined batch (a CRC mismatch, a wrong width, a
+non-finite value, an injected verdict) is staged as the all-padding batch
+of its geometry and adds nothing, so the fit equals the fit without that
+batch; the strict default policy aborts at the first quarantine
+(`IngestAbort`). The batch's collectives run all the same. Under a mesh
+with reduce='per_batch' each rank scans its own rows on its device and
+the batch's all_reduce carries every rank's verdict, so all ranks drop
+the batch if any rank found it bad; under 'per_pass', where no reduce
+follows a batch, the guard scans the whole batch on the host, which
+every rank reads, so every rank reaches the same verdict. The end of
+every pass crosschecks the ranks' rows, batches and quarantined rows. On
+several ranks aborts, and reads that failed for good, wait for the end
+of the pass, and mid-pass checkpoints are not written after such a
+failure. The streamed GMM fit is not guarded (as in the JAX package): a
+bad batch ends it.
+
+Not ported, raising NotImplementedError that names ROADMAP.md Queue A,
+A10: coarse or bounded assignment.
 """
 
 from __future__ import annotations
@@ -82,9 +99,10 @@ import numpy as np
 import torch
 
 from tdc_tpu_torch.data import device_cache as cache_lib
+from tdc_tpu_torch.data import ingest as ingest_lib
 from tdc_tpu_torch.data import spill as spill_lib
 from tdc_tpu_torch.data.device_cache import RESIDENCY_MODES
-from tdc_tpu_torch.data.ingest import IngestAbort, screen_batch
+from tdc_tpu_torch.data.ingest import IngestAbort, Quarantined, screen_batch
 from tdc_tpu_torch.data.loader import restore_bf16
 from tdc_tpu_torch.data.spill import StagedBatch, device_rows
 from tdc_tpu_torch.models.fuzzy import FuzzyCMeansResult
@@ -111,6 +129,7 @@ from tdc_tpu_torch.ops.assign import (
 )
 from tdc_tpu_torch.parallel import reduce as reduce_lib
 from tdc_tpu_torch.parallel import reshard as reshard_lib
+from tdc_tpu_torch.testing.faults import fault_point
 from tdc_tpu_torch.utils import checkpoint as ckpt_lib
 from tdc_tpu_torch.utils import preempt
 from tdc_tpu_torch.utils.device import resolve_device
@@ -165,6 +184,7 @@ class _Staged(NamedTuple):
     w: object  # their weights (numpy f32) or None
     rows: int  # the global batch's rows
     slice_rows: int  # this rank's padded slice: ceil(rows / P)
+    verdict: object = None  # a quarantine's reason (data/ingest.py)
 
 
 def _data_ranks(mesh) -> tuple[int, int]:
@@ -194,7 +214,14 @@ def _host_rows(a):
 
 def _stage(batch, d: int, mesh, weighted: bool) -> _Staged:
     """Host side of a batch: the width contract, then this rank's rows
-    (np.array_split bounds over the data axis) and their weights."""
+    (np.array_split bounds over the data axis) and their weights. A
+    `Quarantined` marker stages as the all-padding batch of its geometry:
+    no valid rows (zero weights), the slice of the batch's row count."""
+    if isinstance(batch, Quarantined):
+        rows = int(batch.x.shape[0])
+        return _Staged(np.zeros((0, d), np.float32),
+                       np.zeros(0, np.float32) if weighted else None, rows,
+                       -(-rows // _data_ranks(mesh)[1]), batch.reason)
     xb, wb = batch if weighted else (batch, None)
     if xb.ndim != 2 or xb.shape[1] != d:
         raise IngestAbort(
@@ -233,10 +260,11 @@ def _put_staged(sb: _Staged, put) -> StagedBatch:
     ring's copies, or `device_rows` inline; the same tensors either way."""
     return StagedBatch(put(sb.x, sb.slice_rows), int(sb.x.shape[0]),
                        sb.rows,
-                       None if sb.w is None else put(sb.w, sb.slice_rows))
+                       None if sb.w is None else put(sb.w, sb.slice_rows),
+                       verdict=sb.verdict)
 
 
-def _check_equal_local_rows(first_rows: int, mesh, device) -> None:
+def _check_equal_local_rows(first_rows, mesh, device) -> None:
     """Every rank must stream the same batches: checked once, on the
     first batch's row count (equal counts give equal rank slices)."""
     if _data_ranks(mesh)[1] <= 1:
@@ -252,7 +280,10 @@ def _check_equal_local_rows(first_rows: int, mesh, device) -> None:
 
 def _batch_rows(batch) -> int:
     """A stream batch's row count, read from its shape alone (weighted
-    streams yield (x, w) pairs)."""
+    streams yield (x, w) pairs; a quarantined batch keeps its geometry,
+    so a verdict never moves a resume's row count)."""
+    if isinstance(batch, Quarantined):
+        return int(batch.x.shape[0])
     return int((batch[0] if isinstance(batch, tuple) else batch).shape[0])
 
 
@@ -310,6 +341,7 @@ def _run_pass(batches, prefetch: int, zero_acc, step_fn, stage=None, *,
         try:
             for i, batch in enumerate(it):
                 maybe_beat(progress=f"iter={n_iter} batch={i}")
+                fault_point("stream.batch")
                 if i < skip:
                     if preempt_batch and preempt.requested():
                         # The checkpoint on disk covers this state.
@@ -371,12 +403,46 @@ def _screen_device(xb, wb) -> str | None:
 
 
 def _raise_bad(reason: str, where: str) -> None:
+    """The end of a fit that is not guarded (the streamed GMM fit, the
+    mean-combined fit, as in the JAX package) at a bad batch; negative
+    weights end any fit."""
     if reason == "negative_weights":
         raise ValueError("sample weights must be nonnegative")
     raise IngestAbort(
-        f"{where} failed the ingest screen ({reason}); the strict default "
-        "policy ends the fit (retries, quarantine and max_bad_fraction are "
-        "ROADMAP.md Queue A, A7(d))")
+        f"{where} failed the ingest screen ({reason}); this fit is not "
+        "routed through the ingest guard, so a bad batch ends it")
+
+
+def _crosscheck_pass(device, rows: int, batches: int, quarantined: int,
+                     failed: bool) -> bool:
+    """The end of a gang's pass: every rank must have streamed the same
+    rows in the same batches and reached the same ingest verdicts
+    (quarantined rows). Returns whether a read failed for good on some
+    rank (the guards raise then; the totals are not compared). One
+    all_reduce (`parallel.mesh.rank_range`), so every rank learns of a
+    difference and raises alike."""
+    from tdc_tpu_torch.parallel.mesh import rank_range
+
+    mine = [float(rows), float(batches), float(quarantined), float(failed)]
+    lo, hi = rank_range(torch.tensor(mine, dtype=torch.float64,
+                                     device=device))
+    if hi[3] > 0:
+        return True
+    if hi[:2] != lo[:2]:
+        raise ValueError(
+            f"the per-pass row and batch totals (every rank streams the "
+            f"same batches) differ between ranks (this rank: {mine[:2]}, "
+            f"range over the ranks: {lo[:2]} to {hi[:2]}); every rank must "
+            "pass the same stream")
+    if hi[2] != lo[2]:
+        emit("ingest_abort", quarantined_rows=int(quarantined),
+             detail="quarantine verdicts diverge across ranks")
+        raise IngestAbort(
+            "multi-process streamed fit: ingest quarantine verdicts diverge "
+            f"across ranks (quarantined rows from {int(lo[2])} to "
+            f"{int(hi[2])}; this rank {int(quarantined)}) — every rank "
+            "must read the same bytes of every batch")
+    return False
 
 
 class _Pass:
@@ -391,12 +457,19 @@ class _Pass:
     `self.err` from pass to pass. `batches` may be a spill ring
     (`data/spill.py`), whose StagedBatch items skip the inline staging;
     `run_cached` makes a pass over a device cache instead of the
-    stream."""
+    stream.
+
+    `guard` (a `data/ingest.GuardedStream`, the stream's own guard) turns
+    a batch that fails the screen into a quarantine: the batch adds
+    nothing and its collectives run all the same (module docstring).
+    Without one (the streamed GMM fit) a bad batch ends the fit on every
+    rank."""
 
     def __init__(self, batches, *, d, mesh, device, prefetch, weighted,
-                 strategy, shapes, local, correct):
+                 strategy, shapes, local, correct, guard=None):
         self.batches, self.d, self.mesh, self.device = (batches, d, mesh,
                                                         device)
+        self.guard = guard
         self.prefetch, self.weighted = prefetch, weighted
         self.local, self.correct = local, correct
         self.multi = _data_ranks(mesh)[1] > 1
@@ -418,8 +491,14 @@ class _Pass:
                                              device))
             if quantize is not None:
                 self.err = self.zero()
-        self.checked_rows = False
         self._extras = {}
+        if guard is not None:
+            # A rank that aborted alone would leave the others waiting in
+            # a collective: on several ranks aborts wait for the pass end.
+            guard.defer_aborts = self.multi
+            # No reduce follows a batch under 'per_pass': the verdicts
+            # must agree by construction (module docstring).
+            guard.scan_on_host = self.deferred
 
     def _extra(self, pad: float) -> torch.Tensor:
         """[pad, 0, 0] on the device, made once per value: a cached
@@ -430,31 +509,46 @@ class _Pass:
         return self._extras[pad]
 
     def _reduced(self, s, extra, params, dtype, where):
-        """All-reduce `s` with `extra` = [pad rows, non-finite batches,
+        """All-reduce `s` with `extra` = [pad rows, bad rank slices,
         batches with negative weights] riding in the same buffer: every
-        rank then corrects by the same count and raises alike."""
+        rank then corrects by the same count and raises alike. Returns
+        (s, the bad rank slices): without a guard bad slices end the fit,
+        with one the caller quarantines."""
         if self.err is None:
             s, ex = self.reducer(s, extra)
         else:
             s, self.err, ex = self.reducer(s, self.err, extra)
         self.counter.add(*self.cost)
-        pad, nonfinite, negative = (float(v) for v in ex)
+        pad, bad, negative = (float(v) for v in ex)
         if negative > 0:
             _raise_bad("negative_weights", where)
-        if nonfinite > 0:
-            _raise_bad(f"nonfinite on {int(nonfinite)} rank slice(s)",
-                       where)
+        if bad > 0 and self.guard is None:
+            _raise_bad(f"nonfinite on {int(bad)} rank slice(s)", where)
         if pad > 0:
             s = self.correct(s, pad, params, dtype)
-        return s
+        return s, bad
+
+    def _screen(self, xb, wb) -> str | None:
+        """The device scan of a batch's valid rows: the non-finite scan
+        unless the guard's policy turns the screen off; the weights' sign
+        always (a contract, not a verdict). Under the guard's
+        `scan_on_host` the host scanned the values already."""
+        g = self.guard
+        if g is None or (g.policy.screen and not g.scan_on_host):
+            return _screen_device(xb, wb)
+        if wb is not None and bool((wb < 0).any()):
+            return "negative_weights"
+        return None
 
     def run(self, params, fill=None, **resume):
         """One pass; returns (stats of every row of the stream, the
         stream's row count). `fill` (a DeviceCacheBuilder) receives every
-        batch that passed its screen. `resume` holds `_run_pass`'s cursor,
-        checkpoint and preemption arguments."""
+        batch that passed its screen and is abandoned at a quarantined
+        one. `resume` holds `_run_pass`'s cursor, checkpoint and
+        preemption arguments."""
         self.passes += 1
         dev = self.device
+        guard = self.guard
         state = {"extra": torch.zeros(3, dtype=torch.float32, device=dev),
                  "dtype": torch.float32, "i": 0, "batches": 0}
 
@@ -462,6 +556,19 @@ class _Pass:
             if isinstance(batch, StagedBatch):
                 return batch
             return _stage(batch, self.d, self.mesh, self.weighted)
+
+        def keep(xb, wb, pad) -> None:
+            if fill is not None:
+                fill.add(xb, xb.shape[0] - pad, wb)
+
+        def drop(i, sb, reason) -> None:
+            """A bad batch: booked with the guard unless its read already
+            was (a host verdict), and the cache abandoned. Without a guard
+            (a per-pass gang) the pass's reduce ends the fit."""
+            if guard is not None and sb.verdict is None:
+                guard.quarantine_after_read(i, sb.n_local, reason)
+            if fill is not None:
+                fill.abandon("quarantined_batch", batch=i)
 
         def step(acc, sb):
             i = state["i"]
@@ -475,49 +582,62 @@ class _Pass:
                 return acc, 0
             state["batches"] += 1
             xb, wb, n = sb.xb, sb.wb, sb.n_valid
-            state["dtype"] = xb.dtype
-            reason = _screen_device(xb[:n], None if wb is None else wb[:n])
-            if reason is not None and not self.multi:
-                _raise_bad(reason, f"batch {i}")
-            # Weighted pad rows weigh nothing: no correction.
-            pad = 0 if self.weighted else xb.shape[0] - n
-            if fill is not None and reason is None:
-                fill.add(xb, xb.shape[0] - pad, wb)
+            reason = sb.verdict
+            if reason is None:
+                state["dtype"] = xb.dtype
+                reason = self._screen(xb[:n], None if wb is None else wb[:n])
+            negative = reason == "negative_weights"
+            bad = reason is not None and not negative
+            # Weighted pad rows weigh nothing, and a bad batch's rows are
+            # never scored: no correction.
+            pad = 0 if self.weighted or bad else xb.shape[0] - n
             if not self.multi:
+                if reason is not None and (guard is None or negative):
+                    _raise_bad(reason, f"batch {i}")
+                if bad:
+                    drop(i, sb, reason)
+                    return acc, sb.n_local
+                keep(xb, wb, pad)
                 return reduce_lib.tree_add(
                     acc, self.local(xb, wb, params)), sb.n_local
-            # A bad batch adds nothing: its flag ends the fit on every
-            # rank once the reduce carries it.
-            extra = torch.tensor(
-                [float(pad), float(reason not in (None, "negative_weights")),
-                 float(reason == "negative_weights")],
-                dtype=torch.float32, device=dev)
+            extra = torch.tensor([float(pad), float(bad), float(negative)],
+                                 dtype=torch.float32, device=dev)
             if self.deferred:
+                # Every rank's verdict (the guard's host scan; the pass's
+                # crosscheck holds them equal).
                 state["extra"] += extra
-                return (acc if reason is not None
+                if bad:
+                    drop(i, sb, reason)
+                    return acc, sb.n_local
+                keep(xb, wb, pad)
+                return (acc if negative
                         else self.acc_add(acc, xb, wb, params)), sb.n_local
             s = (self.zero() if reason is not None
                  else self.local(xb, wb, params))
-            s = self._reduced(s, extra, params, xb.dtype, f"batch {i}")
+            s, n_bad = self._reduced(s, extra, params, xb.dtype, f"batch {i}")
+            if n_bad > 0:
+                # Bad on some rank: every rank drops the batch.
+                drop(i, sb, reason or "quarantined_on_another_rank")
+                return acc, sb.n_local
+            keep(xb, wb, pad)
             return reduce_lib.tree_add(acc, s), sb.n_local
 
         acc, rows = _run_pass(self.batches, self.prefetch, self.zero, step,
                               stage=stage, **resume)
         if self.deferred:
             acc = self._reduced(acc, state["extra"], params, state["dtype"],
-                                f"pass {self.passes}")
-        if self.multi and not self.checked_rows:
-            # Once: every rank streamed the same rows in the same batches
-            # (a ragged divergence after the first batch would otherwise
-            # sum mismatched slices silently).
-            from tdc_tpu_torch.parallel.mesh import check_same_on_every_rank
-
-            check_same_on_every_rank(
-                torch.tensor([float(rows), float(state["batches"])],
-                             dtype=torch.float64, device=dev),
-                what="per-pass row and batch totals (every rank streams "
-                     "the same batches)")
-            self.checked_rows = True
+                                f"pass {self.passes}")[0]
+        failed_elsewhere = False
+        if self.multi:
+            # Every rank streamed the same rows in the same batches and
+            # reached the same verdicts (a divergence would otherwise sum
+            # mismatched slices silently), unless a read failed.
+            failed_elsewhere = _crosscheck_pass(
+                dev, rows, state["batches"],
+                0 if guard is None else guard.quarantined_rows_seen(),
+                guard is not None and guard.failed())
+        if guard is not None:
+            guard.raise_deferred(failed_elsewhere)
         return acc, rows
 
     def run_cached(self, params, cache):
@@ -539,12 +659,12 @@ class _Pass:
                 lambda a, xb, wb, nv: self.acc_add(a, xb, wb, params), w)
             return self._reduced(
                 acc, self._extra(float(cache_lib.cache_pad_rows(cache))),
-                params, cache.tail.dtype, f"pass {self.passes}")
+                params, cache.tail.dtype, f"pass {self.passes}")[0]
 
         def one(a, xb, wb, nv):
             s = self._reduced(self.local(xb, wb, params),
                               self._extra(float(xb.shape[0] - nv)), params,
-                              xb.dtype, "a cached batch")
+                              xb.dtype, "a cached batch")[0]
             return reduce_lib.tree_add(a, s)
 
         return cache_lib.scan_cache(self.zero(), cache, one, w)
@@ -577,17 +697,13 @@ class _Pass:
             gathers=c.gathers)
 
 
-def _refuse_unported(label: str, *, residency="stream", ingest=None,
+def _refuse_unported(label: str, *, residency="stream",
                      assign="exact", probe=None, bounds="hamerly") -> None:
     """The streamed fits' options that are not ported, each naming its
     ROADMAP.md item."""
     if residency not in RESIDENCY_MODES:
         raise ValueError(f"residency={residency!r}: use one of "
                          f"{RESIDENCY_MODES}")
-    if ingest not in (None, {}):
-        raise _not_ported(
-            f"{label}: an ingest policy other than the strict default "
-            "(retries, quarantine, max_bad_fraction)", "Queue A, A7(d)")
     if assign != "exact" or probe is not None or bounds != "hamerly":
         raise _not_ported(
             f"{label}: assign={assign!r}, probe={probe!r}, bounds="
@@ -664,8 +780,10 @@ class _StreamCheckpointer:
     """
 
     def __init__(self, ckpt_dir, k, d, params: dict, acc_map: dict, *,
-                 mesh=None, keep: int | None = None, device=None):
+                 mesh=None, keep: int | None = None, device=None,
+                 guard=None):
         self.dir = ckpt_dir
+        self.guard = guard
         self.k, self.d = k, d
         self.params = params
         self.acc_map = acc_map
@@ -738,6 +856,16 @@ class _StreamCheckpointer:
 
     def save(self, n_iter, c, shift, history, *, batch_cursor=0, acc=None,
              rows_seen=0) -> None:
+        if acc is not None and self.gang and self.guard is not None:
+            from tdc_tpu_torch.parallel.mesh import rank_range
+
+            # A read that failed for good on some rank left its batch out
+            # of this pass, which then raises: a resume from this state
+            # would go without the batch. Every rank skips the save.
+            failed = torch.tensor([float(self.guard.failed())],
+                                  device=self.device)
+            if rank_range(failed)[1][0] > 0:
+                return
         meta = {"k": self.k, "d": self.d, "shift": float(shift)}
         meta.update(self.params)
         meta.update(reshard_lib.layout_meta(self.mesh))
@@ -756,24 +884,52 @@ class _StreamCheckpointer:
             step=n_iter, gang=self.gang, keep_last_n=self.keep)
 
 
-def _first_batch(stream, d: int, weighted: bool, device):
+def _first_for_init(guard):
+    """The stream's first batch through the guard (retries and the host
+    screen apply to it as to any batch). A quarantine verdict refuses: an
+    init derived from the zeroed replacement would seed garbage."""
+    fb = guard.first_batch()
+    if isinstance(fb, Quarantined):
+        _refuse_first(guard, fb.reason)
+    return fb
+
+
+def _refuse_first(guard, reason: str) -> None:
+    raise IngestAbort(
+        f"{guard.label}: the stream's first batch failed the ingest "
+        f"screen ({reason}) and the init must be derived from it — "
+        "pass an explicit init array, or repair the store")
+
+
+def _first_batch(stream, d: int, weighted: bool, device, guard=None):
     """The stream's first batch, whole (every rank reads all of it: the
-    named inits are resolved against it), screened, on `device`."""
-    sb = _stage(next(iter(stream())), d, None, weighted)
+    named inits are resolved against it), screened, on `device`. Through
+    `guard` when the fit has one: a verdict (on the host, or the scan on
+    the device) refuses the init, after an `ingest_quarantine` event."""
+    fb = (next(iter(stream())) if guard is None
+          else _first_for_init(guard))
+    sb = _stage(fb, d, None, weighted)
     x, w = _prepare_batch(sb, device)
-    reason = _screen_device(x, w)
+    screen = guard is None or guard.policy.screen
+    reason = _screen_device(x, w) if screen else None
     if reason is not None:
-        _raise_bad(reason, "the stream's first batch")
+        if guard is None or reason == "negative_weights":
+            _raise_bad(reason, "the stream's first batch")
+        emit("ingest_quarantine", label=guard.label, store=guard.store,
+             batch=0, rows=sb.rows, reason=reason, peek=True)
+        _refuse_first(guard, reason)
     return x, w, sb.rows
 
 
 def _resolve_stream_init(stream, k: int, d: int, init, generator, mesh,
-                         weighted: bool, device, spherical: bool = False):
+                         weighted: bool, device, spherical: bool = False,
+                         guard=None):
     """(K, d) f32 centroids: an explicit array as it is (rank 0's under a
-    mesh), or a named init resolved against the first batch. Returns
-    (centroids, the first batch's row count)."""
+    mesh), or a named init resolved against the first batch (through
+    `guard`). Returns (centroids, the first batch's row count)."""
     if isinstance(init, str):
-        first, first_w, rows = _first_batch(stream, d, weighted, device)
+        first, first_w, rows = _first_batch(stream, d, weighted, device,
+                                            guard)
         if spherical:
             first = _normalize(first.float())
         if mesh is not None:
@@ -791,8 +947,11 @@ def _resolve_stream_init(stream, k: int, d: int, init, generator, mesh,
             from tdc_tpu_torch.parallel.mesh import replicate
 
             c = replicate(c.contiguous(), mesh)
-        fb = next(iter(stream()))
-        rows = int((fb[0] if weighted else fb).shape[0])
+        # The equal-rows check reads the first batch's geometry (a
+        # quarantined one's included), through the guard.
+        fb = (next(iter(stream())) if guard is None
+              else guard.first_batch())
+        rows = _batch_rows(fb)
     # A copy: first_k's rows are a view that would keep the whole first
     # batch on the device for the fit.
     c = c.to(torch.float32).clone()
@@ -982,8 +1141,13 @@ def streamed_kmeans_fit(
         `data.device_cache.SizedBatches`) and refuses ckpt_every_batches;
         a mid-pass resume streams that run. The result's `h2d` is the
         spill ring's SpillReport (None off the spill tier).
-      ingest, assign, probe, bounds: the JAX version's, not ported (they
-        raise, naming their ROADMAP.md item) but at their defaults.
+      ingest: the ingest guard's policy (`data/ingest.IngestPolicy`, a
+        dict of its fields, or None for the strict default): read retries,
+        quarantine and the loss budget (module docstring). The result's
+        `ingest` is the IngestReport; with a clean stream the guarded fit
+        is bit for bit the unguarded one.
+      assign, probe, bounds: the JAX version's, not ported (they raise,
+        naming ROADMAP.md Queue A, A10) but at their defaults.
 
     Preemption (`utils/preempt.install_preemption_handler`): a SIGTERM
     makes the fit checkpoint at the next batch boundary (one rank; the
@@ -997,8 +1161,7 @@ def streamed_kmeans_fit(
     weighted = sample_weight_batches is not None
     strategy = reduce_lib.resolve_reduce(reduce)
     _refuse_unported("streamed_kmeans_fit", residency=residency,
-                     ingest=ingest, assign=assign, probe=probe,
-                     bounds=bounds)
+                     assign=assign, probe=probe, bounds=bounds)
     dev = resolve_device(device)
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
@@ -1014,9 +1177,13 @@ def streamed_kmeans_fit(
     _check_kernel(kernel, weighted=weighted, mesh=mesh)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    label = "streamed_kmeans_fit"
     stream = _weighted_stream(batches, sample_weight_batches)
+    guard = ingest_lib.guard_stream(stream, ingest, d=d, weighted=weighted,
+                                    label=label)
     c, first_rows = _resolve_stream_init(stream, k, d, init, generator,
-                                         mesh, weighted, dev, spherical)
+                                         mesh, weighted, dev, spherical,
+                                         guard=guard)
     if spherical:
         c = _normalize(c)
     _check_equal_local_rows(first_rows, mesh, dev)
@@ -1025,23 +1192,22 @@ def streamed_kmeans_fit(
         params={"spherical": bool(spherical), "weighted": weighted},
         acc_map={"acc_sums": "sums", "acc_counts": "counts",
                  "acc_sse": "sse"},
-        mesh=mesh, keep=ckpt_keep_last_n, device=dev)
+        mesh=mesh, keep=ckpt_keep_last_n, device=dev, guard=guard)
     state = ckpt.restore(SufficientStats)
     _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
                  cursor=state.cursor)
-    label = "streamed_kmeans_fit"
     plan, builder = _plan_1d_residency(
         residency, batches, k, d, mesh, weighted=weighted, kernel=kernel,
         cursor=state.cursor, label=label,
         mid_pass_ckpt=ckpt_every_batches is not None, device=dev)
-    run_stream, h2d = _spilled(plan, stream, d, mesh, weighted, dev)
+    run_stream, h2d = _spilled(plan, guard, d, mesh, weighted, dev)
     local, correct = _lloyd_pass_fns(
         spherical, _LloydRoute(k, d, kernel, label), kernel)
     machine = _Pass(run_stream, d=d, mesh=mesh, device=dev,
                     prefetch=prefetch if h2d is None else 0,
                     weighted=weighted, strategy=strategy,
                     shapes=_lloyd_shapes(k, d), local=local,
-                    correct=correct)
+                    correct=correct, guard=guard)
 
     def update(acc, c):
         new_c = apply_centroid_update(acc, c)
@@ -1066,7 +1232,8 @@ def streamed_kmeans_fit(
         converged=bool(tol >= 0 and shift <= tol),
         history=_history_array(history), n_iter_run=n_iter - start_iter,
         comms=machine.report(),
-        h2d=None if h2d is None else h2d.report(plan.spill_slots))
+        h2d=None if h2d is None else h2d.report(plan.spill_slots),
+        ingest=guard.report())
 
 
 def _plan_1d_residency(residency, batches, k, d, mesh, *, weighted,
@@ -1373,8 +1540,8 @@ def streamed_fuzzy_fit(
     device=None,
 ) -> FuzzyCMeansResult:
     """Exact streamed Fuzzy C-Means: the contract of streamed_kmeans_fit
-    (checkpoints, mid-pass resume, residency and the preemption drain
-    included) with
+    (checkpoints, mid-pass resume, residency, the ingest guard and the
+    preemption drain included) with
     the per-iteration [objective, shift] history; kernel='pallas' runs B6
     per batch and refuses sample weights (the weighted stats run in f32
     plain ops for mass exactness)."""
@@ -1382,8 +1549,7 @@ def streamed_fuzzy_fit(
         raise ValueError(f"fuzzifier m must be > 1, got {m}")
     weighted = sample_weight_batches is not None
     strategy = reduce_lib.resolve_reduce(reduce)
-    _refuse_unported("streamed_fuzzy_fit", residency=residency,
-                     ingest=ingest)
+    _refuse_unported("streamed_fuzzy_fit", residency=residency)
     dev = resolve_device(device)
     if kernel.startswith("auto"):
         from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
@@ -1402,31 +1568,33 @@ def streamed_fuzzy_fit(
             "explicit kernel")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    label = "streamed_fuzzy_fit"
     stream = _weighted_stream(batches, sample_weight_batches)
+    guard = ingest_lib.guard_stream(stream, ingest, d=d, weighted=weighted,
+                                    label=label)
     c, first_rows = _resolve_stream_init(stream, k, d, init, generator,
-                                         mesh, weighted, dev)
+                                         mesh, weighted, dev, guard=guard)
     _check_equal_local_rows(first_rows, mesh, dev)
     ckpt = _StreamCheckpointer(
         ckpt_dir, k, d, params={"m": float(m), "weighted": weighted},
         acc_map={"acc_wsums": "weighted_sums", "acc_weights": "weights",
                  "acc_obj": "objective"},
-        mesh=mesh, keep=ckpt_keep_last_n, device=dev)
+        mesh=mesh, keep=ckpt_keep_last_n, device=dev, guard=guard)
     state = ckpt.restore(FuzzyStats)
     _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
                  cursor=state.cursor)
-    label = "streamed_fuzzy_fit"
     plan, builder = _plan_1d_residency(
         residency, batches, k, d, mesh, weighted=weighted, kernel=kernel,
         cursor=state.cursor, label=label,
         mid_pass_ckpt=ckpt_every_batches is not None, device=dev)
-    run_stream, h2d = _spilled(plan, stream, d, mesh, weighted, dev)
+    run_stream, h2d = _spilled(plan, guard, d, mesh, weighted, dev)
     local, correct = _fuzzy_pass_fns(
         _FuzzyRoute(k, d, float(m), kernel, label), float(m), kernel)
     machine = _Pass(run_stream, d=d, mesh=mesh, device=dev,
                     prefetch=prefetch if h2d is None else 0,
                     weighted=weighted, strategy=strategy,
                     shapes=_fuzzy_shapes(k, d), local=local,
-                    correct=correct)
+                    correct=correct, guard=guard)
 
     try:
         c, n_iter, shift, history, start_iter, cache = _fit_loop(
@@ -1447,4 +1615,5 @@ def streamed_fuzzy_fit(
         converged=bool(tol >= 0 and shift <= tol),
         history=_history_array(history), n_iter_run=n_iter - start_iter,
         comms=machine.report(),
-        h2d=None if h2d is None else h2d.report(plan.spill_slots))
+        h2d=None if h2d is None else h2d.report(plan.spill_slots),
+        ingest=guard.report())

@@ -9,6 +9,11 @@ plain C interface. The library lands in `tdc_tpu_torch/_build/` (listed in
 edit rebuilds and an unchanged tree loads the library it already built.
 Every C entry point returns `cudaGetLastError()` after its launches;
 `check` turns a non-zero code into an exception.
+
+`load_host_library` builds a plain C++ source of `csrc/` (no CUDA: the
+prefetch loader of `data/native_loader.py`) with g++ the same way: into
+`_build/`, keyed by a hash of the source and flags, atomically renamed
+into place; a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v"]
+
+HOST_CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -181,3 +188,42 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = _LOADED.lib.tdc_error_string(err).decode() if _LOADED else "?"
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+_HOST_LIBS: dict = {}
+
+
+def find_cxx() -> str:
+    """The host C++ compiler: $CXX, else g++ from PATH; raises if none."""
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(
+            "no C++ compiler found ($CXX, g++ on PATH): the native "
+            "prefetch loader is built from csrc/ at first use")
+    return cxx
+
+
+def load_host_library(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<source>` as a shared library with
+    the host compiler (HOST_CXX_FLAGS); cached per process. Raises
+    RuntimeError with the compiler's output when the build fails."""
+    if source in _HOST_LIBS:
+        return _HOST_LIBS[source]
+    src = CSRC / source
+    h = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    out = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{out.name}.tmp-{os.getpid()}"
+        proc = subprocess.run(
+            [find_cxx(), *HOST_CXX_FLAGS, str(src), "-o", str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"building {source} failed (exit {proc.returncode}):\n"
+                f"{proc.stdout}")
+        os.replace(tmp, out)  # atomic: a reader sees all or nothing
+    lib = _HOST_LIBS[source] = ctypes.CDLL(str(out))
+    return lib

@@ -231,26 +231,37 @@ def replicate(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x
 
 
+def rank_range(values: torch.Tensor) -> tuple[list[float], list[float]]:
+    """(lowest, highest) of each of `values` over the job's ranks, from one
+    all_reduce (MAX) of the values and their negation in f64. Every rank
+    learns the same range, so all of them can raise alike and none is
+    left waiting in a later collective."""
+    mine = values.reshape(-1).to(torch.float64)
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        v = mine.tolist()
+        return v, v
+    t = torch.cat([mine, -mine])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    n = mine.numel()
+    return [-v for v in t[n:].tolist()], t[:n].tolist()
+
+
 def check_same_on_every_rank(x: torch.Tensor, what: str = "points") -> None:
     """Raise unless `x` holds the same values on every rank, as JAX's one
-    global array does by construction: rank 0 broadcasts a fingerprint
-    (the shape, Σx and Σ|x| in f64) and every rank compares its own."""
+    global array does by construction: its fingerprint (the shape, Σx and
+    Σ|x| in f64) must span no range over the ranks."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return
     mine = torch.tensor(
         [*x.shape, float(x.sum(dtype=torch.float64)),
          float(x.abs().sum(dtype=torch.float64))],
         dtype=torch.float64, device=x.device)
-    theirs = replicate(mine.clone(), None)
-    # Every rank learns whether any rank differs, so all of them raise
-    # and none is left waiting in a later collective.
-    differ = (~torch.eq(mine, theirs)).sum().reshape(1)
-    dist.all_reduce(differ)
-    if int(differ) != 0:
+    lo, hi = rank_range(mine)
+    if lo != hi:
         raise ValueError(
             f"the {what} differ between ranks (rank {process_index()}: "
-            f"{mine.tolist()}, rank 0: {theirs.tolist()}); every rank must "
-            "pass the same array")
+            f"{mine.tolist()}, range over the ranks: {lo} to {hi}); every "
+            "rank must pass the same array")
 
 
 def shard_points(x: torch.Tensor, mesh: Mesh,

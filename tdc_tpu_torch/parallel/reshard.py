@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from tdc_tpu_torch.testing.faults import fault_point
+
 # Checkpoint-meta key prefix of the manifest.
 LAYOUT_META_PREFIX = "layout_"
 
@@ -54,9 +56,11 @@ def layout_meta(mesh) -> dict:
 
 
 def layout_from_meta(meta: dict) -> LayoutManifest | None:
-    """A checkpoint's manifest, or None for one written without it."""
+    """A checkpoint's manifest, or None for one written without it. The
+    `ckpt.restore.layout` fault point fires where a manifest is read."""
     if meta is None or LAYOUT_META_PREFIX + "n_devices" not in meta:
         return None
+    fault_point("ckpt.restore.layout")
     return LayoutManifest(**{
         f: int(np.asarray(meta.get(LAYOUT_META_PREFIX + f, 0)))
         for f in LayoutManifest._fields})

@@ -25,6 +25,9 @@ on any rank happens after the write.
 
 Every array is a full host copy (tensors are copied to the host here,
 which waits for the card), so a save taken at N ranks restores at M.
+
+Fault points (`testing/faults.py`): `ckpt.save.pre_replace` between the
+tmp write and the rename, `ckpt.restore` before a step's state is read.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ import zlib
 from typing import Any, NamedTuple
 
 import numpy as np
+
+from tdc_tpu_torch.testing.faults import fault_point
 
 STATE_NAME = "state.npz"
 
@@ -88,6 +93,7 @@ def _manual_save(path: str, payload: dict) -> None:
     # reaches a persisted name: os.replace swaps the file to state.npz.
     tmp = os.path.join(path, f"state.tmp-{uuid.uuid4().hex[:8]}.npz")  # tdclint: disable=TDC007
     np.savez(tmp, **arrays, **crcs)
+    fault_point("ckpt.save.pre_replace")
     os.replace(tmp, os.path.join(path, STATE_NAME))
 
 
@@ -212,6 +218,7 @@ def restore_checkpoint(ckpt_dir: str,
                 f"{errors[-1][1]} (delete the directory to start fresh)")
         return None
     path = _step_dir(ckpt_dir, step)
+    fault_point("ckpt.restore")
     if _is_orbax_step(path):
         raise CheckpointFormatError(
             f"{path} is an orbax checkpoint (the JAX package's "

@@ -703,12 +703,19 @@ def _gang_job(tmp):
     # Rank 1 alone raises the flag mid-pass 2: both ranks stop after it.
     preempt.install_preemption_handler()
 
+    def _batches(s):
+        for i in range(s.num_batches):
+            yield tload.NpzStream.read_batch(s, i)
+
     class Flagging(tload.NpzStream):
         passes = 0
+        # Iterate only (no ranged reads through the ingest guard), so
+        # every pass calls __call__.
+        read_batch = None
 
         def __call__(self):
             Flagging.passes += 1
-            for i, b in enumerate(super().__call__()):
+            for i, b in enumerate(_batches(self)):
                 if rank == 1 and Flagging.passes == 3 and i == 2:
                     preempt.request()
                 yield b

@@ -1313,3 +1313,54 @@ def test_residency_on_the_card_is_bitwise_the_stream(gen, monkeypatch):
             assert (a.history == b.history).all()
         assert runs["spill"].h2d.batches >= 7 * 7
     assert pinned and all(pinned) and streams and all(streams)
+
+
+def test_data_plane_on_the_card_quarantines_as_removed(gen, tmp_path):
+    """The ingest guard with the scan on the card: a CRC-bad batch of a
+    manifest and a NaN batch of an NpzStream are quarantined, and the
+    K-Means (B1) and fuzzy (B6) fits are bitwise the fits with that batch
+    removed; the native loader's fit is bitwise the NpzStream fit."""
+    import numpy as np
+
+    from tdc_tpu_torch.data import NpzStream
+    from tdc_tpu_torch.data.ingest import IngestPolicy
+    from tdc_tpu_torch.data.manifest import build_manifest
+    from tdc_tpu_torch.data.native_loader import NativePrefetchStream
+    from tdc_tpu_torch.data.store import open_manifest_stream
+    from tdc_tpu_torch.models import streaming as tst
+
+    x, c = _data(gen, 7000, 37, 19)
+    host = x.cpu().numpy()
+    init = c.cpu()
+    mdir = str(tmp_path / "blobs")
+    build_manifest(host, 1000, mdir)
+    raw = bytearray(open(f"{mdir}/part-00000.bin", "rb").read())
+    raw[3 * 1000 * 19 * 4 + 5] ^= 0x10  # batch 3
+    open(f"{mdir}/part-00000.bin", "wb").write(bytes(raw))
+    nan = host.copy()
+    nan[3000:4000:7, 2] = np.nan
+
+    def without_3():
+        for i in (0, 1, 2, 4, 5, 6):
+            yield host[i * 1000:(i + 1) * 1000]
+
+    policy = IngestPolicy(max_bad_fraction=0.2)
+    for fit, kw, cost in ((tst.streamed_kmeans_fit, {}, "sse"),
+                          (tst.streamed_fuzzy_fit, {"m": 2.0}, "objective")):
+        common = dict(init=init, max_iters=4, tol=-1.0, kernel="pallas",
+                      **kw)
+        want = fit(without_3, 37, 19, **common)
+        for stream in (open_manifest_stream(mdir), NpzStream(nan, 1000)):
+            got = fit(stream, 37, 19, ingest=policy, **common)
+            assert torch.equal(got.centroids, want.centroids)
+            assert torch.equal(getattr(got, cost), getattr(want, cost))
+            assert got.ingest.quarantined_batches == 1
+    p = str(tmp_path / "x.npy")
+    np.save(p, host)
+    a = tst.streamed_kmeans_fit(NpzStream(host, 1000), 37, 19, init=init,
+                                max_iters=3, tol=-1.0, kernel="pallas")
+    for residency in ("stream", "spill"):
+        b = tst.streamed_kmeans_fit(NativePrefetchStream(p, 1000), 37, 19,
+                                    init=init, max_iters=3, tol=-1.0,
+                                    kernel="pallas", residency=residency)
+        assert torch.equal(a.centroids, b.centroids)

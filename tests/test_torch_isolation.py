@@ -40,7 +40,8 @@ def test_no_jax_imports_in_port_or_chip_smoke():
             "multihost.py", "mesh.py", "reduce.py", "collectives.py",
             "sharded_k.py", "kmeans_parallel.py", "minibatch.py",
             "bisecting.py", "persist.py", "estimators.py",
-            "metrics.py"} <= names
+            "metrics.py", "ingest.py", "store.py", "manifest.py",
+            "native_loader.py", "faults.py", "flaky_http.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
@@ -61,7 +62,10 @@ def test_importing_the_port_loads_no_jax():
         "tdc_tpu_torch.ops.kmeans_parallel, tdc_tpu_torch.models.minibatch, "
         "tdc_tpu_torch.models.bisecting, tdc_tpu_torch.models.persist, "
         "tdc_tpu_torch.models.estimators, tdc_tpu_torch.analysis.metrics, "
-        "tdc_tpu_torch.data.batching; "
+        "tdc_tpu_torch.data.batching, tdc_tpu_torch.data.ingest, "
+        "tdc_tpu_torch.data.store, tdc_tpu_torch.data.manifest, "
+        "tdc_tpu_torch.data.native_loader, tdc_tpu_torch.testing.faults, "
+        "tdc_tpu_torch.testing.flaky_http; "
         "import tdc_tpu_torch as t; "
         "[getattr(t, n) for n in t.__all__]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -138,13 +138,17 @@ def test_resident_fit_equals_the_streamed_fit(case, residency, runlog):
 
 class _OnePass:
     """NpzStream whose iteration raises once the explicit init's read and
-    one full pass are done: an 'hbm' fit must never read it again."""
+    one full pass are done: an 'hbm' fit must never read it again. It
+    iterates only (no ranged `read_batch` for the ingest guard), so every
+    read passes __call__."""
 
     def __init__(self, x, rows):
         self.inner = NpzStream(x, rows)
         self.calls = 0
 
     def __getattr__(self, name):
+        if name == "read_batch":
+            raise AttributeError(name)
         return getattr(self.inner, name)
 
     def __call__(self):

@@ -663,10 +663,14 @@ def test_nonfinite_batch_makes_the_fit_raise():
     x, init = _blobs()
     bad = x.copy()
     bad[500, 2] = np.nan
-    for fit in (tst.streamed_kmeans_fit, tst.streamed_fuzzy_fit,
-                tgmm.streamed_gmm_fit):
-        with pytest.raises(ting.IngestAbort, match=r"batch 3 failed the "
-                                                   r"ingest screen"):
+    # The K-Means and fuzzy fits go through the ingest guard: its strict
+    # default policy quarantines the batch and aborts (the JAX words);
+    # the GMM fit is not guarded and names the batch.
+    for fit, words in ((tst.streamed_kmeans_fit, "strict max_bad_fraction"),
+                       (tst.streamed_fuzzy_fit, "strict max_bad_fraction"),
+                       (tgmm.streamed_gmm_fit,
+                        r"batch 3 failed the ingest screen")):
+        with pytest.raises(ting.IngestAbort, match=words):
             fit(tload.NpzStream(bad, ROWS), K, D, init=init, max_iters=3,
                 device="cpu")
     # The first batch, through a named init.
@@ -675,8 +679,9 @@ def test_nonfinite_batch_makes_the_fit_raise():
     with pytest.raises(ting.IngestAbort, match="first batch"):
         tst.streamed_kmeans_fit(tload.NpzStream(bad, ROWS), K, D,
                                 init="first_k", device="cpu")
-    # A batch of the wrong width, and negative weights (the JAX words).
-    with pytest.raises(ting.IngestAbort, match="bad_shape"):
+    # A batch of the wrong width (quarantined: the strict default aborts),
+    # and negative weights (the JAX words).
+    with pytest.raises(ting.IngestAbort, match="strict max_bad_fraction"):
         tst.streamed_kmeans_fit(lambda: iter([x[:50, :4]]), K, D, init=init,
                                 device="cpu")
     w = _weights()
@@ -729,6 +734,27 @@ def test_nonfinite_batch_makes_the_fit_raise():
 def test_refusals_name_their_queue_item(call, item, tmp_path,
                                         monkeypatch):
     x, _ = _blobs()
+    if item == "A7(d)":
+        # The data plane is ported: the guarded fit runs and equals the
+        # JAX package's (tolerances of the module docstring), and a
+        # sidecar for another batch size is refused in the JAX package's
+        # words (tests/test_torch_ingest.py holds the rest).
+        from tdc_tpu.data import loader as jload
+        from tdc_tpu.models import streaming as jst
+
+        try:
+            got = call(tload.NpzStream(x, ROWS))
+        except ValueError as e:
+            with pytest.raises(ValueError) as want:
+                jload.NpzStream(np.zeros((4, 2)), 2, crc_sidecar={})
+            assert str(e) == str(want.value)
+            return
+        want = jst.streamed_kmeans_fit(_jstream(x, ROWS), K, D,
+                                       init="first_k",
+                                       ingest={"max_bad_fraction": 0.1})
+        _assert_fit(_out(got), _out(want))
+        assert got.ingest == want.ingest
+        return
     if item == "A7(c)":
         # Residency is ported: these calls run (tests/test_torch_resident.py
         # and tests/test_torch_spill.py hold them to the streamed fit).
@@ -1136,7 +1162,7 @@ def _mesh_job(world):
         tload.NpzStream(x, MESH_ROWS), K, D, init="kmeans++", generator=gen,
         mesh=mesh, max_iters=0, device="cpu").centroids.numpy()
     # A non-finite value in the last rank's slice of batch 2 only: every
-    # rank raises on it.
+    # rank aborts on it.
     bad = x.copy()
     bad[2 * MESH_ROWS + MESH_ROWS - 1, 0] = np.nan
     for reduce in ("per_batch", "per_pass"):
@@ -1270,10 +1296,12 @@ def test_streamed_mesh_padding_ties_refusals_and_init(groups, world):
     first = groups[world][0]["kmeanspp"]
     for r in groups[world][1:]:
         np.testing.assert_array_equal(r["kmeanspp"], first)
-    for reduce in ("per_batch", "per_pass"):
-        for r in groups[world]:
-            assert "failed the ingest screen" in r["bad", reduce]
-            assert "batch 2" in r["bad", reduce] or "pass 1" in \
-                r["bad", reduce]
+    for r in groups[world]:
+        # The strict default ingest policy: only the last rank's rows hold
+        # the NaN. per_batch: the batch's reduce carries that rank's
+        # verdict; per_pass: every rank scans the whole batch on the host.
+        # Every rank drops batch 2 and aborts at the pass's end.
+        for reduce in ("per_batch", "per_pass"):
+            assert "strict max_bad_fraction=0.0" in r["bad", reduce]
     for r in groups[world]:
         assert "every rank streams the same batches" in r["differ"]
