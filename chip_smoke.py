@@ -293,6 +293,26 @@ failure (nothing is caught):
    with and without --residency=spill: bitwise the NpzStream fit; (e)
    two ranks, --reduce=per_pass, over (c)'s manifest: both ranks
    quarantine the batch, the fit within 1e-4 of one rank's.
+22. The streamed K-sharded towers ([sharded_stream], after
+   [sharded_kmeans_route]; two ranks on the card as a (1, 2) grid): (a)
+   BASELINE config 5 at its published size through the CLI (--shard_k=2
+   distributedKMeans, N=2*10^6, d=768, K=16,384, bf16, 4 batches, 5
+   iterations, tol=-1; --init=random): B2 and B3 each 2 fits x 4 batches
+   x (n_iter + 1) a rank, nothing else; both ranks' n_iter and SSE
+   equal; held to streamed_kmeans_fit_sharded on a 1x1 grid in this
+   process from the same init over the same batches (n_iter equal, SSE
+   within REL_TOL, centroids within 1e-4); its computation time and
+   pt·iter/s printed; (b) at the sorted shape (N=2^19, f32), per_batch
+   on one batch bitwise kmeans_fit_sharded from the same init
+   (centroids, SSE, history; B2 = B3 = n_iter + 1 a rank), per_pass on 4
+   batches within REL_TOL of it in SSE; (c) the K-sharded fuzzy CLI at
+   the sorted shape with --num_batches=4, m=2, 2 iterations: B7 and B8
+   each 2 x 4 x (n_iter + 1) a rank, nothing else, held to the in-memory
+   fuzzy_fit_sharded on a 1x1 grid from the same init within 1e-4; (d) a
+   K-Means fit at the sorted shape (4 batches, 3 iterations,
+   ckpt_every_batches=1) killed mid-pass on both ranks and resumed:
+   centroids and SSE bitwise the uninterrupted fit's. The phase prints
+   its seconds.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -344,11 +364,13 @@ from tdc_tpu_torch.ops.assign import (
 from tdc_tpu_torch.ops.init import init_random
 from tdc_tpu_torch.parallel import multihost
 from tdc_tpu_torch.parallel.mesh import make_mesh
+from tdc_tpu_torch.parallel import sharded_k as sk
 from tdc_tpu_torch.parallel.sharded_k import (
     _resolve_init_sharded,
     fuzzy_fit_sharded,
     kmeans_fit_sharded,
     make_mesh_2d,
+    streamed_kmeans_fit_sharded,
 )
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): f32 on the CUDA
@@ -461,6 +483,26 @@ RANK_TIMEOUT = 600  # seconds a rank may take for one route
 # Lloyd iterations of the fused-gather sorted step and of the K-sharded
 # K-Means route, both at the sorted route's shape (tol < 0).
 SORTED_ITERS = 4
+# The streamed K-sharded towers ([sharded_stream]): BASELINE config 5
+# (benchmarks/config5_sharded_k16384.json: N=2*10^6, d=768, K=16,384,
+# bf16, 4 batches, 5 iterations, tol=-1) at its published size through
+# the CLI on a (1, 2) grid, seeded by --init=random in place of
+# k-means++; the sorted shape for the one-batch, per-pass and checkpoint
+# checks (SS_*) and the streamed fuzzy CLI (2 iterations, 4 batches).
+CONFIG5_N, CONFIG5_ITERS, CONFIG5_BATCHES, CONFIG5_SEED = (2_000_000, 5, 4,
+                                                           123128)
+CONFIG5_ARGS = [
+    "--method_name=distributedKMeans", f"--n_obs={CONFIG5_N}",
+    f"--n_dim={SORTED_D}", f"--K={SORTED_K}",
+    f"--n_max_iters={CONFIG5_ITERS}", "--tol=-1",
+    f"--num_batches={CONFIG5_BATCHES}", "--dtype=bfloat16",
+    f"--seed={CONFIG5_SEED}", "--kernel=pallas", f"--shard_k={RANKS}",
+    f"--n_GPUs={RANKS}", "--init=random",
+]
+SS_BATCHES, SS_ITERS, SS_CKPT_ITERS, SS_FUZZY_ITERS = 4, SORTED_ITERS, 3, 2
+SS_FUZZY_ARGS = [a for a in SHARD_ARGS if not a.startswith("--n_max_iters")
+                 ] + [f"--n_max_iters={SS_FUZZY_ITERS}",
+                      f"--num_batches={SS_BATCHES}"]
 # Earlier times that this run's are printed beside (chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W, PERF.md): B12 before B3's redesign
 # (one-call medians), B6 (m=2, m=1.7) and B9 at the routes' shape before
@@ -2068,24 +2110,30 @@ def _rank_env(rank, world, port) -> None:
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
 
 
-# The fits of tdc_tpu_torch.models whose results a CLI rank sends back.
+# The fits of tdc_tpu_torch.models whose results a CLI rank sends back,
+# and those of tdc_tpu_torch.parallel.sharded_k (--shard_k).
 RANK_FITS = ("streamed_kmeans_fit", "streamed_fuzzy_fit", "kmeans_fit",
              "streamed_gmm_fit", "gmm_fit")
+SHARDED_FITS = ("streamed_kmeans_fit_sharded", "streamed_fuzzy_fit_sharded",
+                "fuzzy_fit_sharded")
 
 
 def _rank_cli(rank, world, port, args, queue) -> None:
     """One rank of a multi-GPU CLI run, launched as torchrun would: the
     CLI joins the process group from the environment. Sends back (rank,
     exit code, (launch counts, the computation fit's centroids or means
-    as numpy, its comms tuple and its ingest report tuple, or None for
-    each)) or (rank, -1, the traceback)."""
+    as numpy, its comms tuple, its ingest report tuple and its (n_iter,
+    cost), or None for each)) or (rank, -1, the traceback)."""
     _rank_env(rank, world, port)
     try:
         reset_counts()
-        with Captured(*RANK_FITS) as cap:
+        with Captured(*RANK_FITS) as cap, Captured(
+                *SHARDED_FITS, module=sk) as shard_cap:
             rc = cli.main(args)
         seen = counts()
-        fit = next((cap.last[n] for n in RANK_FITS if n in cap.last), None)
+        cap.last.update(shard_cap.last)
+        fit = next((cap.last[n] for n in (*RANK_FITS, *SHARDED_FITS)
+                    if n in cap.last), None)
         # numpy, not a tensor: torch would share a CPU tensor's storage
         # by file descriptor, gone once the rank exits.
         c = (None if fit is None else getattr(
@@ -2093,8 +2141,11 @@ def _rank_cli(rank, world, port, args, queue) -> None:
         comms = None if fit is None or fit.comms is None else tuple(
             fit.comms)
         ingest = getattr(fit, "ingest", None)
+        summary = None if fit is None else (int(fit.n_iter), float(
+            getattr(fit, "sse", getattr(fit, "objective", float("nan")))))
         queue.put((rank, rc, (seen, c, comms,
-                              None if ingest is None else tuple(ingest))))
+                              None if ingest is None else tuple(ingest),
+                              summary)))
     except BaseException:
         queue.put((rank, -1, traceback.format_exc()))
 
@@ -2283,15 +2334,267 @@ def phase_sharded_kmeans() -> None:
           f"diff {cerr:.3g}, sse {float(fit.sse):.8g}", flush=True)
 
 
+class _Crash(RuntimeError):
+    """A stream's injected mid-pass crash ([sharded_stream] (d))."""
+
+
+class FusedStream:
+    """An NpzStream that raises `_Crash` after yielding `fuse` batches in
+    all (across passes): every rank crashes at the same batch."""
+
+    def __init__(self, x, rows, fuse):
+        from tdc_tpu_torch.data import NpzStream
+
+        self.inner, self.fuse, self.yielded = NpzStream(x, rows), fuse, 0
+
+    def __call__(self):
+        for batch in self.inner():
+            if self.yielded >= self.fuse:
+                raise _Crash("injected crash")
+            self.yielded += 1
+            yield batch
+
+
+def _synced_s(fn):
+    """(fn(), its seconds between two synchronizes of the fit's card)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _rank_sharded_stream(rank, world, port, args, queue) -> None:
+    """One rank of [sharded_stream] (b) and (d) on a (1, world) grid, every
+    rank making the same points (make_blobs(1, ...) on args["device"]) and
+    init: kmeans_fit_sharded, the streamed tower on one batch per_batch
+    and on args["batches"] per_pass, then the checkpoint run (an
+    uninterrupted fit, one killed in pass 3 after its mid-pass save, the
+    resume). Sends back (rank, 0, results) or (rank, -1, the
+    traceback)."""
+    from tdc_tpu_torch.data import NpzStream
+
+    _rank_env(rank, world, port)
+    try:
+        multihost.initialize_from_env(device=args["device"])
+        try:
+            n, k, d = args["shape"]
+            dev = args["device"]
+            x, _ = make_blobs(1, n, d, k, device=dev)
+            # The streamed fits' rule: the init from the first batch's rows.
+            init = _resolve_init_sharded(
+                x[:-(-n // args["batches"])], k, "random",
+                torch.Generator(device=dev).manual_seed(0))
+            xh = x.cpu()
+            mesh = make_mesh_2d(1, world)
+            kw = dict(init=init, tol=-1, kernel="pallas", device=dev)
+            out = {}
+            mem, out["mem_s"] = _synced_s(lambda: kmeans_fit_sharded(
+                x, k, mesh, max_iters=args["iters"], **kw))
+            del x
+            reset_counts()
+            one, out["one_s"] = _synced_s(lambda: streamed_kmeans_fit_sharded(
+                NpzStream(xh, n), k, d, mesh, max_iters=args["iters"], **kw))
+            out["one_launches"] = counts()
+            batches = args["batches"]
+            rows = -(-n // batches)
+            pp, out["per_pass_s"] = _synced_s(
+                lambda: streamed_kmeans_fit_sharded(
+                    NpzStream(xh, rows), k, d, mesh, reduce="per_pass",
+                    max_iters=args["iters"], **kw))
+            out["one"] = (torch.equal(one.centroids, mem.centroids),
+                          float(one.sse), float(mem.sse),
+                          bool(np.array_equal(one.history, mem.history)),
+                          one.n_iter, mem.n_iter)
+            out["per_pass"] = (pp.n_iter, float(pp.sse), pp.comms.reduces,
+                               pp.comms.passes)
+            del mem, one, pp
+            ck = dict(max_iters=args["ckpt_iters"], ckpt_every_batches=1,
+                      ckpt_dir=args["ckpt_dir"])
+            full, out["full_s"] = _synced_s(
+                lambda: streamed_kmeans_fit_sharded(
+                    NpzStream(xh, rows), k, d, mesh,
+                    max_iters=args["ckpt_iters"], **kw))
+            # The explicit init reads batch 0 once; pass 3 dies after
+            # its 2nd batch's mid-pass save.
+            crash = None
+            t0 = time.perf_counter()
+            try:
+                streamed_kmeans_fit_sharded(
+                    FusedStream(xh, rows, 1 + 2 * batches + 2), k, d, mesh,
+                    **ck, **kw)
+            except RuntimeError as e:  # _Crash, re-raised at the pass end
+                crash = str(e)
+            out["killed_s"] = time.perf_counter() - t0
+            resumed, out["resumed_s"] = _synced_s(
+                lambda: streamed_kmeans_fit_sharded(
+                    NpzStream(xh, rows), k, d, mesh, **ck, **kw))
+            out["ckpt"] = (crash, resumed.n_iter, resumed.n_iter_run,
+                           torch.equal(resumed.centroids, full.centroids),
+                           float(resumed.sse), float(full.sse))
+            del full, resumed
+            # (c)'s one step: the streamed fuzzy tower on these batches.
+            fz, out["fuzzy_step_s"] = _synced_s(
+                lambda: sk.streamed_fuzzy_fit_sharded(
+                    NpzStream(xh, rows), k, d, mesh, max_iters=1, **kw))
+            out["fuzzy_step"] = (fz.centroids.cpu().numpy() if rank == 0
+                                 else None, float(fz.objective))
+        finally:
+            multihost.shutdown()
+        queue.put((rank, 0, out))
+    except BaseException:
+        queue.put((rank, -1, traceback.format_exc()))
+
+
+def phase_sharded_stream(tmp, card, device="cuda") -> None:
+    """[sharded_stream] (the module docstring's phase 22): (a) config 5
+    through the CLI, (b) and (d) through the functions, (c) the streamed
+    fuzzy CLI. Raises on any failed check. `device` other than the card
+    rehearses the phase on the CPU (with the CLI's --device too)."""
+    t_phase = time.perf_counter()
+    n, k, d = SORTED_N, SORTED_K, SORTED_D
+    # (a) BASELINE config 5 through the CLI, two ranks.
+    name = "config5"
+    row, seen, fits = run_ranks(CONFIG5_ARGS, tmp, name)
+    n_iter = int(row["n_iter"])
+    require(n_iter == CONFIG5_ITERS, f"{name} ran {n_iter} iterations")
+    want = 2 * CONFIG5_BATCHES * (n_iter + 1)
+    for rank, per_rank in enumerate(seen):
+        require_launches(f"{name}, rank {rank}", per_rank, B2=want, B3=want)
+    summaries = [f[3] for f in fits]
+    require(all(s == summaries[0] for s in summaries),
+            f"{name}: the ranks' (n_iter, sse) differ: {summaries}")
+    x, _ = make_blobs(CONFIG5_SEED + 1, CONFIG5_N, SORTED_D, SORTED_K,
+                      device=device, dtype=torch.bfloat16)
+    xh = x.cpu()
+    del x
+    from tdc_tpu_torch.data import NpzStream
+
+    gen = torch.Generator(device=device).manual_seed(CONFIG5_SEED)
+    one, one_s = _synced_s(lambda: streamed_kmeans_fit_sharded(
+        NpzStream(xh, -(-CONFIG5_N // CONFIG5_BATCHES)), SORTED_K, SORTED_D,
+        make_mesh_2d(1, 1), init="random", generator=gen,
+        max_iters=CONFIG5_ITERS, tol=-1, kernel="pallas",
+        dtype=torch.bfloat16, device=device))
+    del xh
+    sse = summaries[0][1]
+    rel = abs(sse - float(one.sse)) / abs(float(one.sse))
+    cerr = check_centroids(name, torch.from_numpy(fits[0][0]), one.centroids)
+    require(one.n_iter == n_iter and rel <= REL_TOL,
+            f"{name}: n_iter {n_iter} vs {one.n_iter} on a 1x1 grid, sse "
+            f"{sse} vs {float(one.sse)}")
+    print(f"[sharded_stream] (a) config 5 (N={CONFIG5_N} K={SORTED_K} "
+          f"d={SORTED_D} bf16, {CONFIG5_BATCHES} batches) on a (1, {RANKS}) "
+          f"grid: computation time {row['computation_time']} s for {n_iter} "
+          f"iterations, {float(row['points_per_sec_per_chip']):.1f} "
+          f"pt·iter/s per chip; against streamed_kmeans_fit_sharded on a "
+          f"1x1 grid ({one_s:.6f} s): n_iter {n_iter} == {one.n_iter}, sse "
+          f"{sse!r} vs {float(one.sse)!r} (rel {rel:.3g}), max centroid "
+          f"diff {cerr:.3g}; comms {fits[0][2]}; launches {seen}; {card}",
+          flush=True)
+    del one
+    # (b) and (d): the functions on two ranks at the sorted shape.
+    ranks = spawn_ranks(_rank_sharded_stream, dict(
+        shape=(n, k, d), iters=SS_ITERS, batches=SS_BATCHES,
+        ckpt_iters=SS_CKPT_ITERS, device=device,
+        ckpt_dir=os.path.join(tmp, "sharded_stream_ckpt")), "sharded_stream")
+    for rank, r in enumerate(ranks):
+        same, sse_one, sse_mem, hist_same, it_one, it_mem = r["one"]
+        require(same and sse_one == sse_mem and hist_same
+                and it_one == it_mem == SS_ITERS,
+                f"sharded_stream (b), rank {rank}: one batch per_batch is "
+                f"not kmeans_fit_sharded's bits (centroids {same}, sse "
+                f"{sse_one!r} vs {sse_mem!r}, history {hist_same})")
+        require_launches(f"sharded_stream (b) one batch, rank {rank}",
+                         r["one_launches"], B2=SS_ITERS + 1,
+                         B3=SS_ITERS + 1)
+        it_pp, sse_pp, reduces, passes = r["per_pass"]
+        rel = abs(sse_pp - sse_one) / abs(sse_one)
+        require(it_pp == SS_ITERS and rel <= REL_TOL,
+                f"sharded_stream (b) per_pass, rank {rank}: n_iter {it_pp}, "
+                f"sse {sse_pp} vs per_batch {sse_one}")
+        crash, it_res, run_res, same, sse_res, sse_full = r["ckpt"]
+        require(crash == "injected crash" and it_res == SS_CKPT_ITERS
+                and same and sse_res == sse_full,
+                f"sharded_stream (d), rank {rank}: crash {crash!r}, n_iter "
+                f"{it_res}, centroids bitwise {same}, sse {sse_res!r} vs "
+                f"{sse_full!r}")
+    r = ranks[0]
+    print(f"[sharded_stream] (b) N={n} K={k} d={d} f32 on a (1, {RANKS}) "
+          f"grid: one batch per_batch bitwise kmeans_fit_sharded ({SS_ITERS} "
+          f"iterations; {r['one_s']:.6f} s against {r['mem_s']:.6f} s in "
+          f"memory), launches {r['one_launches']}; per_pass on "
+          f"{SS_BATCHES} batches ({r['per_pass_s']:.6f} s) sse rel "
+          f"{abs(r['per_pass'][1] - r['one'][1]) / abs(r['one'][1]):.3g}, "
+          f"{r['per_pass'][2]} data-axis reduces in {r['per_pass'][3]} "
+          f"passes; {card}", flush=True)
+    print(f"[sharded_stream] (d) {SS_CKPT_ITERS} iterations, "
+          f"{SS_BATCHES} batches, a save every batch: killed in pass 3 "
+          f"({r['killed_s']:.3f} s), resumed ({r['resumed_s']:.3f} s, "
+          f"{r['ckpt'][2]} iterations run) bitwise the uninterrupted fit "
+          f"({r['full_s']:.3f} s), sse {r['ckpt'][4]!r}", flush=True)
+    # (c) the streamed K-sharded fuzzy CLI against the in-memory tower.
+    name = "sharded_stream_fuzzy"
+    row, seen, fits = run_ranks(SS_FUZZY_ARGS, tmp, name)
+    n_iter = int(row["n_iter"])
+    require(n_iter == SS_FUZZY_ITERS, f"{name} ran {n_iter} iterations")
+    want = 2 * SS_BATCHES * (n_iter + 1)
+    for rank, per_rank in enumerate(seen):
+        require_launches(f"{name}, rank {rank}", per_rank, B7=want, B8=want)
+    x, _ = make_blobs(1, n, d, k, device=device)
+    # The streamed fit draws its init from its first batch's rows.
+    init = _resolve_init_sharded(
+        x[:-(-n // SS_BATCHES)], k, "random",
+        torch.Generator(device=device).manual_seed(0))
+    mem = {it: fuzzy_fit_sharded(x, k, make_mesh_2d(1, 1), init=init,
+                                 max_iters=it, tol=-1, kernel="pallas",
+                                 device=device)
+           for it in (1, SS_FUZZY_ITERS)}
+    del x, init
+    # One step on two ranks and 4 batches ((b)'s rank job) within the fit
+    # tolerance of the in-memory step. Past it the fuzzy map amplifies f32
+    # order ~60x a step at this shape: after 2 steps the one-GPU B6 fit
+    # and the 'xla' route are 1.27e-4 and 5.7e-4 from the in-memory
+    # tower (my chip call 2 of PR 23), so the 2-step centroids are held
+    # within 1e-3, the objective within REL_TOL.
+    c1, obj1 = ranks[0]["fuzzy_step"]
+    err1 = check_centroids(f"{name} (one step)", torch.from_numpy(c1),
+                           mem[1].centroids)
+    rel1 = abs(obj1 - float(mem[1].objective)) / float(mem[1].objective)
+    two = mem[SS_FUZZY_ITERS]
+    cerr = check_centroids(name, torch.from_numpy(fits[0][0]),
+                           two.centroids, tol=1e-3)
+    obj = float(row["sse"])
+    rel = abs(obj - float(two.objective)) / abs(float(two.objective))
+    require(two.n_iter == n_iter and rel <= REL_TOL and rel1 <= REL_TOL,
+            f"{name}: n_iter {n_iter} vs {two.n_iter} in memory, objective "
+            f"{obj} vs {float(two.objective)}, one step {obj1} vs "
+            f"{float(mem[1].objective)}")
+    print(f"[sharded_stream] (c) streamed fuzzy N={n} K={k} d={d} m=2, "
+          f"{SS_BATCHES} batches: computation time {row['computation_time']}"
+          f" s for {n_iter} iterations; against fuzzy_fit_sharded in memory "
+          f"on a 1x1 grid: one step (two ranks, {ranks[0]['fuzzy_step_s']:.3f}"
+          f" s) max centroid diff {err1:.3g}, objective rel {rel1:.3g}; "
+          f"{n_iter} steps (the CLI): n_iter {n_iter} == {two.n_iter}, "
+          f"objective rel {rel:.3g}, max centroid diff {cerr:.3g}; launches "
+          f"{seen}", flush=True)
+    del mem, two
+    print(f"[sharded_stream] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 class Captured:
     """While active, records the result of each call of the named fits
-    of `tdc_tpu_torch.models`, which the CLI calls: the last one of each
-    is the computation fit's."""
+    of `tdc_tpu_torch.models` (or `module`), which the CLI calls: the
+    last one of each is the computation fit's."""
 
-    def __init__(self, *names):
+    def __init__(self, *names, module=None):
         import tdc_tpu_torch.models as tmodels
 
-        self.mod, self.names, self.real, self.last = tmodels, names, {}, {}
+        self.mod, self.names, self.real, self.last = (module or tmodels,
+                                                      names, {}, {})
 
     def __enter__(self):
         for name in self.names:
@@ -4368,6 +4671,7 @@ def main() -> int:
               f"{float(one.objective):.8g} (rel {rel:.3g})", flush=True)
         del x, init, one
         phase_sharded_kmeans()
+        phase_sharded_stream(tmp, card)
         # The data-parallel fused route: B1 on each rank's half of the
         # rows, against the one-GPU fused route's row.
         row, seen, _ = run_ranks(DP_ARGS, tmp, "dp_fused_route")

@@ -91,10 +91,22 @@ world size). distributedKMeans, distributedFuzzyCMeans and
 gaussianMixture then run data parallel (each rank fits its block of rows,
 the stats are all-reduced; gaussianMixture on the torch E-step, as
 --kernel=pallas is single-device);
---shard_k=P runs distributedFuzzyCMeans on the K-sharded tower over an
-(n_GPUs/P, P) grid of ranks (--kernel=pallas: B7 + B8 on each shard).
-Every rank builds the same points; rank 0 alone writes the CSV row and
-prints the summary. --device cpu runs the ranks on gloo.
+--shard_k=P shards the K centroids over an (n_GPUs/P, P) grid of ranks
+(the K=16,384 regime, BASELINE config 5): distributedKMeans always runs
+the streamed K-sharded tower (`parallel.sharded_k.
+streamed_kmeans_fit_sharded`; in memory that is one batch; --kernel=pallas:
+B2 + B3 on each shard), distributedFuzzyCMeans the in-memory tower
+(`fuzzy_fit_sharded`, B7 + B8), or the streamed one with --num_batches,
+--streamed or --ckpt_dir. --block_rows is the rows of a block on
+'xla' (-1: sized from the card's memory, 0: none); --reduce=per_pass,
+--ckpt_dir, --ckpt_every_batches and --data_manifest apply as in the 1-D
+streamed fits, and the OOM-adaptive retry doubles the batches of the
+streamed tower. E.g. `torchrun --nproc_per_node=2 -m
+tdc_tpu_torch.cli.main --method_name=distributedKMeans --shard_k=2
+--n_GPUs=2 --n_obs=2000000 --n_dim=768 --K=16384 --num_batches=4
+--dtype=bfloat16 --kernel=pallas`. Every rank builds the same points;
+rank 0 alone writes the CSV row and prints the summary. --device cpu
+runs the ranks on gloo.
 """
 
 from __future__ import annotations
@@ -129,9 +141,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard_k", type=int, default=1,
                    help="model-axis size: shard the K centroids this many "
                         "ways over an (n_GPUs/shard_k, shard_k) grid of "
-                        "ranks (the K=16,384 regime; distributedFuzzyCMeans "
-                        "in memory; requires n_GPUs %% shard_k == 0 and "
+                        "ranks (the K=16,384 regime; distributedKMeans "
+                        "streamed, distributedFuzzyCMeans in memory or "
+                        "streamed; requires n_GPUs %% shard_k == 0 and "
                         "K %% shard_k == 0)")
+    p.add_argument("--block_rows", type=int, default=-1,
+                   help="N-block rows inside each shard for --shard_k "
+                        "(-1 = auto from device memory, 0 = no blocking)")
     p.add_argument("--num_batches", type=int, default=1,
                    help="initial serial batch count; doubled on OOM "
                         "(reference :357-360 semantics); > 1 streams")
@@ -384,14 +400,14 @@ def _validate_streaming(parser, args) -> None:
                 parser.error(f"--empty_policy=relocate is in-memory only; "
                              f"--{flag} is not supported (mini-batch has "
                              "its own --reassignment_ratio policy)")
-        if args.num_batches > 1:
+        if args.num_batches > 1 or args.shard_k > 1:
             parser.error("--empty_policy=relocate is in-memory single-shard")
     if args.kernel == "refined":
         for flag in ("minibatch", "streamed", "mean_combine", "ckpt_dir"):
             if getattr(args, flag):
                 parser.error(f"--kernel=refined is the in-memory exact-"
                              f"champion path; --{flag} is not supported")
-        if args.num_batches > 1:
+        if args.num_batches > 1 or args.shard_k > 1:
             parser.error("--kernel=refined is in-memory single-shard "
                          "(use it for iters-to-converge parity runs)")
     if args.kernel == "pallas_bf16":
@@ -400,7 +416,7 @@ def _validate_streaming(parser, args) -> None:
                 parser.error(f"--kernel=pallas_bf16 has no --{flag} "
                              f"plumbing (the epilogue lives in the fused "
                              f"Lloyd stats kernel)")
-        if args.num_batches > 1 and not args.streamed:
+        if (args.num_batches > 1 and not args.streamed) or args.shard_k > 1:
             parser.error("--kernel=pallas_bf16 is single-shard (in-memory "
                          "or --streamed)")
     if args.layout == "features":
@@ -409,7 +425,7 @@ def _validate_streaming(parser, args) -> None:
             if getattr(args, flag):
                 parser.error(f"--layout=features is an in-memory device "
                              f"layout; --{flag} is not supported with it")
-        if args.num_batches > 1:
+        if args.num_batches > 1 or args.shard_k > 1:
             parser.error("--layout=features is single-batch, single-shard "
                          "(it exists to make the full dataset fit in HBM)")
     if args.weight_file and (args.minibatch or args.mean_combine):
@@ -452,29 +468,25 @@ def _validate_devices(parser, args) -> None:
         parser.error("--reduce=per_pass:bf16|int8 applies to the 1-D "
                      "streamed fits; --shard_k supports "
                      "--reduce=per_batch|per_pass")
-    if args.shard_k > 1 and _streamy(args):
-        parser.error(
-            "--num_batches/--streamed/--mean_combine/--ckpt_dir with "
-            "--shard_k run the streamed K-sharded towers of A9, which are "
-            "not ported yet "
-            "(ROADMAP.md Queue A, A9)")
     if args.shard_k < 1:
         parser.error("--shard_k must be >= 1")
+    if args.block_rows < -1:
+        parser.error("--block_rows must be >= -1 (-1 = auto)")
+    if args.block_rows != -1 and args.shard_k <= 1:
+        # Refused rather than silently ignored: the 1-D fits size their
+        # blocks themselves.
+        parser.error("--block_rows applies to the K-sharded towers "
+                     "(--shard_k)")
     if args.shard_k > 1:
         if args.K % args.shard_k != 0:
             parser.error(f"--K={args.K} not divisible by "
                          f"--shard_k={args.shard_k}")
-        if args.method_name == "distributedKMeans":
-            parser.error(
-                "--shard_k with distributedKMeans is not ported yet: the "
-                "CLI runs it through the streamed K-sharded tower "
-                "(ROADMAP.md Queue A, A7 and A9); in memory, call "
-                "tdc_tpu_torch.parallel.kmeans_fit_sharded")
-        if args.method_name != "distributedFuzzyCMeans":
+        if args.method_name not in ("distributedKMeans",
+                                    "distributedFuzzyCMeans"):
             parser.error(f"--shard_k with {args.method_name} is not ported "
                          "yet (ROADMAP.md Queue A, A9: the K-sharded GMM "
-                         "tower; the port shards K for "
-                         "distributedFuzzyCMeans in memory)")
+                         "tower; the port shards K for distributedKMeans "
+                         "and distributedFuzzyCMeans)")
         if args.weight_file:
             parser.error("--weight_file is not supported with "
                          "--minibatch/--mean_combine/--shard_k")
@@ -524,10 +536,6 @@ def _validate_data_plane(parser, args) -> None:
                                     "distributedFuzzyCMeans"):
             parser.error("--data_manifest feeds the guarded streamed "
                          "kmeans/fuzzy drivers only")
-        if args.shard_k > 1:
-            parser.error("--data_manifest with --shard_k runs the streamed "
-                         "K-sharded towers of A9, which are not ported yet "
-                         "(ROADMAP.md Queue A, A9)")
         if not args.streamed:
             parser.error("--data_manifest requires --streamed (the "
                          "object-store tier is a streaming data plane; "
@@ -865,8 +873,6 @@ def run_experiment(args) -> dict:
             streamed_gmm_fit,
             streamed_kmeans_fit,
         )
-        from tdc_tpu_torch.parallel.sharded_k import fuzzy_fit_sharded
-
         streamed = (args.streamed or num_batches > 1 or args.mean_combine
                     or args.ckpt_dir is not None)
         bisecting = args.method_name == "bisectingKMeans"
@@ -920,11 +926,8 @@ def run_experiment(args) -> dict:
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         kernel = args.kernel or "xla"
         history = args.history_file is not None
-        if streamed and mesh2d is not None:
-            raise NotImplementedError(
-                "a streamed fit with --shard_k (after an out-of-memory "
-                "retry) runs the streamed K-sharded towers, which are not "
-                "ported to tdc_tpu_torch yet (ROADMAP.md Queue A, A9)")
+        if mesh2d is not None:
+            return sharded_fit(num_batches, streamed, gen, ingest)
         if args.minibatch:
             # Batches of the host points: ceil(n_obs / num_batches) rows,
             # or as many as the card's working-set budget holds (the whole
@@ -984,12 +987,6 @@ def run_experiment(args) -> dict:
                                        spherical=args.spherical, **common)
         state["stream"] = None
         xx = device_points()
-        if mesh2d is not None:
-            return fuzzy_fit_sharded(
-                xx, args.K, mesh2d, m=args.fuzzifier, init=args.init,
-                generator=gen, max_iters=args.n_max_iters, tol=args.tol,
-                kernel=kernel, device=dev,
-            )
         if bisecting:
             return bisecting_kmeans_fit(
                 xx, args.K, generator=gen, max_iters=args.n_max_iters,
@@ -1016,6 +1013,57 @@ def run_experiment(args) -> dict:
             empty_policy=args.empty_policy, layout=layout, mesh=mesh,
             history=history, device=dev,
         )
+
+    def shard_block(rows_per_pass: int) -> int:
+        """The K-sharded towers' N-block: --block_rows, or (-1) the size
+        that bounds the (block, K/P) intermediates of a data shard's
+        rows in the card's memory (0 where they fit whole)."""
+        from tdc_tpu_torch.models.kmeans import auto_block_rows
+
+        if args.block_rows >= 0:
+            return args.block_rows
+        return auto_block_rows(
+            -(-rows_per_pass // (n_devices // args.shard_k)),
+            args.K // args.shard_k, device=dev)
+
+    def sharded_fit(num_batches: int, streamed: bool, gen, ingest):
+        """--shard_k (the JAX CLI's routes): distributedKMeans always
+        streams (in memory: one batch); distributedFuzzyCMeans streams
+        with --num_batches, --streamed or --ckpt_dir, else runs the
+        in-memory tower. The points stay on the host for a streamed fit
+        (an out-of-memory retry's too), cast to bf16 batch by batch under
+        --dtype bfloat16."""
+        from tdc_tpu_torch.parallel.sharded_k import (
+            fuzzy_fit_sharded,
+            streamed_fuzzy_fit_sharded,
+            streamed_kmeans_fit_sharded,
+        )
+
+        kernel = args.kernel or "xla"
+        if fuzzy and not streamed:
+            state["stream"] = None
+            return fuzzy_fit_sharded(
+                device_points(), args.K, mesh2d, m=args.fuzzifier,
+                init=args.init, generator=gen, max_iters=args.n_max_iters,
+                tol=args.tol, block_rows=shard_block(n_obs), kernel=kernel,
+                device=dev)
+        rows = (manifest.batch_rows if manifest is not None
+                else -(-n_obs // num_batches))
+        stream = make_stream(rows)
+        state["stream"] = stream
+        common = dict(
+            init=args.init, generator=gen, max_iters=args.n_max_iters,
+            tol=args.tol, kernel=kernel, block_rows=shard_block(rows),
+            dtype=torch.bfloat16 if args.dtype == "bfloat16" else None,
+            prefetch=args.prefetch, ckpt_dir=args.ckpt_dir,
+            ckpt_every_batches=args.ckpt_every_batches, reduce=args.reduce,
+            residency=args.residency, ingest=ingest, device=dev)
+        if fuzzy:
+            return streamed_fuzzy_fit_sharded(
+                stream, args.K, n_dim, mesh2d, m=args.fuzzifier, **common)
+        return streamed_kmeans_fit_sharded(
+            stream, args.K, n_dim, mesh2d, spherical=args.spherical,
+            **common)
 
     def centers(result):
         return result.means if gmm else result.centroids

@@ -212,16 +212,43 @@ def _host_rows(a):
     return np.ascontiguousarray(a, dtype=np.float32)
 
 
-def _stage(batch, d: int, mesh, weighted: bool) -> _Staged:
+def _slice_rows(rows: int, mesh, pad: bool) -> int:
+    """The rows of this rank's device slice of a `rows`-row batch: ceil(B
+    / P) for every rank where the fit pads the slices to one size, else
+    its own np.array_split share."""
+    index, count = _data_ranks(mesh)
+    if pad:
+        return -(-rows // count)
+    from tdc_tpu_torch.parallel.multihost import host_shard_bounds
+
+    s, e = host_shard_bounds(rows, index, count)
+    return e - s
+
+
+def _cast_rows(a, cast):
+    """Host rows (numpy f32 or a tensor) as a tensor of dtype `cast` (the
+    K-sharded fits' bf16 cast: half the bytes copied to the card); None
+    leaves them as they are."""
+    if cast is None or getattr(a, "dtype", None) == cast:
+        return a
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(cast)
+
+
+def _stage(batch, d: int, mesh, weighted: bool, *, pad: bool = True,
+           cast=None) -> _Staged:
     """Host side of a batch: the width contract, then this rank's rows
     (np.array_split bounds over the data axis) and their weights. A
     `Quarantined` marker stages as the all-padding batch of its geometry:
-    no valid rows (zero weights), the slice of the batch's row count."""
+    no valid rows (zero weights), the slice of the batch's row count.
+    pad=False keeps a rank's slice at its own rows (the K-sharded fits
+    pad nothing); `cast` converts the rows on the host (`_cast_rows`)."""
     if isinstance(batch, Quarantined):
         rows = int(batch.x.shape[0])
         return _Staged(np.zeros((0, d), np.float32),
                        np.zeros(0, np.float32) if weighted else None, rows,
-                       -(-rows // _data_ranks(mesh)[1]), batch.reason)
+                       _slice_rows(rows, mesh, pad), batch.reason)
     xb, wb = batch if weighted else (batch, None)
     if xb.ndim != 2 or xb.shape[1] != d:
         raise IngestAbort(
@@ -243,7 +270,8 @@ def _stage(batch, d: int, mesh, weighted: bool) -> _Staged:
         s, e = host_shard_bounds(rows, index, count)
         xb = xb[s:e]
         wb = None if wb is None else wb[s:e]
-    return _Staged(_host_rows(xb), wb, rows, -(-rows // count))
+    return _Staged(_cast_rows(_host_rows(xb), cast), wb, rows,
+                   _slice_rows(rows, mesh, pad))
 
 
 def _prepare_batch(sb: _Staged, device):
@@ -267,7 +295,7 @@ def _put_staged(sb: _Staged, put) -> StagedBatch:
 def _check_equal_local_rows(first_rows, mesh, device) -> None:
     """Every rank must stream the same batches: checked once, on the
     first batch's row count (equal counts give equal rank slices)."""
-    if _data_ranks(mesh)[1] <= 1:
+    if mesh is None or mesh.size <= 1:
         return
     from tdc_tpu_torch.parallel.mesh import check_same_on_every_rank
 
@@ -463,16 +491,26 @@ class _Pass:
     a batch that fails the screen into a quarantine: the batch adds
     nothing and its collectives run all the same (module docstring).
     Without one (the streamed GMM fit) a bad batch ends the fit on every
-    rank."""
+    rank.
+
+    The K-sharded fits (`parallel/sharded_k.py`) pass `stage` (the host
+    side of a batch, in place of `_stage`), `deferred_fns` (their
+    per-pass (zero, add, reduce)) and `cost_shapes` (the logical (K, d)
+    stats a reduce is booked at, where `shapes` is a rank's K-shard)."""
 
     def __init__(self, batches, *, d, mesh, device, prefetch, weighted,
-                 strategy, shapes, local, correct, guard=None):
+                 strategy, shapes, local, correct, guard=None, stage=None,
+                 deferred_fns=None, cost_shapes=None):
         self.batches, self.d, self.mesh, self.device = (batches, d, mesh,
                                                         device)
         self.guard = guard
         self.prefetch, self.weighted = prefetch, weighted
         self.local, self.correct = local, correct
+        self.stage = stage or (lambda batch: _stage(batch, d, mesh,
+                                                    weighted))
         self.multi = _data_ranks(mesh)[1] > 1
+        # Several ranks in all (a K-sharded grid may have one data rank).
+        self.gang = _is_gang(mesh)
         self.deferred = strategy.deferred and self.multi
         self.counter = reduce_lib.CommsCounter(
             _mirror=reduce_lib.GLOBAL_COMMS)
@@ -484,18 +522,18 @@ class _Pass:
             from tdc_tpu_torch.parallel.mesh import data_axes
 
             quantize = strategy.quantize
-            self.cost = reduce_lib.tree_reduce_cost(shapes, data_axes(mesh),
-                                                    quantize)
+            self.cost = reduce_lib.tree_reduce_cost(
+                cost_shapes or shapes, data_axes(mesh), quantize)
             self.zero, self.acc_add, self.reducer = (
-                reduce_lib.make_deferred_fns(mesh, shapes, local, quantize,
-                                             device))
+                deferred_fns or reduce_lib.make_deferred_fns(
+                    mesh, shapes, local, quantize, device))
             if quantize is not None:
                 self.err = self.zero()
         self._extras = {}
         if guard is not None:
             # A rank that aborted alone would leave the others waiting in
             # a collective: on several ranks aborts wait for the pass end.
-            guard.defer_aborts = self.multi
+            guard.defer_aborts = self.gang
             # No reduce follows a batch under 'per_pass': the verdicts
             # must agree by construction (module docstring).
             guard.scan_on_host = self.deferred
@@ -555,7 +593,7 @@ class _Pass:
         def stage(batch):
             if isinstance(batch, StagedBatch):
                 return batch
-            return _stage(batch, self.d, self.mesh, self.weighted)
+            return self.stage(batch)
 
         def keep(xb, wb, pad) -> None:
             if fill is not None:
@@ -628,7 +666,7 @@ class _Pass:
             acc = self._reduced(acc, state["extra"], params, state["dtype"],
                                 f"pass {self.passes}")[0]
         failed_elsewhere = False
-        if self.multi:
+        if self.gang:
             # Every rank streamed the same rows in the same batches and
             # reached the same verdicts (a divergence would otherwise sum
             # mismatched slices silently), unless a read failed.
@@ -711,16 +749,23 @@ def _refuse_unported(label: str, *, residency="stream",
 
 
 def _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
-                 cursor: int = 0) -> None:
+                 cursor: int = 0, allow_quantize: bool = True) -> None:
     """The JAX package's checks of `reduce=` against the checkpoint
     options (`_reduce_plan`), in its words: a quantized reduce needs
     several ranks and refuses ckpt_dir (a resume would restart the
     error-feedback residual); a per-pass reduce on several ranks refuses
     mid-pass checkpoints and a mid-pass cursor (its accumulator is each
-    rank's own partial)."""
-    ranks = _data_ranks(mesh)[1]
+    rank's own partial). allow_quantize=False is the K-sharded fits'
+    gate. The ranks counted are the mesh's, both axes of a K-sharded
+    grid, as the JAX check counts the mesh's devices."""
+    ranks = 1 if mesh is None else mesh.size
     deferred = strategy.deferred and ranks > 1
     if strategy.quantize is not None:
+        if not allow_quantize:
+            raise ValueError(
+                "quantized stats reduce is wired for the 1-D streamed "
+                "fits; the K-sharded drivers support "
+                "reduce='per_batch'|'per_pass'")
         if ranks <= 1:
             raise ValueError(
                 "quantized stats reduce requires a multi-device mesh (there "
@@ -923,13 +968,18 @@ def _first_batch(stream, d: int, weighted: bool, device, guard=None):
 
 def _resolve_stream_init(stream, k: int, d: int, init, generator, mesh,
                          weighted: bool, device, spherical: bool = False,
-                         guard=None):
+                         guard=None, sample_rows: int | None = None):
     """(K, d) f32 centroids: an explicit array as it is (rank 0's under a
     mesh), or a named init resolved against the first batch (through
-    `guard`). Returns (centroids, the first batch's row count)."""
+    `guard`; its first `sample_rows` rows where that is set, as the
+    K-sharded fits seed). Returns (centroids, the first batch's row
+    count)."""
     if isinstance(init, str):
         first, first_w, rows = _first_batch(stream, d, weighted, device,
                                             guard)
+        if sample_rows is not None:
+            first = first[:sample_rows]
+            first_w = None if first_w is None else first_w[:sample_rows]
         if spherical:
             first = _normalize(first.float())
         if mesh is not None:
@@ -1270,7 +1320,7 @@ def _spilled(plan, stream, d, mesh, weighted, device):
 
 def _fit_loop(machine, ckpt, state, c, update, *, max_iters, tol,
               ckpt_every, ckpt_every_batches, mass, cost, plan=None,
-              builder=None, label=""):
+              builder=None, label="", shift_fn=None):
     """The iterations of a streamed K-Means or fuzzy fit (the JAX fits'
     loop): one pass each from the restored state (the interrupted pass's
     cursor and accumulator first), `update(acc, c)` the new centroids,
@@ -1283,8 +1333,10 @@ def _fit_loop(machine, ckpt, state, c, update, *, max_iters, tol,
     Residency (`plan`, not None unless residency='stream'): the first
     pass of the run fills `builder`'s cache, which every rank of a gang
     must have filled; iterations 2..N then run over it (`run_cached`),
-    the rest of the loop as it is. Returns (centroids, n_iter, shift,
-    history, start_iter, cache or None)."""
+    the rest of the loop as it is. `shift_fn(new_c, c)` gives the
+    shift (default: the largest centroid movement of `c`; the K-sharded
+    fits take it over every model shard). Returns (centroids, n_iter,
+    shift, history, start_iter, cache or None)."""
     if state.centroids is not None:
         c = state.centroids
     start_iter, shift, history = state.start_iter, state.shift, state.history
@@ -1318,7 +1370,8 @@ def _fit_loop(machine, ckpt, state, c, update, *, max_iters, tol,
             raise ValueError(
                 "all sample weights are zero — the weighted fit has no mass")
         new_c = update(acc, c)
-        shift_dev = torch.linalg.norm(new_c - c, dim=-1).max()
+        shift_dev = (torch.linalg.norm(new_c - c, dim=-1).max()
+                     if shift_fn is None else shift_fn(new_c, c))
         shift = float(shift_dev) if sync else shift_dev
         history.append((float(cost(acc)) if sync else cost(acc), shift))
         c = new_c

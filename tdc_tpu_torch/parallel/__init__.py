@@ -2,9 +2,10 @@
 process groups, the grid of ranks (flat, or hierarchical dcn × ici),
 data-parallel stats, the reduce strategies of the streamed fits (per
 batch, per pass, quantized with error feedback) and the K-sharded
-K-Means and fuzzy towers (`parallel.sharded_k`). The JAX package's
-`parallel/compat.py` (a shim over JAX versions of `shard_map`'s keywords)
-has no counterpart: nothing here runs `shard_map`."""
+K-Means and fuzzy towers, in memory and streamed (`parallel.sharded_k`).
+The JAX package's `parallel/compat.py` (a shim over JAX versions of
+`shard_map`'s keywords) has no counterpart: nothing here runs
+`shard_map`."""
 
 from tdc_tpu_torch.parallel.collectives import (
     distributed_fuzzy_stats,
@@ -34,6 +35,8 @@ from tdc_tpu_torch.parallel.sharded_k import (
     make_sharded_lloyd_step,
     make_sharded_stats,
     sharded_assign,
+    streamed_fuzzy_fit_sharded,
+    streamed_kmeans_fit_sharded,
 )
 
 __all__ = ["GLOBAL_COMMS", "CommsReport", "Mesh", "ReduceStrategy",
@@ -43,4 +46,5 @@ __all__ = ["GLOBAL_COMMS", "CommsReport", "Mesh", "ReduceStrategy",
            "make_hierarchical_mesh", "make_mesh",
            "make_mesh_2d", "make_sharded_lloyd_step", "make_sharded_stats",
            "replicate", "resolve_reduce", "shard_points",
-           "sharded_assign"]
+           "sharded_assign", "streamed_fuzzy_fit_sharded",
+           "streamed_kmeans_fit_sharded"]

@@ -4,11 +4,14 @@ tdc_tpu/parallel/reshard.py).
 Every streamed fit's checkpoint records the mesh it was saved under as
 five `layout_*` meta ints, so a restore at another world size is
 recognised. In the port each rank is a process, so n_devices =
-n_processes = the mesh's ranks; the streamed fits' meshes are 1-D or
-hierarchical (dcn × ici), so n_model = 1. The state a checkpoint holds
-is full host arrays, so placing it on any mesh is a replicate: a save
-taken at N ranks restores at M (`redistribute` names the resize in a
-`reshard_redistribute` event, then places).
+n_processes = the mesh's ranks; n_model is the model axis of a K-sharded
+(data, model) grid, 1 on the 1-D and hierarchical (dcn × ici) meshes.
+The state a checkpoint holds is full host arrays (the K-sharded fits
+gather their shards before they write), so placing it on any mesh is a
+replicate, then a K-shard's slice: a save taken at N ranks, or on one
+(data, model) split, restores at M or on another (`redistribute` names
+the resize in a `reshard_redistribute` event and passes the
+`reshard.redistribute` fault point, then places).
 """
 
 from __future__ import annotations
@@ -44,8 +47,10 @@ def manifest_of(mesh) -> LayoutManifest:
         return LayoutManifest(1, 1, 1, 1, 0)
     from tdc_tpu_torch.parallel.mesh import data_index, is_hierarchical
 
+    n_model = (mesh.axis_size("model") if "model" in mesh.axis_names
+               else 1)
     return LayoutManifest(n_devices=mesh.size, n_processes=mesh.size,
-                          n_data=data_index(mesh)[1], n_model=1,
+                          n_data=data_index(mesh)[1], n_model=n_model,
                           hier=int(is_hierarchical(mesh)))
 
 
@@ -76,6 +81,7 @@ def redistribute(tree, old: LayoutManifest | None, mesh, place):
 
         emit("reshard_redistribute", saved_layout=old.describe(),
              new_layout=cur.describe())
+        fault_point("reshard.redistribute")
     return place(tree)
 
 

@@ -1,9 +1,15 @@
-"""The in-memory K-sharded towers: K-Means and Fuzzy C-Means
-(counterpart: tdc_tpu/parallel/sharded_k.py, the `make_mesh_2d`,
+"""The K-sharded towers: K-Means and Fuzzy C-Means, in memory and
+streamed (counterpart: tdc_tpu/parallel/sharded_k.py, the `make_mesh_2d`,
 `_block_champions`, `_block_stats`, `make_sharded_stats`, `sum_sq`,
 `make_sharded_lloyd_step`, `sharded_assign`, `_device_loop`,
 `_resolve_init_sharded`, `kmeans_fit_sharded`, `_fuzzy_fit_fns`,
-`make_sharded_fuzzy_stats` and `fuzzy_fit_sharded` parts).
+`make_sharded_fuzzy_stats` and `fuzzy_fit_sharded` parts, and the
+streamed ones: `_ShardedAcc`, `make_sharded_deferred_reduce`,
+`make_sharded_deferred_accumulate`, `_GatheringCheckpointer` (with
+`_whole_centroids` for `_host_full`), `_make_put_batch` (the host cast
+of `_cast_points`), `_stream_kernel_itemsize`, `_sharded_stream_loop`,
+`streamed_kmeans_fit_sharded`, `_ShardedFuzzyAcc` and
+`streamed_fuzzy_fit_sharded`; one deferred reduce serves both towers).
 
 A (data, model) grid of ranks: a rank's data coordinate picks its rows,
 its model coordinate its block of K/P contiguous centroids
@@ -42,14 +48,32 @@ assembled by an all_reduce of a zero (K, d) buffer in which each model
 shard fills its own rows. The collectives are all_reduce and broadcast
 only, which gloo takes on CUDA tensors.
 
-`padding_correction` is the exact zero-row correction the streamed fits
-apply where a rank's slice of a batch is padded (`models/streaming.py`).
+`padding_correction` is the exact zero-row correction the 1-D streamed
+fits apply where a rank's slice of a batch is padded
+(`models/streaming.py`).
 
-Not ported: the streamed towers, the GMM tower, coarse and bounded
-assignment and the compressed gathers (ROADMAP.md Queue A, A7, A9, A10).
+The streamed towers (`streamed_kmeans_fit_sharded`,
+`streamed_fuzzy_fit_sharded`) run on the 1-D streamed fits' machinery
+(`models/streaming._Pass` and `_fit_loop`: the ingest guard, the
+heartbeat, the SIGTERM drain, mid-pass checkpoints): each rank copies its
+data coordinate's rows of every batch, unpadded, so the JAX towers'
+zero-row padding and its correction (`_pad_rows_sharded`,
+`_fuzzy_pad_correction`) have nothing to do; each batch's stats of a
+rank's K/P centroids accumulate across the pass, reduced over the data
+axis per batch ('per_batch') or once a pass ('per_pass', the add in
+place). A checkpoint holds the whole (K, d) state: the ranks of rank 0's
+model row gather their shards before rank 0 writes
+(`_GatheringCheckpointer`), and a restore slices each rank's rows out,
+so a save on one (data, model) split resumes on another.
+
+Not ported: the GMM tower, the K-sharded residency, the compressed
+gathers (`parallel/gather.py`), the mesh spec and the supervisor
+(ROADMAP.md Queue A, A9), coarse and bounded assignment (A10).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -65,6 +89,7 @@ from tdc_tpu_torch.models.kmeans import (
 )
 from tdc_tpu_torch.ops.assign import FuzzyStats
 from tdc_tpu_torch.ops.distance import pairwise_sq_dist
+from tdc_tpu_torch.parallel import reduce as reduce_lib
 from tdc_tpu_torch.parallel.mesh import (
     Mesh,
     make_grid,
@@ -96,14 +121,13 @@ def _resolve_init_sharded(x, k: int, init, generator, *,
                         generator)
 
 
-def make_sharded_fuzzy_stats(mesh: Mesh, m: float = 2.0, eps: float = 1e-9,
-                             block_rows: int = 0, kernel: str = "xla"):
-    """fn(x_loc, c_loc) → FuzzyStats of this rank's model shard: Σμx
-    (K/P, d) and Σμ (K/P,) summed over the data axis, the objective over
-    both axes. x_loc is this rank's rows, c_loc its K/P centroids.
-    kernel='pallas' runs B7 and B8 (internally blocked: block_rows does
-    not apply); 'xla' takes block_rows rows at a time (0: all), with one
-    all_reduce of the block's s."""
+def _fuzzy_partials(mesh: Mesh, m: float, eps: float, block_rows: int,
+                    kernel: str):
+    """fn(x_loc, c_loc) → (Σμx (K/P, d), Σμ (K/P,), J_m ()) of this rank's
+    rows and model shard, summed over neither axis: the per-row
+    normaliser s crosses the model axis inside (one all_reduce per block
+    on 'xla', one per call on the kernel route). The 'xla' blocks are
+    block_rows rows (0: all), the last one ragged."""
     p = -1.0 / (m - 1.0)
 
     def local_xla(x_loc, c_loc):
@@ -138,7 +162,18 @@ def make_sharded_fuzzy_stats(mesh: Mesh, m: float = 2.0, eps: float = 1e-9,
 
     if kernel not in ("xla", "pallas"):
         raise ValueError(f"unknown kernel {kernel!r} (use 'xla' or 'pallas')")
-    local = local_pallas if kernel == "pallas" else local_xla
+    return local_pallas if kernel == "pallas" else local_xla
+
+
+def make_sharded_fuzzy_stats(mesh: Mesh, m: float = 2.0, eps: float = 1e-9,
+                             block_rows: int = 0, kernel: str = "xla"):
+    """fn(x_loc, c_loc) → FuzzyStats of this rank's model shard: Σμx
+    (K/P, d) and Σμ (K/P,) summed over the data axis, the objective over
+    both axes. x_loc is this rank's rows, c_loc its K/P centroids.
+    kernel='pallas' runs B7 and B8 (internally blocked: block_rows does
+    not apply); 'xla' takes block_rows rows at a time (0: all), with one
+    all_reduce of the block's s."""
+    local = _fuzzy_partials(mesh, m, eps, block_rows, kernel)
 
     def stats(x_loc, c_loc) -> FuzzyStats:
         wsums, weights, obj = local(x_loc, c_loc)
@@ -202,19 +237,37 @@ def _block_stats(x_blk, c_loc, kernel: str, mesh: Mesh,
     return sums, counts, gmin.sum()
 
 
-def _row_blocks(x_loc, block_rows: int, kernel: str) -> list:
+def _row_blocks(x_loc, block_rows: int, kernel: str,
+                ragged: bool = False) -> list:
     """This rank's rows as the towers take them: block_rows at a time on
     'xla' (its (block, K/P) distances bound the memory; the rows must be
-    a multiple), at once on the kernel route, which has no such buffer."""
+    a multiple, or with `ragged` the last block is shorter: the streamed
+    towers pad nothing), at once on the kernel route, which has no such
+    buffer."""
     n_loc = x_loc.shape[0]
     if not (block_rows and n_loc > block_rows and kernel != "pallas"):
         return [x_loc]
-    if n_loc % block_rows != 0:
+    if n_loc % block_rows != 0 and not ragged:
         raise ValueError(
             f"local shard rows {n_loc} not divisible by "
             f"block_rows={block_rows}"
         )
     return list(x_loc.split(block_rows))
+
+
+def _lloyd_partials(x_loc, c_loc, kernel: str, mesh: Mesh, block_rows: int,
+                    shifted: bool, ragged: bool = False):
+    """(sums (K/P, d), counts (K/P,), sse ()) of this rank's rows and
+    model shard, summed over the blocks (`_row_blocks`), not over the
+    data axis."""
+    k_per, d = c_loc.shape
+    sums = torch.zeros((k_per, d), dtype=torch.float32, device=x_loc.device)
+    counts = torch.zeros(k_per, dtype=torch.float32, device=x_loc.device)
+    sse = torch.zeros((), dtype=torch.float32, device=x_loc.device)
+    for blk in _row_blocks(x_loc, block_rows, kernel, ragged):
+        s, ct, e = _block_stats(blk, c_loc, kernel, mesh, shifted)
+        sums, counts, sse = sums + s, counts + ct, sse + e
+    return sums, counts, sse
 
 
 def make_sharded_stats(mesh: Mesh, kernel: str = "xla", block_rows: int = 0,
@@ -227,13 +280,8 @@ def make_sharded_stats(mesh: Mesh, kernel: str = "xla", block_rows: int = 0,
 
     def stats(x_loc, c_loc):
         k_per, d = c_loc.shape
-        sums = torch.zeros((k_per, d), dtype=torch.float32,
-                           device=x_loc.device)
-        counts = torch.zeros(k_per, dtype=torch.float32, device=x_loc.device)
-        sse = torch.zeros((), dtype=torch.float32, device=x_loc.device)
-        for blk in _row_blocks(x_loc, block_rows, kernel):
-            s, ct, e = _block_stats(blk, c_loc, kernel, mesh, shifted)
-            sums, counts, sse = sums + s, counts + ct, sse + e
+        sums, counts, sse = _lloyd_partials(x_loc, c_loc, kernel, mesh,
+                                            block_rows, shifted)
         # One data-axis all_reduce of [Σx | counts | sse].
         flat = mesh.psum(torch.cat([sums.reshape(-1), counts,
                                     sse.reshape(1)]), DATA_AXIS)
@@ -280,16 +328,23 @@ def make_sharded_lloyd_step(mesh: Mesh, kernel: str = "xla",
     def step(x_loc, c_loc, x2sum):
         sums, counts, sse = stats_shifted(x_loc, c_loc)
         sse = torch.clamp_min(sse + x2sum, 0.0)
-        new_c = torch.where(counts[:, None] > 0,
-                            sums / torch.clamp_min(counts[:, None], 1.0),
-                            c_loc)
-        if spherical:
-            new_c = _normalize(new_c)
-        shift = _model_max(torch.linalg.norm(new_c - c_loc, dim=-1).max(),
-                           mesh)
-        return new_c, shift, sse
+        new_c = _lloyd_update(sums, counts, c_loc, spherical)
+        return new_c, _shard_shift(new_c, c_loc, mesh), sse
 
     return step
+
+
+def _lloyd_update(sums, counts, c_loc, spherical: bool) -> torch.Tensor:
+    """A model shard's new centroids: the mean of its rows, an empty
+    cluster kept where it was; L2-normalized when spherical."""
+    new_c = torch.where(counts[:, None] > 0,
+                        sums / torch.clamp_min(counts[:, None], 1.0), c_loc)
+    return _normalize(new_c) if spherical else new_c
+
+
+def _shard_shift(new_c, c_loc, mesh: Mesh) -> torch.Tensor:
+    """The largest centroid movement over every model shard."""
+    return _model_max(torch.linalg.norm(new_c - c_loc, dim=-1).max(), mesh)
 
 
 def sharded_assign(mesh: Mesh, kernel: str = "xla", block_rows: int = 0,
@@ -318,13 +373,14 @@ def _model_max(v: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def _whole_centroids(c_loc: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The (K, d) centroids on every rank: a zero buffer, this shard's
+    """The (K, ...) whole of a K-sharded tensor (centroids, sums, counts)
+    on every rank of this rank's model row: a zero buffer, this shard's
     rows filled, summed over the model axis (exact: the rest are 0)."""
-    k_per, d = c_loc.shape
+    k_per = c_loc.shape[0]
     n_model = mesh.axis_size(MODEL_AXIS)
     j = mesh.axis_index(MODEL_AXIS)
-    full = torch.zeros((k_per * n_model, d), dtype=c_loc.dtype,
-                       device=c_loc.device)
+    full = torch.zeros((k_per * n_model, *c_loc.shape[1:]),
+                       dtype=c_loc.dtype, device=c_loc.device)
     full[j * k_per:(j + 1) * k_per] = c_loc
     return mesh.psum(full, MODEL_AXIS)
 
@@ -338,9 +394,7 @@ def _fuzzy_fit_fns(mesh: Mesh, m: float, block_rows: int, kernel: str):
     def step(x_loc, c_loc):
         fs = stats_fn(x_loc, c_loc)
         new_c = fs.weighted_sums / torch.clamp_min(fs.weights[:, None], 1e-12)
-        shift = _model_max(torch.linalg.norm(new_c - c_loc, dim=-1).max(),
-                           mesh)
-        return new_c, shift, fs.objective
+        return new_c, _shard_shift(new_c, c_loc, mesh), fs.objective
 
     return step
 
@@ -509,3 +563,477 @@ def fuzzy_fit_sharded(
         converged=bool(tol >= 0 and float(shift) <= tol),
         history=hist.cpu().numpy(),
     )
+
+
+# ---------------------------------------------------------------------------
+# The streamed towers
+# ---------------------------------------------------------------------------
+
+
+class _ShardedAcc(NamedTuple):
+    """A streamed K-Means pass's accumulator on one rank: its model
+    shard's Σx (K/P, d) and counts (K/P,), and the SSE (the same on every
+    rank): Σ shifted minima + Σ‖x‖², clamped at 0 where it is read."""
+
+    sums: torch.Tensor
+    counts: torch.Tensor
+    sse: torch.Tensor
+
+
+class _ShardedFuzzyAcc(NamedTuple):
+    """A streamed fuzzy pass's accumulator on one rank: its model shard's
+    Σμx (K/P, d) and Σμ (K/P,), and J_m over every shard."""
+
+    wsums: torch.Tensor
+    weights: torch.Tensor
+    obj: torch.Tensor
+
+
+def make_sharded_deferred_reduce(mesh: Mesh):
+    """The per-pass reduce of the streamed K-sharded towers: fn(acc,
+    extra=None) → `acc` summed over the data axis in ONE all_reduce (the
+    fields packed into one buffer, `extra` riding along and returned
+    summed, as `parallel.reduce.tree_all_reduce`). The model axis is
+    untouched: each rank keeps its shard. It serves the fuzzy tower too
+    (the JAX package's `make_sharded_fuzzy_deferred_reduce`), whose J_m
+    is summed over the model axis per batch, beside the normaliser s
+    that crosses it anyway (JAX sums J_m over both axes here)."""
+
+    def reduce(acc, extra=None):
+        return reduce_lib.tree_all_reduce(acc, mesh, (DATA_AXIS,), extra)
+
+    return reduce
+
+
+def make_sharded_deferred_accumulate(stats_fn):
+    """fn(acc, *args) adding `stats_fn(*args)` (one batch's partials of
+    this rank's rows) into the per-pass accumulator IN PLACE, field by
+    field in f32: no second generation of the accumulator is kept live
+    (the JAX version donates it)."""
+
+    def accumulate(acc, *args):
+        for a, part in zip(acc, stats_fn(*args)):
+            a.add_(part.float())
+        return acc
+
+    return accumulate
+
+
+class _GatheringCheckpointer:
+    """`models/streaming._StreamCheckpointer` for the K-sharded towers:
+    a save writes the whole (K, d) state (centroids, and a mid-pass
+    accumulator's sums and counts) with the layout manifest, so a save
+    taken on one (data, model) split restores on another; a restore
+    slices this rank's K/P rows out of the whole.
+
+    Every rank is a process: rank 0 writes, and it holds one model shard.
+    So the ranks of rank 0's model row (data coordinate 0) gather their
+    shards over the model axis first (an all_reduce of zero buffers);
+    the other ranks gather nothing and hand the writer's protocol
+    placeholders it never reads (they only meet at its barrier)."""
+
+    def __init__(self, inner, mesh: Mesh):
+        self.inner, self.mesh = inner, mesh
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)  # dir, gang, device
+
+    def restore(self, acc_cls):
+        state = self.inner.restore(acc_cls)
+        if state.centroids is None:
+            return state
+        n_model = self.mesh.axis_size(MODEL_AXIS)
+        k_per = state.centroids.shape[0] // n_model
+        j = self.mesh.axis_index(MODEL_AXIS)
+
+        def mine(t):
+            return t[j * k_per:(j + 1) * k_per].contiguous()
+
+        acc = None if state.acc is None else acc_cls(
+            mine(state.acc[0]), mine(state.acc[1]), state.acc[2])
+        return state._replace(centroids=mine(state.centroids), acc=acc)
+
+    def save(self, n_iter, c, shift, history, *, batch_cursor=0, acc=None,
+             rows_seen=0) -> None:
+        if self.mesh.axis_index(DATA_AXIS) == 0:
+            c = _whole_centroids(c, self.mesh)
+            if acc is not None:
+                acc = type(acc)(_whole_centroids(acc[0], self.mesh),
+                                _whole_centroids(acc[1], self.mesh), acc[2])
+        else:
+            c = torch.zeros((0, 0))
+            if acc is not None:
+                acc = type(acc)(*(torch.zeros(0) for _ in acc))
+        self.inner.save(n_iter, c, shift, history, batch_cursor=batch_cursor,
+                        acc=acc, rows_seen=rows_seen)
+
+
+def _make_put_batch(d: int, mesh: Mesh, dtype, book=None):
+    """The host side of a batch for the streamed K-sharded towers: the
+    width contract, this rank's rows along the data axis (np.array_split
+    bounds: the ranks of a model row take the same rows), cast to `dtype`
+    on the host. Nothing is padded, so nothing needs the JAX towers'
+    zero-row correction (`padding_correction`, `_fuzzy_pad_correction`).
+    `book(rows)` sees every staged batch's global row count."""
+    from tdc_tpu_torch.models.streaming import _stage
+
+    def put_batch(batch):
+        sb = _stage(batch, d, mesh, False, pad=False, cast=dtype)
+        if book is not None:
+            book(sb.rows)
+        return sb
+
+    return put_batch
+
+
+def _stream_kernel_itemsize(batches, dtype) -> int:
+    """The bytes of one element the kernels see in a streamed fit: the
+    host cast's dtype where one is asked for, else the stream's own
+    (`data/device_cache.stream_itemsize`), else f32's."""
+    from tdc_tpu_torch.data import device_cache as cache_lib
+
+    if dtype is not None:
+        return torch.empty(0, dtype=dtype).element_size()
+    return cache_lib.stream_itemsize(batches) or 4
+
+
+def _refuse_sharded(label: str, *, residency: str, gather: str,
+                    assign: str = "exact", probe=None) -> None:
+    """The options of the streamed K-sharded towers that are not ported,
+    each naming its ROADMAP.md item (`kmeans_fit_sharded`'s form)."""
+    from tdc_tpu_torch.data.device_cache import RESIDENCY_MODES
+
+    if residency not in RESIDENCY_MODES:
+        raise ValueError(f"residency={residency!r}: use one of "
+                         f"{RESIDENCY_MODES}")
+    if gather != "fp32":
+        raise _not_ported(f"{label}(gather={gather!r})",
+                          "Queue A, A9: parallel/gather.py")
+    if assign != "exact" or probe is not None:
+        raise _not_ported(f"{label}(assign={assign!r}, probe={probe!r})",
+                          "Queue A, A10: ops/subk.py, ops/bounds.py")
+    if residency != "stream":
+        raise _not_ported(f"{label}(residency={residency!r})",
+                          "Queue A, A9: the K-sharded towers' residency")
+
+
+def _champion_booking(counter_of, mesh: Mesh, pad_multiple: int,
+                      block_rows: int):
+    """book(rows) for one staged batch: the model-axis bytes of its
+    champion (min, argmin) exchange, as the JAX towers book them (two
+    gathers of the batch padded to `pad_multiple` rows, one pair per
+    block); nothing without a model axis to cross."""
+    n_data = mesh.axis_size(DATA_AXIS)
+    n_model = mesh.axis_size(MODEL_AXIS)
+
+    def book(rows: int) -> None:
+        if n_model <= 1:
+            return
+        padded = -(-rows // pad_multiple) * pad_multiple
+        rows_loc = padded // n_data
+        gathers = 2
+        if block_rows and rows_loc > block_rows:
+            gathers *= rows_loc // block_rows
+        counter_of().add(0, 2 * n_model * padded * 4, axis="model",
+                         gathers=gathers)
+
+    return book
+
+
+def _sharded_machine(guard, *, d, k, mesh, dev, prefetch, strategy, shapes,
+                     local, dtype, block_rows, champions: bool):
+    """The `models/streaming._Pass` of a streamed K-sharded tower over the
+    guarded stream (`data/ingest.guard_stream`): this rank's rows
+    unpadded (`_make_put_batch`), the per-pass add in place and ONE
+    data-axis reduce, the comms booked at the logical (K, d) shapes on
+    the data axis and, with `champions` (K-Means), the champion exchange
+    on the model axis."""
+    from tdc_tpu_torch.models.streaming import _Pass
+
+    book = None
+    if champions:
+        book = _champion_booking(
+            lambda: machine.counter, mesh,
+            mesh.axis_size(DATA_AXIS) * max(block_rows, 1), block_rows)
+    machine = _Pass(
+        guard, d=d, mesh=mesh, device=dev, prefetch=prefetch,
+        weighted=False, strategy=strategy, shapes=shapes,
+        local=local, correct=None, guard=guard,
+        stage=_make_put_batch(d, mesh, dtype, book),
+        deferred_fns=(lambda: reduce_lib.zero_deferred(shapes, dev),
+                      make_sharded_deferred_accumulate(local),
+                      make_sharded_deferred_reduce(mesh)),
+        cost_shapes=type(shapes)(*((k, d), (k,), ())))
+    return machine
+
+
+def _sharded_stream_loop(machine, ckpt, state, c_loc, update, *, mesh,
+                         max_iters, tol, ckpt_every, ckpt_every_batches,
+                         cost):
+    """The iteration driver of the streamed K-sharded towers, on the
+    streamed fits' loop (`models/streaming._fit_loop`): resume from the
+    restored state (the interrupted pass's cursor and accumulator
+    first), one pass an iteration (`_Pass.run`: the stream read once,
+    each batch's stats on this rank's rows and model shard), the update,
+    the shift over every model shard read once an iteration when tol >=
+    0 or checkpointing, the saves, the heartbeat and the SIGTERM drain
+    (exit 75; the gang's flags agree over both axes). One more pass
+    scores the returned centroids. Returns (c_loc, n_iter, start_iter,
+    shift, history, the final pass's accumulator)."""
+    from tdc_tpu_torch.models.streaming import _final_stats, _fit_loop
+
+    c_loc, n_iter, shift, history, start_iter, _ = _fit_loop(
+        machine, ckpt, state, c_loc, update, max_iters=max_iters, tol=tol,
+        ckpt_every=ckpt_every, ckpt_every_batches=ckpt_every_batches,
+        mass=None, cost=cost,
+        shift_fn=lambda new_c, c: _shard_shift(new_c, c, mesh))
+    final = _final_stats(machine, None, c_loc, ckpt.gang)
+    return c_loc, n_iter, start_iter, shift, history, final
+
+
+def _sharded_setup(batches, k, d, mesh, *, init, generator, spherical,
+                   ckpt_dir, ckpt_every_batches, strategy, ingest, params,
+                   acc_map, acc_cls, dev, label):
+    """What both streamed towers do before their loop, in the JAX order:
+    the guard, the checkpointer (restored FIRST: a resume re-pays no
+    init), then the init (an array, or a name resolved by rank 0 on the
+    first ≤ 65,536 rows of the stream's first batch and broadcast).
+    Returns (guard, ckpt, state, this rank's K/P centroids)."""
+    from tdc_tpu_torch.data import ingest as ingest_lib
+    from tdc_tpu_torch.models.streaming import (
+        _check_equal_local_rows,
+        _reduce_plan,
+        _resolve_stream_init,
+        _StreamCheckpointer,
+    )
+
+    guard = ingest_lib.guard_stream(batches, ingest, d=d, label=label)
+    ckpt = _GatheringCheckpointer(_StreamCheckpointer(
+        ckpt_dir, k, d, params=params, acc_map=acc_map, mesh=mesh,
+        device=dev, guard=guard), mesh)
+    state = ckpt.restore(acc_cls)
+    if state.cursor:
+        # A mid-pass (per-batch) checkpoint cannot resume under per_pass.
+        _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
+                     cursor=state.cursor, allow_quantize=False)
+    if state.centroids is not None:
+        return guard, ckpt, state, state.centroids
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    c, first_rows = _resolve_stream_init(
+        batches, k, d, init, generator, mesh, False, dev, spherical,
+        guard=guard, sample_rows=65536)
+    _check_equal_local_rows(first_rows, mesh, dev)
+    if spherical:
+        c = _normalize(c)
+    j, k_per = mesh.axis_index(MODEL_AXIS), k // mesh.axis_size(MODEL_AXIS)
+    return guard, ckpt, state, c[j * k_per:(j + 1) * k_per].contiguous()
+
+
+def streamed_kmeans_fit_sharded(
+    batches,
+    k: int,
+    d: int,
+    mesh: Mesh,
+    *,
+    init,
+    generator: torch.Generator | None = None,
+    max_iters: int = 20,
+    tol: float = 1e-4,
+    spherical: bool = False,
+    kernel: str = "xla",
+    block_rows: int = 0,
+    dtype=None,
+    prefetch: int = 0,
+    ckpt_dir: str | None = None,
+    ckpt_every: int = 1,
+    ckpt_every_batches: int | None = None,
+    reduce="per_batch",
+    residency: str = "stream",
+    ingest=None,
+    assign: str = "exact",
+    probe=None,
+    gather: str = "fp32",
+    device=None,
+) -> KMeansResult:
+    """Exact out-of-core Lloyd with the rows sharded over 'data' and the
+    centroids over 'model' (`make_mesh_2d`): the BASELINE config-5 regime
+    (K=16,384, d=768, bf16), streamed. `batches` is the streamed fits'
+    zero-arg callable of (rows, d) batches, the same on every rank; each
+    rank copies only its data coordinate's rows of each batch (no
+    padding), and each batch's stats of its K/P centroids accumulate
+    across the pass (B2 + B3 on kernel='pallas', as `kmeans_fit_sharded`;
+    'xla' takes block_rows rows at a time, the last block shorter). The
+    champions and the SSE follow `kmeans_fit_sharded`: shifted minima,
+    Σ‖x‖² added back per batch, so one batch on per_batch gives that
+    fit's bits.
+
+    reduce: 'per_batch' (one data-axis all_reduce a batch; exact, bitwise
+    resumable mid-pass) or 'per_pass' (each rank's partials accumulate in
+    place, one data-axis all_reduce a pass: f32 reordered, no mid-pass
+    checkpoint); 'per_pass:bf16|int8' raise, as in the JAX package.
+    dtype (torch.bfloat16) casts each rank's rows on the host; the stats
+    stay f32. spherical normalizes rows and centroids. init: a (K, d)
+    array or a name (`_sharded_setup`). prefetch, ingest (the guard:
+    retries, quarantine, loss budget), ckpt_dir / ckpt_every /
+    ckpt_every_batches (the gathered (K, d) state and the layout
+    manifest: a save on one (data, model) split restores on another) as
+    the 1-D streamed fits. kernel: 'xla', 'pallas' or 'auto'.
+
+    Not ported, raising NotImplementedError that names ROADMAP.md Queue A:
+    assign / probe other than exact (A10), gather other than 'fp32' (A9,
+    parallel/gather.py), residency other than 'stream' (A9, the K-sharded
+    towers' residency).
+
+    Returns the whole (K, d) centroids on every rank, n_iter, the SSE at
+    them (one more pass), shift, converged, the (n_iter, 2) [sse, shift]
+    history, n_iter_run, `comms` (data-axis reduces and bytes, model-axis
+    champion exchanges and bytes) and the ingest report."""
+    from tdc_tpu_torch.models.streaming import _history_array, _reduce_plan
+    from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
+
+    label = "streamed_kmeans_fit_sharded"
+    n_data = mesh.axis_size(DATA_AXIS)
+    n_model = mesh.axis_size(MODEL_AXIS)
+    if k % n_model != 0:
+        raise ValueError(f"K={k} not divisible by model axis {n_model}")
+    _refuse_sharded(label, residency=residency, gather=gather,
+                    assign=assign, probe=probe)
+    dev = resolve_device(device)
+    kernel = resolve_kernel(kernel, k=k // n_model, d=d, device=dev,
+                            model="kmeans_sharded", label=label,
+                            itemsize=_stream_kernel_itemsize(batches, dtype))
+    if kernel not in ("xla", "pallas"):
+        raise ValueError(f"unknown kernel {kernel!r} (use 'xla' or 'pallas')")
+    strategy = reduce_lib.resolve_reduce(reduce)
+    _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
+                 allow_quantize=False)
+    guard, ckpt, state, c_loc = _sharded_setup(
+        batches, k, d, mesh, init=init, generator=generator,
+        spherical=spherical, ckpt_dir=ckpt_dir,
+        ckpt_every_batches=ckpt_every_batches, strategy=strategy,
+        ingest=ingest, params={"spherical": bool(spherical)},
+        acc_map={"acc_sums": "sums", "acc_counts": "counts",
+                 "acc_sse": "sse"},
+        acc_cls=_ShardedAcc, dev=dev, label=label)
+    block_rows = int(block_rows)
+
+    def local(xb, wb, c):
+        if spherical:
+            xb = _normalize(xb.float())  # zero rows stay zero
+        sums, counts, sse = _lloyd_partials(xb, c, kernel, mesh, block_rows,
+                                            shifted=True, ragged=True)
+        return _ShardedAcc(sums, counts, sse + sum_sq(xb))
+
+    k_per = k // n_model
+    machine = _sharded_machine(
+        guard, d=d, k=k, mesh=mesh, dev=dev, prefetch=prefetch,
+        strategy=strategy, shapes=_ShardedAcc((k_per, d), (k_per,), ()),
+        local=local, dtype=dtype, block_rows=block_rows, champions=True)
+    c_loc, n_iter, start_iter, shift, history, final = _sharded_stream_loop(
+        machine, ckpt, state, c_loc,
+        lambda acc, c: _lloyd_update(acc.sums, acc.counts, c, spherical),
+        mesh=mesh, max_iters=max_iters, tol=tol, ckpt_every=ckpt_every,
+        ckpt_every_batches=ckpt_every_batches,
+        cost=lambda acc: torch.clamp_min(acc.sse, 0.0))
+    return KMeansResult(
+        centroids=_whole_centroids(c_loc, mesh), n_iter=n_iter,
+        sse=torch.clamp_min(final.sse, 0.0),
+        shift=torch.tensor(shift, dtype=torch.float32, device=dev),
+        converged=bool(tol >= 0 and shift <= tol),
+        history=_history_array(history), n_iter_run=n_iter - start_iter,
+        comms=machine.report(), ingest=guard.report())
+
+
+def streamed_fuzzy_fit_sharded(
+    batches,
+    k: int,
+    d: int,
+    mesh: Mesh,
+    *,
+    m: float = 2.0,
+    init,
+    generator: torch.Generator | None = None,
+    max_iters: int = 20,
+    tol: float = 1e-4,
+    kernel: str = "xla",
+    block_rows: int = 0,
+    dtype=None,
+    prefetch: int = 0,
+    ckpt_dir: str | None = None,
+    ckpt_every: int = 1,
+    ckpt_every_batches: int | None = None,
+    reduce="per_batch",
+    residency: str = "stream",
+    ingest=None,
+    gather: str = "fp32",
+    device=None,
+) -> FuzzyCMeansResult:
+    """Exact out-of-core Fuzzy C-Means under the (data, model) grid: the
+    contract of `streamed_kmeans_fit_sharded` with the fuzzy tower's
+    stats (`fuzzy_fit_sharded`: B7, the all_reduce of each row's
+    normaliser s over the model axis, then B8 on kernel='pallas'; plain
+    ops block_rows rows at a time on 'xla', 0: the blocks sized from the
+    device's memory). s crosses the model axis every batch under
+    'per_pass' too; J_m is summed over the model axis per batch, the
+    data axis with the stats. Returns the whole (K, d) centroids on every
+    rank, n_iter, the objective at them, shift, converged, the [objective,
+    shift] history, n_iter_run, comms and the ingest report."""
+    from tdc_tpu_torch.models.streaming import _history_array, _reduce_plan
+    from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
+
+    label = "streamed_fuzzy_fit_sharded"
+    n_model = mesh.axis_size(MODEL_AXIS)
+    if k % n_model != 0:
+        raise ValueError(f"K={k} not divisible by model axis {n_model}")
+    if m <= 1.0:
+        raise ValueError(f"fuzzifier m must be > 1, got {m}")
+    _refuse_sharded(label, residency=residency, gather=gather)
+    dev = resolve_device(device)
+    kernel = resolve_kernel(kernel, k=k // n_model, d=d, device=dev,
+                            model="fuzzy_sharded", label=label,
+                            itemsize=_stream_kernel_itemsize(batches, dtype))
+    if kernel not in ("xla", "pallas"):
+        raise ValueError(f"unknown kernel {kernel!r} (use 'xla' or 'pallas')")
+    strategy = reduce_lib.resolve_reduce(reduce)
+    _reduce_plan(strategy, mesh, ckpt_dir, ckpt_every_batches,
+                 allow_quantize=False)
+    guard, ckpt, state, c_loc = _sharded_setup(
+        batches, k, d, mesh, init=init, generator=generator,
+        spherical=False, ckpt_dir=ckpt_dir,
+        ckpt_every_batches=ckpt_every_batches, strategy=strategy,
+        ingest=ingest, params={"m": float(m)},
+        acc_map={"acc_wsums": "wsums", "acc_weights": "weights",
+                 "acc_obj": "obj"},
+        acc_cls=_ShardedFuzzyAcc, dev=dev, label=label)
+    k_per = k // n_model
+
+    def local(xb, wb, c):
+        rows = int(block_rows)
+        if kernel == "xla" and not rows:
+            # Sized from the batch and the card's whole memory: the same
+            # blocks on every pass, so a resume is bitwise.
+            rows = auto_block_rows(xb.shape[0], k_per, device=dev)
+        wsums, weights, obj = _fuzzy_partials(mesh, float(m), 1e-9, rows,
+                                              kernel)(xb, c)
+        return _ShardedFuzzyAcc(wsums, weights,
+                                mesh.psum(obj.reshape(1), MODEL_AXIS)[0])
+
+    machine = _sharded_machine(
+        guard, d=d, k=k, mesh=mesh, dev=dev, prefetch=prefetch,
+        strategy=strategy, shapes=_ShardedFuzzyAcc((k_per, d), (k_per,), ()),
+        local=local, dtype=dtype, block_rows=int(block_rows),
+        champions=False)
+    c_loc, n_iter, start_iter, shift, history, final = _sharded_stream_loop(
+        machine, ckpt, state, c_loc,
+        lambda acc, c: acc.wsums / torch.clamp_min(acc.weights[:, None],
+                                                   1e-12),
+        mesh=mesh, max_iters=max_iters, tol=tol, ckpt_every=ckpt_every,
+        ckpt_every_batches=ckpt_every_batches, cost=lambda acc: acc.obj)
+    return FuzzyCMeansResult(
+        centroids=_whole_centroids(c_loc, mesh), n_iter=n_iter,
+        objective=final.obj,
+        shift=torch.tensor(shift, dtype=torch.float32, device=dev),
+        converged=bool(tol >= 0 and shift <= tol),
+        history=_history_array(history), n_iter_run=n_iter - start_iter,
+        comms=machine.report(), ingest=guard.report())

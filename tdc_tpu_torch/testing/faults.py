@@ -52,9 +52,11 @@ either package names the same points. The points the port calls:
                             the backend I/O (data/store.py)
     store.read.permanent    the same site (the non-retryable injection)
     store.list              before an object-store manifest document load
-The others (supervisor.*, serve.dispatch, resident.chunk,
-reshard.redistribute, assign.*, online.*, fleet.*) wait for the modules
-that hold their sites (ROADMAP.md Queue A, A9-A12).
+    reshard.redistribute    a restore under another mesh layout than
+                            the save's (parallel/reshard.py)
+The others (supervisor.*, serve.dispatch, resident.chunk, assign.*,
+online.*, fleet.*) wait for the modules that hold their sites (ROADMAP.md
+Queue A, A9-A12).
 """
 
 from __future__ import annotations

@@ -108,7 +108,7 @@ def sync_requested(gang: bool = False, mesh=None, device=None) -> bool:
     """The gang's agreed preemption check. gang=False reads this
     process's flag. gang=True is a collective every rank of the fit must
     call the same number of times: one all_reduce(MAX) of the flag over
-    the mesh's data axes (the whole process group without a mesh), on
+    every axis of the mesh (the whole process group without a mesh), on
     `device` (a CUDA device under NCCL); True on every rank iff any rank
     has the flag."""
     local = requested()
@@ -124,9 +124,7 @@ def sync_requested(gang: bool = False, mesh=None, device=None) -> bool:
     if mesh is None:
         dist.all_reduce(flag, op=dist.ReduceOp.MAX)
     else:
-        from tdc_tpu_torch.parallel.mesh import data_axes
-
-        mesh.psum(flag, *data_axes(mesh), op=dist.ReduceOp.MAX)
+        mesh.psum(flag, *mesh.axis_names, op=dist.ReduceOp.MAX)
     return bool(int(flag.item()) > 0)
 
 

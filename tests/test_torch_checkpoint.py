@@ -597,8 +597,10 @@ CLI = ["--K=12", "--init=first_k", "--tol=-1", "--n_max_iters=4",
      "--minibatch checkpoints per epoch only"),
     (["--ckpt_dir=ck", "--layout=features"],
      "--ckpt_dir is not supported with it"),
-    (["--ckpt_dir=ck", "--method_name=distributedFuzzyCMeans",
-      "--shard_k=2", "--n_GPUs=2"], "streamed K-sharded towers of A9"),
+    (["--ckpt_dir=ck", "--ckpt_keep_last_n=2",
+      "--method_name=distributedFuzzyCMeans", "--shard_k=2", "--n_GPUs=2"],
+     "--ckpt_keep_last_n applies to the 1-D streamed kmeans/fuzzy fits "
+     "only"),
 ], ids=["mean_combine", "keep0", "keep_no_dir", "keep_minibatch", "keep_gmm",
         "gmm_batches", "bisecting", "batches_no_dir", "batches0",
         "minibatch_batches", "features", "shard_k"])

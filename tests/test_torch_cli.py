@@ -222,7 +222,9 @@ def test_cli_default_device_fails_without_a_card(npz, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--shard_k=2"],
+    # --shard_k runs distributedKMeans and distributedFuzzyCMeans; the
+    # K-sharded GMM tower is still to port.
+    ["--shard_k=2", "--method_name=gaussianMixture"],
 ])
 def test_cli_unported_flags_name_the_roadmap(npz, flags, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -481,9 +483,56 @@ def test_cli_rows_agree_on_two_ranks(npz, tmp_path):
                                rtol=1e-5)
 
 
+SHARD_XLA = ["--method_name=distributedKMeans", "--K=40", "--init=first_k",
+             "--tol=-1", "--kernel=xla", "--n_max_iters=5", "--seed=7",
+             "--shard_k=2"]
+SHARDED_RUNS = {
+    # distributedKMeans always runs the streamed K-sharded tower: in
+    # memory as one batch, and on 3 batches.
+    "kmeans": [*FLAGS, "--shard_k=2"],
+    "kmeans_batches": [*FLAGS, "--shard_k=2", "--num_batches=3"],
+    "fuzzy_batches": [*FUZZY_FLAGS, "--shard_k=2", "--num_batches=3"],
+    "fuzzy_ckpt": [*FUZZY_FLAGS, "--shard_k=2", "CKPT"],
+    "block_explicit": [*SHARD_XLA, "--num_batches=3", "--block_rows=256"],
+    "block_auto": [*SHARD_XLA, "--num_batches=3"],
+}
+
+
+def test_cli_sharded_rows_agree_on_two_ranks(npz, tmp_path):
+    """--shard_k=2 --n_GPUs=2 on two ranks (a (1, 2) grid) against the
+    JAX CLI on 2 devices on the same --data_file (the two CLIs'
+    make_blobs differ): distributedKMeans in memory and on 3 batches
+    (B2 + B3's plain versions), fuzzy on 3 batches and checkpointed
+    (B7 + B8's), the 'xla' blocks explicit and sized by the CLI. Every
+    column but the timings agrees, `sse` within rtol 1e-5."""
+    logs = {name: tmp_path / f"{name}.csv" for name in SHARDED_RUNS}
+
+    def argv(name, package):
+        return [f"--ckpt_dir={tmp_path / package / name}" if a == "CKPT"
+                else a for a in SHARDED_RUNS[name]]
+
+    runs = [[*argv(name, "port"), f"--data_file={npz}", "--n_GPUs=2",
+             "--device=cpu", f"--log_file={logs[name]}"]
+            for name in SHARDED_RUNS]
+    assert _cli_on_ranks(tmp_path, runs) == [0] * len(runs)
+    for name in SHARDED_RUNS:
+        jlog = tmp_path / f"jax_{name}.csv"
+        assert jcli.main([*argv(name, "jax"), f"--data_file={npz}",
+                          f"--log_file={jlog}", "--n_GPUs=2",
+                          "--cache_dir="]) == 0, name
+        j, t = _row(jlog), _row(logs[name])
+        assert list(j) == list(t)
+        assert (t["num_GPUs"], t["n_iter"], t["status"], t["backend"]) == (
+            "2", "5", "ok", "cpu"), name
+        np.testing.assert_allclose(float(t["sse"]), float(j["sse"]),
+                                   rtol=1e-5, err_msg=name)
+        for col in set(j) - TIMING - {"sse"}:
+            assert t[col] == j[col], (name, col)
+
+
 @pytest.mark.parametrize("flags, words", [
-    (["--shard_k=2"], "A7 and A9); in memory, call "
-     "tdc_tpu_torch.parallel.kmeans_fit_sharded"),
+    (["--shard_k=2", "--kernel=pallas_bf16"],
+     "--kernel=pallas_bf16 is single-shard"),
     (["--shard_k=2", "--method_name=gaussianMixture"], "A9"),
     (["--shard_k=3", "--method_name=distributedFuzzyCMeans"],
      "not divisible by --shard_k=3"),
@@ -491,7 +540,8 @@ def test_cli_rows_agree_on_two_ranks(npz, tmp_path):
     (["--n_GPUs=2", "--method_name=distributedFuzzyCMeans",
       "--shard_k=2"], "torchrun --nproc_per_node=2"),
     (["--method_name=distributedFuzzyCMeans", "--shard_k=2",
-      "--num_batches=4"], "streamed K-sharded towers of A9"),
+      "--num_batches=4", "--reduce=per_pass:int8"],
+     "--shard_k supports --reduce=per_batch|per_pass"),
     (["--streamed", "--reduce=per_pass:int8", "--n_GPUs=2"],
      "torchrun --nproc_per_node=2"),
     (["--method_name=gaussianMixture", "--kernel=pallas", "--n_GPUs=2"],

@@ -132,7 +132,11 @@ def shared_groups(tmp_path_factory, name, make):
 
 
 def _assert_same(a, b):
-    if isinstance(a, (tuple, list)):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for key in a:
+            _assert_same(a[key], b[key])
+    elif isinstance(a, (tuple, list)):
         assert len(a) == len(b)
         for u, v in zip(a, b):
             _assert_same(u, v)
@@ -144,7 +148,7 @@ def _assert_same(a, b):
 
 def same_on_every_rank(ranks, key):
     """Rank 0's value of `key`, after checking every rank's is bitwise
-    the same (arrays, or nested tuples of them)."""
+    the same (arrays, or nested tuples and dicts of them)."""
     for r in ranks[1:]:
         _assert_same(r[key], ranks[0][key])
     return ranks[0][key]
