@@ -9,8 +9,9 @@ Gaussian Mixture EM, feature-major K-Means and Fuzzy C-Means
 (--layout=features), the streamed fits (--num_batches) with the
 OOM-adaptive retry, and two ranks on the one card: the K-sharded Fuzzy
 C-Means tower (--shard_k), data-parallel K-Means and Gaussian Mixture EM
-(--n_GPUs=2) and streamed K-Means (per batch, per pass and quantized);
-four ranks as a hierarchical (2, 2) mesh; and
+(--n_GPUs=2), streamed K-Means (per batch, per pass and quantized) and
+the K-sharded towers: K-Means, fuzzy and GMM, streamed and in memory,
+with their residency; four ranks as a hierarchical (2, 2) mesh; and
 through the functions: the sorted stats with the row gather fused in
 (sorted_cluster_stats(fuse_gather=True)) and the K-sharded K-Means tower
 (kmeans_fit_sharded) on two ranks. Phases, each of which raises on
@@ -114,7 +115,10 @@ failure (nothing is caught):
    replaces (index_select, then B3) and index_add_, the library call for
    the same function, held to the kernel like the plain version.
 4. Main path, fused route: the CLI at N=2^22, d=128, K=1024,
-   --kernel=pallas, 10 iterations; B1 must launch n_iter + 1 times per fit.
+   --kernel=pallas, 10 iterations, seeded by --init=random (k-means++,
+   3.4 s of a 3.5 s fit, is timed alone in [seeding]; so are the fuzzy,
+   weighted, bf16 and two-rank routes built on these flags); B1 must
+   launch n_iter + 1 times per fit.
 5. Main path, sorted route: the CLI at K=16,384, d=768, --init=random,
    past B1's limit, so B2 and B3 carry it (cuts listed at SORTED_ARGS).
    Then the fused-gather step at its shape and init: 4 Lloyd iterations
@@ -313,9 +317,35 @@ failure (nothing is caught):
    ckpt_every_batches=1) killed mid-pass on both ranks and resumed:
    centroids and SSE bitwise the uninterrupted fit's. The phase prints
    its seconds.
+23. The K-sharded towers' residency ([sharded_residency], after
+   [sharded_stream]): (a) config 5's CLI as in [sharded_stream] (a) with
+   --residency=hbm (each rank caches all of its 3.07 GB of bf16 rows:
+   the cache is replicated across the model axis): centroids, n_iter
+   and SSE bitwise the stream run's on both ranks, B2 and B3 launched as
+   under 'stream', each fit staging the init's first batch and its first
+   pass and nothing after (a fill pass, then 5 cached passes); (b) at
+   the sorted shape on 4 batches, run inside [sharded_stream]'s rank
+   job: the K-Means tower per_pass under 'spill' (the pinned ring; its
+   SpillReport printed) and 'auto' (the cache), each bitwise (b)'s
+   per_pass fit with B2 = B3 = 4 x 5 a rank; the fuzzy tower under 'hbm'
+   for 2 iterations, bitwise its 'stream' twin, B7 = B8 = 4 x 3 a rank.
+24. The K-sharded GMM tower ([sharded_gmm]): the CLI with --shard_k=2
+   --n_GPUs=2 --method_name=gaussianMixture --covariance_type=diag at
+   N=2^19, d=768, K=16,384, 4 iterations, tol=-1, --init=random,
+   --block_rows=65536 (each (block, K/2) f32 buffer 2 GB), two ranks on
+   the card as a (1, 2) grid, in memory and with --num_batches=4: no
+   kernel launched; both ranks' (n_iter, log-likelihood) equal; held to
+   gmm_fit_sharded on a 1x1 grid in this process from the same init
+   (n_iter equal, means, variances and weights within 1e-4 of each
+   array's largest magnitude, the log-likelihood within REL_TOL; the
+   streamed fit's against one more E-step at the returned parameters,
+   its scoring pass), and the streamed fit's parameters to the in-memory
+   fit's within 1e-4 (the same trajectory: both seed from the first
+   65,536 rows).
 
-Then it prints one JSON line with every kernel's numbers, the card's name
-and power limit, and as its last line
+After each group of phases a `[lap]` line gives the run's seconds so far
+(the run's own breakdown). Then it prints one JSON line with every
+kernel's numbers, the card's name and power limit, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a card it exits 2 and prints no result.
 """
@@ -336,6 +366,7 @@ import sys
 import tempfile
 import time
 import traceback
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -402,10 +433,13 @@ SORTED_ARGS = [
     f"--n_dim={SORTED_D}", f"--K={SORTED_K}", "--kernel=pallas",
     "--n_max_iters=4", "--tol=-1", "--seed=0", "--init=random",
 ]
+# --init=random: k-means++ took 3.4 s of each fit's 3.5 here (the
+# [seeding] phase times it alone); GMM_ARGS keeps k-means++, which
+# [dp_gmm_route]'s one-GPU parity needs (one seed a blob).
 MAIN_ARGS = [
     "--method_name=distributedKMeans", f"--n_obs={B1_SHAPE[0]}",
     f"--n_dim={B1_SHAPE[2]}", f"--K={B1_SHAPE[1]}", "--kernel=pallas",
-    "--n_max_iters=10", "--tol=-1", "--seed=0",
+    "--n_max_iters=10", "--tol=-1", "--seed=0", "--init=random",
 ]
 FUZZY_ARGS = [
     "--method_name=distributedFuzzyCMeans", *MAIN_ARGS[1:], "--fuzzifier=2.0",
@@ -503,6 +537,24 @@ SS_BATCHES, SS_ITERS, SS_CKPT_ITERS, SS_FUZZY_ITERS = 4, SORTED_ITERS, 3, 2
 SS_FUZZY_ARGS = [a for a in SHARD_ARGS if not a.startswith("--n_max_iters")
                  ] + [f"--n_max_iters={SS_FUZZY_ITERS}",
                       f"--num_batches={SS_BATCHES}"]
+# The K-sharded diag GMM tower ([sharded_gmm]) at the sorted shape on a
+# (1, 2) grid through the CLI, 4 iterations, in memory and on SS_BATCHES
+# batches, from --init=random (rank 0's draw on the first 65,536 rows,
+# the prefix both fits seed from). GMM_BLOCK rows a block keep each
+# (block, K/2) f32 buffer of the E-step at 2 GB (two ranks share the
+# card). Held to the same tower on a 1x1 grid within GMM_REL_TOL of each
+# array's largest magnitude, the mean log-likelihood within REL_TOL.
+GMM_BLOCK = 1 << 16
+GMM_REL_TOL = 1e-4
+SHARD_GMM_ARGS = [
+    "--method_name=gaussianMixture", "--covariance_type=diag",
+    f"--shard_k={RANKS}", f"--n_GPUs={RANKS}", f"--n_obs={SORTED_N}",
+    f"--n_dim={SORTED_D}", f"--K={SORTED_K}", f"--n_max_iters={SORTED_ITERS}",
+    "--tol=-1", "--init=random", "--seed=0", f"--block_rows={GMM_BLOCK}",
+]
+# The K-sharded towers' residency ([sharded_residency]): config 5's CLI
+# run with --residency=hbm, against [sharded_stream] (a)'s stream run.
+CONFIG5_HBM_ARGS = [*CONFIG5_ARGS, "--residency=hbm"]
 # Earlier times that this run's are printed beside (chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W, PERF.md): B12 before B3's redesign
 # (one-call medians), B6 (m=2, m=1.7) and B9 at the routes' shape before
@@ -607,6 +659,15 @@ OOM_ITERS = 1
 # SSE within this share of the other's (measured up to 8.3e-8 on an H100:
 # the f32 sums' order, and the near-tie label flips it carries).
 STEP_SSE_TOL = 1e-6
+
+
+T_START = time.perf_counter()
+
+
+def lap(what: str) -> None:
+    """The run's seconds so far, after `what` (the run's breakdown)."""
+    print(f"[lap] {what}: {time.perf_counter() - T_START:.1f} s since the "
+          "start", flush=True)
 
 
 def smi() -> str:
@@ -2115,21 +2176,29 @@ def _rank_env(rank, world, port) -> None:
 RANK_FITS = ("streamed_kmeans_fit", "streamed_fuzzy_fit", "kmeans_fit",
              "streamed_gmm_fit", "gmm_fit")
 SHARDED_FITS = ("streamed_kmeans_fit_sharded", "streamed_fuzzy_fit_sharded",
-                "fuzzy_fit_sharded")
+                "fuzzy_fit_sharded", "gmm_fit_sharded",
+                "streamed_gmm_fit_sharded")
 
 
 def _rank_cli(rank, world, port, args, queue) -> None:
     """One rank of a multi-GPU CLI run, launched as torchrun would: the
     CLI joins the process group from the environment. Sends back (rank,
     exit code, (launch counts, the computation fit's centroids or means
-    as numpy, its comms tuple, its ingest report tuple and its (n_iter,
-    cost), or None for each)) or (rank, -1, the traceback)."""
+    as numpy, its comms tuple, its ingest report tuple, its (n_iter,
+    cost) (a GMM's cost: its mean log-likelihood) and a GMM's (variances,
+    weights) as numpy, or None for each)) or (rank, -1, the traceback).
+    args may be {"argv": [...], "staged": True}: the bytes staged to the
+    card (StagedBytes) and the passes' kinds (PassTimes) follow."""
     _rank_env(rank, world, port)
+    staged = isinstance(args, dict) and args.get("staged")
+    argv = args["argv"] if isinstance(args, dict) else args
     try:
         reset_counts()
         with Captured(*RANK_FITS) as cap, Captured(
-                *SHARDED_FITS, module=sk) as shard_cap:
-            rc = cli.main(args)
+                *SHARDED_FITS, module=sk) as shard_cap, \
+                (StagedBytes() if staged else nullcontext()) as copies, \
+                (PassTimes() if staged else nullcontext()) as passes:
+            rc = cli.main(argv)
         seen = counts()
         cap.last.update(shard_cap.last)
         fit = next((cap.last[n] for n in (*RANK_FITS, *SHARDED_FITS)
@@ -2141,11 +2210,16 @@ def _rank_cli(rank, world, port, args, queue) -> None:
         comms = None if fit is None or fit.comms is None else tuple(
             fit.comms)
         ingest = getattr(fit, "ingest", None)
-        summary = None if fit is None else (int(fit.n_iter), float(
-            getattr(fit, "sse", getattr(fit, "objective", float("nan")))))
+        cost = getattr(fit, "sse", getattr(fit, "objective", getattr(
+            fit, "log_likelihood", float("nan"))))
+        summary = None if fit is None else (int(fit.n_iter), float(cost))
+        gmm = (None if getattr(fit, "variances", None) is None else
+               (fit.variances.cpu().numpy(), fit.weights.cpu().numpy()))
         queue.put((rank, rc, (seen, c, comms,
                               None if ingest is None else tuple(ingest),
-                              summary)))
+                              summary, gmm,
+                              *((copies.bytes, [k for k, _ in passes.passes])
+                                if staged else ()))))
     except BaseException:
         queue.put((rank, -1, traceback.format_exc()))
 
@@ -2232,14 +2306,18 @@ def spawn_ranks(target, args, name, world=RANKS) -> list:
     return [got[r][1] for r in range(world)]
 
 
-def run_ranks(args, tmp, name) -> tuple[dict, list, list]:
+def run_ranks(args, tmp, name, staged=False) -> tuple[dict, list, list]:
     """The CLI on RANKS spawned ranks, counts reset in each just before;
     returns (rank 0's CSV row, each rank's launch counts, each rank's
-    (centroids or means, comms, ingest report) of its computation fit). Every rank must
+    (centroids or means, comms, ingest report, (n_iter, cost), a GMM's
+    (variances, weights)) of its computation fit, with `staged` also the
+    bytes staged and the passes' kinds of both fits). Every rank must
     exit 0 and the log must hold one row: rank 0's."""
     log = os.path.join(tmp, f"{name}.csv")
     t0 = time.perf_counter()
-    got = spawn_ranks(_rank_cli, [*args, f"--log_file={log}"], name)
+    argv = [*args, f"--log_file={log}"]
+    got = spawn_ranks(_rank_cli, {"argv": argv, "staged": True} if staged
+                      else argv, name)
     seen = [g[0] for g in got]
     with open(log, newline="") as f:
         rows = list(csv.DictReader(f))
@@ -2355,14 +2433,18 @@ class FusedStream:
             yield batch
 
 
+def _sync() -> None:
+    """Wait for the card, where there is one (a CPU rehearsal has none)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def _synced_s(fn):
     """(fn(), its seconds between two synchronizes of the fit's card)."""
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    _sync()
     t0 = time.perf_counter()
     out = fn()
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    _sync()
     return out, time.perf_counter() - t0
 
 
@@ -2410,7 +2492,25 @@ def _rank_sharded_stream(rank, world, port, args, queue) -> None:
                           one.n_iter, mem.n_iter)
             out["per_pass"] = (pp.n_iter, float(pp.sse), pp.comms.reduces,
                                pp.comms.passes)
-            del mem, one, pp
+            del mem, one
+            # [sharded_residency]: 'spill' and 'auto' twins of the
+            # per_pass fit, each launching B2 and B3 as it did.
+            for mode in ("spill", "auto"):
+                reset_counts()
+                with PassTimes() as passes:
+                    res, seconds = _synced_s(
+                        lambda: streamed_kmeans_fit_sharded(
+                            NpzStream(xh, rows), k, d, mesh,
+                            reduce="per_pass", residency=mode,
+                            max_iters=args["iters"], **kw))
+                out["residency", mode] = dict(
+                    same=torch.equal(res.centroids, pp.centroids)
+                    and float(res.sse) == float(pp.sse)
+                    and bool(np.array_equal(res.history, pp.history)),
+                    seconds=seconds, launches=counts(),
+                    passes=[k_ for k_, _ in passes.passes],
+                    h2d=None if res.h2d is None else tuple(res.h2d))
+            del pp
             ck = dict(max_iters=args["ckpt_iters"], ckpt_every_batches=1,
                       ckpt_dir=args["ckpt_dir"])
             full, out["full_s"] = _synced_s(
@@ -2441,6 +2541,26 @@ def _rank_sharded_stream(rank, world, port, args, queue) -> None:
                     NpzStream(xh, rows), k, d, mesh, max_iters=1, **kw))
             out["fuzzy_step"] = (fz.centroids.cpu().numpy() if rank == 0
                                  else None, float(fz.objective))
+            del fz
+            # [sharded_residency]: the fuzzy tower under 'hbm' (iteration
+            # 2 and the scoring pass over the cache) and its 'stream' twin.
+            fuzzy = {}
+            for mode in ("stream", "hbm"):
+                reset_counts()
+                with PassTimes() as passes:
+                    fuzzy[mode], seconds = _synced_s(
+                        lambda: sk.streamed_fuzzy_fit_sharded(
+                            NpzStream(xh, rows), k, d, mesh, max_iters=2,
+                            residency=mode, **kw))
+                out["fuzzy_residency", mode] = dict(
+                    seconds=seconds, launches=counts(),
+                    passes=[k_ for k_, _ in passes.passes])
+            a, b = fuzzy["hbm"], fuzzy["stream"]
+            out["fuzzy_residency", "hbm"]["same"] = (
+                torch.equal(a.centroids, b.centroids)
+                and float(a.objective) == float(b.objective)
+                and bool(np.array_equal(a.history, b.history)))
+            del fuzzy, a, b
         finally:
             multihost.shutdown()
         queue.put((rank, 0, out))
@@ -2448,7 +2568,7 @@ def _rank_sharded_stream(rank, world, port, args, queue) -> None:
         queue.put((rank, -1, traceback.format_exc()))
 
 
-def phase_sharded_stream(tmp, card, device="cuda") -> None:
+def phase_sharded_stream(tmp, card, device="cuda") -> dict:
     """[sharded_stream] (the module docstring's phase 22): (a) config 5
     through the CLI, (b) and (d) through the functions, (c) the streamed
     fuzzy CLI. Raises on any failed check. `device` other than the card
@@ -2466,6 +2586,7 @@ def phase_sharded_stream(tmp, card, device="cuda") -> None:
     summaries = [f[3] for f in fits]
     require(all(s == summaries[0] for s in summaries),
             f"{name}: the ranks' (n_iter, sse) differ: {summaries}")
+    config5 = (summaries, fits, seen)  # [sharded_residency]'s reference
     x, _ = make_blobs(CONFIG5_SEED + 1, CONFIG5_N, SORTED_D, SORTED_K,
                       device=device, dtype=torch.bfloat16)
     xh = x.cpu()
@@ -2582,6 +2703,166 @@ def phase_sharded_stream(tmp, card, device="cuda") -> None:
           f"{seen}", flush=True)
     del mem, two
     print(f"[sharded_stream] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(config5=config5, ranks=ranks)
+
+
+def phase_sharded_residency(tmp, card, refs, device="cuda") -> None:
+    """[sharded_residency] (the module docstring's phase 23): config 5's
+    CLI with --residency=hbm against [sharded_stream] (a)'s stream run
+    (`refs`, with the K-Means 'spill' and 'auto' and the fuzzy 'hbm'
+    twins that [sharded_stream]'s rank job ran). Raises on any failed
+    check; `device` as phase_sharded_stream's."""
+    t_phase = time.perf_counter()
+    name = "config5_hbm"
+    summaries, fits, seen_stream = refs["config5"]
+    row, seen, got = run_ranks(CONFIG5_HBM_ARGS, tmp, name, staged=True)
+    n_iter = int(row["n_iter"])
+    for rank, (per_rank, fit) in enumerate(zip(seen, got)):
+        require(per_rank == seen_stream[rank],
+                f"{name}, rank {rank}: launches {per_rank}, under 'stream' "
+                f"{seen_stream[rank]}")
+        require(fit[3] == summaries[rank],
+                f"{name}, rank {rank}: (n_iter, sse) {fit[3]}, under "
+                f"'stream' {summaries[rank]}")
+        # Each fit stages the init's first batch and its first pass
+        # (this rank's rows of every batch: all of them on a (1, 2)
+        # grid), nothing after; every later pass runs over the cache.
+        once = (-(-CONFIG5_N // CONFIG5_BATCHES) + CONFIG5_N) * SORTED_D * 2
+        staged, kinds = fit[5], fit[6]
+        want = (["fill"] + ["cached"] * CONFIG5_ITERS) * 2
+        require(staged == 2 * once and kinds == want,
+                f"{name}, rank {rank}: {staged} bytes staged (the first "
+                f"passes: {2 * once}), passes {kinds}")
+    require(np.array_equal(got[0][0], fits[0][0]),
+            f"{name}: centroids differ from the stream run's by "
+            f"{np.abs(got[0][0] - fits[0][0]).max()}")
+    print(f"[sharded_residency] (a) config 5 --residency=hbm (N={CONFIG5_N} "
+          f"K={SORTED_K} d={SORTED_D} bf16, {CONFIG5_BATCHES} batches, "
+          f"{n_iter} iterations) on a (1, {RANKS}) grid: computation time "
+          f"{row['computation_time']} s, "
+          f"{float(row['points_per_sec_per_chip']):.1f} pt·iter/s per chip; "
+          f"bitwise the stream run (centroids, n_iter, sse "
+          f"{got[0][3][1]!r}); {got[0][5]} bytes staged in 2 fits, none "
+          f"after each first pass; launches {seen}; {card}", flush=True)
+    for rank, r in enumerate(refs["ranks"]):
+        pp_launches = SS_BATCHES * (SS_ITERS + 1)
+        for mode in ("spill", "auto"):
+            got_m = r["residency", mode]
+            require(got_m["same"], f"sharded_residency ({mode}), rank "
+                                   f"{rank}: not the stream fit's bits")
+            require_launches(f"sharded_residency ({mode}), rank {rank}",
+                             got_m["launches"], B2=pp_launches,
+                             B3=pp_launches)
+        require(r["residency", "auto"]["passes"]
+                == ["fill"] + ["cached"] * SS_ITERS,
+                f"sharded_residency (auto), rank {rank}: passes "
+                f"{r['residency', 'auto']['passes']}, not the cache's")
+        fz = r["fuzzy_residency", "hbm"]
+        want = SS_BATCHES * 3
+        require(fz["same"], f"sharded_residency (fuzzy hbm), rank {rank}: "
+                            "not the stream fit's bits")
+        require(fz["passes"] == ["fill", "cached", "cached"],
+                f"sharded_residency (fuzzy hbm), rank {rank}: passes "
+                f"{fz['passes']}")
+        for mode in ("stream", "hbm"):
+            require_launches(
+                f"sharded_residency (fuzzy {mode}), rank {rank}",
+                r["fuzzy_residency", mode]["launches"], B7=want, B8=want)
+    r = refs["ranks"][0]
+    print(f"[sharded_residency] (b) N={SORTED_N} K={SORTED_K} d={SORTED_D} "
+          f"f32, {SS_BATCHES} batches, per_pass, {SS_ITERS} iterations: "
+          f"spill {r['residency', 'spill']['seconds']:.6f} s (h2d "
+          f"{r['residency', 'spill']['h2d']}), auto "
+          f"{r['residency', 'auto']['seconds']:.6f} s (the cache), stream "
+          f"{r['per_pass_s']:.6f} s, each bitwise; fuzzy m=2, 2 iterations: "
+          f"hbm {r['fuzzy_residency', 'hbm']['seconds']:.6f} s against "
+          f"stream {r['fuzzy_residency', 'stream']['seconds']:.6f} s, "
+          f"bitwise; launches {r['residency', 'spill']['launches']}, "
+          f"{r['fuzzy_residency', 'hbm']['launches']}", flush=True)
+    print(f"[sharded_residency] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def _rel_diff(a, b) -> float:
+    """max |a − b| over the largest |b|: the 1x1 grid's fit as the scale."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def phase_sharded_gmm(tmp, card, device="cuda") -> None:
+    """[sharded_gmm] (the module docstring's phase 24): the K-sharded diag
+    GMM tower through the CLI on a (1, 2) grid, in memory and on
+    SS_BATCHES batches, each against the same tower in this process on a
+    1x1 grid from the same init, and the streamed fit's trajectory
+    against the in-memory one's. No kernel launches. Raises on any
+    failed check; `device` as phase_sharded_stream's."""
+    t_phase = time.perf_counter()
+    n, k, d = SORTED_N, SORTED_K, SORTED_D
+    runs = {"mem": SHARD_GMM_ARGS,
+            "streamed": [*SHARD_GMM_ARGS, f"--num_batches={SS_BATCHES}"]}
+    cli_fits = {}
+    for key, args in runs.items():
+        name = f"sharded_gmm_{key}"
+        row, seen, fits = run_ranks(args, tmp, name)
+        n_iter = int(row["n_iter"])
+        require(n_iter == SORTED_ITERS, f"{name} ran {n_iter} iterations")
+        for rank, per_rank in enumerate(seen):
+            require_launches(f"{name}, rank {rank}", per_rank)
+        summaries = [f[3] for f in fits]
+        require(all(sm == summaries[0] for sm in summaries)
+                and math.isfinite(summaries[0][1]),
+                f"{name}: the ranks' (n_iter, ll) differ or are not "
+                f"finite: {summaries}")
+        cli_fits[key] = (row, fits[0])
+    # The same tower on a 1x1 grid, in this process, in memory: both CLI
+    # fits follow its trajectory; the streamed fit's log-likelihood is
+    # its scoring pass at the returned parameters, here one more E-step.
+    x, _ = make_blobs(1, n, d, k, device=device)
+    mesh = make_mesh_2d(1, 1)
+    one, one_s = _synced_s(lambda: sk.gmm_fit_sharded(
+        x, k, mesh, init="random", max_iters=SORTED_ITERS, tol=-1,
+        block_rows=GMM_BLOCK, device=device,
+        generator=torch.Generator(device=device).manual_seed(0)))
+    scored = sk.make_sharded_gmm_stats(mesh, GMM_BLOCK)(
+        x, one.means, one.variances, one.weights)
+    ll_ref = {"mem": float(one.log_likelihood),
+              "streamed": float(scored.ll / n)}
+    del x, scored
+    errs = {}
+    for key in runs:
+        row, (means, _, _, summary, (var, w)) = cli_fits[key]
+        errs[key] = [_rel_diff(a, b.cpu()) for a, b in (
+            (means, one.means), (var, one.variances), (w, one.weights))]
+        ll = summary[1]
+        rel = abs(ll - ll_ref[key]) / abs(ll_ref[key])
+        require(one.n_iter == summary[0] and max(errs[key]) <= GMM_REL_TOL
+                and rel <= REL_TOL,
+                f"sharded_gmm_{key}: n_iter {summary[0]} vs {one.n_iter} on "
+                f"a 1x1 grid, (means, variances, weights) off by {errs[key]}"
+                f" of their largest magnitude, ll {ll!r} vs "
+                f"{ll_ref[key]!r}")
+        errs[key].append(rel)
+    # The streamed fit seeds from the same 65,536 rows: the same
+    # trajectory as the in-memory fit.
+    traj = [_rel_diff(a, b) for a, b in zip(
+        (cli_fits["streamed"][1][0], *cli_fits["streamed"][1][4]),
+        (cli_fits["mem"][1][0], *cli_fits["mem"][1][4]))]
+    require(max(traj) <= GMM_REL_TOL,
+            f"sharded_gmm: the streamed fit is {traj} from the in-memory "
+            "fit's (means, variances, weights)")
+    for key in runs:
+        row = cli_fits[key][0]
+        print(f"[sharded_gmm] {key}: N={n} K={k} d={d} diag on a (1, "
+              f"{RANKS}) grid, {SORTED_ITERS} iterations: computation time "
+              f"{row['computation_time']} s, "
+              f"{float(row['points_per_sec_per_chip']):.1f} pt·iter/s per "
+              f"chip, ll {row['sse']}; against the 1x1 grid in memory "
+              f"({one_s:.6f} s): (means, "
+              f"variances, weights, ll) rel {errs[key]}; no kernel "
+              f"launched; {card}", flush=True)
+    print(f"[sharded_gmm] streamed against in memory: (means, variances, "
+          f"weights) rel {traj}; phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 
@@ -3311,10 +3592,10 @@ class PassTimes:
     def __enter__(self):
         def timed(fn, cached):
             def wrapper(machine, params, *a, **kw):
-                torch.cuda.synchronize()
+                _sync()
                 t0 = time.perf_counter()
                 out = fn(machine, params, *a, **kw)
-                torch.cuda.synchronize()
+                _sync()
                 kind = ("cached" if cached else
                         "fill" if kw.get("fill") is not None else "stream")
                 self.passes.append((kind, time.perf_counter() - t0))
@@ -4257,7 +4538,7 @@ def phase_seeding(card, tmp, fused_row) -> dict:
     out["route_s"] = float(row["computation_time"])
     print(f"[seeding] the fused route's computation_time: "
           f"{row['computation_time']} s seeded by k-means‖ against "
-          f"{fused_row['computation_time']} s by k-means++ (sse "
+          f"{fused_row['computation_time']} s from random seeds (sse "
           f"{row['sse']} vs {fused_row['sse']}); k-means‖ alone "
           f"{out['kmeans||']:.6f} s, k-means++ alone "
           f"{out['kmeans++']:.6f} s; {card}", flush=True)
@@ -4509,6 +4790,7 @@ def main() -> int:
 
     kl = _build.load()
     print(f"[build] {kl.build_seconds:.1f} s -> {kl.path.name}", flush=True)
+    lap("build")
     for source, kernel, regs, spills in ptxas_table(kl.log):
         print(f"[build] {source} {kernel}: {regs} registers, spill stores/"
               f"loads {spills} bytes")
@@ -4532,6 +4814,7 @@ def main() -> int:
     phase_ties(gen)
     phase_bf16_ties(gen)
     phase_tall_ties(gen)
+    lap("kernels against their plain versions")
 
     with tempfile.TemporaryDirectory() as tmp:
         row, seen = run_cli(MAIN_ARGS, tmp, "fused_route")
@@ -4549,6 +4832,7 @@ def main() -> int:
         numbers["B2"]["launches"] = seen["B2"]
         numbers["B3"]["launches"] = seen["B3"]
         numbers["B12"]["launches"] = phase_fused_gather_step()
+        lap("fused and sorted routes")
 
         # The fuzzy route: its row's sse column holds the objective J_m.
         # Seeding (k-means++) runs no kernel.
@@ -4639,6 +4923,7 @@ def main() -> int:
                 f"tall_fm_file_route: row {row}")
         require_launches("tall_fm_file_route", seen, B10=2 * (n_iter + 1))
         os.remove(fm)
+        lap("fuzzy, weighted, GMM, bf16 and tall routes")
 
         # The multi-GPU routes: two ranks on the one card. First the
         # K-sharded fuzzy route, B7 and B8 on each rank's K-shard; then
@@ -4671,7 +4956,11 @@ def main() -> int:
               f"{float(one.objective):.8g} (rel {rel:.3g})", flush=True)
         del x, init, one
         phase_sharded_kmeans()
-        phase_sharded_stream(tmp, card)
+        refs = phase_sharded_stream(tmp, card)
+        phase_sharded_residency(tmp, card, refs)
+        del refs
+        phase_sharded_gmm(tmp, card)
+        lap("sharded towers")
         # The data-parallel fused route: B1 on each rank's half of the
         # rows, against the one-GPU fused route's row.
         row, seen, _ = run_ranks(DP_ARGS, tmp, "dp_fused_route")
@@ -4691,15 +4980,18 @@ def main() -> int:
         # The streamed routes (--num_batches), the mini-batch route and the
         # OOM-adaptive retry.
         phase_streams(tmp)
+        lap("streamed phases")
 
         # The rest of data parallel: the GMM and relocation on a mesh,
         # the quantized per-pass reduces, the hierarchical mesh.
         phase_dp_rest(tmp, card)
+        lap("rest of data parallel")
 
         # The model zoo: seeding, bisecting, the estimators.
         phase_seeding(card, tmp, fused_row)
         phase_bisecting(tmp, card)
         phase_estimators(tmp, card)
+        lap("model zoo")
 
     phase_one_rank_nccl(gen)
 
@@ -4885,6 +5177,7 @@ def main() -> int:
             **({"bound_f32_ms": m["bound_f32_ms"], "bound_form": "3xTF32"}
                if "bound_f32_ms" in m else {}),
         })
+    lap("whole-fit parity")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -97,11 +97,16 @@ the streamed K-sharded tower (`parallel.sharded_k.
 streamed_kmeans_fit_sharded`; in memory that is one batch; --kernel=pallas:
 B2 + B3 on each shard), distributedFuzzyCMeans the in-memory tower
 (`fuzzy_fit_sharded`, B7 + B8), or the streamed one with --num_batches,
---streamed or --ckpt_dir. --block_rows is the rows of a block on
+--streamed or --ckpt_dir, and gaussianMixture (diag) the in-memory
+tower (`gmm_fit_sharded`, plain products: no kernel) or, with
+--num_batches, --streamed or --ckpt_dir, the streamed one
+(`streamed_gmm_fit_sharded`). --block_rows is the rows of a block on
 'xla' (-1: sized from the card's memory, 0: none); --reduce=per_pass,
---ckpt_dir, --ckpt_every_batches and --data_manifest apply as in the 1-D
-streamed fits, and the OOM-adaptive retry doubles the batches of the
-streamed tower. E.g. `torchrun --nproc_per_node=2 -m
+--ckpt_dir, --ckpt_every_batches, --residency (each rank caches its data
+coordinate's rows: the cache is replicated across the model axis) and
+--data_manifest apply as in the 1-D streamed fits of kmeans and fuzzy,
+and the OOM-adaptive retry doubles the batches of the streamed tower.
+E.g. `torchrun --nproc_per_node=2 -m
 tdc_tpu_torch.cli.main --method_name=distributedKMeans --shard_k=2
 --n_GPUs=2 --n_obs=2000000 --n_dim=768 --K=16384 --num_batches=4
 --dtype=bfloat16 --kernel=pallas`. Every rank builds the same points;
@@ -188,6 +193,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "device's budget, spill when only "
                         "a slot ring fits, and falls back to streaming "
                         "(loudly) when neither does")
+    p.add_argument("--gather", type=str, default="fp32",
+                   choices=("fp32", "fp32_sharded", "bf16", "int8"),
+                   help="model-axis collective strategy of the K-sharded "
+                        "kmeans/fuzzy towers: 'fp32' only (the others, "
+                        "parallel/gather.py, are not ported: they raise)")
     p.add_argument("--native_loader", action="store_true",
                    help="stream batches through the C++ prefetch loader "
                         "(requires --data_file pointing at an .npy)")
@@ -448,8 +458,9 @@ def _validate_devices(parser, args) -> None:
     if n is not None and n < 1:
         parser.error("--n_GPUs must be >= 1")
     if (args.method_name == "gaussianMixture" and args.kernel == "pallas"
-            and n is not None and n > 1):
-        # The JAX CLI's parse-time check (the launch is checked after).
+            and n is not None and n > 1 and args.shard_k <= 1):
+        # The JAX CLI's parse-time check (the launch is checked after;
+        # --shard_k has its own words below).
         parser.error("--kernel=pallas gaussianMixture is single-device")
     if n is not None and n > 1 and world == 1:
         parser.error(
@@ -481,15 +492,35 @@ def _validate_devices(parser, args) -> None:
         if args.K % args.shard_k != 0:
             parser.error(f"--K={args.K} not divisible by "
                          f"--shard_k={args.shard_k}")
-        if args.method_name not in ("distributedKMeans",
-                                    "distributedFuzzyCMeans"):
-            parser.error(f"--shard_k with {args.method_name} is not ported "
-                         "yet (ROADMAP.md Queue A, A9: the K-sharded GMM "
-                         "tower; the port shards K for distributedKMeans "
-                         "and distributedFuzzyCMeans)")
+        if args.method_name == "gaussianMixture":
+            # The JAX CLI's words: the GMM shard tower is plain products,
+            # seeded from a host subsample, with no history.
+            if args.kernel == "pallas":
+                parser.error("--shard_k --kernel=pallas is kmeans/fuzzy "
+                             "only (the GMM shard tower is an XLA matmul "
+                             "step)")
+            if args.history_file:
+                parser.error("--shard_k --history_file is kmeans/fuzzy "
+                             "only (the GMM shard tower records no "
+                             "per-iteration history)")
+            if args.init == "kmeans":
+                parser.error("--shard_k gaussianMixture seeds from a host "
+                             "subsample; --init=kmeans (a full K-Means "
+                             "pre-fit) is the unsharded mode")
         if args.weight_file:
             parser.error("--weight_file is not supported with "
                          "--minibatch/--mean_combine/--shard_k")
+    if args.gather != "fp32":
+        if args.shard_k <= 1:
+            parser.error("--gather applies to the K-sharded drivers "
+                         "(model-axis collectives only exist there); add "
+                         "--shard_k")
+        if args.method_name == "gaussianMixture":
+            parser.error("--gather is kmeans/fuzzy only (the GMM shard "
+                         "tower keeps the replicated M-step)")
+    if (args.shard_k > 1 and args.method_name == "gaussianMixture"
+            and args.covariance_type != "diag"):
+        parser.error("--shard_k gaussianMixture is diag-covariance only")
     if args.kernel == "pallas_bf16" and n > 1:
         parser.error("--kernel=pallas_bf16 is single-device (no "
                      "shard_map tower; cast inputs to bf16 with "
@@ -692,11 +723,6 @@ def run_experiment(args) -> dict:
                 "--kernel=pallas gaussianMixture is single-device "
                 f"(resolved n_devices={n_devices}); pass --n_GPUs=1")
         mesh = mesh2d = None
-        if args.shard_k > 1 and args.residency != "stream":
-            raise NotImplementedError(
-                f"--residency={args.residency} with --shard_k runs the "
-                "K-sharded towers' residency, which is not ported to "
-                "tdc_tpu_torch yet (ROADMAP.md Queue A, A9)")
         if args.shard_k > 1:
             if n_devices % args.shard_k != 0:
                 raise ValueError(f"n_devices={n_devices} not divisible by "
@@ -806,7 +832,8 @@ def run_experiment(args) -> dict:
         xx = state["x"]
         return 2 if getattr(xx, "dtype", None) == torch.bfloat16 else 4
 
-    def residency_rows(rows: int, itemsize: int) -> int:
+    def residency_rows(rows: int, itemsize: int,
+                       n_cache_devices: int | None = None) -> int:
         """The batch rows under --residency=auto|hbm: a cache that holds
         the whole dataset for the fit leaves the batches' working set only
         the rest of the budget, so rows above what the rest holds are
@@ -817,7 +844,10 @@ def run_experiment(args) -> dict:
         cap where they do not fit (the plan then streams, or forces the
         cache and abandons it loudly), nor under 'spill' (its ring holds
         (slots + 1) batches, not the dataset). The cache bytes here are
-        unpadded: the planner, which sees the padded batches, decides."""
+        unpadded: the planner, which sees the padded batches, decides.
+        `n_cache_devices` is how many ways the cache divides: the
+        K-sharded towers' is replicated across the model axis, so they
+        pass the data axis, n_devices // shard_k."""
         if args.residency in ("stream", "spill"):
             return rows
         from tdc_tpu_torch.data.batching import (
@@ -827,7 +857,8 @@ def run_experiment(args) -> dict:
         from tdc_tpu_torch.data.device_cache import state_reserve_bytes
         from tdc_tpu_torch.utils.structlog import emit
 
-        pinned = (-(-n_obs * n_dim * itemsize // max(n_devices, 1))
+        pinned = (-(-n_obs * n_dim * itemsize
+                    // max(n_cache_devices or n_devices, 1))
                   + state_reserve_bytes(args.K, n_dim))
         budget = planner_budget_bytes(dev)
         if pinned >= budget:
@@ -878,7 +909,7 @@ def run_experiment(args) -> dict:
         bisecting = args.method_name == "bisectingKMeans"
         if args.reduce != "per_batch" and (
                 not streamed or args.mean_combine or args.minibatch
-                or bisecting):
+                or bisecting or (mesh2d is not None and gmm)):
             # Fail fast instead of silently ignoring the knob (the JAX
             # CLI's words).
             raise SystemExit(
@@ -1028,18 +1059,42 @@ def run_experiment(args) -> dict:
 
     def sharded_fit(num_batches: int, streamed: bool, gen, ingest):
         """--shard_k (the JAX CLI's routes): distributedKMeans always
-        streams (in memory: one batch); distributedFuzzyCMeans streams
-        with --num_batches, --streamed or --ckpt_dir, else runs the
-        in-memory tower. The points stay on the host for a streamed fit
-        (an out-of-memory retry's too), cast to bf16 batch by batch under
-        --dtype bfloat16."""
+        streams (in memory: one batch); distributedFuzzyCMeans and
+        gaussianMixture stream with --num_batches, --streamed or
+        --ckpt_dir, else run the in-memory tower. The points stay on the
+        host for a streamed fit (an out-of-memory retry's too), cast to
+        bf16 batch by batch under --dtype bfloat16. Under --residency
+        hbm|auto the batch rows are capped as the cache, replicated
+        across the model axis, leaves room (`residency_rows`)."""
+        from tdc_tpu_torch.models.kmeans import _not_ported
         from tdc_tpu_torch.parallel.sharded_k import (
             fuzzy_fit_sharded,
+            gmm_fit_sharded,
             streamed_fuzzy_fit_sharded,
+            streamed_gmm_fit_sharded,
             streamed_kmeans_fit_sharded,
         )
 
+        if args.gather != "fp32":
+            raise _not_ported(f"--gather={args.gather}",
+                              "Queue A, A9: parallel/gather.py")
         kernel = args.kernel or "xla"
+        shard_dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
+        if gmm:
+            common = dict(init=args.init, generator=gen,
+                          max_iters=args.n_max_iters, tol=args.tol,
+                          dtype=shard_dtype, device=dev)
+            if streamed:
+                rows = -(-n_obs // num_batches)
+                stream = NpzStream(host_points(), rows)
+                state["stream"] = stream
+                return streamed_gmm_fit_sharded(
+                    stream, args.K, n_dim, mesh2d,
+                    block_rows=shard_block(rows), prefetch=args.prefetch,
+                    ckpt_dir=args.ckpt_dir, **common)
+            state["stream"] = None
+            return gmm_fit_sharded(device_points(), args.K, mesh2d,
+                                   block_rows=shard_block(n_obs), **common)
         if fuzzy and not streamed:
             state["stream"] = None
             return fuzzy_fit_sharded(
@@ -1048,13 +1103,15 @@ def run_experiment(args) -> dict:
                 tol=args.tol, block_rows=shard_block(n_obs), kernel=kernel,
                 device=dev)
         rows = (manifest.batch_rows if manifest is not None
-                else -(-n_obs // num_batches))
+                else residency_rows(-(-n_obs // num_batches),
+                                    2 if bf16 else 4,
+                                    n_cache_devices=n_devices // args.shard_k))
         stream = make_stream(rows)
         state["stream"] = stream
         common = dict(
             init=args.init, generator=gen, max_iters=args.n_max_iters,
             tol=args.tol, kernel=kernel, block_rows=shard_block(rows),
-            dtype=torch.bfloat16 if args.dtype == "bfloat16" else None,
+            dtype=shard_dtype,
             prefetch=args.prefetch, ckpt_dir=args.ckpt_dir,
             ckpt_every_batches=args.ckpt_every_batches, reduce=args.reduce,
             residency=args.residency, ingest=ingest, device=dev)

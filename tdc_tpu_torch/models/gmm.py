@@ -36,7 +36,8 @@ of the start and the tied type's Σxxᵀ are summed over the data axes in
 one all_reduce each; the M-step (and its Cholesky factors) then runs
 alike on every rank. The mesh E-step is the torch one: kernel='pallas'
 with a mesh raises, as the JAX version refuses its Pallas E-step there.
-The K-sharded fit (A9) has no entry point in the port yet.
+The K-sharded diag fits, in memory and streamed, are
+`parallel/sharded_k.gmm_fit_sharded` and `streamed_gmm_fit_sharded`.
 
 `streamed_gmm_fit` is the exact out-of-core EM (counterpart:
 `streamed_gmm_fit`, `_batch_gmm_stats[_weighted]`,
@@ -179,14 +180,17 @@ def gmm_stats_auto(x, means, variances, weights):
     return gmm_stats_for(*means.shape)(x, means, variances, weights)
 
 
-def _m_step(nk, sx, sxx, n_rows, reg):
+def _m_step(nk, sx, sxx, n_rows, reg, total=None):
     """Diag M-step: means, variances clamped at 0 plus reg_covar, and the
-    renormalised weights."""
+    renormalised weights. `total(w)` sums the weights over every
+    component (default: w.sum(); a K-sharded fit holds K/P of them on a
+    rank and sums over the model axis)."""
     safe = torch.clamp_min(nk, 1e-12)[:, None]
     means = sx / safe
     variances = torch.clamp_min(sxx / safe - means * means, 0.0) + reg
     weights = torch.clamp_min(nk / n_rows, 1e-12)
-    return means, variances, weights / weights.sum()
+    return means, variances, weights / (weights.sum() if total is None
+                                        else total(weights))
 
 
 def _m_step_t(nk, sx, second, wsum, reg, cov_type: str):

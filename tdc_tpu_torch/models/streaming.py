@@ -709,17 +709,16 @@ class _Pass:
 
     def agreed(self, cache, label: str):
         """`cache` if every rank of a gang filled one, else None on every
-        rank (one collective): the ranks must all run over their caches or
-        all stream, or their collectives part ways."""
-        if not self.multi:
+        rank (one collective over every axis: a K-sharded grid's model
+        ranks too): the ranks must all run over their caches or all
+        stream, or their collectives part ways."""
+        if not self.gang:
             return cache
         import torch.distributed as dist
 
-        from tdc_tpu_torch.parallel.mesh import data_axes
-
         flag = torch.tensor([int(cache is not None)], dtype=torch.int32,
                             device=self.device)
-        self.mesh.psum(flag, *data_axes(self.mesh), op=dist.ReduceOp.MIN)
+        self.mesh.psum(flag, *self.mesh.axis_names, op=dist.ReduceOp.MIN)
         if int(flag.item()) == 0 and cache is not None:
             emit("residency_cache_abandoned", label=label,
                  reason="abandoned_on_another_rank")

@@ -1,15 +1,18 @@
-"""The K-sharded towers: K-Means and Fuzzy C-Means, in memory and
-streamed (counterpart: tdc_tpu/parallel/sharded_k.py, the `make_mesh_2d`,
-`_block_champions`, `_block_stats`, `make_sharded_stats`, `sum_sq`,
+"""The K-sharded towers: K-Means, Fuzzy C-Means and the diag Gaussian
+Mixture, in memory and streamed (counterpart:
+tdc_tpu/parallel/sharded_k.py, the `make_mesh_2d`, `_block_champions`,
+`_block_stats`, `make_sharded_stats`, `sum_sq`,
 `make_sharded_lloyd_step`, `sharded_assign`, `_device_loop`,
 `_resolve_init_sharded`, `kmeans_fit_sharded`, `_fuzzy_fit_fns`,
-`make_sharded_fuzzy_stats` and `fuzzy_fit_sharded` parts, and the
-streamed ones: `_ShardedAcc`, `make_sharded_deferred_reduce`,
+`make_sharded_fuzzy_stats`, `fuzzy_fit_sharded`, `_gmm_fit_fns`,
+`make_sharded_gmm_stats` and `gmm_fit_sharded` parts, and the streamed
+ones: `_ShardedAcc`, `make_sharded_deferred_reduce`,
 `make_sharded_deferred_accumulate`, `_GatheringCheckpointer` (with
 `_whole_centroids` for `_host_full`), `_make_put_batch` (the host cast
-of `_cast_points`), `_stream_kernel_itemsize`, `_sharded_stream_loop`,
-`streamed_kmeans_fit_sharded`, `_ShardedFuzzyAcc` and
-`streamed_fuzzy_fit_sharded`; one deferred reduce serves both towers).
+of `_cast_points`), `_stream_kernel_itemsize`, `_plan_sharded_residency`,
+`_sharded_stream_loop`, `streamed_kmeans_fit_sharded`,
+`_ShardedFuzzyAcc`, `streamed_fuzzy_fit_sharded`, `_ShardedGMMAcc` and
+`streamed_gmm_fit_sharded`; one deferred reduce serves every tower).
 
 A (data, model) grid of ranks: a rank's data coordinate picks its rows,
 its model coordinate its block of K/P contiguous centroids
@@ -37,13 +40,23 @@ a time. The stats are then summed over the data axis, the objective over
 both axes (after B8 clamps each shard's part at 0, as the JAX kernel
 does).
 
-The fuzzy tower splits rows np.array_split-wise, so a ragged N gives the
-ranks unequal rows and pads nothing: the JAX package's zero-row padding
-and its exact correction (`_pad_rows_sharded`, `_fuzzy_pad_correction`)
-have nothing to correct here. The K-Means tower refuses a ragged N, as
-the JAX one does. The loops run on the host, reading the shift once per
-iteration; the shift comes from the all-reduced stats, so every rank
-takes the same branch. Every rank returns the whole (K, d) centroids,
+Gaussian Mixture (diag): the quantity that crosses model shards per
+point is the log-normaliser, a logsumexp over every component: the
+row's maximum log-probability is all-reduced (MAX) over the model axis,
+then Σ exp(logp − max) (SUM). Each shard then forms its components'
+responsibilities and sums Σr, Σr·x and Σr·x² over the data axis; the
+M-step is the 1-D fits' (`models/gmm._m_step`), the weights normalised
+over every shard. The E-step is plain f32 products, as the JAX tower's
+XLA step: no kernel runs on this tower.
+
+The fuzzy and GMM towers split rows np.array_split-wise, so a ragged N
+gives the ranks unequal rows and pads nothing: the JAX package's
+zero-row padding and its exact corrections (`_pad_rows_sharded`,
+`_fuzzy_pad_correction`, `_gmm_pad_correction`) have nothing to correct
+here. The K-Means tower refuses a ragged N, as the JAX one does. The
+loops run on the host, reading the shift (the GMM's log-likelihood) once
+per iteration; it comes from the all-reduced stats, so every rank takes
+the same branch. Every rank returns the whole (K, d) centroids,
 assembled by an all_reduce of a zero (K, d) buffer in which each model
 shard fills its own rows. The collectives are all_reduce and broadcast
 only, which gloo takes on CUDA tensors.
@@ -53,7 +66,8 @@ fits apply where a rank's slice of a batch is padded
 (`models/streaming.py`).
 
 The streamed towers (`streamed_kmeans_fit_sharded`,
-`streamed_fuzzy_fit_sharded`) run on the 1-D streamed fits' machinery
+`streamed_fuzzy_fit_sharded`, `streamed_gmm_fit_sharded`) run on the
+1-D streamed fits' machinery
 (`models/streaming._Pass` and `_fit_loop`: the ingest guard, the
 heartbeat, the SIGTERM drain, mid-pass checkpoints): each rank copies its
 data coordinate's rows of every batch, unpadded, so the JAX towers'
@@ -64,17 +78,29 @@ axis per batch ('per_batch') or once a pass ('per_pass', the add in
 place). A checkpoint holds the whole (K, d) state: the ranks of rank 0's
 model row gather their shards before rank 0 writes
 (`_GatheringCheckpointer`), and a restore slices each rank's rows out,
-so a save on one (data, model) split resumes on another.
+so a save on one (data, model) split resumes on another. The GMM tower
+is not guarded and saves per iteration in the JAX package's
+`gmm_sharded` meta, gathered the same way (`_GMMCheckpoints`), and
+refuses a restore on another model axis, as the JAX tower does.
 
-Not ported: the GMM tower, the K-sharded residency, the compressed
-gathers (`parallel/gather.py`), the mesh spec and the supervisor
-(ROADMAP.md Queue A, A9), coarse and bounded assignment (A10).
+Residency (`residency=` of the streamed K-Means and fuzzy towers, the
+1-D fits' modes): every rank streams the same batches and keeps its
+data coordinate's rows, so a rank's cache (or spill ring) holds those
+rows, the same on every rank of a model row: the cache is replicated
+across the model axis (`_plan_sharded_residency` budgets N / n_data rows
+a rank). Iterations 2..N run over it; every rank of the gang must have
+filled its cache, or all stream.
+
+Not ported: the compressed gathers (`parallel/gather.py`), the mesh
+spec and the supervisor (ROADMAP.md Queue A, A9), coarse and bounded
+assignment (A10).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tdc_tpu_torch.models.fuzzy import FuzzyCMeansResult
@@ -566,6 +592,222 @@ def fuzzy_fit_sharded(
 
 
 # ---------------------------------------------------------------------------
+# The Gaussian Mixture tower
+# ---------------------------------------------------------------------------
+
+
+class _ShardedGMMAcc(NamedTuple):
+    """The diag E-step's sums on one rank: the log-likelihood over its
+    rows (the same on every model shard: the normaliser is global), and
+    Σr (K/P,), Σr·x and Σr·x² (K/P, d) of its model shard."""
+
+    ll: torch.Tensor
+    nk: torch.Tensor
+    sx: torch.Tensor
+    sxx: torch.Tensor
+
+
+def _gmm_partials(mesh: Mesh, x_loc, means_loc, var_loc, w_loc,
+                  block_rows: int, ragged: bool = False) -> _ShardedGMMAcc:
+    """The E-step sums of this rank's rows and model shard, summed over
+    the blocks (`_row_blocks`), not over the data axis. Each block's rows
+    go to f32; logp is the JAX package's expanded form, xsq @ inv.T −
+    2·x @ (μ·inv).T + Σμ²·inv; the row's log-normaliser is a logsumexp
+    across the model axis: an all_reduce MAX of the (b, 1) maxima, then a
+    SUM of Σ exp(logp − max)."""
+    import torch.distributed as dist
+
+    from tdc_tpu_torch.models.gmm import _LOG_2PI
+
+    k_per, d = means_loc.shape
+    inv = 1.0 / var_loc
+    log_det = torch.log(var_loc).sum(dim=1)
+    log_w = torch.log(w_loc)
+    mu_inv = means_loc * inv
+    bias = (means_loc * means_loc * inv).sum(dim=1)
+    dev = x_loc.device
+    acc = _ShardedGMMAcc(
+        torch.zeros((), dtype=torch.float32, device=dev),
+        torch.zeros(k_per, dtype=torch.float32, device=dev),
+        torch.zeros((k_per, d), dtype=torch.float32, device=dev),
+        torch.zeros((k_per, d), dtype=torch.float32, device=dev))
+    for blk in _row_blocks(x_loc, block_rows, "xla", ragged):
+        xf = blk.float()
+        xsq = xf * xf
+        # In place, in the JAX order: (maha + log_det + d·log 2π)·(−½)
+        # + log w; one (b, K/P) buffer becomes logp, then r.
+        logp = xsq @ inv.T
+        logp.addmm_(xf, mu_inv.T, alpha=-2.0)
+        logp.add_(bias).add_(log_det).add_(d * _LOG_2PI).mul_(-0.5)
+        logp.add_(log_w)
+        mx = mesh.psum(logp.max(dim=1, keepdim=True).values, MODEL_AXIS,
+                       op=dist.ReduceOp.MAX)
+        e = (logp - mx).exp_()
+        se = mesh.psum(e.sum(dim=1, keepdim=True), MODEL_AXIS)
+        del e
+        norm = mx + torch.log(se)
+        r = logp.sub_(norm).exp_()
+        acc = _ShardedGMMAcc(acc.ll + norm.sum(), acc.nk + r.sum(dim=0),
+                             acc.sx + r.T @ xf, acc.sxx + r.T @ xsq)
+    return acc
+
+
+def make_sharded_gmm_stats(mesh: Mesh, block_rows: int = 0):
+    """fn(x_loc, means_loc, var_loc, w_loc) → (ll, nk, sx, sxx): the
+    K-sharded diag-GMM E-step of this rank's rows against its K/P
+    components, Σr, Σr·x and Σr·x² summed over the data axis, and ll,
+    the sum of every row's log-normaliser, the same on every rank (it
+    crosses the data axis only: the normaliser is global already). The
+    cross-shard quantity is the per-row logsumexp (`_gmm_partials`).
+    block_rows > 0 takes the rows that many at a time; they must be a
+    multiple of it, as in the JAX package. Plain large products, as the
+    JAX package's XLA matmuls: no kernel."""
+
+    def stats(x_loc, means_loc, var_loc, w_loc) -> _ShardedGMMAcc:
+        part = _gmm_partials(mesh, x_loc, means_loc, var_loc, w_loc,
+                             block_rows)
+        return reduce_lib.tree_all_reduce(part, mesh, (DATA_AXIS,))
+
+    return stats
+
+
+def _model_sum(mesh: Mesh):
+    """total(w) for `models/gmm._m_step`: Σ of every model shard's w."""
+    return lambda w: mesh.psum(w.sum().reshape(1), MODEL_AXIS)[0]
+
+
+def _refuse_gmm(label: str, k: int, n_model: int, init) -> None:
+    """The K-sharded GMM towers' refusals, in the JAX words."""
+    if k % n_model != 0:
+        raise ValueError(f"K={k} not divisible by model axis {n_model}")
+    if isinstance(init, str) and init == "kmeans":
+        if label == "gmm_fit_sharded":
+            raise ValueError(
+                "gmm_fit_sharded seeds from a host subsample "
+                "(_resolve_init_sharded); init='kmeans' (a full K-Means "
+                "pre-fit) is the unsharded gmm_fit's mode — pass "
+                "'kmeans++' or an array")
+        raise ValueError(
+            "streamed_gmm_fit_sharded seeds from a host subsample; "
+            "init='kmeans' (a full K-Means pre-fit) is the unsharded mode")
+
+
+def _gmm_start(sample, k: int, init, generator, mesh: Mesh, reg: float):
+    """(means, variances, weights), whole, the same bits on every rank:
+    the means are `init` (an array, or a name that rank 0 resolves on
+    `sample` and broadcasts), the variances and weights the hard
+    assignment's moments on `sample` (`models/gmm._moments_from_hard_
+    assign`), also rank 0's."""
+    from tdc_tpu_torch.models.gmm import _moments_from_hard_assign
+
+    if isinstance(init, str):
+        means = resolve_init_replicated(sample, k, init, generator, mesh)
+    else:
+        # A copy: the broadcast writes into it (an array init is the
+        # caller's own).
+        means = replicate(
+            _resolve_init_sharded(sample, k, init, generator).clone(), mesh)
+    means = means.to(torch.float32).clone()
+    if means.shape != (k, sample.shape[1]):
+        raise ValueError(
+            f"init means shape {tuple(means.shape)} != {(k, sample.shape[1])}"
+            " — either the rows don't match d, or an explicit init array "
+            "has the wrong feature width")
+    var, w = _moments_from_hard_assign(sample, means, reg)
+    return means, replicate(var.contiguous(), mesh), replicate(
+        w.contiguous(), mesh)
+
+
+def _model_rows(mesh: Mesh, *ts) -> list:
+    """This rank's K/P rows of each whole (K, ...) tensor."""
+    n_model = mesh.axis_size(MODEL_AXIS)
+    j = mesh.axis_index(MODEL_AXIS)
+    out = []
+    for t in ts:
+        k_per = t.shape[0] // n_model
+        out.append(t[j * k_per:(j + 1) * k_per].contiguous())
+    return out
+
+
+def gmm_fit_sharded(
+    x,
+    k: int,
+    mesh: Mesh,
+    *,
+    init="kmeans++",
+    generator: torch.Generator | None = None,
+    max_iters: int = 100,
+    tol: float = 1e-3,
+    reg_covar: float = 1e-6,
+    block_rows: int = 0,
+    dtype=None,
+    device=None,
+):
+    """Diag-covariance GMM EM with the rows sharded over 'data' and the
+    components over 'model' (`make_mesh_2d`). Every rank passes the same
+    x. The means come from `init` (an array, or a name resolved by rank 0
+    on the first ≤ 65,536 rows); the variances and weights from the hard
+    assignment to them on those rows. Each iteration is one E-step
+    (`make_sharded_gmm_stats`: the distributed logsumexp) and the shared
+    M-step (`models/gmm._m_step`, the weights normalised over every
+    shard). It stops at max_iters, or once i >= 2 and the mean
+    log-likelihood gain ll − prev_ll <= tol (compared in f32, as the JAX
+    loop compares on the device). dtype (torch.bfloat16) converts each
+    rank's rows; the E-step still runs in f32.
+
+    Each rank takes its np.array_split rows and pads nothing: the results
+    equal the JAX tower's zero-row-corrected ones (`_gmm_pad_correction`)
+    to f32 order. block_rows > 0 takes a rank's rows that many at a time
+    (the last block shorter). No kernel runs: the E-step is plain large
+    products, as the JAX tower's XLA step.
+
+    Returns a GMMResult with the whole (K, d) means and variances and
+    the (K,) weights on every rank; log_likelihood is the last E-step's
+    mean (before its M-step, as in the JAX package: no rescoring pass);
+    converged = n_iter >= 2 and the last gain <= tol."""
+    from tdc_tpu_torch.models.gmm import GMMResult, _m_step
+
+    n_model = mesh.axis_size(MODEL_AXIS)
+    _refuse_gmm("gmm_fit_sharded", k, n_model, init)
+    dev = resolve_device(device)
+    x = _as_points(x, dev)
+    n = x.shape[0]
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    means, var, w = _gmm_start(x[:min(n, 65536)].float(), k, init,
+                               generator, mesh, float(reg_covar))
+    x_loc = shard_points(x, mesh)
+    if dtype is not None:
+        x_loc = x_loc.to(dtype)
+    del x
+    means, var, w = _model_rows(mesh, means, var, w)
+    block_rows, total = int(block_rows), _model_sum(mesh)
+
+    def step(means, var, w):
+        part = _gmm_partials(mesh, x_loc, means, var, w, block_rows,
+                             ragged=True)
+        ll, nk, sx, sxx = reduce_lib.tree_all_reduce(part, mesh,
+                                                     (DATA_AXIS,))
+        return (ll / n, *_m_step(nk, sx, sxx, n, float(reg_covar), total))
+
+    tol32 = np.float32(tol)
+    prev_ll = ll = np.float32(-np.inf)
+    n_iter = 0
+    while n_iter < max_iters and (n_iter < 2 or ll - prev_ll > tol32):
+        step_ll, means, var, w = step(means, var, w)
+        prev_ll, ll = ll, np.float32(step_ll.item())
+        n_iter += 1
+    return GMMResult(
+        means=_whole_centroids(means, mesh),
+        variances=_whole_centroids(var, mesh),
+        weights=_whole_centroids(w, mesh), n_iter=n_iter,
+        log_likelihood=torch.tensor(float(ll), dtype=torch.float32,
+                                    device=dev),
+        converged=bool(n_iter >= 2 and float(ll) - float(prev_ll) <= tol),
+        covariance_type="diag")
+
+
+# ---------------------------------------------------------------------------
 # The streamed towers
 # ---------------------------------------------------------------------------
 
@@ -712,9 +954,6 @@ def _refuse_sharded(label: str, *, residency: str, gather: str,
     if assign != "exact" or probe is not None:
         raise _not_ported(f"{label}(assign={assign!r}, probe={probe!r})",
                           "Queue A, A10: ops/subk.py, ops/bounds.py")
-    if residency != "stream":
-        raise _not_ported(f"{label}(residency={residency!r})",
-                          "Queue A, A9: the K-sharded towers' residency")
 
 
 def _champion_booking(counter_of, mesh: Mesh, pad_multiple: int,
@@ -740,36 +979,90 @@ def _champion_booking(counter_of, mesh: Mesh, pad_multiple: int,
     return book
 
 
-def _sharded_machine(guard, *, d, k, mesh, dev, prefetch, strategy, shapes,
-                     local, dtype, block_rows, champions: bool):
-    """The `models/streaming._Pass` of a streamed K-sharded tower over the
-    guarded stream (`data/ingest.guard_stream`): this rank's rows
-    unpadded (`_make_put_batch`), the per-pass add in place and ONE
-    data-axis reduce, the comms booked at the logical (K, d) shapes on
-    the data axis and, with `champions` (K-Means), the champion exchange
-    on the model axis."""
-    from tdc_tpu_torch.models.streaming import _Pass
+def _plan_sharded_residency(residency, batches, k, d, mesh: Mesh, *,
+                            block_rows, kernel, dtype, cursor, label,
+                            mid_pass_ckpt, device):
+    """The residency planner of the streamed K-sharded towers (the JAX
+    package's `_plan_sharded_residency`): every rank streams the same
+    batches and keeps its data coordinate's rows, so the cache is
+    replicated across the model axis and the budget divides by the data
+    axis, not the world; the batches are budgeted at the JAX towers'
+    padding (n_data × block_rows) and at the kernels' itemsize (the host
+    cast's, else the stream's own). Returns (plan, cache builder or
+    None); 'stream' returns (None, None)."""
+    from tdc_tpu_torch.data import device_cache as cache_lib
+
+    if residency == "stream":
+        return None, None
+    n_data = mesh.axis_size(DATA_AXIS)
+    plan = cache_lib.plan_residency(
+        residency, hints=cache_lib.stream_hints(batches), d=d, k=k,
+        n_devices=n_data, pad_multiple=n_data * max(block_rows, 1),
+        itemsize=_stream_kernel_itemsize(batches, dtype), weighted=False,
+        kernel=kernel, cursor=cursor, mid_pass_ckpt=mid_pass_ckpt,
+        device=device, label=label)
+    builder = (cache_lib.DeviceCacheBuilder(plan.hints.n_batches,
+                                            label=label)
+               if plan.resident else None)
+    return plan, builder
+
+
+def _booked_as_taken(ring, book):
+    """The spill ring's staged batches, each booked (`book(rows)`) as the
+    pass takes it: the ring stages ahead, into the next pass too."""
+
+    def batches():
+        for sb in ring():
+            book(sb.n_local)
+            yield sb
+
+    return batches
+
+
+def _sharded_machine(stream, *, guard, d, k, mesh, dev, prefetch,
+                     strategy, shapes, local, dtype, block_rows,
+                     champions: bool, plan=None):
+    """The `models/streaming._Pass` of a streamed K-sharded tower over
+    `stream` (the guarded stream, `data/ingest.guard_stream`, or the
+    GMM tower's own): this rank's rows unpadded (`_make_put_batch`), the
+    per-pass add in place and ONE data-axis reduce, the comms booked at
+    the logical (K, d) shapes on the data axis and, with `champions`
+    (K-Means), the champion exchange on the model axis. On the spill
+    tier (`plan`) the pinned ring stages the same rows
+    (`data/spill.wrap_stream`). Returns (machine, the stream to release
+    after the fit, its H2DCounter or None)."""
+    from tdc_tpu_torch.data import spill as spill_lib
+    from tdc_tpu_torch.models.streaming import _Pass, _put_staged
 
     book = None
     if champions:
         book = _champion_booking(
             lambda: machine.counter, mesh,
             mesh.axis_size(DATA_AXIS) * max(block_rows, 1), block_rows)
+    put_batch = _make_put_batch(d, mesh, dtype)
+    ring, h2d = spill_lib.wrap_stream(
+        plan, stream, lambda batch, put: _put_staged(put_batch(batch), put),
+        device=dev)
+    if h2d is None:
+        batches, stage = stream, _make_put_batch(d, mesh, dtype, book)
+    else:
+        batches = ring if book is None else _booked_as_taken(ring, book)
+        stage, prefetch = put_batch, 0
     machine = _Pass(
-        guard, d=d, mesh=mesh, device=dev, prefetch=prefetch,
+        batches, d=d, mesh=mesh, device=dev, prefetch=prefetch,
         weighted=False, strategy=strategy, shapes=shapes,
-        local=local, correct=None, guard=guard,
-        stage=_make_put_batch(d, mesh, dtype, book),
+        local=local, correct=None, guard=guard, stage=stage,
         deferred_fns=(lambda: reduce_lib.zero_deferred(shapes, dev),
                       make_sharded_deferred_accumulate(local),
                       make_sharded_deferred_reduce(mesh)),
-        cost_shapes=type(shapes)(*((k, d), (k,), ())))
-    return machine
+        cost_shapes=type(shapes)(*(
+            (k, *s[1:]) if len(s) else s for s in shapes)))
+    return machine, ring, h2d
 
 
-def _sharded_stream_loop(machine, ckpt, state, c_loc, update, *, mesh,
-                         max_iters, tol, ckpt_every, ckpt_every_batches,
-                         cost):
+def _sharded_stream_loop(machine, ring, ckpt, state, c_loc, update, *,
+                         mesh, max_iters, tol, ckpt_every,
+                         ckpt_every_batches, cost, plan, builder, label):
     """The iteration driver of the streamed K-sharded towers, on the
     streamed fits' loop (`models/streaming._fit_loop`): resume from the
     restored state (the interrupted pass's cursor and accumulator
@@ -777,17 +1070,25 @@ def _sharded_stream_loop(machine, ckpt, state, c_loc, update, *, mesh,
     each batch's stats on this rank's rows and model shard), the update,
     the shift over every model shard read once an iteration when tol >=
     0 or checkpointing, the saves, the heartbeat and the SIGTERM drain
-    (exit 75; the gang's flags agree over both axes). One more pass
-    scores the returned centroids. Returns (c_loc, n_iter, start_iter,
-    shift, history, the final pass's accumulator)."""
+    (exit 75; the gang's flags agree over both axes). Under 'hbm'
+    (`plan`, `builder`) the first pass fills this rank's cache and
+    iterations 2..N run over it (`_Pass.run_cached`), once every rank of
+    the gang has one. One more pass scores the returned centroids; the
+    spill ring (`ring`) is released after it. Returns (c_loc, n_iter,
+    start_iter, shift, history, the final pass's accumulator)."""
+    from tdc_tpu_torch.data import spill as spill_lib
     from tdc_tpu_torch.models.streaming import _final_stats, _fit_loop
 
-    c_loc, n_iter, shift, history, start_iter, _ = _fit_loop(
-        machine, ckpt, state, c_loc, update, max_iters=max_iters, tol=tol,
-        ckpt_every=ckpt_every, ckpt_every_batches=ckpt_every_batches,
-        mass=None, cost=cost,
-        shift_fn=lambda new_c, c: _shard_shift(new_c, c, mesh))
-    final = _final_stats(machine, None, c_loc, ckpt.gang)
+    try:
+        c_loc, n_iter, shift, history, start_iter, cache = _fit_loop(
+            machine, ckpt, state, c_loc, update, max_iters=max_iters,
+            tol=tol, ckpt_every=ckpt_every,
+            ckpt_every_batches=ckpt_every_batches, mass=None, cost=cost,
+            plan=plan, builder=builder, label=label,
+            shift_fn=lambda new_c, c: _shard_shift(new_c, c, mesh))
+        final = _final_stats(machine, cache, c_loc, ckpt.gang)
+    finally:
+        spill_lib.release(ring)
     return c_loc, n_iter, start_iter, shift, history, final
 
 
@@ -880,15 +1181,22 @@ def streamed_kmeans_fit_sharded(
     manifest: a save on one (data, model) split restores on another) as
     the 1-D streamed fits. kernel: 'xla', 'pallas' or 'auto'.
 
+    residency: 'stream', 'hbm', 'spill' or 'auto', as the 1-D streamed
+    fits (`models/streaming.py`), planned by `_plan_sharded_residency`:
+    each rank caches (or stages through the pinned ring) its data
+    coordinate's rows, the same on every rank of a model row; every mode
+    gives the bits of 'stream' on every rank. A cached pass books its
+    data-axis reduces and, as the JAX tower, no champion exchange.
+
     Not ported, raising NotImplementedError that names ROADMAP.md Queue A:
     assign / probe other than exact (A10), gather other than 'fp32' (A9,
-    parallel/gather.py), residency other than 'stream' (A9, the K-sharded
-    towers' residency).
+    parallel/gather.py).
 
     Returns the whole (K, d) centroids on every rank, n_iter, the SSE at
     them (one more pass), shift, converged, the (n_iter, 2) [sse, shift]
     history, n_iter_run, `comms` (data-axis reduces and bytes, model-axis
-    champion exchanges and bytes) and the ingest report."""
+    champion exchanges and bytes), the spill ring's `h2d` report (None
+    off the spill tier) and the ingest report."""
     from tdc_tpu_torch.models.streaming import _history_array, _reduce_plan
     from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
 
@@ -926,23 +1234,31 @@ def streamed_kmeans_fit_sharded(
         return _ShardedAcc(sums, counts, sse + sum_sq(xb))
 
     k_per = k // n_model
-    machine = _sharded_machine(
-        guard, d=d, k=k, mesh=mesh, dev=dev, prefetch=prefetch,
-        strategy=strategy, shapes=_ShardedAcc((k_per, d), (k_per,), ()),
-        local=local, dtype=dtype, block_rows=block_rows, champions=True)
+    plan, builder = _plan_sharded_residency(
+        residency, batches, k, d, mesh, block_rows=block_rows,
+        kernel=kernel, dtype=dtype, cursor=state.cursor, label=label,
+        mid_pass_ckpt=ckpt_every_batches is not None, device=dev)
+    machine, ring, h2d = _sharded_machine(
+        guard, guard=guard, d=d, k=k, mesh=mesh, dev=dev,
+        prefetch=prefetch, strategy=strategy,
+        shapes=_ShardedAcc((k_per, d), (k_per,), ()), local=local,
+        dtype=dtype, block_rows=block_rows, champions=True, plan=plan)
     c_loc, n_iter, start_iter, shift, history, final = _sharded_stream_loop(
-        machine, ckpt, state, c_loc,
+        machine, ring, ckpt, state, c_loc,
         lambda acc, c: _lloyd_update(acc.sums, acc.counts, c, spherical),
         mesh=mesh, max_iters=max_iters, tol=tol, ckpt_every=ckpt_every,
         ckpt_every_batches=ckpt_every_batches,
-        cost=lambda acc: torch.clamp_min(acc.sse, 0.0))
+        cost=lambda acc: torch.clamp_min(acc.sse, 0.0), plan=plan,
+        builder=builder, label=label)
     return KMeansResult(
         centroids=_whole_centroids(c_loc, mesh), n_iter=n_iter,
         sse=torch.clamp_min(final.sse, 0.0),
         shift=torch.tensor(shift, dtype=torch.float32, device=dev),
         converged=bool(tol >= 0 and shift <= tol),
         history=_history_array(history), n_iter_run=n_iter - start_iter,
-        comms=machine.report(), ingest=guard.report())
+        comms=machine.report(),
+        h2d=None if h2d is None else h2d.report(plan.spill_slots),
+        ingest=guard.report())
 
 
 def streamed_fuzzy_fit_sharded(
@@ -976,9 +1292,10 @@ def streamed_fuzzy_fit_sharded(
     ops block_rows rows at a time on 'xla', 0: the blocks sized from the
     device's memory). s crosses the model axis every batch under
     'per_pass' too; J_m is summed over the model axis per batch, the
-    data axis with the stats. Returns the whole (K, d) centroids on every
-    rank, n_iter, the objective at them, shift, converged, the [objective,
-    shift] history, n_iter_run, comms and the ingest report."""
+    data axis with the stats; `residency` as the K-Means tower. Returns
+    the whole (K, d) centroids on every rank, n_iter, the objective at
+    them, shift, converged, the [objective, shift] history, n_iter_run,
+    comms, h2d and the ingest report."""
     from tdc_tpu_torch.models.streaming import _history_array, _reduce_plan
     from tdc_tpu_torch.ops.lloyd_kernels import resolve_kernel
 
@@ -1019,21 +1336,246 @@ def streamed_fuzzy_fit_sharded(
         return _ShardedFuzzyAcc(wsums, weights,
                                 mesh.psum(obj.reshape(1), MODEL_AXIS)[0])
 
-    machine = _sharded_machine(
-        guard, d=d, k=k, mesh=mesh, dev=dev, prefetch=prefetch,
-        strategy=strategy, shapes=_ShardedFuzzyAcc((k_per, d), (k_per,), ()),
-        local=local, dtype=dtype, block_rows=int(block_rows),
-        champions=False)
+    plan, builder = _plan_sharded_residency(
+        residency, batches, k, d, mesh, block_rows=int(block_rows),
+        kernel=kernel, dtype=dtype, cursor=state.cursor, label=label,
+        mid_pass_ckpt=ckpt_every_batches is not None, device=dev)
+    machine, ring, h2d = _sharded_machine(
+        guard, guard=guard, d=d, k=k, mesh=mesh, dev=dev,
+        prefetch=prefetch, strategy=strategy,
+        shapes=_ShardedFuzzyAcc((k_per, d), (k_per,), ()), local=local,
+        dtype=dtype, block_rows=int(block_rows), champions=False, plan=plan)
     c_loc, n_iter, start_iter, shift, history, final = _sharded_stream_loop(
-        machine, ckpt, state, c_loc,
+        machine, ring, ckpt, state, c_loc,
         lambda acc, c: acc.wsums / torch.clamp_min(acc.weights[:, None],
                                                    1e-12),
         mesh=mesh, max_iters=max_iters, tol=tol, ckpt_every=ckpt_every,
-        ckpt_every_batches=ckpt_every_batches, cost=lambda acc: acc.obj)
+        ckpt_every_batches=ckpt_every_batches, cost=lambda acc: acc.obj,
+        plan=plan, builder=builder, label=label)
     return FuzzyCMeansResult(
         centroids=_whole_centroids(c_loc, mesh), n_iter=n_iter,
         objective=final.obj,
         shift=torch.tensor(shift, dtype=torch.float32, device=dev),
         converged=bool(tol >= 0 and shift <= tol),
         history=_history_array(history), n_iter_run=n_iter - start_iter,
-        comms=machine.report(), ingest=guard.report())
+        comms=machine.report(),
+        h2d=None if h2d is None else h2d.report(plan.spill_slots),
+        ingest=guard.report())
+
+
+def _gmm_stream_sample(batches, d: int, device, rows: int = 65536):
+    """The stream's first ≤ `rows` rows in f32 on `device`, read across
+    as many batches as that takes: the prefix the in-memory tower seeds
+    from, so the two fits follow the same trajectory. Each batch is
+    copied as it is read (a stream may reuse its buffer between yields).
+    Returns (the rows, the first batch's row count)."""
+    from tdc_tpu_torch.models.streaming import _batch_rows, _host_rows
+
+    chunks, got, first_rows = [], 0, None
+    for b in batches():
+        if first_rows is None:
+            first_rows = _batch_rows(b)
+        chunks.append(torch.as_tensor(_host_rows(b)).to(
+            device, torch.float32, copy=True))
+        got += chunks[-1].shape[0]
+        if got >= rows:
+            break
+    sample = torch.cat(chunks)[:rows]
+    if sample.ndim != 2 or sample.shape[1] != d:
+        raise ValueError(
+            f"the stream's rows are {tuple(sample.shape[1:])}-wide, "
+            f"expected ({d},)")
+    return sample, first_rows
+
+
+class _GMMCheckpoints:
+    """The streamed K-sharded GMM fit's per-iteration checkpoints, in the
+    JAX package's meta (model='gmm_sharded', k, d, reg, shard_model,
+    variances, weights, ll, converged, final_ll) with the layout
+    manifest. A save writes the whole (K, d) state: the ranks of rank
+    0's model row gather their shards over the model axis (the
+    `_GatheringCheckpointer` rule) and rank 0 writes. A restore checks
+    k, d, reg_covar and the model axis, in the JAX words, and slices this
+    rank's K/P rows out."""
+
+    def __init__(self, ckpt_dir, k: int, d: int, reg: float, mesh: Mesh,
+                 device):
+        from tdc_tpu_torch.models.streaming import _is_gang
+
+        self.dir, self.k, self.d, self.reg = ckpt_dir, k, d, reg
+        self.mesh, self.device = mesh, device
+        self.gang = _is_gang(mesh)
+
+    def restore(self):
+        """None, or (start_iter, prev_ll, final_ll or None, converged,
+        this rank's (means, variances, weights))."""
+        from tdc_tpu_torch.utils import checkpoint as ckpt_lib
+
+        if self.dir is None:
+            return None
+        saved = ckpt_lib.restore_checkpoint(self.dir)
+        if self.gang:
+            from tdc_tpu_torch.parallel.mesh import check_same_on_every_rank
+
+            check_same_on_every_rank(
+                torch.tensor([-1.0 if saved is None else saved.n_iter],
+                             dtype=torch.float64, device=self.device),
+                what="checkpoint steps restored")
+        if saved is None:
+            return None
+        meta = saved.meta
+        if meta.get("model") != "gmm_sharded":
+            raise ValueError(f"checkpoint in {self.dir} is not a K-sharded "
+                             "GMM checkpoint")
+        n_model = self.mesh.axis_size(MODEL_AXIS)
+        if (int(meta.get("k")) != self.k or int(meta.get("d")) != self.d
+                or float(meta.get("reg")) != self.reg
+                or int(meta.get("shard_model")) != n_model):
+            raise ValueError(
+                f"checkpoint in {self.dir} was written with "
+                f"k={meta.get('k')}, d={meta.get('d')}, "
+                f"reg_covar={meta.get('reg')}, "
+                f"shard_model={meta.get('shard_model')} — refusing to mix "
+                "state")
+        params = [torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
+                  for a in (saved.centroids, meta["variances"],
+                            meta["weights"])]
+        final_ll = meta.get("final_ll")
+        return (int(saved.n_iter), float(meta.get("ll", -float("inf"))),
+                None if final_ll is None else float(np.asarray(final_ll)),
+                bool(np.asarray(meta.get("converged", False))),
+                _model_rows(self.mesh, *params))
+
+    def save(self, n_iter, params, ll, done, final_ll=None) -> None:
+        from tdc_tpu_torch.parallel import reshard as reshard_lib
+        from tdc_tpu_torch.utils import checkpoint as ckpt_lib
+
+        if self.mesh.axis_index(DATA_AXIS) == 0:
+            means, var, w = (_whole_centroids(t, self.mesh) for t in params)
+        else:  # placeholders: only rank 0 writes
+            means = var = w = torch.zeros(0)
+        meta = {"model": "gmm_sharded", "k": self.k, "d": self.d,
+                "reg": self.reg,
+                "shard_model": self.mesh.axis_size(MODEL_AXIS),
+                "variances": var, "weights": w, "ll": float(ll),
+                "converged": bool(done),
+                **reshard_lib.layout_meta(self.mesh)}
+        if final_ll is not None:
+            meta["final_ll"] = float(final_ll)
+        ckpt_lib.save_checkpoint(
+            self.dir, ckpt_lib.ClusterState(
+                centroids=means, n_iter=n_iter, key=None, batch_cursor=0,
+                meta=meta), step=n_iter, gang=self.gang)
+
+
+def streamed_gmm_fit_sharded(
+    batches,
+    k: int,
+    d: int,
+    mesh: Mesh,
+    *,
+    init="kmeans++",
+    generator: torch.Generator | None = None,
+    max_iters: int = 100,
+    tol: float = 1e-3,
+    reg_covar: float = 1e-6,
+    block_rows: int = 0,
+    prefetch: int = 0,
+    dtype=None,
+    ckpt_dir: str | None = None,
+    ckpt_every: int = 5,
+    device=None,
+):
+    """Exact out-of-core diag-covariance GMM EM under the (data, model)
+    grid: each batch's K-sharded E-step sums (ll, Σr, Σr·x, Σr·x²; the
+    `gmm_fit_sharded` tower, block_rows rows at a time, the last block
+    shorter) accumulate over the pass, reduced over the data axis per
+    batch; the M-step is the shared `models/gmm._m_step` of the totals.
+    Each rank copies its data coordinate's rows of every batch,
+    unpadded, cast to `dtype` on the host (the E-step stays f32). The
+    stream is the streamed fits' zero-arg callable, the same on every
+    rank, and is not guarded (as the JAX tower's): a non-finite batch
+    ends the fit. The heartbeat marks every batch.
+
+    Seeding is `gmm_fit_sharded`'s on the stream's first ≤ 65,536 rows,
+    read across as many batches as that takes (the in-memory tower's
+    prefix); init='kmeans' raises in the JAX words. The loop stops as
+    the in-memory tower's; one more pass scores the returned parameters
+    (log_likelihood).
+
+    ckpt_dir: a checkpoint every `ckpt_every` iterations, at convergence
+    and at the last (`_GMMCheckpoints`: the JAX `state.npz` meta,
+    gathered to rank 0); a restore on another model axis, k, d or
+    reg_covar raises. Iteration-granular: an interrupted pass runs
+    again. Resuming a finished checkpoint reuses its final_ll without a
+    pass. Returns a GMMResult with the whole (K, d) means and variances
+    and the (K,) weights on every rank, n_iter_run and `comms`."""
+    from tdc_tpu_torch.models.gmm import GMMResult, _m_step
+    from tdc_tpu_torch.models.streaming import (
+        _batch_rows,
+        _check_equal_local_rows,
+    )
+
+    label = "streamed_gmm_fit_sharded"
+    n_model = mesh.axis_size(MODEL_AXIS)
+    _refuse_gmm(label, k, n_model, init)
+    dev = resolve_device(device)
+    reg = float(reg_covar)
+    ckpt = _GMMCheckpoints(ckpt_dir, k, d, reg, mesh, dev)
+    restored = ckpt.restore()
+    start_iter, prev_ll, saved_final_ll, resume_converged = (
+        0, -float("inf"), None, False)
+    if restored is not None:
+        (start_iter, prev_ll, saved_final_ll, resume_converged,
+         params) = restored
+        first_rows = _batch_rows(next(iter(batches())))
+    else:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        sample, first_rows = _gmm_stream_sample(batches, d, dev)
+        params = _model_rows(mesh, *_gmm_start(sample, k, init, generator,
+                                               mesh, reg))
+        del sample
+    _check_equal_local_rows(first_rows, mesh, dev)
+    block_rows, k_per = int(block_rows), k // n_model
+    strategy = reduce_lib.resolve_reduce("per_batch")
+
+    def local(xb, wb, params):
+        return _gmm_partials(mesh, xb, *params, block_rows, ragged=True)
+
+    machine, ring, _ = _sharded_machine(
+        batches, guard=None, d=d, k=k, mesh=mesh, dev=dev,
+        prefetch=prefetch, strategy=strategy,
+        shapes=_ShardedGMMAcc((), (k_per,), (k_per, d), (k_per, d)),
+        local=local, dtype=dtype, block_rows=block_rows, champions=False)
+    total = _model_sum(mesh)
+    ll, n_iter, converged = prev_ll, start_iter, resume_converged
+    for n_iter in (() if resume_converged
+                   else range(start_iter + 1, int(max_iters) + 1)):
+        acc, rows = machine.run(params)
+        ll = float(acc.ll / rows)
+        params = _m_step(acc.nk, acc.sx, acc.sxx, rows, reg, total)
+        done = n_iter > 1 and ll - prev_ll <= tol
+        if ckpt_dir is not None and (done or n_iter % ckpt_every == 0
+                                     or n_iter == max_iters):
+            ckpt.save(n_iter, params, ll, done)
+        if done:
+            converged = True
+            break
+        prev_ll = ll
+    if (resume_converged or start_iter >= max_iters) \
+            and saved_final_ll is not None:
+        final_ll = saved_final_ll  # the finished run's scoring pass
+    else:
+        # The log-likelihood of the RETURNED parameters.
+        acc, rows = machine.run(params)
+        final_ll = float(acc.ll) / max(rows, 1)
+        if ckpt_dir is not None and (converged or n_iter >= max_iters):
+            ckpt.save(n_iter, params, ll, converged, final_ll=final_ll)
+    means, var, w = (_whole_centroids(t, mesh) for t in params)
+    return GMMResult(
+        means=means, variances=var, weights=w, n_iter=n_iter,
+        log_likelihood=torch.tensor(final_ll, dtype=torch.float32,
+                                    device=dev),
+        converged=converged, n_iter_run=n_iter - start_iter,
+        covariance_type="diag", comms=machine.report())

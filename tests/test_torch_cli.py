@@ -26,6 +26,8 @@ import pytest
 
 from tdc_tpu.cli import main as jcli
 from tdc_tpu_torch.cli import main as tcli
+from tdc_tpu_torch.parallel import sharded_k as tsk
+from tdc_tpu_torch.parallel.mesh import Mesh
 
 FLAGS = ["--method_name=distributedKMeans", "--K=40", "--init=first_k",
          "--tol=-1", "--kernel=pallas", "--n_max_iters=5", "--seed=7"]
@@ -219,18 +221,6 @@ def test_cli_default_device_fails_without_a_card(npz, tmp_path, capsys):
     row = _row(log)
     assert row["status"] == "error:RuntimeError"
     assert "CUDA" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("flags", [
-    # --shard_k runs distributedKMeans and distributedFuzzyCMeans; the
-    # K-sharded GMM tower is still to port.
-    ["--shard_k=2", "--method_name=gaussianMixture"],
-])
-def test_cli_unported_flags_name_the_roadmap(npz, flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        tcli.main(["--K=4", f"--data_file={npz}", *flags])
-    assert exc.value.code == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
 
 
 def _pin_kmeanspp(monkeypatch):
@@ -486,6 +476,11 @@ def test_cli_rows_agree_on_two_ranks(npz, tmp_path):
 SHARD_XLA = ["--method_name=distributedKMeans", "--K=40", "--init=first_k",
              "--tol=-1", "--kernel=xla", "--n_max_iters=5", "--seed=7",
              "--shard_k=2"]
+# K=8: at K=40 first_k seeds a singleton component whose variance sits
+# at the reg_covar floor, where E[x²] − μ² cancels (ROADMAP.md, "Not
+# faults").
+SHARD_GMM = ["--method_name=gaussianMixture", "--covariance_type=diag",
+             *[a.replace("--K=40", "--K=8") for a in SHARD_XLA[1:]]]
 SHARDED_RUNS = {
     # distributedKMeans always runs the streamed K-sharded tower: in
     # memory as one batch, and on 3 batches.
@@ -495,6 +490,12 @@ SHARDED_RUNS = {
     "fuzzy_ckpt": [*FUZZY_FLAGS, "--shard_k=2", "CKPT"],
     "block_explicit": [*SHARD_XLA, "--num_batches=3", "--block_rows=256"],
     "block_auto": [*SHARD_XLA, "--num_batches=3"],
+    # The K-sharded GMM tower, in memory and on 3 batches (no kernel).
+    "gmm": SHARD_GMM,
+    "gmm_batches": [*SHARD_GMM, "--num_batches=3"],
+    # The cache, replicated across the model axis: the stream's row.
+    "kmeans_hbm": [*FLAGS, "--shard_k=2", "--num_batches=3",
+                   "--residency=hbm"],
 }
 
 
@@ -528,12 +529,61 @@ def test_cli_sharded_rows_agree_on_two_ranks(npz, tmp_path):
                                    rtol=1e-5, err_msg=name)
         for col in set(j) - TIMING - {"sse"}:
             assert t[col] == j[col], (name, col)
+    # --residency=hbm with --shard_k: the streamed tower's row, bitwise.
+    hbm, stream = _row(logs["kmeans_hbm"]), _row(logs["kmeans_batches"])
+    assert (hbm["sse"], hbm["n_iter"]) == (stream["sse"], stream["n_iter"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--kernel=pallas"],
+    ["--history_file=h.csv"],
+    ["--init=kmeans"],
+    ["--covariance_type=full"],
+    ["--gather=int8"],
+])
+def test_cli_sharded_gmm_refusals_in_the_jax_words(npz, flags, capsys):
+    """--shard_k=2 gaussianMixture: the JAX CLI's parse-time words."""
+    words = []
+    for cli in (jcli, tcli):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(["--method_name=gaussianMixture", "--K=4",
+                      "--shard_k=2", f"--data_file={npz}", *flags])
+        assert exc.value.code == 2
+        words.append(capsys.readouterr().err.rsplit("error: ", 1)[-1])
+    assert words[0] == words[1]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--reduce=per_pass", "--num_batches=2"],
+    ["--residency=hbm", "--num_batches=2"],
+    ["--method_name=distributedKMeans", "--residency=hbm",
+     "--num_batches=2", "--ckpt_dir=ck", "--ckpt_every_batches=1"],
+])
+def test_cli_sharded_run_refusals_in_the_jax_words(npz, flags, tmp_path,
+                                                   monkeypatch):
+    """The refusals the JAX CLI raises once the fit starts: no strategy
+    and no resident loop for the K-sharded GMM tower, no mid-pass save
+    under 'hbm'."""
+    monkeypatch.chdir(tmp_path)
+    words = []
+    base = ["--method_name=gaussianMixture", "--K=4", "--shard_k=2",
+            "--n_GPUs=2", f"--data_file={npz}"]
+    # The port's grid in this one process: its (1, 2) shape without a
+    # launch (the refusals come before any collective).
+    monkeypatch.setattr(tcli, "_validate_devices", lambda parser, args: None)
+    monkeypatch.setattr(tsk, "make_mesh_2d", lambda n_data, n_model: Mesh(
+        (n_data, n_model), (tsk.DATA_AXIS, tsk.MODEL_AXIS), (0, 0),
+        (None, None)))
+    for cli, extra in ((jcli, ["--cache_dir="]), (tcli, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as exc:
+            cli.main([*base, *flags, *extra])
+        words.append(str(exc.value))
+    assert words[0] == words[1]
 
 
 @pytest.mark.parametrize("flags, words", [
     (["--shard_k=2", "--kernel=pallas_bf16"],
      "--kernel=pallas_bf16 is single-shard"),
-    (["--shard_k=2", "--method_name=gaussianMixture"], "A9"),
     (["--shard_k=3", "--method_name=distributedFuzzyCMeans"],
      "not divisible by --shard_k=3"),
     (["--n_GPUs=2"], "torchrun --nproc_per_node=2"),
@@ -599,17 +649,6 @@ def test_cli_residency_refusals_in_the_jax_words(npz, flags, tmp_path,
         words.append(str(exc.value))
     assert words[0] == words[1]
     assert "--residency" in words[1]
-
-
-def test_cli_residency_with_shard_k_names_a9(npz, tmp_path, capsys):
-    log = tmp_path / "log.csv"
-    assert tcli.main(["--method_name=distributedFuzzyCMeans", "--K=4",
-                      "--shard_k=2", "--residency=hbm",
-                      f"--data_file={npz}", f"--log_file={log}",
-                      "--device", "cpu"]) == 1
-    err = capsys.readouterr().err
-    assert "NotImplementedError" in err and "Queue A, A9" in err
-    assert _row(log)["status"] == "error:NotImplementedError"
 
 
 def test_cli_residency_caps_the_batch_rows(npz, tmp_path, monkeypatch):

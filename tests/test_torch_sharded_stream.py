@@ -59,6 +59,7 @@ CK_ROWS = 400  # the checkpoint runs: 4 batches a pass
 GRIDS = {2: (1, 2), 4: (2, 2)}
 MAX_ITERS, TOL = 10, 1e-4
 NEAR_TIE = 1e-4
+RESIDENCY = ("hbm", "spill", "auto")
 
 KMEANS_CASES = {
     "per_batch_xla": {},
@@ -104,7 +105,7 @@ def _out(res, cost: str) -> dict:
             "n_iter": int(res.n_iter), "converged": bool(res.converged),
             "cost": float(getattr(res, cost)),
             "history": np.asarray(res.history),
-            "comms": tuple(res.comms), "n_iter_run": res.n_iter_run}
+            "comms": res.comms._asdict(), "n_iter_run": res.n_iter_run}
 
 
 def _fits(mesh, x, init) -> dict:
@@ -136,6 +137,26 @@ def _fits(mesh, x, init) -> dict:
         out["quarantine", name, reduce] = (
             torch.equal(q.centroids, ref.centroids),
             q.ingest.quarantined_batches, q.ingest.quarantined_rows)
+    # Residency: each mode of both towers against its 'stream' twin above.
+    for (tower, case), fit, cost in (
+            (("kmeans", "per_batch_pallas"), tsk.streamed_kmeans_fit_sharded,
+             "sse"),
+            (("kmeans", "per_pass_xla"), tsk.streamed_kmeans_fit_sharded,
+             "sse"),
+            (("fuzzy", "per_batch_pallas"), tsk.streamed_fuzzy_fit_sharded,
+             "objective"),
+            (("fuzzy", "per_pass_xla"), tsk.streamed_fuzzy_fit_sharded,
+             "objective")):
+        kw = _kw((KMEANS_CASES if tower == "kmeans" else FUZZY_CASES)[case],
+                 "port")
+        for mode in RESIDENCY:
+            res = fit(tload.NpzStream(x, ROWS), K, D, mesh, init=init,
+                      max_iters=MAX_ITERS, tol=TOL, device="cpu",
+                      residency=mode, **kw)
+            # The ring's staging count runs ahead by its own timing.
+            out["residency", tower, case, mode] = (
+                _out(res, cost), None if res.h2d is None
+                else res.h2d.batches > 0)
     # One batch under per_batch: the in-memory towers' bits.
     for kern in ("xla", "pallas"):
         a = tsk.streamed_kmeans_fit_sharded(
@@ -155,6 +176,95 @@ def _fits(mesh, x, init) -> dict:
         out["one_batch", "fuzzy", kern] = (
             torch.equal(a.centroids, b.centroids),
             float(a.objective), float(b.objective))
+    return out
+
+
+class _OnePass:
+    """NpzStream whose iteration raises once the explicit init's read and
+    one full pass are done: an 'hbm' fit must never read it again. It
+    iterates only (no ranged `read_batch` for the ingest guard), so every
+    read passes __call__."""
+
+    def __init__(self, x, rows):
+        self.inner = tload.NpzStream(x, rows)
+        self.calls = 0
+
+    def __getattr__(self, name):
+        if name == "read_batch":
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    def __call__(self):
+        self.calls += 1
+        if self.calls > 2:
+            raise AssertionError("the stream was read after the fill pass")
+        return self.inner()
+
+
+def _residency_checks(mesh, x, init, d) -> dict:
+    """'hbm' over a stream that raises when read after pass 1; model rank
+    1 unable to fill (the gang streams, bitwise); an 'hbm' fit killed in
+    its 3rd cached pass (iteration 4) and resumed from its per-iteration
+    save: bitwise the uninterrupted 'stream' fit."""
+    import unittest.mock as mock
+
+    from tdc_tpu_torch.data import device_cache as cache_lib
+    from tdc_tpu_torch.models import streaming as tst
+
+    out = {}
+    kw = dict(init=init, max_iters=5, tol=-1.0, kernel="pallas",
+              device="cpu")
+    for name, fit in (("kmeans", tsk.streamed_kmeans_fit_sharded),
+                      ("fuzzy", tsk.streamed_fuzzy_fit_sharded)):
+        ref = fit(tload.NpzStream(x, ROWS), K, D, mesh, **kw)
+        stream = _OnePass(x, ROWS)
+        res = fit(stream, K, D, mesh, residency="hbm", **kw)
+        out["one_pass", name] = (stream.calls, torch.equal(res.centroids,
+                                                           ref.centroids))
+        events = []
+        real_add = cache_lib.DeviceCacheBuilder.add
+
+        def add(self, xb, n_valid, wb=None):
+            if mesh.axis_index(tsk.MODEL_AXIS) == 1:
+                self.abandon("hbm_oom_during_fill")
+                return
+            real_add(self, xb, n_valid, wb)
+
+        record = (lambda event, **f: events.append((event, f.get("reason"))))
+        with mock.patch.object(cache_lib.DeviceCacheBuilder, "add", add), \
+                mock.patch.object(cache_lib, "emit", record), \
+                mock.patch.object(tst, "emit", record):
+            res = fit(tload.NpzStream(x, ROWS), K, D, mesh, residency="hbm",
+                      **kw)
+        out["abandoned", name] = (
+            torch.equal(res.centroids, ref.centroids),
+            [e for e in events if e[0] == "residency_cache_abandoned"])
+    ref = tsk.streamed_kmeans_fit_sharded(tload.NpzStream(x, ROWS), K, D,
+                                          mesh, **kw)
+    real_cached = tst._Pass.run_cached
+    calls = []
+
+    def crashing(self, params, cache):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("injected crash")
+        return real_cached(self, params, cache)
+
+    crash = ""
+    with mock.patch.object(tst._Pass, "run_cached", crashing):
+        try:
+            tsk.streamed_kmeans_fit_sharded(
+                tload.NpzStream(x, ROWS), K, D, mesh, residency="hbm",
+                ckpt_dir=d, ckpt_every=1, **kw)
+        except RuntimeError as e:
+            crash = str(e)
+    saved = tck.restore_checkpoint(d).n_iter
+    res = tsk.streamed_kmeans_fit_sharded(
+        tload.NpzStream(x, ROWS), K, D, mesh, residency="hbm", ckpt_dir=d,
+        ckpt_every=1, **kw)
+    out["hbm_kill"] = (crash, saved, res.n_iter_run,
+                       torch.equal(res.centroids, ref.centroids),
+                       float(res.sse) == float(ref.sse))
     return out
 
 
@@ -220,7 +330,10 @@ def _ckpt_job(tmp, x, init) -> dict:
 
 def _job(world, tmp):
     x, init = _data()
-    out = _fits(tsk.make_mesh_2d(*GRIDS[world]), x, init)
+    mesh = tsk.make_mesh_2d(*GRIDS[world])
+    out = _fits(mesh, x, init)
+    out.update(_residency_checks(mesh, x, init,
+                                 os.path.join(tmp, f"hbm_kill_{world}")))
     if world == 2:
         out.update(_ckpt_job(tmp, x, init))
     return out
@@ -280,7 +393,7 @@ def test_streamed_kmeans_fit_sharded_against_the_jax_tower(groups, world,
                                np.asarray(j.history)[:, 0], rtol=RTOL,
                                atol=cost_atol)
     assert _far_label_flips(xs, got["centroids"], j.centroids) == 0
-    assert got["comms"] == tuple(j.comms)
+    assert tuple(got["comms"].values()) == tuple(j.comms)
 
 
 @pytest.mark.parametrize("case", list(FUZZY_CASES))
@@ -302,7 +415,7 @@ def test_streamed_fuzzy_fit_sharded_against_the_jax_tower(groups, world,
                                np.asarray(j.history)[:, 0], rtol=RTOL,
                                atol=1e-5 * _sum_sq(x))
     assert _far_label_flips(x, got["centroids"], j.centroids) == 0
-    assert got["comms"] == tuple(j.comms)
+    assert tuple(got["comms"].values()) == tuple(j.comms)
 
 
 @pytest.mark.parametrize("kern", ["xla", "pallas"])
@@ -323,6 +436,122 @@ def test_one_batch_is_the_in_memory_tower(groups, world, kern):
                                             ("one_batch", "fuzzy", kern))
     assert same
     np.testing.assert_allclose(obj_a, obj_b, rtol=RTOL)
+
+
+@pytest.mark.parametrize("mode", RESIDENCY)
+@pytest.mark.parametrize("tower, case", [("kmeans", "per_batch_pallas"),
+                                         ("kmeans", "per_pass_xla"),
+                                         ("fuzzy", "per_batch_pallas"),
+                                         ("fuzzy", "per_pass_xla")])
+@pytest.mark.parametrize("world", [2, 4])
+def test_residency_is_bitwise_the_stream(groups, world, tower, case, mode):
+    """'hbm' (the cache, iterations 2..N over it), 'spill' (the pinned
+    ring) and 'auto' (the CPU's 16 GiB budget holds the cache) on every
+    rank: the centroids, cost, history, n_iter, passes and the data-axis
+    reduces of 'stream'. The ring also books the champion exchange as
+    'stream'; a cached pass books none, as the JAX tower."""
+    got, staged = same_on_every_rank(groups[world],
+                                     ("residency", tower, case, mode))
+    want = same_on_every_rank(groups[world], (tower, case))
+    for key in ("centroids", "cost", "history", "n_iter", "converged"):
+        np.testing.assert_array_equal(got[key], want[key])
+    fields = ("strategy", "reduces", "passes", "data_bytes")
+    assert ([got["comms"][f] for f in fields]
+            == [want["comms"][f] for f in fields])
+    if mode == "spill":
+        assert got["comms"] == want["comms"]
+        assert staged is True
+    else:
+        assert staged is None
+
+
+@pytest.mark.parametrize("tower", ["kmeans", "fuzzy"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_hbm_reads_the_stream_once(groups, world, tower):
+    """The explicit init's read and the fill pass, nothing after."""
+    calls, same = same_on_every_rank(groups[world], ("one_pass", tower))
+    assert calls == 2 and same
+
+
+@pytest.mark.parametrize("tower", ["kmeans", "fuzzy"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_a_rank_that_cannot_fill_makes_the_gang_stream(groups, world,
+                                                       tower):
+    """Model rank 1 abandons its fill: it says why, every other rank says
+    another rank abandoned, and every rank streams: bitwise the 'stream'
+    fit."""
+    n_model = GRIDS[world][1]
+    for rank, out in enumerate(groups[world]):
+        same, events = out["abandoned", tower]
+        reason = ("hbm_oom_during_fill" if rank % n_model == 1
+                  else "abandoned_on_another_rank")
+        assert same and events == [("residency_cache_abandoned", reason)]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_killed_hbm_fit_resumes_bitwise(groups, world):
+    crash, saved, n_run, same, same_sse = same_on_every_rank(groups[world],
+                                                             "hbm_kill")
+    assert crash == "injected crash"
+    assert saved == 3 and n_run == 2 and same and same_sse
+
+
+@pytest.mark.parametrize("requested, budget", [("auto", "all"),
+                                               ("auto", "ring_only"),
+                                               ("hbm", "none"),
+                                               ("spill", "all")])
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+@pytest.mark.parametrize("grid, block_rows", [((2, 2), 0), ((2, 4), 64),
+                                               ((1, 2), 0)])
+def test_sharded_plan_against_jax(grid, block_rows, dtype, requested, budget,
+                                  monkeypatch):
+    """`_plan_sharded_residency` against the JAX package's on the same
+    hints: the cache is replicated across the model axis, so each rank
+    budgets its data coordinate's rows (N / n_data of them, padded as the
+    JAX towers pad), at the host cast's itemsize."""
+    from tdc_tpu.data import device_cache as jdc
+    from tdc_tpu.parallel.meshspec import MeshSpec
+    from tdc_tpu_torch.data import device_cache as tdc
+    from tdc_tpu_torch.parallel.mesh import Mesh
+
+    x, _ = _data()
+    rows = 100  # 16 batches: a cache well past the 3-slot ring
+    jmesh = jsk.make_mesh_2d(*grid)
+    tmesh = Mesh(grid, (tsk.DATA_AXIS, tsk.MODEL_AXIS), (0, 0), (None, None))
+    jdtype, tdtype = ((jnp.bfloat16, torch.bfloat16) if dtype
+                      else (None, None))
+
+    def plans(nbytes, requested=requested):
+        monkeypatch.setattr(jdc, "hbm_budget_bytes", lambda device=None:
+                            nbytes)
+        monkeypatch.setattr(tdc, "planner_budget_bytes", lambda device=None:
+                            nbytes)
+        jp = jsk._plan_sharded_residency(
+            requested, jload.NpzStream(x, rows), K, D, MeshSpec.of(jmesh),
+            pad_multiple=grid[0] * max(block_rows, 1), kernel="xla",
+            dtype=jdtype, cursor=0, label="t")[0]
+        tp = tsk._plan_sharded_residency(
+            requested, tload.NpzStream(x, rows), K, D, tmesh,
+            block_rows=block_rows, kernel="xla", dtype=tdtype, cursor=0,
+            label="t", mid_pass_ckpt=False, device="cpu")[0]
+        return jp, tp
+
+    if budget == "ring_only":  # between the two models' ring and cache
+        (js, ts), (jh, th) = plans(1 << 40, "spill"), plans(1 << 40, "hbm")
+        nbytes = max(js.spill_bytes + js.reserve_bytes,
+                     ts.spill_bytes + ts.reserve_bytes)
+        assert nbytes < min(jh.resident_bytes + jh.reserve_bytes,
+                            th.resident_bytes + th.reserve_bytes)
+    else:
+        nbytes = {"none": 10, "all": 1 << 40}[budget]
+    jp, tp = plans(nbytes)
+    assert (tp.mode, tp.reason) == (jp.mode, jp.reason)
+    assert (tp.resident_bytes, tp.spill_bytes, tp.spill_slots) == (
+        jp.resident_bytes, jp.spill_bytes, jp.spill_slots)
+    multiple = grid[0] * max(block_rows, 1)
+    padded = N // rows * (-(-rows // multiple) * multiple)
+    assert tp.resident_bytes == -(-padded // grid[0]) * D * (2 if dtype
+                                                             else 4)
 
 
 @pytest.mark.parametrize("key", [("kmeans", "per_batch"),
@@ -443,8 +672,6 @@ def test_port_sharded_save_resumes_in_jax(tower, tmp_path):
 @pytest.mark.parametrize("kw, error, words", [
     ({"gather": "int8"}, NotImplementedError,
      "Queue A, A9: parallel/gather.py"),
-    ({"residency": "hbm"}, NotImplementedError,
-     "Queue A, A9: the K-sharded towers' residency"),
     ({"reduce": "per_pass:int8"}, ValueError,
      "quantized stats reduce is wired for the 1-D streamed fits"),
     ({"residency": "disk"}, ValueError, "residency='disk'"),
@@ -475,7 +702,10 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works here")
     for fit in (tsk.streamed_kmeans_fit_sharded,
-                tsk.streamed_fuzzy_fit_sharded):
+                tsk.streamed_fuzzy_fit_sharded,
+                tsk.streamed_gmm_fit_sharded):
         with pytest.raises(RuntimeError, match="CUDA"):
             fit(tload.NpzStream(x, ROWS), K, D, tsk.make_mesh_2d(1, 1),
                 init=init)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsk.gmm_fit_sharded(x, K, tsk.make_mesh_2d(1, 1), init=init)
